@@ -1,0 +1,48 @@
+"""JAX-package parameters -> this port's state dicts.
+
+The port's module and parameter names mirror the flax tree, so the mapping
+is mechanical: a nested dict (as flax gives it, or as
+:func:`fairmultimodal_torch.utils.checkpoint.load_params_npz` reads an
+exported ``best_model_*.npz``) is flattened with ``.`` and each leaf renamed:
+
+- Dense ``kernel`` [in, out] -> ``weight`` [out, in] (transposed);
+- Embed ``embedding`` -> ``weight``;
+- LayerNorm ``scale`` -> ``weight`` (``bias`` stays ``bias``);
+- raw parameters (``pos_embedding``, ``sig_weights``) pass through.
+
+The same function serves ``FAMEModel`` and ``BertEncoderModel`` trees.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["state_dict_from_flax", "load_flax_params"]
+
+
+def state_dict_from_flax(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Nested flax parameter dict -> flat port state dict (fp32 tensors)."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in params.items():
+        if isinstance(val, Mapping):
+            out.update(state_dict_from_flax(val, f"{prefix}{key}."))
+            continue
+        arr = np.asarray(val, dtype=np.float32)
+        if key == "kernel":
+            out[prefix + "weight"] = torch.from_numpy(arr.T.copy())
+        elif key in ("embedding", "scale"):
+            out[prefix + "weight"] = torch.from_numpy(arr.copy())
+        else:
+            out[prefix + key] = torch.from_numpy(arr.copy())
+    return out
+
+
+def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
+    """Load a flax parameter tree into ``module`` (strict: every parameter
+    of the module must be present and nothing extra)."""
+    module.load_state_dict(state_dict_from_flax(params), strict=True)
+    return module

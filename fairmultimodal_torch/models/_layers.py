@@ -1,0 +1,55 @@
+"""Helpers shared by the port's modules: flax-style compute-dtype layers and
+the seeded random init.
+
+Parameters stay fp32 and are cast to the module's compute ``dtype`` at use,
+as flax's ``nn.Dense(dtype=...)`` / ``nn.Embed`` / ``nn.LayerNorm`` do, so a
+bf16 model computes in bf16 from fp32 weights exactly like the JAX one.
+LayerNorm statistics run in at least fp32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["linear", "layer_norm", "embed", "init_params"]
+
+
+def linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
+    acc = torch.promote_types(dtype, torch.float32)
+    return F.layer_norm(x.to(acc), ln.normalized_shape, ln.weight.to(acc),
+                        ln.bias.to(acc), ln.eps).to(dtype)
+
+
+def embed(ids: torch.Tensor, table: nn.Embedding, dtype: torch.dtype) -> torch.Tensor:
+    return F.embedding(ids.long(), table.weight).to(dtype)
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded random init in flax's families: Dense kernels normal with
+    std 1/sqrt(fan_in) and zero bias, embeddings normal with std
+    1/sqrt(features), LayerNorm ones/zeros, and the raw ``pos_embedding`` /
+    ``sig_weights`` parameters standard normal.  The values differ from the
+    JAX init (a different generator); parity tests carry the JAX weights
+    across with :mod:`fairmultimodal_torch.interop` instead."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, p in module.named_parameters():
+        owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
+        leaf = name.rsplit(".", 1)[-1]
+        if isinstance(owner, nn.LayerNorm):
+            p.fill_(1.0 if leaf == "weight" else 0.0)
+        elif isinstance(owner, nn.Linear) and leaf == "weight":
+            p.copy_(torch.randn(p.shape, generator=gen) * p.shape[1] ** -0.5)
+        elif isinstance(owner, nn.Embedding):
+            p.copy_(torch.randn(p.shape, generator=gen) * p.shape[1] ** -0.5)
+        elif leaf == "bias":
+            p.zero_()
+        else:
+            p.copy_(torch.randn(p.shape, generator=gen))
+    return module

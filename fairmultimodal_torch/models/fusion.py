@@ -1,0 +1,146 @@
+"""FAME fusion head and full model (port of ``fairmultimodal_tpu/models/fusion.py``).
+
+Dynamic EDDI weights enter as a [3, 3] (task x modality) tensor.  Reference
+quirk kept under ``reference_weight_compat`` (default True): the mortality
+row of the weights scales every task's fusion (10_FAME.py:283-285); False
+fuses each task with its own row through the shared trunk.  Outputs are in
+at least fp32 whatever the compute dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from fairmultimodal_torch.models._layers import linear
+from fairmultimodal_torch.models.behrt import BEHRTDemo, BEHRTLab
+
+__all__ = ["FAMEFusion", "FAMEModel"]
+
+
+def _out_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
+class _Projector(nn.Module):
+    """Linear(., 256) + ReLU modality projector (10_FAME.py:235-246)."""
+
+    def __init__(self, in_features: int, out: int = 256, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.dense = nn.Linear(in_features, out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(linear(x, self.dense, self.dtype))
+
+
+class FAMEFusion(nn.Module):
+    """Fusion over precomputed modality embeddings [B, H_m].
+
+    Returns ``fused_logits`` [B, 3], ``modality_logits`` (demo/lab/text),
+    ``sigmoid_weights`` [3*proj_dim], ``gated_vector`` and
+    ``fusion_pre_relu`` (the extraction artifacts of 10_FAME.py:559-604).
+    """
+
+    def __init__(self, demo_dim: int, lab_dim: int, text_dim: int,
+                 fusion_hidden: int = 512, proj_dim: int = 256, num_tasks: int = 3,
+                 reference_weight_compat: bool = True, dtype=torch.float32):
+        super().__init__()
+        p = proj_dim
+        self.num_tasks = num_tasks
+        self.reference_weight_compat = reference_weight_compat
+        self.dtype = dtype
+        self.demo_projector = _Projector(demo_dim, p, dtype)
+        self.lab_projector = _Projector(lab_dim, p, dtype)
+        self.text_projector = _Projector(text_dim, p, dtype)
+        self.sig_weights = nn.Parameter(torch.empty(3 * p))
+        nn.init.normal_(self.sig_weights)
+        self.fusion_dense1 = nn.Linear(3 * p, fusion_hidden)
+        self.fusion_dense2 = nn.Linear(fusion_hidden, num_tasks)
+        self.classifier_demo = nn.Linear(p, num_tasks)
+        self.classifier_lab = nn.Linear(p, num_tasks)
+        self.classifier_text = nn.Linear(p, num_tasks)
+        self.dropout = nn.Dropout(0.1)
+
+    def forward(self, demo_emb, lab_emb, text_emb,
+                dynamic_weights: Optional[torch.Tensor] = None) -> Dict[str, object]:
+        dt, T = self.dtype, self.num_tasks
+        demo_proj = self.demo_projector(demo_emb)
+        lab_proj = self.lab_projector(lab_emb)
+        text_proj = self.text_projector(text_emb)
+        if dynamic_weights is None:
+            w = torch.full((T, 3), 0.33, dtype=dt, device=demo_proj.device)
+        else:
+            w = dynamic_weights.to(device=demo_proj.device, dtype=dt)
+        sig = torch.sigmoid(self.sig_weights).to(dt)
+
+        if self.reference_weight_compat:
+            row = w[0]
+            fused = torch.cat([row[0] * demo_proj, row[1] * lab_proj, row[2] * text_proj],
+                              dim=-1)
+            gated = fused * sig
+            pre_relu = linear(gated, self.fusion_dense1, dt)
+            h = self.dropout(torch.relu(pre_relu))
+            fused_logits = linear(h, self.fusion_dense2, dt)
+        else:
+            projs = torch.stack([demo_proj, lab_proj, text_proj], dim=1)   # [B, 3, p]
+            scaled = w[None, :, :, None] * projs[:, None]                  # [B, T, 3, p]
+            gated_t = scaled.reshape(scaled.shape[0], T, -1) * sig         # [B, T, 3p]
+            pre_relu_t = linear(gated_t, self.fusion_dense1, dt)
+            out = linear(self.dropout(torch.relu(pre_relu_t)), self.fusion_dense2, dt)
+            fused_logits = torch.diagonal(out, dim1=1, dim2=2)             # [B, T]
+            gated = gated_t[:, 0]
+            pre_relu = pre_relu_t[:, 0]
+
+        od = _out_dtype(dt)
+        return {
+            "fused_logits": fused_logits.to(od),
+            "modality_logits": {
+                "demo": linear(demo_proj, self.classifier_demo, dt).to(od),
+                "lab": linear(lab_proj, self.classifier_lab, dt).to(od),
+                "text": linear(text_proj, self.classifier_text, dt).to(od),
+            },
+            "sigmoid_weights": torch.sigmoid(self.sig_weights),
+            "gated_vector": gated.to(od),
+            "fusion_pre_relu": pre_relu.to(od),
+        }
+
+
+class FAMEModel(nn.Module):
+    """BEHRT-Demo + BEHRT-Lab + precomputed text embedding + FAMEFusion
+    (10_FAME.py:226-313,774-785).  ``batch`` holds ``demo_dummy_ids``,
+    ``demo_attn_mask``, ``age_ids``, ``gender_ids``, ``ethnicity_ids``,
+    ``insurance_ids``, ``lab_features`` and ``text_embedding``."""
+
+    def __init__(self, num_ages: int, num_genders: int, num_ethnicities: int,
+                 num_insurances: int, lab_token_count: int, text_embed_size: int = 768,
+                 hidden_size: int = 768, demo_layers: int = 12, demo_heads: int = 12,
+                 lab_layers: int = 2, lab_heads: int = 8, fusion_hidden: int = 512,
+                 reference_weight_compat: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.num_ages = num_ages
+        self.num_genders = num_genders
+        self.num_ethnicities = num_ethnicities
+        self.num_insurances = num_insurances
+        self.lab_token_count = lab_token_count
+        self.text_embed_size = text_embed_size
+        self.dtype = dtype
+        self.behrt_demo = BEHRTDemo(
+            num_ages, num_genders, num_ethnicities, num_insurances,
+            hidden_size=hidden_size, num_hidden_layers=demo_layers,
+            num_attention_heads=demo_heads, dtype=dtype)
+        self.behrt_lab = BEHRTLab(lab_token_count, hidden_size, num_heads=lab_heads,
+                                  num_layers=lab_layers, dtype=dtype)
+        self.fusion = FAMEFusion(hidden_size, hidden_size, text_embed_size, fusion_hidden,
+                                 reference_weight_compat=reference_weight_compat,
+                                 dtype=dtype)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                dynamic_weights: Optional[torch.Tensor] = None) -> Dict[str, object]:
+        demo_emb = self.behrt_demo(batch["demo_dummy_ids"], batch["demo_attn_mask"],
+                                   batch["age_ids"], batch["gender_ids"],
+                                   batch["ethnicity_ids"], batch["insurance_ids"])
+        lab_emb = self.behrt_lab(batch["lab_features"])
+        return self.fusion(demo_emb, lab_emb, batch["text_embedding"], dynamic_weights)

@@ -1,0 +1,55 @@
+"""Device resolution and the shape gates of the CUDA kernel path.
+
+The JAX package routes a half-layer to its Pallas kernel when the backend
+is a TPU and the shapes fit the kernel (``fairmultimodal_tpu/ops/gates.py``
+plus the ``can_use_*`` functions).  Here "the tensor lies on a CUDA device"
+takes the place of "the backend is a TPU", and the shape rules are the same,
+so the port takes the kernel path on exactly the shapes the JAX package
+does: the lab encoder (S 560) and the 256 / 512 text buckets, never the S=1
+demo BERT or the 64 / 128 buckets.
+
+There is no environment switch.  On a CUDA tensor that passes a gate the
+wrapper launches its kernel or raises; on a CPU tensor the wrappers run
+their plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+__all__ = ["resolve_device", "can_use_fused_attention_block", "can_use_fused_ffn"]
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """``None`` means CUDA.  Raises when CUDA is asked for and absent: the
+    port never drops silently to the CPU; callers pass ``"cpu"`` for that."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU")
+    return dev
+
+
+def can_use_fused_attention_block(x: torch.Tensor, num_heads: int) -> bool:
+    """Attention half-layer kernel gate (``fused_attention_block.py:964``):
+    CUDA tensor, fp32/bf16, H % 128 == 0, d = H/heads <= 128,
+    256 <= S <= 1024 and S % 16 == 0."""
+    if not x.is_cuda or x.dtype not in _KERNEL_DTYPES:
+        return False
+    _, s, h = x.shape
+    if h % num_heads or h % 128:
+        return False
+    return 256 <= s <= 1024 and s % 16 == 0 and h // num_heads <= 128
+
+
+def can_use_fused_ffn(x: torch.Tensor, hdim: int, fdim: int) -> bool:
+    """FFN half-layer kernel gate (``fused_ffn.py:703``): CUDA tensor,
+    fp32/bf16, H and F multiples of 128."""
+    if not x.is_cuda or x.dtype not in _KERNEL_DTYPES:
+        return False
+    return hdim % 128 == 0 and fdim % 128 == 0
