@@ -16,7 +16,10 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    an ulp and carry through the residual and the LayerNorm); then timed with
    CUDA events (median of 10 after warm-up) beside the plain version, one
    PyTorch library composition of the same function (F.linear + SDPA +
-   layer_norm; never called by the port) and the card's bound;
+   layer_norm; never called by the port) and the card's bound, and each of
+   the half-layer's kernel launches timed alone the same way; one more
+   attention shape off the serving path (head dim 12, ragged S) is checked
+   for errors only, so every code path of the attention kernels runs;
 4. slice: the serving main path at full width -- a bf16 FAME model (demo
    BERT 12L/12H, lab encoder 2L/8H over 549 labs, H 768) and a BERT-base
    note encoder, seeded random weights, a 300-patient cohort whose notes hit
@@ -94,9 +97,8 @@ def attention_case(fab, B, S, H, nh, eps, mask_kind, dtype, gen):
     run = lambda: fab.fused_attention_block_ln_infer(*args, **kw)
     plain = lambda: fab.fused_attention_block_ln_reference(*args, **kw)
 
-    wqkv = torch.cat(w[0:6:2], dim=1).t().contiguous()
+    wqkv = torch.cat(w[0:6:2])
     bqkv = torch.cat(w[1:6:2])
-    wo_t = w[6].t().contiguous()
     bias = torch.where(mask > 0, 0.0, -1e9).to(dtype)[:, None, None, :]
     d = H // nh
 
@@ -104,13 +106,14 @@ def attention_case(fab, B, S, H, nh, eps, mask_kind, dtype, gen):
         qkv = torch.nn.functional.linear(x, wqkv, bqkv).view(B, S, 3, nh, d)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         o = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
-        y = torch.nn.functional.linear(o.transpose(1, 2).reshape(B, S, H), wo_t, w[7])
+        y = torch.nn.functional.linear(o.transpose(1, 2).reshape(B, S, H), w[6], w[7])
         return torch.nn.functional.layer_norm(x + y, (H,), gamma.to(dtype), beta.to(dtype),
                                               eps)
 
     flops = B * (8 * S * H * H + 4 * S * S * H)
     nbytes = 2 * B * S * H * x.element_size() + 4 * H * H * x.element_size() + B * S * 4
-    return run, plain, library, flops, nbytes
+    stages = lambda: fab.half_layer_stages(*args, **kw)[0]
+    return run, plain, library, stages, flops, nbytes
 
 
 def ffn_case(ffn, R, H, F, act, eps, dtype, gen):
@@ -118,24 +121,38 @@ def ffn_case(ffn, R, H, F, act, eps, dtype, gen):
         return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
 
     x = rn(R, H)
-    w1, b1, w2, b2 = rn(H, F, std=H ** -0.5), rn(F, std=0.02), rn(F, H, std=F ** -0.5), rn(H, std=0.02)
+    w1, b1, w2, b2 = rn(F, H, std=H ** -0.5), rn(F, std=0.02), rn(H, F, std=F ** -0.5), rn(H, std=0.02)
     gamma = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda"))
     beta = 0.1 * torch.randn(H, generator=gen, device="cuda")
     args = (x, w1, b1, w2, b2, gamma, beta)
     kw = dict(activation=act, ln_eps=eps)
     run = lambda: ffn.fused_ffn_ln_infer(*args, **kw)
     plain = lambda: ffn.fused_ffn_ln_reference(*args, **kw)
-    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
     fact = torch.relu if act == "relu" else torch.nn.functional.gelu
 
     def library():
-        y = torch.nn.functional.linear(fact(torch.nn.functional.linear(x, w1t, b1)), w2t, b2)
+        y = torch.nn.functional.linear(fact(torch.nn.functional.linear(x, w1, b1)), w2, b2)
         return torch.nn.functional.layer_norm(x + y, (H,), gamma.to(dtype), beta.to(dtype),
                                               eps)
 
     flops = 4 * R * H * F
     nbytes = 2 * R * H * x.element_size() + 2 * H * F * x.element_size()
-    return run, plain, library, flops, nbytes
+    stages = lambda: ffn.half_layer_stages(*args, **kw)[0]
+    return run, plain, library, stages, flops, nbytes
+
+
+def check_errors(name, label, dtype, run, plain):
+    """Max and mean abs error of the kernel against its plain version."""
+    out = run()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{name} {label} {dtype}: non-finite output")
+    err = (out.float() - plain().float()).abs()
+    max_err, mean_err = err.max().item(), err.mean().item()
+    if dtype == torch.float32 and max_err > FP32_TOL:
+        raise AssertionError(f"{name} {label} fp32: max abs err {max_err} > {FP32_TOL}")
+    if dtype == torch.bfloat16 and (max_err > BF16_MAX_TOL or mean_err > BF16_MEAN_TOL):
+        raise AssertionError(f"{name} {label} bf16: max {max_err} mean {mean_err}")
+    return max_err, mean_err
 
 
 def kernel_phase(fab, ffn):
@@ -158,31 +175,32 @@ def kernel_phase(fab, ffn):
         for dtype in (torch.float32, torch.bfloat16):
             make = attention_case if kind == "attn" else ffn_case
             mod = fab if kind == "attn" else ffn
-            run, plain, library, flops, nbytes = make(mod, **shape, dtype=dtype, gen=gen)
+            run, plain, library, stages, flops, nbytes = make(mod, **shape, dtype=dtype, gen=gen)
             with torch.inference_mode():
-                out = run()
-                if not torch.isfinite(out).all():
-                    raise AssertionError(f"{name} {label} {dtype}: non-finite output")
-                err = (out.float() - plain().float()).abs()
-                max_err, mean_err = err.max().item(), err.mean().item()
-                del out, err
                 tag = "fp32" if dtype == torch.float32 else "bf16"
-                row[f"max_abs_err_{tag}"] = max_err
-                row[f"mean_abs_err_{tag}"] = mean_err
-                if dtype == torch.float32 and max_err > FP32_TOL:
-                    raise AssertionError(f"{name} {label} fp32: max abs err {max_err} > {FP32_TOL}")
+                row[f"max_abs_err_{tag}"], row[f"mean_abs_err_{tag}"] = \
+                    check_errors(name, label, dtype, run, plain)
                 if dtype == torch.bfloat16:
-                    if max_err > BF16_MAX_TOL or mean_err > BF16_MEAN_TOL:
-                        raise AssertionError(f"{name} {label} bf16: max {max_err} mean {mean_err}")
                     row["ms"] = time_ms(run)
                     row["plain_ms"] = time_ms(plain)
                     row["library_ms"] = time_ms(library)
+                    row["stages_ms"] = {stage: time_ms(fn) for stage, fn in stages()}
                     row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
                     row["flops"], row["bytes"] = flops, nbytes
-            del run, plain, library
+            del run, plain, library, stages
             torch.cuda.empty_cache()
         log(f"[kernels] {json.dumps(row)}")
         results.append(row)
+
+    # Off the serving path: head dim 12 (element loads in the bf16 tile
+    # loader, DP 32) and S 200 (a ragged last key tile), errors only.
+    label = "B4 S200 64x12"
+    for dtype in (torch.float32, torch.bfloat16):
+        run, plain, *_ = attention_case(fab, B=4, S=200, H=768, nh=64, eps=1e-12,
+                                        mask_kind="text", dtype=dtype, gen=gen)
+        with torch.inference_mode():
+            errs = check_errors("fused_attention_block_ln", label, dtype, run, plain)
+        log(f"[kernels] fused_attention_block_ln {label} {dtype}: max/mean abs err {errs}")
     return results
 
 
@@ -358,7 +376,7 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": main["max_abs_err_bf16"],
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "shape": main["shape"], "dtype": "bfloat16",
+            "shape": main["shape"], "dtype": "bfloat16", "stages_ms": main["stages_ms"],
             "sources": ["fairmultimodal_torch/ops/csrc/gemm.cu",
                         "fairmultimodal_torch/ops/csrc/flash_attention.cu",
                         "fairmultimodal_torch/ops/csrc/add_layernorm.cu"]

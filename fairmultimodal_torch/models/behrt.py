@@ -57,7 +57,7 @@ class TorchEncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         dt, nh, eps = self.dtype, self.num_heads, self.layer_norm_eps
         b, s, h = x.shape
-        w = lambda lin: lin.weight.t().to(dt)   # JAX [in, out] layout
+        w = lambda lin: lin.weight.to(dt)
         bb = lambda lin: lin.bias.to(dt)
 
         if can_use_fused_attention_block(x, nh):

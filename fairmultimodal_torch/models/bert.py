@@ -97,7 +97,7 @@ class BertSelfAttention(nn.Module):
         b, s, h = hidden.shape
         x = hidden.to(dt)
         if not self.training and can_use_fused_attention_block(x, nh):
-            w = lambda lin: lin.weight.t().to(dt)   # JAX [in, out] layout
+            w = lambda lin: lin.weight.to(dt)
             bb = lambda lin: lin.bias.to(dt)
             return fused_attention_block_ln_infer(
                 x, w(self.query), bb(self.query), w(self.key), bb(self.key),
@@ -139,8 +139,8 @@ class BertLayer(nn.Module):
                 and can_use_fused_attention_block(x.to(dt), c.num_attention_heads)):
             b, s, _ = x.shape
             out = fused_ffn_ln_infer(
-                x.reshape(b * s, h).to(dt), self.intermediate.weight.t().to(dt),
-                self.intermediate.bias.to(dt), self.output.weight.t().to(dt),
+                x.reshape(b * s, h).to(dt), self.intermediate.weight.to(dt),
+                self.intermediate.bias.to(dt), self.output.weight.to(dt),
                 self.output.bias.to(dt), self.output_layer_norm.weight,
                 self.output_layer_norm.bias, activation="gelu", ln_eps=c.layer_norm_eps)
             return out.view(b, s, h)

@@ -8,10 +8,11 @@ compiler.  Libraries go to ``build/kernels/<hash>/`` at the repository root,
 keyed by a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once.
 
-Launch helpers take torch tensors, pass raw pointers and PyTorch's current
-stream, and raise :class:`KernelLaunchError` when the C entry returns a
-non-zero ``cudaGetLastError()`` (a refused launch never runs, and a later
-synchronise would not report it).
+Launch helpers take torch tensors, make the tensors' device current, pass
+raw pointers and that device's current stream, and raise
+:class:`KernelLaunchError` when the C entry returns a non-zero
+``cudaGetLastError()`` (a refused launch never runs, and a later synchronise
+would not report it).
 """
 
 from __future__ import annotations
@@ -168,9 +169,10 @@ def gemm_bias_act(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     code = _dtype_code(a)
     if out.dtype not in (a.dtype, torch.float32):
         raise TypeError(f"gemm: out must be {a.dtype} or float32, got {out.dtype}")
-    rc = kernels()["gemm.cu"].fm_gemm_bias_act(
-        a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k, code,
-        int(out.dtype == torch.float32), ACT_CODES[activation], _stream(a))
+    with torch.cuda.device(a.device):
+        rc = kernels()["gemm.cu"].fm_gemm_bias_act(
+            a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k, code,
+            int(out.dtype == torch.float32), ACT_CODES[activation], _stream(a))
     _check(rc, "fm_gemm_bias_act")
     return out
 
@@ -186,9 +188,10 @@ def flash_attn_fwd(qkv: torch.Tensor, mask: torch.Tensor, out: torch.Tensor,
     _require(qkv, "qkv", (b, s, h3), qkv.dtype, qkv.device)
     _require(mask, "mask", (b, s), torch.int32, qkv.device)
     _require(out, "out", (b, s, h), qkv.dtype, qkv.device)
-    rc = kernels()["flash_attention.cu"].fm_flash_attn_fwd(
-        qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), b, s, num_heads, d,
-        1.0 / (d ** 0.5), _dtype_code(qkv), _stream(qkv))
+    with torch.cuda.device(qkv.device):
+        rc = kernels()["flash_attention.cu"].fm_flash_attn_fwd(
+            qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), b, s, num_heads, d,
+            1.0 / (d ** 0.5), _dtype_code(qkv), _stream(qkv))
     _check(rc, "fm_flash_attn_fwd")
     return out
 
@@ -202,8 +205,9 @@ def add_layernorm(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor,
     _require(gamma, "gamma", (h,), torch.float32, x.device)
     _require(beta, "beta", (h,), torch.float32, x.device)
     _require(out, "out", (r, h), x.dtype, x.device)
-    rc = kernels()["add_layernorm.cu"].fm_add_layernorm(
-        x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-        r, h, float(eps), _dtype_code(x), _stream(x))
+    with torch.cuda.device(x.device):
+        rc = kernels()["add_layernorm.cu"].fm_add_layernorm(
+            x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+            r, h, float(eps), _dtype_code(x), _stream(x))
     _check(rc, "fm_add_layernorm")
     return out

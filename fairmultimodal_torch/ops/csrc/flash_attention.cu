@@ -20,16 +20,18 @@
 // offset h*d), so no head split/merge transposes exist.  The head dim is
 // padded with zeros to DP, a multiple of 32 (d 96 stays 96): the TPU
 // kernel's 96 -> 128 pad was Mosaic's 128-lane rule and buys nothing here.
-//   - bf16 with d % 8 == 0 (every serving shape): tensor cores through WMMA,
-//     in two passes over the keys.  Pass 1 computes the scores and the exact
-//     row max and sum; pass 2 recomputes the scores, forms the NORMALISED p,
-//     rounds it to bf16 and accumulates p.v in fp32 WMMA fragments -- the
-//     TPU kernel's rounding exactly, and no running rescale of the output
-//     fragments.  The price is a second q.k^T (1.5x the attention FLOPs).
+//   - bf16 (any d <= 128): tensor cores through WMMA, in two passes over
+//     the keys.  Pass 1 computes the scores and the exact row max and sum;
+//     pass 2 recomputes the scores, forms the NORMALISED p, rounds it to
+//     bf16 and accumulates p.v in fp32 WMMA fragments -- the TPU kernel's
+//     rounding exactly, and no running rescale of the output fragments.
+//     The price is a second q.k^T (1.5x the attention FLOPs).  Tiles load
+//     16 bytes at a time when d % 8 == 0 (every serving shape) and one
+//     element at a time otherwise.
 //   - fp32: CUDA cores, one pass with an online softmax (running max and
 //     sum); each thread owns 4 rows x 4 keys of a score tile and 4 rows x
-//     DP/16 output columns.  p is the unnormalised exp there, normalised
-//     once at the end.
+//     DP/16 output columns.  fp32 rounds nothing, so normalising once at
+//     the end differs from the TPU kernel only in summation order.
 //
 // Masking copies the TPU kernel exactly: -1e9 is added to the scaled score,
 // so a fully masked row (the pad rows of an encode batch) gets a finite,
@@ -58,10 +60,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * DP * TSTR + FA_BN * DP + FA_BM * PSTR + FA_BN);
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_attn_fwd_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
-                      T* __restrict__ out, int S, int nh, int d, float scale) {
+flash_attn_fwd_f32_kernel(const float* __restrict__ qkv, const int* __restrict__ mask,
+                          float* __restrict__ out, int S, int nh, int d, float scale) {
   static_assert(DP % 32 == 0 && DP <= 128, "head dim pad");
   constexpr int DC = DP / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -79,15 +81,15 @@ flash_attn_fwd_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
   const int b = blockIdx.z;
   const int H = nh * d;
   const size_t rs = 3 * (size_t)H;  // qkv row stride
-  const T* qb = qkv + (size_t)b * S * rs + (size_t)h * d;
-  const T* kb = qb + H;
-  const T* vb = qb + 2 * H;
+  const float* qb = qkv + (size_t)b * S * rs + (size_t)h * d;
+  const float* kb = qb + H;
+  const float* vb = qb + 2 * H;
   const int* mrow = mask + (size_t)b * S;
 
   for (int i = tid; i < FA_BM * DP; i += FA_THREADS) {
     const int row = i / DP, k = i % DP;
     float v = 0.0f;
-    if (q0 + row < S && k < d) v = fm::to_f32(qb[(size_t)(q0 + row) * rs + k]);
+    if (q0 + row < S && k < d) v = qb[(size_t)(q0 + row) * rs + k];
     Qt[k * TSTR + row] = v;
   }
 
@@ -106,8 +108,8 @@ flash_attn_fwd_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
       const int key = i / DP, k = i % DP;
       const bool ok = k0 + key < S && k < d;
       const size_t off = (size_t)(k0 + key) * rs + k;
-      Kt[k * TSTR + key] = ok ? fm::to_f32(kb[off]) : 0.0f;
-      Vs[key * DP + k] = ok ? fm::to_f32(vb[off]) : 0.0f;
+      Kt[k * TSTR + key] = ok ? kb[off] : 0.0f;
+      Vs[key * DP + k] = ok ? vb[off] : 0.0f;
     }
     for (int i = tid; i < FA_BN; i += FA_THREADS) {
       const int key = k0 + i;
@@ -151,7 +153,7 @@ flash_attn_fwd_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         l_i[i] += p;
-        Ps[(r * 4 + i) * PSTR + c + 16 * j] = fm::round_io<T>(p);
+        Ps[(r * 4 + i) * PSTR + c + 16 * j] = p;
       }
     }
     __syncthreads();
@@ -176,11 +178,11 @@ flash_attn_fwd_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
     const float l = fm::half_warp_sum(l_i[i]);
     const int row = q0 + r * 4 + i;
     if (row >= S) continue;
-    T* dst = out + ((size_t)b * S + row) * orow + (size_t)h * d;
+    float* dst = out + ((size_t)b * S + row) * orow + (size_t)h * d;
 #pragma unroll
     for (int jj = 0; jj < DC; ++jj) {
       const int col = c + 16 * jj;
-      if (col < d) dst[col] = fm::from_f32<T>(acc[i][jj] / l);
+      if (col < d) dst[col] = acc[i][jj] / l;
     }
   }
 }
@@ -205,18 +207,29 @@ struct TcSmem {  // byte offsets of the shared-memory regions
 };
 
 // 64 rows x d columns of one head (row stride rs) -> dst[64][DP + 8], zero padded.
+// 16-byte loads when d % 8 == 0 (head offsets and rows are then 16-byte
+// aligned), element loads for any other d.
 template <int DP>
 __device__ __forceinline__ void load_tile_bf16(const fm_bf16* __restrict__ src, size_t rs,
                                                int r0, int S, int d, fm_bf16* dst) {
   constexpr int LD = DP + 8;
-  constexpr int CPR = DP / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < FA_BM * CPR; c += FA_THREADS) {
-    const int row = c / CPR;
-    const int col = (c % CPR) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + row < S && col < d)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + row) * rs + col);
-    *reinterpret_cast<uint4*>(dst + row * LD + col) = v;
+  if (d % 8 == 0) {
+    constexpr int CPR = DP / 8;  // 16-byte chunks per row
+    for (int c = threadIdx.x; c < FA_BM * CPR; c += FA_THREADS) {
+      const int row = c / CPR;
+      const int col = (c % CPR) * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r0 + row < S && col < d)
+        v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + row) * rs + col);
+      *reinterpret_cast<uint4*>(dst + row * LD + col) = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < FA_BM * DP; i += FA_THREADS) {
+      const int row = i / DP, col = i % DP;
+      dst[row * LD + col] = (r0 + row < S && col < d)
+                                ? src[(size_t)(r0 + row) * rs + col]
+                                : __float2bfloat16_rn(0.0f);
+    }
   }
 }
 
@@ -367,13 +380,11 @@ template <int DP>
 cudaError_t launch_tc_dp(const void* qkv, const int* mask, void* out, int B, int S, int nh,
                          int d, float scale, cudaStream_t stream) {
   constexpr int bytes = TcSmem<DP>::BYTES;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_attn_fwd_tc_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  // Set on every launch: the attribute belongs to the current device, and
+  // the call costs about a microsecond.
+  cudaError_t e = cudaFuncSetAttribute(flash_attn_fwd_tc_kernel<DP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
   const dim3 grid((S + FA_BM - 1) / FA_BM, nh, B);
   flash_attn_fwd_tc_kernel<DP><<<grid, FA_THREADS, bytes, stream>>>(
       static_cast<const fm_bf16*>(qkv), mask, static_cast<fm_bf16*>(out), S, nh, d, scale);
@@ -389,33 +400,28 @@ cudaError_t launch_tc(const void* qkv, const int* mask, void* out, int B, int S,
   return cudaErrorInvalidValue;
 }
 
-// ---- dispatch -------------------------------------------------------------------
+// ---- fp32 dispatch ---------------------------------------------------------------
 
-template <typename T, int DP>
-cudaError_t launch_dp(const void* qkv, const int* mask, void* out, int B, int S, int nh, int d,
-                      float scale, cudaStream_t stream) {
+template <int DP>
+cudaError_t launch_f32_dp(const void* qkv, const int* mask, void* out, int B, int S, int nh,
+                          int d, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DP>();
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_attn_fwd_kernel<T, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  cudaError_t e = cudaFuncSetAttribute(flash_attn_fwd_f32_kernel<DP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)bytes);  // per device, as above
+  if (e != cudaSuccess) return e;
   const dim3 grid((S + FA_BM - 1) / FA_BM, nh, B);
-  flash_attn_fwd_kernel<T, DP><<<grid, FA_THREADS, bytes, stream>>>(
-      static_cast<const T*>(qkv), mask, static_cast<T*>(out), S, nh, d, scale);
+  flash_attn_fwd_f32_kernel<DP><<<grid, FA_THREADS, bytes, stream>>>(
+      static_cast<const float*>(qkv), mask, static_cast<float*>(out), S, nh, d, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const void* qkv, const int* mask, void* out, int B, int S, int nh, int d,
-                   float scale, cudaStream_t stream) {
-  if (d <= 32) return launch_dp<T, 32>(qkv, mask, out, B, S, nh, d, scale, stream);
-  if (d <= 64) return launch_dp<T, 64>(qkv, mask, out, B, S, nh, d, scale, stream);
-  if (d <= 96) return launch_dp<T, 96>(qkv, mask, out, B, S, nh, d, scale, stream);
-  if (d <= 128) return launch_dp<T, 128>(qkv, mask, out, B, S, nh, d, scale, stream);
+cudaError_t launch_f32(const void* qkv, const int* mask, void* out, int B, int S, int nh, int d,
+                       float scale, cudaStream_t stream) {
+  if (d <= 32) return launch_f32_dp<32>(qkv, mask, out, B, S, nh, d, scale, stream);
+  if (d <= 64) return launch_f32_dp<64>(qkv, mask, out, B, S, nh, d, scale, stream);
+  if (d <= 96) return launch_f32_dp<96>(qkv, mask, out, B, S, nh, d, scale, stream);
+  if (d <= 128) return launch_f32_dp<128>(qkv, mask, out, B, S, nh, d, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -429,9 +435,8 @@ int fm_flash_attn_fwd(const void* qkv, const void* mask, void* out, int B, int S
                       int d, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* m = static_cast<const int*>(mask);
-  if (dtype == FM_F32) return launch<float>(qkv, m, out, B, S, nh, d, scale, s);
-  if (dtype == FM_BF16 && d % 8 == 0) return launch_tc(qkv, m, out, B, S, nh, d, scale, s);
-  if (dtype == FM_BF16) return launch<fm_bf16>(qkv, m, out, B, S, nh, d, scale, s);
+  if (dtype == FM_F32) return launch_f32(qkv, m, out, B, S, nh, d, scale, s);
+  if (dtype == FM_BF16) return launch_tc(qkv, m, out, B, S, nh, d, scale, s);
   return cudaErrorInvalidValue;
 }
 

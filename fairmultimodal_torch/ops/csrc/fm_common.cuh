@@ -1,8 +1,8 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// Every kernel takes its io dtype as a template parameter (float or
-// __nv_bfloat16), computes in fp32, and rounds to the io dtype exactly where
-// the Pallas kernels it replaces call ``.astype(x.dtype)``.  The C entry
+// Every kernel works on float or __nv_bfloat16 io, computes in fp32, and
+// rounds to the io dtype exactly where the Pallas kernels it replaces call
+// ``.astype(x.dtype)``.  The C entry
 // points take the dtype as an int code (FM_F32 / FM_BF16) and return
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 #pragma once

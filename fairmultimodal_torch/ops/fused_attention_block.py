@@ -15,9 +15,10 @@ device memory (the first design, see the notes in each ``.cu``).
 On a CPU tensor the wrappers run :func:`fused_attention_block_ln_reference`,
 the plain PyTorch version with the TPU kernel's rounding points.
 
-Weights take the JAX layout at this interface: ``wq``/``wk``/``wv``/``wo``
-are [H_in, H_out] Dense kernels (pass ``linear.weight.t()``).  ``ln_eps`` has
-no default: the lab encoder passes 1e-5, BERT 1e-12.
+Weights take nn.Linear's [H_out, H_in] layout (``linear.weight``), the
+layout the GEMM kernel streams; the JAX package's [H_in, H_out] Dense
+kernels are transposed once, by :mod:`fairmultimodal_torch.interop`.
+``ln_eps`` has no default: the lab encoder passes 1e-5, BERT 1e-12.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 from fairmultimodal_torch.ops import _build
 
 __all__ = ["fused_attention_block_ln", "fused_attention_block_ln_infer",
-           "fused_attention_block_ln_reference"]
+           "fused_attention_block_ln_reference", "half_layer_stages"]
 
 NEG_INF = -1e9
 
@@ -56,7 +57,7 @@ def fused_attention_block_ln_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma,
     x32 = x.float()
 
     def heads(w, bias):
-        y = (x32 @ w.float() + bias.float()).to(dt)
+        y = (x32 @ w.float().t() + bias.float()).to(dt)
         return y.view(b, s, num_heads, d).transpose(1, 2).float()
 
     q, k, v = heads(wq, bq), heads(wk, bk), heads(wv, bv)
@@ -66,13 +67,18 @@ def fused_attention_block_ln_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma,
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     p = (p / p.sum(dim=-1, keepdim=True)).to(dt)
     o = (p.float() @ v).to(dt).transpose(1, 2).reshape(b, s, h)
-    y = o.float() @ wo.float() + bo.float()
+    y = o.float() @ wo.float().t() + bo.float()
     z = (x32 + y).to(dt)
     return _layer_norm_rows(z.float(), gamma, beta, ln_eps).to(dt)
 
 
-def _launch(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, num_heads, ln_eps):
-    global launches
+def half_layer_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, *,
+                      num_heads: int, ln_eps: float):
+    """Check the operands of the CUDA half-layer and lay out its kernel
+    launches: returns ``(stages, out)``, the launches in order as
+    ``(name, thunk)`` pairs and the [B, S, H] tensor the last one fills.
+    Each thunk can be run again on its own (``chip_smoke.py`` times them
+    one by one); running them all in order is one half-layer."""
     if x.dim() != 3:
         raise ValueError(f"x must be [B, S, H], got {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -92,20 +98,32 @@ def _launch(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, num_heads, ln_
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.int32, device=dev)
     mask = mask.to(device=dev, dtype=torch.int32).contiguous()
+    f32 = lambda t: t.to(torch.float32).contiguous()
 
     x2 = x.view(b * s, h)
-    w_qkv = torch.cat((wq.t(), wk.t(), wv.t()))                    # [3H, H]
-    b_qkv = torch.cat((bq, bk, bv)).to(torch.float32).contiguous()
+    w_qkv = torch.cat((wq, wk, wv))                                   # [3H, H]
+    b_qkv = f32(torch.cat((bq, bk, bv)))
     qkv = torch.empty((b, s, 3 * h), dtype=x.dtype, device=dev)
-    _build.gemm_bias_act(x2, w_qkv, b_qkv, qkv.view(b * s, 3 * h))
     o = torch.empty((b, s, h), dtype=x.dtype, device=dev)
-    _build.flash_attn_fwd(qkv, mask, o, num_heads)
     y = torch.empty((b * s, h), dtype=torch.float32, device=dev)
-    _build.gemm_bias_act(o.view(b * s, h), wo.t().contiguous(),
-                         bo.to(torch.float32).contiguous(), y)
     out = torch.empty_like(x)
-    _build.add_layernorm(x2, y, gamma.to(torch.float32).contiguous(),
-                         beta.to(torch.float32).contiguous(), out.view(b * s, h), ln_eps)
+    wo, bo, gamma, beta = wo.contiguous(), f32(bo), f32(gamma), f32(beta)
+    stages = [
+        ("qkv_gemm", lambda: _build.gemm_bias_act(x2, w_qkv, b_qkv, qkv.view(b * s, 3 * h))),
+        ("flash_attn_fwd", lambda: _build.flash_attn_fwd(qkv, mask, o, num_heads)),
+        ("wo_gemm", lambda: _build.gemm_bias_act(o.view(b * s, h), wo, bo, y)),
+        ("add_layernorm", lambda: _build.add_layernorm(x2, y, gamma, beta,
+                                                       out.view(b * s, h), ln_eps)),
+    ]
+    return stages, out
+
+
+def _launch(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, num_heads, ln_eps):
+    global launches
+    stages, out = half_layer_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask,
+                                    num_heads=num_heads, ln_eps=ln_eps)
+    for _, run in stages:
+        run()
     launches += 1
     return out
 
@@ -125,10 +143,10 @@ def fused_attention_block_ln(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta,
                              deterministic: bool = True) -> torch.Tensor:
     """Attention half-layer ``LayerNorm(x + dropout(attn_block(x)))``.
 
-    x [B, S, H] (fp32 or bf16); weights [H, H] and biases [H] in ``x.dtype``;
-    gamma/beta [H]; mask [B, S] (1 = attend) or None.  Dropout is not
-    available in this port yet: ``deterministic=False`` with ``rate > 0``
-    raises.  Returns [B, S, H] in ``x.dtype``.
+    x [B, S, H] (fp32 or bf16); weights [H_out, H_in] and biases [H] in
+    ``x.dtype``; gamma/beta [H]; mask [B, S] (1 = attend) or None.  Dropout
+    is not available in this port yet: ``deterministic=False`` with
+    ``rate > 0`` raises.  Returns [B, S, H] in ``x.dtype``.
     """
     if not deterministic and rate > 0.0:
         raise NotImplementedError(

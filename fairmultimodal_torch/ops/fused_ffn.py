@@ -14,7 +14,9 @@ the residual + LayerNorm row kernel.  The Pallas kernel keeps the [R, F]
 intermediate in VMEM; here it round-trips device memory.
 
 On a CPU tensor the wrappers run :func:`fused_ffn_ln_reference`.  Weights
-take the JAX layout: ``w1`` [H, F], ``w2`` [F, H].  ``ln_eps`` has no default.
+take nn.Linear's [out, in] layout: ``w1`` [F, H], ``w2`` [H, F] (the JAX
+package's Dense kernels transposed, as :mod:`fairmultimodal_torch.interop`
+does).  ``ln_eps`` has no default.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import torch.nn.functional as F
 from fairmultimodal_torch.ops import _build
 from fairmultimodal_torch.ops.fused_attention_block import _layer_norm_rows
 
-__all__ = ["fused_ffn_ln", "fused_ffn_ln_infer", "fused_ffn_ln_reference"]
+__all__ = ["fused_ffn_ln", "fused_ffn_ln_infer", "fused_ffn_ln_reference",
+           "half_layer_stages"]
 
 #: Kernel launches on CUDA tensors since the last reset (one per half-layer).
 launches = 0
@@ -44,22 +47,26 @@ def fused_ffn_ln_reference(x, w1, b1, w2, b2, gamma, beta, *, activation: str,
     _check_activation(activation)
     dt = x.dtype
     x32 = x.float()
-    h = x32 @ w1.float() + b1.float()
+    h = x32 @ w1.float().t() + b1.float()
     a = (torch.relu(h) if activation == "relu" else F.gelu(h)).to(dt)
-    y = a.float() @ w2.float() + b2.float()
+    y = a.float() @ w2.float().t() + b2.float()
     z = (x32 + y).to(dt)
     return _layer_norm_rows(z.float(), gamma, beta, ln_eps).to(dt)
 
 
-def _launch(x, w1, b1, w2, b2, gamma, beta, activation, ln_eps):
-    global launches
+def half_layer_stages(x, w1, b1, w2, b2, gamma, beta, *, activation: str, ln_eps: float):
+    """Check the operands of the CUDA half-layer and lay out its kernel
+    launches: returns ``(stages, out)``, the launches in order as
+    ``(name, thunk)`` pairs and the [R, H] tensor the last one fills (see
+    :func:`fused_attention_block.half_layer_stages`)."""
+    _check_activation(activation)
     if x.dim() != 2:
         raise ValueError(f"x must be [R, H], got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     r, h = x.shape
-    f = w1.shape[1]
-    for name, w, shape in (("w1", w1, (h, f)), ("w2", w2, (f, h))):
+    f = w1.shape[0]
+    for name, w, shape in (("w1", w1, (f, h)), ("w2", w2, (h, f))):
         if tuple(w.shape) != shape or w.dtype != x.dtype or w.device != x.device:
             raise ValueError(f"{name}: expected {list(shape)} {x.dtype} on {x.device}")
     if torch.is_grad_enabled() and any(
@@ -68,20 +75,31 @@ def _launch(x, w1, b1, w2, b2, gamma, beta, activation, ln_eps):
             "the CUDA FFN half-layer is forward only; its backward kernel comes "
             "with the training slice (run under torch.inference_mode())")
     dev = x.device
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    w1, w2, b1, b2, gamma, beta = (w1.contiguous(), w2.contiguous(), f32(b1), f32(b2),
+                                   f32(gamma), f32(beta))
     a = torch.empty((r, f), dtype=x.dtype, device=dev)
-    _build.gemm_bias_act(x, w1.t().contiguous(), b1.to(torch.float32).contiguous(), a,
-                         activation)
     y = torch.empty((r, h), dtype=torch.float32, device=dev)
-    _build.gemm_bias_act(a, w2.t().contiguous(), b2.to(torch.float32).contiguous(), y)
     out = torch.empty_like(x)
-    _build.add_layernorm(x, y, gamma.to(torch.float32).contiguous(),
-                         beta.to(torch.float32).contiguous(), out, ln_eps)
+    stages = [
+        ("w1_gemm_" + activation, lambda: _build.gemm_bias_act(x, w1, b1, a, activation)),
+        ("w2_gemm", lambda: _build.gemm_bias_act(a, w2, b2, y)),
+        ("add_layernorm", lambda: _build.add_layernorm(x, y, gamma, beta, out, ln_eps)),
+    ]
+    return stages, out
+
+
+def _launch(x, w1, b1, w2, b2, gamma, beta, activation, ln_eps):
+    global launches
+    stages, out = half_layer_stages(x, w1, b1, w2, b2, gamma, beta, activation=activation,
+                                    ln_eps=ln_eps)
+    for _, run in stages:
+        run()
     launches += 1
     return out
 
 
 def _forward(x, w1, b1, w2, b2, gamma, beta, activation, ln_eps):
-    _check_activation(activation)
     if x.is_cuda:
         return _launch(x, w1, b1, w2, b2, gamma, beta, activation, ln_eps)
     return fused_ffn_ln_reference(x, w1, b1, w2, b2, gamma, beta,
@@ -93,7 +111,7 @@ def fused_ffn_ln(x, w1, b1, w2, b2, gamma, beta, *, ln_eps: float,
                  deterministic: bool = True) -> torch.Tensor:
     """FFN half-layer ``LayerNorm(x + dropout(ffn(x)))``.
 
-    x [R, H] (fp32 or bf16); w1 [H, F], w2 [F, H] and biases in ``x.dtype``;
+    x [R, H] (fp32 or bf16); w1 [F, H], w2 [H, F] and biases in ``x.dtype``;
     gamma/beta [H].  Dropout is not available in this port yet:
     ``deterministic=False`` with ``rate > 0`` raises.  Returns [R, H].
     """
