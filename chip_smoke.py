@@ -28,6 +28,30 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    around it; then the same model in fp32 on 8 patients on the card and on
    the CPU (probabilities within 1e-4); then ``FAMEPredictor.benchmark``.
 
+3b. training kernels: forward-with-residuals plus backward of both
+   half-layers through their ``autograd.Function`` against the plain forward
+   plus the plain backward on the card, at the lab shapes (attention B256
+   S560 8x96, FFN R143360 F2048 relu), fp32 and bf16, dropout off and at
+   rate 0.1 (the same Philox seed, so the same masks); limits per grad,
+   relative to that grad's largest entry: fp32 1e-4 (only summation order
+   differs), bf16 see ``TRAIN_BF16_MAX`` / ``TRAIN_BF16_MEAN``.  Dropout:
+   every stream keeps 0.9 +- 0.001 of its elements, the same seed gives
+   bit-identical outputs and another seed another mask.  The gelu branch of
+   the FFN backward is checked for errors at a reduced text shape, and both
+   backwards at a shape off the main path (600 rows, S 200, head dim 12, a
+   fully masked row).  Timed
+   (bf16, dropout on, CUDA-event medians): the forward with residuals, the
+   backward, each backward launch alone, the plain backward and one library
+   composition's backward (torch autograd of F.linear + SDPA + dropout +
+   layer_norm; never called by the port), beside the bound;
+5. training slice: ``FAMETrainer.fit`` for 2 epochs at full width in bf16
+   (batch 256, 1024 train / 256 validation synthetic patients, dropout on),
+   with the kernels' launch counts read around it; then one fp32 train step
+   on 8 patients on the card and on the CPU with the same generator seed
+   (loss within 1e-5 relative, every grad within 1e-3 of its max-abs); then
+   the train-step time at batch 256 bf16 (median of 20 after warm-up) and its
+   device time by kernel from ``torch.profiler``.
+
 It prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.
 """
@@ -204,6 +228,256 @@ def kernel_phase(fab, ffn):
     return results
 
 
+# -- phase 3b: the training kernels against their plain versions ------------------------
+
+# bf16 limits, relative to each grad's largest entry.  Kernel and plain
+# version round the same intermediates (da / dy, dO, p, ds * scale, dq / dk
+# / dv, dh) to bf16 but sum their fp32 products in another order (the
+# tensor cores' fp32 accumulation is not the CUDA cores'), so a rounding can
+# land one bf16 ulp (2^-8 relative) apart and carry through a product with
+# thousands of terms.  In the FFN a pre-activation within that noise of zero
+# can also fall on the other side of the relu mask (a few hundred of the
+# 2.9e8 elements), which moves dx of its row by one term dh * W1: the tail of
+# dx reaches about 3% of its largest entry there, while every mean stays
+# near 1e-5.  A missing rounding point or a wrong dropout mask moves the
+# mean by orders of magnitude.
+TRAIN_FP32_TOL = 1e-4
+TRAIN_BF16_MAX, TRAIN_BF16_MEAN = 2.0 ** -4, 2.0 ** -10
+KEEP_TOL = 1e-3
+ATTN_GRADS = ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dgamma", "dbeta")
+FFN_GRADS = ("dx", "dw1", "db1", "dw2", "db2", "dgamma", "dbeta")
+
+
+def _leaves(tensors):
+    return [t.detach().clone().requires_grad_(True) for t in tensors]
+
+
+def _attn_train_case(fab, B, S, H, nh, eps, dtype, gen, L):
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
+
+    x = rn(B, S, H)
+    w = []
+    for _ in range(4):
+        w += [rn(H, H, std=H ** -0.5), rn(H, std=0.02)]
+    gamma = 1 + 0.1 * torch.randn(H, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(H, generator=gen, device="cuda")
+    mask = (torch.arange(S, device="cuda") < L).int()[None].expand(B, S).contiguous()
+    if B < 8:
+        mask[-1] = 0      # a padded batch row: every key masked
+    g = rn(B, S, H)
+    return [x, *w, gamma, beta], mask, g
+
+
+def _grouped_attn(grads):
+    """(dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dgamma, dbeta) -> the
+    port's buffers: dW and db of q | k | v as one tensor each."""
+    dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dgamma, dbeta = grads
+    return dict(zip(ATTN_GRADS, (dx, torch.cat((dwq, dwk, dwv)), torch.cat((dbq, dbk, dbv)),
+                                 dwo, dbo, dgamma, dbeta)))
+
+
+def _compare(label, dtype, got, want):
+    """Max / mean abs error of each grad, checked against the limits."""
+    rows = {}
+    for name, w in want.items():
+        a, b = got[name].float(), w.float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: {name} not finite")
+        err = (a - b).abs()
+        scale = max(b.abs().max().item(), 1e-30)
+        mx, mean = err.max().item(), err.mean().item()
+        rows[name] = {"max_abs_err": mx, "mean_abs_err": mean, "max_abs": scale}
+        if dtype == torch.float32:
+            ok = mx <= TRAIN_FP32_TOL * scale
+        else:
+            ok = mx <= TRAIN_BF16_MAX * scale and mean <= TRAIN_BF16_MEAN * scale
+        if not ok:
+            raise AssertionError(f"{label}: {name} max {mx} mean {mean} (max-abs {scale})")
+    return rows
+
+
+def _time_backward(out, leaves, g):
+    """CUDA-event median of the backward alone (the forward's graph kept)."""
+    return time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+
+
+def attention_train_check(fab, _build, gen, dtype, rate, B=256, S=560, H=768, nh=8, eps=1e-5,
+                          L=N_LABS, timed=False):
+    inputs, mask, g = _attn_train_case(fab, B, S, H, nh, eps, dtype, gen, L)
+    seed = 1234 if rate else None
+    kw = dict(num_heads=nh, ln_eps=eps)
+    leaves = _leaves(inputs)
+    out = fab.fused_attention_block_ln(*leaves, mask, rate=rate, deterministic=not rate,
+                                       seed=seed, **kw)
+    grads = torch.autograd.grad(out, leaves, g, retain_graph=timed)
+    with torch.no_grad():
+        out_p, res = fab.fused_attention_block_ln_reference(*inputs, mask, rate=rate, seed=seed,
+                                                            return_residuals=True, **kw)
+        x, wq, _, wk, _, wv, _, wo, _, gamma, _ = inputs
+        plain = lambda: fab.fused_attention_block_ln_backward_reference(  # noqa: E731
+            g, x, res["qkv"], res["o"], res["z"], wq, wk, wv, wo, gamma, mask, rate=rate,
+            seed=seed, **kw)
+        grads_p = plain()
+    label = f"attention B{B} S{S} {H // nh}x{nh} {dtype} rate {rate}"
+    errs = _compare(label, dtype, {"out": out, **_grouped_attn(grads)},
+                    {"out": out_p, **_grouped_attn(grads_p)})
+    row = {"case": label, "errors": errs}
+    if rate:
+        row["same_seed_identical"] = bool(torch.equal(out, fab.fused_attention_block_ln(
+            *inputs, mask, rate=rate, deterministic=False, seed=seed, **kw)))
+        row["other_seed_differs"] = not torch.equal(out, fab.fused_attention_block_ln(
+            *inputs, mask, rate=rate, deterministic=False, seed=seed + 1, **kw))
+        if not (row["same_seed_identical"] and row["other_seed_differs"]):
+            raise AssertionError(f"{label}: dropout not reproducible per seed {row}")
+    if timed:
+        from fairmultimodal_torch.utils.rng import Dropout
+        drop = Dropout.make(seed, 0, rate)
+        with torch.no_grad():
+            fwd, _, saved = fab.half_layer_stages(*inputs, mask, dropout=drop, residuals=True,
+                                                  **kw)
+            for _, fn in fwd:
+                fn()
+            bwd, _ = fab.backward_stages(g, saved, inputs[7], inputs[9], dropout=drop, **kw)
+            row["fwd_res_ms"] = time_ms(lambda: [fn() for _, fn in fwd])
+            row["ms"] = time_ms(lambda: [fn() for _, fn in bwd])
+            row["stages_ms"] = {name: time_ms(fn) for name, fn in bwd}
+            row["plain_ms"] = time_ms(plain, reps=5)
+        row["library_ms"] = _attention_library_bwd_ms(inputs, mask, g, nh, eps, rate)
+        flops = B * (16 * S * H * H + 8 * S * S * H)
+        nbytes = (8 * B * S * H + 4 * H * H) * x.element_size()
+        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+        row["flops"], row["bytes"] = flops, nbytes
+    del out, grads, grads_p, res
+    torch.cuda.empty_cache()
+    return row
+
+
+def _attention_library_bwd_ms(inputs, mask, g, nh, eps, rate):
+    F = torch.nn.functional
+    leaves = _leaves(inputs)
+    x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta = leaves
+    B, S, H = x.shape
+    d = H // nh
+    bias = torch.where(mask > 0, 0.0, -1e9).to(x.dtype)[:, None, None, :]
+    qkv = F.linear(x, torch.cat((wq, wk, wv)), torch.cat((bq, bk, bv))).view(B, S, 3, nh, d)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+    y = F.dropout(F.linear(o.transpose(1, 2).reshape(B, S, H), wo, bo), rate)
+    out = F.layer_norm(x + y, (H,), gamma.to(x.dtype), beta.to(x.dtype), eps)
+    return _time_backward(out, leaves, g)
+
+
+def ffn_train_check(ffn, _build, gen, dtype, rate, R=256 * 560, H=768, F=2048, act="relu",
+                    eps=1e-5, timed=False):
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
+
+    inputs = [rn(R, H), rn(F, H, std=H ** -0.5), rn(F, std=0.02), rn(H, F, std=F ** -0.5),
+              rn(H, std=0.02), 1 + 0.1 * torch.randn(H, generator=gen, device="cuda"),
+              0.1 * torch.randn(H, generator=gen, device="cuda")]
+    g = rn(R, H)
+    seeds = (21, 22) if rate else None
+    kw = dict(activation=act, ln_eps=eps)
+    leaves = _leaves(inputs)
+    out = ffn.fused_ffn_ln(*leaves, rate=rate, deterministic=not rate, seeds=seeds, **kw)
+    grads = torch.autograd.grad(out, leaves, g, retain_graph=timed)
+    with torch.no_grad():
+        out_p, res = ffn.fused_ffn_ln_reference(*inputs, rate=rate, seeds=seeds,
+                                                return_residuals=True, **kw)
+        plain = lambda: ffn.fused_ffn_ln_backward_reference(  # noqa: E731
+            g, inputs[0], res["hd"], res["z"], inputs[1], inputs[3], inputs[5], rate=rate,
+            seeds=seeds, **kw)
+        grads_p = plain()
+    label = f"ffn R{R} F{F} {act} {dtype} rate {rate}"
+    errs = _compare(label, dtype, {"out": out, **dict(zip(FFN_GRADS, grads))},
+                    {"out": out_p, **dict(zip(FFN_GRADS, grads_p))})
+    row = {"case": label, "errors": errs}
+    if rate:
+        again = ffn.fused_ffn_ln(*inputs, rate=rate, deterministic=False, seeds=seeds, **kw)
+        other = ffn.fused_ffn_ln(*inputs, rate=rate, deterministic=False,
+                                 seeds=(seeds[0] + 7, seeds[1] + 7), **kw)
+        row["same_seed_identical"] = bool(torch.equal(out, again))
+        row["other_seed_differs"] = not torch.equal(out, other)
+        if not (row["same_seed_identical"] and row["other_seed_differs"]):
+            raise AssertionError(f"{label}: dropout not reproducible per seed {row}")
+    if timed:
+        inner, outer = ffn._streams(seeds, rate, act)
+        with torch.no_grad():
+            fwd, _, saved = ffn.half_layer_stages(*inputs, inner=inner, outer=outer,
+                                                  residuals=True, **kw)
+            for _, fn in fwd:
+                fn()
+            bwd, _ = ffn.backward_stages(g, saved, inputs[1], inputs[3], inputs[5], outer=outer,
+                                         inv_keep=inner.inv_keep, **kw)
+            row["fwd_res_ms"] = time_ms(lambda: [fn() for _, fn in fwd])
+            row["ms"] = time_ms(lambda: [fn() for _, fn in bwd])
+            row["stages_ms"] = {name: time_ms(fn) for name, fn in bwd}
+            row["plain_ms"] = time_ms(plain, reps=5)
+        row["library_ms"] = _ffn_library_bwd_ms(inputs, g, act, eps, rate)
+        flops = 8 * R * H * F
+        nbytes = (4 * R * H + R * F) * inputs[0].element_size() + 2 * H * F * 2
+        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+        row["flops"], row["bytes"] = flops, nbytes
+    del out, grads, grads_p, res
+    torch.cuda.empty_cache()
+    return row
+
+
+def _ffn_library_bwd_ms(inputs, g, act, eps, rate):
+    F = torch.nn.functional
+    leaves = _leaves(inputs)
+    x, w1, b1, w2, b2, gamma, beta = leaves
+    fact = F.relu if act == "relu" else F.gelu
+    y = F.dropout(F.linear(F.dropout(fact(F.linear(x, w1, b1)), rate), w2, b2), rate)
+    out = F.layer_norm(x + y, (x.shape[1],), gamma.to(x.dtype), beta.to(x.dtype), eps)
+    return _time_backward(out, leaves, g)
+
+
+def dropout_keep_fractions(rng_mod):
+    """Kept fraction of each Philox stream of the lab layer at rate 0.1:
+    attention output and FFN outer [R, H], FFN inner [R, F]."""
+    R, H, F = 256 * 560, 768, 2048
+    fr = {}
+    for name, seed, stream, shape in (("attn_out", 1234, 0, (R, H)), ("ffn_inner", 21, 0, (R, F)),
+                                      ("ffn_outer", 22, 1, (R, H))):
+        fr[name] = rng_mod.dropout_mask(seed, stream, shape, 0.1, "cuda").float().mean().item()
+        if abs(fr[name] - 0.9) > KEEP_TOL:
+            raise AssertionError(f"dropout stream {name}: kept fraction {fr[name]}")
+    return fr
+
+
+def train_kernel_phase(fab, ffn, _build):
+    from fairmultimodal_torch.utils import rng as rng_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {"attention": [], "ffn": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        for rate in (0.0, 0.1):
+            timed = dtype == torch.bfloat16 and rate > 0
+            for kind, check, mod in (("attention", attention_train_check, fab),
+                                     ("ffn", ffn_train_check, ffn)):
+                row = check(mod, _build, gen, dtype, rate, timed=timed)
+                log(f"[train-kernels] {json.dumps(row)}")
+                rows[kind].append(row)
+        # gelu branch of the FFN backward, errors only, at a reduced text shape
+        for rate in (0.0, 0.1):
+            row = ffn_train_check(ffn, _build, gen, dtype, rate, R=8 * 512, F=3072, act="gelu",
+                                  eps=1e-12)
+            log(f"[train-kernels] {json.dumps(row)}")
+        # Off the main path, errors only: 600 rows (a weight-grad reduction
+        # with a ragged last slice), S 200 (a ragged key / query tile) and
+        # head dim 12 (element loads, head pad 32), with a fully masked row.
+        row = attention_train_check(fab, _build, gen, dtype, 0.1, B=3, S=200, nh=64, L=190,
+                                    eps=1e-12)
+        log(f"[train-kernels] {json.dumps(row)}")
+        row = ffn_train_check(ffn, _build, gen, dtype, 0.1, R=600)
+        log(f"[train-kernels] {json.dumps(row)}")
+    keep = dropout_keep_fractions(rng_mod)
+    log(f"[train-kernels] kept fractions at rate 0.1: {json.dumps(keep)}")
+    return rows, keep
+
+
 # -- phase 4: the serving slice ------------------------------------------------------
 
 
@@ -334,6 +608,172 @@ def slice_phase(fab, ffn):
                    "fp32_card_vs_cpu_max_abs": diff, "benchmark": bench}
 
 
+# -- phase 5: the training slice -----------------------------------------------------
+
+
+def synthetic_cohort(rng, n):
+    """Model-input arrays and labels of ``n`` synthetic patients at the
+    reference geometry (549 labs, 768-d note embeddings)."""
+    return {
+        "demo_dummy_ids": np.zeros((n, 1), np.int32),
+        "demo_attn_mask": np.ones((n, 1), np.int32),
+        "age_ids": rng.integers(0, 4, n).astype(np.int32),
+        "gender_ids": rng.integers(0, 2, n).astype(np.int32),
+        "ethnicity_ids": rng.integers(0, 5, n).astype(np.int32),
+        "insurance_ids": rng.integers(0, 6, n).astype(np.int32),
+        "lab_features": rng.normal(0, 1, (n, N_LABS)).astype(np.float32),
+        "text_embedding": rng.normal(0, 1, (n, 768)).astype(np.float32),
+        "labels": rng.integers(0, 2, (n, 3)).astype(np.float32),
+    }
+
+
+TRAIN_GEO = dict(num_ages=4, num_genders=2, num_ethnicities=5, num_insurances=6,
+                 lab_token_count=N_LABS, text_embed_size=768, hidden_size=768, demo_layers=12,
+                 demo_heads=12, lab_layers=2, lab_heads=8, fusion_hidden=512)
+POS_WEIGHT = np.array([3.0, 1.5, 2.0], np.float32)
+N_TRAIN, N_VAL, TRAIN_BATCH, TRAIN_EPOCHS = 1024, 256, 256, 2
+# fp32 card vs CPU: the same weights, batch and Philox masks; the card sums
+# in other orders (its kernels, cuBLAS-free) than the CPU's plain path, so
+# the loss agrees to fp32 rounding (1e-5 relative) and each grad leaf to
+# 1e-3 of its largest entry (grads are differences of nearly equal sums).
+XDEV_LOSS_TOL, XDEV_GRAD_TOL = 1e-5, 1e-3
+
+
+def train_slice_phase(fab, ffn):
+    from fairmultimodal_torch.data.loader import BatchIterator, NestedLoader
+    from fairmultimodal_torch.data.prefetch import to_device
+    from fairmultimodal_torch.models._layers import init_params
+    from fairmultimodal_torch.models.fusion import FAMEModel
+    from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
+
+    rng = np.random.default_rng(2)
+    train, val = synthetic_cohort(rng, N_TRAIN), synthetic_cohort(rng, N_VAL)
+    keys = [k for k in train if k != "labels"]
+    train_loader = NestedLoader(BatchIterator(train, TRAIN_BATCH, shuffle=True, seed=0), keys)
+    val_loader = NestedLoader(BatchIterator(val, TRAIN_BATCH), keys)
+    model = init_params(FAMEModel(**TRAIN_GEO, dtype=torch.bfloat16), seed=0)
+    trainer = FAMETrainer(model, TrainConfig(lr=1e-4, num_epochs=TRAIN_EPOCHS,
+                                             batch_size=TRAIN_BATCH),
+                          pos_weight=POS_WEIGHT, rngs_seed=0, device="cuda")
+    heads0 = {k: v.clone() for k, v in model.state_dict().items() if ".classifier_" in k}
+    sig0 = model.fusion.sig_weights.detach().clone()
+
+    # The main path, with the launch counters read around it.
+    fab.launches = ffn.launches = fab.bwd_launches = ffn.bwd_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, history = trainer.fit(train_loader, val_loader, verbose=True)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    counts = {"fused_attention_block_ln": fab.launches, "fused_ffn_ln": ffn.launches,
+              "fused_attention_block_ln_bwd": fab.bwd_launches,
+              "fused_ffn_ln_bwd": ffn.bwd_launches}
+    layers = TRAIN_GEO["lab_layers"]
+    steps = TRAIN_EPOCHS * -(-N_TRAIN // TRAIN_BATCH)
+    forwards = TRAIN_EPOCHS * (-(-N_TRAIN // TRAIN_BATCH) * 2 + -(-N_VAL // TRAIN_BATCH))
+    want = {"fused_attention_block_ln": layers * forwards, "fused_ffn_ln": layers * forwards,
+            "fused_attention_block_ln_bwd": layers * steps, "fused_ffn_ln_bwd": layers * steps}
+    log(f"[train] fit {TRAIN_EPOCHS} epochs in {t_fit:.1f} s (host clock, first call); "
+        f"launches {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
+    losses = [v for h in history for k, v in h.items() if k.endswith("loss")]
+    if len(history) != TRAIN_EPOCHS or not np.isfinite(losses).all():
+        raise AssertionError(f"training history {history}")
+    for k, v in heads0.items():
+        if not torch.equal(model.state_dict()[k], v):
+            raise AssertionError(f"loss-free head {k} moved")
+    if torch.equal(model.fusion.sig_weights.detach(), sig0):
+        raise AssertionError("sig_weights did not move")
+    log(f"[train] history {json.dumps(history)}")
+    log(f"[train] dynamic weights {json.dumps(trainer.dynamic_weights.tolist())}")
+
+    # fp32, 8 patients, dropout on: one train step on the card and on the CPU.
+    sub = {k: v[:8] for k, v in train.items()}
+    batch = {"model_inputs": {k: sub[k] for k in keys}, "labels": sub["labels"],
+             "weight": np.ones(8, np.float32)}
+    step = {}
+    for device in ("cuda", "cpu"):
+        m32 = init_params(FAMEModel(**TRAIN_GEO, dtype=torch.float32), seed=0)
+        t32 = FAMETrainer(m32, TrainConfig(lr=1e-4, batch_size=8), pos_weight=POS_WEIGHT,
+                          rngs_seed=5, device=device)
+        fab.bwd_launches = ffn.bwd_launches = 0
+        total, _ = t32.train_step(to_device(batch, t32.device))
+        if (device == "cuda") != (min(fab.bwd_launches, ffn.bwd_launches) > 0):
+            raise AssertionError(f"{device}: backward launches {fab.bwd_launches}, "
+                                 f"{ffn.bwd_launches}")
+        step[device] = (float(total), {n: p.grad.detach().cpu() for n, p in
+                                       m32.named_parameters() if p.grad is not None})
+        del m32, t32
+    (loss_c, grads_c), (loss_h, grads_h) = step["cuda"], step["cpu"]
+    loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+
+    def scale(name):
+        # A key bias has a zero grad in exact arithmetic (softmax ignores
+        # it): measure its rounding noise on the q/k/v bias grads' scale.
+        if name.endswith("key.bias"):
+            return max(float(grads_h[name.replace("key", k)].abs().max())
+                       for k in ("query", "key", "value"))
+        return float(grads_h[name].abs().max())
+
+    rel = {n: float((grads_c[n] - g).abs().max()) / scale(n)
+           for n, g in grads_h.items() if scale(n) > 0}
+    worst = max(rel, key=rel.get)
+    grad_rel = rel[worst]
+    log(f"[train] fp32 8 patients, one step card vs CPU: loss {loss_c:.8f} vs {loss_h:.8f} "
+        f"(rel {loss_rel:.2e}); worst grad leaf {worst} {grad_rel:.2e} of its max-abs")
+    if set(grads_c) != set(grads_h) or not loss_rel <= XDEV_LOSS_TOL or \
+            not grad_rel <= XDEV_GRAD_TOL:
+        raise AssertionError(f"fp32 card vs CPU: loss rel {loss_rel}, grads {grad_rel}")
+
+    # Train-step time at batch 256, bf16, dropout on.
+    batch = to_device(next(iter(train_loader)), trainer.device)
+    for _ in range(3):
+        trainer.train_step(batch)
+    times = []
+    for _ in range(20):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step(batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    bench = {"batch_size": TRAIN_BATCH, "train_step_ms": ms,
+             "patients_per_sec": 1e3 * TRAIN_BATCH / ms, "min_ms": min(times),
+             "max_ms": max(times), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[train] train step bf16: {json.dumps(bench)}")
+    split = profile_train_step(trainer, batch)
+    log(f"[train] train step split by kernel (profiler, per step): {json.dumps(split)}")
+    return counts, {"step_split": split, "fit_s": t_fit, "history": history,
+                    "dynamic_weights": trainer.dynamic_weights.tolist(),
+                    "fp32_card_vs_cpu": {"loss_rel": loss_rel, "worst_grad_rel": grad_rel},
+                    "train_step": bench}
+
+
+def profile_train_step(trainer, batch, steps=3, top=16):
+    """Device time by kernel over ``steps`` train steps (torch.profiler's
+    CUPTI trace), per step in ms, and the share of the host-clock window in
+    which the card ran no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    rows = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": (1.0 - busy / wall_ms) if busy else None,
+            "by_kernel_ms": {e.key[:90]: e.self_device_time_total / 1e3 / steps for e in rows},
+            "launches_per_step": sum(e.count for e in kernels) / steps}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -358,8 +798,11 @@ def main() -> int:
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
     rows = kernel_phase(fab, ffn)
+    train_rows, keep = train_kernel_phase(fab, ffn, _build)
     launches, slice_info = slice_phase(fab, ffn)
     log(f"[slice] {json.dumps(slice_info)}")
+    train_launches, train_info = train_slice_phase(fab, ffn)
+    log(f"[train] {json.dumps(train_info)}")
 
     meta = {
         "fused_attention_block_ln": ("fairmultimodal_torch/ops/csrc/flash_attention.cu",
@@ -367,6 +810,9 @@ def main() -> int:
         "fused_ffn_ln": ("fairmultimodal_torch/ops/csrc/gemm.cu",
                          "fairmultimodal_tpu/ops/fused_ffn.py:414"),
     }
+    timed_train = {"fused_attention_block_ln": next(r for r in train_rows["attention"]
+                                                    if "ms" in r),
+                   "fused_ffn_ln": next(r for r in train_rows["ffn"] if "ms" in r)}
     kernels = []
     for name, (source, replaces) in meta.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -385,7 +831,29 @@ def main() -> int:
              "fairmultimodal_torch/ops/csrc/add_layernorm.cu"],
             "launches_by_encoder": {"text": slice_info["text"][name],
                                     "lab": slice_info["lab"][name]},
+            "launches_training": train_launches[name],
+            "fwd_res_dropout_ms": timed_train[name]["fwd_res_ms"],
             "shapes": mine,
+        })
+    for name, part, source, replaces in (
+            ("fused_attention_block_ln_bwd", "attention",
+             "fairmultimodal_torch/ops/csrc/flash_attention.cu",
+             "fairmultimodal_tpu/ops/fused_attention_block.py:657"),
+            ("fused_ffn_ln_bwd", "ffn", "fairmultimodal_torch/ops/csrc/gemm.cu",
+             "fairmultimodal_tpu/ops/fused_ffn.py:530")):
+        row = timed_train[name[:-4]]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": train_launches[name], "max_abs_err": row["errors"]["dx"]["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "stages_ms": row["stages_ms"], "shape": row["case"], "dtype": "bfloat16",
+            "sources": ["fairmultimodal_torch/ops/csrc/add_layernorm.cu",
+                        "fairmultimodal_torch/ops/csrc/gemm.cu"]
+            + (["fairmultimodal_torch/ops/csrc/flash_attention.cu"] if part == "attention"
+               else []),
+            "errors": {r["case"]: r["errors"] for r in train_rows[part]},
+            "kept_fraction": keep,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

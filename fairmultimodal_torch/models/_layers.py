@@ -1,5 +1,5 @@
-"""Helpers shared by the port's modules: flax-style compute-dtype layers and
-the seeded random init.
+"""Helpers shared by the port's modules: flax-style compute-dtype layers,
+dropout seeds and the seeded random init.
 
 Parameters stay fp32 and are cast to the module's compute ``dtype`` at use,
 as flax's ``nn.Dense(dtype=...)`` / ``nn.Embed`` / ``nn.LayerNorm`` do, so a
@@ -9,11 +9,15 @@ LayerNorm statistics run in at least fp32.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["linear", "layer_norm", "embed", "init_params"]
+from fairmultimodal_torch.utils.rng import draw_seed
+
+__all__ = ["linear", "layer_norm", "embed", "dropout_seed", "init_params"]
 
 
 def linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -28,6 +32,17 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.T
 
 def embed(ids: torch.Tensor, table: nn.Embedding, dtype: torch.dtype) -> torch.Tensor:
     return F.embedding(ids.long(), table.weight).to(dtype)
+
+
+def dropout_seed(module: nn.Module, rate: float,
+                 generator: Optional[torch.Generator]) -> Optional[int]:
+    """Philox seed of one dropout site, drawn on the host from the caller's
+    generator when ``module`` trains and has dropout; None (no dropout)
+    otherwise.  Dropout runs in train mode given a generator: no module
+    draws from the global RNG (the JAX modules' ``rngs={"dropout": ...}``)."""
+    if module.training and rate > 0.0 and generator is not None:
+        return draw_seed(generator)
+    return None
 
 
 @torch.no_grad()

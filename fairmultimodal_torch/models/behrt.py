@@ -2,7 +2,12 @@
 
 - :class:`TorchEncoderLayer` -- post-LN torch-style encoder layer (ReLU FFN
   2048, LayerNorm eps 1e-5).  On a CUDA tensor whose shapes pass the gates
-  each half-layer is one kernel wrapper call (``behrt.py:111-162``).
+  each half-layer is one kernel wrapper call (``behrt.py:111-162``),
+  differentiable through the backward kernels.  In train mode with a
+  generator it draws one dropout seed for the attention half-layer and two
+  for the FFN (inner, outer), as the JAX layer does (``behrt.py:121,160``);
+  the plain path applies the same Philox streams at the same flat indices,
+  so both paths drop the same elements.
 - :class:`BEHRTLab` -- every z-scored lab scalar becomes a token (shared
   Linear(1, H) + learned positional embedding).  The [B, L] scalars and the
   positional table are padded to a multiple of 16 BEFORE the embedding
@@ -21,12 +26,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fairmultimodal_torch.models._layers import embed, layer_norm, linear
+from fairmultimodal_torch.models._layers import dropout_seed, embed, layer_norm, linear
 from fairmultimodal_torch.models.bert import BertConfig, BertEncoderModel
 from fairmultimodal_torch.ops.attention import multi_head_attention
 from fairmultimodal_torch.ops.fused_attention_block import fused_attention_block_ln
 from fairmultimodal_torch.ops.fused_ffn import fused_ffn_ln
 from fairmultimodal_torch.ops.gates import can_use_fused_attention_block, can_use_fused_ffn
+from fairmultimodal_torch.utils.rng import dropout
 
 __all__ = ["TorchEncoderLayer", "BEHRTLab", "BEHRTDemo"]
 
@@ -52,20 +58,23 @@ class TorchEncoderLayer(nn.Module):
         self.ffn_in = nn.Linear(h, ffn_size)
         self.ffn_out = nn.Linear(ffn_size, h)
         self.norm2 = nn.LayerNorm(h, eps=layer_norm_eps)
-        self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        dt, nh, eps = self.dtype, self.num_heads, self.layer_norm_eps
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dt, nh, eps, rate = self.dtype, self.num_heads, self.layer_norm_eps, self.dropout_rate
         b, s, h = x.shape
         w = lambda lin: lin.weight.to(dt)
         bb = lambda lin: lin.bias.to(dt)
+        seed = lambda: dropout_seed(self, rate, generator)      # noqa: E731
+        attn_seed = seed()
+        ffn_seeds = (seed(), seed()) if attn_seed is not None else None
 
         if can_use_fused_attention_block(x, nh):
             x = fused_attention_block_ln(
                 x.to(dt), w(self.query), bb(self.query), w(self.key), bb(self.key),
                 w(self.value), bb(self.value), w(self.attn_out), bb(self.attn_out),
                 self.norm1.weight, self.norm1.bias, mask, num_heads=nh, ln_eps=eps,
-                rate=self.dropout_rate, deterministic=not self.training)
+                rate=rate, deterministic=attn_seed is None, seed=attn_seed)
         else:
             d = h // nh
 
@@ -75,16 +84,17 @@ class TorchEncoderLayer(nn.Module):
             attn = multi_head_attention(heads(self.query), heads(self.key),
                                         heads(self.value), mask)
             attn = linear(attn.transpose(1, 2).reshape(b, s, h), self.attn_out, dt)
-            x = layer_norm(x + self.dropout(attn), self.norm1, dt)
+            x = layer_norm(x + dropout(attn, rate, attn_seed), self.norm1, dt)
 
         if can_use_fused_ffn(x, h, self.ffn_size):
             return fused_ffn_ln(
                 x.reshape(b * s, h).to(dt), w(self.ffn_in), bb(self.ffn_in),
                 w(self.ffn_out), bb(self.ffn_out), self.norm2.weight, self.norm2.bias,
-                activation="relu", ln_eps=eps, rate=self.dropout_rate,
-                deterministic=not self.training).view(b, s, h)
-        y = self.dropout(torch.relu(linear(x, self.ffn_in, dt)))
-        y = self.dropout(linear(y, self.ffn_out, dt))
+                activation="relu", ln_eps=eps, rate=rate, deterministic=ffn_seeds is None,
+                seeds=ffn_seeds).view(b, s, h)
+        inner, outer = ffn_seeds or (None, None)
+        y = dropout(torch.relu(linear(x, self.ffn_in, dt)), rate, inner, stream=0)
+        y = dropout(linear(y, self.ffn_out, dt), rate, outer, stream=1)
         return layer_norm(x + y, self.norm2, dt)
 
 
@@ -109,7 +119,8 @@ class BEHRTLab(nn.Module):
             self.add_module(f"layer_{i}", TorchEncoderLayer(
                 hidden_size, num_heads, dropout=dropout, dtype=dtype))
 
-    def forward(self, lab_features: torch.Tensor) -> torch.Tensor:
+    def forward(self, lab_features: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.dtype
         b, L = lab_features.shape
         S = _round_up(L, self.pad_to)
@@ -123,7 +134,7 @@ class BEHRTLab(nn.Module):
         x = x + pos[None].to(dt)
         mask = (torch.arange(S, device=x.device) < L).to(torch.int32)[None, :].expand(b, S)
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, mask)
+            x = getattr(self, f"layer_{i}")(x, mask, generator)
         acc = torch.promote_types(dt, torch.float32)
         return x[:, :L, :].to(acc).mean(dim=1).to(dt)
 
@@ -154,7 +165,7 @@ class BEHRTDemo(nn.Module):
         self.insurance_embedding = nn.Embedding(num_insurances, hidden_size)
 
     def forward(self, dummy_ids, attn_mask, age_ids, gender_ids, ethnicity_ids,
-                insurance_ids) -> torch.Tensor:
+                insurance_ids, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.dtype
         if self.broadcast_dummy:
             one = self.bert(dummy_ids[:1], attn_mask[:1], pool="cls")
@@ -166,7 +177,7 @@ class BEHRTDemo(nn.Module):
             row_pad = ((dummy_ids == 0) & (attn_mask == 0)).all(dim=1)
             cls = torch.where((row_eq | row_pad).all(), cls, torch.full_like(cls, float("nan")))
         else:
-            cls = self.bert(dummy_ids, attn_mask, pool="cls")
+            cls = self.bert(dummy_ids, attn_mask, pool="cls", generator=generator)
 
         def emb(ids, n, table):
             return embed(ids.clamp(0, n - 1), table, dt)

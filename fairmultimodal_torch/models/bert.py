@@ -6,6 +6,10 @@ exact gelu and LayerNorm eps 1e-12.  Module and parameter names mirror the
 flax tree (``embeddings.word_embeddings``, ``layer_0.attention.query``, ...)
 so JAX weights convert mechanically (:mod:`fairmultimodal_torch.interop`).
 
+Dropout (``hidden_dropout_prob``; the JAX BERT has no attention-probability
+dropout) is Philox dropout seeded from the caller's generator in train mode
+(``models/_layers.py::dropout_seed``).
+
 Per-half-layer kernel dispatch, as ``bert.py:151-230``: in eval mode, on a
 CUDA tensor whose shapes pass :func:`can_use_fused_attention_block`
 (256 <= S <= 1024, i.e. the 256 / 512 note buckets), the attention
@@ -24,11 +28,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fairmultimodal_torch.models._layers import embed, layer_norm, linear
+from fairmultimodal_torch.models._layers import dropout_seed, embed, layer_norm, linear
 from fairmultimodal_torch.ops.attention import multi_head_attention
 from fairmultimodal_torch.ops.fused_attention_block import fused_attention_block_ln_infer
 from fairmultimodal_torch.ops.fused_ffn import fused_ffn_ln_infer
 from fairmultimodal_torch.ops.gates import can_use_fused_attention_block, can_use_fused_ffn
+from fairmultimodal_torch.utils.rng import dropout
 
 __all__ = ["BertConfig", "bio_clinical_bert_config", "BertEmbeddings",
            "BertSelfAttention", "BertLayer", "BertEncoderModel"]
@@ -62,10 +67,10 @@ class BertEmbeddings(nn.Module):
         self.position_embeddings = nn.Embedding(c.max_position_embeddings, c.hidden_size)
         self.token_type_embeddings = nn.Embedding(c.type_vocab_size, c.hidden_size)
         self.layer_norm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
-        self.dropout = nn.Dropout(c.hidden_dropout_prob)
+        self.dropout_rate = c.hidden_dropout_prob
 
-    def forward(self, input_ids: torch.Tensor,
-                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, token_type_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         seq = input_ids.shape[1]
         pos_ids = torch.arange(seq, device=input_ids.device)[None, :]
         if token_type_ids is None:
@@ -73,7 +78,8 @@ class BertEmbeddings(nn.Module):
         x = (embed(input_ids, self.word_embeddings, self.dtype)
              + embed(pos_ids, self.position_embeddings, self.dtype)
              + embed(token_type_ids, self.token_type_embeddings, self.dtype))
-        return self.dropout(layer_norm(x, self.layer_norm, self.dtype))
+        return dropout(layer_norm(x, self.layer_norm, self.dtype), self.dropout_rate,
+                       dropout_seed(self, self.dropout_rate, generator))
 
 
 class BertSelfAttention(nn.Module):
@@ -89,9 +95,9 @@ class BertSelfAttention(nn.Module):
         self.value = nn.Linear(h, h)
         self.output_dense = nn.Linear(h, h)
         self.output_layer_norm = nn.LayerNorm(h, eps=config.layer_norm_eps)
-        self.dropout = nn.Dropout(config.hidden_dropout_prob)
 
-    def forward(self, hidden: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, mask: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         c, dt = self.config, self.dtype
         nh = c.num_attention_heads
         b, s, h = hidden.shape
@@ -113,7 +119,9 @@ class BertSelfAttention(nn.Module):
         out = multi_head_attention(heads(self.query), heads(self.key), heads(self.value),
                                    mask)
         out = out.transpose(1, 2).reshape(b, s, h)
-        out = self.dropout(linear(out, self.output_dense, dt))
+        rate = c.hidden_dropout_prob
+        out = dropout(linear(out, self.output_dense, dt), rate,
+                      dropout_seed(self, rate, generator))
         return layer_norm(out + hidden, self.output_layer_norm, dt)
 
 
@@ -127,12 +135,12 @@ class BertLayer(nn.Module):
         self.intermediate = nn.Linear(h, config.intermediate_size)
         self.output = nn.Linear(config.intermediate_size, h)
         self.output_layer_norm = nn.LayerNorm(h, eps=config.layer_norm_eps)
-        self.dropout = nn.Dropout(config.hidden_dropout_prob)
 
-    def forward(self, hidden: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, mask: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         c, dt = self.config, self.dtype
         h = c.hidden_size
-        x = self.attention(hidden, mask)
+        x = self.attention(hidden, mask, generator)
         # The attention-geometry gate applies to the FFN too (bert.py:203-213),
         # so the kernels engage only on note-encode shapes.
         if (not self.training and can_use_fused_ffn(x.to(dt), h, c.intermediate_size)
@@ -145,7 +153,8 @@ class BertLayer(nn.Module):
                 self.output_layer_norm.bias, activation="gelu", ln_eps=c.layer_norm_eps)
             return out.view(b, s, h)
         y = F.gelu(linear(x, self.intermediate, dt))
-        y = self.dropout(linear(y, self.output, dt))
+        rate = c.hidden_dropout_prob
+        y = dropout(linear(y, self.output, dt), rate, dropout_seed(self, rate, generator))
         return layer_norm(y + x, self.output_layer_norm, dt)
 
 
@@ -163,10 +172,11 @@ class BertEncoderModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
                 token_type_ids: Optional[torch.Tensor] = None,
-                pool: Optional[str] = None) -> torch.Tensor:
-        x = self.embeddings(input_ids, token_type_ids)
+                pool: Optional[str] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.embeddings(input_ids, token_type_ids, generator)
         for i in range(self.config.num_hidden_layers):
-            x = getattr(self, f"layer_{i}")(x, attention_mask)
+            x = getattr(self, f"layer_{i}")(x, attention_mask, generator)
         if pool == "cls":
             return x[:, 0, :]
         if pool is not None:

@@ -4,7 +4,10 @@ Dynamic EDDI weights enter as a [3, 3] (task x modality) tensor.  Reference
 quirk kept under ``reference_weight_compat`` (default True): the mortality
 row of the weights scales every task's fusion (10_FAME.py:283-285); False
 fuses each task with its own row through the shared trunk.  Outputs are in
-at least fp32 whatever the compute dtype.
+at least fp32 whatever the compute dtype.  The fusion head's dropout (JAX
+``fusion.py:108,122,136``) is Philox dropout seeded from the caller's
+generator in train mode; ``FAMEModel.forward`` passes the generator to every
+dropout site (lab encoder, fusion head; the broadcast demo BERT has none).
 """
 
 from __future__ import annotations
@@ -14,8 +17,9 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from fairmultimodal_torch.models._layers import linear
+from fairmultimodal_torch.models._layers import dropout_seed, linear
 from fairmultimodal_torch.models.behrt import BEHRTDemo, BEHRTLab
+from fairmultimodal_torch.utils.rng import dropout
 
 __all__ = ["FAMEFusion", "FAMEModel"]
 
@@ -62,11 +66,13 @@ class FAMEFusion(nn.Module):
         self.classifier_demo = nn.Linear(p, num_tasks)
         self.classifier_lab = nn.Linear(p, num_tasks)
         self.classifier_text = nn.Linear(p, num_tasks)
-        self.dropout = nn.Dropout(0.1)
+        self.dropout_rate = 0.1
 
     def forward(self, demo_emb, lab_emb, text_emb,
-                dynamic_weights: Optional[torch.Tensor] = None) -> Dict[str, object]:
-        dt, T = self.dtype, self.num_tasks
+                dynamic_weights: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, object]:
+        dt, T, rate = self.dtype, self.num_tasks, self.dropout_rate
+        seed = dropout_seed(self, rate, generator)
         demo_proj = self.demo_projector(demo_emb)
         lab_proj = self.lab_projector(lab_emb)
         text_proj = self.text_projector(text_emb)
@@ -82,14 +88,14 @@ class FAMEFusion(nn.Module):
                               dim=-1)
             gated = fused * sig
             pre_relu = linear(gated, self.fusion_dense1, dt)
-            h = self.dropout(torch.relu(pre_relu))
+            h = dropout(torch.relu(pre_relu), rate, seed)
             fused_logits = linear(h, self.fusion_dense2, dt)
         else:
             projs = torch.stack([demo_proj, lab_proj, text_proj], dim=1)   # [B, 3, p]
             scaled = w[None, :, :, None] * projs[:, None]                  # [B, T, 3, p]
             gated_t = scaled.reshape(scaled.shape[0], T, -1) * sig         # [B, T, 3p]
             pre_relu_t = linear(gated_t, self.fusion_dense1, dt)
-            out = linear(self.dropout(torch.relu(pre_relu_t)), self.fusion_dense2, dt)
+            out = linear(dropout(torch.relu(pre_relu_t), rate, seed), self.fusion_dense2, dt)
             fused_logits = torch.diagonal(out, dim1=1, dim2=2)             # [B, T]
             gated = gated_t[:, 0]
             pre_relu = pre_relu_t[:, 0]
@@ -138,9 +144,13 @@ class FAMEModel(nn.Module):
                                  dtype=dtype)
 
     def forward(self, batch: Dict[str, torch.Tensor],
-                dynamic_weights: Optional[torch.Tensor] = None) -> Dict[str, object]:
+                dynamic_weights: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, object]:
+        """Dropout runs in train mode when ``generator`` (the caller's
+        seed source, a CPU :class:`torch.Generator`) is given."""
         demo_emb = self.behrt_demo(batch["demo_dummy_ids"], batch["demo_attn_mask"],
                                    batch["age_ids"], batch["gender_ids"],
-                                   batch["ethnicity_ids"], batch["insurance_ids"])
-        lab_emb = self.behrt_lab(batch["lab_features"])
-        return self.fusion(demo_emb, lab_emb, batch["text_embedding"], dynamic_weights)
+                                   batch["ethnicity_ids"], batch["insurance_ids"], generator)
+        lab_emb = self.behrt_lab(batch["lab_features"], generator)
+        return self.fusion(demo_emb, lab_emb, batch["text_embedding"], dynamic_weights,
+                           generator)

@@ -24,12 +24,15 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
-__all__ = ["KernelLaunchError", "build", "kernels", "gemm_bias_act",
-           "flash_attn_fwd", "add_layernorm", "ACT_CODES"]
+from fairmultimodal_torch.utils.rng import Dropout
+
+__all__ = ["KernelLaunchError", "build", "kernels", "gemm", "colsum", "flash_attn_fwd",
+           "flash_attn_bwd", "add_layernorm", "layernorm_bwd", "ACT_CODES",
+           "FLASH_BWD_TILE", "LN_BWD_ROWS"]
 
 _CSRC = Path(__file__).resolve().with_name("csrc")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -39,14 +42,31 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODES = {"none": 0, "relu": 1, "gelu": 2}
+_GATE_CODES = {None: 0, "relu": 1, "dgelu": 2}
+_LAYOUTS = {"nt": 0, "nn": 1, "tn": 2}
+#: Rows of a flash-backward tile (its column partials have B * ceil(S / tile) rows).
+FLASH_BWD_TILE = {torch.bfloat16: 64, torch.float32: 32}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_U64 = ctypes.c_ulonglong
 _F = ctypes.c_float
+_DROP = [_U64, _U, _U, _F, _I]        # the fields of a utils.rng.Dropout
 _SIGNATURES = {
-    "gemm.cu": {"fm_gemm_bias_act": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
-    "flash_attention.cu": {"fm_flash_attn_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P]},
-    "add_layernorm.cu": {"fm_add_layernorm": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P]},
+    "gemm.cu": {
+        "fm_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, *_DROP, _P, _P, _I, _F,
+                    _P, _P, _P],
+        "fm_colsum": [_P, _P, _I, _I, _I, _P],
+    },
+    "flash_attention.cu": {
+        "fm_flash_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        "fm_flash_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    },
+    "add_layernorm.cu": {
+        "fm_add_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, *_DROP, _I, _P],
+        "fm_layernorm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, *_DROP, _I, _P],
+    },
 }
 
 
@@ -154,60 +174,174 @@ def _require(t: torch.Tensor, name: str, shape, dtype, device) -> None:
         raise ValueError(f"{name}: must be 16-byte aligned")
 
 
-def gemm_bias_act(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                  out: torch.Tensor, activation: str = "none") -> torch.Tensor:
-    """``out = act(a @ w.T + bias)``: a [M, K], w [N, K] (nn.Linear layout)
-    in the io dtype, bias [N] fp32, out [M, N] in the io dtype or fp32."""
-    m, k = a.shape
-    n = w.shape[0]
-    if k % 32:
-        raise ValueError(f"gemm: K={k} must be a multiple of 32")
-    _require(a, "a", (m, k), a.dtype, a.device)
-    _require(w, "w", (n, k), a.dtype, a.device)
-    _require(bias, "bias", (n,), torch.float32, a.device)
-    _require(out, "out", (m, n), out.dtype, a.device)
-    code = _dtype_code(a)
-    if out.dtype not in (a.dtype, torch.float32):
-        raise TypeError(f"gemm: out must be {a.dtype} or float32, got {out.dtype}")
-    with torch.cuda.device(a.device):
-        rc = kernels()["gemm.cu"].fm_gemm_bias_act(
-            a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k, code,
-            int(out.dtype == torch.float32), ACT_CODES[activation], _stream(a))
-    _check(rc, "fm_gemm_bias_act")
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *, layout: str = "nt",
+         bias: Optional[torch.Tensor] = None, activation: str = "none",
+         dropout: Dropout = Dropout(), aux: Optional[torch.Tensor] = None,
+         gate: Optional[torch.Tensor] = None, gate_kind: Optional[str] = None,
+         gate_scale: float = 1.0, resid: Optional[torch.Tensor] = None,
+         colpart: Optional[torch.Tensor] = None, splits: int = 1) -> torch.Tensor:
+    """``out = epilogue(op(a) . op(b))`` (``csrc/gemm.cu``).
+
+    ``layout`` "nt": a [M, K], b [N, K] (nn.Linear weight); "nn": a [M, K],
+    b [K, N]; "tn": a [K, M], b [K, N] (a weight grad, K the rows; with
+    ``splits`` > 1 ``out`` is [splits, M, N] fp32 partials for
+    :func:`colsum`).  a, b in the io dtype; out in the io dtype or fp32.
+    Epilogue operands: bias [N] fp32, aux / gate [M, N] io dtype, resid
+    [M, N] fp32, colpart [ceil(M / 128), N] fp32.
+    """
+    if layout == "tn":
+        k, m = a.shape
+        n = b.shape[1]
+        bshape = (k, n)
+    else:
+        m, k = a.shape
+        n = b.shape[0] if layout == "nt" else b.shape[1]
+        bshape = (n, k) if layout == "nt" else (k, n)
+    dev, dt = a.device, a.dtype
+    if layout != "tn" and (k % 32 or splits != 1):
+        raise ValueError(f"gemm {layout}: K={k} must be a multiple of 32, one split")
+    if (layout == "nn" and n % 8) or (layout == "tn" and (m % 8 or n % 8)):
+        raise ValueError(f"gemm {layout}: M={m}, N={n} must be multiples of 8")
+    _require(a, "a", a.shape, dt, dev)
+    _require(b, "b", bshape, dt, dev)
+    _require(out, "out", (splits, m, n) if splits > 1 else (m, n), out.dtype, dev)
+    if out.dtype not in (dt, torch.float32) or (splits > 1 and out.dtype != torch.float32):
+        raise TypeError(f"gemm: out must be {dt} or float32 (float32 when split), got {out.dtype}")
+    if bias is not None:
+        _require(bias, "bias", (n,), torch.float32, dev)
+    for name, t in (("aux", aux), ("gate", gate)):
+        if t is not None:
+            _require(t, name, (m, n), dt, dev)
+    if resid is not None:
+        _require(resid, "resid", (m, n), torch.float32, dev)
+    if colpart is not None:
+        _require(colpart, "colpart", (-(-m // 128), n), torch.float32, dev)
+    if (gate is None) != (gate_kind is None):
+        raise ValueError("gemm: gate and gate_kind go together")
+    with torch.cuda.device(dev):
+        rc = kernels()["gemm.cu"].fm_gemm(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, _LAYOUTS[layout], splits,
+            _dtype_code(a), int(out.dtype == torch.float32), _ptr(bias), ACT_CODES[activation],
+            *dropout, _ptr(aux), _ptr(gate), _GATE_CODES[gate_kind], float(gate_scale),
+            _ptr(resid), _ptr(colpart), _stream(a))
+    _check(rc, "fm_gemm")
     return out
 
 
-def flash_attn_fwd(qkv: torch.Tensor, mask: torch.Tensor, out: torch.Tensor,
-                   num_heads: int) -> torch.Tensor:
-    """Masked attention over qkv [B, S, 3H] into out [B, S, H]."""
+def colsum(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``out[n] = sum_m x[m, n]`` in a fixed order (x fp32 [M, N], out [N]
+    fp32 or bf16): the deterministic reduction of every partial sum."""
+    m, n = x.shape
+    _require(x, "x", (m, n), torch.float32, x.device)
+    _require(out, "out", (n,), out.dtype, x.device)
+    _dtype_code(out)
+    with torch.cuda.device(x.device):
+        rc = kernels()["gemm.cu"].fm_colsum(x.data_ptr(), out.data_ptr(), m, n,
+                                             int(out.dtype == torch.bfloat16), _stream(x))
+    _check(rc, "fm_colsum")
+    return out
+
+
+def _heads(qkv: torch.Tensor, num_heads: int):
     b, s, h3 = qkv.shape
     h = h3 // 3
     d = h // num_heads
     if h3 % 3 or h % num_heads or d > 128:
         raise ValueError(f"attention: H={h}, heads={num_heads} needs d=H/heads <= 128")
-    _require(qkv, "qkv", (b, s, h3), qkv.dtype, qkv.device)
+    return b, s, h, d
+
+
+def flash_attn_fwd(qkv: torch.Tensor, mask: torch.Tensor, out: torch.Tensor,
+                   num_heads: int, stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked attention over qkv [B, S, 3H] into out [B, S, H]; with
+    ``stats`` [B, heads, S, 2] fp32 also each row's softmax max and sum."""
+    b, s, h, d = _heads(qkv, num_heads)
+    _require(qkv, "qkv", (b, s, 3 * h), qkv.dtype, qkv.device)
     _require(mask, "mask", (b, s), torch.int32, qkv.device)
     _require(out, "out", (b, s, h), qkv.dtype, qkv.device)
+    if stats is not None:
+        _require(stats, "stats", (b, num_heads, s, 2), torch.float32, qkv.device)
     with torch.cuda.device(qkv.device):
         rc = kernels()["flash_attention.cu"].fm_flash_attn_fwd(
-            qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), b, s, num_heads, d,
+            qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), _ptr(stats), b, s, num_heads, d,
             1.0 / (d ** 0.5), _dtype_code(qkv), _stream(qkv))
     _check(rc, "fm_flash_attn_fwd")
     return out
 
 
+def flash_attn_bwd(qkv: torch.Tensor, o: torch.Tensor, dout: torch.Tensor, mask: torch.Tensor,
+                   stats: torch.Tensor, rowterm: torch.Tensor, dqkv: torch.Tensor,
+                   colpart: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Backward of :func:`flash_attn_fwd` (two launches): dqkv [B, S, 3H]
+    (io dtype) from qkv, o, dout [B, S, H] and the forward's stats;
+    rowterm [B, heads, S] fp32 is scratch, colpart [B * ceil(S / tile), 3H]
+    fp32 receives the column partials of the fp32 dq | dk | dv."""
+    b, s, h, d = _heads(qkv, num_heads)
+    dev, dt = qkv.device, qkv.dtype
+    tiles = -(-s // FLASH_BWD_TILE[dt])
+    _require(qkv, "qkv", (b, s, 3 * h), dt, dev)
+    _require(o, "o", (b, s, h), dt, dev)
+    _require(dout, "dout", (b, s, h), dt, dev)
+    _require(mask, "mask", (b, s), torch.int32, dev)
+    _require(stats, "stats", (b, num_heads, s, 2), torch.float32, dev)
+    _require(rowterm, "rowterm", (b, num_heads, s), torch.float32, dev)
+    _require(dqkv, "dqkv", (b, s, 3 * h), dt, dev)
+    _require(colpart, "colpart", (b * tiles, 3 * h), torch.float32, dev)
+    with torch.cuda.device(dev):
+        rc = kernels()["flash_attention.cu"].fm_flash_attn_bwd(
+            qkv.data_ptr(), o.data_ptr(), dout.data_ptr(), mask.data_ptr(), stats.data_ptr(),
+            rowterm.data_ptr(), dqkv.data_ptr(), colpart.data_ptr(), b, s, num_heads, d,
+            1.0 / (d ** 0.5), _dtype_code(qkv), _stream(qkv))
+    _check(rc, "fm_flash_attn_bwd")
+    return dqkv
+
+
 def add_layernorm(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor,
-                  beta: torch.Tensor, out: torch.Tensor, eps: float) -> torch.Tensor:
-    """``out = LN(round(x + y))``: x, out [R, H] io dtype; y [R, H] fp32."""
+                  beta: torch.Tensor, out: torch.Tensor, eps: float,
+                  dropout: Dropout = Dropout(), z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out = LN(z)``, ``z = round(x + dropout(y))``: x, out [R, H] io dtype;
+    y [R, H] fp32; z [R, H] io dtype is stored when given."""
     r, h = x.shape
     _require(x, "x", (r, h), x.dtype, x.device)
     _require(y, "y", (r, h), torch.float32, x.device)
     _require(gamma, "gamma", (h,), torch.float32, x.device)
     _require(beta, "beta", (h,), torch.float32, x.device)
     _require(out, "out", (r, h), x.dtype, x.device)
+    if z is not None:
+        _require(z, "z", (r, h), x.dtype, x.device)
     with torch.cuda.device(x.device):
         rc = kernels()["add_layernorm.cu"].fm_add_layernorm(
             x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            r, h, float(eps), _dtype_code(x), _stream(x))
+            _ptr(z), r, h, float(eps), *dropout, _dtype_code(x), _stream(x))
     _check(rc, "fm_add_layernorm")
     return out
+
+
+#: Rows of a LayerNorm-backward block (its partials have ceil(R / 64) rows).
+LN_BWD_ROWS = 64
+
+
+def layernorm_bwd(g: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor, dz: torch.Tensor,
+                  da: torch.Tensor, part: torch.Tensor, eps: float,
+                  dropout: Dropout = Dropout()) -> torch.Tensor:
+    """LayerNorm VJP from the stored z: dz [R, H] fp32, da = round(replay(dz))
+    [R, H] io dtype, and part [3, ceil(R / 64), H] fp32 block partials of
+    (g * xhat, g, replay(dz)) for dgamma, dbeta and the bias grad."""
+    r, h = g.shape
+    dev, dt = g.device, g.dtype
+    _require(g, "g", (r, h), dt, dev)
+    _require(z, "z", (r, h), dt, dev)
+    _require(gamma, "gamma", (h,), torch.float32, dev)
+    _require(dz, "dz", (r, h), torch.float32, dev)
+    _require(da, "da", (r, h), dt, dev)
+    _require(part, "part", (3, -(-r // LN_BWD_ROWS), h), torch.float32, dev)
+    with torch.cuda.device(dev):
+        rc = kernels()["add_layernorm.cu"].fm_layernorm_bwd(
+            g.data_ptr(), z.data_ptr(), gamma.data_ptr(), dz.data_ptr(), da.data_ptr(),
+            part.data_ptr(), r, h, float(eps), *dropout, _dtype_code(g), _stream(g))
+    _check(rc, "fm_layernorm_bwd")
+    return da

@@ -1,67 +1,213 @@
-// Residual add + LayerNorm epilogue of a post-LN half-layer:
+// Residual + dropout + LayerNorm epilogue of a post-LN half-layer, forward
+// and backward:
 //
-//     z   = round_io(x + y)                  x [R, H] io dtype, y [R, H] fp32
-//     out = (z - mean(z)) * rsqrt(var(z) + eps) * gamma + beta
+//   forward   z   = round_io(x + dropout(y))      x [R, H] io, y [R, H] fp32
+//             out = (z - mean(z)) * rsqrt(var(z) + eps) * gamma + beta
+//   backward  from g = dL/dout, the stored z and gamma (TPU: _ln_bwd_math):
+//             dz  = rstd * (g*gamma - mean(g*gamma) - xhat * mean(g*gamma*xhat))
+//             da  = round_io(dropout_replay(dz))   (the branch into y)
+//             per-block column sums of g*xhat, g and dropout_replay(dz) in
+//             fp32 (dgamma, dbeta and the last projection's bias grad),
+//             added in a fixed order by fm_colsum: no atomics, so a step
+//             gives the same bits every time it runs.
 //
-// Replaces the epilogue of both Pallas TPU kernels on the serving path:
+// Replaces the epilogues of the Pallas TPU kernels
 // fairmultimodal_tpu/ops/fused_attention_block.py::_mega_ln_fwd_kernel
-// (lines 565-578) and fairmultimodal_tpu/ops/fused_ffn.py::_fwd_ln_kernel
-// through _ln_fwd_math (lines 383-394).  y is the fp32 output of the last
-// projection (bias included), so z is rounded to the io dtype once, as the
-// TPU kernels round it, and the statistics are fp32 two-pass (mean, then the
-// mean of squared deviations) from that rounded z.  eps is always passed by
-// the caller (1e-5 lab encoder, 1e-12 BERT): the TPU kernels' 1e-6 default
-// is never used.
+// (lines 565-578) and ::_mega_ln_bwd_kernel (lines 681-715), and
+// fairmultimodal_tpu/ops/fused_ffn.py::_fwd_ln_kernel / _bwd_ln_kernel
+// through _ln_fwd_math / _ln_bwd_math (lines 383-411, 537-545).  The
+// dropout is the outer stream of the half-layer (philox.cuh), drawn in the
+// forward and replayed in the backward at the same flat index row * H + col.
+// z is stored rounded to the io dtype and both passes take the statistics
+// from it, as the TPU kernels do.
 //
-// Bound: bytes.  At the lab shape (R = 256*560, H 768, bf16 io) it reads x
-// and y and writes out, 0.88 GB, 0.26 ms at 3.35 TB/s.  The TPU kernels do
-// this in VMEM on the accumulator they already hold; a fused GEMM epilogue
-// (a block owning whole H-wide rows) would remove the fp32 y round trip.
+// Bound: bytes.  At the lab shape (R = 256*560, H 768, bf16 io) the
+// forward reads x and y and writes out and z, 1.1 GB, 0.33 ms at 3.35 TB/s;
+// the backward reads g and z and writes dz (fp32) and da, 1.1 GB.
 //
-// Design: one warp per row, eight rows per 256-thread block; the row is
-// re-read from L1/L2 for each of the three passes.
+// Design: one warp per row, the row held in registers (NC = H/32 values a
+// lane, rounded up to a multiple of 4), so the Philox bits are drawn once
+// per element.  The backward keeps its three column partials in registers
+// across the block's 64 rows and reduces the 8 warps through shared memory.
 #include "fm_common.cuh"
+#include "philox.cuh"
 
 namespace {
 
 constexpr int LN_THREADS = 256;
-constexpr int ROWS_PER_BLOCK = LN_THREADS / 32;
+constexpr int WARPS = LN_THREADS / 32;
+constexpr int BWD_ROWS = 64;  // rows per backward block (8 per warp)
+constexpr int MAX_H = 1024;
 
-template <typename T>
+template <typename T, int NC>
 __global__ void __launch_bounds__(LN_THREADS)
 add_layernorm_kernel(const T* __restrict__ x, const float* __restrict__ y,
                      const float* __restrict__ gamma, const float* __restrict__ beta,
-                     T* __restrict__ out, int R, int H, float eps) {
-  const int row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
+                     T* __restrict__ out, T* __restrict__ zout, int R, int H, float eps,
+                     fm::Dropout drop) {
+  const int row = blockIdx.x * WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= R) return;  // whole warp exits together
-  const T* xr = x + (size_t)row * H;
-  const float* yr = y + (size_t)row * H;
-  T* outr = out + (size_t)row * H;
-
+  const size_t base = (size_t)row * H;
+  float v[NC];
   float sum = 0.0f;
-  for (int i = lane; i < H; i += 32) sum += fm::round_io<T>(fm::to_f32(xr[i]) + yr[i]);
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int i = lane + 32 * j;
+    v[j] = 0.0f;
+    if (i < H) {
+      const float yy = fm::apply_dropout(drop, y[base + i], base + i);
+      v[j] = fm::round_io<T>(fm::to_f32(x[base + i]) + yy);
+      sum += v[j];
+    }
+  }
   const float mu = fm::warp_sum(sum) / H;
-
   float sq = 0.0f;
-  for (int i = lane; i < H; i += 32) {
-    const float dz = fm::round_io<T>(fm::to_f32(xr[i]) + yr[i]) - mu;
-    sq += dz * dz;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const float dv = v[j] - mu;
+    if (lane + 32 * j < H) sq += dv * dv;
   }
   const float rstd = rsqrtf(fm::warp_sum(sq) / H + eps);
-
-  for (int i = lane; i < H; i += 32) {
-    const float z = fm::round_io<T>(fm::to_f32(xr[i]) + yr[i]);
-    outr[i] = fm::from_f32<T>((z - mu) * rstd * gamma[i] + beta[i]);
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int i = lane + 32 * j;
+    if (i < H) {
+      if (zout) zout[base + i] = fm::from_f32<T>(v[j]);
+      out[base + i] = fm::from_f32<T>((v[j] - mu) * rstd * gamma[i] + beta[i]);
+    }
   }
 }
 
+template <typename T, int NC>
+__global__ void __launch_bounds__(LN_THREADS)
+layernorm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ z,
+                     const float* __restrict__ gamma, float* __restrict__ dz,
+                     T* __restrict__ da, float* __restrict__ part, int R, int H, float eps,
+                     fm::Dropout drop) {
+  __shared__ float red[WARPS][MAX_H];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float pg[NC], pb[NC], pd[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) pg[j] = pb[j] = pd[j] = 0.0f;
+
+  for (int rr = warp; rr < BWD_ROWS; rr += WARPS) {
+    const int row = blockIdx.x * BWD_ROWS + rr;
+    if (row >= R) break;  // uniform across the warp
+    const size_t base = (size_t)row * H;
+    float gv[NC], zv[NC];
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int i = lane + 32 * j;
+      gv[j] = zv[j] = 0.0f;
+      if (i < H) {
+        gv[j] = fm::to_f32(g[base + i]);
+        zv[j] = fm::to_f32(z[base + i]);
+        sum += zv[j];
+      }
+    }
+    const float mu = fm::warp_sum(sum) / H;
+    float sq = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const float dv = zv[j] - mu;
+      if (lane + 32 * j < H) sq += dv * dv;
+    }
+    const float rstd = rsqrtf(fm::warp_sum(sq) / H + eps);
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int i = lane + 32 * j;
+      if (i < H) {
+        zv[j] = (zv[j] - mu) * rstd;  // xhat
+        const float gg = gv[j] * gamma[i];
+        s1 += gg;
+        s2 += gg * zv[j];
+      }
+    }
+    const float m1 = fm::warp_sum(s1) / H;
+    const float m2 = fm::warp_sum(s2) / H;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int i = lane + 32 * j;
+      if (i < H) {
+        const float d = rstd * (gv[j] * gamma[i] - m1 - zv[j] * m2);
+        const float a = fm::apply_dropout(drop, d, base + i);
+        dz[base + i] = d;
+        da[base + i] = fm::from_f32<T>(a);
+        pg[j] += gv[j] * zv[j];
+        pb[j] += gv[j];
+        pd[j] += a;
+      }
+    }
+  }
+
+  // Block partials: the 8 warps' sums added in warp order.
+  const size_t plane = (size_t)gridDim.x * H;
+  auto flush = [&](const float (&p)[NC], float* dst) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int i = lane + 32 * j;
+      if (i < H) red[warp][i] = p[j];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < H; i += LN_THREADS) {
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) s += red[w][i];
+      dst[(size_t)blockIdx.x * H + i] = s;
+    }
+    __syncthreads();
+  };
+  flush(pg, part);
+  flush(pb, part + plane);
+  flush(pd, part + 2 * plane);
+}
+
+// NC (values a lane) for a row of H: H/32 rounded up to a multiple of 4.
+#define FM_LN_DISPATCH(H, CALL)               \
+  do {                                        \
+    const int nc_ = ((H) + 127) / 128 * 4;    \
+    switch (nc_) {                            \
+      case 4: CALL(4); break;                 \
+      case 8: CALL(8); break;                 \
+      case 12: CALL(12); break;               \
+      case 16: CALL(16); break;               \
+      case 20: CALL(20); break;               \
+      case 24: CALL(24); break;               \
+      case 28: CALL(28); break;               \
+      case 32: CALL(32); break;               \
+      default: return cudaErrorInvalidValue;  \
+    }                                         \
+  } while (0)
+
 template <typename T>
-cudaError_t launch(const void* x, const float* y, const float* gamma, const float* beta,
-                   void* out, int R, int H, float eps, cudaStream_t stream) {
-  const int blocks = (R + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  add_layernorm_kernel<T><<<blocks, LN_THREADS, 0, stream>>>(
-      static_cast<const T*>(x), y, gamma, beta, static_cast<T*>(out), R, H, eps);
+cudaError_t launch_fwd(const void* x, const float* y, const float* gamma, const float* beta,
+                       void* out, void* z, int R, int H, float eps, const fm::Dropout& d,
+                       cudaStream_t s) {
+  const int blocks = (R + WARPS - 1) / WARPS;
+#define FM_FWD(NC)                                                                        \
+  add_layernorm_kernel<T, NC><<<blocks, LN_THREADS, 0, s>>>(                              \
+      static_cast<const T*>(x), y, gamma, beta, static_cast<T*>(out), static_cast<T*>(z), \
+      R, H, eps, d)
+  FM_LN_DISPATCH(H, FM_FWD);
+#undef FM_FWD
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* g, const void* z, const float* gamma, float* dz, void* da,
+                       float* part, int R, int H, float eps, const fm::Dropout& d,
+                       cudaStream_t s) {
+  const int blocks = (R + BWD_ROWS - 1) / BWD_ROWS;
+#define FM_BWD(NC)                                                                      \
+  layernorm_bwd_kernel<T, NC><<<blocks, LN_THREADS, 0, s>>>(                            \
+      static_cast<const T*>(g), static_cast<const T*>(z), gamma, dz, static_cast<T*>(da), \
+      part, R, H, eps, d)
+  FM_LN_DISPATCH(H, FM_BWD);
+#undef FM_BWD
   return cudaGetLastError();
 }
 
@@ -69,15 +215,37 @@ cudaError_t launch(const void* x, const float* y, const float* gamma, const floa
 
 extern "C" {
 
-// x [R, H] io dtype, y [R, H] fp32, gamma/beta [H] fp32, out [R, H] io dtype.
+// x [R, H] io dtype, y [R, H] fp32, gamma/beta [H] fp32, out [R, H] io;
+// z [R, H] io receives round(x + dropout(y)) when not null.  H <= 1024.
 int fm_add_layernorm(const void* x, const void* y, const void* gamma, const void* beta,
-                     void* out, int R, int H, float eps, int dtype, void* stream) {
+                     void* out, void* z, int R, int H, float eps, unsigned long long seed,
+                     unsigned int stream_id, unsigned int threshold, float inv_keep,
+                     int drop_on, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const fm::Dropout d{seed, stream_id, threshold, inv_keep, drop_on};
   const float* yy = static_cast<const float*>(y);
-  const float* g = static_cast<const float*>(gamma);
+  const float* gm = static_cast<const float*>(gamma);
   const float* bt = static_cast<const float*>(beta);
-  if (dtype == FM_F32) return launch<float>(x, yy, g, bt, out, R, H, eps, s);
-  if (dtype == FM_BF16) return launch<fm_bf16>(x, yy, g, bt, out, R, H, eps, s);
+  if (H > MAX_H) return cudaErrorInvalidValue;
+  if (dtype == FM_F32) return launch_fwd<float>(x, yy, gm, bt, out, z, R, H, eps, d, s);
+  if (dtype == FM_BF16) return launch_fwd<fm_bf16>(x, yy, gm, bt, out, z, R, H, eps, d, s);
+  return cudaErrorInvalidValue;
+}
+
+// g, z [R, H] io dtype, gamma [H] fp32 -> dz [R, H] fp32, da [R, H] io, and
+// part [3, ceil(R/64), H] fp32 block partials of (g*xhat, g, dropout(dz)).
+int fm_layernorm_bwd(const void* g, const void* z, const void* gamma, void* dz, void* da,
+                     void* part, int R, int H, float eps, unsigned long long seed,
+                     unsigned int stream_id, unsigned int threshold, float inv_keep,
+                     int drop_on, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const fm::Dropout d{seed, stream_id, threshold, inv_keep, drop_on};
+  const float* gm = static_cast<const float*>(gamma);
+  float* dzz = static_cast<float*>(dz);
+  float* pp = static_cast<float*>(part);
+  if (H > MAX_H) return cudaErrorInvalidValue;
+  if (dtype == FM_F32) return launch_bwd<float>(g, z, gm, dzz, da, pp, R, H, eps, d, s);
+  if (dtype == FM_BF16) return launch_bwd<fm_bf16>(g, z, gm, dzz, da, pp, R, H, eps, d, s);
   return cudaErrorInvalidValue;
 }
 

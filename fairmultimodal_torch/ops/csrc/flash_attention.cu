@@ -45,6 +45,8 @@
 #include <math.h>
 #include <mma.h>
 
+#include <type_traits>
+
 #include "fm_common.cuh"
 
 namespace {
@@ -63,7 +65,8 @@ constexpr size_t smem_bytes() {
 template <int DP>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attn_fwd_f32_kernel(const float* __restrict__ qkv, const int* __restrict__ mask,
-                          float* __restrict__ out, int S, int nh, int d, float scale) {
+                          float* __restrict__ out, float* __restrict__ stats, int S, int nh,
+                          int d, float scale) {
   static_assert(DP % 32 == 0 && DP <= 128, "head dim pad");
   constexpr int DC = DP / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -178,6 +181,11 @@ flash_attn_fwd_f32_kernel(const float* __restrict__ qkv, const int* __restrict__
     const float l = fm::half_warp_sum(l_i[i]);
     const int row = q0 + r * 4 + i;
     if (row >= S) continue;
+    if (stats && c == 0) {
+      float* st = stats + (((size_t)b * nh + h) * S + row) * 2;
+      st[0] = m_i[i];
+      st[1] = l;
+    }
     float* dst = out + ((size_t)b * S + row) * orow + (size_t)h * d;
 #pragma unroll
     for (int jj = 0; jj < DC; ++jj) {
@@ -257,7 +265,8 @@ __device__ __forceinline__ void scores_tc(const fm_bf16* Qs, const fm_bf16* Ks, 
 template <int DP>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attn_fwd_tc_kernel(const fm_bf16* __restrict__ qkv, const int* __restrict__ mask,
-                         fm_bf16* __restrict__ out, int S, int nh, int d, float scale) {
+                         fm_bf16* __restrict__ out, float* __restrict__ stats, int S, int nh,
+                         int d, float scale) {
   using namespace nvcuda;
   using L = TcSmem<DP>;
   constexpr int LD = L::LD;
@@ -317,6 +326,11 @@ flash_attn_fwd_tc_kernel(const fm_bf16* __restrict__ qkv, const int* __restrict_
   }
   l += __shfl_xor_sync(0xffffffffu, l, 1);
   l += __shfl_xor_sync(0xffffffffu, l, 2);
+  if (stats && q == 0 && q0 + row < S) {
+    float* st = stats + (((size_t)b * nh + h) * S + q0 + row) * 2;
+    st[0] = m;
+    st[1] = l;
+  }
 
   // Pass 2: p = exp(s - m) / l rounded to bf16, o += p . v in fp32.
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[OPW];
@@ -377,8 +391,8 @@ flash_attn_fwd_tc_kernel(const fm_bf16* __restrict__ qkv, const int* __restrict_
 }
 
 template <int DP>
-cudaError_t launch_tc_dp(const void* qkv, const int* mask, void* out, int B, int S, int nh,
-                         int d, float scale, cudaStream_t stream) {
+cudaError_t launch_tc_dp(const void* qkv, const int* mask, void* out, float* stats, int B,
+                         int S, int nh, int d, float scale, cudaStream_t stream) {
   constexpr int bytes = TcSmem<DP>::BYTES;
   // Set on every launch: the attribute belongs to the current device, and
   // the call costs about a microsecond.
@@ -387,24 +401,25 @@ cudaError_t launch_tc_dp(const void* qkv, const int* mask, void* out, int B, int
   if (e != cudaSuccess) return e;
   const dim3 grid((S + FA_BM - 1) / FA_BM, nh, B);
   flash_attn_fwd_tc_kernel<DP><<<grid, FA_THREADS, bytes, stream>>>(
-      static_cast<const fm_bf16*>(qkv), mask, static_cast<fm_bf16*>(out), S, nh, d, scale);
+      static_cast<const fm_bf16*>(qkv), mask, static_cast<fm_bf16*>(out), stats, S, nh, d,
+      scale);
   return cudaGetLastError();
 }
 
-cudaError_t launch_tc(const void* qkv, const int* mask, void* out, int B, int S, int nh, int d,
-                      float scale, cudaStream_t stream) {
-  if (d <= 32) return launch_tc_dp<32>(qkv, mask, out, B, S, nh, d, scale, stream);
-  if (d <= 64) return launch_tc_dp<64>(qkv, mask, out, B, S, nh, d, scale, stream);
-  if (d <= 96) return launch_tc_dp<96>(qkv, mask, out, B, S, nh, d, scale, stream);
-  if (d <= 128) return launch_tc_dp<128>(qkv, mask, out, B, S, nh, d, scale, stream);
+cudaError_t launch_tc(const void* qkv, const int* mask, void* out, float* stats, int B, int S,
+                  int nh, int d, float scale, cudaStream_t stream) {
+  if (d <= 32) return launch_tc_dp<32>(qkv, mask, out, stats, B, S, nh, d, scale, stream);
+  if (d <= 64) return launch_tc_dp<64>(qkv, mask, out, stats, B, S, nh, d, scale, stream);
+  if (d <= 96) return launch_tc_dp<96>(qkv, mask, out, stats, B, S, nh, d, scale, stream);
+  if (d <= 128) return launch_tc_dp<128>(qkv, mask, out, stats, B, S, nh, d, scale, stream);
   return cudaErrorInvalidValue;
 }
 
 // ---- fp32 dispatch ---------------------------------------------------------------
 
 template <int DP>
-cudaError_t launch_f32_dp(const void* qkv, const int* mask, void* out, int B, int S, int nh,
-                          int d, float scale, cudaStream_t stream) {
+cudaError_t launch_f32_dp(const void* qkv, const int* mask, void* out, float* stats, int B,
+                          int S, int nh, int d, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DP>();
   cudaError_t e = cudaFuncSetAttribute(flash_attn_fwd_f32_kernel<DP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -412,16 +427,358 @@ cudaError_t launch_f32_dp(const void* qkv, const int* mask, void* out, int B, in
   if (e != cudaSuccess) return e;
   const dim3 grid((S + FA_BM - 1) / FA_BM, nh, B);
   flash_attn_fwd_f32_kernel<DP><<<grid, FA_THREADS, bytes, stream>>>(
-      static_cast<const float*>(qkv), mask, static_cast<float*>(out), S, nh, d, scale);
+      static_cast<const float*>(qkv), mask, static_cast<float*>(out), stats, S, nh, d, scale);
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(const void* qkv, const int* mask, void* out, int B, int S, int nh, int d,
-                       float scale, cudaStream_t stream) {
-  if (d <= 32) return launch_f32_dp<32>(qkv, mask, out, B, S, nh, d, scale, stream);
-  if (d <= 64) return launch_f32_dp<64>(qkv, mask, out, B, S, nh, d, scale, stream);
-  if (d <= 96) return launch_f32_dp<96>(qkv, mask, out, B, S, nh, d, scale, stream);
-  if (d <= 128) return launch_f32_dp<128>(qkv, mask, out, B, S, nh, d, scale, stream);
+cudaError_t launch_f32(const void* qkv, const int* mask, void* out, float* stats, int B, int S,
+                  int nh, int d, float scale, cudaStream_t stream) {
+  if (d <= 32) return launch_f32_dp<32>(qkv, mask, out, stats, B, S, nh, d, scale, stream);
+  if (d <= 64) return launch_f32_dp<64>(qkv, mask, out, stats, B, S, nh, d, scale, stream);
+  if (d <= 96) return launch_f32_dp<96>(qkv, mask, out, stats, B, S, nh, d, scale, stream);
+  if (d <= 128) return launch_f32_dp<128>(qkv, mask, out, stats, B, S, nh, d, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
+
+// ---- backward -------------------------------------------------------------------
+//
+// Replaces the attention core of the Pallas TPU kernel
+// fairmultimodal_tpu/ops/fused_attention_block.py::_mega_ln_bwd_kernel
+// (lines 717-744), which holds the whole [S, S] tile of one (batch, head)
+// in VMEM and recomputes P from the stored q and k.  Here two kernels tile
+// it, each recomputing p = exp(s * scale + bias - m) / l from the row max
+// and sum the forward stored (the same expression as the forward, so p is
+// the forward's p bit for bit), and neither uses atomics:
+//   - flash_bwd_dq: one block per 64-query tile (32 for fp32); it first
+//     writes D_i = rowsum(dO * O) for its rows, then walks the key tiles:
+//     dS = P * (dO.V^T - D), dQ += round(dS * scale) . K;
+//   - flash_bwd_dkdv: one block per key tile, after flash_bwd_dq (it reads
+//     D); it walks the query tiles: dV += round(P)^T . dO and
+//     dK += round(dS * scale)^T . Q.
+// The TPU kernel takes the softmax-VJP row term as rowsum(dP * P); with P
+// normalised that equals dO . O, and D here is computed from the stored o
+// (rounded to the io dtype in bf16).  Rounding points are the TPU kernel's:
+// dO arrives in the io dtype, p and dS * scale are rounded before their
+// products, dq/dk/dv are rounded when written into the [B, S, 3H] dqkv
+// buffer (head h at column h*d of each of the q | k | v blocks) while their
+// bias grads are column sums of the fp32 values, written as per-tile
+// partials [B * ceil(S / tile), 3H] for fm_colsum.
+//
+// Bound at the lab shape: 8*B*S^2*H = 5.1e11 FLOP of the attention
+// backward's products (0.52 ms at the bf16 peak); this design executes
+// 1.4x that (the dQ kernel recomputes S and dP).  bf16 runs every product
+// on WMMA fragments with fp32 accumulators kept in shared memory (simple,
+// not fast: each product loads and stores its accumulator tile); fp32 runs
+// the same structure with CUDA-core FMA loops.
+
+template <typename T>
+struct Pad {
+  static constexpr int V = 16 / sizeof(T);  // elements per 16 bytes
+};
+
+template <typename T>
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() { return 0.0f; }
+template <>
+__device__ __forceinline__ fm_bf16 zero_of<fm_bf16>() { return __float2bfloat16_rn(0.0f); }
+
+// TL rows x d columns of one head (row stride rs) -> dst[TL][LD], zero padded.
+template <typename T, int DP, int TL>
+__device__ __forceinline__ void load_rows(const T* __restrict__ src, size_t rs, int r0, int S,
+                                          int d, T* dst) {
+  constexpr int V = Pad<T>::V;
+  constexpr int LD = DP + V;
+  if (d % V == 0) {
+    constexpr int CPR = DP / V;
+    for (int c = threadIdx.x; c < TL * CPR; c += FA_THREADS) {
+      const int row = c / CPR;
+      const int col = (c % CPR) * V;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r0 + row < S && col < d)
+        v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + row) * rs + col);
+      *reinterpret_cast<uint4*>(dst + row * LD + col) = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < TL * DP; i += FA_THREADS) {
+      const int row = i / DP, col = i % DP;
+      dst[row * LD + col] =
+          (r0 + row < S && col < d) ? src[(size_t)(r0 + row) * rs + col] : zero_of<T>();
+    }
+  }
+}
+
+// C[M][N] (fp32, pitch ldc) = (acc ? C : 0) + op(A) . op(B) over depth K.
+// A element (i, k) is A[i*sa + k], or A[k*sa + i] when AT; B element (k, j)
+// is B[k*sb + j], or B[j*sb + k] when BT.
+template <int M, int N, bool AT, bool BT>
+__device__ __forceinline__ void tile_mm(const fm_bf16* A, int sa, const fm_bf16* B, int sb,
+                                        int K, float* C, int ldc, bool acc) {
+  using namespace nvcuda;
+  using ALay = typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
+  using BLay = typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
+  constexpr int FN = N / 16;
+  for (int f = threadIdx.x / 32; f < (M / 16) * FN; f += FA_THREADS / 32) {
+    const int i0 = (f / FN) * 16, j0 = (f % FN) * 16;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
+    if (acc)
+      wmma::load_matrix_sync(c, C + i0 * ldc + j0, ldc, wmma::mem_row_major);
+    else
+      wmma::fill_fragment(c, 0.0f);
+    for (int k = 0; k < K; k += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, fm_bf16, ALay> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, fm_bf16, BLay> b;
+      wmma::load_matrix_sync(a, AT ? A + k * sa + i0 : A + i0 * sa + k, sa);
+      wmma::load_matrix_sync(b, BT ? B + j0 * sb + k : B + k * sb + j0, sb);
+      wmma::mma_sync(c, a, b, c);
+    }
+    wmma::store_matrix_sync(C + i0 * ldc + j0, c, ldc, wmma::mem_row_major);
+  }
+}
+
+template <int M, int N, bool AT, bool BT>
+__device__ __forceinline__ void tile_mm(const float* A, int sa, const float* B, int sb, int K,
+                                        float* C, int ldc, bool acc) {
+  for (int e = threadIdx.x; e < M * N; e += FA_THREADS) {
+    const int i = e / N, j = e % N;
+    float s = 0.0f;  // fmaf in k order: the fp32 forward's score arithmetic
+    for (int k = 0; k < K; ++k)
+      s = fmaf(AT ? A[k * sa + i] : A[i * sa + k], BT ? B[j * sb + k] : B[k * sb + j], s);
+    C[i * ldc + j] = acc ? C[i * ldc + j] + s : s;
+  }
+}
+
+template <typename T, int DP, int TL>
+struct BwdSmem {  // byte offsets of the shared-memory regions
+  static constexpr int LD = DP + Pad<T>::V;  // io tiles [TL][LD]
+  static constexpr int LP = TL + Pad<T>::V;  // io p / dS tiles [TL][LP]
+  static constexpr int LA = DP + 4;          // fp32 accumulators [TL][LA]
+  static constexpr int LS = TL + 4;          // fp32 score tiles [TL][LS]
+  static constexpr int T0 = 0;               // four io tiles
+  static constexpr int ACC = T0 + 4 * round128(TL * LD * (int)sizeof(T));
+  static constexpr int S32 = ACC + 2 * round128(TL * LA * 4);
+  static constexpr int DP32 = S32 + round128(TL * LS * 4);
+  static constexpr int PIO = DP32 + round128(TL * LS * 4);
+  static constexpr int DSIO = PIO + round128(TL * LP * (int)sizeof(T));
+  static constexpr int VEC = DSIO + round128(TL * LP * (int)sizeof(T));  // 4 x [TL] fp32
+  static constexpr int BYTES = VEC + round128(4 * TL * 4);
+};
+
+// Row max m and sum l of the forward, and D; rows past S get l = inf (so
+// p = 0) and D = 0.
+__device__ __forceinline__ void load_row_stats(const float* stats, const float* Dg, int r0,
+                                               int S, int TL, float* m, float* l, float* D) {
+  for (int i = threadIdx.x; i < TL; i += FA_THREADS) {
+    const bool ok = r0 + i < S;
+    m[i] = ok ? stats[(size_t)(r0 + i) * 2] : 0.0f;
+    l[i] = ok ? stats[(size_t)(r0 + i) * 2 + 1] : INFINITY;
+    if (Dg) D[i] = ok ? Dg[r0 + i] : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void load_key_bias(const int* mrow, int k0, int S, int TL,
+                                              float* kbias) {
+  for (int i = threadIdx.x; i < TL; i += FA_THREADS) {
+    const int key = k0 + i;
+    kbias[i] = key < S ? (mrow[key] > 0 ? 0.0f : -1e9f) : -INFINITY;
+  }
+}
+
+// Write rows [r0, r0 + TL) of an fp32 accumulator tile to dqkv (rounded)
+// and the column sums of its valid rows to colpart (fp32).
+template <typename T, int DP, int TL>
+__device__ __forceinline__ void write_grad(const float* acc, int la, T* dst, size_t rs, int r0,
+                                           int S, int d, float* colpart) {
+  for (int e = threadIdx.x; e < TL * d; e += FA_THREADS) {
+    const int i = e / d, c = e % d;
+    if (r0 + i < S) dst[(size_t)(r0 + i) * rs + c] = fm::from_f32<T>(acc[i * la + c]);
+  }
+  for (int c = threadIdx.x; c < d; c += FA_THREADS) {
+    float s = 0.0f;
+    for (int i = 0; i < TL && r0 + i < S; ++i) s += acc[i * la + c];
+    colpart[c] = s;
+  }
+}
+
+template <typename T, int DP, int TL>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
+                    const T* __restrict__ dout, const int* __restrict__ mask,
+                    const float* __restrict__ stats, float* __restrict__ Dg,
+                    T* __restrict__ dqkv, float* __restrict__ colpart, int S, int nh, int d,
+                    float scale) {
+  using L = BwdSmem<T, DP, TL>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw + L::T0);
+  T* dOs = Qs + TL * L::LD;
+  T* Ks = dOs + TL * L::LD;
+  T* Vs = Ks + TL * L::LD;
+  float* dQ = reinterpret_cast<float*>(smem_raw + L::ACC);
+  float* S32 = reinterpret_cast<float*>(smem_raw + L::S32);
+  float* dP32 = reinterpret_cast<float*>(smem_raw + L::DP32);
+  T* dSio = reinterpret_cast<T*>(smem_raw + L::DSIO);
+  float* m_s = reinterpret_cast<float*>(smem_raw + L::VEC);
+  float* l_s = m_s + TL;
+  float* D_s = l_s + TL;
+  float* kbias = D_s + TL;
+
+  const int q0 = blockIdx.x * TL;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int H = nh * d;
+  const size_t rs = 3 * (size_t)H;
+  const T* qb = qkv + (size_t)b * S * rs + (size_t)h * d;
+  const T* kb = qb + H;
+  const T* vb = qb + 2 * H;
+  const size_t ho = (size_t)b * S * H + (size_t)h * d;  // head offset in [B, S, H]
+  const int* mrow = mask + (size_t)b * S;
+  const size_t srow = ((size_t)b * nh + h) * S;  // row offset into stats / D
+
+  load_rows<T, DP, TL>(qb, rs, q0, S, d, Qs);
+  load_rows<T, DP, TL>(dout + ho, H, q0, S, d, dOs);
+  load_row_stats(stats + srow * 2, nullptr, q0, S, TL, m_s, l_s, D_s);
+  // D_i = rowsum(dO * O), one warp per row.
+  for (int i = threadIdx.x / 32; i < TL; i += FA_THREADS / 32) {
+    float s = 0.0f;
+    if (q0 + i < S)
+      for (int c = threadIdx.x % 32; c < d; c += 32)
+        s += fm::to_f32(dout[ho + (size_t)(q0 + i) * H + c]) *
+             fm::to_f32(o[ho + (size_t)(q0 + i) * H + c]);
+    s = fm::warp_sum(s);
+    if (threadIdx.x % 32 == 0) {
+      D_s[i] = s;
+      if (q0 + i < S) Dg[srow + q0 + i] = s;
+    }
+  }
+
+  for (int k0 = 0; k0 < S; k0 += TL) {
+    __syncthreads();  // previous tile fully consumed; D_s, Qs, dOs ready
+    load_rows<T, DP, TL>(kb, rs, k0, S, d, Ks);
+    load_rows<T, DP, TL>(vb, rs, k0, S, d, Vs);
+    load_key_bias(mrow, k0, S, TL, kbias);
+    __syncthreads();
+    tile_mm<TL, TL, false, true>(Qs, L::LD, Ks, L::LD, DP, S32, L::LS, false);
+    tile_mm<TL, TL, false, true>(dOs, L::LD, Vs, L::LD, DP, dP32, L::LS, false);
+    __syncthreads();
+    for (int e = threadIdx.x; e < TL * TL; e += FA_THREADS) {
+      const int i = e / TL, j = e % TL;
+      const float p = expf(S32[i * L::LS + j] * scale + kbias[j] - m_s[i]) / l_s[i];
+      const float ds = p * (dP32[i * L::LS + j] - D_s[i]);
+      dSio[i * L::LP + j] = fm::from_f32<T>(ds * scale);
+    }
+    __syncthreads();
+    tile_mm<TL, DP, false, false>(dSio, L::LP, Ks, L::LD, TL, dQ, L::LA, k0 > 0);
+  }
+  __syncthreads();
+  const int ntiles = gridDim.x;
+  write_grad<T, DP, TL>(dQ, L::LA, dqkv + (size_t)b * S * rs + (size_t)h * d, rs, q0, S, d,
+                        colpart + ((size_t)b * ntiles + blockIdx.x) * rs + (size_t)h * d);
+}
+
+template <typename T, int DP, int TL>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+                      const int* __restrict__ mask, const float* __restrict__ stats,
+                      const float* __restrict__ Dg, T* __restrict__ dqkv,
+                      float* __restrict__ colpart, int S, int nh, int d, float scale) {
+  using L = BwdSmem<T, DP, TL>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw + L::T0);
+  T* Vs = Ks + TL * L::LD;
+  T* Qs = Vs + TL * L::LD;
+  T* dOs = Qs + TL * L::LD;
+  float* dK = reinterpret_cast<float*>(smem_raw + L::ACC);
+  float* dV = dK + TL * L::LA;
+  float* S32 = reinterpret_cast<float*>(smem_raw + L::S32);
+  float* dP32 = reinterpret_cast<float*>(smem_raw + L::DP32);
+  T* Pio = reinterpret_cast<T*>(smem_raw + L::PIO);
+  T* dSio = reinterpret_cast<T*>(smem_raw + L::DSIO);
+  float* m_s = reinterpret_cast<float*>(smem_raw + L::VEC);
+  float* l_s = m_s + TL;
+  float* D_s = l_s + TL;
+  float* kbias = D_s + TL;
+
+  const int k0 = blockIdx.x * TL;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int H = nh * d;
+  const size_t rs = 3 * (size_t)H;
+  const T* qb = qkv + (size_t)b * S * rs + (size_t)h * d;
+  const T* kb = qb + H;
+  const T* vb = qb + 2 * H;
+  const size_t ho = (size_t)b * S * H + (size_t)h * d;
+  const size_t srow = ((size_t)b * nh + h) * S;
+
+  load_rows<T, DP, TL>(kb, rs, k0, S, d, Ks);
+  load_rows<T, DP, TL>(vb, rs, k0, S, d, Vs);
+  load_key_bias(mask + (size_t)b * S, k0, S, TL, kbias);
+
+  for (int q0 = 0; q0 < S; q0 += TL) {
+    __syncthreads();  // previous tile fully consumed
+    load_rows<T, DP, TL>(qb, rs, q0, S, d, Qs);
+    load_rows<T, DP, TL>(dout + ho, H, q0, S, d, dOs);
+    load_row_stats(stats + srow * 2, Dg + srow, q0, S, TL, m_s, l_s, D_s);
+    __syncthreads();
+    tile_mm<TL, TL, false, true>(Qs, L::LD, Ks, L::LD, DP, S32, L::LS, false);
+    tile_mm<TL, TL, false, true>(dOs, L::LD, Vs, L::LD, DP, dP32, L::LS, false);
+    __syncthreads();
+    for (int e = threadIdx.x; e < TL * TL; e += FA_THREADS) {
+      const int i = e / TL, j = e % TL;  // query i, key j
+      const float p = expf(S32[i * L::LS + j] * scale + kbias[j] - m_s[i]) / l_s[i];
+      const float ds = p * (dP32[i * L::LS + j] - D_s[i]);
+      Pio[i * L::LP + j] = fm::from_f32<T>(p);
+      dSio[i * L::LP + j] = fm::from_f32<T>(ds * scale);
+    }
+    __syncthreads();
+    tile_mm<TL, DP, true, false>(Pio, L::LP, dOs, L::LD, TL, dV, L::LA, q0 > 0);
+    tile_mm<TL, DP, true, false>(dSio, L::LP, Qs, L::LD, TL, dK, L::LA, q0 > 0);
+  }
+  __syncthreads();
+  const int ntiles = gridDim.x;
+  T* gb = dqkv + (size_t)b * S * rs + (size_t)h * d;
+  float* cp = colpart + ((size_t)b * ntiles + blockIdx.x) * rs + (size_t)h * d;
+  write_grad<T, DP, TL>(dK, L::LA, gb + H, rs, k0, S, d, cp + H);
+  write_grad<T, DP, TL>(dV, L::LA, gb + 2 * H, rs, k0, S, d, cp + 2 * H);
+}
+
+template <typename T, int DP>
+cudaError_t launch_bwd_dp(const void* qkv, const void* o, const void* dout, const int* mask,
+                          const float* stats, float* D, void* dqkv, float* colpart, int B,
+                          int S, int nh, int d, float scale, cudaStream_t s) {
+  constexpr int TL = sizeof(T) == 2 ? 64 : 32;
+  constexpr int bytes = BwdSmem<T, DP, TL>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DP, TL>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, DP, TL>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((S + TL - 1) / TL, nh, B);
+  flash_bwd_dq_kernel<T, DP, TL><<<grid, FA_THREADS, bytes, s>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(o), static_cast<const T*>(dout), mask,
+      stats, D, static_cast<T*>(dqkv), colpart, S, nh, d, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkdv_kernel<T, DP, TL><<<grid, FA_THREADS, bytes, s>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(dout), mask, stats, D,
+      static_cast<T*>(dqkv), colpart, S, nh, d, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* qkv, const void* o, const void* dout, const int* mask,
+                       const float* stats, float* D, void* dqkv, float* colpart, int B, int S,
+                       int nh, int d, float scale, cudaStream_t s) {
+  if (d <= 32)
+    return launch_bwd_dp<T, 32>(qkv, o, dout, mask, stats, D, dqkv, colpart, B, S, nh, d, scale, s);
+  if (d <= 64)
+    return launch_bwd_dp<T, 64>(qkv, o, dout, mask, stats, D, dqkv, colpart, B, S, nh, d, scale, s);
+  if (d <= 96)
+    return launch_bwd_dp<T, 96>(qkv, o, dout, mask, stats, D, dqkv, colpart, B, S, nh, d, scale, s);
+  if (d <= 128)
+    return launch_bwd_dp<T, 128>(qkv, o, dout, mask, stats, D, dqkv, colpart, B, S, nh, d, scale,
+                                 s);
   return cudaErrorInvalidValue;
 }
 
@@ -430,13 +787,36 @@ cudaError_t launch_f32(const void* qkv, const int* mask, void* out, int B, int S
 extern "C" {
 
 // qkv [B, S, 3H] (q | k | v column blocks, head h at offset h*d inside each),
-// mask [B, S] int32 (1 = attend), out [B, S, H]; d = H / nh <= 128.
-int fm_flash_attn_fwd(const void* qkv, const void* mask, void* out, int B, int S, int nh,
-                      int d, float scale, int dtype, void* stream) {
+// mask [B, S] int32 (1 = attend), out [B, S, H]; d = H / nh <= 128.  stats
+// [B, nh, S, 2] fp32 receives each row's softmax max and sum (the backward's
+// residual) when not null.
+int fm_flash_attn_fwd(const void* qkv, const void* mask, void* out, void* stats, int B, int S,
+                      int nh, int d, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* m = static_cast<const int*>(mask);
-  if (dtype == FM_F32) return launch_f32(qkv, m, out, B, S, nh, d, scale, s);
-  if (dtype == FM_BF16) return launch_tc(qkv, m, out, B, S, nh, d, scale, s);
+  float* st = static_cast<float*>(stats);
+  if (dtype == FM_F32) return launch_f32(qkv, m, out, st, B, S, nh, d, scale, s);
+  if (dtype == FM_BF16) return launch_tc(qkv, m, out, st, B, S, nh, d, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// Backward of the attention core: qkv [B, S, 3H] and o [B, S, H] from the
+// forward, dout [B, S, H] (dO, io dtype), mask [B, S] int32, stats [B, nh,
+// S, 2] from fm_flash_attn_fwd.  Writes D [B, nh, S] fp32 (scratch), dqkv
+// [B, S, 3H] (io dtype) and colpart [B * ceil(S / tile), 3H] fp32 column
+// partials of the fp32 dq | dk | dv, tile = 64 (bf16) or 32 (fp32).
+int fm_flash_attn_bwd(const void* qkv, const void* o, const void* dout, const void* mask,
+                      const void* stats, void* D, void* dqkv, void* colpart, int B, int S,
+                      int nh, int d, float scale, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* m = static_cast<const int*>(mask);
+  const float* st = static_cast<const float*>(stats);
+  float* dd = static_cast<float*>(D);
+  float* cp = static_cast<float*>(colpart);
+  if (dtype == FM_F32)
+    return launch_bwd<float>(qkv, o, dout, m, st, dd, dqkv, cp, B, S, nh, d, scale, s);
+  if (dtype == FM_BF16)
+    return launch_bwd<fm_bf16>(qkv, o, dout, m, st, dd, dqkv, cp, B, S, nh, d, scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,40 +1,50 @@
-// Tiled GEMM with a fused bias + activation epilogue:
+// Tiled GEMM with a fused epilogue, in the three layouts the two half-layers
+// need forward and backward:
 //
-//     C[M, N] = act(A[M, K] . W[N, K]^T + bias[N])      act: none | relu | gelu
+//     "nt"  C[M, N] = A[M, K] . B[N, K]^T    B in nn.Linear layout (forward)
+//     "nn"  C[M, N] = A[M, K] . B[K, N]      dX = dY . W (backward)
+//     "tn"  C[M, N] = A[K, M]^T . B[K, N]    dW = dY^T . X, K = the R rows
 //
-// Replaces the matrix products inside two Pallas TPU kernels:
+// Epilogue, per element v of the fp32 accumulator (each step optional):
+//     v += bias[col]; aux = round(v) (a pre-activation residual);
+//     v = act(v) (none | relu | exact gelu); v = dropout(v) (Philox, the
+//     FFN's inner stream); v *= gate'(gate[row, col]) where gate' is
+//     1[gate > 0] * scale (relu; scale = 1/keep) or dgelu(gate) (gelu, and
+//     then aux = round(gelu(gate))); v += resid[row, col] (fp32);
+//     column sums of v over the block's rows -> colpart[blockIdx.y, col];
+//     C = v in the io dtype or fp32.
+//
+// Replaces the matrix products inside four Pallas TPU kernels:
 //   - fairmultimodal_tpu/ops/fused_attention_block.py::_mega_ln_fwd_kernel
-//     (the q/k/v projections, one launch with N = 3H, and the output
-//     projection Wo, written in fp32 for the residual + LayerNorm kernel);
+//     (q/k/v projections as one "nt" launch with N = 3H; Wo into fp32) and
+//     ::_mega_ln_bwd_kernel (dO = da.Wo and dx = dz + dqkv.Wqkv as "nn",
+//     dWo and dWqkv as "tn");
 //   - fairmultimodal_tpu/ops/fused_ffn.py::_fwd_ln_kernel (x.W1 + b1 with
-//     relu or exact gelu, rounded to the io dtype; then a.W2 + b2 in fp32).
-// W is in nn.Linear layout [N, K], so both operands stream along K.
+//     relu + inner dropout or gelu, a.W2 + b2 in fp32) and ::_bwd_ln_kernel
+//     (dh = (dy.W2) * mask or dgelu, dx = dz + dh.W1, dW1, dW2).
 //
-// Bound at the slice's shapes (bf16 dense peak 989 TFLOP/s, H100 SXM):
-//   lab attention half-layer, batch 256 x 560 tokens: projections are
-//   8*R*H*H = 6.8e11 of its 9.23e11 FLOP (0.93 ms for the whole half-layer);
-//   lab FFN half-layer: 4*R*H*F = 9.02e11 FLOP (0.91 ms);
-//   text BERT-base layer at 32 x 512: about 2.6e11 FLOP.
-// All are operation-bound: the bytes (activations once, weights once) take
-// about a seventh of that time at 3.35 TB/s.
+// Bound at the lab shapes (bf16 dense peak 989 TFLOP/s, H100 SXM): every
+// product here is operation-bound; the FFN's four backward products are
+// 8*R*H*F = 1.8e12 FLOP (1.82 ms), the attention backward's projections
+// 16*R*H^2 = 1.35e12.  The bytes (operands once) take about a seventh.
 //
-// Design (simple and correct first), two kernels with one epilogue:
-//   - bf16 with K % 32 == 0 (every serving shape): tensor cores through
-//     WMMA.  128x128 output tile per 256-thread block, 32-deep K slices
-//     copied with cp.async into a two-stage shared-memory ring, each of the
-//     8 warps owning a 64x32 sub-tile as 4x2 16x16x16 bf16 fragments with
-//     fp32 accumulators.  The epilogue stages one fragment at a time through
-//     shared memory to add the bias and apply the activation in fp32.
-//   - fp32: CUDA cores.  Same block tile, 16-deep K slices staged in
-//     shared memory, 8x8 outputs per thread with fp32 FMA, so fp32 computes
-//     in full fp32 (no TF32) as the TPU kernel's fp32 path does.
-// What it leaves on the table: wgmma + TMA (the only way to the full
-// tensor-core rate; mma.sync/WMMA tops out well below it), deeper
-// pipelining, and the TPU kernels' fusion: q/k/v/o and the [R, F] FFN
-// intermediate round-trip device memory between launches.
+// Design (simple and correct first): 128x128 output tile per 256-thread
+// block.  bf16 runs WMMA 16x16x16 fragments with fp32 accumulators, 32-deep
+// K slices copied by cp.async into a two-stage ring (8 warps, 64x32 each);
+// fp32 runs CUDA-core FMA with 8x8 outputs per thread (full fp32, no TF32).
+// "tn" reduces over R = 143360 rows: it splits K over gridDim.z and writes
+// fp32 partials [splits, M, N] that fm_colsum adds in a fixed order, so the
+// sum is the same bits every run (no atomics anywhere).  Column sums for
+// the bias grads are per row-block partials, also added by fm_colsum.
+// What it leaves on the table: wgmma + TMA, deeper pipelining, and the TPU
+// kernels' fusion (q/k/v/o, the [R, F] intermediate and dz round-trip HBM).
+#include <math.h>
 #include <mma.h>
 
+#include <type_traits>
+
 #include "fm_common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -45,20 +55,57 @@ constexpr int THREADS = 256;
 constexpr int PAD = 4;  // keeps rows 16-byte aligned, shifts banks
 
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2 };
+enum Gate { GATE_NONE = 0, GATE_RELU = 1, GATE_DGELU = 2 };
 
-template <int ACT>
-__device__ __forceinline__ float activate(float v) {
-  if (ACT == ACT_RELU) return fmaxf(v, 0.0f);
-  if (ACT == ACT_GELU) return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+struct Epi {
+  const float* bias;
+  int act;
+  fm::Dropout drop;
+  void* aux;
+  const void* gate;
+  int gate_kind;
+  float gate_scale;
+  const float* resid;
+  float* colpart;
+};
+
+__device__ __forceinline__ float gelu(float v) {
+  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+}
+__device__ __forceinline__ float dgelu(float u) {
+  return 0.5f * (1.0f + erff(u * 0.70710678118654752f)) +
+         u * 0.3989422804014327f * expf(-0.5f * u * u);
+}
+
+// The epilogue of one element; T is the io dtype of aux and gate.
+template <typename T>
+__device__ __forceinline__ float epilogue(const Epi& e, int row, int col, int N, float v) {
+  const size_t off = (size_t)row * N + col;
+  if (e.bias) v += e.bias[col];
+  if (e.aux && e.gate_kind == GATE_NONE) static_cast<T*>(e.aux)[off] = fm::from_f32<T>(v);
+  if (e.act == ACT_RELU) v = fmaxf(v, 0.0f);
+  else if (e.act == ACT_GELU) v = gelu(v);
+  v = fm::apply_dropout(e.drop, v, off);
+  if (e.gate_kind != GATE_NONE) {
+    const float g = fm::to_f32(static_cast<const T*>(e.gate)[off]);
+    if (e.gate_kind == GATE_RELU) {
+      v *= g > 0.0f ? e.gate_scale : 0.0f;
+    } else {
+      v *= dgelu(g);
+      if (e.aux) static_cast<T*>(e.aux)[off] = fm::from_f32<T>(gelu(g));
+    }
+  }
+  if (e.resid) v += e.resid[off];
   return v;
 }
 
 // ---- fp32 CUDA-core kernel ------------------------------------------------------
 
-// Stage a [128 x BK] slice of a K-contiguous fp32 matrix, transposed, into
-// tile[BK][128 + PAD]; rows past nrows are zero.
-__device__ __forceinline__ void stage_f32(const float* __restrict__ src, int nrows, int K,
-                                          int r0, int k0, float (*tile)[BM + PAD]) {
+// Stage a [128 x BK] slice into tile[BK][128 + PAD] from a matrix whose
+// rows are the tile's 128 rows and which is contiguous along K ([rows, K]);
+// rows past nrows are zero.
+__device__ __forceinline__ void stage_f32_rows(const float* __restrict__ src, int nrows, int K,
+                                               int r0, int k0, float (*tile)[BM + PAD]) {
   constexpr int VPR = BK / 4;  // float4 vectors per tile row
   for (int v = threadIdx.x; v < BM * VPR; v += THREADS) {
     const int row = v / VPR;
@@ -73,16 +120,36 @@ __device__ __forceinline__ void stage_f32(const float* __restrict__ src, int nro
   }
 }
 
-template <int ACT>
+// The same slice from a matrix stored [K, ncols] (contiguous along the
+// tile's 128 columns); ncols % 4 == 0, rows from kend on are zero.
+__device__ __forceinline__ void stage_f32_cols(const float* __restrict__ src, int ncols,
+                                               int c0, int k0, int kend,
+                                               float (*tile)[BM + PAD]) {
+  constexpr int VPR = BM / 4;
+  for (int v = threadIdx.x; v < BK * VPR; v += THREADS) {
+    const int kk = v / VPR;
+    const int c = (v % VPR) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c0 + c < ncols && k0 + kk < kend)
+      x = *reinterpret_cast<const float4*>(src + (size_t)(k0 + kk) * ncols + c0 + c);
+    *reinterpret_cast<float4*>(&tile[kk][c]) = x;
+  }
+}
+
+template <int AT, int BT>
 __global__ void __launch_bounds__(THREADS)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                const float* __restrict__ bias, float* __restrict__ C, int M, int N, int K) {
+gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
+                int M, int N, int K, int Kc, Epi e) {
   __shared__ __align__(16) float As[BK][BM + PAD];
-  __shared__ __align__(16) float Ws[BK][BN + PAD];
+  __shared__ __align__(16) float Bs[BK][BN + PAD];
+  __shared__ float colsum[16][BN];
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
+  const int kb = blockIdx.z * Kc;
+  const int kend = min(kb + Kc, K);
+  C += (size_t)blockIdx.z * M * N;
 
   float acc[8][8];
 #pragma unroll
@@ -90,17 +157,17 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    stage_f32(A, M, K, m0, k0, As);
-    stage_f32(W, N, K, n0, k0, Ws);
+  for (int k0 = kb; k0 < kend; k0 += BK) {
+    if (AT) stage_f32_cols(A, M, m0, k0, kend, As); else stage_f32_rows(A, M, K, m0, k0, As);
+    if (BT) stage_f32_cols(B, N, n0, k0, kend, Bs); else stage_f32_rows(B, N, K, n0, k0, Bs);
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
       float a[8], w[8];
       *reinterpret_cast<float4*>(&a[0]) = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
       *reinterpret_cast<float4*>(&a[4]) = *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
-      *reinterpret_cast<float4*>(&w[0]) = *reinterpret_cast<const float4*>(&Ws[k][tx * 4]);
-      *reinterpret_cast<float4*>(&w[4]) = *reinterpret_cast<const float4*>(&Ws[k][64 + tx * 4]);
+      *reinterpret_cast<float4*>(&w[0]) = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
+      *reinterpret_cast<float4*>(&w[4]) = *reinterpret_cast<const float4*>(&Bs[k][64 + tx * 4]);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -109,6 +176,9 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
     __syncthreads();
   }
 
+  float csum[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) csum[j] = 0.0f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
@@ -116,7 +186,21 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (col < N) C[(size_t)row * N + col] = activate<ACT>(acc[i][j] + bias[col]);
+      if (col < N) {
+        const float v = epilogue<float>(e, row, col, N, acc[i][j]);
+        csum[j] += v;
+        C[(size_t)row * N + col] = v;
+      }
+    }
+  }
+  if (e.colpart) {  // uniform across the grid
+#pragma unroll
+    for (int j = 0; j < 8; ++j) colsum[ty][j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4] = csum[j];
+    __syncthreads();
+    if (threadIdx.x < BN && n0 + threadIdx.x < N) {
+      float s = 0.0f;
+      for (int t = 0; t < 16; ++t) s += colsum[t][threadIdx.x];
+      e.colpart[(size_t)blockIdx.y * N + n0 + threadIdx.x] = s;
     }
   }
 }
@@ -124,9 +208,12 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
 // ---- bf16 tensor-core kernel (WMMA) -------------------------------------------
 
 constexpr int TC_BK = 32;
-constexpr int TC_LDS = TC_BK + 8;  // smem row pitch in bf16: 80 bytes, 16-byte multiple
-constexpr int TC_WM = 64;          // warp tile rows (2 warps down the block)
-constexpr int TC_WN = 32;          // warp tile cols (4 warps across)
+constexpr int LDK = TC_BK + 8;  // pitch of a K-contiguous tile [128][LDK]: 80 bytes
+constexpr int LDR = BM + 8;     // pitch of a row-contiguous tile [TC_BK][LDR]: 272 bytes
+constexpr int STAGE = BM * LDK;  // elements per stage (>= TC_BK * LDR)
+static_assert(STAGE >= TC_BK * LDR, "stage size");
+constexpr int TC_WM = 64;  // warp tile rows (2 warps down the block)
+constexpr int TC_WN = 32;  // warp tile cols (4 warps across)
 constexpr int TC_FM = TC_WM / 16;
 constexpr int TC_FN = TC_WN / 16;
 
@@ -137,15 +224,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
-// Copy a [128 x TC_BK] slice of a K-contiguous bf16 matrix into dst[128][TC_LDS];
-// rows past nrows are zero-filled.
-__device__ __forceinline__ void stage_tc(const fm_bf16* __restrict__ src, int nrows, int K,
-                                         int r0, int k0, fm_bf16* dst) {
+// [128 x TC_BK] slice of a K-contiguous matrix [nrows, K] -> dst[128][LDK].
+__device__ __forceinline__ void stage_tc_rows(const fm_bf16* __restrict__ src, int nrows, int K,
+                                              int r0, int k0, fm_bf16* dst) {
   constexpr int CPR = TC_BK / 8;  // 16-byte chunks per row
   for (int c = threadIdx.x; c < BM * CPR; c += THREADS) {
     const int row = c / CPR;
     const int col = (c % CPR) * 8;
-    fm_bf16* d = dst + row * TC_LDS + col;
+    fm_bf16* d = dst + row * LDK + col;
     if (r0 + row < nrows)
       cp_async16(d, src + (size_t)(r0 + row) * K + k0 + col);
     else
@@ -153,19 +239,48 @@ __device__ __forceinline__ void stage_tc(const fm_bf16* __restrict__ src, int nr
   }
 }
 
-template <typename TOut, int ACT>
+// [TC_BK x 128] slice of a matrix stored [K, ncols] -> dst[TC_BK][LDR];
+// ncols % 8 == 0, columns past ncols and rows from kend on are zero.
+__device__ __forceinline__ void stage_tc_cols(const fm_bf16* __restrict__ src, int ncols,
+                                              int c0, int k0, int kend, fm_bf16* dst) {
+  constexpr int CPR = BM / 8;
+  for (int c = threadIdx.x; c < TC_BK * CPR; c += THREADS) {
+    const int kk = c / CPR;
+    const int col = (c % CPR) * 8;
+    fm_bf16* d = dst + kk * LDR + col;
+    if (c0 + col < ncols && k0 + kk < kend)
+      cp_async16(d, src + (size_t)(k0 + kk) * ncols + c0 + col);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+template <typename TOut, int AT, int BT>
 __global__ void __launch_bounds__(THREADS)
-gemm_bf16_tc_kernel(const fm_bf16* __restrict__ A, const fm_bf16* __restrict__ W,
-                    const float* __restrict__ bias, TOut* __restrict__ C, int M, int N, int K) {
+gemm_bf16_tc_kernel(const fm_bf16* __restrict__ A, const fm_bf16* __restrict__ B,
+                    TOut* __restrict__ C, int M, int N, int K, int Kc, Epi e) {
   using namespace nvcuda;
-  __shared__ __align__(128) fm_bf16 As[2][BM * TC_LDS];
-  __shared__ __align__(128) fm_bf16 Ws[2][BN * TC_LDS];
+  using ALay = typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
+  using BLay = typename std::conditional<BT, wmma::row_major, wmma::col_major>::type;
+  __shared__ __align__(128) fm_bf16 As[2][STAGE];
+  __shared__ __align__(128) fm_bf16 Bs[2][STAGE];
+  __shared__ float colsum[2][BN];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int wm = warp / 4;  // 0..1
   const int wn = warp % 4;  // 0..3
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
+  const int kb = blockIdx.z * Kc;
+  const int kend = min(kb + Kc, K);
+  C += (size_t)blockIdx.z * M * N;
+
+  auto stage = [&](int k0, int buf) {
+    if (AT) stage_tc_cols(A, M, m0, k0, kend, As[buf]);
+    else stage_tc_rows(A, M, K, m0, k0, As[buf]);
+    if (BT) stage_tc_cols(B, N, n0, k0, kend, Bs[buf]);
+    else stage_tc_rows(B, N, K, n0, k0, Bs[buf]);
+  };
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TC_FM][TC_FN];
 #pragma unroll
@@ -173,29 +288,31 @@ gemm_bf16_tc_kernel(const fm_bf16* __restrict__ A, const fm_bf16* __restrict__ W
 #pragma unroll
     for (int j = 0; j < TC_FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
-  const int nk = K / TC_BK;
-  stage_tc(A, M, K, m0, 0, As[0]);
-  stage_tc(W, N, K, n0, 0, Ws[0]);
+  const int nk = (kend - kb + TC_BK - 1) / TC_BK;
+  stage(kb, 0);
   cp_async_commit();
   for (int kt = 0; kt < nk; ++kt) {
     const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      stage_tc(A, M, K, m0, (kt + 1) * TC_BK, As[cur ^ 1]);
-      stage_tc(W, N, K, n0, (kt + 1) * TC_BK, Ws[cur ^ 1]);
-    }
+    if (kt + 1 < nk) stage(kb + (kt + 1) * TC_BK, cur ^ 1);
     cp_async_commit();
     cp_async_wait_prev();  // the current stage has landed
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < TC_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, fm_bf16, wmma::row_major> af[TC_FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, fm_bf16, wmma::col_major> bf[TC_FN];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, fm_bf16, ALay> af[TC_FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, fm_bf16, BLay> bf[TC_FN];
 #pragma unroll
-      for (int i = 0; i < TC_FM; ++i)
-        wmma::load_matrix_sync(af[i], As[cur] + (wm * TC_WM + i * 16) * TC_LDS + kk, TC_LDS);
+      for (int i = 0; i < TC_FM; ++i) {
+        const int mo = wm * TC_WM + i * 16;
+        wmma::load_matrix_sync(af[i], AT ? As[cur] + kk * LDR + mo : As[cur] + mo * LDK + kk,
+                               AT ? LDR : LDK);
+      }
 #pragma unroll
-      for (int j = 0; j < TC_FN; ++j)  // W[n][k] read as the col-major B[k][n]
-        wmma::load_matrix_sync(bf[j], Ws[cur] + (wn * TC_WN + j * 16) * TC_LDS + kk, TC_LDS);
+      for (int j = 0; j < TC_FN; ++j) {
+        const int no = wn * TC_WN + j * 16;
+        wmma::load_matrix_sync(bf[j], BT ? Bs[cur] + kk * LDR + no : Bs[cur] + no * LDK + kk,
+                               BT ? LDR : LDK);
+      }
 #pragma unroll
       for (int i = 0; i < TC_FM; ++i)
 #pragma unroll
@@ -205,90 +322,138 @@ gemm_bf16_tc_kernel(const fm_bf16* __restrict__ A, const fm_bf16* __restrict__ W
   }
 
   // Epilogue: one 16x16 fp32 fragment at a time through a per-warp slice of
-  // the (now idle) A buffer.
+  // the (now idle) A buffer.  Lane l handles column l % 16 of a fragment,
+  // so its running sum is that column's share of the warp's 64 rows.
   float* st = reinterpret_cast<float*>(&As[0][0]) + warp * 256;
 #pragma unroll
-  for (int i = 0; i < TC_FM; ++i) {
+  for (int j = 0; j < TC_FN; ++j) {
+    float csum = 0.0f;
+    const int c0 = n0 + wn * TC_WN + j * 16;
 #pragma unroll
-    for (int j = 0; j < TC_FN; ++j) {
+    for (int i = 0; i < TC_FM; ++i) {
       wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
       __syncwarp();
       const int r0 = m0 + wm * TC_WM + i * 16;
-      const int c0 = n0 + wn * TC_WN + j * 16;
-      for (int e = lane; e < 256; e += 32) {
-        const int row = r0 + e / 16;
-        const int col = c0 + e % 16;
-        if (row < M && col < N)
-          C[(size_t)row * N + col] = fm::from_f32<TOut>(activate<ACT>(st[e] + bias[col]));
+      for (int el = lane; el < 256; el += 32) {
+        const int row = r0 + el / 16;
+        const int col = c0 + el % 16;
+        if (row < M && col < N) {
+          const float v = epilogue<fm_bf16>(e, row, col, N, st[el]);
+          csum += v;
+          C[(size_t)row * N + col] = fm::from_f32<TOut>(v);
+        }
       }
       __syncwarp();
     }
+    csum += __shfl_xor_sync(0xffffffffu, csum, 16);
+    if (e.colpart && lane < 16) colsum[wm][wn * TC_WN + j * 16 + lane] = csum;
+  }
+  if (e.colpart) {  // uniform across the grid
+    __syncthreads();
+    if (threadIdx.x < BN && n0 + threadIdx.x < N)
+      e.colpart[(size_t)blockIdx.y * N + n0 + threadIdx.x] =
+          colsum[0][threadIdx.x] + colsum[1][threadIdx.x];
   }
 }
 
+template <int AT, int BT>
+cudaError_t launch(const void* A, const void* B, void* C, int M, int N, int K, int splits,
+                   int dtype, int out_f32, const Epi& e, cudaStream_t s) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  // K per split, a multiple of the K slice; the last split may be short.
+  const int Kc = ((K + splits - 1) / splits + TC_BK - 1) / TC_BK * TC_BK;
+  if (dtype == FM_F32) {
+    gemm_f32_kernel<AT, BT><<<grid, THREADS, 0, s>>>(
+        static_cast<const float*>(A), static_cast<const float*>(B), static_cast<float*>(C),
+        M, N, K, Kc, e);
+  } else if (out_f32) {
+    gemm_bf16_tc_kernel<float, AT, BT><<<grid, THREADS, 0, s>>>(
+        static_cast<const fm_bf16*>(A), static_cast<const fm_bf16*>(B), static_cast<float*>(C),
+        M, N, K, Kc, e);
+  } else {
+    gemm_bf16_tc_kernel<fm_bf16, AT, BT><<<grid, THREADS, 0, s>>>(
+        static_cast<const fm_bf16*>(A), static_cast<const fm_bf16*>(B), static_cast<fm_bf16*>(C),
+        M, N, K, Kc, e);
+  }
+  return cudaGetLastError();
+}
+
+// ---- deterministic column sums ---------------------------------------------------
+
+// out[n] = sum over m of x[m, n], fp32, in a fixed order: thread (c, r) of a
+// 32 x 8 block sums rows r, r+8, ... of column c, then the 8 partial sums
+// are added in order.  Used for the bias / LayerNorm grads from per-block
+// partials and for the split-K partials of "tn".
 template <typename TOut>
-cudaError_t launch_tc(const void* A, const void* W, const float* bias, void* C, int M, int N,
-                      int K, int act, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  const fm_bf16* a = static_cast<const fm_bf16*>(A);
-  const fm_bf16* w = static_cast<const fm_bf16*>(W);
-  TOut* c = static_cast<TOut*>(C);
-  switch (act) {
-    case ACT_NONE:
-      gemm_bf16_tc_kernel<TOut, ACT_NONE><<<grid, THREADS, 0, stream>>>(a, w, bias, c, M, N, K);
-      break;
-    case ACT_RELU:
-      gemm_bf16_tc_kernel<TOut, ACT_RELU><<<grid, THREADS, 0, stream>>>(a, w, bias, c, M, N, K);
-      break;
-    case ACT_GELU:
-      gemm_bf16_tc_kernel<TOut, ACT_GELU><<<grid, THREADS, 0, stream>>>(a, w, bias, c, M, N, K);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+__global__ void __launch_bounds__(256)
+colsum_kernel(const float* __restrict__ x, TOut* __restrict__ out, int M, int N) {
+  __shared__ float part[8][33];
+  const int c = threadIdx.x % 32;
+  const int r = threadIdx.x / 32;
+  const int col = blockIdx.x * 32 + c;
+  float s = 0.0f;
+  if (col < N)
+    for (int m = r; m < M; m += 8) s += x[(size_t)m * N + col];
+  part[r][c] = s;
+  __syncthreads();
+  if (r == 0 && col < N) {
+    float t = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) t += part[i][c];
+    out[col] = fm::from_f32<TOut>(t);
   }
-  return cudaGetLastError();
-}
-
-cudaError_t launch_f32(const void* A, const void* W, const float* bias, void* C, int M, int N,
-                       int K, int act, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  const float* a = static_cast<const float*>(A);
-  const float* w = static_cast<const float*>(W);
-  float* c = static_cast<float*>(C);
-  switch (act) {
-    case ACT_NONE:
-      gemm_f32_kernel<ACT_NONE><<<grid, THREADS, 0, stream>>>(a, w, bias, c, M, N, K);
-      break;
-    case ACT_RELU:
-      gemm_f32_kernel<ACT_RELU><<<grid, THREADS, 0, stream>>>(a, w, bias, c, M, N, K);
-      break;
-    case ACT_GELU:
-      gemm_f32_kernel<ACT_GELU><<<grid, THREADS, 0, stream>>>(a, w, bias, c, M, N, K);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// A [M, K], W [N, K] in the io dtype; bias [N] fp32; C [M, N] in the io
-// dtype, or fp32 when out_f32 != 0 (fp32 inputs always give fp32).  K must be
-// a multiple of 32 and A, W 16-byte aligned (the wrapper checks both).
-int fm_gemm_bias_act(const void* A, const void* W, const void* bias, void* C, int M, int N,
-                     int K, int dtype, int out_f32, int act, void* stream) {
+// C = epilogue(op(A) . op(B)); layout 0 = "nt", 1 = "nn", 2 = "tn" (see the
+// top of this file).  A, B in the io dtype (dtype), C in the io dtype or fp32
+// (out_f32; fp32 io always gives fp32).  For "nt" and "nn" K % 32 == 0 and
+// splits == 1, for "nn" N % 8 == 0; for "tn" any K, M % 8 == 0 and N % 8 ==
+// 0 (the wrapper checks).  With splits > 1 ("tn" only), C is [splits, M, N]
+// fp32 partials.  bias [N] fp32, aux/gate
+// [M, N] io dtype, resid [M, N] fp32, colpart [ceil(M/128), N] fp32: each
+// may be null.
+int fm_gemm(const void* A, const void* B, void* C, int M, int N, int K, int layout, int splits,
+            int dtype, int out_f32, const void* bias, int act, unsigned long long seed,
+            unsigned int stream_id, unsigned int threshold, float inv_keep, int drop_on,
+            void* aux, const void* gate, int gate_kind, float gate_scale, const void* resid,
+            void* colpart, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* b = static_cast<const float*>(bias);
-  if (K % TC_BK) return cudaErrorInvalidValue;
-  if (dtype == FM_F32) return launch_f32(A, W, b, C, M, N, K, act, s);
-  if (dtype == FM_BF16) {
-    if (out_f32) return launch_tc<float>(A, W, b, C, M, N, K, act, s);
-    return launch_tc<fm_bf16>(A, W, b, C, M, N, K, act, s);
+  if (splits < 1 || (dtype != FM_F32 && dtype != FM_BF16) ||
+      (layout != 2 && (K % TC_BK || splits != 1)))
+    return cudaErrorInvalidValue;
+  Epi e;
+  e.bias = static_cast<const float*>(bias);
+  e.act = act;
+  e.drop = fm::Dropout{seed, stream_id, threshold, inv_keep, drop_on};
+  e.aux = aux;
+  e.gate = gate;
+  e.gate_kind = gate_kind;
+  e.gate_scale = gate_scale;
+  e.resid = static_cast<const float*>(resid);
+  e.colpart = static_cast<float*>(colpart);
+  switch (layout) {
+    case 0: return launch<0, 0>(A, B, C, M, N, K, splits, dtype, out_f32, e, s);
+    case 1: return launch<0, 1>(A, B, C, M, N, K, splits, dtype, out_f32, e, s);
+    case 2: return launch<1, 1>(A, B, C, M, N, K, splits, dtype, out_f32, e, s);
+    default: return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
+}
+
+// out[N] = column sums of x [M, N] fp32, written fp32 or bf16 (out_bf16).
+int fm_colsum(const void* x, void* out, int M, int N, int out_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((N + 31) / 32);
+  if (out_bf16)
+    colsum_kernel<fm_bf16><<<grid, 256, 0, s>>>(static_cast<const float*>(x),
+                                                static_cast<fm_bf16*>(out), M, N);
+  else
+    colsum_kernel<float><<<grid, 256, 0, s>>>(static_cast<const float*>(x),
+                                              static_cast<float*>(out), M, N);
+  return cudaGetLastError();
 }
 
 const char* fm_error_string(int code) {

@@ -1,41 +1,52 @@
-"""Attention half-layer ``LayerNorm(x + attn_block(x))`` on the card.
+"""Attention half-layer ``LayerNorm(x + dropout(attn_block(x)))`` on the card.
 
 Port of ``fairmultimodal_tpu/ops/fused_attention_block.py``:
-``fused_attention_block_ln`` / ``fused_attention_block_ln_infer`` and their
-Pallas kernel ``_mega_ln_fwd_kernel``.  Forward only, dropout off: the
-backward kernel and the dropout stream belong to the training slice.
+``fused_attention_block_ln`` / ``fused_attention_block_ln_infer``, their
+forward Pallas kernel ``_mega_ln_fwd_kernel`` (with the output dropout) and
+the backward kernel ``_mega_ln_bwd_kernel``.
 
-On a CUDA tensor the half-layer is four hand-written kernel launches
-(``csrc/``): the q/k/v projections as one GEMM into a [B, S, 3H] buffer
-(bias added in fp32, rounded to the io dtype), flash attention over that
-buffer, the output projection into fp32, and the residual + LayerNorm row
-kernel.  The Pallas kernel keeps q/k/v/o in VMEM; here they round-trip
-device memory (the first design, see the notes in each ``.cu``).
+On a CUDA tensor the forward is four hand-written kernel launches
+(``csrc/``): the q/k/v projections as one GEMM into a [B, S, 3H] buffer,
+flash attention over it (writing each row's softmax max and sum when the
+backward will need them), the output projection into fp32, and the
+residual + dropout + LayerNorm row kernel (storing z).  With grad enabled
+the call is a :class:`torch.autograd.Function` whose backward is
+:func:`backward_stages`: the LayerNorm-backward row kernel (dz, the replayed
+dropout, partial sums), ``dO = da . Wo`` and ``dWo = da^T . o``, the two
+flash-backward kernels into one [B, S, 3H] ``dqkv`` buffer, ``dWqkv = dqkv^T
+. x`` and ``dx = dz + dqkv . Wqkv``, plus fixed-order column sums for the
+bias, gamma and beta grads (no atomics: a step gives the same bits twice).
 
-On a CPU tensor the wrappers run :func:`fused_attention_block_ln_reference`,
-the plain PyTorch version with the TPU kernel's rounding points.
+On a CPU tensor the wrappers run the plain versions
+:func:`fused_attention_block_ln_reference` and
+:func:`fused_attention_block_ln_backward_reference`, which round where the
+TPU kernels round.  Dropout is Philox (``utils/rng.py``, stream 0 of
+``seed``) in both, so the two draw the same mask.
 
-Weights take nn.Linear's [H_out, H_in] layout (``linear.weight``), the
-layout the GEMM kernel streams; the JAX package's [H_in, H_out] Dense
-kernels are transposed once, by :mod:`fairmultimodal_torch.interop`.
-``ln_eps`` has no default: the lab encoder passes 1e-5, BERT 1e-12.
+Weights take nn.Linear's [H_out, H_in] layout; ``ln_eps`` has no default
+(lab encoder 1e-5, BERT 1e-12).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from fairmultimodal_torch.ops import _build
+from fairmultimodal_torch.utils.rng import Dropout, apply_dropout
 
 __all__ = ["fused_attention_block_ln", "fused_attention_block_ln_infer",
-           "fused_attention_block_ln_reference", "half_layer_stages"]
+           "fused_attention_block_ln_reference", "fused_attention_block_ln_backward_reference",
+           "half_layer_stages", "backward_stages"]
 
 NEG_INF = -1e9
+_STREAM = 0             # Philox stream of the output dropout
 
-#: Kernel launches on CUDA tensors since the last reset (one per half-layer).
+#: Forward kernel launches on CUDA tensors since the last reset (one per half-layer).
 launches = 0
+#: Backward kernel launches on CUDA tensors since the last reset (one per half-layer).
+bwd_launches = 0
 
 
 def _layer_norm_rows(z32: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -45,120 +56,347 @@ def _layer_norm_rows(z32: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return (z32 - mu) * torch.rsqrt(var + eps) * gamma.float() + beta.float()
 
 
-def fused_attention_block_ln_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta,
-                                       mask: Optional[torch.Tensor] = None, *,
-                                       num_heads: int, ln_eps: float) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, rounding where the TPU kernel
-    rounds: q/k/v after the bias, p before p.v, o before Wo, z before the
-    LayerNorm statistics.  x [B, S, H]; returns [B, S, H] in ``x.dtype``."""
+def _layer_norm_vjp(g32: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor, eps: float):
+    """LN VJP from the stored z (TPU ``_ln_bwd_math``): (dz, dgamma, dbeta),
+    fp32, over the last axis of [R, H]."""
+    zz = z.float()
+    mu = zz.mean(dim=-1, keepdim=True)
+    var = ((zz - mu) ** 2).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (zz - mu) * rstd
+    gg = g32 * gamma.float()
+    m1 = gg.mean(dim=-1, keepdim=True)
+    m2 = (gg * xhat).mean(dim=-1, keepdim=True)
+    dz = rstd * (gg - m1 - xhat * m2)
+    return dz, (g32 * xhat).sum(dim=0), g32.sum(dim=0)
+
+
+def _dropout(seed: Optional[int], rate: float, deterministic: bool) -> Dropout:
+    if deterministic or rate <= 0.0:
+        return Dropout()
+    if seed is None:
+        raise ValueError("dropout (deterministic=False, rate > 0) needs a seed")
+    return Dropout.make(seed, _STREAM, rate)
+
+
+def _key_bias(mask: Optional[torch.Tensor], b: int, s: int, device) -> torch.Tensor:
+    if mask is None:
+        return torch.zeros((b, 1, 1, s), device=device)
+    return torch.where(mask[:, None, None, :] > 0, 0.0, NEG_INF).to(device)
+
+
+def _forward_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, num_heads,
+                       ln_eps, drop):
     dt = x.dtype
     b, s, h = x.shape
     d = h // num_heads
     x32 = x.float()
-
-    def heads(w, bias):
-        y = (x32 @ w.float().t() + bias.float()).to(dt)
-        return y.view(b, s, num_heads, d).transpose(1, 2).float()
-
-    q, k, v = heads(wq, bq), heads(wk, bk), heads(wv, bv)
-    scores = (q @ k.transpose(-1, -2)) * (1.0 / d ** 0.5)
-    if mask is not None:
-        scores = scores + torch.where(mask[:, None, None, :] > 0, 0.0, NEG_INF)
+    qkv = torch.cat([(x32 @ w.float().t() + bias.float()).to(dt)
+                     for w, bias in ((wq, bq), (wk, bk), (wv, bv))], dim=-1)
+    q, k, v = (t.reshape(b, s, num_heads, d).transpose(1, 2).float()
+               for t in qkv.split(h, dim=-1))
+    scores = (q @ k.transpose(-1, -2)) * (1.0 / d ** 0.5) + _key_bias(mask, b, s, x.device)
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     p = (p / p.sum(dim=-1, keepdim=True)).to(dt)
     o = (p.float() @ v).to(dt).transpose(1, 2).reshape(b, s, h)
-    y = o.float() @ wo.float().t() + bo.float()
+    y = apply_dropout(o.float() @ wo.float().t() + bo.float(), drop)
     z = (x32 + y).to(dt)
-    return _layer_norm_rows(z.float(), gamma, beta, ln_eps).to(dt)
+    out = _layer_norm_rows(z.float(), gamma, beta, ln_eps).to(dt)
+    return out, {"qkv": qkv, "o": o, "z": z}
 
 
-def half_layer_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, *,
-                      num_heads: int, ln_eps: float):
-    """Check the operands of the CUDA half-layer and lay out its kernel
-    launches: returns ``(stages, out)``, the launches in order as
-    ``(name, thunk)`` pairs and the [B, S, H] tensor the last one fills.
-    Each thunk can be run again on its own (``chip_smoke.py`` times them
-    one by one); running them all in order is one half-layer."""
+def fused_attention_block_ln_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta,
+                                       mask: Optional[torch.Tensor] = None, *,
+                                       num_heads: int, ln_eps: float, rate: float = 0.0,
+                                       seed: Optional[int] = None,
+                                       return_residuals: bool = False):
+    """Plain PyTorch version of the forward kernel, rounding where the TPU
+    kernel rounds: q/k/v after the bias, p before p.v, o before Wo, z before
+    the LayerNorm statistics; the output dropout (Philox ``seed``, stream 0,
+    flat index over [B*S, H]) on the fp32 projection.  x [B, S, H]; returns
+    [B, S, H] in ``x.dtype`` (and, with ``return_residuals``, the dict of
+    qkv, o, z the plain backward takes).  Differentiable by autograd."""
+    drop = Dropout.make(seed, _STREAM, rate)
+    out, res = _forward_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask,
+                                  num_heads, ln_eps, drop)
+    return (out, res) if return_residuals else out
+
+
+def fused_attention_block_ln_backward_reference(g, x, qkv, o, z, wq, wk, wv, wo, gamma,
+                                                mask: Optional[torch.Tensor] = None, *,
+                                                num_heads: int, ln_eps: float,
+                                                rate: float = 0.0, seed: Optional[int] = None):
+    """Plain PyTorch version of the backward kernel from the forward's
+    residuals (qkv [B, S, 3H], o, z [B, S, H], io dtype), rounding where
+    ``_mega_ln_bwd_kernel`` rounds: ``da`` before dO and dWo, dO, p before
+    dV, ``ds * scale`` before dQ and dK, dq/dk/dv before the weight grads
+    and dx; bias grads are sums of the fp32 values before rounding; weight
+    and bias grads are accumulated in fp32 and cast to ``x.dtype``, gamma /
+    beta grads to ``gamma.dtype``.  The row term of the softmax VJP is
+    rowsum(dP * P), as the TPU kernel takes it.
+
+    Returns (dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dgamma, dbeta)."""
+    return _backward_reference(g, x, qkv, o, z, wq, wk, wv, wo, gamma, mask, num_heads,
+                               ln_eps, Dropout.make(seed, _STREAM, rate))
+
+
+def _backward_reference(g, x, qkv, o, z, wq, wk, wv, wo, gamma, mask, num_heads, ln_eps,
+                        drop):
+    dt = x.dtype
+    b, s, h = x.shape
+    d = h // num_heads
+    scale = 1.0 / d ** 0.5
+    dz, dgamma, dbeta = _layer_norm_vjp(g.reshape(-1, h).float(), z.reshape(-1, h), gamma,
+                                        ln_eps)
+    dattn = apply_dropout(dz, drop)
+    dbo = dattn.sum(dim=0)
+    da = dattn.to(dt).float()
+    o2 = o.reshape(-1, h).float()
+    dout = (da @ wo.float()).to(dt)
+    dwo = da.t() @ o2
+
+    def heads(t):
+        return t.reshape(b, s, num_heads, d).transpose(1, 2).float()
+
+    q, k, v = (heads(t) for t in qkv.split(h, dim=-1))
+    do = heads(dout)
+    scores = (q @ k.transpose(-1, -2)) * scale + _key_bias(mask, b, s, x.device)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = p.to(dt).float().transpose(-1, -2) @ do
+    dpm = do @ v.transpose(-1, -2)
+    ds = p * (dpm - (dpm * p).sum(dim=-1, keepdim=True))
+    ds_b = (ds * scale).to(dt).float()
+    dq = ds_b @ k
+    dk = ds_b.transpose(-1, -2) @ q
+    merge = lambda t: t.transpose(1, 2).reshape(b * s, h)           # noqa: E731
+    dqkv32 = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)   # [R, 3H]
+    dbqkv = dqkv32.sum(dim=0)
+    dqkv = dqkv32.to(dt).float()
+    w_qkv = torch.cat((wq, wk, wv)).float()
+    dx = (dz + dqkv @ w_qkv).to(dt).view(b, s, h)
+    dwqkv = (dqkv.t() @ x.reshape(-1, h).float()).to(dt)
+    dwq, dwk, dwv = dwqkv.split(h)
+    dbq, dbk, dbv = dbqkv.to(dt).split(h)
+    return (dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo.to(dt), dbo.to(dt),
+            dgamma.to(gamma.dtype), dbeta.to(gamma.dtype))
+
+
+# -- the CUDA path ----------------------------------------------------------------------
+
+
+def _check_operands(x, num_heads, weights):
     if x.dim() != 3:
         raise ValueError(f"x must be [B, S, H], got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    b, s, h = x.shape
+    h = x.shape[-1]
     if h % num_heads:
         raise ValueError(f"H={h} is not a multiple of num_heads={num_heads}")
-    for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
+    for name, w in weights:
         if tuple(w.shape) != (h, h) or w.dtype != x.dtype or w.device != x.device:
             raise ValueError(f"{name}: expected [{h}, {h}] {x.dtype} on {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta)):
-        raise NotImplementedError(
-            "the CUDA attention half-layer is forward only; its backward kernel "
-            "comes with the training slice (run under torch.inference_mode())")
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32).contiguous()
+
+
+def half_layer_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, *,
+                      num_heads: int, ln_eps: float, dropout: Dropout = Dropout(),
+                      residuals: bool = False):
+    """Check the operands of the CUDA forward and lay out its kernel
+    launches: returns ``(stages, out, saved)``, the launches in order as
+    ``(name, thunk)`` pairs, the [B, S, H] tensor the last one fills and,
+    with ``residuals``, the tensors :func:`backward_stages` needs (else
+    None).  Each thunk can be run again on its own (``chip_smoke.py`` times
+    them one by one); running them all in order is one half-layer."""
+    _check_operands(x, num_heads, (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)))
+    b, s, h = x.shape
     dev = x.device
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.int32, device=dev)
     mask = mask.to(device=dev, dtype=torch.int32).contiguous()
-    f32 = lambda t: t.to(torch.float32).contiguous()
-
     x2 = x.view(b * s, h)
     w_qkv = torch.cat((wq, wk, wv))                                   # [3H, H]
-    b_qkv = f32(torch.cat((bq, bk, bv)))
+    b_qkv = _f32(torch.cat((bq, bk, bv)))
     qkv = torch.empty((b, s, 3 * h), dtype=x.dtype, device=dev)
     o = torch.empty((b, s, h), dtype=x.dtype, device=dev)
     y = torch.empty((b * s, h), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
-    wo, bo, gamma, beta = wo.contiguous(), f32(bo), f32(gamma), f32(beta)
+    stats = torch.empty((b, num_heads, s, 2), dtype=torch.float32, device=dev) \
+        if residuals else None
+    z = torch.empty_like(x) if residuals else None
+    wo, bo, gamma, beta = wo.contiguous(), _f32(bo), _f32(gamma), _f32(beta)
     stages = [
-        ("qkv_gemm", lambda: _build.gemm_bias_act(x2, w_qkv, b_qkv, qkv.view(b * s, 3 * h))),
-        ("flash_attn_fwd", lambda: _build.flash_attn_fwd(qkv, mask, o, num_heads)),
-        ("wo_gemm", lambda: _build.gemm_bias_act(o.view(b * s, h), wo, bo, y)),
-        ("add_layernorm", lambda: _build.add_layernorm(x2, y, gamma, beta,
-                                                       out.view(b * s, h), ln_eps)),
+        ("qkv_gemm", lambda: _build.gemm(x2, w_qkv, qkv.view(b * s, 3 * h), bias=b_qkv)),
+        ("flash_attn_fwd", lambda: _build.flash_attn_fwd(qkv, mask, o, num_heads, stats)),
+        ("wo_gemm", lambda: _build.gemm(o.view(b * s, h), wo, y, bias=bo)),
+        ("add_layernorm", lambda: _build.add_layernorm(
+            x2, y, gamma, beta, out.view(b * s, h), ln_eps, dropout,
+            None if z is None else z.view(b * s, h))),
     ]
-    return stages, out
+    saved = None
+    if residuals:
+        saved = {"x": x, "qkv": qkv, "o": o, "z": z, "stats": stats, "mask": mask,
+                 "w_qkv": w_qkv}
+    return stages, out, saved
 
 
-def _launch(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, num_heads, ln_eps):
+def _splits(m: int, n: int, k: int) -> int:
+    """K splits of a weight-grad GEMM: enough blocks for two waves on the
+    card's 132 SMs, at least 2048 rows each."""
+    tiles = -(-m // 128) * -(-n // 128)
+    return max(1, min(264 // tiles, k // 2048))
+
+
+def weight_grad(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``out = a^T . b`` (a [K, M], b [K, N]) through the split-K "tn" GEMM
+    and a fixed-order sum of the split partials."""
+    k, m = a.shape
+    n = b.shape[1]
+    splits = _splits(m, n, k)
+    if splits == 1:
+        return _build.gemm(a, b, out, layout="tn")
+    part = torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+    _build.gemm(a, b, part, layout="tn", splits=splits)
+    _build.colsum(part.view(splits, m * n), out.view(m * n))
+    return out
+
+
+def backward_stages(g, saved: Dict[str, torch.Tensor], wo, gamma, *, num_heads: int,
+                    ln_eps: float, dropout: Dropout = Dropout()):
+    """Lay out the CUDA backward's launches (as :func:`half_layer_stages`):
+    returns ``(stages, grads)`` with grads (dx, dwq, dbq, dwk, dbk, dwv, dbv,
+    dwo, dbo, dgamma, dbeta), filled when the stages have run; dwq/dwk/dwv
+    are views of one [3H, H] buffer and dbq/dbk/dbv of one [3H]."""
+    x, qkv, o, z, stats, mask = (saved[k] for k in ("x", "qkv", "o", "z", "stats", "mask"))
+    b, s, h = x.shape
+    r, dev, dt = b * s, x.device, x.dtype
+    f32 = dict(dtype=torch.float32, device=dev)
+    g2 = g.reshape(r, h).to(dt).contiguous()
+    gamma = _f32(gamma)
+    dz = torch.empty((r, h), **f32)
+    da = torch.empty((r, h), dtype=dt, device=dev)
+    part = torch.empty((3, -(-r // _build.LN_BWD_ROWS), h), **f32)
+    dout = torch.empty((b, s, h), dtype=dt, device=dev)
+    rowterm = torch.empty((b, num_heads, s), **f32)
+    dqkv = torch.empty((b, s, 3 * h), dtype=dt, device=dev)
+    colpart = torch.empty((b * -(-s // _build.FLASH_BWD_TILE[dt]), 3 * h), **f32)
+    dx = torch.empty_like(x)
+    dwqkv = torch.empty((3 * h, h), dtype=dt, device=dev)
+    dbqkv = torch.empty((3 * h,), dtype=dt, device=dev)
+    dwo = torch.empty((h, h), dtype=dt, device=dev)
+    dbo = torch.empty((h,), dtype=dt, device=dev)
+    dgamma = torch.empty((h,), **f32)
+    dbeta = torch.empty((h,), **f32)
+
+    def ln_sums():
+        for i, dst in enumerate((dgamma, dbeta, dbo)):
+            _build.colsum(part[i], dst)
+
+    stages = [
+        ("layernorm_bwd", lambda: _build.layernorm_bwd(g2, z.view(r, h), gamma, dz, da, part,
+                                                        ln_eps, dropout)),
+        ("ln_bias_sums", ln_sums),
+        ("do_gemm", lambda: _build.gemm(da, wo.contiguous(), dout.view(r, h), layout="nn")),
+        ("dwo_gemm", lambda: weight_grad(da, o.view(r, h), dwo)),
+        ("flash_attn_bwd", lambda: _build.flash_attn_bwd(qkv, o, dout, mask, stats, rowterm,
+                                                         dqkv, colpart, num_heads)),
+        ("dbqkv_sum", lambda: _build.colsum(colpart, dbqkv)),
+        ("dwqkv_gemm", lambda: weight_grad(dqkv.view(r, 3 * h), x.view(r, h), dwqkv)),
+        ("dx_gemm", lambda: _build.gemm(dqkv.view(r, 3 * h), saved["w_qkv"], dx.view(r, h),
+                                        layout="nn", resid=dz)),
+    ]
+    dwq, dwk, dwv = dwqkv.split(h)
+    dbq, dbk, dbv = dbqkv.split(h)
+    return stages, (dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dgamma, dbeta)
+
+
+def _run(stages) -> None:
+    for _, fn in stages:
+        fn()
+
+
+class _HalfLayer(torch.autograd.Function):
+    """Forward with residuals + backward; the kernels on CUDA tensors, the
+    plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, drop, num_heads,
+                ln_eps):
+        global launches
+        ctx.num_heads, ctx.ln_eps, ctx.drop = num_heads, ln_eps, drop
+        ctx.param_dtype = gamma.dtype
+        if x.is_cuda:
+            stages, out, saved = half_layer_stages(
+                x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, num_heads=num_heads,
+                ln_eps=ln_eps, dropout=drop, residuals=True)
+            _run(stages)
+            launches += 1
+            ctx.cuda, ctx.keys = True, tuple(saved)
+            ctx.save_for_backward(*saved.values(), wo, gamma)
+            return out
+        out, res = _forward_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask,
+                                      num_heads, ln_eps, drop)
+        ctx.cuda = False
+        ctx.save_for_backward(x, res["qkv"], res["o"], res["z"], wq, wk, wv, wo, gamma, mask)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        global bwd_launches
+        if ctx.cuda:
+            *vals, wo, gamma = ctx.saved_tensors
+            stages, grads = backward_stages(g, dict(zip(ctx.keys, vals)), wo, gamma,
+                                            num_heads=ctx.num_heads, ln_eps=ctx.ln_eps,
+                                            dropout=ctx.drop)
+            _run(stages)
+            bwd_launches += 1
+            dgamma, dbeta = (t.to(ctx.param_dtype) for t in grads[-2:])
+            grads = grads[:-2] + (dgamma, dbeta)
+        else:
+            grads = _backward_reference(g, *ctx.saved_tensors, ctx.num_heads, ctx.ln_eps,
+                                        ctx.drop)
+        return (*grads, None, None, None, None)
+
+
+def _infer(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, num_heads, ln_eps, drop):
     global launches
-    stages, out = half_layer_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask,
-                                    num_heads=num_heads, ln_eps=ln_eps)
-    for _, run in stages:
-        run()
+    if not x.is_cuda:
+        return _forward_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask,
+                                  num_heads, ln_eps, drop)[0]
+    stages, out, _ = half_layer_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask,
+                                       num_heads=num_heads, ln_eps=ln_eps, dropout=drop)
+    _run(stages)
     launches += 1
     return out
 
 
-def _forward(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, num_heads, ln_eps):
-    if x.is_cuda:
-        return _launch(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask,
-                       num_heads, ln_eps)
-    return fused_attention_block_ln_reference(
-        x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask,
-        num_heads=num_heads, ln_eps=ln_eps)
-
-
 def fused_attention_block_ln(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta,
                              mask: Optional[torch.Tensor] = None, *, num_heads: int,
-                             ln_eps: float, rate: float = 0.1,
-                             deterministic: bool = True) -> torch.Tensor:
+                             ln_eps: float, rate: float = 0.1, deterministic: bool = True,
+                             seed: Optional[int] = None) -> torch.Tensor:
     """Attention half-layer ``LayerNorm(x + dropout(attn_block(x)))``.
 
     x [B, S, H] (fp32 or bf16); weights [H_out, H_in] and biases [H] in
-    ``x.dtype``; gamma/beta [H]; mask [B, S] (1 = attend) or None.  Dropout
-    is not available in this port yet: ``deterministic=False`` with
-    ``rate > 0`` raises.  Returns [B, S, H] in ``x.dtype``.
+    ``x.dtype``; gamma/beta [H]; mask [B, S] (1 = attend) or None.  With
+    ``deterministic=False`` and ``rate > 0`` the output dropout draws from
+    Philox ``seed`` (required).  Differentiable: with grad enabled the
+    forward stores its residuals and the backward runs the backward kernels
+    (their plain version on a CPU tensor).  Returns [B, S, H] in ``x.dtype``.
     """
-    if not deterministic and rate > 0.0:
-        raise NotImplementedError(
-            "dropout in the attention half-layer comes with the training slice")
-    return _forward(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask,
-                    num_heads, ln_eps)
+    drop = _dropout(seed, rate, deterministic)
+    args = (x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _HalfLayer.apply(*args, mask, drop, num_heads, ln_eps)
+    return _infer(*args, mask, num_heads, ln_eps, drop)
 
 
 def fused_attention_block_ln_infer(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta,
                                    mask: Optional[torch.Tensor] = None, *,
                                    num_heads: int, ln_eps: float) -> torch.Tensor:
     """Inference entry (the frozen text encoder's): the same math as
-    :func:`fused_attention_block_ln` with dropout off."""
-    return _forward(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask,
-                    num_heads, ln_eps)
+    :func:`fused_attention_block_ln` with dropout off, storing no residuals."""
+    return _infer(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, num_heads, ln_eps,
+                  Dropout())

@@ -1,0 +1,371 @@
+"""Training loop of the FAME model (port of ``fairmultimodal_tpu/train/loop.py``).
+
+- :meth:`FAMETrainer.train_step`: forward (dropout from the trainer's Philox
+  generator), BCE(pos_weight) + lambda_edd * (10 * L_EDDI) + lambda_l1 *
+  ||sig_weights||_1, backward (on the card through the half-layers'
+  backward kernels), torch's clip at ``grad_clip`` and AdamW with weight
+  decay; the loss-free modality heads are outside the optimizer.
+- Per-epoch dynamic EDDI weights are a [3, 3] (task x modality) float64
+  array on the host, passed to every forward; the per-batch statistics of
+  the update (``loop.py:332-362``) stay on the device and are pulled once.
+- :class:`PlateauScheduler` and :class:`EarlyStopper` are torch
+  ``ReduceLROnPlateau(factor, patience)`` and the reference's best-val-loss
+  early stop (10_FAME.py:829-840).
+- Batches are nested dicts ``{"model_inputs": {...}, "labels": [B, 3],
+  "weight": [B]}`` of numpy arrays (or tensors); padded rows carry weight 0
+  and change no loss, metric or statistic.
+
+Not ported here (ROADMAP): the checkpointer and bit-identical resume, the
+device-resident loader and its one-dispatch statistics scan, multi-GPU.
+"""
+
+from __future__ import annotations
+
+import csv
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from fairmultimodal_torch import EXPECTED_AGE_CODES, EXPECTED_ETHNICITY_CODES, \
+    EXPECTED_INSURANCE_CODES, TASKS
+from fairmultimodal_torch.data.prefetch import PrefetchLoader
+from fairmultimodal_torch.fairness.eddi import combined_eddi, eddi_from_stats
+from fairmultimodal_torch.fairness.loss import eddi_loss
+from fairmultimodal_torch.ops.gates import resolve_device
+from fairmultimodal_torch.ops.losses import bce_with_logits
+from fairmultimodal_torch.ops.optim import make_adamw
+from fairmultimodal_torch.utils.rng import make_generator
+
+__all__ = ["TrainConfig", "PlateauScheduler", "EarlyStopper", "FAMETrainer"]
+
+MODALITIES = ("demo", "lab", "text")
+GROUP_SIZES = (len(EXPECTED_AGE_CODES), len(EXPECTED_ETHNICITY_CODES),
+               len(EXPECTED_INSURANCE_CODES))
+_SENSITIVE = ("age_ids", "ethnicity_ids", "insurance_ids")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Hyperparameters; defaults are the reference grid (10_FAME.py:921-924)."""
+
+    lr: float = 1e-5
+    num_epochs: int = 50
+    lambda_edd: float = 0.8
+    lambda_l1: float = 0.01
+    batch_size: int = 16
+    threshold: float = 0.5
+    weight_decay: float = 0.01
+    beta: float = 1.0
+    patience: int = 5
+    scheduler_factor: float = 0.1
+    scheduler_patience: int = 2
+    grad_clip: float = 1.0
+    seed: int = 42
+    # Dropout randomness: counter-based Philox seeded from a torch.Generator
+    # (utils/rng.py) -- the JAX package's "unsafe_rbg" / "threefry" choice.
+    rng_impl: str = "philox"
+    # Test hook: the train forward without dropout, so trajectories compare
+    # against the JAX trainer's deterministic_forward.  Never set in
+    # production configs.
+    deterministic_forward: bool = False
+
+
+class PlateauScheduler:
+    """torch ReduceLROnPlateau(mode=min, threshold=1e-4 rel) semantics."""
+
+    def __init__(self, lr: float, factor: float = 0.1, patience: int = 2,
+                 threshold: float = 1e-4, min_lr: float = 0.0):
+        self.lr = lr
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.min_lr = min_lr
+        self.best = float("inf")
+        self.num_bad = 0
+
+    def step(self, val_loss: float) -> float:
+        if val_loss < self.best * (1.0 - self.threshold):
+            self.best = val_loss
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+            if self.num_bad > self.patience:
+                self.lr = max(self.lr * self.factor, self.min_lr)
+                self.num_bad = 0
+        return self.lr
+
+
+class EarlyStopper:
+    """Best-val-loss early stopping (strict improvement, 10_FAME.py:830-840)."""
+
+    def __init__(self, patience: int = 5):
+        self.patience = patience
+        self.best = float("inf")
+        self.counter = 0
+        self.improved = False
+
+    def step(self, val_loss: float) -> bool:
+        """Returns True when training should stop."""
+        if val_loss < self.best:
+            self.best = val_loss
+            self.counter = 0
+            self.improved = True
+            return False
+        self.improved = False
+        self.counter += 1
+        return self.counter >= self.patience
+
+
+class FAMETrainer:
+    """Runs the FAME training protocol on ``model`` (a
+    :class:`~fairmultimodal_torch.models.fusion.FAMEModel`, moved to
+    ``device``; ``None`` means CUDA and raises without it).
+
+    Unlike the JAX trainer, which threads explicit params and optimizer
+    state, the model's parameters are updated in place and the optimizer
+    (``self.optimizer``) lives on the trainer; :meth:`fit` starts a fresh
+    one, as the JAX ``fit`` inits its optimizer state.
+    """
+
+    def __init__(self, model, config: TrainConfig, pos_weight, rngs_seed: int = 0,
+                 device=None, dynamic_weights_csv: Optional[str] = None):
+        if config.rng_impl != "philox":
+            raise ValueError(f"rng_impl {config.rng_impl!r}: the port's dropout is 'philox'")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.config = config
+        # fp32 like the JAX trainer's (jnp.float32); promoted inside the loss.
+        self.pos_weight = torch.as_tensor(np.asarray(pos_weight), dtype=torch.float32,
+                                          device=self.device)
+        self.dynamic_weights_csv = dynamic_weights_csv
+        self.generator = make_generator(rngs_seed)
+        self.optimizer = make_adamw(self.model, config.lr, config.weight_decay)
+        # Host dynamic weights stay float64 like the reference's python floats.
+        self.dynamic_weights = np.full((3, 3), 0.33)
+        self.history: List[Dict[str, Any]] = []
+        self.tracked_dynamic_weights = {t: [] for t in TASKS}
+        self.tracked_sigmoid_weights: List[np.ndarray] = []
+
+    # -- steps --------------------------------------------------------------------
+
+    def _dyn_w(self, dynamic_weights=None) -> torch.Tensor:
+        dw = self.dynamic_weights if dynamic_weights is None else dynamic_weights
+        return torch.as_tensor(dw, device=self.device)
+
+    def _loss(self, out, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        logits, labels, w = out["fused_logits"], batch["labels"], batch["weight"]
+        bce = bce_with_logits(logits, labels, pos_weight=self.pos_weight, weight=w)
+        mi = batch["model_inputs"]
+        leddi = eddi_loss(torch.sigmoid(logits), labels, [mi[k] for k in _SENSITIVE],
+                          GROUP_SIZES, weight=w)
+        l1 = self.model.fusion.sig_weights.abs().sum()
+        cfg = self.config
+        return bce + cfg.lambda_edd * (10.0 * leddi) + cfg.lambda_l1 * l1, bce
+
+    def train_step(self, batch, dynamic_weights=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One optimizer step on a device batch; returns the (total, bce) loss
+        tensors, left on the device."""
+        self.model.train()
+        gen = None if self.config.deterministic_forward else self.generator
+        out = self.model(batch["model_inputs"], dynamic_weights=self._dyn_w(dynamic_weights),
+                         generator=gen)
+        total, bce = self._loss(out, batch)
+        self.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        # A trainable parameter the step does not reach (the demo BERT's
+        # query/key at one token) gets a zero gradient, as jax.grad gives it,
+        # so AdamW still decays it; the loss-free heads are not in the
+        # optimizer and keep no gradient.
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.config.grad_clip)
+        self.optimizer.step()
+        return total.detach(), bce.detach()
+
+    def set_lr(self, lr: float) -> None:
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+
+    def _batches(self, loader):
+        return PrefetchLoader(loader, self.device)
+
+    def train_epoch(self, loader) -> Tuple[float, float]:
+        """One pass; the step losses stay on the device until the pass ends
+        and come back in one pull.  Returns mean (total, bce)."""
+        dyn_w = self._dyn_w()
+        totals, bces = [], []
+        for batch in self._batches(loader):
+            total, bce = self.train_step(batch, dyn_w)
+            totals.append(total)
+            bces.append(bce)
+        nb = len(totals)
+        if not nb:
+            return 0.0, 0.0
+        stacked = torch.stack(totals + bces).cpu().numpy()
+        return (float(np.sum(stacked[:nb], dtype=np.float64)) / nb,
+                float(np.sum(stacked[nb:], dtype=np.float64)) / nb)
+
+    def _eval_pass(self, loader, fn: Callable) -> List[Tuple[Any, Dict]]:
+        """``fn(out, batch)`` over every batch in eval mode without autograd;
+        the results stay on the device, with the batch, for one pull."""
+        self.model.eval()
+        dyn_w = self._dyn_w()
+        results = []
+        with torch.inference_mode():
+            for batch in self._batches(loader):
+                results.append((fn(self.model(batch["model_inputs"], dynamic_weights=dyn_w),
+                                   batch), batch))
+        return results
+
+    @staticmethod
+    def _host(t: torch.Tensor) -> np.ndarray:
+        return t.detach().cpu().numpy()
+
+    def validate(self, loader) -> Tuple[float, np.ndarray, np.ndarray]:
+        """Mean val BCE over batches (10_FAME.py:825), logits and labels of
+        the real rows."""
+        res = self._eval_pass(loader, lambda out, b: (
+            bce_with_logits(out["fused_logits"], b["labels"], pos_weight=self.pos_weight,
+                            weight=b["weight"]), out["fused_logits"]))
+        if not res:
+            return float("inf"), np.zeros((0, 3)), np.zeros((0, 3))
+        losses = [float(v) for v in self._host(torch.stack([r[0][0] for r in res]))]
+        keep = [self._host(b["weight"]) > 0 for _, b in res]
+        logits = np.concatenate([self._host(r[0][1])[k] for r, k in zip(res, keep)])
+        labels = np.concatenate([self._host(b["labels"])[k] for (_, b), k in zip(res, keep)])
+        return float(np.mean(losses)), logits, labels
+
+    def _collect(self, res, named: Dict[str, Callable]) -> Dict[str, np.ndarray]:
+        out = {k: [] for k in named}
+        for item, batch in res:
+            keep = self._host(batch["weight"]) > 0
+            for k, get in named.items():
+                out[k].append(self._host(get(item, batch))[keep])
+        return {k: np.concatenate(v) if v else np.zeros(0) for k, v in out.items()}
+
+    def _sensitive(self) -> Dict[str, Callable]:
+        return {"labels": lambda i, b: b["labels"],
+                "age": lambda i, b: b["model_inputs"]["age_ids"],
+                "ethnicity": lambda i, b: b["model_inputs"]["ethnicity_ids"],
+                "insurance": lambda i, b: b["model_inputs"]["insurance_ids"]}
+
+    def predict_logits(self, loader) -> Dict[str, np.ndarray]:
+        res = self._eval_pass(loader, lambda out, b: out["fused_logits"])
+        return self._collect(res, {"logits": lambda i, b: i, **self._sensitive()})
+
+    def extract_vectors(self, loader) -> Dict[str, np.ndarray]:
+        """Per real row: the 768-d ``gated_vectors`` and 512-d
+        ``fusion_pre_relu_vectors`` plus labels / age / ethnicity / insurance,
+        under the reference's npz key names (10_FAME.py:559-604)."""
+        res = self._eval_pass(loader, lambda out, b: (out["gated_vector"],
+                                                      out["fusion_pre_relu"]))
+        return self._collect(res, {"gated_vectors": lambda i, b: i[0],
+                                   "fusion_pre_relu_vectors": lambda i, b: i[1],
+                                   **self._sensitive()})
+
+    def update_dynamic_weights(self, loader, threshold: float = 0.5) -> np.ndarray:
+        """Per-epoch EDDI-guided weight update (10_FAME.py:315-399).
+
+        Each batch reduces on the device to per-attribute group counts [G]
+        and per-(modality, task) error counts [M, T, G] (exact small-integer
+        sums in fp32); their sums come back in one pull, and the update runs
+        on the host in float64: per task, each modality's weight moves by
+        clip(beta * (eddi_max - eddi_m), +-0.05), floored at 0.1 and
+        renormalised."""
+        def stats(out, b):
+            ml = out["modality_logits"]
+            probs = torch.sigmoid(torch.stack([ml[m] for m in MODALITIES], dim=1))  # [B, M, T]
+            err = ((probs > threshold).float() != b["labels"][:, None, :].float()).float()
+            w = b["weight"].float()
+            res = []
+            for key, g in zip(_SENSITIVE, GROUP_SIZES):
+                groups = torch.arange(g, device=w.device)
+                onehot = (b["model_inputs"][key].long()[:, None] == groups).float() * w[:, None]
+                res += [onehot.sum(dim=0), torch.einsum("bmt,bg->mtg", err, onehot)]
+            return torch.cat([r.reshape(-1) for r in res])
+
+        res = self._eval_pass(loader, stats)
+        sizes = [s for g in GROUP_SIZES for s in (g, 9 * g)]
+        flat = (self._host(torch.stack([r for r, _ in res]).sum(dim=0)).astype(np.float64)
+                if res else np.zeros(sum(sizes)))
+        parts = np.split(flat, np.cumsum(sizes)[:-1])
+        counts = parts[0::2]
+        errors = [e.reshape(3, 3, -1) for e in parts[1::2]]
+
+        new_w = np.zeros_like(self.dynamic_weights)
+        for t in range(3):
+            eddis = [combined_eddi(*[eddi_from_stats(counts[a], errors[a][m, t])
+                                     for a in range(3)]) for m in range(3)]
+            upd = np.clip(self.config.beta * (max(eddis) - np.asarray(eddis)), -0.05, 0.05)
+            w = np.maximum(self.dynamic_weights[t] + upd, 0.1)
+            new_w[t] = w / w.sum()
+        self.dynamic_weights = new_w
+        return self.dynamic_weights
+
+    # -- protocol -------------------------------------------------------------------
+
+    def _state_copy(self) -> Dict[str, torch.Tensor]:
+        return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+
+    def fit(self, train_loader, val_loader, verbose: bool = True,
+            on_epoch_end: Optional[Callable] = None):
+        """Epochs + plateau LR + early stop + best-state capture + per-epoch
+        dynamic weight updates.  Returns (best state dict, history)."""
+        cfg = self.config
+        self.optimizer = make_adamw(self.model, cfg.lr, cfg.weight_decay)
+        sched = PlateauScheduler(cfg.lr, cfg.scheduler_factor, cfg.scheduler_patience)
+        stopper = EarlyStopper(cfg.patience)
+        best = self._state_copy()
+        csv_rows = [("Epoch", "Outcome", "demo_weight", "lab_weight", "text_weight")]
+        inner = getattr(train_loader, "it", train_loader)
+        if hasattr(inner, "epoch"):
+            inner.epoch = 0    # the (seed, epoch) shuffles start at epoch 0
+
+        for epoch in range(cfg.num_epochs):
+            t0 = time.time()
+            train_loss, train_bce = self.train_epoch(train_loader)
+            val_loss, _, _ = self.validate(val_loader)
+            prev_lr = sched.lr
+            lr = sched.step(val_loss)
+            self.set_lr(lr)
+            if verbose and lr != prev_lr:
+                print(f"Epoch {epoch + 1}: reducing learning rate to {lr:.4e}.")
+            if verbose:
+                print(f"[Epoch {epoch + 1}] Train Loss: {train_loss:.4f} | "
+                      f"Val Loss: {val_loss:.4f} ({time.time() - t0:.1f}s)")
+            stop = stopper.step(val_loss)
+            if stopper.improved:
+                best = self._state_copy()
+                if verbose:
+                    print("Validation loss improved. Saving model...")
+            elif verbose:
+                print(f"No improvement for {stopper.counter} consecutive epochs.")
+            self.history.append({"epoch": epoch + 1, "train_loss": train_loss,
+                                 "train_bce": train_bce, "val_loss": val_loss, "lr": lr})
+            if stop:
+                if verbose:
+                    print("Early stopping triggered.")
+                break
+
+            new_w = self.update_dynamic_weights(train_loader, cfg.threshold)
+            for ti, task in enumerate(TASKS):
+                self.tracked_dynamic_weights[task].append(list(map(float, new_w[ti])))
+                csv_rows.append((epoch + 1, task, *[f"{v:.6f}" for v in new_w[ti]]))
+                if verbose:
+                    print(f"[{task} Weight Update] New dynamic weights: "
+                          f"{{'demo': {new_w[ti][0]:.6f}, 'lab': {new_w[ti][1]:.6f}, "
+                          f"'text': {new_w[ti][2]:.6f}}}")
+            self.tracked_sigmoid_weights.append(
+                self._host(torch.sigmoid(self.model.fusion.sig_weights.detach())))
+            if on_epoch_end is not None:
+                on_epoch_end(epoch, self.model)
+
+        if self.dynamic_weights_csv:
+            with open(self.dynamic_weights_csv, "w", newline="") as f:
+                csv.writer(f).writerows(csv_rows)
+        return best, self.history

@@ -1,0 +1,129 @@
+"""Counter-based dropout randomness: Philox4x32-10.
+
+Counterpart of ``fairmultimodal_tpu/utils/rng.py``, which picks the TPU's
+hardware random-bit generator.  The port draws every dropout bit from one
+function of ``(seed, stream, flat element index)``:
+
+    bits(seed, stream, i) = philox4x32_10(ctr=(q_lo, q_hi, stream, 0),
+                                          key=(seed_lo, seed_hi))[i & 3]
+    with q = i >> 2
+
+written twice: here on int64 tensors (the plain version, any device) and in
+``ops/csrc/philox.cuh`` (inside the kernels).  Both give the same bits, so a
+kernel and its plain version -- and the CPU plain path and the card's kernel
+path of a whole model -- draw identical masks from one seed.
+
+Dropout keeps an element where ``bits < min(int(keep * 2**32), 2**32 - 1)``
+and scales it by ``1 / keep`` (the JAX kernels' contract).  Seeds come from
+an explicit :class:`torch.Generator` that the caller owns (the trainer's):
+each dropout site draws its own seed on the host with :func:`draw_seed`, as
+``TorchEncoderLayer._dropout_seed`` does in JAX.  Nothing here touches the
+global RNG.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+__all__ = ["philox4x32", "random_bits", "keep_threshold", "dropout_mask", "Dropout",
+           "apply_dropout", "dropout", "draw_seed", "make_generator"]
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_U32 = 0xFFFFFFFF
+_CHUNK = 1 << 24            # counters per pass, bounds the int64 temporaries
+
+
+def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit words of ``a * m`` for a < 2**32 on int64 tensors.
+
+    The 64-bit product does not fit int64, so ``m`` is split into 16-bit
+    halves: a * m = (a * m_hi) * 2**16 + a * m_lo, each partial < 2**48."""
+    ph = a * (m >> 16)
+    pl = a * (m & 0xFFFF)
+    low = pl + ((ph & 0xFFFF) << 16)          # < 2**49
+    return (ph >> 16) + (low >> 32), low & _U32
+
+
+def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 on int64 tensors of 32-bit counter words; returns the
+    four output words."""
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _W0) & _U32, (k1 + _W1) & _U32
+        hi0, lo0 = _mulhilo(c0, _M0)
+        hi1, lo1 = _mulhilo(c2, _M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def random_bits(seed: int, stream: int, n: int,
+                device: Optional[torch.device] = None) -> torch.Tensor:
+    """``bits(seed, stream, i)`` for i in [0, n) as int64 values in [0, 2**32)."""
+    k0, k1 = int(seed) & _U32, (int(seed) >> 32) & _U32
+    nq = -(-n // 4)
+    out = torch.empty((nq, 4), dtype=torch.int64, device=device)
+    for start in range(0, nq, _CHUNK):
+        q = torch.arange(start, min(start + _CHUNK, nq), dtype=torch.int64, device=device)
+        words = philox4x32(q & _U32, q >> 32, torch.full_like(q, int(stream) & _U32),
+                           torch.zeros_like(q), k0, k1)
+        out[start:start + len(q)] = torch.stack(words, dim=1)
+    return out.view(-1)[:n]
+
+
+def keep_threshold(rate: float) -> int:
+    return min(int((1.0 - rate) * 2 ** 32), 2 ** 32 - 1)
+
+
+def dropout_mask(seed: int, stream: int, shape, rate: float,
+                 device: Optional[torch.device] = None) -> torch.Tensor:
+    """Boolean keep-mask of ``shape`` (flat row-major element index)."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return (random_bits(seed, stream, n, device) < keep_threshold(rate)).view(*shape)
+
+
+class Dropout(NamedTuple):
+    """One dropout stream as the kernels take it (``ops/csrc/philox.cuh``):
+    keep where ``bits(seed, stream, i) < threshold``, scale kept values by
+    ``inv_keep``; ``Dropout()`` is no dropout."""
+    seed: int = 0
+    stream: int = 0
+    threshold: int = 0
+    inv_keep: float = 1.0
+    on: int = 0
+
+    @classmethod
+    def make(cls, seed: Optional[int], stream: int, rate: float) -> "Dropout":
+        if seed is None or rate <= 0.0:
+            return cls()
+        return cls(int(seed), int(stream), keep_threshold(rate), 1.0 / (1.0 - rate), 1)
+
+
+def apply_dropout(x: torch.Tensor, drop: Dropout) -> torch.Tensor:
+    """``x`` through the stream ``drop`` (flat row-major element index), kept
+    values multiplied by 1/keep in ``x``'s dtype: the kernels' arithmetic."""
+    if not drop.on:
+        return x
+    keep = random_bits(drop.seed, drop.stream, x.numel(), x.device) < drop.threshold
+    return torch.where(keep.view(x.shape), x * drop.inv_keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def dropout(x: torch.Tensor, rate: float, seed: Optional[int], stream: int = 0) -> torch.Tensor:
+    """Philox dropout of ``x``; identity when ``seed`` is None or rate is 0."""
+    return apply_dropout(x, Dropout.make(seed, stream, rate))
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """One dropout seed in [0, 2**31 - 1) from the caller's generator (host)."""
+    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator).item())
+
+
+def make_generator(seed: int) -> torch.Generator:
+    """The trainer's dropout stream: a CPU generator, so drawing a seed never
+    waits on the card."""
+    return torch.Generator(device="cpu").manual_seed(int(seed))

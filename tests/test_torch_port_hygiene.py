@@ -21,6 +21,7 @@ from fairmultimodal_torch.models.bert import BertConfig
 from fairmultimodal_torch.models.fusion import FAMEModel
 from fairmultimodal_torch.models.text import TextEncoder
 from fairmultimodal_torch.pipelines.inference import FAMEPredictor, run_fame_inference
+from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
 
 PKG = pathlib.Path(fairmultimodal_torch.__file__).parent
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|fairmultimodal_tpu)\b", re.M)
@@ -56,6 +57,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
                       fusion_hidden=8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         FAMEPredictor(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FAMETrainer(model, TrainConfig(), pos_weight=np.ones(3))
     tiny = BertConfig(vocab_size=32, hidden_size=16, num_hidden_layers=1,
                       num_attention_heads=2, intermediate_size=32, max_position_embeddings=16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -135,13 +135,15 @@ def test_cpu_wrappers_run_the_plain_versions_bf16():
 
 
 def test_dropout_and_unknown_activation_raise():
+    """Dropout without its Philox seed raises (it never draws from a global
+    RNG); so does an unknown activation."""
     x = torch.zeros(2, 16, 128)
     a = [torch.from_numpy(t) for t in _attn_args(128, 3)]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs a seed"):
         t_fab.fused_attention_block_ln(x, *a, None, num_heads=2, ln_eps=1e-5,
                                        deterministic=False)
     f = [torch.from_numpy(t) for t in _ffn_args(128, 128, 4)]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs seeds"):
         t_ffn.fused_ffn_ln(x.view(-1, 128), *f, ln_eps=1e-5, deterministic=False)
     with pytest.raises(ValueError):
         t_ffn.fused_ffn_ln_infer(x.view(-1, 128), *f, activation="tanh", ln_eps=1e-5)
