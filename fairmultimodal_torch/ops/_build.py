@@ -191,7 +191,9 @@ def gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *, layout: str = "
     ``splits`` > 1 ``out`` is [splits, M, N] fp32 partials for
     :func:`colsum`).  a, b in the io dtype; out in the io dtype or fp32.
     Epilogue operands: bias [N] fp32, aux / gate [M, N] io dtype, resid
-    [M, N] fp32, colpart [ceil(M / 128), N] fp32.
+    [M, N] fp32, colpart [ceil(M / 128), N] fp32.  "nt" takes bias,
+    activation, dropout and aux (the pre-activation); "nn" takes gate (with
+    colpart, and aux for the dgelu gate) or resid; "tn" takes none.
     """
     if layout == "tn":
         k, m = a.shape
@@ -300,12 +302,19 @@ def flash_attn_bwd(qkv: torch.Tensor, o: torch.Tensor, dout: torch.Tensor, mask:
     return dqkv
 
 
+def _check_ln_width(h: int) -> None:
+    if h % 8 or h > 1024:
+        raise ValueError(f"layernorm: H={h} must be a multiple of 8 and at most 1024")
+
+
 def add_layernorm(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor,
                   beta: torch.Tensor, out: torch.Tensor, eps: float,
                   dropout: Dropout = Dropout(), z: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out = LN(z)``, ``z = round(x + dropout(y))``: x, out [R, H] io dtype;
-    y [R, H] fp32; z [R, H] io dtype is stored when given."""
+    y [R, H] fp32; z [R, H] io dtype is stored when given.  H % 8 == 0,
+    H <= 1024."""
     r, h = x.shape
+    _check_ln_width(h)
     _require(x, "x", (r, h), x.dtype, x.device)
     _require(y, "y", (r, h), torch.float32, x.device)
     _require(gamma, "gamma", (h,), torch.float32, x.device)
@@ -332,6 +341,7 @@ def layernorm_bwd(g: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor, dz: tor
     [R, H] io dtype, and part [3, ceil(R / 64), H] fp32 block partials of
     (g * xhat, g, replay(dz)) for dgamma, dbeta and the bias grad."""
     r, h = g.shape
+    _check_ln_width(h)
     dev, dt = g.device, g.dtype
     _require(g, "g", (r, h), dt, dev)
     _require(z, "z", (r, h), dt, dev)

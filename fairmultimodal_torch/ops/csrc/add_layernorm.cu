@@ -25,10 +25,12 @@
 // forward reads x and y and writes out and z, 1.1 GB, 0.33 ms at 3.35 TB/s;
 // the backward reads g and z and writes dz (fp32) and da, 1.1 GB.
 //
-// Design: one warp per row, the row held in registers (NC = H/32 values a
-// lane, rounded up to a multiple of 4), so the Philox bits are drawn once
-// per element.  The backward keeps its three column partials in registers
-// across the block's 64 rows and reduces the 8 warps through shared memory.
+// Design: one warp per row; each lane holds NC chunks of 8 consecutive
+// elements in registers (H % 8 == 0, H <= 1024), loaded and stored 16 bytes
+// at a time, and draws one Philox block per 4 elements (one call gives the
+// 4 words of a counter).  The backward keeps its three column partials in
+// registers across the block's 64 rows and reduces the 8 warps through
+// shared memory.
 #include "fm_common.cuh"
 #include "philox.cuh"
 
@@ -38,6 +40,44 @@ constexpr int LN_THREADS = 256;
 constexpr int WARPS = LN_THREADS / 32;
 constexpr int BWD_ROWS = 64;  // rows per backward block (8 per warp)
 constexpr int MAX_H = 1024;
+constexpr int V = 8;  // elements per chunk
+
+// 8 consecutive values of an io row as fp32 (16 bytes of bf16, 32 of fp32).
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const fm_bf16* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const fm_bf16* h = reinterpret_cast<const fm_bf16*>(&u);
+#pragma unroll
+  for (int k = 0; k < V; ++k) v[k] = __bfloat162float(h[k]);
+}
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(fm_bf16* p, const float* v) {
+  uint4 u;
+  fm_bf16* h = reinterpret_cast<fm_bf16*>(&u);
+#pragma unroll
+  for (int k = 0; k < V; ++k) h[k] = __float2bfloat16_rn(v[k]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// v[0..7] at flat index i (i % 4 == 0) through the dropout stream d.
+__device__ __forceinline__ void dropout8(const fm::Dropout& d, unsigned long long i, float* v) {
+  if (!d.on) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint4 w = fm::random_words(d.seed, d.stream, (i >> 2) + h);
+    const uint32_t bits[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[4 * h + k] = bits[k] < d.threshold ? v[4 * h + k] * d.inv_keep : 0.0f;
+  }
+}
 
 template <typename T, int NC>
 __global__ void __launch_bounds__(LN_THREADS)
@@ -49,32 +89,42 @@ add_layernorm_kernel(const T* __restrict__ x, const float* __restrict__ y,
   const int lane = threadIdx.x % 32;
   if (row >= R) return;  // whole warp exits together
   const size_t base = (size_t)row * H;
-  float v[NC];
+  float v[NC][V];
   float sum = 0.0f;
 #pragma unroll
   for (int j = 0; j < NC; ++j) {
-    const int i = lane + 32 * j;
-    v[j] = 0.0f;
-    if (i < H) {
-      const float yy = fm::apply_dropout(drop, y[base + i], base + i);
-      v[j] = fm::round_io<T>(fm::to_f32(x[base + i]) + yy);
-      sum += v[j];
+    const int c = (lane + 32 * j) * V;
+    if (c < H) {
+      float xv[V];
+      load8(x + base + c, xv);
+      load8(y + base + c, v[j]);
+      dropout8(drop, base + c, v[j]);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        v[j][k] = fm::round_io<T>(xv[k] + v[j][k]);
+        sum += v[j][k];
+      }
     }
   }
   const float mu = fm::warp_sum(sum) / H;
   float sq = 0.0f;
 #pragma unroll
-  for (int j = 0; j < NC; ++j) {
-    const float dv = v[j] - mu;
-    if (lane + 32 * j < H) sq += dv * dv;
-  }
+  for (int j = 0; j < NC; ++j)
+    if ((lane + 32 * j) * V < H)
+#pragma unroll
+      for (int k = 0; k < V; ++k) sq += (v[j][k] - mu) * (v[j][k] - mu);
   const float rstd = rsqrtf(fm::warp_sum(sq) / H + eps);
 #pragma unroll
   for (int j = 0; j < NC; ++j) {
-    const int i = lane + 32 * j;
-    if (i < H) {
-      if (zout) zout[base + i] = fm::from_f32<T>(v[j]);
-      out[base + i] = fm::from_f32<T>((v[j] - mu) * rstd * gamma[i] + beta[i]);
+    const int c = (lane + 32 * j) * V;
+    if (c < H) {
+      if (zout) store8(zout + base + c, v[j]);
+      float o[V], gm[V], bt[V];
+      load8(gamma + c, gm);
+      load8(beta + c, bt);
+#pragma unroll
+      for (int k = 0; k < V; ++k) o[k] = (v[j][k] - mu) * rstd * gm[k] + bt[k];
+      store8(out + base + c, o);
     }
   }
 }
@@ -88,69 +138,84 @@ layernorm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ z,
   __shared__ float red[WARPS][MAX_H];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  float pg[NC], pb[NC], pd[NC];
+  float pg[NC][V], pb[NC][V], pd[NC][V];
 #pragma unroll
-  for (int j = 0; j < NC; ++j) pg[j] = pb[j] = pd[j] = 0.0f;
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int k = 0; k < V; ++k) pg[j][k] = pb[j][k] = pd[j][k] = 0.0f;
 
   for (int rr = warp; rr < BWD_ROWS; rr += WARPS) {
     const int row = blockIdx.x * BWD_ROWS + rr;
     if (row >= R) break;  // uniform across the warp
     const size_t base = (size_t)row * H;
-    float gv[NC], zv[NC];
+    float gv[NC][V], zv[NC][V];
     float sum = 0.0f;
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
-      const int i = lane + 32 * j;
-      gv[j] = zv[j] = 0.0f;
-      if (i < H) {
-        gv[j] = fm::to_f32(g[base + i]);
-        zv[j] = fm::to_f32(z[base + i]);
-        sum += zv[j];
+      const int c = (lane + 32 * j) * V;
+      if (c < H) {
+        load8(g + base + c, gv[j]);
+        load8(z + base + c, zv[j]);
+#pragma unroll
+        for (int k = 0; k < V; ++k) sum += zv[j][k];
       }
     }
     const float mu = fm::warp_sum(sum) / H;
     float sq = 0.0f;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const float dv = zv[j] - mu;
-      if (lane + 32 * j < H) sq += dv * dv;
-    }
+    for (int j = 0; j < NC; ++j)
+      if ((lane + 32 * j) * V < H)
+#pragma unroll
+        for (int k = 0; k < V; ++k) sq += (zv[j][k] - mu) * (zv[j][k] - mu);
     const float rstd = rsqrtf(fm::warp_sum(sq) / H + eps);
     float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
-      const int i = lane + 32 * j;
-      if (i < H) {
-        zv[j] = (zv[j] - mu) * rstd;  // xhat
-        const float gg = gv[j] * gamma[i];
-        s1 += gg;
-        s2 += gg * zv[j];
+      const int c = (lane + 32 * j) * V;
+      if (c < H) {
+        float gm[V];
+        load8(gamma + c, gm);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          zv[j][k] = (zv[j][k] - mu) * rstd;  // xhat
+          const float gg = gv[j][k] * gm[k];
+          s1 += gg;
+          s2 += gg * zv[j][k];
+        }
       }
     }
     const float m1 = fm::warp_sum(s1) / H;
     const float m2 = fm::warp_sum(s2) / H;
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
-      const int i = lane + 32 * j;
-      if (i < H) {
-        const float d = rstd * (gv[j] * gamma[i] - m1 - zv[j] * m2);
-        const float a = fm::apply_dropout(drop, d, base + i);
-        dz[base + i] = d;
-        da[base + i] = fm::from_f32<T>(a);
-        pg[j] += gv[j] * zv[j];
-        pb[j] += gv[j];
-        pd[j] += a;
+      const int c = (lane + 32 * j) * V;
+      if (c < H) {
+        float gm[V], d[V], a[V];
+        load8(gamma + c, gm);
+#pragma unroll
+        for (int k = 0; k < V; ++k) a[k] = d[k] = rstd * (gv[j][k] * gm[k] - m1 - zv[j][k] * m2);
+        dropout8(drop, base + c, a);
+        store8(dz + base + c, d);
+        store8(da + base + c, a);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          pg[j][k] += gv[j][k] * zv[j][k];
+          pb[j][k] += gv[j][k];
+          pd[j][k] += a[k];
+        }
       }
     }
   }
 
   // Block partials: the 8 warps' sums added in warp order.
   const size_t plane = (size_t)gridDim.x * H;
-  auto flush = [&](const float (&p)[NC], float* dst) {
+  auto flush = [&](const float (&p)[NC][V], float* dst) {
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
-      const int i = lane + 32 * j;
-      if (i < H) red[warp][i] = p[j];
+      const int c = (lane + 32 * j) * V;
+      if (c < H)
+#pragma unroll
+        for (int k = 0; k < V; ++k) red[warp][c + k] = p[j][k];
     }
     __syncthreads();
     for (int i = threadIdx.x; i < H; i += LN_THREADS) {
@@ -166,19 +231,14 @@ layernorm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ z,
   flush(pd, part + 2 * plane);
 }
 
-// NC (values a lane) for a row of H: H/32 rounded up to a multiple of 4.
+// NC (chunks of 8 a lane) for a row of H: ceil(H / 256).
 #define FM_LN_DISPATCH(H, CALL)               \
   do {                                        \
-    const int nc_ = ((H) + 127) / 128 * 4;    \
-    switch (nc_) {                            \
+    switch (((H) + 255) / 256) {              \
+      case 1: CALL(1); break;                 \
+      case 2: CALL(2); break;                 \
+      case 3: CALL(3); break;                 \
       case 4: CALL(4); break;                 \
-      case 8: CALL(8); break;                 \
-      case 12: CALL(12); break;               \
-      case 16: CALL(16); break;               \
-      case 20: CALL(20); break;               \
-      case 24: CALL(24); break;               \
-      case 28: CALL(28); break;               \
-      case 32: CALL(32); break;               \
       default: return cudaErrorInvalidValue;  \
     }                                         \
   } while (0)
@@ -216,7 +276,8 @@ cudaError_t launch_bwd(const void* g, const void* z, const float* gamma, float* 
 extern "C" {
 
 // x [R, H] io dtype, y [R, H] fp32, gamma/beta [H] fp32, out [R, H] io;
-// z [R, H] io receives round(x + dropout(y)) when not null.  H <= 1024.
+// z [R, H] io receives round(x + dropout(y)) when not null.  H % 8 == 0,
+// H <= 1024, every pointer 16-byte aligned (the wrapper checks).
 int fm_add_layernorm(const void* x, const void* y, const void* gamma, const void* beta,
                      void* out, void* z, int R, int H, float eps, unsigned long long seed,
                      unsigned int stream_id, unsigned int threshold, float inv_keep,
@@ -226,7 +287,7 @@ int fm_add_layernorm(const void* x, const void* y, const void* gamma, const void
   const float* yy = static_cast<const float*>(y);
   const float* gm = static_cast<const float*>(gamma);
   const float* bt = static_cast<const float*>(beta);
-  if (H > MAX_H) return cudaErrorInvalidValue;
+  if (H > MAX_H || H % V) return cudaErrorInvalidValue;
   if (dtype == FM_F32) return launch_fwd<float>(x, yy, gm, bt, out, z, R, H, eps, d, s);
   if (dtype == FM_BF16) return launch_fwd<fm_bf16>(x, yy, gm, bt, out, z, R, H, eps, d, s);
   return cudaErrorInvalidValue;
@@ -234,6 +295,7 @@ int fm_add_layernorm(const void* x, const void* y, const void* gamma, const void
 
 // g, z [R, H] io dtype, gamma [H] fp32 -> dz [R, H] fp32, da [R, H] io, and
 // part [3, ceil(R/64), H] fp32 block partials of (g*xhat, g, dropout(dz)).
+// H % 8 == 0, H <= 1024.
 int fm_layernorm_bwd(const void* g, const void* z, const void* gamma, void* dz, void* da,
                      void* part, int R, int H, float eps, unsigned long long seed,
                      unsigned int stream_id, unsigned int threshold, float inv_keep,
@@ -243,7 +305,7 @@ int fm_layernorm_bwd(const void* g, const void* z, const void* gamma, void* dz, 
   const float* gm = static_cast<const float*>(gamma);
   float* dzz = static_cast<float*>(dz);
   float* pp = static_cast<float*>(part);
-  if (H > MAX_H) return cudaErrorInvalidValue;
+  if (H > MAX_H || H % V) return cudaErrorInvalidValue;
   if (dtype == FM_F32) return launch_bwd<float>(g, z, gm, dzz, da, pp, R, H, eps, d, s);
   if (dtype == FM_BF16) return launch_bwd<fm_bf16>(g, z, gm, dzz, da, pp, R, H, eps, d, s);
   return cudaErrorInvalidValue;

@@ -32,6 +32,10 @@
 // block.  bf16 runs WMMA 16x16x16 fragments with fp32 accumulators, 32-deep
 // K slices copied by cp.async into a two-stage ring (8 warps, 64x32 each);
 // fp32 runs CUDA-core FMA with 8x8 outputs per thread (full fp32, no TF32).
+// The epilogue is chosen at compile time (Mode) and works on groups of 8
+// (bf16) or 4 (fp32) consecutive columns: 16-byte loads and stores and one
+// Philox call per 4 elements, so at K = 768 it stays small next to the
+// main loop.
 // "tn" reduces over R = 143360 rows: it splits K over gridDim.z and writes
 // fp32 partials [splits, M, N] that fm_colsum adds in a fixed order, so the
 // sum is the same bits every run (no atomics anywhere).  Column sums for
@@ -56,6 +60,12 @@ constexpr int PAD = 4;  // keeps rows 16-byte aligned, shifts banks
 
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2 };
 enum Gate { GATE_NONE = 0, GATE_RELU = 1, GATE_DGELU = 2 };
+// Which epilogue a launch runs, fixed at compile time so that each kernel
+// carries only its own steps: the forward's bias + activation (+ dropout,
+// + pre-activation copy), the backward's plain store (dO, weight grads),
+// its gated store (dh, with the bias-grad column sums) and its residual add
+// (dx).
+enum Mode { EPI_STORE = 0, EPI_BIAS_ACT = 1, EPI_GATE = 2, EPI_RESID = 3 };
 
 struct Epi {
   const float* bias;
@@ -77,26 +87,108 @@ __device__ __forceinline__ float dgelu(float u) {
          u * 0.3989422804014327f * expf(-0.5f * u * u);
 }
 
-// The epilogue of one element; T is the io dtype of aux and gate.
-template <typename T>
-__device__ __forceinline__ float epilogue(const Epi& e, int row, int col, int N, float v) {
-  const size_t off = (size_t)row * N + col;
-  if (e.bias) v += e.bias[col];
-  if (e.aux && e.gate_kind == GATE_NONE) static_cast<T*>(e.aux)[off] = fm::from_f32<T>(v);
-  if (e.act == ACT_RELU) v = fmaxf(v, 0.0f);
-  else if (e.act == ACT_GELU) v = gelu(v);
-  v = fm::apply_dropout(e.drop, v, off);
-  if (e.gate_kind != GATE_NONE) {
-    const float g = fm::to_f32(static_cast<const T*>(e.gate)[off]);
-    if (e.gate_kind == GATE_RELU) {
-      v *= g > 0.0f ? e.gate_scale : 0.0f;
-    } else {
-      v *= dgelu(g);
-      if (e.aux) static_cast<T*>(e.aux)[off] = fm::from_f32<T>(gelu(g));
-    }
+// G consecutive values (G = 4 or 8) as fp32, 16 bytes at a time.
+template <int G>
+__device__ __forceinline__ void load_group(const float* p, float* v) {
+#pragma unroll
+  for (int h = 0; h < G / 4; ++h) {
+    const float4 a = reinterpret_cast<const float4*>(p)[h];
+    v[4 * h] = a.x; v[4 * h + 1] = a.y; v[4 * h + 2] = a.z; v[4 * h + 3] = a.w;
   }
-  if (e.resid) v += e.resid[off];
-  return v;
+}
+template <int G>
+__device__ __forceinline__ void load_group(const fm_bf16* p, float* v) {
+  static_assert(G == 8, "bf16 groups are 16 bytes");
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const fm_bf16* h = reinterpret_cast<const fm_bf16*>(&u);
+#pragma unroll
+  for (int k = 0; k < G; ++k) v[k] = __bfloat162float(h[k]);
+}
+template <int G>
+__device__ __forceinline__ void store_group(float* p, const float* v) {
+#pragma unroll
+  for (int h = 0; h < G / 4; ++h)
+    reinterpret_cast<float4*>(p)[h] = make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+}
+template <int G>
+__device__ __forceinline__ void store_group(fm_bf16* p, const float* v) {
+  static_assert(G == 8, "bf16 groups are 16 bytes");
+  uint4 u;
+  fm_bf16* h = reinterpret_cast<fm_bf16*>(&u);
+#pragma unroll
+  for (int k = 0; k < G; ++k) h[k] = __float2bfloat16_rn(v[k]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// The epilogue of the G consecutive elements v[0..G) of row `row` from
+// column `col` (a multiple of G) into C, adding each stored value to csum
+// (EPI_GATE).  T is the io dtype of aux and gate.  Whole groups inside a
+// row whose length is a multiple of G take 16-byte loads and stores and one
+// Philox call per 4 elements; a ragged group goes element by element.
+template <int MODE, int G, typename T, typename TOut>
+__device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, int N, float* v,
+                                               TOut* __restrict__ C, float* csum) {
+  const size_t off = (size_t)row * N + col;
+  const bool vec = N % G == 0;  // then every group is whole (col % G == 0)
+  const int n = vec ? G : min(G, N - col);
+  float t[G];
+  if (MODE == EPI_BIAS_ACT) {
+    if (e.bias) {
+      if (vec) load_group<G>(e.bias + col, t);
+      else for (int k = 0; k < n; ++k) t[k] = e.bias[col + k];
+#pragma unroll
+      for (int k = 0; k < G; ++k) v[k] += t[k];
+    }
+    if (e.aux) {  // the pre-activation, the gelu backward's residual
+      T* aux = static_cast<T*>(e.aux) + off;
+      if (vec) store_group<G>(aux, v);
+      else for (int k = 0; k < n; ++k) aux[k] = fm::from_f32<T>(v[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < G; ++k)
+      v[k] = e.act == ACT_RELU ? fmaxf(v[k], 0.0f) : (e.act == ACT_GELU ? gelu(v[k]) : v[k]);
+    if (e.drop.on) {
+      if (vec) {
+#pragma unroll
+        for (int h = 0; h < G / 4; ++h) {
+          const uint4 w = fm::random_words(e.drop.seed, e.drop.stream, (off >> 2) + h);
+          const uint32_t bits[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            v[4 * h + k] = bits[k] < e.drop.threshold ? v[4 * h + k] * e.drop.inv_keep : 0.0f;
+        }
+      } else {
+        for (int k = 0; k < n; ++k) v[k] = fm::apply_dropout(e.drop, v[k], off + k);
+      }
+    }
+  } else if (MODE == EPI_GATE) {
+    const T* gate = static_cast<const T*>(e.gate) + off;
+    if (vec) load_group<G>(gate, t);
+    else for (int k = 0; k < n; ++k) t[k] = fm::to_f32(gate[k]);
+    if (e.gate_kind == GATE_RELU) {
+#pragma unroll
+      for (int k = 0; k < G; ++k) v[k] *= t[k] > 0.0f ? e.gate_scale : 0.0f;
+    } else {
+#pragma unroll
+      for (int k = 0; k < G; ++k) v[k] *= dgelu(t[k]);
+      if (e.aux) {  // a = round(gelu(hd)), the dW2 operand
+        T* aux = static_cast<T*>(e.aux) + off;
+#pragma unroll
+        for (int k = 0; k < G; ++k) t[k] = gelu(t[k]);
+        if (vec) store_group<G>(aux, t);
+        else for (int k = 0; k < n; ++k) aux[k] = fm::from_f32<T>(t[k]);
+      }
+    }
+  } else if (MODE == EPI_RESID) {
+    if (vec) load_group<G>(e.resid + off, t);
+    else for (int k = 0; k < n; ++k) t[k] = e.resid[off + k];
+#pragma unroll
+    for (int k = 0; k < G; ++k) v[k] += t[k];
+  }
+  if (MODE == EPI_GATE)
+    for (int k = 0; k < n; ++k) csum[k] += v[k];
+  if (vec) store_group<G>(C + off, v);
+  else for (int k = 0; k < n; ++k) C[off + k] = fm::from_f32<TOut>(v[k]);
 }
 
 // ---- fp32 CUDA-core kernel ------------------------------------------------------
@@ -136,7 +228,7 @@ __device__ __forceinline__ void stage_f32_cols(const float* __restrict__ src, in
   }
 }
 
-template <int AT, int BT>
+template <int AT, int BT, int MODE>
 __global__ void __launch_bounds__(THREADS)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
                 int M, int N, int K, int Kc, Epi e) {
@@ -176,6 +268,8 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float*
     __syncthreads();
   }
 
+  // Epilogue: each thread owns rows ty*4.. and 64+ty*4.. and the 4-column
+  // groups tx*4.. and 64+tx*4...
   float csum[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) csum[j] = 0.0f;
@@ -184,16 +278,13 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float*
     const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
     if (row >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (col < N) {
-        const float v = epilogue<float>(e, row, col, N, acc[i][j]);
-        csum[j] += v;
-        C[(size_t)row * N + col] = v;
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + 64 * h + tx * 4;
+      if (col < N)
+        epilogue_group<MODE, 4, float, float>(e, row, col, N, &acc[i][4 * h], C, &csum[4 * h]);
     }
   }
-  if (e.colpart) {  // uniform across the grid
+  if (MODE == EPI_GATE) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) colsum[ty][j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4] = csum[j];
     __syncthreads();
@@ -255,7 +346,7 @@ __device__ __forceinline__ void stage_tc_cols(const fm_bf16* __restrict__ src, i
   }
 }
 
-template <typename TOut, int AT, int BT>
+template <typename TOut, int AT, int BT, int MODE>
 __global__ void __launch_bounds__(THREADS)
 gemm_bf16_tc_kernel(const fm_bf16* __restrict__ A, const fm_bf16* __restrict__ B,
                     TOut* __restrict__ C, int M, int N, int K, int Kc, Epi e) {
@@ -322,33 +413,40 @@ gemm_bf16_tc_kernel(const fm_bf16* __restrict__ A, const fm_bf16* __restrict__ B
   }
 
   // Epilogue: one 16x16 fp32 fragment at a time through a per-warp slice of
-  // the (now idle) A buffer.  Lane l handles column l % 16 of a fragment,
-  // so its running sum is that column's share of the warp's 64 rows.
+  // the (now idle) A buffer; lane l takes row l / 2, columns (l % 2) * 8 ..
+  // +8 of it, so its running column sums are its 8 columns' share of the
+  // warp's 64 rows, added across the 16 lanes that share them.
   float* st = reinterpret_cast<float*>(&As[0][0]) + warp * 256;
+  const int lr = lane / 2, lc = (lane % 2) * 8;
 #pragma unroll
   for (int j = 0; j < TC_FN; ++j) {
-    float csum = 0.0f;
-    const int c0 = n0 + wn * TC_WN + j * 16;
+    float csum[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) csum[k] = 0.0f;
+    const int col = n0 + wn * TC_WN + j * 16 + lc;
 #pragma unroll
     for (int i = 0; i < TC_FM; ++i) {
       wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
       __syncwarp();
-      const int r0 = m0 + wm * TC_WM + i * 16;
-      for (int el = lane; el < 256; el += 32) {
-        const int row = r0 + el / 16;
-        const int col = c0 + el % 16;
-        if (row < M && col < N) {
-          const float v = epilogue<fm_bf16>(e, row, col, N, st[el]);
-          csum += v;
-          C[(size_t)row * N + col] = fm::from_f32<TOut>(v);
-        }
+      const int row = m0 + wm * TC_WM + i * 16 + lr;
+      if (row < M && col < N) {
+        float v[8];
+        load_group<8>(st + lr * 16 + lc, v);
+        epilogue_group<MODE, 8, fm_bf16, TOut>(e, row, col, N, v, C, csum);
       }
       __syncwarp();
     }
-    csum += __shfl_xor_sync(0xffffffffu, csum, 16);
-    if (e.colpart && lane < 16) colsum[wm][wn * TC_WN + j * 16 + lane] = csum;
+    if (MODE == EPI_GATE) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+#pragma unroll
+        for (int o = 2; o < 32; o <<= 1) csum[k] += __shfl_xor_sync(0xffffffffu, csum[k], o);
+      if (lane < 2)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) colsum[wm][wn * TC_WN + j * 16 + lc + k] = csum[k];
+    }
   }
-  if (e.colpart) {  // uniform across the grid
+  if (MODE == EPI_GATE) {
     __syncthreads();
     if (threadIdx.x < BN && n0 + threadIdx.x < N)
       e.colpart[(size_t)blockIdx.y * N + n0 + threadIdx.x] =
@@ -356,22 +454,22 @@ gemm_bf16_tc_kernel(const fm_bf16* __restrict__ A, const fm_bf16* __restrict__ B
   }
 }
 
-template <int AT, int BT>
+template <int AT, int BT, int MODE>
 cudaError_t launch(const void* A, const void* B, void* C, int M, int N, int K, int splits,
                    int dtype, int out_f32, const Epi& e, cudaStream_t s) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   // K per split, a multiple of the K slice; the last split may be short.
   const int Kc = ((K + splits - 1) / splits + TC_BK - 1) / TC_BK * TC_BK;
   if (dtype == FM_F32) {
-    gemm_f32_kernel<AT, BT><<<grid, THREADS, 0, s>>>(
+    gemm_f32_kernel<AT, BT, MODE><<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(A), static_cast<const float*>(B), static_cast<float*>(C),
         M, N, K, Kc, e);
   } else if (out_f32) {
-    gemm_bf16_tc_kernel<float, AT, BT><<<grid, THREADS, 0, s>>>(
+    gemm_bf16_tc_kernel<float, AT, BT, MODE><<<grid, THREADS, 0, s>>>(
         static_cast<const fm_bf16*>(A), static_cast<const fm_bf16*>(B), static_cast<float*>(C),
         M, N, K, Kc, e);
   } else {
-    gemm_bf16_tc_kernel<fm_bf16, AT, BT><<<grid, THREADS, 0, s>>>(
+    gemm_bf16_tc_kernel<fm_bf16, AT, BT, MODE><<<grid, THREADS, 0, s>>>(
         static_cast<const fm_bf16*>(A), static_cast<const fm_bf16*>(B), static_cast<fm_bf16*>(C),
         M, N, K, Kc, e);
   }
@@ -435,11 +533,21 @@ int fm_gemm(const void* A, const void* B, void* C, int M, int N, int K, int layo
   e.gate_scale = gate_scale;
   e.resid = static_cast<const float*>(resid);
   e.colpart = static_cast<float*>(colpart);
-  switch (layout) {
-    case 0: return launch<0, 0>(A, B, C, M, N, K, splits, dtype, out_f32, e, s);
-    case 1: return launch<0, 1>(A, B, C, M, N, K, splits, dtype, out_f32, e, s);
-    case 2: return launch<1, 1>(A, B, C, M, N, K, splits, dtype, out_f32, e, s);
-    default: return cudaErrorInvalidValue;
+  // "nt" runs the forward epilogue; "nn" stores, gates or adds a residual;
+  // "tn" stores.  Any other combination of operands is refused.
+  const int mode = layout == 0 ? EPI_BIAS_ACT : (gate ? EPI_GATE : (resid ? EPI_RESID : EPI_STORE));
+  if ((layout != 0 && (bias || act != ACT_NONE || drop_on)) || (layout == 0 && (gate || resid)) ||
+      (layout == 2 && (gate || resid || aux)) || ((colpart != nullptr) != (mode == EPI_GATE)) ||
+      (mode == EPI_GATE && gate_kind == GATE_NONE) ||
+      (layout == 1 && aux && !(mode == EPI_GATE && gate_kind == GATE_DGELU)))
+    return cudaErrorInvalidValue;
+  if (layout == 0) return launch<0, 0, EPI_BIAS_ACT>(A, B, C, M, N, K, splits, dtype, out_f32, e, s);
+  if (layout == 2) return launch<1, 1, EPI_STORE>(A, B, C, M, N, K, splits, dtype, out_f32, e, s);
+  if (layout != 1) return cudaErrorInvalidValue;
+  switch (mode) {
+    case EPI_GATE: return launch<0, 1, EPI_GATE>(A, B, C, M, N, K, splits, dtype, out_f32, e, s);
+    case EPI_RESID: return launch<0, 1, EPI_RESID>(A, B, C, M, N, K, splits, dtype, out_f32, e, s);
+    default: return launch<0, 1, EPI_STORE>(A, B, C, M, N, K, splits, dtype, out_f32, e, s);
   }
 }
 

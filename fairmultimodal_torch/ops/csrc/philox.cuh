@@ -44,11 +44,16 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
+// The four words of counter q: the bits of flat indices 4q .. 4q + 3.
+__device__ __forceinline__ uint4 random_words(unsigned long long seed, uint32_t stream,
+                                              unsigned long long q) {
+  return philox4x32_10(make_uint4((uint32_t)q, (uint32_t)(q >> 32), stream, 0u),
+                       make_uint2((uint32_t)seed, (uint32_t)(seed >> 32)));
+}
+
 __device__ __forceinline__ uint32_t random_bits(unsigned long long seed, uint32_t stream,
                                                 unsigned long long i) {
-  const unsigned long long q = i >> 2;
-  const uint4 r = philox4x32_10(make_uint4((uint32_t)q, (uint32_t)(q >> 32), stream, 0u),
-                                make_uint2((uint32_t)seed, (uint32_t)(seed >> 32)));
+  const uint4 r = random_words(seed, stream, i >> 2);
   switch (i & 3) {
     case 0: return r.x;
     case 1: return r.y;
