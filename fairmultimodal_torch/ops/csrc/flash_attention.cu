@@ -468,9 +468,10 @@ cudaError_t launch_f32(const void* qkv, const int* mask, void* out, float* stats
 // Bound at the lab shape: 8*B*S^2*H = 5.1e11 FLOP of the attention
 // backward's products (0.52 ms at the bf16 peak); this design executes
 // 1.4x that (the dQ kernel recomputes S and dP).  bf16 runs every product
-// on WMMA fragments with fp32 accumulators kept in shared memory (simple,
-// not fast: each product loads and stores its accumulator tile); fp32 runs
-// the same structure with CUDA-core FMA loops.
+// on WMMA fragments; the dQ / dK / dV accumulators stay in registers, and
+// the scores, dP, p and dS tiles go through shared memory (about 105 KB at
+// d 96, two blocks per SM).  fp32 runs the same structure with CUDA-core
+// FMA loops and its accumulators in shared memory.
 
 template <typename T>
 struct Pad {
@@ -557,12 +558,75 @@ struct BwdSmem {  // byte offsets of the shared-memory regions
   static constexpr int LS = TL + 4;          // fp32 score tiles [TL][LS]
   static constexpr int T0 = 0;               // four io tiles
   static constexpr int ACC = T0 + 4 * round128(TL * LD * (int)sizeof(T));
-  static constexpr int S32 = ACC + 2 * round128(TL * LA * 4);
+  // fp32 keeps its two gradient accumulators here; bf16 keeps them in
+  // registers and stages one at a time through S32 / DP32 at the end.
+  static constexpr int S32 = ACC + (sizeof(T) == 2 ? 0 : 2 * round128(TL * LA * 4));
   static constexpr int DP32 = S32 + round128(TL * LS * 4);
   static constexpr int PIO = DP32 + round128(TL * LS * 4);
   static constexpr int DSIO = PIO + round128(TL * LP * (int)sizeof(T));
   static constexpr int VEC = DSIO + round128(TL * LP * (int)sizeof(T));  // 4 x [TL] fp32
   static constexpr int BYTES = VEC + round128(4 * TL * 4);
+};
+
+// Accumulator of one [TL][DP] gradient tile.  bf16: WMMA fragments in
+// registers, warp w owning fragments w, w + 8, ... (no shared-memory round
+// trip per product); fp32: a tile in shared memory at ``smem`` (pitch la).
+template <typename T, int DP, int TL>
+struct GradAcc {
+  float* c;
+  int la;
+  __device__ GradAcc(float* smem, int pitch) : c(smem), la(pitch) {}
+  __device__ void zero() {
+    for (int e = threadIdx.x; e < TL * la; e += FA_THREADS) c[e] = 0.0f;
+  }
+  template <bool AT>  // += op(A) . B, B [K][DP] row-major
+  __device__ void mma(const float* A, int sa, const float* B, int sb, int K) {
+    tile_mm<TL, DP, AT, false>(A, sa, B, sb, K, c, la, true);
+  }
+  __device__ const float* tile(float*) { return c; }
+};
+
+template <int DP, int TL>
+struct GradAcc<fm_bf16, DP, TL> {
+  static constexpr int FN = DP / 16;
+  static constexpr int FPW = (TL / 16) * FN / (FA_THREADS / 32);
+  static_assert(FPW * (FA_THREADS / 32) == (TL / 16) * FN, "fragments per warp");
+  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> f[FPW];
+  int la;
+  __device__ GradAcc(float*, int pitch) : la(pitch) {}
+  __device__ void zero() {
+#pragma unroll
+    for (int i = 0; i < FPW; ++i) nvcuda::wmma::fill_fragment(f[i], 0.0f);
+  }
+  template <bool AT>
+  __device__ void mma(const fm_bf16* A, int sa, const fm_bf16* B, int sb, int K) {
+    using namespace nvcuda;
+    using ALay = typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
+    const int warp = threadIdx.x / 32;
+#pragma unroll
+    for (int i = 0; i < FPW; ++i) {
+      const int fi = warp + i * (FA_THREADS / 32);
+      const int i0 = (fi / FN) * 16, j0 = (fi % FN) * 16;
+      for (int k = 0; k < K; k += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, fm_bf16, ALay> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, fm_bf16, wmma::row_major> b;
+        wmma::load_matrix_sync(a, AT ? A + k * sa + i0 : A + i0 * sa + k, sa);
+        wmma::load_matrix_sync(b, B + k * sb + j0, sb);
+        wmma::mma_sync(f[i], a, b, f[i]);
+      }
+    }
+  }
+  // The fp32 tile, stored into ``stage`` [TL][la]; read it after a barrier.
+  __device__ const float* tile(float* stage) {
+    const int warp = threadIdx.x / 32;
+#pragma unroll
+    for (int i = 0; i < FPW; ++i) {
+      const int fi = warp + i * (FA_THREADS / 32);
+      nvcuda::wmma::store_matrix_sync(stage + (fi / FN) * 16 * la + (fi % FN) * 16, f[i], la,
+                                      nvcuda::wmma::mem_row_major);
+    }
+    return stage;
+  }
 };
 
 // Row max m and sum l of the forward, and D; rows past S get l = inf (so
@@ -602,7 +666,7 @@ __device__ __forceinline__ void write_grad(const float* acc, int la, T* dst, siz
 }
 
 template <typename T, int DP, int TL>
-__global__ void __launch_bounds__(FA_THREADS)
+__global__ void __launch_bounds__(FA_THREADS, sizeof(T) == 2 ? 2 : 1)
 flash_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
                     const T* __restrict__ dout, const int* __restrict__ mask,
                     const float* __restrict__ stats, float* __restrict__ Dg,
@@ -614,7 +678,7 @@ flash_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
   T* dOs = Qs + TL * L::LD;
   T* Ks = dOs + TL * L::LD;
   T* Vs = Ks + TL * L::LD;
-  float* dQ = reinterpret_cast<float*>(smem_raw + L::ACC);
+  GradAcc<T, DP, TL> dQ(reinterpret_cast<float*>(smem_raw + L::ACC), L::LA);
   float* S32 = reinterpret_cast<float*>(smem_raw + L::S32);
   float* dP32 = reinterpret_cast<float*>(smem_raw + L::DP32);
   T* dSio = reinterpret_cast<T*>(smem_raw + L::DSIO);
@@ -652,6 +716,7 @@ flash_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
     }
   }
 
+  dQ.zero();
   for (int k0 = 0; k0 < S; k0 += TL) {
     __syncthreads();  // previous tile fully consumed; D_s, Qs, dOs ready
     load_rows<T, DP, TL>(kb, rs, k0, S, d, Ks);
@@ -668,16 +733,18 @@ flash_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
       dSio[i * L::LP + j] = fm::from_f32<T>(ds * scale);
     }
     __syncthreads();
-    tile_mm<TL, DP, false, false>(dSio, L::LP, Ks, L::LD, TL, dQ, L::LA, k0 > 0);
+    dQ.template mma<false>(dSio, L::LP, Ks, L::LD, TL);
   }
   __syncthreads();
+  const float* dq = dQ.tile(S32);
+  __syncthreads();
   const int ntiles = gridDim.x;
-  write_grad<T, DP, TL>(dQ, L::LA, dqkv + (size_t)b * S * rs + (size_t)h * d, rs, q0, S, d,
+  write_grad<T, DP, TL>(dq, L::LA, dqkv + (size_t)b * S * rs + (size_t)h * d, rs, q0, S, d,
                         colpart + ((size_t)b * ntiles + blockIdx.x) * rs + (size_t)h * d);
 }
 
 template <typename T, int DP, int TL>
-__global__ void __launch_bounds__(FA_THREADS)
+__global__ void __launch_bounds__(FA_THREADS, sizeof(T) == 2 ? 2 : 1)
 flash_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
                       const int* __restrict__ mask, const float* __restrict__ stats,
                       const float* __restrict__ Dg, T* __restrict__ dqkv,
@@ -688,8 +755,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   T* Vs = Ks + TL * L::LD;
   T* Qs = Vs + TL * L::LD;
   T* dOs = Qs + TL * L::LD;
-  float* dK = reinterpret_cast<float*>(smem_raw + L::ACC);
-  float* dV = dK + TL * L::LA;
+  GradAcc<T, DP, TL> dK(reinterpret_cast<float*>(smem_raw + L::ACC), L::LA);
+  GradAcc<T, DP, TL> dV(reinterpret_cast<float*>(smem_raw + L::ACC) + TL * L::LA, L::LA);
   float* S32 = reinterpret_cast<float*>(smem_raw + L::S32);
   float* dP32 = reinterpret_cast<float*>(smem_raw + L::DP32);
   T* Pio = reinterpret_cast<T*>(smem_raw + L::PIO);
@@ -713,6 +780,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   load_rows<T, DP, TL>(kb, rs, k0, S, d, Ks);
   load_rows<T, DP, TL>(vb, rs, k0, S, d, Vs);
   load_key_bias(mask + (size_t)b * S, k0, S, TL, kbias);
+  dK.zero();
+  dV.zero();
 
   for (int q0 = 0; q0 < S; q0 += TL) {
     __syncthreads();  // previous tile fully consumed
@@ -731,15 +800,20 @@ flash_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
       dSio[i * L::LP + j] = fm::from_f32<T>(ds * scale);
     }
     __syncthreads();
-    tile_mm<TL, DP, true, false>(Pio, L::LP, dOs, L::LD, TL, dV, L::LA, q0 > 0);
-    tile_mm<TL, DP, true, false>(dSio, L::LP, Qs, L::LD, TL, dK, L::LA, q0 > 0);
+    dV.template mma<true>(Pio, L::LP, dOs, L::LD, TL);
+    dK.template mma<true>(dSio, L::LP, Qs, L::LD, TL);
   }
   __syncthreads();
   const int ntiles = gridDim.x;
   T* gb = dqkv + (size_t)b * S * rs + (size_t)h * d;
   float* cp = colpart + ((size_t)b * ntiles + blockIdx.x) * rs + (size_t)h * d;
-  write_grad<T, DP, TL>(dK, L::LA, gb + H, rs, k0, S, d, cp + H);
-  write_grad<T, DP, TL>(dV, L::LA, gb + 2 * H, rs, k0, S, d, cp + 2 * H);
+  const float* dk = dK.tile(S32);
+  __syncthreads();
+  write_grad<T, DP, TL>(dk, L::LA, gb + H, rs, k0, S, d, cp + H);
+  __syncthreads();
+  const float* dv = dV.tile(S32);
+  __syncthreads();
+  write_grad<T, DP, TL>(dv, L::LA, gb + 2 * H, rs, k0, S, d, cp + 2 * H);
 }
 
 template <typename T, int DP>
