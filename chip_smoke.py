@@ -52,6 +52,27 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    the train-step time at batch 256 bf16 (median of 20 after warm-up) and its
    device time by kernel from ``torch.profiler``.
 
+3c. unfolded kernels (the layer with ``fold_ln=False``): ``fused_attention_block``
+   (Pallas #5 / #6) and ``fused_ffn`` (#7 / #8) forward and backward through
+   their ``autograd.Function`` against the plain forward and backward, at
+   the lab shapes (B256 S560 8x96; R143360 F2048 relu with the inner dropout
+   off and at 0.1) and at a text shape (R 64 x 512, F 3072, gelu), fp32 and
+   bf16, plus shapes off the main path (S 272, head dim 64, a fully masked
+   row; 600 rows); the dropout + residual + LayerNorm glue against its plain
+   version; limits at the phase.  Timed in bf16: each forward and backward
+   launch, plain versions, one library composition of each (F.linear x3 +
+   SDPA + F.linear; F.linear + relu + dropout + F.linear; their autograd
+   backwards), beside the bound;
+5b. unfolded slice: an fp32 train step unfolded on the card against the
+   folded one on the card (loss 1e-6 relative, grads 1e-4 of max-abs) and
+   against the CPU plain path (phase 5's limits); ``FAMETrainer.fit`` for 1
+   epoch with validation under ``FMTPU_FOLD_LN=0`` (512 train / 256
+   validation patients, full width) whose launch counts of #5-#8 and of the
+   glue must equal the protocol's, with #1-#4 never launched; the bf16
+   train step at batch 256 folded and unfolded in turns and the unfolded
+   one's profiler split; fp32 serving probabilities unfolded vs folded
+   (1e-5) and ``FAMEPredictor.benchmark`` unfolded.
+
 It prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.
 """
@@ -478,6 +499,237 @@ def train_kernel_phase(fab, ffn, _build):
     return rows, keep
 
 
+# -- phase 3c: the unfolded kernels (Pallas #5-#8) against their plain versions -------------
+#
+# Limits: fp32 forward max abs error FP32_TOL (only summation order differs);
+# every bf16 output and every grad against the limits of _compare, relative
+# to its largest entry (TRAIN_FP32_TOL; bf16 TRAIN_BF16_MAX / TRAIN_BF16_MEAN,
+# for the reason given there: the same intermediates are rounded to bf16 on
+# both sides, summed in another order).  The glue's LayerNorm outputs take
+# phase 3's bf16 limits.
+
+BLOCK_GRADS = ("dx", "dwqkv", "dbqkv", "dwo", "dbo")
+UFFN_GRADS = ("dx", "dw1", "db1", "dw2", "db2")
+
+
+def _grouped_block(grads):
+    dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo = grads
+    return dict(zip(BLOCK_GRADS, (dx, torch.cat((dwq, dwk, dwv)), torch.cat((dbq, dbk, dbv)),
+                                  dwo, dbo)))
+
+
+def _check_forward(label, dtype, out, want):
+    if dtype == torch.float32:
+        err = (out.float() - want.float()).abs()
+        if not torch.isfinite(out).all() or err.max().item() > FP32_TOL:
+            raise AssertionError(f"{label}: forward max abs err {err.max().item()}")
+        return {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item()}
+    return _compare(label, dtype, {"out": out}, {"out": want})["out"]
+
+
+def block_check(fab, gen, dtype, B=256, S=560, H=768, nh=8, L=N_LABS, timed=False):
+    """#5 and #6 through ``fused_attention_block`` and its autograd.Function
+    against the plain forward and backward."""
+    inputs, mask, g = _attn_train_case(fab, B, S, H, nh, 0.0, dtype, gen, L)
+    inputs = inputs[:9]                       # x and the four projections, no LayerNorm
+    x, wq, _, wk, _, wv, _, wo, _ = inputs
+    kw = dict(num_heads=nh)
+    label = f"block B{B} S{S} {H // nh}x{nh} {dtype}"
+    with torch.no_grad():
+        out_p, res = fab.fused_attention_block_reference(*inputs, mask, return_residuals=True,
+                                                         **kw)
+        fwd = _check_forward(label, dtype, fab.fused_attention_block(*inputs, mask, **kw), out_p)
+    leaves = _leaves(inputs)
+    out = fab.fused_attention_block(*leaves, mask, **kw)
+    grads = torch.autograd.grad(out, leaves, g)
+    plain = lambda: fab.fused_attention_block_backward_reference(   # noqa: E731
+        g, x, res["qkv"], res["o"], wq, wk, wv, wo, mask, **kw)
+    with torch.no_grad():
+        grads_p = plain()
+    errs = _compare(label, dtype, {"out": out, **_grouped_block(grads)},
+                    {"out": out_p, **_grouped_block(grads_p)})
+    row = {"case": label, "forward": fwd, "errors": errs}
+    del out, grads, grads_p
+    if timed:
+        F = torch.nn.functional
+        d = H // nh
+        bias = torch.where(mask > 0, 0.0, -1e9).to(dtype)[:, None, None, :]
+
+        def library(xx, q_w, q_b, k_w, k_b, v_w, v_b, o_w, o_b):
+            qkv = F.linear(xx, torch.cat((q_w, k_w, v_w)), torch.cat((q_b, k_b, v_b)))
+            q, k, v = (t.transpose(1, 2) for t in qkv.view(B, S, 3, nh, d).unbind(2))
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+            return F.linear(o.transpose(1, 2).reshape(B, S, H), o_w, o_b)
+
+        with torch.no_grad():
+            infer, _, _ = fab.block_stages(*inputs, mask, **kw)
+            fwd_res, _, saved = fab.block_stages(*inputs, mask, residuals=True, **kw)
+            fab._run(fwd_res)
+            bwd, _ = fab.block_backward_stages(g, saved, wo, **kw)
+            row["ms"] = time_ms(lambda: fab._run(infer))
+            row["stages_ms"] = {name: time_ms(fn) for name, fn in infer}
+            row["fwd_res_ms"] = time_ms(lambda: fab._run(fwd_res))
+            row["bwd_ms"] = time_ms(lambda: fab._run(bwd))
+            row["bwd_stages_ms"] = {name: time_ms(fn) for name, fn in bwd}
+            row["plain_ms"] = time_ms(lambda: fab.fused_attention_block_reference(
+                *inputs, mask, **kw), reps=5)
+            row["plain_bwd_ms"] = time_ms(plain, reps=5)
+            row["library_ms"] = time_ms(lambda: library(*inputs))
+        lib_leaves = _leaves(inputs)
+        row["library_bwd_ms"] = _time_backward(library(*lib_leaves), lib_leaves, g)
+        e = x.element_size()
+        flops = B * (8 * S * H * H + 4 * S * S * H)
+        nbytes = 2 * B * S * H * e + 4 * H * H * e + B * S * 4
+        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+        flops_b = B * (16 * S * H * H + 8 * S * S * H)
+        nbytes_b = (7 * B * S * H + 8 * H * H) * e
+        row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(flops_b, nbytes_b)
+        row["flops"], row["bytes"], row["bwd_flops"], row["bwd_bytes"] = \
+            flops, nbytes, flops_b, nbytes_b
+        del saved, fwd_res, bwd, infer, lib_leaves
+    del res, out_p
+    torch.cuda.empty_cache()
+    return row
+
+
+def unfolded_ffn_check(ffn, gen, dtype, rate, R=256 * 560, H=768, F=2048, act="relu",
+                       timed=False):
+    """#7 and #8 through ``fused_ffn`` and its autograd.Function against the
+    plain forward and backward, with the inner dropout at ``rate``."""
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
+
+    inputs = [rn(R, H), rn(F, H, std=H ** -0.5), rn(F, std=0.02), rn(H, F, std=F ** -0.5),
+              rn(H, std=0.02)]
+    x, w1, b1, w2, b2 = inputs
+    g = rn(R, H)
+    seed = 21 if rate else None
+    kw = dict(activation=act, rate=rate)
+    label = f"ffn R{R} F{F} {act} {dtype} rate {rate}"
+    with torch.no_grad():
+        out_p, res = ffn.fused_ffn_reference(*inputs, seed=seed, return_residuals=True, **kw)
+        fwd = _check_forward(label, dtype, ffn.fused_ffn(*inputs, deterministic=not rate,
+                                                        seed=seed, **kw), out_p)
+    leaves = _leaves(inputs)
+    out = ffn.fused_ffn(*leaves, deterministic=not rate, seed=seed, **kw)
+    grads = torch.autograd.grad(out, leaves, g)
+    plain = lambda: ffn.fused_ffn_backward_reference(g, x, res["hd"], w1, w2,   # noqa: E731
+                                                     seed=seed, **kw)
+    with torch.no_grad():
+        grads_p = plain()
+    errs = _compare(label, dtype, {"out": out, **dict(zip(UFFN_GRADS, grads))},
+                    {"out": out_p, **dict(zip(UFFN_GRADS, grads_p))})
+    row = {"case": label, "forward": fwd, "errors": errs}
+    if rate:
+        with torch.no_grad():
+            again = ffn.fused_ffn(*inputs, deterministic=False, seed=seed, **kw)
+            other = ffn.fused_ffn(*inputs, deterministic=False, seed=seed + 7, **kw)
+        row["same_seed_identical"] = bool(torch.equal(out, again))
+        row["other_seed_differs"] = not torch.equal(out, other)
+        if not (row["same_seed_identical"] and row["other_seed_differs"]):
+            raise AssertionError(f"{label}: dropout not reproducible per seed {row}")
+        del again, other
+    del out, grads, grads_p
+    if timed:
+        Fn = torch.nn.functional
+        fact = Fn.relu if act == "relu" else Fn.gelu
+
+        def library(xx, a_w, a_b, b_w, b_b):
+            return Fn.linear(Fn.dropout(fact(Fn.linear(xx, a_w, a_b)), rate), b_w, b_b)
+
+        inner = ffn._inner_stream(seed, rate, not rate, act)
+        with torch.no_grad():
+            infer, _, _ = ffn.ffn_stages(*inputs, activation=act, inner=inner)
+            fwd_res, _, saved = ffn.ffn_stages(*inputs, activation=act, inner=inner,
+                                               residuals=True)
+            ffn._run(fwd_res)
+            bwd, _ = ffn.ffn_backward_stages(g, saved, w1, w2, activation=act,
+                                             inv_keep=inner.inv_keep)
+            row["ms"] = time_ms(lambda: ffn._run(infer))
+            row["stages_ms"] = {name: time_ms(fn) for name, fn in infer}
+            row["fwd_res_ms"] = time_ms(lambda: ffn._run(fwd_res))
+            row["bwd_ms"] = time_ms(lambda: ffn._run(bwd))
+            row["bwd_stages_ms"] = {name: time_ms(fn) for name, fn in bwd}
+            row["plain_ms"] = time_ms(lambda: ffn.fused_ffn_reference(*inputs, seed=seed, **kw),
+                                      reps=5)
+            row["plain_bwd_ms"] = time_ms(plain, reps=5)
+            row["library_ms"] = time_ms(lambda: library(*inputs))
+        lib_leaves = _leaves(inputs)
+        row["library_bwd_ms"] = _time_backward(library(*lib_leaves), lib_leaves, g)
+        e = x.element_size()
+        flops = 4 * R * H * F
+        nbytes = (2 * R * H + 2 * H * F) * e
+        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+        flops_b = 8 * R * H * F
+        nbytes_b = (3 * R * H + R * F + 4 * H * F) * e
+        row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(flops_b, nbytes_b)
+        row["flops"], row["bytes"], row["bwd_flops"], row["bwd_bytes"] = \
+            flops, nbytes, flops_b, nbytes_b
+        del saved, fwd_res, bwd, infer, lib_leaves
+    del res, out_p
+    torch.cuda.empty_cache()
+    return row
+
+
+def glue_check(addnorm, gen, dtype, R=256 * 560, H=768, rate=0.1, timed=False):
+    """The unfolded layer's dropout + residual + LayerNorm (the row kernels
+    with y and dz in the io dtype) against its plain version."""
+    from fairmultimodal_torch.utils.rng import Dropout
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
+
+    inputs = [rn(R, H), rn(R, H, std=0.3), 1 + 0.1 * torch.randn(H, generator=gen, device="cuda"),
+              0.1 * torch.randn(H, generator=gen, device="cuda")]
+    g = rn(R, H)
+    kw = dict(eps=1e-5, dropout=Dropout.make(1234, 0, rate))
+    label = f"dropout_add_layernorm R{R} {dtype} rate {rate}"
+    with torch.no_grad():
+        out = addnorm.dropout_add_layernorm(*inputs, **kw)
+        want = addnorm.dropout_add_layernorm_reference(*inputs, **kw)
+    errs = (out.float() - want.float()).abs()
+    fwd = {"max_abs_err": errs.max().item(), "mean_abs_err": errs.mean().item()}
+    lim = (FP32_TOL, 1.0) if dtype == torch.float32 else (BF16_MAX_TOL, BF16_MEAN_TOL)
+    if fwd["max_abs_err"] > lim[0] or fwd["mean_abs_err"] > lim[1]:
+        raise AssertionError(f"{label}: forward {fwd}")
+    leaves = _leaves(inputs)
+    grads = torch.autograd.grad(addnorm.dropout_add_layernorm(*leaves, **kw), leaves, g)
+    leaves_p = _leaves(inputs)
+    grads_p = torch.autograd.grad(addnorm.dropout_add_layernorm_reference(*leaves_p, **kw),
+                                  leaves_p, g)
+    names = ("dx", "dy", "dgamma", "dbeta")
+    row = {"case": label, "forward": fwd,
+           "errors": _compare(label, dtype, dict(zip(names, grads)), dict(zip(names, grads_p)))}
+    if timed:
+        with torch.no_grad():
+            row["ms"] = time_ms(lambda: addnorm.dropout_add_layernorm(*inputs, **kw))
+        row["bwd_ms"] = _time_backward(addnorm.dropout_add_layernorm(*leaves, **kw), leaves, g)
+    del grads, grads_p, leaves, leaves_p
+    torch.cuda.empty_cache()
+    return row
+
+
+def unfolded_kernel_phase(fab, ffn, addnorm):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {"block": [], "ffn": [], "glue": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        timed = dtype == torch.bfloat16
+        cases = [("block", lambda: block_check(fab, gen, dtype, timed=timed)),
+                 # off the main path: head dim 64, S 272, a fully masked row
+                 ("block", lambda: block_check(fab, gen, dtype, B=4, S=272, nh=12, L=250)),
+                 ("ffn", lambda: unfolded_ffn_check(ffn, gen, dtype, 0.0)),
+                 ("ffn", lambda: unfolded_ffn_check(ffn, gen, dtype, 0.1, timed=timed)),
+                 ("ffn", lambda: unfolded_ffn_check(ffn, gen, dtype, 0.0, R=64 * 512, F=3072,
+                                                    act="gelu")),
+                 ("ffn", lambda: unfolded_ffn_check(ffn, gen, dtype, 0.1, R=600)),
+                 ("glue", lambda: glue_check(addnorm, gen, dtype, timed=timed))]
+        for kind, check in cases:
+            row = check()
+            log(f"[unfolded-kernels] {json.dumps(row)}")
+            rows[kind].append(row)
+    return rows
+
+
 # -- phase 4: the serving slice ------------------------------------------------------
 
 
@@ -637,6 +889,62 @@ N_TRAIN, N_VAL, TRAIN_BATCH, TRAIN_EPOCHS = 1024, 256, 256, 2
 # the loss agrees to fp32 rounding (1e-5 relative) and each grad leaf to
 # 1e-3 of its largest entry (grads are differences of nearly equal sums).
 XDEV_LOSS_TOL, XDEV_GRAD_TOL = 1e-5, 1e-3
+#: fp32 one-step results (loss, grads) by configuration, shared by phases 5 and 5b.
+FP32_STEPS = {}
+
+
+def fp32_step_batch(train, keys, n=8):
+    sub = {k: v[:n] for k, v in train.items()}
+    return {"model_inputs": {k: sub[k] for k in keys}, "labels": sub["labels"],
+            "weight": np.ones(n, np.float32)}
+
+
+def set_fold(model, fold):
+    """Set ``fold_ln`` on every encoder layer of ``model`` (None: read
+    ``FMTPU_FOLD_LN``)."""
+    from fairmultimodal_torch.models.behrt import TorchEncoderLayer
+
+    for layer in model.modules():
+        if isinstance(layer, TorchEncoderLayer):
+            layer.fold_ln = fold
+    return model
+
+
+def fp32_train_step(batch, device, fold=None):
+    """One fp32 ``FAMETrainer.train_step`` with dropout on, at full width,
+    from seed-0 weights and generator seed 5: (loss, grads on the host)."""
+    from fairmultimodal_torch.data.prefetch import to_device
+    from fairmultimodal_torch.models._layers import init_params
+    from fairmultimodal_torch.models.fusion import FAMEModel
+    from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
+
+    m32 = set_fold(init_params(FAMEModel(**TRAIN_GEO, dtype=torch.float32), seed=0), fold)
+    t32 = FAMETrainer(m32, TrainConfig(lr=1e-4, batch_size=8), pos_weight=POS_WEIGHT,
+                      rngs_seed=5, device=device)
+    total, _ = t32.train_step(to_device(batch, t32.device))
+    return float(total), {n: p.grad.detach().cpu() for n, p in m32.named_parameters()
+                          if p.grad is not None}
+
+
+def compare_steps(got, want):
+    """(loss rel, worst leaf, its max error over its max-abs) of two
+    :func:`fp32_train_step` results."""
+    (loss_c, grads_c), (loss_h, grads_h) = got, want
+    if set(grads_c) != set(grads_h):
+        raise AssertionError(f"grad leaves differ: {set(grads_c) ^ set(grads_h)}")
+
+    def scale(name):
+        # A key bias has a zero grad in exact arithmetic (softmax ignores
+        # it): measure its rounding noise on the q/k/v bias grads' scale.
+        if name.endswith("key.bias"):
+            return max(float(grads_h[name.replace("key", k)].abs().max())
+                       for k in ("query", "key", "value"))
+        return float(grads_h[name].abs().max())
+
+    rel = {n: float((grads_c[n] - g).abs().max()) / scale(n)
+           for n, g in grads_h.items() if scale(n) > 0}
+    worst = max(rel, key=rel.get)
+    return abs(loss_c - loss_h) / abs(loss_h), worst, rel[worst]
 
 
 def train_slice_phase(fab, ffn):
@@ -689,59 +997,23 @@ def train_slice_phase(fab, ffn):
     log(f"[train] dynamic weights {json.dumps(trainer.dynamic_weights.tolist())}")
 
     # fp32, 8 patients, dropout on: one train step on the card and on the CPU.
-    sub = {k: v[:8] for k, v in train.items()}
-    batch = {"model_inputs": {k: sub[k] for k in keys}, "labels": sub["labels"],
-             "weight": np.ones(8, np.float32)}
-    step = {}
+    batch = fp32_step_batch(train, keys)
     for device in ("cuda", "cpu"):
-        m32 = init_params(FAMEModel(**TRAIN_GEO, dtype=torch.float32), seed=0)
-        t32 = FAMETrainer(m32, TrainConfig(lr=1e-4, batch_size=8), pos_weight=POS_WEIGHT,
-                          rngs_seed=5, device=device)
         fab.bwd_launches = ffn.bwd_launches = 0
-        total, _ = t32.train_step(to_device(batch, t32.device))
+        FP32_STEPS[device] = fp32_train_step(batch, device)
         if (device == "cuda") != (min(fab.bwd_launches, ffn.bwd_launches) > 0):
             raise AssertionError(f"{device}: backward launches {fab.bwd_launches}, "
                                  f"{ffn.bwd_launches}")
-        step[device] = (float(total), {n: p.grad.detach().cpu() for n, p in
-                                       m32.named_parameters() if p.grad is not None})
-        del m32, t32
-    (loss_c, grads_c), (loss_h, grads_h) = step["cuda"], step["cpu"]
-    loss_rel = abs(loss_c - loss_h) / abs(loss_h)
-
-    def scale(name):
-        # A key bias has a zero grad in exact arithmetic (softmax ignores
-        # it): measure its rounding noise on the q/k/v bias grads' scale.
-        if name.endswith("key.bias"):
-            return max(float(grads_h[name.replace("key", k)].abs().max())
-                       for k in ("query", "key", "value"))
-        return float(grads_h[name].abs().max())
-
-    rel = {n: float((grads_c[n] - g).abs().max()) / scale(n)
-           for n, g in grads_h.items() if scale(n) > 0}
-    worst = max(rel, key=rel.get)
-    grad_rel = rel[worst]
-    log(f"[train] fp32 8 patients, one step card vs CPU: loss {loss_c:.8f} vs {loss_h:.8f} "
-        f"(rel {loss_rel:.2e}); worst grad leaf {worst} {grad_rel:.2e} of its max-abs")
-    if set(grads_c) != set(grads_h) or not loss_rel <= XDEV_LOSS_TOL or \
-            not grad_rel <= XDEV_GRAD_TOL:
+    loss_rel, worst, grad_rel = compare_steps(FP32_STEPS["cuda"], FP32_STEPS["cpu"])
+    log(f"[train] fp32 8 patients, one step card vs CPU: loss {FP32_STEPS['cuda'][0]:.8f} vs "
+        f"{FP32_STEPS['cpu'][0]:.8f} (rel {loss_rel:.2e}); worst grad leaf {worst} "
+        f"{grad_rel:.2e} of its max-abs")
+    if not loss_rel <= XDEV_LOSS_TOL or not grad_rel <= XDEV_GRAD_TOL:
         raise AssertionError(f"fp32 card vs CPU: loss rel {loss_rel}, grads {grad_rel}")
 
     # Train-step time at batch 256, bf16, dropout on.
     batch = to_device(next(iter(train_loader)), trainer.device)
-    for _ in range(3):
-        trainer.train_step(batch)
-    times = []
-    for _ in range(20):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        trainer.train_step(batch)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    ms = statistics.median(times)
-    bench = {"batch_size": TRAIN_BATCH, "train_step_ms": ms,
-             "patients_per_sec": 1e3 * TRAIN_BATCH / ms, "min_ms": min(times),
-             "max_ms": max(times), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    bench = time_train_step(trainer, batch)
     log(f"[train] train step bf16: {json.dumps(bench)}")
     split = profile_train_step(trainer, batch)
     log(f"[train] train step split by kernel (profiler, per step): {json.dumps(split)}")
@@ -749,6 +1021,27 @@ def train_slice_phase(fab, ffn):
                     "dynamic_weights": trainer.dynamic_weights.tolist(),
                     "fp32_card_vs_cpu": {"loss_rel": loss_rel, "worst_grad_rel": grad_rel},
                     "train_step": bench}
+
+
+def time_train_step(trainer, batch, steps=20, warmup=3):
+    """Median CUDA-event time of ``trainer.train_step`` over ``steps``
+    after ``warmup``."""
+    for _ in range(warmup):
+        trainer.train_step(batch)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step(batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    bs = len(batch["labels"])
+    return {"batch_size": bs, "train_step_ms": ms, "patients_per_sec": 1e3 * bs / ms,
+            "min_ms": min(times), "max_ms": max(times),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def profile_train_step(trainer, batch, steps=3, top=16):
@@ -774,11 +1067,148 @@ def profile_train_step(trainer, batch, steps=3, top=16):
             "launches_per_step": sum(e.count for e in kernels) / steps}
 
 
+# -- phase 5b: the unfolded slice (FMTPU_FOLD_LN=0) ----------------------------------------
+
+# fp32 unfolded vs folded on the card: the same weights, batch and Philox
+# masks, and the same GEMM and flash kernels in the same order; only where
+# the LayerNorm's residual cotangent is added to dx (inside the dx GEMM's
+# epilogue or by autograd after it) and the glue's LayerNorm rows differ,
+# so loss and grads agree to a few fp32 ulps.
+FOLD_LOSS_TOL, FOLD_GRAD_TOL = 1e-6, 1e-4
+N_FIT_TRAIN, N_FIT_VAL = 512, 256
+PRED_FOLD_TOL = 1e-5
+
+
+def _unfolded_counts(fab, ffn):
+    return {"fused_attention_block": fab.unfolded_launches, "fused_ffn": ffn.unfolded_launches,
+            "fused_attention_block_bwd": fab.unfolded_bwd_launches,
+            "fused_ffn_bwd": ffn.unfolded_bwd_launches,
+            "fused_attention_block_ln": fab.launches, "fused_ffn_ln": ffn.launches,
+            "fused_attention_block_ln_bwd": fab.bwd_launches, "fused_ffn_ln_bwd": ffn.bwd_launches}
+
+
+def _reset_counts(fab, ffn, addnorm):
+    fab.launches = ffn.launches = fab.bwd_launches = ffn.bwd_launches = 0
+    fab.unfolded_launches = ffn.unfolded_launches = 0
+    fab.unfolded_bwd_launches = ffn.unfolded_bwd_launches = 0
+    addnorm.launches = addnorm.bwd_launches = 0
+
+
+def unfolded_slice_phase(fab, ffn, addnorm):
+    import os
+
+    from fairmultimodal_torch.data.loader import BatchIterator, NestedLoader
+    from fairmultimodal_torch.data.prefetch import to_device
+    from fairmultimodal_torch.models._layers import init_params
+    from fairmultimodal_torch.models.fusion import FAMEModel
+    from fairmultimodal_torch.pipelines.inference import FAMEPredictor
+    from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
+
+    info = {}
+    rng = np.random.default_rng(2)
+    train, val = synthetic_cohort(rng, N_TRAIN), synthetic_cohort(rng, N_VAL)
+    keys = [k for k in train if k != "labels"]
+
+    # fp32 one step, dropout on: unfolded on the card vs folded on the card
+    # (phase 5's run) and vs the plain path on the CPU (phase 5's run).
+    _reset_counts(fab, ffn, addnorm)
+    FP32_STEPS["cuda_unfolded"] = fp32_train_step(fp32_step_batch(train, keys), "cuda",
+                                                  fold=False)
+    counts = _unfolded_counts(fab, ffn)
+    if min(list(counts.values())[:4]) == 0 or max(list(counts.values())[4:]) > 0:
+        raise AssertionError(f"fp32 unfolded step: launches {counts}")
+    for other, (loss_tol, grad_tol) in (("cuda", (FOLD_LOSS_TOL, FOLD_GRAD_TOL)),
+                                        ("cpu", (XDEV_LOSS_TOL, XDEV_GRAD_TOL))):
+        loss_rel, worst, grad_rel = compare_steps(FP32_STEPS["cuda_unfolded"], FP32_STEPS[other])
+        info[f"fp32_unfolded_vs_{other}"] = {"loss_rel": loss_rel, "worst_leaf": worst,
+                                             "worst_grad_rel": grad_rel}
+        what = "folded card" if other == "cuda" else "CPU plain path"
+        log(f"[unfolded] fp32 one step, unfolded card vs {what}: loss rel {loss_rel:.2e}, "
+            f"worst grad leaf {worst} {grad_rel:.2e} of its max-abs")
+        if not loss_rel <= loss_tol or not grad_rel <= grad_tol:
+            raise AssertionError(f"fp32 unfolded vs {other}: loss rel {loss_rel}, "
+                                 f"grads {grad_rel}")
+
+    # The main path: FAMETrainer.fit, 1 epoch with validation, FMTPU_FOLD_LN=0.
+    fit_train = {k: v[:N_FIT_TRAIN] for k, v in train.items()}
+    train_loader = NestedLoader(BatchIterator(fit_train, TRAIN_BATCH, shuffle=True, seed=0),
+                                keys)
+    val_loader = NestedLoader(BatchIterator(val, TRAIN_BATCH), keys)
+    model = init_params(FAMEModel(**TRAIN_GEO, dtype=torch.bfloat16), seed=0)
+    trainer = FAMETrainer(model, TrainConfig(lr=1e-4, num_epochs=1, batch_size=TRAIN_BATCH),
+                          pos_weight=POS_WEIGHT, rngs_seed=0, device="cuda")
+    os.environ["FMTPU_FOLD_LN"] = "0"
+    try:
+        _reset_counts(fab, ffn, addnorm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, history = trainer.fit(train_loader, val_loader, verbose=True)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        counts = _unfolded_counts(fab, ffn)
+        glue = {"forward": addnorm.launches, "backward": addnorm.bwd_launches}
+    finally:
+        del os.environ["FMTPU_FOLD_LN"]
+    layers = TRAIN_GEO["lab_layers"]
+    steps = -(-N_FIT_TRAIN // TRAIN_BATCH)
+    forwards = steps * 2 + -(-N_VAL // TRAIN_BATCH)
+    want = {"fused_attention_block": layers * forwards, "fused_ffn": layers * forwards,
+            "fused_attention_block_bwd": layers * steps, "fused_ffn_bwd": layers * steps,
+            "fused_attention_block_ln": 0, "fused_ffn_ln": 0,
+            "fused_attention_block_ln_bwd": 0, "fused_ffn_ln_bwd": 0}
+    want_glue = {"forward": 2 * layers * forwards, "backward": 2 * layers * steps}
+    log(f"[unfolded] fit 1 epoch ({N_FIT_TRAIN} + {N_VAL} patients) in {t_fit:.1f} s "
+        f"(host clock, first call); launches {counts}, expected {want}; glue {glue}")
+    if counts != want or glue != want_glue:
+        raise AssertionError(f"unfolded fit launches {counts} {glue}, expected {want} "
+                             f"{want_glue}")
+    losses = [v for h in history for k, v in h.items() if k.endswith("loss")]
+    if len(history) != 1 or not np.isfinite(losses).all():
+        raise AssertionError(f"unfolded training history {history}")
+    info.update(fit_s=t_fit, fit_launches=counts, fit_glue_launches=glue, history=history)
+
+    # bf16 train step at batch 256: folded and unfolded in turns, same call.
+    batch = to_device(next(iter(train_loader)), trainer.device)
+    steps_ms = {}
+    for fold in (True, False, False, True):
+        set_fold(model, fold)
+        tag = "folded" if fold else "unfolded"
+        steps_ms.setdefault(tag, []).append(time_train_step(trainer, batch))
+    set_fold(model, False)
+    split = profile_train_step(trainer, batch)
+    info["train_step"] = steps_ms
+    info["step_split"] = split
+    log(f"[unfolded] train step bf16, folded / unfolded in turns: {json.dumps(steps_ms)}")
+    log(f"[unfolded] unfolded train step split by kernel (profiler, per step): "
+        f"{json.dumps(split)}")
+
+    # Serving: fp32 probabilities unfolded vs folded, then the bf16 benchmark.
+    arrays = {k: v[:64] for k, v in val.items() if k != "labels"}
+    probs = {}
+    for fold in (True, False):
+        m32 = set_fold(init_params(FAMEModel(**TRAIN_GEO, dtype=torch.float32), seed=0), fold)
+        probs[fold] = FAMEPredictor(m32, batch_size=64, device="cuda").predict_arrays(
+            arrays)["probs"]
+        del m32
+    diff = float(np.abs(probs[True] - probs[False]).max())
+    log(f"[unfolded] fp32 serving 64 patients: max |p_unfolded - p_folded| = {diff:.3e}")
+    if not diff <= PRED_FOLD_TOL:
+        raise AssertionError(f"fp32 unfolded vs folded probabilities differ by {diff}")
+    serve = set_fold(init_params(FAMEModel(**TRAIN_GEO, dtype=torch.bfloat16), seed=0), False)
+    bench = FAMEPredictor(serve, batch_size=256, device="cuda").benchmark(iters=20)
+    log(f"[unfolded] FAMEPredictor.benchmark bf16 unfolded: {json.dumps(bench)}")
+    info.update(fp32_serving_unfolded_vs_folded=diff, benchmark=bench)
+    del trainer, model, serve
+    torch.cuda.empty_cache()
+    return counts, info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
         return 2
     from fairmultimodal_torch.ops import _build
+    from fairmultimodal_torch.ops import dropout_add_layernorm as addnorm
     from fairmultimodal_torch.ops import fused_attention_block as fab
     from fairmultimodal_torch.ops import fused_ffn as ffn
 
@@ -799,10 +1229,13 @@ def main() -> int:
 
     rows = kernel_phase(fab, ffn)
     train_rows, keep = train_kernel_phase(fab, ffn, _build)
+    unfolded_rows = unfolded_kernel_phase(fab, ffn, addnorm)
     launches, slice_info = slice_phase(fab, ffn)
     log(f"[slice] {json.dumps(slice_info)}")
     train_launches, train_info = train_slice_phase(fab, ffn)
     log(f"[train] {json.dumps(train_info)}")
+    unfolded_launches, unfolded_info = unfolded_slice_phase(fab, ffn, addnorm)
+    log(f"[unfolded] {json.dumps(unfolded_info)}")
 
     meta = {
         "fused_attention_block_ln": ("fairmultimodal_torch/ops/csrc/flash_attention.cu",
@@ -854,6 +1287,33 @@ def main() -> int:
                else []),
             "errors": {r["case"]: r["errors"] for r in train_rows[part]},
             "kept_fraction": keep,
+        })
+    sources = {"block": ["fairmultimodal_torch/ops/csrc/gemm.cu",
+                         "fairmultimodal_torch/ops/csrc/flash_attention.cu"],
+               "ffn": ["fairmultimodal_torch/ops/csrc/gemm.cu"]}
+    for name, part, source, replaces, bwd in (
+            ("fused_attention_block", "block", "fairmultimodal_torch/ops/csrc/flash_attention.cu",
+             "fairmultimodal_tpu/ops/fused_attention_block.py:150", False),
+            ("fused_attention_block_bwd", "block",
+             "fairmultimodal_torch/ops/csrc/flash_attention.cu",
+             "fairmultimodal_tpu/ops/fused_attention_block.py:250", True),
+            ("fused_ffn", "ffn", "fairmultimodal_torch/ops/csrc/gemm.cu",
+             "fairmultimodal_tpu/ops/fused_ffn.py:122", False),
+            ("fused_ffn_bwd", "ffn", "fairmultimodal_torch/ops/csrc/gemm.cu",
+             "fairmultimodal_tpu/ops/fused_ffn.py:205", True)):
+        row = next(r for r in unfolded_rows[part] if "ms" in r)     # lab shape, bf16
+        pre = "bwd_" if bwd else ""
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": unfolded_launches[name],
+            "max_abs_err": row["errors"]["dx"]["max_abs_err"] if bwd else
+            row["forward"]["max_abs_err"],
+            "ms": row[pre + "ms"], "plain_ms": row["plain_" + pre + "ms"],
+            "bound_ms": row[pre + "bound_ms"], "bound_by": row[pre + "bound_by"],
+            "library_ms": row["library_" + pre + "ms"], "stages_ms": row[pre + "stages_ms"],
+            "shape": row["case"], "dtype": "bfloat16", "sources": sources[part],
+            "errors": {r["case"]: {"forward": r["forward"], **r["errors"]}
+                       for r in unfolded_rows[part]},
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,13 +1,19 @@
 """BEHRT-style structured-data encoders (port of ``fairmultimodal_tpu/models/behrt.py``).
 
 - :class:`TorchEncoderLayer` -- post-LN torch-style encoder layer (ReLU FFN
-  2048, LayerNorm eps 1e-5).  On a CUDA tensor whose shapes pass the gates
-  each half-layer is one kernel wrapper call (``behrt.py:111-162``),
-  differentiable through the backward kernels.  In train mode with a
-  generator it draws one dropout seed for the attention half-layer and two
-  for the FFN (inner, outer), as the JAX layer does (``behrt.py:121,160``);
-  the plain path applies the same Philox streams at the same flat indices,
-  so both paths drop the same elements.
+  2048, LayerNorm eps 1e-5), with the JAX layer's ``fold_ln``,
+  ``attn_kernel`` and ``ffn_kernel`` fields (``behrt.py:71-82``).  On a CUDA
+  tensor whose shapes pass the gates (or where a field forces it) each
+  half-layer is one kernel wrapper call, differentiable through the
+  backward kernels: with the LayerNorm folded (the default) the LN-fused
+  kernels (``behrt.py:116-122, 155-162``); with ``fold_ln=False``, or
+  ``FMTPU_FOLD_LN=0`` read at call time when ``fold_ln`` is None
+  (``behrt.py:101-104``), the unfolded kernels followed by dropout +
+  residual + LayerNorm (``behrt.py:123-130, 163-176``).  In train mode with
+  a generator it draws one dropout seed for the attention half-layer and two
+  for the FFN (inner, outer) in both configurations, as the JAX layer does
+  (``behrt.py:121,160``), and both apply the same Philox streams at the same
+  flat indices, as does the plain path, so all drop the same elements.
 - :class:`BEHRTLab` -- every z-scored lab scalar becomes a token (shared
   Linear(1, H) + learned positional embedding).  The [B, L] scalars and the
   positional table are padded to a multiple of 16 BEFORE the embedding
@@ -20,6 +26,7 @@
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -29,20 +36,30 @@ from torch import nn
 from fairmultimodal_torch.models._layers import dropout_seed, embed, layer_norm, linear
 from fairmultimodal_torch.models.bert import BertConfig, BertEncoderModel
 from fairmultimodal_torch.ops.attention import multi_head_attention
-from fairmultimodal_torch.ops.fused_attention_block import fused_attention_block_ln
-from fairmultimodal_torch.ops.fused_ffn import fused_ffn_ln
+from fairmultimodal_torch.ops.dropout_add_layernorm import dropout_add_layernorm
+from fairmultimodal_torch.ops.fused_attention_block import (
+    fused_attention_block, fused_attention_block_ln)
+from fairmultimodal_torch.ops.fused_ffn import fused_ffn, fused_ffn_ln
 from fairmultimodal_torch.ops.gates import can_use_fused_attention_block, can_use_fused_ffn
-from fairmultimodal_torch.utils.rng import dropout
+from fairmultimodal_torch.utils.rng import Dropout, dropout
 
 __all__ = ["TorchEncoderLayer", "BEHRTLab", "BEHRTDemo"]
 
 
 class TorchEncoderLayer(nn.Module):
     """torch ``nn.TransformerEncoderLayer(d_model, nhead)`` semantics: post-LN,
-    ReLU, dim_feedforward 2048, dropout 0.1, layer_norm_eps 1e-5."""
+    ReLU, dim_feedforward 2048, dropout 0.1, layer_norm_eps 1e-5.
+
+    ``attn_kernel`` / ``ffn_kernel``: None applies the kernel gates, True
+    forces the wrapper (its plain version on a CPU tensor), False the plain
+    path.  ``fold_ln``: None reads ``FMTPU_FOLD_LN`` at call time ("0" =
+    unfolded), True / False choose the LN-fused or the unfolded kernels.
+    The attributes may be set on a built layer."""
 
     def __init__(self, hidden_size: int, num_heads: int, ffn_size: int = 2048,
-                 dropout: float = 0.1, dtype=torch.float32, layer_norm_eps: float = 1e-5):
+                 dropout: float = 0.1, dtype=torch.float32, layer_norm_eps: float = 1e-5,
+                 fold_ln: Optional[bool] = None, attn_kernel: Optional[bool] = None,
+                 ffn_kernel: Optional[bool] = None):
         super().__init__()
         h = hidden_size
         self.num_heads = num_heads
@@ -50,6 +67,9 @@ class TorchEncoderLayer(nn.Module):
         self.dropout_rate = dropout
         self.dtype = dtype
         self.layer_norm_eps = layer_norm_eps
+        self.fold_ln = fold_ln
+        self.attn_kernel = attn_kernel
+        self.ffn_kernel = ffn_kernel
         self.query = nn.Linear(h, h)
         self.key = nn.Linear(h, h)
         self.value = nn.Linear(h, h)
@@ -63,18 +83,29 @@ class TorchEncoderLayer(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt, nh, eps, rate = self.dtype, self.num_heads, self.layer_norm_eps, self.dropout_rate
         b, s, h = x.shape
-        w = lambda lin: lin.weight.to(dt)
-        bb = lambda lin: lin.bias.to(dt)
+
+        def params(*lins):
+            return [t for lin in lins for t in (lin.weight.to(dt), lin.bias.to(dt))]
+
         seed = lambda: dropout_seed(self, rate, generator)      # noqa: E731
         attn_seed = seed()
         ffn_seeds = (seed(), seed()) if attn_seed is not None else None
-
-        if can_use_fused_attention_block(x, nh):
+        fold = (self.fold_ln if self.fold_ln is not None
+                else os.environ.get("FMTPU_FOLD_LN", "1") != "0")
+        use_attn = self.attn_kernel
+        if use_attn is None:
+            use_attn = can_use_fused_attention_block(x, nh)
+        if use_attn and fold:
             x = fused_attention_block_ln(
-                x.to(dt), w(self.query), bb(self.query), w(self.key), bb(self.key),
-                w(self.value), bb(self.value), w(self.attn_out), bb(self.attn_out),
-                self.norm1.weight, self.norm1.bias, mask, num_heads=nh, ln_eps=eps,
-                rate=rate, deterministic=attn_seed is None, seed=attn_seed)
+                x.to(dt), *params(self.query, self.key, self.value, self.attn_out),
+                self.norm1.weight, self.norm1.bias, mask, num_heads=nh, ln_eps=eps, rate=rate,
+                deterministic=attn_seed is None, seed=attn_seed)
+        elif use_attn:
+            x = x.to(dt)
+            attn = fused_attention_block(
+                x, *params(self.query, self.key, self.value, self.attn_out), mask, num_heads=nh)
+            x = dropout_add_layernorm(x, attn, self.norm1.weight, self.norm1.bias, eps=eps,
+                                      dropout=Dropout.make(attn_seed, 0, rate))
         else:
             d = h // nh
 
@@ -86,13 +117,21 @@ class TorchEncoderLayer(nn.Module):
             attn = linear(attn.transpose(1, 2).reshape(b, s, h), self.attn_out, dt)
             x = layer_norm(x + dropout(attn, rate, attn_seed), self.norm1, dt)
 
-        if can_use_fused_ffn(x, h, self.ffn_size):
-            return fused_ffn_ln(
-                x.reshape(b * s, h).to(dt), w(self.ffn_in), bb(self.ffn_in),
-                w(self.ffn_out), bb(self.ffn_out), self.norm2.weight, self.norm2.bias,
-                activation="relu", ln_eps=eps, rate=rate, deterministic=ffn_seeds is None,
-                seeds=ffn_seeds).view(b, s, h)
+        use_ffn = self.ffn_kernel
+        if use_ffn is None:
+            use_ffn = can_use_fused_ffn(x, h, self.ffn_size)
         inner, outer = ffn_seeds or (None, None)
+        if use_ffn and fold:
+            return fused_ffn_ln(
+                x.reshape(b * s, h).to(dt), *params(self.ffn_in, self.ffn_out),
+                self.norm2.weight, self.norm2.bias, activation="relu", ln_eps=eps, rate=rate,
+                deterministic=ffn_seeds is None, seeds=ffn_seeds).view(b, s, h)
+        if use_ffn:
+            x2 = x.reshape(b * s, h).to(dt)
+            y = fused_ffn(x2, *params(self.ffn_in, self.ffn_out), activation="relu", rate=rate,
+                          deterministic=inner is None, seed=inner)
+            return dropout_add_layernorm(x2, y, self.norm2.weight, self.norm2.bias, eps=eps,
+                                         dropout=Dropout.make(outer, 1, rate)).view(b, s, h)
         y = dropout(torch.relu(linear(x, self.ffn_in, dt)), rate, inner, stream=0)
         y = dropout(linear(y, self.ffn_out, dt), rate, outer, stream=1)
         return layer_norm(x + y, self.norm2, dt)

@@ -30,9 +30,9 @@ import torch
 
 from fairmultimodal_torch.utils.rng import Dropout
 
-__all__ = ["KernelLaunchError", "build", "kernels", "gemm", "colsum", "flash_attn_fwd",
-           "flash_attn_bwd", "add_layernorm", "layernorm_bwd", "ACT_CODES",
-           "FLASH_BWD_TILE", "LN_BWD_ROWS"]
+__all__ = ["KernelLaunchError", "build", "kernels", "gemm", "colsum", "row_block_sums",
+           "flash_attn_fwd", "flash_attn_bwd", "add_layernorm", "layernorm_bwd", "ACT_CODES",
+           "FLASH_BWD_TILE", "LN_BWD_ROWS", "SUM_ROWS"]
 
 _CSRC = Path(__file__).resolve().with_name("csrc")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -58,14 +58,15 @@ _SIGNATURES = {
         "fm_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, *_DROP, _P, _P, _I, _F,
                     _P, _P, _P],
         "fm_colsum": [_P, _P, _I, _I, _I, _P],
+        "fm_row_block_sums": [_P, _P, _I, _I, _I, _P],
     },
     "flash_attention.cu": {
         "fm_flash_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
         "fm_flash_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     },
     "add_layernorm.cu": {
-        "fm_add_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, *_DROP, _I, _P],
-        "fm_layernorm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, *_DROP, _I, _P],
+        "fm_add_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, *_DROP, _I, _I, _P],
+        "fm_layernorm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, *_DROP, _I, _I, _P],
     },
 }
 
@@ -248,6 +249,27 @@ def colsum(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
+#: Rows of a :func:`row_block_sums` block (its partials have ceil(M / 128) rows).
+SUM_ROWS = 128
+
+
+def row_block_sums(x: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
+    """``part[i, n] = sum of x[m, n]`` over rows 128 i .. 128 i + 127, in a
+    fixed order (x [M, N] io dtype, N % 8 == 0; part [ceil(M / 128), N]
+    fp32): the first pass of a column sum over an io-dtype matrix, whose
+    second is :func:`colsum` over ``part``."""
+    m, n = x.shape
+    if n % 8:
+        raise ValueError(f"row_block_sums: N={n} must be a multiple of 8")
+    _require(x, "x", (m, n), x.dtype, x.device)
+    _require(part, "part", (-(-m // SUM_ROWS), n), torch.float32, x.device)
+    with torch.cuda.device(x.device):
+        rc = kernels()["gemm.cu"].fm_row_block_sums(x.data_ptr(), part.data_ptr(), m, n,
+                                                     _dtype_code(x), _stream(x))
+    _check(rc, "fm_row_block_sums")
+    return part
+
+
 def _heads(qkv: torch.Tensor, num_heads: int):
     b, s, h3 = qkv.shape
     h = h3 // 3
@@ -311,12 +333,14 @@ def add_layernorm(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor,
                   beta: torch.Tensor, out: torch.Tensor, eps: float,
                   dropout: Dropout = Dropout(), z: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out = LN(z)``, ``z = round(x + dropout(y))``: x, out [R, H] io dtype;
-    y [R, H] fp32; z [R, H] io dtype is stored when given.  H % 8 == 0,
-    H <= 1024."""
+    y [R, H] fp32 or io dtype; z [R, H] io dtype is stored when given.
+    H % 8 == 0, H <= 1024."""
     r, h = x.shape
     _check_ln_width(h)
     _require(x, "x", (r, h), x.dtype, x.device)
-    _require(y, "y", (r, h), torch.float32, x.device)
+    if y.dtype not in (torch.float32, x.dtype):
+        raise TypeError(f"y: expected float32 or {x.dtype}, got {y.dtype}")
+    _require(y, "y", (r, h), y.dtype, x.device)
     _require(gamma, "gamma", (h,), torch.float32, x.device)
     _require(beta, "beta", (h,), torch.float32, x.device)
     _require(out, "out", (r, h), x.dtype, x.device)
@@ -325,7 +349,8 @@ def add_layernorm(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor,
     with torch.cuda.device(x.device):
         rc = kernels()["add_layernorm.cu"].fm_add_layernorm(
             x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            _ptr(z), r, h, float(eps), *dropout, _dtype_code(x), _stream(x))
+            _ptr(z), r, h, float(eps), *dropout, _dtype_code(x),
+            int(y.dtype != torch.float32), _stream(x))
     _check(rc, "fm_add_layernorm")
     return out
 
@@ -337,7 +362,8 @@ LN_BWD_ROWS = 64
 def layernorm_bwd(g: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor, dz: torch.Tensor,
                   da: torch.Tensor, part: torch.Tensor, eps: float,
                   dropout: Dropout = Dropout()) -> torch.Tensor:
-    """LayerNorm VJP from the stored z: dz [R, H] fp32, da = round(replay(dz))
+    """LayerNorm VJP from the stored z: dz [R, H] fp32 (or the io dtype, for
+    the residual branch of an unfolded half-layer), da = round(replay(dz))
     [R, H] io dtype, and part [3, ceil(R / 64), H] fp32 block partials of
     (g * xhat, g, replay(dz)) for dgamma, dbeta and the bias grad."""
     r, h = g.shape
@@ -346,12 +372,15 @@ def layernorm_bwd(g: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor, dz: tor
     _require(g, "g", (r, h), dt, dev)
     _require(z, "z", (r, h), dt, dev)
     _require(gamma, "gamma", (h,), torch.float32, dev)
-    _require(dz, "dz", (r, h), torch.float32, dev)
+    if dz.dtype not in (torch.float32, dt):
+        raise TypeError(f"dz: expected float32 or {dt}, got {dz.dtype}")
+    _require(dz, "dz", (r, h), dz.dtype, dev)
     _require(da, "da", (r, h), dt, dev)
     _require(part, "part", (3, -(-r // LN_BWD_ROWS), h), torch.float32, dev)
     with torch.cuda.device(dev):
         rc = kernels()["add_layernorm.cu"].fm_layernorm_bwd(
             g.data_ptr(), z.data_ptr(), gamma.data_ptr(), dz.data_ptr(), da.data_ptr(),
-            part.data_ptr(), r, h, float(eps), *dropout, _dtype_code(g), _stream(g))
+            part.data_ptr(), r, h, float(eps), *dropout, _dtype_code(g),
+            int(dz.dtype != torch.float32), _stream(g))
     _check(rc, "fm_layernorm_bwd")
     return da

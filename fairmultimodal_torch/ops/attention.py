@@ -1,10 +1,12 @@
 """Multi-head attention, plain PyTorch (port of ``fairmultimodal_tpu/ops/attention.py``).
 
-On the serving path every attention that the megakernel gate does not take
-(the S=1 demo BERT and the 64 / 128 text buckets) runs here.  The JAX
-package would send 256 <= S <= 1024 with the megakernel gate off to its
-Pallas flash kernel; that kernel is not ported yet, so those shapes run the
-plain version below.
+Every attention that no half-layer kernel takes runs here: the S=1 demo
+BERT and the 64 / 128 text buckets, and a ``TorchEncoderLayer`` with
+``attn_kernel=False``.  The JAX package would send 256 <= S <= 1024 with the
+megakernel gate off (``BertSelfAttention`` in training mode, the layer with
+``attn_kernel=False`` or ``fused_qkv=True``) to its Pallas flash kernel
+(#9, backward #10); those are the kernels on this route still to port, so
+those shapes run the plain version below.
 """
 
 from __future__ import annotations

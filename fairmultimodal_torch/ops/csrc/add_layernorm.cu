@@ -20,6 +20,11 @@
 // forward and replayed in the backward at the same flat index row * H + col.
 // z is stored rounded to the io dtype and both passes take the statistics
 // from it, as the TPU kernels do.
+// With the LayerNorm unfolded (fold_ln=False), the same two kernels are the
+// dropout + residual + LayerNorm that fairmultimodal_tpu/models/behrt.py
+// runs in XLA after the unfolded kernels (nn.Dropout + add + nn.LayerNorm,
+// lines 127-130 and 174-176): y is then the kernel's io-dtype output and the
+// backward also writes dz in the io dtype (the residual's cotangent).
 //
 // Bound: bytes.  At the lab shape (R = 256*560, H 768, bf16 io) the
 // forward reads x and y and writes out and z, 1.1 GB, 0.33 ms at 3.35 TB/s;
@@ -79,9 +84,9 @@ __device__ __forceinline__ void dropout8(const fm::Dropout& d, unsigned long lon
   }
 }
 
-template <typename T, int NC>
+template <typename T, typename TY, int NC>
 __global__ void __launch_bounds__(LN_THREADS)
-add_layernorm_kernel(const T* __restrict__ x, const float* __restrict__ y,
+add_layernorm_kernel(const T* __restrict__ x, const TY* __restrict__ y,
                      const float* __restrict__ gamma, const float* __restrict__ beta,
                      T* __restrict__ out, T* __restrict__ zout, int R, int H, float eps,
                      fm::Dropout drop) {
@@ -129,10 +134,10 @@ add_layernorm_kernel(const T* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-template <typename T, int NC>
+template <typename T, typename TDZ, int NC>
 __global__ void __launch_bounds__(LN_THREADS)
 layernorm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ z,
-                     const float* __restrict__ gamma, float* __restrict__ dz,
+                     const float* __restrict__ gamma, TDZ* __restrict__ dz,
                      T* __restrict__ da, float* __restrict__ part, int R, int H, float eps,
                      fm::Dropout drop) {
   __shared__ float red[WARPS][MAX_H];
@@ -243,29 +248,29 @@ layernorm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ z,
     }                                         \
   } while (0)
 
-template <typename T>
-cudaError_t launch_fwd(const void* x, const float* y, const float* gamma, const float* beta,
+template <typename T, typename TY>
+cudaError_t launch_fwd(const void* x, const void* y, const float* gamma, const float* beta,
                        void* out, void* z, int R, int H, float eps, const fm::Dropout& d,
                        cudaStream_t s) {
   const int blocks = (R + WARPS - 1) / WARPS;
 #define FM_FWD(NC)                                                                        \
-  add_layernorm_kernel<T, NC><<<blocks, LN_THREADS, 0, s>>>(                              \
-      static_cast<const T*>(x), y, gamma, beta, static_cast<T*>(out), static_cast<T*>(z), \
-      R, H, eps, d)
+  add_layernorm_kernel<T, TY, NC><<<blocks, LN_THREADS, 0, s>>>(                          \
+      static_cast<const T*>(x), static_cast<const TY*>(y), gamma, beta,                   \
+      static_cast<T*>(out), static_cast<T*>(z), R, H, eps, d)
   FM_LN_DISPATCH(H, FM_FWD);
 #undef FM_FWD
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd(const void* g, const void* z, const float* gamma, float* dz, void* da,
+template <typename T, typename TDZ>
+cudaError_t launch_bwd(const void* g, const void* z, const float* gamma, void* dz, void* da,
                        float* part, int R, int H, float eps, const fm::Dropout& d,
                        cudaStream_t s) {
   const int blocks = (R + BWD_ROWS - 1) / BWD_ROWS;
 #define FM_BWD(NC)                                                                      \
-  layernorm_bwd_kernel<T, NC><<<blocks, LN_THREADS, 0, s>>>(                            \
-      static_cast<const T*>(g), static_cast<const T*>(z), gamma, dz, static_cast<T*>(da), \
-      part, R, H, eps, d)
+  layernorm_bwd_kernel<T, TDZ, NC><<<blocks, LN_THREADS, 0, s>>>(                       \
+      static_cast<const T*>(g), static_cast<const T*>(z), gamma, static_cast<TDZ*>(dz), \
+      static_cast<T*>(da), part, R, H, eps, d)
   FM_LN_DISPATCH(H, FM_BWD);
 #undef FM_BWD
   return cudaGetLastError();
@@ -275,40 +280,42 @@ cudaError_t launch_bwd(const void* g, const void* z, const float* gamma, float* 
 
 extern "C" {
 
-// x [R, H] io dtype, y [R, H] fp32, gamma/beta [H] fp32, out [R, H] io;
-// z [R, H] io receives round(x + dropout(y)) when not null.  H % 8 == 0,
-// H <= 1024, every pointer 16-byte aligned (the wrapper checks).
+// x [R, H] io dtype, y [R, H] fp32 (or io dtype with y_io: the output of an
+// unfolded half-layer kernel, Pallas #5 / #7), gamma/beta [H] fp32, out
+// [R, H] io; z [R, H] io receives round(x + dropout(y)) when not null.
+// H % 8 == 0, H <= 1024, every pointer 16-byte aligned (the wrapper checks).
 int fm_add_layernorm(const void* x, const void* y, const void* gamma, const void* beta,
                      void* out, void* z, int R, int H, float eps, unsigned long long seed,
                      unsigned int stream_id, unsigned int threshold, float inv_keep,
-                     int drop_on, int dtype, void* stream) {
+                     int drop_on, int dtype, int y_io, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const fm::Dropout d{seed, stream_id, threshold, inv_keep, drop_on};
-  const float* yy = static_cast<const float*>(y);
   const float* gm = static_cast<const float*>(gamma);
   const float* bt = static_cast<const float*>(beta);
   if (H > MAX_H || H % V) return cudaErrorInvalidValue;
-  if (dtype == FM_F32) return launch_fwd<float>(x, yy, gm, bt, out, z, R, H, eps, d, s);
-  if (dtype == FM_BF16) return launch_fwd<fm_bf16>(x, yy, gm, bt, out, z, R, H, eps, d, s);
-  return cudaErrorInvalidValue;
+  if (dtype == FM_F32) return launch_fwd<float, float>(x, y, gm, bt, out, z, R, H, eps, d, s);
+  if (dtype != FM_BF16) return cudaErrorInvalidValue;
+  if (y_io) return launch_fwd<fm_bf16, fm_bf16>(x, y, gm, bt, out, z, R, H, eps, d, s);
+  return launch_fwd<fm_bf16, float>(x, y, gm, bt, out, z, R, H, eps, d, s);
 }
 
-// g, z [R, H] io dtype, gamma [H] fp32 -> dz [R, H] fp32, da [R, H] io, and
-// part [3, ceil(R/64), H] fp32 block partials of (g*xhat, g, dropout(dz)).
-// H % 8 == 0, H <= 1024.
+// g, z [R, H] io dtype, gamma [H] fp32 -> dz [R, H] fp32 (or io dtype with
+// dz_io: the residual branch's cotangent of an unfolded half-layer), da
+// [R, H] io, and part [3, ceil(R/64), H] fp32 block partials of (g*xhat, g,
+// dropout(dz)).  H % 8 == 0, H <= 1024.
 int fm_layernorm_bwd(const void* g, const void* z, const void* gamma, void* dz, void* da,
                      void* part, int R, int H, float eps, unsigned long long seed,
                      unsigned int stream_id, unsigned int threshold, float inv_keep,
-                     int drop_on, int dtype, void* stream) {
+                     int drop_on, int dtype, int dz_io, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const fm::Dropout d{seed, stream_id, threshold, inv_keep, drop_on};
   const float* gm = static_cast<const float*>(gamma);
-  float* dzz = static_cast<float*>(dz);
   float* pp = static_cast<float*>(part);
   if (H > MAX_H || H % V) return cudaErrorInvalidValue;
-  if (dtype == FM_F32) return launch_bwd<float>(g, z, gm, dzz, da, pp, R, H, eps, d, s);
-  if (dtype == FM_BF16) return launch_bwd<fm_bf16>(g, z, gm, dzz, da, pp, R, H, eps, d, s);
-  return cudaErrorInvalidValue;
+  if (dtype == FM_F32) return launch_bwd<float, float>(g, z, gm, dz, da, pp, R, H, eps, d, s);
+  if (dtype != FM_BF16) return cudaErrorInvalidValue;
+  if (dz_io) return launch_bwd<fm_bf16, fm_bf16>(g, z, gm, dz, da, pp, R, H, eps, d, s);
+  return launch_bwd<fm_bf16, float>(g, z, gm, dz, da, pp, R, H, eps, d, s);
 }
 
 }  // extern "C"

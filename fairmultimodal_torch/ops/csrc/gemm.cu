@@ -14,14 +14,19 @@
 //     column sums of v over the block's rows -> colpart[blockIdx.y, col];
 //     C = v in the io dtype or fp32.
 //
-// Replaces the matrix products inside four Pallas TPU kernels:
+// Replaces the matrix products inside eight Pallas TPU kernels:
 //   - fairmultimodal_tpu/ops/fused_attention_block.py::_mega_ln_fwd_kernel
 //     (q/k/v projections as one "nt" launch with N = 3H; Wo into fp32) and
 //     ::_mega_ln_bwd_kernel (dO = da.Wo and dx = dz + dqkv.Wqkv as "nn",
 //     dWo and dWqkv as "tn");
 //   - fairmultimodal_tpu/ops/fused_ffn.py::_fwd_ln_kernel (x.W1 + b1 with
 //     relu + inner dropout or gelu, a.W2 + b2 in fp32) and ::_bwd_ln_kernel
-//     (dh = (dy.W2) * mask or dgelu, dx = dz + dh.W1, dW1, dW2).
+//     (dh = (dy.W2) * mask or dgelu, dx = dz + dh.W1, dW1, dW2);
+//   - the unfolded pairs ::_mega_fwd_kernel / ::_mega_bwd_kernel and
+//     fused_ffn.py::_fwd_kernel / ::_bwd_kernel: the same products, with
+//     Wo and W2 rounded to the io dtype after the bias (their `out`), dO
+//     and dh taken from the cotangent g, and dx stored plain (no residual).
+//     row_block_sums_kernel + colsum_kernel give their dbo and db2 = sum g.
 //
 // Bound at the lab shapes (bf16 dense peak 989 TFLOP/s, H100 SXM): every
 // product here is operation-bound; the FFN's four backward products are
@@ -502,6 +507,45 @@ colsum_kernel(const float* __restrict__ x, TOut* __restrict__ out, int M, int N)
   }
 }
 
+// part[blockIdx.y, n] = sum of x[m, n] over the block's SUM_ROWS rows, in a
+// fixed order, x in the io dtype.  The first pass of a column sum over an
+// io-dtype [R, N] matrix (the bias grads dbo and db2 from an autograd
+// cotangent, Pallas #6 and #8); colsum_kernel adds the partials.  Lane l of
+// warp w reads columns 8l .. 8l+7 of the block's 256 (16 bytes of bf16) in
+// rows w, w+8, ...; the 8 warps' sums are then added in warp order.
+constexpr int SUM_ROWS = 128;
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+row_block_sums_kernel(const T* __restrict__ x, float* __restrict__ part, int M, int N) {
+  __shared__ float red[8][256];
+  const int lane = threadIdx.x % 32;
+  const int w = threadIdx.x / 32;
+  const int col = blockIdx.x * 256 + lane * 8;
+  const int r0 = blockIdx.y * SUM_ROWS;
+  const int rend = min(r0 + SUM_ROWS, M);
+  float s[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s[k] = 0.0f;
+  if (col < N)
+    for (int m = r0 + w; m < rend; m += 8) {
+      float v[8];
+      load_group<8>(x + (size_t)m * N + col, v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s[k] += v[k];
+    }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) red[w][lane * 8 + k] = s[k];
+  __syncthreads();
+  const int c = blockIdx.x * 256 + threadIdx.x;
+  if (c < N) {
+    float t = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) t += red[i][threadIdx.x];
+    part[(size_t)blockIdx.y * N + c] = t;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -561,6 +605,24 @@ int fm_colsum(const void* x, void* out, int M, int N, int out_bf16, void* stream
   else
     colsum_kernel<float><<<grid, 256, 0, s>>>(static_cast<const float*>(x),
                                               static_cast<float*>(out), M, N);
+  return cudaGetLastError();
+}
+
+// part [ceil(M / 128), N] fp32 = per-128-row-block column sums of x [M, N]
+// in the io dtype (dtype); N % 8 == 0 and 16-byte alignment (the wrapper
+// checks).
+int fm_row_block_sums(const void* x, void* part, int M, int N, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N % 8) return cudaErrorInvalidValue;
+  const dim3 grid((N + 255) / 256, (M + SUM_ROWS - 1) / SUM_ROWS);
+  if (dtype == FM_F32)
+    row_block_sums_kernel<float><<<grid, 256, 0, s>>>(static_cast<const float*>(x),
+                                                       static_cast<float*>(part), M, N);
+  else if (dtype == FM_BF16)
+    row_block_sums_kernel<fm_bf16><<<grid, 256, 0, s>>>(static_cast<const fm_bf16*>(x),
+                                                         static_cast<float*>(part), M, N);
+  else
+    return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 

@@ -1,30 +1,43 @@
-"""FFN half-layer ``LayerNorm(x + dropout(act_dropout(x.W1 + b1).W2 + b2))`` on the card.
+"""FFN half-layer kernels on the card, LayerNorm-fused and unfolded.
 
-Port of ``fairmultimodal_tpu/ops/fused_ffn.py``: ``fused_ffn_ln`` /
-``fused_ffn_ln_infer``, their forward Pallas kernel ``_fwd_ln_kernel`` (with
-the inner and outer dropout) and the backward kernel ``_bwd_ln_kernel``.
+Port of ``fairmultimodal_tpu/ops/fused_ffn.py``, two kernel pairs:
+
+- ``fused_ffn_ln`` / ``fused_ffn_ln_infer``: ``LayerNorm(x + dropout(
+  act_dropout(x.W1 + b1).W2 + b2))``, the forward Pallas kernel
+  ``_fwd_ln_kernel`` (with the inner and outer dropout) and the backward
+  kernel ``_bwd_ln_kernel``;
+- ``fused_ffn``: ``act_dropout(x.W1 + b1).W2 + b2`` alone, rounded to the io
+  dtype: ``_fwd_kernel`` / ``_bwd_kernel``, which the JAX encoder layer runs
+  with ``fold_ln=False`` and follows with XLA dropout + residual + LayerNorm
+  (here :mod:`~fairmultimodal_torch.ops.dropout_add_layernorm`).
+
 ``activation`` is ``"relu"`` (the lab encoder's torch encoder layer; inner
 dropout after the relu) or ``"gelu"`` (BERT: exact erf gelu, no inner
-dropout; the TPU kernel used a rational erf approximation because Mosaic
-has no erf, CUDA has ``erff``).
+dropout; the TPU kernel used the Abramowitz & Stegun rational erf, within
+1.5e-7 of erf, because Mosaic has no erf, CUDA has ``erff``).
 
-On a CUDA tensor the forward is three hand-written kernel launches
-(``csrc/``): x.W1 + b1 with the activation and the inner dropout in the GEMM
-epilogue, rounded to the io dtype into an [R, F] buffer ``hd`` (for gelu the
-pre-activation is what the backward keeps); that buffer times W2 plus b2 in
-fp32; the residual + outer dropout + LayerNorm row kernel (storing z).
-With grad enabled the call is a :class:`torch.autograd.Function` whose
-backward is :func:`backward_stages`: the LayerNorm-backward row kernel (dz,
-the replayed outer dropout, partial sums), ``dh = (dy.W2) * s`` with s =
-1[hd > 0] / keep (the inner mask recovered from hd) or dgelu(hd), ``dx = dz
-+ dh.W1``, ``dW1 = dh^T.x``, ``dW2 = dy^T.a``, and fixed-order column sums
-for the bias, gamma and beta grads.
+On a CUDA tensor both forwards start with x.W1 + b1, the activation and the
+inner dropout in the GEMM epilogue, rounded to the io dtype into an [R, F]
+buffer ``hd`` (for gelu the pre-activation is what the backward keeps).
+The LN-fused forward then runs that buffer times W2 plus b2 into fp32 and
+the residual + outer dropout + LayerNorm row kernel (storing z); the
+unfolded one runs W2 plus b2 rounded to the io dtype, as ``_fwd_kernel``
+rounds ``out``.  With grad enabled each call is a
+:class:`torch.autograd.Function`.  Both backwards share ``dh = (dy.W2) * s``
+with s = 1[hd > 0] / keep (the inner mask recovered from hd) or dgelu(hd),
+its bias-grad column sums, ``dW1 = dh^T.x`` and ``dW2 = dy^T.a``.  In
+:func:`backward_stages` dy comes from the LayerNorm-backward row kernel
+(dz, the replayed outer dropout, partial sums) and ``dx = dz + dh.W1``; in
+:func:`ffn_backward_stages` dy is the cotangent g itself, ``dx = dh.W1`` is
+a plain store and ``db2`` a fixed-order column sum of g.
 
-On a CPU tensor the wrappers run :func:`fused_ffn_ln_reference` and
-:func:`fused_ffn_ln_backward_reference`.  ``seeds`` = (inner, outer): the
-inner mask is Philox stream 0 of ``seeds[0]`` over [R, F], the outer stream
-1 of ``seeds[1]`` over [R, H].  Weights take nn.Linear's [out, in] layout:
-``w1`` [F, H], ``w2`` [H, F].  ``ln_eps`` has no default.
+On a CPU tensor the wrappers run the plain versions.  The LN-fused pair
+takes ``seeds`` = (inner, outer): the inner mask is Philox stream 0 of
+``seeds[0]`` over [R, F], the outer stream 1 of ``seeds[1]`` over [R, H];
+``fused_ffn`` takes the inner ``seed`` alone (stream 0), so the two
+configurations drop the same elements from one generator state.  Weights
+take nn.Linear's [out, in] layout: ``w1`` [F, H], ``w2`` [H, F].  ``ln_eps``
+has no default.
 """
 
 from __future__ import annotations
@@ -37,16 +50,22 @@ import torch.nn.functional as F
 
 from fairmultimodal_torch.ops import _build
 from fairmultimodal_torch.ops.fused_attention_block import (
-    _f32, _layer_norm_rows, _layer_norm_vjp, _run, weight_grad)
+    _f32, _layer_norm_rows, _layer_norm_vjp, _run, column_sum, weight_grad)
 from fairmultimodal_torch.utils.rng import Dropout, apply_dropout
 
 __all__ = ["fused_ffn_ln", "fused_ffn_ln_infer", "fused_ffn_ln_reference",
-           "fused_ffn_ln_backward_reference", "half_layer_stages", "backward_stages"]
+           "fused_ffn_ln_backward_reference", "half_layer_stages", "backward_stages",
+           "fused_ffn", "fused_ffn_reference", "fused_ffn_backward_reference", "ffn_stages",
+           "ffn_backward_stages"]
 
-#: Forward kernel launches on CUDA tensors since the last reset (one per half-layer).
+#: LN-fused forward launches (Pallas #2) on CUDA tensors since the last reset (one per half-layer).
 launches = 0
-#: Backward kernel launches on CUDA tensors since the last reset (one per half-layer).
+#: LN-fused backward launches (Pallas #4) on CUDA tensors since the last reset.
 bwd_launches = 0
+#: Unfolded forward launches (Pallas #7) on CUDA tensors since the last reset.
+unfolded_launches = 0
+#: Unfolded backward launches (Pallas #8) on CUDA tensors since the last reset.
+unfolded_bwd_launches = 0
 
 
 def _check_activation(activation: str) -> None:
@@ -62,24 +81,48 @@ def _streams(seeds: Optional[Sequence[int]], rate: float, activation: str):
     return inner, Dropout.make(seeds[1], 1, rate)
 
 
+def _inner_stream(seed: Optional[int], rate: float, deterministic: bool,
+                  activation: str) -> Dropout:
+    """The unfolded FFN's one dropout stream, after the relu."""
+    if deterministic or rate <= 0.0:
+        return Dropout()
+    if activation == "gelu":
+        # BERT's FFN has no inner dropout, and the gelu residual (the
+        # pre-activation) could not recover a mask (fused_ffn.py:154-158).
+        raise ValueError("gelu FFN supports no inner dropout")
+    if seed is None:
+        raise ValueError("dropout (deterministic=False, rate > 0) needs a seed")
+    return Dropout.make(seed, 0, rate)
+
+
 def _dgelu(u: torch.Tensor) -> torch.Tensor:
     return 0.5 * (1.0 + torch.erf(u * 0.7071067811865476)) + \
         u * (1.0 / math.sqrt(2.0 * math.pi)) * torch.exp(-0.5 * u * u)
 
 
+def _hidden(x, w1, b1, activation, inner):
+    """(hd, a): the backward's [R, F] residual and the W2 operand, both in
+    the io dtype.  relu: hd = a = round(dropout(relu(h))); gelu: hd =
+    round(h) (the pre-activation), a = round(gelu(h)) from the fp32 h."""
+    dt = x.dtype
+    h = x.float() @ w1.float().t() + b1.float()
+    if activation == "relu":
+        hd = apply_dropout(torch.relu(h), inner).to(dt)
+        return hd, hd
+    return h.to(dt), F.gelu(h).to(dt)
+
+
 def _forward_reference(x, w1, b1, w2, b2, gamma, beta, activation, ln_eps, inner, outer):
     dt = x.dtype
-    x32 = x.float()
-    h = x32 @ w1.float().t() + b1.float()
-    if activation == "relu":
-        hd = apply_dropout(torch.relu(h), inner).to(dt)     # the W2 operand and the residual
-        a = hd
-    else:
-        hd = h.to(dt)                                  # the backward's pre-activation
-        a = F.gelu(h).to(dt)
+    hd, a = _hidden(x, w1, b1, activation, inner)
     y = apply_dropout(a.float() @ w2.float().t() + b2.float(), outer)
-    z = (x32 + y).to(dt)
+    z = (x.float() + y).to(dt)
     return _layer_norm_rows(z.float(), gamma, beta, ln_eps).to(dt), {"hd": hd, "z": z}
+
+
+def _ffn_reference(x, w1, b1, w2, b2, activation, inner):
+    hd, a = _hidden(x, w1, b1, activation, inner)
+    return (a.float() @ w2.float().t() + b2.float()).to(x.dtype), {"hd": hd}
 
 
 def fused_ffn_ln_reference(x, w1, b1, w2, b2, gamma, beta, *, activation: str,
@@ -94,6 +137,19 @@ def fused_ffn_ln_reference(x, w1, b1, w2, b2, gamma, beta, *, activation: str,
     _check_activation(activation)
     out, res = _forward_reference(x, w1, b1, w2, b2, gamma, beta, activation, ln_eps,
                                   *_streams(seeds, rate, activation))
+    return (out, res) if return_residuals else out
+
+
+def fused_ffn_reference(x, w1, b1, w2, b2, *, activation: str = "relu", rate: float = 0.0,
+                        seed: Optional[int] = None, return_residuals: bool = False):
+    """Plain PyTorch version of ``_fwd_kernel`` with its rounding points:
+    hd = round(dropout(relu(h))) (relu; inner dropout from Philox ``seed``,
+    stream 0) or hd = round(h) and a = round(gelu(h)) (gelu), ``out =
+    round(a . W2 + b2)``.  x [R, H]; with ``return_residuals`` also the dict
+    of hd the plain backward takes.  Differentiable by autograd."""
+    _check_activation(activation)
+    inner = _inner_stream(seed, rate, seed is None, activation)
+    out, res = _ffn_reference(x, w1, b1, w2, b2, activation, inner)
     return (out, res) if return_residuals else out
 
 
@@ -115,11 +171,26 @@ def fused_ffn_ln_backward_reference(g, x, hd, z, w1, w2, gamma, *, activation: s
                                inner.inv_keep)
 
 
-def _backward_reference(g, x, hd, z, w1, w2, gamma, activation, ln_eps, outer, inv_keep):
+def fused_ffn_backward_reference(g, x, hd, w1, w2, *, activation: str = "relu",
+                                 rate: float = 0.0, seed: Optional[int] = None):
+    """Plain PyTorch version of ``_bwd_kernel`` from the cotangent g [R, H]
+    and the forward's residual hd [R, F], rounding where it rounds
+    (``fused_ffn.py:205-251``): dh = (g . W2) * s rounded (s = 1[hd > 0] /
+    keep or dgelu(hd)), dx rounded; dW1 = dh^T x and dW2 = a^T g in fp32,
+    db1 from the fp32 dh, db2 from g in fp32, all cast to the weights' dtype
+    (``:340-350``).
+
+    Returns (dx, dw1, db1, dw2, db2)."""
+    _check_activation(activation)
+    inner = _inner_stream(seed, rate, seed is None, activation)
+    return _ffn_backward_reference(g, x, hd, w1, w2, activation, inner.inv_keep)
+
+
+def _core_backward(dy_b, x, hd, w1, w2, activation, inv_keep):
+    """The part both backwards share, from dy_b [R, H] (fp32 holding
+    io-dtype values, the cotangent of the W2 product): returns the fp32
+    ``dh . W1`` [R, H] and (dw1, db1, dw2) in the weights' dtype."""
     dt = x.dtype
-    dz, dgamma, dbeta = _layer_norm_vjp(g.float(), z, gamma, ln_eps)
-    dy = apply_dropout(dz, outer)
-    dy_b = dy.to(dt).float()
     dh = dy_b @ w2.float()
     if activation == "relu":
         dh = dh * ((hd.float() > 0).float() * inv_keep)
@@ -130,22 +201,34 @@ def _backward_reference(g, x, hd, z, w1, w2, gamma, activation, ln_eps, outer, i
         a = F.gelu(u).to(dt)
     db1 = dh.sum(dim=0)
     dh_b = dh.to(dt).float()
-    dx = (dz + dh_b @ w1.float()).to(dt)
     dw1 = (dh_b.t() @ x.float()).to(w1.dtype)
     dw2 = (dy_b.t() @ a.float()).to(w2.dtype)
-    return (dx, dw1, db1.to(w1.dtype), dw2, dy.sum(dim=0).to(w2.dtype),
+    return dh_b @ w1.float(), (dw1, db1.to(w1.dtype), dw2)
+
+
+def _backward_reference(g, x, hd, z, w1, w2, gamma, activation, ln_eps, outer, inv_keep):
+    dt = x.dtype
+    dz, dgamma, dbeta = _layer_norm_vjp(g.float(), z, gamma, ln_eps)
+    dy = apply_dropout(dz, outer)
+    dx32, (dw1, db1, dw2) = _core_backward(dy.to(dt).float(), x, hd, w1, w2, activation,
+                                           inv_keep)
+    return ((dz + dx32).to(dt), dw1, db1, dw2, dy.sum(dim=0).to(w2.dtype),
             dgamma.to(gamma.dtype), dbeta.to(gamma.dtype))
+
+
+def _ffn_backward_reference(g, x, hd, w1, w2, activation, inv_keep):
+    g32 = g.to(x.dtype).float()
+    dx32, (dw1, db1, dw2) = _core_backward(g32, x, hd, w1, w2, activation, inv_keep)
+    return dx32.to(x.dtype), dw1, db1, dw2, g32.sum(dim=0).to(w2.dtype)
 
 
 # -- the CUDA path ----------------------------------------------------------------------
 
 
-def half_layer_stages(x, w1, b1, w2, b2, gamma, beta, *, activation: str, ln_eps: float,
-                      inner: Dropout = Dropout(),
-                      outer: Dropout = Dropout(), residuals: bool = False):
-    """Check the operands of the CUDA forward and lay out its kernel
-    launches: returns ``(stages, out, saved)`` as
-    :func:`fused_attention_block.half_layer_stages` does."""
+def _hidden_stage(x, w1, b1, w2, activation, inner, residuals):
+    """Check the operands and lay out the W1 launch both forwards start
+    with; returns ``(stage, a, hd)``: the W2 operand and, with
+    ``residuals``, the backward's [R, F] residual (else None)."""
     _check_activation(activation)
     if x.dim() != 2:
         raise ValueError(f"x must be [R, H], got {tuple(x.shape)}")
@@ -156,76 +239,138 @@ def half_layer_stages(x, w1, b1, w2, b2, gamma, beta, *, activation: str, ln_eps
     for name, w, shape in (("w1", w1, (f, h)), ("w2", w2, (h, f))):
         if tuple(w.shape) != shape or w.dtype != x.dtype or w.device != x.device:
             raise ValueError(f"{name}: expected {list(shape)} {x.dtype} on {x.device}")
-    dev = x.device
-    w1, w2, b1, b2, gamma, beta = (w1.contiguous(), w2.contiguous(), _f32(b1), _f32(b2),
-                                   _f32(gamma), _f32(beta))
-    a = torch.empty((r, f), dtype=x.dtype, device=dev)
+    w1, b1 = w1.contiguous(), _f32(b1)
+    a = torch.empty((r, f), dtype=x.dtype, device=x.device)
     pre = torch.empty_like(a) if residuals and activation == "gelu" else None
-    y = torch.empty((r, h), dtype=torch.float32, device=dev)
+    stage = ("w1_gemm_" + activation, lambda: _build.gemm(x, w1, a, bias=b1,
+                                                          activation=activation,
+                                                          dropout=inner, aux=pre))
+    hd = (a if pre is None else pre) if residuals else None
+    return stage, a, hd
+
+
+def half_layer_stages(x, w1, b1, w2, b2, gamma, beta, *, activation: str, ln_eps: float,
+                      inner: Dropout = Dropout(),
+                      outer: Dropout = Dropout(), residuals: bool = False):
+    """Check the operands of the LN-fused CUDA forward and lay out its
+    kernel launches: returns ``(stages, out, saved)`` as
+    :func:`fused_attention_block.half_layer_stages` does."""
+    w1_stage, a, hd = _hidden_stage(x, w1, b1, w2, activation, inner, residuals)
+    r, h = x.shape
+    w2, b2, gamma, beta = w2.contiguous(), _f32(b2), _f32(gamma), _f32(beta)
+    y = torch.empty((r, h), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     z = torch.empty_like(x) if residuals else None
     stages = [
-        ("w1_gemm_" + activation, lambda: _build.gemm(x, w1, a, bias=b1, activation=activation,
-                                                      dropout=inner, aux=pre)),
+        w1_stage,
         ("w2_gemm", lambda: _build.gemm(a, w2, y, bias=b2)),
         ("add_layernorm", lambda: _build.add_layernorm(x, y, gamma, beta, out, ln_eps, outer,
                                                        z)),
     ]
-    saved = {"x": x, "hd": a if pre is None else pre, "z": z} if residuals else None
+    saved = {"x": x, "hd": hd, "z": z} if residuals else None
     return stages, out, saved
+
+
+def ffn_stages(x, w1, b1, w2, b2, *, activation: str, inner: Dropout = Dropout(),
+               residuals: bool = False):
+    """Lay out the unfolded CUDA forward (Pallas #7) as
+    :func:`half_layer_stages` does: W1 with the activation and the inner
+    dropout, then W2 plus b2 into the io dtype; with ``residuals`` the
+    tensors :func:`ffn_backward_stages` needs."""
+    w1_stage, a, hd = _hidden_stage(x, w1, b1, w2, activation, inner, residuals)
+    w2, b2 = w2.contiguous(), _f32(b2)
+    out = torch.empty_like(x)
+    stages = [w1_stage, ("w2_gemm", lambda: _build.gemm(a, w2, out, bias=b2))]
+    return stages, out, ({"x": x, "hd": hd} if residuals else None)
+
+
+def _core_backward_stages(dy, saved, w1, w2, activation, inv_keep):
+    """The launches both backwards share, from dy [R, H] (io dtype): dh
+    with its gate and bias-grad partials, db1, dW1 and dW2.  Returns
+    ``(stages, dh, (dw1, db1, dw2))``."""
+    x, hd = saved["x"], saved["hd"]
+    r, h = x.shape
+    f = hd.shape[1]
+    dev, dt = x.device, x.dtype
+    w2 = w2.contiguous()
+    dh = torch.empty((r, f), dtype=dt, device=dev)
+    db1part = torch.empty((-(-r // 128), f), dtype=torch.float32, device=dev)
+    a = hd if activation == "relu" else torch.empty_like(hd)   # gelu: round(gelu(hd))
+    dw1 = torch.empty((f, h), dtype=dt, device=dev)
+    dw2 = torch.empty((h, f), dtype=dt, device=dev)
+    db1 = torch.empty((f,), dtype=dt, device=dev)
+    gate = "relu" if activation == "relu" else "dgelu"
+    stages = [
+        ("dh_gemm_" + activation, lambda: _build.gemm(
+            dy, w2, dh, layout="nn", gate=hd, gate_kind=gate, gate_scale=inv_keep,
+            aux=None if activation == "relu" else a, colpart=db1part)),
+        ("db1_sum", lambda: _build.colsum(db1part, db1)),
+        ("dw1_gemm", lambda: weight_grad(dh, x, dw1)),
+        ("dw2_gemm", lambda: weight_grad(dy, a, dw2)),
+    ]
+    return stages, dh, (dw1, db1, dw2)
 
 
 def backward_stages(g, saved: Dict[str, torch.Tensor], w1, w2, gamma, *, activation: str,
                     ln_eps: float, outer: Dropout = Dropout(),
                     inv_keep: float = 1.0):
-    """Lay out the CUDA backward's launches: returns ``(stages, grads)`` with
-    grads (dx, dw1, db1, dw2, db2, dgamma, dbeta), filled when the stages
-    have run.  ``inv_keep`` scales the recovered relu mask (1/keep with the
-    inner dropout on)."""
-    x, hd, z = saved["x"], saved["hd"], saved["z"]
+    """Lay out the LN-fused CUDA backward's launches: returns ``(stages,
+    grads)`` with grads (dx, dw1, db1, dw2, db2, dgamma, dbeta), filled when
+    the stages have run.  ``inv_keep`` scales the recovered relu mask (1/keep
+    with the inner dropout on)."""
+    x, z = saved["x"], saved["z"]
     r, h = x.shape
-    f = hd.shape[1]
     dev, dt = x.device, x.dtype
     f32 = dict(dtype=torch.float32, device=dev)
     g = g.to(dt).contiguous()
-    w1, w2, gamma = w1.contiguous(), w2.contiguous(), _f32(gamma)
+    gamma = _f32(gamma)
     dz = torch.empty((r, h), **f32)
     dy = torch.empty((r, h), dtype=dt, device=dev)
     part = torch.empty((3, -(-r // _build.LN_BWD_ROWS), h), **f32)
-    dh = torch.empty((r, f), dtype=dt, device=dev)
-    db1part = torch.empty((-(-r // 128), f), **f32)
-    a = hd if activation == "relu" else torch.empty_like(hd)   # gelu: round(gelu(hd))
     dx = torch.empty_like(x)
-    dw1 = torch.empty((f, h), dtype=dt, device=dev)
-    dw2 = torch.empty((h, f), dtype=dt, device=dev)
-    db1 = torch.empty((f,), dtype=dt, device=dev)
     db2 = torch.empty((h,), dtype=dt, device=dev)
     dgamma = torch.empty((h,), **f32)
     dbeta = torch.empty((h,), **f32)
+    core, dh, (dw1, db1, dw2) = _core_backward_stages(dy, saved, w1, w2, activation, inv_keep)
 
     def ln_sums():
         for i, dst in enumerate((dgamma, dbeta, db2)):
             _build.colsum(part[i], dst)
 
-    gate = "relu" if activation == "relu" else "dgelu"
     stages = [
         ("layernorm_bwd", lambda: _build.layernorm_bwd(g, z, gamma, dz, dy, part, ln_eps,
                                                         outer)),
         ("ln_bias_sums", ln_sums),
-        ("dh_gemm_" + activation, lambda: _build.gemm(
-            dy, w2, dh, layout="nn", gate=hd, gate_kind=gate, gate_scale=inv_keep,
-            aux=None if activation == "relu" else a, colpart=db1part)),
-        ("db1_sum", lambda: _build.colsum(db1part, db1)),
-        ("dx_gemm", lambda: _build.gemm(dh, w1, dx, layout="nn", resid=dz)),
-        ("dw1_gemm", lambda: weight_grad(dh, x, dw1)),
-        ("dw2_gemm", lambda: weight_grad(dy, a, dw2)),
+        *core[:2],
+        ("dx_gemm", lambda: _build.gemm(dh, w1.contiguous(), dx, layout="nn", resid=dz)),
+        *core[2:],
     ]
     return stages, (dx, dw1, db1, dw2, db2, dgamma, dbeta)
 
 
+def ffn_backward_stages(g, saved: Dict[str, torch.Tensor], w1, w2, *, activation: str,
+                        inv_keep: float = 1.0):
+    """Lay out the unfolded CUDA backward (Pallas #8) from the cotangent g
+    [R, H]: returns ``(stages, grads)`` with grads (dx, dw1, db1, dw2, db2),
+    filled when the stages have run."""
+    x = saved["x"]
+    r, h = x.shape
+    g = g.reshape(r, h).to(x.dtype).contiguous()
+    dx = torch.empty_like(x)
+    db2 = torch.empty((h,), dtype=x.dtype, device=x.device)
+    core, dh, (dw1, db1, dw2) = _core_backward_stages(g, saved, w1, w2, activation, inv_keep)
+    stages = [
+        *core[:2],
+        ("dx_gemm", lambda: _build.gemm(dh, w1.contiguous(), dx, layout="nn")),
+        *core[2:],
+        ("db2_sum", lambda: column_sum(g, db2)),
+    ]
+    return stages, (dx, dw1, db1, dw2, db2)
+
+
 class _HalfLayer(torch.autograd.Function):
-    """Forward with residuals + backward; the kernels on CUDA tensors, the
-    plain versions on CPU tensors."""
+    """LN-fused forward with residuals + backward; the kernels on CUDA
+    tensors, the plain versions on CPU tensors."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, gamma, beta, inner, outer, activation, ln_eps):
@@ -263,6 +408,41 @@ class _HalfLayer(torch.autograd.Function):
             grads = _backward_reference(g, x, hd, z, w1, w2, gamma, ctx.activation, ctx.ln_eps,
                                         ctx.outer, ctx.inv_keep)
         return (*grads, None, None, None, None)
+
+
+class _Ffn(torch.autograd.Function):
+    """Unfolded forward with residuals + backward (Pallas #7 / #8); the
+    kernels on CUDA tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, inner, activation):
+        global unfolded_launches
+        ctx.activation, ctx.inv_keep, ctx.cuda = activation, inner.inv_keep, x.is_cuda
+        if x.is_cuda:
+            stages, out, saved = ffn_stages(x, w1, b1, w2, b2, activation=activation,
+                                            inner=inner, residuals=True)
+            _run(stages)
+            unfolded_launches += 1
+            hd = saved["hd"]
+        else:
+            out, res = _ffn_reference(x, w1, b1, w2, b2, activation, inner)
+            hd = res["hd"]
+        ctx.save_for_backward(x, hd, w1, w2)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        global unfolded_bwd_launches
+        x, hd, w1, w2 = ctx.saved_tensors
+        if ctx.cuda:
+            stages, grads = ffn_backward_stages(g, {"x": x, "hd": hd}, w1, w2,
+                                                activation=ctx.activation,
+                                                inv_keep=ctx.inv_keep)
+            _run(stages)
+            unfolded_bwd_launches += 1
+        else:
+            grads = _ffn_backward_reference(g, x, hd, w1, w2, ctx.activation, ctx.inv_keep)
+        return (*grads, None, None)
 
 
 def _infer(x, w1, b1, w2, b2, gamma, beta, activation, ln_eps, inner, outer):
@@ -306,3 +486,28 @@ def fused_ffn_ln_infer(x, w1, b1, w2, b2, gamma, beta, *, ln_eps: float,
     :func:`fused_ffn_ln` with dropout off, storing no residuals."""
     return _infer(x, w1, b1, w2, b2, gamma, beta, activation, ln_eps, Dropout(),
                   Dropout())
+
+
+def fused_ffn(x, w1, b1, w2, b2, *, activation: str = "relu", rate: float = 0.1,
+              deterministic: bool = True, seed: Optional[int] = None) -> torch.Tensor:
+    """FFN ``dropout(act(x . W1^T + b1)) . W2^T + b2`` (the JAX ``fused_ffn``,
+    ``fused_ffn.py:305``).
+
+    x [R, H] (fp32 or bf16); w1 [F, H], w2 [H, F] and biases in ``x.dtype``.
+    With ``deterministic=False`` and ``rate > 0`` the dropout after the relu
+    draws from Philox ``seed`` (required), stream 0; gelu takes no dropout
+    and raises if asked for one.  Differentiable (Pallas #8's backward; its
+    plain version on a CPU tensor).  Returns [R, H] in ``x.dtype``.
+    """
+    global unfolded_launches
+    _check_activation(activation)
+    inner = _inner_stream(seed, rate, deterministic, activation)
+    args = (x, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _Ffn.apply(*args, inner, activation)
+    if not x.is_cuda:
+        return _ffn_reference(*args, activation, inner)[0]
+    stages, out, _ = ffn_stages(*args, activation=activation, inner=inner)
+    _run(stages)
+    unfolded_launches += 1
+    return out

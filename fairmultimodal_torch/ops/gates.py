@@ -6,11 +6,17 @@ plus the ``can_use_*`` functions).  Here "the tensor lies on a CUDA device"
 takes the place of "the backend is a TPU", and the shape rules are the same,
 so the port takes the kernel path on exactly the shapes the JAX package
 does: the lab encoder (S 560) and the 256 / 512 text buckets, never the S=1
-demo BERT or the 64 / 128 buckets.
+demo BERT or the 64 / 128 buckets.  Behind a passed gate the encoder layer
+runs the LayerNorm-fused kernels (#1-#4) or, with ``fold_ln=False`` /
+``FMTPU_FOLD_LN=0``, the unfolded ones (#5-#8); ``TorchEncoderLayer``'s
+``attn_kernel`` / ``ffn_kernel`` fields can force a wrapper (True) or the
+plain path (False) past the gates, as the JAX layer's fields do.  Where the
+gate is off at 256 <= S <= 1024 the JAX package would run its flash kernel
+(#9), the one kernel on that route still to port (``ops/attention.py``).
 
-There is no environment switch.  On a CUDA tensor that passes a gate the
-wrapper launches its kernel or raises; on a CPU tensor the wrappers run
-their plain PyTorch version.
+There is no kill switch.  On a CUDA tensor that passes a gate the wrapper
+launches its kernel or raises; on a CPU tensor the wrappers run their plain
+PyTorch version.
 """
 
 from __future__ import annotations
