@@ -73,6 +73,29 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    one's profiler split; fp32 serving probabilities unfolded vs folded
    (1e-5) and ``FAMEPredictor.benchmark`` unfolded.
 
+3d. flash kernels (Pallas #9 / #10, the flash route): ``flash_attention``
+   forward and backward (dq, dk, dv) through its autograd.Function against
+   ``flash_attention_reference`` / ``flash_attention_backward_reference`` on
+   the card, fp32 and bf16, at the lab shape (B256 S560 8x96, q/k/v head
+   views of three [B, S, H] Dense outputs, 549 of 560 keys, the mask
+   expanded as BEHRTLab builds it), the text-train shape (B32 S512 12x64,
+   per-row masks, a fully masked row) and off the main path (d 32 at S 256
+   without a mask; d 128 at S 1024 on contiguous [B, heads, S, d] tensors;
+   the packed ``fused_qkv`` layout); limits at the phase.  Timed in bf16 at
+   the lab shape: the kernels, their plain versions, SDPA with the -1e9 bias
+   and its autograd backward (never called by the port), beside the bound.
+   Also ``TorchEncoderLayer(fused_qkv=True)`` against the same layer unfused
+   in fp32 (forward and grads 1e-4 of max-abs);
+5c. flash-route slice (``attn_kernel=False`` on every lab layer): an fp32
+   train step with dropout on against the folded card step and the CPU
+   plain path (phase 5's limits); ``FAMETrainer.fit`` for 1 epoch (512 train
+   / 256 validation patients, full width) whose launch counts of #9, #10,
+   ``fused_ffn_ln`` and the glue must equal the protocol's, with #1 / #3 /
+   #5 / #6 never launched; the bf16 train step at batch 256 folded and on
+   the flash route in turns and the flash route's profiler split; fp32
+   serving probabilities flash route vs folded (1e-4) and
+   ``FAMEPredictor.benchmark`` on the flash route.
+
 It prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.
 """
@@ -730,6 +753,188 @@ def unfolded_kernel_phase(fab, ffn, addnorm):
     return rows
 
 
+# -- phase 3d: the flash kernels (Pallas #9 / #10) against their plain versions -------------
+#
+# Limits, relative to each output's largest entry: fp32 FP32_FLASH_TOL for o,
+# dq, dk, dv (only the summation order differs: the kernel's online softmax
+# and tiled sums against the plain version's whole-row ones).  bf16 forward
+# FLASH_BF16_FWD (max) / TRAIN_BF16_MEAN (mean): both round the normalised p
+# to bf16 before p.v and o to bf16 at the end, so a p at a rounding boundary
+# or o itself can land one bf16 ulp (2^-8 relative) apart; four ulps of
+# margin.  bf16 grads TRAIN_BF16_MAX / TRAIN_BF16_MEAN, phase 3b's: the
+# kernel takes the softmax-VJP row term as rowsum(dO * O) from the stored
+# bf16 o, the plain version (as the TPU kernel) rowsum(dP * P); equal for a
+# normalised P, in bf16 they differ by about one rounding of the row term,
+# and ds * scale and p are rounded to bf16 on both sides from sums taken in
+# another order, so a rounding can flip by an ulp and carry into a product
+# over S terms.
+
+FP32_FLASH_TOL = 1e-4
+FLASH_BF16_FWD = 2.0 ** -6
+FLASH_GRADS = ("dq", "dk", "dv")
+
+
+def _flash_inputs(B, S, nh, d, layout, mask_kind, dtype, gen):
+    """q, k, v as the callers lay them out, all leaves' views: "dense" --
+    three [B, S, H] Dense outputs viewed as heads (the layer's); "packed" --
+    one [B, S, 3H] buffer split as ``fused_qkv`` splits it; "contiguous" --
+    [B, heads, S, d] tensors.  Returns (leaves, q, k, v, mask, g)."""
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    H = nh * d
+    if layout == "dense":
+        leaves = [rn(B, S, H).requires_grad_(True) for _ in range(3)]
+        q, k, v = (t.view(B, S, nh, d).transpose(1, 2) for t in leaves)
+    elif layout == "packed":
+        leaves = [rn(B, S, 3 * H).requires_grad_(True)]
+        q, k, v = (t.transpose(1, 2) for t in leaves[0].view(B, S, 3, nh, d).unbind(2))
+    else:
+        leaves = [rn(B, nh, S, d).requires_grad_(True) for _ in range(3)]
+        q, k, v = leaves
+    if mask_kind == "lab":       # 549 real lab tokens padded to 560, as BEHRTLab expands it
+        mask = (torch.arange(S, device="cuda") < N_LABS).int()[None].expand(B, S)
+    elif mask_kind == "rows":    # per-row lengths, the last row fully masked
+        lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda")
+        lens[-1] = 0
+        mask = (torch.arange(S, device="cuda")[None] < lens[:, None]).int()
+    else:
+        mask = None
+    return leaves, q, k, v, mask, rn(B, nh, S, d)
+
+
+def flash_check(flash, gen, dtype, B, S, nh, d, layout="dense", mask_kind="rows", timed=False):
+    """#9 and #10 through ``flash_attention`` and its autograd.Function
+    against ``flash_attention_reference`` and
+    ``flash_attention_backward_reference`` on the same inputs."""
+    leaves, q, k, v, mask, g = _flash_inputs(B, S, nh, d, layout, mask_kind, dtype, gen)
+    label = f"flash B{B} S{S} {nh}x{d} {layout} mask {mask_kind} {dtype}"
+    out = flash.flash_attention(q, k, v, mask)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    with torch.no_grad():
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        want = flash.flash_attention_reference(qd, kd, vd, mask)
+        want_grads = flash.flash_attention_backward_reference(qd, kd, vd, mask, g)
+    got = {"o": out.detach(), **dict(zip(FLASH_GRADS, grads))}
+    ref = {"o": want, **dict(zip(FLASH_GRADS, want_grads))}
+    rows = {}
+    for name, w in ref.items():
+        a, b_ = got[name].float(), w.float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: {name} not finite")
+        err = (a - b_).abs()
+        scale = max(b_.abs().max().item(), 1e-30)
+        mx, mean = err.max().item(), err.mean().item()
+        rows[name] = {"max_abs_err": mx, "mean_abs_err": mean, "max_abs": scale}
+        if dtype == torch.float32:
+            ok = mx <= FP32_FLASH_TOL * scale
+        else:
+            lim = FLASH_BF16_FWD if name == "o" else TRAIN_BF16_MAX
+            ok = mx <= lim * scale and mean <= TRAIN_BF16_MEAN * scale
+        if not ok:
+            raise AssertionError(f"{label}: {name} max {mx} mean {mean} (max-abs {scale})")
+    row = {"case": label, "errors": rows}
+    del out, grads, got, want_grads
+    if timed:
+        F = torch.nn.functional
+        with torch.no_grad():
+            ops = flash._operands(qd, kd, vd, mask)
+            o, stats = flash._forward_kernel(*ops, residuals=True)
+            saved = (*ops[:3], o, stats, ops[3])
+            row["ms"] = time_ms(lambda: flash.flash_attention(qd, kd, vd, mask))
+            row["fwd_res_ms"] = time_ms(lambda: flash._forward_kernel(*ops, residuals=True))
+            row["bwd_ms"] = time_ms(lambda: flash._backward_kernel(*saved, g))
+            row["plain_ms"] = time_ms(lambda: flash.flash_attention_reference(qd, kd, vd, mask),
+                                      reps=5)
+            row["plain_bwd_ms"] = time_ms(lambda: flash.flash_attention_backward_reference(
+                qd, kd, vd, mask, g), reps=3)
+            bias = None if mask is None else \
+                torch.where(mask > 0, 0.0, -1e9).to(dtype)[:, None, None, :]
+            row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=bias))
+            del o, saved, stats
+        lib = [t.detach().clone().requires_grad_(True) for t in (qd, kd, vd)]
+        row["library_bwd_ms"] = _time_backward(
+            F.scaled_dot_product_attention(*lib, attn_mask=bias), lib, g)
+        e = qd.element_size()
+        mask_bytes = 0 if mask is None else B * S * 4
+        flops, nbytes = 4 * B * nh * S * S * d, 4 * B * nh * S * d * e + mask_bytes
+        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+        flops_b, nbytes_b = 10 * B * nh * S * S * d, 7 * B * nh * S * d * e + mask_bytes
+        row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(flops_b, nbytes_b)
+        row["flops"], row["bytes"], row["bwd_flops"], row["bwd_bytes"] = \
+            flops, nbytes, flops_b, nbytes_b
+        del lib
+    del leaves, q, k, v, qd, kd, vd, want, g
+    torch.cuda.empty_cache()
+    return row
+
+
+def fused_qkv_layer_check(gen, B=16, S=560, H=768, nh=8):
+    """``TorchEncoderLayer(fused_qkv=True)`` against the same layer unfused,
+    the qkv weight concatenated from query / key / value, fp32, train mode
+    with dropout on (one generator seed): forward and every grad within
+    FP32_FLASH_TOL of its max-abs."""
+    from fairmultimodal_torch.models._layers import init_params
+    from fairmultimodal_torch.models.behrt import TorchEncoderLayer
+    from fairmultimodal_torch.utils.rng import make_generator
+
+    unfused = init_params(TorchEncoderLayer(H, nh, attn_kernel=False), seed=7).cuda().train()
+    fused = TorchEncoderLayer(H, nh, fused_qkv=True).cuda().train()
+    sd = {k: v for k, v in unfused.state_dict().items()
+          if k.split(".")[0] not in ("query", "key", "value")}
+    for leaf in ("weight", "bias"):
+        sd[f"qkv.{leaf}"] = torch.cat([unfused.state_dict()[f"{n}.{leaf}"]
+                                       for n in ("query", "key", "value")])
+    fused.load_state_dict(sd, strict=True)
+    x = torch.randn(B, S, H, generator=gen, device="cuda")
+    mask = (torch.arange(S, device="cuda") < N_LABS).int()[None].expand(B, S)
+    g = torch.randn(B, S, H, generator=gen, device="cuda")
+    runs = {}
+    for name, layer in (("unfused", unfused), ("fused", fused)):
+        xx = x.clone().requires_grad_(True)
+        out = layer(xx, mask, make_generator(3))
+        out.backward(g)
+        grads = {n: p.grad for n, p in layer.named_parameters()}
+        if name == "fused":
+            for leaf in ("weight", "bias"):
+                for n, part in zip(("query", "key", "value"), grads.pop(f"qkv.{leaf}").chunk(3)):
+                    grads[f"{n}.{leaf}"] = part
+        runs[name] = {"out": out.detach(), "x": xx.grad, **grads}
+    errs = {}
+    for n, w in runs["unfused"].items():
+        scale = w.abs().max().item()
+        if n == "key.bias":        # zero in exact arithmetic: rounding noise only
+            scale = runs["unfused"]["query.bias"].abs().max().item()
+        err = (runs["fused"][n] - w).abs().max().item()
+        errs[n] = err / scale
+        if not err <= FP32_FLASH_TOL * scale:
+            raise AssertionError(f"fused_qkv layer: {n} max abs err {err} (max-abs {scale})")
+    worst = max(errs, key=errs.get)
+    del unfused, fused, runs
+    torch.cuda.empty_cache()
+    return {"case": f"TorchEncoderLayer fused_qkv vs unfused B{B} S{S} {nh}x{H // nh} fp32",
+            "worst": worst, "worst_rel_err": errs[worst]}
+
+
+def flash_kernel_phase(flash):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        timed = dtype == torch.bfloat16
+        for kw in (dict(B=256, S=560, nh=8, d=96, mask_kind="lab", timed=timed),  # lab
+                   dict(B=32, S=512, nh=12, d=64),                                 # text-train
+                   dict(B=8, S=256, nh=8, d=32, mask_kind="none"),                 # off the path
+                   dict(B=4, S=1024, nh=4, d=128, layout="contiguous"),
+                   dict(B=8, S=384, nh=12, d=64, layout="packed")):
+            row = flash_check(flash, gen, dtype, **kw)
+            log(f"[flash-kernels] {json.dumps(row)}")
+            rows.append(row)
+    layer = fused_qkv_layer_check(gen)
+    log(f"[flash-kernels] {json.dumps(layer)}")
+    return rows, layer
+
+
 # -- phase 4: the serving slice ------------------------------------------------------
 
 
@@ -910,7 +1115,19 @@ def set_fold(model, fold):
     return model
 
 
-def fp32_train_step(batch, device, fold=None):
+def set_flash(model, flash=True):
+    """Send every encoder layer of ``model`` down the flash route
+    (``attn_kernel=False``: projections, Pallas #9 / #10, dropout + residual
+    + LayerNorm), or back to the gates (``flash=False``)."""
+    from fairmultimodal_torch.models.behrt import TorchEncoderLayer
+
+    for layer in model.modules():
+        if isinstance(layer, TorchEncoderLayer):
+            layer.attn_kernel = False if flash else None
+    return model
+
+
+def fp32_train_step(batch, device, fold=None, flash=False):
     """One fp32 ``FAMETrainer.train_step`` with dropout on, at full width,
     from seed-0 weights and generator seed 5: (loss, grads on the host)."""
     from fairmultimodal_torch.data.prefetch import to_device
@@ -918,7 +1135,8 @@ def fp32_train_step(batch, device, fold=None):
     from fairmultimodal_torch.models.fusion import FAMEModel
     from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
 
-    m32 = set_fold(init_params(FAMEModel(**TRAIN_GEO, dtype=torch.float32), seed=0), fold)
+    m32 = set_flash(set_fold(init_params(FAMEModel(**TRAIN_GEO, dtype=torch.float32), seed=0),
+                             fold), flash)
     t32 = FAMETrainer(m32, TrainConfig(lr=1e-4, batch_size=8), pos_weight=POS_WEIGHT,
                       rngs_seed=5, device=device)
     total, _ = t32.train_step(to_device(batch, t32.device))
@@ -1203,12 +1421,136 @@ def unfolded_slice_phase(fab, ffn, addnorm):
     return counts, info
 
 
+# -- phase 5c: the flash-route slice (attn_kernel=False) ----------------------------------
+
+# fp32 serving, flash route vs folded on the card: the same weights; the
+# attention core runs the same flash forward (through other strides) and the
+# projections, Wo and the LayerNorm take other kernels or PyTorch ops, so the
+# probabilities agree to fp32 rounding.
+PRED_FLASH_TOL = 1e-4
+
+
+def _flash_counts(flash, fab, ffn, addnorm):
+    return {"flash_attention": flash.launches, "flash_attention_bwd": flash.bwd_launches,
+            "fused_ffn_ln": ffn.launches, "fused_ffn_ln_bwd": ffn.bwd_launches,
+            "glue": addnorm.launches, "glue_bwd": addnorm.bwd_launches,
+            "fused_attention_block_ln": fab.launches,
+            "fused_attention_block_ln_bwd": fab.bwd_launches,
+            "fused_attention_block": fab.unfolded_launches,
+            "fused_attention_block_bwd": fab.unfolded_bwd_launches,
+            "fused_ffn": ffn.unfolded_launches, "fused_ffn_bwd": ffn.unfolded_bwd_launches}
+
+
+def flash_slice_phase(flash, fab, ffn, addnorm):
+    from fairmultimodal_torch.data.loader import BatchIterator, NestedLoader
+    from fairmultimodal_torch.data.prefetch import to_device
+    from fairmultimodal_torch.models._layers import init_params
+    from fairmultimodal_torch.models.fusion import FAMEModel
+    from fairmultimodal_torch.pipelines.inference import FAMEPredictor
+    from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
+
+    def reset():
+        _reset_counts(fab, ffn, addnorm)
+        flash.launches = flash.bwd_launches = 0
+
+    info = {}
+    rng = np.random.default_rng(2)
+    train, val = synthetic_cohort(rng, N_TRAIN), synthetic_cohort(rng, N_VAL)
+    keys = [k for k in train if k != "labels"]
+
+    # fp32 one step, dropout on: the flash route on the card vs the folded
+    # step on the card and the plain path on the CPU (phase 5's runs).
+    reset()
+    FP32_STEPS["cuda_flash"] = fp32_train_step(fp32_step_batch(train, keys), "cuda", flash=True)
+    counts = _flash_counts(flash, fab, ffn, addnorm)
+    if min(counts["flash_attention"], counts["flash_attention_bwd"]) == 0 or \
+            counts["fused_attention_block_ln"] or counts["fused_attention_block"]:
+        raise AssertionError(f"fp32 flash-route step: launches {counts}")
+    for other in ("cuda", "cpu"):
+        loss_rel, worst, grad_rel = compare_steps(FP32_STEPS["cuda_flash"], FP32_STEPS[other])
+        info[f"fp32_flash_vs_{other}"] = {"loss_rel": loss_rel, "worst_leaf": worst,
+                                          "worst_grad_rel": grad_rel}
+        what = "folded card" if other == "cuda" else "CPU plain path"
+        log(f"[flash] fp32 one step, flash route card vs {what}: loss rel {loss_rel:.2e}, "
+            f"worst grad leaf {worst} {grad_rel:.2e} of its max-abs")
+        if not loss_rel <= XDEV_LOSS_TOL or not grad_rel <= XDEV_GRAD_TOL:
+            raise AssertionError(f"fp32 flash route vs {other}: loss rel {loss_rel}, "
+                                 f"grads {grad_rel}")
+
+    # The main path: FAMETrainer.fit, 1 epoch with validation, flash route.
+    fit_train = {k: v[:N_FIT_TRAIN] for k, v in train.items()}
+    train_loader = NestedLoader(BatchIterator(fit_train, TRAIN_BATCH, shuffle=True, seed=0),
+                                keys)
+    val_loader = NestedLoader(BatchIterator(val, TRAIN_BATCH), keys)
+    model = set_flash(init_params(FAMEModel(**TRAIN_GEO, dtype=torch.bfloat16), seed=0))
+    trainer = FAMETrainer(model, TrainConfig(lr=1e-4, num_epochs=1, batch_size=TRAIN_BATCH),
+                          pos_weight=POS_WEIGHT, rngs_seed=0, device="cuda")
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, history = trainer.fit(train_loader, val_loader, verbose=True)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    counts = _flash_counts(flash, fab, ffn, addnorm)
+    layers = TRAIN_GEO["lab_layers"]
+    steps = -(-N_FIT_TRAIN // TRAIN_BATCH)
+    forwards = steps * 2 + -(-N_VAL // TRAIN_BATCH)
+    want = {k: 0 for k in counts}
+    want.update(flash_attention=layers * forwards, flash_attention_bwd=layers * steps,
+                fused_ffn_ln=layers * forwards, fused_ffn_ln_bwd=layers * steps,
+                glue=layers * forwards, glue_bwd=layers * steps)
+    log(f"[flash] fit 1 epoch ({N_FIT_TRAIN} + {N_VAL} patients) in {t_fit:.1f} s "
+        f"(host clock, first call); launches {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError(f"flash-route fit launches {counts}, expected {want}")
+    losses = [v for h in history for k, v in h.items() if k.endswith("loss")]
+    if len(history) != 1 or not np.isfinite(losses).all():
+        raise AssertionError(f"flash-route training history {history}")
+    info.update(fit_s=t_fit, fit_launches=counts, history=history)
+
+    # bf16 train step at batch 256: folded and flash route in turns, same call.
+    batch = to_device(next(iter(train_loader)), trainer.device)
+    steps_ms = {}
+    for on in (False, True, True, False):
+        set_flash(model, on)
+        steps_ms.setdefault("flash" if on else "folded", []).append(
+            time_train_step(trainer, batch))
+    set_flash(model)
+    split = profile_train_step(trainer, batch)
+    info["train_step"] = steps_ms
+    info["step_split"] = split
+    log(f"[flash] train step bf16, folded / flash route in turns: {json.dumps(steps_ms)}")
+    log(f"[flash] flash-route train step split by kernel (profiler, per step): "
+        f"{json.dumps(split)}")
+
+    # Serving: fp32 probabilities flash route vs folded, then the bf16 benchmark.
+    arrays = {k: v[:64] for k, v in val.items() if k != "labels"}
+    probs = {}
+    for on in (False, True):
+        m32 = set_flash(init_params(FAMEModel(**TRAIN_GEO, dtype=torch.float32), seed=0), on)
+        probs[on] = FAMEPredictor(m32, batch_size=64, device="cuda").predict_arrays(
+            arrays)["probs"]
+        del m32
+    diff = float(np.abs(probs[True] - probs[False]).max())
+    log(f"[flash] fp32 serving 64 patients: max |p_flash - p_folded| = {diff:.3e}")
+    if not diff <= PRED_FLASH_TOL:
+        raise AssertionError(f"fp32 flash route vs folded probabilities differ by {diff}")
+    serve = set_flash(init_params(FAMEModel(**TRAIN_GEO, dtype=torch.bfloat16), seed=0))
+    bench = FAMEPredictor(serve, batch_size=256, device="cuda").benchmark(iters=20)
+    log(f"[flash] FAMEPredictor.benchmark bf16 flash route: {json.dumps(bench)}")
+    info.update(fp32_serving_flash_vs_folded=diff, benchmark=bench)
+    del trainer, model, serve
+    torch.cuda.empty_cache()
+    return counts, info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
         return 2
     from fairmultimodal_torch.ops import _build
     from fairmultimodal_torch.ops import dropout_add_layernorm as addnorm
+    from fairmultimodal_torch.ops import flash_attention as flash
     from fairmultimodal_torch.ops import fused_attention_block as fab
     from fairmultimodal_torch.ops import fused_ffn as ffn
 
@@ -1230,12 +1572,15 @@ def main() -> int:
     rows = kernel_phase(fab, ffn)
     train_rows, keep = train_kernel_phase(fab, ffn, _build)
     unfolded_rows = unfolded_kernel_phase(fab, ffn, addnorm)
+    flash_rows, flash_layer = flash_kernel_phase(flash)
     launches, slice_info = slice_phase(fab, ffn)
     log(f"[slice] {json.dumps(slice_info)}")
     train_launches, train_info = train_slice_phase(fab, ffn)
     log(f"[train] {json.dumps(train_info)}")
     unfolded_launches, unfolded_info = unfolded_slice_phase(fab, ffn, addnorm)
     log(f"[unfolded] {json.dumps(unfolded_info)}")
+    flash_launches, flash_info = flash_slice_phase(flash, fab, ffn, addnorm)
+    log(f"[flash] {json.dumps(flash_info)}")
 
     meta = {
         "fused_attention_block_ln": ("fairmultimodal_torch/ops/csrc/flash_attention.cu",
@@ -1314,6 +1659,24 @@ def main() -> int:
             "shape": row["case"], "dtype": "bfloat16", "sources": sources[part],
             "errors": {r["case"]: {"forward": r["forward"], **r["errors"]}
                        for r in unfolded_rows[part]},
+        })
+    row = next(r for r in flash_rows if "ms" in r)          # lab shape, bf16
+    errors = {r["case"]: r["errors"] for r in flash_rows}
+    for name, replaces, pre, outs in (
+            ("flash_attention", "fairmultimodal_tpu/ops/flash_attention.py:44", "", ("o",)),
+            ("flash_attention_bwd", "fairmultimodal_tpu/ops/flash_attention.py:67", "bwd_",
+             FLASH_GRADS)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fairmultimodal_torch/ops/csrc/flash_attention.cu", "replaces": replaces,
+            "launches": flash_launches[name],
+            "max_abs_err": max(row["errors"][n]["max_abs_err"] for n in outs),
+            "ms": row[pre + "ms"], "plain_ms": row["plain_" + pre + "ms"],
+            "bound_ms": row[pre + "bound_ms"], "bound_by": row[pre + "bound_by"],
+            "library_ms": row["library_" + pre + "ms"], "shape": row["case"],
+            "dtype": "bfloat16", "errors": errors,
+            **({"fwd_res_ms": row["fwd_res_ms"], "fused_qkv_layer": flash_layer} if not pre
+               else {}),
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

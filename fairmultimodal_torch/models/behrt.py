@@ -1,19 +1,26 @@
 """BEHRT-style structured-data encoders (port of ``fairmultimodal_tpu/models/behrt.py``).
 
 - :class:`TorchEncoderLayer` -- post-LN torch-style encoder layer (ReLU FFN
-  2048, LayerNorm eps 1e-5), with the JAX layer's ``fold_ln``,
-  ``attn_kernel`` and ``ffn_kernel`` fields (``behrt.py:71-82``).  On a CUDA
-  tensor whose shapes pass the gates (or where a field forces it) each
-  half-layer is one kernel wrapper call, differentiable through the
+  2048, LayerNorm eps 1e-5), with the JAX layer's ``fused_qkv``,
+  ``fold_ln``, ``attn_kernel`` and ``ffn_kernel`` fields (``behrt.py:63-86``).
+  On a CUDA tensor whose shapes pass the gates (or where a field forces it)
+  each half-layer is one kernel wrapper call, differentiable through the
   backward kernels: with the LayerNorm folded (the default) the LN-fused
   kernels (``behrt.py:116-122, 155-162``); with ``fold_ln=False``, or
   ``FMTPU_FOLD_LN=0`` read at call time when ``fold_ln`` is None
   (``behrt.py:101-104``), the unfolded kernels followed by dropout +
-  residual + LayerNorm (``behrt.py:123-130, 163-176``).  In train mode with
-  a generator it draws one dropout seed for the attention half-layer and two
-  for the FFN (inner, outer) in both configurations, as the JAX layer does
-  (``behrt.py:121,160``), and both apply the same Philox streams at the same
-  flat indices, as does the plain path, so all drop the same elements.
+  residual + LayerNorm (``behrt.py:123-130, 163-176``).  Where the attention
+  megakernel is not taken -- ``attn_kernel=False``, or ``fused_qkv=True``
+  (one ``qkv`` [H, 3H] projection, the JAX ``qkv`` Dense) with the field
+  left to the gate (``behrt.py:107-110``) -- the attention half is the
+  flash route (``behrt.py:131-147``): the projections, then
+  :func:`multi_head_attention` (the flash kernels #9 / #10 on shapes that
+  pass their gate), the output projection and dropout + residual +
+  LayerNorm.  In train mode with a generator it draws one dropout seed for
+  the attention half-layer and two for the FFN (inner, outer) on every
+  route, as the JAX layer does (``behrt.py:121,160``), and every route
+  applies the same Philox streams at the same flat indices (the attention
+  output on stream 0 of its seed), so all drop the same elements.
 - :class:`BEHRTLab` -- every z-scored lab scalar becomes a token (shared
   Linear(1, H) + learned positional embedding).  The [B, L] scalars and the
   positional table are padded to a multiple of 16 BEFORE the embedding
@@ -50,16 +57,19 @@ class TorchEncoderLayer(nn.Module):
     """torch ``nn.TransformerEncoderLayer(d_model, nhead)`` semantics: post-LN,
     ReLU, dim_feedforward 2048, dropout 0.1, layer_norm_eps 1e-5.
 
-    ``attn_kernel`` / ``ffn_kernel``: None applies the kernel gates, True
-    forces the wrapper (its plain version on a CPU tensor), False the plain
-    path.  ``fold_ln``: None reads ``FMTPU_FOLD_LN`` at call time ("0" =
-    unfolded), True / False choose the LN-fused or the unfolded kernels.
-    The attributes may be set on a built layer."""
+    ``fused_qkv``: one ``qkv`` Linear(H, 3H) in place of query / key /
+    value (fixed at construction: it decides the parameters).
+    ``attn_kernel`` / ``ffn_kernel``: None applies the kernel gates (the
+    attention megakernel only without ``fused_qkv``), True forces the
+    wrapper (its plain version on a CPU tensor), False the flash route /
+    plain FFN.  ``fold_ln``: None reads ``FMTPU_FOLD_LN`` at call time ("0"
+    = unfolded), True / False choose the LN-fused or the unfolded kernels.
+    These three may be set on a built layer."""
 
     def __init__(self, hidden_size: int, num_heads: int, ffn_size: int = 2048,
                  dropout: float = 0.1, dtype=torch.float32, layer_norm_eps: float = 1e-5,
                  fold_ln: Optional[bool] = None, attn_kernel: Optional[bool] = None,
-                 ffn_kernel: Optional[bool] = None):
+                 ffn_kernel: Optional[bool] = None, fused_qkv: bool = False):
         super().__init__()
         h = hidden_size
         self.num_heads = num_heads
@@ -70,9 +80,13 @@ class TorchEncoderLayer(nn.Module):
         self.fold_ln = fold_ln
         self.attn_kernel = attn_kernel
         self.ffn_kernel = ffn_kernel
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
+        self.fused_qkv = fused_qkv
+        if fused_qkv:
+            self.qkv = nn.Linear(h, 3 * h)
+        else:
+            self.query = nn.Linear(h, h)
+            self.key = nn.Linear(h, h)
+            self.value = nn.Linear(h, h)
         self.attn_out = nn.Linear(h, h)
         self.norm1 = nn.LayerNorm(h, eps=layer_norm_eps)
         self.ffn_in = nn.Linear(h, ffn_size)
@@ -94,7 +108,10 @@ class TorchEncoderLayer(nn.Module):
                 else os.environ.get("FMTPU_FOLD_LN", "1") != "0")
         use_attn = self.attn_kernel
         if use_attn is None:
-            use_attn = can_use_fused_attention_block(x, nh)
+            use_attn = not self.fused_qkv and can_use_fused_attention_block(x, nh)
+        if use_attn and self.fused_qkv:
+            raise ValueError("the attention megakernel takes separate query / key / value "
+                             "projections; a fused_qkv layer runs the flash route")
         if use_attn and fold:
             x = fused_attention_block_ln(
                 x.to(dt), *params(self.query, self.key, self.value, self.attn_out),
@@ -107,15 +124,19 @@ class TorchEncoderLayer(nn.Module):
             x = dropout_add_layernorm(x, attn, self.norm1.weight, self.norm1.bias, eps=eps,
                                       dropout=Dropout.make(attn_seed, 0, rate))
         else:
+            # The flash route: head views of the projections (no copies), the
+            # flash kernels on shapes that pass their gate, a view back.
             d = h // nh
-
-            def heads(lin):
-                return linear(x, lin, dt).view(b, s, nh, d).transpose(1, 2)
-
-            attn = multi_head_attention(heads(self.query), heads(self.key),
-                                        heads(self.value), mask)
+            if self.fused_qkv:
+                qkv = linear(x, self.qkv, dt).view(b, s, 3, nh, d)
+                q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+            else:
+                q, k, v = (linear(x, lin, dt).view(b, s, nh, d).transpose(1, 2)
+                           for lin in (self.query, self.key, self.value))
+            attn = multi_head_attention(q, k, v, mask)
             attn = linear(attn.transpose(1, 2).reshape(b, s, h), self.attn_out, dt)
-            x = layer_norm(x + dropout(attn, rate, attn_seed), self.norm1, dt)
+            x = dropout_add_layernorm(x.to(dt), attn, self.norm1.weight, self.norm1.bias,
+                                      eps=eps, dropout=Dropout.make(attn_seed, 0, rate))
 
         use_ffn = self.ffn_kernel
         if use_ffn is None:

@@ -15,8 +15,15 @@ CUDA tensor whose shapes pass :func:`can_use_fused_attention_block`
 (256 <= S <= 1024, i.e. the 256 / 512 note buckets), the attention
 half-layer is :func:`fused_attention_block_ln_infer` and the FFN half-layer
 :func:`fused_ffn_ln_infer` with gelu (eval mode only, so always the
-inference entries).  Everything else -- the S=1 demo BERT, the
-64 / 128 buckets, the CPU -- runs the plain PyTorch layer.
+inference entries).  Everywhere else the attention goes through
+:func:`multi_head_attention`, which in training mode at those shapes runs
+the flash kernels (#9 / #10, ``bert.py:175-186``); in training mode on a
+CUDA tensor the attention half's dropout + residual + LayerNorm is then the
+row kernel of :func:`dropout_add_layernorm` (Philox stream 0 of the site's
+seed), except for the demo BERT's one-token rows, which stay on the plain
+path as their attention (v itself) does.  The rest -- the 64 / 128 buckets
+in eval mode, the FFN in training mode, the CPU -- runs the plain PyTorch
+layer.
 """
 
 from __future__ import annotations
@@ -30,10 +37,11 @@ from torch import nn
 
 from fairmultimodal_torch.models._layers import dropout_seed, embed, layer_norm, linear
 from fairmultimodal_torch.ops.attention import multi_head_attention
+from fairmultimodal_torch.ops.dropout_add_layernorm import dropout_add_layernorm
 from fairmultimodal_torch.ops.fused_attention_block import fused_attention_block_ln_infer
 from fairmultimodal_torch.ops.fused_ffn import fused_ffn_ln_infer
 from fairmultimodal_torch.ops.gates import can_use_fused_attention_block, can_use_fused_ffn
-from fairmultimodal_torch.utils.rng import dropout
+from fairmultimodal_torch.utils.rng import Dropout, dropout
 
 __all__ = ["BertConfig", "bio_clinical_bert_config", "BertEmbeddings",
            "BertSelfAttention", "BertLayer", "BertEncoderModel"]
@@ -118,11 +126,14 @@ class BertSelfAttention(nn.Module):
 
         out = multi_head_attention(heads(self.query), heads(self.key), heads(self.value),
                                    mask)
-        out = out.transpose(1, 2).reshape(b, s, h)
+        out = linear(out.transpose(1, 2).reshape(b, s, h), self.output_dense, dt)
         rate = c.hidden_dropout_prob
-        out = dropout(linear(out, self.output_dense, dt), rate,
-                      dropout_seed(self, rate, generator))
-        return layer_norm(out + hidden, self.output_layer_norm, dt)
+        seed = dropout_seed(self, rate, generator)
+        if self.training and x.is_cuda and s > 1:
+            ln = self.output_layer_norm
+            return dropout_add_layernorm(x, out, ln.weight, ln.bias, eps=c.layer_norm_eps,
+                                         dropout=Dropout.make(seed, 0, rate))
+        return layer_norm(dropout(out, rate, seed) + hidden, self.output_layer_norm, dt)
 
 
 class BertLayer(nn.Module):

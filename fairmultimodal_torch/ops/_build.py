@@ -31,8 +31,9 @@ import torch
 from fairmultimodal_torch.utils.rng import Dropout
 
 __all__ = ["KernelLaunchError", "build", "kernels", "gemm", "colsum", "row_block_sums",
-           "flash_attn_fwd", "flash_attn_bwd", "add_layernorm", "layernorm_bwd", "ACT_CODES",
-           "FLASH_BWD_TILE", "LN_BWD_ROWS", "SUM_ROWS"]
+           "flash_attn_fwd", "flash_attn_bwd", "flash_attention_fwd", "flash_attention_bwd",
+           "add_layernorm", "layernorm_bwd", "ACT_CODES", "FLASH_BWD_TILE", "LN_BWD_ROWS",
+           "SUM_ROWS"]
 
 _CSRC = Path(__file__).resolve().with_name("csrc")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -52,6 +53,8 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _U64 = ctypes.c_ulonglong
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_S3 = ctypes.POINTER(ctypes.c_longlong)   # (batch, head, row) strides of one operand
 _DROP = [_U64, _U, _U, _F, _I]        # the fields of a utils.rng.Dropout
 _SIGNATURES = {
     "gemm.cu": {
@@ -61,8 +64,10 @@ _SIGNATURES = {
         "fm_row_block_sums": [_P, _P, _I, _I, _I, _P],
     },
     "flash_attention.cu": {
-        "fm_flash_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-        "fm_flash_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        "fm_flash_attention_fwd": [_P, _S3, _P, _S3, _P, _S3, _P, _L, _P, _S3, _P,
+                                   _I, _I, _I, _I, _F, _I, _P],
+        "fm_flash_attention_bwd": [_P, _S3, _P, _S3, _P, _S3, _P, _S3, _P, _S3, _P, _L, _P, _P,
+                                   _P, _S3, _P, _S3, _P, _S3, _P, _I, _I, _I, _I, _F, _I, _P],
     },
     "add_layernorm.cu": {
         "fm_add_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, *_DROP, _I, _I, _P],
@@ -270,30 +275,103 @@ def row_block_sums(x: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
     return part
 
 
-def _heads(qkv: torch.Tensor, num_heads: int):
-    b, s, h3 = qkv.shape
-    h = h3 // 3
-    d = h // num_heads
-    if h3 % 3 or h % num_heads or d > 128:
-        raise ValueError(f"attention: H={h}, heads={num_heads} needs d=H/heads <= 128")
-    return b, s, h, d
+def _require_heads(t: torch.Tensor, name: str, shape, dtype, device) -> None:
+    """A [B, heads, S, d] operand: any batch / head / row strides, the last
+    dim contiguous."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name}: expected device {device}, got {t.device}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: the last dim must be contiguous, got strides {t.stride()}")
+
+
+def _strides(t: torch.Tensor):
+    return (_L * 3)(*t.stride()[:3])
+
+
+def _check_flash_operands(q, k, v, mask):
+    b, nh, s, d = q.shape
+    if d > 128:
+        raise ValueError(f"flash attention: head dim {d} > 128")
+    _dtype_code(q)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _require_heads(t, name, q.shape, q.dtype, q.device)
+    if mask is not None:
+        _require(mask, "mask", (b, s), torch.int32, q.device)
+    return b, nh, s, d
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask: Optional[torch.Tensor], o: torch.Tensor,
+                        stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked attention (Pallas #9) over strided q, k, v into o, all
+    [B, heads, S, d] with the last dim contiguous (any other strides);
+    mask [B, S] int32 contiguous, or None for every key; with ``stats``
+    [B, heads, S, 2] fp32 also each row's softmax max and sum."""
+    b, nh, s, d = _check_flash_operands(q, k, v, mask)
+    _require_heads(o, "o", q.shape, q.dtype, q.device)
+    if stats is not None:
+        _require(stats, "stats", (b, nh, s, 2), torch.float32, q.device)
+    with torch.cuda.device(q.device):
+        rc = kernels()["flash_attention.cu"].fm_flash_attention_fwd(
+            q.data_ptr(), _strides(q), k.data_ptr(), _strides(k), v.data_ptr(), _strides(v),
+            _ptr(mask), s, o.data_ptr(), _strides(o), _ptr(stats), b, s, nh, d,
+            1.0 / (d ** 0.5), _dtype_code(q), _stream(q))
+    _check(rc, "fm_flash_attention_fwd")
+    return o
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        dout: torch.Tensor, mask: Optional[torch.Tensor], stats: torch.Tensor,
+                        rowterm: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
+                        dv: torch.Tensor, colpart: Optional[torch.Tensor] = None) -> None:
+    """Backward of :func:`flash_attention_fwd` (Pallas #10, two launches):
+    dq, dk, dv (strided as q, io dtype) from q, k, v, o, dout and the
+    forward's stats; rowterm [B, heads, S] fp32 is scratch.  With
+    ``colpart`` [B * ceil(S / tile), 3 * heads * d] fp32 also the column
+    partials of the fp32 dq | dk | dv over each tile's rows (the bias grads
+    of the half-layer kernels)."""
+    b, nh, s, d = _check_flash_operands(q, k, v, mask)
+    for name, t in (("o", o), ("dout", dout), ("dq", dq), ("dk", dk), ("dv", dv)):
+        _require_heads(t, name, q.shape, q.dtype, q.device)
+    _require(stats, "stats", (b, nh, s, 2), torch.float32, q.device)
+    _require(rowterm, "rowterm", (b, nh, s), torch.float32, q.device)
+    if colpart is not None:
+        tiles = -(-s // FLASH_BWD_TILE[q.dtype])
+        _require(colpart, "colpart", (b * tiles, 3 * nh * d), torch.float32, q.device)
+    with torch.cuda.device(q.device):
+        rc = kernels()["flash_attention.cu"].fm_flash_attention_bwd(
+            q.data_ptr(), _strides(q), k.data_ptr(), _strides(k), v.data_ptr(), _strides(v),
+            o.data_ptr(), _strides(o), dout.data_ptr(), _strides(dout), _ptr(mask), s,
+            stats.data_ptr(), rowterm.data_ptr(), dq.data_ptr(), _strides(dq), dk.data_ptr(),
+            _strides(dk), dv.data_ptr(), _strides(dv), _ptr(colpart), b, s, nh, d,
+            1.0 / (d ** 0.5), _dtype_code(q), _stream(q))
+    _check(rc, "fm_flash_attention_bwd")
+
+
+def _packed_heads(t: torch.Tensor, num_heads: int, n: int = 1):
+    """The head views of a packed [B, S, n * H] buffer: n [B, heads, S, d]
+    views of its H-column blocks (head h at column h*d of each)."""
+    b, s, w = t.shape
+    return [x.transpose(1, 2)
+            for x in t.view(b, s, n, num_heads, w // (n * num_heads)).unbind(2)]
 
 
 def flash_attn_fwd(qkv: torch.Tensor, mask: torch.Tensor, out: torch.Tensor,
                    num_heads: int, stats: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Masked attention over qkv [B, S, 3H] into out [B, S, H]; with
-    ``stats`` [B, heads, S, 2] fp32 also each row's softmax max and sum."""
-    b, s, h, d = _heads(qkv, num_heads)
-    _require(qkv, "qkv", (b, s, 3 * h), qkv.dtype, qkv.device)
-    _require(mask, "mask", (b, s), torch.int32, qkv.device)
-    _require(out, "out", (b, s, h), qkv.dtype, qkv.device)
-    if stats is not None:
-        _require(stats, "stats", (b, num_heads, s, 2), torch.float32, qkv.device)
-    with torch.cuda.device(qkv.device):
-        rc = kernels()["flash_attention.cu"].fm_flash_attn_fwd(
-            qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), _ptr(stats), b, s, num_heads, d,
-            1.0 / (d ** 0.5), _dtype_code(qkv), _stream(qkv))
-    _check(rc, "fm_flash_attn_fwd")
+    """:func:`flash_attention_fwd` over the packed layout of the half-layer
+    kernels: qkv [B, S, 3H] (q | k | v column blocks, head h at column h*d
+    of each) into out [B, S, H]."""
+    b, s, h3 = qkv.shape
+    if h3 % 3 or (h3 // 3) % num_heads:
+        raise ValueError(f"attention: 3H={h3} does not split into 3 x {num_heads} heads")
+    _require(qkv, "qkv", (b, s, h3), qkv.dtype, qkv.device)
+    _require(out, "out", (b, s, h3 // 3), qkv.dtype, qkv.device)
+    q, k, v = _packed_heads(qkv, num_heads, 3)
+    flash_attention_fwd(q, k, v, mask, *_packed_heads(out, num_heads), stats)
     return out
 
 
@@ -304,23 +382,14 @@ def flash_attn_bwd(qkv: torch.Tensor, o: torch.Tensor, dout: torch.Tensor, mask:
     (io dtype) from qkv, o, dout [B, S, H] and the forward's stats;
     rowterm [B, heads, S] fp32 is scratch, colpart [B * ceil(S / tile), 3H]
     fp32 receives the column partials of the fp32 dq | dk | dv."""
-    b, s, h, d = _heads(qkv, num_heads)
-    dev, dt = qkv.device, qkv.dtype
-    tiles = -(-s // FLASH_BWD_TILE[dt])
-    _require(qkv, "qkv", (b, s, 3 * h), dt, dev)
-    _require(o, "o", (b, s, h), dt, dev)
-    _require(dout, "dout", (b, s, h), dt, dev)
-    _require(mask, "mask", (b, s), torch.int32, dev)
-    _require(stats, "stats", (b, num_heads, s, 2), torch.float32, dev)
-    _require(rowterm, "rowterm", (b, num_heads, s), torch.float32, dev)
-    _require(dqkv, "dqkv", (b, s, 3 * h), dt, dev)
-    _require(colpart, "colpart", (b * tiles, 3 * h), torch.float32, dev)
-    with torch.cuda.device(dev):
-        rc = kernels()["flash_attention.cu"].fm_flash_attn_bwd(
-            qkv.data_ptr(), o.data_ptr(), dout.data_ptr(), mask.data_ptr(), stats.data_ptr(),
-            rowterm.data_ptr(), dqkv.data_ptr(), colpart.data_ptr(), b, s, num_heads, d,
-            1.0 / (d ** 0.5), _dtype_code(qkv), _stream(qkv))
-    _check(rc, "fm_flash_attn_bwd")
+    for name, t in (("qkv", qkv), ("o", o), ("dout", dout), ("dqkv", dqkv)):
+        _require(t, name, t.shape, qkv.dtype, qkv.device)
+    if dqkv.shape != qkv.shape:
+        raise ValueError(f"dqkv: expected shape {tuple(qkv.shape)}, got {tuple(dqkv.shape)}")
+    q, k, v = _packed_heads(qkv, num_heads, 3)
+    dq, dk, dv = _packed_heads(dqkv, num_heads, 3)
+    flash_attention_bwd(q, k, v, *_packed_heads(o, num_heads), *_packed_heads(dout, num_heads),
+                        mask, stats, rowterm, dq, dk, dv, colpart=colpart)
     return dqkv
 
 

@@ -1,12 +1,15 @@
-"""Multi-head attention, plain PyTorch (port of ``fairmultimodal_tpu/ops/attention.py``).
+"""Multi-head attention (port of ``fairmultimodal_tpu/ops/attention.py``).
 
 Every attention that no half-layer kernel takes runs here: the S=1 demo
-BERT and the 64 / 128 text buckets, and a ``TorchEncoderLayer`` with
-``attn_kernel=False``.  The JAX package would send 256 <= S <= 1024 with the
-megakernel gate off (``BertSelfAttention`` in training mode, the layer with
-``attn_kernel=False`` or ``fused_qkv=True``) to its Pallas flash kernel
-(#9, backward #10); those are the kernels on this route still to port, so
-those shapes run the plain version below.
+BERT, the 64 / 128 text buckets, ``BertSelfAttention`` in training mode and
+a ``TorchEncoderLayer`` with ``attn_kernel=False`` or ``fused_qkv=True``.
+``multi_head_attention`` dispatches as the JAX function does
+(``attention.py:73-93``): S = 1 returns v; otherwise a CUDA tensor whose
+shapes pass :func:`~fairmultimodal_torch.ops.gates.can_use_flash_attention`
+(256 <= S <= 1024, S % 16 == 0, d in {32, 64, 96, 128}), or any call with
+``use_kernel=True``, goes to :func:`~fairmultimodal_torch.ops.flash_attention.
+flash_attention` (Pallas #9, backward #10); everything else to the plain
+:func:`attention_reference`.
 """
 
 from __future__ import annotations
@@ -14,6 +17,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from fairmultimodal_torch.ops.flash_attention import flash_attention
+from fairmultimodal_torch.ops.gates import can_use_flash_attention
 
 __all__ = ["multi_head_attention", "attention_reference"]
 
@@ -38,10 +44,17 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q, k, v [B, heads, S, D]; mask [B, S]."""
+                         mask: Optional[torch.Tensor] = None,
+                         use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """q, k, v [B, heads, S, D]; mask [B, S].  ``use_kernel`` (the JAX
+    ``use_pallas``): None applies the gate, True takes the flash wrapper (its
+    plain version on a CPU tensor), False the plain path."""
     if q.shape[2] == 1:
         # One token attending to itself: the softmax over one key is 1, so
         # the output is v (the demo BERT's dummy-token input).
         return v
+    if use_kernel is None:
+        use_kernel = can_use_flash_attention(q)
+    if use_kernel:
+        return flash_attention(q, k, v, mask)
     return attention_reference(q, k, v, mask)

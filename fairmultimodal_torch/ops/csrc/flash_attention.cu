@@ -1,49 +1,63 @@
-// Flash-style masked multi-head attention forward over a packed qkv buffer:
+// Flash-style masked multi-head attention, forward and backward, over strided
+// [B, heads, S, d] operands:
 //
-//     o[b, s, h*d:(h+1)*d] = softmax(q_h k_h^T * scale + bias) v_h
-//     bias[key] = 0 where mask[b, key] > 0, else -1e9 (additive, NOT -inf)
+//     o[b, h] = softmax(q[b, h] k[b, h]^T * scale + bias[b]) v[b, h]
+//     bias[b, key] = 0 where mask[b, key] > 0, else -1e9 (additive, NOT -inf);
+//     no mask: every key attends
 //
-// Replaces the softmax-attention core of the Pallas TPU kernel
-// fairmultimodal_tpu/ops/fused_attention_block.py::_mega_ln_fwd_kernel
-// (lines 543-550).  The projections before it and the output projection +
-// residual + LayerNorm after it are gemm.cu and add_layernorm.cu.
+// Replaces two Pallas TPU kernels and the attention cores of four more:
+//   - fairmultimodal_tpu/ops/flash_attention.py::_fwd_kernel (#9) and
+//     ::_bwd_kernel (#10), which take q, k, v as separate [B, heads, S, D]
+//     arrays and an optional [B, S] mask;
+//   - the softmax-attention core of fused_attention_block.py::
+//     _mega_ln_fwd_kernel / _mega_fwd_kernel (#1 / #5) and of
+//     _mega_ln_bwd_kernel / _mega_bwd_kernel (#3 / #6), whose q, k, v sit in
+//     one packed [B, S, 3H] projection buffer.
 //
-// Bound at the slice's shapes: the score and p.v products are 4*B*S*S*H
-// FLOP, 2.5e11 for the lab encoder (B 256, S 560, H 768) and 6.4e10 per
-// text batch of 32 x 512 -- operation-bound (0.25 ms and 0.07 ms at the
-// bf16 dense peak) while q/k/v/o move 0.9 GB and 0.1 GB.
+// Every operand is a base pointer plus batch, head and row strides in
+// elements, the last dim contiguous (element (b, h, r, c) at
+// p[b*sb + h*sh + r*sr + c]).  The packed layout is one case (q, k, v at
+// column offsets 0, H, 2H, row stride 3H, head stride d), three [B, S, H]
+// Dense outputs viewed as heads another (row stride H), a contiguous
+// [B, heads, S, d] tensor a third (row stride d, head stride S*d): no head
+// split or merge is ever materialised.  Tiles load 16 bytes at a time when
+// d, the row stride and the head's base pointer allow it, and one element
+// at a time otherwise.
 //
-// Design.  The TPU kernel holds the whole [S, S] score tile in VMEM; an SM
-// has 227 KB, so both kernels here tile the keys (64 at a time).  One
-// 256-thread block owns 64 query rows of one (batch, head).  q, k, v are
-// read straight from the [B, S, 3H] projection output (head h at column
-// offset h*d), so no head split/merge transposes exist.  The head dim is
+// Bound at the lab shape (B 256, S 560, 8 heads x 96): the score and p.v
+// products are 4*B*S*S*H = 2.5e11 FLOP (0.25 ms at the bf16 dense peak)
+// while q/k/v/o move 0.9 GB (0.26 ms at 3.35 TB/s); the backward's five
+// products 10*B*S*S*H = 6.2e11 (0.62 ms).
+//
+// Forward design.  The TPU kernel holds the whole [S, S] score tile in VMEM;
+// an SM has 227 KB, so both kernels here tile the keys (64 at a time).  One
+// 256-thread block owns 64 query rows of one (batch, head).  The head dim is
 // padded with zeros to DP, a multiple of 32 (d 96 stays 96): the TPU
 // kernel's 96 -> 128 pad was Mosaic's 128-lane rule and buys nothing here.
 //   - bf16 (any d <= 128): tensor cores through WMMA, in two passes over
 //     the keys.  Pass 1 computes the scores and the exact row max and sum;
 //     pass 2 recomputes the scores, forms the NORMALISED p, rounds it to
 //     bf16 and accumulates p.v in fp32 WMMA fragments -- the TPU kernel's
-//     rounding exactly, and no running rescale of the output fragments.
-//     The price is a second q.k^T (1.5x the attention FLOPs).  Tiles load
-//     16 bytes at a time when d % 8 == 0 (every serving shape) and one
-//     element at a time otherwise.
+//     rounding exactly (flash_attention.py:62), and no running rescale of
+//     the output fragments.  The price is a second q.k^T (1.5x the FLOPs).
 //   - fp32: CUDA cores, one pass with an online softmax (running max and
 //     sum); each thread owns 4 rows x 4 keys of a score tile and 4 rows x
 //     DP/16 output columns.  fp32 rounds nothing, so normalising once at
 //     the end differs from the TPU kernel only in summation order.
+// Each row's max and sum are written to stats [B, heads, S, 2] when the
+// backward will need them.
 //
-// Masking copies the TPU kernel exactly: -1e9 is added to the scaled score,
+// Masking copies the TPU kernels exactly: -1e9 is added to the scaled score,
 // so a fully masked row (the pad rows of an encode batch) gets a finite,
 // uniform softmax instead of NaN.  Keys past S (the ragged last tile) get
 // -inf and weigh exactly zero.
 //
 // What it leaves on the table: wgmma, K/V double buffering, keeping p in
 // registers (mma.sync fragments) instead of staging scores through shared
-// memory, and the TPU kernel's fusion -- q/k/v and o round-trip device
 // memory.
 #include <math.h>
 #include <mma.h>
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -57,6 +71,36 @@ constexpr int FA_THREADS = 256;
 constexpr int TSTR = FA_BM + 1;  // transposed q/k tile row stride (bank-conflict pad)
 constexpr int PSTR = FA_BN + 1;  // p tile row stride
 
+// One strided [B, heads, S, d] operand (last dim contiguous).
+template <typename T>
+struct Mat {
+  T* p;
+  long long sb, sh, sr;  // batch, head and row strides, in elements
+  __device__ __forceinline__ T* head(int b, int h) const { return p + b * sb + h * sh; }
+};
+
+// The [B, S] key mask (int32, 1 = attend) and its batch stride; null: every
+// key attends.
+struct Mask {
+  const int* p;
+  long long sb;
+  __device__ __forceinline__ const int* row(int b) const { return p ? p + b * sb : nullptr; }
+};
+
+// Additive bias of one key: 0 (attend), -1e9 (masked), -inf (past S).
+__device__ __forceinline__ float key_bias(const int* mrow, int key, int S) {
+  if (key >= S) return -INFINITY;
+  return (mrow == nullptr || mrow[key] > 0) ? 0.0f : -1e9f;
+}
+
+// Whether rows of ``d`` elements of T at ``src`` + r * rs can be read 16
+// bytes at a time.
+template <typename T>
+__device__ __forceinline__ bool vec16(const T* src, long long rs, int d) {
+  constexpr int V = 16 / sizeof(T);
+  return d % V == 0 && rs % V == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+}
+
 template <int DP>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * DP * TSTR + FA_BN * DP + FA_BM * PSTR + FA_BN);
@@ -64,9 +108,9 @@ constexpr size_t smem_bytes() {
 
 template <int DP>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_attn_fwd_f32_kernel(const float* __restrict__ qkv, const int* __restrict__ mask,
-                          float* __restrict__ out, float* __restrict__ stats, int S, int nh,
-                          int d, float scale) {
+flash_attn_fwd_f32_kernel(Mat<const float> Q, Mat<const float> K, Mat<const float> V, Mask mask,
+                          Mat<float> O, float* __restrict__ stats, int S, int nh, int d,
+                          float scale) {
   static_assert(DP % 32 == 0 && DP <= 128, "head dim pad");
   constexpr int DC = DP / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -82,17 +126,15 @@ flash_attn_fwd_f32_kernel(const float* __restrict__ qkv, const int* __restrict__
   const int q0 = blockIdx.x * FA_BM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int H = nh * d;
-  const size_t rs = 3 * (size_t)H;  // qkv row stride
-  const float* qb = qkv + (size_t)b * S * rs + (size_t)h * d;
-  const float* kb = qb + H;
-  const float* vb = qb + 2 * H;
-  const int* mrow = mask + (size_t)b * S;
+  const float* qb = Q.head(b, h);
+  const float* kb = K.head(b, h);
+  const float* vb = V.head(b, h);
+  const int* mrow = mask.row(b);
 
   for (int i = tid; i < FA_BM * DP; i += FA_THREADS) {
     const int row = i / DP, k = i % DP;
     float v = 0.0f;
-    if (q0 + row < S && k < d) v = qb[(size_t)(q0 + row) * rs + k];
+    if (q0 + row < S && k < d) v = qb[(q0 + row) * Q.sr + k];
     Qt[k * TSTR + row] = v;
   }
 
@@ -110,14 +152,10 @@ flash_attn_fwd_f32_kernel(const float* __restrict__ qkv, const int* __restrict__
     for (int i = tid; i < FA_BN * DP; i += FA_THREADS) {
       const int key = i / DP, k = i % DP;
       const bool ok = k0 + key < S && k < d;
-      const size_t off = (size_t)(k0 + key) * rs + k;
-      Kt[k * TSTR + key] = ok ? kb[off] : 0.0f;
-      Vs[key * DP + k] = ok ? vb[off] : 0.0f;
+      Kt[k * TSTR + key] = ok ? kb[(k0 + key) * K.sr + k] : 0.0f;
+      Vs[key * DP + k] = ok ? vb[(k0 + key) * V.sr + k] : 0.0f;
     }
-    for (int i = tid; i < FA_BN; i += FA_THREADS) {
-      const int key = k0 + i;
-      kbias[i] = key < S ? (mrow[key] > 0 ? 0.0f : -1e9f) : -INFINITY;
-    }
+    for (int i = tid; i < FA_BN; i += FA_THREADS) kbias[i] = key_bias(mrow, k0 + i, S);
     __syncthreads();
 
     float s[4][4];
@@ -175,7 +213,7 @@ flash_attn_fwd_f32_kernel(const float* __restrict__ qkv, const int* __restrict__
     }
   }
 
-  const size_t orow = (size_t)H;
+  float* ob = O.head(b, h);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float l = fm::half_warp_sum(l_i[i]);
@@ -186,7 +224,7 @@ flash_attn_fwd_f32_kernel(const float* __restrict__ qkv, const int* __restrict__
       st[0] = m_i[i];
       st[1] = l;
     }
-    float* dst = out + ((size_t)b * S + row) * orow + (size_t)h * d;
+    float* dst = ob + row * O.sr;
 #pragma unroll
     for (int jj = 0; jj < DC; ++jj) {
       const int col = c + 16 * jj;
@@ -215,28 +253,25 @@ struct TcSmem {  // byte offsets of the shared-memory regions
 };
 
 // 64 rows x d columns of one head (row stride rs) -> dst[64][DP + 8], zero padded.
-// 16-byte loads when d % 8 == 0 (head offsets and rows are then 16-byte
-// aligned), element loads for any other d.
 template <int DP>
-__device__ __forceinline__ void load_tile_bf16(const fm_bf16* __restrict__ src, size_t rs,
+__device__ __forceinline__ void load_tile_bf16(const fm_bf16* __restrict__ src, long long rs,
                                                int r0, int S, int d, fm_bf16* dst) {
   constexpr int LD = DP + 8;
-  if (d % 8 == 0) {
+  if (vec16(src, rs, d)) {
     constexpr int CPR = DP / 8;  // 16-byte chunks per row
     for (int c = threadIdx.x; c < FA_BM * CPR; c += FA_THREADS) {
       const int row = c / CPR;
       const int col = (c % CPR) * 8;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (r0 + row < S && col < d)
-        v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + row) * rs + col);
+        v = *reinterpret_cast<const uint4*>(src + (r0 + row) * rs + col);
       *reinterpret_cast<uint4*>(dst + row * LD + col) = v;
     }
   } else {
     for (int i = threadIdx.x; i < FA_BM * DP; i += FA_THREADS) {
       const int row = i / DP, col = i % DP;
-      dst[row * LD + col] = (r0 + row < S && col < d)
-                                ? src[(size_t)(r0 + row) * rs + col]
-                                : __float2bfloat16_rn(0.0f);
+      dst[row * LD + col] = (r0 + row < S && col < d) ? src[(r0 + row) * rs + col]
+                                                      : __float2bfloat16_rn(0.0f);
     }
   }
 }
@@ -264,8 +299,8 @@ __device__ __forceinline__ void scores_tc(const fm_bf16* Qs, const fm_bf16* Ks, 
 
 template <int DP>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_attn_fwd_tc_kernel(const fm_bf16* __restrict__ qkv, const int* __restrict__ mask,
-                         fm_bf16* __restrict__ out, float* __restrict__ stats, int S, int nh,
+flash_attn_fwd_tc_kernel(Mat<const fm_bf16> Q, Mat<const fm_bf16> K, Mat<const fm_bf16> V,
+                         Mask mask, Mat<fm_bf16> O, float* __restrict__ stats, int S, int nh,
                          int d, float scale) {
   using namespace nvcuda;
   using L = TcSmem<DP>;
@@ -287,24 +322,19 @@ flash_attn_fwd_tc_kernel(const fm_bf16* __restrict__ qkv, const int* __restrict_
   const int q0 = blockIdx.x * FA_BM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int H = nh * d;
-  const size_t rs = 3 * (size_t)H;
-  const fm_bf16* qb = qkv + (size_t)b * S * rs + (size_t)h * d;
-  const fm_bf16* kb = qb + H;
-  const fm_bf16* vb = qb + 2 * H;
-  const int* mrow = mask + (size_t)b * S;
+  const fm_bf16* qb = Q.head(b, h);
+  const fm_bf16* kb = K.head(b, h);
+  const fm_bf16* vb = V.head(b, h);
+  const int* mrow = mask.row(b);
 
-  load_tile_bf16<DP>(qb, rs, q0, S, d, Qs);
+  load_tile_bf16<DP>(qb, Q.sr, q0, S, d, Qs);
 
   // Pass 1: exact row max m and row sum l of exp(s - m).
   float m = -INFINITY, l = 0.0f;
   for (int k0 = 0; k0 < S; k0 += FA_BN) {
     __syncthreads();
-    load_tile_bf16<DP>(kb, rs, k0, S, d, Ks);
-    if (tid < FA_BN) {
-      const int key = k0 + tid;
-      kbias[tid] = key < S ? (mrow[key] > 0 ? 0.0f : -1e9f) : -INFINITY;
-    }
+    load_tile_bf16<DP>(kb, K.sr, k0, S, d, Ks);
+    if (tid < FA_BN) kbias[tid] = key_bias(mrow, k0 + tid, S);
     __syncthreads();
     scores_tc<DP>(Qs, Ks, Ss);
     __syncthreads();
@@ -338,12 +368,9 @@ flash_attn_fwd_tc_kernel(const fm_bf16* __restrict__ qkv, const int* __restrict_
   for (int i = 0; i < OPW; ++i) wmma::fill_fragment(oacc[i], 0.0f);
   for (int k0 = 0; k0 < S; k0 += FA_BN) {
     __syncthreads();
-    load_tile_bf16<DP>(kb, rs, k0, S, d, Ks);
-    load_tile_bf16<DP>(vb, rs, k0, S, d, Vs);
-    if (tid < FA_BN) {
-      const int key = k0 + tid;
-      kbias[tid] = key < S ? (mrow[key] > 0 ? 0.0f : -1e9f) : -INFINITY;
-    }
+    load_tile_bf16<DP>(kb, K.sr, k0, S, d, Ks);
+    load_tile_bf16<DP>(vb, V.sr, k0, S, d, Vs);
+    if (tid < FA_BN) kbias[tid] = key_bias(mrow, k0 + tid, S);
     __syncthreads();
     scores_tc<DP>(Qs, Ks, Ss);
     __syncthreads();
@@ -373,6 +400,7 @@ flash_attn_fwd_tc_kernel(const fm_bf16* __restrict__ qkv, const int* __restrict_
   // Epilogue: each output fragment through this warp's slice of the score tile.
   __syncthreads();
   float* st = Ss + warp * 256;
+  fm_bf16* ob = O.head(b, h);
 #pragma unroll
   for (int i = 0; i < OPW; ++i) {
     const int f = warp + i * (FA_THREADS / 32);
@@ -383,95 +411,113 @@ flash_attn_fwd_tc_kernel(const fm_bf16* __restrict__ qkv, const int* __restrict_
     for (int e = lane; e < 256; e += 32) {
       const int r = q0 + fr * 16 + e / 16;
       const int c = fc * 16 + e % 16;
-      if (r < S && c < d)
-        out[((size_t)b * S + r) * H + (size_t)h * d + c] = __float2bfloat16_rn(st[e]);
+      if (r < S && c < d) ob[r * O.sr + c] = __float2bfloat16_rn(st[e]);
     }
     __syncwarp();
   }
 }
 
+// ---- host-side operands and the forward dispatch ----------------------------------
+
+struct Op {  // a strided operand as the C entries take it
+  const void* p;
+  long long sb, sh, sr;
+};
+
+template <typename T>
+Mat<T> as_mat(const Op& o) {
+  return Mat<T>{(T*)o.p, o.sb, o.sh, o.sr};
+}
+
+struct FwdArgs {
+  Op q, k, v, o;
+  Mask mask;
+  float* stats;
+  int B, S, nh, d;
+  float scale;
+};
+
+// The padded head dim of d (0 when d is outside 1..128).
+int head_pad(int d) {
+  if (d < 1 || d > 128) return 0;
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 96 ? 96 : 128;
+}
+
 template <int DP>
-cudaError_t launch_tc_dp(const void* qkv, const int* mask, void* out, float* stats, int B,
-                         int S, int nh, int d, float scale, cudaStream_t stream) {
+cudaError_t launch_tc_dp(const FwdArgs& a, cudaStream_t stream) {
   constexpr int bytes = TcSmem<DP>::BYTES;
   // Set on every launch: the attribute belongs to the current device, and
   // the call costs about a microsecond.
   cudaError_t e = cudaFuncSetAttribute(flash_attn_fwd_tc_kernel<DP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((S + FA_BM - 1) / FA_BM, nh, B);
+  const dim3 grid((a.S + FA_BM - 1) / FA_BM, a.nh, a.B);
   flash_attn_fwd_tc_kernel<DP><<<grid, FA_THREADS, bytes, stream>>>(
-      static_cast<const fm_bf16*>(qkv), mask, static_cast<fm_bf16*>(out), stats, S, nh, d,
-      scale);
+      as_mat<const fm_bf16>(a.q), as_mat<const fm_bf16>(a.k), as_mat<const fm_bf16>(a.v),
+      a.mask, as_mat<fm_bf16>(a.o), a.stats, a.S, a.nh, a.d, a.scale);
   return cudaGetLastError();
 }
 
-cudaError_t launch_tc(const void* qkv, const int* mask, void* out, float* stats, int B, int S,
-                  int nh, int d, float scale, cudaStream_t stream) {
-  if (d <= 32) return launch_tc_dp<32>(qkv, mask, out, stats, B, S, nh, d, scale, stream);
-  if (d <= 64) return launch_tc_dp<64>(qkv, mask, out, stats, B, S, nh, d, scale, stream);
-  if (d <= 96) return launch_tc_dp<96>(qkv, mask, out, stats, B, S, nh, d, scale, stream);
-  if (d <= 128) return launch_tc_dp<128>(qkv, mask, out, stats, B, S, nh, d, scale, stream);
-  return cudaErrorInvalidValue;
-}
-
-// ---- fp32 dispatch ---------------------------------------------------------------
-
 template <int DP>
-cudaError_t launch_f32_dp(const void* qkv, const int* mask, void* out, float* stats, int B,
-                          int S, int nh, int d, float scale, cudaStream_t stream) {
+cudaError_t launch_f32_dp(const FwdArgs& a, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DP>();
   cudaError_t e = cudaFuncSetAttribute(flash_attn_fwd_f32_kernel<DP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)bytes);  // per device, as above
   if (e != cudaSuccess) return e;
-  const dim3 grid((S + FA_BM - 1) / FA_BM, nh, B);
+  const dim3 grid((a.S + FA_BM - 1) / FA_BM, a.nh, a.B);
   flash_attn_fwd_f32_kernel<DP><<<grid, FA_THREADS, bytes, stream>>>(
-      static_cast<const float*>(qkv), mask, static_cast<float*>(out), stats, S, nh, d, scale);
+      as_mat<const float>(a.q), as_mat<const float>(a.k), as_mat<const float>(a.v), a.mask,
+      as_mat<float>(a.o), a.stats, a.S, a.nh, a.d, a.scale);
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(const void* qkv, const int* mask, void* out, float* stats, int B, int S,
-                  int nh, int d, float scale, cudaStream_t stream) {
-  if (d <= 32) return launch_f32_dp<32>(qkv, mask, out, stats, B, S, nh, d, scale, stream);
-  if (d <= 64) return launch_f32_dp<64>(qkv, mask, out, stats, B, S, nh, d, scale, stream);
-  if (d <= 96) return launch_f32_dp<96>(qkv, mask, out, stats, B, S, nh, d, scale, stream);
-  if (d <= 128) return launch_f32_dp<128>(qkv, mask, out, stats, B, S, nh, d, scale, stream);
-  return cudaErrorInvalidValue;
+cudaError_t launch_fwd(const FwdArgs& a, int dtype, cudaStream_t s) {
+  const bool bf16 = dtype == FM_BF16;
+  if (!bf16 && dtype != FM_F32) return cudaErrorInvalidValue;
+  switch (head_pad(a.d)) {
+    case 32: return bf16 ? launch_tc_dp<32>(a, s) : launch_f32_dp<32>(a, s);
+    case 64: return bf16 ? launch_tc_dp<64>(a, s) : launch_f32_dp<64>(a, s);
+    case 96: return bf16 ? launch_tc_dp<96>(a, s) : launch_f32_dp<96>(a, s);
+    case 128: return bf16 ? launch_tc_dp<128>(a, s) : launch_f32_dp<128>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
-
 
 // ---- backward -------------------------------------------------------------------
 //
-// Replaces the attention core of the Pallas TPU kernel
-// fairmultimodal_tpu/ops/fused_attention_block.py::_mega_ln_bwd_kernel
-// (lines 717-744), which holds the whole [S, S] tile of one (batch, head)
-// in VMEM and recomputes P from the stored q and k.  Here two kernels tile
-// it, each recomputing p = exp(s * scale + bias - m) / l from the row max
-// and sum the forward stored (the same expression as the forward, so p is
-// the forward's p bit for bit), and neither uses atomics:
+// Replaces fairmultimodal_tpu/ops/flash_attention.py::_bwd_kernel (#10) and
+// the attention core of fused_attention_block.py::_mega_ln_bwd_kernel
+// (lines 717-744) / _mega_bwd_kernel.  The TPU kernels hold the whole
+// [S, S] tile of one (batch, head) in VMEM and recompute P from the stored
+// q and k.  Here two kernels tile it, each recomputing
+// p = exp(s * scale + bias - m) / l from the row max and sum the forward
+// stored (the same expression as the forward, so p is the forward's p bit
+// for bit), and neither uses atomics:
 //   - flash_bwd_dq: one block per 64-query tile (32 for fp32); it first
 //     writes D_i = rowsum(dO * O) for its rows, then walks the key tiles:
 //     dS = P * (dO.V^T - D), dQ += round(dS * scale) . K;
 //   - flash_bwd_dkdv: one block per key tile, after flash_bwd_dq (it reads
 //     D); it walks the query tiles: dV += round(P)^T . dO and
 //     dK += round(dS * scale)^T . Q.
-// The TPU kernel takes the softmax-VJP row term as rowsum(dP * P); with P
-// normalised that equals dO . O, and D here is computed from the stored o
-// (rounded to the io dtype in bf16).  Rounding points are the TPU kernel's:
-// dO arrives in the io dtype, p and dS * scale are rounded before their
-// products, dq/dk/dv are rounded when written into the [B, S, 3H] dqkv
-// buffer (head h at column h*d of each of the q | k | v blocks) while their
-// bias grads are column sums of the fp32 values, written as per-tile
-// partials [B * ceil(S / tile), 3H] for fm_colsum.
+// The TPU kernels take the softmax-VJP row term as rowsum(dP * P)
+// (flash_attention.py:93); with P normalised that equals dO . O, which is
+// kept here (one pass over the keys instead of two), computed from the
+// stored o (rounded to the io dtype in bf16, as is p before p.v), so in
+// bf16 the two differ by about one bf16 rounding of D.  Rounding points
+// are the TPU kernels': dO arrives in the io dtype, p and dS * scale are
+// rounded before their products (:87, :94), dq/dk/dv are rounded when
+// written.  With ``colpart`` (the dbqkv sums #3 / #6 need) the column sums
+// of the fp32 dq | dk | dv over each tile's rows are written as partials
+// [B * ceil(S / tile), 3 * heads * d] for fm_colsum; #10 passes null.
 //
-// Bound at the lab shape: 8*B*S^2*H = 5.1e11 FLOP of the attention
-// backward's products (0.52 ms at the bf16 peak); this design executes
-// 1.4x that (the dQ kernel recomputes S and dP).  bf16 runs every product
-// on WMMA fragments; the dQ / dK / dV accumulators stay in registers, and
-// the scores, dP, p and dS tiles go through shared memory (about 105 KB at
-// d 96, two blocks per SM).  fp32 runs the same structure with CUDA-core
-// FMA loops and its accumulators in shared memory.
+// Bound at the lab shape: 10*B*S^2*H = 6.2e11 FLOP of the TPU kernel's
+// products (0.62 ms at the bf16 peak); this design executes 1.4x the
+// four backward products (the dQ kernel recomputes S and dP).  bf16 runs
+// every product on WMMA fragments; the dQ / dK / dV accumulators stay in
+// registers, and the scores, dP, p and dS tiles go through shared memory
+// (about 105 KB at d 96, two blocks per SM).  fp32 runs the same structure
+// with CUDA-core FMA loops and its accumulators in shared memory.
 
 template <typename T>
 struct Pad {
@@ -487,25 +533,25 @@ __device__ __forceinline__ fm_bf16 zero_of<fm_bf16>() { return __float2bfloat16_
 
 // TL rows x d columns of one head (row stride rs) -> dst[TL][LD], zero padded.
 template <typename T, int DP, int TL>
-__device__ __forceinline__ void load_rows(const T* __restrict__ src, size_t rs, int r0, int S,
+__device__ __forceinline__ void load_rows(const T* __restrict__ src, long long rs, int r0, int S,
                                           int d, T* dst) {
   constexpr int V = Pad<T>::V;
   constexpr int LD = DP + V;
-  if (d % V == 0) {
+  if (vec16(src, rs, d)) {
     constexpr int CPR = DP / V;
     for (int c = threadIdx.x; c < TL * CPR; c += FA_THREADS) {
       const int row = c / CPR;
       const int col = (c % CPR) * V;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (r0 + row < S && col < d)
-        v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + row) * rs + col);
+        v = *reinterpret_cast<const uint4*>(src + (r0 + row) * rs + col);
       *reinterpret_cast<uint4*>(dst + row * LD + col) = v;
     }
   } else {
     for (int i = threadIdx.x; i < TL * DP; i += FA_THREADS) {
       const int row = i / DP, col = i % DP;
       dst[row * LD + col] =
-          (r0 + row < S && col < d) ? src[(size_t)(r0 + row) * rs + col] : zero_of<T>();
+          (r0 + row < S && col < d) ? src[(r0 + row) * rs + col] : zero_of<T>();
     }
   }
 }
@@ -643,21 +689,20 @@ __device__ __forceinline__ void load_row_stats(const float* stats, const float* 
 
 __device__ __forceinline__ void load_key_bias(const int* mrow, int k0, int S, int TL,
                                               float* kbias) {
-  for (int i = threadIdx.x; i < TL; i += FA_THREADS) {
-    const int key = k0 + i;
-    kbias[i] = key < S ? (mrow[key] > 0 ? 0.0f : -1e9f) : -INFINITY;
-  }
+  for (int i = threadIdx.x; i < TL; i += FA_THREADS) kbias[i] = key_bias(mrow, k0 + i, S);
 }
 
-// Write rows [r0, r0 + TL) of an fp32 accumulator tile to dqkv (rounded)
-// and the column sums of its valid rows to colpart (fp32).
+// Write rows [r0, r0 + TL) of an fp32 accumulator tile to dst (row stride
+// rs, rounded) and, when colpart is not null, the column sums of its valid
+// rows to colpart (fp32).
 template <typename T, int DP, int TL>
-__device__ __forceinline__ void write_grad(const float* acc, int la, T* dst, size_t rs, int r0,
-                                           int S, int d, float* colpart) {
+__device__ __forceinline__ void write_grad(const float* acc, int la, T* dst, long long rs,
+                                           int r0, int S, int d, float* colpart) {
   for (int e = threadIdx.x; e < TL * d; e += FA_THREADS) {
     const int i = e / d, c = e % d;
-    if (r0 + i < S) dst[(size_t)(r0 + i) * rs + c] = fm::from_f32<T>(acc[i * la + c]);
+    if (r0 + i < S) dst[(r0 + i) * rs + c] = fm::from_f32<T>(acc[i * la + c]);
   }
+  if (!colpart) return;
   for (int c = threadIdx.x; c < d; c += FA_THREADS) {
     float s = 0.0f;
     for (int i = 0; i < TL && r0 + i < S; ++i) s += acc[i * la + c];
@@ -667,11 +712,10 @@ __device__ __forceinline__ void write_grad(const float* acc, int la, T* dst, siz
 
 template <typename T, int DP, int TL>
 __global__ void __launch_bounds__(FA_THREADS, sizeof(T) == 2 ? 2 : 1)
-flash_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
-                    const T* __restrict__ dout, const int* __restrict__ mask,
-                    const float* __restrict__ stats, float* __restrict__ Dg,
-                    T* __restrict__ dqkv, float* __restrict__ colpart, int S, int nh, int d,
-                    float scale) {
+flash_bwd_dq_kernel(Mat<const T> Q, Mat<const T> K, Mat<const T> V, Mat<const T> O,
+                    Mat<const T> dO, Mask mask, const float* __restrict__ stats,
+                    float* __restrict__ Dg, Mat<T> dQg, float* __restrict__ colpart, int S,
+                    int nh, int d, float scale) {
   using L = BwdSmem<T, DP, TL>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw + L::T0);
@@ -690,25 +734,23 @@ flash_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
   const int q0 = blockIdx.x * TL;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int H = nh * d;
-  const size_t rs = 3 * (size_t)H;
-  const T* qb = qkv + (size_t)b * S * rs + (size_t)h * d;
-  const T* kb = qb + H;
-  const T* vb = qb + 2 * H;
-  const size_t ho = (size_t)b * S * H + (size_t)h * d;  // head offset in [B, S, H]
-  const int* mrow = mask + (size_t)b * S;
+  const T* qb = Q.head(b, h);
+  const T* kb = K.head(b, h);
+  const T* vb = V.head(b, h);
+  const T* ob = O.head(b, h);
+  const T* gb = dO.head(b, h);
+  const int* mrow = mask.row(b);
   const size_t srow = ((size_t)b * nh + h) * S;  // row offset into stats / D
 
-  load_rows<T, DP, TL>(qb, rs, q0, S, d, Qs);
-  load_rows<T, DP, TL>(dout + ho, H, q0, S, d, dOs);
+  load_rows<T, DP, TL>(qb, Q.sr, q0, S, d, Qs);
+  load_rows<T, DP, TL>(gb, dO.sr, q0, S, d, dOs);
   load_row_stats(stats + srow * 2, nullptr, q0, S, TL, m_s, l_s, D_s);
   // D_i = rowsum(dO * O), one warp per row.
   for (int i = threadIdx.x / 32; i < TL; i += FA_THREADS / 32) {
     float s = 0.0f;
     if (q0 + i < S)
       for (int c = threadIdx.x % 32; c < d; c += 32)
-        s += fm::to_f32(dout[ho + (size_t)(q0 + i) * H + c]) *
-             fm::to_f32(o[ho + (size_t)(q0 + i) * H + c]);
+        s += fm::to_f32(gb[(q0 + i) * dO.sr + c]) * fm::to_f32(ob[(q0 + i) * O.sr + c]);
     s = fm::warp_sum(s);
     if (threadIdx.x % 32 == 0) {
       D_s[i] = s;
@@ -719,8 +761,8 @@ flash_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
   dQ.zero();
   for (int k0 = 0; k0 < S; k0 += TL) {
     __syncthreads();  // previous tile fully consumed; D_s, Qs, dOs ready
-    load_rows<T, DP, TL>(kb, rs, k0, S, d, Ks);
-    load_rows<T, DP, TL>(vb, rs, k0, S, d, Vs);
+    load_rows<T, DP, TL>(kb, K.sr, k0, S, d, Ks);
+    load_rows<T, DP, TL>(vb, V.sr, k0, S, d, Vs);
     load_key_bias(mrow, k0, S, TL, kbias);
     __syncthreads();
     tile_mm<TL, TL, false, true>(Qs, L::LD, Ks, L::LD, DP, S32, L::LS, false);
@@ -738,17 +780,19 @@ flash_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
   __syncthreads();
   const float* dq = dQ.tile(S32);
   __syncthreads();
-  const int ntiles = gridDim.x;
-  write_grad<T, DP, TL>(dq, L::LA, dqkv + (size_t)b * S * rs + (size_t)h * d, rs, q0, S, d,
-                        colpart + ((size_t)b * ntiles + blockIdx.x) * rs + (size_t)h * d);
+  const long long cps = 3LL * nh * d;  // colpart row: dq | dk | dv, head h at h*d
+  write_grad<T, DP, TL>(dq, L::LA, dQg.head(b, h), dQg.sr, q0, S, d,
+                        colpart ? colpart + ((size_t)b * gridDim.x + blockIdx.x) * cps +
+                                      (size_t)h * d
+                                : nullptr);
 }
 
 template <typename T, int DP, int TL>
 __global__ void __launch_bounds__(FA_THREADS, sizeof(T) == 2 ? 2 : 1)
-flash_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                      const int* __restrict__ mask, const float* __restrict__ stats,
-                      const float* __restrict__ Dg, T* __restrict__ dqkv,
-                      float* __restrict__ colpart, int S, int nh, int d, float scale) {
+flash_bwd_dkdv_kernel(Mat<const T> Q, Mat<const T> K, Mat<const T> V, Mat<const T> dO,
+                      Mask mask, const float* __restrict__ stats, const float* __restrict__ Dg,
+                      Mat<T> dKg, Mat<T> dVg, float* __restrict__ colpart, int S, int nh, int d,
+                      float scale) {
   using L = BwdSmem<T, DP, TL>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw + L::T0);
@@ -769,24 +813,20 @@ flash_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   const int k0 = blockIdx.x * TL;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int H = nh * d;
-  const size_t rs = 3 * (size_t)H;
-  const T* qb = qkv + (size_t)b * S * rs + (size_t)h * d;
-  const T* kb = qb + H;
-  const T* vb = qb + 2 * H;
-  const size_t ho = (size_t)b * S * H + (size_t)h * d;
+  const T* qb = Q.head(b, h);
+  const T* gb = dO.head(b, h);
   const size_t srow = ((size_t)b * nh + h) * S;
 
-  load_rows<T, DP, TL>(kb, rs, k0, S, d, Ks);
-  load_rows<T, DP, TL>(vb, rs, k0, S, d, Vs);
-  load_key_bias(mask + (size_t)b * S, k0, S, TL, kbias);
+  load_rows<T, DP, TL>(K.head(b, h), K.sr, k0, S, d, Ks);
+  load_rows<T, DP, TL>(V.head(b, h), V.sr, k0, S, d, Vs);
+  load_key_bias(mask.row(b), k0, S, TL, kbias);
   dK.zero();
   dV.zero();
 
   for (int q0 = 0; q0 < S; q0 += TL) {
     __syncthreads();  // previous tile fully consumed
-    load_rows<T, DP, TL>(qb, rs, q0, S, d, Qs);
-    load_rows<T, DP, TL>(dout + ho, H, q0, S, d, dOs);
+    load_rows<T, DP, TL>(qb, Q.sr, q0, S, d, Qs);
+    load_rows<T, DP, TL>(gb, dO.sr, q0, S, d, dOs);
     load_row_stats(stats + srow * 2, Dg + srow, q0, S, TL, m_s, l_s, D_s);
     __syncthreads();
     tile_mm<TL, TL, false, true>(Qs, L::LD, Ks, L::LD, DP, S32, L::LS, false);
@@ -804,22 +844,31 @@ flash_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
     dK.template mma<true>(dSio, L::LP, Qs, L::LD, TL);
   }
   __syncthreads();
-  const int ntiles = gridDim.x;
-  T* gb = dqkv + (size_t)b * S * rs + (size_t)h * d;
-  float* cp = colpart + ((size_t)b * ntiles + blockIdx.x) * rs + (size_t)h * d;
+  const long long cps = 3LL * nh * d;
+  const long long H = (long long)nh * d;
+  float* cp = colpart ? colpart + ((size_t)b * gridDim.x + blockIdx.x) * cps + (size_t)h * d
+                      : nullptr;
   const float* dk = dK.tile(S32);
   __syncthreads();
-  write_grad<T, DP, TL>(dk, L::LA, gb + H, rs, k0, S, d, cp + H);
+  write_grad<T, DP, TL>(dk, L::LA, dKg.head(b, h), dKg.sr, k0, S, d, cp ? cp + H : nullptr);
   __syncthreads();
   const float* dv = dV.tile(S32);
   __syncthreads();
-  write_grad<T, DP, TL>(dv, L::LA, gb + 2 * H, rs, k0, S, d, cp + 2 * H);
+  write_grad<T, DP, TL>(dv, L::LA, dVg.head(b, h), dVg.sr, k0, S, d, cp ? cp + 2 * H : nullptr);
 }
 
+struct BwdArgs {
+  Op q, k, v, o, dout, dq, dk, dv;
+  Mask mask;
+  const float* stats;
+  float* D;
+  float* colpart;
+  int B, S, nh, d;
+  float scale;
+};
+
 template <typename T, int DP>
-cudaError_t launch_bwd_dp(const void* qkv, const void* o, const void* dout, const int* mask,
-                          const float* stats, float* D, void* dqkv, float* colpart, int B,
-                          int S, int nh, int d, float scale, cudaStream_t s) {
+cudaError_t launch_bwd_dp(const BwdArgs& a, cudaStream_t s) {
   constexpr int TL = sizeof(T) == 2 ? 64 : 32;
   constexpr int bytes = BwdSmem<T, DP, TL>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DP, TL>,
@@ -828,70 +877,80 @@ cudaError_t launch_bwd_dp(const void* qkv, const void* o, const void* dout, cons
   e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, DP, TL>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((S + TL - 1) / TL, nh, B);
+  const dim3 grid((a.S + TL - 1) / TL, a.nh, a.B);
   flash_bwd_dq_kernel<T, DP, TL><<<grid, FA_THREADS, bytes, s>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(o), static_cast<const T*>(dout), mask,
-      stats, D, static_cast<T*>(dqkv), colpart, S, nh, d, scale);
+      as_mat<const T>(a.q), as_mat<const T>(a.k), as_mat<const T>(a.v), as_mat<const T>(a.o),
+      as_mat<const T>(a.dout), a.mask, a.stats, a.D, as_mat<T>(a.dq), a.colpart, a.S, a.nh,
+      a.d, a.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   flash_bwd_dkdv_kernel<T, DP, TL><<<grid, FA_THREADS, bytes, s>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout), mask, stats, D,
-      static_cast<T*>(dqkv), colpart, S, nh, d, scale);
+      as_mat<const T>(a.q), as_mat<const T>(a.k), as_mat<const T>(a.v),
+      as_mat<const T>(a.dout), a.mask, a.stats, a.D, as_mat<T>(a.dk), as_mat<T>(a.dv),
+      a.colpart, a.S, a.nh, a.d, a.scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_bwd(const void* qkv, const void* o, const void* dout, const int* mask,
-                       const float* stats, float* D, void* dqkv, float* colpart, int B, int S,
-                       int nh, int d, float scale, cudaStream_t s) {
-  if (d <= 32)
-    return launch_bwd_dp<T, 32>(qkv, o, dout, mask, stats, D, dqkv, colpart, B, S, nh, d, scale, s);
-  if (d <= 64)
-    return launch_bwd_dp<T, 64>(qkv, o, dout, mask, stats, D, dqkv, colpart, B, S, nh, d, scale, s);
-  if (d <= 96)
-    return launch_bwd_dp<T, 96>(qkv, o, dout, mask, stats, D, dqkv, colpart, B, S, nh, d, scale, s);
-  if (d <= 128)
-    return launch_bwd_dp<T, 128>(qkv, o, dout, mask, stats, D, dqkv, colpart, B, S, nh, d, scale,
-                                 s);
+cudaError_t launch_bwd_t(const BwdArgs& a, cudaStream_t s) {
+  switch (head_pad(a.d)) {
+    case 32: return launch_bwd_dp<T, 32>(a, s);
+    case 64: return launch_bwd_dp<T, 64>(a, s);
+    case 96: return launch_bwd_dp<T, 96>(a, s);
+    case 128: return launch_bwd_dp<T, 128>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_bwd(const BwdArgs& a, int dtype, cudaStream_t s) {
+  if (dtype == FM_F32) return launch_bwd_t<float>(a, s);
+  if (dtype == FM_BF16) return launch_bwd_t<fm_bf16>(a, s);
   return cudaErrorInvalidValue;
 }
+
+Op strided(const void* p, const long long* s) { return Op{p, s[0], s[1], s[2]}; }
 
 }  // namespace
 
 extern "C" {
 
-// qkv [B, S, 3H] (q | k | v column blocks, head h at offset h*d inside each),
-// mask [B, S] int32 (1 = attend), out [B, S, H]; d = H / nh <= 128.  stats
-// [B, nh, S, 2] fp32 receives each row's softmax max and sum (the backward's
-// residual) when not null.
-int fm_flash_attn_fwd(const void* qkv, const void* mask, void* out, void* stats, int B, int S,
-                      int nh, int d, float scale, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* m = static_cast<const int*>(mask);
-  float* st = static_cast<float*>(stats);
-  if (dtype == FM_F32) return launch_f32(qkv, m, out, st, B, S, nh, d, scale, s);
-  if (dtype == FM_BF16) return launch_tc(qkv, m, out, st, B, S, nh, d, scale, s);
-  return cudaErrorInvalidValue;
+// Strided flash attention forward: Pallas #9, and the attention core of #1 /
+// #5, whose packed [B, S, 3H] buffer the wrapper passes as head views.
+// q, k, v, o: [B, nh, S, d] operands, each with its (batch, head, row)
+// strides in elements at qs / ks / vs / os (three int64 values each; last
+// dim contiguous); mask [B, S] int32 with batch stride mask_sb and key
+// stride 1, or null (every key attends); d <= 128.  stats [B, nh, S, 2]
+// fp32 (contiguous) receives each row's softmax max and sum when not null.
+int fm_flash_attention_fwd(const void* q, const long long* qs, const void* k,
+                           const long long* ks, const void* v, const long long* vs,
+                           const void* mask, long long mask_sb, void* o, const long long* os,
+                           void* stats, int B, int S, int nh, int d, float scale, int dtype,
+                           void* stream) {
+  const FwdArgs a{strided(q, qs), strided(k, ks), strided(v, vs), strided(o, os),
+                  Mask{static_cast<const int*>(mask), mask_sb}, static_cast<float*>(stats),
+                  B, S, nh, d, scale};
+  return launch_fwd(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
-// Backward of the attention core: qkv [B, S, 3H] and o [B, S, H] from the
-// forward, dout [B, S, H] (dO, io dtype), mask [B, S] int32, stats [B, nh,
-// S, 2] from fm_flash_attn_fwd.  Writes D [B, nh, S] fp32 (scratch), dqkv
-// [B, S, 3H] (io dtype) and colpart [B * ceil(S / tile), 3H] fp32 column
-// partials of the fp32 dq | dk | dv, tile = 64 (bf16) or 32 (fp32).
-int fm_flash_attn_bwd(const void* qkv, const void* o, const void* dout, const void* mask,
-                      const void* stats, void* D, void* dqkv, void* colpart, int B, int S,
-                      int nh, int d, float scale, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* m = static_cast<const int*>(mask);
-  const float* st = static_cast<const float*>(stats);
-  float* dd = static_cast<float*>(D);
-  float* cp = static_cast<float*>(colpart);
-  if (dtype == FM_F32)
-    return launch_bwd<float>(qkv, o, dout, m, st, dd, dqkv, cp, B, S, nh, d, scale, s);
-  if (dtype == FM_BF16)
-    return launch_bwd<fm_bf16>(qkv, o, dout, m, st, dd, dqkv, cp, B, S, nh, d, scale, s);
-  return cudaErrorInvalidValue;
+// Strided flash attention backward (Pallas #10, and the attention core of
+// #3 / #6 with colpart), two launches: q, k, v, o,
+// dout (dO, io dtype) as in fm_flash_attention_fwd, stats from it; D
+// [B, nh, S] fp32 scratch; writes dq, dk, dv (strided, io dtype) and, when
+// colpart is not null, the column partials [B * ceil(S / tile), 3 * nh * d]
+// fp32 of the fp32 dq | dk | dv, tile = 64 (bf16) or 32 (fp32).
+int fm_flash_attention_bwd(const void* q, const long long* qs, const void* k,
+                           const long long* ks, const void* v, const long long* vs,
+                           const void* o, const long long* os, const void* dout,
+                           const long long* dos, const void* mask, long long mask_sb,
+                           const void* stats, void* D, void* dq, const long long* dqs, void* dk,
+                           const long long* dks, void* dv, const long long* dvs, void* colpart,
+                           int B, int S, int nh, int d, float scale, int dtype, void* stream) {
+  const BwdArgs a{strided(q, qs), strided(k, ks), strided(v, vs), strided(o, os),
+                  strided(dout, dos), strided(dq, dqs), strided(dk, dks), strided(dv, dvs),
+                  Mask{static_cast<const int*>(mask), mask_sb},
+                  static_cast<const float*>(stats), static_cast<float*>(D),
+                  static_cast<float*>(colpart), B, S, nh, d, scale};
+  return launch_bwd(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

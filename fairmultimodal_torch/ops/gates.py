@@ -11,8 +11,10 @@ runs the LayerNorm-fused kernels (#1-#4) or, with ``fold_ln=False`` /
 ``FMTPU_FOLD_LN=0``, the unfolded ones (#5-#8); ``TorchEncoderLayer``'s
 ``attn_kernel`` / ``ffn_kernel`` fields can force a wrapper (True) or the
 plain path (False) past the gates, as the JAX layer's fields do.  Where the
-gate is off at 256 <= S <= 1024 the JAX package would run its flash kernel
-(#9), the one kernel on that route still to port (``ops/attention.py``).
+megakernel is not taken -- ``attn_kernel=False``, ``fused_qkv=True``,
+``BertSelfAttention`` in training mode -- ``ops/attention.py`` applies
+:func:`can_use_flash_attention` (``attention.py:54-70``) and runs the flash
+kernels (#9 / #10) on the shapes it passes.
 
 There is no kill switch.  On a CUDA tensor that passes a gate the wrapper
 launches its kernel or raises; on a CPU tensor the wrappers run their plain
@@ -25,7 +27,8 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "can_use_fused_attention_block", "can_use_fused_ffn"]
+__all__ = ["resolve_device", "can_use_fused_attention_block", "can_use_fused_ffn",
+           "can_use_flash_attention"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -59,3 +62,13 @@ def can_use_fused_ffn(x: torch.Tensor, hdim: int, fdim: int) -> bool:
     if not x.is_cuda or x.dtype not in _KERNEL_DTYPES:
         return False
     return hdim % 128 == 0 and fdim % 128 == 0
+
+
+def can_use_flash_attention(q: torch.Tensor) -> bool:
+    """Flash-attention kernel gate (``attention.py:54-70``): CUDA tensor,
+    fp32/bf16, q [B, heads, S, d] with S % 16 == 0, d in {32, 64, 96, 128}
+    and 256 <= S <= 1024."""
+    if not q.is_cuda or q.dtype not in _KERNEL_DTYPES:
+        return False
+    _, _, s, d = q.shape
+    return s % 16 == 0 and d in (32, 64, 96, 128) and 256 <= s <= 1024
