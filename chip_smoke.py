@@ -6,7 +6,9 @@
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
 1. card: the name and power limit from ``nvidia-smi``;
-2. build: every kernel compiled from ``fairmultimodal_torch/ops/csrc``;
+2. build: every kernel compiled from ``fairmultimodal_torch/ops/csrc``, and
+   what ``-Xptxas -v`` reports (registers, stack, spills) for the wgmma "nt"
+   GEMM and the mma.sync flash forward;
 3. kernels: each ported kernel's wrapper against its plain PyTorch version
    on the card, at the shapes the serving path gives it, in fp32 (max abs
    error <= 1e-4: only the summation order differs) and in bf16 (max abs
@@ -62,7 +64,13 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    version; limits at the phase.  Timed in bf16: each forward and backward
    launch, plain versions, one library composition of each (F.linear x3 +
    SDPA + F.linear; F.linear + relu + dropout + F.linear; their autograd
-   backwards), beside the bound;
+   backwards), beside the bound.  Then each bf16 "nt" GEMM stage of the path
+   alone (QKV, Wo into bf16 and fp32, W1 with relu + inner dropout + aux, W2
+   at K 2048, the text encoder's S-512 QKV; errors only: the text W1 with
+   gelu and a ragged M 600 / N 200 / K 96) against the same epilogue in fp32,
+   timed beside F.linear with the TFLOP/s of each, and the W1 launch with a
+   bias of +8 (no pre-activation near zero) zeroing exactly the elements the
+   plain Philox mask drops;
 5b. unfolded slice: an fp32 train step unfolded on the card against the
    folded one on the card (loss 1e-6 relative, grads 1e-4 of max-abs) and
    against the CPU plain path (phase 5's limits); ``FAMETrainer.fit`` for 1
@@ -753,15 +761,166 @@ def unfolded_kernel_phase(fab, ffn, addnorm):
     return rows
 
 
+# -- phase 3c, continued: each bf16 "nt" GEMM stage of the path beside F.linear -------------
+#
+# One launch of ``_build.gemm`` (layout "nt": csrc/gemm.cu::gemm_nt_wgmma_kernel)
+# at each shape the main path gives it, held against the same product and
+# epilogue computed in fp32 on the card (TF32 off) and rounded once, and
+# timed beside one ``F.linear`` on the same operands (cuBLAS; a yardstick the
+# port never calls), each with its achieved TFLOP/s.  Limits, relative to the
+# output's largest entry: bf16 out NT_BF16_MAX (one bf16 ulp: both round an
+# fp32 sum of the same products, taken in another order) and mean
+# TRAIN_BF16_MEAN; fp32 out NT_F32_TOL (summation order only).  Then the
+# Philox mapping element for element: W1 with relu and inner dropout, its bias
+# large enough that no pre-activation is near zero (relu zeroes nothing),
+# must zero exactly the elements that ``utils.rng.dropout_mask`` drops.
+
+NT_BF16_MAX, NT_F32_TOL = 2.0 ** -7, 1e-5
+NT_SEED = 21
+R_LAB, R_TEXT = 256 * 560, 32 * 512
+# name, M, N, K, activation, inner-dropout rate, aux, fp32 out, timed
+NT_STAGES = (
+    ("qkv lab", R_LAB, 2304, 768, "none", 0.0, False, False, True),
+    ("wo lab", R_LAB, 768, 768, "none", 0.0, False, False, True),
+    ("wo lab fp32 out", R_LAB, 768, 768, "none", 0.0, False, True, True),
+    ("w1 lab relu dropout aux", R_LAB, 2048, 768, "relu", 0.1, True, False, True),
+    ("w2 lab", R_LAB, 768, 2048, "none", 0.0, False, False, True),
+    ("qkv text S512", R_TEXT, 2304, 768, "none", 0.0, False, False, True),
+    ("w1 text gelu aux", R_TEXT, 3072, 768, "gelu", 0.0, True, False, False),
+    ("ragged M600 N200 K96", 600, 200, 96, "relu", 0.1, True, False, False),
+)
+
+
+def _nt_plain(a, w, bias, act, drop, out_dtype):
+    """The "nt" GEMM's epilogue in fp32 on the same inputs: (out, aux)."""
+    from fairmultimodal_torch.utils import rng
+
+    pre = torch.addmm(bias, a.float(), w.float().t())
+    v = torch.relu(pre) if act == "relu" else \
+        torch.nn.functional.gelu(pre) if act == "gelu" else pre
+    return rng.apply_dropout(v, drop).to(out_dtype), pre.to(a.dtype)
+
+
+def _rel_errors(got, want):
+    err = (got.float() - want.float()).abs()
+    scale = max(want.float().abs().max().item(), 1e-30)
+    return {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(), "max_abs": scale}
+
+
+def nt_gemm_check(_build, gen, name, M, N, K, act, rate, with_aux, out_f32, timed,
+                  bias_shift=0.0):
+    from fairmultimodal_torch.utils.rng import Dropout
+
+    bf = torch.bfloat16
+    a = torch.randn(M, K, generator=gen, device="cuda").to(bf)
+    w = (torch.randn(N, K, generator=gen, device="cuda") * K ** -0.5).to(bf)
+    bias = 0.02 * torch.randn(N, generator=gen, device="cuda") + bias_shift
+    drop = Dropout.make(NT_SEED, 0, rate)
+    out = torch.empty(M, N, device="cuda", dtype=torch.float32 if out_f32 else bf)
+    aux = torch.empty(M, N, device="cuda", dtype=bf) if with_aux else None
+    run = lambda: _build.gemm(a, w, out, bias=bias, activation=act, dropout=drop,  # noqa: E731
+                              aux=aux)
+    run()
+    torch.cuda.synchronize()
+    want, want_aux = _nt_plain(a, w, bias, act, drop, out.dtype)
+    row = {"stage": name, "M": M, "N": N, "K": K, "activation": act, "dropout": rate,
+           "out": "float32" if out_f32 else "bfloat16", "errors": _rel_errors(out, want)}
+    checks = [("out", row["errors"])]
+    if with_aux:
+        row["aux_errors"] = _rel_errors(aux, want_aux)
+        checks.append(("aux", row["aux_errors"]))
+    for what, e in checks:
+        if not torch.isfinite(out).all() or (
+                e["max_abs_err"] > NT_F32_TOL * e["max_abs"] if out_f32 and what == "out" else
+                e["max_abs_err"] > NT_BF16_MAX * e["max_abs"]
+                or e["mean_abs_err"] > TRAIN_BF16_MEAN * e["max_abs"]):
+            raise AssertionError(f"nt gemm {name}: {what} {e}")
+    if bias_shift:
+        kept = out != 0
+        row["zeroed_as_plain"] = bool(torch.equal(kept, want != 0))
+        row["kept_fraction"] = kept.float().mean().item()
+        row["min_pre_activation"] = want_aux.float().min().item()
+        if not row["min_pre_activation"] > 0 or not row["zeroed_as_plain"]:
+            raise AssertionError(f"nt gemm {name}: dropout mask differs from the plain one {row}")
+    del want, want_aux
+    if timed:
+        flops = 2 * M * N * K
+        bias_io = bias.to(bf)
+        row["ms"] = time_ms(run)
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["library_ms"] = time_ms(lambda: torch.nn.functional.linear(a, w, bias_io))
+        row["library_tflops"] = flops / row["library_ms"] / 1e9
+        nbytes = (M * K + N * K) * 2 + M * N * out.element_size() * (2 if with_aux else 1)
+        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+    del a, w, out, aux
+    torch.cuda.empty_cache()
+    return row
+
+
+def nt_gemm_phase(_build):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for stage in NT_STAGES:
+        row = nt_gemm_check(_build, gen, *stage)
+        log(f"[nt-gemm] {json.dumps(row)}")
+        rows.append(row)
+    # The Philox mapping, element for element: no pre-activation near zero.
+    row = nt_gemm_check(_build, gen, "w1 lab relu dropout, bias +8", R_LAB, 2048, 768, "relu", 0.1,
+                        True, False, False, bias_shift=8.0)
+    log(f"[nt-gemm] {json.dumps(row)}")
+    rows.append(row)
+    return rows
+
+
+def ptxas_report(_build, names=("gemm_nt_wgmma_kernel", "flash_attn_fwd_mma_kernel")):
+    """What ``nvcc -Xptxas -v`` said of each instantiation of ``names``
+    (the build's logs): registers, stack, spills, and any warning about
+    them."""
+    import re
+
+    report = {}
+    for lib in _build.build().values():
+        current = None
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?",
+                          line)
+            if m:
+                current = m.group(1) if any(n in m.group(1) for n in names) else None
+                if current:
+                    report.setdefault(current, {})
+                continue
+            if "warning" in line and any(n in line for n in names + ("setmaxnreg",)):
+                report.setdefault("warnings", []).append(line.strip())
+            if current is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                report[current].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                       spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report[current]["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                report[current]["static_smem"] = int(m.group(1)) if m else 0
+    if not any(k != "warnings" for k in report):
+        raise AssertionError("ptxas report: no entry for the redesigned kernels in the build logs")
+    return report
+
+
 # -- phase 3d: the flash kernels (Pallas #9 / #10) against their plain versions -------------
 #
 # Limits, relative to each output's largest entry: fp32 FP32_FLASH_TOL for o,
 # dq, dk, dv (only the summation order differs: the kernel's online softmax
 # and tiled sums against the plain version's whole-row ones).  bf16 forward
-# FLASH_BF16_FWD (max) / TRAIN_BF16_MEAN (mean): both round the normalised p
-# to bf16 before p.v and o to bf16 at the end, so a p at a rounding boundary
-# or o itself can land one bf16 ulp (2^-8 relative) apart; four ulps of
-# margin.  bf16 grads TRAIN_BF16_MAX / TRAIN_BF16_MEAN, phase 3b's: the
+# FLASH_BF16_FWD (max) / TRAIN_BF16_MEAN (mean): the plain version (as the
+# TPU kernel) rounds the normalised p to bf16 before p.v, the kernel the
+# unnormalised exp(s - m_running) and divides o by the fp32 row sum once at
+# the end; both round o to bf16.  The two differ by at most one bf16 rounding
+# of each p (2^-8 relative) and of o; four ulps of margin
+# (tests/test_torch_flash_forward_contract.py holds the kernel's order
+# against the Pallas kernel on the CPU).  bf16 grads TRAIN_BF16_MAX /
+# TRAIN_BF16_MEAN, phase 3b's: the
 # kernel takes the softmax-VJP row term as rowsum(dO * O) from the stored
 # bf16 o, the plain version (as the TPU kernel) rowsum(dP * P); equal for a
 # normalised P, in bf16 they differ by about one rounding of the row term,
@@ -1568,10 +1727,12 @@ def main() -> int:
     _build.build()
     _build.kernels()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] ptxas -v of the redesigned kernels: {json.dumps(ptxas_report(_build))}")
 
     rows = kernel_phase(fab, ffn)
     train_rows, keep = train_kernel_phase(fab, ffn, _build)
     unfolded_rows = unfolded_kernel_phase(fab, ffn, addnorm)
+    nt_gemm_phase(_build)
     flash_rows, flash_layer = flash_kernel_phase(flash)
     launches, slice_info = slice_phase(fab, ffn)
     log(f"[slice] {json.dumps(slice_info)}")

@@ -30,31 +30,49 @@
 // products 10*B*S*S*H = 6.2e11 (0.62 ms).
 //
 // Forward design.  The TPU kernel holds the whole [S, S] score tile in VMEM;
-// an SM has 227 KB, so both kernels here tile the keys (64 at a time).  One
-// 256-thread block owns 64 query rows of one (batch, head).  The head dim is
-// padded with zeros to DP, a multiple of 32 (d 96 stays 96): the TPU
-// kernel's 96 -> 128 pad was Mosaic's 128-lane rule and buys nothing here.
-//   - bf16 (any d <= 128): tensor cores through WMMA, in two passes over
-//     the keys.  Pass 1 computes the scores and the exact row max and sum;
-//     pass 2 recomputes the scores, forms the NORMALISED p, rounds it to
-//     bf16 and accumulates p.v in fp32 WMMA fragments -- the TPU kernel's
-//     rounding exactly (flash_attention.py:62), and no running rescale of
-//     the output fragments.  The price is a second q.k^T (1.5x the FLOPs).
-//   - fp32: CUDA cores, one pass with an online softmax (running max and
-//     sum); each thread owns 4 rows x 4 keys of a score tile and 4 rows x
-//     DP/16 output columns.  fp32 rounds nothing, so normalising once at
-//     the end differs from the TPU kernel only in summation order.
-// Each row's max and sum are written to stats [B, heads, S, 2] when the
-// backward will need them.
+// an SM has 227 KB, so both kernels here tile the keys (64 at a time) with
+// an online softmax (running row max and sum, the output rescaled when the
+// max grows).  The head dim is padded with zeros to DP, a multiple of 32 (d
+// 96 stays 96): the TPU kernel's 96 -> 128 pad was Mosaic's 128-lane rule and
+// buys nothing here.
+//   - bf16 (any d <= 128): what bounds it is the tensor cores' issue rate,
+//     so the design keeps everything between the products in registers
+//     (FlashAttention-2 on mma.sync m16n8k16).  A block owns 128 query rows
+//     of one (batch, head), 4 warps of 32 rows: two m16 row tiles per warp
+//     share every k / v fragment it loads (half the ldmatrix traffic per
+//     product) and give it two independent chains of products.  k / v tiles
+//     and their key bias come by 16-byte cp.async into a two-stage ring, the
+//     next tile's copy running under the current tile's products; q
+//     fragments are read (ldmatrix) from the q tile; scores are fp32 C
+//     fragments, scaled, biased and soft-maxed in registers with quad
+//     shuffles, and become the bf16 A fragments of p.v directly (v read with
+//     ldmatrix.trans).  One pass: the products are the TPU kernel's.
+//     ROUNDING (the one change of contract): the TPU kernel rounds the
+//     NORMALISED p to bf16 before p.v (flash_attention.py:62); this kernel
+//     rounds the unnormalised exp(s - m_running), sums the fp32 values, and
+//     divides o by that sum once at the end.  The two differ by at most one
+//     bf16 rounding of each p, inside the bf16 forward limits that
+//     chip_smoke.py phase 3d holds it to (FLASH_BF16_FWD = 2^-6 of max-abs,
+//     mean TRAIN_BF16_MEAN = 2^-10); tests/test_torch_flash_forward_contract
+//     .py emulates this order on the CPU against the Pallas kernel.
+//   - fp32: CUDA cores, one pass with the same online softmax; each thread
+//     owns 4 rows x 4 keys of a score tile and 4 rows x DP/16 output
+//     columns.  fp32 rounds nothing, so normalising once at the end differs
+//     from the TPU kernel only in summation order.
+// Each row's max m (of s * scale + bias, natural-log units) and sum l (of
+// exp(s * scale + bias - m), fp32) are written to stats [B, heads, S, 2]
+// when the backward will need them; it recomputes p from them.
 //
 // Masking copies the TPU kernels exactly: -1e9 is added to the scaled score,
 // so a fully masked row (the pad rows of an encode batch) gets a finite,
 // uniform softmax instead of NaN.  Keys past S (the ragged last tile) get
 // -inf and weigh exactly zero.
 //
-// What it leaves on the table: wgmma, K/V double buffering, keeping p in
-// registers (mma.sync fragments) instead of staging scores through shared
-// memory.
+// What the bf16 forward still leaves out: wgmma (the operands are strided
+// head views whose 192-byte rows at d 96 exceed a 128-byte swizzle atom, so
+// TMA boxes would need a split head dim), a warp-specialised producer, and
+// a row tiling that fits S 560 (128-row blocks compute 640 rows, 14% of them
+// padding); at d 96 it uses all 255 registers and spills 24 bytes.
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
@@ -67,7 +85,7 @@ namespace {
 
 constexpr int FA_BM = 64;       // query rows per block
 constexpr int FA_BN = 64;       // keys per tile
-constexpr int FA_THREADS = 256;
+constexpr int FA_THREADS = 256;  // the fp32 forward and the backward kernels
 constexpr int TSTR = FA_BM + 1;  // transposed q/k tile row stride (bank-conflict pad)
 constexpr int PSTR = FA_BN + 1;  // p tile row stride
 
@@ -233,42 +251,83 @@ flash_attn_fwd_f32_kernel(Mat<const float> Q, Mat<const float> K, Mat<const floa
   }
 }
 
-// ---- bf16 tensor-core kernel (WMMA, two passes) --------------------------------
+// ---- bf16 tensor-core kernel (mma.sync m16n8k16, one pass, register-resident) ------
 
-constexpr int SLD = FA_BN + 4;  // fp32 score tile pitch
-constexpr int PLD = FA_BN + 8;  // bf16 p tile pitch
-
-constexpr int round128(int bytes) { return (bytes + 127) / 128 * 128; }
+constexpr int FWD_BM = 128;  // query rows per block
+constexpr int FWD_WARPS = 4;  // each owns 32 rows: two m16 row tiles sharing every k / v fragment
+constexpr int FWD_THREADS = 32 * FWD_WARPS;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DP>
-struct TcSmem {  // byte offsets of the shared-memory regions
-  static constexpr int LD = DP + 8;  // bf16 q/k/v tile pitch
-  static constexpr int Q = 0;
-  static constexpr int K = Q + round128(FA_BM * LD * 2);
-  static constexpr int V = K + round128(FA_BN * LD * 2);
-  static constexpr int S = V + round128(FA_BN * LD * 2);
-  static constexpr int P = S + round128(FA_BM * SLD * 4);
-  static constexpr int BIAS = P + round128(FA_BM * PLD * 2);
-  static constexpr int BYTES = BIAS + round128(FA_BN * 4);
+struct FwdSmem {  // byte offsets of the shared-memory regions
+  // bf16 tile pitch: DP + 8 puts the 8 rows an ldmatrix phase reads on 8
+  // distinct 16-byte bank groups for every DP in {32, 64, 96, 128}.
+  static constexpr int LD = DP + 8;
+  static constexpr int KV_TILE = FA_BN * LD * 2;    // one [64][LD] bf16 k or v tile
+  static constexpr int Q = 0;                       // the q tile, then the output staging tile
+  static constexpr int KV = FWD_BM * LD * 2;        // ring of two stages, each a k and a v tile
+  static constexpr int BIAS = KV + 4 * KV_TILE;     // each stage's [64] fp32 key bias
+  static constexpr int BYTES = BIAS + 2 * FA_BN * 4;
 };
 
-// 64 rows x d columns of one head (row stride rs) -> dst[64][DP + 8], zero padded.
-template <int DP>
-__device__ __forceinline__ void load_tile_bf16(const fm_bf16* __restrict__ src, long long rs,
-                                               int r0, int S, int d, fm_bf16* dst) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero fill when !ok (nothing is read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c[16x8] += a[16x16] . b[16x8], bf16 operands, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp32 values rounded to bf16 and packed, lo in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Rows [r0, r0 + ROWS) x d columns of one head (row stride rs) -> dst[ROWS][DP + 8],
+// zero filled past S and past d: 16-byte cp.async copies when ``vec``, else
+// element loads and stores (visible after the next barrier either way).
+template <int DP, int ROWS>
+__device__ __forceinline__ void load_tile(const fm_bf16* __restrict__ src, long long rs, int r0,
+                                          int S, int d, bool vec, fm_bf16* dst) {
   constexpr int LD = DP + 8;
-  if (vec16(src, rs, d)) {
+  if (vec) {
     constexpr int CPR = DP / 8;  // 16-byte chunks per row
-    for (int c = threadIdx.x; c < FA_BM * CPR; c += FA_THREADS) {
+    for (int c = threadIdx.x; c < ROWS * CPR; c += FWD_THREADS) {
       const int row = c / CPR;
       const int col = (c % CPR) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + row < S && col < d)
-        v = *reinterpret_cast<const uint4*>(src + (r0 + row) * rs + col);
-      *reinterpret_cast<uint4*>(dst + row * LD + col) = v;
+      const bool ok = r0 + row < S && col < d;
+      cp_async16(smem_u32(dst + row * LD + col), ok ? src + (r0 + row) * rs + col : src, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < FA_BM * DP; i += FA_THREADS) {
+    for (int i = threadIdx.x; i < ROWS * DP; i += FWD_THREADS) {
       const int row = i / DP, col = i % DP;
       dst[row * LD + col] = (r0 + row < S && col < d) ? src[(r0 + row) * rs + col]
                                                       : __float2bfloat16_rn(0.0f);
@@ -276,144 +335,215 @@ __device__ __forceinline__ void load_tile_bf16(const fm_bf16* __restrict__ src, 
   }
 }
 
-// Ss[64][SLD] = Qs . Ks^T in fp32: 16 fragments, two per warp.
+// One block: 128 query rows of one (batch, head), 4 warps of 32 rows (two
+// m16 row tiles, which share every k / v fragment a warp loads and give it
+// two independent chains of products).  Each 64-key tile of k and v, and its
+// key bias, arrives by cp.async into a two-stage ring while the previous tile
+// is multiplied.  Scores, p and the output live in mma fragments: the m16n8 C
+// layout of a score tile is the A layout of p.v, so no score or p touches
+// shared memory.  q fragments are read from the q tile each key tile (the
+// registers go to the accumulators).
 template <int DP>
-__device__ __forceinline__ void scores_tc(const fm_bf16* Qs, const fm_bf16* Ks, float* Ss) {
-  using namespace nvcuda;
-  constexpr int LD = DP + 8;
-  for (int f = threadIdx.x / 32; f < 16; f += FA_THREADS / 32) {
-    const int fr = f / 4, fc = f % 4;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int k = 0; k < DP; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, fm_bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, fm_bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, Qs + fr * 16 * LD + k, LD);
-      wmma::load_matrix_sync(b, Ks + fc * 16 * LD + k, LD);  // k[key][d] as col-major B
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(Ss + fr * 16 * SLD + fc * 16, acc, SLD, wmma::mem_row_major);
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_attn_fwd_tc_kernel(Mat<const fm_bf16> Q, Mat<const fm_bf16> K, Mat<const fm_bf16> V,
-                         Mask mask, Mat<fm_bf16> O, float* __restrict__ stats, int S, int nh,
-                         int d, float scale) {
-  using namespace nvcuda;
-  using L = TcSmem<DP>;
+__global__ void __launch_bounds__(FWD_THREADS, 2)
+flash_attn_fwd_mma_kernel(Mat<const fm_bf16> Q, Mat<const fm_bf16> K, Mat<const fm_bf16> V,
+                          Mask mask, Mat<fm_bf16> O, float* __restrict__ stats, int S, int nh,
+                          int d, float scale) {
+  using L = FwdSmem<DP>;
   constexpr int LD = L::LD;
-  constexpr int NOF = FA_BM / 16 * (DP / 16);        // output fragments
-  constexpr int OPW = (NOF + FA_THREADS / 32 - 1) / (FA_THREADS / 32);  // per warp
+  constexpr int KD = DP / 16;     // k16 steps of q.k^T
+  constexpr int ND = DP / 8;      // n8 tiles of the output
+  constexpr int NS = FA_BN / 8;   // n8 tiles of a score tile
   extern __shared__ __align__(128) unsigned char smem_raw[];
   fm_bf16* Qs = reinterpret_cast<fm_bf16*>(smem_raw + L::Q);
-  fm_bf16* Ks = reinterpret_cast<fm_bf16*>(smem_raw + L::K);
-  fm_bf16* Vs = reinterpret_cast<fm_bf16*>(smem_raw + L::V);
-  float* Ss = reinterpret_cast<float*>(smem_raw + L::S);
-  fm_bf16* Ps = reinterpret_cast<fm_bf16*>(smem_raw + L::P);
-  float* kbias = reinterpret_cast<float*>(smem_raw + L::BIAS);
+  fm_bf16* ring = reinterpret_cast<fm_bf16*>(smem_raw + L::KV);  // stage st: k at 2st, v at 2st+1
+  float* kbias = reinterpret_cast<float*>(smem_raw + L::BIAS);   // stage st at st * FA_BN
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int row = tid / 4;  // softmax: four threads per query row ...
-  const int q = tid % 4;    // ... each taking keys q, q+4, ..., q+60
-  const int q0 = blockIdx.x * FA_BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // fragment row g (and g + 8), columns 2t, 2t + 1
+  const int q0 = blockIdx.x * FWD_BM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const fm_bf16* qb = Q.head(b, h);
   const fm_bf16* kb = K.head(b, h);
   const fm_bf16* vb = V.head(b, h);
   const int* mrow = mask.row(b);
+  const bool kv_vec = vec16(kb, K.sr, d) && vec16(vb, V.sr, d);
+  auto stage = [&](int st, int which) { return ring + (2 * st + which) * FA_BN * LD; };
+  auto load_kv = [&](int k0, int st) {
+    load_tile<DP, FA_BN>(kb, K.sr, k0, S, d, kv_vec, stage(st, 0));
+    load_tile<DP, FA_BN>(vb, V.sr, k0, S, d, kv_vec, stage(st, 1));
+    if (threadIdx.x < FA_BN) kbias[st * FA_BN + threadIdx.x] = key_bias(mrow, k0 + threadIdx.x, S);
+  };
 
-  load_tile_bf16<DP>(qb, Q.sr, q0, S, d, Qs);
+  load_tile<DP, FWD_BM>(qb, Q.sr, q0, S, d, vec16(qb, Q.sr, d), Qs);
+  load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
 
-  // Pass 1: exact row max m and row sum l of exp(s - m).
-  float m = -INFINITY, l = 0.0f;
-  for (int k0 = 0; k0 < S; k0 += FA_BN) {
-    __syncthreads();
-    load_tile_bf16<DP>(kb, K.sr, k0, S, d, Ks);
-    if (tid < FA_BN) kbias[tid] = key_bias(mrow, k0 + tid, S);
-    __syncthreads();
-    scores_tc<DP>(Qs, Ks, Ss);
-    __syncthreads();
-    float sv[FA_BN / 4];
-    float mx = -INFINITY;
+  uint32_t qaddr[2];  // ldmatrix row address of this lane in each row tile
 #pragma unroll
-    for (int j = 0; j < FA_BN / 4; ++j) {
-      const int key = q + 4 * j;
-      sv[j] = Ss[row * SLD + key] * scale + kbias[key];
-      mx = fmaxf(mx, sv[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    l *= expf(m - m_new);
+  for (int rt = 0; rt < 2; ++rt)
+    qaddr[rt] = smem_u32(Qs + (warp * 32 + rt * 16 + lane % 8 + (lane / 8) % 2 * 8) * LD +
+                         lane / 16 * 8);
+  float o[2][ND][4];
+  float m_r[2][2], l_r[2][2];  // per row tile: running max of rows g, g + 8 (natural-log
+                               // units) and this thread's share of their running sums
 #pragma unroll
-    for (int j = 0; j < FA_BN / 4; ++j) l += expf(sv[j] - m_new);
-    m = m_new;
-  }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-  if (stats && q == 0 && q0 + row < S) {
-    float* st = stats + (((size_t)b * nh + h) * S + q0 + row) * 2;
-    st[0] = m;
-    st[1] = l;
+  for (int rt = 0; rt < 2; ++rt) {
+#pragma unroll
+    for (int j = 0; j < ND; ++j) o[rt][j][0] = o[rt][j][1] = o[rt][j][2] = o[rt][j][3] = 0.0f;
+    m_r[rt][0] = m_r[rt][1] = -INFINITY;
+    l_r[rt][0] = l_r[rt][1] = 0.0f;
   }
 
-  // Pass 2: p = exp(s - m) / l rounded to bf16, o += p . v in fp32.
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[OPW];
+  const int ntiles = (S + FA_BN - 1) / FA_BN;
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < ntiles) load_kv((it + 1) * FA_BN, st ^ 1);  // lands under this tile's products
+    cp_async_commit();
+
+    // s = q . k^T: k rows are keys, so a plain ldmatrix gives the B fragments.
+    float s[2][NS][4];
 #pragma unroll
-  for (int i = 0; i < OPW; ++i) wmma::fill_fragment(oacc[i], 0.0f);
-  for (int k0 = 0; k0 < S; k0 += FA_BN) {
-    __syncthreads();
-    load_tile_bf16<DP>(kb, K.sr, k0, S, d, Ks);
-    load_tile_bf16<DP>(vb, V.sr, k0, S, d, Vs);
-    if (tid < FA_BN) kbias[tid] = key_bias(mrow, k0 + tid, S);
-    __syncthreads();
-    scores_tc<DP>(Qs, Ks, Ss);
-    __syncthreads();
+    for (int rt = 0; rt < 2; ++rt)
 #pragma unroll
-    for (int j = 0; j < FA_BN / 4; ++j) {
-      const int key = q + 4 * j;
-      const float p = expf(Ss[row * SLD + key] * scale + kbias[key] - m) / l;
-      Ps[row * PLD + key] = __float2bfloat16_rn(p);
-    }
-    __syncthreads();
+      for (int j = 0; j < NS; ++j) s[rt][j][0] = s[rt][j][1] = s[rt][j][2] = s[rt][j][3] = 0.0f;
+    const fm_bf16* ks = stage(st, 0);
 #pragma unroll
-    for (int i = 0; i < OPW; ++i) {
-      const int f = warp + i * (FA_THREADS / 32);
-      if (f >= NOF) break;  // uniform across the warp
-      const int fr = f / (DP / 16), fc = f % (DP / 16);
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[2][4];
+      ldsm_x4(qaddr[0] + kk * 32, qa[0]);
+      ldsm_x4(qaddr[1] + kk * 32, qa[1]);
 #pragma unroll
-      for (int kk = 0; kk < FA_BN; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, fm_bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, fm_bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, Ps + fr * 16 * PLD + kk, PLD);
-        wmma::load_matrix_sync(bv, Vs + kk * LD + fc * 16, LD);
-        wmma::mma_sync(oacc[i], a, bv, oacc[i]);
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        uint32_t bk[4];
+        ldsm_x4(smem_u32(ks + (jp * 16 + lane % 8 + lane / 16 * 8) * LD + kk * 16 +
+                         (lane / 8) % 2 * 8),
+                bk);
+#pragma unroll
+        for (int rt = 0; rt < 2; ++rt) {
+          mma_bf16(s[rt][2 * jp], qa[rt], bk[0], bk[1]);
+          mma_bf16(s[rt][2 * jp + 1], qa[rt], bk[2], bk[3]);
+        }
       }
     }
+
+    // Scale and key bias as the TPU kernel adds them, then the online softmax:
+    // the quad of lanes sharing a row reduces its max by shuffles.  p = exp(s
+    // - m) is summed in fp32 and rounded to bf16 as the A fragments of p.v (C
+    // fragment pair 2kk, 2kk + 1 -> A fragment kk).
+    const float* kbs = kbias + st * FA_BN;
+    uint32_t pf[2][FA_BN / 16][4];
+#pragma unroll
+    for (int rt = 0; rt < 2; ++rt) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float2 kbj = *reinterpret_cast<const float2*>(kbs + j * 8 + 2 * t);
+        s[rt][j][0] = s[rt][j][0] * scale + kbj.x;
+        s[rt][j][1] = s[rt][j][1] * scale + kbj.y;
+        s[rt][j][2] = s[rt][j][2] * scale + kbj.x;
+        s[rt][j][3] = s[rt][j][3] * scale + kbj.y;
+        mx[0] = fmaxf(mx[0], fmaxf(s[rt][j][0], s[rt][j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[rt][j][2], s[rt][j][3]));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[rt][r], mx[r]);  // finite: every tile holds a key < S
+        const float alpha = exp2f((m_r[rt][r] - m_new) * LOG2E);  // 0 on the first tile
+        m_r[rt][r] = m_new;
+        l_r[rt][r] *= alpha;
+#pragma unroll
+        for (int j = 0; j < ND; ++j) {
+          o[rt][j][2 * r] *= alpha;
+          o[rt][j][2 * r + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float p0 = exp2f((s[rt][j][0] - m_r[rt][0]) * LOG2E);
+        const float p1 = exp2f((s[rt][j][1] - m_r[rt][0]) * LOG2E);
+        const float p2 = exp2f((s[rt][j][2] - m_r[rt][1]) * LOG2E);
+        const float p3 = exp2f((s[rt][j][3] - m_r[rt][1]) * LOG2E);
+        l_r[rt][0] += p0 + p1;
+        l_r[rt][1] += p2 + p3;
+        pf[rt][j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
+        pf[rt][j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+      }
+    }
+
+    // o += p . v: v rows are keys, so ldmatrix.trans gives the B fragments.
+    const fm_bf16* vs = stage(st, 1);
+#pragma unroll
+    for (int kk = 0; kk < FA_BN / 16; ++kk)
+#pragma unroll
+      for (int jp = 0; jp < ND / 2; ++jp) {
+        uint32_t bv[4];
+        ldsm_x4_trans(smem_u32(vs + (kk * 16 + lane % 8 + (lane / 8) % 2 * 8) * LD + jp * 16 +
+                               lane / 16 * 8),
+                      bv);
+#pragma unroll
+        for (int rt = 0; rt < 2; ++rt) {
+          mma_bf16(o[rt][2 * jp], pf[rt][kk], bv[0], bv[1]);
+          mma_bf16(o[rt][2 * jp + 1], pf[rt][kk], bv[2], bv[3]);
+        }
+      }
+
+    cp_async_wait_all();  // the next tile has landed ...
+    __syncthreads();      // ... and every warp is done with this one
   }
 
-  // Epilogue: each output fragment through this warp's slice of the score tile.
-  __syncthreads();
-  float* st = Ss + warp * 256;
-  fm_bf16* ob = O.head(b, h);
+  // o / l, rounded to bf16 once, staged through this warp's 32 rows of the q
+  // tile (read by this warp only) and stored 16 bytes at a time.
+  fm_bf16* so = Qs + warp * 32 * LD;
 #pragma unroll
-  for (int i = 0; i < OPW; ++i) {
-    const int f = warp + i * (FA_THREADS / 32);
-    if (f >= NOF) break;
-    const int fr = f / (DP / 16), fc = f % (DP / 16);
-    wmma::store_matrix_sync(st, oacc[i], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = q0 + fr * 16 + e / 16;
-      const int c = fc * 16 + e % 16;
-      if (r < S && c < d) ob[r * O.sr + c] = __float2bfloat16_rn(st[e]);
+  for (int rt = 0; rt < 2; ++rt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_r[rt][r] += __shfl_xor_sync(0xffffffffu, l_r[rt][r], 1);
+      l_r[rt][r] += __shfl_xor_sync(0xffffffffu, l_r[rt][r], 2);
     }
-    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int col = j * 8 + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(so + (rt * 16 + g) * LD + col) =
+          __floats2bfloat162_rn(o[rt][j][0] / l_r[rt][0], o[rt][j][1] / l_r[rt][0]);
+      *reinterpret_cast<__nv_bfloat162*>(so + (rt * 16 + g + 8) * LD + col) =
+          __floats2bfloat162_rn(o[rt][j][2] / l_r[rt][1], o[rt][j][3] / l_r[rt][1]);
+    }
+  }
+  __syncwarp();
+  fm_bf16* ob = O.head(b, h);
+  const int r0 = q0 + warp * 32;
+  if (vec16(ob, O.sr, d)) {
+    constexpr int CPR = DP / 8;
+    for (int c = lane; c < 32 * CPR; c += 32) {
+      const int row = c / CPR, col = (c % CPR) * 8;
+      if (r0 + row < S && col < d)
+        *reinterpret_cast<uint4*>(ob + (r0 + row) * O.sr + col) =
+            *reinterpret_cast<const uint4*>(so + row * LD + col);
+    }
+  } else {
+    for (int i = lane; i < 32 * DP; i += 32) {
+      const int row = i / DP, col = i % DP;
+      if (r0 + row < S && col < d) ob[(r0 + row) * O.sr + col] = so[row * LD + col];
+    }
+  }
+  if (stats && t == 0) {
+#pragma unroll
+    for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + rt * 16 + g + 8 * r;
+        if (row < S) {
+          float* sp = stats + (((size_t)b * nh + h) * S + row) * 2;
+          sp[0] = m_r[rt][r];
+          sp[1] = l_r[rt][r];
+        }
+      }
   }
 }
 
@@ -444,15 +574,15 @@ int head_pad(int d) {
 }
 
 template <int DP>
-cudaError_t launch_tc_dp(const FwdArgs& a, cudaStream_t stream) {
-  constexpr int bytes = TcSmem<DP>::BYTES;
+cudaError_t launch_mma_dp(const FwdArgs& a, cudaStream_t stream) {
+  constexpr int bytes = FwdSmem<DP>::BYTES;
   // Set on every launch: the attribute belongs to the current device, and
   // the call costs about a microsecond.
-  cudaError_t e = cudaFuncSetAttribute(flash_attn_fwd_tc_kernel<DP>,
+  cudaError_t e = cudaFuncSetAttribute(flash_attn_fwd_mma_kernel<DP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.S + FA_BM - 1) / FA_BM, a.nh, a.B);
-  flash_attn_fwd_tc_kernel<DP><<<grid, FA_THREADS, bytes, stream>>>(
+  const dim3 grid((a.S + FWD_BM - 1) / FWD_BM, a.nh, a.B);
+  flash_attn_fwd_mma_kernel<DP><<<grid, FWD_THREADS, bytes, stream>>>(
       as_mat<const fm_bf16>(a.q), as_mat<const fm_bf16>(a.k), as_mat<const fm_bf16>(a.v),
       a.mask, as_mat<fm_bf16>(a.o), a.stats, a.S, a.nh, a.d, a.scale);
   return cudaGetLastError();
@@ -476,10 +606,10 @@ cudaError_t launch_fwd(const FwdArgs& a, int dtype, cudaStream_t s) {
   const bool bf16 = dtype == FM_BF16;
   if (!bf16 && dtype != FM_F32) return cudaErrorInvalidValue;
   switch (head_pad(a.d)) {
-    case 32: return bf16 ? launch_tc_dp<32>(a, s) : launch_f32_dp<32>(a, s);
-    case 64: return bf16 ? launch_tc_dp<64>(a, s) : launch_f32_dp<64>(a, s);
-    case 96: return bf16 ? launch_tc_dp<96>(a, s) : launch_f32_dp<96>(a, s);
-    case 128: return bf16 ? launch_tc_dp<128>(a, s) : launch_f32_dp<128>(a, s);
+    case 32: return bf16 ? launch_mma_dp<32>(a, s) : launch_f32_dp<32>(a, s);
+    case 64: return bf16 ? launch_mma_dp<64>(a, s) : launch_f32_dp<64>(a, s);
+    case 96: return bf16 ? launch_mma_dp<96>(a, s) : launch_f32_dp<96>(a, s);
+    case 128: return bf16 ? launch_mma_dp<128>(a, s) : launch_f32_dp<128>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -595,6 +725,8 @@ __device__ __forceinline__ void tile_mm(const float* A, int sa, const float* B, 
     C[i * ldc + j] = acc ? C[i * ldc + j] + s : s;
   }
 }
+
+constexpr int round128(int bytes) { return (bytes + 127) / 128 * 128; }
 
 template <typename T, int DP, int TL>
 struct BwdSmem {  // byte offsets of the shared-memory regions

@@ -33,10 +33,21 @@
 // 8*R*H*F = 1.8e12 FLOP (1.82 ms), the attention backward's projections
 // 16*R*H^2 = 1.35e12.  The bytes (operands once) take about a seventh.
 //
-// Design (simple and correct first): 128x128 output tile per 256-thread
-// block.  bf16 runs WMMA 16x16x16 fragments with fp32 accumulators, 32-deep
-// K slices copied by cp.async into a two-stage ring (8 warps, 64x32 each);
-// fp32 runs CUDA-core FMA with 8x8 outputs per thread (full fp32, no TF32).
+// Design.  What bounds a bf16 product is the tensor cores' rate, and only
+// wgmma reaches it.
+//   - bf16 "nt" (every forward product: QKV, Wo, W1, W2): gemm_nt_wgmma_kernel,
+//     a 128 x 256 tile per block of two consumer warpgroups (m64n256k16
+//     wgmma from shared memory) and a producer warpgroup whose one thread
+//     keeps four 64-deep K stages of A and B in flight by TMA (128-byte
+//     swizzle, full / empty mbarriers).  At 128 x 256 a tile needs about 11
+//     TB/s of L2 traffic for the peak rate, so L2 rather than the tensor
+//     cores may bound it.
+//   - bf16 "nn" and "tn" (the backward's): 128x128 output tile per
+//     256-thread block of WMMA 16x16x16 fragments with fp32 accumulators,
+//     32-deep K slices copied by cp.async into a two-stage ring (8 warps,
+//     64x32 each).
+//   - fp32 (any layout): CUDA-core FMA with 8x8 outputs per thread (full
+//     fp32, no TF32); it serves the card-vs-CPU checks, not the main path.
 // The epilogue is chosen at compile time (Mode) and works on groups of 8
 // (bf16) or 4 (fp32) consecutive columns: 16-byte loads and stores and one
 // Philox call per 4 elements, so at K = 768 it stays small next to the
@@ -45,10 +56,14 @@
 // fp32 partials [splits, M, N] that fm_colsum adds in a fixed order, so the
 // sum is the same bits every run (no atomics anywhere).  Column sums for
 // the bias grads are per row-block partials, also added by fm_colsum.
-// What it leaves on the table: wgmma + TMA, deeper pipelining, and the TPU
-// kernels' fusion (q/k/v/o, the [R, F] intermediate and dz round-trip HBM).
+// What it leaves on the table: wgmma + TMA for "nn" / "tn"; in "nt" a
+// persistent schedule (the epilogue does not overlap the next tile's loads)
+// and TMA multicast across a cluster (L2 traffic); and the TPU kernels'
+// fusion (q/k/v/o, the [R, F] intermediate and dz round-trip HBM).
+#include <cuda.h>
 #include <math.h>
 #include <mma.h>
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -129,7 +144,9 @@ __device__ __forceinline__ void store_group(fm_bf16* p, const float* v) {
 // column `col` (a multiple of G) into C, adding each stored value to csum
 // (EPI_GATE).  T is the io dtype of aux and gate.  Whole groups inside a
 // row whose length is a multiple of G take 16-byte loads and stores and one
-// Philox call per 4 elements; a ragged group goes element by element.
+// Philox call per 4 elements; a ragged group goes element by element.  Every
+// loop runs over all G with constant indices (the ragged one skips k >= n),
+// so v and t stay in registers.
 template <int MODE, int G, typename T, typename TOut>
 __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, int N, float* v,
                                                TOut* __restrict__ C, float* csum) {
@@ -137,17 +154,25 @@ __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, i
   const bool vec = N % G == 0;  // then every group is whole (col % G == 0)
   const int n = vec ? G : min(G, N - col);
   float t[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k) t[k] = 0.0f;
   if (MODE == EPI_BIAS_ACT) {
     if (e.bias) {
       if (vec) load_group<G>(e.bias + col, t);
-      else for (int k = 0; k < n; ++k) t[k] = e.bias[col + k];
+      else {
+#pragma unroll
+        for (int k = 0; k < G; ++k) if (k < n) t[k] = e.bias[col + k];
+      }
 #pragma unroll
       for (int k = 0; k < G; ++k) v[k] += t[k];
     }
     if (e.aux) {  // the pre-activation, the gelu backward's residual
       T* aux = static_cast<T*>(e.aux) + off;
       if (vec) store_group<G>(aux, v);
-      else for (int k = 0; k < n; ++k) aux[k] = fm::from_f32<T>(v[k]);
+      else {
+#pragma unroll
+        for (int k = 0; k < G; ++k) if (k < n) aux[k] = fm::from_f32<T>(v[k]);
+      }
     }
 #pragma unroll
     for (int k = 0; k < G; ++k)
@@ -163,13 +188,18 @@ __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, i
             v[4 * h + k] = bits[k] < e.drop.threshold ? v[4 * h + k] * e.drop.inv_keep : 0.0f;
         }
       } else {
-        for (int k = 0; k < n; ++k) v[k] = fm::apply_dropout(e.drop, v[k], off + k);
+#pragma unroll
+        for (int k = 0; k < G; ++k)
+          if (k < n) v[k] = fm::apply_dropout(e.drop, v[k], off + k);
       }
     }
   } else if (MODE == EPI_GATE) {
     const T* gate = static_cast<const T*>(e.gate) + off;
     if (vec) load_group<G>(gate, t);
-    else for (int k = 0; k < n; ++k) t[k] = fm::to_f32(gate[k]);
+    else {
+#pragma unroll
+      for (int k = 0; k < G; ++k) if (k < n) t[k] = fm::to_f32(gate[k]);
+    }
     if (e.gate_kind == GATE_RELU) {
 #pragma unroll
       for (int k = 0; k < G; ++k) v[k] *= t[k] > 0.0f ? e.gate_scale : 0.0f;
@@ -181,19 +211,30 @@ __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, i
 #pragma unroll
         for (int k = 0; k < G; ++k) t[k] = gelu(t[k]);
         if (vec) store_group<G>(aux, t);
-        else for (int k = 0; k < n; ++k) aux[k] = fm::from_f32<T>(t[k]);
+        else {
+#pragma unroll
+          for (int k = 0; k < G; ++k) if (k < n) aux[k] = fm::from_f32<T>(t[k]);
+        }
       }
     }
   } else if (MODE == EPI_RESID) {
     if (vec) load_group<G>(e.resid + off, t);
-    else for (int k = 0; k < n; ++k) t[k] = e.resid[off + k];
+    else {
+#pragma unroll
+      for (int k = 0; k < G; ++k) if (k < n) t[k] = e.resid[off + k];
+    }
 #pragma unroll
     for (int k = 0; k < G; ++k) v[k] += t[k];
   }
-  if (MODE == EPI_GATE)
-    for (int k = 0; k < n; ++k) csum[k] += v[k];
+  if (MODE == EPI_GATE) {
+#pragma unroll
+    for (int k = 0; k < G; ++k) if (k < n) csum[k] += v[k];
+  }
   if (vec) store_group<G>(C + off, v);
-  else for (int k = 0; k < n; ++k) C[off + k] = fm::from_f32<TOut>(v[k]);
+  else {
+#pragma unroll
+    for (int k = 0; k < G; ++k) if (k < n) C[off + k] = fm::from_f32<TOut>(v[k]);
+  }
 }
 
 // ---- fp32 CUDA-core kernel ------------------------------------------------------
@@ -351,13 +392,12 @@ __device__ __forceinline__ void stage_tc_cols(const fm_bf16* __restrict__ src, i
   }
 }
 
-template <typename TOut, int AT, int BT, int MODE>
+template <typename TOut, int AT, int MODE>
 __global__ void __launch_bounds__(THREADS)
 gemm_bf16_tc_kernel(const fm_bf16* __restrict__ A, const fm_bf16* __restrict__ B,
                     TOut* __restrict__ C, int M, int N, int K, int Kc, Epi e) {
   using namespace nvcuda;
   using ALay = typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
-  using BLay = typename std::conditional<BT, wmma::row_major, wmma::col_major>::type;
   __shared__ __align__(128) fm_bf16 As[2][STAGE];
   __shared__ __align__(128) fm_bf16 Bs[2][STAGE];
   __shared__ float colsum[2][BN];
@@ -374,8 +414,7 @@ gemm_bf16_tc_kernel(const fm_bf16* __restrict__ A, const fm_bf16* __restrict__ B
   auto stage = [&](int k0, int buf) {
     if (AT) stage_tc_cols(A, M, m0, k0, kend, As[buf]);
     else stage_tc_rows(A, M, K, m0, k0, As[buf]);
-    if (BT) stage_tc_cols(B, N, n0, k0, kend, Bs[buf]);
-    else stage_tc_rows(B, N, K, n0, k0, Bs[buf]);
+    stage_tc_cols(B, N, n0, k0, kend, Bs[buf]);
   };
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TC_FM][TC_FN];
@@ -396,7 +435,7 @@ gemm_bf16_tc_kernel(const fm_bf16* __restrict__ A, const fm_bf16* __restrict__ B
 #pragma unroll
     for (int kk = 0; kk < TC_BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, fm_bf16, ALay> af[TC_FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, fm_bf16, BLay> bf[TC_FN];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, fm_bf16, wmma::row_major> bf[TC_FN];
 #pragma unroll
       for (int i = 0; i < TC_FM; ++i) {
         const int mo = wm * TC_WM + i * 16;
@@ -406,8 +445,7 @@ gemm_bf16_tc_kernel(const fm_bf16* __restrict__ A, const fm_bf16* __restrict__ B
 #pragma unroll
       for (int j = 0; j < TC_FN; ++j) {
         const int no = wn * TC_WN + j * 16;
-        wmma::load_matrix_sync(bf[j], BT ? Bs[cur] + kk * LDR + no : Bs[cur] + no * LDK + kk,
-                               BT ? LDR : LDK);
+        wmma::load_matrix_sync(bf[j], Bs[cur] + kk * LDR + no, LDR);
       }
 #pragma unroll
       for (int i = 0; i < TC_FM; ++i)
@@ -459,6 +497,261 @@ gemm_bf16_tc_kernel(const fm_bf16* __restrict__ A, const fm_bf16* __restrict__ B
   }
 }
 
+// ---- bf16 "nt" kernel: wgmma fed by TMA, warp-specialised ----------------------
+//
+// C[M, N] = epilogue(A[M, K] . B[N, K]^T), both operands K-major: wgmma's own
+// layout.  A 128 x 256 output tile per block of three warpgroups: warpgroup 2
+// is the producer (one thread issues the TMA copies of each 64-deep K slice
+// of A and B into a ring of NT_STAGES stages, after the stage's "empty"
+// mbarrier says both consumers released it); warpgroups 0 and 1 each own 64
+// rows and run one m64n256k16 wgmma per 16 of K from shared memory, their
+// fp32 accumulators (128 a thread) in registers.  setmaxnreg moves registers
+// from the producer (40) to the consumers (232).  TMA's 128-byte swizzle is
+// the layout the wgmma descriptors name, and its zero fill takes the ragged
+// edges of M, N and K.  Epilogue: after both consumers leave the main loop
+// the ring is idle; each stages its 64 x 256 fp32 tile there and runs the
+// same epilogue_group as the other kernels over groups of 8 columns (bias,
+// activation, aux, Philox dropout at (row * N + col) >> 2, bf16 or fp32 out).
+
+constexpr int NT_BM = 128;
+constexpr int NT_BN = 256;
+constexpr int NT_BK = 64;  // one 128-byte swizzle row of bf16
+constexpr int NT_STAGES = 4;
+constexpr int NT_THREADS = 384;
+constexpr int NT_A_BYTES = NT_BM * NT_BK * 2;
+constexpr int NT_STAGE_BYTES = NT_A_BYTES + NT_BN * NT_BK * 2;
+constexpr int NT_RING = NT_STAGES * NT_STAGE_BYTES;
+constexpr int NT_CPITCH = NT_BN + 8;  // fp32 staging pitch: the float2 stores take 2 wavefronts
+constexpr int NT_SMEM = NT_RING + 2 * NT_STAGES * 8 + 1024;  // + mbarriers + 1024-byte alignment
+static_assert(2 * 64 * NT_CPITCH * 4 <= NT_RING, "the fp32 staging tiles fit the ring");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Wait until the phase of parity ``parity`` of ``bar`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The box of ``map`` at (k, row) into shared memory, completing on ``bar``.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int k, int row,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k), "r"(row)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile whose rows are 128-byte swizzled lines
+// (TMA's SWIZZLE_128B), 8-row groups 1024 bytes apart; the tile base is
+// 1024-byte aligned, and a 16-deep K step moves the start 32 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// d[0..128) += A . B^T over 16 of K: one m64n256k16 wgmma, both operands
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// Keep the compiler from moving reads of d across the asynchronous wgmma.
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <typename TOut>
+__global__ void __launch_bounds__(NT_THREADS, 1)
+gemm_nt_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
+                     const __grid_constant__ CUtensorMap tmB, TOut* __restrict__ C, int M, int N,
+                     int K, Epi e) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + NT_RING);
+  uint64_t* empty = full + NT_STAGES;
+  const int wg = threadIdx.x / 128;
+  const int m0 = blockIdx.y * NT_BM;
+  const int n0 = blockIdx.x * NT_BN;
+  const int nk = (K + NT_BK - 1) / NT_BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NT_STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive, plus the copies' bytes
+      mbar_init(&empty[s], 2);  // one arrive per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: the roles never meet at a block-wide barrier again
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % NT_STAGES;
+        mbar_wait(&empty[s], ((kt / NT_STAGES) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(&full[s], NT_STAGE_BYTES);
+        unsigned char* a = ring + s * NT_STAGE_BYTES;
+        tma_load(a, &tmA, kt * NT_BK, m0, &full[s]);
+        tma_load(a + NT_A_BYTES, &tmB, kt * NT_BK, n0, &full[s]);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    fence_acc(acc);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % NT_STAGES;
+      mbar_wait(&full[s], (kt / NT_STAGES) & 1);
+      const uint32_t a = smem_u32(ring + s * NT_STAGE_BYTES) + wg * 64 * NT_BK * 2;
+      const uint32_t b = smem_u32(ring + s * NT_STAGE_BYTES + NT_A_BYTES);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < NT_BK / 16; ++kk)
+        wgmma_m64n256k16(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(acc);
+      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
+    }
+
+    // Both consumers are out of the main loop (so no wgmma reads the ring);
+    // each stages its 64 rows: thread (warp w, lane l) holds rows 16w + l/4
+    // and + 8, columns 8i + 2(l % 4) + {0, 1} of acc[4i .. 4i + 3].
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    float* stage = reinterpret_cast<float*>(ring) + wg * 64 * NT_CPITCH;
+    const int warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+    const int r = warp * 16 + lane / 4;
+#pragma unroll
+    for (int i = 0; i < NT_BN / 8; ++i) {
+      const int c = 8 * i + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(stage + r * NT_CPITCH + c) = make_float2(acc[4 * i], acc[4 * i + 1]);
+      *reinterpret_cast<float2*>(stage + (r + 8) * NT_CPITCH + c) =
+          make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+    // Warp w runs the epilogue over its 16 staged rows, lane l over the 8
+    // columns from 8l: 16-byte loads and stores, one Philox call per 4.
+    const int col = n0 + lane * 8;
+    float csum[8];  // EPI_BIAS_ACT keeps no column sums
+#pragma unroll 4
+    for (int i = 0; i < 16; ++i) {
+      const int lr = warp * 16 + i;
+      const int row = m0 + wg * 64 + lr;
+      if (row < M && col < N) {
+        float v[8];
+        load_group<8>(stage + lr * NT_CPITCH + lane * 8, v);
+        epilogue_group<EPI_BIAS_ACT, 8, fm_bf16, TOut>(e, row, col, N, v, C, csum);
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so the library links no libcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The TMA map of a K-contiguous bf16 matrix [rows, K] in [box_rows, 64]
+// boxes, 128-byte swizzle; reads past its edges give zeros.
+bool kmajor_map(CUtensorMap* map, const void* p, int rows, int K, int box_rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t box[2] = {NT_BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <typename TOut>
+cudaError_t launch_nt_wgmma(const void* A, const void* B, void* C, int M, int N, int K,
+                            const Epi& e, cudaStream_t s) {
+  CUtensorMap ta, tb;
+  if (!kmajor_map(&ta, A, M, K, NT_BM) || !kmajor_map(&tb, B, N, K, NT_BN))
+    return cudaErrorInvalidValue;
+  // Per launch, as the attribute belongs to the current device.
+  const cudaError_t err = cudaFuncSetAttribute(
+      gemm_nt_wgmma_kernel<TOut>, cudaFuncAttributeMaxDynamicSharedMemorySize, NT_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + NT_BN - 1) / NT_BN, (M + NT_BM - 1) / NT_BM);
+  gemm_nt_wgmma_kernel<TOut><<<grid, NT_THREADS, NT_SMEM, s>>>(ta, tb, static_cast<TOut*>(C), M,
+                                                                N, K, e);
+  return cudaGetLastError();
+}
+
+// fp32 runs on CUDA cores in every layout; bf16 "nt" (AT = BT = 0) on the
+// wgmma kernel, "nn" and "tn" (BT = 1) on WMMA.
 template <int AT, int BT, int MODE>
 cudaError_t launch(const void* A, const void* B, void* C, int M, int N, int K, int splits,
                    int dtype, int out_f32, const Epi& e, cudaStream_t s) {
@@ -469,16 +762,23 @@ cudaError_t launch(const void* A, const void* B, void* C, int M, int N, int K, i
     gemm_f32_kernel<AT, BT, MODE><<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(A), static_cast<const float*>(B), static_cast<float*>(C),
         M, N, K, Kc, e);
-  } else if (out_f32) {
-    gemm_bf16_tc_kernel<float, AT, BT, MODE><<<grid, THREADS, 0, s>>>(
-        static_cast<const fm_bf16*>(A), static_cast<const fm_bf16*>(B), static_cast<float*>(C),
-        M, N, K, Kc, e);
-  } else {
-    gemm_bf16_tc_kernel<fm_bf16, AT, BT, MODE><<<grid, THREADS, 0, s>>>(
-        static_cast<const fm_bf16*>(A), static_cast<const fm_bf16*>(B), static_cast<fm_bf16*>(C),
-        M, N, K, Kc, e);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  if constexpr (AT == 0 && BT == 0) {
+    return out_f32 ? launch_nt_wgmma<float>(A, B, C, M, N, K, e, s)
+                   : launch_nt_wgmma<fm_bf16>(A, B, C, M, N, K, e, s);
+  } else {
+    static_assert(BT == 1, "the WMMA kernel takes B as [K, N]");
+    if (out_f32)
+      gemm_bf16_tc_kernel<float, AT, MODE><<<grid, THREADS, 0, s>>>(
+          static_cast<const fm_bf16*>(A), static_cast<const fm_bf16*>(B),
+          static_cast<float*>(C), M, N, K, Kc, e);
+    else
+      gemm_bf16_tc_kernel<fm_bf16, AT, MODE><<<grid, THREADS, 0, s>>>(
+          static_cast<const fm_bf16*>(A), static_cast<const fm_bf16*>(B),
+          static_cast<fm_bf16*>(C), M, N, K, Kc, e);
+    return cudaGetLastError();
+  }
 }
 
 // ---- deterministic column sums ---------------------------------------------------
