@@ -7,8 +7,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
 1. card: the name and power limit from ``nvidia-smi``;
 2. build: every kernel compiled from ``fairmultimodal_torch/ops/csrc``, and
-   what ``-Xptxas -v`` reports (registers, stack, spills) for the wgmma "nt"
-   GEMM and the mma.sync flash forward;
+   what ``-Xptxas -v`` reports (registers, stack, spills) for each
+   instantiation of the wgmma GEMM ("nt", "nn", "tn") and of the mma.sync
+   flash forward, dQ and dK / dV kernels;
 3. kernels: each ported kernel's wrapper against its plain PyTorch version
    on the card, at the shapes the serving path gives it, in fp32 (max abs
    error <= 1e-4: only the summation order differs) and in bf16 (max abs
@@ -70,7 +71,13 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    gelu and a ragged M 600 / N 200 / K 96) against the same epilogue in fp32,
    timed beside F.linear with the TFLOP/s of each, and the W1 launch with a
    bias of +8 (no pre-activation near zero) zeroing exactly the elements the
-   plain Philox mask drops;
+   plain Philox mask drops; then each bf16 backward product of the lab path
+   alone ("nn": dO, dx with and without the fp32 residual, dh with the relu
+   gate and its column partials, the FFN's dx; "tn" split-K: dWo, dWqkv, dW1,
+   dW2; errors only: the text dgelu gate with aux and ragged M 600 / N 200
+   shapes) against the same epilogue in fp32, timed beside torch.matmul.
+   The bf16 backwards of #3 and #6 run twice on the same inputs and must
+   leave bit-identical grads (no float atomics);
 5b. unfolded slice: an fp32 train step unfolded on the card against the
    folded one on the card (loss 1e-6 relative, grads 1e-4 of max-abs) and
    against the CPU plain path (phase 5's limits); ``FAMETrainer.fit`` for 1
@@ -90,8 +97,10 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    per-row masks, a fully masked row) and off the main path (d 32 at S 256
    without a mask; d 128 at S 1024 on contiguous [B, heads, S, d] tensors;
    the packed ``fused_qkv`` layout); limits at the phase.  Timed in bf16 at
-   the lab shape: the kernels, their plain versions, SDPA with the -1e9 bias
-   and its autograd backward (never called by the port), beside the bound.
+   the lab shape: the kernels (the backward's dQ and dK / dV kernels also
+   apart), their plain versions, SDPA with the -1e9 bias and its autograd
+   backward (never called by the port), beside the bound; the backward run
+   twice must give bit-identical dq, dk, dv.
    Also ``TorchEncoderLayer(fused_qkv=True)`` against the same layer unfused
    in fp32 (forward and grads 1e-4 of max-abs);
 5c. flash-route slice (``attn_kernel=False`` on every lab layer): an fp32
@@ -390,10 +399,14 @@ def attention_train_check(fab, _build, gen, dtype, rate, B=256, S=560, H=768, nh
                                                   **kw)
             for _, fn in fwd:
                 fn()
-            bwd, _ = fab.backward_stages(g, saved, inputs[7], inputs[9], dropout=drop, **kw)
+            bwd, bwd_grads = fab.backward_stages(g, saved, inputs[7], inputs[9], dropout=drop,
+                                                 **kw)
             row["fwd_res_ms"] = time_ms(lambda: [fn() for _, fn in fwd])
             row["ms"] = time_ms(lambda: [fn() for _, fn in bwd])
             row["stages_ms"] = {name: time_ms(fn) for name, fn in bwd}
+            row["deterministic"] = _runs_bit_identical(lambda: fab._run(bwd), bwd_grads)
+            if not row["deterministic"]:
+                raise AssertionError(f"{label}: two backward runs differ")
             row["plain_ms"] = time_ms(plain, reps=5)
         row["library_ms"] = _attention_library_bwd_ms(inputs, mask, g, nh, eps, rate)
         flops = B * (16 * S * H * H + 8 * S * S * H)
@@ -549,6 +562,15 @@ def _grouped_block(grads):
                                   dwo, dbo)))
 
 
+def _runs_bit_identical(run, outs):
+    """Whether ``run()`` twice leaves the same bits in ``outs`` (no float
+    atomics: the sums are taken in a fixed order)."""
+    run()
+    first = [t.clone() for t in outs]
+    run()
+    return all(torch.equal(a, b) for a, b in zip(first, outs))
+
+
 def _check_forward(label, dtype, out, want):
     if dtype == torch.float32:
         err = (out.float() - want.float()).abs()
@@ -596,12 +618,15 @@ def block_check(fab, gen, dtype, B=256, S=560, H=768, nh=8, L=N_LABS, timed=Fals
             infer, _, _ = fab.block_stages(*inputs, mask, **kw)
             fwd_res, _, saved = fab.block_stages(*inputs, mask, residuals=True, **kw)
             fab._run(fwd_res)
-            bwd, _ = fab.block_backward_stages(g, saved, wo, **kw)
+            bwd, bwd_grads = fab.block_backward_stages(g, saved, wo, **kw)
             row["ms"] = time_ms(lambda: fab._run(infer))
             row["stages_ms"] = {name: time_ms(fn) for name, fn in infer}
             row["fwd_res_ms"] = time_ms(lambda: fab._run(fwd_res))
             row["bwd_ms"] = time_ms(lambda: fab._run(bwd))
             row["bwd_stages_ms"] = {name: time_ms(fn) for name, fn in bwd}
+            row["bwd_deterministic"] = _runs_bit_identical(lambda: fab._run(bwd), bwd_grads)
+            if not row["bwd_deterministic"]:
+                raise AssertionError(f"{label}: two backward runs differ")
             row["plain_ms"] = time_ms(lambda: fab.fused_attention_block_reference(
                 *inputs, mask, **kw), reps=5)
             row["plain_bwd_ms"] = time_ms(plain, reps=5)
@@ -872,7 +897,123 @@ def nt_gemm_phase(_build):
     return rows
 
 
-def ptxas_report(_build, names=("gemm_nt_wgmma_kernel", "flash_attn_fwd_mma_kernel")):
+# -- phase 3c, continued: each bf16 "nn" / "tn" GEMM stage of the backward -----------------
+#
+# Each bf16 backward product of the lab path alone, at its shape: "nn" through
+# ``_build.gemm`` (csrc/gemm.cu::gemm_wgmma_kernel with B MN-major) with the
+# epilogue the path gives it, "tn" through ``fused_attention_block.weight_grad``
+# (the same kernel with both operands MN-major, split-K fp32 partials and
+# their fixed-order sum), held against the same product and epilogue in fp32
+# on the card, rounded once.  Limits as the "nt" stages: NT_BF16_MAX (one bf16
+# ulp of max-abs) and mean TRAIN_BF16_MEAN; the gated stages' column sums
+# (fp32, summed over 143360 rows in another order) TRAIN_FP32_TOL of their
+# max-abs; the dgelu gate's aux (round(gelu(gate))) one bf16 ulp.  Timed
+# beside one ``torch.matmul`` on the same operands (cuBLAS; a yardstick the
+# port never calls), each with its TFLOP/s.
+
+# name, layout, M, N, K, gate ("relu" | "dgelu" | None), fp32 residual, timed
+NN_TN_STAGES = (
+    ("dO attention", "nn", R_LAB, 768, 768, None, False, True),
+    ("dx attention", "nn", R_LAB, 768, 2304, None, False, True),
+    ("dx attention + resid", "nn", R_LAB, 768, 2304, None, True, True),
+    ("dh ffn relu gate + colpart", "nn", R_LAB, 2048, 768, "relu", False, True),
+    ("dx ffn", "nn", R_LAB, 768, 2048, None, False, True),
+    ("dWo split-K", "tn", 768, 768, R_LAB, None, False, True),
+    ("dWqkv split-K", "tn", 2304, 768, R_LAB, None, False, True),
+    ("dW1 split-K", "tn", 2048, 768, R_LAB, None, False, True),
+    ("dW2 split-K", "tn", 768, 2048, R_LAB, None, False, True),
+    ("dh text dgelu gate + aux", "nn", R_TEXT, 3072, 768, "dgelu", False, False),
+    ("ragged nn M600 N200 K96 relu gate", "nn", 600, 200, 96, "relu", False, False),
+    ("ragged tn M600 N200 K5000", "tn", 600, 200, 5000, None, False, False),
+)
+GATE_SCALE = 1.0 / 0.9     # the relu gate's 1 / keep with the inner dropout on
+
+
+def _nn_tn_plain(layout, a, b, gate, gate_kind, resid, out_dtype):
+    """The product and its epilogue in fp32: (out, aux, column sums)."""
+    v = a.float() @ b.float() if layout == "nn" else a.float().t() @ b.float()
+    aux = colsum = None
+    if gate_kind == "relu":
+        v = v * torch.where(gate.float() > 0, GATE_SCALE, 0.0)
+    elif gate_kind == "dgelu":
+        u = gate.float()
+        v = v * (0.5 * (1.0 + torch.erf(u * 0.70710678118654752))
+                 + u * 0.3989422804014327 * torch.exp(-0.5 * u * u))
+        aux = torch.nn.functional.gelu(u).to(a.dtype)
+    if resid is not None:
+        v = v + resid
+    if gate_kind:
+        colsum = v.sum(dim=0)
+    return v.to(out_dtype), aux, colsum
+
+
+def nn_tn_gemm_check(_build, fab, gen, name, layout, M, N, K, gate_kind, with_resid, timed):
+    bf = torch.bfloat16
+    a_shape = (M, K) if layout == "nn" else (K, M)
+    a = torch.randn(*a_shape, generator=gen, device="cuda").to(bf)
+    b = (torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5).to(bf)
+    gate = torch.randn(M, N, generator=gen, device="cuda").to(bf) if gate_kind else None
+    resid = torch.randn(M, N, generator=gen, device="cuda") if with_resid else None
+    out = torch.empty(M, N, device="cuda", dtype=bf)
+    aux = torch.empty(M, N, device="cuda", dtype=bf) if gate_kind == "dgelu" else None
+    colpart = torch.empty(-(-M // 128), N, device="cuda") if gate_kind else None
+    if layout == "tn":
+        run = lambda: fab.weight_grad(a, b, out)  # noqa: E731
+    else:
+        run = lambda: _build.gemm(  # noqa: E731
+            a, b, out, layout="nn", gate=gate, gate_kind=gate_kind,
+            gate_scale=GATE_SCALE if gate_kind == "relu" else 1.0, aux=aux, resid=resid,
+            colpart=colpart)
+    run()
+    torch.cuda.synchronize()
+    want, want_aux, want_sum = _nn_tn_plain(layout, a, b, gate, gate_kind, resid, bf)
+    row = {"stage": name, "layout": layout, "M": M, "N": N, "K": K, "gate": gate_kind,
+           "resid": with_resid, "errors": _rel_errors(out, want)}
+    if layout == "tn":
+        row["splits"] = fab._splits(M, N, K)
+    checks = [("out", row["errors"], NT_BF16_MAX)]
+    if aux is not None:
+        row["aux_errors"] = _rel_errors(aux, want_aux)
+        checks.append(("aux", row["aux_errors"], NT_BF16_MAX))
+    if colpart is not None:
+        row["colsum_errors"] = _rel_errors(colpart.sum(dim=0), want_sum)
+        checks.append(("column sums", row["colsum_errors"], TRAIN_FP32_TOL))
+    for what, e, lim in checks:
+        if not torch.isfinite(out).all() or e["max_abs_err"] > lim * e["max_abs"] \
+                or e["mean_abs_err"] > TRAIN_BF16_MEAN * e["max_abs"]:
+            raise AssertionError(f"{layout} gemm {name}: {what} {e}")
+    del want, want_aux, want_sum
+    if timed:
+        flops = 2 * M * N * K
+        row["ms"] = time_ms(run)
+        row["tflops"] = flops / row["ms"] / 1e9
+        lib = (lambda: torch.matmul(a, b)) if layout == "nn" else (lambda: torch.matmul(a.t(), b))
+        row["library_ms"] = time_ms(lib)
+        row["library_tflops"] = flops / row["library_ms"] / 1e9
+        nbytes = (M * K + K * N + M * N) * 2 + (M * N * 2 if gate is not None else 0) \
+            + (M * N * 4 if resid is not None else 0)
+        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+    del a, b, gate, resid, out, aux, colpart
+    torch.cuda.empty_cache()
+    return row
+
+
+def nn_tn_gemm_phase(_build, fab):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for stage in NN_TN_STAGES:
+        row = nn_tn_gemm_check(_build, fab, gen, *stage)
+        log(f"[nn-tn-gemm] {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+#: The kernels the bf16 path redesigned for Hopper, whose ``-Xptxas -v`` lines phase 2 reports.
+PTXAS_KERNELS = ("gemm_wgmma_kernel", "flash_attn_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                 "flash_bwd_dkdv_mma_kernel")
+
+
+def ptxas_report(_build, names=PTXAS_KERNELS):
     """What ``nvcc -Xptxas -v`` said of each instantiation of ``names``
     (the build's logs): registers, stack, spills, and any warning about
     them."""
@@ -1003,6 +1144,13 @@ def flash_check(flash, gen, dtype, B, S, nh, d, layout="dense", mask_kind="rows"
             row["ms"] = time_ms(lambda: flash.flash_attention(qd, kd, vd, mask))
             row["fwd_res_ms"] = time_ms(lambda: flash._forward_kernel(*ops, residuals=True))
             row["bwd_ms"] = time_ms(lambda: flash._backward_kernel(*saved, g))
+            row["bwd_stages_ms"] = _flash_bwd_stages_ms(saved, g)
+            first = flash._backward_kernel(*saved, g)
+            again = flash._backward_kernel(*saved, g)
+            row["bwd_deterministic"] = all(torch.equal(a, b_) for a, b_ in zip(first, again))
+            if not row["bwd_deterministic"]:
+                raise AssertionError(f"{label}: two backward runs differ")
+            del first, again
             row["plain_ms"] = time_ms(lambda: flash.flash_attention_reference(qd, kd, vd, mask),
                                       reps=5)
             row["plain_bwd_ms"] = time_ms(lambda: flash.flash_attention_backward_reference(
@@ -1027,6 +1175,27 @@ def flash_check(flash, gen, dtype, B, S, nh, d, layout="dense", mask_kind="rows"
     del leaves, q, k, v, qd, kd, vd, want, g
     torch.cuda.empty_cache()
     return row
+
+
+def _flash_bwd_stages_ms(saved, g):
+    """The flash backward's two kernels timed apart on the forward's
+    residuals: the dQ kernel (which writes the row term D) and the dK / dV
+    kernel (which reads it)."""
+    from fairmultimodal_torch.ops import _build
+    from fairmultimodal_torch.ops import flash_attention as flash
+
+    q, k, v, o, stats, mask = saved
+    b, nh, s, _ = q.shape
+    dq, dk, dv = (flash._heads_like(q) for _ in range(3))
+    rowterm = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
+    gg = flash._last_contiguous(g.to(q.dtype))
+
+    def part(which):
+        return lambda: _build.flash_attention_bwd(q, k, v, o, gg, mask, stats, rowterm, dq, dk,
+                                                  dv, part=which)
+
+    part("both")()
+    return {"flash_bwd_dq": time_ms(part("dq")), "flash_bwd_dkdv": time_ms(part("dkdv"))}
 
 
 def fused_qkv_layer_check(gen, B=16, S=560, H=768, nh=8):
@@ -1733,6 +1902,7 @@ def main() -> int:
     train_rows, keep = train_kernel_phase(fab, ffn, _build)
     unfolded_rows = unfolded_kernel_phase(fab, ffn, addnorm)
     nt_gemm_phase(_build)
+    nn_tn_gemm_phase(_build, fab)
     flash_rows, flash_layer = flash_kernel_phase(flash)
     launches, slice_info = slice_phase(fab, ffn)
     log(f"[slice] {json.dumps(slice_info)}")
@@ -1837,7 +2007,7 @@ def main() -> int:
             "library_ms": row["library_" + pre + "ms"], "shape": row["case"],
             "dtype": "bfloat16", "errors": errors,
             **({"fwd_res_ms": row["fwd_res_ms"], "fused_qkv_layer": flash_layer} if not pre
-               else {}),
+               else {"stages_ms": row["bwd_stages_ms"]}),
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -134,13 +134,14 @@ def encode_note_chunks(
     """Per-patient aggregated CLS embeddings [n_patients, H] float32.
 
     ``buckets`` defaults to {64, 128, 256} below ``max_length`` plus
-    ``max_length``; ``FMTORCH_TEXT_BUCKETS`` overrides (``0``/``off`` = one
-    ``max_length`` shape, or a comma list such as ``128,512``).  Each
+    ``max_length``; ``FMTPU_TEXT_BUCKETS`` overrides, as in the JAX package
+    (``0``/``off`` = one ``max_length`` shape, or a comma list such as
+    ``128,512``).  Each
     bucket's batches hold ``batch_size * min(8, max(1, max_bucket // len))``
     rows (a constant token budget), zero-padded to that fixed shape.
     """
     if buckets is None:
-        env = os.environ.get("FMTORCH_TEXT_BUCKETS", "").strip()
+        env = os.environ.get("FMTPU_TEXT_BUCKETS", "").strip()
         if env in ("0", "off"):
             buckets = [max_length]
         elif env:

@@ -74,10 +74,7 @@
 // a row tiling that fits S 560 (128-row blocks compute 640 rows, 14% of them
 // padding); at d 96 it uses all 255 registers and spills 24 bytes.
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "fm_common.cuh"
 
@@ -85,7 +82,7 @@ namespace {
 
 constexpr int FA_BM = 64;       // query rows per block
 constexpr int FA_BN = 64;       // keys per tile
-constexpr int FA_THREADS = 256;  // the fp32 forward and the backward kernels
+constexpr int FA_THREADS = 256;  // the fp32 forward and backward kernels
 constexpr int TSTR = FA_BM + 1;  // transposed q/k tile row stride (bank-conflict pad)
 constexpr int PSTR = FA_BN + 1;  // p tile row stride
 
@@ -314,20 +311,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Rows [r0, r0 + ROWS) x d columns of one head (row stride rs) -> dst[ROWS][DP + 8],
 // zero filled past S and past d: 16-byte cp.async copies when ``vec``, else
 // element loads and stores (visible after the next barrier either way).
-template <int DP, int ROWS>
+template <int DP, int ROWS, int NT = FWD_THREADS>
 __device__ __forceinline__ void load_tile(const fm_bf16* __restrict__ src, long long rs, int r0,
                                           int S, int d, bool vec, fm_bf16* dst) {
   constexpr int LD = DP + 8;
   if (vec) {
     constexpr int CPR = DP / 8;  // 16-byte chunks per row
-    for (int c = threadIdx.x; c < ROWS * CPR; c += FWD_THREADS) {
+    for (int c = threadIdx.x; c < ROWS * CPR; c += NT) {
       const int row = c / CPR;
       const int col = (c % CPR) * 8;
       const bool ok = r0 + row < S && col < d;
       cp_async16(smem_u32(dst + row * LD + col), ok ? src + (r0 + row) * rs + col : src, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < ROWS * DP; i += FWD_THREADS) {
+    for (int i = threadIdx.x; i < ROWS * DP; i += NT) {
       const int row = i / DP, col = i % DP;
       dst[row * LD + col] = (r0 + row < S && col < d) ? src[(r0 + row) * rs + col]
                                                       : __float2bfloat16_rn(0.0f);
@@ -620,12 +617,10 @@ cudaError_t launch_fwd(const FwdArgs& a, int dtype, cudaStream_t s) {
 // the attention core of fused_attention_block.py::_mega_ln_bwd_kernel
 // (lines 717-744) / _mega_bwd_kernel.  The TPU kernels hold the whole
 // [S, S] tile of one (batch, head) in VMEM and recompute P from the stored
-// q and k.  Here two kernels tile it, each recomputing
-// p = exp(s * scale + bias - m) / l from the row max and sum the forward
-// stored (the same expression as the forward, so p is the forward's p bit
-// for bit), and neither uses atomics:
-//   - flash_bwd_dq: one block per 64-query tile (32 for fp32); it first
-//     writes D_i = rowsum(dO * O) for its rows, then walks the key tiles:
+// q and k.  Here two kernels tile it, each recomputing p from the row max m
+// and sum l the forward stored, and neither uses atomics:
+//   - flash_bwd_dq: one block per query tile; it first writes D_i =
+//     rowsum(dO * O) for its rows, then walks the key tiles:
 //     dS = P * (dO.V^T - D), dQ += round(dS * scale) . K;
 //   - flash_bwd_dkdv: one block per key tile, after flash_bwd_dq (it reads
 //     D); it walks the query tiles: dV += round(P)^T . dO and
@@ -639,173 +634,48 @@ cudaError_t launch_fwd(const FwdArgs& a, int dtype, cudaStream_t s) {
 // rounded before their products (:87, :94), dq/dk/dv are rounded when
 // written.  With ``colpart`` (the dbqkv sums #3 / #6 need) the column sums
 // of the fp32 dq | dk | dv over each tile's rows are written as partials
-// [B * ceil(S / tile), 3 * heads * d] for fm_colsum; #10 passes null.
+// [B * ceil(S / tile), 3 * heads * d] for fm_colsum; #10 passes null.  dQ
+// keeps its own pass: per-key-tile partials of dQ would move 2-4 GB at the
+// lab shape, and float atomics would make the sums differ run to run.
 //
 // Bound at the lab shape: 10*B*S^2*H = 6.2e11 FLOP of the TPU kernel's
-// products (0.62 ms at the bf16 peak); this design executes 1.4x the
-// four backward products (the dQ kernel recomputes S and dP).  bf16 runs
-// every product on WMMA fragments; the dQ / dK / dV accumulators stay in
-// registers, and the scores, dP, p and dS tiles go through shared memory
-// (about 105 KB at d 96, two blocks per SM).  fp32 runs the same structure
-// with CUDA-core FMA loops and its accumulators in shared memory.
-
-template <typename T>
-struct Pad {
-  static constexpr int V = 16 / sizeof(T);  // elements per 16 bytes
-};
-
-template <typename T>
-__device__ __forceinline__ T zero_of();
-template <>
-__device__ __forceinline__ float zero_of<float>() { return 0.0f; }
-template <>
-__device__ __forceinline__ fm_bf16 zero_of<fm_bf16>() { return __float2bfloat16_rn(0.0f); }
-
-// TL rows x d columns of one head (row stride rs) -> dst[TL][LD], zero padded.
-template <typename T, int DP, int TL>
-__device__ __forceinline__ void load_rows(const T* __restrict__ src, long long rs, int r0, int S,
-                                          int d, T* dst) {
-  constexpr int V = Pad<T>::V;
-  constexpr int LD = DP + V;
-  if (vec16(src, rs, d)) {
-    constexpr int CPR = DP / V;
-    for (int c = threadIdx.x; c < TL * CPR; c += FA_THREADS) {
-      const int row = c / CPR;
-      const int col = (c % CPR) * V;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + row < S && col < d)
-        v = *reinterpret_cast<const uint4*>(src + (r0 + row) * rs + col);
-      *reinterpret_cast<uint4*>(dst + row * LD + col) = v;
-    }
-  } else {
-    for (int i = threadIdx.x; i < TL * DP; i += FA_THREADS) {
-      const int row = i / DP, col = i % DP;
-      dst[row * LD + col] =
-          (r0 + row < S && col < d) ? src[(r0 + row) * rs + col] : zero_of<T>();
-    }
-  }
-}
-
-// C[M][N] (fp32, pitch ldc) = (acc ? C : 0) + op(A) . op(B) over depth K.
-// A element (i, k) is A[i*sa + k], or A[k*sa + i] when AT; B element (k, j)
-// is B[k*sb + j], or B[j*sb + k] when BT.
-template <int M, int N, bool AT, bool BT>
-__device__ __forceinline__ void tile_mm(const fm_bf16* A, int sa, const fm_bf16* B, int sb,
-                                        int K, float* C, int ldc, bool acc) {
-  using namespace nvcuda;
-  using ALay = typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
-  using BLay = typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
-  constexpr int FN = N / 16;
-  for (int f = threadIdx.x / 32; f < (M / 16) * FN; f += FA_THREADS / 32) {
-    const int i0 = (f / FN) * 16, j0 = (f % FN) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (acc)
-      wmma::load_matrix_sync(c, C + i0 * ldc + j0, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.0f);
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, fm_bf16, ALay> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, fm_bf16, BLay> b;
-      wmma::load_matrix_sync(a, AT ? A + k * sa + i0 : A + i0 * sa + k, sa);
-      wmma::load_matrix_sync(b, BT ? B + j0 * sb + k : B + k * sb + j0, sb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(C + i0 * ldc + j0, c, ldc, wmma::mem_row_major);
-  }
-}
-
-template <int M, int N, bool AT, bool BT>
-__device__ __forceinline__ void tile_mm(const float* A, int sa, const float* B, int sb, int K,
-                                        float* C, int ldc, bool acc) {
-  for (int e = threadIdx.x; e < M * N; e += FA_THREADS) {
-    const int i = e / N, j = e % N;
-    float s = 0.0f;  // fmaf in k order: the fp32 forward's score arithmetic
-    for (int k = 0; k < K; ++k)
-      s = fmaf(AT ? A[k * sa + i] : A[i * sa + k], BT ? B[j * sb + k] : B[k * sb + j], s);
-    C[i * ldc + j] = acc ? C[i * ldc + j] + s : s;
-  }
-}
+// products (0.62 ms at the bf16 peak); this design executes 1.4x them (the
+// dQ kernel recomputes S and dP: seven [S, S, d] products, 8.6e11 FLOP).
+//
+// bf16 design (FlashAttention-2 on mma.sync m16n8k16; what bounds it is the
+// tensor cores' issue rate, so everything between the products stays in
+// registers).  A block owns BWD_TILE = 64 rows (4 warps x 16) and walks
+// the other operand in 64-row tiles.  Why 64 at S 560 (= 7 x 80 = 8 x 64 +
+// 48): 80-row blocks of 5 warps would leave no owned row as padding, but five
+// warps cannot be spread evenly over the SM's four schedulers, so two blocks
+// per SM cap a thread at 168 registers, and the dK / dV kernel, whose warp
+// holds dK and dV (2 x 16 x d fp32, 96 registers at d 96) beside its S and
+// dP tiles (64 registers), spilled 360 bytes at d 96.  With 4 warps two blocks
+// per SM leave 255 registers and nothing spills; measured on the H100 in
+// turns, 64-row tiles took 4.68-4.78 ms at the lab shape against 4.91-5.13
+// for 80-row ones (3% padding rows included) and 0.61-0.73 against 0.70-0.76
+// at the text shape (S 512 = 8 x 64).  A warp owning 32 rows (two m16 row
+// tiles sharing each B fragment, as the forward does) would need twice the
+// accumulators, more than 255 registers.  The walked tiles and their
+// per-row vectors come by 16-byte cp.async into a two-stage ring (pitch
+// d + 8, so ldmatrix's 8 rows fall on 8 bank groups), the next tile's copy running under this tile's products; the
+// owned tiles stay in shared memory and are read by ldmatrix.  The C layout
+// of an m16n8 product is the A layout of the next one, so S -> P and dP ->
+// dS never leave registers (no fp32 score or dP tile in shared memory); the
+// walked rows are the depth of dQ += dS . K, dV += P^T . dO and
+// dK += dS^T . Q, so their B fragments come by ldmatrix.trans.  p is the
+// forward's expression, exp2((s * scale + bias - m) * log2 e), times 1 / l:
+// the forward's unnormalised p of each element divided by its row sum.
+// The column partials are added over the 16 rows of a warp by shuffles and
+// over the 4 warps in warp order through shared memory: fixed order, the
+// same bits every run.
+//
+// fp32 runs the same two-kernel structure on CUDA cores (32-row tiles,
+// FMA loops, its accumulators and the score / dP tiles in shared memory,
+// p = exp(s * scale + bias - m) / l as the fp32 forward's expf); it serves
+// the card-vs-CPU checks.
 
 constexpr int round128(int bytes) { return (bytes + 127) / 128 * 128; }
-
-template <typename T, int DP, int TL>
-struct BwdSmem {  // byte offsets of the shared-memory regions
-  static constexpr int LD = DP + Pad<T>::V;  // io tiles [TL][LD]
-  static constexpr int LP = TL + Pad<T>::V;  // io p / dS tiles [TL][LP]
-  static constexpr int LA = DP + 4;          // fp32 accumulators [TL][LA]
-  static constexpr int LS = TL + 4;          // fp32 score tiles [TL][LS]
-  static constexpr int T0 = 0;               // four io tiles
-  static constexpr int ACC = T0 + 4 * round128(TL * LD * (int)sizeof(T));
-  // fp32 keeps its two gradient accumulators here; bf16 keeps them in
-  // registers and stages one at a time through S32 / DP32 at the end.
-  static constexpr int S32 = ACC + (sizeof(T) == 2 ? 0 : 2 * round128(TL * LA * 4));
-  static constexpr int DP32 = S32 + round128(TL * LS * 4);
-  static constexpr int PIO = DP32 + round128(TL * LS * 4);
-  static constexpr int DSIO = PIO + round128(TL * LP * (int)sizeof(T));
-  static constexpr int VEC = DSIO + round128(TL * LP * (int)sizeof(T));  // 4 x [TL] fp32
-  static constexpr int BYTES = VEC + round128(4 * TL * 4);
-};
-
-// Accumulator of one [TL][DP] gradient tile.  bf16: WMMA fragments in
-// registers, warp w owning fragments w, w + 8, ... (no shared-memory round
-// trip per product); fp32: a tile in shared memory at ``smem`` (pitch la).
-template <typename T, int DP, int TL>
-struct GradAcc {
-  float* c;
-  int la;
-  __device__ GradAcc(float* smem, int pitch) : c(smem), la(pitch) {}
-  __device__ void zero() {
-    for (int e = threadIdx.x; e < TL * la; e += FA_THREADS) c[e] = 0.0f;
-  }
-  template <bool AT>  // += op(A) . B, B [K][DP] row-major
-  __device__ void mma(const float* A, int sa, const float* B, int sb, int K) {
-    tile_mm<TL, DP, AT, false>(A, sa, B, sb, K, c, la, true);
-  }
-  __device__ const float* tile(float*) { return c; }
-};
-
-template <int DP, int TL>
-struct GradAcc<fm_bf16, DP, TL> {
-  static constexpr int FN = DP / 16;
-  static constexpr int FPW = (TL / 16) * FN / (FA_THREADS / 32);
-  static_assert(FPW * (FA_THREADS / 32) == (TL / 16) * FN, "fragments per warp");
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> f[FPW];
-  int la;
-  __device__ GradAcc(float*, int pitch) : la(pitch) {}
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < FPW; ++i) nvcuda::wmma::fill_fragment(f[i], 0.0f);
-  }
-  template <bool AT>
-  __device__ void mma(const fm_bf16* A, int sa, const fm_bf16* B, int sb, int K) {
-    using namespace nvcuda;
-    using ALay = typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int i = 0; i < FPW; ++i) {
-      const int fi = warp + i * (FA_THREADS / 32);
-      const int i0 = (fi / FN) * 16, j0 = (fi % FN) * 16;
-      for (int k = 0; k < K; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, fm_bf16, ALay> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, fm_bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, AT ? A + k * sa + i0 : A + i0 * sa + k, sa);
-        wmma::load_matrix_sync(b, B + k * sb + j0, sb);
-        wmma::mma_sync(f[i], a, b, f[i]);
-      }
-    }
-  }
-  // The fp32 tile, stored into ``stage`` [TL][la]; read it after a barrier.
-  __device__ const float* tile(float* stage) {
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int i = 0; i < FPW; ++i) {
-      const int fi = warp + i * (FA_THREADS / 32);
-      nvcuda::wmma::store_matrix_sync(stage + (fi / FN) * 16 * la + (fi % FN) * 16, f[i], la,
-                                      nvcuda::wmma::mem_row_major);
-    }
-    return stage;
-  }
-};
 
 // Row max m and sum l of the forward, and D; rows past S get l = inf (so
 // p = 0) and D = 0.
@@ -819,20 +689,528 @@ __device__ __forceinline__ void load_row_stats(const float* stats, const float* 
   }
 }
 
+// ---- bf16 backward kernels (mma.sync m16n8k16) ---------------------------------------
+
+constexpr int BWD_TILE = 64;                 // rows a block owns (4 warps x 16)
+constexpr int BWD_WARPS = BWD_TILE / 16;
+constexpr int BWD_THREADS = 32 * BWD_WARPS;
+constexpr int BWD_WALK = 64;                 // rows of each walked tile
+
+template <int DP>
+struct BwdSmem {  // byte offsets of the shared-memory regions
+  static constexpr int LD = DP + 8;                               // bf16 tile pitch
+  static constexpr int OWN = 0;                                   // two owned [64][LD] tiles
+  static constexpr int RING = OWN + 2 * BWD_TILE * LD * 2;        // 2 stages x 2 walked [64][LD]
+  static constexpr int VEC = RING + 4 * BWD_WALK * LD * 2;        // 2 stages x [3][64] fp32
+  static constexpr int CSUM = VEC + 2 * 3 * BWD_WALK * 4;         // [4][DP] fp32 column sums
+  static constexpr int BYTES = CSUM + BWD_WARPS * DP * 4;
+};
+
+// Launch bounds: two blocks per SM where the shared memory allows it (d <= 96).
+template <int DP>
+constexpr int bwd_min_blocks() { return DP <= 96 ? 2 : 1; }
+
+// The four A-fragment registers of rows row0 .. row0 + 15 of a [rows][LD]
+// bf16 tile at depth 16 kk are ldmatrix'd from this lane's address + 32 kk.
+template <int LD>
+__device__ __forceinline__ uint32_t a_frag_addr(const fm_bf16* tile, int row0, int lane) {
+  return smem_u32(tile + (row0 + lane % 8 + (lane / 8) % 2 * 8) * LD + lane / 16 * 8);
+}
+// B fragments of n8 tiles 2 jp, 2 jp + 1 at depth 16 kk from a tile whose
+// rows are the n dim (plain ldmatrix) ...
+template <int LD>
+__device__ __forceinline__ void b_frag_rows(const fm_bf16* tile, int jp, int kk, int lane,
+                                            uint32_t (&r)[4]) {
+  ldsm_x4(smem_u32(tile + (jp * 16 + lane % 8 + lane / 16 * 8) * LD + kk * 16 + (lane / 8) % 2 * 8),
+          r);
+}
+// ... and from a tile whose rows are the depth (ldmatrix.trans).
+template <int LD>
+__device__ __forceinline__ void b_frag_trans(const fm_bf16* tile, int jp, int kk, int lane,
+                                             uint32_t (&r)[4]) {
+  ldsm_x4_trans(
+      smem_u32(tile + (kk * 16 + lane % 8 + (lane / 8) % 2 * 8) * LD + jp * 16 + lane / 16 * 8), r);
+}
+
+// Column sums of one warp's fp32 [16 x DP] accumulator over its 16 rows
+// (shuffles over the 8 row groups, a fixed order) into csum[warp][DP].
+template <int ND>
+__device__ __forceinline__ void warp_col_sums(const float (&acc)[ND][4], int warp, int lane,
+                                              float* csum) {
+  constexpr int DP = ND * 8;
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    float c0 = acc[j][0] + acc[j][2], c1 = acc[j][1] + acc[j][3];
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+      c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+    }
+    if (lane < 4) {
+      csum[warp * DP + j * 8 + 2 * lane] = c0;
+      csum[warp * DP + j * 8 + 2 * lane + 1] = c1;
+    }
+  }
+}
+
+// After a barrier: dst[c] = the warps' column sums added in warp order.
+template <int DP>
+__device__ __forceinline__ void block_col_sums(const float* csum, int d, float* dst) {
+  for (int c = threadIdx.x; c < d; c += BWD_THREADS) {
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < BWD_WARPS; ++w) s += csum[w * DP + c];
+    dst[c] = s;
+  }
+}
+
+// A warp's fp32 [16 x DP] accumulator rounded to bf16 into rows row0 .. +15
+// of the [rows][LD] tile ``stage`` (rows this warp alone reads), then stored
+// to rows r0 .. r0 + 15 of the head (row stride rs), 16 bytes at a time when
+// the layout allows it.
+template <int DP>
+__device__ __forceinline__ void store_warp_rows(const float (&acc)[DP / 8][4], fm_bf16* stage,
+                                                fm_bf16* dst, long long rs, int r0, int S, int d,
+                                                int lane) {
+  constexpr int LD = DP + 8;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    *reinterpret_cast<__nv_bfloat162*>(stage + g * LD + j * 8 + 2 * t) =
+        __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * LD + j * 8 + 2 * t) =
+        __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+  }
+  __syncwarp();
+  if (vec16(dst, rs, d)) {
+    constexpr int CPR = DP / 8;
+    for (int c = lane; c < 16 * CPR; c += 32) {
+      const int row = c / CPR, col = (c % CPR) * 8;
+      if (r0 + row < S && col < d)
+        *reinterpret_cast<uint4*>(dst + (r0 + row) * rs + col) =
+            *reinterpret_cast<const uint4*>(stage + row * LD + col);
+    }
+  } else {
+    for (int i = lane; i < 16 * DP; i += 32) {
+      const int row = i / DP, col = i % DP;
+      if (r0 + row < S && col < d) dst[(r0 + row) * rs + col] = stage[row * LD + col];
+    }
+  }
+}
+
+// dQ of 64 query rows of one (batch, head), and D of those rows.
+template <int DP>
+__global__ void __launch_bounds__(BWD_THREADS, bwd_min_blocks<DP>())
+flash_bwd_dq_mma_kernel(Mat<const fm_bf16> Q, Mat<const fm_bf16> K, Mat<const fm_bf16> V,
+                        Mat<const fm_bf16> O, Mat<const fm_bf16> dO, Mask mask,
+                        const float* __restrict__ stats, float* __restrict__ Dg,
+                        Mat<fm_bf16> dQg, float* __restrict__ colpart, int S, int nh, int d,
+                        float scale) {
+  using L = BwdSmem<DP>;
+  constexpr int LD = L::LD;
+  constexpr int KD = DP / 16;       // k16 steps of the S and dP products
+  constexpr int ND = DP / 8;        // n8 tiles of dQ
+  constexpr int NS = BWD_WALK / 8;  // n8 tiles of S and dP
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  fm_bf16* Qs = reinterpret_cast<fm_bf16*>(smem_raw + L::OWN);
+  fm_bf16* dOs = Qs + BWD_TILE * LD;
+  fm_bf16* ring = reinterpret_cast<fm_bf16*>(smem_raw + L::RING);  // stage st: k, v at 2st, 2st+1
+  float* kbias = reinterpret_cast<float*>(smem_raw + L::VEC);      // stage st at st * 3 * 64
+  float* csum = reinterpret_cast<float*>(smem_raw + L::CSUM);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // fragment rows g, g + 8; columns 2t, 2t + 1
+  const int q0 = blockIdx.x * BWD_TILE;
+  const int r0 = q0 + warp * 16;         // this warp's first row
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const fm_bf16* qb = Q.head(b, h);
+  const fm_bf16* kb = K.head(b, h);
+  const fm_bf16* vb = V.head(b, h);
+  const fm_bf16* ob = O.head(b, h);
+  const fm_bf16* gb = dO.head(b, h);
+  const int* mrow = mask.row(b);
+  const size_t srow = ((size_t)b * nh + h) * S;  // row offset into stats / D
+  const bool kv_vec = vec16(kb, K.sr, d) && vec16(vb, V.sr, d);
+  auto stage = [&](int st, int which) { return ring + (2 * st + which) * BWD_WALK * LD; };
+  auto load_kv = [&](int k0, int st) {
+    load_tile<DP, BWD_WALK, BWD_THREADS>(kb, K.sr, k0, S, d, kv_vec, stage(st, 0));
+    load_tile<DP, BWD_WALK, BWD_THREADS>(vb, V.sr, k0, S, d, kv_vec, stage(st, 1));
+  };
+
+  load_tile<DP, BWD_TILE, BWD_THREADS>(qb, Q.sr, q0, S, d, vec16(qb, Q.sr, d), Qs);
+  load_tile<DP, BWD_TILE, BWD_THREADS>(gb, dO.sr, q0, S, d, vec16(gb, dO.sr, d), dOs);
+  load_kv(0, 0);
+  cp_async_commit();
+  if (threadIdx.x < BWD_WALK) kbias[threadIdx.x] = key_bias(mrow, threadIdx.x, S);
+  // m and 1 / l of rows g, g + 8 (0 past S: then p = 0).
+  float m_r[2], il_r[2], D_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    m_r[r] = row < S ? stats[(srow + row) * 2] : 0.0f;
+    il_r[r] = row < S ? 1.0f / stats[(srow + row) * 2 + 1] : 0.0f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // D = rowsum(dO * O): lane l sums row l / 2 of the warp's 16 over every
+  // other 8 (or 1) columns; the pair is added, then each lane takes the D of
+  // its fragment rows.
+  {
+    const int lr = lane / 2, row = r0 + lr;
+    float s = 0.0f;
+    if (row < S) {
+      const fm_bf16* orow = ob + row * O.sr;
+      const fm_bf16* grow = dOs + (warp * 16 + lr) * LD;
+      if (vec16(ob, O.sr, d)) {
+        for (int c = (lane % 2) * 8; c < d; c += 16) {
+          const uint4 ou = *reinterpret_cast<const uint4*>(orow + c);
+          const uint4 gu = *reinterpret_cast<const uint4*>(grow + c);
+          const fm_bf16* o8 = reinterpret_cast<const fm_bf16*>(&ou);
+          const fm_bf16* g8 = reinterpret_cast<const fm_bf16*>(&gu);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) s += __bfloat162float(g8[k]) * __bfloat162float(o8[k]);
+        }
+      } else {
+        for (int c = lane % 2; c < d; c += 2)
+          s += __bfloat162float(grow[c]) * __bfloat162float(orow[c]);
+      }
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    if (lane % 2 == 0 && row < S) Dg[srow + row] = s;
+    D_r[0] = __shfl_sync(0xffffffffu, s, 2 * g);
+    D_r[1] = __shfl_sync(0xffffffffu, s, 2 * (g + 8));
+  }
+
+  const uint32_t qaddr = a_frag_addr<LD>(Qs, warp * 16, lane);
+  const uint32_t gaddr = a_frag_addr<LD>(dOs, warp * 16, lane);
+  float dq[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.0f;
+
+  const int ntiles = (S + BWD_WALK - 1) / BWD_WALK;
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    const bool next = it + 1 < ntiles;
+    float nbias = 0.0f;  // the next tile's key bias, stored after this tile's products
+    if (next) {
+      load_kv((it + 1) * BWD_WALK, st ^ 1);
+      if (threadIdx.x < BWD_WALK) nbias = key_bias(mrow, (it + 1) * BWD_WALK + threadIdx.x, S);
+    }
+    cp_async_commit();
+
+    // s = q . k^T and dp = dO . v^T: k and v rows are keys (the n dim).
+    const fm_bf16* ks = stage(st, 0);
+    const fm_bf16* vs = stage(st, 1);
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4], ga[4];
+      ldsm_x4(qaddr + kk * 32, qa);
+      ldsm_x4(gaddr + kk * 32, ga);
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        uint32_t bk[4], bv[4];
+        b_frag_rows<LD>(ks, jp, kk, lane, bk);
+        b_frag_rows<LD>(vs, jp, kk, lane, bv);
+        mma_bf16(s[2 * jp], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * jp + 1], qa, bk[2], bk[3]);
+        mma_bf16(dp[2 * jp], ga, bv[0], bv[1]);
+        mma_bf16(dp[2 * jp + 1], ga, bv[2], bv[3]);
+      }
+    }
+
+    // p = exp2((s * scale + bias - m) * log2 e) / l, ds = p * (dp - D);
+    // round(ds * scale) as the A fragments of ds . k.
+    const float* kbs = kbias + st * 3 * BWD_WALK;
+    uint32_t dsf[BWD_WALK / 16][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const float2 kbj = *reinterpret_cast<const float2*>(kbs + j * 8 + 2 * t);
+      const float p0 = exp2f((s[j][0] * scale + kbj.x - m_r[0]) * LOG2E) * il_r[0];
+      const float p1 = exp2f((s[j][1] * scale + kbj.y - m_r[0]) * LOG2E) * il_r[0];
+      const float p2 = exp2f((s[j][2] * scale + kbj.x - m_r[1]) * LOG2E) * il_r[1];
+      const float p3 = exp2f((s[j][3] * scale + kbj.y - m_r[1]) * LOG2E) * il_r[1];
+      dsf[j / 2][(j % 2) * 2] =
+          pack_bf16(p0 * (dp[j][0] - D_r[0]) * scale, p1 * (dp[j][1] - D_r[0]) * scale);
+      dsf[j / 2][(j % 2) * 2 + 1] =
+          pack_bf16(p2 * (dp[j][2] - D_r[1]) * scale, p3 * (dp[j][3] - D_r[1]) * scale);
+    }
+
+    // dq += ds . k: k rows are the depth, so ldmatrix.trans.
+#pragma unroll
+    for (int kk = 0; kk < BWD_WALK / 16; ++kk)
+#pragma unroll
+      for (int jp = 0; jp < ND / 2; ++jp) {
+        uint32_t bk[4];
+        b_frag_trans<LD>(ks, jp, kk, lane, bk);
+        mma_bf16(dq[2 * jp], dsf[kk], bk[0], bk[1]);
+        mma_bf16(dq[2 * jp + 1], dsf[kk], bk[2], bk[3]);
+      }
+
+    if (next && threadIdx.x < BWD_WALK) kbias[(st ^ 1) * 3 * BWD_WALK + threadIdx.x] = nbias;
+    cp_async_wait_all();  // the next tile has landed ...
+    __syncthreads();      // ... and every warp is done with this one
+  }
+
+  const long long cps = 3LL * nh * d;  // colpart row: dq | dk | dv, head h at h*d
+  if (colpart) warp_col_sums<ND>(dq, warp, lane, csum);
+  store_warp_rows<DP>(dq, Qs + warp * 16 * LD, dQg.head(b, h), dQg.sr, r0, S, d, lane);
+  if (colpart) {
+    __syncthreads();
+    block_col_sums<DP>(csum, d,
+                       colpart + ((size_t)b * gridDim.x + blockIdx.x) * cps + (size_t)h * d);
+  }
+}
+
+// dK and dV of 64 key rows of one (batch, head), after flash_bwd_dq_mma_kernel.
+template <int DP>
+__global__ void __launch_bounds__(BWD_THREADS, bwd_min_blocks<DP>())
+flash_bwd_dkdv_mma_kernel(Mat<const fm_bf16> Q, Mat<const fm_bf16> K, Mat<const fm_bf16> V,
+                          Mat<const fm_bf16> dO, Mask mask, const float* __restrict__ stats,
+                          const float* __restrict__ Dg, Mat<fm_bf16> dKg, Mat<fm_bf16> dVg,
+                          float* __restrict__ colpart, int S, int nh, int d, float scale) {
+  using L = BwdSmem<DP>;
+  constexpr int LD = L::LD;
+  constexpr int KD = DP / 16;
+  constexpr int ND = DP / 8;
+  constexpr int NS = BWD_WALK / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  fm_bf16* Ks = reinterpret_cast<fm_bf16*>(smem_raw + L::OWN);
+  fm_bf16* Vs = Ks + BWD_TILE * LD;
+  fm_bf16* ring = reinterpret_cast<fm_bf16*>(smem_raw + L::RING);  // stage st: q, dO at 2st, 2st+1
+  float* vecs = reinterpret_cast<float*>(smem_raw + L::VEC);  // stage st: m, 1 / l, D of 64 rows
+  float* csum = reinterpret_cast<float*>(smem_raw + L::CSUM);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int k0 = blockIdx.x * BWD_TILE;
+  const int r0 = k0 + warp * 16;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const fm_bf16* qb = Q.head(b, h);
+  const fm_bf16* gb = dO.head(b, h);
+  const int* mrow = mask.row(b);
+  const size_t srow = ((size_t)b * nh + h) * S;
+  const bool qg_vec = vec16(qb, Q.sr, d) && vec16(gb, dO.sr, d);
+  auto stage = [&](int st, int which) { return ring + (2 * st + which) * BWD_WALK * LD; };
+  auto load_qg = [&](int q0, int st) {
+    load_tile<DP, BWD_WALK, BWD_THREADS>(qb, Q.sr, q0, S, d, qg_vec, stage(st, 0));
+    load_tile<DP, BWD_WALK, BWD_THREADS>(gb, dO.sr, q0, S, d, qg_vec, stage(st, 1));
+  };
+  // m, 1 / l and D of query row q (0, 0, 0 past S: then p = 0 and ds = 0).
+  auto row_vec = [&](int q, float& m, float& il, float& D) {
+    const bool ok = q < S;
+    m = ok ? stats[(srow + q) * 2] : 0.0f;
+    il = ok ? 1.0f / stats[(srow + q) * 2 + 1] : 0.0f;
+    D = ok ? Dg[srow + q] : 0.0f;
+  };
+  auto put_vec = [&](int st, float m, float il, float D) {
+    float* v = vecs + st * 3 * BWD_WALK;
+    v[threadIdx.x] = m;
+    v[BWD_WALK + threadIdx.x] = il;
+    v[2 * BWD_WALK + threadIdx.x] = D;
+  };
+
+  const fm_bf16* kbh = K.head(b, h);
+  const fm_bf16* vbh = V.head(b, h);
+  load_tile<DP, BWD_TILE, BWD_THREADS>(kbh, K.sr, k0, S, d, vec16(kbh, K.sr, d), Ks);
+  load_tile<DP, BWD_TILE, BWD_THREADS>(vbh, V.sr, k0, S, d, vec16(vbh, V.sr, d), Vs);
+  load_qg(0, 0);
+  cp_async_commit();
+  if (threadIdx.x < BWD_WALK) {
+    float m, il, D;
+    row_vec(threadIdx.x, m, il, D);
+    put_vec(0, m, il, D);
+  }
+  const float kb_r[2] = {key_bias(mrow, r0 + g, S), key_bias(mrow, r0 + g + 8, S)};
+  cp_async_wait_all();
+  __syncthreads();
+
+  const uint32_t kaddr = a_frag_addr<LD>(Ks, warp * 16, lane);
+  const uint32_t vaddr = a_frag_addr<LD>(Vs, warp * 16, lane);
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.0f;
+    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.0f;
+  }
+
+  const int ntiles = (S + BWD_WALK - 1) / BWD_WALK;
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    const bool next = it + 1 < ntiles;
+    float nm = 0.0f, nil = 0.0f, nD = 0.0f;  // the next tile's row vectors, stored after the products
+    if (next) {
+      load_qg((it + 1) * BWD_WALK, st ^ 1);
+      if (threadIdx.x < BWD_WALK) row_vec((it + 1) * BWD_WALK + threadIdx.x, nm, nil, nD);
+    }
+    cp_async_commit();
+
+    // s^T = k . q^T and dp^T = v . dO^T: rows are keys, columns queries.
+    const fm_bf16* qs = stage(st, 0);
+    const fm_bf16* gs = stage(st, 1);
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm_x4(kaddr + kk * 32, ka);
+      ldsm_x4(vaddr + kk * 32, va);
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        uint32_t bq[4], bg[4];
+        b_frag_rows<LD>(qs, jp, kk, lane, bq);
+        b_frag_rows<LD>(gs, jp, kk, lane, bg);
+        mma_bf16(s[2 * jp], ka, bq[0], bq[1]);
+        mma_bf16(s[2 * jp + 1], ka, bq[2], bq[3]);
+        mma_bf16(dp[2 * jp], va, bg[0], bg[1]);
+        mma_bf16(dp[2 * jp + 1], va, bg[2], bg[3]);
+      }
+    }
+
+    // p^T and ds^T: the query's m, 1 / l and D from the stage's vectors, the
+    // key's bias from registers; round(p) and round(ds * scale) as A fragments.
+    const float* vm = vecs + st * 3 * BWD_WALK;
+    uint32_t pf[BWD_WALK / 16][4], dsf[BWD_WALK / 16][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int c = j * 8 + 2 * t;
+      const float2 m2 = *reinterpret_cast<const float2*>(vm + c);
+      const float2 l2 = *reinterpret_cast<const float2*>(vm + BWD_WALK + c);
+      const float2 D2 = *reinterpret_cast<const float2*>(vm + 2 * BWD_WALK + c);
+      const float p0 = exp2f((s[j][0] * scale + kb_r[0] - m2.x) * LOG2E) * l2.x;
+      const float p1 = exp2f((s[j][1] * scale + kb_r[0] - m2.y) * LOG2E) * l2.y;
+      const float p2 = exp2f((s[j][2] * scale + kb_r[1] - m2.x) * LOG2E) * l2.x;
+      const float p3 = exp2f((s[j][3] * scale + kb_r[1] - m2.y) * LOG2E) * l2.y;
+      pf[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
+      pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+      dsf[j / 2][(j % 2) * 2] =
+          pack_bf16(p0 * (dp[j][0] - D2.x) * scale, p1 * (dp[j][1] - D2.y) * scale);
+      dsf[j / 2][(j % 2) * 2 + 1] =
+          pack_bf16(p2 * (dp[j][2] - D2.x) * scale, p3 * (dp[j][3] - D2.y) * scale);
+    }
+
+    // dv += p^T . dO and dk += ds^T . q: the walked rows are the depth.
+#pragma unroll
+    for (int kk = 0; kk < BWD_WALK / 16; ++kk)
+#pragma unroll
+      for (int jp = 0; jp < ND / 2; ++jp) {
+        uint32_t bg[4], bq[4];
+        b_frag_trans<LD>(gs, jp, kk, lane, bg);
+        mma_bf16(dv[2 * jp], pf[kk], bg[0], bg[1]);
+        mma_bf16(dv[2 * jp + 1], pf[kk], bg[2], bg[3]);
+        b_frag_trans<LD>(qs, jp, kk, lane, bq);
+        mma_bf16(dk[2 * jp], dsf[kk], bq[0], bq[1]);
+        mma_bf16(dk[2 * jp + 1], dsf[kk], bq[2], bq[3]);
+      }
+
+    if (next && threadIdx.x < BWD_WALK) put_vec(st ^ 1, nm, nil, nD);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  const long long cps = 3LL * nh * d;
+  const long long H = (long long)nh * d;
+  float* cp = colpart ? colpart + ((size_t)b * gridDim.x + blockIdx.x) * cps + (size_t)h * d
+                      : nullptr;
+  if (cp) warp_col_sums<ND>(dk, warp, lane, csum);
+  store_warp_rows<DP>(dk, Ks + warp * 16 * LD, dKg.head(b, h), dKg.sr, r0, S, d, lane);
+  if (cp) {
+    __syncthreads();
+    block_col_sums<DP>(csum, d, cp + H);
+    __syncthreads();
+    warp_col_sums<ND>(dv, warp, lane, csum);
+  }
+  store_warp_rows<DP>(dv, Vs + warp * 16 * LD, dVg.head(b, h), dVg.sr, r0, S, d, lane);
+  if (cp) {
+    __syncthreads();
+    block_col_sums<DP>(csum, d, cp + 2 * H);
+  }
+}
+
+// ---- fp32 backward kernels (CUDA cores) ---------------------------------------------
+
+constexpr int F32_TL = 32;  // rows of an fp32 backward tile
+
+// TL rows x d columns of one head (row stride rs) -> dst[TL][LD], zero padded.
+template <int DP, int TL>
+__device__ __forceinline__ void load_rows(const float* __restrict__ src, long long rs, int r0,
+                                          int S, int d, float* dst) {
+  constexpr int LD = DP + 4;
+  if (vec16(src, rs, d)) {
+    constexpr int CPR = DP / 4;
+    for (int c = threadIdx.x; c < TL * CPR; c += FA_THREADS) {
+      const int row = c / CPR;
+      const int col = (c % CPR) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r0 + row < S && col < d)
+        v = *reinterpret_cast<const float4*>(src + (r0 + row) * rs + col);
+      *reinterpret_cast<float4*>(dst + row * LD + col) = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < TL * DP; i += FA_THREADS) {
+      const int row = i / DP, col = i % DP;
+      dst[row * LD + col] = (r0 + row < S && col < d) ? src[(r0 + row) * rs + col] : 0.0f;
+    }
+  }
+}
+
+// C[M][N] (pitch ldc) = (acc ? C : 0) + op(A) . op(B) over depth K.
+// A element (i, k) is A[i*sa + k], or A[k*sa + i] when AT; B element (k, j)
+// is B[k*sb + j], or B[j*sb + k] when BT.
+template <int M, int N, bool AT, bool BT>
+__device__ __forceinline__ void tile_mm(const float* A, int sa, const float* B, int sb, int K,
+                                        float* C, int ldc, bool acc) {
+  for (int e = threadIdx.x; e < M * N; e += FA_THREADS) {
+    const int i = e / N, j = e % N;
+    float s = 0.0f;  // fmaf in k order: the fp32 forward's score arithmetic
+    for (int k = 0; k < K; ++k)
+      s = fmaf(AT ? A[k * sa + i] : A[i * sa + k], BT ? B[j * sb + k] : B[k * sb + j], s);
+    C[i * ldc + j] = acc ? C[i * ldc + j] + s : s;
+  }
+}
+
+template <int DP>
+struct BwdF32Smem {  // byte offsets of the shared-memory regions
+  static constexpr int TL = F32_TL;
+  static constexpr int LD = DP + 4;  // io tiles [TL][LD]
+  static constexpr int LP = TL + 4;  // p / dS tiles [TL][LP]
+  static constexpr int LS = TL + 4;  // score tiles [TL][LS]
+  static constexpr int T0 = 0;       // four io tiles
+  static constexpr int ACC = T0 + 4 * round128(TL * LD * 4);   // two gradient accumulators [TL][LD]
+  static constexpr int S32 = ACC + 2 * round128(TL * LD * 4);
+  static constexpr int DP32 = S32 + round128(TL * LS * 4);
+  static constexpr int PIO = DP32 + round128(TL * LS * 4);
+  static constexpr int DSIO = PIO + round128(TL * LP * 4);
+  static constexpr int VEC = DSIO + round128(TL * LP * 4);      // 4 x [TL] fp32
+  static constexpr int BYTES = VEC + round128(4 * TL * 4);
+};
+
 __device__ __forceinline__ void load_key_bias(const int* mrow, int k0, int S, int TL,
                                               float* kbias) {
   for (int i = threadIdx.x; i < TL; i += FA_THREADS) kbias[i] = key_bias(mrow, k0 + i, S);
 }
 
 // Write rows [r0, r0 + TL) of an fp32 accumulator tile to dst (row stride
-// rs, rounded) and, when colpart is not null, the column sums of its valid
-// rows to colpart (fp32).
-template <typename T, int DP, int TL>
-__device__ __forceinline__ void write_grad(const float* acc, int la, T* dst, long long rs,
+// rs) and, when colpart is not null, the column sums of its valid rows to
+// colpart.
+template <int TL>
+__device__ __forceinline__ void write_grad(const float* acc, int la, float* dst, long long rs,
                                            int r0, int S, int d, float* colpart) {
   for (int e = threadIdx.x; e < TL * d; e += FA_THREADS) {
     const int i = e / d, c = e % d;
-    if (r0 + i < S) dst[(r0 + i) * rs + c] = fm::from_f32<T>(acc[i * la + c]);
+    if (r0 + i < S) dst[(r0 + i) * rs + c] = acc[i * la + c];
   }
   if (!colpart) return;
   for (int c = threadIdx.x; c < d; c += FA_THREADS) {
@@ -842,22 +1220,23 @@ __device__ __forceinline__ void write_grad(const float* acc, int la, T* dst, lon
   }
 }
 
-template <typename T, int DP, int TL>
-__global__ void __launch_bounds__(FA_THREADS, sizeof(T) == 2 ? 2 : 1)
-flash_bwd_dq_kernel(Mat<const T> Q, Mat<const T> K, Mat<const T> V, Mat<const T> O,
-                    Mat<const T> dO, Mask mask, const float* __restrict__ stats,
-                    float* __restrict__ Dg, Mat<T> dQg, float* __restrict__ colpart, int S,
-                    int nh, int d, float scale) {
-  using L = BwdSmem<T, DP, TL>;
+template <int DP>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_bwd_dq_f32_kernel(Mat<const float> Q, Mat<const float> K, Mat<const float> V,
+                        Mat<const float> O, Mat<const float> dO, Mask mask,
+                        const float* __restrict__ stats, float* __restrict__ Dg, Mat<float> dQg,
+                        float* __restrict__ colpart, int S, int nh, int d, float scale) {
+  using L = BwdF32Smem<DP>;
+  constexpr int TL = L::TL;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw + L::T0);
-  T* dOs = Qs + TL * L::LD;
-  T* Ks = dOs + TL * L::LD;
-  T* Vs = Ks + TL * L::LD;
-  GradAcc<T, DP, TL> dQ(reinterpret_cast<float*>(smem_raw + L::ACC), L::LA);
+  float* Qs = reinterpret_cast<float*>(smem_raw + L::T0);
+  float* dOs = Qs + TL * L::LD;
+  float* Ks = dOs + TL * L::LD;
+  float* Vs = Ks + TL * L::LD;
+  float* dQ = reinterpret_cast<float*>(smem_raw + L::ACC);
   float* S32 = reinterpret_cast<float*>(smem_raw + L::S32);
   float* dP32 = reinterpret_cast<float*>(smem_raw + L::DP32);
-  T* dSio = reinterpret_cast<T*>(smem_raw + L::DSIO);
+  float* dS = reinterpret_cast<float*>(smem_raw + L::DSIO);
   float* m_s = reinterpret_cast<float*>(smem_raw + L::VEC);
   float* l_s = m_s + TL;
   float* D_s = l_s + TL;
@@ -866,35 +1245,31 @@ flash_bwd_dq_kernel(Mat<const T> Q, Mat<const T> K, Mat<const T> V, Mat<const T>
   const int q0 = blockIdx.x * TL;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const T* qb = Q.head(b, h);
-  const T* kb = K.head(b, h);
-  const T* vb = V.head(b, h);
-  const T* ob = O.head(b, h);
-  const T* gb = dO.head(b, h);
+  const float* ob = O.head(b, h);
+  const float* gb = dO.head(b, h);
   const int* mrow = mask.row(b);
   const size_t srow = ((size_t)b * nh + h) * S;  // row offset into stats / D
 
-  load_rows<T, DP, TL>(qb, Q.sr, q0, S, d, Qs);
-  load_rows<T, DP, TL>(gb, dO.sr, q0, S, d, dOs);
+  load_rows<DP, TL>(Q.head(b, h), Q.sr, q0, S, d, Qs);
+  load_rows<DP, TL>(gb, dO.sr, q0, S, d, dOs);
   load_row_stats(stats + srow * 2, nullptr, q0, S, TL, m_s, l_s, D_s);
   // D_i = rowsum(dO * O), one warp per row.
   for (int i = threadIdx.x / 32; i < TL; i += FA_THREADS / 32) {
     float s = 0.0f;
     if (q0 + i < S)
-      for (int c = threadIdx.x % 32; c < d; c += 32)
-        s += fm::to_f32(gb[(q0 + i) * dO.sr + c]) * fm::to_f32(ob[(q0 + i) * O.sr + c]);
+      for (int c = threadIdx.x % 32; c < d; c += 32) s += gb[(q0 + i) * dO.sr + c] * ob[(q0 + i) * O.sr + c];
     s = fm::warp_sum(s);
     if (threadIdx.x % 32 == 0) {
       D_s[i] = s;
       if (q0 + i < S) Dg[srow + q0 + i] = s;
     }
   }
+  for (int e = threadIdx.x; e < TL * L::LD; e += FA_THREADS) dQ[e] = 0.0f;
 
-  dQ.zero();
   for (int k0 = 0; k0 < S; k0 += TL) {
     __syncthreads();  // previous tile fully consumed; D_s, Qs, dOs ready
-    load_rows<T, DP, TL>(kb, K.sr, k0, S, d, Ks);
-    load_rows<T, DP, TL>(vb, V.sr, k0, S, d, Vs);
+    load_rows<DP, TL>(K.head(b, h), K.sr, k0, S, d, Ks);
+    load_rows<DP, TL>(V.head(b, h), V.sr, k0, S, d, Vs);
     load_key_bias(mrow, k0, S, TL, kbias);
     __syncthreads();
     tile_mm<TL, TL, false, true>(Qs, L::LD, Ks, L::LD, DP, S32, L::LS, false);
@@ -903,40 +1278,37 @@ flash_bwd_dq_kernel(Mat<const T> Q, Mat<const T> K, Mat<const T> V, Mat<const T>
     for (int e = threadIdx.x; e < TL * TL; e += FA_THREADS) {
       const int i = e / TL, j = e % TL;
       const float p = expf(S32[i * L::LS + j] * scale + kbias[j] - m_s[i]) / l_s[i];
-      const float ds = p * (dP32[i * L::LS + j] - D_s[i]);
-      dSio[i * L::LP + j] = fm::from_f32<T>(ds * scale);
+      dS[i * L::LP + j] = p * (dP32[i * L::LS + j] - D_s[i]) * scale;
     }
     __syncthreads();
-    dQ.template mma<false>(dSio, L::LP, Ks, L::LD, TL);
+    tile_mm<TL, DP, false, false>(dS, L::LP, Ks, L::LD, TL, dQ, L::LD, true);
   }
   __syncthreads();
-  const float* dq = dQ.tile(S32);
-  __syncthreads();
   const long long cps = 3LL * nh * d;  // colpart row: dq | dk | dv, head h at h*d
-  write_grad<T, DP, TL>(dq, L::LA, dQg.head(b, h), dQg.sr, q0, S, d,
-                        colpart ? colpart + ((size_t)b * gridDim.x + blockIdx.x) * cps +
-                                      (size_t)h * d
-                                : nullptr);
+  write_grad<TL>(dQ, L::LD, dQg.head(b, h), dQg.sr, q0, S, d,
+                 colpart ? colpart + ((size_t)b * gridDim.x + blockIdx.x) * cps + (size_t)h * d
+                         : nullptr);
 }
 
-template <typename T, int DP, int TL>
-__global__ void __launch_bounds__(FA_THREADS, sizeof(T) == 2 ? 2 : 1)
-flash_bwd_dkdv_kernel(Mat<const T> Q, Mat<const T> K, Mat<const T> V, Mat<const T> dO,
-                      Mask mask, const float* __restrict__ stats, const float* __restrict__ Dg,
-                      Mat<T> dKg, Mat<T> dVg, float* __restrict__ colpart, int S, int nh, int d,
-                      float scale) {
-  using L = BwdSmem<T, DP, TL>;
+template <int DP>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_bwd_dkdv_f32_kernel(Mat<const float> Q, Mat<const float> K, Mat<const float> V,
+                          Mat<const float> dO, Mask mask, const float* __restrict__ stats,
+                          const float* __restrict__ Dg, Mat<float> dKg, Mat<float> dVg,
+                          float* __restrict__ colpart, int S, int nh, int d, float scale) {
+  using L = BwdF32Smem<DP>;
+  constexpr int TL = L::TL;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw + L::T0);
-  T* Vs = Ks + TL * L::LD;
-  T* Qs = Vs + TL * L::LD;
-  T* dOs = Qs + TL * L::LD;
-  GradAcc<T, DP, TL> dK(reinterpret_cast<float*>(smem_raw + L::ACC), L::LA);
-  GradAcc<T, DP, TL> dV(reinterpret_cast<float*>(smem_raw + L::ACC) + TL * L::LA, L::LA);
+  float* Ks = reinterpret_cast<float*>(smem_raw + L::T0);
+  float* Vs = Ks + TL * L::LD;
+  float* Qs = Vs + TL * L::LD;
+  float* dOs = Qs + TL * L::LD;
+  float* dK = reinterpret_cast<float*>(smem_raw + L::ACC);
+  float* dV = dK + TL * L::LD;
   float* S32 = reinterpret_cast<float*>(smem_raw + L::S32);
   float* dP32 = reinterpret_cast<float*>(smem_raw + L::DP32);
-  T* Pio = reinterpret_cast<T*>(smem_raw + L::PIO);
-  T* dSio = reinterpret_cast<T*>(smem_raw + L::DSIO);
+  float* P = reinterpret_cast<float*>(smem_raw + L::PIO);
+  float* dS = reinterpret_cast<float*>(smem_raw + L::DSIO);
   float* m_s = reinterpret_cast<float*>(smem_raw + L::VEC);
   float* l_s = m_s + TL;
   float* D_s = l_s + TL;
@@ -945,20 +1317,17 @@ flash_bwd_dkdv_kernel(Mat<const T> Q, Mat<const T> K, Mat<const T> V, Mat<const 
   const int k0 = blockIdx.x * TL;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const T* qb = Q.head(b, h);
-  const T* gb = dO.head(b, h);
   const size_t srow = ((size_t)b * nh + h) * S;
 
-  load_rows<T, DP, TL>(K.head(b, h), K.sr, k0, S, d, Ks);
-  load_rows<T, DP, TL>(V.head(b, h), V.sr, k0, S, d, Vs);
+  load_rows<DP, TL>(K.head(b, h), K.sr, k0, S, d, Ks);
+  load_rows<DP, TL>(V.head(b, h), V.sr, k0, S, d, Vs);
   load_key_bias(mask.row(b), k0, S, TL, kbias);
-  dK.zero();
-  dV.zero();
+  for (int e = threadIdx.x; e < 2 * TL * L::LD; e += FA_THREADS) dK[e] = 0.0f;
 
   for (int q0 = 0; q0 < S; q0 += TL) {
     __syncthreads();  // previous tile fully consumed
-    load_rows<T, DP, TL>(qb, Q.sr, q0, S, d, Qs);
-    load_rows<T, DP, TL>(gb, dO.sr, q0, S, d, dOs);
+    load_rows<DP, TL>(Q.head(b, h), Q.sr, q0, S, d, Qs);
+    load_rows<DP, TL>(dO.head(b, h), dO.sr, q0, S, d, dOs);
     load_row_stats(stats + srow * 2, Dg + srow, q0, S, TL, m_s, l_s, D_s);
     __syncthreads();
     tile_mm<TL, TL, false, true>(Qs, L::LD, Ks, L::LD, DP, S32, L::LS, false);
@@ -967,26 +1336,20 @@ flash_bwd_dkdv_kernel(Mat<const T> Q, Mat<const T> K, Mat<const T> V, Mat<const 
     for (int e = threadIdx.x; e < TL * TL; e += FA_THREADS) {
       const int i = e / TL, j = e % TL;  // query i, key j
       const float p = expf(S32[i * L::LS + j] * scale + kbias[j] - m_s[i]) / l_s[i];
-      const float ds = p * (dP32[i * L::LS + j] - D_s[i]);
-      Pio[i * L::LP + j] = fm::from_f32<T>(p);
-      dSio[i * L::LP + j] = fm::from_f32<T>(ds * scale);
+      P[i * L::LP + j] = p;
+      dS[i * L::LP + j] = p * (dP32[i * L::LS + j] - D_s[i]) * scale;
     }
     __syncthreads();
-    dV.template mma<true>(Pio, L::LP, dOs, L::LD, TL);
-    dK.template mma<true>(dSio, L::LP, Qs, L::LD, TL);
+    tile_mm<TL, DP, true, false>(P, L::LP, dOs, L::LD, TL, dV, L::LD, true);
+    tile_mm<TL, DP, true, false>(dS, L::LP, Qs, L::LD, TL, dK, L::LD, true);
   }
   __syncthreads();
   const long long cps = 3LL * nh * d;
   const long long H = (long long)nh * d;
   float* cp = colpart ? colpart + ((size_t)b * gridDim.x + blockIdx.x) * cps + (size_t)h * d
                       : nullptr;
-  const float* dk = dK.tile(S32);
-  __syncthreads();
-  write_grad<T, DP, TL>(dk, L::LA, dKg.head(b, h), dKg.sr, k0, S, d, cp ? cp + H : nullptr);
-  __syncthreads();
-  const float* dv = dV.tile(S32);
-  __syncthreads();
-  write_grad<T, DP, TL>(dv, L::LA, dVg.head(b, h), dVg.sr, k0, S, d, cp ? cp + 2 * H : nullptr);
+  write_grad<TL>(dK, L::LD, dKg.head(b, h), dKg.sr, k0, S, d, cp ? cp + H : nullptr);
+  write_grad<TL>(dV, L::LD, dVg.head(b, h), dVg.sr, k0, S, d, cp ? cp + 2 * H : nullptr);
 }
 
 struct BwdArgs {
@@ -999,45 +1362,78 @@ struct BwdArgs {
   float scale;
 };
 
-template <typename T, int DP>
-cudaError_t launch_bwd_dp(const BwdArgs& a, cudaStream_t s) {
-  constexpr int TL = sizeof(T) == 2 ? 64 : 32;
-  constexpr int bytes = BwdSmem<T, DP, TL>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DP, TL>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, DP, TL>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.S + TL - 1) / TL, a.nh, a.B);
-  flash_bwd_dq_kernel<T, DP, TL><<<grid, FA_THREADS, bytes, s>>>(
-      as_mat<const T>(a.q), as_mat<const T>(a.k), as_mat<const T>(a.v), as_mat<const T>(a.o),
-      as_mat<const T>(a.dout), a.mask, a.stats, a.D, as_mat<T>(a.dq), a.colpart, a.S, a.nh,
-      a.d, a.scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  flash_bwd_dkdv_kernel<T, DP, TL><<<grid, FA_THREADS, bytes, s>>>(
-      as_mat<const T>(a.q), as_mat<const T>(a.k), as_mat<const T>(a.v),
-      as_mat<const T>(a.dout), a.mask, a.stats, a.D, as_mat<T>(a.dk), as_mat<T>(a.dv),
-      a.colpart, a.S, a.nh, a.d, a.scale);
-  return cudaGetLastError();
+// Which kernels a launch runs: the dQ kernel (which writes D), the dK / dV
+// kernel (which reads it), or both in that order.
+enum BwdPart { BWD_DQ = 1, BWD_DKDV = 2, BWD_BOTH = 3 };
+
+template <int DP>
+cudaError_t launch_bwd_mma(const BwdArgs& a, int part, cudaStream_t s) {
+  constexpr int bytes = BwdSmem<DP>::BYTES;
+  const dim3 grid((a.S + BWD_TILE - 1) / BWD_TILE, a.nh, a.B);
+  cudaError_t e;
+  if (part & BWD_DQ) {
+    e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    flash_bwd_dq_mma_kernel<DP><<<grid, BWD_THREADS, bytes, s>>>(
+        as_mat<const fm_bf16>(a.q), as_mat<const fm_bf16>(a.k), as_mat<const fm_bf16>(a.v),
+        as_mat<const fm_bf16>(a.o), as_mat<const fm_bf16>(a.dout), a.mask, a.stats, a.D,
+        as_mat<fm_bf16>(a.dq), a.colpart, a.S, a.nh, a.d, a.scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (part & BWD_DKDV) {
+    e = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    flash_bwd_dkdv_mma_kernel<DP><<<grid, BWD_THREADS, bytes, s>>>(
+        as_mat<const fm_bf16>(a.q), as_mat<const fm_bf16>(a.k), as_mat<const fm_bf16>(a.v),
+        as_mat<const fm_bf16>(a.dout), a.mask, a.stats, a.D, as_mat<fm_bf16>(a.dk),
+        as_mat<fm_bf16>(a.dv), a.colpart, a.S, a.nh, a.d, a.scale);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
 }
 
-template <typename T>
-cudaError_t launch_bwd_t(const BwdArgs& a, cudaStream_t s) {
+template <int DP>
+cudaError_t launch_bwd_f32(const BwdArgs& a, int part, cudaStream_t s) {
+  constexpr int bytes = BwdF32Smem<DP>::BYTES;
+  const dim3 grid((a.S + F32_TL - 1) / F32_TL, a.nh, a.B);
+  cudaError_t e;
+  if (part & BWD_DQ) {
+    e = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    flash_bwd_dq_f32_kernel<DP><<<grid, FA_THREADS, bytes, s>>>(
+        as_mat<const float>(a.q), as_mat<const float>(a.k), as_mat<const float>(a.v),
+        as_mat<const float>(a.o), as_mat<const float>(a.dout), a.mask, a.stats, a.D,
+        as_mat<float>(a.dq), a.colpart, a.S, a.nh, a.d, a.scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (part & BWD_DKDV) {
+    e = cudaFuncSetAttribute(flash_bwd_dkdv_f32_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    flash_bwd_dkdv_f32_kernel<DP><<<grid, FA_THREADS, bytes, s>>>(
+        as_mat<const float>(a.q), as_mat<const float>(a.k), as_mat<const float>(a.v),
+        as_mat<const float>(a.dout), a.mask, a.stats, a.D, as_mat<float>(a.dk),
+        as_mat<float>(a.dv), a.colpart, a.S, a.nh, a.d, a.scale);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
+}
+
+cudaError_t launch_bwd(const BwdArgs& a, int dtype, int part, cudaStream_t s) {
+  const bool bf16 = dtype == FM_BF16;
+  if ((!bf16 && dtype != FM_F32) || part < BWD_DQ || part > BWD_BOTH) return cudaErrorInvalidValue;
   switch (head_pad(a.d)) {
-    case 32: return launch_bwd_dp<T, 32>(a, s);
-    case 64: return launch_bwd_dp<T, 64>(a, s);
-    case 96: return launch_bwd_dp<T, 96>(a, s);
-    case 128: return launch_bwd_dp<T, 128>(a, s);
+    case 32: return bf16 ? launch_bwd_mma<32>(a, part, s) : launch_bwd_f32<32>(a, part, s);
+    case 64: return bf16 ? launch_bwd_mma<64>(a, part, s) : launch_bwd_f32<64>(a, part, s);
+    case 96: return bf16 ? launch_bwd_mma<96>(a, part, s) : launch_bwd_f32<96>(a, part, s);
+    case 128: return bf16 ? launch_bwd_mma<128>(a, part, s) : launch_bwd_f32<128>(a, part, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-cudaError_t launch_bwd(const BwdArgs& a, int dtype, cudaStream_t s) {
-  if (dtype == FM_F32) return launch_bwd_t<float>(a, s);
-  if (dtype == FM_BF16) return launch_bwd_t<fm_bf16>(a, s);
-  return cudaErrorInvalidValue;
 }
 
 Op strided(const void* p, const long long* s) { return Op{p, s[0], s[1], s[2]}; }
@@ -1064,6 +1460,24 @@ int fm_flash_attention_fwd(const void* q, const long long* qs, const void* k,
   return launch_fwd(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
+// fm_flash_attention_bwd with ``part`` choosing the launches: 1 the dQ
+// kernel (it writes D), 2 the dK / dV kernel (it reads D), 3 both in order.
+int fm_flash_attention_bwd_part(const void* q, const long long* qs, const void* k,
+                                const long long* ks, const void* v, const long long* vs,
+                                const void* o, const long long* os, const void* dout,
+                                const long long* dos, const void* mask, long long mask_sb,
+                                const void* stats, void* D, void* dq, const long long* dqs,
+                                void* dk, const long long* dks, void* dv, const long long* dvs,
+                                void* colpart, int B, int S, int nh, int d, float scale,
+                                int dtype, int part, void* stream) {
+  const BwdArgs a{strided(q, qs), strided(k, ks), strided(v, vs), strided(o, os),
+                  strided(dout, dos), strided(dq, dqs), strided(dk, dks), strided(dv, dvs),
+                  Mask{static_cast<const int*>(mask), mask_sb},
+                  static_cast<const float*>(stats), static_cast<float*>(D),
+                  static_cast<float*>(colpart), B, S, nh, d, scale};
+  return launch_bwd(a, dtype, part, static_cast<cudaStream_t>(stream));
+}
+
 // Strided flash attention backward (Pallas #10, and the attention core of
 // #3 / #6 with colpart), two launches: q, k, v, o,
 // dout (dO, io dtype) as in fm_flash_attention_fwd, stats from it; D
@@ -1077,12 +1491,9 @@ int fm_flash_attention_bwd(const void* q, const long long* qs, const void* k,
                            const void* stats, void* D, void* dq, const long long* dqs, void* dk,
                            const long long* dks, void* dv, const long long* dvs, void* colpart,
                            int B, int S, int nh, int d, float scale, int dtype, void* stream) {
-  const BwdArgs a{strided(q, qs), strided(k, ks), strided(v, vs), strided(o, os),
-                  strided(dout, dos), strided(dq, dqs), strided(dk, dks), strided(dv, dvs),
-                  Mask{static_cast<const int*>(mask), mask_sb},
-                  static_cast<const float*>(stats), static_cast<float*>(D),
-                  static_cast<float*>(colpart), B, S, nh, d, scale};
-  return launch_bwd(a, dtype, static_cast<cudaStream_t>(stream));
+  return fm_flash_attention_bwd_part(q, qs, k, ks, v, vs, o, os, dout, dos, mask, mask_sb, stats,
+                                     D, dq, dqs, dk, dks, dv, dvs, colpart, B, S, nh, d, scale,
+                                     dtype, BWD_BOTH, stream);
 }
 
 }  // extern "C"

@@ -35,17 +35,17 @@
 //
 // Design.  What bounds a bf16 product is the tensor cores' rate, and only
 // wgmma reaches it.
-//   - bf16 "nt" (every forward product: QKV, Wo, W1, W2): gemm_nt_wgmma_kernel,
-//     a 128 x 256 tile per block of two consumer warpgroups (m64n256k16
-//     wgmma from shared memory) and a producer warpgroup whose one thread
-//     keeps four 64-deep K stages of A and B in flight by TMA (128-byte
-//     swizzle, full / empty mbarriers).  At 128 x 256 a tile needs about 11
-//     TB/s of L2 traffic for the peak rate, so L2 rather than the tensor
-//     cores may bound it.
-//   - bf16 "nn" and "tn" (the backward's): 128x128 output tile per
-//     256-thread block of WMMA 16x16x16 fragments with fp32 accumulators,
-//     32-deep K slices copied by cp.async into a two-stage ring (8 warps,
-//     64x32 each).
+//   - bf16, every layout: gemm_wgmma_kernel, a 128 x 256 tile per block of
+//     two consumer warpgroups (m64n256k16 wgmma from shared memory) and a
+//     producer warpgroup whose one thread keeps four 64-deep K stages of A
+//     and B in flight by TMA (128-byte swizzle, full / empty mbarriers).
+//     Each operand is K-major (the "nt" forward's A and B, the "nn" dY) or
+//     MN-major (the "nn" weight, both "tn" operands): an MN-major operand
+//     comes in 64-wide boxes, gets its own descriptor (leading offset one
+//     box, a 2048-byte step per 16 of K) and sets the wgmma's transpose
+//     immediate, so no operand is ever transposed in memory.  At 128 x 256
+//     a tile needs about 11 TB/s of L2 traffic for the peak rate, so L2
+//     rather than the tensor cores may bound it.
 //   - fp32 (any layout): CUDA-core FMA with 8x8 outputs per thread (full
 //     fp32, no TF32); it serves the card-vs-CPU checks, not the main path.
 // The epilogue is chosen at compile time (Mode) and works on groups of 8
@@ -56,16 +56,13 @@
 // fp32 partials [splits, M, N] that fm_colsum adds in a fixed order, so the
 // sum is the same bits every run (no atomics anywhere).  Column sums for
 // the bias grads are per row-block partials, also added by fm_colsum.
-// What it leaves on the table: wgmma + TMA for "nn" / "tn"; in "nt" a
-// persistent schedule (the epilogue does not overlap the next tile's loads)
-// and TMA multicast across a cluster (L2 traffic); and the TPU kernels'
-// fusion (q/k/v/o, the [R, F] intermediate and dz round-trip HBM).
+// What it leaves on the table: a persistent schedule (the epilogue does not
+// overlap the next tile's loads), TMA multicast across a cluster (L2
+// traffic), a split-K "tn" whose partials stay in the cluster, and the TPU
+// kernels' fusion (q/k/v/o, the [R, F] intermediate and dz round-trip HBM).
 #include <cuda.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "fm_common.cuh"
 #include "philox.cuh"
@@ -342,188 +339,44 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float*
   }
 }
 
-// ---- bf16 tensor-core kernel (WMMA) -------------------------------------------
-
-constexpr int TC_BK = 32;
-constexpr int LDK = TC_BK + 8;  // pitch of a K-contiguous tile [128][LDK]: 80 bytes
-constexpr int LDR = BM + 8;     // pitch of a row-contiguous tile [TC_BK][LDR]: 272 bytes
-constexpr int STAGE = BM * LDK;  // elements per stage (>= TC_BK * LDR)
-static_assert(STAGE >= TC_BK * LDR, "stage size");
-constexpr int TC_WM = 64;  // warp tile rows (2 warps down the block)
-constexpr int TC_WN = 32;  // warp tile cols (4 warps across)
-constexpr int TC_FM = TC_WM / 16;
-constexpr int TC_FN = TC_WN / 16;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-// [128 x TC_BK] slice of a K-contiguous matrix [nrows, K] -> dst[128][LDK].
-__device__ __forceinline__ void stage_tc_rows(const fm_bf16* __restrict__ src, int nrows, int K,
-                                              int r0, int k0, fm_bf16* dst) {
-  constexpr int CPR = TC_BK / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < BM * CPR; c += THREADS) {
-    const int row = c / CPR;
-    const int col = (c % CPR) * 8;
-    fm_bf16* d = dst + row * LDK + col;
-    if (r0 + row < nrows)
-      cp_async16(d, src + (size_t)(r0 + row) * K + k0 + col);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// [TC_BK x 128] slice of a matrix stored [K, ncols] -> dst[TC_BK][LDR];
-// ncols % 8 == 0, columns past ncols and rows from kend on are zero.
-__device__ __forceinline__ void stage_tc_cols(const fm_bf16* __restrict__ src, int ncols,
-                                              int c0, int k0, int kend, fm_bf16* dst) {
-  constexpr int CPR = BM / 8;
-  for (int c = threadIdx.x; c < TC_BK * CPR; c += THREADS) {
-    const int kk = c / CPR;
-    const int col = (c % CPR) * 8;
-    fm_bf16* d = dst + kk * LDR + col;
-    if (c0 + col < ncols && k0 + kk < kend)
-      cp_async16(d, src + (size_t)(k0 + kk) * ncols + c0 + col);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-template <typename TOut, int AT, int MODE>
-__global__ void __launch_bounds__(THREADS)
-gemm_bf16_tc_kernel(const fm_bf16* __restrict__ A, const fm_bf16* __restrict__ B,
-                    TOut* __restrict__ C, int M, int N, int K, int Kc, Epi e) {
-  using namespace nvcuda;
-  using ALay = typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
-  __shared__ __align__(128) fm_bf16 As[2][STAGE];
-  __shared__ __align__(128) fm_bf16 Bs[2][STAGE];
-  __shared__ float colsum[2][BN];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wm = warp / 4;  // 0..1
-  const int wn = warp % 4;  // 0..3
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int kb = blockIdx.z * Kc;
-  const int kend = min(kb + Kc, K);
-  C += (size_t)blockIdx.z * M * N;
-
-  auto stage = [&](int k0, int buf) {
-    if (AT) stage_tc_cols(A, M, m0, k0, kend, As[buf]);
-    else stage_tc_rows(A, M, K, m0, k0, As[buf]);
-    stage_tc_cols(B, N, n0, k0, kend, Bs[buf]);
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TC_FM][TC_FN];
-#pragma unroll
-  for (int i = 0; i < TC_FM; ++i)
-#pragma unroll
-    for (int j = 0; j < TC_FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int nk = (kend - kb + TC_BK - 1) / TC_BK;
-  stage(kb, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) stage(kb + (kt + 1) * TC_BK, cur ^ 1);
-    cp_async_commit();
-    cp_async_wait_prev();  // the current stage has landed
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TC_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, fm_bf16, ALay> af[TC_FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, fm_bf16, wmma::row_major> bf[TC_FN];
-#pragma unroll
-      for (int i = 0; i < TC_FM; ++i) {
-        const int mo = wm * TC_WM + i * 16;
-        wmma::load_matrix_sync(af[i], AT ? As[cur] + kk * LDR + mo : As[cur] + mo * LDK + kk,
-                               AT ? LDR : LDK);
-      }
-#pragma unroll
-      for (int j = 0; j < TC_FN; ++j) {
-        const int no = wn * TC_WN + j * 16;
-        wmma::load_matrix_sync(bf[j], Bs[cur] + kk * LDR + no, LDR);
-      }
-#pragma unroll
-      for (int i = 0; i < TC_FM; ++i)
-#pragma unroll
-        for (int j = 0; j < TC_FN; ++j) wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-    }
-    __syncthreads();  // everyone is done with `cur` before it is refilled
-  }
-
-  // Epilogue: one 16x16 fp32 fragment at a time through a per-warp slice of
-  // the (now idle) A buffer; lane l takes row l / 2, columns (l % 2) * 8 ..
-  // +8 of it, so its running column sums are its 8 columns' share of the
-  // warp's 64 rows, added across the 16 lanes that share them.
-  float* st = reinterpret_cast<float*>(&As[0][0]) + warp * 256;
-  const int lr = lane / 2, lc = (lane % 2) * 8;
-#pragma unroll
-  for (int j = 0; j < TC_FN; ++j) {
-    float csum[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) csum[k] = 0.0f;
-    const int col = n0 + wn * TC_WN + j * 16 + lc;
-#pragma unroll
-    for (int i = 0; i < TC_FM; ++i) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int row = m0 + wm * TC_WM + i * 16 + lr;
-      if (row < M && col < N) {
-        float v[8];
-        load_group<8>(st + lr * 16 + lc, v);
-        epilogue_group<MODE, 8, fm_bf16, TOut>(e, row, col, N, v, C, csum);
-      }
-      __syncwarp();
-    }
-    if (MODE == EPI_GATE) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-#pragma unroll
-        for (int o = 2; o < 32; o <<= 1) csum[k] += __shfl_xor_sync(0xffffffffu, csum[k], o);
-      if (lane < 2)
-#pragma unroll
-        for (int k = 0; k < 8; ++k) colsum[wm][wn * TC_WN + j * 16 + lc + k] = csum[k];
-    }
-  }
-  if (MODE == EPI_GATE) {
-    __syncthreads();
-    if (threadIdx.x < BN && n0 + threadIdx.x < N)
-      e.colpart[(size_t)blockIdx.y * N + n0 + threadIdx.x] =
-          colsum[0][threadIdx.x] + colsum[1][threadIdx.x];
-  }
-}
-
-// ---- bf16 "nt" kernel: wgmma fed by TMA, warp-specialised ----------------------
+// ---- bf16 kernel: wgmma fed by TMA, warp-specialised, every layout ----------------
 //
-// C[M, N] = epilogue(A[M, K] . B[N, K]^T), both operands K-major: wgmma's own
-// layout.  A 128 x 256 output tile per block of three warpgroups: warpgroup 2
-// is the producer (one thread issues the TMA copies of each 64-deep K slice
-// of A and B into a ring of NT_STAGES stages, after the stage's "empty"
-// mbarrier says both consumers released it); warpgroups 0 and 1 each own 64
-// rows and run one m64n256k16 wgmma per 16 of K from shared memory, their
-// fp32 accumulators (128 a thread) in registers.  setmaxnreg moves registers
-// from the producer (40) to the consumers (232).  TMA's 128-byte swizzle is
-// the layout the wgmma descriptors name, and its zero fill takes the ragged
-// edges of M, N and K.  Epilogue: after both consumers leave the main loop
-// the ring is idle; each stages its 64 x 256 fp32 tile there and runs the
-// same epilogue_group as the other kernels over groups of 8 columns (bias,
-// activation, aux, Philox dropout at (row * N + col) >> 2, bf16 or fp32 out).
+// C[M, N] = epilogue(op(A) . op(B)) with each operand K-major or MN-major
+// (AT / BT): "nt" (K, K), "nn" (K, MN), "tn" (MN, MN).  A 128 x 256 output
+// tile per block of three warpgroups: warpgroup 2 is the producer (one
+// thread issues the TMA copies of each 64-deep K slice of A and B into a ring
+// of WG_STAGES stages, after the stage's "empty" mbarrier says both consumers
+// released it); warpgroups 0 and 1 each own 64 rows and run one m64n256k16
+// wgmma per 16 of K from shared memory, their fp32 accumulators (128 a
+// thread) in registers.  setmaxnreg moves registers from the producer (40)
+// to the consumers (232).  TMA's 128-byte swizzle is the layout the wgmma
+// descriptors name, and its zero fill takes the ragged edges of M, N and K.
+// A K-major operand arrives as one [rows, 64 K] box (rows 128-byte lines);
+// an MN-major one, stored [K, MN] with MN contiguous, as [64 K, 64 MN] boxes
+// (one 128-byte line per K row, each 8 KB), 2 for A's 128 rows and 4 for
+// B's 256 columns, and the wgmma's transpose immediate for that operand is
+// set.  "tn" splits K over gridDim.z (Kc rows each, a multiple of 64) into
+// fp32 partials [splits, M, N].  Epilogue: after both consumers leave the
+// main loop the ring is idle; each stages its 64 x 256 fp32 tile there and
+// runs epilogue_group over groups of 8 columns (MODE: the forward's bias,
+// activation, aux and Philox dropout at (row * N + col) >> 2; the
+// backward's plain store, fp32 residual add, or gate with the column sums of
+// its 128 rows, added over the 16 rows of each of the 8 consumer warps and
+// then over the warps in order, so colpart is the same bits every run).
 
-constexpr int NT_BM = 128;
-constexpr int NT_BN = 256;
-constexpr int NT_BK = 64;  // one 128-byte swizzle row of bf16
-constexpr int NT_STAGES = 4;
-constexpr int NT_THREADS = 384;
-constexpr int NT_A_BYTES = NT_BM * NT_BK * 2;
-constexpr int NT_STAGE_BYTES = NT_A_BYTES + NT_BN * NT_BK * 2;
-constexpr int NT_RING = NT_STAGES * NT_STAGE_BYTES;
-constexpr int NT_CPITCH = NT_BN + 8;  // fp32 staging pitch: the float2 stores take 2 wavefronts
-constexpr int NT_SMEM = NT_RING + 2 * NT_STAGES * 8 + 1024;  // + mbarriers + 1024-byte alignment
-static_assert(2 * 64 * NT_CPITCH * 4 <= NT_RING, "the fp32 staging tiles fit the ring");
+constexpr int WG_BM = 128;
+constexpr int WG_BN = 256;
+constexpr int WG_BK = 64;  // one 128-byte swizzle line of bf16
+constexpr int WG_STAGES = 4;
+constexpr int WG_THREADS = 384;
+constexpr int WG_BOX = 64 * WG_BK * 2;  // one MN-major [64 K][64 MN] box, bytes
+constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;
+constexpr int WG_STAGE_BYTES = WG_A_BYTES + WG_BN * WG_BK * 2;
+constexpr int WG_RING = WG_STAGES * WG_STAGE_BYTES;
+constexpr int WG_CPITCH = WG_BN + 8;  // fp32 staging pitch: the float2 stores take 2 wavefronts
+constexpr int WG_CSUM = 2 * 64 * WG_CPITCH * 4;  // ring offset of the [8][256] column sums
+constexpr int WG_SMEM = WG_RING + 2 * WG_STAGES * 8 + 1024;  // + mbarriers + 1024-byte alignment
+static_assert(WG_CSUM + 8 * WG_BN * 4 <= WG_RING, "the fp32 staging tiles and sums fit the ring");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -555,26 +408,38 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// The box of ``map`` at (k, row) into shared memory, completing on ``bar``.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int k, int row,
+// The box of ``map`` at coordinates (c0 innermost, c1) into shared memory,
+// completing on ``bar``.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
                                          uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k), "r"(row)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
-// wgmma descriptor of a K-major tile whose rows are 128-byte swizzled lines
-// (TMA's SWIZZLE_128B), 8-row groups 1024 bytes apart; the tile base is
-// 1024-byte aligned, and a 16-deep K step moves the start 32 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+// wgmma descriptor (start >> 4, leading byte offset >> 4 at bit 16, stride
+// byte offset >> 4 at bit 32, 128-byte swizzle) of the 16-deep K slice kk of
+// a tile whose base is 1024-byte aligned.
+//   K-major: rows are 128-byte lines of K, 8-row groups 1024 bytes apart
+//     (stride); the leading offset is unused (1); a K slice starts 32 bytes on.
+//   MN-major: [64 K][64 MN] boxes, a 128-byte line of MN per K row; 8-row K
+//     groups 1024 bytes apart (stride), successive 64-wide MN blocks one box
+//     (8 KB) apart (leading); a K slice starts 16 lines (2048 bytes) on.
+// (The canonical layouts of CUTLASS's make_gmma_desc for Major::K / MN with
+// SW128.)
+template <int MN_MAJOR>
+__device__ __forceinline__ uint64_t wg_desc(uint32_t base, int kk) {
+  const uint32_t addr = base + (MN_MAJOR ? 2048 * kk : 32 * kk);
+  const uint64_t lead = MN_MAJOR ? WG_BOX >> 4 : 1;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (lead << 16) | ((uint64_t)(1024 >> 4) << 32) |
          ((uint64_t)1 << 62);
 }
 
-// d[0..128) += A . B^T over 16 of K: one m64n256k16 wgmma, both operands
-// K-major in shared memory.
+// d[0..128) += op(A) . op(B) over 16 of K: one m64n256k16 wgmma from shared
+// memory; TA / TB are the transpose immediates (1: that operand is MN-major).
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -587,7 +452,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, ui
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -604,7 +469,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, ui
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
 // Keep the compiler from moving reads of d across the asynchronous wgmma.
@@ -613,21 +478,23 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
   for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-template <typename TOut>
-__global__ void __launch_bounds__(NT_THREADS, 1)
-gemm_nt_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
-                     const __grid_constant__ CUtensorMap tmB, TOut* __restrict__ C, int M, int N,
-                     int K, Epi e) {
+template <typename TOut, int AT, int BT, int MODE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB,
+                  TOut* __restrict__ C, int M, int N, int K, int Kc, Epi e) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + NT_RING);
-  uint64_t* empty = full + NT_STAGES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + WG_RING);
+  uint64_t* empty = full + WG_STAGES;
   const int wg = threadIdx.x / 128;
-  const int m0 = blockIdx.y * NT_BM;
-  const int n0 = blockIdx.x * NT_BN;
-  const int nk = (K + NT_BK - 1) / NT_BK;
+  const int m0 = blockIdx.y * WG_BM;
+  const int n0 = blockIdx.x * WG_BN;
+  const int kb = blockIdx.z * Kc;  // this split's K rows [kb, kend)
+  const int kend = min(kb + Kc, K);
+  const int nk = kend > kb ? (kend - kb + WG_BK - 1) / WG_BK : 0;
+  C += (size_t)blockIdx.z * M * N;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < NT_STAGES; ++s) {
+    for (int s = 0; s < WG_STAGES; ++s) {
       mbar_init(&full[s], 1);   // the producer's arrive, plus the copies' bytes
       mbar_init(&empty[s], 2);  // one arrive per consumer warpgroup
     }
@@ -639,12 +506,24 @@ gemm_nt_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == 256) {
       for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % NT_STAGES;
-        mbar_wait(&empty[s], ((kt / NT_STAGES) & 1) ^ 1);  // the first round passes at once
-        mbar_expect_tx(&full[s], NT_STAGE_BYTES);
-        unsigned char* a = ring + s * NT_STAGE_BYTES;
-        tma_load(a, &tmA, kt * NT_BK, m0, &full[s]);
-        tma_load(a + NT_A_BYTES, &tmB, kt * NT_BK, n0, &full[s]);
+        const int s = kt % WG_STAGES;
+        const int k = kb + kt * WG_BK;
+        mbar_wait(&empty[s], ((kt / WG_STAGES) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(&full[s], WG_STAGE_BYTES);
+        unsigned char* a = ring + s * WG_STAGE_BYTES;
+        unsigned char* b = a + WG_A_BYTES;
+        if (AT) {
+          tma_load(a, &tmA, m0, k, &full[s]);
+          tma_load(a + WG_BOX, &tmA, m0 + 64, k, &full[s]);
+        } else {
+          tma_load(a, &tmA, k, m0, &full[s]);
+        }
+        if (BT) {
+#pragma unroll
+          for (int j = 0; j < WG_BN / 64; ++j) tma_load(b + j * WG_BOX, &tmB, n0 + 64 * j, k, &full[s]);
+        } else {
+          tma_load(b, &tmB, k, n0, &full[s]);
+        }
       }
     }
   } else {
@@ -654,14 +533,16 @@ gemm_nt_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
     for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
     fence_acc(acc);
     for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % NT_STAGES;
-      mbar_wait(&full[s], (kt / NT_STAGES) & 1);
-      const uint32_t a = smem_u32(ring + s * NT_STAGE_BYTES) + wg * 64 * NT_BK * 2;
-      const uint32_t b = smem_u32(ring + s * NT_STAGE_BYTES + NT_A_BYTES);
+      const int s = kt % WG_STAGES;
+      mbar_wait(&full[s], (kt / WG_STAGES) & 1);
+      // This consumer's 64 rows of A: the second half of a K-major [128][64]
+      // box, or the second MN-major box; 8 KB on either way.
+      const uint32_t a = smem_u32(ring + s * WG_STAGE_BYTES) + wg * 64 * WG_BK * 2;
+      const uint32_t b = smem_u32(ring + s * WG_STAGE_BYTES + WG_A_BYTES);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int kk = 0; kk < NT_BK / 16; ++kk)
-        wgmma_m64n256k16(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk));
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+        wgmma_m64n256k16<AT, BT>(acc, wg_desc<AT>(a, kk), wg_desc<BT>(b, kk));
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       fence_acc(acc);
@@ -672,29 +553,44 @@ gemm_nt_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
     // each stages its 64 rows: thread (warp w, lane l) holds rows 16w + l/4
     // and + 8, columns 8i + 2(l % 4) + {0, 1} of acc[4i .. 4i + 3].
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
-    float* stage = reinterpret_cast<float*>(ring) + wg * 64 * NT_CPITCH;
+    float* stage = reinterpret_cast<float*>(ring) + wg * 64 * WG_CPITCH;
     const int warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
     const int r = warp * 16 + lane / 4;
 #pragma unroll
-    for (int i = 0; i < NT_BN / 8; ++i) {
+    for (int i = 0; i < WG_BN / 8; ++i) {
       const int c = 8 * i + 2 * (lane % 4);
-      *reinterpret_cast<float2*>(stage + r * NT_CPITCH + c) = make_float2(acc[4 * i], acc[4 * i + 1]);
-      *reinterpret_cast<float2*>(stage + (r + 8) * NT_CPITCH + c) =
+      *reinterpret_cast<float2*>(stage + r * WG_CPITCH + c) = make_float2(acc[4 * i], acc[4 * i + 1]);
+      *reinterpret_cast<float2*>(stage + (r + 8) * WG_CPITCH + c) =
           make_float2(acc[4 * i + 2], acc[4 * i + 3]);
     }
     asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
     // Warp w runs the epilogue over its 16 staged rows, lane l over the 8
     // columns from 8l: 16-byte loads and stores, one Philox call per 4.
     const int col = n0 + lane * 8;
-    float csum[8];  // EPI_BIAS_ACT keeps no column sums
+    float csum[8];  // EPI_GATE: this lane's column sums over the warp's rows
+#pragma unroll
+    for (int k = 0; k < 8; ++k) csum[k] = 0.0f;
 #pragma unroll 4
     for (int i = 0; i < 16; ++i) {
       const int lr = warp * 16 + i;
       const int row = m0 + wg * 64 + lr;
       if (row < M && col < N) {
         float v[8];
-        load_group<8>(stage + lr * NT_CPITCH + lane * 8, v);
-        epilogue_group<EPI_BIAS_ACT, 8, fm_bf16, TOut>(e, row, col, N, v, C, csum);
+        load_group<8>(stage + lr * WG_CPITCH + lane * 8, v);
+        epilogue_group<MODE, 8, fm_bf16, TOut>(e, row, col, N, v, C, csum);
+      }
+    }
+    if (MODE == EPI_GATE) {  // the 8 warps' sums, added in warp order
+      float* sums = reinterpret_cast<float*>(ring + WG_CSUM);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sums[(wg * 4 + warp) * WG_BN + lane * 8 + k] = csum[k];
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      const int c = threadIdx.x;  // 0 .. 255
+      if (n0 + c < N) {
+        float s = 0.0f;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) s += sums[w * WG_BN + c];
+        e.colpart[(size_t)blockIdx.y * N + n0 + c] = s;
       }
     }
   }
@@ -719,14 +615,16 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The TMA map of a K-contiguous bf16 matrix [rows, K] in [box_rows, 64]
-// boxes, 128-byte swizzle; reads past its edges give zeros.
-bool kmajor_map(CUtensorMap* map, const void* p, int rows, int K, int box_rows) {
+// The TMA map of a row-major bf16 matrix [outer, inner] read in
+// [box_outer, box_inner] boxes, 128-byte swizzle; reads past its edges give
+// zeros.
+bool bf16_map(CUtensorMap* map, const void* p, int outer, int inner, int box_outer,
+              int box_inner) {
   const EncodeTiledFn enc = encode_tiled();
   if (!enc) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-  const cuuint32_t box[2] = {NT_BK, (cuuint32_t)box_rows};
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
   const cuuint32_t elem[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box,
              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -734,51 +632,44 @@ bool kmajor_map(CUtensorMap* map, const void* p, int rows, int K, int box_rows) 
          CUDA_SUCCESS;
 }
 
-template <typename TOut>
-cudaError_t launch_nt_wgmma(const void* A, const void* B, void* C, int M, int N, int K,
-                            const Epi& e, cudaStream_t s) {
+// The map of one operand with ``mn`` rows or columns: K-major [mn, K] in
+// [box_mn, 64] boxes, or MN-major [K, mn] in [64, 64] boxes.
+bool operand_map(CUtensorMap* map, const void* p, int mn, int K, bool mn_major, int box_mn) {
+  return mn_major ? bf16_map(map, p, K, mn, WG_BK, 64) : bf16_map(map, p, mn, K, box_mn, WG_BK);
+}
+
+template <typename TOut, int AT, int BT, int MODE>
+cudaError_t launch_wgmma(const void* A, const void* B, void* C, int M, int N, int K, int splits,
+                         int Kc, const Epi& e, cudaStream_t s) {
   CUtensorMap ta, tb;
-  if (!kmajor_map(&ta, A, M, K, NT_BM) || !kmajor_map(&tb, B, N, K, NT_BN))
+  if (!operand_map(&ta, A, M, K, AT, WG_BM) || !operand_map(&tb, B, N, K, BT, WG_BN))
     return cudaErrorInvalidValue;
   // Per launch, as the attribute belongs to the current device.
-  const cudaError_t err = cudaFuncSetAttribute(
-      gemm_nt_wgmma_kernel<TOut>, cudaFuncAttributeMaxDynamicSharedMemorySize, NT_SMEM);
+  const cudaError_t err = cudaFuncSetAttribute(gemm_wgmma_kernel<TOut, AT, BT, MODE>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               WG_SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + NT_BN - 1) / NT_BN, (M + NT_BM - 1) / NT_BM);
-  gemm_nt_wgmma_kernel<TOut><<<grid, NT_THREADS, NT_SMEM, s>>>(ta, tb, static_cast<TOut*>(C), M,
-                                                                N, K, e);
+  const dim3 grid((N + WG_BN - 1) / WG_BN, (M + WG_BM - 1) / WG_BM, splits);
+  gemm_wgmma_kernel<TOut, AT, BT, MODE><<<grid, WG_THREADS, WG_SMEM, s>>>(
+      ta, tb, static_cast<TOut*>(C), M, N, K, Kc, e);
   return cudaGetLastError();
 }
 
-// fp32 runs on CUDA cores in every layout; bf16 "nt" (AT = BT = 0) on the
-// wgmma kernel, "nn" and "tn" (BT = 1) on WMMA.
+// fp32 runs on CUDA cores in every layout, bf16 on the wgmma kernel.
 template <int AT, int BT, int MODE>
 cudaError_t launch(const void* A, const void* B, void* C, int M, int N, int K, int splits,
                    int dtype, int out_f32, const Epi& e, cudaStream_t s) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  // K per split, a multiple of the K slice; the last split may be short.
-  const int Kc = ((K + splits - 1) / splits + TC_BK - 1) / TC_BK * TC_BK;
+  // K per split, a multiple of the wgmma kernel's K slice; the last split may be short.
+  const int Kc = ((K + splits - 1) / splits + WG_BK - 1) / WG_BK * WG_BK;
   if (dtype == FM_F32) {
+    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
     gemm_f32_kernel<AT, BT, MODE><<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(A), static_cast<const float*>(B), static_cast<float*>(C),
         M, N, K, Kc, e);
     return cudaGetLastError();
   }
-  if constexpr (AT == 0 && BT == 0) {
-    return out_f32 ? launch_nt_wgmma<float>(A, B, C, M, N, K, e, s)
-                   : launch_nt_wgmma<fm_bf16>(A, B, C, M, N, K, e, s);
-  } else {
-    static_assert(BT == 1, "the WMMA kernel takes B as [K, N]");
-    if (out_f32)
-      gemm_bf16_tc_kernel<float, AT, MODE><<<grid, THREADS, 0, s>>>(
-          static_cast<const fm_bf16*>(A), static_cast<const fm_bf16*>(B),
-          static_cast<float*>(C), M, N, K, Kc, e);
-    else
-      gemm_bf16_tc_kernel<fm_bf16, AT, MODE><<<grid, THREADS, 0, s>>>(
-          static_cast<const fm_bf16*>(A), static_cast<const fm_bf16*>(B),
-          static_cast<fm_bf16*>(C), M, N, K, Kc, e);
-    return cudaGetLastError();
-  }
+  return out_f32 ? launch_wgmma<float, AT, BT, MODE>(A, B, C, M, N, K, splits, Kc, e, s)
+                 : launch_wgmma<fm_bf16, AT, BT, MODE>(A, B, C, M, N, K, splits, Kc, e, s);
 }
 
 // ---- deterministic column sums ---------------------------------------------------
@@ -854,8 +745,8 @@ extern "C" {
 // top of this file).  A, B in the io dtype (dtype), C in the io dtype or fp32
 // (out_f32; fp32 io always gives fp32).  For "nt" and "nn" K % 32 == 0 and
 // splits == 1, for "nn" N % 8 == 0; for "tn" any K, M % 8 == 0 and N % 8 ==
-// 0 (the wrapper checks).  With splits > 1 ("tn" only), C is [splits, M, N]
-// fp32 partials.  bias [N] fp32, aux/gate
+// 0 (the wrapper checks; TMA needs 16-byte row strides).  With splits > 1
+// ("tn" only), C is [splits, M, N] fp32 partials.  bias [N] fp32, aux/gate
 // [M, N] io dtype, resid [M, N] fp32, colpart [ceil(M/128), N] fp32: each
 // may be null.
 int fm_gemm(const void* A, const void* B, void* C, int M, int N, int K, int layout, int splits,
@@ -865,7 +756,7 @@ int fm_gemm(const void* A, const void* B, void* C, int M, int N, int K, int layo
             void* colpart, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (splits < 1 || (dtype != FM_F32 && dtype != FM_BF16) ||
-      (layout != 2 && (K % TC_BK || splits != 1)))
+      (layout != 2 && (K % 32 || splits != 1)))
     return cudaErrorInvalidValue;
   Epi e;
   e.bias = static_cast<const float*>(bias);

@@ -347,11 +347,21 @@ def block_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, mask, *, num_heads: int,
     return stages, out, saved
 
 
+#: The card's SMs (H100 SXM); the wgmma GEMM runs one 128 x 256 tile per SM at a time.
+_SMS = 132
+_TILE_M, _TILE_N = 128, 256
+
+
 def _splits(m: int, n: int, k: int) -> int:
-    """K splits of a weight-grad GEMM: enough blocks for two waves on the
-    card's 132 SMs, at least 2048 rows each."""
-    tiles = -(-m // 128) * -(-n // 128)
-    return max(1, min(264 // tiles, k // 2048))
+    """K splits of a weight-grad GEMM over its 128 x 256 tiles: the count,
+    at most three waves of blocks and at least 2048 rows each, whose blocks
+    fill their waves best (time ~ waves / splits), the smallest within 5% of
+    the best (fewer fp32 partials to add)."""
+    tiles = -(-m // _TILE_M) * -(-n // _TILE_N)
+    cap = max(1, min(3 * _SMS // tiles, k // 2048))
+    cost = {s: -(-tiles * s // _SMS) / s for s in range(1, cap + 1)}
+    best = min(cost.values())
+    return min(s for s, c in cost.items() if c <= 1.05 * best)
 
 
 def weight_grad(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -390,7 +400,7 @@ def _core_backward_stages(da, saved, wo, num_heads):
     dout = torch.empty((b, s, h), dtype=dt, device=dev)
     rowterm = torch.empty((b, num_heads, s), **f32)
     dqkv = torch.empty((b, s, 3 * h), dtype=dt, device=dev)
-    colpart = torch.empty((b * -(-s // _build.FLASH_BWD_TILE[dt]), 3 * h), **f32)
+    colpart = torch.empty((_build.flash_bwd_colpart_rows(b, s, dt), 3 * h), **f32)
     dwqkv = torch.empty((3 * h, h), dtype=dt, device=dev)
     dbqkv = torch.empty((3 * h,), dtype=dt, device=dev)
     dwo = torch.empty((h, h), dtype=dt, device=dev)

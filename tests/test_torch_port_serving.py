@@ -126,12 +126,38 @@ def test_encode_note_chunks_matches_jax(frames, encoders, aggregation):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("env", ["0", "8,16,32"])
+def test_text_bucket_variable_is_the_jax_one(frames, encoders, env, monkeypatch):
+    """With only ``FMTPU_TEXT_BUCKETS`` set, the port buckets as the JAX
+    encoder does: the same [rows, length] batch shapes in the same order, and
+    the same embeddings."""
+    j_enc, t_enc = encoders
+    notes = t_feat.assemble_features(*frames).note_chunks[:24]
+    monkeypatch.delenv("FMTORCH_TEXT_BUCKETS", raising=False)
+    monkeypatch.setenv("FMTPU_TEXT_BUCKETS", env)
+    shapes = {"jax": [], "torch": []}
+    for name, enc in (("jax", j_enc), ("torch", t_enc)):
+        def record(ids, mask, _encode=enc.encode_ids, _shapes=shapes[name]):
+            _shapes.append(tuple(np.shape(ids)))
+            return _encode(ids, mask)
+        monkeypatch.setattr(enc, "encode_ids", record)
+    kw = dict(max_length=MAX_LEN, batch_size=4)
+    want = j_text.encode_note_chunks(j_enc, notes, **kw)
+    got = t_text.encode_note_chunks(t_enc, notes, **kw)
+    assert shapes["torch"] == shapes["jax"]
+    lengths = {s[1] for s in shapes["torch"]}
+    if env == "0":
+        assert lengths == {MAX_LEN}
+    else:
+        assert lengths <= {8, 16, 32, MAX_LEN} and len(lengths) > 1
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 def test_run_fame_inference_matches_jax(frames, encoders, exported, monkeypatch):
     j_enc, t_enc = encoders
     s, u = frames
     path = exported[0]
     monkeypatch.setenv("FMTPU_TEXT_BUCKETS", BUCKETS)
-    monkeypatch.setenv("FMTORCH_TEXT_BUCKETS", BUCKETS)
     want = j_inf.run_fame_inference(s, u, path, text_encoder=j_enc,
                                     text_max_length=MAX_LEN, verbose=False)
     got = t_inf.run_fame_inference(s, u, path, text_encoder=t_enc, text_max_length=MAX_LEN,
