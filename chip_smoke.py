@@ -96,9 +96,12 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    expanded as BEHRTLab builds it), the text-train shape (B32 S512 12x64,
    per-row masks, a fully masked row) and off the main path (d 32 at S 256
    without a mask; d 128 at S 1024 on contiguous [B, heads, S, d] tensors;
-   the packed ``fused_qkv`` layout); limits at the phase.  Timed in bf16 at
-   the lab shape: the kernels (the backward's dQ and dK / dV kernels also
-   apart), their plain versions, SDPA with the -1e9 bias and its autograd
+   the packed ``fused_qkv`` layout); limits at the phase.  In bf16 the
+   backward is also held against its own rounding order repeated in
+   PyTorch: at most 1% of the entries differ, by at most one bf16 ulp of
+   max-abs.  Timed in bf16 at the lab shape: the
+   kernels (the backward's dQ and dK / dV kernels also apart, from the
+   profiler), their plain versions, SDPA with the -1e9 bias and its autograd
    backward (never called by the port), beside the bound; the backward run
    twice must give bit-identical dq, dk, dv.
    Also ``TorchEncoderLayer(fused_qkv=True)`` against the same layer unfused
@@ -970,7 +973,8 @@ def nn_tn_gemm_check(_build, fab, gen, name, layout, M, N, K, gate_kind, with_re
     row = {"stage": name, "layout": layout, "M": M, "N": N, "K": K, "gate": gate_kind,
            "resid": with_resid, "errors": _rel_errors(out, want)}
     if layout == "tn":
-        row["splits"] = fab._splits(M, N, K)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        row["splits"] = fab._splits(M, N, K, sms)
     checks = [("out", row["errors"], NT_BF16_MAX)]
     if aux is not None:
         row["aux_errors"] = _rel_errors(aux, want_aux)
@@ -1068,10 +1072,26 @@ def ptxas_report(_build, names=PTXAS_KERNELS):
 # and ds * scale and p are rounded to bf16 on both sides from sums taken in
 # another order, so a rounding can flip by an ulp and carry into a product
 # over S terms.
+#
+# The bf16 backward is also held against its own order of rounding repeated
+# in PyTorch (flash_bwd_kernel_order, on the forward kernel's o and stats;
+# tests/test_torch_flash_backward_contract.py holds that function against
+# the Pallas kernel on the CPU).  Only fp32 summation orders differ there, so
+# an entry may differ by the flip of its final rounding, plus the rare flip
+# of a rounded p or ds * scale carried into a sum over S terms; such a flip
+# moves a term by 2^-8 of itself, and a large p makes that a visible share of
+# an entry near zero.  On the H100 0.03-0.13% of the entries differ, the
+# most by one bf16 ulp of an entry near max-abs (at most 3.3e-3 of it).
+# Limits: at most FLASH_BWD_ORDER_SHARE of the entries differ at all, and
+# each by at most NT_BF16_MAX (one bf16 ulp) of max-abs.  A drift of the
+# order shows in the share: D from the unrounded o changes about 18% of dq
+# and dk, a p left unrounded before dv 42% of dv.
 
 FP32_FLASH_TOL = 1e-4
 FLASH_BF16_FWD = 2.0 ** -6
 FLASH_GRADS = ("dq", "dk", "dv")
+FLASH_BWD_ORDER_SHARE = 0.01
+LOG2E = 1.4426950408889634
 
 
 def _flash_inputs(B, S, nh, d, layout, mask_kind, dtype, gen):
@@ -1135,16 +1155,19 @@ def flash_check(flash, gen, dtype, B, S, nh, d, layout="dense", mask_kind="rows"
             raise AssertionError(f"{label}: {name} max {mx} mean {mean} (max-abs {scale})")
     row = {"case": label, "errors": rows}
     del out, grads, got, want_grads
+    with torch.no_grad():
+        ops = flash._operands(qd, kd, vd, mask)
+        o, stats = flash._forward_kernel(*ops, residuals=True)
+        saved = (*ops[:3], o, stats, ops[3])
+        if dtype == torch.bfloat16:
+            row["kernel_order"] = _flash_bwd_order_check(flash, label, saved, g)
     if timed:
         F = torch.nn.functional
         with torch.no_grad():
-            ops = flash._operands(qd, kd, vd, mask)
-            o, stats = flash._forward_kernel(*ops, residuals=True)
-            saved = (*ops[:3], o, stats, ops[3])
             row["ms"] = time_ms(lambda: flash.flash_attention(qd, kd, vd, mask))
             row["fwd_res_ms"] = time_ms(lambda: flash._forward_kernel(*ops, residuals=True))
             row["bwd_ms"] = time_ms(lambda: flash._backward_kernel(*saved, g))
-            row["bwd_stages_ms"] = _flash_bwd_stages_ms(saved, g)
+            row["bwd_stages_ms"] = _flash_bwd_stages_ms(flash, saved, g)
             first = flash._backward_kernel(*saved, g)
             again = flash._backward_kernel(*saved, g)
             row["bwd_deterministic"] = all(torch.equal(a, b_) for a, b_ in zip(first, again))
@@ -1159,7 +1182,6 @@ def flash_check(flash, gen, dtype, B, S, nh, d, layout="dense", mask_kind="rows"
                 torch.where(mask > 0, 0.0, -1e9).to(dtype)[:, None, None, :]
             row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
                 qd, kd, vd, attn_mask=bias))
-            del o, saved, stats
         lib = [t.detach().clone().requires_grad_(True) for t in (qd, kd, vd)]
         row["library_bwd_ms"] = _time_backward(
             F.scaled_dot_product_attention(*lib, attn_mask=bias), lib, g)
@@ -1172,30 +1194,77 @@ def flash_check(flash, gen, dtype, B, S, nh, d, layout="dense", mask_kind="rows"
         row["flops"], row["bytes"], row["bwd_flops"], row["bwd_bytes"] = \
             flops, nbytes, flops_b, nbytes_b
         del lib
-    del leaves, q, k, v, qd, kd, vd, want, g
+    del leaves, q, k, v, qd, kd, vd, want, g, ops, o, stats, saved
     torch.cuda.empty_cache()
     return row
 
 
-def _flash_bwd_stages_ms(saved, g):
-    """The flash backward's two kernels timed apart on the forward's
-    residuals: the dQ kernel (which writes the row term D) and the dK / dV
-    kernel (which reads it)."""
-    from fairmultimodal_torch.ops import _build
-    from fairmultimodal_torch.ops import flash_attention as flash
+def flash_bwd_kernel_order(q, k, v, o, stats, mask, g):
+    """dq, dk, dv of the bf16 backward kernels in their order of rounding,
+    in PyTorch, from the forward kernel's bf16 o and its stats (m, l):
+    D = rowsum(dO * o); p = exp2((s * scale + bias - m) * log2 e) * (1 / l);
+    dv = round(p)^T . dO; round(p * (dO . v^T - D) * scale) before dq = . k
+    and dk = ^T . q; each grad rounded when written."""
+    bf = torch.bfloat16
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    m, l = stats[..., 0:1], stats[..., 1:2]
+    D = (gf * o.float()).sum(-1, keepdim=True)
+    x = (qf @ kf.transpose(-1, -2)) * scale
+    if mask is not None:
+        x = x + torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+    p = torch.exp2((x - m) * LOG2E) * (1.0 / l)
+    del x
+    dv = (p.to(bf).float().transpose(-1, -2) @ gf).to(bf)
+    ds = (p * (gf @ vf.transpose(-1, -2) - D) * scale).to(bf).float()
+    del p
+    return (ds @ kf).to(bf), (ds.transpose(-1, -2) @ qf).to(bf), dv
 
+
+def _flash_bwd_order_check(flash, label, saved, g):
+    """The bf16 backward kernels against :func:`flash_bwd_kernel_order` on
+    the same forward residuals: the share of each grad's entries that differ
+    (FLASH_BWD_ORDER_SHARE at most) and its largest difference relative to
+    its max-abs (NT_BF16_MAX at most)."""
+    got = flash._backward_kernel(*saved, g)
     q, k, v, o, stats, mask = saved
-    b, nh, s, _ = q.shape
-    dq, dk, dv = (flash._heads_like(q) for _ in range(3))
-    rowterm = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
-    gg = flash._last_contiguous(g.to(q.dtype))
+    want = flash_bwd_kernel_order(q, k, v, o, stats, mask, g)
+    res = {}
+    for name, a, w in zip(FLASH_GRADS, got, want):
+        a, w = a.float(), w.float()
+        rel = (a - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        share = (a != w).float().mean().item()
+        res[name] = {"max_rel_err": rel, "differ_share": share}
+        if not (rel <= NT_BF16_MAX and share <= FLASH_BWD_ORDER_SHARE):
+            raise AssertionError(f"{label}: {name} differs from the kernel's rounding order "
+                                 f"by {rel} of max-abs in {share} of the entries (limits "
+                                 f"{NT_BF16_MAX}, {FLASH_BWD_ORDER_SHARE})")
+    del got, want
+    return res
 
-    def part(which):
-        return lambda: _build.flash_attention_bwd(q, k, v, o, gg, mask, stats, rowterm, dq, dk,
-                                                  dv, part=which)
 
-    part("both")()
-    return {"flash_bwd_dq": time_ms(part("dq")), "flash_bwd_dkdv": time_ms(part("dkdv"))}
+def _flash_bwd_stages_ms(flash, saved, g, reps=10):
+    """The flash backward's two kernels timed apart: device time per call of
+    the dQ kernel (which writes the row term D) and of the dK / dV kernel
+    (which reads it), from torch.profiler over ``reps`` backward calls on
+    the forward's residuals."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flash._backward_kernel(*saved, g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flash._backward_kernel(*saved, g)
+        torch.cuda.synchronize()
+    ms = {"flash_bwd_dq": 0.0, "flash_bwd_dkdv": 0.0}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            for name in ms:
+                if name in e.key:
+                    ms[name] += e.self_device_time_total / 1e3 / reps
+    if not all(ms.values()):
+        raise AssertionError(f"flash backward stages: the profiler saw {ms}")
+    return ms
 
 
 def fused_qkv_layer_check(gen, B=16, S=560, H=768, nh=8):
@@ -2007,7 +2076,8 @@ def main() -> int:
             "library_ms": row["library_" + pre + "ms"], "shape": row["case"],
             "dtype": "bfloat16", "errors": errors,
             **({"fwd_res_ms": row["fwd_res_ms"], "fused_qkv_layer": flash_layer} if not pre
-               else {"stages_ms": row["bwd_stages_ms"]}),
+               else {"stages_ms": row["bwd_stages_ms"],
+                     "kernel_order": row["kernel_order"]}),
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

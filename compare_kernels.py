@@ -18,13 +18,6 @@ the flash forward and backward at the lab (B 256, S 560, 8 x 96) and text
 (CUDA-event medians of 20).  Only entry points every tree has are called.
 Give a tree twice (A B A B) to see the spread between repeats.  Lines start
 with GEMM, BWDGEMM, FLASH or FLASHERR.
-
-    python3 compare_kernels.py --only flash-bwd TREE [TREE ...]
-    python3 compare_kernels.py --only serve TREE [TREE ...]
-
-time one thing per tree, three times: the flash backward at the lab and text
-shapes (CUDA-event medians of 30; lines ABFLASH), or ``FAMEPredictor.benchmark``
-of the bf16 serving model at batch 256 (50 batches; lines ABSERVE).
 """
 
 import os
@@ -81,54 +74,14 @@ for kw in (dict(B=256, S=560, nh=8, d=96, mask_kind="lab"), dict(B=32, S=512, nh
 '''
 
 
-_ONLY = r'''
-import json, sys, torch
-mode = sys.argv[1]
-from fairmultimodal_torch.ops import _build
-_build.build()
-torch.backends.cuda.matmul.allow_tf32 = False
-if mode == "flash-bwd":
-    import chip_smoke as c
-    from fairmultimodal_torch.ops import flash_attention as flash
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    for kw in (dict(B=256, S=560, nh=8, d=96, mask_kind="lab"), dict(B=32, S=512, nh=12, d=64)):
-        _, q, k, v, mask, g = c._flash_inputs(kw["B"], kw["S"], kw["nh"], kw["d"], "dense",
-                                              kw.get("mask_kind", "rows"), torch.bfloat16, gen)
-        with torch.no_grad():
-            q, k, v = (t.detach() for t in (q, k, v))
-            ops = flash._operands(q, k, v, mask)
-            o, stats = flash._forward_kernel(*ops, residuals=True)
-            saved = (*ops[:3], o, stats, ops[3])
-            ts = [c.time_ms(lambda: flash._backward_kernel(*saved, g), reps=30) for _ in range(3)]
-        print("ABFLASH", kw["S"], json.dumps(ts), flush=True)
-        del q, k, v, o, stats, saved, g
-else:
-    from fairmultimodal_torch.models._layers import init_params
-    from fairmultimodal_torch.models.fusion import FAMEModel
-    from fairmultimodal_torch.pipelines.inference import FAMEPredictor
-    geo = dict(num_ages=4, num_genders=2, num_ethnicities=5, num_insurances=6,
-               lab_token_count=549, text_embed_size=768, hidden_size=768, demo_layers=12,
-               demo_heads=12, lab_layers=2, lab_heads=8, fusion_hidden=512)
-    model = init_params(FAMEModel(**geo, dtype=torch.bfloat16), seed=0)
-    pred = FAMEPredictor(model, batch_size=256, device="cuda")
-    res = [pred.benchmark(iters=50)["batch_latency_ms"] for _ in range(3)]
-    print("ABSERVE", json.dumps(res), flush=True)
-'''
-
-
 def main(args) -> int:
-    only = None
-    if args[:1] == ["--only"] and len(args) > 1 and args[1] in ("flash-bwd", "serve"):
-        only, args = args[1], args[2:]
     if not args:
         print(__doc__, file=sys.stderr)
         return 2
     rc = 0
     for tree in args:
         print(f"==== {tree}", flush=True)
-        cmd = [sys.executable, "-c", _RUN] if only is None else \
-            [sys.executable, "-c", _ONLY, only]
-        rc |= subprocess.run(cmd, cwd=os.path.abspath(tree)).returncode
+        rc |= subprocess.run([sys.executable, "-c", _RUN], cwd=os.path.abspath(tree)).returncode
     return rc
 
 

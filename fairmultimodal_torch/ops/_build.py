@@ -33,7 +33,7 @@ from fairmultimodal_torch.utils.rng import Dropout
 __all__ = ["KernelLaunchError", "build", "kernels", "gemm", "colsum", "row_block_sums",
            "flash_attn_fwd", "flash_attn_bwd", "flash_attention_fwd", "flash_attention_bwd",
            "add_layernorm", "layernorm_bwd", "ACT_CODES", "FLASH_BWD_TILE", "LN_BWD_ROWS",
-           "SUM_ROWS", "flash_bwd_colpart_rows"]
+           "SUM_ROWS", "WGMMA_TILE", "flash_bwd_colpart_rows"]
 
 _CSRC = Path(__file__).resolve().with_name("csrc")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -48,8 +48,8 @@ _LAYOUTS = {"nt": 0, "nn": 1, "tn": 2}
 #: Rows a flash-backward block owns, in both of its kernels (its column
 #: partials have B * ceil(S / tile) rows): bf16 64 = 4 warps x 16, fp32 32.
 FLASH_BWD_TILE = {torch.bfloat16: 64, torch.float32: 32}
-#: Which flash-backward kernels a launch runs (``fm_flash_attention_bwd_part``).
-_BWD_PARTS = {"dq": 1, "dkdv": 2, "both": 3}
+#: The bf16 ``wgmma`` GEMM's block tile (rows, columns): ``gemm.cu``'s WG_BM x WG_BN.
+WGMMA_TILE = (128, 256)
 
 
 def flash_bwd_colpart_rows(batch: int, seq: int, dtype: torch.dtype) -> int:
@@ -74,9 +74,8 @@ _SIGNATURES = {
     "flash_attention.cu": {
         "fm_flash_attention_fwd": [_P, _S3, _P, _S3, _P, _S3, _P, _L, _P, _S3, _P,
                                    _I, _I, _I, _I, _F, _I, _P],
-        "fm_flash_attention_bwd_part": [_P, _S3, _P, _S3, _P, _S3, _P, _S3, _P, _S3, _P, _L, _P,
-                                        _P, _P, _S3, _P, _S3, _P, _S3, _P, _I, _I, _I, _I, _F,
-                                        _I, _I, _P],
+        "fm_flash_attention_bwd": [_P, _S3, _P, _S3, _P, _S3, _P, _S3, _P, _S3, _P, _L, _P, _P,
+                                   _P, _S3, _P, _S3, _P, _S3, _P, _I, _I, _I, _I, _F, _I, _P],
     },
     "add_layernorm.cu": {
         "fm_add_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, *_DROP, _I, _I, _P],
@@ -336,16 +335,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         dout: torch.Tensor, mask: Optional[torch.Tensor], stats: torch.Tensor,
                         rowterm: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
-                        dv: torch.Tensor, colpart: Optional[torch.Tensor] = None,
-                        part: str = "both") -> None:
+                        dv: torch.Tensor, colpart: Optional[torch.Tensor] = None) -> None:
     """Backward of :func:`flash_attention_fwd` (Pallas #10, two launches):
     dq, dk, dv (strided as q, io dtype) from q, k, v, o, dout and the
     forward's stats; rowterm [B, heads, S] fp32 is scratch.  With
     ``colpart`` [:func:`flash_bwd_colpart_rows`, 3 * heads * d] fp32 also
     the column partials of the fp32 dq | dk | dv over each tile's rows (the
-    bias grads of the half-layer kernels).  ``part`` "dq" or "dkdv" runs one
-    of the two kernels (the dK / dV kernel reads the rowterm the dQ kernel
-    wrote), "both" runs them in order."""
+    bias grads of the half-layer kernels)."""
     b, nh, s, d = _check_flash_operands(q, k, v, mask)
     for name, t in (("o", o), ("dout", dout), ("dq", dq), ("dk", dk), ("dv", dv)):
         _require_heads(t, name, q.shape, q.dtype, q.device)
@@ -355,12 +351,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         _require(colpart, "colpart", (flash_bwd_colpart_rows(b, s, q.dtype), 3 * nh * d),
                  torch.float32, q.device)
     with torch.cuda.device(q.device):
-        rc = kernels()["flash_attention.cu"].fm_flash_attention_bwd_part(
+        rc = kernels()["flash_attention.cu"].fm_flash_attention_bwd(
             q.data_ptr(), _strides(q), k.data_ptr(), _strides(k), v.data_ptr(), _strides(v),
             o.data_ptr(), _strides(o), dout.data_ptr(), _strides(dout), _ptr(mask), s,
             stats.data_ptr(), rowterm.data_ptr(), dq.data_ptr(), _strides(dq), dk.data_ptr(),
             _strides(dk), dv.data_ptr(), _strides(dv), _ptr(colpart), b, s, nh, d,
-            1.0 / (d ** 0.5), _dtype_code(q), _BWD_PARTS[part], _stream(q))
+            1.0 / (d ** 0.5), _dtype_code(q), _stream(q))
     _check(rc, "fm_flash_attention_bwd")
 
 

@@ -651,15 +651,16 @@ cudaError_t launch_fwd(const FwdArgs& a, int dtype, cudaStream_t s) {
 // per SM cap a thread at 168 registers, and the dK / dV kernel, whose warp
 // holds dK and dV (2 x 16 x d fp32, 96 registers at d 96) beside its S and
 // dP tiles (64 registers), spilled 360 bytes at d 96.  With 4 warps two blocks
-// per SM leave 255 registers and nothing spills; measured on the H100 in
-// turns, 64-row tiles took 4.68-4.78 ms at the lab shape against 4.91-5.13
-// for 80-row ones (3% padding rows included) and 0.61-0.73 against 0.70-0.76
-// at the text shape (S 512 = 8 x 64).  A warp owning 32 rows (two m16 row
-// tiles sharing each B fragment, as the forward does) would need twice the
-// accumulators, more than 255 registers.  The walked tiles and their
-// per-row vectors come by 16-byte cp.async into a two-stage ring (pitch
-// d + 8, so ldmatrix's 8 rows fall on 8 bank groups), the next tile's copy running under this tile's products; the
-// owned tiles stay in shared memory and are read by ldmatrix.  The C layout
+// per SM leave 255 registers and nothing spills; in one compare_kernels.py
+// call on the H100, 64-row tiles took 5.01 ms at the lab shape against 5.22
+// and 5.33 for 80-row ones (3% padding rows included), and 0.73 against 0.78
+// and 0.76 at the text shape (S 512 = 8 x 64).  A warp owning 32 rows (two
+// m16 row tiles sharing each B fragment, as the forward does) would need
+// twice the accumulators, more than 255 registers.  The walked tiles and
+// their per-row vectors come by 16-byte cp.async into a two-stage ring
+// (pitch d + 8, so ldmatrix's 8 rows fall on 8 bank groups), the next
+// tile's copy running under this tile's products; the owned tiles stay in
+// shared memory and are read by ldmatrix.  The C layout
 // of an m16n8 product is the A layout of the next one, so S -> P and dP ->
 // dS never leave registers (no fp32 score or dP tile in shared memory); the
 // walked rows are the depth of dQ += dS . K, dV += P^T . dO and
@@ -691,6 +692,7 @@ __device__ __forceinline__ void load_row_stats(const float* stats, const float* 
 
 // ---- bf16 backward kernels (mma.sync m16n8k16) ---------------------------------------
 
+// _build.FLASH_BWD_TILE repeats BWD_TILE and F32_TL (the column partials' rows).
 constexpr int BWD_TILE = 64;                 // rows a block owns (4 warps x 16)
 constexpr int BWD_WARPS = BWD_TILE / 16;
 constexpr int BWD_THREADS = 32 * BWD_WARPS;
@@ -1362,76 +1364,62 @@ struct BwdArgs {
   float scale;
 };
 
-// Which kernels a launch runs: the dQ kernel (which writes D), the dK / dV
-// kernel (which reads it), or both in that order.
-enum BwdPart { BWD_DQ = 1, BWD_DKDV = 2, BWD_BOTH = 3 };
-
+// Both backward kernels in order: the dQ kernel writes D, the dK / dV kernel
+// reads it.
 template <int DP>
-cudaError_t launch_bwd_mma(const BwdArgs& a, int part, cudaStream_t s) {
+cudaError_t launch_bwd_mma(const BwdArgs& a, cudaStream_t s) {
   constexpr int bytes = BwdSmem<DP>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<DP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<DP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
   const dim3 grid((a.S + BWD_TILE - 1) / BWD_TILE, a.nh, a.B);
-  cudaError_t e;
-  if (part & BWD_DQ) {
-    e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    flash_bwd_dq_mma_kernel<DP><<<grid, BWD_THREADS, bytes, s>>>(
-        as_mat<const fm_bf16>(a.q), as_mat<const fm_bf16>(a.k), as_mat<const fm_bf16>(a.v),
-        as_mat<const fm_bf16>(a.o), as_mat<const fm_bf16>(a.dout), a.mask, a.stats, a.D,
-        as_mat<fm_bf16>(a.dq), a.colpart, a.S, a.nh, a.d, a.scale);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  if (part & BWD_DKDV) {
-    e = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    flash_bwd_dkdv_mma_kernel<DP><<<grid, BWD_THREADS, bytes, s>>>(
-        as_mat<const fm_bf16>(a.q), as_mat<const fm_bf16>(a.k), as_mat<const fm_bf16>(a.v),
-        as_mat<const fm_bf16>(a.dout), a.mask, a.stats, a.D, as_mat<fm_bf16>(a.dk),
-        as_mat<fm_bf16>(a.dv), a.colpart, a.S, a.nh, a.d, a.scale);
-    return cudaGetLastError();
-  }
-  return cudaSuccess;
+  flash_bwd_dq_mma_kernel<DP><<<grid, BWD_THREADS, bytes, s>>>(
+      as_mat<const fm_bf16>(a.q), as_mat<const fm_bf16>(a.k), as_mat<const fm_bf16>(a.v),
+      as_mat<const fm_bf16>(a.o), as_mat<const fm_bf16>(a.dout), a.mask, a.stats, a.D,
+      as_mat<fm_bf16>(a.dq), a.colpart, a.S, a.nh, a.d, a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkdv_mma_kernel<DP><<<grid, BWD_THREADS, bytes, s>>>(
+      as_mat<const fm_bf16>(a.q), as_mat<const fm_bf16>(a.k), as_mat<const fm_bf16>(a.v),
+      as_mat<const fm_bf16>(a.dout), a.mask, a.stats, a.D, as_mat<fm_bf16>(a.dk),
+      as_mat<fm_bf16>(a.dv), a.colpart, a.S, a.nh, a.d, a.scale);
+  return cudaGetLastError();
 }
 
 template <int DP>
-cudaError_t launch_bwd_f32(const BwdArgs& a, int part, cudaStream_t s) {
+cudaError_t launch_bwd_f32(const BwdArgs& a, cudaStream_t s) {
   constexpr int bytes = BwdF32Smem<DP>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<DP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(flash_bwd_dkdv_f32_kernel<DP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
   const dim3 grid((a.S + F32_TL - 1) / F32_TL, a.nh, a.B);
-  cudaError_t e;
-  if (part & BWD_DQ) {
-    e = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    flash_bwd_dq_f32_kernel<DP><<<grid, FA_THREADS, bytes, s>>>(
-        as_mat<const float>(a.q), as_mat<const float>(a.k), as_mat<const float>(a.v),
-        as_mat<const float>(a.o), as_mat<const float>(a.dout), a.mask, a.stats, a.D,
-        as_mat<float>(a.dq), a.colpart, a.S, a.nh, a.d, a.scale);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  if (part & BWD_DKDV) {
-    e = cudaFuncSetAttribute(flash_bwd_dkdv_f32_kernel<DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    flash_bwd_dkdv_f32_kernel<DP><<<grid, FA_THREADS, bytes, s>>>(
-        as_mat<const float>(a.q), as_mat<const float>(a.k), as_mat<const float>(a.v),
-        as_mat<const float>(a.dout), a.mask, a.stats, a.D, as_mat<float>(a.dk),
-        as_mat<float>(a.dv), a.colpart, a.S, a.nh, a.d, a.scale);
-    return cudaGetLastError();
-  }
-  return cudaSuccess;
+  flash_bwd_dq_f32_kernel<DP><<<grid, FA_THREADS, bytes, s>>>(
+      as_mat<const float>(a.q), as_mat<const float>(a.k), as_mat<const float>(a.v),
+      as_mat<const float>(a.o), as_mat<const float>(a.dout), a.mask, a.stats, a.D,
+      as_mat<float>(a.dq), a.colpart, a.S, a.nh, a.d, a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkdv_f32_kernel<DP><<<grid, FA_THREADS, bytes, s>>>(
+      as_mat<const float>(a.q), as_mat<const float>(a.k), as_mat<const float>(a.v),
+      as_mat<const float>(a.dout), a.mask, a.stats, a.D, as_mat<float>(a.dk),
+      as_mat<float>(a.dv), a.colpart, a.S, a.nh, a.d, a.scale);
+  return cudaGetLastError();
 }
 
-cudaError_t launch_bwd(const BwdArgs& a, int dtype, int part, cudaStream_t s) {
+cudaError_t launch_bwd(const BwdArgs& a, int dtype, cudaStream_t s) {
   const bool bf16 = dtype == FM_BF16;
-  if ((!bf16 && dtype != FM_F32) || part < BWD_DQ || part > BWD_BOTH) return cudaErrorInvalidValue;
+  if (!bf16 && dtype != FM_F32) return cudaErrorInvalidValue;
   switch (head_pad(a.d)) {
-    case 32: return bf16 ? launch_bwd_mma<32>(a, part, s) : launch_bwd_f32<32>(a, part, s);
-    case 64: return bf16 ? launch_bwd_mma<64>(a, part, s) : launch_bwd_f32<64>(a, part, s);
-    case 96: return bf16 ? launch_bwd_mma<96>(a, part, s) : launch_bwd_f32<96>(a, part, s);
-    case 128: return bf16 ? launch_bwd_mma<128>(a, part, s) : launch_bwd_f32<128>(a, part, s);
+    case 32: return bf16 ? launch_bwd_mma<32>(a, s) : launch_bwd_f32<32>(a, s);
+    case 64: return bf16 ? launch_bwd_mma<64>(a, s) : launch_bwd_f32<64>(a, s);
+    case 96: return bf16 ? launch_bwd_mma<96>(a, s) : launch_bwd_f32<96>(a, s);
+    case 128: return bf16 ? launch_bwd_mma<128>(a, s) : launch_bwd_f32<128>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1460,24 +1448,6 @@ int fm_flash_attention_fwd(const void* q, const long long* qs, const void* k,
   return launch_fwd(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
-// fm_flash_attention_bwd with ``part`` choosing the launches: 1 the dQ
-// kernel (it writes D), 2 the dK / dV kernel (it reads D), 3 both in order.
-int fm_flash_attention_bwd_part(const void* q, const long long* qs, const void* k,
-                                const long long* ks, const void* v, const long long* vs,
-                                const void* o, const long long* os, const void* dout,
-                                const long long* dos, const void* mask, long long mask_sb,
-                                const void* stats, void* D, void* dq, const long long* dqs,
-                                void* dk, const long long* dks, void* dv, const long long* dvs,
-                                void* colpart, int B, int S, int nh, int d, float scale,
-                                int dtype, int part, void* stream) {
-  const BwdArgs a{strided(q, qs), strided(k, ks), strided(v, vs), strided(o, os),
-                  strided(dout, dos), strided(dq, dqs), strided(dk, dks), strided(dv, dvs),
-                  Mask{static_cast<const int*>(mask), mask_sb},
-                  static_cast<const float*>(stats), static_cast<float*>(D),
-                  static_cast<float*>(colpart), B, S, nh, d, scale};
-  return launch_bwd(a, dtype, part, static_cast<cudaStream_t>(stream));
-}
-
 // Strided flash attention backward (Pallas #10, and the attention core of
 // #3 / #6 with colpart), two launches: q, k, v, o,
 // dout (dO, io dtype) as in fm_flash_attention_fwd, stats from it; D
@@ -1491,9 +1461,12 @@ int fm_flash_attention_bwd(const void* q, const long long* qs, const void* k,
                            const void* stats, void* D, void* dq, const long long* dqs, void* dk,
                            const long long* dks, void* dv, const long long* dvs, void* colpart,
                            int B, int S, int nh, int d, float scale, int dtype, void* stream) {
-  return fm_flash_attention_bwd_part(q, qs, k, ks, v, vs, o, os, dout, dos, mask, mask_sb, stats,
-                                     D, dq, dqs, dk, dks, dv, dvs, colpart, B, S, nh, d, scale,
-                                     dtype, BWD_BOTH, stream);
+  const BwdArgs a{strided(q, qs), strided(k, ks), strided(v, vs), strided(o, os),
+                  strided(dout, dos), strided(dq, dqs), strided(dk, dks), strided(dv, dvs),
+                  Mask{static_cast<const int*>(mask), mask_sb},
+                  static_cast<const float*>(stats), static_cast<float*>(D),
+                  static_cast<float*>(colpart), B, S, nh, d, scale};
+  return launch_bwd(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

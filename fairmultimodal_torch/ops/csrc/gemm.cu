@@ -364,6 +364,7 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float*
 // its 128 rows, added over the 16 rows of each of the 8 consumer warps and
 // then over the warps in order, so colpart is the same bits every run).
 
+// _build.WGMMA_TILE repeats WG_BM x WG_BN (the split-K counts are sized from it).
 constexpr int WG_BM = 128;
 constexpr int WG_BN = 256;
 constexpr int WG_BK = 64;  // one 128-byte swizzle line of bf16

@@ -347,19 +347,16 @@ def block_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, mask, *, num_heads: int,
     return stages, out, saved
 
 
-#: The card's SMs (H100 SXM); the wgmma GEMM runs one 128 x 256 tile per SM at a time.
-_SMS = 132
-_TILE_M, _TILE_N = 128, 256
-
-
-def _splits(m: int, n: int, k: int) -> int:
-    """K splits of a weight-grad GEMM over its 128 x 256 tiles: the count,
-    at most three waves of blocks and at least 2048 rows each, whose blocks
-    fill their waves best (time ~ waves / splits), the smallest within 5% of
-    the best (fewer fp32 partials to add)."""
-    tiles = -(-m // _TILE_M) * -(-n // _TILE_N)
-    cap = max(1, min(3 * _SMS // tiles, k // 2048))
-    cost = {s: -(-tiles * s // _SMS) / s for s in range(1, cap + 1)}
+def _splits(m: int, n: int, k: int, sms: int) -> int:
+    """K splits of a weight-grad GEMM over the wgmma GEMM's tiles
+    (``_build.WGMMA_TILE``, one block per SM at a time on a card of ``sms``
+    SMs): the count, at most three waves of blocks and at least 2048 rows
+    each, whose blocks fill their waves best (time ~ waves / splits), the
+    smallest within 5% of the best (fewer fp32 partials to add)."""
+    tile_m, tile_n = _build.WGMMA_TILE
+    tiles = -(-m // tile_m) * -(-n // tile_n)
+    cap = max(1, min(3 * sms // tiles, k // 2048))
+    cost = {s: -(-tiles * s // sms) / s for s in range(1, cap + 1)}
     best = min(cost.values())
     return min(s for s, c in cost.items() if c <= 1.05 * best)
 
@@ -369,7 +366,7 @@ def weight_grad(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> torch.Te
     and a fixed-order sum of the split partials."""
     k, m = a.shape
     n = b.shape[1]
-    splits = _splits(m, n, k)
+    splits = _splits(m, n, k, torch.cuda.get_device_properties(a.device).multi_processor_count)
     if splits == 1:
         return _build.gemm(a, b, out, layout="tn")
     part = torch.empty((splits, m, n), dtype=torch.float32, device=a.device)

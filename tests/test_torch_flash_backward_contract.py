@@ -3,8 +3,9 @@
 The card's bf16 backward (``fairmultimodal_torch/ops/csrc/flash_attention.cu``,
 ``flash_bwd_dq_mma_kernel`` and ``flash_bwd_dkdv_mma_kernel``) recomputes p
 from the forward's row statistics and takes the softmax-VJP row term from
-the stored bf16 o.  ``_kernel_backward`` repeats its arithmetic in PyTorch,
-in its order of rounding:
+the stored bf16 o.  ``chip_smoke.flash_bwd_kernel_order``, which the card
+check holds the kernels to, repeats its arithmetic in PyTorch, in its order
+of rounding:
 
 - D = rowsum(dO * o), o the bf16 output of the kernel-order forward;
 - p = exp2((s * scale + bias - m) * log2 e) * (1 / l), the forward's
@@ -19,9 +20,13 @@ under the limits the card check holds the kernels to (``chip_smoke.py``
 phase 3d: each grad within 2^-4 of its max-abs, mean 2^-10), at d 32 and 64,
 with no mask and with per-row masks including a fully masked row.  Also the
 pure-Python logic around the kernels: the column partials' row count from
-the one tile definition, and the split-K counts of the weight-grad GEMM for
-its 128 x 256 tiles.
+the one tile definition, the tile definitions against the kernel sources,
+and the split-K counts of the weight-grad GEMM for its 128 x 256 tiles.
 """
+
+import importlib.util
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +38,11 @@ from fairmultimodal_torch.ops import _build
 from fairmultimodal_torch.ops import flash_attention as t_flash
 from fairmultimodal_torch.ops import fused_attention_block as t_fab
 from fairmultimodal_tpu.ops.flash_attention import flash_attention as j_flash
+
+_ROOT = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("chip_smoke", _ROOT / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 B, NH, S = 3, 2, 80          # S: one whole 64-row tile and a ragged one of 16
 TILE = 64                    # the forward's key tile
@@ -80,19 +90,6 @@ def _kernel_forward(q, k, v, mask):
     return (o / l[..., None]).to(BF), m, l
 
 
-def _kernel_backward(q, k, v, mask, do, o, m, l):
-    """(dq, dk, dv) in the card's bf16 backward's order of rounding."""
-    b, nh, s, d = q.shape
-    scale = 1.0 / d ** 0.5
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    D = (dof * o.float()).sum(-1, keepdim=True)
-    x = (qf @ kf.transpose(-1, -2)) * scale + _bias(mask, b, s)[:, None, None, :]
-    p = torch.exp2((x - m[..., None]) * LOG2E) * (1.0 / l[..., None])
-    dv = p.to(BF).float().transpose(-1, -2) @ dof
-    ds = (p * (dof @ vf.transpose(-1, -2) - D) * scale).to(BF).float()
-    return (ds @ kf).to(BF), (ds.transpose(-1, -2) @ qf).to(BF), dv.to(BF)
-
-
 def _within(name, got, want):
     got, want = got.float().numpy(), np.asarray(want, np.float32)
     scale = float(np.abs(want).max())
@@ -111,8 +108,8 @@ def test_kernel_order_matches_pallas_vjp_in_bf16(masked, d):
     _, vjp = jax.vjp(lambda a, b_, c: j_flash(a, b_, c, jmask, True), jq, jk, jv)
     want = vjp(jdo)
     o, m, l = _kernel_forward(tq, tk, tv, mask)
-    got = _kernel_backward(tq, tk, tv, mask, tdo, o, m, l)
     tm = None if mask is None else torch.from_numpy(mask)
+    got = chip_smoke.flash_bwd_kernel_order(tq, tk, tv, o, torch.stack([m, l], -1), tm, tdo)
     plain = t_flash.flash_attention_backward_reference(tq, tk, tv, tm, tdo)
     for name, g, w, pl in zip(("dq", "dk", "dv"), got, want, plain):
         assert g.dtype == BF and g.shape == tq.shape and torch.isfinite(g.float()).all()
@@ -150,15 +147,29 @@ def test_colpart_rows_follow_the_one_tile_definition(dtype, tile):
         _build.flash_attention_bwd(x, x, x, x, x, None, stats, rowterm, x, x, x, colpart=bad)
 
 
-@pytest.mark.parametrize("m,n,k,splits", [
-    (2304, 768, 256 * 560, 7),    # dWqkv: 18 x 3 = 54 tiles -> 378 blocks, 2.9 waves of 132
-    (768, 768, 256 * 560, 7),     # dWo: 18 tiles -> 126 blocks, one wave
-    (2048, 768, 256 * 560, 8),    # dW1: 48 tiles -> 384 blocks
-    (768, 2048, 256 * 560, 8),    # dW2
-    (2304, 768, 600, 1),          # fewer than 2048 rows: no split
-    (2304, 768, 4096, 2),
+def test_tile_definitions_match_the_kernel_sources():
+    csrc = _ROOT / "fairmultimodal_torch" / "ops" / "csrc"
+
+    def const(src, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    gemm = (csrc / "gemm.cu").read_text()
+    flash = (csrc / "flash_attention.cu").read_text()
+    assert _build.WGMMA_TILE == (const(gemm, "WG_BM"), const(gemm, "WG_BN"))
+    assert _build.FLASH_BWD_TILE == {torch.bfloat16: const(flash, "BWD_TILE"),
+                                     torch.float32: const(flash, "F32_TL")}
+
+
+@pytest.mark.parametrize("m,n,k,sms,splits", [
+    (2304, 768, 256 * 560, 132, 7),   # dWqkv: 18 x 3 = 54 tiles -> 378 blocks, 2.9 waves
+    (768, 768, 256 * 560, 132, 7),    # dWo: 18 tiles -> 126 blocks, one wave
+    (2048, 768, 256 * 560, 132, 8),   # dW1: 48 tiles -> 384 blocks
+    (768, 2048, 256 * 560, 132, 8),   # dW2
+    (2304, 768, 600, 132, 1),         # fewer than 2048 rows: no split
+    (2304, 768, 4096, 132, 2),
+    (2304, 768, 256 * 560, 114, 2),   # a 114-SM card: 108 blocks fill one wave
 ])
-def test_weight_grad_splits_fit_the_128x256_tiles(m, n, k, splits):
-    assert t_fab._splits(m, n, k) == splits
+def test_weight_grad_splits_fit_the_128x256_tiles(m, n, k, sms, splits):
+    assert t_fab._splits(m, n, k, sms) == splits
     tiles = -(-m // 128) * -(-n // 256)
-    assert tiles * splits <= 3 * 132 and (splits == 1 or k // splits >= 2048)
+    assert tiles * splits <= 3 * sms and (splits == 1 or k // splits >= 2048)
