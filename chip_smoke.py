@@ -116,8 +116,25 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    serving probabilities flash route vs folded (1e-4) and
    ``FAMEPredictor.benchmark`` on the flash route.
 
-It prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``.
+6. the FAME experiment: ``run_fame_bundle`` (the pipeline without pandas) on a
+   seeded synthetic 2048-patient ``FeatureBundle`` (phase 4's notes, labels
+   at prevalences 0.12 / 0.25 / 0.45) at the reference geometry in bf16,
+   BERT-base text encoder from a seeded random init, ``device_data=True``,
+   2 epochs at batch 256, into a temporary directory.  It fails unless the
+   launches of #1-#4 equal the counts worked out from the text buckets, the
+   loaders' lengths, the epochs and the eval passes (every other kernel 0);
+   the three metric blocks are there with finite AUROC / AP; the thresholds
+   lie on the 101-point grid; every artifact is written (the extracted
+   vectors with the reference keys and shapes); the saved
+   ``best_model_<ts>.npz``, read back by the port's reader into
+   ``FAMEPredictor``, gives the run's test probabilities within 1e-3; and one
+   shuffled epoch of ``DeviceLoader`` batches on the card is bit-identical to
+   ``BatchIterator`` batches moved by ``to_device``, pad rows zero.  Prints
+   the stage times and the train patients/s of each epoch.
+
+It prints a ``{"kernels": [...]}`` line (with each LN-fused kernel's phase 6
+launches), the card's ``nvidia-smi`` line, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 import json
@@ -1941,6 +1958,220 @@ def flash_slice_phase(flash, fab, ffn, addnorm):
     return counts, info
 
 
+
+# -- phase 6: the FAME experiment (run_fame_bundle) -----------------------------------
+
+EXP_PATIENTS, EXP_EPOCHS, EXP_BATCH = 2048, 2, 256
+EXP_PREVALENCE = (0.12, 0.25, 0.45)     # per task, so every split holds both classes
+# The saved best_model npz reloaded by FAMEPredictor against the run's own
+# test logits: the same bf16 kernels on the same rows and batches (row-
+# independent), so equal up to the dynamic weights' rounding (float64 -> bf16
+# in the trainer, float32 -> bf16 in the predictor).
+EXP_NPZ_TOL = 1e-3
+EXP_VECTOR_KEYS = {"gated_vectors": 3 * 256, "fusion_pre_relu_vectors": 512, "labels": 3,
+                   "age": None, "ethnicity": None, "insurance": None, "logits": 3}
+
+
+def experiment_bundle(featurize, rng, n=EXP_PATIENTS):
+    """A seeded synthetic cohort as a FeatureBundle (no pandas): phase 4's
+    notes and codes, labels drawn per task at ``EXP_PREVALENCE``."""
+    notes = make_cohort(rng, n)
+    bundle = bundle_for(featurize, notes, rng)
+    bundle.labels = (rng.random((n, 3)) < np.asarray(EXP_PREVALENCE)).astype(np.float32)
+    return bundle
+
+
+def device_loader_check(arrays, labels, idx, seed):
+    """One shuffled epoch of DeviceLoader batches on the card against
+    BatchIterator batches moved by to_device: bit-identical, pad rows zero."""
+    from fairmultimodal_torch.data.device import DeviceLoader
+    from fairmultimodal_torch.data.loader import BatchIterator, NestedLoader
+    from fairmultimodal_torch.data.prefetch import to_device
+
+    flat = {k: v[idx] for k, v in arrays.items()}
+    dev = DeviceLoader(flat, labels[idx], EXP_BATCH, shuffle=True, seed=seed, device="cuda")
+    host = NestedLoader(BatchIterator(dict(flat, labels=labels[idx]), EXP_BATCH, shuffle=True,
+                                      seed=seed), arrays)
+    n_batches = 0
+    for got, want in zip(dev, host):
+        want = to_device(want, torch.device("cuda"))
+        pad = got["weight"] == 0
+        pairs = [("labels", got["labels"], want["labels"]),
+                 ("weight", got["weight"], want["weight"])]
+        pairs += [(k, v, want["model_inputs"][k]) for k, v in got["model_inputs"].items()]
+        for name, g, w in pairs:
+            if g.device.type != "cuda" or g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"DeviceLoader batch {n_batches}: {name} differs from "
+                                     "the host path")
+            if name != "weight" and g[pad].any():
+                raise AssertionError(f"DeviceLoader batch {n_batches}: {name} pad rows not zero")
+        n_batches += 1
+    if n_batches != len(host) or dev.epoch != 1:
+        raise AssertionError(f"DeviceLoader: {n_batches} batches, epoch {dev.epoch}")
+    return {"batches": n_batches, "pad_rows": int(len(host) * EXP_BATCH - len(idx))}
+
+
+def experiment_phase(flash, fab, ffn, addnorm):
+    """``run_fame_bundle`` at the reference geometry in bf16 with the
+    device-resident loaders; launch counts, metric blocks, thresholds and
+    artifacts checked; the saved npz reloaded by the predictor."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import tempfile
+
+    from fairmultimodal_torch.data import featurize
+    from fairmultimodal_torch.interop import load_flax_params
+    from fairmultimodal_torch.models.bert import bio_clinical_bert_config
+    from fairmultimodal_torch.models.fusion import FAMEModel
+    from fairmultimodal_torch.models.text import TextEncoder
+    from fairmultimodal_torch.pipelines.fame import (FAMEPipelineConfig, build_model_arrays,
+                                                     run_fame_bundle)
+    from fairmultimodal_torch.pipelines.inference import FAMEPredictor
+    from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
+    from fairmultimodal_torch.utils.checkpoint import load_metadata_npz, load_params_npz
+
+    bert_config = bio_clinical_bert_config()
+    bundle = experiment_bundle(featurize, np.random.default_rng(6))
+    notes = bundle.note_chunks
+    encoder = TextEncoder.from_pretrained(fallback_config=bert_config, dtype=torch.bfloat16,
+                                          seed=1, device="cuda")
+    geo = {k: v for k, v in TRAIN_GEO.items() if k not in
+           ("num_ages", "num_genders", "num_ethnicities", "num_insurances",
+            "lab_token_count", "text_embed_size")}
+
+    # The wall time of each train_epoch call (its last step is pulled at its end).
+    epoch_s = []
+    train_epoch = FAMETrainer.train_epoch
+
+    def timed_train_epoch(self, loader):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_epoch(self, loader)
+        epoch_s.append(time.perf_counter() - t0)
+        return out
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg = FAMEPipelineConfig(
+            train=TrainConfig(lr=1e-4, num_epochs=EXP_EPOCHS, batch_size=EXP_BATCH),
+            out_dir=out_dir, dtype="bfloat16", device_data=True, timing=True, **geo)
+        FAMETrainer.train_epoch = timed_train_epoch
+        _reset_counts(fab, ffn, addnorm)
+        flash.launches = flash.bwd_launches = 0
+        buf = io.StringIO()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                out = run_fame_bundle(bundle, cfg, text_encoder=encoder, verbose=True,
+                                      device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            FAMETrainer.train_epoch = train_epoch
+        counts = _unfolded_counts(fab, ffn)
+        counts.update(glue=addnorm.launches, glue_bwd=addnorm.bwd_launches,
+                      flash_attention=flash.launches, flash_attention_bwd=flash.bwd_launches)
+        printed = buf.getvalue().splitlines()
+        log("[experiment] " + "\n[experiment] ".join(printed[:6] + ["..."] + printed[-45:]))
+
+        # Launches: text precompute, then every lab-encoder forward and backward.
+        splits = {k: len(v) for k, v in out["splits"].items()}
+        nb = {k: -(-n // EXP_BATCH) for k, n in splits.items()}
+        epochs = len(out["history"])
+        forwards = epochs * (2 * nb["train"] + nb["val"]) + nb["val"] + 2 * nb["test"]
+        layers = geo["lab_layers"]
+        text = expected_text_launches(encoder.tokenizer, notes, cfg.text_batch_size,
+                                      bert_config.num_hidden_layers)
+        want = {k: 0 for k in counts}
+        want.update(fused_attention_block_ln=text + layers * forwards,
+                    fused_ffn_ln=text + layers * forwards,
+                    fused_attention_block_ln_bwd=layers * epochs * nb["train"],
+                    fused_ffn_ln_bwd=layers * epochs * nb["train"])
+        log(f"[experiment] {EXP_PATIENTS} patients, splits {splits}, {epochs} epochs in "
+            f"{wall:.1f} s (host clock); launches {counts}, expected {want} (text {text})")
+        if epochs != EXP_EPOCHS or counts != want or text == 0:
+            raise AssertionError(f"experiment launches {counts}, expected {want}")
+
+        # Metric blocks, thresholds on the 101-point grid, finite AUROC / AP.
+        grid = np.linspace(0, 1, 101)
+        test_labels = bundle.labels[out["splits"]["test"]]
+        if set(out["metrics"]) != {"mortality", "los", "mechanical_ventilation"}:
+            raise AssertionError(f"metric blocks {sorted(out['metrics'])}")
+        for i, (task, m) in enumerate(out["metrics"].items()):
+            both = 0 < test_labels[:, i].sum() < len(test_labels)
+            if not both or not (np.isfinite(m["aucroc"]) and np.isfinite(m["auprc"])):
+                raise AssertionError(f"{task}: classes present {both}, AUROC {m['aucroc']}, "
+                                     f"AP {m['auprc']}")
+            if not (grid == out["thresholds"][task]).any():
+                raise AssertionError(f"{task}: threshold {out['thresholds'][task]} off the grid")
+        if not np.isfinite(out["eddi"]["overall_combined_eddi"]):
+            raise AssertionError(f"EDDI {out['eddi']['overall_combined_eddi']}")
+
+        # Artifacts: names, the extracted vectors' keys and shapes, the CSV rows.
+        names = sorted(os.listdir(out_dir))
+        vec_path = glob.glob(os.path.join(out_dir, "extracted_vectors_*.npz"))
+        npz_path = out["artifacts"]["best_model"]
+        for name in ("tracked_dynamic_weights.npy", "tracked_sigmoid_weights.npy",
+                     "dynamic_weights_per_epoch1.csv"):
+            if name not in names:
+                raise AssertionError(f"artifact {name} missing: {names}")
+        if len(vec_path) != 1 or not os.path.exists(npz_path):
+            raise AssertionError(f"artifacts {names}")
+        with np.load(vec_path[0]) as vec:
+            shapes = {k: vec[k].shape for k in vec.files}
+        for k, width in EXP_VECTOR_KEYS.items():
+            want_shape = (splits["test"],) + ((width,) if width else ())
+            if shapes.get(k) != want_shape:
+                raise AssertionError(f"extracted vectors {k}: {shapes.get(k)}, "
+                                     f"expected {want_shape}")
+        with open(os.path.join(out_dir, "dynamic_weights_per_epoch1.csv")) as f:
+            csv_rows = f.read().splitlines()
+        if len(csv_rows) != 1 + 3 * epochs:
+            raise AssertionError(f"dynamic-weights CSV has {len(csv_rows)} rows")
+        tracked = np.load(os.path.join(out_dir, "tracked_sigmoid_weights.npy"))
+        if tracked.shape != (epochs, 3 * 256):
+            raise AssertionError(f"tracked_sigmoid_weights {tracked.shape}")
+
+        # The saved best state, read back through the port's reader, gives the
+        # run's test probabilities.
+        meta = load_metadata_npz(npz_path)
+        model = load_flax_params(FAMEModel(**meta["model"], dtype=torch.bfloat16),
+                                 load_params_npz(npz_path))
+        test_arrays = {k: v[out["splits"]["test"]]
+                       for k, v in build_model_arrays(bundle).items()}
+        fab.launches = ffn.launches = 0
+        probs = FAMEPredictor(model, meta["thresholds"], batch_size=EXP_BATCH,
+                              dynamic_weights=meta["dynamic_weights"],
+                              device="cuda").predict_arrays(test_arrays)["probs"]
+        with np.load(vec_path[0]) as vec:
+            run_probs = 1.0 / (1.0 + np.exp(-vec["logits"].astype(np.float64)))
+        npz_diff = float(np.abs(probs - run_probs).max())
+        log(f"[experiment] best_model npz reloaded: max |p - sigmoid(test logits)| = "
+            f"{npz_diff:.3e} (limit {EXP_NPZ_TOL}); lab launches {fab.launches}")
+        if not npz_diff <= EXP_NPZ_TOL or fab.launches != layers * nb["test"]:
+            raise AssertionError(f"reloaded npz: probabilities differ by {npz_diff}, "
+                                 f"{fab.launches} launches")
+
+    loader = device_loader_check(build_model_arrays(bundle), bundle.labels,
+                                 out["splits"]["train"], seed=cfg.train.seed)
+    log(f"[experiment] DeviceLoader epoch on the card bit-identical to the host path: {loader}")
+    train_pps = [splits["train"] / s for s in epoch_s]
+    info = {"patients": EXP_PATIENTS, "splits": splits, "epochs": epochs,
+            "wall_s": wall, "timings_s": out["timings"], "train_epoch_s": epoch_s,
+            "train_patients_per_sec": train_pps, "launches": counts, "text_launches": text,
+            "history": out["history"], "thresholds": out["thresholds"],
+            "metrics": {t: {k: m[k] for k in ("aucroc", "auprc", "f1")}
+                        for t, m in out["metrics"].items()},
+            "overall_combined_eddi": out["eddi"]["overall_combined_eddi"],
+            "artifacts": names, "npz_reload_max_abs": npz_diff, "device_loader": loader}
+    log(f"[experiment] stage wall times (s): {json.dumps(out['timings'])}; train patients/s "
+        f"per epoch {[round(p, 1) for p in train_pps]}")
+    del out, model, encoder
+    torch.cuda.empty_cache()
+    return counts, info
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -1981,6 +2212,8 @@ def main() -> int:
     log(f"[unfolded] {json.dumps(unfolded_info)}")
     flash_launches, flash_info = flash_slice_phase(flash, fab, ffn, addnorm)
     log(f"[flash] {json.dumps(flash_info)}")
+    experiment_launches, experiment_info = experiment_phase(flash, fab, ffn, addnorm)
+    log(f"[experiment] {json.dumps(experiment_info)} | {smi}")
 
     meta = {
         "fused_attention_block_ln": ("fairmultimodal_torch/ops/csrc/flash_attention.cu",
@@ -2010,6 +2243,7 @@ def main() -> int:
             "launches_by_encoder": {"text": slice_info["text"][name],
                                     "lab": slice_info["lab"][name]},
             "launches_training": train_launches[name],
+            "launches_experiment": experiment_launches[name],
             "fwd_res_dropout_ms": timed_train[name]["fwd_res_ms"],
             "shapes": mine,
         })
@@ -2031,7 +2265,7 @@ def main() -> int:
             + (["fairmultimodal_torch/ops/csrc/flash_attention.cu"] if part == "attention"
                else []),
             "errors": {r["case"]: r["errors"] for r in train_rows[part]},
-            "kept_fraction": keep,
+            "kept_fraction": keep, "launches_experiment": experiment_launches[name],
         })
     sources = {"block": ["fairmultimodal_torch/ops/csrc/gemm.cu",
                          "fairmultimodal_torch/ops/csrc/flash_attention.cu"],

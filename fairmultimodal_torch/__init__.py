@@ -6,8 +6,13 @@ every Pallas TPU kernel on a ported path is a CUDA kernel written for the
 H100 (``sm_90a``) in ``fairmultimodal_torch/ops/csrc``.
 
 Ported so far: the serving path -- ``pipelines.inference.FAMEPredictor`` and
-``run_fame_inference`` with the frozen note encoder (``models.text``).
-Entry points run on CUDA unless the caller passes ``device="cpu"``.
+``run_fame_inference`` with the frozen note encoder (``models.text``); the
+training path -- ``train.loop.FAMETrainer`` in the folded, unfolded and
+flash-route layer configurations; and the FAME experiment --
+``pipelines.fame.run_fame_experiment`` (DataFrames) and ``run_fame_bundle``
+(a ``FeatureBundle``, no pandas): splits, device-resident loaders,
+calibration, evaluation with the EO / EDDI reports, artifacts.  Entry points
+run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -19,8 +19,9 @@ import numpy as np
 
 from fairmultimodal_torch import LABEL_COLUMNS
 
-__all__ = ["FeatureBundle", "assemble_features", "zscore", "get_age_bucket",
-           "map_ethnicity", "map_insurance", "CohortInputError", "validate_common_frames"]
+__all__ = ["FeatureBundle", "assemble_features", "zscore", "compute_pos_weights",
+           "get_age_bucket", "map_ethnicity", "map_insurance", "CohortInputError",
+           "validate_common_frames"]
 
 # Columns never used as lab features (10_FAME.py:700-702).
 EXCLUDE_COLS = {
@@ -105,10 +106,26 @@ def map_insurance(i) -> str:
                           "Self Pay"} else "Other"
 
 
-def zscore(x: np.ndarray, eps: float = 1e-6) -> np.ndarray:
-    """Global z-score with the reference's epsilon (10_FAME.py:710-712)."""
+def zscore(x: np.ndarray, mean=None, std=None, eps: float = 1e-6):
+    """Global z-score with the reference's epsilon (10_FAME.py:710-712).
+    Returns (scaled, mean, std); pass a fitted ``mean`` / ``std`` to scale
+    another cohort the same way."""
     x = np.asarray(x, dtype=np.float32)
-    return (x - np.mean(x, axis=0)) / (np.std(x, axis=0) + eps)
+    mean = np.mean(x, axis=0) if mean is None else mean
+    std = np.std(x, axis=0) if std is None else std
+    return (x - mean) / (std + eps), mean, std
+
+
+def compute_pos_weights(labels: np.ndarray) -> np.ndarray:
+    """Per-task positive-class weight n/(2*n_pos), 1.0 for a task without
+    positives (10_FAME.py:48-52,756-759)."""
+    labels = np.asarray(labels)
+    n = len(labels)
+    out = []
+    for i in range(labels.shape[1]):
+        pos = labels[:, i].sum()
+        out.append(n / (2.0 * pos) if pos > 0 else 1.0)
+    return np.asarray(out, dtype=np.float32)
 
 
 class CohortInputError(ValueError):
@@ -191,7 +208,7 @@ def assemble_features(structured, unstructured) -> FeatureBundle:
     lab_cols = [c for c in df.columns
                 if c not in EXCLUDE_COLS and not c.startswith("note_")
                 and pd.api.types.is_numeric_dtype(df[c])]
-    labs = zscore(df[lab_cols].fillna(0).to_numpy(dtype=np.float32))
+    labs, _, _ = zscore(df[lab_cols].fillna(0).to_numpy(dtype=np.float32))
 
     chunks = [[row[c] for c in note_columns if _is_note(row[c])]
               for _, row in df.iterrows()]

@@ -3,7 +3,9 @@
 Each (nested) numpy batch is copied to the device one batch ahead of its
 use: the arrays are staged in pinned host memory and copied with
 ``non_blocking=True``, so the copy of batch N+1 overlaps the card computing
-step N.  Tensors already on the device pass through unchanged.
+step N.  Tensors already on the device pass through unchanged, and a loader
+marked ``device_resident`` (:class:`~fairmultimodal_torch.data.device.DeviceLoader`)
+is iterated as it is.
 """
 
 from __future__ import annotations
@@ -40,6 +42,9 @@ class PrefetchLoader:
         return len(self.loader)
 
     def __iter__(self) -> Iterator[Any]:
+        if getattr(self.loader, "device_resident", False):
+            yield from self.loader
+            return
         it = iter(self.loader)
         try:
             nxt = to_device(next(it), self.device)

@@ -1,4 +1,4 @@
-"""JAX-package parameters -> this port's state dicts.
+"""JAX-package parameters <-> this port's state dicts.
 
 The port's module and parameter names mirror the flax tree, so the mapping
 is mechanical: a nested dict (as flax gives it, or as
@@ -11,17 +11,21 @@ exported ``best_model_*.npz``) is flattened with ``.`` and each leaf renamed:
 - raw parameters (``pos_embedding``, ``sig_weights``) pass through.
 
 The same function serves ``FAMEModel`` and ``BertEncoderModel`` trees.
+:func:`flax_params` is the inverse, for writing checkpoints in the JAX
+format.  A 2-D ``weight`` is a Dense kernel or an Embed table and a 1-D one
+a LayerNorm scale, so it dispatches on the type of the module that owns the
+parameter, never on its shape.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["state_dict_from_flax", "load_flax_params"]
+__all__ = ["state_dict_from_flax", "load_flax_params", "flax_params"]
 
 
 def state_dict_from_flax(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -46,3 +50,27 @@ def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
     of the module must be present and nothing extra)."""
     module.load_state_dict(state_dict_from_flax(params), strict=True)
     return module
+
+
+def flax_params(module: nn.Module,
+                state_dict: Optional[Mapping[str, torch.Tensor]] = None) -> Dict:
+    """The module's parameters (or ``state_dict``'s values for them, such as
+    a saved best state) -> the nested flax tree of fp32 numpy arrays that
+    :func:`state_dict_from_flax` reads back."""
+    values = dict(module.named_parameters()) if state_dict is None else state_dict
+    tree: Dict = {}
+    for name, _ in module.named_parameters():
+        path, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        owner = module.get_submodule(path)
+        arr = values[name].detach().float().cpu().numpy()
+        if isinstance(owner, nn.Linear) and leaf == "weight":
+            leaf, arr = "kernel", arr.T
+        elif isinstance(owner, nn.Embedding) and leaf == "weight":
+            leaf = "embedding"
+        elif isinstance(owner, nn.LayerNorm) and leaf == "weight":
+            leaf = "scale"
+        node = tree
+        for part in path.split(".") if path else ():
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree

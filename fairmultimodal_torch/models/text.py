@@ -96,12 +96,18 @@ class TextEncoder:
     @classmethod
     def from_pretrained(cls, model_name: str = "emilyalsentzer/Bio_ClinicalBERT",
                         dtype=torch.float32, fallback_config: Optional[BertConfig] = None,
-                        seed: int = 0, device=None) -> "TextEncoder":
+                        seed: int = 0, require_weights: bool = False,
+                        device=None) -> "TextEncoder":
         """Seeded random init + :class:`HashingTokenizer` (loading
         ``model_name``'s Hugging Face weights is not ported yet).  Without an
         explicit ``fallback_config`` it warns: the embeddings carry no
-        meaning on real data.
+        meaning on real data.  ``require_weights=True`` makes the missing
+        weights fatal, as the JAX function does when it finds none.
         """
+        if require_weights:
+            raise RuntimeError(
+                f"HF weights for {model_name!r} are required (--require_hf_weights) but "
+                "the port does not load Hugging Face weights yet (ROADMAP queue 1 item 4)")
         if fallback_config is None:
             warnings.warn(
                 f"weights for {model_name!r} are not loaded (not ported yet); using a "

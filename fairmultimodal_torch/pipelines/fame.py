@@ -1,17 +1,104 @@
-"""Model input arrays of the FAME pipeline (port of ``pipelines/fame.py:90-102``).
+"""The FAME experiment (port of ``fairmultimodal_tpu/pipelines/fame.py``;
+reference: 10_FAME.py run_experiment, :606-918).
 
-Training (``run_fame_experiment`` and its loaders) is the next slice.
+Stages: featurize -> batched text precompute -> splits -> fixed-shape
+loaders -> ``FAMETrainer.fit`` (dynamic fairness weights) -> threshold
+calibration -> test evaluation + EDDI report -> artifacts (best params in
+the JAX package's npz format, dynamic-weights CSV, extracted vectors npz,
+tracked npy), with the JAX function's prints, ``timings`` keys and result
+dict.
+
+The pipeline is split in two so that a machine without pandas can run it:
+:func:`run_fame_bundle` starts from a :class:`FeatureBundle` and imports no
+pandas; :func:`run_fame_experiment` takes the two cohort DataFrames,
+featurizes them and calls it.
+
+Reference bug handled here: ``10_FAME.py:744-755`` indexes the full-cohort
+tensors with indices *relative to the train_val subframe*, silently training
+on the wrong rows.  Default mode maps everything to absolute indices;
+``reference_compat=True`` reproduces the buggy indexing for log-parity runs.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+import datetime
+import os
+import time
+from typing import Dict, Optional
 
 import numpy as np
+import torch
 
-from fairmultimodal_torch.data.featurize import FeatureBundle
+from fairmultimodal_torch.data.device import DeviceLoader
+from fairmultimodal_torch.data.featurize import (
+    FeatureBundle,
+    assemble_features,
+    compute_pos_weights,
+)
+from fairmultimodal_torch.data.loader import BatchIterator, NestedLoader
+from fairmultimodal_torch.data.split import multilabel_stratified_split
+from fairmultimodal_torch.eval.report import eddi_report, evaluate_multitask
+from fairmultimodal_torch.interop import flax_params
+from fairmultimodal_torch.models._layers import init_params
+from fairmultimodal_torch.models.fusion import FAMEModel
+from fairmultimodal_torch.models.text import TextEncoder, encode_note_chunks
+from fairmultimodal_torch.ops.gates import resolve_device
+from fairmultimodal_torch.train.calibrate import calibrate_thresholds
+from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
+from fairmultimodal_torch.utils.checkpoint import save_params_npz
 
-__all__ = ["build_model_arrays"]
+__all__ = ["FAMEPipelineConfig", "build_model_arrays", "make_loaders", "run_fame_bundle",
+           "run_fame_experiment"]
+
+
+@dataclasses.dataclass
+class FAMEPipelineConfig:
+    """The JAX config's fields.  ``mesh`` and ``checkpoint_dir`` are not
+    ported yet and raise ``NotImplementedError`` when set."""
+
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    text_model: str = "emilyalsentzer/Bio_ClinicalBERT"
+    text_max_length: int = 512
+    text_batch_size: int = 128
+    test_size: float = 0.20
+    val_size: float = 0.05
+    split_seed: int = 42
+    out_dir: str = "."
+    head: Optional[int] = None        # 05_FPM-style .head(n) subsample of the tables
+    reference_compat: bool = False
+    # 10_FAME.py:283-285 quirk: the mortality row's dynamic weights scale all
+    # three tasks' fusions.  False = per-task weight rows (the fixed mode).
+    reference_weight_compat: bool = True
+    # A missing pretrained Bio_ClinicalBERT is fatal instead of the loud
+    # random-init fallback (real-data runs should set this).
+    require_hf_weights: bool = False
+    # Print a per-phase wall-clock block at the end; timings are always
+    # returned in the result dict under "timings".
+    timing: bool = False
+    mesh: Optional[object] = None
+    # Park split arrays on the device and gather batches there (data/device.py);
+    # False runs BatchIterator + PrefetchLoader.  The batches are bit-identical.
+    device_data: bool = True
+    save_artifacts: bool = True
+    checkpoint_dir: Optional[str] = None
+    # Tiny-model overrides for CPU smoke runs (defaults = reference sizes).
+    hidden_size: int = 768
+    demo_layers: int = 12
+    demo_heads: int = 12
+    lab_layers: int = 2
+    lab_heads: int = 8
+    fusion_hidden: int = 512
+    dtype: str = "float32"
+
+
+def _check_config(cfg: FAMEPipelineConfig) -> None:
+    if cfg.mesh is not None:
+        raise NotImplementedError("mesh: multi-GPU training is not ported yet "
+                                  "(ROADMAP queue 1 item 6)")
+    if cfg.checkpoint_dir:
+        raise NotImplementedError("checkpoint_dir: the checkpointer and resume are not "
+                                  "ported yet (ROADMAP queue 1 item 3)")
 
 
 def build_model_arrays(bundle: FeatureBundle) -> Dict[str, np.ndarray]:
@@ -27,3 +114,214 @@ def build_model_arrays(bundle: FeatureBundle) -> Dict[str, np.ndarray]:
         "lab_features": bundle.labs.astype(np.float32),
         "text_embedding": bundle.text_embeddings.astype(np.float32),
     }
+
+
+def make_loaders(arrays: Dict[str, np.ndarray], labels: np.ndarray,
+                 idx: Dict[str, np.ndarray], batch_size: int, seed: int = 42,
+                 device_data: bool = True, device=None):
+    """Per-split loaders over the model-input ``arrays``; the train split is
+    shuffled.  ``device_data=True`` parks each split's arrays on ``device``
+    once and gathers batches there (:class:`DeviceLoader`); False gives host
+    loaders whose batches the trainer copies to the device."""
+    loaders = {}
+    for split, indices in idx.items():
+        flat = {k: v[indices] for k, v in arrays.items()}
+        shuffle = split == "train"
+        if device_data:
+            loaders[split] = DeviceLoader(flat, labels[indices], batch_size, shuffle=shuffle,
+                                          seed=seed, device=device)
+        else:
+            flat["labels"] = labels[indices]
+            loaders[split] = NestedLoader(
+                BatchIterator(flat, batch_size, shuffle=shuffle, seed=seed), tuple(arrays))
+    return loaders
+
+
+def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] = None,
+                    text_encoder: Optional[TextEncoder] = None, verbose: bool = True,
+                    device=None, timings: Optional[Dict[str, float]] = None) -> Dict:
+    """Train + evaluate full FAME from a featurized cohort (no pandas).
+
+    ``device``: ``None`` means CUDA and raises without it.  ``timings``
+    holds stage times already spent (the DataFrame front passes its
+    ``featurize`` time).  Returns the JAX function's result dict; its
+    ``best_params`` is the best state dict, loaded into ``trainer.model``.
+    """
+    cfg = config or FAMEPipelineConfig()
+    _check_config(cfg)
+    if cfg.head:
+        raise ValueError("head subsamples the cohort tables: run_fame_experiment applies it")
+    device = resolve_device(device)
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    timings = dict(timings or {"featurize": 0.0})
+    _t0 = time.perf_counter()
+
+    def _mark(phase: str):
+        nonlocal _t0
+        now = time.perf_counter()
+        timings[phase] = timings.get(phase, 0.0) + (now - _t0)
+        _t0 = now
+
+    if verbose:
+        print(f"After filtering, number of rows: {bundle.num_patients}")
+        print(f"Number of lab feature columns: {bundle.num_lab_features}")
+
+    # Text precompute (frozen encoder), batched.
+    if text_encoder is None:
+        text_encoder = TextEncoder.from_pretrained(
+            cfg.text_model, dtype=dtype, require_weights=cfg.require_hf_weights,
+            device=device)
+    bundle.text_embeddings = encode_note_chunks(
+        text_encoder, bundle.note_chunks, max_length=cfg.text_max_length,
+        batch_size=cfg.text_batch_size)
+    if verbose:
+        print("Aggregated text embeddings shape:", bundle.text_embeddings.shape)
+    _mark("text_precompute")
+
+    # Two-stage multilabel stratified split (10_FAME:733-742).
+    train_val_idx, test_idx = multilabel_stratified_split(
+        bundle.labels, cfg.test_size, seed=cfg.split_seed)
+    rel_train, rel_val = multilabel_stratified_split(
+        bundle.labels[train_val_idx], cfg.val_size, seed=cfg.split_seed)
+    if cfg.reference_compat:
+        # Reproduce 10_FAME.py:744-755: relative indices applied to the
+        # full-cohort tensors.
+        train_idx, val_idx = rel_train, rel_val
+    else:
+        train_idx, val_idx = train_val_idx[rel_train], train_val_idx[rel_val]
+    if verbose:
+        print(f"Train size: {len(train_idx)}, Validation size: {len(val_idx)}, "
+              f"Test size: {len(test_idx)}")
+
+    arrays = build_model_arrays(bundle)
+    loaders = make_loaders(arrays, bundle.labels,
+                           {"train": train_idx, "val": val_idx, "test": test_idx},
+                           cfg.train.batch_size, seed=cfg.train.seed,
+                           device_data=cfg.device_data, device=device)
+
+    pos_weight = compute_pos_weights(bundle.labels[train_idx])
+    n_ages, n_genders, n_eth, n_ins = bundle.vocab_sizes()
+    if verbose:
+        print("NUM_AGES:", n_ages, "NUM_GENDERS:", n_genders,
+              "NUM_ETHNICITIES:", n_eth, "NUM_INSURANCES:", n_ins)
+        print("NUM_LAB_FEATURES (tokens):", bundle.num_lab_features)
+
+    geometry = {
+        "num_ages": n_ages, "num_genders": n_genders,
+        "num_ethnicities": n_eth, "num_insurances": n_ins,
+        "lab_token_count": bundle.num_lab_features,
+        "text_embed_size": int(bundle.text_embeddings.shape[1]),
+        "hidden_size": cfg.hidden_size, "demo_layers": cfg.demo_layers,
+        "demo_heads": cfg.demo_heads, "lab_layers": cfg.lab_layers,
+        "lab_heads": cfg.lab_heads, "fusion_hidden": cfg.fusion_hidden,
+        "reference_weight_compat": cfg.reference_weight_compat,
+    }
+    model = init_params(FAMEModel(**geometry, dtype=dtype), seed=cfg.train.seed)
+
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    trainer = FAMETrainer(
+        model, cfg.train, pos_weight, rngs_seed=cfg.train.seed, device=device,
+        dynamic_weights_csv=os.path.join(cfg.out_dir, "dynamic_weights_per_epoch1.csv")
+        if cfg.save_artifacts else None)
+
+    _mark("split_and_loaders")
+    best_params, history = trainer.fit(loaders["train"], loaders["val"], verbose=verbose)
+    # Every pass below reads the best state, as the JAX pipeline passes best_params.
+    model.load_state_dict(best_params)
+    _mark("train")
+
+    # Threshold calibration on validation (10_FAME:868).
+    _, val_logits, val_labels = trainer.validate(loaders["val"])
+    thresholds = calibrate_thresholds(1 / (1 + np.exp(-val_logits)), val_labels)
+    if verbose:
+        print("\nOptimal thresholds from validation:")
+        for k, v in thresholds.items():
+            print(f"{k}: {v:.2f}")
+
+    test_out = trainer.predict_logits(loaders["test"])
+    sensitive = {"age": test_out["age"], "ethnicity": test_out["ethnicity"],
+                 "insurance": test_out["insurance"]}
+    metrics, fairness = evaluate_multitask(
+        test_out["logits"], test_out["labels"], sensitive, thresholds,
+        verbose=verbose)
+    eddi = eddi_report(test_out["logits"], test_out["labels"], sensitive,
+                       thresholds, verbose=verbose)
+    _mark("calibrate_and_eval")
+
+    if verbose:
+        print("\n--- Final Evaluation Metrics on Test Set ---")
+        for task, m in metrics.items():
+            print(f"\nOutcome: {task}")
+            print("  AUROC     : {:.4f}".format(m["aucroc"]))
+            print("  AUPRC     : {:.4f}".format(m["auprc"]))
+            print("  F1 Score  : {:.4f}".format(m["f1"]))
+            print("  Recall    : {:.4f}".format(m["recall (TPR)"]))
+            print("  Precision : {:.4f}".format(m["precision"]))
+            print("  TPR       : {:.4f}".format(m["TPR"]))
+            print("  FPR       : {:.4f}".format(m["fpr"]))
+            print("  Optimal Thresh: {:.2f}".format(m["optimal_threshold"]))
+            print("  Overall EO fairness metric: {:.3f}".format(
+                fairness[task]["overall_eo"]))
+
+    artifacts = {}
+    if cfg.save_artifacts:
+        ts = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+        best_path = os.path.join(cfg.out_dir, f"best_model_{ts}.npz")
+        save_params_npz(best_path, flax_params(model, best_params), metadata={
+            "model": geometry,
+            "thresholds": {k: float(v) for k, v in thresholds.items()},
+            "dynamic_weights": trainer.dynamic_weights.tolist(),
+        })
+        np.save(os.path.join(cfg.out_dir, "tracked_dynamic_weights.npy"),
+                trainer.tracked_dynamic_weights, allow_pickle=True)
+        np.save(os.path.join(cfg.out_dir, "tracked_sigmoid_weights.npy"),
+                np.array(trainer.tracked_sigmoid_weights))
+        # extract_and_save_vectors parity (10_FAME.py:559-604): the reference
+        # npz keys are gated_vectors [N, 768], fusion_pre_relu_vectors
+        # [N, 512], labels, age, ethnicity, insurance; `logits` is an extra.
+        vectors = trainer.extract_vectors(loaders["test"])
+        np.savez(os.path.join(cfg.out_dir, f"extracted_vectors_{ts}.npz"),
+                 logits=test_out["logits"], **vectors)
+        artifacts = {"best_model": best_path}
+        if verbose:
+            print("Saved best model to", best_path)
+    _mark("artifacts")
+
+    timings["total"] = sum(timings.values())
+    if cfg.timing and verbose:
+        print("\n--- Phase wall-clock (s) ---")
+        for phase, secs in timings.items():
+            print(f"  {phase:<20s} {secs:9.2f}")
+
+    return {
+        "timings": timings,
+        "metrics": metrics,
+        "fairness": fairness,
+        "eddi": eddi,
+        "thresholds": thresholds,
+        "history": history,
+        "artifacts": artifacts,
+        "best_params": best_params,
+        "trainer": trainer,
+        "bundle": bundle,
+        "splits": {"train": train_idx, "val": val_idx, "test": test_idx},
+    }
+
+
+def run_fame_experiment(structured, unstructured, config: Optional[FAMEPipelineConfig] = None,
+                        text_encoder: Optional[TextEncoder] = None, verbose: bool = True,
+                        device=None) -> Dict:
+    """Train + evaluate full FAME from the two cohort DataFrames: ``head``,
+    :func:`assemble_features` (pandas), then :func:`run_fame_bundle`."""
+    cfg = config or FAMEPipelineConfig()
+    _check_config(cfg)
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    if cfg.head:
+        structured = structured.head(cfg.head)
+        unstructured = unstructured.head(cfg.head)
+    bundle = assemble_features(structured, unstructured)
+    return run_fame_bundle(bundle, dataclasses.replace(cfg, head=None), text_encoder,
+                           verbose=verbose, device=device,
+                           timings={"featurize": time.perf_counter() - t0})

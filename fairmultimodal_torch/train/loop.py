@@ -15,8 +15,14 @@
   "weight": [B]}`` of numpy arrays (or tensors); padded rows carry weight 0
   and change no loss, metric or statistic.
 
+Train and eval passes take a host loader (``NestedLoader`` over
+``BatchIterator``) or a :class:`~fairmultimodal_torch.data.device.DeviceLoader`.
+The eval passes read the live model: load ``fit``'s best state into
+``trainer.model`` first (the JAX trainer passes ``best_params`` to them).
+
 Not ported here (ROADMAP): the checkpointer and bit-identical resume, the
-device-resident loader and its one-dispatch statistics scan, multi-GPU.
+one-dispatch statistics scan (the batchwise pass gives the same weights:
+its statistics are exact integer sums), multi-GPU.
 """
 
 from __future__ import annotations

@@ -4,9 +4,14 @@
   ``fairmultimodal_tpu``;
 - every module imports in a fresh interpreter where those are unimportable;
 - entry points called with ``device=None`` on a machine without CUDA raise
-  instead of falling back to the CPU.
+  instead of falling back to the CPU;
+- the card's machine has no pandas, scikit-learn or transformers: no module
+  imports ``sklearn`` or ``transformers``, ``pandas`` is imported only inside
+  the functions that take DataFrames, and every module imports without them;
+- the experiment's config fields that are not ported yet raise.
 """
 
+import ast
 import pathlib
 import re
 import subprocess
@@ -17,9 +22,13 @@ import pytest
 import torch
 
 import fairmultimodal_torch
+from fairmultimodal_torch.data.device import DeviceLoader
+from fairmultimodal_torch.data.featurize import FeatureBundle
 from fairmultimodal_torch.models.bert import BertConfig
 from fairmultimodal_torch.models.fusion import FAMEModel
 from fairmultimodal_torch.models.text import TextEncoder
+from fairmultimodal_torch.pipelines.fame import (FAMEPipelineConfig, run_fame_bundle,
+                                                 run_fame_experiment)
 from fairmultimodal_torch.pipelines.inference import FAMEPredictor, run_fame_inference
 from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
 
@@ -66,3 +75,86 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
     np.savez(tmp_path / "p.npz", x=np.zeros(1))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_fame_inference(None, None, str(tmp_path / "p.npz"))
+
+
+def _imports(node):
+    if isinstance(node, ast.Import):
+        return [a.name.split(".")[0] for a in node.names]
+    if isinstance(node, ast.ImportFrom) and node.module and not node.level:
+        return [node.module.split(".")[0]]
+    return []
+
+
+def _module_level_imports(tree):
+    """Top-level names imported outside any function body."""
+    found, stack = [], list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        found += _imports(node)
+        stack.extend(ast.iter_child_nodes(node))
+    return found
+
+
+def test_no_sklearn_or_transformers_and_pandas_only_in_functions():
+    bad, pandas_top, pandas_any = [], [], 0
+    for p in PKG.rglob("*.py"):
+        tree = ast.parse(p.read_text())
+        every = [n for node in ast.walk(tree) for n in _imports(node)]
+        bad += [f"{p.relative_to(PKG)}: {n}" for n in every if n in ("sklearn", "transformers")]
+        pandas_any += every.count("pandas")
+        if "pandas" in _module_level_imports(tree):
+            pandas_top.append(str(p.relative_to(PKG)))
+    assert bad == [] and pandas_top == []
+    assert pandas_any >= 2          # the DataFrame functions do import it
+
+
+def test_every_module_imports_without_pandas_sklearn_or_transformers():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for name in ('pandas', 'sklearn', 'transformers'):\n"
+        "    sys.modules[name] = None\n"
+        "import fairmultimodal_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, 'fairmultimodal_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PKG.parent, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def _bundle(n=12):
+    rng = np.random.default_rng(0)
+    return FeatureBundle(
+        subject_id=np.arange(n), age_codes=rng.integers(0, 4, n).astype(np.int32),
+        gender_codes=np.zeros(n, np.int32), ethnicity_codes=np.zeros(n, np.int32),
+        insurance_codes=np.zeros(n, np.int32), labs=np.zeros((n, 3), np.float32),
+        labels=np.zeros((n, 3), np.float32), lab_columns=["a", "b", "c"],
+        note_chunks=[["note"]] * n)
+
+
+def test_experiment_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceLoader({"x": np.zeros((4, 1))}, np.zeros((4, 3)), 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_fame_bundle(_bundle(), verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_fame_experiment(None, None, verbose=False)
+
+
+@pytest.mark.parametrize("field,value,error,match", [
+    ("mesh", object(), NotImplementedError, "queue 1 item 6"),
+    ("checkpoint_dir", "ckpt", NotImplementedError, "queue 1 item 3"),
+    ("require_hf_weights", True, RuntimeError, "required"),
+])
+def test_experiment_fields_not_ported_raise(field, value, error, match, tmp_path):
+    cfg = FAMEPipelineConfig(out_dir=str(tmp_path), **{field: value})
+    with pytest.raises(error, match=match):
+        run_fame_bundle(_bundle(), cfg, verbose=False, device="cpu")
+    if field != "require_hf_weights":
+        with pytest.raises(error, match=match):
+            run_fame_experiment(None, None, cfg, verbose=False, device="cpu")
+    with pytest.raises(RuntimeError, match="required"):
+        TextEncoder.from_pretrained(require_weights=True, device="cpu")
