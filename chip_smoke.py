@@ -132,9 +132,34 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    ``BatchIterator`` batches moved by ``to_device``, pad rows zero.  Prints
    the stage times and the train patients/s of each epoch.
 
+7. the command line: ``fairmultimodal_torch.cli.main`` called in-process at
+   the reference geometry in bf16 on ``--synthetic 2048 --synthetic_labs
+   549`` (550 lab columns with ``icu_los``) at batch 256, every call with
+   ``--require_hf_weights --text_cache``.  First a Bio_ClinicalBERT snapshot
+   of BERT-base geometry with seeded random weights is written into a hub
+   cache under ``build/phase7/`` (``HF_HUB_CACHE``): ``config.json``,
+   ``tokenizer_config.json``, a BertForPreTraining-named
+   ``pytorch_model.bin`` and a ``vocab.txt`` that spells most note words in
+   single characters, so the chunks reach the 256 and 512 buckets.  Runs:
+   A ``fame --epochs 2 --checkpoint_dir CA``; B ``fame --epochs 1
+   --checkpoint_dir CB`` reading the same cohort from CSV files written by
+   ``write_csv_table`` (``--data_dir``); C ``fame --epochs 2
+   --checkpoint_dir CB``, which resumes; D ``predict --params`` A's npz; E
+   ``fame --runs 2 --epochs 1``.  It fails unless every run's launches of
+   #1-#4 equal the counts predicted before the runs from the snapshot's
+   tokenizer and the split (every other kernel 0); only A and E's second
+   seed encode text (the rest hit the cache); C prints the resume line and
+   its ``step_2`` (and B's ``step_1``) equals A's bit for bit; D's
+   probabilities for A's test patients lie within 1e-3 of sigmoid of A's
+   extracted test logits; E prints the Table-3 block and writes
+   ``runs_aggregate.csv``.  ``build/phase7/`` is removed at the end.  Prints
+   each run's wall time and stage times, the checkpoint's size and its save
+   and restore seconds, the tokenizer's chunks/s and the text stage cold
+   and warm.
+
 It prints a ``{"kernels": [...]}`` line (with each LN-fused kernel's phase 6
-launches), the card's ``nvidia-smi`` line, and last ``{"ok": true, "device":
-{...}}``.
+and phase 7 launches), the card's ``nvidia-smi`` line, and last ``{"ok":
+true, "device": {...}}``.
 """
 
 import json
@@ -2172,6 +2197,348 @@ def experiment_phase(flash, fab, ffn, addnorm):
     torch.cuda.empty_cache()
     return counts, info
 
+
+# -- phase 7: the command line (python -m fairmultimodal_torch.cli) ----------------------
+
+CLI_PATIENTS, CLI_LABS, CLI_BATCH, CLI_TEXT_BATCH = 2048, 549, 256, 128
+# Whole words in the snapshot's vocabulary; every other word of the synthetic
+# notes is spelled in single-character pieces, so the chunks fill every text
+# bucket and the 256 / 512 ones run #1 and #2.
+CLI_WHOLE_WORDS = ("patient", "stable", "care", "pain", "alert", "clear", "renal", "lasix")
+CLI_REVISION = "5f1d6c2a0b9e8d7c6b5a4f3e2d1c0b9a8f7e6d5c"
+# predict against the run's own test logits: the same bf16 model and kernels
+# on the same rows (row-independent), so equal up to the dynamic weights'
+# rounding, as in phase 6.
+CLI_PRED_TOL = 1e-3
+_HF_LAYER_NAMES = (("attention.query.", "attention.self.query."),
+                   ("attention.key.", "attention.self.key."),
+                   ("attention.value.", "attention.self.value."),
+                   ("attention.output_dense.", "attention.output.dense."),
+                   ("attention.output_layer_norm.", "attention.output.LayerNorm."),
+                   ("intermediate.", "intermediate.dense."),
+                   ("output.", "output.dense."),
+                   ("output_layer_norm.", "output.LayerNorm."))
+
+
+def _hf_name(name):
+    """The port's BERT parameter name -> a BertForPreTraining checkpoint's."""
+    if name.startswith("embeddings."):
+        return "bert." + name.replace("layer_norm", "LayerNorm")
+    layer, rest = name.split(".", 1)
+    for ours, theirs in _HF_LAYER_NAMES:
+        if rest.startswith(ours):
+            return f"bert.encoder.layer.{layer.split('_')[1]}.{theirs}{rest[len(ours):]}"
+    raise KeyError(name)
+
+
+def write_hf_snapshot(hub, seed=11):
+    """A Bio_ClinicalBERT snapshot in the hub cache layout: BERT-base
+    geometry, seeded random weights in a ``pytorch_model.bin`` named as a
+    BertForPreTraining checkpoint names them, and a vocabulary that spells
+    most note words in single characters.  Returns the snapshot directory."""
+    import dataclasses
+    import os
+    import string
+
+    from fairmultimodal_torch.models._layers import init_params
+    from fairmultimodal_torch.models.bert import BertEncoderModel, bio_clinical_bert_config
+
+    cfg = bio_clinical_bert_config()
+    repo = os.path.join(hub, "models--emilyalsentzer--Bio_ClinicalBERT")
+    snap = os.path.join(repo, "snapshots", CLI_REVISION)
+    os.makedirs(snap)
+    os.makedirs(os.path.join(repo, "refs"))
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(CLI_REVISION)
+    vocab = (["[PAD]"] + [f"[unused{i}]" for i in range(1, 100)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + list(string.ascii_lowercase)
+             + ["##" + c for c in string.ascii_lowercase] + list(CLI_WHOLE_WORDS))
+    vocab += [f"[unused{i}]" for i in range(100, 100 + cfg.vocab_size - len(vocab))]
+    with open(os.path.join(snap, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    with open(os.path.join(snap, "config.json"), "w") as f:
+        json.dump({"architectures": ["BertForMaskedLM"], "model_type": "bert",
+                   "hidden_act": "gelu", **dataclasses.asdict(cfg)}, f)
+    with open(os.path.join(snap, "tokenizer_config.json"), "w") as f:
+        json.dump({"do_lower_case": True}, f)
+    model = init_params(BertEncoderModel(cfg), seed)
+    torch.save({_hf_name(k): v for k, v in model.state_dict().items()},
+               os.path.join(snap, "pytorch_model.bin"))
+    return snap
+
+
+def _cli_expect(bundle, tokenizer):
+    """What a run on ``bundle`` must launch: the text batches of the 256 /
+    512 buckets (and the tokenizer's chunks/s), and the loaders' batches of
+    the pipeline's two-stage split."""
+    from fairmultimodal_torch.data.split import multilabel_stratified_split
+
+    n_chunks = sum(len(c) for c in bundle.note_chunks)
+    t0 = time.perf_counter()
+    text = expected_text_launches(tokenizer, bundle.note_chunks, CLI_TEXT_BATCH, 12)
+    tok_s = time.perf_counter() - t0
+    train_val, test = multilabel_stratified_split(bundle.labels, 0.20, seed=42)
+    rel_train, rel_val = multilabel_stratified_split(bundle.labels[train_val], 0.05, seed=42)
+    nb = {k: -(-len(v) // CLI_BATCH) for k, v in (("train", rel_train), ("val", rel_val),
+                                                     ("test", test))}
+    return {"text": text, "nb": nb, "patients": bundle.num_patients, "chunks": n_chunks,
+            "tokenizer_chunks_per_s": n_chunks / tok_s,
+            "splits": [len(rel_train), len(rel_val), len(test)]}
+
+
+def _cli_fame_launches(e, epochs, cold_text, layers=2):
+    """#1 / #2 and #3 / #4 launches of a ``fame`` run that trains ``epochs``."""
+    nb = e["nb"]
+    fwd = layers * (epochs * (2 * nb["train"] + nb["val"]) + nb["val"] + 2 * nb["test"])
+    return fwd + (e["text"] if cold_text else 0), layers * epochs * nb["train"]
+
+
+def cli_predicted_launches(e42, e43):
+    """Per run, (#1 = #2, #3 = #4) launches: A trains 2 epochs and encodes
+    the text, B and C train 1 epoch each from the cache, D scores every
+    patient in batches of 256, E trains seed 42 from the cache and seed 43
+    with its own text."""
+    want = {"A": _cli_fame_launches(e42, 2, True), "B": _cli_fame_launches(e42, 1, False),
+            "C": _cli_fame_launches(e42, 1, False),
+            "D": (2 * -(-e42["patients"] // CLI_BATCH), 0)}
+    e_runs = [_cli_fame_launches(e42, 1, False), _cli_fame_launches(e43, 1, True)]
+    want["E"] = (e_runs[0][0] + e_runs[1][0], e_runs[0][1] + e_runs[1][1])
+    return want
+
+
+def _same_state(a, b, path=""):
+    """Paths of the entries where two checkpoint states differ (bitwise)."""
+    if isinstance(a, torch.Tensor):
+        same = isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+        return [] if same else [path]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or list(a) != list(b):
+            return [path]
+        return [p for k in a for p in _same_state(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return [path]
+        return [p for i, (x, y) in enumerate(zip(a, b)) for p in _same_state(x, y, f"{path}/{i}")]
+    return [] if a == b else [path]
+
+
+def cli_phase(flash, fab, ffn, addnorm):
+    """``python -m fairmultimodal_torch.cli`` in-process on the card at full
+    width: a Bio_ClinicalBERT snapshot in a hub cache, then fame (A), fame
+    from CSV files for 1 epoch (B), the same checkpoint directory resumed to
+    2 epochs (C), predict with A's npz (D), fame --runs 2 (E)."""
+    import contextlib
+    import gc
+    import importlib
+    import io
+    import os
+    import shutil
+
+    from fairmultimodal_torch.data.featurize import assemble_features
+    from fairmultimodal_torch.data.synthetic import make_common_frames
+    from fairmultimodal_torch.data.table import read_csv_table, write_csv_table
+    from fairmultimodal_torch.models.text import TextEncoder
+    from fairmultimodal_torch.models.tokenizer import WordPieceTokenizer
+    from fairmultimodal_torch.pipelines import fame
+    from fairmultimodal_torch.utils.checkpoint import Checkpointer
+
+    cli = importlib.import_module("fairmultimodal_torch.cli.main")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase7")
+    d = {k: os.path.join(root, k) for k in ("hub", "text_cache", "data", "CA", "CB", "OA",
+                                            "OB", "OC", "OD", "OE")}
+    env_keys = ("HF_HUB_CACHE", "FMTPU_TEXT_CACHE", "HF_HUB_OFFLINE", "TRANSFORMERS_OFFLINE")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    originals = (fame.run_fame_experiment, Checkpointer.save, Checkpointer.restore,
+                 TextEncoder.encode_ids)
+    results, ckpt_s, encodes = [], {"save": [], "restore": []}, [0]
+
+    def run_experiment(*args, **kwargs):
+        out = originals[0](*args, **kwargs)
+        results.append({"timings": out["timings"], "history": out["history"],
+                        "splits": {k: v.tolist() for k, v in out["splits"].items()},
+                        "best_model": out["artifacts"].get("best_model")})
+        return out
+
+    def timed(kind, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            ckpt_s[kind].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def counted_encode(self, *args, **kwargs):
+        encodes[0] += 1
+        return originals[3](self, *args, **kwargs)
+
+    def run(name, argv):
+        _reset_counts(fab, ffn, addnorm)
+        flash.launches = flash.bwd_launches = 0
+        encodes[0], n_results = 0, len(results)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _unfolded_counts(fab, ffn)
+        counts.update(glue=addnorm.launches, glue_bwd=addnorm.bwd_launches,
+                      flash_attention=flash.launches, flash_attention_bwd=flash.bwd_launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+        printed = buf.getvalue()
+        tail = [ln for ln in printed.splitlines() if ln.startswith(("Resumed", "[Epoch", "  ", "|",
+                                                                    "=====", "Wrote", "Train"))]
+        log(f"[cli] {name}: rc {rc}, {wall:.2f} s\n[cli]   " + "\n[cli]   ".join(tail[-28:]))
+        if rc != 0:
+            raise AssertionError(f"cli {name}: exit code {rc}")
+        return {"wall_s": wall, "launches": counts, "encode_calls": encodes[0],
+                "results": results[n_results:], "stdout": printed}
+
+    try:
+        t0 = time.perf_counter()
+        snap = write_hf_snapshot(d["hub"])
+        snapshot_s = time.perf_counter() - t0
+        os.environ["HF_HUB_CACHE"] = d["hub"]
+        tables = make_common_frames(CLI_PATIENTS, CLI_LABS, 3, seed=42)
+        os.makedirs(d["data"])
+        t0 = time.perf_counter()
+        for kind, table in zip(("structured", "unstructured"), tables):
+            write_csv_table(os.path.join(d["data"], f"final_{kind}_common.csv"), table)
+        csv_write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        read_csv_table(os.path.join(d["data"], "final_structured_common.csv"))
+        csv_read_s = time.perf_counter() - t0
+
+        # The prediction, made before any run.
+        expect = {seed: _cli_expect(assemble_features(*make_common_frames(
+            CLI_PATIENTS, CLI_LABS, 3, seed=seed)), WordPieceTokenizer.from_pretrained(snap))
+            for seed in (42, 43)}
+        e42, e43 = expect[42], expect[43]
+        want = cli_predicted_launches(e42, e43)
+        log(f"[cli] predicted (#1 = #2, #3 = #4) launches {want}; buckets from the snapshot's "
+            f"tokenizer: text launches {e42['text']} / {e43['text']} (seed 42 / 43), splits "
+            f"{e42['splits']} / {e43['splits']}")
+
+        fame.run_fame_experiment = run_experiment
+        Checkpointer.save = timed("save", originals[1])
+        Checkpointer.restore = timed("restore", originals[2])
+        TextEncoder.encode_ids = counted_encode
+        common = ["--synthetic_labs", str(CLI_LABS), "--bf16", "--bsz", str(CLI_BATCH),
+                  "--require_hf_weights", "--text_cache", d["text_cache"], "--timing"]
+        syn = ["--synthetic", str(CLI_PATIENTS)] + common
+        runs = {
+            "A": run("A fame --epochs 2", ["fame", "--epochs", "2", "--checkpoint_dir", d["CA"],
+                                           "--out_dir", d["OA"]] + syn),
+            "B": run("B fame --epochs 1 --data_dir", [
+                "fame", "--epochs", "1", "--checkpoint_dir", d["CB"], "--out_dir", d["OB"],
+                "--data_dir", d["data"]] + common),
+            "C": run("C fame --epochs 2 (resume)", ["fame", "--epochs", "2", "--checkpoint_dir",
+                                                    d["CB"], "--out_dir", d["OC"]] + syn),
+        }
+        a_out = runs["A"]["results"][0]
+        runs["D"] = run("D predict", ["predict", "--params", a_out["best_model"],
+                                      "--out_dir", d["OD"]] + syn)
+        runs["E"] = run("E fame --runs 2 --epochs 1", ["fame", "--runs", "2", "--epochs", "1",
+                                                       "--out_dir", d["OE"]] + syn)
+
+        # Launches of #1-#4 as predicted, every other kernel never.
+        for name, r in runs.items():
+            got = r["launches"]
+            wanted = {k: 0 for k in got}
+            wanted.update(fused_attention_block_ln=want[name][0], fused_ffn_ln=want[name][0],
+                          fused_attention_block_ln_bwd=want[name][1],
+                          fused_ffn_ln_bwd=want[name][1])
+            if got != wanted:
+                raise AssertionError(f"cli {name}: launches {got}, predicted {wanted}")
+        for name, r in runs.items():
+            split_sizes = [[len(x["splits"][k]) for k in ("train", "val", "test")]
+                           for x in r["results"]]
+            if split_sizes and split_sizes[0] != e42["splits"]:
+                raise AssertionError(f"cli {name}: splits {split_sizes}, predicted "
+                                     f"{e42['splits']}")
+
+        # The text cache: A encodes, B / C / D read it, E encodes seed 43 only.
+        if runs["A"]["encode_calls"] == 0 or any(runs[k]["encode_calls"] for k in "BCD"):
+            raise AssertionError("text cache: encode calls "
+                                 f"{ {k: r['encode_calls'] for k, r in runs.items()} }")
+        # Resume: C resumed B's epoch 1, and its state equals A's bit for bit.
+        if "Resumed from checkpoint at epoch 1." not in runs["C"]["stdout"]:
+            raise AssertionError("cli C did not resume from epoch 1")
+        steps = {k: sorted(os.listdir(d[k])) for k in ("CA", "CB")}
+        if steps["CA"] != ["step_1.pt", "step_2.pt"] or steps["CB"] != steps["CA"]:
+            raise AssertionError(f"checkpoint files {steps}")
+        diffs = {}
+        for step in (1, 2):
+            diffs[step] = _same_state(Checkpointer(d["CA"]).restore(step),
+                                      Checkpointer(d["CB"]).restore(step))
+        log(f"[cli] A against B (epoch 1, CSV tables) and C (resumed, epoch 2): entries that "
+            f"differ {[len(v) for v in diffs.values()]} {diffs[1][:6]} {diffs[2][:6]}")
+        if diffs[1] or diffs[2]:
+            raise AssertionError(f"resume not bit-identical: step 1 {diffs[1][:10]}, "
+                                 f"step 2 {diffs[2][:10]}")
+        ckpt_bytes = os.path.getsize(os.path.join(d["CA"], "step_2.pt"))
+
+        # predict: A's test patients against sigmoid of A's extracted test logits.
+        pred = read_csv_table(os.path.join(d["OD"], "predictions.csv"))
+        vec = [n for n in os.listdir(d["OA"]) if n.startswith("extracted_vectors_")]
+        with np.load(os.path.join(d["OA"], vec[0])) as z:
+            run_probs = 1.0 / (1.0 + np.exp(-z["logits"].astype(np.float64)))
+        bundle = assemble_features(*tables)
+        row_of = {s: i for i, s in enumerate(pred["subject_id"].tolist())}
+        test_ids = bundle.subject_id[a_out["splits"]["test"]]
+        probs = np.stack([pred[f"{t}_prob"] for t in ("mortality", "los",
+                                                      "mechanical_ventilation")], axis=1)
+        probs = probs[[row_of[s] for s in test_ids.tolist()]]
+        pred_diff = float(np.abs(probs - run_probs).max())
+        log(f"[cli] predict: {len(row_of)} patients; A's {len(test_ids)} test patients within "
+            f"{pred_diff:.3e} of sigmoid(A's test logits) (limit {CLI_PRED_TOL})")
+        if len(row_of) != e42["patients"] or not pred_diff <= CLI_PRED_TOL:
+            raise AssertionError(f"predict: {len(row_of)} rows, max |dp| {pred_diff}")
+
+        # --runs 2: the Table-3 block and the per-run CSV.
+        e_out = runs["E"]["stdout"]
+        with open(os.path.join(d["OE"], "runs_aggregate.csv")) as f:
+            agg = [line.split(",") for line in f.read().splitlines()]
+        per_run = {r: sum(1 for row in agg if row[0] == r) for r in ("0", "1")}
+        if ("===== Aggregate over 2 runs (seeds 42..43) =====" not in e_out
+                or "| Task        | AUROC ↑ | AUPRC ↑ | EDDI % ↓ | EO % ↓ |" not in e_out
+                or per_run != {"0": 12, "1": 12} or len(runs["E"]["results"]) != 2):
+            raise AssertionError(f"--runs 2: table or CSV missing ({per_run})")
+    finally:
+        (fame.run_fame_experiment, Checkpointer.save, Checkpointer.restore,
+         TextEncoder.encode_ids) = originals
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+    total = {k: sum(r["launches"][k] for r in runs.values())
+             for k in ("fused_attention_block_ln", "fused_ffn_ln",
+                       "fused_attention_block_ln_bwd", "fused_ffn_ln_bwd")}
+    info = {
+        "patients": CLI_PATIENTS, "splits": e42["splits"], "chunks": e42["chunks"],
+        "snapshot_write_s": snapshot_s, "csv_write_s": csv_write_s, "csv_read_s": csv_read_s,
+        "tokenizer_chunks_per_s": [e42["tokenizer_chunks_per_s"],
+                                   e43["tokenizer_chunks_per_s"]],
+        "runs": {k: {"wall_s": r["wall_s"], "encode_calls": r["encode_calls"],
+                     "launches": {n: r["launches"][n] for n in total},
+                     "timings_s": [x["timings"] for x in r["results"]],
+                     "history": [x["history"] for x in r["results"]]}
+                 for k, r in runs.items()},
+        "text_precompute_s": {"cold_A": runs["A"]["results"][0]["timings"]["text_precompute"],
+                              "warm_B": runs["B"]["results"][0]["timings"]["text_precompute"],
+                              "warm_C": runs["C"]["results"][0]["timings"]["text_precompute"]},
+        "checkpoint_bytes": ckpt_bytes, "checkpoint_save_s": ckpt_s["save"],
+        "checkpoint_restore_s": ckpt_s["restore"], "resume_bit_identical": True,
+        "predict_max_abs": pred_diff, "launches_predicted": want, "launches_total": total,
+    }
+    return total, info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -2214,6 +2581,8 @@ def main() -> int:
     log(f"[flash] {json.dumps(flash_info)}")
     experiment_launches, experiment_info = experiment_phase(flash, fab, ffn, addnorm)
     log(f"[experiment] {json.dumps(experiment_info)} | {smi}")
+    cli_launches, cli_info = cli_phase(flash, fab, ffn, addnorm)
+    log(f"[cli] {json.dumps(cli_info)} | {smi}")
 
     meta = {
         "fused_attention_block_ln": ("fairmultimodal_torch/ops/csrc/flash_attention.cu",
@@ -2244,6 +2613,7 @@ def main() -> int:
                                     "lab": slice_info["lab"][name]},
             "launches_training": train_launches[name],
             "launches_experiment": experiment_launches[name],
+            "launches_cli": cli_launches[name],
             "fwd_res_dropout_ms": timed_train[name]["fwd_res_ms"],
             "shapes": mine,
         })
@@ -2266,6 +2636,7 @@ def main() -> int:
                else []),
             "errors": {r["case"]: r["errors"] for r in train_rows[part]},
             "kept_fraction": keep, "launches_experiment": experiment_launches[name],
+            "launches_cli": cli_launches[name],
         })
     sources = {"block": ["fairmultimodal_torch/ops/csrc/gemm.cu",
                          "fairmultimodal_torch/ops/csrc/flash_attention.cu"],

@@ -5,23 +5,29 @@ patients with at least one valid note chunk, map demographics to category
 codes, select and z-score the lab columns, and stack the three task labels
 into a :class:`FeatureBundle` of dense numpy arrays.
 
-Host-side numpy; ``pandas`` is imported only inside the functions that take
-DataFrames, so the rest of the port (and a machine without pandas) can use
-:class:`FeatureBundle` directly.
+Host-side numpy over port tables (:mod:`fairmultimodal_torch.data.table`),
+so a machine without pandas featurizes the cohort; a DataFrame is converted
+to a table first (pandas is imported inside that conversion only).  The
+pandas semantics kept: the inner merge's row order and ``_struct`` /
+``_unstruct`` suffixes, category codes over the sorted observed values (-1
+for a missing one), numeric columns as lab features in column order,
+``fillna(0)`` and the float32 z-score.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
 from fairmultimodal_torch import LABEL_COLUMNS
+from fairmultimodal_torch.data.table import Table, is_missing, num_rows, table_from_frame, \
+    take_rows
 
 __all__ = ["FeatureBundle", "assemble_features", "zscore", "compute_pos_weights",
            "get_age_bucket", "map_ethnicity", "map_insurance", "CohortInputError",
-           "validate_common_frames"]
+           "validate_common_frames", "as_table"]
 
 # Columns never used as lab features (10_FAME.py:700-702).
 EXCLUDE_COLS = {
@@ -132,23 +138,30 @@ class CohortInputError(ValueError):
     """A cohort table lacks a merge key, a label column or note chunks."""
 
 
+def as_table(frame) -> Table:
+    """A port table as it is; a DataFrame through :func:`table_from_frame`."""
+    return frame if isinstance(frame, Mapping) else table_from_frame(frame)
+
+
 def validate_common_frames(structured, unstructured) -> None:
-    """Fail fast, naming the table and column, before any featurization."""
+    """Fail fast, naming the table and column, before any featurization.
+    Takes tables or DataFrames."""
+    structured, unstructured = as_table(structured), as_table(unstructured)
     problems: List[str] = []
-    labels = list(LABEL_COLUMNS)
     for key in ("subject_id", "hadm_id"):
-        if key not in structured.columns:
+        if key not in structured:
             problems.append(f"structured table: missing merge key '{key}'")
-        if key not in unstructured.columns:
+        if key not in unstructured:
             problems.append(f"unstructured table: missing merge key '{key}'")
-    for col in labels:
-        if col not in structured.columns:
+    for col in LABEL_COLUMNS:
+        if col not in structured:
             problems.append(f"structured table: missing label column '{col}'")
-        elif structured[col].isna().any():
+            continue
+        n_missing = sum(map(is_missing, structured[col].tolist()))
+        if n_missing:
             problems.append(f"structured table: label column '{col}' has "
-                            f"{int(structured[col].isna().sum())} NaN rows "
-                            f"(labels must be 0/1)")
-    if not any(c.startswith("note_") for c in unstructured.columns):
+                            f"{n_missing} NaN rows (labels must be 0/1)")
+    if not any(c.startswith("note_") for c in unstructured):
         problems.append("unstructured table: no note_* chunk columns "
                         "(expected note_chunk_1, note_chunk_2, ...)")
     if problems:
@@ -160,67 +173,102 @@ def _is_note(v) -> bool:
     return isinstance(v, str) and bool(v.strip())
 
 
-def assemble_features(structured, unstructured) -> FeatureBundle:
-    """Merge + featurize the two cohort DataFrames (10_FAME.py:610-731),
-    keeping the patients with at least one note chunk."""
-    import pandas as pd
+def _inner_merge(left: Table, right: Table, on: Sequence[str],
+                 suffixes: Tuple[str, str]) -> Table:
+    """``pd.merge(left, right, on=on, how="inner", suffixes=suffixes)``: the
+    left rows in their order, each repeated for its matching right rows in
+    theirs; the left columns, then the right's other columns, a name in both
+    suffixed on each side."""
+    index: Dict[tuple, List[int]] = {}
+    for j, key in enumerate(zip(*(right[k].tolist() for k in on))):
+        index.setdefault(key, []).append(j)
+    li, ri = [], []
+    for i, key in enumerate(zip(*(left[k].tolist() for k in on))):
+        for j in index.get(key, ()):
+            li.append(i)
+            ri.append(j)
+    li, ri = np.asarray(li, np.int64), np.asarray(ri, np.int64)
+    both = (set(left) & set(right)) - set(on)
+    out: Table = {}
+    for k, v in left.items():
+        out[k + suffixes[0] if k in both else k] = v[li]
+    for k, v in right.items():
+        if k not in on:
+            out[k + suffixes[1] if k in both else k] = v[ri]
+    return out
 
-    label_columns = list(LABEL_COLUMNS)
-    validate_common_frames(structured, unstructured)
-    unstructured = unstructured.drop(
-        columns=["short_term_mortality", "los_binary", "mechanical_ventilation",
-                 "age", "GENDER", "ETHNICITY", "INSURANCE"],
-        errors="ignore",
-    )
-    df = pd.merge(structured, unstructured, on=["subject_id", "hadm_id"],
-                  how="inner", suffixes=("_struct", "_unstruct"))
-    if df.empty:
+
+def _category_codes(values: Sequence) -> np.ndarray:
+    """``Series.astype("category").cat.codes``: each value's index among the
+    sorted distinct observed values, -1 for a missing one."""
+    cats = {v: i for i, v in enumerate(sorted({v for v in values if not is_missing(v)}))}
+    return np.asarray([-1 if is_missing(v) else cats[v] for v in values], np.int32)
+
+
+def assemble_features(structured, unstructured) -> FeatureBundle:
+    """Merge + featurize the two cohort tables (10_FAME.py:610-731), keeping
+    the patients with at least one note chunk.  Takes port tables
+    (:mod:`fairmultimodal_torch.data.table`) or DataFrames, which are
+    converted first: one implementation serves both."""
+    s, u = as_table(structured), as_table(unstructured)
+    validate_common_frames(s, u)
+    dropped = {"short_term_mortality", "los_binary", "mechanical_ventilation",
+               "age", "GENDER", "ETHNICITY", "INSURANCE"}
+    u = {k: v for k, v in u.items() if k not in dropped}
+    df = _inner_merge(s, u, ("subject_id", "hadm_id"), ("_struct", "_unstruct"))
+    if num_rows(df) == 0:
         raise ValueError("Merged DataFrame is empty. Check your merge keys.")
 
-    for col in label_columns:
-        df[col] = df[col].astype(int)
+    for col in LABEL_COLUMNS:
+        df[col] = df[col].astype(np.int64)
 
-    note_columns = [c for c in df.columns if c.startswith("note_")]
-    mask = df.apply(lambda r: any(_is_note(r[c]) for c in note_columns), axis=1)
-    df = df[mask].copy()
+    note_columns = [c for c in df if c.startswith("note_")]
+    notes = [df[c].tolist() for c in note_columns]
+    keep = np.asarray([any(_is_note(col[i]) for col in notes)
+                       for i in range(num_rows(df))], bool)
+    df = take_rows(df, keep)
+    n = num_rows(df)
 
-    if "age" not in df.columns:
-        if "Age" in df.columns:
-            df = df.rename(columns={"Age": "age"})
+    if "age" not in df:
+        if "Age" in df:
+            df = {("age" if k == "Age" else k): v for k, v in df.items()}
         else:
-            df["age"] = 0
+            df["age"] = np.zeros(n, np.int64)
 
     # Category codes over the observed sorted values, as the reference.
-    df["age"] = df["age"].apply(get_age_bucket).astype("category").cat.codes
-    if "ETHNICITY" in df.columns:
-        df["ETHNICITY"] = df["ETHNICITY"].apply(map_ethnicity).astype("category").cat.codes
-    else:
-        df["ETHNICITY"] = 0
-    if "INSURANCE" in df.columns:
-        df["INSURANCE"] = df["INSURANCE"].apply(map_insurance).astype("category").cat.codes
-    else:
-        df["INSURANCE"] = 0
-    if "GENDER" in df.columns:
-        df["GENDER"] = df["GENDER"].astype("category").cat.codes
-    else:
-        df["GENDER"] = 0
+    df["age"] = _category_codes([get_age_bucket(a) for a in df["age"].tolist()])
+    for col, mapper in (("ETHNICITY", map_ethnicity), ("INSURANCE", map_insurance),
+                        ("GENDER", None)):
+        if col in df:
+            vals = df[col].tolist()
+            df[col] = _category_codes([mapper(v) for v in vals] if mapper else vals)
+        else:
+            df[col] = np.zeros(n, np.int64)
 
-    lab_cols = [c for c in df.columns
+    lab_cols = [c for c in df
                 if c not in EXCLUDE_COLS and not c.startswith("note_")
-                and pd.api.types.is_numeric_dtype(df[c])]
-    labs, _, _ = zscore(df[lab_cols].fillna(0).to_numpy(dtype=np.float32))
+                and df[c].dtype.kind in "biuf"]
+    # fillna(0), then each column to float32, as DataFrame.to_numpy(float32)
+    # does; column-major like its result, so the z-score's column sums run
+    # in the same order.
+    labs_t = np.zeros((len(lab_cols), n), np.float32)
+    for j, c in enumerate(lab_cols):
+        col = df[c]
+        labs_t[j] = np.where(np.isnan(col), 0, col) if col.dtype.kind == "f" else col
+    labs, _, _ = zscore(labs_t.T)
 
-    chunks = [[row[c] for c in note_columns if _is_note(row[c])]
-              for _, row in df.iterrows()]
+    note_cols = [df[c].tolist() for c in note_columns]
+    chunks = [[col[i] for col in note_cols if _is_note(col[i])] for i in range(n)]
 
     return FeatureBundle(
-        subject_id=df["subject_id"].to_numpy(np.int64),
-        age_codes=df["age"].to_numpy(np.int32),
-        gender_codes=df["GENDER"].to_numpy(np.int32),
-        ethnicity_codes=df["ETHNICITY"].to_numpy(np.int32),
-        insurance_codes=df["INSURANCE"].to_numpy(np.int32),
+        subject_id=df["subject_id"].astype(np.int64),
+        age_codes=df["age"].astype(np.int32),
+        gender_codes=df["GENDER"].astype(np.int32),
+        ethnicity_codes=df["ETHNICITY"].astype(np.int32),
+        insurance_codes=df["INSURANCE"].astype(np.int32),
         labs=labs,
-        labels=df[label_columns].to_numpy(np.float32),
+        labels=np.stack([df[c] for c in LABEL_COLUMNS], axis=1).astype(np.float32)
+        if n else np.zeros((0, len(LABEL_COLUMNS)), np.float32),
         lab_columns=lab_cols,
         note_chunks=chunks,
     )

@@ -24,12 +24,21 @@ seed), except for the demo BERT's one-token rows, which stay on the plain
 path as their attention (v itself) does.  The rest -- the 64 / 128 buckets
 in eval mode, the FFN in training mode, the CPU -- runs the plain PyTorch
 layer.
+
+:func:`load_hf_bert_params` reads a Hugging Face BERT snapshot (a local
+directory, or a model name that the hub cache already holds) with torch and
+json alone -- ``config.json`` plus ``model.safetensors`` or
+``pytorch_model.bin`` -- into the JAX package's parameter tree, which
+:func:`fairmultimodal_torch.interop.load_flax_params` loads.  Nothing is
+downloaded.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import json
+import os
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -44,7 +53,8 @@ from fairmultimodal_torch.ops.gates import can_use_fused_attention_block, can_us
 from fairmultimodal_torch.utils.rng import Dropout, dropout
 
 __all__ = ["BertConfig", "bio_clinical_bert_config", "BertEmbeddings",
-           "BertSelfAttention", "BertLayer", "BertEncoderModel"]
+           "BertSelfAttention", "BertLayer", "BertEncoderModel", "resolve_hf_snapshot",
+           "read_safetensors", "load_hf_bert_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,3 +203,121 @@ class BertEncoderModel(nn.Module):
         if pool is not None:
             raise ValueError(f"unknown pool {pool!r} (only 'cls' is ported)")
         return x
+
+
+# -- Hugging Face snapshots, read without transformers ----------------------------------
+
+def resolve_hf_snapshot(model_name_or_path: str) -> str:
+    """A directory as it is; a model name ``org/name`` -> the snapshot the hub
+    cache holds for it: ``$HF_HUB_CACHE``, else ``$HF_HOME/hub``, else
+    ``~/.cache/huggingface/hub``, then ``models--org--name/snapshots/<the
+    revision in refs/main>``.  Raises ``FileNotFoundError`` when it is not
+    there; nothing is downloaded."""
+    if os.path.isdir(model_name_or_path):
+        return model_name_or_path
+    cache = os.environ.get("HF_HUB_CACHE") or os.path.join(
+        os.environ.get("HF_HOME") or os.path.join(
+            os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache"),
+            "huggingface"), "hub")
+    repo = os.path.join(cache, "models--" + model_name_or_path.replace("/", "--"))
+    try:
+        with open(os.path.join(repo, "refs", "main")) as f:
+            snapshot = os.path.join(repo, "snapshots", f.read().strip())
+    except OSError as e:
+        raise FileNotFoundError(f"{model_name_or_path!r} is neither a directory nor in the "
+                                f"Hugging Face hub cache {cache} ({e})") from e
+    if not os.path.isdir(snapshot):
+        raise FileNotFoundError(f"{model_name_or_path!r}: refs/main names {snapshot}, "
+                                "which is not there")
+    return snapshot
+
+
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file: an 8-byte little-endian header length, a JSON
+    header {name: {dtype, shape, data_offsets}}, then the raw little-endian
+    tensors."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        data = bytearray(f.read())
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES[info["dtype"]]
+        start, end = info["data_offsets"]
+        count = (end - start) // torch.empty((), dtype=dtype).element_size()
+        t = torch.frombuffer(data, dtype=dtype, count=count, offset=start) if count else \
+            torch.empty(0, dtype=dtype)
+        out[name] = t.reshape(info["shape"])
+    return out
+
+
+def _hf_state_dict(snapshot: str) -> Dict[str, torch.Tensor]:
+    st, pt = (os.path.join(snapshot, n) for n in ("model.safetensors", "pytorch_model.bin"))
+    if os.path.exists(st):
+        sd = read_safetensors(st)
+    elif os.path.exists(pt):
+        sd = torch.load(pt, map_location="cpu", weights_only=True)
+    else:
+        raise FileNotFoundError(f"{snapshot}: no model.safetensors or pytorch_model.bin")
+    out = {}
+    for k, v in sd.items():
+        # A BertForPreTraining checkpoint prefixes "bert."; old TF conversions
+        # name the LayerNorm parameters gamma / beta.
+        k = k[len("bert."):] if k.startswith("bert.") else k
+        k = k.replace("LayerNorm.gamma", "LayerNorm.weight").replace("LayerNorm.beta",
+                                                                     "LayerNorm.bias")
+        out[k] = v
+    return out
+
+
+def load_hf_bert_params(model_name_or_path: str, config: Optional[BertConfig] = None,
+                        return_config: bool = False):
+    """A Hugging Face BERT snapshot -> the JAX ``BertEncoderModel`` parameter
+    tree (numpy float32; without the pooler, which the encoder never runs),
+    and with ``return_config=True`` the
+    :class:`BertConfig` derived from its ``config.json`` as the JAX function
+    derives it from the loaded model (``bert.py:310-321``)."""
+    snapshot = resolve_hf_snapshot(model_name_or_path)
+    if config is None:
+        with open(os.path.join(snapshot, "config.json")) as f:
+            hf = json.load(f)
+        config = BertConfig(**{f.name: hf.get(f.name, f.default)
+                               for f in dataclasses.fields(BertConfig)})
+    sd = {k: v.float().numpy() if v.is_floating_point() else v.numpy()
+          for k, v in _hf_state_dict(snapshot).items()}
+
+    def dense(prefix):
+        return {"kernel": sd[f"{prefix}.weight"].T, "bias": sd[f"{prefix}.bias"]}
+
+    def ln(prefix):
+        return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+
+    params: Dict = {"embeddings": {
+        "word_embeddings": {"embedding": sd["embeddings.word_embeddings.weight"]},
+        "position_embeddings": {"embedding": sd["embeddings.position_embeddings.weight"]},
+        "token_type_embeddings": {"embedding": sd["embeddings.token_type_embeddings.weight"]},
+        "layer_norm": ln("embeddings.LayerNorm"),
+    }}
+    for i in range(config.num_hidden_layers):
+        p = f"encoder.layer.{i}"
+        params[f"layer_{i}"] = {
+            "attention": {
+                "query": dense(f"{p}.attention.self.query"),
+                "key": dense(f"{p}.attention.self.key"),
+                "value": dense(f"{p}.attention.self.value"),
+                "output_dense": dense(f"{p}.attention.output.dense"),
+                "output_layer_norm": ln(f"{p}.attention.output.LayerNorm"),
+            },
+            "intermediate": dense(f"{p}.intermediate.dense"),
+            "output": dense(f"{p}.output.dense"),
+            "output_layer_norm": ln(f"{p}.output.LayerNorm"),
+        }
+    return (params, config) if return_config else params

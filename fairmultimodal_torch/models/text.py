@@ -7,9 +7,20 @@ back to patients (mean or max); patients without notes get the zero vector.
 On the card the 256 and 512 buckets run the CUDA half-layer kernels.
 
 Weights: :meth:`TextEncoder.from_params` takes a JAX parameter tree;
-:meth:`TextEncoder.from_pretrained` falls back to a seeded random init with
-:class:`HashingTokenizer`.  Loading Hugging Face weights and the
-content-addressed embedding cache are not ported yet.
+:meth:`TextEncoder.from_pretrained` loads a Hugging Face snapshot (a local
+directory, or a model name the hub cache already holds) with
+:func:`~fairmultimodal_torch.models.bert.load_hf_bert_params` and its
+WordPiece tokenizer (:mod:`fairmultimodal_torch.models.tokenizer`), and
+otherwise falls back to a seeded random init with :class:`HashingTokenizer`.
+
+The embeddings are a pure function of (weights, notes, settings), so
+:func:`encode_note_chunks` keeps them in a content-addressed cache
+(``cache_dir``, else ``FMTPU_TEXT_CACHE``, which ``--text_cache`` sets): a
+blake2b key over the encoder's fingerprint, every chunk string, the
+truncation length, the aggregation and the buckets, one ``savez_compressed``
+file per key written under a temporary name and moved into place.  The
+fingerprint names the port, so the port and the JAX package never read each
+other's entries.
 """
 
 from __future__ import annotations
@@ -24,10 +35,57 @@ import torch
 
 from fairmultimodal_torch.interop import load_flax_params
 from fairmultimodal_torch.models._layers import init_params
-from fairmultimodal_torch.models.bert import BertConfig, BertEncoderModel, bio_clinical_bert_config
+from fairmultimodal_torch.models.bert import (BertConfig, BertEncoderModel,
+                                              bio_clinical_bert_config, load_hf_bert_params,
+                                              resolve_hf_snapshot)
+from fairmultimodal_torch.models.tokenizer import WordPieceTokenizer
 from fairmultimodal_torch.ops.gates import resolve_device
 
 __all__ = ["TextEncoder", "encode_note_chunks", "HashingTokenizer"]
+
+
+def _text_cache_key(encoder: "TextEncoder", note_chunks, max_length: int, aggregation: str,
+                    buckets: Sequence[int]) -> str:
+    """Encoder identity x cohort notes x settings (``text.py:36-53`` of the
+    JAX package, over the port's fingerprint)."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(encoder.cache_fingerprint().encode())
+    h.update(f"|L{max_length}|{aggregation}|n{len(note_chunks)}"
+             f"|b{','.join(map(str, buckets))}".encode())
+    for chunks in note_chunks:
+        h.update(b"\x00")                      # patient boundary
+        for c in chunks:
+            if isinstance(c, str):
+                h.update(c.encode("utf-8", "replace"))
+                h.update(b"\x01")
+    return h.hexdigest()
+
+
+def _text_cache_store(cache_path: Optional[str], embeddings: np.ndarray) -> None:
+    if cache_path is None:
+        return
+    os.makedirs(os.path.dirname(cache_path), exist_ok=True)
+    # A name of this process's own, so concurrent writers never share a
+    # temporary file; a failed write leaves nothing behind.
+    tmp = f"{cache_path}.tmp.{os.getpid()}.npz"
+    try:
+        np.savez_compressed(tmp, embeddings=embeddings)
+        os.replace(tmp, cache_path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
+
+
+def _state_sample_digest(model: torch.nn.Module) -> str:
+    """Digest of the first 256 values of the first four entries of the state
+    dict, sorted by name: the embedding tables and first-layer weights, where
+    any retrained or revised checkpoint differs."""
+    h = hashlib.blake2b(digest_size=16)
+    for name, t in sorted(model.state_dict().items())[:4]:
+        h.update(f"{name}{tuple(t.shape)}".encode())
+        h.update(t.detach().reshape(-1)[:256].float().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 class HashingTokenizer:
@@ -75,6 +133,9 @@ class TextEncoder:
 
     #: True when :meth:`from_pretrained` fell back to random init.
     is_fallback: bool = False
+    #: Identity for the embedding cache, set by :meth:`from_pretrained`;
+    #: other constructions leave it None and the cache digests the weights.
+    fingerprint: Optional[str] = None
 
     def __init__(self, config: BertConfig, model: BertEncoderModel, tokenizer,
                  dtype=torch.float32, device: Optional[Union[str, torch.device]] = None):
@@ -84,6 +145,13 @@ class TextEncoder:
         # Frozen everywhere in the reference: eval mode, no gradients.
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.tokenizer = tokenizer
+
+    def cache_fingerprint(self) -> str:
+        """Identity of (weights, dtype, geometry) for keying cached embeddings."""
+        if self.fingerprint is not None:
+            return self.fingerprint
+        return (f"fairmultimodal_torch|params:{_state_sample_digest(self.model)}"
+                f"|{str(self.dtype).replace('torch.', '')}|h{self.config.hidden_size}")
 
     @classmethod
     def from_params(cls, params: Mapping, config: BertConfig, tokenizer=None,
@@ -98,26 +166,42 @@ class TextEncoder:
                         dtype=torch.float32, fallback_config: Optional[BertConfig] = None,
                         seed: int = 0, require_weights: bool = False,
                         device=None) -> "TextEncoder":
-        """Seeded random init + :class:`HashingTokenizer` (loading
-        ``model_name``'s Hugging Face weights is not ported yet).  Without an
-        explicit ``fallback_config`` it warns: the embeddings carry no
-        meaning on real data.  ``require_weights=True`` makes the missing
-        weights fatal, as the JAX function does when it finds none.
+        """The Hugging Face snapshot of ``model_name`` (a directory, or a name
+        the hub cache holds) with its WordPiece tokenizer; the geometry comes
+        from the snapshot's ``config.json``.  When it cannot be loaded:
+        ``require_weights=True`` raises, as the JAX function does; otherwise a
+        seeded random init + :class:`HashingTokenizer`, with a warning unless
+        ``fallback_config`` is given (the embeddings carry no meaning on real
+        data).
         """
-        if require_weights:
-            raise RuntimeError(
-                f"HF weights for {model_name!r} are required (--require_hf_weights) but "
-                "the port does not load Hugging Face weights yet (ROADMAP queue 1 item 4)")
-        if fallback_config is None:
-            warnings.warn(
-                f"weights for {model_name!r} are not loaded (not ported yet); using a "
-                "seeded RANDOM INIT + HashingTokenizer. Text embeddings will be "
-                "meaningless on real data.", stacklevel=2)
-        config = fallback_config or bio_clinical_bert_config()
-        model = init_params(BertEncoderModel(config, dtype=dtype), seed)
-        enc = cls(config, model, HashingTokenizer(config.vocab_size), dtype=dtype,
-                  device=device)
-        enc.is_fallback = True
+        device = resolve_device(device)
+        try:
+            snapshot = resolve_hf_snapshot(model_name)
+            params, config = load_hf_bert_params(snapshot, return_config=True)
+            tokenizer = WordPieceTokenizer.from_pretrained(snapshot)
+            enc = cls.from_params(params, config, tokenizer, dtype=dtype, device=device)
+            weight_id = f"hf:{_state_sample_digest(enc.model)}"
+        except Exception as e:
+            if require_weights:
+                raise RuntimeError(
+                    f"HF weights for {model_name!r} are required (--require_hf_weights) but "
+                    f"could not be loaded: {e}") from e
+            if fallback_config is None:
+                warnings.warn(
+                    f"HF weights for {model_name!r} unavailable ({e}); using a seeded "
+                    "RANDOM INIT + HashingTokenizer. Text embeddings will be meaningless "
+                    "on real data -- pass require_weights=True (--require_hf_weights) to "
+                    "make this fatal.", stacklevel=2)
+            config = fallback_config or bio_clinical_bert_config()
+            model = init_params(BertEncoderModel(config, dtype=dtype), seed)
+            enc = cls(config, model, HashingTokenizer(config.vocab_size), dtype=dtype,
+                      device=device)
+            enc.is_fallback = True
+            weight_id = f"fallback:{seed}"
+        enc.fingerprint = (f"fairmultimodal_torch|{model_name}|{weight_id}"
+                           f"|{str(dtype).replace('torch.', '')}"
+                           f"|h{config.hidden_size}L{config.num_hidden_layers}"
+                           f"v{config.vocab_size}")
         return enc
 
     @torch.inference_mode()
@@ -136,8 +220,12 @@ def encode_note_chunks(
     batch_size: int = 32,
     aggregation: str = "mean",
     buckets: Optional[Sequence[int]] = None,
+    cache_dir: Optional[str] = None,
 ) -> np.ndarray:
     """Per-patient aggregated CLS embeddings [n_patients, H] float32.
+
+    ``cache_dir`` (default: ``FMTPU_TEXT_CACHE``) holds the content-addressed
+    embedding cache; a hit returns the stored array without encoding.
 
     ``buckets`` defaults to {64, 128, 256} below ``max_length`` plus
     ``max_length``; ``FMTPU_TEXT_BUCKETS`` overrides, as in the JAX package
@@ -158,6 +246,17 @@ def encode_note_chunks(
     if aggregation not in ("mean", "max"):
         raise ValueError(f"unknown aggregation {aggregation!r}")
 
+    cache_dir = cache_dir or os.environ.get("FMTPU_TEXT_CACHE") or None
+    cache_path = None
+    if cache_dir:
+        key = _text_cache_key(encoder, note_chunks, max_length, aggregation, buckets)
+        cache_path = os.path.join(cache_dir, f"text_emb_{key}.npz")
+        if os.path.exists(cache_path):
+            with np.load(cache_path) as z:
+                cached = z["embeddings"]
+            if cached.shape[0] == len(note_chunks):
+                return np.asarray(cached, np.float32)
+
     n_patients = len(note_chunks)
     hidden = encoder.config.hidden_size
     flat_texts: List[str] = []
@@ -169,6 +268,7 @@ def encode_note_chunks(
                 owners.append(pid)
     out = np.zeros((n_patients, hidden), np.float32)
     if not flat_texts:
+        _text_cache_store(cache_path, out)
         return out
 
     ids, mask = encoder.tokenizer.encode_batch(flat_texts, max_length=max_length)
@@ -207,4 +307,5 @@ def encode_note_chunks(
         has = np.zeros(n_patients, bool)
         has[owners_arr] = True
         out[has] = tmp[has]
+    _text_cache_store(cache_path, out)
     return out

@@ -8,10 +8,12 @@ the JAX package's npz format, dynamic-weights CSV, extracted vectors npz,
 tracked npy), with the JAX function's prints, ``timings`` keys and result
 dict.
 
-The pipeline is split in two so that a machine without pandas can run it:
-:func:`run_fame_bundle` starts from a :class:`FeatureBundle` and imports no
-pandas; :func:`run_fame_experiment` takes the two cohort DataFrames,
-featurizes them and calls it.
+The pipeline is split in two: :func:`run_fame_bundle` starts from a
+:class:`FeatureBundle`; :func:`run_fame_experiment` takes the two cohort
+tables (port tables, :mod:`fairmultimodal_torch.data.table`, or
+DataFrames), featurizes them and calls it.  Neither needs pandas for a port
+table.  ``checkpoint_dir`` makes ``fit`` save a train-state file per epoch
+there and resume from the latest one.
 
 Reference bug handled here: ``10_FAME.py:744-755`` indexes the full-cohort
 tensors with indices *relative to the train_val subframe*, silently training
@@ -33,11 +35,13 @@ import torch
 from fairmultimodal_torch.data.device import DeviceLoader
 from fairmultimodal_torch.data.featurize import (
     FeatureBundle,
+    as_table,
     assemble_features,
     compute_pos_weights,
 )
 from fairmultimodal_torch.data.loader import BatchIterator, NestedLoader
 from fairmultimodal_torch.data.split import multilabel_stratified_split
+from fairmultimodal_torch.data.table import head
 from fairmultimodal_torch.eval.report import eddi_report, evaluate_multitask
 from fairmultimodal_torch.interop import flax_params
 from fairmultimodal_torch.models._layers import init_params
@@ -46,7 +50,7 @@ from fairmultimodal_torch.models.text import TextEncoder, encode_note_chunks
 from fairmultimodal_torch.ops.gates import resolve_device
 from fairmultimodal_torch.train.calibrate import calibrate_thresholds
 from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
-from fairmultimodal_torch.utils.checkpoint import save_params_npz
+from fairmultimodal_torch.utils.checkpoint import Checkpointer, save_params_npz
 
 __all__ = ["FAMEPipelineConfig", "build_model_arrays", "make_loaders", "run_fame_bundle",
            "run_fame_experiment"]
@@ -54,8 +58,8 @@ __all__ = ["FAMEPipelineConfig", "build_model_arrays", "make_loaders", "run_fame
 
 @dataclasses.dataclass
 class FAMEPipelineConfig:
-    """The JAX config's fields.  ``mesh`` and ``checkpoint_dir`` are not
-    ported yet and raise ``NotImplementedError`` when set."""
+    """The JAX config's fields.  ``mesh`` is not ported yet and raises
+    ``NotImplementedError`` when set."""
 
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     text_model: str = "emilyalsentzer/Bio_ClinicalBERT"
@@ -96,9 +100,6 @@ def _check_config(cfg: FAMEPipelineConfig) -> None:
     if cfg.mesh is not None:
         raise NotImplementedError("mesh: multi-GPU training is not ported yet "
                                   "(ROADMAP queue 1 item 6)")
-    if cfg.checkpoint_dir:
-        raise NotImplementedError("checkpoint_dir: the checkpointer and resume are not "
-                                  "ported yet (ROADMAP queue 1 item 3)")
 
 
 def build_model_arrays(bundle: FeatureBundle) -> Dict[str, np.ndarray]:
@@ -226,7 +227,9 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
         if cfg.save_artifacts else None)
 
     _mark("split_and_loaders")
-    best_params, history = trainer.fit(loaders["train"], loaders["val"], verbose=verbose)
+    checkpointer = Checkpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+    best_params, history = trainer.fit(loaders["train"], loaders["val"], verbose=verbose,
+                                       checkpointer=checkpointer)
     # Every pass below reads the best state, as the JAX pipeline passes best_params.
     model.load_state_dict(best_params)
     _mark("train")
@@ -312,15 +315,16 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
 def run_fame_experiment(structured, unstructured, config: Optional[FAMEPipelineConfig] = None,
                         text_encoder: Optional[TextEncoder] = None, verbose: bool = True,
                         device=None) -> Dict:
-    """Train + evaluate full FAME from the two cohort DataFrames: ``head``,
-    :func:`assemble_features` (pandas), then :func:`run_fame_bundle`."""
+    """Train + evaluate full FAME from the two cohort tables (port tables or
+    DataFrames): ``head``, :func:`assemble_features`, then
+    :func:`run_fame_bundle`."""
     cfg = config or FAMEPipelineConfig()
     _check_config(cfg)
     device = resolve_device(device)
     t0 = time.perf_counter()
+    structured, unstructured = as_table(structured), as_table(unstructured)
     if cfg.head:
-        structured = structured.head(cfg.head)
-        unstructured = unstructured.head(cfg.head)
+        structured, unstructured = head(structured, cfg.head), head(unstructured, cfg.head)
     bundle = assemble_features(structured, unstructured)
     return run_fame_bundle(bundle, dataclasses.replace(cfg, head=None), text_encoder,
                            verbose=verbose, device=device,

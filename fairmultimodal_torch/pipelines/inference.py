@@ -2,21 +2,23 @@
 
 :class:`FAMEPredictor` runs a FAME model in fixed batches (256 by default),
 zero-padding the tail batch so every call sees one shape.
-:func:`run_fame_inference` goes from the two cohort tables and an exported
-``best_model_*.npz`` (the JAX package's ``save_params_npz`` format, read as
-it is) to a per-patient risk table.
+:func:`run_fame_inference` goes from the two cohort tables (port tables or
+DataFrames) and an exported ``best_model_*.npz`` (the JAX package's
+``save_params_npz`` format, read as it is) to a per-patient risk table,
+written as the JAX function's CSV without pandas.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from fairmultimodal_torch import TASKS
-from fairmultimodal_torch.data.featurize import assemble_features
+from fairmultimodal_torch.data.featurize import as_table, assemble_features
+from fairmultimodal_torch.data.table import frame_from_table, num_rows, write_csv_table
 from fairmultimodal_torch.interop import load_flax_params
 from fairmultimodal_torch.models.fusion import FAMEModel
 from fairmultimodal_torch.models.text import TextEncoder, encode_note_chunks
@@ -118,15 +120,18 @@ def run_fame_inference(structured, unstructured, params_path: str,
                        thresholds: Optional[Dict] = None,
                        text_encoder: Optional[TextEncoder] = None,
                        text_max_length: int = 512, model_kwargs: Optional[Dict] = None,
-                       out_csv: Optional[str] = None, verbose: bool = True, device=None):
-    """Cohort DataFrames + exported params -> per-patient risk DataFrame
-    (``subject_id`` and ``<task>_prob`` / ``<task>_pred`` per task)."""
-    import pandas as pd
-
+                       out_csv: Optional[str] = None, verbose: bool = True, device=None,
+                       dtype=torch.float32):
+    """Cohort tables + exported params -> per-patient risk table
+    (``subject_id`` and ``<task>_prob`` / ``<task>_pred`` per task): a port
+    table, or a DataFrame when ``structured`` is one.  ``dtype`` is the
+    compute dtype of the model and of the text encoder built here (the
+    parameters stay float32)."""
     device = resolve_device(device)
-    bundle = assemble_features(structured, unstructured)
+    frames = not isinstance(structured, Mapping)
+    bundle = assemble_features(as_table(structured), as_table(unstructured))
     if text_encoder is None:
-        text_encoder = TextEncoder.from_pretrained(device=device)
+        text_encoder = TextEncoder.from_pretrained(dtype=dtype, device=device)
     bundle.text_embeddings = encode_note_chunks(text_encoder, bundle.note_chunks,
                                                 max_length=text_max_length)
     arrays = build_model_arrays(bundle)
@@ -142,18 +147,18 @@ def run_fame_inference(structured, unstructured, params_path: str,
     kwargs.update(model_kwargs or {})
     if thresholds is None and "thresholds" in meta:
         thresholds = meta["thresholds"]
-    model = load_flax_params(FAMEModel(**kwargs), load_params_npz(params_path))
+    model = load_flax_params(FAMEModel(**kwargs, dtype=dtype), load_params_npz(params_path))
 
     dw = (np.asarray(meta["dynamic_weights"], np.float32)
           if "dynamic_weights" in meta else None)
     out = FAMEPredictor(model, thresholds, dynamic_weights=dw,
                         device=device).predict_arrays(arrays)
-    table = pd.DataFrame({"subject_id": bundle.subject_id})
+    table = {"subject_id": bundle.subject_id}
     for i, t in enumerate(TASKS):
         table[f"{t}_prob"] = out["probs"][:, i]
         table[f"{t}_pred"] = out["preds"][:, i]
     if out_csv:
-        table.to_csv(out_csv, index=False)
+        write_csv_table(out_csv, table)
         if verbose:
-            print(f"Wrote predictions for {len(table)} patients to {out_csv}")
-    return table
+            print(f"Wrote predictions for {num_rows(table)} patients to {out_csv}")
+    return frame_from_table(table) if frames else table

@@ -20,9 +20,14 @@ Train and eval passes take a host loader (``NestedLoader`` over
 The eval passes read the live model: load ``fit``'s best state into
 ``trainer.model`` first (the JAX trainer passes ``best_params`` to them).
 
-Not ported here (ROADMAP): the checkpointer and bit-identical resume, the
-one-dispatch statistics scan (the batchwise pass gives the same weights:
-its statistics are exact integer sums), multi-GPU.
+:meth:`FAMETrainer.fit` takes a
+:class:`~fairmultimodal_torch.utils.checkpoint.Checkpointer`: the train
+state is saved after each epoch's dynamic-weight update and the latest step
+is restored on entry, so a resumed run continues bit for bit.
+
+Not ported here (ROADMAP): the one-dispatch statistics scan (the batchwise
+pass gives the same weights: its statistics are exact integer sums),
+multi-GPU.
 """
 
 from __future__ import annotations
@@ -318,10 +323,71 @@ class FAMETrainer:
     def _state_copy(self) -> Dict[str, torch.Tensor]:
         return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
 
+    def _checkpoint_state(self, best, sched, stopper, csv_rows, loader_epoch) -> Dict:
+        """Everything a resumed ``fit`` needs, as CPU tensors and plain
+        Python values (``torch.load(weights_only=True)`` reads it)."""
+        def cpu(tree):
+            if isinstance(tree, torch.Tensor):
+                return tree.detach().cpu()
+            if isinstance(tree, dict):
+                return {k: cpu(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(cpu(v) for v in tree)
+            return tree
+
+        return {
+            "model": cpu(self.model.state_dict()),
+            "best": cpu(best),
+            "optimizer": cpu(self.optimizer.state_dict()),
+            "dynamic_weights": torch.from_numpy(np.array(self.dynamic_weights, np.float64)),
+            "scheduler": {"lr": sched.lr, "best": sched.best, "num_bad": sched.num_bad},
+            "stopper": {"best": stopper.best, "counter": stopper.counter},
+            "generator": self.generator.get_state(),
+            "history": self.history,
+            "tracked_dynamic_weights": self.tracked_dynamic_weights,
+            "tracked_sigmoid_weights": [torch.from_numpy(np.array(w))
+                                        for w in self.tracked_sigmoid_weights],
+            "csv_rows": [list(r) for r in csv_rows],
+            "loader_epoch": loader_epoch,
+        }
+
+    def _restore(self, state: Dict, sched, stopper):
+        """Load a :meth:`_checkpoint_state`; returns (best, csv_rows,
+        loader_epoch)."""
+        self.model.load_state_dict(state["model"])
+        best = {k: v.to(self.device) for k, v in state["best"].items()}
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.dynamic_weights = state["dynamic_weights"].numpy().astype(np.float64)
+        sched.lr, sched.best, sched.num_bad = (state["scheduler"][k]
+                                               for k in ("lr", "best", "num_bad"))
+        stopper.best, stopper.counter = state["stopper"]["best"], state["stopper"]["counter"]
+        self.set_lr(sched.lr)
+        self.generator.set_state(state["generator"])
+        self.history = list(state["history"])
+        self.tracked_dynamic_weights = {t: list(v) for t, v in
+                                        state["tracked_dynamic_weights"].items()}
+        self.tracked_sigmoid_weights = [w.numpy() for w in state["tracked_sigmoid_weights"]]
+        return best, [tuple(r) for r in state["csv_rows"]], state["loader_epoch"]
+
     def fit(self, train_loader, val_loader, verbose: bool = True,
-            on_epoch_end: Optional[Callable] = None):
+            on_epoch_end: Optional[Callable] = None, checkpointer=None):
         """Epochs + plateau LR + early stop + best-state capture + per-epoch
-        dynamic weight updates.  Returns (best state dict, history)."""
+        dynamic weight updates.  Returns (best state dict, history).
+
+        With a ``checkpointer`` the full train state (model and best state,
+        AdamW's state, the float64 dynamic weights, the scheduler and stopper
+        scalars, the dropout generator, the histories and CSV rows, and the
+        train loader's consumed-epoch count) is saved after each epoch's
+        dynamic-weight update, and the latest step is restored on entry.
+
+        The loader's count is what makes the resume bit-identical.  Each
+        completed epoch draws two ``(seed, epoch)`` permutations from the
+        train loader, one for the train pass and one for the dynamic-weight
+        pass.  The JAX ``fit`` re-aligns the loader to ``start_epoch``
+        instead (``loop.py:745-750``), so its resumed run draws other
+        shuffles from the second epoch on: a fault of the JAX package, which
+        the port does not copy.  An uninterrupted run is the JAX one.
+        """
         cfg = self.config
         self.optimizer = make_adamw(self.model, cfg.lr, cfg.weight_decay)
         sched = PlateauScheduler(cfg.lr, cfg.scheduler_factor, cfg.scheduler_patience)
@@ -329,10 +395,19 @@ class FAMETrainer:
         best = self._state_copy()
         csv_rows = [("Epoch", "Outcome", "demo_weight", "lab_weight", "text_weight")]
         inner = getattr(train_loader, "it", train_loader)
+        loader_epoch, start_epoch = 0, 0    # the (seed, epoch) shuffles start at epoch 0
+        if checkpointer is not None:
+            latest = checkpointer.latest_step()
+            if latest is not None:
+                best, csv_rows, loader_epoch = self._restore(
+                    checkpointer.restore(latest), sched, stopper)
+                start_epoch = latest
+                if verbose:
+                    print(f"Resumed from checkpoint at epoch {latest}.")
         if hasattr(inner, "epoch"):
-            inner.epoch = 0    # the (seed, epoch) shuffles start at epoch 0
+            inner.epoch = loader_epoch
 
-        for epoch in range(cfg.num_epochs):
+        for epoch in range(start_epoch, cfg.num_epochs):
             t0 = time.time()
             train_loss, train_bce = self.train_epoch(train_loader)
             val_loss, _, _ = self.validate(val_loader)
@@ -368,6 +443,9 @@ class FAMETrainer:
                           f"'text': {new_w[ti][2]:.6f}}}")
             self.tracked_sigmoid_weights.append(
                 self._host(torch.sigmoid(self.model.fusion.sig_weights.detach())))
+            if checkpointer is not None:
+                checkpointer.save(epoch + 1, self._checkpoint_state(
+                    best, sched, stopper, csv_rows, getattr(inner, "epoch", None)))
             if on_epoch_end is not None:
                 on_epoch_end(epoch, self.model)
 

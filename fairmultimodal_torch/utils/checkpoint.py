@@ -9,17 +9,25 @@ return plain numpy / JSON, ready for
 :func:`fairmultimodal_torch.interop.load_flax_params`.  Each package reads
 the other's files.
 
-Not ported: the JAX ``Checkpointer`` (train-state resume, ROADMAP).
+:class:`Checkpointer` keeps the train state for resume in the port's own
+format (the JAX one writes orbax directories): one ``step_<k>.pt`` per
+completed epoch, written under a temporary name and moved into place with
+``os.replace``, so a reader never sees a torn file.  Each file holds tensors
+and plain Python containers only and reads back with ``torch.load(...,
+weights_only=True)``.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict, Mapping, Optional
+import os
+import re
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
+import torch
 
-__all__ = ["save_params_npz", "load_params_npz", "load_metadata_npz"]
+__all__ = ["save_params_npz", "load_params_npz", "load_metadata_npz", "Checkpointer"]
 
 _META_KEY = "__metadata_json__"
 
@@ -66,3 +74,38 @@ def load_metadata_npz(path: str) -> Optional[Dict]:
         if _META_KEY not in data.files:
             return None
         return json.loads(bytes(data[_META_KEY].tolist()).decode())
+
+
+class Checkpointer:
+    """Per-epoch train-state files ``<directory>/step_<k>.pt``."""
+
+    _STEP = re.compile(r"step_(\d+)\.pt")
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step}.pt")
+
+    def save(self, step: int, state: Dict[str, Any]) -> str:
+        """Write ``state`` for ``step``; returns the file's path."""
+        path = self.path(step)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        try:
+            torch.save(state, tmp)
+            os.replace(tmp, path)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise
+        return path
+
+    def restore(self, step: int, map_location=None) -> Dict[str, Any]:
+        return torch.load(self.path(step), map_location=map_location, weights_only=True)
+
+    def latest_step(self) -> Optional[int]:
+        """The largest completed step; temporary files do not count."""
+        steps = [int(m.group(1)) for m in map(self._STEP.fullmatch, os.listdir(self.directory))
+                 if m]
+        return max(steps) if steps else None

@@ -1,0 +1,284 @@
+"""The port's command line against the JAX package's (CPU, fp32, tiny).
+
+``python -m fairmultimodal_torch.cli`` has the JAX parser's flags plus
+``--device``; ``fame --synthetic 64 --tiny --epochs 2 --bsz 16 --device
+cpu`` prints the JAX command line's report with metrics within 1e-4 of the
+JAX run on the same arguments; ``predict`` reads a JAX-written and a
+port-written npz and writes the JAX CSV to 1e-5 (``--runs 2`` is held
+against the JAX command line in ``test_torch_resume.py``).  Both command
+lines get one tiny text encoder (the JAX one's weights, converted),
+a train forward without dropout and the JAX trainer's initial weights (the
+port's ``init_params`` is replaced by a load of them), through wrappers
+around the functions the command lines call.  ``--bf16`` is the
+compute dtype of every model the run builds.  The pipelines not ported
+and ``--mesh`` exit; without ``--device`` the command raises the CUDA
+error here; a subprocess in which pandas, scikit-learn, transformers and
+jax cannot be imported runs ``fame`` and ``predict`` to the end.
+"""
+
+import csv
+import glob
+import importlib
+import io
+import os
+import re
+import subprocess
+import sys
+from contextlib import redirect_stdout
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import fairmultimodal_tpu.pipelines as j_pipelines
+from fairmultimodal_torch.interop import load_flax_params
+from fairmultimodal_torch.models import bert as t_bert
+from fairmultimodal_torch.models import text as t_text
+from fairmultimodal_torch.pipelines import fame as t_fame
+from fairmultimodal_tpu.models import bert as j_bert
+from fairmultimodal_tpu.models import text as j_text
+from fairmultimodal_tpu.train import loop as j_loop
+
+# The modules (each package's ``cli`` exports a function of the same name).
+t_cli = importlib.import_module("fairmultimodal_torch.cli.main")
+j_cli = importlib.import_module("fairmultimodal_tpu.cli.main")
+TEXT_CFG = dict(vocab_size=512, hidden_size=32, num_hidden_layers=1, num_attention_heads=2,
+                intermediate_size=64, max_position_embeddings=64)
+FAME = ["fame", "--synthetic", "64", "--tiny", "--epochs", "2", "--bsz", "16"]
+TASKS = ("mortality", "los", "mechanical_ventilation")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def encoders():
+    cfg = j_bert.BertConfig(**TEXT_CFG)
+    params = jax.jit(j_bert.BertEncoderModel(cfg).init)(
+        jax.random.PRNGKey(5), jnp.zeros((1, 8), jnp.int32), jnp.ones((1, 8), jnp.int32))
+    params = jax.tree_util.tree_map(np.asarray, jax.device_get(params["params"]))
+    return (j_text.TextEncoder(cfg, params, j_text.HashingTokenizer(cfg.vocab_size)),
+            t_text.TextEncoder.from_params(params, t_bert.BertConfig(**TEXT_CFG), device="cpu"))
+
+
+def _deterministic(run, outs):
+    """Wrap a ``run_fame_experiment``: train forward without dropout, keep
+    the result dict."""
+    def wrapped(s, u, cfg, *args, **kwargs):
+        cfg.train.deterministic_forward = True
+        out = run(s, u, cfg, *args, **kwargs)
+        outs.append(out)
+        return out
+    return wrapped
+
+
+def _run_jax(argv, encoders, monkeypatch):
+    """The JAX command line; returns (stdout, result dicts, initial weights)."""
+    outs, inits = [], []
+    init = j_loop.FAMETrainer.init_params
+
+    def init_params(self, example):
+        params = init(self, example)
+        inits.append(jax.tree_util.tree_map(np.array, params))
+        return params
+
+    monkeypatch.setattr(j_loop.FAMETrainer, "init_params", init_params)
+    monkeypatch.setattr(j_text.TextEncoder, "from_pretrained",
+                        classmethod(lambda cls, *a, **k: encoders[0]))
+    monkeypatch.setattr(j_pipelines, "run_fame_experiment",
+                        _deterministic(j_pipelines.run_fame_experiment, outs))
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        assert j_cli.main(argv) == 0
+    monkeypatch.undo()
+    return buf.getvalue(), outs, inits
+
+
+def _run_port(argv, encoders, monkeypatch, inits=()):
+    """The port's command line on the CPU with the JAX runs' initial weights."""
+    outs, queue = [], list(inits)
+    monkeypatch.setattr(t_text.TextEncoder, "from_pretrained",
+                        classmethod(lambda cls, *a, **k: encoders[1]))
+    if queue:
+        monkeypatch.setattr(t_fame, "init_params",
+                            lambda model, seed: load_flax_params(model, queue.pop(0)))
+    monkeypatch.setattr(t_fame, "run_fame_experiment",
+                        _deterministic(t_fame.run_fame_experiment, outs))
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        assert t_cli.main(argv + ["--device", "cpu"]) == 0
+    monkeypatch.undo()
+    return buf.getvalue(), outs
+
+
+@pytest.fixture(scope="module")
+def fame_runs(encoders, tmp_path_factory):
+    mp = pytest.MonkeyPatch()
+    j_dir, t_dir = tmp_path_factory.mktemp("jax"), tmp_path_factory.mktemp("port")
+    j_out, j_res, inits = _run_jax(FAME + ["--out_dir", str(j_dir)], encoders, mp)
+    t_out, t_res = _run_port(FAME + ["--out_dir", str(t_dir)], encoders, mp, inits)
+    return (j_out, j_res[0], j_dir), (t_out, t_res[0], t_dir)
+
+
+def _actions(parser):
+    return {tuple(a.option_strings) or (a.dest,): (a.dest, a.default, a.choices, a.nargs,
+                                                   a.type, a.const, a.required)
+            for a in parser._actions if a.dest != "help"}
+
+
+def test_parser_has_the_jax_flags_plus_device():
+    want, got = _actions(j_cli.build_parser()), _actions(t_cli.build_parser())
+    assert got.pop(("--device",)) == ("device", "cuda", ("cuda", "cpu"), None, None, None,
+                                      False)
+    assert got == want
+    assert t_cli.PIPELINES == j_cli.PIPELINES
+    assert _actions(t_cli.build_parser("fame")) == {
+        **_actions(j_cli.build_parser("fame")), ("--device",): _actions(
+            t_cli.build_parser("fame"))[("--device",)]}
+
+
+def _report(text):
+    """The lines from the final metric block on, digits collapsed."""
+    lines = text.splitlines()
+    start = lines.index("--- Final Evaluation Metrics on Test Set ---")
+    return [re.sub(r"\d+", "#", re.sub(r"Saved best model to .*", "Saved", line))
+            for line in lines[start:]]
+
+
+def test_fame_prints_the_jax_report(fame_runs):
+    (j_out, want, _), (t_out, got, _) = fame_runs
+    assert _report(t_out) == _report(j_out)
+    assert "Optimal thresholds from validation:" in t_out
+    for task in TASKS:
+        for k, v in want["metrics"][task].items():
+            assert got["metrics"][task][k] == pytest.approx(v, abs=1e-4), (task, k)
+        assert got["fairness"][task]["overall_eo"] == pytest.approx(
+            want["fairness"][task]["overall_eo"], abs=1e-4)
+    assert got["eddi"]["overall_combined_eddi"] == pytest.approx(
+        want["eddi"]["overall_combined_eddi"], abs=1e-4)
+    assert got["thresholds"] == want["thresholds"]
+    for g, w in zip(got["history"], want["history"]):
+        assert g["val_loss"] == pytest.approx(w["val_loss"], rel=1e-5)
+
+
+def _csv(path):
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], np.asarray(rows[1:], dtype=np.float64)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_predict_reads_either_npz_and_writes_the_jax_csv(writer, fame_runs, encoders,
+                                                         tmp_path, monkeypatch):
+    (_, _, j_dir), (_, _, t_dir) = fame_runs
+    npz = glob.glob(str((j_dir if writer == "jax" else t_dir) / "best_model_*.npz"))[0]
+    argv = ["predict", "--synthetic", "64", "--tiny", "--params", npz]
+    _run_jax(argv + ["--out_dir", str(tmp_path / "jax")], encoders, monkeypatch)
+    t_out, _ = _run_port(argv + ["--out_dir", str(tmp_path / "port")], encoders, monkeypatch)
+    assert "Wrote predictions for " in t_out
+    (j_head, j_rows), (t_head, t_rows) = (_csv(tmp_path / d / "predictions.csv")
+                                          for d in ("jax", "port"))
+    assert t_head == j_head == ["subject_id"] + [f"{t}_{k}" for t in TASKS
+                                                 for k in ("prob", "pred")]
+    np.testing.assert_allclose(t_rows, j_rows, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("pipeline", sorted(t_cli._NOT_PORTED))
+def test_pipelines_not_ported_exit_naming_their_item(pipeline):
+    with pytest.raises(SystemExit, match=r"ROADMAP queue 1 item \d"):
+        t_cli.main([pipeline, "--synthetic", "8", "--device", "cpu"])
+
+
+def test_mesh_exits_naming_its_item():
+    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 6"):
+        t_cli.main(FAME + ["--mesh", "8", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("pipeline", ["fame", "fpm", "predict"])
+def test_without_device_the_command_raises_the_cuda_error(pipeline, monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_cli.main([pipeline, "--synthetic", "8", "--tiny", "--out_dir", str(tmp_path)])
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_bf16_is_the_dtype_of_every_model_the_run_builds(bf16, monkeypatch, tmp_path):
+    """``--bf16`` reaches the text encoder under ``--require_hf_weights`` and
+    the predict model; the JAX command line builds both in float32 there."""
+    from fairmultimodal_torch.pipelines import inference
+
+    seen = {}
+
+    def encoder(cls, *args, **kwargs):
+        seen["encoder"] = kwargs["dtype"]
+        return "encoder"
+
+    def inference_run(*args, **kwargs):
+        seen["predict"] = kwargs["dtype"]
+        raise _Stop
+
+    def experiment(*args, **kwargs):
+        seen["fame"] = args[2].dtype
+        raise _Stop
+
+    monkeypatch.setattr(t_text.TextEncoder, "from_pretrained", classmethod(encoder))
+    monkeypatch.setattr(inference, "run_fame_inference", inference_run)
+    monkeypatch.setattr(t_fame, "run_fame_experiment", experiment)
+    flags = ["--synthetic", "8", "--device", "cpu", "--require_hf_weights",
+             "--out_dir", str(tmp_path)] + (["--bf16"] if bf16 else [])
+    want = torch.bfloat16 if bf16 else torch.float32
+    for argv in (["fame"] + flags, ["predict", "--params", "x.npz"] + flags):
+        with pytest.raises(_Stop):
+            t_cli.main(argv)
+    assert seen == {"encoder": want, "predict": want,
+                    "fame": "bfloat16" if bf16 else "float32"}
+
+
+def _hub_snapshot(hub):
+    """A tiny random Bio_ClinicalBERT snapshot in a hub cache, written with
+    transformers (the subprocess below reads it without)."""
+    import transformers
+
+    from fairmultimodal_torch.data.synthetic import _WORDS
+
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + _WORDS
+    repo = hub / "models--emilyalsentzer--Bio_ClinicalBERT"
+    snap = repo / "snapshots" / "0123abcd"
+    snap.mkdir(parents=True)
+    (repo / "refs").mkdir()
+    (repo / "refs" / "main").write_text("0123abcd")
+    torch.manual_seed(0)
+    transformers.BertModel(transformers.BertConfig(
+        vocab_size=len(vocab), hidden_size=32, num_hidden_layers=1, num_attention_heads=2,
+        intermediate_size=64, max_position_embeddings=64)).save_pretrained(snap)
+    (snap / "vocab.txt").write_text("\n".join(vocab) + "\n")
+
+
+def test_fame_and_predict_run_without_pandas_sklearn_transformers_or_jax(tmp_path):
+    _hub_snapshot(tmp_path / "hub")
+    code = (
+        "import glob, sys\n"
+        "for name in ('pandas', 'sklearn', 'transformers', 'jax', 'fairmultimodal_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "from fairmultimodal_torch.cli import main\n"
+        f"out = {str(tmp_path)!r}\n"
+        "common = ['--synthetic', '40', '--tiny', '--device', 'cpu', '--out_dir', out,\n"
+        "          '--quiet', '--require_hf_weights']\n"
+        "assert main(['fame', '--epochs', '1', '--bsz', '16'] + common) == 0\n"
+        "npz = glob.glob(out + '/best_model_*.npz')[0]\n"
+        "assert main(['predict', '--params', npz] + common) == 0\n"
+        "bad = [m for m in ('pandas', 'sklearn', 'transformers', 'jax')\n"
+        "       if sys.modules.get(m) is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, HF_HUB_CACHE=str(tmp_path / "hub"))
+    out = subprocess.run([sys.executable, "-W", "ignore", "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+    _, rows = _csv(tmp_path / "predictions.csv")
+    assert rows.shape[1] == 7 and np.isfinite(rows).all()

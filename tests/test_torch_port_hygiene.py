@@ -146,7 +146,6 @@ def test_experiment_entry_points_default_to_cuda_and_raise_without_it(monkeypatc
 
 @pytest.mark.parametrize("field,value,error,match", [
     ("mesh", object(), NotImplementedError, "queue 1 item 6"),
-    ("checkpoint_dir", "ckpt", NotImplementedError, "queue 1 item 3"),
     ("require_hf_weights", True, RuntimeError, "required"),
 ])
 def test_experiment_fields_not_ported_raise(field, value, error, match, tmp_path):
