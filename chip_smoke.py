@@ -26,7 +26,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 4. slice: the serving main path at full width -- a bf16 FAME model (demo
    BERT 12L/12H, lab encoder 2L/8H over 549 labs, H 768) and a BERT-base
    note encoder, seeded random weights, a 300-patient cohort whose notes hit
-   every bucket -- through ``encode_note_chunks`` -> ``build_model_arrays``
+   every bucket -- through ``encode_note_chunks`` -> ``build_arrays``
    -> ``FAMEPredictor.predict_arrays``, with the kernels' launch counts read
    around it; then the same model in fp32 on 8 patients on the card and on
    the CPU (probabilities within 1e-4); then ``FAMEPredictor.benchmark``.
@@ -157,9 +157,34 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    and restore seconds, the tokenizer's chunks/s and the text stage cold
    and warm.
 
-It prints a ``{"kernels": [...]}`` line (with each LN-fused kernel's phase 6
-and phase 7 launches), the card's ``nvidia-smi`` line, and last ``{"ok":
-true, "device": {...}}``.
+8. the baselines: ``cli.main`` in-process on phase 7's cohort and a snapshot
+   written as phase 7 writes it (under ``build/phase8/``, removed at the
+   end), every run ``--epochs 1 --require_hf_weights --text_cache`` at the
+   pipelines' own batch 16: ``behrt --bf16``, ``behrt`` (fp32, its default
+   dtype), ``bioclinicalbert`` (fp32), ``average --bf16``, ``sigmoid
+   --bf16``, ``eddi --bf16``.  It fails unless each run's launches of #1-#4
+   equal the counts worked out before the runs from the splits, the
+   loaders' lengths and the text buckets (every other kernel 0; 07 launches
+   none); every metric block has a finite AUROC and AUPRC; each run's split
+   equals the one worked out beforehand (09's by the port's copy of
+   scikit-learn's split); 07 writes ``extracted_embeddings.npz`` with one
+   512-wide row per patient kept; 08 reports finite [3, 3] weights.  Then
+   one fp32 train step of each of the five models at full width on 16
+   patients (for 08 its loss and backward), card against CPU from the same
+   weights and generator seed (the loss within phase 5's limit of the CPU;
+   every grad leaf within phase 5's limit of the float64 step beyond the
+   CPU's own fp32 error against it); the 01 train step at batch
+   16 in bf16 and fp32 (CUDA-event median of 20) and profiled; 07's bf16 step
+   with and without dropout (the share its int64 Philox dropout takes); and #1-#4 at
+   the baselines' shape B 16 x S 560 in fp32 and bf16 against their plain
+   versions, timed beside the plain version, one library composition and
+   the bound (fp32 against the CUDA cores' 67 TFLOP/s).  Prints each run's
+   wall time, stage times and train patients per second of the train
+   stage (which holds the epoch's validation pass too).
+
+It prints a ``{"kernels": [...]}`` line (with each LN-fused kernel's phase 6,
+7 and 8 launches and its phase 8 times at B 16), the card's ``nvidia-smi``
+line, and last ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -198,8 +223,8 @@ def time_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / BF16_PEAK, nbytes / HBM_RATE
+def bound_ms(flops, nbytes, peak=BF16_PEAK):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1425,7 +1450,8 @@ def slice_phase(fab, ffn):
     from fairmultimodal_torch.models.bert import bio_clinical_bert_config
     from fairmultimodal_torch.models.fusion import FAMEModel
     from fairmultimodal_torch.models.text import TextEncoder, encode_note_chunks
-    from fairmultimodal_torch.pipelines.fame import build_model_arrays
+    from fairmultimodal_torch.pipelines.common import build_arrays
+    from fairmultimodal_torch.pipelines.fame import FAME_KEYS
     from fairmultimodal_torch.pipelines.inference import FAMEPredictor
 
     bert_config = bio_clinical_bert_config()
@@ -1450,7 +1476,7 @@ def slice_phase(fab, ffn):
     t_encode = time.perf_counter() - t0
     text = {"fused_attention_block_ln": fab.launches, "fused_ffn_ln": ffn.launches}
     t0 = time.perf_counter()
-    out = predictor.predict_arrays(build_model_arrays(bundle))
+    out = predictor.predict_arrays(build_arrays(bundle, FAME_KEYS))
     t_predict = time.perf_counter() - t0
     total = {"fused_attention_block_ln": fab.launches, "fused_ffn_ln": ffn.launches}
     lab = {k: total[k] - text[k] for k in total}
@@ -1488,7 +1514,7 @@ def slice_phase(fab, ffn):
         fab.launches = ffn.launches = 0
         sub.text_embeddings = encode_note_chunks(enc32, sub_notes, max_length=512, batch_size=2)
         pred32 = FAMEPredictor(m32, batch_size=8, device=device)
-        probs_by_device[device] = pred32.predict_arrays(build_model_arrays(sub))["probs"]
+        probs_by_device[device] = pred32.predict_arrays(build_arrays(sub, FAME_KEYS))["probs"]
         counts = (fab.launches, ffn.launches)
         if (device == "cuda") != (min(counts) > 0) or (device == "cpu" and max(counts)):
             raise AssertionError(f"{device}: kernel launches {counts}")
@@ -1583,10 +1609,9 @@ def fp32_train_step(batch, device, fold=None, flash=False):
                           if p.grad is not None}
 
 
-def compare_steps(got, want):
-    """(loss rel, worst leaf, its max error over its max-abs) of two
-    :func:`fp32_train_step` results."""
-    (loss_c, grads_c), (loss_h, grads_h) = got, want
+def grad_errors(grads_c, grads_h):
+    """Per leaf, the max error of ``grads_c`` against ``grads_h`` over the
+    max-abs of ``grads_h`` (leaves with a zero grad left out)."""
     if set(grads_c) != set(grads_h):
         raise AssertionError(f"grad leaves differ: {set(grads_c) ^ set(grads_h)}")
 
@@ -1598,8 +1623,15 @@ def compare_steps(got, want):
                        for k in ("query", "key", "value"))
         return float(grads_h[name].abs().max())
 
-    rel = {n: float((grads_c[n] - g).abs().max()) / scale(n)
-           for n, g in grads_h.items() if scale(n) > 0}
+    return {n: float((grads_c[n].double() - g.double()).abs().max()) / scale(n)
+            for n, g in grads_h.items() if scale(n) > 0}
+
+
+def compare_steps(got, want):
+    """(loss rel, worst leaf, its max error over its max-abs) of two
+    :func:`fp32_train_step` results."""
+    (loss_c, grads_c), (loss_h, grads_h) = got, want
+    rel = grad_errors(grads_c, grads_h)
     worst = max(rel, key=rel.get)
     return abs(loss_c - loss_h) / abs(loss_h), worst, rel[worst]
 
@@ -2051,8 +2083,8 @@ def experiment_phase(flash, fab, ffn, addnorm):
     from fairmultimodal_torch.models.bert import bio_clinical_bert_config
     from fairmultimodal_torch.models.fusion import FAMEModel
     from fairmultimodal_torch.models.text import TextEncoder
-    from fairmultimodal_torch.pipelines.fame import (FAMEPipelineConfig, build_model_arrays,
-                                                     run_fame_bundle)
+    from fairmultimodal_torch.pipelines.common import build_arrays
+    from fairmultimodal_torch.pipelines.fame import FAME_KEYS, FAMEPipelineConfig, run_fame_bundle
     from fairmultimodal_torch.pipelines.inference import FAMEPredictor
     from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
     from fairmultimodal_torch.utils.checkpoint import load_metadata_npz, load_params_npz
@@ -2165,7 +2197,7 @@ def experiment_phase(flash, fab, ffn, addnorm):
         model = load_flax_params(FAMEModel(**meta["model"], dtype=torch.bfloat16),
                                  load_params_npz(npz_path))
         test_arrays = {k: v[out["splits"]["test"]]
-                       for k, v in build_model_arrays(bundle).items()}
+                       for k, v in build_arrays(bundle, FAME_KEYS).items()}
         fab.launches = ffn.launches = 0
         probs = FAMEPredictor(model, meta["thresholds"], batch_size=EXP_BATCH,
                               dynamic_weights=meta["dynamic_weights"],
@@ -2179,7 +2211,7 @@ def experiment_phase(flash, fab, ffn, addnorm):
             raise AssertionError(f"reloaded npz: probabilities differ by {npz_diff}, "
                                  f"{fab.launches} launches")
 
-    loader = device_loader_check(build_model_arrays(bundle), bundle.labels,
+    loader = device_loader_check(build_arrays(bundle, FAME_KEYS), bundle.labels,
                                  out["splits"]["train"], seed=cfg.train.seed)
     log(f"[experiment] DeviceLoader epoch on the card bit-identical to the host path: {loader}")
     train_pps = [splits["train"] / s for s in epoch_s]
@@ -2539,6 +2571,433 @@ def cli_phase(flash, fab, ffn, addnorm):
     return total, info
 
 
+# -- phase 8: the baseline pipelines (01, 02, 07, 09, 08) through the command line --------
+
+BASE_BATCH, BASE_TEXT_BATCH, BASE_LAB_S = 16, 32, 560
+FP32_PEAK = 67e12         # H100 SXM dense fp32 FLOP/s outside the tensor cores
+#: (label, pipeline, flags) of phase 8's runs, each --epochs 1 at the pipeline's batch 16.
+BASE_RUNS = (("01 behrt --bf16", "behrt", ["--bf16"]), ("01 behrt fp32", "behrt", []),
+             ("02 bioclinicalbert", "bioclinicalbert", []),
+             ("07 average --bf16", "average", ["--bf16"]),
+             ("09 sigmoid --bf16", "sigmoid", ["--bf16"]), ("08 eddi --bf16", "eddi", ["--bf16"]))
+BASE_MODULES = {"behrt": ("behrt", "run_behrt_experiment"),
+                "bioclinicalbert": ("text_only", "run_text_only_experiment"),
+                "average": ("average_fusion", "run_average_fusion_experiment"),
+                "sigmoid": ("sigmoid_fusion", "run_sigmoid_fusion_experiment"),
+                "eddi": ("eddi_fusion", "run_eddi_fusion_experiment")}
+BASE_SPLITS = {"behrt": "iterstrat", "bioclinicalbert": "skmultilearn", "average": "iterstrat",
+               "sigmoid": "sklearn", "eddi": "iterstrat"}
+BASE_EXTRA_KEYS = ("segment_ids", "adm_loc_ids", "disch_loc_ids")
+
+
+def baseline_predicted_launches(tables, tokenizer):
+    """Per pipeline, (#1 = #2, #3 = #4) launches of a 1-epoch run, the
+    pipeline's split, and the notes cohort: two lab layers per batch of every
+    train step, validation and test pass for 01 / 09 / 08, and for 02 the
+    text batches of the 256 / 512 buckets; 07 launches none (a one-token BERT,
+    text at 128)."""
+    from fairmultimodal_torch.data.featurize import assemble_features
+    from fairmultimodal_torch.pipelines.common import make_split
+
+    cohorts = {"labs": assemble_features(*tables, require_notes=False),
+               "notes": assemble_features(*tables)}
+    want, splits = {}, {}
+    for name, method in BASE_SPLITS.items():
+        bundle = cohorts["labs" if name == "behrt" else "notes"]
+        splits[name] = make_split(bundle.labels, 0.20, 0.05, 42, method=method)
+        nb = {k: -(-len(v) // BASE_BATCH) for k, v in splits[name].items()}
+        want[name] = (2 * (nb["train"] + nb["val"] + nb["test"]), 2 * nb["train"])
+    want["bioclinicalbert"] = (expected_text_launches(
+        tokenizer, cohorts["notes"].note_chunks, BASE_TEXT_BATCH, 12), 0)
+    want["average"] = (0, 0)
+    return want, splits, cohorts
+
+
+def baseline_kernel_rows(fab, ffn, _build, B=BASE_BATCH):
+    """#1-#4 at the baselines' lab shape (B 16 x S 560, H 768, 8 heads, FFN
+    2048, dropout 0.1) in fp32 and bf16: errors against the plain versions
+    (phase 3b's limits), then the wrapper's time (the forward with its
+    residuals as a train step runs it; the backward through autograd from
+    one kept forward), the plain version's, one library composition's, and
+    the bound (fp32 operations at the CUDA cores' peak: the port's fp32 GEMM
+    and flash kernels use no tensor cores)."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    S, H, nh, FF, rate, eps = BASE_LAB_S, 768, 8, 2048, 0.1, 1e-5
+    rows = {"fused_attention_block_ln": {}, "fused_attention_block_ln_bwd": {},
+            "fused_ffn_ln": {}, "fused_ffn_ln_bwd": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "float32" if dtype == torch.float32 else "bfloat16"
+        peak = FP32_PEAK if dtype == torch.float32 else BF16_PEAK
+        a_err = attention_train_check(fab, _build, gen, dtype, rate, B=B)
+        f_err = ffn_train_check(ffn, _build, gen, dtype, rate, R=B * S)
+
+        inputs, mask, g = _attn_train_case(fab, B, S, H, nh, eps, dtype, gen, N_LABS)
+        kw = dict(num_heads=nh, ln_eps=eps)
+        leaves = _leaves(inputs)
+        x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta = inputs
+        es, d = x.element_size(), H // nh
+        bias = torch.where(mask > 0, 0.0, -1e9).to(dtype)[:, None, None, :]
+
+        def fwd():
+            return fab.fused_attention_block_ln(*leaves, mask, rate=rate, deterministic=False,
+                                                seed=1234, **kw)
+
+        def library_fwd():
+            qkv = F.linear(x, torch.cat((wq, wk, wv)), torch.cat((bq, bk, bv))).view(
+                B, S, 3, nh, d)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+            y = F.dropout(F.linear(o.transpose(1, 2).reshape(B, S, H), wo, bo), rate)
+            return F.layer_norm(x + y, (H,), gamma.to(dtype), beta.to(dtype), eps)
+
+        out, fwd_ms = fwd(), time_ms(fwd)
+        with torch.no_grad():
+            _, res = fab.fused_attention_block_ln_reference(*inputs, mask, rate=rate, seed=1234,
+                                                            return_residuals=True, **kw)
+            fwd_bound = bound_ms(B * (8 * S * H * H + 4 * S * S * H),
+                                 2 * B * S * H * es + 4 * H * H * es + B * S * 4, peak)
+            rows["fused_attention_block_ln"][tag] = {
+                "ms": fwd_ms,
+                "plain_ms": time_ms(lambda: fab.fused_attention_block_ln_reference(
+                    *inputs, mask, rate=rate, seed=1234, **kw), reps=5),
+                "library_ms": time_ms(library_fwd),
+                "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+                "max_abs_err": a_err["errors"]["out"]["max_abs_err"]}
+            bwd_bound = bound_ms(B * (16 * S * H * H + 8 * S * S * H),
+                                 (8 * B * S * H + 4 * H * H) * es, peak)
+            plain_bwd = time_ms(lambda: fab.fused_attention_block_ln_backward_reference(
+                g, x, res["qkv"], res["o"], res["z"], wq, wk, wv, wo, gamma, mask, rate=rate,
+                seed=1234, **kw), reps=5)
+        rows["fused_attention_block_ln_bwd"][tag] = {
+            "ms": _time_backward(out, leaves, g), "plain_ms": plain_bwd,
+            "library_ms": _attention_library_bwd_ms(inputs, mask, g, nh, eps, rate),
+            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+            "max_abs_err": a_err["errors"]["dx"]["max_abs_err"]}
+        del out, res, leaves
+
+        R = B * S
+        f_in = [(torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
+                for shape, std in (((R, H), 1.0), ((FF, H), H ** -0.5), ((FF,), 0.02),
+                                   ((H, FF), FF ** -0.5), ((H,), 0.02))]
+        f_in += [1 + 0.1 * torch.randn(H, generator=gen, device="cuda"),
+                 0.1 * torch.randn(H, generator=gen, device="cuda")]
+        g = torch.randn(R, H, generator=gen, device="cuda").to(dtype)
+        fkw = dict(activation="relu", ln_eps=eps)
+        leaves = _leaves(f_in)
+        x, w1, b1, w2, b2, gamma, beta = f_in
+
+        def ffn_fwd():
+            return ffn.fused_ffn_ln(*leaves, rate=rate, deterministic=False, seeds=(21, 22),
+                                    **fkw)
+
+        def ffn_library_fwd():
+            y = F.dropout(F.linear(F.dropout(F.relu(F.linear(x, w1, b1)), rate), w2, b2), rate)
+            return F.layer_norm(x + y, (H,), gamma.to(dtype), beta.to(dtype), eps)
+
+        out, fwd_ms = ffn_fwd(), time_ms(ffn_fwd)
+        with torch.no_grad():
+            _, res = ffn.fused_ffn_ln_reference(*f_in, rate=rate, seeds=(21, 22),
+                                                return_residuals=True, **fkw)
+            fwd_bound = bound_ms(4 * R * H * FF, 2 * R * H * es + 2 * H * FF * es, peak)
+            rows["fused_ffn_ln"][tag] = {
+                "ms": fwd_ms,
+                "plain_ms": time_ms(lambda: ffn.fused_ffn_ln_reference(
+                    *f_in, rate=rate, seeds=(21, 22), **fkw), reps=5),
+                "library_ms": time_ms(ffn_library_fwd),
+                "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+                "max_abs_err": f_err["errors"]["out"]["max_abs_err"]}
+            bwd_bound = bound_ms(8 * R * H * FF, (4 * R * H + R * FF + 2 * H * FF) * es, peak)
+            plain_bwd = time_ms(lambda: ffn.fused_ffn_ln_backward_reference(
+                g, x, res["hd"], res["z"], w1, w2, gamma, rate=rate, seeds=(21, 22), **fkw),
+                reps=5)
+        rows["fused_ffn_ln_bwd"][tag] = {
+            "ms": _time_backward(out, leaves, g), "plain_ms": plain_bwd,
+            "library_ms": _ffn_library_bwd_ms(f_in, g, "relu", eps, rate),
+            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+            "max_abs_err": f_err["errors"]["dx"]["max_abs_err"]}
+        del out, res, leaves
+        torch.cuda.empty_cache()
+    for name, row in rows.items():
+        log(f"[baselines] kernel {name} at B{B} S{S}: {json.dumps(row)}")
+    return rows
+
+
+def _baseline_models():
+    """(name, model factory(dtype), batch keys, train config) of the five
+    baselines at full width, for the card-vs-CPU steps and the timed 01 step."""
+    from fairmultimodal_torch.models import baselines as mb
+    from fairmultimodal_torch.pipelines import (AverageFusionPipelineConfig,
+                                                BEHRTPipelineConfig, EDDIFusionPipelineConfig,
+                                                SigmoidFusionPipelineConfig,
+                                                TextOnlyPipelineConfig)
+
+    demo = ("demo_dummy_ids", "demo_attn_mask", "age_ids", "gender_ids", "ethnicity_ids",
+            "insurance_ids")
+    geo = dict(num_ages=4, num_genders=2, num_ethnicities=5, num_insurances=6,
+               lab_token_count=N_LABS)
+    return (
+        ("01", lambda dt: mb.BEHRTLabOnlyModel(N_LABS, dtype=dt), ("lab_features",),
+         BEHRTPipelineConfig().train),
+        ("02", lambda dt: mb.TextOnlyClassifier(dtype=dt), ("text_embedding",),
+         TextOnlyPipelineConfig().train),
+        ("07", lambda dt: mb.StructTextModel(4, dtype=dt),
+         demo + BASE_EXTRA_KEYS + ("text_embedding",), AverageFusionPipelineConfig().train),
+        ("09", lambda dt: mb.SigmoidFusionFull(**geo, dtype=dt),
+         demo + ("lab_features", "text_embedding"), SigmoidFusionPipelineConfig().train),
+        ("08", lambda dt: mb.EDDIFusionFull(**geo, dtype=dt),
+         demo + ("lab_features", "text_embedding"), EDDIFusionPipelineConfig().train),
+    )
+
+
+def _baseline_batch(keys, device, n=BASE_BATCH, seed=8):
+    from fairmultimodal_torch.data.prefetch import to_device
+
+    a = synthetic_cohort(np.random.default_rng(seed), n)
+    a.update({k: np.zeros(n, np.int32) for k in BASE_EXTRA_KEYS})
+    return to_device({"model_inputs": {k: a[k] for k in keys}, "labels": a["labels"],
+                      "weight": np.ones(n, np.float32)}, torch.device(device))
+
+
+def baseline_fp32_step(name, factory, keys, cfg, device, dtype=torch.float32):
+    """One fp32 train step with dropout on (for 08, its loss and backward),
+    from seed-0 weights and generator seed 5: (loss, grads on the host).
+    ``dtype=torch.float64`` runs the same step in float64 (on the CPU: the
+    reference every grad leaf is held against)."""
+    import dataclasses
+
+    from fairmultimodal_torch.models._layers import init_params
+    from fairmultimodal_torch.pipelines.eddi_fusion import (EDDIFusionPipelineConfig,
+                                                            make_eddi_fusion_loss)
+    from fairmultimodal_torch.train.simple import MultitaskTrainer
+    from fairmultimodal_torch.utils.rng import make_generator
+
+    model = init_params(factory(torch.float32), seed=0)
+    batch = _baseline_batch(keys, device)
+    if dtype == torch.float64:
+        weights = model.state_dict()
+        model = factory(dtype).to(dtype)
+        model.load_state_dict({k: v.to(dtype) for k, v in weights.items()})
+        batch = {k: ({n: t.to(dtype) if t.is_floating_point() else t for n, t in v.items()}
+                     if isinstance(v, dict) else v.to(dtype)) for k, v in batch.items()}
+    if name == "08":
+        model.to(device).train()
+        loss_fn = make_eddi_fusion_loss(model, EDDIFusionPipelineConfig(), POS_WEIGHT)
+        loss, _, _ = loss_fn(batch, torch.full((3, 3), 0.33, device=device), make_generator(5))
+        loss.backward()
+    else:
+        trainer = MultitaskTrainer(model, dataclasses.replace(cfg, seed=5), POS_WEIGHT,
+                                   device=device)
+        loss = trainer.train_step(batch)
+    return float(loss.detach()), {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def baseline_phase(flash, fab, ffn, addnorm, _build):
+    """The five baselines through ``cli.main`` in-process on the card at full
+    width (phase 7's cohort and snapshot, 1 epoch each at batch 16), with the
+    launches of #1-#4 predicted before the runs; then one fp32 step of each
+    model card against CPU, the 01 step timed in bf16 and fp32 and profiled,
+    and #1-#4 timed at the baselines' shape."""
+    import contextlib
+    import gc
+    import importlib
+    import io
+    import os
+    import shutil
+
+    from fairmultimodal_torch.data.synthetic import make_common_frames
+    from fairmultimodal_torch.models._layers import init_params
+    from fairmultimodal_torch.models.tokenizer import WordPieceTokenizer
+    from fairmultimodal_torch.train.simple import MultitaskTrainer
+
+    cli = importlib.import_module("fairmultimodal_torch.cli.main")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase8")
+    env_keys = ("HF_HUB_CACHE", "FMTPU_TEXT_CACHE", "HF_HUB_OFFLINE", "TRANSFORMERS_OFFLINE")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    modules = {name: importlib.import_module(f"fairmultimodal_torch.pipelines.{mod}")
+               for name, (mod, _) in BASE_MODULES.items()}
+    originals = {name: getattr(modules[name], fn) for name, (_, fn) in BASE_MODULES.items()}
+    results = []
+
+    def recording(name):
+        def run(*args, **kwargs):
+            out = originals[name](*args, **kwargs)
+            results.append(out)
+            return out
+        return run
+
+    runs = {}
+    try:
+        snap = write_hf_snapshot(os.path.join(root, "hub"))
+        os.environ["HF_HUB_CACHE"] = os.path.join(root, "hub")
+        tables = make_common_frames(CLI_PATIENTS, CLI_LABS, 3, seed=42)
+        want, splits, cohorts = baseline_predicted_launches(
+            tables, WordPieceTokenizer.from_pretrained(snap))
+        log(f"[baselines] predicted (#1 = #2, #3 = #4) launches {want}; splits "
+            f"{ {k: [len(v[s]) for s in ('train', 'val', 'test')] for k, v in splits.items()} }")
+        for name, (_, fn) in BASE_MODULES.items():
+            setattr(modules[name], fn, recording(name))
+        common = ["--synthetic", str(CLI_PATIENTS), "--synthetic_labs", str(CLI_LABS),
+                  "--epochs", "1", "--require_hf_weights", "--text_cache",
+                  os.path.join(root, "text_cache")]
+        for label, name, flags in BASE_RUNS:
+            out_dir = os.path.join(root, label.split()[0] + ("_fp32" if not flags else ""))
+            _reset_counts(fab, ffn, addnorm)
+            flash.launches = flash.bwd_launches = 0
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main([name, "--out_dir", out_dir] + flags + common)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _unfolded_counts(fab, ffn)
+            counts.update(glue=addnorm.launches, glue_bwd=addnorm.bwd_launches,
+                          flash_attention=flash.launches, flash_attention_bwd=flash.bwd_launches)
+            if rc != 0:
+                raise AssertionError(f"baseline {label}: exit code {rc}")
+            out = results.pop()
+            out = {"idx": out["prep"].idx, **{k: out[k] for k in ("metrics", "timings",
+                                                                    "history", "weights")
+                                               if k in out}}
+            tail = [ln for ln in buf.getvalue().splitlines()
+                    if ln.startswith(("[Epoch", "Train size", "After filtering", "Updated",
+                                      "Overall Combined", "Saved"))]
+            runs[label] = {"name": name, "wall_s": wall, "launches": counts, "out": out,
+                           "out_dir": out_dir}
+            log(f"[baselines] {label}: {wall:.2f} s, timings {json.dumps(out['timings'])}\n"
+                "[baselines]   " + "\n[baselines]   ".join(tail))
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        for name, (_, fn) in BASE_MODULES.items():
+            setattr(modules[name], fn, originals[name])
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    try:
+        for label, r in runs.items():
+            name, out = r["name"], r["out"]
+            wanted = {k: 0 for k in r["launches"]}
+            wanted.update(fused_attention_block_ln=want[name][0], fused_ffn_ln=want[name][0],
+                          fused_attention_block_ln_bwd=want[name][1],
+                          fused_ffn_ln_bwd=want[name][1])
+            if r["launches"] != wanted:
+                raise AssertionError(f"baseline {label}: launches {r['launches']}, predicted "
+                                     f"{wanted}")
+            for task, m in out["metrics"].items():
+                if not (np.isfinite(m["aucroc"]) and np.isfinite(m["auprc"])):
+                    raise AssertionError(f"baseline {label} {task}: metrics {m}")
+            for k, v in splits[name].items():
+                if not np.array_equal(out["idx"][k], v):
+                    raise AssertionError(f"baseline {label}: {k} split differs from the "
+                                         "split worked out beforehand")
+            # The train stage holds each epoch's validation pass too.
+            r["train_patients_per_fit_s"] = (len(splits[name]["train"])
+                                             / out["timings"]["train"])
+        with np.load(os.path.join(runs["07 average --bf16"]["out_dir"],
+                                  "extracted_embeddings.npz")) as z:
+            emb_shape = z["embeddings"].shape
+        if emb_shape != (cohorts["notes"].num_patients, 512):
+            raise AssertionError(f"07 extracted_embeddings {emb_shape}")
+        weights = np.asarray(runs["08 eddi --bf16"]["out"]["weights"])
+        if weights.shape != (3, 3) or not np.isfinite(weights).all():
+            raise AssertionError(f"08 weights {weights}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[baselines] 07 extracted_embeddings {emb_shape}; 08 weights {weights.tolist()}")
+
+    # fp32 card vs CPU: one step of each model at full width on 16 patients.
+    # The loss is held to phase 5's limit against the CPU.  Every grad leaf is
+    # held against the same step in float64 on the CPU: the card's fp32 grad
+    # may miss the float64 one by phase 5's limit (XDEV_GRAD_TOL of the
+    # leaf's max-abs) more than the CPU's fp32 grad misses it.  Where the CPU
+    # is exact this is phase 5's limit; a leaf whose fp32 rounding is large
+    # on the CPU too (01's pos_embedding: a sum over 16 x 560 rows) gets
+    # that rounding as its scale.  Every leaf within phase 5's limit of the
+    # CPU passes this rule as well (triangle inequality).
+    xdev = {}
+    for name, factory, keys, cfg in _baseline_models():
+        fab.bwd_launches = ffn.bwd_launches = 0
+        card = baseline_fp32_step(name, factory, keys, cfg, "cuda")
+        lab_bwd = min(fab.bwd_launches, ffn.bwd_launches)
+        cpu = baseline_fp32_step(name, factory, keys, cfg, "cpu")
+        _, ref = baseline_fp32_step(name, factory, keys, cfg, "cpu", torch.float64)
+        loss_rel, worst, grad_rel = compare_steps(card, cpu)
+        card_ref, cpu_ref = grad_errors(card[1], ref), grad_errors(cpu[1], ref)
+        margin = {n: (card_ref[n] - cpu_ref[n]) / XDEV_GRAD_TOL for n in card_ref}
+        tight = max(margin, key=margin.get)
+
+        def readings(n):
+            return {"card_vs_f64": card_ref[n], "cpu_fp32_vs_f64": cpu_ref[n]}
+
+        xdev[name] = {"loss_card": card[0], "loss_cpu": cpu[0], "loss_rel": loss_rel,
+                      "worst_grad": worst, "worst_grad_rel": grad_rel,
+                      "tightest_vs_f64": {"leaf": tight, "share_of_limit": margin[tight],
+                                          **readings(tight)},
+                      "over_card_vs_cpu_limit": {
+                          n: {"card_vs_cpu": e, **readings(n)}
+                          for n, e in grad_errors(card[1], cpu[1]).items() if e > XDEV_GRAD_TOL},
+                      "lab_bwd_launches": lab_bwd}
+        log(f"[baselines] fp32 step {name} card vs CPU and float64: {json.dumps(xdev[name])}")
+        over = sorted(n for n, m in margin.items() if not m <= 1.0)
+        if not loss_rel <= XDEV_LOSS_TOL or over:
+            raise AssertionError(f"baseline {name} fp32 card vs CPU: loss rel {loss_rel}, "
+                                 f"grads over the limit {over} {xdev[name]}")
+        if (lab_bwd > 0) != (name in ("01", "09", "08")):
+            raise AssertionError(f"baseline {name}: lab backward launches {lab_bwd}")
+
+    # The 01 train step at batch 16, bf16 and fp32, then profiled.
+    step = {}
+    name, factory, keys, cfg = _baseline_models()[0]
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        trainer = MultitaskTrainer(init_params(factory(dtype), seed=0), cfg, POS_WEIGHT,
+                                   device="cuda")
+        batch = _baseline_batch(keys, "cuda")
+        step[tag] = {"timed": time_train_step(trainer, batch),
+                     "profile": profile_train_step(trainer, batch)}
+        log(f"[baselines] 01 train step {tag}: {json.dumps(step[tag])}")
+        del trainer
+        torch.cuda.empty_cache()
+
+    # 07's step in bf16 with and without dropout: the difference is what the
+    # int64 Philox dropout of its per-row BERT costs (ROADMAP queue 3).
+    name, factory, keys, cfg = _baseline_models()[2]
+    trainer = MultitaskTrainer(init_params(factory(torch.bfloat16), seed=0), cfg, POS_WEIGHT,
+                               device="cuda")
+    batch = _baseline_batch(keys, "cuda")
+    step["07_bfloat16"] = {"dropout": time_train_step(trainer, batch)}
+    trainer.config.deterministic_forward = True
+    step["07_bfloat16"]["no_dropout"] = time_train_step(trainer, batch)
+    on, off = (step["07_bfloat16"][k]["train_step_ms"] for k in ("dropout", "no_dropout"))
+    step["07_bfloat16"]["dropout_share"] = (on - off) / on
+    log(f"[baselines] 07 train step bf16: {json.dumps(step['07_bfloat16'])}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    kernel_rows = baseline_kernel_rows(fab, ffn, _build)
+    total = {k: sum(r["launches"][k] for r in runs.values())
+             for k in ("fused_attention_block_ln", "fused_ffn_ln",
+                       "fused_attention_block_ln_bwd", "fused_ffn_ln_bwd")}
+    info = {
+        "launches_predicted": {label: want[r["name"]] for label, r in runs.items()},
+        "launches_total": total,
+        "runs": {label: {"wall_s": r["wall_s"], "timings_s": r["out"]["timings"],
+                         "train_patients_per_fit_s": r["train_patients_per_fit_s"],
+                         "history": r["out"]["history"],
+                         "splits": [len(splits[r["name"]][k]) for k in ("train", "val", "test")],
+                         "launches": {k: r["launches"][k] for k in total}}
+                 for label, r in runs.items()},
+        "fp32_card_vs_cpu": xdev, "step_01": step, "kernels_b16": kernel_rows,
+    }
+    return total, kernel_rows, info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -2583,6 +3042,8 @@ def main() -> int:
     log(f"[experiment] {json.dumps(experiment_info)} | {smi}")
     cli_launches, cli_info = cli_phase(flash, fab, ffn, addnorm)
     log(f"[cli] {json.dumps(cli_info)} | {smi}")
+    base_launches, base_rows, base_info = baseline_phase(flash, fab, ffn, addnorm, _build)
+    log(f"[baselines] {json.dumps(base_info)} | {smi}")
 
     meta = {
         "fused_attention_block_ln": ("fairmultimodal_torch/ops/csrc/flash_attention.cu",
@@ -2614,6 +3075,7 @@ def main() -> int:
             "launches_training": train_launches[name],
             "launches_experiment": experiment_launches[name],
             "launches_cli": cli_launches[name],
+            "launches_baselines": base_launches[name], "baselines_b16": base_rows[name],
             "fwd_res_dropout_ms": timed_train[name]["fwd_res_ms"],
             "shapes": mine,
         })
@@ -2637,6 +3099,7 @@ def main() -> int:
             "errors": {r["case"]: r["errors"] for r in train_rows[part]},
             "kept_fraction": keep, "launches_experiment": experiment_launches[name],
             "launches_cli": cli_launches[name],
+            "launches_baselines": base_launches[name], "baselines_b16": base_rows[name],
         })
     sources = {"block": ["fairmultimodal_torch/ops/csrc/gemm.cu",
                          "fairmultimodal_torch/ops/csrc/flash_attention.cu"],

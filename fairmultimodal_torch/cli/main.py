@@ -5,6 +5,7 @@ Usage:
     python -m fairmultimodal_torch.cli fame --synthetic 2048 --synthetic_labs 549 --bf16
     python -m fairmultimodal_torch.cli predict --params outputs/best_model_<ts>.npz
     python -m fairmultimodal_torch.cli fame --synthetic 64 --tiny --device cpu
+    python -m fairmultimodal_torch.cli behrt --synthetic 64 --tiny --device cpu
 
 The parser is the JAX package's: the same pipelines, flags, choices and
 defaults, so every JAX command line parses, plus ``--device {cuda,cpu}``
@@ -13,10 +14,14 @@ cpu`` a machine with no card raises instead of running on the CPU.
 
 ``fame`` and ``fpm`` run the FAME experiment at the reference geometry
 (``--tiny`` for the JAX package's tiny one, ``--bf16`` for bfloat16);
-``predict`` scores the cohort with an exported ``best_model_*.npz`` of
-either package.  The cohort comes from ``--synthetic N`` or from the two
-CSV tables in ``--data_dir``, read without pandas.  The other pipelines and
-``--mesh`` exit naming the ROADMAP item that ports them.
+``behrt``, ``bioclinicalbert``, ``average``, ``sigmoid`` and ``eddi`` run the
+baselines 01, 02, 07, 09 and 08 at their configs' defaults (``--tiny``
+shrinks them as the JAX ``tinyize`` does; ``--single_task --task T`` trains
+one label); ``predict`` scores the cohort with an exported
+``best_model_*.npz`` of either package.  The cohort comes from
+``--synthetic N`` or from the two CSV tables in ``--data_dir``, read without
+pandas.  The other pipelines and ``--mesh`` exit naming the ROADMAP item
+that ports them.
 
 Where the port departs from the JAX command line:
 
@@ -27,9 +32,10 @@ Where the port departs from the JAX command line:
   the directory is used as given.
 - ``--bf16`` is the compute dtype of every model the run builds.  The JAX
   command line builds the text encoder in float32 when
-  ``--require_hf_weights`` is given (and in the run's dtype otherwise), and
-  its ``predict`` scores in float32 whatever ``--bf16`` says; the flags'
-  help promises neither.
+  ``--require_hf_weights`` is given (and, for the baselines, always: its
+  ``prepare_experiment`` builds it in float32), its ``predict`` scores in
+  float32 whatever ``--bf16`` says, and its ``bioclinicalbert`` ignores
+  ``--bf16``; the flags' help promises none of these.
 """
 
 from __future__ import annotations
@@ -49,12 +55,18 @@ PIPELINES = ("data", "behrt", "bioclinicalbert", "dfc", "advdebias", "fpm",
              "fairehrclp", "average", "eddi", "sigmoid", "fame", "predict",
              "legacy-behrt", "legacy-eddi")
 
+# The numbered reference scripts' pipelines (``main(default_pipeline="01")``).
+_SCRIPT_TO_PIPELINE = {
+    "00": "data", "01": "behrt", "02": "bioclinicalbert", "03": "dfc", "04": "advdebias",
+    "05": "fpm", "06": "fairehrclp", "07": "average", "08": "eddi", "09": "sigmoid",
+    "10": "fame",
+}
+
 # Pipelines of the JAX command line that the port does not run yet.
 _NOT_PORTED = {
     "data": "ROADMAP queue 1 item 4 (data/etl.py, native/)",
     **{name: "ROADMAP queue 1 item 5 (other pipelines)"
-       for name in ("behrt", "bioclinicalbert", "dfc", "advdebias", "fairehrclp", "average",
-                    "eddi", "sigmoid", "legacy-behrt", "legacy-eddi")},
+       for name in ("dfc", "advdebias", "fairehrclp", "legacy-behrt", "legacy-eddi")},
 }
 
 
@@ -67,7 +79,7 @@ def build_parser(default_pipeline: Optional[str] = None):
     if default_pipeline is None:
         p.add_argument("pipeline", choices=PIPELINES)
     else:
-        p.set_defaults(pipeline=default_pipeline)
+        p.set_defaults(pipeline=_SCRIPT_TO_PIPELINE.get(default_pipeline, default_pipeline))
     p.add_argument("--task", choices=["mortality", "los", "ventilation", "readmission", "all"],
                    default="all",
                    help="evaluation focus, or the label for --single_task; 'readmission' is "
@@ -163,6 +175,40 @@ _TASK_KEY = {"mortality": "mortality", "los": "los",
 _SINGLE_TASK_PIPELINES = ("behrt", "bioclinicalbert", "average", "sigmoid", "eddi")
 
 
+_TINY = dict(hidden_size=64, text_batch_size=16)
+
+
+def tinyize(cfg, args):
+    """``--tiny``: the JAX command line's tiny geometry for a baseline config."""
+    if not args.tiny:
+        return cfg
+    for k, v in _TINY.items():
+        if hasattr(cfg, k):
+            setattr(cfg, k, v)
+    for attr in ("num_hidden_layers", "demo_layers", "lab_layers"):
+        if hasattr(cfg, attr):
+            setattr(cfg, attr, 1)
+    for attr in ("num_attention_heads", "demo_heads", "lab_heads"):
+        if hasattr(cfg, attr):
+            setattr(cfg, attr, 2)
+    if hasattr(cfg, "text_max_length"):
+        cfg.text_max_length = min(cfg.text_max_length, 64)
+    return cfg
+
+
+def _apply_single_task(cfg, args):
+    """``--single_task``: train a one-label model on ``--task``."""
+    if args.single_task:
+        if args.task == "all":
+            raise SystemExit("--single_task requires --task "
+                             "mortality|los|ventilation|readmission")
+        if args.task == "readmission" and args.pipeline != "bioclinicalbert":
+            raise SystemExit("--task readmission is the Uni_label_run text-only regime; use "
+                             "the bioclinicalbert pipeline")
+        cfg.task = _TASK_KEY[args.task]
+    return cfg
+
+
 def _finish_run(out, args) -> int:
     """Post-run hooks: the ``--runs`` collection, ``--tensorboard``, then the
     ``--task`` report focus."""
@@ -178,7 +224,10 @@ def _finish_run(out, args) -> int:
 
 
 def _report_task_focus(out, args) -> int:
-    """``--task``: re-print the selected task's metric block after the run."""
+    """``--task``: re-print the selected task's metric block after the run
+    (a ``--single_task`` run's metrics are that task's already)."""
+    if args.single_task:
+        return 0
     if args.task != "all" and isinstance(out, dict) and "metrics" in out:
         key = _TASK_KEY[args.task]
         m = out["metrics"].get(key)
@@ -241,10 +290,10 @@ def run_pipeline(args) -> int:
     if args.text_cache:
         # encode_note_chunks reads this default, so every text precompute sees it.
         os.environ["FMTPU_TEXT_CACHE"] = args.text_cache
-    if args.single_task:
+    if args.single_task and name not in _SINGLE_TASK_PIPELINES:
         raise SystemExit(f"--single_task is not supported by {name!r} "
                          f"(supported: {', '.join(_SINGLE_TASK_PIPELINES)})")
-    if args.task == "readmission":
+    if args.task == "readmission" and not args.single_task:
         raise SystemExit("--task readmission requires --single_task (the 3-headed models "
                          "have no readmission head)")
     device = resolve_device(args.device)
@@ -262,7 +311,7 @@ def run_pipeline(args) -> int:
     torch_dtype = torch.bfloat16 if args.bf16 else torch.float32
     text_encoder = (TextEncoder.from_pretrained(require_weights=True, dtype=torch_dtype,
                                                 device=device)
-                    if args.require_hf_weights else None)
+                    if args.require_hf_weights and name != "behrt" else None)
 
     if name == "predict":
         from fairmultimodal_torch.pipelines.inference import run_fame_inference
@@ -281,6 +330,10 @@ def run_pipeline(args) -> int:
                            out_csv=os.path.join(args.out_dir, args.predictions_csv),
                            verbose=verbose, device=device, dtype=torch_dtype)
         return 0
+
+    if name in _BASELINES:
+        return _finish_run(_BASELINES[name](s, u, args, dtype, text_encoder, verbose, device),
+                           args)
 
     # fame / fpm
     from fairmultimodal_torch.pipelines.fame import FAMEPipelineConfig, run_fame_experiment
@@ -305,6 +358,71 @@ def run_pipeline(args) -> int:
     out = run_fame_experiment(s, u, cfg, text_encoder=text_encoder, verbose=verbose,
                               device=device)
     return _finish_run(out, args)
+
+
+def _behrt(s, u, args, dtype, text_encoder, verbose, device):
+    from fairmultimodal_torch.pipelines.behrt import BEHRTPipelineConfig, run_behrt_experiment
+
+    cfg = BEHRTPipelineConfig(dtype=dtype)
+    _apply_overrides(cfg.train, args)
+    _apply_single_task(tinyize(cfg, args), args)
+    return run_behrt_experiment(s, u, cfg, verbose=verbose, device=device)
+
+
+def _bioclinicalbert(s, u, args, dtype, text_encoder, verbose, device):
+    from fairmultimodal_torch.pipelines.text_only import (TextOnlyPipelineConfig,
+                                                          run_text_only_experiment)
+
+    # 02 subsamples to 1000 patients (02:405) under --reference_compat; an
+    # explicit --head wins.
+    cfg = TextOnlyPipelineConfig(head=args.head if args.head is not None
+                                 else (1000 if args.reference_compat else None), dtype=dtype)
+    _apply_overrides(cfg.train, args)
+    _apply_single_task(tinyize(cfg, args), args)
+    return run_text_only_experiment(s, u, cfg, text_encoder=text_encoder, verbose=verbose,
+                                    device=device)
+
+
+def _average(s, u, args, dtype, text_encoder, verbose, device):
+    from fairmultimodal_torch.pipelines.average_fusion import (AverageFusionPipelineConfig,
+                                                               run_average_fusion_experiment)
+
+    cfg = AverageFusionPipelineConfig(dtype=dtype, out_dir=args.out_dir)
+    _apply_overrides(cfg.train, args)
+    _apply_single_task(tinyize(cfg, args), args)
+    return run_average_fusion_experiment(s, u, cfg, text_encoder=text_encoder,
+                                         verbose=verbose, device=device)
+
+
+def _sigmoid(s, u, args, dtype, text_encoder, verbose, device):
+    from fairmultimodal_torch.pipelines.sigmoid_fusion import (SigmoidFusionPipelineConfig,
+                                                               run_sigmoid_fusion_experiment)
+
+    cfg = SigmoidFusionPipelineConfig(dtype=dtype, reference_compat=args.reference_compat)
+    _apply_overrides(cfg.train, args)
+    _apply_single_task(tinyize(cfg, args), args)
+    return run_sigmoid_fusion_experiment(s, u, cfg, text_encoder=text_encoder,
+                                         verbose=verbose, device=device)
+
+
+def _eddi(s, u, args, dtype, text_encoder, verbose, device):
+    from fairmultimodal_torch.pipelines.eddi_fusion import (EDDIFusionPipelineConfig,
+                                                            run_eddi_fusion_experiment)
+
+    cfg = EDDIFusionPipelineConfig(dtype=dtype)
+    _apply_overrides(cfg.train, args)
+    if args.beta is not None:
+        cfg.beta = args.beta
+    tinyize(cfg, args)
+    if args.tiny:
+        cfg.demo_layers, cfg.demo_heads = 1, 2
+    _apply_single_task(cfg, args)
+    return run_eddi_fusion_experiment(s, u, cfg, text_encoder=text_encoder, verbose=verbose,
+                                      device=device)
+
+
+_BASELINES = {"behrt": _behrt, "bioclinicalbert": _bioclinicalbert, "average": _average,
+              "sigmoid": _sigmoid, "eddi": _eddi}
 
 
 def main(argv=None, default_pipeline: Optional[str] = None) -> int:

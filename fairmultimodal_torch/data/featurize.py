@@ -73,8 +73,10 @@ class FeatureBundle:
         )
 
 
-def get_age_bucket(age) -> str:
-    """10_FAME.py:644-658."""
+def get_age_bucket(age, upper: int = 89) -> str:
+    """10_FAME.py:644-658.  ``upper=90`` is 09's bucket edge
+    (09_multimodal_sigmoid_fusion.py:57-67: the last bucket is 70-90, so
+    age-90 patients land in it instead of "Other")."""
     try:
         age = float(age)
     except (TypeError, ValueError):
@@ -85,8 +87,8 @@ def get_age_bucket(age) -> str:
         return "30-49"
     elif 50 <= age <= 69:
         return "50-69"
-    elif 70 <= age <= 89:
-        return "70-89"
+    elif 70 <= age <= upper:
+        return f"70-{upper}"
     return "Other"
 
 
@@ -143,9 +145,14 @@ def as_table(frame) -> Table:
     return frame if isinstance(frame, Mapping) else table_from_frame(frame)
 
 
-def validate_common_frames(structured, unstructured) -> None:
+def validate_common_frames(structured, unstructured,
+                           label_columns: Sequence[str] = LABEL_COLUMNS,
+                           require_notes: bool = True) -> None:
     """Fail fast, naming the table and column, before any featurization.
-    Takes tables or DataFrames."""
+    Takes tables or DataFrames.  Note chunk columns are required only with
+    ``require_notes``: the JAX check asks for them always, so its
+    structured-only 01 run without an unstructured table raises
+    (``pipelines/behrt.py:64-66``); the port runs it."""
     structured, unstructured = as_table(structured), as_table(unstructured)
     problems: List[str] = []
     for key in ("subject_id", "hadm_id"):
@@ -153,7 +160,7 @@ def validate_common_frames(structured, unstructured) -> None:
             problems.append(f"structured table: missing merge key '{key}'")
         if key not in unstructured:
             problems.append(f"unstructured table: missing merge key '{key}'")
-    for col in LABEL_COLUMNS:
+    for col in label_columns:
         if col not in structured:
             problems.append(f"structured table: missing label column '{col}'")
             continue
@@ -161,7 +168,7 @@ def validate_common_frames(structured, unstructured) -> None:
         if n_missing:
             problems.append(f"structured table: label column '{col}' has "
                             f"{n_missing} NaN rows (labels must be 0/1)")
-    if not any(c.startswith("note_") for c in unstructured):
+    if require_notes and not any(c.startswith("note_") for c in unstructured):
         problems.append("unstructured table: no note_* chunk columns "
                         "(expected note_chunk_1, note_chunk_2, ...)")
     if problems:
@@ -205,13 +212,21 @@ def _category_codes(values: Sequence) -> np.ndarray:
     return np.asarray([-1 if is_missing(v) else cats[v] for v in values], np.int32)
 
 
-def assemble_features(structured, unstructured) -> FeatureBundle:
-    """Merge + featurize the two cohort tables (10_FAME.py:610-731), keeping
-    the patients with at least one note chunk.  Takes port tables
-    (:mod:`fairmultimodal_torch.data.table`) or DataFrames, which are
-    converted first: one implementation serves both."""
+def assemble_features(structured, unstructured, require_notes: bool = True,
+                      age_bucket_upper: int = 89,
+                      label_columns: Optional[Sequence[str]] = None) -> FeatureBundle:
+    """Merge + featurize the two cohort tables (10_FAME.py:610-731).  Takes
+    port tables (:mod:`fairmultimodal_torch.data.table`) or DataFrames, which
+    are converted first: one implementation serves both.
+
+    ``require_notes``: keep only the patients with at least one note chunk
+    (False for structured-only models).  ``age_bucket_upper``: the last age
+    bucket's upper edge (90 for 09's variant).  ``label_columns``: the label
+    columns to stack (default the three tasks; 02's readmission regime
+    passes ``("readmission_within_30d",)``)."""
+    label_columns = list(label_columns or LABEL_COLUMNS)
     s, u = as_table(structured), as_table(unstructured)
-    validate_common_frames(s, u)
+    validate_common_frames(s, u, label_columns, require_notes)
     dropped = {"short_term_mortality", "los_binary", "mechanical_ventilation",
                "age", "GENDER", "ETHNICITY", "INSURANCE"}
     u = {k: v for k, v in u.items() if k not in dropped}
@@ -219,14 +234,15 @@ def assemble_features(structured, unstructured) -> FeatureBundle:
     if num_rows(df) == 0:
         raise ValueError("Merged DataFrame is empty. Check your merge keys.")
 
-    for col in LABEL_COLUMNS:
+    for col in label_columns:
         df[col] = df[col].astype(np.int64)
 
     note_columns = [c for c in df if c.startswith("note_")]
-    notes = [df[c].tolist() for c in note_columns]
-    keep = np.asarray([any(_is_note(col[i]) for col in notes)
-                       for i in range(num_rows(df))], bool)
-    df = take_rows(df, keep)
+    if require_notes:
+        notes = [df[c].tolist() for c in note_columns]
+        keep = np.asarray([any(_is_note(col[i]) for col in notes)
+                           for i in range(num_rows(df))], bool)
+        df = take_rows(df, keep)
     n = num_rows(df)
 
     if "age" not in df:
@@ -236,7 +252,8 @@ def assemble_features(structured, unstructured) -> FeatureBundle:
             df["age"] = np.zeros(n, np.int64)
 
     # Category codes over the observed sorted values, as the reference.
-    df["age"] = _category_codes([get_age_bucket(a) for a in df["age"].tolist()])
+    df["age"] = _category_codes([get_age_bucket(a, age_bucket_upper)
+                                 for a in df["age"].tolist()])
     for col, mapper in (("ETHNICITY", map_ethnicity), ("INSURANCE", map_insurance),
                         ("GENDER", None)):
         if col in df:
@@ -267,8 +284,8 @@ def assemble_features(structured, unstructured) -> FeatureBundle:
         ethnicity_codes=df["ETHNICITY"].astype(np.int32),
         insurance_codes=df["INSURANCE"].astype(np.int32),
         labs=labs,
-        labels=np.stack([df[c] for c in LABEL_COLUMNS], axis=1).astype(np.float32)
-        if n else np.zeros((0, len(LABEL_COLUMNS)), np.float32),
+        labels=np.stack([df[c] for c in label_columns], axis=1).astype(np.float32)
+        if n else np.zeros((0, len(label_columns)), np.float32),
         lab_columns=lab_cols,
         note_chunks=chunks,
     )

@@ -24,7 +24,8 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["multilabel_stratified_split", "reference_three_way_split"]
+__all__ = ["multilabel_stratified_split", "reference_three_way_split",
+           "stratified_train_test_split"]
 
 
 def multilabel_stratified_split(
@@ -130,3 +131,59 @@ def reference_three_way_split(
         labels[train_val_idx], val_size, seed=seed
     )
     return train_val_idx[rel_train], train_val_idx[rel_val], test_idx
+
+
+def _approximate_mode(class_counts: np.ndarray, n_draws: int,
+                      rng: np.random.RandomState) -> np.ndarray:
+    """scikit-learn's ``_approximate_mode``: per class, the floor of its
+    share of ``n_draws``; the draws left go to the largest remainders, ties
+    broken by ``rng.choice`` without replacement."""
+    continuous = class_counts / class_counts.sum() * n_draws
+    floored = np.floor(continuous)
+    need_to_add = int(n_draws - floored.sum())
+    if need_to_add > 0:
+        remainder = continuous - floored
+        for value in np.sort(np.unique(remainder))[::-1]:
+            (inds,) = np.where(remainder == value)
+            add_now = min(len(inds), need_to_add)
+            inds = rng.choice(inds, size=add_now, replace=False)
+            floored[inds] += 1
+            need_to_add -= add_now
+            if need_to_add == 0:
+                break
+    return floored.astype(int)
+
+
+def stratified_train_test_split(y: np.ndarray, test_size, seed: int
+                                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Index-exact ``sklearn.model_selection.train_test_split(np.arange(n),
+    test_size=test_size, random_state=seed, stratify=y)`` for a 1-D ``y``
+    (scikit-learn 1.9's ``StratifiedShuffleSplit`` with one split).
+
+    Returns (train, test) positions into ``y`` in scikit-learn's order (each
+    a final permutation, not sorted): class counts by ``_approximate_mode``
+    for train, then for test from what is left, one ``rng.permutation`` per
+    class over its members in stable order, then one permutation of train
+    and one of test, all from ``np.random.RandomState(seed)``.
+    """
+    from fairmultimodal_torch.data.iterstrat_exact import _validate_shuffle_split
+
+    y = np.asarray(y)
+    n_train, n_test = _validate_shuffle_split(len(y), test_size)
+    classes, y_indices, class_counts = np.unique(y, return_inverse=True, return_counts=True)
+    if np.min(class_counts) < 2:
+        raise ValueError("The least populated classes in y have only 1 member, which is too "
+                         f"few (classes {classes[class_counts < 2].tolist()})")
+    if min(n_train, n_test) < len(classes):
+        raise ValueError(f"train size {n_train} and test size {n_test} must each be at least "
+                         f"the number of classes {len(classes)}")
+    class_indices = np.split(np.argsort(y_indices, kind="stable"), np.cumsum(class_counts)[:-1])
+    rng = np.random.RandomState(seed)
+    n_i = _approximate_mode(class_counts, n_train, rng)
+    t_i = _approximate_mode(class_counts - n_i, n_test, rng)
+    train, test = [], []
+    for i in range(len(classes)):
+        perm = class_indices[i].take(rng.permutation(class_counts[i]), mode="clip")
+        train.extend(perm[:n_i[i]])
+        test.extend(perm[n_i[i]:n_i[i] + t_i[i]])
+    return rng.permutation(train), rng.permutation(test)

@@ -8,9 +8,12 @@ exported ``best_model_*.npz``) is flattened with ``.`` and each leaf renamed:
 - Dense ``kernel`` [in, out] -> ``weight`` [out, in] (transposed);
 - Embed ``embedding`` -> ``weight``;
 - LayerNorm ``scale`` -> ``weight`` (``bias`` stays ``bias``);
-- raw parameters (``pos_embedding``, ``sig_weights``) pass through.
+- raw parameters (``pos_embedding``, ``sig_weights``, ``sig_weights_*``)
+  pass through.
 
-The same function serves ``FAMEModel`` and ``BertEncoderModel`` trees.
+The same function serves ``FAMEModel``, ``BertEncoderModel`` and the
+baseline models' trees (``models/baselines.py``: ``BEHRTFull``'s seven
+tables, the ``head_<task>_<modality>`` denses, 09's gates).
 :func:`flax_params` is the inverse, for writing checkpoints in the JAX
 format.  A 2-D ``weight`` is a Dense kernel or an Embed table and a 1-D one
 a LayerNorm scale, so it dispatches on the type of the module that owns the

@@ -29,6 +29,9 @@
 - :class:`BEHRTDemo` -- BERT over one dummy token plus the mean of four
   demographic embeddings.  With ``broadcast_dummy`` the BERT runs on one row
   and is broadcast, with the NaN guard for per-row token inputs.
+- :class:`BEHRTCombined` -- 01's structured-only baseline: the lab encoder,
+  ``fusion_fc``, dropout and one single-logit head per task
+  (01_BEHRT.py:132-149), returned in fp32 whatever the compute dtype.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ from fairmultimodal_torch.ops.fused_ffn import fused_ffn, fused_ffn_ln
 from fairmultimodal_torch.ops.gates import can_use_fused_attention_block, can_use_fused_ffn
 from fairmultimodal_torch.utils.rng import Dropout, dropout
 
-__all__ = ["TorchEncoderLayer", "BEHRTLab", "BEHRTDemo"]
+__all__ = ["TorchEncoderLayer", "BEHRTLab", "BEHRTDemo", "BEHRTCombined"]
 
 
 class TorchEncoderLayer(nn.Module):
@@ -248,3 +251,29 @@ class BEHRTDemo(nn.Module):
                  + emb(ethnicity_ids, ne, self.ethnicity_embedding)
                  + emb(insurance_ids, ni, self.insurance_embedding)) / 4.0
         return cls + extra
+
+
+class BEHRTCombined(nn.Module):
+    """Lab encoder (2L/8H) -> ``fusion_fc`` -> dropout -> ``classifier_<task>``
+    per task, concatenated to [B, len(tasks)] fp32 logits (the JAX module
+    casts to float32 even in a float64 model).  A one-task tuple is the
+    Mechanical_Ventilation generation's single-task regime."""
+
+    def __init__(self, lab_token_count: int, hidden_size: int = 768, dtype=torch.float32,
+                 tasks=("mort", "los", "mech")):
+        super().__init__()
+        self.dtype = dtype
+        self.tasks = tuple(tasks)
+        self.lab_model = BEHRTLab(lab_token_count, hidden_size, dtype=dtype)
+        self.fusion_fc = nn.Linear(hidden_size, hidden_size)
+        for t in self.tasks:
+            self.add_module(f"classifier_{t}", nn.Linear(hidden_size, 1))
+        self.dropout_rate = 0.1
+
+    def forward(self, lab_features: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dt, rate = self.dtype, self.dropout_rate
+        x = self.lab_model(lab_features, generator)
+        x = dropout(linear(x, self.fusion_fc, dt), rate, dropout_seed(self, rate, generator))
+        return torch.cat([linear(x, getattr(self, f"classifier_{t}"), dt) for t in self.tasks],
+                         dim=-1).to(torch.float32)

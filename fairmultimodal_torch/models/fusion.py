@@ -21,7 +21,7 @@ from fairmultimodal_torch.models._layers import dropout_seed, linear
 from fairmultimodal_torch.models.behrt import BEHRTDemo, BEHRTLab
 from fairmultimodal_torch.utils.rng import dropout
 
-__all__ = ["FAMEFusion", "FAMEModel"]
+__all__ = ["FAMEFusion", "FAMEModel", "AverageFusionModel", "SigmoidFusionModel"]
 
 
 def _out_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -29,15 +29,19 @@ def _out_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 class _Projector(nn.Module):
-    """Linear(., 256) + ReLU modality projector (10_FAME.py:235-246)."""
+    """Linear(., 256) + ReLU modality projector (10_FAME.py:235-246).
+    ``return_pre=True`` also returns the pre-ReLU output: 07 saves
+    ``cat(ts_pre, text_pre)`` (07_multimodal_average_fusion.py:227-237)."""
 
     def __init__(self, in_features: int, out: int = 256, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
         self.dense = nn.Linear(in_features, out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(linear(x, self.dense, self.dtype))
+    def forward(self, x: torch.Tensor, return_pre: bool = False):
+        pre = linear(x, self.dense, self.dtype)
+        post = torch.relu(pre)
+        return (pre, post) if return_pre else post
 
 
 class FAMEFusion(nn.Module):
@@ -154,3 +158,71 @@ class FAMEModel(nn.Module):
         lab_emb = self.behrt_lab(batch["lab_features"], generator)
         return self.fusion(demo_emb, lab_emb, batch["text_embedding"], dynamic_weights,
                            generator)
+
+
+class AverageFusionModel(nn.Module):
+    """07: structured + text -> two 256-d projectors -> concat -> MLP -> T
+    logits (07_multimodal_average_fusion.py:205-238).  ``fused_embedding``,
+    07's extraction artifact, is the concatenation of the two PRE-ReLU
+    projector outputs (07:227-237), not the classifier's pre-activation."""
+
+    def __init__(self, struct_dim: int, text_dim: int, proj_dim: int = 256,
+                 fusion_hidden: int = 512, num_tasks: int = 3, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.struct_projector = _Projector(struct_dim, proj_dim, dtype)
+        self.text_projector = _Projector(text_dim, proj_dim, dtype)
+        self.dense1 = nn.Linear(2 * proj_dim, fusion_hidden)
+        self.dense2 = nn.Linear(fusion_hidden, num_tasks)
+        self.dropout_rate = 0.1
+
+    def forward(self, struct_emb, text_emb,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        dt, rate = self.dtype, self.dropout_rate
+        s_pre, s = self.struct_projector(struct_emb, return_pre=True)
+        t_pre, t = self.text_projector(text_emb, return_pre=True)
+        h = torch.relu(linear(torch.cat([s, t], dim=-1), self.dense1, dt))
+        h = dropout(h, rate, dropout_seed(self, rate, generator))
+        od = _out_dtype(dt)
+        return {"logits": linear(h, self.dense2, dt).to(od),
+                "fused_embedding": torch.cat([s_pre, t_pre], dim=-1).to(od)}
+
+
+class SigmoidFusionModel(nn.Module):
+    """09: per-modality learnable sigmoid gates after the projectors, concat
+    -> ``proj`` 768->512 + ReLU -> ``classifier_hidden`` 512->512 + ReLU +
+    dropout -> ``classifier`` (09_multimodal_sigmoid_fusion.py:162-222).
+    The gates ``sig_weights_*`` start from N(0, 1); their sigmoid is taken in
+    the parameters' dtype and cast to the compute dtype."""
+
+    def __init__(self, demo_dim: int, lab_dim: int, text_dim: int, proj_dim: int = 256,
+                 fusion_hidden: int = 512, num_tasks: int = 3, dtype=torch.float32):
+        super().__init__()
+        p = proj_dim
+        self.dtype = dtype
+        self.demo_projector = _Projector(demo_dim, p, dtype)
+        self.lab_projector = _Projector(lab_dim, p, dtype)
+        self.text_projector = _Projector(text_dim, p, dtype)
+        for m in ("demo", "lab", "text"):
+            w = nn.Parameter(torch.empty(p))
+            nn.init.normal_(w)
+            self.register_parameter(f"sig_weights_{m}", w)
+        self.proj = nn.Linear(3 * p, fusion_hidden)
+        self.classifier_hidden = nn.Linear(fusion_hidden, fusion_hidden)
+        self.classifier = nn.Linear(fusion_hidden, num_tasks)
+        self.dropout_rate = 0.1
+
+    def forward(self, demo_emb, lab_emb, text_emb,
+                generator: Optional[torch.Generator] = None) -> Dict[str, object]:
+        dt, rate = self.dtype, self.dropout_rate
+        gates = tuple(torch.sigmoid(getattr(self, f"sig_weights_{m}"))
+                      for m in ("demo", "lab", "text"))
+        projs = (self.demo_projector(demo_emb), self.lab_projector(lab_emb),
+                 self.text_projector(text_emb))
+        fused = torch.cat([x * g.to(dt) for x, g in zip(projs, gates)], dim=-1)
+        agg = torch.relu(linear(fused, self.proj, dt))
+        h = torch.relu(linear(agg, self.classifier_hidden, dt))
+        h = dropout(h, rate, dropout_seed(self, rate, generator))
+        od = _out_dtype(dt)
+        return {"logits": linear(h, self.classifier, dt).to(od), "aggregated": agg.to(od),
+                "gates": gates}

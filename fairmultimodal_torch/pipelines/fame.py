@@ -32,15 +32,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from fairmultimodal_torch.data.device import DeviceLoader
 from fairmultimodal_torch.data.featurize import (
     FeatureBundle,
     as_table,
     assemble_features,
     compute_pos_weights,
 )
-from fairmultimodal_torch.data.loader import BatchIterator, NestedLoader
-from fairmultimodal_torch.data.split import multilabel_stratified_split
 from fairmultimodal_torch.data.table import head
 from fairmultimodal_torch.eval.report import eddi_report, evaluate_multitask
 from fairmultimodal_torch.interop import flax_params
@@ -48,12 +45,17 @@ from fairmultimodal_torch.models._layers import init_params
 from fairmultimodal_torch.models.fusion import FAMEModel
 from fairmultimodal_torch.models.text import TextEncoder, encode_note_chunks
 from fairmultimodal_torch.ops.gates import resolve_device
+from fairmultimodal_torch.pipelines.common import (StageTimer, build_arrays, make_loaders,
+                                                   make_split)
 from fairmultimodal_torch.train.calibrate import calibrate_thresholds
 from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
 from fairmultimodal_torch.utils.checkpoint import Checkpointer, save_params_npz
 
-__all__ = ["FAMEPipelineConfig", "build_model_arrays", "make_loaders", "run_fame_bundle",
-           "run_fame_experiment"]
+__all__ = ["FAMEPipelineConfig", "FAME_KEYS", "run_fame_bundle", "run_fame_experiment"]
+
+#: FAMEModel's inputs (10_FAME:714-723), as :func:`build_arrays` names them.
+FAME_KEYS = ("demo_dummy_ids", "demo_attn_mask", "age_ids", "gender_ids", "ethnicity_ids",
+             "insurance_ids", "lab_features", "text_embedding")
 
 
 @dataclasses.dataclass
@@ -102,42 +104,6 @@ def _check_config(cfg: FAMEPipelineConfig) -> None:
                                   "(ROADMAP queue 1 item 6)")
 
 
-def build_model_arrays(bundle: FeatureBundle) -> Dict[str, np.ndarray]:
-    """FeatureBundle -> flat dict of model input arrays (10_FAME:714-723)."""
-    n = bundle.num_patients
-    return {
-        "demo_dummy_ids": np.zeros((n, 1), np.int32),
-        "demo_attn_mask": np.ones((n, 1), np.int32),
-        "age_ids": bundle.age_codes.astype(np.int32),
-        "gender_ids": bundle.gender_codes.astype(np.int32),
-        "ethnicity_ids": bundle.ethnicity_codes.astype(np.int32),
-        "insurance_ids": bundle.insurance_codes.astype(np.int32),
-        "lab_features": bundle.labs.astype(np.float32),
-        "text_embedding": bundle.text_embeddings.astype(np.float32),
-    }
-
-
-def make_loaders(arrays: Dict[str, np.ndarray], labels: np.ndarray,
-                 idx: Dict[str, np.ndarray], batch_size: int, seed: int = 42,
-                 device_data: bool = True, device=None):
-    """Per-split loaders over the model-input ``arrays``; the train split is
-    shuffled.  ``device_data=True`` parks each split's arrays on ``device``
-    once and gathers batches there (:class:`DeviceLoader`); False gives host
-    loaders whose batches the trainer copies to the device."""
-    loaders = {}
-    for split, indices in idx.items():
-        flat = {k: v[indices] for k, v in arrays.items()}
-        shuffle = split == "train"
-        if device_data:
-            loaders[split] = DeviceLoader(flat, labels[indices], batch_size, shuffle=shuffle,
-                                          seed=seed, device=device)
-        else:
-            flat["labels"] = labels[indices]
-            loaders[split] = NestedLoader(
-                BatchIterator(flat, batch_size, shuffle=shuffle, seed=seed), tuple(arrays))
-    return loaders
-
-
 def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] = None,
                     text_encoder: Optional[TextEncoder] = None, verbose: bool = True,
                     device=None, timings: Optional[Dict[str, float]] = None) -> Dict:
@@ -155,15 +121,7 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
     device = resolve_device(device)
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
-    timings = dict(timings or {"featurize": 0.0})
-    _t0 = time.perf_counter()
-
-    def _mark(phase: str):
-        nonlocal _t0
-        now = time.perf_counter()
-        timings[phase] = timings.get(phase, 0.0) + (now - _t0)
-        _t0 = now
-
+    timer = StageTimer(timings or {"featurize": 0.0})
     if verbose:
         print(f"After filtering, number of rows: {bundle.num_patients}")
         print(f"Number of lab feature columns: {bundle.num_lab_features}")
@@ -178,26 +136,21 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
         batch_size=cfg.text_batch_size)
     if verbose:
         print("Aggregated text embeddings shape:", bundle.text_embeddings.shape)
-    _mark("text_precompute")
+    timer.mark("text_precompute")
 
     # Two-stage multilabel stratified split (10_FAME:733-742).
-    train_val_idx, test_idx = multilabel_stratified_split(
-        bundle.labels, cfg.test_size, seed=cfg.split_seed)
-    rel_train, rel_val = multilabel_stratified_split(
-        bundle.labels[train_val_idx], cfg.val_size, seed=cfg.split_seed)
+    idx = make_split(bundle.labels, cfg.test_size, cfg.val_size, cfg.split_seed)
     if cfg.reference_compat:
-        # Reproduce 10_FAME.py:744-755: relative indices applied to the
-        # full-cohort tensors.
-        train_idx, val_idx = rel_train, rel_val
-    else:
-        train_idx, val_idx = train_val_idx[rel_train], train_val_idx[rel_val]
+        # Reproduce 10_FAME.py:744-755: positions within train+val applied
+        # to the full-cohort tensors.
+        train_val = np.union1d(idx["train"], idx["val"])
+        idx["train"], idx["val"] = (np.searchsorted(train_val, idx[s]) for s in ("train", "val"))
+    train_idx, val_idx, test_idx = idx["train"], idx["val"], idx["test"]
     if verbose:
         print(f"Train size: {len(train_idx)}, Validation size: {len(val_idx)}, "
               f"Test size: {len(test_idx)}")
 
-    arrays = build_model_arrays(bundle)
-    loaders = make_loaders(arrays, bundle.labels,
-                           {"train": train_idx, "val": val_idx, "test": test_idx},
+    loaders = make_loaders(build_arrays(bundle, FAME_KEYS), bundle.labels, idx,
                            cfg.train.batch_size, seed=cfg.train.seed,
                            device_data=cfg.device_data, device=device)
 
@@ -226,13 +179,13 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
         dynamic_weights_csv=os.path.join(cfg.out_dir, "dynamic_weights_per_epoch1.csv")
         if cfg.save_artifacts else None)
 
-    _mark("split_and_loaders")
+    timer.mark("split_and_loaders")
     checkpointer = Checkpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
     best_params, history = trainer.fit(loaders["train"], loaders["val"], verbose=verbose,
                                        checkpointer=checkpointer)
     # Every pass below reads the best state, as the JAX pipeline passes best_params.
     model.load_state_dict(best_params)
-    _mark("train")
+    timer.mark("train")
 
     # Threshold calibration on validation (10_FAME:868).
     _, val_logits, val_labels = trainer.validate(loaders["val"])
@@ -250,7 +203,7 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
         verbose=verbose)
     eddi = eddi_report(test_out["logits"], test_out["labels"], sensitive,
                        thresholds, verbose=verbose)
-    _mark("calibrate_and_eval")
+    timer.mark("calibrate_and_eval")
 
     if verbose:
         print("\n--- Final Evaluation Metrics on Test Set ---")
@@ -289,9 +242,9 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
         artifacts = {"best_model": best_path}
         if verbose:
             print("Saved best model to", best_path)
-    _mark("artifacts")
+    timer.mark("artifacts")
 
-    timings["total"] = sum(timings.values())
+    timings = timer.result()
     if cfg.timing and verbose:
         print("\n--- Phase wall-clock (s) ---")
         for phase, secs in timings.items():
@@ -308,7 +261,7 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
         "best_params": best_params,
         "trainer": trainer,
         "bundle": bundle,
-        "splits": {"train": train_idx, "val": val_idx, "test": test_idx},
+        "splits": idx,
     }
 
 

@@ -23,7 +23,8 @@ from fairmultimodal_torch.interop import load_flax_params
 from fairmultimodal_torch.models.fusion import FAMEModel
 from fairmultimodal_torch.models.text import TextEncoder, encode_note_chunks
 from fairmultimodal_torch.ops.gates import resolve_device
-from fairmultimodal_torch.pipelines.fame import build_model_arrays
+from fairmultimodal_torch.pipelines.common import build_arrays
+from fairmultimodal_torch.pipelines.fame import FAME_KEYS
 from fairmultimodal_torch.utils.checkpoint import load_metadata_npz, load_params_npz
 
 __all__ = ["FAMEPredictor", "run_fame_inference"]
@@ -134,7 +135,7 @@ def run_fame_inference(structured, unstructured, params_path: str,
         text_encoder = TextEncoder.from_pretrained(dtype=dtype, device=device)
     bundle.text_embeddings = encode_note_chunks(text_encoder, bundle.note_chunks,
                                                 max_length=text_max_length)
-    arrays = build_model_arrays(bundle)
+    arrays = build_arrays(bundle, FAME_KEYS)
 
     meta = load_metadata_npz(params_path) or {}
     n_ages, n_gen, n_eth, n_ins = bundle.vocab_sizes()

@@ -14,6 +14,14 @@ compute dtype of every model the run builds.  The pipelines not ported
 and ``--mesh`` exit; without ``--device`` the command raises the CUDA
 error here; a subprocess in which pandas, scikit-learn, transformers and
 jax cannot be imported runs ``fame`` and ``predict`` to the end.
+
+The baselines (``behrt``, ``bioclinicalbert``, ``average``, ``sigmoid``,
+``eddi``; their results are held against the JAX pipelines in
+``test_torch_baseline_pipelines.py``): each runs to its metric blocks with
+``--synthetic 64 --tiny --epochs 1 --device cpu``; ``--single_task --task
+ventilation`` trains one head; ``bioclinicalbert --single_task --task
+readmission`` trains on ``readmission_within_30d``; ``--runs 2`` prints the
+Table-3 block; ``--bf16`` is the dtype of the text encoder and the model.
 """
 
 import csv
@@ -194,7 +202,8 @@ def test_mesh_exits_naming_its_item():
         t_cli.main(FAME + ["--mesh", "8", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("pipeline", ["fame", "fpm", "predict"])
+@pytest.mark.parametrize("pipeline", ["fame", "fpm", "predict", "behrt", "bioclinicalbert",
+                                      "average", "sigmoid", "eddi"])
 def test_without_device_the_command_raises_the_cuda_error(pipeline, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -282,3 +291,102 @@ def test_fame_and_predict_run_without_pandas_sklearn_transformers_or_jax(tmp_pat
     assert out.stdout.strip().endswith("ok")
     _, rows = _csv(tmp_path / "predictions.csv")
     assert rows.shape[1] == 7 and np.isfinite(rows).all()
+
+
+# -- the baselines ------------------------------------------------------------------------
+
+BASELINES = {"behrt": "behrt", "bioclinicalbert": "text_only", "average": "average_fusion",
+             "sigmoid": "sigmoid_fusion", "eddi": "eddi_fusion"}
+RUNNERS = {"behrt": "run_behrt_experiment", "bioclinicalbert": "run_text_only_experiment",
+           "average": "run_average_fusion_experiment",
+           "sigmoid": "run_sigmoid_fusion_experiment", "eddi": "run_eddi_fusion_experiment"}
+
+
+def _baseline(pipeline, argv, encoders, monkeypatch, tmp_path):
+    """``python -m fairmultimodal_torch.cli <pipeline> ...`` on the CPU with the
+    tiny text encoder; returns (stdout, the pipeline's result dicts)."""
+    module = importlib.import_module(f"fairmultimodal_torch.pipelines.{BASELINES[pipeline]}")
+    outs, run = [], getattr(module, RUNNERS[pipeline])
+
+    def recording(*args, **kwargs):
+        outs.append(run(*args, **kwargs))
+        return outs[-1]
+
+    monkeypatch.setattr(module, RUNNERS[pipeline], recording)
+    monkeypatch.setattr(t_text.TextEncoder, "from_pretrained",
+                        classmethod(lambda cls, *a, **k: encoders[1]))
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        assert t_cli.main([pipeline, "--synthetic", "64", "--tiny", "--epochs", "1",
+                           "--device", "cpu", "--out_dir", str(tmp_path)] + argv) == 0
+    return buf.getvalue(), outs
+
+
+@pytest.mark.parametrize("pipeline", list(BASELINES))
+def test_baselines_run_to_their_metric_blocks(pipeline, encoders, monkeypatch, tmp_path):
+    out, (res,) = _baseline(pipeline, [], encoders, monkeypatch, tmp_path)
+    for task in TASKS:
+        assert f"Outcome: {task} (Threshold: 0.50)" in out
+        assert np.isfinite(res["metrics"][task]["aucroc"])
+    assert "Overall Combined EDDI:" in out and "[Epoch 1] Train Loss:" in out
+    if pipeline == "average":
+        with np.load(tmp_path / "extracted_embeddings.npz") as z:
+            assert z["embeddings"].shape[1] == 512
+
+
+@pytest.mark.parametrize("pipeline,head", [("behrt", "combined.classifier_mech"),
+                                           ("eddi", "head_mech_")])
+def test_single_task_ventilation_trains_one_head(pipeline, head, encoders, monkeypatch,
+                                                 tmp_path):
+    out, (res,) = _baseline(pipeline, ["--single_task", "--task", "ventilation"], encoders,
+                            monkeypatch, tmp_path)
+    assert list(res["metrics"]) == ["mechanical_ventilation"]
+    heads = {k.rsplit(".", 1)[0] for k in res["best_params"] if "classifier_" in k
+             or k.startswith("head_")}
+    assert heads and all(h.startswith(head) for h in heads), heads
+    assert "=== Selected task" not in out
+
+
+def test_bioclinicalbert_readmission_reads_its_column(encoders, monkeypatch, tmp_path):
+    from fairmultimodal_torch.data.synthetic import make_common_frames
+
+    _, (res,) = _baseline("bioclinicalbert", ["--single_task", "--task", "readmission"],
+                          encoders, monkeypatch, tmp_path)
+    structured, _ = make_common_frames(n_patients=64, n_lab_features=32, seed=42)
+    row = {s: i for i, s in enumerate(structured["subject_id"].tolist())}
+    bundle = res["prep"].bundle
+    want = structured["readmission_within_30d"][[row[s] for s in bundle.subject_id.tolist()]]
+    np.testing.assert_array_equal(bundle.labels, want[:, None].astype(np.float32))
+    assert list(res["metrics"]) == ["readmission"]
+
+
+def test_runs_2_prints_the_table3_block(encoders, monkeypatch, tmp_path):
+    out, res = _baseline("bioclinicalbert", ["--runs", "2"], encoders, monkeypatch, tmp_path)
+    assert len(res) == 2
+    assert "===== Aggregate over 2 runs (seeds 42..43) =====" in out
+    assert "| Task        | AUROC ↑ | AUPRC ↑ | EDDI % ↓ | EO % ↓ |" in out
+    assert (tmp_path / "runs_aggregate.csv").exists()
+
+
+@pytest.mark.parametrize("pipeline", ["bioclinicalbert", "average", "sigmoid", "eddi"])
+def test_bf16_is_the_dtype_of_the_baseline_encoder_and_model(pipeline, monkeypatch, tmp_path):
+    """``--bf16 --require_hf_weights``: the text encoder and the model both
+    take bfloat16 (the JAX command line builds the baselines' text encoder in
+    float32, and its ``bioclinicalbert`` has no dtype)."""
+    module = importlib.import_module(f"fairmultimodal_torch.pipelines.{BASELINES[pipeline]}")
+    seen = {}
+
+    def encoder(cls, *args, **kwargs):
+        seen["encoder"] = kwargs["dtype"]
+        return "encoder"
+
+    def experiment(s, u, cfg, **kwargs):
+        seen["model"] = cfg.dtype
+        raise _Stop
+
+    monkeypatch.setattr(t_text.TextEncoder, "from_pretrained", classmethod(encoder))
+    monkeypatch.setattr(module, RUNNERS[pipeline], experiment)
+    with pytest.raises(_Stop):
+        t_cli.main([pipeline, "--synthetic", "8", "--device", "cpu", "--require_hf_weights",
+                    "--bf16", "--out_dir", str(tmp_path)])
+    assert seen == {"encoder": torch.bfloat16, "model": "bfloat16"}

@@ -32,6 +32,7 @@ from fairmultimodal_torch.models import bert as t_bert
 from fairmultimodal_torch.models import fusion as t_fusion
 from fairmultimodal_torch.models import text as t_text
 from fairmultimodal_torch.pipelines import fame as t_fame
+from fairmultimodal_torch.pipelines.common import build_arrays
 from fairmultimodal_torch.pipelines.inference import FAMEPredictor
 from fairmultimodal_torch.train import calibrate as t_cal
 from fairmultimodal_torch.train import loop as t_loop
@@ -234,7 +235,7 @@ def test_eval_passes_and_npz_use_the_best_state_not_the_last(frames, encoders, j
     for k, v in model.state_dict().items():
         assert torch.equal(v, got["best_params"][k]), k
     test_idx = got["splits"]["test"]
-    arrays = {k: v[test_idx] for k, v in t_fame.build_model_arrays(got["bundle"]).items()}
+    arrays = {k: v[test_idx] for k, v in build_arrays(got["bundle"], t_fame.FAME_KEYS).items()}
 
     def probs(state):
         model.load_state_dict(state)

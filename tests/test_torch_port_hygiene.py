@@ -8,7 +8,11 @@
 - the card's machine has no pandas, scikit-learn or transformers: no module
   imports ``sklearn`` or ``transformers``, ``pandas`` is imported only inside
   the functions that take DataFrames, and every module imports without them;
-- the experiment's config fields that are not ported yet raise.
+- the experiment's config fields that are not ported yet raise;
+- the baseline pipelines and ``MultitaskTrainer`` default to CUDA and
+  raise without it, and a baseline run on port tables in a subprocess
+  leaves no ``jax``, ``pandas``, ``sklearn`` or ``transformers`` in
+  ``sys.modules``.
 """
 
 import ast
@@ -157,3 +161,56 @@ def test_experiment_fields_not_ported_raise(field, value, error, match, tmp_path
             run_fame_experiment(None, None, cfg, verbose=False, device="cpu")
     with pytest.raises(RuntimeError, match="required"):
         TextEncoder.from_pretrained(require_weights=True, device="cpu")
+
+
+def test_baseline_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from fairmultimodal_torch import pipelines
+    from fairmultimodal_torch.data.synthetic import make_common_frames
+    from fairmultimodal_torch.models.baselines import TextOnlyClassifier
+    from fairmultimodal_torch.pipelines.common import prepare_experiment
+    from fairmultimodal_torch.train.simple import MultitaskTrainer, SimpleTrainConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tables = make_common_frames(n_patients=16, n_lab_features=4, seed=0)
+    for run in ("run_behrt_experiment", "run_text_only_experiment",
+                "run_average_fusion_experiment", "run_sigmoid_fusion_experiment",
+                "run_eddi_fusion_experiment"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            getattr(pipelines, run)(*tables, verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        prepare_experiment(*tables, model_keys=("lab_features",), batch_size=4,
+                           need_text=False, verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MultitaskTrainer(TextOnlyClassifier(8), SimpleTrainConfig())
+
+
+def test_a_baseline_runs_on_port_tables_without_jax_pandas_sklearn_or_transformers():
+    code = (
+        "import sys, warnings\n"
+        "warnings.simplefilter('ignore')\n"
+        "from fairmultimodal_torch import pipelines\n"
+        "from fairmultimodal_torch.models import baselines, fusion\n"
+        "from fairmultimodal_torch.pipelines import common\n"
+        "from fairmultimodal_torch.train import simple\n"
+        "from fairmultimodal_torch.data import split\n"
+        "from fairmultimodal_torch.data.synthetic import make_common_frames\n"
+        "from fairmultimodal_torch.models.bert import BertConfig\n"
+        "from fairmultimodal_torch.models.text import TextEncoder\n"
+        "enc = TextEncoder.from_pretrained('no/such-model', device='cpu', fallback_config=\n"
+        "    BertConfig(vocab_size=512, hidden_size=32, num_hidden_layers=1,\n"
+        "               num_attention_heads=2, intermediate_size=64,\n"
+        "               max_position_embeddings=64))\n"
+        "cfg = pipelines.SigmoidFusionPipelineConfig(hidden_size=32, demo_layers=1,\n"
+        "    demo_heads=2, lab_layers=1, lab_heads=2, text_max_length=32)\n"
+        "cfg.train.num_epochs = 1\n"
+        "out = pipelines.run_sigmoid_fusion_experiment(\n"
+        "    *make_common_frames(n_patients=48, n_lab_features=6, seed=1), cfg,\n"
+        "    text_encoder=enc, verbose=False, device='cpu')\n"
+        "assert set(out['metrics']) == {'mortality', 'los', 'mechanical_ventilation'}\n"
+        "loaded = [m for m in ('jax', 'pandas', 'sklearn', 'transformers')\n"
+        "          if m in sys.modules]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PKG.parent, timeout=240)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-3000:]

@@ -17,7 +17,8 @@ from fairmultimodal_torch.models import bert as t_bert
 from fairmultimodal_torch.models import fusion as t_fusion
 from fairmultimodal_torch.models import text as t_text
 from fairmultimodal_torch.pipelines import inference as t_inf
-from fairmultimodal_torch.pipelines.fame import build_model_arrays as t_arrays
+from fairmultimodal_torch.pipelines.common import build_arrays
+from fairmultimodal_torch.pipelines.fame import FAME_KEYS
 from fairmultimodal_torch.utils import checkpoint as t_ckpt
 from fairmultimodal_tpu.data.featurize import assemble_features as j_assemble
 from fairmultimodal_tpu.data.synthetic import make_common_frames
@@ -27,6 +28,11 @@ from fairmultimodal_tpu.models import text as j_text
 from fairmultimodal_tpu.pipelines import inference as j_inf
 from fairmultimodal_tpu.pipelines.fame import build_model_arrays as j_arrays
 from fairmultimodal_tpu.utils.checkpoint import save_params_npz
+
+
+def t_arrays(bundle):
+    return build_arrays(bundle, FAME_KEYS)
+
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 TEXT_CFG = dict(vocab_size=256, hidden_size=32, num_hidden_layers=1, num_attention_heads=2,

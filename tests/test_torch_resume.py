@@ -37,7 +37,7 @@ from test_torch_cli import FAME, _run_jax, _run_port, encoders  # noqa: F401  (f
 
 from fairmultimodal_torch.models._layers import init_params
 from fairmultimodal_torch.models.fusion import FAMEModel
-from fairmultimodal_torch.pipelines.fame import make_loaders
+from fairmultimodal_torch.pipelines.common import make_loaders
 from fairmultimodal_torch.train import loop as t_loop
 from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
 from fairmultimodal_torch.utils.checkpoint import Checkpointer
