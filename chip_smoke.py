@@ -8,8 +8,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 1. card: the name and power limit from ``nvidia-smi``;
 2. build: every kernel compiled from ``fairmultimodal_torch/ops/csrc``, and
    what ``-Xptxas -v`` reports (registers, stack, spills) for each
-   instantiation of the wgmma GEMM ("nt", "nn", "tn") and of the mma.sync
-   flash forward, dQ and dK / dV kernels;
+   instantiation of the wgmma GEMM ("nt", "nn", "tn"), the mma.sync flash
+   forward, dQ and dK / dV kernels, the fp32 CUDA-core GEMM and the fp32
+   flash dQ and dK / dV kernels;
 3. kernels: each ported kernel's wrapper against its plain PyTorch version
    on the card, at the shapes the serving path gives it, in fp32 (max abs
    error <= 1e-4: only the summation order differs) and in bf16 (max abs
@@ -46,7 +47,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    (bf16, dropout on, CUDA-event medians): the forward with residuals, the
    backward, each backward launch alone, the plain backward and one library
    composition's backward (torch autograd of F.linear + SDPA + dropout +
-   layer_norm; never called by the port), beside the bound;
+   layer_norm; never called by the port), beside the bound.  Every fp32
+   backward (and the timed bf16 one) runs twice on the same inputs and must
+   leave bit-identical grads;
 5. training slice: ``FAMETrainer.fit`` for 2 epochs at full width in bf16
    (batch 256, 1024 train / 256 validation synthetic patients, dropout on),
    with the kernels' launch counts read around it; then one fp32 train step
@@ -76,8 +79,15 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    gate and its column partials, the FFN's dx; "tn" split-K: dWo, dWqkv, dW1,
    dW2; errors only: the text dgelu gate with aux and ragged M 600 / N 200
    shapes) against the same epilogue in fp32, timed beside torch.matmul.
-   The bf16 backwards of #3 and #6 run twice on the same inputs and must
-   leave bit-identical grads (no float atomics);
+   The backwards of #3, #4, #6 and #8 (every fp32 case, the timed bf16 one)
+   run twice on the same inputs and must leave bit-identical grads (no float
+   atomics).  Then each fp32 product of the lab path at the pipelines'
+   batch 16 (R 8960: "nt" QKV / Wo / W1 with relu + dropout + aux / W2, "nn"
+   dO / dx + residual / gated dh / FFN dx, "tn" dWo / dWqkv / dW1 / dW2
+   split-K; errors only: the text gelu / dgelu stages, ragged shapes and the
+   lab dWqkv over 143360 rows) against the same product in float64 on the
+   card (within 1e-5 of max-abs, which TF32 misses), timed beside F.linear /
+   torch.matmul in fp32 with TF32 off;
 5b. unfolded slice: an fp32 train step unfolded on the card against the
    folded one on the card (loss 1e-6 relative, grads 1e-4 of max-abs) and
    against the CPU plain path (phase 5's limits); ``FAMETrainer.fit`` for 1
@@ -103,7 +113,8 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    kernels (the backward's dQ and dK / dV kernels also apart, from the
    profiler), their plain versions, SDPA with the -1e9 bias and its autograd
    backward (never called by the port), beside the bound; the backward run
-   twice must give bit-identical dq, dk, dv.
+   twice (every fp32 case, the timed bf16 one) must give bit-identical dq,
+   dk, dv.
    Also ``TorchEncoderLayer(fused_qkv=True)`` against the same layer unfused
    in fp32 (forward and grads 1e-4 of max-abs);
 5c. flash-route slice (``attn_kernel=False`` on every lab layer): an fp32
@@ -174,11 +185,16 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    weights and generator seed (the loss within phase 5's limit of the CPU;
    every grad leaf within phase 5's limit of the float64 step beyond the
    CPU's own fp32 error against it); the 01 train step at batch
-   16 in bf16 and fp32 (CUDA-event median of 20) and profiled; 07's bf16 step
-   with and without dropout (the share its int64 Philox dropout takes); and #1-#4 at
-   the baselines' shape B 16 x S 560 in fp32 and bf16 against their plain
+   16 in bf16 and fp32 (CUDA-event median of 20) and profiled; FAME's
+   default step (``FAMETrainer.train_step`` at the reference geometry in
+   fp32, ``TrainConfig``'s batch 16, dropout 0.1: what ``fame`` runs without
+   --bf16), timed and profiled the same way; 07's bf16 step with and without
+   dropout (the share its int64 Philox dropout takes); #1-#4 at the
+   baselines' shape B 16 x S 560 in fp32 and bf16 against their plain
    versions, timed beside the plain version, one library composition and
-   the bound (fp32 against the CUDA cores' 67 TFLOP/s).  Prints each run's
+   the bound (fp32 against the CUDA cores' 67 TFLOP/s), the backwards also
+   stage by stage and run twice for the same bits; and #5-#10 at that shape
+   in fp32, timed the same way.  Prints each run's
    wall time, stage times and train patients per second of the train
    stage (which holds the epoch's validation pass too).
 
@@ -198,6 +214,7 @@ import torch
 
 BF16_PEAK = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s
 HBM_RATE = 3.35e12        # H100 SXM HBM3 bytes/s
+FP32_PEAK = 67e12         # H100 SXM dense fp32 FLOP/s outside the tensor cores
 FP32_TOL = 1e-4
 BF16_MAX_TOL, BF16_MEAN_TOL = 0.125, 2e-3
 N_PATIENTS, N_LABS = 300, 549
@@ -434,7 +451,7 @@ def _time_backward(out, leaves, g):
 
 
 def attention_train_check(fab, _build, gen, dtype, rate, B=256, S=560, H=768, nh=8, eps=1e-5,
-                          L=N_LABS, timed=False):
+                          L=N_LABS, timed=False, peak=BF16_PEAK):
     inputs, mask, g = _attn_train_case(fab, B, S, H, nh, eps, dtype, gen, L)
     seed = 1234 if rate else None
     kw = dict(num_heads=nh, ln_eps=eps)
@@ -461,7 +478,7 @@ def attention_train_check(fab, _build, gen, dtype, rate, B=256, S=560, H=768, nh
             *inputs, mask, rate=rate, deterministic=False, seed=seed + 1, **kw))
         if not (row["same_seed_identical"] and row["other_seed_differs"]):
             raise AssertionError(f"{label}: dropout not reproducible per seed {row}")
-    if timed:
+    if timed or dtype == torch.float32:    # every fp32 backward, and the timed bf16 one
         from fairmultimodal_torch.utils.rng import Dropout
         drop = Dropout.make(seed, 0, rate)
         with torch.no_grad():
@@ -471,17 +488,20 @@ def attention_train_check(fab, _build, gen, dtype, rate, B=256, S=560, H=768, nh
                 fn()
             bwd, bwd_grads = fab.backward_stages(g, saved, inputs[7], inputs[9], dropout=drop,
                                                  **kw)
-            row["fwd_res_ms"] = time_ms(lambda: [fn() for _, fn in fwd])
-            row["ms"] = time_ms(lambda: [fn() for _, fn in bwd])
-            row["stages_ms"] = {name: time_ms(fn) for name, fn in bwd}
             row["deterministic"] = _runs_bit_identical(lambda: fab._run(bwd), bwd_grads)
             if not row["deterministic"]:
                 raise AssertionError(f"{label}: two backward runs differ")
-            row["plain_ms"] = time_ms(plain, reps=5)
+            if timed:
+                row["fwd_res_ms"] = time_ms(lambda: [fn() for _, fn in fwd])
+                row["ms"] = time_ms(lambda: [fn() for _, fn in bwd])
+                row["stages_ms"] = {name: time_ms(fn) for name, fn in bwd}
+                row["plain_ms"] = time_ms(plain, reps=5)
+        del fwd, saved, bwd, bwd_grads
+    if timed:
         row["library_ms"] = _attention_library_bwd_ms(inputs, mask, g, nh, eps, rate)
         flops = B * (16 * S * H * H + 8 * S * S * H)
         nbytes = (8 * B * S * H + 4 * H * H) * x.element_size()
-        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, peak)
         row["flops"], row["bytes"] = flops, nbytes
     del out, grads, grads_p, res
     torch.cuda.empty_cache()
@@ -504,7 +524,7 @@ def _attention_library_bwd_ms(inputs, mask, g, nh, eps, rate):
 
 
 def ffn_train_check(ffn, _build, gen, dtype, rate, R=256 * 560, H=768, F=2048, act="relu",
-                    eps=1e-5, timed=False):
+                    eps=1e-5, timed=False, peak=BF16_PEAK):
     def rn(*shape, std=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
 
@@ -536,23 +556,29 @@ def ffn_train_check(ffn, _build, gen, dtype, rate, R=256 * 560, H=768, F=2048, a
         row["other_seed_differs"] = not torch.equal(out, other)
         if not (row["same_seed_identical"] and row["other_seed_differs"]):
             raise AssertionError(f"{label}: dropout not reproducible per seed {row}")
-    if timed:
+    if timed or dtype == torch.float32:    # every fp32 backward, and the timed bf16 one
         inner, outer = ffn._streams(seeds, rate, act)
         with torch.no_grad():
             fwd, _, saved = ffn.half_layer_stages(*inputs, inner=inner, outer=outer,
                                                   residuals=True, **kw)
             for _, fn in fwd:
                 fn()
-            bwd, _ = ffn.backward_stages(g, saved, inputs[1], inputs[3], inputs[5], outer=outer,
-                                         inv_keep=inner.inv_keep, **kw)
-            row["fwd_res_ms"] = time_ms(lambda: [fn() for _, fn in fwd])
-            row["ms"] = time_ms(lambda: [fn() for _, fn in bwd])
-            row["stages_ms"] = {name: time_ms(fn) for name, fn in bwd}
-            row["plain_ms"] = time_ms(plain, reps=5)
+            bwd, bwd_grads = ffn.backward_stages(g, saved, inputs[1], inputs[3], inputs[5],
+                                                 outer=outer, inv_keep=inner.inv_keep, **kw)
+            row["deterministic"] = _runs_bit_identical(lambda: ffn._run(bwd), bwd_grads)
+            if not row["deterministic"]:
+                raise AssertionError(f"{label}: two backward runs differ")
+            if timed:
+                row["fwd_res_ms"] = time_ms(lambda: [fn() for _, fn in fwd])
+                row["ms"] = time_ms(lambda: [fn() for _, fn in bwd])
+                row["stages_ms"] = {name: time_ms(fn) for name, fn in bwd}
+                row["plain_ms"] = time_ms(plain, reps=5)
+        del fwd, saved, bwd, bwd_grads
+    if timed:
         row["library_ms"] = _ffn_library_bwd_ms(inputs, g, act, eps, rate)
         flops = 8 * R * H * F
-        nbytes = (4 * R * H + R * F) * inputs[0].element_size() + 2 * H * F * 2
-        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+        nbytes = (4 * R * H + R * F + 2 * H * F) * inputs[0].element_size()
+        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, peak)
         row["flops"], row["bytes"] = flops, nbytes
     del out, grads, grads_p, res
     torch.cuda.empty_cache()
@@ -650,7 +676,8 @@ def _check_forward(label, dtype, out, want):
     return _compare(label, dtype, {"out": out}, {"out": want})["out"]
 
 
-def block_check(fab, gen, dtype, B=256, S=560, H=768, nh=8, L=N_LABS, timed=False):
+def block_check(fab, gen, dtype, B=256, S=560, H=768, nh=8, L=N_LABS, timed=False,
+                peak=BF16_PEAK):
     """#5 and #6 through ``fused_attention_block`` and its autograd.Function
     against the plain forward and backward."""
     inputs, mask, g = _attn_train_case(fab, B, S, H, nh, 0.0, dtype, gen, L)
@@ -673,6 +700,15 @@ def block_check(fab, gen, dtype, B=256, S=560, H=768, nh=8, L=N_LABS, timed=Fals
                     {"out": out_p, **_grouped_block(grads_p)})
     row = {"case": label, "forward": fwd, "errors": errs}
     del out, grads, grads_p
+    if not timed and dtype == torch.float32:   # the timed run repeats its backward below
+        with torch.no_grad():
+            fwd_res, _, saved = fab.block_stages(*inputs, mask, residuals=True, **kw)
+            fab._run(fwd_res)
+            bwd, bwd_grads = fab.block_backward_stages(g, saved, wo, **kw)
+            row["bwd_deterministic"] = _runs_bit_identical(lambda: fab._run(bwd), bwd_grads)
+        if not row["bwd_deterministic"]:
+            raise AssertionError(f"{label}: two backward runs differ")
+        del fwd_res, saved, bwd, bwd_grads
     if timed:
         F = torch.nn.functional
         d = H // nh
@@ -706,10 +742,10 @@ def block_check(fab, gen, dtype, B=256, S=560, H=768, nh=8, L=N_LABS, timed=Fals
         e = x.element_size()
         flops = B * (8 * S * H * H + 4 * S * S * H)
         nbytes = 2 * B * S * H * e + 4 * H * H * e + B * S * 4
-        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, peak)
         flops_b = B * (16 * S * H * H + 8 * S * S * H)
         nbytes_b = (7 * B * S * H + 8 * H * H) * e
-        row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(flops_b, nbytes_b)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(flops_b, nbytes_b, peak)
         row["flops"], row["bytes"], row["bwd_flops"], row["bwd_bytes"] = \
             flops, nbytes, flops_b, nbytes_b
         del saved, fwd_res, bwd, infer, lib_leaves
@@ -719,7 +755,7 @@ def block_check(fab, gen, dtype, B=256, S=560, H=768, nh=8, L=N_LABS, timed=Fals
 
 
 def unfolded_ffn_check(ffn, gen, dtype, rate, R=256 * 560, H=768, F=2048, act="relu",
-                       timed=False):
+                       timed=False, peak=BF16_PEAK):
     """#7 and #8 through ``fused_ffn`` and its autograd.Function against the
     plain forward and backward, with the inner dropout at ``rate``."""
     def rn(*shape, std=1.0):
@@ -756,6 +792,18 @@ def unfolded_ffn_check(ffn, gen, dtype, rate, R=256 * 560, H=768, F=2048, act="r
             raise AssertionError(f"{label}: dropout not reproducible per seed {row}")
         del again, other
     del out, grads, grads_p
+    inner = ffn._inner_stream(seed, rate, not rate, act)
+    if timed or dtype == torch.float32:    # every fp32 backward, and the timed bf16 one
+        with torch.no_grad():
+            fwd_res, _, saved = ffn.ffn_stages(*inputs, activation=act, inner=inner,
+                                               residuals=True)
+            ffn._run(fwd_res)
+            bwd, bwd_grads = ffn.ffn_backward_stages(g, saved, w1, w2, activation=act,
+                                                     inv_keep=inner.inv_keep)
+            row["bwd_deterministic"] = _runs_bit_identical(lambda: ffn._run(bwd), bwd_grads)
+        if not row["bwd_deterministic"]:
+            raise AssertionError(f"{label}: two backward runs differ")
+        del bwd_grads
     if timed:
         Fn = torch.nn.functional
         fact = Fn.relu if act == "relu" else Fn.gelu
@@ -763,14 +811,8 @@ def unfolded_ffn_check(ffn, gen, dtype, rate, R=256 * 560, H=768, F=2048, act="r
         def library(xx, a_w, a_b, b_w, b_b):
             return Fn.linear(Fn.dropout(fact(Fn.linear(xx, a_w, a_b)), rate), b_w, b_b)
 
-        inner = ffn._inner_stream(seed, rate, not rate, act)
         with torch.no_grad():
             infer, _, _ = ffn.ffn_stages(*inputs, activation=act, inner=inner)
-            fwd_res, _, saved = ffn.ffn_stages(*inputs, activation=act, inner=inner,
-                                               residuals=True)
-            ffn._run(fwd_res)
-            bwd, _ = ffn.ffn_backward_stages(g, saved, w1, w2, activation=act,
-                                             inv_keep=inner.inv_keep)
             row["ms"] = time_ms(lambda: ffn._run(infer))
             row["stages_ms"] = {name: time_ms(fn) for name, fn in infer}
             row["fwd_res_ms"] = time_ms(lambda: ffn._run(fwd_res))
@@ -785,13 +827,15 @@ def unfolded_ffn_check(ffn, gen, dtype, rate, R=256 * 560, H=768, F=2048, act="r
         e = x.element_size()
         flops = 4 * R * H * F
         nbytes = (2 * R * H + 2 * H * F) * e
-        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, peak)
         flops_b = 8 * R * H * F
         nbytes_b = (3 * R * H + R * F + 4 * H * F) * e
-        row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(flops_b, nbytes_b)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(flops_b, nbytes_b, peak)
         row["flops"], row["bytes"], row["bwd_flops"], row["bwd_bytes"] = \
             flops, nbytes, flops_b, nbytes_b
-        del saved, fwd_res, bwd, infer, lib_leaves
+        del infer, lib_leaves
+    if timed or dtype == torch.float32:
+        del saved, fwd_res, bwd
     del res, out_p
     torch.cuda.empty_cache()
     return row
@@ -886,19 +930,21 @@ NT_STAGES = (
 )
 
 
-def _nt_plain(a, w, bias, act, drop, out_dtype):
-    """The "nt" GEMM's epilogue in fp32 on the same inputs: (out, aux)."""
+def _nt_plain(a, w, bias, act, drop, out_dtype, compute=torch.float32):
+    """The "nt" GEMM's epilogue in ``compute`` (fp32, or float64 for the fp32
+    stages) on the same inputs: (out, aux)."""
     from fairmultimodal_torch.utils import rng
 
-    pre = torch.addmm(bias, a.float(), w.float().t())
+    pre = torch.addmm(bias.to(compute), a.to(compute), w.to(compute).t())
     v = torch.relu(pre) if act == "relu" else \
         torch.nn.functional.gelu(pre) if act == "gelu" else pre
     return rng.apply_dropout(v, drop).to(out_dtype), pre.to(a.dtype)
 
 
 def _rel_errors(got, want):
-    err = (got.float() - want.float()).abs()
-    scale = max(want.float().abs().max().item(), 1e-30)
+    dt = torch.float64 if want.dtype == torch.float64 else torch.float32
+    err = (got.to(dt) - want.to(dt)).abs()
+    scale = max(want.to(dt).abs().max().item(), 1e-30)
     return {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(), "max_abs": scale}
 
 
@@ -999,17 +1045,19 @@ NN_TN_STAGES = (
 GATE_SCALE = 1.0 / 0.9     # the relu gate's 1 / keep with the inner dropout on
 
 
-def _nn_tn_plain(layout, a, b, gate, gate_kind, resid, out_dtype):
-    """The product and its epilogue in fp32: (out, aux, column sums)."""
-    v = a.float() @ b.float() if layout == "nn" else a.float().t() @ b.float()
+def _nn_tn_plain(layout, a, b, gate, gate_kind, resid, out_dtype, compute=torch.float32):
+    """The product and its epilogue in ``compute`` (fp32, or float64 for the
+    fp32 stages): (out, aux, column sums)."""
+    a, b = a.to(compute), b.to(compute)
+    v = a @ b if layout == "nn" else a.t() @ b
     aux = colsum = None
     if gate_kind == "relu":
-        v = v * torch.where(gate.float() > 0, GATE_SCALE, 0.0)
+        v = v * torch.where(gate > 0, GATE_SCALE, 0.0).to(compute)
     elif gate_kind == "dgelu":
-        u = gate.float()
+        u = gate.to(compute)
         v = v * (0.5 * (1.0 + torch.erf(u * 0.70710678118654752))
                  + u * 0.3989422804014327 * torch.exp(-0.5 * u * u))
-        aux = torch.nn.functional.gelu(u).to(a.dtype)
+        aux = torch.nn.functional.gelu(u).to(gate.dtype)
     if resid is not None:
         v = v + resid
     if gate_kind:
@@ -1079,9 +1127,137 @@ def nn_tn_gemm_phase(_build, fab):
     return rows
 
 
-#: The kernels the bf16 path redesigned for Hopper, whose ``-Xptxas -v`` lines phase 2 reports.
+# -- phase 3c, continued: each fp32 GEMM stage of the path at batch 16 ------------------------
+#
+# fp32 is what `fame` and every baseline run unless --bf16 is given, at the
+# pipelines' batch 16: each fp32 product of the lab path at B 16 x S 560
+# (R_BASE rows) through ``_build.gemm`` (csrc/gemm.cu::gemm_f32_kernel) or
+# ``fused_attention_block.weight_grad`` (its split-K "tn" and the fixed-order
+# sum), with the epilogue the path gives it, against the same product and
+# epilogue in float64 on the card.  Limit F32_GEMM_TOL of the output's
+# max-abs (and of the column sums', the aux's): fp32 sums of up to 4480 terms
+# per chain stay near 1e-6 of it, while TF32 (10-bit mantissas) misses it by
+# 10x or more, so the check also holds the kernel to IEEE fp32.  The gated
+# "nn" run twice must leave the same bits.  Timed beside one ``F.linear`` /
+# ``torch.matmul`` in fp32 with TF32 off (cuBLAS; a yardstick the port never
+# calls), each with its TFLOP/s and its bound at the CUDA cores' 67 TFLOP/s.
+
+F32_GEMM_TOL = 1e-5
+R_BASE = 16 * 560
+# name, layout, M, N, K, activation (nt) or gate (nn), inner dropout rate (nt)
+# or fp32 residual (nn), aux, timed
+F32_GEMM_STAGES = (
+    ("qkv", "nt", R_BASE, 2304, 768, "none", 0.0, False, True),
+    ("wo", "nt", R_BASE, 768, 768, "none", 0.0, False, True),
+    ("w1 relu dropout aux", "nt", R_BASE, 2048, 768, "relu", 0.1, True, True),
+    ("w2", "nt", R_BASE, 768, 2048, "none", 0.0, False, True),
+    ("dO attention", "nn", R_BASE, 768, 768, None, False, False, True),
+    ("dx attention + resid", "nn", R_BASE, 768, 2304, None, True, False, True),
+    ("dh ffn relu gate + colpart", "nn", R_BASE, 2048, 768, "relu", False, False, True),
+    ("dx ffn + resid", "nn", R_BASE, 768, 2048, None, True, False, True),
+    ("dWo split-K", "tn", 768, 768, R_BASE, None, False, False, True),
+    ("dWqkv split-K", "tn", 2304, 768, R_BASE, None, False, False, True),
+    ("dW1 split-K", "tn", 2048, 768, R_BASE, None, False, False, True),
+    ("dW2 split-K", "tn", 768, 2048, R_BASE, None, False, False, True),
+    ("text w1 gelu aux", "nt", 8 * 512, 3072, 768, "gelu", 0.0, True, False),
+    ("text dh dgelu gate + aux", "nn", 8 * 512, 3072, 768, "dgelu", False, True, False),
+    ("ragged nt M600 N200 K96 relu dropout", "nt", 600, 200, 96, "relu", 0.1, True, False),
+    ("ragged nn M600 N200 K96 relu gate", "nn", 600, 200, 96, "relu", False, False, False),
+    ("ragged tn M600 N200 K5000", "tn", 600, 200, 5000, None, False, False, False),
+    ("lab dWqkv split-K", "tn", 2304, 768, R_LAB, None, False, False, False),
+)
+
+
+def f32_gemm_check(_build, fab, gen, name, layout, M, N, K, act_or_gate, extra, with_aux,
+                   timed):
+    from fairmultimodal_torch.utils import rng
+
+    f32, f64 = torch.float32, torch.float64
+    a = torch.randn(*((K, M) if layout == "tn" else (M, K)), generator=gen, device="cuda")
+    b = torch.randn(*((N, K) if layout == "nt" else (K, N)), generator=gen, device="cuda") \
+        * K ** -0.5
+    out = torch.empty(M, N, device="cuda")
+    aux = torch.empty(M, N, device="cuda") if with_aux else None
+    colpart = None
+    if layout == "nt":
+        bias = 0.02 * torch.randn(N, generator=gen, device="cuda")
+        drop = rng.Dropout.make(NT_SEED, 0, extra)
+        run = lambda: _build.gemm(a, b, out, bias=bias, activation=act_or_gate,  # noqa: E731
+                                  dropout=drop, aux=aux)
+        (want, want_aux), want_sum = _nt_plain(a, b, bias, act_or_gate, drop, f64,
+                                               compute=f64), None
+        lib = lambda: torch.nn.functional.linear(a, b, bias)  # noqa: E731
+    elif layout == "nn":
+        gate = torch.randn(M, N, generator=gen, device="cuda") if act_or_gate else None
+        resid = torch.randn(M, N, generator=gen, device="cuda") if extra else None
+        colpart = torch.empty(-(-M // 128), N, device="cuda") if act_or_gate else None
+        run = lambda: _build.gemm(  # noqa: E731
+            a, b, out, layout="nn", gate=gate, gate_kind=act_or_gate,
+            gate_scale=GATE_SCALE if act_or_gate == "relu" else 1.0, aux=aux, resid=resid,
+            colpart=colpart)
+        lib = lambda: torch.matmul(a, b)  # noqa: E731
+    else:
+        gate = resid = None
+        run = lambda: fab.weight_grad(a, b, out)  # noqa: E731
+        lib = lambda: torch.matmul(a.t(), b)  # noqa: E731
+    if layout != "nt":
+        want, want_aux, want_sum = _nn_tn_plain(layout, a, b, gate, act_or_gate, resid, f64,
+                                                compute=f64)
+    run()
+    torch.cuda.synchronize()
+    row = {"stage": name, "layout": layout, "M": M, "N": N, "K": K,
+           "epilogue": act_or_gate, "errors": _rel_errors(out.double(), want)}
+    if layout == "tn":
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        row["splits"] = fab._splits(M, N, K, sms, f32)
+        row["rows_per_split"] = _build.split_rows(K, row["splits"], f32)
+    checks = [("out", row["errors"])]
+    if with_aux:
+        row["aux_errors"] = _rel_errors(aux.double(), want_aux)
+        checks.append(("aux", row["aux_errors"]))
+    if colpart is not None:
+        row["colsum_errors"] = _rel_errors(colpart.double().sum(dim=0), want_sum)
+        checks.append(("column sums", row["colsum_errors"]))
+        first = (out.clone(), colpart.clone())
+        run()
+        row["deterministic"] = torch.equal(first[0], out) and torch.equal(first[1], colpart)
+        if not row["deterministic"]:
+            raise AssertionError(f"fp32 {layout} gemm {name}: two runs differ")
+        del first
+    for what, e in checks:
+        if not torch.isfinite(out).all() or e["max_abs_err"] > F32_GEMM_TOL * e["max_abs"]:
+            raise AssertionError(f"fp32 {layout} gemm {name}: {what} {e} (limit {F32_GEMM_TOL} "
+                                 "of max-abs against float64)")
+    del want, want_aux, want_sum
+    if timed:
+        flops = 2 * M * N * K
+        row["ms"] = time_ms(run)
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["library_ms"] = time_ms(lib)
+        row["library_tflops"] = flops / row["library_ms"] / 1e9
+        extra_mn = int(with_aux) + int(layout == "nn" and bool(act_or_gate or extra))
+        nbytes = (M * K + K * N + M * N * (1 + extra_mn)) * 4   # + aux out, gate / resid in
+        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, FP32_PEAK)
+    del a, b, out, aux, colpart
+    torch.cuda.empty_cache()
+    return row
+
+
+def f32_gemm_phase(_build, fab):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for stage in F32_GEMM_STAGES:
+        row = f32_gemm_check(_build, fab, gen, *stage)
+        log(f"[f32-gemm] {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+#: The kernels redesigned for Hopper (the bf16 path's and the fp32 GEMM and
+#: flash backward), whose ``-Xptxas -v`` lines phase 2 reports.
 PTXAS_KERNELS = ("gemm_wgmma_kernel", "flash_attn_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
-                 "flash_bwd_dkdv_mma_kernel")
+                 "flash_bwd_dkdv_mma_kernel", "gemm_f32_kernel", "flash_bwd_dq_f32_kernel",
+                 "flash_bwd_dkdv_f32_kernel")
 
 
 def ptxas_report(_build, names=PTXAS_KERNELS):
@@ -1190,7 +1366,8 @@ def _flash_inputs(B, S, nh, d, layout, mask_kind, dtype, gen):
     return leaves, q, k, v, mask, rn(B, nh, S, d)
 
 
-def flash_check(flash, gen, dtype, B, S, nh, d, layout="dense", mask_kind="rows", timed=False):
+def flash_check(flash, gen, dtype, B, S, nh, d, layout="dense", mask_kind="rows", timed=False,
+                peak=BF16_PEAK, stages=True):
     """#9 and #10 through ``flash_attention`` and its autograd.Function
     against ``flash_attention_reference`` and
     ``flash_attention_backward_reference`` on the same inputs."""
@@ -1228,13 +1405,21 @@ def flash_check(flash, gen, dtype, B, S, nh, d, layout="dense", mask_kind="rows"
         saved = (*ops[:3], o, stats, ops[3])
         if dtype == torch.bfloat16:
             row["kernel_order"] = _flash_bwd_order_check(flash, label, saved, g)
+        elif not timed:    # every fp32 backward runs twice (the timed one below)
+            first = flash._backward_kernel(*saved, g)
+            again = flash._backward_kernel(*saved, g)
+            row["bwd_deterministic"] = all(torch.equal(a, b_) for a, b_ in zip(first, again))
+            if not row["bwd_deterministic"]:
+                raise AssertionError(f"{label}: two backward runs differ")
+            del first, again
     if timed:
         F = torch.nn.functional
         with torch.no_grad():
             row["ms"] = time_ms(lambda: flash.flash_attention(qd, kd, vd, mask))
             row["fwd_res_ms"] = time_ms(lambda: flash._forward_kernel(*ops, residuals=True))
             row["bwd_ms"] = time_ms(lambda: flash._backward_kernel(*saved, g))
-            row["bwd_stages_ms"] = _flash_bwd_stages_ms(flash, saved, g)
+            if stages:    # the dQ and dK / dV kernels apart, from the profiler
+                row["bwd_stages_ms"] = _flash_bwd_stages_ms(flash, saved, g)
             first = flash._backward_kernel(*saved, g)
             again = flash._backward_kernel(*saved, g)
             row["bwd_deterministic"] = all(torch.equal(a, b_) for a, b_ in zip(first, again))
@@ -1255,9 +1440,9 @@ def flash_check(flash, gen, dtype, B, S, nh, d, layout="dense", mask_kind="rows"
         e = qd.element_size()
         mask_bytes = 0 if mask is None else B * S * 4
         flops, nbytes = 4 * B * nh * S * S * d, 4 * B * nh * S * d * e + mask_bytes
-        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, peak)
         flops_b, nbytes_b = 10 * B * nh * S * S * d, 7 * B * nh * S * d * e + mask_bytes
-        row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(flops_b, nbytes_b)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(flops_b, nbytes_b, peak)
         row["flops"], row["bytes"], row["bwd_flops"], row["bwd_bytes"] = \
             flops, nbytes, flops_b, nbytes_b
         del lib
@@ -2574,7 +2759,6 @@ def cli_phase(flash, fab, ffn, addnorm):
 # -- phase 8: the baseline pipelines (01, 02, 07, 09, 08) through the command line --------
 
 BASE_BATCH, BASE_TEXT_BATCH, BASE_LAB_S = 16, 32, 560
-FP32_PEAK = 67e12         # H100 SXM dense fp32 FLOP/s outside the tensor cores
 #: (label, pipeline, flags) of phase 8's runs, each --epochs 1 at the pipeline's batch 16.
 BASE_RUNS = (("01 behrt --bf16", "behrt", ["--bf16"]), ("01 behrt fp32", "behrt", []),
              ("02 bioclinicalbert", "bioclinicalbert", []),
@@ -2613,14 +2797,17 @@ def baseline_predicted_launches(tables, tokenizer):
     return want, splits, cohorts
 
 
-def baseline_kernel_rows(fab, ffn, _build, B=BASE_BATCH):
+def baseline_kernel_rows(fab, ffn, flash, _build, B=BASE_BATCH):
     """#1-#4 at the baselines' lab shape (B 16 x S 560, H 768, 8 heads, FFN
     2048, dropout 0.1) in fp32 and bf16: errors against the plain versions
-    (phase 3b's limits), then the wrapper's time (the forward with its
-    residuals as a train step runs it; the backward through autograd from
-    one kept forward), the plain version's, one library composition's, and
-    the bound (fp32 operations at the CUDA cores' peak: the port's fp32 GEMM
-    and flash kernels use no tensor cores)."""
+    (phase 3b's limits), the backward's launches timed one by one
+    (``stages_ms``) and run twice for the same bits, then the wrapper's time
+    (the forward with its residuals as a train step runs it; the backward
+    through autograd from one kept forward), the plain version's, one library
+    composition's, and the bound (fp32 operations at the CUDA cores' peak:
+    the port's fp32 GEMM and flash kernels use no tensor cores).  Then #5-#10
+    in fp32 at the same shape (phase 3c / 3d's checks, timed): what a
+    default fp32 run of the unfolded or flash-route layer would pay."""
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(16)
     S, H, nh, FF, rate, eps = BASE_LAB_S, 768, 8, 2048, 0.1, 1e-5
@@ -2629,8 +2816,8 @@ def baseline_kernel_rows(fab, ffn, _build, B=BASE_BATCH):
     for dtype in (torch.float32, torch.bfloat16):
         tag = "float32" if dtype == torch.float32 else "bfloat16"
         peak = FP32_PEAK if dtype == torch.float32 else BF16_PEAK
-        a_err = attention_train_check(fab, _build, gen, dtype, rate, B=B)
-        f_err = ffn_train_check(ffn, _build, gen, dtype, rate, R=B * S)
+        a_err = attention_train_check(fab, _build, gen, dtype, rate, B=B, timed=True, peak=peak)
+        f_err = ffn_train_check(ffn, _build, gen, dtype, rate, R=B * S, timed=True, peak=peak)
 
         inputs, mask, g = _attn_train_case(fab, B, S, H, nh, eps, dtype, gen, N_LABS)
         kw = dict(num_heads=nh, ln_eps=eps)
@@ -2673,7 +2860,9 @@ def baseline_kernel_rows(fab, ffn, _build, B=BASE_BATCH):
             "ms": _time_backward(out, leaves, g), "plain_ms": plain_bwd,
             "library_ms": _attention_library_bwd_ms(inputs, mask, g, nh, eps, rate),
             "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
-            "max_abs_err": a_err["errors"]["dx"]["max_abs_err"]}
+            "max_abs_err": a_err["errors"]["dx"]["max_abs_err"],
+            "stages_run_ms": a_err["ms"], "stages_ms": a_err["stages_ms"],
+            "deterministic": a_err["deterministic"]}
         del out, res, leaves
 
         R = B * S
@@ -2715,9 +2904,34 @@ def baseline_kernel_rows(fab, ffn, _build, B=BASE_BATCH):
             "ms": _time_backward(out, leaves, g), "plain_ms": plain_bwd,
             "library_ms": _ffn_library_bwd_ms(f_in, g, "relu", eps, rate),
             "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
-            "max_abs_err": f_err["errors"]["dx"]["max_abs_err"]}
+            "max_abs_err": f_err["errors"]["dx"]["max_abs_err"],
+            "stages_run_ms": f_err["ms"], "stages_ms": f_err["stages_ms"],
+            "deterministic": f_err["deterministic"]}
         del out, res, leaves
         torch.cuda.empty_cache()
+
+    # #5-#10 in fp32 at B 16: the forward as a train step runs it (with its
+    # residuals), the backward from its cotangent.
+    f32, tag = torch.float32, "float32"
+    blk = block_check(fab, gen, f32, B=B, timed=True, peak=FP32_PEAK)
+    uffn = unfolded_ffn_check(ffn, gen, f32, rate, R=B * S, timed=True, peak=FP32_PEAK)
+    fl = flash_check(flash, gen, f32, B=B, S=S, nh=nh, d=H // nh, mask_kind="lab", timed=True,
+                     peak=FP32_PEAK, stages=False)     # the 01 step's profile splits them
+    for name, row, fwd_err, bwd_err in (
+            ("fused_attention_block", blk, blk["forward"]["max_abs_err"],
+             blk["errors"]["dx"]["max_abs_err"]),
+            ("fused_ffn", uffn, uffn["forward"]["max_abs_err"],
+             uffn["errors"]["dx"]["max_abs_err"]),
+            ("flash_attention", fl, fl["errors"]["o"]["max_abs_err"],
+             max(fl["errors"][n]["max_abs_err"] for n in FLASH_GRADS))):
+        rows[name] = {tag: {"ms": row["fwd_res_ms"], "plain_ms": row["plain_ms"],
+                            "library_ms": row["library_ms"], "bound_ms": row["bound_ms"],
+                            "bound_by": row["bound_by"], "max_abs_err": fwd_err}}
+        rows[name + "_bwd"] = {tag: {
+            "ms": row["bwd_ms"], "plain_ms": row["plain_bwd_ms"],
+            "library_ms": row["library_bwd_ms"], "bound_ms": row["bwd_bound_ms"],
+            "bound_by": row["bwd_bound_by"], "max_abs_err": bwd_err,
+            "stages_ms": row.get("bwd_stages_ms"), "deterministic": row["bwd_deterministic"]}}
     for name, row in rows.items():
         log(f"[baselines] kernel {name} at B{B} S{S}: {json.dumps(row)}")
     return rows
@@ -2791,6 +3005,29 @@ def baseline_fp32_step(name, factory, keys, cfg, device, dtype=torch.float32):
         loss = trainer.train_step(batch)
     return float(loss.detach()), {n: p.grad.detach().cpu() for n, p in model.named_parameters()
                          if p.grad is not None}
+
+
+def fame_default_step(n=BASE_BATCH, seed=9):
+    """``FAMETrainer.train_step`` as a default ``fame`` run trains: fp32, the
+    default ``TrainConfig`` (batch 16), dropout on, the reference geometry
+    with seed-0 weights; the CUDA-event median of 20 after warm-up and the
+    profiler's split."""
+    from fairmultimodal_torch.data.prefetch import to_device
+    from fairmultimodal_torch.models._layers import init_params
+    from fairmultimodal_torch.models.fusion import FAMEModel
+    from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
+
+    trainer = FAMETrainer(init_params(FAMEModel(**TRAIN_GEO, dtype=torch.float32), seed=0),
+                          TrainConfig(), pos_weight=POS_WEIGHT, rngs_seed=0, device="cuda")
+    if trainer.config.batch_size != n:
+        raise AssertionError(f"TrainConfig's batch size {trainer.config.batch_size}, not {n}")
+    a = synthetic_cohort(np.random.default_rng(seed), n)
+    keys = [k for k in a if k != "labels"]
+    batch = to_device({"model_inputs": {k: a[k] for k in keys}, "labels": a["labels"],
+                       "weight": np.ones(n, np.float32)}, trainer.device)
+    out = {"timed": time_train_step(trainer, batch), "profile": profile_train_step(trainer, batch)}
+    del trainer, batch
+    return out
 
 
 def baseline_phase(flash, fab, ffn, addnorm, _build):
@@ -2965,6 +3202,13 @@ def baseline_phase(flash, fab, ffn, addnorm, _build):
         del trainer
         torch.cuda.empty_cache()
 
+    # FAME's default step: what `fame` trains unless --bf16 is given (fp32,
+    # TrainConfig's batch 16, the model's dropout 0.1) at the reference geometry.
+    step["fame_default_float32"] = fame_default_step()
+    log(f"[baselines] FAME default train step fp32 B16: "
+        f"{json.dumps(step['fame_default_float32'])}")
+    torch.cuda.empty_cache()
+
     # 07's step in bf16 with and without dropout: the difference is what the
     # int64 Philox dropout of its per-row BERT costs (ROADMAP queue 3).
     name, factory, keys, cfg = _baseline_models()[2]
@@ -2980,7 +3224,7 @@ def baseline_phase(flash, fab, ffn, addnorm, _build):
     del trainer
     torch.cuda.empty_cache()
 
-    kernel_rows = baseline_kernel_rows(fab, ffn, _build)
+    kernel_rows = baseline_kernel_rows(fab, ffn, flash, _build)
     total = {k: sum(r["launches"][k] for r in runs.values())
              for k in ("fused_attention_block_ln", "fused_ffn_ln",
                        "fused_attention_block_ln_bwd", "fused_ffn_ln_bwd")}
@@ -3029,6 +3273,7 @@ def main() -> int:
     unfolded_rows = unfolded_kernel_phase(fab, ffn, addnorm)
     nt_gemm_phase(_build)
     nn_tn_gemm_phase(_build, fab)
+    f32_gemm_phase(_build, fab)
     flash_rows, flash_layer = flash_kernel_phase(flash)
     launches, slice_info = slice_phase(fab, ffn)
     log(f"[slice] {json.dumps(slice_info)}")
@@ -3127,6 +3372,7 @@ def main() -> int:
             "shape": row["case"], "dtype": "bfloat16", "sources": sources[part],
             "errors": {r["case"]: {"forward": r["forward"], **r["errors"]}
                        for r in unfolded_rows[part]},
+            "baselines_b16": base_rows[name],
         })
     row = next(r for r in flash_rows if "ms" in r)          # lab shape, bf16
     errors = {r["case"]: r["errors"] for r in flash_rows}
@@ -3142,7 +3388,7 @@ def main() -> int:
             "ms": row[pre + "ms"], "plain_ms": row["plain_" + pre + "ms"],
             "bound_ms": row[pre + "bound_ms"], "bound_by": row[pre + "bound_by"],
             "library_ms": row["library_" + pre + "ms"], "shape": row["case"],
-            "dtype": "bfloat16", "errors": errors,
+            "dtype": "bfloat16", "errors": errors, "baselines_b16": base_rows[name],
             **({"fwd_res_ms": row["fwd_res_ms"], "fused_qkv_layer": flash_layer} if not pre
                else {"stages_ms": row["bwd_stages_ms"],
                      "kernel_order": row["kernel_order"]}),

@@ -18,6 +18,22 @@ the flash forward and backward at the lab (B 256, S 560, 8 x 96) and text
 (CUDA-event medians of 20).  Only entry points every tree has are called.
 Give a tree twice (A B A B) to see the spread between repeats.  Lines start
 with GEMM, BWDGEMM, FLASH or FLASHERR.
+
+    python3 compare_kernels.py --fp32 [--steps] TREE [TREE ...]
+
+times the fp32 path instead, at the pipelines' batch 16 (B 16 x S 560, 8 x
+96, FFN 2048): what ``-Xptxas -v`` says of the fp32 GEMM and flash backward
+kernels; each fp32 GEMM stage ("nt" QKV / W2, "nn" dx / dh, "tn" dWo /
+dWqkv / dW1 split-K) against float64 on the card and beside ``F.linear`` /
+``torch.matmul`` with TF32 off (F32GEMM); the fp32 flash backward checked
+against its plain version and timed, its dQ and dK / dV kernels apart from
+the profiler (F32FLASH); and #3 / #4 (the LN-fused backwards) with their
+stages, plain and library times (F32BWD).  With ``--steps`` also FAME's
+default train step (``FAMETrainer.train_step`` at the reference geometry,
+fp32, batch 16, dropout 0.1) and the 01 fp32 step, each a CUDA-event median
+of 20 and profiled (STEP), after phase 8's fp32 rows of #1-#10 at B 16 (ROWS:
+ms, plain, library).  It calls only entry points the parent commit of
+the fp32 redesign has too.
 """
 
 import os
@@ -74,14 +90,135 @@ for kw in (dict(B=256, S=560, nh=8, d=96, mask_kind="lab"), dict(B=32, S=512, nh
 '''
 
 
+_RUN_F32 = r'''
+import json, sys, numpy as np, torch, chip_smoke as c
+from fairmultimodal_torch.ops import _build, flash_attention as flash
+from fairmultimodal_torch.ops import fused_attention_block as fab, fused_ffn as ffn
+torch.backends.cuda.matmul.allow_tf32 = False
+print(json.dumps(c.ptxas_report(_build, ("gemm_f32_kernel", "flash_bwd_dq_f32_kernel",
+                                         "flash_bwd_dkdv_f32_kernel"))), flush=True)
+gen = torch.Generator(device="cuda").manual_seed(7)
+R = 16 * 560
+for name, layout, M, N, K in (("qkv nt", "nt", R, 2304, 768), ("w2 nt", "nt", R, 768, 2048),
+                              ("dx attention nn", "nn", R, 768, 2304),
+                              ("dh nn", "nn", R, 2048, 768), ("dWo tn", "tn", 768, 768, R),
+                              ("dWqkv tn", "tn", 2304, 768, R), ("dW1 tn", "tn", 2048, 768, R)):
+    a = torch.randn(*((K, M) if layout == "tn" else (M, K)), generator=gen, device="cuda")
+    b = torch.randn(*((N, K) if layout == "nt" else (K, N)), generator=gen, device="cuda") * K ** -0.5
+    out = torch.empty(M, N, device="cuda")
+    run = {"nt": lambda: _build.gemm(a, b, out), "nn": lambda: _build.gemm(a, b, out, layout="nn"),
+           "tn": lambda: fab.weight_grad(a, b, out)}[layout]
+    lib = {"nt": lambda: torch.nn.functional.linear(a, b), "nn": lambda: torch.matmul(a, b),
+           "tn": lambda: torch.matmul(a.t(), b)}[layout]
+    want = {"nt": lambda: a.double() @ b.double().t(), "nn": lambda: a.double() @ b.double(),
+            "tn": lambda: a.double().t() @ b.double()}[layout]()
+    run()
+    err = ((out.double() - want).abs().max() / want.abs().max()).item()
+    ms, lib_ms = c.time_ms(run, reps=20), c.time_ms(lib, reps=20)
+    print("F32GEMM", json.dumps({"stage": name, "rel_err_vs_f64": err, "ms": ms,
+                                 "tflops": 2 * M * N * K / ms / 1e9, "library_ms": lib_ms,
+                                 "library_tflops": 2 * M * N * K / lib_ms / 1e9}), flush=True)
+    del a, b, out, want
+    torch.cuda.empty_cache()
+kw = dict(B=16, S=560, nh=8, d=96, mask_kind="lab")
+row = c.flash_check(flash, gen, torch.float32, **kw)
+_, q, k, v, mask, g = c._flash_inputs(16, 560, 8, 96, "dense", "lab", torch.float32, gen)
+with torch.no_grad():
+    q, k, v = (t.detach() for t in (q, k, v))
+    ops = flash._operands(q, k, v, mask)
+    o, stats = flash._forward_kernel(*ops, residuals=True)
+    saved = (*ops[:3], o, stats, ops[3])
+    print("F32FLASH", json.dumps({"rel_err": {n: e["max_abs_err"] / e["max_abs"]
+                                              for n, e in row["errors"].items()},
+                                  "bwd_ms": c.time_ms(lambda: flash._backward_kernel(*saved, g),
+                                                      reps=20),
+                                  "bwd_stages_ms": c._flash_bwd_stages_ms(flash, saved, g)}),
+          flush=True)
+del q, k, v, o, stats, saved, g
+gen = torch.Generator(device="cuda").manual_seed(16)
+for name, check, mod, shape in (("#3 attention", c.attention_train_check, fab, dict(B=16)),
+                                ("#4 ffn", c.ffn_train_check, ffn, dict(R=R))):
+    row = check(mod, _build, gen, torch.float32, 0.1, timed=True, **shape)
+    print("F32BWD", json.dumps({"kernel": name, **{k: row[k] for k in (
+        "ms", "stages_ms", "plain_ms", "library_ms", "fwd_res_ms")}, "deterministic": row.get("deterministic")}), flush=True)
+    torch.cuda.empty_cache()
+if "--steps" in sys.argv:
+    import inspect
+    # Phase 8's rows at B 16 (#1-#4, and #5-#10 where the tree's phase 8 times
+    # them; else the same checks timed here), fp32.
+    if "flash" in inspect.signature(c.baseline_kernel_rows).parameters:
+        rows = c.baseline_kernel_rows(fab, ffn, flash, _build)
+    else:
+        rows = c.baseline_kernel_rows(fab, ffn, _build)
+        gen = torch.Generator(device="cuda").manual_seed(16)
+        blk = c.block_check(fab, gen, torch.float32, B=16, timed=True)
+        uffn = c.unfolded_ffn_check(ffn, gen, torch.float32, 0.1, R=R, timed=True)
+        for name, row in (("fused_attention_block", blk), ("fused_ffn", uffn)):
+            rows[name] = {"float32": {"ms": row["fwd_res_ms"], "plain_ms": row["plain_ms"],
+                                      "library_ms": row["library_ms"]}}
+            rows[name + "_bwd"] = {"float32": {"ms": row["bwd_ms"],
+                                               "plain_ms": row["plain_bwd_ms"],
+                                               "library_ms": row["library_bwd_ms"]}}
+        # #9 / #10 as phase 8 times them (the forward with its residuals).
+        F = torch.nn.functional
+        _, q, k, v, mask, g = c._flash_inputs(16, 560, 8, 96, "dense", "lab", torch.float32, gen)
+        q, k, v = (t.detach() for t in (q, k, v))
+        bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+        with torch.no_grad():
+            ops = flash._operands(q, k, v, mask)
+            o, stats = flash._forward_kernel(*ops, residuals=True)
+            saved = (*ops[:3], o, stats, ops[3])
+            rows["flash_attention"] = {"float32": {
+                "ms": c.time_ms(lambda: flash._forward_kernel(*ops, residuals=True)),
+                "plain_ms": c.time_ms(lambda: flash.flash_attention_reference(q, k, v, mask),
+                                      reps=5),
+                "library_ms": c.time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias))}}
+            bwd = {"ms": c.time_ms(lambda: flash._backward_kernel(*saved, g)),
+                   "plain_ms": c.time_ms(lambda: flash.flash_attention_backward_reference(
+                       q, k, v, mask, g), reps=3)}
+        lib = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        bwd["library_ms"] = c._time_backward(F.scaled_dot_product_attention(
+            *lib, attn_mask=bias), lib, g)
+        rows["flash_attention_bwd"] = {"float32": bwd}
+    print("ROWS", json.dumps({k: {m: v["float32"][m] for m in ("ms", "plain_ms", "library_ms")}
+                              for k, v in rows.items()}), flush=True)
+    torch.cuda.empty_cache()
+    from fairmultimodal_torch.data.prefetch import to_device
+    from fairmultimodal_torch.models._layers import init_params
+    from fairmultimodal_torch.models.fusion import FAMEModel
+    from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
+    from fairmultimodal_torch.train.simple import MultitaskTrainer
+    a = c.synthetic_cohort(np.random.default_rng(9), 16)
+    keys = [k for k in a if k != "labels"]
+    trainer = FAMETrainer(init_params(FAMEModel(**c.TRAIN_GEO, dtype=torch.float32), seed=0),
+                          TrainConfig(), pos_weight=c.POS_WEIGHT, rngs_seed=0, device="cuda")
+    batch = to_device({"model_inputs": {k: a[k] for k in keys}, "labels": a["labels"],
+                       "weight": np.ones(16, np.float32)}, trainer.device)
+    print("STEP", json.dumps({"step": "FAME default fp32 B16",
+                              "timed": c.time_train_step(trainer, batch),
+                              "profile": c.profile_train_step(trainer, batch)}), flush=True)
+    del trainer, batch
+    name, factory, keys, cfg = c._baseline_models()[0]
+    trainer = MultitaskTrainer(init_params(factory(torch.float32), seed=0), cfg, c.POS_WEIGHT,
+                               device="cuda")
+    batch = c._baseline_batch(keys, "cuda")
+    print("STEP", json.dumps({"step": "01 fp32 B16", "timed": c.time_train_step(trainer, batch),
+                              "profile": c.profile_train_step(trainer, batch)}), flush=True)
+'''
+
+
 def main(args) -> int:
-    if not args:
+    fp32, steps = "--fp32" in args, "--steps" in args
+    trees = [a for a in args if a not in ("--fp32", "--steps")]
+    if not trees:
         print(__doc__, file=sys.stderr)
         return 2
     rc = 0
-    for tree in args:
+    for tree in trees:
         print(f"==== {tree}", flush=True)
-        rc |= subprocess.run([sys.executable, "-c", _RUN], cwd=os.path.abspath(tree)).returncode
+        cmd = [sys.executable, "-c", _RUN_F32 if fp32 else _RUN] + (["--steps"] if steps else [])
+        rc |= subprocess.run(cmd, cwd=os.path.abspath(tree)).returncode
     return rc
 
 

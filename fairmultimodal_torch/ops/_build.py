@@ -33,7 +33,8 @@ from fairmultimodal_torch.utils.rng import Dropout
 __all__ = ["KernelLaunchError", "build", "kernels", "gemm", "colsum", "row_block_sums",
            "flash_attn_fwd", "flash_attn_bwd", "flash_attention_fwd", "flash_attention_bwd",
            "add_layernorm", "layernorm_bwd", "ACT_CODES", "FLASH_BWD_TILE", "LN_BWD_ROWS",
-           "SUM_ROWS", "WGMMA_TILE", "flash_bwd_colpart_rows"]
+           "SUM_ROWS", "WGMMA_TILE", "SGEMM_TILE", "GEMM_SCHEDULE", "split_rows",
+           "flash_bwd_colpart_rows"]
 
 _CSRC = Path(__file__).resolve().with_name("csrc")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -46,10 +47,27 @@ ACT_CODES = {"none": 0, "relu": 1, "gelu": 2}
 _GATE_CODES = {None: 0, "relu": 1, "dgelu": 2}
 _LAYOUTS = {"nt": 0, "nn": 1, "tn": 2}
 #: Rows a flash-backward block owns, in both of its kernels (its column
-#: partials have B * ceil(S / tile) rows): bf16 64 = 4 warps x 16, fp32 32.
-FLASH_BWD_TILE = {torch.bfloat16: 64, torch.float32: 32}
+#: partials have B * ceil(S / tile) rows): bf16 64 = 4 warps x 16, fp32 64 =
+#: 16 thread rows x 4.
+FLASH_BWD_TILE = {torch.bfloat16: 64, torch.float32: 64}
 #: The bf16 ``wgmma`` GEMM's block tile (rows, columns): ``gemm.cu``'s WG_BM x WG_BN.
 WGMMA_TILE = (128, 256)
+#: The fp32 CUDA-core GEMM's block tile: ``gemm.cu``'s BM x BN.
+SGEMM_TILE = (128, 128)
+#: Per io dtype, the GEMM kernel's (block tile, blocks resident per SM, K step
+#: of a split, least rows of a split): the wgmma kernel one block of 384
+#: threads with 200 KB of shared memory, the fp32 kernel two of 256
+#: (``__launch_bounds__(THREADS, 2)``); a split's rows are a multiple of the K
+#: step (WG_BK, BK).
+GEMM_SCHEDULE = {torch.bfloat16: (WGMMA_TILE, 1, 64, 2048),
+                 torch.float32: (SGEMM_TILE, 2, 16, 512)}
+
+
+def split_rows(k: int, splits: int, dtype: torch.dtype) -> int:
+    """Rows of K each split of a "tn" GEMM sums (the last may be short), as
+    ``gemm.cu`` computes them: ceil(k / splits) rounded up to the K step."""
+    step = GEMM_SCHEDULE[dtype][2]
+    return -(-(-(-k // splits)) // step) * step
 
 
 def flash_bwd_colpart_rows(batch: int, seq: int, dtype: torch.dtype) -> int:

@@ -82,7 +82,7 @@ namespace {
 
 constexpr int FA_BM = 64;       // query rows per block
 constexpr int FA_BN = 64;       // keys per tile
-constexpr int FA_THREADS = 256;  // the fp32 forward and backward kernels
+constexpr int FA_THREADS = 256;  // the fp32 forward kernel
 constexpr int TSTR = FA_BM + 1;  // transposed q/k tile row stride (bank-conflict pad)
 constexpr int PSTR = FA_BN + 1;  // p tile row stride
 
@@ -671,24 +671,9 @@ cudaError_t launch_fwd(const FwdArgs& a, int dtype, cudaStream_t s) {
 // over the 4 warps in warp order through shared memory: fixed order, the
 // same bits every run.
 //
-// fp32 runs the same two-kernel structure on CUDA cores (32-row tiles,
-// FMA loops, its accumulators and the score / dP tiles in shared memory,
-// p = exp(s * scale + bias - m) / l as the fp32 forward's expf); it serves
-// the card-vs-CPU checks.
-
-constexpr int round128(int bytes) { return (bytes + 127) / 128 * 128; }
-
-// Row max m and sum l of the forward, and D; rows past S get l = inf (so
-// p = 0) and D = 0.
-__device__ __forceinline__ void load_row_stats(const float* stats, const float* Dg, int r0,
-                                               int S, int TL, float* m, float* l, float* D) {
-  for (int i = threadIdx.x; i < TL; i += FA_THREADS) {
-    const bool ok = r0 + i < S;
-    m[i] = ok ? stats[(size_t)(r0 + i) * 2] : 0.0f;
-    l[i] = ok ? stats[(size_t)(r0 + i) * 2 + 1] : INFINITY;
-    if (Dg) D[i] = ok ? Dg[r0 + i] : 0.0f;
-  }
-}
+// fp32 runs the same two-kernel structure on the CUDA cores with register
+// micro-tiles (its own note, below): it is the main path of every fp32 run,
+// which `fame` and every baseline make unless --bf16 is given.
 
 // ---- bf16 backward kernels (mma.sync m16n8k16) ---------------------------------------
 
@@ -1142,216 +1127,412 @@ flash_bwd_dkdv_mma_kernel(Mat<const fm_bf16> Q, Mat<const fm_bf16> K, Mat<const 
 }
 
 // ---- fp32 backward kernels (CUDA cores) ---------------------------------------------
+//
+// What bounds them is the CUDA cores' fp32 rate (67 TFLOP/s on an H100 SXM):
+// at B 16 x S 560 x 8 x 96 the seven [S, S, d] products are 5.4e10 FLOP
+// (0.81 ms) against 0.2 GB of operands.  So the design keeps the FMA pipes
+// fed: a block of 256 threads owns F32_TL = 64 rows and walks the other
+// operand in tiles of TW rows (64; 32 at d 128, where two 64-row stages do not
+// fit beside the owned tiles).  Thread (r, c) of the 16 x 16 grid (warp w,
+// lane l: r = 4 (w / 2) + l / 8, c = 8 (w % 2) + l % 8) owns, of each S / dP
+// tile, rows r + 16 i (i < 4) and walked columns c + 16 j (a 4 x TW/16
+// register micro-tile), and of the dQ (or dK and dV) accumulator rows
+// r + 16 i and columns 2c + 32 jj + {0, 1} in registers for the whole walk.
+// S = own0 . walk0^T and dP = own1 . walk1^T run in one sweep over d (float4
+// reads along d of 4 owned and 8 walked rows per warp, at an odd 16-byte
+// pitch LD = d + 4: one wavefront each); p and ds go to shared memory only as
+// operands of the next products, row-major [64][TW + 8] (the pitch puts a
+// warp's 4 rows 8 banks apart), written conflict-free and read as float4
+// along the walked rows, beside float2 reads of the walked tile (one
+// wavefront each).  The walked tiles come by 16-byte cp.async into
+// a two-stage ring, the next tile's copy running under this tile's FMAs.
+// One block per SM (194 KB of shared memory at d 96), 8 warps.  It reaches
+// ~27 TFLOP/s of executed products (dQ 0.89 + dK/dV 1.09 ms at B 16 x S 560 on
+// the H100, against 2.87 + 3.88 for the 32-row design it replaces); halving
+// the owned-row loads of the S / dP sweep moved it by under 3%, so shared
+// memory is not what holds it, as in the SGEMM (gemm.cu).  Measured in turns
+// and not kept: the first layout (a warp reading 2 owned and 16 walked rows,
+// two wavefronts a walked read), fully unrolled loops, and a dQ kernel of two
+// blocks per SM (32-row walk; 128 registers, 128 bytes of spill): all within 3%.
+// Numerics (the fp32 forward's): s is the fmaf chain over k in order,
+// p = expf(s * scale + bias - m) / l, ds = p * (dp - D) * scale with D =
+// rowsum(dO * O) written by the dQ kernel, bias -1e9 (masked) / -inf (past
+// S); dq, dk, dv are fmaf chains over the walked rows in order; the column
+// partials sum each thread's 4 rows, then the 16 thread rows in order; no
+// float atomics.
 
-constexpr int F32_TL = 32;  // rows of an fp32 backward tile
+constexpr int F32_TL = 64;            // rows a block owns
+constexpr int F32_BWD_THREADS = 256;  // a 16 x 16 grid
 
-// TL rows x d columns of one head (row stride rs) -> dst[TL][LD], zero padded.
-template <int DP, int TL>
-__device__ __forceinline__ void load_rows(const float* __restrict__ src, long long rs, int r0,
-                                          int S, int d, float* dst) {
+template <int DP>
+struct BwdF32Smem {  // byte offsets of the shared-memory regions
+  static constexpr int TW = DP == 128 ? 32 : 64;  // walked rows per tile
+  static constexpr int LD = DP + 4;               // io tile pitch (floats)
+  static constexpr int LP = TW + 8;               // p / ds tile pitch
+  static constexpr int OWN = 0;                                // two owned [64][LD] tiles
+  static constexpr int RING = OWN + 2 * F32_TL * LD * 4;       // 2 stages x 2 walked [TW][LD]
+  static constexpr int PT = RING + 4 * TW * LD * 4;            // p and ds [64][LP]
+  static constexpr int VEC = PT + 2 * F32_TL * LP * 4;         // 2 stages x [3][TW] fp32
+  static constexpr int RED = VEC + 2 * 3 * TW * 4;             // [16][DP] column sums, [64] D
+  static constexpr int BYTES = RED + (16 * DP + F32_TL) * 4;
+};
+
+// Rows [r0, r0 + ROWS) x d columns of one head (row stride rs) ->
+// dst[ROWS][DP + 4], zero filled past S and past d: 16-byte cp.async copies
+// when ``vec``, else element loads and stores (visible after the next
+// barrier either way).
+template <int DP, int ROWS>
+__device__ __forceinline__ void load_tile_f32(const float* __restrict__ src, long long rs, int r0,
+                                              int S, int d, bool vec, float* dst) {
   constexpr int LD = DP + 4;
-  if (vec16(src, rs, d)) {
+  if (vec) {
     constexpr int CPR = DP / 4;
-    for (int c = threadIdx.x; c < TL * CPR; c += FA_THREADS) {
-      const int row = c / CPR;
-      const int col = (c % CPR) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r0 + row < S && col < d)
-        v = *reinterpret_cast<const float4*>(src + (r0 + row) * rs + col);
-      *reinterpret_cast<float4*>(dst + row * LD + col) = v;
+    for (int c = threadIdx.x; c < ROWS * CPR; c += F32_BWD_THREADS) {
+      const int row = c / CPR, col = (c % CPR) * 4;
+      const bool ok = r0 + row < S && col < d;
+      cp_async16(smem_u32(dst + row * LD + col), ok ? src + (r0 + row) * rs + col : src, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < TL * DP; i += FA_THREADS) {
+    for (int i = threadIdx.x; i < ROWS * DP; i += F32_BWD_THREADS) {
       const int row = i / DP, col = i % DP;
       dst[row * LD + col] = (r0 + row < S && col < d) ? src[(r0 + row) * rs + col] : 0.0f;
     }
   }
 }
 
-// C[M][N] (pitch ldc) = (acc ? C : 0) + op(A) . op(B) over depth K.
-// A element (i, k) is A[i*sa + k], or A[k*sa + i] when AT; B element (k, j)
-// is B[k*sb + j], or B[j*sb + k] when BT.
-template <int M, int N, bool AT, bool BT>
-__device__ __forceinline__ void tile_mm(const float* A, int sa, const float* B, int sb, int K,
-                                        float* C, int ldc, bool acc) {
-  for (int e = threadIdx.x; e < M * N; e += FA_THREADS) {
-    const int i = e / N, j = e % N;
-    float s = 0.0f;  // fmaf in k order: the fp32 forward's score arithmetic
-    for (int k = 0; k < K; ++k)
-      s = fmaf(AT ? A[k * sa + i] : A[i * sa + k], BT ? B[j * sb + k] : B[k * sb + j], s);
-    C[i * ldc + j] = acc ? C[i * ldc + j] + s : s;
+// s[i][j] = own0[r + 16 i] . walk0[c + 16 j] and dp[i][j] = own1[r + 16 i] .
+// walk1[c + 16 j] over the padded head dim, each an fmaf chain in k order.
+template <int DP, int NJ>
+__device__ __forceinline__ void scores_f32(const float* own0, const float* own1,
+                                           const float* walk0, const float* walk1, int r, int c,
+                                           float (&s)[4][NJ], float (&dp)[4][NJ]) {
+  constexpr int LD = DP + 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[i][j] = dp[i][j] = 0.0f;
+#pragma unroll 2
+  for (int k = 0; k < DP; k += 4) {
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      const float* own = pass ? own1 : own0;
+      const float* walk = pass ? walk1 : walk0;
+      float4 a[4], w[NJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(own + (r + 16 * i) * LD + k);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        w[j] = *reinterpret_cast<const float4*>(walk + (c + 16 * j) * LD + k);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          float& t = pass ? dp[i][j] : s[i][j];
+          t = fmaf(a[i].x, w[j].x, t);
+          t = fmaf(a[i].y, w[j].y, t);
+          t = fmaf(a[i].z, w[j].z, t);
+          t = fmaf(a[i].w, w[j].w, t);
+        }
+    }
   }
 }
 
-template <int DP>
-struct BwdF32Smem {  // byte offsets of the shared-memory regions
-  static constexpr int TL = F32_TL;
-  static constexpr int LD = DP + 4;  // io tiles [TL][LD]
-  static constexpr int LP = TL + 4;  // p / dS tiles [TL][LP]
-  static constexpr int LS = TL + 4;  // score tiles [TL][LS]
-  static constexpr int T0 = 0;       // four io tiles
-  static constexpr int ACC = T0 + 4 * round128(TL * LD * 4);   // two gradient accumulators [TL][LD]
-  static constexpr int S32 = ACC + 2 * round128(TL * LD * 4);
-  static constexpr int DP32 = S32 + round128(TL * LS * 4);
-  static constexpr int PIO = DP32 + round128(TL * LS * 4);
-  static constexpr int DSIO = PIO + round128(TL * LP * 4);
-  static constexpr int VEC = DSIO + round128(TL * LP * 4);      // 4 x [TL] fp32
-  static constexpr int BYTES = VEC + round128(4 * TL * 4);
-};
-
-__device__ __forceinline__ void load_key_bias(const int* mrow, int k0, int S, int TL,
-                                              float* kbias) {
-  for (int i = threadIdx.x; i < TL; i += FA_THREADS) kbias[i] = key_bias(mrow, k0 + i, S);
+// acc[i][jj][h] += sum over walked rows t of X[r + 16 i][t] * W[t][2c + 32 jj + h],
+// in t order: X a [64][TW + 8] p / ds tile, W a walked [TW][DP + 4] tile.
+template <int DP, int TW>
+__device__ __forceinline__ void accum_f32(const float* X, const float* W, int r, int c,
+                                          float (&acc)[4][DP / 32][2]) {
+  constexpr int LD = DP + 4, LP = TW + 8, NC = DP / 32;
+#pragma unroll 2
+  for (int t = 0; t < TW; t += 4) {
+    float4 x4[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x4[i] = *reinterpret_cast<const float4*>(X + (r + 16 * i) * LP + t);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int jj = 0; jj < NC; ++jj) {
+        const float2 w = *reinterpret_cast<const float2*>(W + (t + u) * LD + 2 * c + 32 * jj);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float x = u == 0 ? x4[i].x : u == 1 ? x4[i].y : u == 2 ? x4[i].z : x4[i].w;
+          acc[i][jj][0] = fmaf(x, w.x, acc[i][jj][0]);
+          acc[i][jj][1] = fmaf(x, w.y, acc[i][jj][1]);
+        }
+      }
+    }
+  }
 }
 
-// Write rows [r0, r0 + TL) of an fp32 accumulator tile to dst (row stride
-// rs) and, when colpart is not null, the column sums of its valid rows to
-// colpart.
-template <int TL>
-__device__ __forceinline__ void write_grad(const float* acc, int la, float* dst, long long rs,
-                                           int r0, int S, int d, float* colpart) {
-  for (int e = threadIdx.x; e < TL * d; e += FA_THREADS) {
-    const int i = e / d, c = e % d;
-    if (r0 + i < S) dst[(r0 + i) * rs + c] = acc[i * la + c];
+// Rows r0 + r + 16 i (< S), columns < d of a thread's accumulator into one head
+// (row stride rs) and, with dst_sum, the column sums over the tile's valid
+// rows: each thread's 4 rows, then the 16 thread rows in order (red [16][DP]).
+template <int NC>
+__device__ __forceinline__ void write_grad_f32(const float (&acc)[4][NC][2], float* dst,
+                                               long long rs, int r0, int S, int d, int r, int c,
+                                               float* red, float* dst_sum) {
+  constexpr int DP = NC * 32;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + r + 16 * i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int jj = 0; jj < NC; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = 2 * c + 32 * jj + h;
+        if (col < d) dst[row * rs + col] = acc[i][jj][h];
+      }
   }
-  if (!colpart) return;
-  for (int c = threadIdx.x; c < d; c += FA_THREADS) {
+  if (!dst_sum) return;
+  __syncthreads();  // red is free (a previous call's readers are done)
+#pragma unroll
+  for (int jj = 0; jj < NC; ++jj)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (r0 + r + 16 * i < S) s += acc[i][jj][h];
+      red[r * DP + 2 * c + 32 * jj + h] = s;
+    }
+  __syncthreads();
+  for (int col = threadIdx.x; col < d; col += F32_BWD_THREADS) {
     float s = 0.0f;
-    for (int i = 0; i < TL && r0 + i < S; ++i) s += acc[i * la + c];
-    colpart[c] = s;
+#pragma unroll
+    for (int w = 0; w < 16; ++w) s += red[w * DP + col];
+    dst_sum[col] = s;
   }
 }
 
+// dQ of 64 query rows of one (batch, head), and D of those rows.
 template <int DP>
-__global__ void __launch_bounds__(FA_THREADS)
+__global__ void __launch_bounds__(F32_BWD_THREADS, 1)
 flash_bwd_dq_f32_kernel(Mat<const float> Q, Mat<const float> K, Mat<const float> V,
                         Mat<const float> O, Mat<const float> dO, Mask mask,
                         const float* __restrict__ stats, float* __restrict__ Dg, Mat<float> dQg,
                         float* __restrict__ colpart, int S, int nh, int d, float scale) {
   using L = BwdF32Smem<DP>;
-  constexpr int TL = L::TL;
+  constexpr int TW = L::TW, LD = L::LD, LP = L::LP, NJ = TW / 16, NC = DP / 32;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw + L::T0);
-  float* dOs = Qs + TL * L::LD;
-  float* Ks = dOs + TL * L::LD;
-  float* Vs = Ks + TL * L::LD;
-  float* dQ = reinterpret_cast<float*>(smem_raw + L::ACC);
-  float* S32 = reinterpret_cast<float*>(smem_raw + L::S32);
-  float* dP32 = reinterpret_cast<float*>(smem_raw + L::DP32);
-  float* dS = reinterpret_cast<float*>(smem_raw + L::DSIO);
-  float* m_s = reinterpret_cast<float*>(smem_raw + L::VEC);
-  float* l_s = m_s + TL;
-  float* D_s = l_s + TL;
-  float* kbias = D_s + TL;
+  float* Qs = reinterpret_cast<float*>(smem_raw + L::OWN);
+  float* dOs = Qs + F32_TL * LD;
+  float* ring = reinterpret_cast<float*>(smem_raw + L::RING);  // stage st: k, v at 2st, 2st+1
+  float* dSs = reinterpret_cast<float*>(smem_raw + L::PT);
+  float* kbias = reinterpret_cast<float*>(smem_raw + L::VEC);  // stage st at st * 3 * TW
+  float* red = reinterpret_cast<float*>(smem_raw + L::RED);
+  float* Dsh = red + 16 * DP;
 
-  const int q0 = blockIdx.x * TL;
+  const int r = threadIdx.x / 64 * 4 + threadIdx.x % 32 / 8;
+  const int c = threadIdx.x / 32 % 2 * 8 + threadIdx.x % 8;
+  const int q0 = blockIdx.x * F32_TL;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const float* qb = Q.head(b, h);
+  const float* kb = K.head(b, h);
+  const float* vb = V.head(b, h);
   const float* ob = O.head(b, h);
   const float* gb = dO.head(b, h);
   const int* mrow = mask.row(b);
   const size_t srow = ((size_t)b * nh + h) * S;  // row offset into stats / D
+  const bool kv_vec = vec16(kb, K.sr, d) && vec16(vb, V.sr, d);
+  auto stage = [&](int st, int which) { return ring + (2 * st + which) * TW * LD; };
+  auto load_kv = [&](int k0, int st) {
+    load_tile_f32<DP, TW>(kb, K.sr, k0, S, d, kv_vec, stage(st, 0));
+    load_tile_f32<DP, TW>(vb, V.sr, k0, S, d, kv_vec, stage(st, 1));
+  };
 
-  load_rows<DP, TL>(Q.head(b, h), Q.sr, q0, S, d, Qs);
-  load_rows<DP, TL>(gb, dO.sr, q0, S, d, dOs);
-  load_row_stats(stats + srow * 2, nullptr, q0, S, TL, m_s, l_s, D_s);
-  // D_i = rowsum(dO * O), one warp per row.
-  for (int i = threadIdx.x / 32; i < TL; i += FA_THREADS / 32) {
-    float s = 0.0f;
-    if (q0 + i < S)
-      for (int c = threadIdx.x % 32; c < d; c += 32) s += gb[(q0 + i) * dO.sr + c] * ob[(q0 + i) * O.sr + c];
-    s = fm::warp_sum(s);
-    if (threadIdx.x % 32 == 0) {
-      D_s[i] = s;
-      if (q0 + i < S) Dg[srow + q0 + i] = s;
-    }
+  load_tile_f32<DP, F32_TL>(qb, Q.sr, q0, S, d, vec16(qb, Q.sr, d), Qs);
+  load_tile_f32<DP, F32_TL>(gb, dO.sr, q0, S, d, vec16(gb, dO.sr, d), dOs);
+  load_kv(0, 0);
+  cp_async_commit();
+  if (threadIdx.x < TW) kbias[threadIdx.x] = key_bias(mrow, threadIdx.x, S);
+  // m and l of rows r + 16 i (0 and inf past S: then p = 0).
+  float m_r[4], l_r[4], D_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + r + 16 * i;
+    m_r[i] = row < S ? stats[(srow + row) * 2] : 0.0f;
+    l_r[i] = row < S ? stats[(srow + row) * 2 + 1] : INFINITY;
   }
-  for (int e = threadIdx.x; e < TL * L::LD; e += FA_THREADS) dQ[e] = 0.0f;
+  cp_async_wait_all();
+  __syncthreads();
 
-  for (int k0 = 0; k0 < S; k0 += TL) {
-    __syncthreads();  // previous tile fully consumed; D_s, Qs, dOs ready
-    load_rows<DP, TL>(K.head(b, h), K.sr, k0, S, d, Ks);
-    load_rows<DP, TL>(V.head(b, h), V.sr, k0, S, d, Vs);
-    load_key_bias(mrow, k0, S, TL, kbias);
-    __syncthreads();
-    tile_mm<TL, TL, false, true>(Qs, L::LD, Ks, L::LD, DP, S32, L::LS, false);
-    tile_mm<TL, TL, false, true>(dOs, L::LD, Vs, L::LD, DP, dP32, L::LS, false);
-    __syncthreads();
-    for (int e = threadIdx.x; e < TL * TL; e += FA_THREADS) {
-      const int i = e / TL, j = e % TL;
-      const float p = expf(S32[i * L::LS + j] * scale + kbias[j] - m_s[i]) / l_s[i];
-      dS[i * L::LP + j] = p * (dP32[i * L::LS + j] - D_s[i]) * scale;
+  // D = rowsum(dO * O): 4 threads per row over every 4th column, then shuffles.
+  {
+    const int lr = threadIdx.x / 4, row = q0 + lr;
+    float s = 0.0f;
+    if (row < S)
+      for (int col = threadIdx.x % 4; col < d; col += 4)
+        s += dOs[lr * LD + col] * ob[row * O.sr + col];
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    if (threadIdx.x % 4 == 0) {
+      Dsh[lr] = s;
+      if (row < S) Dg[srow + row] = s;
     }
-    __syncthreads();
-    tile_mm<TL, DP, false, false>(dS, L::LP, Ks, L::LD, TL, dQ, L::LD, true);
   }
   __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) D_r[i] = Dsh[r + 16 * i];
+
+  float dq[4][NC][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NC; ++jj) dq[i][jj][0] = dq[i][jj][1] = 0.0f;
+
+  const int ntiles = (S + TW - 1) / TW;
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    const bool next = it + 1 < ntiles;
+    float nbias = 0.0f;  // the next tile's key bias, stored after this tile's products
+    if (next) {
+      load_kv((it + 1) * TW, st ^ 1);
+      if (threadIdx.x < TW) nbias = key_bias(mrow, (it + 1) * TW + threadIdx.x, S);
+    }
+    cp_async_commit();
+
+    const float* ks = stage(st, 0);
+    float s[4][NJ], dp[4][NJ];
+    scores_f32<DP, NJ>(Qs, dOs, ks, stage(st, 1), r, c, s, dp);
+    const float* kbs = kbias + st * 3 * TW;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float kbj = kbs[c + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = expf(s[i][j] * scale + kbj - m_r[i]) / l_r[i];
+        dSs[(r + 16 * i) * LP + c + 16 * j] = p * (dp[i][j] - D_r[i]) * scale;
+      }
+    }
+    __syncthreads();  // the ds tile is whole
+    accum_f32<DP, TW>(dSs, ks, r, c, dq);  // dq += ds . k
+
+    if (next && threadIdx.x < TW) kbias[(st ^ 1) * 3 * TW + threadIdx.x] = nbias;
+    cp_async_wait_all();  // the next tile has landed ...
+    __syncthreads();      // ... and every warp is done with this one (and with ds)
+  }
+
   const long long cps = 3LL * nh * d;  // colpart row: dq | dk | dv, head h at h*d
-  write_grad<TL>(dQ, L::LD, dQg.head(b, h), dQg.sr, q0, S, d,
-                 colpart ? colpart + ((size_t)b * gridDim.x + blockIdx.x) * cps + (size_t)h * d
-                         : nullptr);
+  write_grad_f32<NC>(dq, dQg.head(b, h), dQg.sr, q0, S, d, r, c, red,
+                     colpart ? colpart + ((size_t)b * gridDim.x + blockIdx.x) * cps + (size_t)h * d
+                             : nullptr);
 }
 
+// dK and dV of 64 key rows of one (batch, head), after flash_bwd_dq_f32_kernel.
 template <int DP>
-__global__ void __launch_bounds__(FA_THREADS)
+__global__ void __launch_bounds__(F32_BWD_THREADS, 1)
 flash_bwd_dkdv_f32_kernel(Mat<const float> Q, Mat<const float> K, Mat<const float> V,
                           Mat<const float> dO, Mask mask, const float* __restrict__ stats,
                           const float* __restrict__ Dg, Mat<float> dKg, Mat<float> dVg,
                           float* __restrict__ colpart, int S, int nh, int d, float scale) {
   using L = BwdF32Smem<DP>;
-  constexpr int TL = L::TL;
+  constexpr int TW = L::TW, LD = L::LD, LP = L::LP, NJ = TW / 16, NC = DP / 32;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw + L::T0);
-  float* Vs = Ks + TL * L::LD;
-  float* Qs = Vs + TL * L::LD;
-  float* dOs = Qs + TL * L::LD;
-  float* dK = reinterpret_cast<float*>(smem_raw + L::ACC);
-  float* dV = dK + TL * L::LD;
-  float* S32 = reinterpret_cast<float*>(smem_raw + L::S32);
-  float* dP32 = reinterpret_cast<float*>(smem_raw + L::DP32);
-  float* P = reinterpret_cast<float*>(smem_raw + L::PIO);
-  float* dS = reinterpret_cast<float*>(smem_raw + L::DSIO);
-  float* m_s = reinterpret_cast<float*>(smem_raw + L::VEC);
-  float* l_s = m_s + TL;
-  float* D_s = l_s + TL;
-  float* kbias = D_s + TL;
+  float* Ks = reinterpret_cast<float*>(smem_raw + L::OWN);
+  float* Vs = Ks + F32_TL * LD;
+  float* ring = reinterpret_cast<float*>(smem_raw + L::RING);  // stage st: q, dO at 2st, 2st+1
+  float* Ps = reinterpret_cast<float*>(smem_raw + L::PT);
+  float* dSs = Ps + F32_TL * LP;
+  float* vecs = reinterpret_cast<float*>(smem_raw + L::VEC);   // stage st: m, l, D of TW rows
+  float* red = reinterpret_cast<float*>(smem_raw + L::RED);
 
-  const int k0 = blockIdx.x * TL;
+  const int r = threadIdx.x / 64 * 4 + threadIdx.x % 32 / 8;
+  const int c = threadIdx.x / 32 % 2 * 8 + threadIdx.x % 8;
+  const int k0 = blockIdx.x * F32_TL;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const float* qb = Q.head(b, h);
+  const float* gb = dO.head(b, h);
+  const float* kh = K.head(b, h);
+  const float* vh = V.head(b, h);
+  const int* mrow = mask.row(b);
   const size_t srow = ((size_t)b * nh + h) * S;
+  const bool qg_vec = vec16(qb, Q.sr, d) && vec16(gb, dO.sr, d);
+  auto stage = [&](int st, int which) { return ring + (2 * st + which) * TW * LD; };
+  auto load_qg = [&](int q0, int st) {
+    load_tile_f32<DP, TW>(qb, Q.sr, q0, S, d, qg_vec, stage(st, 0));
+    load_tile_f32<DP, TW>(gb, dO.sr, q0, S, d, qg_vec, stage(st, 1));
+  };
+  // m, l and D of query row q (0, inf, 0 past S: then p = 0 and ds = 0).
+  auto row_vec = [&](int q, float& m, float& l, float& D) {
+    const bool ok = q < S;
+    m = ok ? stats[(srow + q) * 2] : 0.0f;
+    l = ok ? stats[(srow + q) * 2 + 1] : INFINITY;
+    D = ok ? Dg[srow + q] : 0.0f;
+  };
+  auto put_vec = [&](int st, float m, float l, float D) {
+    float* v = vecs + st * 3 * TW;
+    v[threadIdx.x] = m;
+    v[TW + threadIdx.x] = l;
+    v[2 * TW + threadIdx.x] = D;
+  };
 
-  load_rows<DP, TL>(K.head(b, h), K.sr, k0, S, d, Ks);
-  load_rows<DP, TL>(V.head(b, h), V.sr, k0, S, d, Vs);
-  load_key_bias(mask.row(b), k0, S, TL, kbias);
-  for (int e = threadIdx.x; e < 2 * TL * L::LD; e += FA_THREADS) dK[e] = 0.0f;
-
-  for (int q0 = 0; q0 < S; q0 += TL) {
-    __syncthreads();  // previous tile fully consumed
-    load_rows<DP, TL>(Q.head(b, h), Q.sr, q0, S, d, Qs);
-    load_rows<DP, TL>(dO.head(b, h), dO.sr, q0, S, d, dOs);
-    load_row_stats(stats + srow * 2, Dg + srow, q0, S, TL, m_s, l_s, D_s);
-    __syncthreads();
-    tile_mm<TL, TL, false, true>(Qs, L::LD, Ks, L::LD, DP, S32, L::LS, false);
-    tile_mm<TL, TL, false, true>(dOs, L::LD, Vs, L::LD, DP, dP32, L::LS, false);
-    __syncthreads();
-    for (int e = threadIdx.x; e < TL * TL; e += FA_THREADS) {
-      const int i = e / TL, j = e % TL;  // query i, key j
-      const float p = expf(S32[i * L::LS + j] * scale + kbias[j] - m_s[i]) / l_s[i];
-      P[i * L::LP + j] = p;
-      dS[i * L::LP + j] = p * (dP32[i * L::LS + j] - D_s[i]) * scale;
-    }
-    __syncthreads();
-    tile_mm<TL, DP, true, false>(P, L::LP, dOs, L::LD, TL, dV, L::LD, true);
-    tile_mm<TL, DP, true, false>(dS, L::LP, Qs, L::LD, TL, dK, L::LD, true);
+  load_tile_f32<DP, F32_TL>(kh, K.sr, k0, S, d, vec16(kh, K.sr, d), Ks);
+  load_tile_f32<DP, F32_TL>(vh, V.sr, k0, S, d, vec16(vh, V.sr, d), Vs);
+  load_qg(0, 0);
+  cp_async_commit();
+  if (threadIdx.x < TW) {
+    float m, l, D;
+    row_vec(threadIdx.x, m, l, D);
+    put_vec(0, m, l, D);
   }
+  float kb_r[4];  // the key bias of this thread's 4 key rows
+#pragma unroll
+  for (int i = 0; i < 4; ++i) kb_r[i] = key_bias(mrow, k0 + r + 16 * i, S);
+  cp_async_wait_all();
   __syncthreads();
+
+  float dk[4][NC][2], dv[4][NC][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NC; ++jj) dk[i][jj][0] = dk[i][jj][1] = dv[i][jj][0] = dv[i][jj][1] = 0.0f;
+
+  const int ntiles = (S + TW - 1) / TW;
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    const bool next = it + 1 < ntiles;
+    float nm = 0.0f, nl = 0.0f, nD = 0.0f;  // the next tile's row vectors, stored after the products
+    if (next) {
+      load_qg((it + 1) * TW, st ^ 1);
+      if (threadIdx.x < TW) row_vec((it + 1) * TW + threadIdx.x, nm, nl, nD);
+    }
+    cp_async_commit();
+
+    // s^T = k . q^T and dp^T = v . dO^T: rows are keys, columns queries.
+    const float* qs = stage(st, 0);
+    const float* gs = stage(st, 1);
+    float s[4][NJ], dp[4][NJ];
+    scores_f32<DP, NJ>(Ks, Vs, qs, gs, r, c, s, dp);
+    const float* vm = vecs + st * 3 * TW;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int q = c + 16 * j;
+      const float m = vm[q], l = vm[TW + q], D = vm[2 * TW + q];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = expf(s[i][j] * scale + kb_r[i] - m) / l;
+        Ps[(r + 16 * i) * LP + q] = p;
+        dSs[(r + 16 * i) * LP + q] = p * (dp[i][j] - D) * scale;
+      }
+    }
+    __syncthreads();  // the p and ds tiles are whole
+    accum_f32<DP, TW>(Ps, gs, r, c, dv);   // dv += p^T . dO
+    accum_f32<DP, TW>(dSs, qs, r, c, dk);  // dk += ds^T . q
+
+    if (next && threadIdx.x < TW) put_vec(st ^ 1, nm, nl, nD);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
   const long long cps = 3LL * nh * d;
   const long long H = (long long)nh * d;
   float* cp = colpart ? colpart + ((size_t)b * gridDim.x + blockIdx.x) * cps + (size_t)h * d
                       : nullptr;
-  write_grad<TL>(dK, L::LD, dKg.head(b, h), dKg.sr, k0, S, d, cp ? cp + H : nullptr);
-  write_grad<TL>(dV, L::LD, dVg.head(b, h), dVg.sr, k0, S, d, cp ? cp + 2 * H : nullptr);
+  write_grad_f32<NC>(dk, dKg.head(b, h), dKg.sr, k0, S, d, r, c, red, cp ? cp + H : nullptr);
+  write_grad_f32<NC>(dv, dVg.head(b, h), dVg.sr, k0, S, d, r, c, red, cp ? cp + 2 * H : nullptr);
 }
 
 struct BwdArgs {
@@ -1399,13 +1580,13 @@ cudaError_t launch_bwd_f32(const BwdArgs& a, cudaStream_t s) {
                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.S + F32_TL - 1) / F32_TL, a.nh, a.B);
-  flash_bwd_dq_f32_kernel<DP><<<grid, FA_THREADS, bytes, s>>>(
+  flash_bwd_dq_f32_kernel<DP><<<grid, F32_BWD_THREADS, bytes, s>>>(
       as_mat<const float>(a.q), as_mat<const float>(a.k), as_mat<const float>(a.v),
       as_mat<const float>(a.o), as_mat<const float>(a.dout), a.mask, a.stats, a.D,
       as_mat<float>(a.dq), a.colpart, a.S, a.nh, a.d, a.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dkdv_f32_kernel<DP><<<grid, FA_THREADS, bytes, s>>>(
+  flash_bwd_dkdv_f32_kernel<DP><<<grid, F32_BWD_THREADS, bytes, s>>>(
       as_mat<const float>(a.q), as_mat<const float>(a.k), as_mat<const float>(a.v),
       as_mat<const float>(a.dout), a.mask, a.stats, a.D, as_mat<float>(a.dk),
       as_mat<float>(a.dv), a.colpart, a.S, a.nh, a.d, a.scale);

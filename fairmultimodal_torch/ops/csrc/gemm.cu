@@ -46,8 +46,13 @@
 //     immediate, so no operand is ever transposed in memory.  At 128 x 256
 //     a tile needs about 11 TB/s of L2 traffic for the peak rate, so L2
 //     rather than the tensor cores may bound it.
-//   - fp32 (any layout): CUDA-core FMA with 8x8 outputs per thread (full
-//     fp32, no TF32); it serves the card-vs-CPU checks, not the main path.
+//   - fp32 (any layout): gemm_f32_kernel, register-blocked FFMA on the CUDA
+//     cores (full IEEE fp32, no TF32) fed by a four-slice ring (below).  It
+//     is the main path of every fp32 run: `fame` and every baseline build
+//     their models in fp32 unless --bf16 is given, so a default run trains
+//     through it.  What bounds it is the CUDA cores' fp32 rate (67 TFLOP/s
+//     on an H100 SXM): each lab product at batch 16 needs 10x or more the
+//     time of its bytes.
 // The epilogue is chosen at compile time (Mode) and works on groups of 8
 // (bf16) or 4 (fp32) consecutive columns: 16-byte loads and stores and one
 // Philox call per 4 elements, so at K = 768 it stays small next to the
@@ -68,12 +73,6 @@
 #include "philox.cuh"
 
 namespace {
-
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 16;
-constexpr int THREADS = 256;
-constexpr int PAD = 4;  // keeps rows 16-byte aligned, shifts banks
 
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2 };
 enum Gate { GATE_NONE = 0, GATE_RELU = 1, GATE_DGELU = 2 };
@@ -235,56 +234,145 @@ __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, i
 }
 
 // ---- fp32 CUDA-core kernel ------------------------------------------------------
+//
+// C[M, N] = epilogue(op(A) . op(B)) in full IEEE fp32: one fmaf per product on
+// the CUDA cores, no TF32.  A 128 x 128 output tile per block of 256 threads,
+// two blocks per SM (64 accumulators a thread, at most 128 registers).  Warp w
+// owns a 32 x 64 warp tile (rows 32 (w / 2).., columns 64 (w % 2)..); lane l
+// of it rows 4 (l / 8) + {0..3} and + 16, columns 4 (l % 8) + {0..3} and + 32
+// (its 8 x 8 micro-tile, which the epilogue takes as 16-byte groups).  Each
+// 16-deep K slice of A and B sits in shared memory as [16 K][128 MN] with MN
+// contiguous, so a thread reads 2 + 2 float4 per k for 64 FMA, and a warp's
+// four reads are 4 (A) and 8 (B) distinct 16-byte groups: one wavefront each.
+// The 4-float groups of row k are XOR swizzled by (k >> 1) & 6 (swz below):
+// reads stay whole float4, and the transposed stores of a K-major operand
+// (below) land on 32 distinct banks.
+// A ring of F32_STAGES slices hides global latency, one barrier per slice:
+//   - an MN-major operand ("nn" B, both "tn" operands; stored [K, MN]) comes
+//     by 16-byte cp.async straight into its slot, F32_STAGES - 1 slices ahead;
+//   - a K-major operand ("nt" A and B, "nn" A; stored [MN, K]) is read 16
+//     bytes at a time into registers (2 float4 a thread, 4 threads per 64-byte
+//     row piece) when its slice is issued, and stored transposed into the ring
+//     after this slice's FMAs, so its global latency runs under them too.
+// K order: each accumulator is one fmaf chain over k = kb, kb + 1, ... of its
+// split in increasing order (slices past the end add 0 * 0); split-K partials
+// [splits, M, N] are then added by fm_colsum in split order, so a weight grad
+// is the same bits every run.  Kc (rows per split) is a multiple of BK.
+// Bound: the CUDA cores' fp32 rate (67 TFLOP/s on an H100 SXM; an FFMA loop
+// reaches 64 at 1980 MHz); at the lab shapes every product's operations take
+// 10x or more the time of its bytes.  It reaches 30-37 TFLOP/s on the H100
+// (cuBLAS: 44-48 on the same operands) at 1980 MHz and 400-600 W, so it
+// stalls rather than saturates the card.  Ablations on the H100 (timed with
+// wrong results): dropping the barrier per slice changes nothing; dropping
+// the main loop's global-to-shared loads gives 42-45 TFLOP/s (tn +13%, nt
+// +24%: the K-major register staging costs most); dropping the shared-memory
+// reads gives 40-45.  So the load instructions every thread issues are the
+// largest cost; slices filled by TMA from one thread are the next step.  Tried
+// in turns, none faster: the first 16-wide warp layout, unswizzled slices with
+// lane-per-row K-major loads (nt 13% slower), and 8 x 16 micro-tiles on 128
+// threads (255 registers, 8 warps per SM).
 
-// Stage a [128 x BK] slice into tile[BK][128 + PAD] from a matrix whose
-// rows are the tile's 128 rows and which is contiguous along K ([rows, K]);
-// rows past nrows are zero.
-__device__ __forceinline__ void stage_f32_rows(const float* __restrict__ src, int nrows, int K,
-                                               int r0, int k0, float (*tile)[BM + PAD]) {
-  constexpr int VPR = BK / 4;  // float4 vectors per tile row
-  for (int v = threadIdx.x; v < BM * VPR; v += THREADS) {
-    const int row = v / VPR;
-    const int kk = (v % VPR) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + row < nrows)
-      x = *reinterpret_cast<const float4*>(src + (size_t)(r0 + row) * K + k0 + kk);
-    tile[kk][row] = x.x;
-    tile[kk + 1][row] = x.y;
-    tile[kk + 2][row] = x.z;
-    tile[kk + 3][row] = x.w;
-  }
+constexpr int BM = 128;
+constexpr int BN = 128;
+constexpr int BK = 16;
+constexpr int THREADS = 256;
+constexpr int F32_STAGES = 4;
+constexpr int F32_TILE = BK * BM;                        // floats of one operand slice
+constexpr int F32_SMEM = F32_STAGES * 2 * F32_TILE * 4;  // 64 KB: two blocks per SM
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared, asynchronously; zero fill when !ok (nothing is read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The same slice from a matrix stored [K, ncols] (contiguous along the
-// tile's 128 columns); ncols % 4 == 0, rows from kend on are zero.
-__device__ __forceinline__ void stage_f32_cols(const float* __restrict__ src, int ncols,
-                                               int c0, int k0, int kend,
-                                               float (*tile)[BM + PAD]) {
-  constexpr int VPR = BM / 4;
-  for (int v = threadIdx.x; v < BK * VPR; v += THREADS) {
-    const int kk = v / VPR;
-    const int c = (v % VPR) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c0 + c < ncols && k0 + kk < kend)
-      x = *reinterpret_cast<const float4*>(src + (size_t)(k0 + kk) * ncols + c0 + c);
-    *reinterpret_cast<float4*>(&tile[kk][c]) = x;
+// Float offset of the 4-float group g of row k in a swizzled [BK][128] slice.
+__device__ __forceinline__ int swz(int k, int g) { return k * BM + ((g ^ ((k >> 1) & 6)) << 2); }
+
+// A K-major operand [nrows, K] (K % 16 == 0): rows r0.. x K k0..k0+15 into
+// registers, 4 threads per row (zero past nrows) ...
+__device__ __forceinline__ void fetch_kmajor(const float* __restrict__ src, int nrows, int K,
+                                             int r0, int k0, float4 (&r)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int v = threadIdx.x + i * THREADS;
+    const int row = v >> 2;
+    r[i] = r0 + row < nrows
+               ? *reinterpret_cast<const float4*>(src + (size_t)(r0 + row) * K + k0 + (v & 3) * 4)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+// ... and from them, transposed, into a slice: a warp's 8 rows x 4 K groups
+// fall on 32 distinct banks for each of the 4 stores.
+__device__ __forceinline__ void store_kmajor(const float4 (&r)[2], float* tile) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int v = threadIdx.x + i * THREADS;
+    const int row = v >> 2, kk = (v & 3) * 4;
+    const float x[4] = {r[i].x, r[i].y, r[i].z, r[i].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tile[swz(kk + e, row >> 2) + (row & 3)] = x[e];
+  }
+}
+// An MN-major operand [K, ncols] (ncols % 4 == 0): K rows k0..k0+15 (zero
+// from kend on) x columns c0..c0+127 (zero past ncols), by cp.async.
+__device__ __forceinline__ void copy_mnmajor(const float* __restrict__ src, int ncols, int c0,
+                                             int k0, int kend, float* tile) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int v = threadIdx.x + i * THREADS;
+    const int kk = v >> 5, g = v & 31;
+    const bool ok = c0 + 4 * g < ncols && k0 + kk < kend;
+    cp_async16(smem_u32(tile + swz(kk, g)),
+               ok ? src + (size_t)(k0 + kk) * ncols + c0 + 4 * g : src, ok);
   }
 }
 
 template <int AT, int BT, int MODE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
                 int M, int N, int K, int Kc, Epi e) {
-  __shared__ __align__(16) float As[BK][BM + PAD];
-  __shared__ __align__(16) float Bs[BK][BN + PAD];
-  __shared__ float colsum[16][BN];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  extern __shared__ __align__(16) float ring[];  // stage s: A slice, then B slice
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ga = (warp / 2) * 8 + lane / 8;   // 4-row groups ga and ga + 4 of the tile
+  const int gb = (warp % 2) * 16 + lane % 8;  // 4-column groups gb and gb + 8
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   const int kb = blockIdx.z * Kc;
   const int kend = min(kb + Kc, K);
+  const int nk = kend > kb ? (kend - kb + BK - 1) / BK : 0;
   C += (size_t)blockIdx.z * M * N;
+
+  float4 ra[2], rb[2];  // the K-major operands' slice in flight
+  auto slice_a = [&](int s) { return ring + s * 2 * F32_TILE; };
+  auto slice_b = [&](int s) { return ring + s * 2 * F32_TILE + F32_TILE; };
+  auto issue = [&](int t, int s) {
+    const int k0 = kb + t * BK;
+    if (AT) copy_mnmajor(A, M, m0, k0, kend, slice_a(s)); else fetch_kmajor(A, M, K, m0, k0, ra);
+    if (BT) copy_mnmajor(B, N, n0, k0, kend, slice_b(s)); else fetch_kmajor(B, N, K, n0, k0, rb);
+  };
+  auto park = [&](int s) {
+    if (!AT) store_kmajor(ra, slice_a(s));
+    if (!BT) store_kmajor(rb, slice_b(s));
+  };
+#pragma unroll
+  for (int s = 0; s < F32_STAGES - 1; ++s) {
+    if (s < nk) {
+      issue(s, s);
+      park(s);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<F32_STAGES - 2>();
+  __syncthreads();
 
   float acc[8][8];
 #pragma unroll
@@ -292,51 +380,75 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float*
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = kb; k0 < kend; k0 += BK) {
-    if (AT) stage_f32_cols(A, M, m0, k0, kend, As); else stage_f32_rows(A, M, K, m0, k0, As);
-    if (BT) stage_f32_cols(B, N, n0, k0, kend, Bs); else stage_f32_rows(B, N, K, n0, k0, Bs);
-    __syncthreads();
+  for (int t = 0; t < nk; ++t) {
+    const int ns = (t + F32_STAGES - 1) % F32_STAGES;  // freed by the last barrier
+    const bool more = t + F32_STAGES - 1 < nk;
+    if (more) issue(t + F32_STAGES - 1, ns);
+    cp_async_commit();
+    const float* As = slice_a(t % F32_STAGES);
+    const float* Bs = slice_b(t % F32_STAGES);
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
       float a[8], w[8];
-      *reinterpret_cast<float4*>(&a[0]) = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      *reinterpret_cast<float4*>(&a[4]) = *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
-      *reinterpret_cast<float4*>(&w[0]) = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      *reinterpret_cast<float4*>(&w[4]) = *reinterpret_cast<const float4*>(&Bs[k][64 + tx * 4]);
+      *reinterpret_cast<float4*>(&a[0]) = *reinterpret_cast<const float4*>(As + swz(k, ga));
+      *reinterpret_cast<float4*>(&a[4]) = *reinterpret_cast<const float4*>(As + swz(k, ga + 4));
+      *reinterpret_cast<float4*>(&w[0]) = *reinterpret_cast<const float4*>(Bs + swz(k, gb));
+      *reinterpret_cast<float4*>(&w[4]) = *reinterpret_cast<const float4*>(Bs + swz(k, gb + 8));
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
     }
-    __syncthreads();
+    if (more) park(ns);
+    cp_async_wait<F32_STAGES - 2>();  // slice t + 1 has landed ...
+    __syncthreads();                  // ... and every warp is done with slice t
   }
 
-  // Epilogue: each thread owns rows ty*4.. and 64+ty*4.. and the 4-column
-  // groups tx*4.. and 64+tx*4...
+  // Epilogue: each thread owns rows 4 ga.. and 4 (ga + 4).. and the 4-column
+  // groups 4 gb.. and 4 (gb + 8)...
   float csum[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) csum[j] = 0.0f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    const int row = m0 + 4 * ga + (i < 4 ? i : 12 + i);
     if (row >= M) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int col = n0 + 64 * h + tx * 4;
+      const int col = n0 + 4 * gb + 32 * h;
       if (col < N)
         epilogue_group<MODE, 4, float, float>(e, row, col, N, &acc[i][4 * h], C, &csum[4 * h]);
     }
   }
-  if (MODE == EPI_GATE) {
+  if (MODE == EPI_GATE) {  // the 16 thread rows' sums in order, through the idle ring
+    float* colsum = ring;  // [16][BN]
+    const int tr = (warp / 2) * 4 + lane / 8;  // this thread's row of the 16 that share a column
 #pragma unroll
-    for (int j = 0; j < 8; ++j) colsum[ty][j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4] = csum[j];
+    for (int j = 0; j < 8; ++j) colsum[tr * BN + 4 * gb + (j < 4 ? j : 28 + j)] = csum[j];
     __syncthreads();
     if (threadIdx.x < BN && n0 + threadIdx.x < N) {
       float s = 0.0f;
-      for (int t = 0; t < 16; ++t) s += colsum[t][threadIdx.x];
+      for (int t = 0; t < 16; ++t) s += colsum[t * BN + threadIdx.x];
       e.colpart[(size_t)blockIdx.y * N + n0 + threadIdx.x] = s;
     }
   }
+}
+
+template <int AT, int BT, int MODE>
+cudaError_t launch_f32(const void* A, const void* B, void* C, int M, int N, int K, int splits,
+                       const Epi& e, cudaStream_t s) {
+  // K per split, a multiple of BK; the last split may be short (or empty).
+  const int Kc = ((K + splits - 1) / splits + BK - 1) / BK * BK;
+  // Per launch, as the attribute belongs to the current device.
+  const cudaError_t err = cudaFuncSetAttribute(gemm_f32_kernel<AT, BT, MODE>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               F32_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  gemm_f32_kernel<AT, BT, MODE><<<grid, THREADS, F32_SMEM, s>>>(
+      static_cast<const float*>(A), static_cast<const float*>(B), static_cast<float*>(C), M, N,
+      K, Kc, e);
+  return cudaGetLastError();
 }
 
 // ---- bf16 kernel: wgmma fed by TMA, warp-specialised, every layout ----------------
@@ -378,10 +490,6 @@ constexpr int WG_CPITCH = WG_BN + 8;  // fp32 staging pitch: the float2 stores t
 constexpr int WG_CSUM = 2 * 64 * WG_CPITCH * 4;  // ring offset of the [8][256] column sums
 constexpr int WG_SMEM = WG_RING + 2 * WG_STAGES * 8 + 1024;  // + mbarriers + 1024-byte alignment
 static_assert(WG_CSUM + 8 * WG_BN * 4 <= WG_RING, "the fp32 staging tiles and sums fit the ring");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
@@ -660,15 +768,9 @@ cudaError_t launch_wgmma(const void* A, const void* B, void* C, int M, int N, in
 template <int AT, int BT, int MODE>
 cudaError_t launch(const void* A, const void* B, void* C, int M, int N, int K, int splits,
                    int dtype, int out_f32, const Epi& e, cudaStream_t s) {
+  if (dtype == FM_F32) return launch_f32<AT, BT, MODE>(A, B, C, M, N, K, splits, e, s);
   // K per split, a multiple of the wgmma kernel's K slice; the last split may be short.
   const int Kc = ((K + splits - 1) / splits + WG_BK - 1) / WG_BK * WG_BK;
-  if (dtype == FM_F32) {
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-    gemm_f32_kernel<AT, BT, MODE><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(A), static_cast<const float*>(B), static_cast<float*>(C),
-        M, N, K, Kc, e);
-    return cudaGetLastError();
-  }
   return out_f32 ? launch_wgmma<float, AT, BT, MODE>(A, B, C, M, N, K, splits, Kc, e, s)
                  : launch_wgmma<fm_bf16, AT, BT, MODE>(A, B, C, M, N, K, splits, Kc, e, s);
 }

@@ -347,16 +347,19 @@ def block_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, mask, *, num_heads: int,
     return stages, out, saved
 
 
-def _splits(m: int, n: int, k: int, sms: int) -> int:
-    """K splits of a weight-grad GEMM over the wgmma GEMM's tiles
-    (``_build.WGMMA_TILE``, one block per SM at a time on a card of ``sms``
-    SMs): the count, at most three waves of blocks and at least 2048 rows
-    each, whose blocks fill their waves best (time ~ waves / splits), the
-    smallest within 5% of the best (fewer fp32 partials to add)."""
-    tile_m, tile_n = _build.WGMMA_TILE
+def _splits(m: int, n: int, k: int, sms: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """K splits of a weight-grad GEMM over the tiles of the kernel that runs
+    it (``_build.GEMM_SCHEDULE[dtype]``: its block tile, how many blocks an
+    SM holds at a time on a card of ``sms`` SMs, the least rows of a split):
+    the count, at most three waves of blocks and at least 2048 rows each for
+    bf16 (512 for fp32, whose slices are 16 deep, not 64), whose blocks fill
+    their waves best (time ~ waves / splits), the smallest within 5% of the
+    best (fewer fp32 partials to add)."""
+    (tile_m, tile_n), per_sm, _, least = _build.GEMM_SCHEDULE[dtype]
+    slots = sms * per_sm
     tiles = -(-m // tile_m) * -(-n // tile_n)
-    cap = max(1, min(3 * sms // tiles, k // 2048))
-    cost = {s: -(-tiles * s // sms) / s for s in range(1, cap + 1)}
+    cap = max(1, min(3 * slots // tiles, k // least))
+    cost = {s: -(-tiles * s // slots) / s for s in range(1, cap + 1)}
     best = min(cost.values())
     return min(s for s, c in cost.items() if c <= 1.05 * best)
 
@@ -366,7 +369,8 @@ def weight_grad(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> torch.Te
     and a fixed-order sum of the split partials."""
     k, m = a.shape
     n = b.shape[1]
-    splits = _splits(m, n, k, torch.cuda.get_device_properties(a.device).multi_processor_count)
+    splits = _splits(m, n, k, torch.cuda.get_device_properties(a.device).multi_processor_count,
+                     a.dtype)
     if splits == 1:
         return _build.gemm(a, b, out, layout="tn")
     part = torch.empty((splits, m, n), dtype=torch.float32, device=a.device)

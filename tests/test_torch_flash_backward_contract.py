@@ -131,7 +131,7 @@ def test_kernel_p_is_the_forward_softmax():
                                rtol=0, atol=2e-6)
 
 
-@pytest.mark.parametrize("dtype,tile", [(torch.bfloat16, 64), (torch.float32, 32)])
+@pytest.mark.parametrize("dtype,tile", [(torch.bfloat16, 64), (torch.float32, 64)])
 def test_colpart_rows_follow_the_one_tile_definition(dtype, tile):
     assert _build.FLASH_BWD_TILE[dtype] == tile
     for b, s in ((256, 560), (32, 512), (3, 200), (1, 80), (2, 81)):

@@ -1,0 +1,89 @@
+"""Split-K of the weight-grad GEMMs, per io dtype, on the CPU.
+
+``fused_attention_block.weight_grad`` runs every "tn" product (dWqkv, dWo,
+dW1, dW2) as K splits of fp32 partials that ``fm_colsum`` adds in a fixed
+order.  The split count is sized from the tile and the residency of the
+kernel that runs it (``_build.GEMM_SCHEDULE``): the bf16 ``wgmma`` kernel's
+128 x 256 tile at one block per SM, the fp32 CUDA-core kernel's 128 x 128
+tile at two; each split sums ``_build.split_rows`` rows (a multiple of the
+kernel's K step, 64 or 16; at least 2048 or 512).  At batch 16 the fp32 weight
+grads take 7-8 splits of 1120-1280 rows where the bf16 ones take 2-4.  The
+tests pin both at the lab (B 256 x S 560), text (B 32 x S 512, FFN 3072) and
+baseline (B 16 x S 560) shapes on a 132-SM H100, and hold the Python
+constants against ``gemm.cu``.
+"""
+
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+from fairmultimodal_torch.ops import _build
+from fairmultimodal_torch.ops import fused_attention_block as t_fab
+
+_GEMM = (Path(__file__).resolve().parents[1] / "fairmultimodal_torch" / "ops" / "csrc"
+         / "gemm.cu").read_text()
+BF, F32 = torch.bfloat16, torch.float32
+LAB, TEXT, BASE = 256 * 560, 32 * 512, 16 * 560
+
+# shape, weight grad, M, N, rows K, {dtype: (splits, rows per split)}
+CASES = [
+    ("lab", "dWqkv", 2304, 768, LAB, {BF: (7, 20480), F32: (7, 20480)}),
+    ("lab", "dWo", 768, 768, LAB, {BF: (7, 20480), F32: (7, 20480)}),
+    ("lab", "dW1", 2048, 768, LAB, {BF: (8, 17920), F32: (8, 17920)}),
+    ("lab", "dW2", 768, 2048, LAB, {BF: (8, 17920), F32: (8, 17920)}),
+    ("text", "dWqkv", 2304, 768, TEXT, {BF: (7, 2368), F32: (7, 2352)}),
+    ("text", "dW1", 3072, 768, TEXT, {BF: (5, 3328), F32: (5, 3280)}),
+    ("text", "dW2", 768, 3072, TEXT, {BF: (5, 3328), F32: (5, 3280)}),
+    ("baseline", "dWqkv", 2304, 768, BASE, {BF: (2, 4480), F32: (7, 1280)}),
+    ("baseline", "dWo", 768, 768, BASE, {BF: (4, 2240), F32: (7, 1280)}),
+    ("baseline", "dW1", 2048, 768, BASE, {BF: (2, 4480), F32: (8, 1120)}),
+    ("baseline", "dW2", 768, 2048, BASE, {BF: (2, 4480), F32: (8, 1120)}),
+]
+
+
+def _const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", _GEMM).group(1))
+
+
+@pytest.mark.parametrize("dtype", [BF, F32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape,grad,m,n,k,want", CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in CASES])
+def test_split_count_and_rows_per_split(shape, grad, m, n, k, want, dtype):
+    splits = t_fab._splits(m, n, k, 132, dtype)
+    rows = _build.split_rows(k, splits, dtype)
+    assert (splits, rows) == want[dtype]
+    (tile_m, tile_n), per_sm, step, least = _build.GEMM_SCHEDULE[dtype]
+    tiles = -(-m // tile_m) * -(-n // tile_n)
+    # At most three waves of blocks, at least 2048 (bf16) or 512 (fp32) rows a
+    # split, every split non-empty and the K step respected.
+    assert tiles * splits <= 3 * 132 * per_sm
+    assert splits == 1 or k // splits >= least
+    assert rows % step == 0 and (splits - 1) * rows < k <= splits * rows
+
+
+def test_bf16_default_keeps_the_wgmma_count():
+    for _, _, m, n, k, want in CASES:
+        assert t_fab._splits(m, n, k, 132) == want[BF][0]
+
+
+def test_schedule_matches_the_kernel_source():
+    assert _build.SGEMM_TILE == (_const("BM"), _const("BN"))
+    assert _build.WGMMA_TILE == (_const("WG_BM"), _const("WG_BN"))
+    assert _build.GEMM_SCHEDULE[F32][:3] == (_build.SGEMM_TILE, 2, _const("BK"))
+    assert _build.GEMM_SCHEDULE[BF][:3] == (_build.WGMMA_TILE, 1, _const("WG_BK"))
+    # The fp32 kernel's residency is its launch bound; the wgmma kernel's one.
+    assert re.search(r"__launch_bounds__\(THREADS, 2\)\s*gemm_f32_kernel", _GEMM)
+    assert re.search(r"__launch_bounds__\(WG_THREADS, 1\)\s*gemm_wgmma_kernel", _GEMM)
+    # Both launches size a split the way split_rows does.
+    assert "((K + splits - 1) / splits + BK - 1) / BK * BK" in _GEMM
+    assert "((K + splits - 1) / splits + WG_BK - 1) / WG_BK * WG_BK" in _GEMM
+
+
+@pytest.mark.parametrize("dtype", [BF, F32], ids=["bf16", "fp32"])
+def test_a_card_with_fewer_sms_gets_its_own_count(dtype):
+    # 114 SMs (an H100 PCIe): the fp32 kernel's 228 slots take dWqkv's 108
+    # tiles in 2 splits of 71680 rows, the wgmma kernel's 114 its 54 tiles too.
+    assert t_fab._splits(2304, 768, LAB, 114, dtype) == 2
+    assert _build.split_rows(LAB, 2, dtype) == 71680
