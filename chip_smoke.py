@@ -10,7 +10,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    what ``-Xptxas -v`` reports (registers, stack, spills) for each
    instantiation of the wgmma GEMM ("nt", "nn", "tn"), the mma.sync flash
    forward, dQ and dK / dV kernels, the fp32 CUDA-core GEMM and the fp32
-   flash dQ and dK / dV kernels;
+   flash forward, dQ and dK / dV kernels;
 3. kernels: each ported kernel's wrapper against its plain PyTorch version
    on the card, at the shapes the serving path gives it, in fp32 (max abs
    error <= 1e-4: only the summation order differs) and in bf16 (max abs
@@ -106,15 +106,18 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    expanded as BEHRTLab builds it), the text-train shape (B32 S512 12x64,
    per-row masks, a fully masked row) and off the main path (d 32 at S 256
    without a mask; d 128 at S 1024 on contiguous [B, heads, S, d] tensors;
-   the packed ``fused_qkv`` layout); limits at the phase.  In bf16 the
-   backward is also held against its own rounding order repeated in
-   PyTorch: at most 1% of the entries differ, by at most one bf16 ulp of
-   max-abs.  Timed in bf16 at the lab shape: the
-   kernels (the backward's dQ and dK / dV kernels also apart, from the
-   profiler), their plain versions, SDPA with the -1e9 bias and its autograd
-   backward (never called by the port), beside the bound; the backward run
-   twice (every fp32 case, the timed bf16 one) must give bit-identical dq,
-   dk, dv.
+   the packed ``fused_qkv`` layout; #1's packed layout at B 16, d 96); limits
+   at the phase.  Every fp32 forward is also held against float64 within
+   1e-5 of max-abs (IEEE fp32; a fully masked row against the mean of v).
+   In bf16 the backward is also held against its own rounding order
+   repeated in PyTorch: at most 1% of the entries differ, by at most one
+   bf16 ulp of max-abs.  Timed in bf16 at the lab shape (B 256) and in fp32
+   at the pipelines' lab shape (B 16) and the text shape (B 32, S 512, 12 x
+   64): the kernels (the bf16 backward's dQ and dK / dV kernels also apart,
+   from the profiler), their plain versions, SDPA with the -1e9 bias (the
+   kernel it runs named by the profiler) and its autograd backward (never
+   called by the port), beside the bound; the backward run twice (every
+   fp32 case, the timed bf16 one) must give bit-identical dq, dk, dv.
    Also ``TorchEncoderLayer(fused_qkv=True)`` against the same layer unfused
    in fp32 (forward and grads 1e-4 of max-abs);
 5c. flash-route slice (``attn_kernel=False`` on every lab layer): an fp32
@@ -192,9 +195,16 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    dropout (the share its int64 Philox dropout takes); #1-#4 at the
    baselines' shape B 16 x S 560 in fp32 and bf16 against their plain
    versions, timed beside the plain version, one library composition and
-   the bound (fp32 against the CUDA cores' 67 TFLOP/s), the backwards also
-   stage by stage and run twice for the same bits; and #5-#10 at that shape
-   in fp32, timed the same way.  Prints each run's
+   the bound (fp32 against the CUDA cores' 67 TFLOP/s), #1's four forward
+   launches one by one beside F.linear / SDPA / F.linear / dropout + add +
+   F.layer_norm, the backwards also stage by stage and run twice for the
+   same bits; and #5-#10 at that shape in fp32, timed the same way.  The
+   fp32 step of 09 also replays its lab layers stage by stage on the card
+   (the kernels from the card step's inputs, float64 from the float64
+   step's) against the CPU fp32 step: every activation, the relu gates of
+   W1 that flip against float64 and the split of
+   ``behrt_lab.layer_0.ffn_in.weight``'s error over W1's rows with and
+   without a flipped gate (printed, not a check).  Prints each run's
    wall time, stage times and train patients per second of the train
    stage (which holds the epoch's validation pass too).
 
@@ -493,6 +503,7 @@ def attention_train_check(fab, _build, gen, dtype, rate, B=256, S=560, H=768, nh
                 raise AssertionError(f"{label}: two backward runs differ")
             if timed:
                 row["fwd_res_ms"] = time_ms(lambda: [fn() for _, fn in fwd])
+                row["fwd_stages"] = _attention_fwd_stages(fwd, inputs, mask, nh, eps, rate)
                 row["ms"] = time_ms(lambda: [fn() for _, fn in bwd])
                 row["stages_ms"] = {name: time_ms(fn) for name, fn in bwd}
                 row["plain_ms"] = time_ms(plain, reps=5)
@@ -506,6 +517,41 @@ def attention_train_check(fab, _build, gen, dtype, rate, B=256, S=560, H=768, nh
     del out, grads, grads_p, res
     torch.cuda.empty_cache()
     return row
+
+
+def _attention_fwd_stages(fwd, inputs, mask, nh, eps, rate):
+    """#1's forward launches timed one by one (with residuals, as a train step
+    runs them), each beside the one PyTorch call that does the same work: the
+    QKV and Wo GEMMs beside F.linear, the flash forward beside SDPA with the
+    -1e9 bias on the same head views, dropout + residual + LayerNorm beside
+    F.dropout + add + F.layer_norm; with each product's TFLOP/s."""
+    F = torch.nn.functional
+    x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta = inputs
+    B, S, H = x.shape
+    d = H // nh
+    w_qkv, b_qkv = torch.cat((wq, wk, wv)), torch.cat((bq, bk, bv))
+    qkv = F.linear(x, w_qkv, b_qkv)
+    q, k, v = (t.transpose(1, 2) for t in qkv.view(B, S, 3, nh, d).unbind(2))
+    bias = torch.where(mask > 0, 0.0, -1e9).to(x.dtype)[:, None, None, :]
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias).transpose(1, 2).reshape(B, S, H)
+    y = F.linear(o, wo, bo)
+    library = {
+        "qkv_gemm": (lambda: F.linear(x, w_qkv, b_qkv), 6 * B * S * H * H),
+        "flash_attn_fwd": (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
+                           4 * B * S * S * H),
+        "wo_gemm": (lambda: F.linear(o, wo, bo), 2 * B * S * H * H),
+        "add_layernorm": (lambda: F.layer_norm(x + F.dropout(y, rate), (H,), gamma.to(x.dtype),
+                                               beta.to(x.dtype), eps), 0),
+    }
+    rows = {}
+    for name, fn in fwd:
+        lib, flops = library[name]
+        r = {"ms": time_ms(fn), "library_ms": time_ms(lib)}
+        if flops:
+            r["tflops"], r["library_tflops"] = (flops / r[k] / 1e9 for k in ("ms", "library_ms"))
+        rows[name] = r
+    del qkv, q, k, v, o, y, library
+    return rows
 
 
 def _attention_library_bwd_ms(inputs, mask, g, nh, eps, rate):
@@ -1207,8 +1253,9 @@ def f32_gemm_check(_build, fab, gen, name, layout, M, N, K, act_or_gate, extra, 
     torch.cuda.synchronize()
     row = {"stage": name, "layout": layout, "M": M, "N": N, "K": K,
            "epilogue": act_or_gate, "errors": _rel_errors(out.double(), want)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row["tile"] = _build.sgemm_tile(layout, M, N, 1, sms)
     if layout == "tn":
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
         row["splits"] = fab._splits(M, N, K, sms, f32)
         row["rows_per_split"] = _build.split_rows(K, row["splits"], f32)
     checks = [("out", row["errors"])]
@@ -1253,11 +1300,11 @@ def f32_gemm_phase(_build, fab):
     return rows
 
 
-#: The kernels redesigned for Hopper (the bf16 path's and the fp32 GEMM and
-#: flash backward), whose ``-Xptxas -v`` lines phase 2 reports.
+#: The kernels redesigned for Hopper (the bf16 path's, the fp32 GEMM and the
+#: fp32 flash forward and backward), whose ``-Xptxas -v`` lines phase 2 reports.
 PTXAS_KERNELS = ("gemm_wgmma_kernel", "flash_attn_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
-                 "flash_bwd_dkdv_mma_kernel", "gemm_f32_kernel", "flash_bwd_dq_f32_kernel",
-                 "flash_bwd_dkdv_f32_kernel")
+                 "flash_bwd_dkdv_mma_kernel", "gemm_f32_kernel", "flash_attn_fwd_f32_kernel",
+                 "flash_bwd_dq_f32_kernel", "flash_bwd_dkdv_f32_kernel")
 
 
 def ptxas_report(_build, names=PTXAS_KERNELS):
@@ -1331,6 +1378,7 @@ def ptxas_report(_build, names=PTXAS_KERNELS):
 # and dk, a p left unrounded before dv 42% of dv.
 
 FP32_FLASH_TOL = 1e-4
+FLASH_F64_TOL = 1e-5
 FLASH_BF16_FWD = 2.0 ** -6
 FLASH_GRADS = ("dq", "dk", "dv")
 FLASH_BWD_ORDER_SHARE = 0.01
@@ -1398,6 +1446,9 @@ def flash_check(flash, gen, dtype, B, S, nh, d, layout="dense", mask_kind="rows"
         if not ok:
             raise AssertionError(f"{label}: {name} max {mx} mean {mean} (max-abs {scale})")
     row = {"case": label, "errors": rows}
+    if dtype == torch.float32:
+        rows["o_vs_f64"] = _flash_f64_errors(flash, label, got["o"], qd, kd, vd, mask)
+        row["rows_per_block"] = flash._build.flash_fwd_f32_rows(S)
     del out, grads, got, want_grads
     with torch.no_grad():
         ops = flash._operands(qd, kd, vd, mask)
@@ -1434,6 +1485,8 @@ def flash_check(flash, gen, dtype, B, S, nh, d, layout="dense", mask_kind="rows"
                 torch.where(mask > 0, 0.0, -1e9).to(dtype)[:, None, None, :]
             row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
                 qd, kd, vd, attn_mask=bias))
+            row["library_kernels"] = device_kernels(lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=bias))
         lib = [t.detach().clone().requires_grad_(True) for t in (qd, kd, vd)]
         row["library_bwd_ms"] = _time_backward(
             F.scaled_dot_product_attention(*lib, attn_mask=bias), lib, g)
@@ -1449,6 +1502,40 @@ def flash_check(flash, gen, dtype, B, S, nh, d, layout="dense", mask_kind="rows"
     del leaves, q, k, v, qd, kd, vd, want, g, ops, o, stats, saved
     torch.cuda.empty_cache()
     return row
+
+
+def _flash_f64_errors(flash, label, o, q, k, v, mask):
+    """The fp32 forward's o against the same function in float64 on the same
+    inputs, within FLASH_F64_TOL of max-abs (IEEE fp32; TF32 misses it).  A
+    fully masked row is held to the mean of v: in fp32 s * scale - 1e9
+    rounds to -1e9 for every key (one ulp there is 64), the uniform softmax
+    the TPU kernels give, which float64 would resolve."""
+    with torch.no_grad():
+        want = flash.flash_attention_reference(q.double(), k.double(), v.double(), mask)
+        if mask is not None:
+            dead = ~(mask > 0).any(dim=1)
+            want[dead] = v.double()[dead].mean(dim=2, keepdim=True).expand_as(want[dead])
+        err = (o.double() - want).abs().max().item()
+        scale = want.abs().max().item()
+    if not err <= FLASH_F64_TOL * scale:
+        raise AssertionError(f"{label}: o misses float64 by {err} (max-abs {scale}, limit "
+                             f"{FLASH_F64_TOL} of it)")
+    return {"max_abs_err": err, "max_abs": scale}
+
+
+def device_kernels(fn, reps=3):
+    """The CUDA kernels ``fn()`` launches, by name, with their device time
+    per call (torch.profiler over ``reps`` calls after one warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0}
 
 
 def flash_bwd_kernel_order(q, k, v, o, stats, mask, g):
@@ -1498,22 +1585,11 @@ def _flash_bwd_order_check(flash, label, saved, g):
 def _flash_bwd_stages_ms(flash, saved, g, reps=10):
     """The flash backward's two kernels timed apart: device time per call of
     the dQ kernel (which writes the row term D) and of the dK / dV kernel
-    (which reads it), from torch.profiler over ``reps`` backward calls on
-    the forward's residuals."""
-    from torch.profiler import ProfilerActivity, profile
-
-    flash._backward_kernel(*saved, g)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flash._backward_kernel(*saved, g)
-        torch.cuda.synchronize()
-    ms = {"flash_bwd_dq": 0.0, "flash_bwd_dkdv": 0.0}
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            for name in ms:
-                if name in e.key:
-                    ms[name] += e.self_device_time_total / 1e3 / reps
+    (which reads it), from the profiler over ``reps`` backward calls on the
+    forward's residuals."""
+    kernels = device_kernels(lambda: flash._backward_kernel(*saved, g), reps)
+    ms = {name: sum(t for key, t in kernels.items() if name in key)
+          for name in ("flash_bwd_dq", "flash_bwd_dkdv")}
     if not all(ms.values()):
         raise AssertionError(f"flash backward stages: the profiler saw {ms}")
     return ms
@@ -1570,13 +1646,16 @@ def flash_kernel_phase(flash):
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        timed = dtype == torch.bfloat16
-        for kw in (dict(B=256, S=560, nh=8, d=96, mask_kind="lab", timed=timed),  # lab
-                   dict(B=32, S=512, nh=12, d=64),                                 # text-train
+        bf16, f32 = dtype == torch.bfloat16, dtype == torch.float32
+        peak = BF16_PEAK if bf16 else FP32_PEAK
+        for kw in (dict(B=256, S=560, nh=8, d=96, mask_kind="lab", timed=bf16),   # lab
+                   dict(B=16, S=560, nh=8, d=96, mask_kind="lab", timed=f32),     # lab, batch 16
+                   dict(B=16, S=560, nh=8, d=96, layout="packed", mask_kind="lab"),  # #1's
+                   dict(B=32, S=512, nh=12, d=64, timed=f32),                      # text-train
                    dict(B=8, S=256, nh=8, d=32, mask_kind="none"),                 # off the path
                    dict(B=4, S=1024, nh=4, d=128, layout="contiguous"),
                    dict(B=8, S=384, nh=12, d=64, layout="packed")):
-            row = flash_check(flash, gen, dtype, **kw)
+            row = flash_check(flash, gen, dtype, peak=peak, stages=bf16, **kw)
             log(f"[flash-kernels] {json.dumps(row)}")
             rows.append(row)
     layer = fused_qkv_layer_check(gen)
@@ -2850,7 +2929,8 @@ def baseline_kernel_rows(fab, ffn, flash, _build, B=BASE_BATCH):
                     *inputs, mask, rate=rate, seed=1234, **kw), reps=5),
                 "library_ms": time_ms(library_fwd),
                 "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-                "max_abs_err": a_err["errors"]["out"]["max_abs_err"]}
+                "max_abs_err": a_err["errors"]["out"]["max_abs_err"],
+                "stages": a_err["fwd_stages"]}
             bwd_bound = bound_ms(B * (16 * S * H * H + 8 * S * S * H),
                                  (8 * B * S * H + 4 * H * H) * es, peak)
             plain_bwd = time_ms(lambda: fab.fused_attention_block_ln_backward_reference(
@@ -2973,11 +3053,12 @@ def _baseline_batch(keys, device, n=BASE_BATCH, seed=8):
                       "weight": np.ones(n, np.float32)}, torch.device(device))
 
 
-def baseline_fp32_step(name, factory, keys, cfg, device, dtype=torch.float32):
+def baseline_fp32_step(name, factory, keys, cfg, device, dtype=torch.float32, prepare=None):
     """One fp32 train step with dropout on (for 08, its loss and backward),
     from seed-0 weights and generator seed 5: (loss, grads on the host).
     ``dtype=torch.float64`` runs the same step in float64 (on the CPU: the
-    reference every grad leaf is held against)."""
+    reference every grad leaf is held against).  ``prepare(model)`` is
+    called on the model just before the step (hooks)."""
     import dataclasses
 
     from fairmultimodal_torch.models._layers import init_params
@@ -2994,6 +3075,8 @@ def baseline_fp32_step(name, factory, keys, cfg, device, dtype=torch.float32):
         model.load_state_dict({k: v.to(dtype) for k, v in weights.items()})
         batch = {k: ({n: t.to(dtype) if t.is_floating_point() else t for n, t in v.items()}
                      if isinstance(v, dict) else v.to(dtype)) for k, v in batch.items()}
+    if prepare is not None:
+        prepare(model)
     if name == "08":
         model.to(device).train()
         loss_fn = make_eddi_fusion_loss(model, EDDIFusionPipelineConfig(), POS_WEIGHT)
@@ -3005,6 +3088,197 @@ def baseline_fp32_step(name, factory, keys, cfg, device, dtype=torch.float32):
         loss = trainer.train_step(batch)
     return float(loss.detach()), {n: p.grad.detach().cpu() for n, p in model.named_parameters()
                          if p.grad is not None}
+
+
+# -- phase 8: where 09's fp32 grad of the first lab layer's W1 parts from float64 --------
+#
+# The card's fp32 step misses the float64 grad of behrt_lab.layer_0.ffn_in.weight
+# by several times the CPU fp32 step's error.  The replay taps each lab layer
+# of the three steps (card fp32, CPU fp32, CPU float64; same weights, batch
+# and dropout seeds): its input x, its output and the output's grad.  From
+# each step's own x it recomputes the layer stage by stage -- the card with
+# its kernels (#1's QKV GEMM, flash forward and add_layernorm; W1's
+# pre-activation by the same "nt" GEMM without the relu; #2; the LayerNorm
+# backward and the gated "nn" dh of #4), the CPU fp32 and float64 (on the
+# card) with the plain route's operations -- and holds every activation,
+# the relu gates of W1's pre-activation and dh against float64.  Then it
+# splits the leaf's error over W1's rows: those with a relu gate the card's
+# fp32 sets otherwise than float64, and the rest.
+
+REPLAY_MODEL, REPLAY_LEAF = "09", "behrt_lab.layer_0.ffn_in.weight"
+
+
+def _lab_layer_taps(store):
+    """``prepare`` for :func:`baseline_fp32_step`: per lab layer i, store[i]
+    gets the layer's input x, mask, output, the output's grad and the three
+    dropout seeds it draws (attention, FFN inner, FFN outer)."""
+    from fairmultimodal_torch.models import behrt as mbehrt
+
+    def prepare(model):
+        lab = model.behrt_lab
+        current = [None]
+        draw = mbehrt.dropout_seed
+
+        def recording(module, rate, generator):
+            seed = draw(module, rate, generator)
+            if current[0] is not None and seed is not None:
+                store[current[0]]["seeds"].append(seed)
+            return seed
+
+        mbehrt.dropout_seed = recording
+        store["restore"] = lambda: setattr(mbehrt, "dropout_seed", draw)
+        for i in range(lab.num_layers):
+            def pre(mod, args, i=i):
+                current[0] = i
+                store[i] = {"x": args[0].detach().clone(), "mask": args[1], "seeds": []}
+
+            def post(mod, args, out, i=i):
+                current[0] = None
+                store[i]["out"] = out.detach().clone()
+                out.register_hook(lambda g: store[i].__setitem__("g", g.detach().clone()))
+
+            layer = getattr(lab, f"layer_{i}")
+            layer.register_forward_pre_hook(pre)
+            layer.register_forward_hook(post)
+    return prepare
+
+
+def _plain_layer_parts(layer, tap, dtype, device):
+    """One lab layer on the plain route's operations in ``dtype`` on
+    ``device`` from a tap's x and seeds: q, k, v, o, x1, h (W1's
+    pre-activation), out, and dh (the grad of h from the tap's output grad)."""
+    from fairmultimodal_torch.ops.attention import attention_reference
+    from fairmultimodal_torch.utils.rng import Dropout, apply_dropout
+
+    F = torch.nn.functional
+    x = tap["x"].to(device, dtype)
+    mask = tap["mask"].to(device)
+    b, s, hd = x.shape
+    nh, rate, eps = layer.num_heads, layer.dropout_rate, layer.layer_norm_eps
+    attn_seed, inner, outer = tap["seeds"]
+
+    def w(lin):
+        return lin.weight.to(device, dtype), lin.bias.to(device, dtype)
+
+    def ln(z, norm):
+        return F.layer_norm(z, (hd,), norm.weight.to(device, dtype), norm.bias.to(device, dtype),
+                            eps)
+
+    with torch.no_grad():
+        q, k, v = (F.linear(x, *w(lin)) for lin in (layer.query, layer.key, layer.value))
+        heads = [t.view(b, s, nh, hd // nh).transpose(1, 2) for t in (q, k, v)]
+        o = attention_reference(*heads, mask).transpose(1, 2).reshape(b, s, hd)
+        y = apply_dropout(F.linear(o, *w(layer.attn_out)), Dropout.make(attn_seed, 0, rate))
+        x1 = ln(x + y, layer.norm1)
+    h = F.linear(x1, *w(layer.ffn_in)).requires_grad_(True)
+    a = apply_dropout(torch.relu(h), Dropout.make(inner, 0, rate))
+    y2 = apply_dropout(F.linear(a, *w(layer.ffn_out)), Dropout.make(outer, 1, rate))
+    out = ln(x1 + y2, layer.norm2)
+    dh, = torch.autograd.grad(out, h, tap["g"].to(device, dtype))
+    return {"q": q, "k": k, "v": v, "o": o, "x1": x1, "h": h.detach(), "out": out.detach(),
+            "dh": dh}
+
+
+def _card_layer_parts(fab, ffn, _build, layer, tap):
+    """The same parts of one lab layer from the card's kernels on the card
+    step's x and seeds; ``out`` must equal the step's own output bit for bit."""
+    from fairmultimodal_torch.utils.rng import Dropout
+
+    x, mask = tap["x"], tap["mask"].to(torch.int32).contiguous()
+    b, s, hd = x.shape
+    nh, rate, eps = layer.num_heads, layer.dropout_rate, layer.layer_norm_eps
+    attn_seed, inner, outer = tap["seeds"]
+    p = [t.detach() for lin in (layer.query, layer.key, layer.value, layer.attn_out)
+         for t in (lin.weight, lin.bias)]
+    with torch.no_grad():
+        stages, x1, saved = fab.half_layer_stages(
+            x, *p, layer.norm1.weight, layer.norm1.bias, mask, num_heads=nh, ln_eps=eps,
+            dropout=Dropout.make(attn_seed, 0, rate), residuals=True)
+        fab._run(stages)
+        x1r = x1.view(b * s, hd)
+        w1, b1 = layer.ffn_in.weight.detach(), layer.ffn_in.bias.detach()
+        w2, b2 = layer.ffn_out.weight.detach(), layer.ffn_out.bias.detach()
+        h = torch.empty(b * s, w1.shape[0], device=x.device)
+        _build.gemm(x1r, w1, h, bias=b1)
+        inner_d, outer_d = Dropout.make(inner, 0, rate), Dropout.make(outer, 1, rate)
+        stages, out, saved2 = ffn.half_layer_stages(
+            x1r, w1, b1, w2, b2, layer.norm2.weight, layer.norm2.bias, activation="relu",
+            ln_eps=eps, inner=inner_d, outer=outer_d, residuals=True)
+        fab._run(stages)
+        g = tap["g"].reshape(b * s, hd).contiguous()
+        dz = torch.empty(b * s, hd, device=x.device)
+        dy = torch.empty_like(dz)
+        part = torch.empty(3, -(-b * s // _build.LN_BWD_ROWS), hd, device=x.device)
+        _build.layernorm_bwd(g, saved2["z"], layer.norm2.weight.detach().float().contiguous(),
+                             dz, dy, part, eps, outer_d)
+        dh = torch.empty_like(h)
+        _build.gemm(dy, w2.contiguous(), dh, layout="nn", gate=saved2["hd"], gate_kind="relu",
+                    gate_scale=inner_d.inv_keep,
+                    colpart=torch.empty(-(-b * s // 128), w1.shape[0], device=x.device))
+    if not torch.equal(out.view(b, s, hd), tap["out"]):
+        raise AssertionError("replay: the card's layer output differs from the step's")
+    qkv = saved["qkv"]
+    return {"q": qkv[..., :hd], "k": qkv[..., hd:2 * hd], "v": qkv[..., 2 * hd:],
+            "o": saved["o"], "x1": x1, "h": h.view(b, s, -1), "out": out.view(b, s, hd),
+            "dh": dh.view(b, s, -1)}
+
+
+def w1_replay(fab, ffn, _build, factory, taps, grads):
+    """Where the card's fp32 step of 09 first parts from float64 more than
+    the CPU's fp32 step does, per lab layer and stage, the relu gates of W1
+    that flip against float64, and the leaf's error split over W1's rows
+    with and without a flipped gate.  ``taps`` and ``grads``: per step
+    ("card", "cpu", "f64") the lab-layer taps and the grad leaves."""
+    from fairmultimodal_torch.models._layers import init_params
+    from fairmultimodal_torch.utils.rng import dropout_mask
+
+    lab = init_params(factory(torch.float32), seed=0).behrt_lab    # the steps' weights
+    report, flips = {}, {}
+    for i in range(lab.num_layers):
+        layer = getattr(lab, f"layer_{i}")
+        seeds = [taps[who][i]["seeds"] for who in ("card", "cpu", "f64")]
+        if not seeds[0] == seeds[1] == seeds[2] or len(seeds[0]) != 3:
+            raise AssertionError(f"replay: lab layer {i} dropout seeds differ: {seeds}")
+        parts = {"card": _card_layer_parts(fab, ffn, _build, layer.cuda(), taps["card"][i]),
+                 "cpu": _plain_layer_parts(layer.cpu(), taps["cpu"][i], torch.float32, "cpu"),
+                 "f64": _plain_layer_parts(layer.cuda(), taps["f64"][i], torch.float64, "cuda")}
+        ref = parts["f64"]
+        rows = {}
+        for name in ("x", "q", "k", "v", "o", "x1", "h", "out", "g", "dh"):
+            want = (taps["f64"][i][name].cuda() if name in ("x", "g") else ref[name]).double()
+            scale = want.abs().max().item()
+            rows[name] = {}
+            for who in ("card", "cpu"):
+                got = taps[who][i][name] if name in ("x", "g") else parts[who][name]
+                rows[name][who] = (got.cuda().double() - want).abs().max().item() / scale
+        # A relu gate counts where the inner dropout keeps the element.
+        kept = dropout_mask(seeds[0][1], 0, ref["h"].shape, layer.dropout_rate, device="cuda")
+        for who in ("card", "cpu"):
+            h = parts[who]["h"].cuda()
+            idx = (kept & ((h > 0) != (ref["h"] > 0))).nonzero()
+            rows[f"relu_flips_{who}"] = {
+                "count": len(idx), "kept": int(kept.sum()),
+                "h_f64": [float(ref["h"][tuple(j)]) for j in idx[:8]],
+                f"h_{who}": [float(h[tuple(j)]) for j in idx[:8]],
+                "max_abs_h": float(ref["h"].abs().max())}
+            flips[(i, who)] = sorted({int(j[-1]) for j in idx})
+        report[f"layer_{i}"] = rows
+        del parts, ref
+        torch.cuda.empty_cache()
+    want = grads["f64"][REPLAY_LEAF].double()
+    scale = want.abs().max().item()
+    split = {}
+    for who in ("card", "cpu"):
+        err = (grads[who][REPLAY_LEAF].double() - want).abs().amax(dim=1) / scale
+        rows_flipped = flips[(0, who)]
+        rest = torch.ones_like(err, dtype=torch.bool)
+        rest[rows_flipped] = False
+        split[who] = {"all": err.max().item(), "rows_with_a_flip": rows_flipped[:16],
+                      "rows_with_a_flip_err": err[rows_flipped].max().item()
+                      if rows_flipped else 0.0,
+                      "other_rows": err[rest].max().item()}
+    report["leaf_split"] = {"leaf": REPLAY_LEAF, **split}
+    return report
 
 
 def fame_default_step(n=BASE_BATCH, seed=9):
@@ -3159,11 +3433,23 @@ def baseline_phase(flash, fab, ffn, addnorm, _build):
     # CPU passes this rule as well (triangle inequality).
     xdev = {}
     for name, factory, keys, cfg in _baseline_models():
-        fab.bwd_launches = ffn.bwd_launches = 0
-        card = baseline_fp32_step(name, factory, keys, cfg, "cuda")
-        lab_bwd = min(fab.bwd_launches, ffn.bwd_launches)
-        cpu = baseline_fp32_step(name, factory, keys, cfg, "cpu")
-        _, ref = baseline_fp32_step(name, factory, keys, cfg, "cpu", torch.float64)
+        taps = {who: {} for who in ("card", "cpu", "f64")}
+
+        def tap(who):
+            return _lab_layer_taps(taps[who]) if name == REPLAY_MODEL else None
+
+        try:
+            fab.bwd_launches = ffn.bwd_launches = 0
+            card = baseline_fp32_step(name, factory, keys, cfg, "cuda", prepare=tap("card"))
+            lab_bwd = min(fab.bwd_launches, ffn.bwd_launches)
+            taps["card"].pop("restore", lambda: None)()
+            cpu = baseline_fp32_step(name, factory, keys, cfg, "cpu", prepare=tap("cpu"))
+            taps["cpu"].pop("restore", lambda: None)()
+            _, ref = baseline_fp32_step(name, factory, keys, cfg, "cpu", torch.float64,
+                                        prepare=tap("f64"))
+        finally:
+            for t in taps.values():
+                t.pop("restore", lambda: None)()
         loss_rel, worst, grad_rel = compare_steps(card, cpu)
         card_ref, cpu_ref = grad_errors(card[1], ref), grad_errors(cpu[1], ref)
         margin = {n: (card_ref[n] - cpu_ref[n]) / XDEV_GRAD_TOL for n in card_ref}
@@ -3180,6 +3466,10 @@ def baseline_phase(flash, fab, ffn, addnorm, _build):
                           n: {"card_vs_cpu": e, **readings(n)}
                           for n, e in grad_errors(card[1], cpu[1]).items() if e > XDEV_GRAD_TOL},
                       "lab_bwd_launches": lab_bwd}
+        if name == REPLAY_MODEL:
+            xdev[name]["w1_replay"] = w1_replay(fab, ffn, _build, factory, taps,
+                                                {"card": card[1], "cpu": cpu[1], "f64": ref})
+        del taps
         log(f"[baselines] fp32 step {name} card vs CPU and float64: {json.dumps(xdev[name])}")
         over = sorted(n for n, m in margin.items() if not m <= 1.0)
         if not loss_rel <= XDEV_LOSS_TOL or over:
@@ -3374,7 +3664,10 @@ def main() -> int:
                        for r in unfolded_rows[part]},
             "baselines_b16": base_rows[name],
         })
-    row = next(r for r in flash_rows if "ms" in r)          # lab shape, bf16
+    row = next(r for r in flash_rows if "ms" in r and "bfloat16" in r["case"])   # lab, bf16
+    f32_rows = {r["case"]: {k: r[k] for k in ("ms", "fwd_res_ms", "plain_ms", "library_ms",
+                                               "library_kernels", "bound_ms", "bound_by")}
+                for r in flash_rows if "ms" in r and "float32" in r["case"]}
     errors = {r["case"]: r["errors"] for r in flash_rows}
     for name, replaces, pre, outs in (
             ("flash_attention", "fairmultimodal_tpu/ops/flash_attention.py:44", "", ("o",)),
@@ -3389,7 +3682,8 @@ def main() -> int:
             "bound_ms": row[pre + "bound_ms"], "bound_by": row[pre + "bound_by"],
             "library_ms": row["library_" + pre + "ms"], "shape": row["case"],
             "dtype": "bfloat16", "errors": errors, "baselines_b16": base_rows[name],
-            **({"fwd_res_ms": row["fwd_res_ms"], "fused_qkv_layer": flash_layer} if not pre
+            **({"fwd_res_ms": row["fwd_res_ms"], "fused_qkv_layer": flash_layer,
+                "float32": f32_rows} if not pre
                else {"stages_ms": row["bwd_stages_ms"],
                      "kernel_order": row["kernel_order"]}),
         })

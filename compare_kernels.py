@@ -27,13 +27,21 @@ kernels; each fp32 GEMM stage ("nt" QKV / W2, "nn" dx / dh, "tn" dWo /
 dWqkv / dW1 split-K) against float64 on the card and beside ``F.linear`` /
 ``torch.matmul`` with TF32 off (F32GEMM); the fp32 flash backward checked
 against its plain version and timed, its dQ and dK / dV kernels apart from
-the profiler (F32FLASH); and #3 / #4 (the LN-fused backwards) with their
+the profiler (F32FLASH); the fp32 flash forward at the lab (B 16, S 560, 8 x
+96) and text (B 32, S 512, 12 x 64) shapes beside SDPA, and #1's four forward
+stages at B 16 beside F.linear / SDPA / F.linear / dropout + add +
+F.layer_norm (F32FLASHFWD); and #3 / #4 (the LN-fused backwards) with their
 stages, plain and library times (F32BWD).  With ``--steps`` also FAME's
 default train step (``FAMETrainer.train_step`` at the reference geometry,
 fp32, batch 16, dropout 0.1) and the 01 fp32 step, each a CUDA-event median
 of 20 and profiled (STEP), after phase 8's fp32 rows of #1-#10 at B 16 (ROWS:
 ms, plain, library).  It calls only entry points the parent commit of
 the fp32 redesign has too.
+
+    python3 compare_kernels.py --steps-only TREE [TREE ...]
+
+runs only the two STEP measurements, one process per tree: give the trees in
+turns (A B B A A B ...) to read the host-bound FAME step's spread.
 """
 
 import os
@@ -95,7 +103,8 @@ import json, sys, numpy as np, torch, chip_smoke as c
 from fairmultimodal_torch.ops import _build, flash_attention as flash
 from fairmultimodal_torch.ops import fused_attention_block as fab, fused_ffn as ffn
 torch.backends.cuda.matmul.allow_tf32 = False
-print(json.dumps(c.ptxas_report(_build, ("gemm_f32_kernel", "flash_bwd_dq_f32_kernel",
+print(json.dumps(c.ptxas_report(_build, ("gemm_f32_kernel", "flash_attn_fwd_f32_kernel",
+                                         "flash_bwd_dq_f32_kernel",
                                          "flash_bwd_dkdv_f32_kernel"))), flush=True)
 gen = torch.Generator(device="cuda").manual_seed(7)
 R = 16 * 560
@@ -135,6 +144,50 @@ with torch.no_grad():
                                   "bwd_stages_ms": c._flash_bwd_stages_ms(flash, saved, g)}),
           flush=True)
 del q, k, v, o, stats, saved, g
+# The fp32 flash forward at the lab and text shapes beside SDPA (fp32, -1e9
+# bias), then #1's forward stages at B 16 beside their library calls.
+F = torch.nn.functional
+for B, S, nh, d, mk in ((16, 560, 8, 96, "lab"), (32, 512, 12, 64, "rows")):
+    _, q, k, v, mask, _ = c._flash_inputs(B, S, nh, d, "dense", mk, torch.float32, gen)
+    with torch.no_grad():
+        q, k, v = (t.detach() for t in (q, k, v))
+        ops = flash._operands(q, k, v, mask)
+        o, _ = flash._forward_kernel(*ops, residuals=True)
+        want = flash.flash_attention_reference(q, k, v, mask)
+        bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+        ms = c.time_ms(lambda: flash._forward_kernel(*ops, residuals=True), reps=20)
+        lib_ms = c.time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
+                           reps=20)
+    flops = 4 * B * nh * S * S * d
+    print("F32FLASHFWD", json.dumps({"shape": f"B{B} S{S} {nh}x{d} mask {mk}",
+                                     "rel_err": ((o - want).abs().max() / want.abs().max()).item(),
+                                     "ms": ms, "tflops": flops / ms / 1e9, "library_ms": lib_ms,
+                                     "library_tflops": flops / lib_ms / 1e9}), flush=True)
+    del q, k, v, o, want, ops
+from fairmultimodal_torch.utils.rng import Dropout
+inputs, mask, _ = c._attn_train_case(fab, 16, 560, 768, 8, 1e-5, torch.float32, gen, c.N_LABS)
+x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta = inputs
+with torch.no_grad():
+    fwd, _, _ = fab.half_layer_stages(*inputs, mask, num_heads=8, ln_eps=1e-5,
+                                      dropout=Dropout.make(1234, 0, 0.1), residuals=True)
+    for _, fn in fwd:
+        fn()
+    w_qkv, b_qkv = torch.cat((wq, wk, wv)), torch.cat((bq, bk, bv))
+    qkv = F.linear(x, w_qkv, b_qkv)
+    q, k, v = (t.transpose(1, 2) for t in qkv.view(16, 560, 3, 8, 96).unbind(2))
+    bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias).transpose(1, 2).reshape(16, 560, 768)
+    y = F.linear(o, wo, bo)
+    lib = {"qkv_gemm": lambda: F.linear(x, w_qkv, b_qkv),
+           "flash_attn_fwd": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
+           "wo_gemm": lambda: F.linear(o, wo, bo),
+           "add_layernorm": lambda: F.layer_norm(x + F.dropout(y, 0.1), (768,), gamma, beta, 1e-5)}
+    print("F32FLASHFWD", json.dumps({"#1 stages B16": {name: {
+        "ms": c.time_ms(fn, reps=20), "library_ms": c.time_ms(lib[name], reps=20)}
+        for name, fn in fwd}, "whole_ms": c.time_ms(lambda: [fn() for _, fn in fwd], reps=20)}),
+        flush=True)
+del inputs, x, fwd, qkv, q, k, v, o, y, lib
+torch.cuda.empty_cache()
 gen = torch.Generator(device="cuda").manual_seed(16)
 for name, check, mod, shape in (("#3 attention", c.attention_train_check, fab, dict(B=16)),
                                 ("#4 ffn", c.ffn_train_check, ffn, dict(R=R))):
@@ -184,40 +237,47 @@ if "--steps" in sys.argv:
     print("ROWS", json.dumps({k: {m: v["float32"][m] for m in ("ms", "plain_ms", "library_ms")}
                               for k, v in rows.items()}), flush=True)
     torch.cuda.empty_cache()
-    from fairmultimodal_torch.data.prefetch import to_device
-    from fairmultimodal_torch.models._layers import init_params
-    from fairmultimodal_torch.models.fusion import FAMEModel
-    from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
-    from fairmultimodal_torch.train.simple import MultitaskTrainer
-    a = c.synthetic_cohort(np.random.default_rng(9), 16)
-    keys = [k for k in a if k != "labels"]
-    trainer = FAMETrainer(init_params(FAMEModel(**c.TRAIN_GEO, dtype=torch.float32), seed=0),
-                          TrainConfig(), pos_weight=c.POS_WEIGHT, rngs_seed=0, device="cuda")
-    batch = to_device({"model_inputs": {k: a[k] for k in keys}, "labels": a["labels"],
-                       "weight": np.ones(16, np.float32)}, trainer.device)
-    print("STEP", json.dumps({"step": "FAME default fp32 B16",
-                              "timed": c.time_train_step(trainer, batch),
-                              "profile": c.profile_train_step(trainer, batch)}), flush=True)
-    del trainer, batch
-    name, factory, keys, cfg = c._baseline_models()[0]
-    trainer = MultitaskTrainer(init_params(factory(torch.float32), seed=0), cfg, c.POS_WEIGHT,
-                               device="cuda")
-    batch = c._baseline_batch(keys, "cuda")
-    print("STEP", json.dumps({"step": "01 fp32 B16", "timed": c.time_train_step(trainer, batch),
-                              "profile": c.profile_train_step(trainer, batch)}), flush=True)
+'''
+
+_STEPS = r'''
+import json, numpy as np, torch, chip_smoke as c
+from fairmultimodal_torch.data.prefetch import to_device
+from fairmultimodal_torch.models._layers import init_params
+from fairmultimodal_torch.models.fusion import FAMEModel
+from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
+from fairmultimodal_torch.train.simple import MultitaskTrainer
+torch.backends.cuda.matmul.allow_tf32 = False
+a = c.synthetic_cohort(np.random.default_rng(9), 16)
+keys = [k for k in a if k != "labels"]
+trainer = FAMETrainer(init_params(FAMEModel(**c.TRAIN_GEO, dtype=torch.float32), seed=0),
+                      TrainConfig(), pos_weight=c.POS_WEIGHT, rngs_seed=0, device="cuda")
+batch = to_device({"model_inputs": {k: a[k] for k in keys}, "labels": a["labels"],
+                   "weight": np.ones(16, np.float32)}, trainer.device)
+print("STEP", json.dumps({"step": "FAME default fp32 B16",
+                          "timed": c.time_train_step(trainer, batch),
+                          "profile": c.profile_train_step(trainer, batch)}), flush=True)
+del trainer, batch
+name, factory, keys, cfg = c._baseline_models()[0]
+trainer = MultitaskTrainer(init_params(factory(torch.float32), seed=0), cfg, c.POS_WEIGHT,
+                           device="cuda")
+batch = c._baseline_batch(keys, "cuda")
+print("STEP", json.dumps({"step": "01 fp32 B16", "timed": c.time_train_step(trainer, batch),
+                          "profile": c.profile_train_step(trainer, batch)}), flush=True)
 '''
 
 
 def main(args) -> int:
-    fp32, steps = "--fp32" in args, "--steps" in args
-    trees = [a for a in args if a not in ("--fp32", "--steps")]
+    flags = ("--fp32", "--steps", "--steps-only")
+    fp32, steps, only = (f in args for f in flags)
+    trees = [a for a in args if a not in flags]
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
+    script = _STEPS if only else (_RUN_F32 + (_STEPS if steps else "") if fp32 else _RUN)
     rc = 0
     for tree in trees:
         print(f"==== {tree}", flush=True)
-        cmd = [sys.executable, "-c", _RUN_F32 if fp32 else _RUN] + (["--steps"] if steps else [])
+        cmd = [sys.executable, "-c", script] + (["--steps"] if steps else [])
         rc |= subprocess.run(cmd, cwd=os.path.abspath(tree)).returncode
     return rc
 

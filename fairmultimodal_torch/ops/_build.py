@@ -33,8 +33,9 @@ from fairmultimodal_torch.utils.rng import Dropout
 __all__ = ["KernelLaunchError", "build", "kernels", "gemm", "colsum", "row_block_sums",
            "flash_attn_fwd", "flash_attn_bwd", "flash_attention_fwd", "flash_attention_bwd",
            "add_layernorm", "layernorm_bwd", "ACT_CODES", "FLASH_BWD_TILE", "LN_BWD_ROWS",
-           "SUM_ROWS", "WGMMA_TILE", "SGEMM_TILE", "GEMM_SCHEDULE", "split_rows",
-           "flash_bwd_colpart_rows"]
+           "SUM_ROWS", "WGMMA_TILE", "SGEMM_TILE", "SGEMM_NARROW_TILE", "GEMM_SCHEDULE",
+           "sgemm_tile", "split_rows",
+           "flash_bwd_colpart_rows", "flash_fwd_f32_rows"]
 
 _CSRC = Path(__file__).resolve().with_name("csrc")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -54,13 +55,32 @@ FLASH_BWD_TILE = {torch.bfloat16: 64, torch.float32: 64}
 WGMMA_TILE = (128, 256)
 #: The fp32 CUDA-core GEMM's block tile: ``gemm.cu``'s BM x BN.
 SGEMM_TILE = (128, 128)
+#: Its narrow tile (BM x BN_NARROW, 128 threads, four blocks per SM), which
+#: "nt" / "nn" products with N <= 768 take where :func:`sgemm_tile` says so.
+SGEMM_NARROW_TILE = (128, 64)
 #: Per io dtype, the GEMM kernel's (block tile, blocks resident per SM, K step
 #: of a split, least rows of a split): the wgmma kernel one block of 384
-#: threads with 200 KB of shared memory, the fp32 kernel two of 256
-#: (``__launch_bounds__(THREADS, 2)``); a split's rows are a multiple of the K
+#: threads with 200 KB of shared memory, the fp32 kernel's wide tile two of 256
+#: (``__launch_bounds__`` of ``SgemmTile<BN>``); a split's rows are a multiple of the K
 #: step (WG_BK, BK).
 GEMM_SCHEDULE = {torch.bfloat16: (WGMMA_TILE, 1, 64, 2048),
                  torch.float32: (SGEMM_TILE, 2, 16, 512)}
+
+
+def sgemm_tile(layout: str, m: int, n: int, splits: int, sms: int):
+    """The block tile the fp32 GEMM runs (``gemm.cu``'s ``sgemm_narrow``):
+    the narrow one for an unsplit "nt" / "nn" product with N <= 768 whose
+    64-wide tiles, four to an SM, leave less work on the busiest SM than the
+    wide ones, two to an SM (at batch 16, M 8960 x N 768: 7 x 64 against 4 x
+    128 columns); else the wide one.  "tn" keeps the wide tile, which
+    ``GEMM_SCHEDULE`` sizes its splits from."""
+    if layout == "tn" or splits != 1 or n > 768:
+        return SGEMM_TILE
+    (bm, bn), (_, bn_narrow) = SGEMM_TILE, SGEMM_NARROW_TILE
+    mt = -(-m // bm)
+    wide, narrow = mt * -(-n // bn), mt * -(-n // bn_narrow)
+    return SGEMM_NARROW_TILE if -(-narrow // sms) * bn_narrow < -(-wide // sms) * bn \
+        else SGEMM_TILE
 
 
 def split_rows(k: int, splits: int, dtype: torch.dtype) -> int:
@@ -73,6 +93,13 @@ def split_rows(k: int, splits: int, dtype: torch.dtype) -> int:
 def flash_bwd_colpart_rows(batch: int, seq: int, dtype: torch.dtype) -> int:
     """Rows of the flash backward's column partials: one per owned tile."""
     return batch * -(-seq // FLASH_BWD_TILE[dtype])
+
+
+def flash_fwd_f32_rows(seq: int) -> int:
+    """Query rows per block of the fp32 flash forward (``flash_attention.cu``'s
+    ``f32_fwd_tm`` times 16): 112 where that pads ``seq`` to fewer rows than
+    128 (S 560 = 5 x 112), else 128 (S 512 = 4 x 128)."""
+    return 112 if -(-seq // 112) * 112 < -(-seq // 128) * 128 else 128
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

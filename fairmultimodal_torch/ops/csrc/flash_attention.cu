@@ -55,10 +55,10 @@
 //     chip_smoke.py phase 3d holds it to (FLASH_BF16_FWD = 2^-6 of max-abs,
 //     mean TRAIN_BF16_MEAN = 2^-10); tests/test_torch_flash_forward_contract
 //     .py emulates this order on the CPU against the Pallas kernel.
-//   - fp32: CUDA cores, one pass with the same online softmax; each thread
-//     owns 4 rows x 4 keys of a score tile and 4 rows x DP/16 output
-//     columns.  fp32 rounds nothing, so normalising once at the end differs
-//     from the TPU kernel only in summation order.
+//   - fp32: CUDA cores, one pass with the same online softmax, register
+//     micro-tiles fed by float4 shared-memory reads and a cp.async ring (its
+//     own note, below).  fp32 rounds nothing, so normalising once at the end
+//     differs from the TPU kernel only in summation order.
 // Each row's max m (of s * scale + bias, natural-log units) and sum l (of
 // exp(s * scale + bias - m), fp32) are written to stats [B, heads, S, 2]
 // when the backward will need them; it recomputes p from them.
@@ -80,11 +80,7 @@
 
 namespace {
 
-constexpr int FA_BM = 64;       // query rows per block
-constexpr int FA_BN = 64;       // keys per tile
-constexpr int FA_THREADS = 256;  // the fp32 forward kernel
-constexpr int TSTR = FA_BM + 1;  // transposed q/k tile row stride (bank-conflict pad)
-constexpr int PSTR = FA_BN + 1;  // p tile row stride
+constexpr int FA_BN = 64;  // keys per tile of the bf16 forward
 
 // One strided [B, heads, S, d] operand (last dim contiguous).
 template <typename T>
@@ -114,138 +110,6 @@ template <typename T>
 __device__ __forceinline__ bool vec16(const T* src, long long rs, int d) {
   constexpr int V = 16 / sizeof(T);
   return d % V == 0 && rs % V == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
-}
-
-template <int DP>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * DP * TSTR + FA_BN * DP + FA_BM * PSTR + FA_BN);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_attn_fwd_f32_kernel(Mat<const float> Q, Mat<const float> K, Mat<const float> V, Mask mask,
-                          Mat<float> O, float* __restrict__ stats, int S, int nh, int d,
-                          float scale) {
-  static_assert(DP % 32 == 0 && DP <= 128, "head dim pad");
-  constexpr int DC = DP / 16;  // output columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;                  // [DP][TSTR]   q tile, transposed
-  float* Kt = Qt + DP * TSTR;        // [DP][TSTR]   k tile, transposed
-  float* Vs = Kt + DP * TSTR;        // [FA_BN][DP]
-  float* Ps = Vs + FA_BN * DP;       // [FA_BM][PSTR]
-  float* kbias = Ps + FA_BM * PSTR;  // [FA_BN]
-
-  const int tid = threadIdx.x;
-  const int r = tid / 16;  // rows r*4 .. r*4+3 of the tile
-  const int c = tid % 16;  // keys c + 16*j, output columns c + 16*jj
-  const int q0 = blockIdx.x * FA_BM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const float* qb = Q.head(b, h);
-  const float* kb = K.head(b, h);
-  const float* vb = V.head(b, h);
-  const int* mrow = mask.row(b);
-
-  for (int i = tid; i < FA_BM * DP; i += FA_THREADS) {
-    const int row = i / DP, k = i % DP;
-    float v = 0.0f;
-    if (q0 + row < S && k < d) v = qb[(q0 + row) * Q.sr + k];
-    Qt[k * TSTR + row] = v;
-  }
-
-  float m_i[4], l_i[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.0f;
-#pragma unroll
-    for (int jj = 0; jj < DC; ++jj) acc[i][jj] = 0.0f;
-  }
-
-  for (int k0 = 0; k0 < S; k0 += FA_BN) {
-    __syncthreads();  // previous tile fully consumed
-    for (int i = tid; i < FA_BN * DP; i += FA_THREADS) {
-      const int key = i / DP, k = i % DP;
-      const bool ok = k0 + key < S && k < d;
-      Kt[k * TSTR + key] = ok ? kb[(k0 + key) * K.sr + k] : 0.0f;
-      Vs[key * DP + k] = ok ? vb[(k0 + key) * V.sr + k] : 0.0f;
-    }
-    for (int i = tid; i < FA_BN; i += FA_THREADS) kbias[i] = key_bias(mrow, k0 + i, S);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int k = 0; k < DP; ++k) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qt[k * TSTR + r * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Kt[k * TSTR + c + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = s[i][j] * scale + kbias[c + 16 * j];
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m_i[i], fm::half_warp_max(mx));
-      const float alpha = expf(m_i[i] - m_new);  // 0 on the first tile
-      m_i[i] = m_new;
-      l_i[i] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < DC; ++jj) acc[i][jj] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        l_i[i] += p;
-        Ps[(r * 4 + i) * PSTR + c + 16 * j] = p;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < FA_BN; ++j) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(r * 4 + i) * PSTR + j];
-#pragma unroll
-      for (int jj = 0; jj < DC; ++jj) {
-        const float vv = Vs[j * DP + c + 16 * jj];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
-      }
-    }
-  }
-
-  float* ob = O.head(b, h);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float l = fm::half_warp_sum(l_i[i]);
-    const int row = q0 + r * 4 + i;
-    if (row >= S) continue;
-    if (stats && c == 0) {
-      float* st = stats + (((size_t)b * nh + h) * S + row) * 2;
-      st[0] = m_i[i];
-      st[1] = l;
-    }
-    float* dst = ob + row * O.sr;
-#pragma unroll
-    for (int jj = 0; jj < DC; ++jj) {
-      const int col = c + 16 * jj;
-      if (col < d) dst[col] = acc[i][jj] / l;
-    }
-  }
 }
 
 // ---- bf16 tensor-core kernel (mma.sync m16n8k16, one pass, register-resident) ------
@@ -583,32 +447,6 @@ cudaError_t launch_mma_dp(const FwdArgs& a, cudaStream_t stream) {
       as_mat<const fm_bf16>(a.q), as_mat<const fm_bf16>(a.k), as_mat<const fm_bf16>(a.v),
       a.mask, as_mat<fm_bf16>(a.o), a.stats, a.S, a.nh, a.d, a.scale);
   return cudaGetLastError();
-}
-
-template <int DP>
-cudaError_t launch_f32_dp(const FwdArgs& a, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<DP>();
-  cudaError_t e = cudaFuncSetAttribute(flash_attn_fwd_f32_kernel<DP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)bytes);  // per device, as above
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.S + FA_BM - 1) / FA_BM, a.nh, a.B);
-  flash_attn_fwd_f32_kernel<DP><<<grid, FA_THREADS, bytes, stream>>>(
-      as_mat<const float>(a.q), as_mat<const float>(a.k), as_mat<const float>(a.v), a.mask,
-      as_mat<float>(a.o), a.stats, a.S, a.nh, a.d, a.scale);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_fwd(const FwdArgs& a, int dtype, cudaStream_t s) {
-  const bool bf16 = dtype == FM_BF16;
-  if (!bf16 && dtype != FM_F32) return cudaErrorInvalidValue;
-  switch (head_pad(a.d)) {
-    case 32: return bf16 ? launch_mma_dp<32>(a, s) : launch_f32_dp<32>(a, s);
-    case 64: return bf16 ? launch_mma_dp<64>(a, s) : launch_f32_dp<64>(a, s);
-    case 96: return bf16 ? launch_mma_dp<96>(a, s) : launch_f32_dp<96>(a, s);
-    case 128: return bf16 ? launch_mma_dp<128>(a, s) : launch_f32_dp<128>(a, s);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 // ---- backward -------------------------------------------------------------------
@@ -1535,6 +1373,299 @@ flash_bwd_dkdv_f32_kernel(Mat<const float> Q, Mat<const float> K, Mat<const floa
   write_grad_f32<NC>(dv, dVg.head(b, h), dVg.sr, k0, S, d, r, c, red, cp ? cp + 2 * H : nullptr);
 }
 
+// ---- fp32 forward kernel (CUDA cores) ---------------------------------------------
+//
+// What bounds it is the CUDA cores' fp32 rate (67 TFLOP/s on an H100 SXM): at
+// B 16 x S 560 x 8 x 96 its two [S, S, d] products are 1.5e10 FLOP (0.23 ms)
+// against 0.1 GB of q, k, v and o.  So, as in the fp32 backward, the design
+// keeps the FMA pipes fed from registers.  A block of 256 threads owns BM =
+// 16 TM query rows of one (batch, head) and walks the keys in tiles of BN
+// (64; 32 at d 128, where two 64-key stages do not fit beside the q tile).
+// Thread (r, c) (warp w, lane l: r = 2 w + l / 16, c = l % 16; the 16 lanes
+// of a half-warp share r) owns rows r + 16 i (i < TM): of each score tile
+// the keys c + 16 j (a TM x BN/16 register micro-tile), of the output the
+// columns 4c + 64 jj + {0..3} (jj < d / 64) and, at d 32 and 96, 64 (d / 64)
+// + 2c + {0, 1}, in registers for the whole walk.
+//   - s = q . k^T runs over d in float4 steps: TM q rows (one address per
+//     half-warp, a broadcast) and BN/16 k rows (16 rows at an odd 16-byte
+//     pitch LD = DP + 4: one wavefront per quarter-warp) per step, 4 TM BN/16
+//     FMAs for TM + BN/16 loads.
+//   - The online softmax stays in registers, in log2 units: t = s * (scale
+//     log2 e) + bias log2 e as one fmaf, the row max over the half-warp by
+//     four shuffles, p = exp2f(t - m2).  The stats keep their contract: m =
+//     m2 ln 2 is in natural-log units of s * scale + bias (the fp32 backward
+//     reads p = expf(s * scale + bias - m) / l); it differs from that row max
+//     by about one rounding, so the backward's p sums to 1 within ~|m| 2^-23.
+//     A fully masked row (every t = -1e9 log2 e in fp32, one ulp there 128)
+//     gets m = -1e9 exactly and l = S: the backward's p = 1 / S, as the
+//     forward's uniform softmax.
+//   - p goes to shared memory ([BM][BN + 16]: the two rows a warp writes lie
+//     16 banks apart) only as the A operand of o += p . v, read back as
+//     float4 along the keys (a broadcast per half-warp) beside float4 /
+//     float2 reads of a v row (contiguous across the half-warp).
+//   - k, v and the tile's key bias come by 16-byte cp.async into a two-stage
+//     ring, the next tile's copy running under this tile's products; the q
+//     tile is copied once.  Two barriers a tile (p whole; ring and p free).
+// BM is 112 (TM 7) where that pads S to fewer rows than 128 (S 560 = 5 x
+// 112), else 128 (S 512 = 4 x 128): _build.flash_fwd_f32_rows repeats the
+// rule.  One block per SM (195 KB of shared memory at d 96); the lab grid is
+// 640 blocks, 4.85 waves on 132 SMs, the text grid (B 32 x 12 heads, S 512)
+// 1536.  Numerics: each score is an fmaf chain over the head dim in order,
+// each output an fmaf chain over the keys in order, l the sum of each
+// thread's p then of the 16 lanes in a fixed order, o / l once at the end:
+// IEEE fp32 (no TF32), the same bits every run; only the summation order
+// differs from the plain version.
+
+constexpr int F32_FWD_THREADS = 256;  // 16 row groups (two a warp) x 16 lanes
+constexpr float LN2 = 0.6931471805599453f;
+static_assert(F32_FWD_THREADS == F32_BWD_THREADS, "load_tile_f32 strides by the block size");
+
+template <int DP, int TM>
+struct FwdF32Smem {  // byte offsets of the shared-memory regions
+  static constexpr int BM = 16 * TM;                // query rows a block owns
+  static constexpr int BN = DP == 128 ? 32 : 64;    // keys per tile
+  static constexpr int LD = DP + 4;                 // q / k / v tile pitch (floats)
+  static constexpr int LP = BN + 16;                // p tile pitch
+  static constexpr int Q = 0;                       // [BM][LD]
+  static constexpr int RING = Q + BM * LD * 4;      // 2 stages x (k, v) [BN][LD]
+  static constexpr int P = RING + 4 * BN * LD * 4;  // [BM][LP]
+  static constexpr int BIAS = P + BM * LP * 4;      // 2 stages x [BN] key bias
+  static constexpr int BYTES = BIAS + 2 * BN * 4;
+};
+
+// Rows per block of the fp32 forward (16 TM): 112 where that pads S to fewer
+// rows than 128, else 128.
+int f32_fwd_tm(int S) { return (S + 111) / 112 * 112 < (S + 127) / 128 * 128 ? 7 : 8; }
+
+template <int DP, int TM>
+__global__ void __launch_bounds__(F32_FWD_THREADS, 1)
+flash_attn_fwd_f32_kernel(Mat<const float> Q, Mat<const float> K, Mat<const float> V, Mask mask,
+                          Mat<float> O, float* __restrict__ stats, int S, int nh, int d,
+                          float scale) {
+  static_assert(DP % 32 == 0 && DP <= 128, "head dim pad");
+  using L = FwdF32Smem<DP, TM>;
+  constexpr int BM = L::BM, BN = L::BN, LD = L::LD, LP = L::LP, TN = BN / 16;
+  constexpr int NQ = DP / 64;          // float4 output groups of a row
+  constexpr bool H2 = DP % 64 == 32;   // and one float2 group
+  constexpr int NO = DP / 16;          // output columns of a row
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw + L::Q);
+  float* ring = reinterpret_cast<float*>(smem_raw + L::RING);  // stage st: k, v at 2st, 2st+1
+  float* Ps = reinterpret_cast<float*>(smem_raw + L::P);
+  float* kbias = reinterpret_cast<float*>(smem_raw + L::BIAS);  // stage st at st * BN
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = 2 * warp + lane / 16;
+  const int c = lane % 16;
+  const int q0 = blockIdx.x * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const float* qb = Q.head(b, h);
+  const float* kb = K.head(b, h);
+  const float* vb = V.head(b, h);
+  const int* mrow = mask.row(b);
+  const bool kv_vec = vec16(kb, K.sr, d) && vec16(vb, V.sr, d);
+  auto stage = [&](int st, int which) { return ring + (2 * st + which) * BN * LD; };
+  auto load_kv = [&](int k0, int st) {
+    load_tile_f32<DP, BN>(kb, K.sr, k0, S, d, kv_vec, stage(st, 0));
+    load_tile_f32<DP, BN>(vb, V.sr, k0, S, d, kv_vec, stage(st, 1));
+  };
+
+  load_tile_f32<DP, BM>(qb, Q.sr, q0, S, d, vec16(qb, Q.sr, d), Qs);
+  load_kv(0, 0);
+  cp_async_commit();
+  if (threadIdx.x < BN) kbias[threadIdx.x] = key_bias(mrow, threadIdx.x, S) * LOG2E;
+  cp_async_wait_all();
+  __syncthreads();
+
+  const float scale2 = scale * LOG2E;  // scores in log2 units
+  float o[TM][NO];     // row r + 16 i: columns 4c + 64 jj + e, then 64 NQ + 2c + e
+  float m_r[TM], l_r[TM];  // running max (log2 units) and this thread's share of the sum
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m_r[i] = -INFINITY;
+    l_r[i] = 0.0f;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) o[i][n] = 0.0f;
+  }
+
+  const int ntiles = (S + BN - 1) / BN;
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    const bool next = it + 1 < ntiles;
+    float nbias = 0.0f;  // the next tile's key bias, stored after this tile's products
+    if (next) {
+      load_kv((it + 1) * BN, st ^ 1);
+      if (threadIdx.x < BN) nbias = key_bias(mrow, (it + 1) * BN + threadIdx.x, S) * LOG2E;
+    }
+    cp_async_commit();
+
+    // s = q . k^T over the padded head dim, each an fmaf chain in order.
+    const float* ks = stage(st, 0);
+    float s[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) s[i][j] = 0.0f;
+#pragma unroll 2
+    for (int k = 0; k < DP; k += 4) {
+      float4 kv[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + (c + 16 * j) * LD + k);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(Qs + (r + 16 * i) * LD + k);
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+        }
+      }
+    }
+
+    // Scale and key bias (in log2 units), then the online softmax.
+    const float* kbs = kbias + st * BN;
+    float kbj[TN];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) kbj[j] = kbs[c + 16 * j];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        s[i][j] = fmaf(s[i][j], scale2, kbj[j]);
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m_r[i], fm::half_warp_max(mx));  // finite: a key < S per tile
+      const float alpha = exp2f(m_r[i] - m_new);                 // 0 on the first tile
+      m_r[i] = m_new;
+      l_r[i] *= alpha;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) o[i][n] *= alpha;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float p = exp2f(s[i][j] - m_new);
+        l_r[i] += p;
+        Ps[(r + 16 * i) * LP + c + 16 * j] = p;
+      }
+    }
+    __syncthreads();  // the p tile is whole
+
+    // o += p . v, each output an fmaf chain over the keys in order.
+    const float* vs = stage(st, 1);
+#pragma unroll 2
+    for (int t = 0; t < BN; t += 4) {
+      float4 pv[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (r + 16 * i) * LP + t);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* vrow = vs + (t + u) * LD;
+        float w[NO];
+#pragma unroll
+        for (int jj = 0; jj < NQ; ++jj) {
+          const float4 t4 = *reinterpret_cast<const float4*>(vrow + 64 * jj + 4 * c);
+          w[4 * jj] = t4.x;
+          w[4 * jj + 1] = t4.y;
+          w[4 * jj + 2] = t4.z;
+          w[4 * jj + 3] = t4.w;
+        }
+        if constexpr (H2) {
+          const float2 t2 = *reinterpret_cast<const float2*>(vrow + 64 * NQ + 2 * c);
+          w[4 * NQ] = t2.x;
+          w[4 * NQ + 1] = t2.y;
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y : u == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+          for (int n = 0; n < NO; ++n) o[i][n] = fmaf(p, w[n], o[i][n]);
+        }
+      }
+    }
+
+    if (next && threadIdx.x < BN) kbias[(st ^ 1) * BN + threadIdx.x] = nbias;
+    cp_async_wait_all();  // the next tile has landed ...
+    __syncthreads();      // ... and every warp is done with this one (and with p)
+  }
+
+  float* ob = O.head(b, h);
+  const bool o_vec = vec16(ob, O.sr, d);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const float l = fm::half_warp_sum(l_r[i]);
+    const int row = q0 + r + 16 * i;
+    if (row >= S) continue;
+    if (stats && c == 0) {
+      float* sp = stats + (((size_t)b * nh + h) * S + row) * 2;
+      sp[0] = m_r[i] * LN2;  // natural-log units, the backward's contract
+      sp[1] = l;
+    }
+    float* dst = ob + row * O.sr;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) o[i][n] /= l;
+#pragma unroll
+    for (int jj = 0; jj < NQ; ++jj) {
+      const int col = 64 * jj + 4 * c;
+      if (o_vec && col + 4 <= d) {
+        *reinterpret_cast<float4*>(dst + col) =
+            make_float4(o[i][4 * jj], o[i][4 * jj + 1], o[i][4 * jj + 2], o[i][4 * jj + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < d) dst[col + e] = o[i][4 * jj + e];
+      }
+    }
+    if constexpr (H2) {
+      const int col = 64 * NQ + 2 * c;
+      if (o_vec && col + 2 <= d) {
+        *reinterpret_cast<float2*>(dst + col) = make_float2(o[i][4 * NQ], o[i][4 * NQ + 1]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (col + e < d) dst[col + e] = o[i][4 * NQ + e];
+      }
+    }
+  }
+}
+
+// ---- host-side forward dispatch -----------------------------------------------------
+
+template <int DP, int TM>
+cudaError_t launch_f32_tm(const FwdArgs& a, cudaStream_t stream) {
+  constexpr int bytes = FwdF32Smem<DP, TM>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(flash_attn_fwd_f32_kernel<DP, TM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       bytes);  // per device, as above
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.S + 16 * TM - 1) / (16 * TM), a.nh, a.B);
+  flash_attn_fwd_f32_kernel<DP, TM><<<grid, F32_FWD_THREADS, bytes, stream>>>(
+      as_mat<const float>(a.q), as_mat<const float>(a.k), as_mat<const float>(a.v), a.mask,
+      as_mat<float>(a.o), a.stats, a.S, a.nh, a.d, a.scale);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_f32_dp(const FwdArgs& a, cudaStream_t s) {
+  return f32_fwd_tm(a.S) == 7 ? launch_f32_tm<DP, 7>(a, s) : launch_f32_tm<DP, 8>(a, s);
+}
+
+cudaError_t launch_fwd(const FwdArgs& a, int dtype, cudaStream_t s) {
+  const bool bf16 = dtype == FM_BF16;
+  if (!bf16 && dtype != FM_F32) return cudaErrorInvalidValue;
+  switch (head_pad(a.d)) {
+    case 32: return bf16 ? launch_mma_dp<32>(a, s) : launch_f32_dp<32>(a, s);
+    case 64: return bf16 ? launch_mma_dp<64>(a, s) : launch_f32_dp<64>(a, s);
+    case 96: return bf16 ? launch_mma_dp<96>(a, s) : launch_f32_dp<96>(a, s);
+    case 128: return bf16 ? launch_mma_dp<128>(a, s) : launch_f32_dp<128>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 struct BwdArgs {
   Op q, k, v, o, dout, dq, dk, dv;
   Mask mask;
@@ -1634,7 +1765,7 @@ int fm_flash_attention_fwd(const void* q, const long long* qs, const void* k,
 // dout (dO, io dtype) as in fm_flash_attention_fwd, stats from it; D
 // [B, nh, S] fp32 scratch; writes dq, dk, dv (strided, io dtype) and, when
 // colpart is not null, the column partials [B * ceil(S / tile), 3 * nh * d]
-// fp32 of the fp32 dq | dk | dv, tile = 64 (bf16) or 32 (fp32).
+// fp32 of the fp32 dq | dk | dv, tile = 64 (_build.FLASH_BWD_TILE).
 int fm_flash_attention_bwd(const void* q, const long long* qs, const void* k,
                            const long long* ks, const void* v, const long long* vs,
                            const void* o, const long long* os, const void* dout,

@@ -271,14 +271,36 @@ __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, i
 // in turns, none faster: the first 16-wide warp layout, unswizzled slices with
 // lane-per-row K-major loads (nt 13% slower), and 8 x 16 micro-tiles on 128
 // threads (255 registers, 8 warps per SM).
+// Narrow tile (BM x BN_NARROW = 128 x 64, 128 threads, four blocks per SM:
+// the same warp tile, micro-tile and ring, the warps stacked along M), for
+// "nt" / "nn" products with N <= 768 where it leaves less work on the busiest
+// SM (sgemm_narrow).  At the pipelines' batch 16 an N-768 product (Wo, W2,
+// dO, both N-768 dx) has 420 wide tiles on 132 SMs: the busiest SM takes 4
+// (3.2 on average, 1.6 waves of two a SM); 840 narrow tiles put 7 half-size
+// ones (3.5 tiles of work) on it.  Each thread stages twice the A rows of a
+// K-major slice, so the "nn" instantiations spill 24-36 bytes at the 128
+// registers four blocks allow.  Timed in turns with the wide tile on the H100
+// (compare_kernels.py --fp32): W2 "nt" 0.84-0.88 ms against 0.94-0.95, Wo
+// 0.33-0.34 against 0.37-0.38, "nn" dx at K 2304 0.97-0.98 against 0.99-1.01.
 
+// _build.SGEMM_TILE and SGEMM_NARROW_TILE repeat BM x BN and BM x BN_NARROW.
 constexpr int BM = 128;
 constexpr int BN = 128;
+constexpr int BN_NARROW = 64;
 constexpr int BK = 16;
-constexpr int THREADS = 256;
 constexpr int F32_STAGES = 4;
-constexpr int F32_TILE = BK * BM;                        // floats of one operand slice
-constexpr int F32_SMEM = F32_STAGES * 2 * F32_TILE * 4;  // 64 KB: two blocks per SM
+
+// One fp32 tile shape: BM x TBN on NT = 2 TBN threads (4 warps along M x TBN /
+// 64 along N, 512 / NT blocks per SM), a ring of F32_STAGES slices of A
+// [BK][BM] and B [BK][TBN].
+template <int TBN>
+struct SgemmTile {
+  static constexpr int NT = 2 * TBN;  // 256 wide, 128 narrow
+  static constexpr int WN = TBN / 64;
+  static constexpr int A_SLICE = BK * BM;  // floats
+  static constexpr int B_SLICE = BK * TBN;
+  static constexpr int SMEM = F32_STAGES * (A_SLICE + B_SLICE) * 4;  // 64 KB wide, 48 KB narrow
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -294,74 +316,83 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Float offset of the 4-float group g of row k in a swizzled [BK][128] slice.
-__device__ __forceinline__ int swz(int k, int g) { return k * BM + ((g ^ ((k >> 1) & 6)) << 2); }
+// Float offset of the 4-float group g of row k in a swizzled [BK][W] slice.
+template <int W>
+__device__ __forceinline__ int swz(int k, int g) { return k * W + ((g ^ ((k >> 1) & 6)) << 2); }
 
-// A K-major operand [nrows, K] (K % 16 == 0): rows r0.. x K k0..k0+15 into
-// registers, 4 threads per row (zero past nrows) ...
+// A K-major operand [nrows, K] (K % 16 == 0): ROWS rows r0.. x K k0..k0+15
+// into registers, 4 threads per row (zero past nrows) ...
+template <int ROWS, int NT>
 __device__ __forceinline__ void fetch_kmajor(const float* __restrict__ src, int nrows, int K,
-                                             int r0, int k0, float4 (&r)[2]) {
+                                             int r0, int k0, float4 (&r)[ROWS * 4 / NT]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int v = threadIdx.x + i * THREADS;
+  for (int i = 0; i < ROWS * 4 / NT; ++i) {
+    const int v = threadIdx.x + i * NT;
     const int row = v >> 2;
     r[i] = r0 + row < nrows
                ? *reinterpret_cast<const float4*>(src + (size_t)(r0 + row) * K + k0 + (v & 3) * 4)
                : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
-// ... and from them, transposed, into a slice: a warp's 8 rows x 4 K groups
-// fall on 32 distinct banks for each of the 4 stores.
-__device__ __forceinline__ void store_kmajor(const float4 (&r)[2], float* tile) {
+// ... and from them, transposed, into a [BK][ROWS] slice: a warp's 8 rows x
+// 4 K groups fall on 32 distinct banks for each of the 4 stores.
+template <int ROWS, int NT>
+__device__ __forceinline__ void store_kmajor(const float4 (&r)[ROWS * 4 / NT], float* tile) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int v = threadIdx.x + i * THREADS;
+  for (int i = 0; i < ROWS * 4 / NT; ++i) {
+    const int v = threadIdx.x + i * NT;
     const int row = v >> 2, kk = (v & 3) * 4;
     const float x[4] = {r[i].x, r[i].y, r[i].z, r[i].w};
 #pragma unroll
-    for (int e = 0; e < 4; ++e) tile[swz(kk + e, row >> 2) + (row & 3)] = x[e];
+    for (int e = 0; e < 4; ++e) tile[swz<ROWS>(kk + e, row >> 2) + (row & 3)] = x[e];
   }
 }
 // An MN-major operand [K, ncols] (ncols % 4 == 0): K rows k0..k0+15 (zero
-// from kend on) x columns c0..c0+127 (zero past ncols), by cp.async.
+// from kend on) x columns c0..c0+COLS-1 (zero past ncols), by cp.async.
+template <int COLS, int NT>
 __device__ __forceinline__ void copy_mnmajor(const float* __restrict__ src, int ncols, int c0,
                                              int k0, int kend, float* tile) {
+  constexpr int G = COLS / 4;  // 16-byte groups of a row
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int v = threadIdx.x + i * THREADS;
-    const int kk = v >> 5, g = v & 31;
+  for (int i = 0; i < BK * G / NT; ++i) {
+    const int v = threadIdx.x + i * NT;
+    const int kk = v / G, g = v % G;
     const bool ok = c0 + 4 * g < ncols && k0 + kk < kend;
-    cp_async16(smem_u32(tile + swz(kk, g)),
+    cp_async16(smem_u32(tile + swz<COLS>(kk, g)),
                ok ? src + (size_t)(k0 + kk) * ncols + c0 + 4 * g : src, ok);
   }
 }
 
-template <int AT, int BT, int MODE>
-__global__ void __launch_bounds__(THREADS, 2)
+template <int AT, int BT, int MODE, int TBN>
+__global__ void __launch_bounds__(SgemmTile<TBN>::NT, 512 / SgemmTile<TBN>::NT)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
                 int M, int N, int K, int Kc, Epi e) {
+  using T = SgemmTile<TBN>;
+  constexpr int NT = T::NT, WN = T::WN;
   extern __shared__ __align__(16) float ring[];  // stage s: A slice, then B slice
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ga = (warp / 2) * 8 + lane / 8;   // 4-row groups ga and ga + 4 of the tile
-  const int gb = (warp % 2) * 16 + lane % 8;  // 4-column groups gb and gb + 8
+  const int ga = (warp / WN) * 8 + lane / 8;   // 4-row groups ga and ga + 4 of the tile
+  const int gb = (warp % WN) * 16 + lane % 8;  // 4-column groups gb and gb + 8
   const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int n0 = blockIdx.x * TBN;
   const int kb = blockIdx.z * Kc;
   const int kend = min(kb + Kc, K);
   const int nk = kend > kb ? (kend - kb + BK - 1) / BK : 0;
   C += (size_t)blockIdx.z * M * N;
 
-  float4 ra[2], rb[2];  // the K-major operands' slice in flight
-  auto slice_a = [&](int s) { return ring + s * 2 * F32_TILE; };
-  auto slice_b = [&](int s) { return ring + s * 2 * F32_TILE + F32_TILE; };
+  float4 ra[BM * 4 / NT], rb[TBN * 4 / NT];  // the K-major operands' slice in flight
+  auto slice_a = [&](int s) { return ring + s * (T::A_SLICE + T::B_SLICE); };
+  auto slice_b = [&](int s) { return ring + s * (T::A_SLICE + T::B_SLICE) + T::A_SLICE; };
   auto issue = [&](int t, int s) {
     const int k0 = kb + t * BK;
-    if (AT) copy_mnmajor(A, M, m0, k0, kend, slice_a(s)); else fetch_kmajor(A, M, K, m0, k0, ra);
-    if (BT) copy_mnmajor(B, N, n0, k0, kend, slice_b(s)); else fetch_kmajor(B, N, K, n0, k0, rb);
+    if (AT) copy_mnmajor<BM, NT>(A, M, m0, k0, kend, slice_a(s));
+    else fetch_kmajor<BM, NT>(A, M, K, m0, k0, ra);
+    if (BT) copy_mnmajor<TBN, NT>(B, N, n0, k0, kend, slice_b(s));
+    else fetch_kmajor<TBN, NT>(B, N, K, n0, k0, rb);
   };
   auto park = [&](int s) {
-    if (!AT) store_kmajor(ra, slice_a(s));
-    if (!BT) store_kmajor(rb, slice_b(s));
+    if (!AT) store_kmajor<BM, NT>(ra, slice_a(s));
+    if (!BT) store_kmajor<TBN, NT>(rb, slice_b(s));
   };
 #pragma unroll
   for (int s = 0; s < F32_STAGES - 1; ++s) {
@@ -390,10 +421,12 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float*
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
       float a[8], w[8];
-      *reinterpret_cast<float4*>(&a[0]) = *reinterpret_cast<const float4*>(As + swz(k, ga));
-      *reinterpret_cast<float4*>(&a[4]) = *reinterpret_cast<const float4*>(As + swz(k, ga + 4));
-      *reinterpret_cast<float4*>(&w[0]) = *reinterpret_cast<const float4*>(Bs + swz(k, gb));
-      *reinterpret_cast<float4*>(&w[4]) = *reinterpret_cast<const float4*>(Bs + swz(k, gb + 8));
+      *reinterpret_cast<float4*>(&a[0]) = *reinterpret_cast<const float4*>(As + swz<BM>(k, ga));
+      *reinterpret_cast<float4*>(&a[4]) =
+          *reinterpret_cast<const float4*>(As + swz<BM>(k, ga + 4));
+      *reinterpret_cast<float4*>(&w[0]) = *reinterpret_cast<const float4*>(Bs + swz<TBN>(k, gb));
+      *reinterpret_cast<float4*>(&w[4]) =
+          *reinterpret_cast<const float4*>(Bs + swz<TBN>(k, gb + 8));
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -421,34 +454,61 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float*
     }
   }
   if (MODE == EPI_GATE) {  // the 16 thread rows' sums in order, through the idle ring
-    float* colsum = ring;  // [16][BN]
-    const int tr = (warp / 2) * 4 + lane / 8;  // this thread's row of the 16 that share a column
+    float* colsum = ring;  // [16][TBN]
+    const int tr = (warp / WN) * 4 + lane / 8;  // this thread's row of the 16 that share a column
 #pragma unroll
-    for (int j = 0; j < 8; ++j) colsum[tr * BN + 4 * gb + (j < 4 ? j : 28 + j)] = csum[j];
+    for (int j = 0; j < 8; ++j) colsum[tr * TBN + 4 * gb + (j < 4 ? j : 28 + j)] = csum[j];
     __syncthreads();
-    if (threadIdx.x < BN && n0 + threadIdx.x < N) {
+    if (threadIdx.x < TBN && n0 + threadIdx.x < N) {
       float s = 0.0f;
-      for (int t = 0; t < 16; ++t) s += colsum[t * BN + threadIdx.x];
+      for (int t = 0; t < 16; ++t) s += colsum[t * TBN + threadIdx.x];
       e.colpart[(size_t)blockIdx.y * N + n0 + threadIdx.x] = s;
     }
   }
 }
 
-template <int AT, int BT, int MODE>
-cudaError_t launch_f32(const void* A, const void* B, void* C, int M, int N, int K, int splits,
-                       const Epi& e, cudaStream_t s) {
+// Whether an unsplit product runs on the narrow tile: N <= 768 and its
+// 64-wide tiles, four to an SM, leave less work on the busiest SM than the
+// wide ones (_build.sgemm_tile repeats the rule).
+bool sgemm_narrow(int M, int N, int splits, int sms) {
+  if (splits != 1 || N > 768) return false;
+  const long long mt = (M + BM - 1) / BM;
+  const long long wide = mt * ((N + BN - 1) / BN);
+  const long long narrow = mt * ((N + BN_NARROW - 1) / BN_NARROW);
+  return (narrow + sms - 1) / sms * BN_NARROW < (wide + sms - 1) / sms * BN;
+}
+
+template <int AT, int BT, int MODE, int TBN>
+cudaError_t launch_f32_tile(const void* A, const void* B, void* C, int M, int N, int K,
+                            int splits, const Epi& e, cudaStream_t s) {
+  using T = SgemmTile<TBN>;
   // K per split, a multiple of BK; the last split may be short (or empty).
   const int Kc = ((K + splits - 1) / splits + BK - 1) / BK * BK;
   // Per launch, as the attribute belongs to the current device.
-  const cudaError_t err = cudaFuncSetAttribute(gemm_f32_kernel<AT, BT, MODE>,
+  const cudaError_t err = cudaFuncSetAttribute(gemm_f32_kernel<AT, BT, MODE, TBN>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               F32_SMEM);
+                                               T::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  gemm_f32_kernel<AT, BT, MODE><<<grid, THREADS, F32_SMEM, s>>>(
+  const dim3 grid((N + TBN - 1) / TBN, (M + BM - 1) / BM, splits);
+  gemm_f32_kernel<AT, BT, MODE, TBN><<<grid, T::NT, T::SMEM, s>>>(
       static_cast<const float*>(A), static_cast<const float*>(B), static_cast<float*>(C), M, N,
       K, Kc, e);
   return cudaGetLastError();
+}
+
+template <int AT, int BT, int MODE>
+cudaError_t launch_f32(const void* A, const void* B, void* C, int M, int N, int K, int splits,
+                       const Epi& e, cudaStream_t s) {
+  if constexpr (!AT) {  // "nt" / "nn"; "tn" keeps the wide tile its splits are sized from
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (sgemm_narrow(M, N, splits, sms))
+      return launch_f32_tile<AT, BT, MODE, BN_NARROW>(A, B, C, M, N, K, splits, e, s);
+  }
+  return launch_f32_tile<AT, BT, MODE, BN>(A, B, C, M, N, K, splits, e, s);
 }
 
 // ---- bf16 kernel: wgmma fed by TMA, warp-specialised, every layout ----------------

@@ -6,7 +6,10 @@ order.  The split count is sized from the tile and the residency of the
 kernel that runs it (``_build.GEMM_SCHEDULE``): the bf16 ``wgmma`` kernel's
 128 x 256 tile at one block per SM, the fp32 CUDA-core kernel's 128 x 128
 tile at two; each split sums ``_build.split_rows`` rows (a multiple of the
-kernel's K step, 64 or 16; at least 2048 or 512).  At batch 16 the fp32 weight
+kernel's K step, 64 or 16; at least 2048 or 512).  "tn" always runs that
+wide tile; an unsplit "nt" / "nn" product with N <= 768 takes the 128 x 64
+narrow tile where ``_build.sgemm_tile`` (``gemm.cu``'s ``sgemm_narrow``)
+says its wave tail is shorter: at batch 16, not at the lab or text shapes.  At batch 16 the fp32 weight
 grads take 7-8 splits of 1120-1280 rows where the bf16 ones take 2-4.  The
 tests pin both at the lab (B 256 x S 560), text (B 32 x S 512, FFN 3072) and
 baseline (B 16 x S 560) shapes on a 132-SM H100, and hold the Python
@@ -73,8 +76,12 @@ def test_schedule_matches_the_kernel_source():
     assert _build.WGMMA_TILE == (_const("WG_BM"), _const("WG_BN"))
     assert _build.GEMM_SCHEDULE[F32][:3] == (_build.SGEMM_TILE, 2, _const("BK"))
     assert _build.GEMM_SCHEDULE[BF][:3] == (_build.WGMMA_TILE, 1, _const("WG_BK"))
-    # The fp32 kernel's residency is its launch bound; the wgmma kernel's one.
-    assert re.search(r"__launch_bounds__\(THREADS, 2\)\s*gemm_f32_kernel", _GEMM)
+    # The fp32 kernel's residency is its launch bound (2 TBN threads, 512 / (2
+    # TBN) blocks: two of 256 at the wide tile); the wgmma kernel's one.
+    assert re.search(r"__launch_bounds__\(SgemmTile<TBN>::NT, 512 / SgemmTile<TBN>::NT\)"
+                     r"\s*gemm_f32_kernel", _GEMM)
+    assert "static constexpr int NT = 2 * TBN;" in _GEMM
+    assert _build.SGEMM_NARROW_TILE == (_const("BM"), _const("BN_NARROW"))
     assert re.search(r"__launch_bounds__\(WG_THREADS, 1\)\s*gemm_wgmma_kernel", _GEMM)
     # Both launches size a split the way split_rows does.
     assert "((K + splits - 1) / splits + BK - 1) / BK * BK" in _GEMM
@@ -87,3 +94,34 @@ def test_a_card_with_fewer_sms_gets_its_own_count(dtype):
     # tiles in 2 splits of 71680 rows, the wgmma kernel's 114 its 54 tiles too.
     assert t_fab._splits(2304, 768, LAB, 114, dtype) == 2
     assert _build.split_rows(LAB, 2, dtype) == 71680
+
+
+# layout, M, N, splits, SMs, the tile that runs
+TILES = [
+    ("nt", BASE, 768, 1, 132, (128, 64)),        # Wo, W2 at batch 16
+    ("nn", BASE, 768, 1, 132, (128, 64)),        # dO, both N-768 dx
+    ("nt", BASE, 2304, 1, 132, (128, 128)),      # QKV: N > 768
+    ("nt", BASE, 2048, 1, 132, (128, 128)),      # W1
+    ("nt", TEXT, 768, 1, 132, (128, 128)),       # 768 wide tiles: 6 a SM either way
+    ("nt", LAB, 768, 1, 132, (128, 128)),
+    ("nn", 600, 200, 1, 132, (128, 64)),         # one wave: half the work a block
+    ("tn", 768, 768, 1, 132, (128, 128)),        # the weight grads keep the wide tile
+    ("nt", BASE, 768, 2, 132, (128, 128)),
+    ("nt", BASE, 768, 1, 114, (128, 128)),       # 114 SMs: 8 x 64 = 4 x 128, a tie
+]
+
+
+@pytest.mark.parametrize("layout,m,n,splits,sms,tile", TILES,
+                         ids=[f"{t[0]}-M{t[1]}-N{t[2]}-s{t[3]}-sm{t[4]}" for t in TILES])
+def test_narrow_tile_where_its_wave_tail_is_shorter(layout, m, n, splits, sms, tile):
+    assert _build.sgemm_tile(layout, m, n, splits, sms) == tile
+    if tile == _build.SGEMM_NARROW_TILE:
+        # The busiest SM's work (tiles on it x tile width) is smaller.
+        mt = -(-m // 128)
+        assert -(-mt * -(-n // 64) // sms) * 64 < -(-mt * -(-n // 128) // sms) * 128
+
+
+def test_narrow_rule_matches_the_kernel_source():
+    assert "if (splits != 1 || N > 768) return false;" in _GEMM
+    assert "return (narrow + sms - 1) / sms * BN_NARROW < (wide + sms - 1) / sms * BN;" in _GEMM
+    assert "if constexpr (!AT) {" in _GEMM       # "tn" (MN-major A) never narrow
