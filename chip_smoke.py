@@ -204,13 +204,48 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    step's) against the CPU fp32 step: every activation, the relu gates of
    W1 that flip against float64 and the split of
    ``behrt_lab.layer_0.ffn_in.weight``'s error over W1's rows with and
-   without a flipped gate (printed, not a check).  Prints each run's
+   without a flipped gate; its grads are held by the lab encoder's rule
+   (``lab_grad_rule``: every activation within 1e-5 of float64's max-abs,
+   every flip within 1e-5 of max |h| of zero, the card's flips at most 4x
+   the CPU's (counted as at least 2), then phase 8's rule with the rows a
+   flipped gate writes set to float64 and W1 / b1 within 0.1 of the limit).  Prints each run's
    wall time, stage times and train patients per second of the train
    stage (which holds the epoch's validation pass too).
 
+9. the remaining baselines: ``cli.main`` in-process on phase 7's cohort and a
+   snapshot written as phase 7 writes it (under ``build/phase9/``, removed
+   at the end), each at full width in fp32, batch 16, ``--epochs 1``:
+   ``dfc``, ``fairehrclp`` (its reference behaviour, 07's model) and
+   ``legacy-eddi`` with ``--require_hf_weights --text_cache``, and
+   ``legacy-behrt --synthetic 2048`` (``make_admission_frame``); then 06's
+   contrastive mode through ``run_fairehr_clp_experiment(contrastive=True)``
+   (the command line has no flag for it).  It fails unless each run's
+   launches of #1-#4, the unfolded kernels, the glue and the flash kernels
+   equal the counts worked out before the runs from the splits and the
+   loaders' lengths (03, 06 and legacy-behrt none of #1-#4; legacy-eddi's two
+   lab layers #1-#4; the contrastive encoder #2 / #4 and the glue in two
+   layers for two views; legacy-behrt's glue in 12 BERT layers per train
+   step); every metric block has a finite AUROC and AUPRC; each run's split
+   equals the one worked out beforehand.  Then one fp32 train step of each
+   new model at full width on 16 patients (03's DfC, 06's FairEHR-CLP with
+   its contrastive term, ``LegacyEDDIFull``, ``BEHRTSequence`` and 08's bare
+   ``EDDIFusionModel``), card against CPU by phase 8's rule (legacy-eddi's
+   lab layers replayed and held by the lab encoder's rule, as 09's in phase
+   8); each step timed
+   (CUDA-event median of 20) and profiled, legacy-behrt's also without
+   dropout (the share of its int64 Philox dropout); and #2 / #4 alone at
+   the contrastive encoder's shape (R 8784 = 16 x 549, 48 rows past a
+   multiple of 128, H 256, F 512) in fp32 and bf16 against their plain
+   versions (fp32: forward within FP32_TOL, grads within TRAIN_FP32_TOL of
+   max-abs), the backward twice for the same bits, timed beside the plain
+   version, one library composition and the bound, with each GEMM stage at
+   that shape alone (fp32 against float64, bf16 against fp32).  Prints each
+   run's wall time and stage times.
+
 It prints a ``{"kernels": [...]}`` line (with each LN-fused kernel's phase 6,
-7 and 8 launches and its phase 8 times at B 16), the card's ``nvidia-smi``
-line, and last ``{"ok": true, "device": {...}}``.
+7, 8 and 9 launches, its phase 8 times at B 16 and #2 / #4's times at 06's
+shape), the card's ``nvidia-smi`` line, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 import json
@@ -2040,6 +2075,14 @@ def _unfolded_counts(fab, ffn):
             "fused_attention_block_ln_bwd": fab.bwd_launches, "fused_ffn_ln_bwd": ffn.bwd_launches}
 
 
+def _all_counts(flash, fab, ffn, addnorm):
+    """Every counted kernel's launches since the last reset."""
+    counts = _unfolded_counts(fab, ffn)
+    counts.update(glue=addnorm.launches, glue_bwd=addnorm.bwd_launches,
+                  flash_attention=flash.launches, flash_attention_bwd=flash.bwd_launches)
+    return counts
+
+
 def _reset_counts(fab, ffn, addnorm):
     fab.launches = ffn.launches = fab.bwd_launches = ffn.bwd_launches = 0
     fab.unfolded_launches = ffn.unfolded_launches = 0
@@ -2876,6 +2919,58 @@ def baseline_predicted_launches(tables, tokenizer):
     return want, splits, cohorts
 
 
+def ffn_kernel_rows(ffn, gen, R, H, FF, rate, eps, dtype, f_err, peak):
+    """#2 and #4 at R x H x FF (relu, dropout ``rate``) timed: the wrapper (the
+    forward with its residuals as a train step runs it; the backward through
+    autograd from one kept forward), the plain version, one library
+    composition and the bound; ``f_err`` is :func:`ffn_train_check`'s row at
+    the shape.  Returns the (forward, backward) rows."""
+    F = torch.nn.functional
+    es = torch.empty((), dtype=dtype).element_size()
+    f_in = [(torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
+            for shape, std in (((R, H), 1.0), ((FF, H), H ** -0.5), ((FF,), 0.02),
+                               ((H, FF), FF ** -0.5), ((H,), 0.02))]
+    f_in += [1 + 0.1 * torch.randn(H, generator=gen, device="cuda"),
+             0.1 * torch.randn(H, generator=gen, device="cuda")]
+    g = torch.randn(R, H, generator=gen, device="cuda").to(dtype)
+    fkw = dict(activation="relu", ln_eps=eps)
+    leaves = _leaves(f_in)
+    x, w1, b1, w2, b2, gamma, beta = f_in
+
+    def ffn_fwd():
+        return ffn.fused_ffn_ln(*leaves, rate=rate, deterministic=False, seeds=(21, 22), **fkw)
+
+    def ffn_library_fwd():
+        y = F.dropout(F.linear(F.dropout(F.relu(F.linear(x, w1, b1)), rate), w2, b2), rate)
+        return F.layer_norm(x + y, (H,), gamma.to(dtype), beta.to(dtype), eps)
+
+    out, fwd_ms = ffn_fwd(), time_ms(ffn_fwd)
+    with torch.no_grad():
+        _, res = ffn.fused_ffn_ln_reference(*f_in, rate=rate, seeds=(21, 22),
+                                            return_residuals=True, **fkw)
+        fwd_bound = bound_ms(4 * R * H * FF, 2 * R * H * es + 2 * H * FF * es, peak)
+        fwd_row = {
+            "ms": fwd_ms,
+            "plain_ms": time_ms(lambda: ffn.fused_ffn_ln_reference(
+                *f_in, rate=rate, seeds=(21, 22), **fkw), reps=5),
+            "library_ms": time_ms(ffn_library_fwd),
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+            "max_abs_err": f_err["errors"]["out"]["max_abs_err"]}
+        bwd_bound = bound_ms(8 * R * H * FF, (4 * R * H + R * FF + 2 * H * FF) * es, peak)
+        plain_bwd = time_ms(lambda: ffn.fused_ffn_ln_backward_reference(
+            g, x, res["hd"], res["z"], w1, w2, gamma, rate=rate, seeds=(21, 22), **fkw),
+            reps=5)
+    bwd_row = {
+        "ms": _time_backward(out, leaves, g), "plain_ms": plain_bwd,
+        "library_ms": _ffn_library_bwd_ms(f_in, g, "relu", eps, rate),
+        "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+        "max_abs_err": f_err["errors"]["dx"]["max_abs_err"],
+        "stages_run_ms": f_err["ms"], "stages_ms": f_err["stages_ms"],
+        "deterministic": f_err["deterministic"]}
+    del out, res, leaves
+    return fwd_row, bwd_row
+
+
 def baseline_kernel_rows(fab, ffn, flash, _build, B=BASE_BATCH):
     """#1-#4 at the baselines' lab shape (B 16 x S 560, H 768, 8 heads, FFN
     2048, dropout 0.1) in fp32 and bf16: errors against the plain versions
@@ -2945,49 +3040,8 @@ def baseline_kernel_rows(fab, ffn, flash, _build, B=BASE_BATCH):
             "deterministic": a_err["deterministic"]}
         del out, res, leaves
 
-        R = B * S
-        f_in = [(torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
-                for shape, std in (((R, H), 1.0), ((FF, H), H ** -0.5), ((FF,), 0.02),
-                                   ((H, FF), FF ** -0.5), ((H,), 0.02))]
-        f_in += [1 + 0.1 * torch.randn(H, generator=gen, device="cuda"),
-                 0.1 * torch.randn(H, generator=gen, device="cuda")]
-        g = torch.randn(R, H, generator=gen, device="cuda").to(dtype)
-        fkw = dict(activation="relu", ln_eps=eps)
-        leaves = _leaves(f_in)
-        x, w1, b1, w2, b2, gamma, beta = f_in
-
-        def ffn_fwd():
-            return ffn.fused_ffn_ln(*leaves, rate=rate, deterministic=False, seeds=(21, 22),
-                                    **fkw)
-
-        def ffn_library_fwd():
-            y = F.dropout(F.linear(F.dropout(F.relu(F.linear(x, w1, b1)), rate), w2, b2), rate)
-            return F.layer_norm(x + y, (H,), gamma.to(dtype), beta.to(dtype), eps)
-
-        out, fwd_ms = ffn_fwd(), time_ms(ffn_fwd)
-        with torch.no_grad():
-            _, res = ffn.fused_ffn_ln_reference(*f_in, rate=rate, seeds=(21, 22),
-                                                return_residuals=True, **fkw)
-            fwd_bound = bound_ms(4 * R * H * FF, 2 * R * H * es + 2 * H * FF * es, peak)
-            rows["fused_ffn_ln"][tag] = {
-                "ms": fwd_ms,
-                "plain_ms": time_ms(lambda: ffn.fused_ffn_ln_reference(
-                    *f_in, rate=rate, seeds=(21, 22), **fkw), reps=5),
-                "library_ms": time_ms(ffn_library_fwd),
-                "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-                "max_abs_err": f_err["errors"]["out"]["max_abs_err"]}
-            bwd_bound = bound_ms(8 * R * H * FF, (4 * R * H + R * FF + 2 * H * FF) * es, peak)
-            plain_bwd = time_ms(lambda: ffn.fused_ffn_ln_backward_reference(
-                g, x, res["hd"], res["z"], w1, w2, gamma, rate=rate, seeds=(21, 22), **fkw),
-                reps=5)
-        rows["fused_ffn_ln_bwd"][tag] = {
-            "ms": _time_backward(out, leaves, g), "plain_ms": plain_bwd,
-            "library_ms": _ffn_library_bwd_ms(f_in, g, "relu", eps, rate),
-            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
-            "max_abs_err": f_err["errors"]["dx"]["max_abs_err"],
-            "stages_run_ms": f_err["ms"], "stages_ms": f_err["stages_ms"],
-            "deterministic": f_err["deterministic"]}
-        del out, res, leaves
+        rows["fused_ffn_ln"][tag], rows["fused_ffn_ln_bwd"][tag] = ffn_kernel_rows(
+            ffn, gen, B * S, H, FF, rate, eps, dtype, f_err, peak)
         torch.cuda.empty_cache()
 
     # #5-#10 in fp32 at B 16: the forward as a train step runs it (with its
@@ -3053,14 +3107,18 @@ def _baseline_batch(keys, device, n=BASE_BATCH, seed=8):
                       "weight": np.ones(n, np.float32)}, torch.device(device))
 
 
-def baseline_fp32_step(name, factory, keys, cfg, device, dtype=torch.float32, prepare=None):
+def baseline_fp32_step(name, factory, keys, cfg, device, dtype=torch.float32, prepare=None,
+                       batch=None, loss_extras=None, pos_weight=POS_WEIGHT):
     """One fp32 train step with dropout on (for 08, its loss and backward),
     from seed-0 weights and generator seed 5: (loss, grads on the host).
     ``dtype=torch.float64`` runs the same step in float64 (on the CPU: the
     reference every grad leaf is held against).  ``prepare(model)`` is
-    called on the model just before the step (hooks)."""
+    called on the model just before the step (hooks).  ``batch``: host
+    arrays in the trainer's schema (default: the baselines' 16 patients);
+    ``loss_extras`` goes to the trainer."""
     import dataclasses
 
+    from fairmultimodal_torch.data.prefetch import to_device
     from fairmultimodal_torch.models._layers import init_params
     from fairmultimodal_torch.pipelines.eddi_fusion import (EDDIFusionPipelineConfig,
                                                             make_eddi_fusion_loss)
@@ -3068,7 +3126,8 @@ def baseline_fp32_step(name, factory, keys, cfg, device, dtype=torch.float32, pr
     from fairmultimodal_torch.utils.rng import make_generator
 
     model = init_params(factory(torch.float32), seed=0)
-    batch = _baseline_batch(keys, device)
+    batch = (_baseline_batch(keys, device) if batch is None
+             else to_device(batch, torch.device(device)))
     if dtype == torch.float64:
         weights = model.state_dict()
         model = factory(dtype).to(dtype)
@@ -3083,17 +3142,17 @@ def baseline_fp32_step(name, factory, keys, cfg, device, dtype=torch.float32, pr
         loss, _, _ = loss_fn(batch, torch.full((3, 3), 0.33, device=device), make_generator(5))
         loss.backward()
     else:
-        trainer = MultitaskTrainer(model, dataclasses.replace(cfg, seed=5), POS_WEIGHT,
-                                   device=device)
+        trainer = MultitaskTrainer(model, dataclasses.replace(cfg, seed=5), pos_weight,
+                                   device=device, loss_extras=loss_extras)
         loss = trainer.train_step(batch)
     return float(loss.detach()), {n: p.grad.detach().cpu() for n, p in model.named_parameters()
                          if p.grad is not None}
 
 
-# -- phase 8: where 09's fp32 grad of the first lab layer's W1 parts from float64 --------
+# -- phases 8, 9: where a lab encoder's fp32 grad of W1 parts from float64 --------------
 #
-# The card's fp32 step misses the float64 grad of behrt_lab.layer_0.ffn_in.weight
-# by several times the CPU fp32 step's error.  The replay taps each lab layer
+# The card's fp32 step of 09 or legacy-eddi can miss the float64 grad of
+# behrt_lab.layer_0.ffn_in.weight by several times the CPU fp32 step's error.  The replay taps each lab layer
 # of the three steps (card fp32, CPU fp32, CPU float64; same weights, batch
 # and dropout seeds): its input x, its output and the output's grad.  From
 # each step's own x it recomputes the layer stage by stage -- the card with
@@ -3105,7 +3164,9 @@ def baseline_fp32_step(name, factory, keys, cfg, device, dtype=torch.float32, pr
 # splits the leaf's error over W1's rows: those with a relu gate the card's
 # fp32 sets otherwise than float64, and the rest.
 
-REPLAY_MODEL, REPLAY_LEAF = "09", "behrt_lab.layer_0.ffn_in.weight"
+#: The models whose card step is replayed and held by :func:`lab_grad_rule`: 09 in
+#: phase 8, legacy-eddi (the same lab encoder under the EDDI dot fusion) in phase 9.
+REPLAY_MODELS, REPLAY_LEAF = ("09", "legacy-eddi"), "behrt_lab.layer_0.ffn_in.weight"
 
 
 def _lab_layer_taps(store):
@@ -3224,8 +3285,8 @@ def _card_layer_parts(fab, ffn, _build, layer, tap):
 
 
 def w1_replay(fab, ffn, _build, factory, taps, grads):
-    """Where the card's fp32 step of 09 first parts from float64 more than
-    the CPU's fp32 step does, per lab layer and stage, the relu gates of W1
+    """Where the card's fp32 step of a REPLAY_MODELS model first parts from
+    float64 more than the CPU's fp32 step does, per lab layer and stage, the relu gates of W1
     that flip against float64, and the leaf's error split over W1's rows
     with and without a flipped gate.  ``taps`` and ``grads``: per step
     ("card", "cpu", "f64") the lab-layer taps and the grad leaves."""
@@ -3233,7 +3294,7 @@ def w1_replay(fab, ffn, _build, factory, taps, grads):
     from fairmultimodal_torch.utils.rng import dropout_mask
 
     lab = init_params(factory(torch.float32), seed=0).behrt_lab    # the steps' weights
-    report, flips = {}, {}
+    report, flips, tokens = {}, {}, {}
     for i in range(lab.num_layers):
         layer = getattr(lab, f"layer_{i}")
         seeds = [taps[who][i]["seeds"] for who in ("card", "cpu", "f64")]
@@ -3255,13 +3316,17 @@ def w1_replay(fab, ffn, _build, factory, taps, grads):
         kept = dropout_mask(seeds[0][1], 0, ref["h"].shape, layer.dropout_rate, device="cuda")
         for who in ("card", "cpu"):
             h = parts[who]["h"].cuda()
-            idx = (kept & ((h > 0) != (ref["h"] > 0))).nonzero()
+            flipped = kept & ((h > 0) != (ref["h"] > 0))
+            idx = flipped.nonzero()
             rows[f"relu_flips_{who}"] = {
                 "count": len(idx), "kept": int(kept.sum()),
+                "h_f64_max_at_flip": float(ref["h"][flipped].abs().max()) if len(idx) else 0.0,
                 "h_f64": [float(ref["h"][tuple(j)]) for j in idx[:8]],
                 f"h_{who}": [float(h[tuple(j)]) for j in idx[:8]],
                 "max_abs_h": float(ref["h"].abs().max())}
             flips[(i, who)] = sorted({int(j[-1]) for j in idx})
+            tokens[(i, who)] = sorted({int(j[1]) for j in idx})
+            rows[f"relu_flips_{who}"].update(units=flips[(i, who)], tokens=tokens[(i, who)])
         report[f"layer_{i}"] = rows
         del parts, ref
         torch.cuda.empty_cache()
@@ -3279,6 +3344,84 @@ def w1_replay(fab, ffn, _build, factory, taps, grads):
                       "other_rows": err[rest].max().item()}
     report["leaf_split"] = {"leaf": REPLAY_LEAF, **split}
     return report
+
+
+#: The lab encoder's grad rule (:func:`lab_grad_rule`): each activation of the replayed
+#: lab layers within REPLAY_ACT_TOL of float64's max-abs (fp32 rounding: the card reads
+#: 1-3e-6); every relu gate the card's or the CPU's fp32 sets otherwise than float64
+#: within REPLAY_FLIP_TOL of max |h| of zero (a flip at rounding level); the card flips
+#: at most REPLAY_FLIP_CAP times as many of a layer's kept gates as the CPU's fp32
+#: (counted as at least 2); and W1's and b1's entries outside a flipped unit within
+#: REPLAY_REST_SHARE of phase 8's limit.
+REPLAY_ACT_TOL, REPLAY_FLIP_TOL, REPLAY_FLIP_CAP, REPLAY_REST_SHARE = 1e-5, 1e-5, 4, 0.1
+
+
+def lab_grad_rule(card, cpu, ref, replay):
+    """Phase 8's rule for a replayed step (REPLAY_MODELS), one rule for both.
+
+    A kept relu gate of a lab layer's W1 whose fp32 pre-activation lies on the
+    other side of zero than float64's (within rounding of zero) sends that
+    element's whole gradient one way or the other: W1's row and b1's entry of
+    the unit, and through the residual the positional row of the token, then
+    differ from float64 by what that one element carries, whatever the fp32
+    arithmetic.  So every leaf is held by phase 8's rule with those rows (the
+    card's flips and the CPU's) set to float64, provided the replay finds every
+    activation within REPLAY_ACT_TOL of float64, every flip within
+    REPLAY_FLIP_TOL of zero and the card's flips within REPLAY_FLIP_CAP of the
+    CPU's; W1 and b1 are then held to REPLAY_REST_SHARE of the limit.  Any
+    other leaf gets phase 8's rule unchanged.  Returns (each leaf's share of
+    its limit, the rows set to float64)."""
+    drop = {}
+    for layer, rows in replay.items():
+        if not layer.startswith("layer_"):
+            continue
+        for name in ("x", "q", "k", "v", "o", "x1", "h", "out"):
+            if not rows[name]["card"] <= REPLAY_ACT_TOL:
+                raise AssertionError(f"replay {layer} {name}: card {rows[name]['card']} of "
+                                     f"float64's max-abs > {REPLAY_ACT_TOL}")
+        card_flips, cpu_flips = (rows[f"relu_flips_{who}"]["count"] for who in ("card", "cpu"))
+        if not card_flips <= REPLAY_FLIP_CAP * max(cpu_flips, 2):
+            raise AssertionError(f"replay {layer}: the card flips {card_flips} relu gates, the "
+                                 f"CPU {cpu_flips} (cap {REPLAY_FLIP_CAP}x)")
+        units, tokens = set(), set()
+        for who in ("card", "cpu"):
+            f = rows[f"relu_flips_{who}"]
+            if not f["h_f64_max_at_flip"] <= REPLAY_FLIP_TOL * f["max_abs_h"]:
+                raise AssertionError(f"replay {layer} {who}: a relu gate flips at |h| "
+                                     f"{f['h_f64_max_at_flip']} of max {f['max_abs_h']}")
+            units.update(f["units"])
+            tokens.update(t for t in f["tokens"] if t < N_LABS)
+        for leaf in ("weight", "bias"):
+            drop[f"behrt_lab.{layer}.ffn_in.{leaf}"] = sorted(units)
+        drop["behrt_lab.pos_embedding"] = sorted(set(drop.get("behrt_lab.pos_embedding", ()))
+                                                 | tokens)
+
+    def kept(grads):
+        out = dict(grads)
+        for n, rows in drop.items():
+            if rows:
+                out[n] = grads[n].clone()
+                out[n][rows] = ref[n][rows].to(out[n].dtype)
+        return out
+
+    card_ref, cpu_ref = grad_errors(kept(card), ref), grad_errors(kept(cpu), ref)
+    share = {n: (card_ref[n] - cpu_ref[n]) / XDEV_GRAD_TOL for n in card_ref}
+    for n in drop:
+        if n.endswith(".ffn_in.weight") or n.endswith(".ffn_in.bias"):
+            share[n] /= REPLAY_REST_SHARE
+    return share, drop
+
+
+def replayed_shares(fab, ffn, _build, factory, taps, card, cpu, ref, report):
+    """For a step of REPLAY_MODELS: the replay and :func:`lab_grad_rule`'s
+    readings added to ``report``; returns each leaf's share of its limit."""
+    replay = w1_replay(fab, ffn, _build, factory, taps,
+                       {"card": card[1], "cpu": cpu[1], "f64": ref})
+    share, rows = lab_grad_rule(card[1], cpu[1], ref, replay)
+    tight = max(share, key=share.get)
+    report.update(w1_replay=replay, rows_set_to_f64=rows,
+                  tightest_lab_rule={"leaf": tight, "share_of_limit": share[tight]})
+    return share
 
 
 def fame_default_step(n=BASE_BATCH, seed=9):
@@ -3363,9 +3506,7 @@ def baseline_phase(flash, fab, ffn, addnorm, _build):
                 rc = cli.main([name, "--out_dir", out_dir] + flags + common)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = _unfolded_counts(fab, ffn)
-            counts.update(glue=addnorm.launches, glue_bwd=addnorm.bwd_launches,
-                          flash_attention=flash.launches, flash_attention_bwd=flash.bwd_launches)
+            counts = _all_counts(flash, fab, ffn, addnorm)
             if rc != 0:
                 raise AssertionError(f"baseline {label}: exit code {rc}")
             out = results.pop()
@@ -3436,7 +3577,7 @@ def baseline_phase(flash, fab, ffn, addnorm, _build):
         taps = {who: {} for who in ("card", "cpu", "f64")}
 
         def tap(who):
-            return _lab_layer_taps(taps[who]) if name == REPLAY_MODEL else None
+            return _lab_layer_taps(taps[who]) if name in REPLAY_MODELS else None
 
         try:
             fab.bwd_launches = ffn.bwd_launches = 0
@@ -3466,9 +3607,8 @@ def baseline_phase(flash, fab, ffn, addnorm, _build):
                           n: {"card_vs_cpu": e, **readings(n)}
                           for n, e in grad_errors(card[1], cpu[1]).items() if e > XDEV_GRAD_TOL},
                       "lab_bwd_launches": lab_bwd}
-        if name == REPLAY_MODEL:
-            xdev[name]["w1_replay"] = w1_replay(fab, ffn, _build, factory, taps,
-                                                {"card": card[1], "cpu": cpu[1], "f64": ref})
+        if name in REPLAY_MODELS:
+            margin = replayed_shares(fab, ffn, _build, factory, taps, card, cpu, ref, xdev[name])
         del taps
         log(f"[baselines] fp32 step {name} card vs CPU and float64: {json.dumps(xdev[name])}")
         over = sorted(n for n, m in margin.items() if not m <= 1.0)
@@ -3532,6 +3672,398 @@ def baseline_phase(flash, fab, ffn, addnorm, _build):
     return total, kernel_rows, info
 
 
+# -- phase 9: 03, 06 (both modes) and the legacy pair through the command line ---------------
+
+#: (label, pipeline) of phase 9's command-line runs, each --epochs 1 at batch 16 in fp32.
+P9_RUNS = (("03 dfc", "dfc"), ("06 fairehrclp", "fairehrclp"), ("legacy-eddi", "legacy-eddi"),
+           ("legacy-behrt", "legacy-behrt"))
+P9_MODULES = {"dfc": ("dfc", "run_dfc_experiment"),
+              "fairehrclp": ("fairehr_clp", "run_fairehr_clp_experiment"),
+              "legacy-eddi": ("legacy", "run_legacy_eddi_experiment"),
+              "legacy-behrt": ("legacy", "run_legacy_behrt_experiment")}
+#: The contrastive encoder's FFN: B 16 x 549 features (8784 rows, 48 past a multiple of
+#: 128) x H 256 x F 512.
+CLP_R, CLP_H, CLP_F = BASE_BATCH * N_LABS, 256, 512
+#: Its products: (stage, layout, M, N, K, activation or gate).  The relu "nt" stage
+#: drops at 0.1 and writes its aux; the ungated "nn" stage adds the residual.
+CLP_STAGES = (
+    ("06 w1 relu dropout aux", "nt", CLP_R, CLP_F, CLP_H, "relu"),
+    ("06 w2", "nt", CLP_R, CLP_H, CLP_F, "none"),
+    ("06 dh relu gate + colpart", "nn", CLP_R, CLP_F, CLP_H, "relu"),
+    ("06 dx + resid", "nn", CLP_R, CLP_H, CLP_F, None),
+    ("06 dW1 split-K", "tn", CLP_F, CLP_H, CLP_R, None),
+    ("06 dW2 split-K", "tn", CLP_H, CLP_F, CLP_R, None),
+)
+#: The sequence BEHRT's geometry for its card step: about the vocabulary a 2048-subject
+#: cohort gives, S 8 (up to 4 admissions).
+SEQ_GEO = dict(num_diseases=5120, num_ages=76, num_admission_locs=19, num_discharge_locs=19,
+               num_genders=2, num_ethnicities=5, num_insurances=5)
+
+
+def legacy_predicted_launches(tables, frame):
+    """Per run, the launches of every counted kernel and the split, worked
+    out before the runs: 03, 06 and legacy-behrt launch none of #1-#4 (BERTs
+    at one token or S 8, text at 128); legacy-eddi two lab layers per batch of
+    every train step, validation and test pass; 06's contrastive encoder #2
+    and the attention glue in each of its two layers for each of the two
+    views per batch (the attention plain at 549 features), #4 and the glue's
+    backward per train step; legacy-behrt's 12 BERT layers the glue and its
+    backward per train step (train mode at S > 1 only)."""
+    from fairmultimodal_torch.data.featurize import assemble_features
+    from fairmultimodal_torch.pipelines.common import make_split
+    from fairmultimodal_torch.pipelines.legacy import LEGACY_TASKS, prepare_admission_sequences
+
+    notes = assemble_features(*tables)
+    era = assemble_features(*tables, label_columns=LEGACY_TASKS)
+    seq_labels = prepare_admission_sequences(frame)[1]
+    splits = {"dfc": make_split(notes.labels, 0.20, 0.05, 42, method="skmultilearn"),
+              "fairehrclp": make_split(notes.labels, 0.20, 0.05, 42, method="iterstrat"),
+              "legacy-eddi": make_split(era.labels, 0.20, 0.05, 42),
+              "legacy-behrt": make_split(seq_labels, 0.20, 0.05, 42)}
+    splits["06 contrastive"] = splits["fairehrclp"]
+    want = {}
+    for name, split in splits.items():
+        nb = {k: -(-len(v) // BASE_BATCH) for k, v in split.items()}
+        every, train = nb["train"] + nb["val"] + nb["test"], nb["train"]
+        want[name] = {k: 0 for k in ("fused_attention_block_ln", "fused_ffn_ln",
+                                     "fused_attention_block_ln_bwd", "fused_ffn_ln_bwd",
+                                     "glue", "glue_bwd")}
+        if name == "legacy-eddi":
+            want[name].update(fused_attention_block_ln=2 * every, fused_ffn_ln=2 * every,
+                              fused_attention_block_ln_bwd=2 * train,
+                              fused_ffn_ln_bwd=2 * train)
+        elif name == "06 contrastive":
+            want[name].update(fused_ffn_ln=4 * every, glue=4 * every,
+                              fused_ffn_ln_bwd=4 * train, glue_bwd=4 * train)
+        elif name == "legacy-behrt":
+            want[name].update(glue=12 * train, glue_bwd=12 * train)
+    return want, splits, notes
+
+
+class _EDDIHeads(torch.nn.Module):
+    """08's bare ``EDDIFusionModel`` over three embeddings of the batch, its
+    nine logits averaged per task: the trainable form of a model no
+    pipeline trains."""
+
+    def __init__(self, dtype):
+        super().__init__()
+        from fairmultimodal_torch.models.fusion import EDDIFusionModel
+
+        self.heads = EDDIFusionModel(768, 768, 768, dtype=dtype)
+
+    def forward(self, batch, generator=None):
+        out = self.heads(batch["demo_embedding"], batch["lab_embedding"],
+                         batch["text_embedding"])
+        return {"logits": torch.cat([sum(out[f"{t}_{m}"] for m in ("demo", "lab", "text")) / 3
+                                     for t in self.heads.TASKS], dim=-1)}
+
+
+def _p9_batch(name, n=BASE_BATCH, seed=8):
+    """Host arrays of ``n`` patients for one new model's train step."""
+    rng = np.random.default_rng(seed)
+    a = synthetic_cohort(rng, n)
+    if name == "legacy-behrt":
+        lengths = rng.integers(1, 5, n)
+        live = np.arange(8)[None, :] < lengths[:, None]
+        inputs = {"disease_ids": np.where(live, rng.integers(1, SEQ_GEO["num_diseases"],
+                                                             (n, 8)), 0)}
+        for key, hi in (("age_ids", 76), ("segment_ids", 2), ("adm_loc_ids", 19),
+                        ("disch_loc_ids", 19), ("gender_ids", 2), ("ethnicity_ids", 5),
+                        ("insurance_ids", 5)):
+            inputs[key] = np.where(live, rng.integers(0, hi, (n, 8)), 0)
+        inputs = {k: v.astype(np.int32) for k, v in inputs.items()}
+    else:
+        inputs = {k: v for k, v in a.items() if k != "labels"}
+        inputs.update({k: np.zeros(n, np.int32) for k in BASE_EXTRA_KEYS})
+        inputs["demo_features"] = np.stack([a[k] for k in ("age_ids", "gender_ids",
+                                                           "ethnicity_ids", "insurance_ids")],
+                                           axis=1).astype(np.float32)
+        inputs["demo_features_syn"] = inputs["demo_features"] + 0.05 * rng.standard_normal(
+            (n, 4)).astype(np.float32)
+        inputs["lab_features_syn"] = a["lab_features"] + 0.01 * rng.standard_normal(
+            a["lab_features"].shape).astype(np.float32)
+        inputs["demo_embedding"], inputs["lab_embedding"] = (
+            rng.normal(0, 1, (n, 768)).astype(np.float32) for _ in range(2))
+    labels = a["labels"][:, :2] if name == "legacy-eddi" else a["labels"]
+    return {"model_inputs": inputs, "labels": labels, "weight": np.ones(n, np.float32)}
+
+
+def _p9_models():
+    """(name, model factory(dtype), train config, loss_extras) of the new
+    models at full width, for the card-vs-CPU steps and the timed steps."""
+    from fairmultimodal_torch.models.fairehr import FairEHRCLP, contrastive_loss
+    from fairmultimodal_torch.models.legacy import BEHRTSequence, LegacyEDDIFull
+    from fairmultimodal_torch.pipelines import (DfCPipelineConfig, FairEHRCLPPipelineConfig,
+                                                LegacyBEHRTPipelineConfig,
+                                                LegacyEDDIPipelineConfig)
+    from fairmultimodal_torch.pipelines.dfc import DfCBatchModel
+
+    clp = FairEHRCLPPipelineConfig()
+
+    def extras(model, out, batch):
+        return clp.contrastive_weight * contrastive_loss(out["e_adj"], out["e_adj_syn"],
+                                                         tau=clp.tau, weight=batch["weight"])
+
+    return (
+        ("03", lambda dt: DfCBatchModel(dtype=dt), DfCPipelineConfig().train, None),
+        ("06", lambda dt: FairEHRCLP(dtype=dt), clp.train, extras),
+        ("legacy-eddi", lambda dt: LegacyEDDIFull(4, 2, 5, 6, N_LABS, dtype=dt),
+         LegacyEDDIPipelineConfig().train, None),
+        ("legacy-behrt", lambda dt: BEHRTSequence(**SEQ_GEO, dtype=dt),
+         LegacyBEHRTPipelineConfig().train, None),
+        ("EDDIFusionModel", _EDDIHeads, DfCPipelineConfig().train, None),
+    )
+
+
+def clp_kernel_rows(fab, ffn, _build):
+    """#2 / #4 at 06's contrastive encoder shape (R 8784 x H 256 x F 512,
+    relu, dropout 0.1) in fp32 and bf16: forward and backward against the
+    plain versions (fp32: forward within FP32_TOL absolute, each grad within
+    TRAIN_FP32_TOL of its max-abs; bf16: phase 3b's limits), the backward
+    run twice for the same bits, timed beside the plain version, one library
+    composition and the bound.  Then each GEMM stage of the path at that
+    shape alone, the ragged last 48-row block included: fp32 against
+    float64, bf16 against fp32 (phase 3c's limits)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = {"fused_ffn_ln": {}, "fused_ffn_ln_bwd": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "float32" if dtype == torch.float32 else "bfloat16"
+        peak = FP32_PEAK if dtype == torch.float32 else BF16_PEAK
+        f_err = ffn_train_check(ffn, _build, gen, dtype, 0.1, R=CLP_R, H=CLP_H, F=CLP_F,
+                                timed=True, peak=peak)
+        out_err = f_err["errors"]["out"]["max_abs_err"]
+        if dtype == torch.float32 and not out_err <= FP32_TOL:
+            raise AssertionError(f"#2 at R{CLP_R} H{CLP_H} F{CLP_F} fp32: forward max abs "
+                                 f"{out_err} > {FP32_TOL}")
+        if not f_err["deterministic"]:
+            raise AssertionError(f"#4 at R{CLP_R} {tag}: two backward runs differ")
+        rows["fused_ffn_ln"][tag], rows["fused_ffn_ln_bwd"][tag] = ffn_kernel_rows(
+            ffn, gen, CLP_R, CLP_H, CLP_F, 0.1, 1e-5, dtype, f_err, peak)
+        rows["fused_ffn_ln_bwd"][tag]["errors"] = f_err["errors"]
+        torch.cuda.empty_cache()
+    stages = []
+    for name, layout, M, N, K, act in CLP_STAGES:
+        relu = act == "relu"
+        if layout == "nt":
+            rate = 0.1 if relu else 0.0
+            stages += [f32_gemm_check(_build, fab, gen, name, layout, M, N, K, act, rate, relu,
+                                      False),
+                       nt_gemm_check(_build, gen, name, M, N, K, act, rate, relu, False, False)]
+        else:
+            resid = layout == "nn" and not relu
+            stages += [f32_gemm_check(_build, fab, gen, name, layout, M, N, K, act, resid, False,
+                                      False),
+                       nn_tn_gemm_check(_build, fab, gen, name, layout, M, N, K, act, resid,
+                                        False)]
+    for row in stages:
+        log(f"[legacy] 06 GEMM stage: {json.dumps(row)}")
+    for name, row in rows.items():
+        log(f"[legacy] kernel {name} at R{CLP_R} H{CLP_H} F{CLP_F}: {json.dumps(row)}")
+    return rows, stages
+
+
+def legacy_phase(flash, fab, ffn, addnorm, _build):
+    """03, 06, legacy-eddi and legacy-behrt through ``cli.main`` in-process on
+    the card at full width in fp32, batch 16, 1 epoch (phase 7's cohort and
+    snapshot; legacy-behrt on ``make_admission_frame(2048)``), and 06's
+    contrastive mode through ``run_fairehr_clp_experiment``, with every
+    counted kernel's launches predicted before the runs; then one fp32 step
+    of each new model card against CPU and float64, each step timed and
+    profiled (legacy-behrt also without dropout), and #2 / #4 at 06's shape."""
+    import contextlib
+    import dataclasses
+    import gc
+    import importlib
+    import io
+    import os
+    import shutil
+
+    from fairmultimodal_torch.data.synthetic import make_admission_frame, make_common_frames
+    from fairmultimodal_torch.data.prefetch import to_device
+    from fairmultimodal_torch.models._layers import init_params
+    from fairmultimodal_torch.pipelines import FairEHRCLPPipelineConfig
+    from fairmultimodal_torch.train.simple import MultitaskTrainer
+
+    cli = importlib.import_module("fairmultimodal_torch.cli.main")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase9")
+    env_keys = ("HF_HUB_CACHE", "FMTPU_TEXT_CACHE", "HF_HUB_OFFLINE", "TRANSFORMERS_OFFLINE")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    modules = {name: importlib.import_module(f"fairmultimodal_torch.pipelines.{mod}")
+               for name, (mod, _) in P9_MODULES.items()}
+    originals = {name: getattr(modules[name], fn) for name, (_, fn) in P9_MODULES.items()}
+    results = []
+
+    def recording(name):
+        def run(*args, **kwargs):
+            out = originals[name](*args, **kwargs)
+            results.append(out)
+            return out
+        return run
+
+    def timed_run(label, fn):
+        _reset_counts(fab, ffn, addnorm)
+        flash.launches = flash.bwd_launches = 0
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _all_counts(flash, fab, ffn, addnorm)
+        if rc != 0:
+            raise AssertionError(f"{label}: exit code {rc}")
+        out = results.pop()
+        idx = out["prep"].idx if "prep" in out else out["splits"]
+        out = {"idx": idx, **{k: out[k] for k in ("metrics", "timings", "history")}}
+        tail = [ln for ln in buf.getvalue().splitlines()
+                if ln.startswith(("[Epoch", "Train size", "After filtering", "Patients:",
+                                  "Overall Combined"))]
+        runs[label] = {"wall_s": wall, "launches": counts, "out": out}
+        log(f"[legacy] {label}: {wall:.2f} s, timings {json.dumps(out['timings'])}\n"
+            "[legacy]   " + "\n[legacy]   ".join(tail))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    runs, phase_s, t_phase = {}, {}, time.perf_counter()
+    try:
+        write_hf_snapshot(os.path.join(root, "hub"))
+        os.environ["HF_HUB_CACHE"] = os.path.join(root, "hub")
+        os.environ["FMTPU_TEXT_CACHE"] = os.path.join(root, "text_cache")
+        tables = make_common_frames(CLI_PATIENTS, CLI_LABS, 3, seed=42)
+        frame = make_admission_frame(CLI_PATIENTS, seed=42)
+        want, splits, notes = legacy_predicted_launches(tables, frame)
+        log(f"[legacy] predicted launches {json.dumps(want)}; splits "
+            f"{ {k: [len(v[s]) for s in ('train', 'val', 'test')] for k, v in splits.items()} }")
+        for name, (_, fn) in P9_MODULES.items():
+            setattr(modules[name], fn, recording(name))
+        common = ["--synthetic", str(CLI_PATIENTS), "--synthetic_labs", str(CLI_LABS),
+                  "--epochs", "1", "--require_hf_weights", "--text_cache",
+                  os.path.join(root, "text_cache")]
+        for label, name in P9_RUNS:
+            argv = [name, "--out_dir", os.path.join(root, name)] + (
+                ["--synthetic", str(CLI_PATIENTS), "--epochs", "1"]
+                if name == "legacy-behrt" else common)
+            timed_run(label, lambda: cli.main(argv))
+        cfg = FairEHRCLPPipelineConfig(contrastive=True)
+        cfg.train.num_epochs = 1
+        timed_run("06 contrastive", lambda: 0 if modules["fairehrclp"].run_fairehr_clp_experiment(
+            *tables, cfg, verbose=True) else 1)
+    finally:
+        for name, (_, fn) in P9_MODULES.items():
+            setattr(modules[name], fn, originals[name])
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+    phase_s["runs"] = time.perf_counter() - t_phase
+    key = {"03 dfc": "dfc", "06 fairehrclp": "fairehrclp", "legacy-eddi": "legacy-eddi",
+           "legacy-behrt": "legacy-behrt", "06 contrastive": "06 contrastive"}
+    for label, r in runs.items():
+        name, out = key[label], r["out"]
+        wanted = {k: 0 for k in r["launches"]}
+        wanted.update(want[name])
+        if r["launches"] != wanted:
+            raise AssertionError(f"{label}: launches {r['launches']}, predicted {wanted}")
+        for task, m in out["metrics"].items():
+            if not (np.isfinite(m["aucroc"]) and np.isfinite(m["auprc"])):
+                raise AssertionError(f"{label} {task}: metrics {m}")
+        for k, v in splits[name].items():
+            if not np.array_equal(out["idx"][k], v):
+                raise AssertionError(f"{label}: {k} split differs from the one worked out "
+                                     "beforehand")
+        r["train_patients_per_fit_s"] = len(splits[name]["train"]) / out["timings"]["train"]
+    if list(runs["legacy-eddi"]["out"]["metrics"]) != ["mortality", "readmission"]:
+        raise AssertionError(f"legacy-eddi tasks {list(runs['legacy-eddi']['out']['metrics'])}")
+
+    # One fp32 step of each new model, card against CPU and float64: phase 8's rule
+    # (legacy-eddi's lab layers replayed and held by lab_grad_rule, as 09's are).
+    xdev, steps = {}, {}
+    for name, factory, cfg, extras in _p9_models():
+        t0 = time.perf_counter()
+        batch = _p9_batch(name)
+        pw = POS_WEIGHT[:2] if name == "legacy-eddi" else POS_WEIGHT
+        kw = dict(batch=batch, loss_extras=extras, pos_weight=pw)
+        taps = {who: {} for who in ("card", "cpu", "f64")}
+
+        def tap(who):
+            return _lab_layer_taps(taps[who]) if name in REPLAY_MODELS else None
+
+        try:
+            card = baseline_fp32_step(name, factory, (), cfg, "cuda", prepare=tap("card"), **kw)
+            taps["card"].pop("restore", lambda: None)()
+            cpu = baseline_fp32_step(name, factory, (), cfg, "cpu", prepare=tap("cpu"), **kw)
+            taps["cpu"].pop("restore", lambda: None)()
+            _, ref = baseline_fp32_step(name, factory, (), cfg, "cpu", torch.float64,
+                                        prepare=tap("f64"), **kw)
+        finally:
+            for t in taps.values():
+                t.pop("restore", lambda: None)()
+        loss_rel, worst, grad_rel = compare_steps(card, cpu)
+        card_ref, cpu_ref = grad_errors(card[1], ref), grad_errors(cpu[1], ref)
+        margin = {n: (card_ref[n] - cpu_ref[n]) / XDEV_GRAD_TOL for n in card_ref}
+        tight = max(margin, key=margin.get)
+        xdev[name] = {"loss_card": card[0], "loss_cpu": cpu[0], "loss_rel": loss_rel,
+                      "worst_grad": worst, "worst_grad_rel": grad_rel,
+                      "tightest_vs_f64": {"leaf": tight, "share_of_limit": margin[tight],
+                                          "card_vs_f64": card_ref[tight],
+                                          "cpu_fp32_vs_f64": cpu_ref[tight]}}
+        if name in REPLAY_MODELS:
+            margin = replayed_shares(fab, ffn, _build, factory, taps, card, cpu, ref, xdev[name])
+        del taps
+        xdev[name]["check_s"] = time.perf_counter() - t0
+        log(f"[legacy] fp32 step {name} card vs CPU and float64: {json.dumps(xdev[name])}")
+        over = sorted(n for n, m in margin.items() if not m <= 1.0)
+        if not loss_rel <= XDEV_LOSS_TOL or over:
+            raise AssertionError(f"{name} fp32 card vs CPU: loss rel {loss_rel}, grads over "
+                                 f"the limit {over} {xdev[name]}")
+        # The train step at batch 16 in fp32 on the card, timed and profiled.
+        t0 = time.perf_counter()
+        trainer = MultitaskTrainer(init_params(factory(torch.float32), seed=0),
+                                   dataclasses.replace(cfg, seed=5), pw, device="cuda",
+                                   loss_extras=extras)
+        dev_batch = to_device(batch, trainer.device)
+        steps[name] = {"timed": time_train_step(trainer, dev_batch),
+                       "profile": profile_train_step(trainer, dev_batch)}
+        if name == "legacy-behrt":       # the int64 Philox dropout's share (ROADMAP queue 3)
+            trainer.config.deterministic_forward = True
+            steps[name]["no_dropout"] = time_train_step(trainer, dev_batch)
+            on, off = (steps[name][k]["train_step_ms"] for k in ("timed", "no_dropout"))
+            steps[name]["dropout_share"] = (on - off) / on
+        steps[name]["step_s"] = time.perf_counter() - t0
+        log(f"[legacy] train step {name} fp32 B{BASE_BATCH}: {json.dumps(steps[name])}")
+        del trainer, dev_batch
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    clp_rows, clp_stages = clp_kernel_rows(fab, ffn, _build)
+    phase_s["clp_kernels"] = time.perf_counter() - t0
+    phase_s["steps"] = t0 - t_phase - phase_s["runs"]
+    log(f"[legacy] phase 9 seconds by part: {json.dumps(phase_s)}")
+    total = {k: sum(r["launches"][k] for r in runs.values())
+             for k in ("fused_attention_block_ln", "fused_ffn_ln",
+                       "fused_attention_block_ln_bwd", "fused_ffn_ln_bwd")}
+    info = {
+        "launches_predicted": want, "launches_total": total,
+        "runs": {label: {"wall_s": r["wall_s"], "timings_s": r["out"]["timings"],
+                         "train_patients_per_fit_s": r["train_patients_per_fit_s"],
+                         "history": r["out"]["history"],
+                         "splits": [len(splits[key[label]][k])
+                                    for k in ("train", "val", "test")],
+                         "launches": r["launches"]}
+                 for label, r in runs.items()},
+        "fp32_card_vs_cpu": xdev, "train_steps_fp32": steps, "seconds_by_part": phase_s,
+        "clp_kernels": clp_rows,
+        "clp_stages": [{k: row.get(k) for k in ("stage", "layout", "M", "N", "K", "errors",
+                                                 "tile", "splits", "deterministic")}
+                       for row in clp_stages],
+    }
+    return total, clp_rows, info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -3579,6 +4111,10 @@ def main() -> int:
     log(f"[cli] {json.dumps(cli_info)} | {smi}")
     base_launches, base_rows, base_info = baseline_phase(flash, fab, ffn, addnorm, _build)
     log(f"[baselines] {json.dumps(base_info)} | {smi}")
+    t9 = time.perf_counter()
+    legacy_launches, clp_rows, legacy_info = legacy_phase(flash, fab, ffn, addnorm, _build)
+    legacy_info["phase_s"] = time.perf_counter() - t9
+    log(f"[legacy] {json.dumps(legacy_info)} | {smi}")
 
     meta = {
         "fused_attention_block_ln": ("fairmultimodal_torch/ops/csrc/flash_attention.cu",
@@ -3611,6 +4147,8 @@ def main() -> int:
             "launches_experiment": experiment_launches[name],
             "launches_cli": cli_launches[name],
             "launches_baselines": base_launches[name], "baselines_b16": base_rows[name],
+            "launches_legacy": legacy_launches[name],
+            **({"clp_r8784_h256_f512": clp_rows[name]} if name in clp_rows else {}),
             "fwd_res_dropout_ms": timed_train[name]["fwd_res_ms"],
             "shapes": mine,
         })
@@ -3635,6 +4173,8 @@ def main() -> int:
             "kept_fraction": keep, "launches_experiment": experiment_launches[name],
             "launches_cli": cli_launches[name],
             "launches_baselines": base_launches[name], "baselines_b16": base_rows[name],
+            "launches_legacy": legacy_launches[name],
+            **({"clp_r8784_h256_f512": clp_rows[name]} if name in clp_rows else {}),
         })
     sources = {"block": ["fairmultimodal_torch/ops/csrc/gemm.cu",
                          "fairmultimodal_torch/ops/csrc/flash_attention.cu"],

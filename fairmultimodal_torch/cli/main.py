@@ -6,6 +6,7 @@ Usage:
     python -m fairmultimodal_torch.cli predict --params outputs/best_model_<ts>.npz
     python -m fairmultimodal_torch.cli fame --synthetic 64 --tiny --device cpu
     python -m fairmultimodal_torch.cli behrt --synthetic 64 --tiny --device cpu
+    python -m fairmultimodal_torch.cli legacy-behrt --synthetic 64 --tiny --device cpu
 
 The parser is the JAX package's: the same pipelines, flags, choices and
 defaults, so every JAX command line parses, plus ``--device {cuda,cpu}``
@@ -14,14 +15,17 @@ cpu`` a machine with no card raises instead of running on the CPU.
 
 ``fame`` and ``fpm`` run the FAME experiment at the reference geometry
 (``--tiny`` for the JAX package's tiny one, ``--bf16`` for bfloat16);
-``behrt``, ``bioclinicalbert``, ``average``, ``sigmoid`` and ``eddi`` run the
-baselines 01, 02, 07, 09 and 08 at their configs' defaults (``--tiny``
-shrinks them as the JAX ``tinyize`` does; ``--single_task --task T`` trains
-one label); ``predict`` scores the cohort with an exported
-``best_model_*.npz`` of either package.  The cohort comes from
-``--synthetic N`` or from the two CSV tables in ``--data_dir``, read without
-pandas.  The other pipelines and ``--mesh`` exit naming the ROADMAP item
-that ports them.
+``behrt``, ``bioclinicalbert``, ``dfc``, ``fairehrclp``, ``average``,
+``sigmoid`` and ``eddi`` run the baselines 01, 02, 03, 06 (its reference
+behaviour), 07, 09 and 08 at their configs' defaults (``--tiny`` shrinks
+them as the JAX ``tinyize`` does; ``--single_task --task T`` trains one
+label in 01, 02, 07, 09 and 08); ``legacy-behrt`` and ``legacy-eddi`` run
+the legacy-generation experiments (``--reference_compat`` trains and
+evaluates on the whole cohort); ``predict`` scores the cohort with an
+exported ``best_model_*.npz`` of either package.  The cohort comes from
+``--synthetic N`` (``make_admission_frame`` for ``legacy-behrt``) or from
+the CSV tables in ``--data_dir``, read without pandas.  ``data``,
+``advdebias`` and ``--mesh`` exit naming the ROADMAP item that ports them.
 
 Where the port departs from the JAX command line:
 
@@ -65,8 +69,7 @@ _SCRIPT_TO_PIPELINE = {
 # Pipelines of the JAX command line that the port does not run yet.
 _NOT_PORTED = {
     "data": "ROADMAP queue 1 item 4 (data/etl.py, native/)",
-    **{name: "ROADMAP queue 1 item 5 (other pipelines)"
-       for name in ("dfc", "advdebias", "fairehrclp", "legacy-behrt", "legacy-eddi")},
+    "advdebias": "ROADMAP queue 1 item 5 (04 adv_debias, a slice of its own)",
 }
 
 
@@ -297,10 +300,12 @@ def run_pipeline(args) -> int:
         raise SystemExit("--task readmission requires --single_task (the 3-headed models "
                          "have no readmission head)")
     device = resolve_device(args.device)
+    dtype = "bfloat16" if args.bf16 else "float32"
+    if name == "legacy-behrt":
+        return _finish_run(_legacy_behrt(args, dtype, verbose, device), args)
 
     s, u = _load_frames(args)
     os.makedirs(args.out_dir, exist_ok=True)
-    dtype = "bfloat16" if args.bf16 else "float32"
 
     import torch
 
@@ -421,8 +426,54 @@ def _eddi(s, u, args, dtype, text_encoder, verbose, device):
                                       device=device)
 
 
+#: The branches that only build a pipeline's config and run it on the two
+#: tables: name -> (module under ``pipelines``, config class, runner).  A
+#: config with a ``reference_compat`` field takes --reference_compat.
+_TABLE_RUNS = {"dfc": ("dfc", "DfCPipelineConfig", "run_dfc_experiment"),
+               "fairehrclp": ("fairehr_clp", "FairEHRCLPPipelineConfig",
+                              "run_fairehr_clp_experiment"),
+               "legacy-eddi": ("legacy", "LegacyEDDIPipelineConfig",
+                               "run_legacy_eddi_experiment")}
+
+
+def _table_run(s, u, args, dtype, text_encoder, verbose, device):
+    import importlib
+
+    module, config, runner = _TABLE_RUNS[args.pipeline]
+    mod = importlib.import_module(f"fairmultimodal_torch.pipelines.{module}")
+    cfg = getattr(mod, config)(dtype=dtype)
+    if hasattr(cfg, "reference_compat"):
+        cfg.reference_compat = args.reference_compat
+    _apply_overrides(cfg.train, args)
+    tinyize(cfg, args)
+    return getattr(mod, runner)(s, u, cfg, text_encoder=text_encoder, verbose=verbose,
+                                device=device)
+
+
+def _legacy_behrt(args, dtype, verbose, device):
+    """The sequence BEHRT on its own multi-admission table:
+    ``make_admission_frame`` for ``--synthetic N``, else
+    ``final_structured_common.csv``."""
+    from fairmultimodal_torch.pipelines.legacy import (LegacyBEHRTPipelineConfig,
+                                                       run_legacy_behrt_experiment)
+
+    if args.synthetic:
+        from fairmultimodal_torch.data.synthetic import make_admission_frame
+
+        frame = make_admission_frame(n_subjects=args.synthetic, seed=args.seed)
+    else:
+        from fairmultimodal_torch.data.table import read_csv_table
+
+        frame = read_csv_table(os.path.join(args.data_dir, "final_structured_common.csv"))
+    cfg = LegacyBEHRTPipelineConfig(dtype=dtype, reference_compat=args.reference_compat)
+    _apply_overrides(cfg.train, args)
+    if args.tiny:
+        cfg.hidden_size, cfg.num_hidden_layers, cfg.num_attention_heads = 64, 1, 2
+    return run_legacy_behrt_experiment(frame, cfg, verbose=verbose, device=device)
+
+
 _BASELINES = {"behrt": _behrt, "bioclinicalbert": _bioclinicalbert, "average": _average,
-              "sigmoid": _sigmoid, "eddi": _eddi}
+              "sigmoid": _sigmoid, "eddi": _eddi, **dict.fromkeys(_TABLE_RUNS, _table_run)}
 
 
 def main(argv=None, default_pipeline: Optional[str] = None) -> int:

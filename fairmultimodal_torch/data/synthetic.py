@@ -10,8 +10,12 @@ order and the same values, text columns as object arrays with ``None``
 where the DataFrame holds NaN.  ``frames=True`` returns DataFrames, where
 pandas exists.
 
-Not ported here: ``make_admission_frame`` and ``write_raw_mimic`` (the ETL
-slice, ROADMAP queue 1).
+:func:`make_admission_frame` is the legacy sequence BEHRT's multi-admission
+table, with the JAX function's draws in its order; its time columns are
+``datetime64[ns]`` arrays (``NaT`` for a missing ``DEATHTIME``), each value
+the instant the JAX DataFrame holds.
+
+Not ported here: ``write_raw_mimic`` (the ETL slice, ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import numpy as np
 
 from fairmultimodal_torch.data.table import Table, frame_from_table
 
-__all__ = ["make_common_frames"]
+__all__ = ["make_common_frames", "make_admission_frame"]
 
 # The JAX module's word lists, copied.
 _ETHNICITIES = [
@@ -38,6 +42,8 @@ _WORDS = (
 ).split()
 _AGE_EDGES = np.array([14, 29, 49, 69, 89, 200])
 _AGE_LABELS = ["15-29", "30-49", "50-69", "70-89", "Other"]
+_NS_PER_HOUR, _NS_PER_DAY = 3600 * 10 ** 9, 86400 * 10 ** 9
+_ADMISSION_BASE = np.datetime64("2150-01-01", "ns")
 
 
 def _text(values) -> np.ndarray:
@@ -136,3 +142,52 @@ def make_common_frames(n_patients: int = 240, n_lab_features: int = 32,
     if frames:
         return frame_from_table(structured), frame_from_table(unstructured)
     return structured, unstructured
+
+
+def make_admission_frame(n_subjects: int = 80, max_admissions: int = 4, seed: int = 0,
+                         frames: bool = False) -> Table:
+    """One row per admission for the legacy sequence BEHRT
+    (FinalCode/New/02_BEHRT.py): ``ADMITTIME`` / ``DISCHTIME`` /
+    ``DEATHTIME``, ``FIRST_WARDID`` / ``LAST_WARDID``, the demographics and
+    the three labels, which carry a weak signal through the ward ids.  A
+    discharge ``h`` hours after admission is ``int(h * 3600 * 1e9)``
+    nanoseconds later, as ``pd.Timedelta(hours=h)`` truncates it."""
+    rng = np.random.default_rng(seed)
+    cols = {k: [] for k in ("subject_id", "hadm_id", "ADMITTIME", "DISCHTIME", "DEATHTIME",
+                            "FIRST_WARDID", "LAST_WARDID", "age", "GENDER", "ETHNICITY",
+                            "INSURANCE", "short_term_mortality", "los_binary",
+                            "mechanical_ventilation")}
+    hadm = 90_000
+    for s in range(n_subjects):
+        n_adm = int(rng.integers(1, max_admissions + 1))
+        age = int(rng.integers(15, 90))
+        gender = str(rng.choice(["M", "F"]))
+        eth = str(rng.choice(_ETHNICITIES))
+        ins = str(rng.choice(_INSURANCES))
+        risk = float(rng.normal())
+        for a in range(n_adm):
+            hadm += 1
+            admit = (int(rng.integers(0, 900)) + 30 * a) * _NS_PER_DAY
+            disch = admit + int(float(rng.uniform(10, 300)) * 3600 * 1e9)
+            ward = int(rng.integers(1, 20))
+            mort = int(risk + 0.15 * ward / 10 + rng.normal(0, 0.6) > 1.0)
+            row = {"subject_id": 20_000 + s, "hadm_id": hadm, "ADMITTIME": admit,
+                   "DISCHTIME": disch, "DEATHTIME": disch + _NS_PER_DAY if mort else None,
+                   "FIRST_WARDID": ward, "LAST_WARDID": int(rng.integers(1, 20)), "age": age,
+                   "GENDER": gender, "ETHNICITY": eth, "INSURANCE": ins,
+                   "short_term_mortality": mort,
+                   "los_binary": int(risk + rng.normal(0, 0.6) > 0.3),
+                   "mechanical_ventilation": int(-risk + rng.normal(0, 0.6) > -0.4)}
+            for k, v in row.items():
+                cols[k].append(v)
+    table: Table = {}
+    for k, v in cols.items():
+        if k.endswith("TIME"):
+            # int64's least value is NaT, which the sum keeps.
+            ns = np.asarray([np.iinfo(np.int64).min if t is None else t for t in v], np.int64)
+            table[k] = _ADMISSION_BASE + ns.astype("timedelta64[ns]")
+        elif k in ("GENDER", "ETHNICITY", "INSURANCE"):
+            table[k] = _text(v)
+        else:
+            table[k] = np.asarray(v, np.int64)
+    return frame_from_table(table) if frames else table

@@ -1,8 +1,9 @@
 """Cohort tables without pandas.
 
 A table is an ordered ``{column name: numpy array}`` dict whose arrays all
-have one length: int64, float64 (NaN for a missing cell), bool, or object
-arrays of ``str`` with ``None`` for a missing cell.  The two cohort tables
+have one length: int64, float64 (NaN for a missing cell), bool,
+``datetime64[ns]`` (NaT for a missing cell), or object arrays of ``str``
+with ``None`` for a missing cell.  The two cohort tables
 (``final_structured_common.csv`` / ``final_unstructured_common.csv``) are
 read and written here with the standard ``csv`` module, so the command line
 needs no pandas.
@@ -132,10 +133,22 @@ def _cell(v) -> str:
     return str(v)
 
 
+def _column_cells(col: np.ndarray) -> list:
+    """A time column as ISO-8601 text at its own resolution (``2150-02-06
+    05:50:54.129725084``, one width for the column, so the text sorts as the
+    times do), a missing time as None; any other column's values."""
+    if col.dtype.kind != "M":
+        return col.tolist()
+    text = np.char.replace(np.datetime_as_string(col), "T", " ").tolist()
+    return [None if m else t for t, m in zip(text, np.isnat(col).tolist())]
+
+
 def write_csv_table(path: str, table: Table) -> None:
-    """Table -> CSV with a header row, no index (``to_csv(index=False)``)."""
+    """Table -> CSV with a header row, no index (``to_csv(index=False)``).
+    A time column is read back as text, which ``pd.to_datetime`` and the
+    legacy pipeline parse."""
     names = list(table)
-    cols = [table[k].tolist() for k in names]
+    cols = [_column_cells(table[k]) for k in names]
     with open(path, "w", newline="", encoding="utf-8") as f:
         w = csv.writer(f, lineterminator="\n")
         w.writerow(names)
@@ -145,7 +158,8 @@ def write_csv_table(path: str, table: Table) -> None:
 
 def table_from_frame(df) -> Table:
     """DataFrame -> table: numeric and bool columns as their numpy arrays,
-    every other column as an object array with ``None`` for a missing cell."""
+    time columns (without a time zone) as ``datetime64[ns]``, every other
+    column as an object array with ``None`` for a missing cell."""
     import pandas as pd
 
     out: Table = {}
@@ -154,6 +168,8 @@ def table_from_frame(df) -> Table:
         if pd.api.types.is_bool_dtype(col.dtype) or (
                 pd.api.types.is_numeric_dtype(col.dtype) and col.dtype.kind in "iuf"):
             out[str(name)] = col.to_numpy()
+        elif col.dtype.kind == "M":
+            out[str(name)] = col.to_numpy().astype("datetime64[ns]")
         else:
             arr = col.to_numpy(dtype=object).copy()
             arr[pd.isna(arr)] = None

@@ -6,6 +6,8 @@ is mechanical: a nested dict (as flax gives it, or as
 exported ``best_model_*.npz``) is flattened with ``.`` and each leaf renamed:
 
 - Dense ``kernel`` [in, out] -> ``weight`` [out, in] (transposed);
+- Conv ``kernel`` [k, in, out] -> ``weight`` [out, in, k] (an
+  ``nn.Conv1d``'s; flax's channels-last 1-D convolution);
 - Embed ``embedding`` -> ``weight``;
 - LayerNorm ``scale`` -> ``weight`` (``bias`` stays ``bias``);
 - raw parameters (``pos_embedding``, ``sig_weights``, ``sig_weights_*``)
@@ -13,11 +15,12 @@ exported ``best_model_*.npz``) is flattened with ``.`` and each leaf renamed:
 
 The same function serves ``FAMEModel``, ``BertEncoderModel`` and the
 baseline models' trees (``models/baselines.py``: ``BEHRTFull``'s seven
-tables, the ``head_<task>_<modality>`` denses, 09's gates).
+tables, the ``head_<task>_<modality>`` denses, 09's gates), 03's DfC, 06's
+FairEHR-CLP (its gate ``weights`` passes through) and the legacy models.
 :func:`flax_params` is the inverse, for writing checkpoints in the JAX
 format.  A 2-D ``weight`` is a Dense kernel or an Embed table and a 1-D one
 a LayerNorm scale, so it dispatches on the type of the module that owns the
-parameter, never on its shape.
+parameter, never on its shape (a 3-D ``kernel`` is always a convolution's).
 """
 
 from __future__ import annotations
@@ -39,7 +42,9 @@ def state_dict_from_flax(params: Mapping, prefix: str = "") -> Dict[str, torch.T
             out.update(state_dict_from_flax(val, f"{prefix}{key}."))
             continue
         arr = np.asarray(val, dtype=np.float32)
-        if key == "kernel":
+        if key == "kernel" and arr.ndim == 3:
+            out[prefix + "weight"] = torch.from_numpy(arr.transpose(2, 1, 0).copy())
+        elif key == "kernel":
             out[prefix + "weight"] = torch.from_numpy(arr.T.copy())
         elif key in ("embedding", "scale"):
             out[prefix + "weight"] = torch.from_numpy(arr.copy())
@@ -68,6 +73,8 @@ def flax_params(module: nn.Module,
         arr = values[name].detach().float().cpu().numpy()
         if isinstance(owner, nn.Linear) and leaf == "weight":
             leaf, arr = "kernel", arr.T
+        elif isinstance(owner, nn.Conv1d) and leaf == "weight":
+            leaf, arr = "kernel", arr.transpose(2, 1, 0)
         elif isinstance(owner, nn.Embedding) and leaf == "weight":
             leaf = "embedding"
         elif isinstance(owner, nn.LayerNorm) and leaf == "weight":

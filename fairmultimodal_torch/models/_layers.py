@@ -49,10 +49,13 @@ def dropout_seed(module: nn.Module, rate: float,
 def init_params(module: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random init in flax's families: Dense kernels normal with
     std 1/sqrt(fan_in) and zero bias, embeddings normal with std
-    1/sqrt(features), LayerNorm ones/zeros, and the raw ``pos_embedding`` /
-    ``sig_weights`` parameters standard normal.  The values differ from the
-    JAX init (a different generator); parity tests carry the JAX weights
-    across with :mod:`fairmultimodal_torch.interop` instead."""
+    1/sqrt(features), LayerNorm ones/zeros, ``nn.Conv1d`` kernels normal
+    with std 1/sqrt(in x width), a raw parameter named in its module's
+    ``init_ones`` (06's gate, the legacy EDDI weights) ones, and the other
+    raw parameters (``pos_embedding``, ``sig_weights``) standard normal.  The
+    values differ from the JAX init (a different generator); parity tests
+    carry the JAX weights across with :mod:`fairmultimodal_torch.interop`
+    instead."""
     gen = torch.Generator().manual_seed(seed)
     for name, p in module.named_parameters():
         owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
@@ -63,6 +66,10 @@ def init_params(module: nn.Module, seed: int = 0) -> nn.Module:
             p.copy_(torch.randn(p.shape, generator=gen) * p.shape[1] ** -0.5)
         elif isinstance(owner, nn.Embedding):
             p.copy_(torch.randn(p.shape, generator=gen) * p.shape[1] ** -0.5)
+        elif isinstance(owner, nn.Conv1d) and leaf == "weight":
+            p.copy_(torch.randn(p.shape, generator=gen) * (p.shape[1] * p.shape[2]) ** -0.5)
+        elif leaf in getattr(owner, "init_ones", ()):
+            p.fill_(1.0)
         elif leaf == "bias":
             p.zero_()
         else:

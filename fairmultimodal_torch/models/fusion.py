@@ -8,6 +8,10 @@ at least fp32 whatever the compute dtype.  The fusion head's dropout (JAX
 ``fusion.py:108,122,136``) is Philox dropout seeded from the caller's
 generator in train mode; ``FAMEModel.forward`` passes the generator to every
 dropout site (lab encoder, fusion head; the broadcast demo BERT has none).
+
+Also here: 03's :class:`DfCModel` and 08's bare :class:`EDDIFusionModel`
+(the nine single-logit heads over precomputed embeddings, which the JAX
+package exports and no pipeline calls).
 """
 
 from __future__ import annotations
@@ -17,11 +21,13 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from fairmultimodal_torch.models._layers import dropout_seed, linear
+from fairmultimodal_torch.models._layers import dropout_seed, embed, linear
 from fairmultimodal_torch.models.behrt import BEHRTDemo, BEHRTLab
+from fairmultimodal_torch.models.bert import BertConfig, BertEncoderModel
 from fairmultimodal_torch.utils.rng import dropout
 
-__all__ = ["FAMEFusion", "FAMEModel", "AverageFusionModel", "SigmoidFusionModel"]
+__all__ = ["FAMEFusion", "FAMEModel", "AverageFusionModel", "SigmoidFusionModel",
+           "EDDIFusionModel", "DfCModel"]
 
 
 def _out_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -226,3 +232,80 @@ class SigmoidFusionModel(nn.Module):
         od = _out_dtype(dt)
         return {"logits": linear(h, self.classifier, dt).to(od), "aggregated": agg.to(od),
                 "gates": gates}
+
+
+class EDDIFusionModel(nn.Module):
+    """08's heads alone: three 256-d projectors over precomputed modality
+    embeddings and one ``head_<task>_<modality>`` Linear(256, 1) per pair,
+    returned as ``{"<task>_<modality>": [B, 1]}`` (08_multimodal_eddi_fusion.py:
+    314-402; the EDDI weighting of the nine logits is the training loop's)."""
+
+    TASKS = ("mortality", "los", "mechanical_ventilation")
+
+    def __init__(self, demo_dim: int, lab_dim: int, text_dim: int, proj_dim: int = 256,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.demo_projector = _Projector(demo_dim, proj_dim, dtype)
+        self.lab_projector = _Projector(lab_dim, proj_dim, dtype)
+        self.text_projector = _Projector(text_dim, proj_dim, dtype)
+        for task in self.TASKS:
+            for m in ("demo", "lab", "text"):
+                self.add_module(f"head_{task}_{m}", nn.Linear(proj_dim, 1))
+
+    def forward(self, demo_emb, lab_emb, text_emb,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        projs = {"demo": self.demo_projector(demo_emb), "lab": self.lab_projector(lab_emb),
+                 "text": self.text_projector(text_emb)}
+        od = _out_dtype(self.dtype)
+        return {f"{task}_{m}": linear(x, getattr(self, f"head_{task}_{m}"), self.dtype).to(od)
+                for task in self.TASKS for m, x in projs.items()}
+
+
+class DfCModel(nn.Module):
+    """03, demographics-free: a BERT's [CLS] over the dummy token plus the
+    mean (``/ 3``) of the segment, admission and discharge location
+    embeddings (ids clipped into each table), a 256-d projector beside the
+    text's, concat -> ``dense1`` 512 + ReLU + dropout -> ``dense2``
+    (03_DfC.py:156-220).  The BERT's vocabulary is ``max(segments +
+    admission + discharge locations + 2, 4)``, its FFN 4 H.  ``batch`` keys:
+    ``dummy_ids``, ``attn_mask``, ``segment_ids``, ``admission_loc_ids``,
+    ``discharge_loc_ids``, ``text_embedding``."""
+
+    def __init__(self, num_segments: int = 2, num_admission_locs: int = 10,
+                 num_discharge_locs: int = 10, hidden_size: int = 768,
+                 num_hidden_layers: int = 12, num_attention_heads: int = 12,
+                 proj_dim: int = 256, num_tasks: int = 3, text_embed_size: int = 768,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        vocab = num_segments + num_admission_locs + num_discharge_locs + 2
+        self.bert = BertEncoderModel(BertConfig(
+            vocab_size=max(vocab, 4), hidden_size=hidden_size,
+            num_hidden_layers=num_hidden_layers, num_attention_heads=num_attention_heads,
+            intermediate_size=hidden_size * 4), dtype)
+        self.segment_embedding = nn.Embedding(num_segments, hidden_size)
+        self.admission_loc_embedding = nn.Embedding(num_admission_locs, hidden_size)
+        self.discharge_loc_embedding = nn.Embedding(num_discharge_locs, hidden_size)
+        self.struct_projector = _Projector(hidden_size, proj_dim, dtype)
+        self.text_projector = _Projector(text_embed_size, proj_dim, dtype)
+        self.dense1 = nn.Linear(2 * proj_dim, 512)
+        self.dense2 = nn.Linear(512, num_tasks)
+        self.dropout_rate = 0.1
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        dt, rate = self.dtype, self.dropout_rate
+        cls = self.bert(batch["dummy_ids"], batch["attn_mask"], pool="cls", generator=generator)
+
+        def emb(key, table):
+            return embed(batch[key].clamp(0, table.num_embeddings - 1), table, dt)
+
+        extra = (emb("segment_ids", self.segment_embedding)
+                 + emb("admission_loc_ids", self.admission_loc_embedding)
+                 + emb("discharge_loc_ids", self.discharge_loc_embedding)) / 3.0
+        s = self.struct_projector(cls + extra)
+        t = self.text_projector(batch["text_embedding"])
+        h = torch.relu(linear(torch.cat([s, t], dim=-1), self.dense1, dt))
+        h = dropout(h, rate, dropout_seed(self, rate, generator))
+        return {"logits": linear(h, self.dense2, dt).to(_out_dtype(dt))}

@@ -183,8 +183,9 @@ class PreparedExperiment:
 def build_arrays(bundle: FeatureBundle, keys: Sequence[str]) -> Dict[str, np.ndarray]:
     """FeatureBundle -> the model-input arrays named in ``keys`` (FAME's:
     10_FAME:714-723).  The ward columns are zeros, as the reference's when
-    they are absent (07:579-589); ``text_embedding`` needs the encoded
-    notes."""
+    they are absent (07:579-589); ``demo_features`` is the [N, 4] float32
+    code matrix (age, gender, ethnicity, insurance) FairEHR-CLP takes
+    (06:439-441); ``text_embedding`` needs the encoded notes."""
     n = bundle.num_patients
     make = {
         "demo_dummy_ids": lambda: np.zeros((n, 1), np.int32),
@@ -197,6 +198,9 @@ def build_arrays(bundle: FeatureBundle, keys: Sequence[str]) -> Dict[str, np.nda
         "adm_loc_ids": lambda: np.zeros(n, np.int32),
         "disch_loc_ids": lambda: np.zeros(n, np.int32),
         "lab_features": lambda: bundle.labs.astype(np.float32),
+        "demo_features": lambda: np.stack([
+            bundle.age_codes, bundle.gender_codes, bundle.ethnicity_codes,
+            bundle.insurance_codes], axis=1).astype(np.float32),
         "text_embedding": lambda: bundle.text_embeddings.astype(np.float32),
     }
     return {k: make[k]() for k in keys}
@@ -298,15 +302,16 @@ def prepare_experiment(
 
 
 def evaluate_test(trainer, best: Dict, loader, task_names,
-                  verbose: bool, auprc_mode: str = "ap"):
+                  verbose: bool, auprc_mode: str = "ap", sensitive=SENSITIVE):
     """Load the best state, predict the test loader and report: (test
-    predictions, metrics, EO blocks, EDDI report)."""
+    predictions, metrics, EO blocks, EDDI report).  ``sensitive``: the
+    (attribute, model-input key) pairs of the groups."""
     trainer.model.load_state_dict(best)
-    test = trainer.predict(loader, extra_keys=tuple(k for _, k in SENSITIVE))
-    sensitive = {a: test[k] for a, k in SENSITIVE}
-    metrics, fairness = evaluate_multitask(test["logits"], test["labels"], sensitive, 0.5,
+    test = trainer.predict(loader, extra_keys=tuple(k for _, k in sensitive))
+    groups = {a: test[k] for a, k in sensitive}
+    metrics, fairness = evaluate_multitask(test["logits"], test["labels"], groups, 0.5,
                                            verbose=verbose, task_names=task_names,
                                            auprc_mode=auprc_mode)
-    eddi = eddi_report(test["logits"], test["labels"], sensitive, 0.5, task_names=task_names,
+    eddi = eddi_report(test["logits"], test["labels"], groups, 0.5, task_names=task_names,
                        verbose=verbose)
     return test, metrics, fairness, eddi

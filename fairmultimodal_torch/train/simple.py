@@ -22,13 +22,17 @@ The semantics kept from the JAX trainer:
 - :meth:`set_lr` applies the plateau learning rate after every epoch, as the
   float32 the JAX ``set_lr`` stores;
 - dropout seeds come from the trainer's own :class:`torch.Generator`;
-  ``deterministic_forward`` (a test hook) trains without dropout.
+  ``deterministic_forward`` (a test hook) trains without dropout;
+- ``loss_extras(model, out, batch)`` (the JAX hook's ``fn(params, out,
+  batch)``, the module in place of the parameters) is added to the task
+  loss of every train and eval batch (``simple.py:82-91, 107-119``): 06's
+  contrastive term.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,8 +85,10 @@ class MultitaskTrainer:
     Batches: ``{"model_inputs": {...}, "labels": [B, T], "weight": [B]}``.
     """
 
-    def __init__(self, model, config: SimpleTrainConfig, pos_weight=None, device=None):
+    def __init__(self, model, config: SimpleTrainConfig, pos_weight=None, device=None,
+                 loss_extras: Optional[Callable] = None):
         self.device = resolve_device(device)
+        self.loss_extras = loss_extras
         self.model = model.to(self.device)
         self.config = config
         self.pos_weight = (None if pos_weight is None else torch.as_tensor(
@@ -110,10 +116,14 @@ class MultitaskTrainer:
             group["lr"] = float(np.float32(lr))
 
     def _loss(self, batch, generator) -> Tuple[torch.Tensor, torch.Tensor]:
-        logits = self.model(batch["model_inputs"], generator=generator)["logits"]
+        out = self.model(batch["model_inputs"], generator=generator)
+        logits = out["logits"]
         cfg = self.config
-        return masked_task_loss(logits, batch["labels"], batch["weight"], loss=cfg.loss,
-                                gamma=cfg.gamma, pos_weight=self.pos_weight), logits
+        loss = masked_task_loss(logits, batch["labels"], batch["weight"], loss=cfg.loss,
+                                gamma=cfg.gamma, pos_weight=self.pos_weight)
+        if self.loss_extras is not None:
+            loss = loss + self.loss_extras(self.model, out, batch)
+        return loss, logits
 
     def train_step(self, batch) -> torch.Tensor:
         """One optimizer step on a device batch; returns the loss tensor,

@@ -72,14 +72,17 @@ def _flat(tree, prefix=""):
 
 
 def _check(jm, tm, inputs, seed=0):
-    """Forward and gradient parity of a batch-dict model pair."""
-    j_in = {k: jnp.asarray(v) for k, v in inputs.items()}
-    params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(seed), j_in)["params"])
+    """Forward and gradient parity of a model pair called on a batch dict,
+    or on the arrays (or dicts) of a tuple as positional arguments."""
+    args = inputs if isinstance(inputs, tuple) else (inputs,)
+    j_in = jax.tree_util.tree_map(jnp.asarray, args)
+    params = jax.tree_util.tree_map(np.asarray,
+                                    jm.init(jax.random.PRNGKey(seed), *j_in)["params"])
     load_flax_params(tm, params).eval()
-    t_in = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    t_in = jax.tree_util.tree_map(torch.from_numpy, args)
 
-    want = _flat(jax.jit(jm.apply)({"params": params}, j_in))
-    got = _flat(tm(t_in))
+    want = _flat(jax.jit(jm.apply)({"params": params}, *j_in))
+    got = _flat(tm(*t_in))
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_allclose(got[k].detach().numpy(), np.asarray(want[k]), err_msg=k,
@@ -89,7 +92,7 @@ def _check(jm, tm, inputs, seed=0):
     proj = {k: rng.normal(0, 1, np.shape(v)).astype(np.float32) for k, v in want.items()}
 
     def objective(p):
-        out = _flat(jm.apply({"params": p}, j_in))
+        out = _flat(jm.apply({"params": p}, *j_in))
         return sum(jnp.sum(out[k].astype(jnp.float32) * proj[k]) for k in out)
 
     j_grads = state_dict_from_flax(jax.jit(jax.grad(objective))(

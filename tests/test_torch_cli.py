@@ -22,6 +22,14 @@ The baselines (``behrt``, ``bioclinicalbert``, ``average``, ``sigmoid``,
 ventilation`` trains one head; ``bioclinicalbert --single_task --task
 readmission`` trains on ``readmission_within_30d``; ``--runs 2`` prints the
 Table-3 block; ``--bf16`` is the dtype of the text encoder and the model.
+
+The pipelines of the last slice (``dfc``, ``fairehrclp``, ``legacy-behrt``,
+``legacy-eddi``; their results are held against the JAX pipelines in
+``test_torch_dfc.py``, ``test_torch_fairehr.py`` and
+``test_torch_legacy.py``): ``--synthetic 64 --tiny --epochs 1 --device cpu``
+prints the JAX command line's lines (every digit run collapsed) with
+finite metrics, ``--reference_compat`` reaches the legacy configs, and
+``--bf16`` is the model's (and the text encoder's) dtype.
 """
 
 import csv
@@ -203,7 +211,8 @@ def test_mesh_exits_naming_its_item():
 
 
 @pytest.mark.parametrize("pipeline", ["fame", "fpm", "predict", "behrt", "bioclinicalbert",
-                                      "average", "sigmoid", "eddi"])
+                                      "average", "sigmoid", "eddi", "dfc", "fairehrclp",
+                                      "legacy-behrt", "legacy-eddi"])
 def test_without_device_the_command_raises_the_cuda_error(pipeline, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -390,3 +399,81 @@ def test_bf16_is_the_dtype_of_the_baseline_encoder_and_model(pipeline, monkeypat
         t_cli.main([pipeline, "--synthetic", "8", "--device", "cpu", "--require_hf_weights",
                     "--bf16", "--out_dir", str(tmp_path)])
     assert seen == {"encoder": torch.bfloat16, "model": "bfloat16"}
+
+
+# -- 03, 06 and the legacy pair -----------------------------------------------------------
+
+NEW = {"dfc": ("dfc", "run_dfc_experiment"),
+       "fairehrclp": ("fairehr_clp", "run_fairehr_clp_experiment"),
+       "legacy-behrt": ("legacy", "run_legacy_behrt_experiment"),
+       "legacy-eddi": ("legacy", "run_legacy_eddi_experiment")}
+
+
+def _digits(text):
+    """Each line with every number (sign, exponent, nan) as "#"."""
+    return [re.sub(r"-?(\d+(\.\d*)?(e[-+]?\d+)?|nan)", "#", line)
+            for line in text.splitlines()]
+
+
+@pytest.mark.parametrize("pipeline", list(NEW))
+def test_new_pipelines_print_the_jax_lines(pipeline, encoders, monkeypatch, tmp_path):
+    argv = [pipeline, "--synthetic", "64", "--tiny", "--epochs", "1"]
+    mp = pytest.MonkeyPatch()
+    mp.setattr(j_text.TextEncoder, "from_pretrained",
+               classmethod(lambda cls, *a, **k: encoders[0]))
+    buf = io.StringIO()
+    try:
+        with redirect_stdout(buf):
+            assert j_cli.main(argv + ["--out_dir", str(tmp_path / "jax")]) == 0
+    finally:
+        mp.undo()
+    module = importlib.import_module(f"fairmultimodal_torch.pipelines.{NEW[pipeline][0]}")
+    outs, run = [], getattr(module, NEW[pipeline][1])
+
+    def recording(*args, **kwargs):
+        outs.append(run(*args, **kwargs))
+        return outs[-1]
+
+    monkeypatch.setattr(module, NEW[pipeline][1], recording)
+    monkeypatch.setattr(t_text.TextEncoder, "from_pretrained",
+                        classmethod(lambda cls, *a, **k: encoders[1]))
+    t_buf = io.StringIO()
+    with redirect_stdout(t_buf):
+        assert t_cli.main(argv + ["--device", "cpu", "--out_dir", str(tmp_path / "port")]) == 0
+    assert _digits(t_buf.getvalue()) == _digits(buf.getvalue())
+    (res,) = outs
+    tasks = ("mortality", "readmission") if pipeline == "legacy-eddi" else TASKS
+    assert list(res["metrics"]) == list(tasks)
+    for task in tasks:
+        assert np.isfinite(res["metrics"][task]["aucroc"])
+    assert "[Epoch 1] Train Loss:" in t_buf.getvalue()
+
+
+@pytest.mark.parametrize("pipeline", list(NEW))
+@pytest.mark.parametrize("flags", [["--bf16", "--reference_compat"], []])
+def test_new_pipelines_take_bf16_and_reference_compat(pipeline, flags, monkeypatch, tmp_path):
+    module = importlib.import_module(f"fairmultimodal_torch.pipelines.{NEW[pipeline][0]}")
+    seen = {}
+
+    def encoder(cls, *args, **kwargs):
+        seen["encoder"] = kwargs["dtype"]
+        return "encoder"
+
+    def experiment(*args, **kwargs):
+        cfg = args[1] if pipeline == "legacy-behrt" else args[2]
+        seen["model"] = cfg.dtype
+        seen["reference_compat"] = getattr(cfg, "reference_compat", None)
+        seen["device"] = kwargs["device"]
+        raise _Stop
+
+    monkeypatch.setattr(t_text.TextEncoder, "from_pretrained", classmethod(encoder))
+    monkeypatch.setattr(module, NEW[pipeline][1], experiment)
+    with pytest.raises(_Stop):
+        t_cli.main([pipeline, "--synthetic", "8", "--device", "cpu", "--require_hf_weights",
+                    "--out_dir", str(tmp_path)] + flags)
+    bf16 = "--bf16" in flags
+    want = {"model": "bfloat16" if bf16 else "float32", "device": torch.device("cpu"),
+            "reference_compat": bf16 if pipeline.startswith("legacy") else None}
+    if pipeline != "legacy-behrt":      # it has no text encoder
+        want["encoder"] = torch.bfloat16 if bf16 else torch.float32
+    assert seen == want

@@ -12,7 +12,11 @@
 - the baseline pipelines and ``MultitaskTrainer`` default to CUDA and
   raise without it, and a baseline run on port tables in a subprocess
   leaves no ``jax``, ``pandas``, ``sklearn`` or ``transformers`` in
-  ``sys.modules``.
+  ``sys.modules``;
+- the modules of 03, 06 and the legacy pair are among those the scans
+  read, import neither JAX nor pandas at any level, and their pipelines
+  (06 in both modes, ``legacy-behrt`` from a CSV read without pandas) run
+  in a subprocess where pandas and JAX cannot be imported.
 """
 
 import ast
@@ -214,3 +218,54 @@ def test_a_baseline_runs_on_port_tables_without_jax_pandas_sklearn_or_transforme
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=PKG.parent, timeout=240)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-3000:]
+
+
+NEW_MODULES = ("models/fairehr.py", "models/legacy.py", "pipelines/dfc.py",
+               "pipelines/fairehr_clp.py", "pipelines/legacy.py")
+
+
+@pytest.mark.parametrize("rel", NEW_MODULES)
+def test_the_new_modules_are_scanned_and_import_no_jax_or_pandas(rel):
+    path = PKG / rel
+    assert path in set(PKG.rglob("*.py"))
+    tree = ast.parse(path.read_text())
+    every = {n for node in ast.walk(tree) for n in _imports(node)}
+    assert not every & {"jax", "flax", "fairmultimodal_tpu", "pandas", "sklearn",
+                        "transformers"}, every
+
+
+def test_new_pipelines_run_without_jax_or_pandas(tmp_path):
+    code = (
+        "import sys, warnings\n"
+        "for name in ('pandas', 'sklearn', 'transformers', 'jax', 'fairmultimodal_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "warnings.simplefilter('ignore')\n"
+        "from fairmultimodal_torch import pipelines\n"
+        "from fairmultimodal_torch.cli import main\n"
+        "from fairmultimodal_torch.data.synthetic import make_admission_frame, make_common_frames\n"
+        "from fairmultimodal_torch.data.table import write_csv_table\n"
+        "from fairmultimodal_torch.models.bert import BertConfig\n"
+        "from fairmultimodal_torch.models.text import TextEncoder\n"
+        "enc = TextEncoder.from_pretrained('no/such-model', device='cpu', fallback_config=\n"
+        "    BertConfig(vocab_size=512, hidden_size=32, num_hidden_layers=1,\n"
+        "               num_attention_heads=2, intermediate_size=64,\n"
+        "               max_position_embeddings=64))\n"
+        "tables = make_common_frames(n_patients=48, n_lab_features=6, seed=1)\n"
+        "for contrastive in (False, True):\n"
+        "    cfg = pipelines.FairEHRCLPPipelineConfig(hidden_size=32, num_hidden_layers=1,\n"
+        "        num_attention_heads=2, text_max_length=32, contrastive=contrastive)\n"
+        "    cfg.train.num_epochs = 1\n"
+        "    out = pipelines.run_fairehr_clp_experiment(*tables, cfg, text_encoder=enc,\n"
+        "                                                verbose=False, device='cpu')\n"
+        "    assert len(out['metrics']) == 3\n"
+        f"write_csv_table({str(tmp_path / 'final_structured_common.csv')!r},\n"
+        "                make_admission_frame(40, seed=2))\n"
+        f"assert main(['legacy-behrt', '--data_dir', {str(tmp_path)!r}, '--tiny',\n"
+        "             '--epochs', '1', '--device', 'cpu', '--quiet']) == 0\n"
+        "bad = [m for m in ('pandas', 'sklearn', 'transformers', 'jax')\n"
+        "       if sys.modules.get(m) is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PKG.parent, timeout=240)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]

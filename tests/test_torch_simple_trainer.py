@@ -5,6 +5,9 @@
   ``deterministic_forward=True`` on the same weights and batches, with Adam,
   AdamW (weight decay 0) and the clip at 1.0, and a ``set_lr`` after step 2:
   per-step loss rel 1e-8, every parameter atol 1e-9 rtol 1e-6;
+- ``loss_extras``: the same five f64 steps with a hook that adds a term of
+  the outputs and one of the parameters (the JAX hook reads the parameter
+  tree, the port's the module), train and eval losses rel 1e-8;
 - ``masked_task_loss`` (BCE and focal, pad rows) against the JAX function;
 - a three-epoch ``fit`` that stops early: history, learning rates, the
   printed lines and the best state (the first epoch's, not the last) equal
@@ -77,10 +80,11 @@ def _f64_state(params, prefix=""):
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
-def _pair(cfg_kwargs, example, dtype=jnp.float64):
+def _pair(cfg_kwargs, example, dtype=jnp.float64, extras=(None, None)):
     jcfg = j_simple.SimpleTrainConfig(rng_impl="threefry", deterministic_forward=True,
                                       **cfg_kwargs)
-    jt = j_simple.MultitaskTrainer(JSig(**GEO, dtype=dtype), jcfg, pos_weight=POS_W)
+    jt = j_simple.MultitaskTrainer(JSig(**GEO, dtype=dtype), jcfg, pos_weight=POS_W,
+                                   loss_extras=extras[0])
     params = jt.init_params({"model_inputs": jax.tree_util.tree_map(jnp.asarray, example)})
     params = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64 if dtype == jnp.float64
                                                          else np.float32), params)
@@ -89,19 +93,32 @@ def _pair(cfg_kwargs, example, dtype=jnp.float64):
     tm.load_state_dict({k: v.to(tdt) for k, v in _f64_state(params).items()})
     tt = t_simple.MultitaskTrainer(tm, t_simple.SimpleTrainConfig(deterministic_forward=True,
                                                                   **cfg_kwargs),
-                                   pos_weight=POS_W, device="cpu")
+                                   pos_weight=POS_W, device="cpu", loss_extras=extras[1])
     return jt, params, tt
 
 
-@pytest.mark.parametrize("optimizer,grad_clip,loss", [("adam", None, "focal"),
-                                                     ("adamw", 1.0, "bce"),
-                                                     ("adamw", None, "focal")])
-def test_five_train_steps_match_the_jax_trainer_f64(optimizer, grad_clip, loss):
+def _jax_extras(params, out, batch):
+    w = batch["weight"][:, None]
+    return (0.3 * jnp.sum(out["aggregated"] ** 2 * w) / jnp.maximum(jnp.sum(w), 1.0)
+            + 0.05 * jnp.sum(params["fusion"]["classifier"]["kernel"] ** 2))
+
+
+def _port_extras(model, out, batch):
+    w = batch["weight"][:, None]
+    return (0.3 * (out["aggregated"] ** 2 * w).sum() / torch.clamp(w.sum(), min=1.0)
+            + 0.05 * (model.fusion.classifier.weight ** 2).sum())
+
+
+@pytest.mark.parametrize("optimizer,grad_clip,loss,extras", [
+    ("adam", None, "focal", False), ("adamw", 1.0, "bce", False),
+    ("adamw", None, "focal", False), ("adam", 1.0, "focal", True)])
+def test_five_train_steps_match_the_jax_trainer_f64(optimizer, grad_clip, loss, extras):
     host = _batches(3, 2)
     kw = dict(lr=1e-2, optimizer=optimizer, grad_clip=grad_clip, loss=loss, gamma=2.0,
               batch_size=B)
     with jax.enable_x64(True):
-        jt, params, tt = _pair(kw, host[0]["model_inputs"])
+        jt, params, tt = _pair(kw, host[0]["model_inputs"],
+                               extras=(_jax_extras, _port_extras) if extras else (None, None))
         params = jax.tree_util.tree_map(jnp.asarray, params)
         opt_state = jt.tx.init(params)
         tt.init()
@@ -115,6 +132,15 @@ def test_five_train_steps_match_the_jax_trainer_f64(optimizer, grad_clip, loss):
                 jax.random.key(0, impl="threefry2x32"))
             tl = tt.train_step(to_device(batch, tt.device))
             assert float(tl) == pytest.approx(float(jl), rel=1e-8), step
+        if extras:      # the eval loss carries the hook too
+            jel, _ = jt._eval_step(params, jax.tree_util.tree_map(jnp.asarray, host[1]))
+            tt.model.eval()
+            with torch.no_grad():
+                tel, _ = tt._loss(to_device(host[1], tt.device), None)
+            assert float(tel) == pytest.approx(float(jel), rel=1e-8)
+            tt.loss_extras = None
+            with torch.no_grad():
+                assert float(tt._loss(to_device(host[1], tt.device), None)[0]) < float(tel)
         want = _f64_state(jax.tree_util.tree_map(np.asarray, params))
         for name, p in tt.model.named_parameters():
             np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), rtol=1e-6,
