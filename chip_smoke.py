@@ -227,11 +227,12 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    layers for two views; legacy-behrt's glue in 12 BERT layers per train
    step); every metric block has a finite AUROC and AUPRC; each run's split
    equals the one worked out beforehand.  Then one fp32 train step of each
-   new model at full width on 16 patients (03's DfC, 06's FairEHR-CLP with
-   its contrastive term, ``LegacyEDDIFull``, ``BEHRTSequence`` and 08's bare
-   ``EDDIFusionModel``), card against CPU by phase 8's rule (legacy-eddi's
-   lab layers replayed and held by the lab encoder's rule, as 09's in phase
-   8); each step timed
+   new model at full width (03's DfC, 06's FairEHR-CLP with its contrastive
+   term, ``LegacyEDDIFull``, ``BEHRTSequence`` and 08's bare
+   ``EDDIFusionModel``; on 16 patients, the three that launch no counted
+   kernel on 4), card against CPU by phase 8's rule (legacy-eddi's lab
+   layers replayed and held by the lab encoder's rule, as 09's in phase 8);
+   each step timed at batch 16
    (CUDA-event median of 20) and profiled, legacy-behrt's also without
    dropout (the share of its int64 Philox dropout); and #2 / #4 alone at
    the contrastive encoder's shape (R 8784 = 16 x 549, 48 rows past a
@@ -242,10 +243,34 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    that shape alone (fp32 against float64, bf16 against fp32).  Prints each
    run's wall time and stage times.
 
+10. 04 adv_debias: ``run_adv_debias_experiment`` on phase 7's cohort and a
+   snapshot written as phase 7 writes it (under ``build/phase10/``, removed
+   at the end) at full width in fp32, batch 16, 1 epoch, text at 128, stage 2
+   on the 549 raw lab columns over two points of ``REFERENCE_GRID``'s values
+   (``ADV_GRID``: 200 iterations at widths 64 and 128, adversary 32, dropout
+   0.3).  It fails unless every counted kernel launches 0 times (07's model
+   runs its BERT at one token, the text stays below 256, stage 2 is two
+   MLPs); the split equals iterstrat's worked out beforehand; the matched
+   and resampled row counts equal the numpy functions' on the same y and z;
+   every stage-1 AUROC / AUPRC is finite and every stage-2 metric that the
+   validation split defines is; each point's and the final npz files and a
+   2-row ``metrics.csv`` in the JAX columns are written; each reloaded
+   predictor gives the run's validation probabilities within 1e-6; and
+   ``check_finite_tree`` finds nothing in either network.  Then ``cli.main(
+   ["advdebias", "--tiny", ...])`` in-process (its artifacts, no launch);
+   ``train_adversarial`` for 20 iterations at dropout 0 on the card and the
+   CPU from the same weights against the same iterations in float64 (each
+   parameter and the loss curve within 1e-4 of max-abs beyond the CPU
+   fp32's own error; no launch); and one stage-2 iteration at widths 64 and
+   128, dropout 0.3 and 0, timed with ``utils/profiling.Timer`` (median of
+   200 after 20) and profiled with ``profile_to`` / ``hlo_self_times``
+   (device busy, idle share, launches per iteration), with what the full
+   64-point ``REFERENCE_GRID`` would take at those rates.
+
 It prints a ``{"kernels": [...]}`` line (with each LN-fused kernel's phase 6,
-7, 8 and 9 launches, its phase 8 times at B 16 and #2 / #4's times at 06's
-shape), the card's ``nvidia-smi`` line, and last ``{"ok": true, "device":
-{...}}``.
+7, 8 and 9 launches, every kernel's phase 10 launches, its phase 8 times at
+B 16 and #2 / #4's times at 06's shape), the card's ``nvidia-smi`` line, and
+last ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -3694,6 +3719,10 @@ CLP_STAGES = (
     ("06 dW1 split-K", "tn", CLP_F, CLP_H, CLP_R, None),
     ("06 dW2 split-K", "tn", CLP_H, CLP_F, CLP_R, None),
 )
+#: Patients of the card-vs-CPU step of the models that launch no counted kernel: their
+#: float64 step on the CPU sets the check's time, and the rule does not depend on the
+#: batch.  The others keep BASE_BATCH (the timed steps all run at BASE_BATCH).
+P9_CHECK_PATIENTS = {"03": 4, "legacy-behrt": 4, "EDDIFusionModel": 4}
 #: The sequence BEHRT's geometry for its card step: about the vocabulary a 2048-subject
 #: cohort gives, S 8 (up to 4 admissions).
 SEQ_GEO = dict(num_diseases=5120, num_ages=76, num_admission_locs=19, num_discharge_locs=19,
@@ -3986,7 +4015,8 @@ def legacy_phase(flash, fab, ffn, addnorm, _build):
         t0 = time.perf_counter()
         batch = _p9_batch(name)
         pw = POS_WEIGHT[:2] if name == "legacy-eddi" else POS_WEIGHT
-        kw = dict(batch=batch, loss_extras=extras, pos_weight=pw)
+        kw = dict(batch=_p9_batch(name, P9_CHECK_PATIENTS.get(name, BASE_BATCH)),
+                  loss_extras=extras, pos_weight=pw)
         taps = {who: {} for who in ("card", "cpu", "f64")}
 
         def tap(who):
@@ -4064,6 +4094,320 @@ def legacy_phase(flash, fab, ffn, addnorm, _build):
     return total, clp_rows, info
 
 
+# -- phase 10: 04 adv_debias (pipelines/adv_debias.py over train/adversarial.py) -------------
+
+#: Phase 10's stage-2 grid: two points of REFERENCE_GRID's values (the two widths).
+ADV_GRID = {"learning_rate": [1e-4], "num_iters": [200], "num_nodes": [64, 128],
+            "num_nodes_adv": [32], "dropout_rate": [0.3], "alpha": [1]}
+#: ``metrics.csv``'s columns as the JAX pipeline writes them: the config's, then the metrics'.
+ADV_COLUMNS = ["learning_rate", "num_iters", "num_nodes", "num_nodes_adv", "dropout_rate",
+               "alpha", "adversarial", "seed", "accuracy", "recall", "precision",
+               "specificity", "PPV", "NPV", "f1", "auroc", "recall_gap_z"]
+#: A reloaded predictor against the run's validation probabilities: the same fp32
+#: network on the same rows, so equal but for the launch order of one card.
+ADV_RELOAD_TOL = 1e-6
+#: Card against CPU over 20 iterations at dropout 0 (phase 8's rule): each parameter's and
+#: the loss curve's error against float64 may exceed the CPU fp32's own by 1e-4 of its
+#: max-abs.
+ADV_XDEV_TOL = 1e-4
+ADV_TIMED, ADV_WARMUP, ADV_PROFILED = 200, 20, 10
+
+
+def adv_expected(tables):
+    """The split and stage 2's row counts worked out before the run:
+    iterstrat's split of the featurized cohort, then the numpy matching and
+    resampling of the train split's mortality column against ethnicity > 0.
+    Returns (split, counts, bundle)."""
+    from fairmultimodal_torch.data.featurize import assemble_features
+    from fairmultimodal_torch.pipelines.common import make_split
+    from fairmultimodal_torch.train.adversarial import match_case_control, resample_smoteenn
+
+    bundle = assemble_features(*tables)
+    split = make_split(bundle.labels, 0.20, 0.05, 42, method="iterstrat")
+    tr = split["train"]
+    y = bundle.labels[tr, 0].astype(np.float32)
+    z = (bundle.ethnicity_codes[tr] > 0).astype(np.float32)
+    keep = match_case_control(y, 20)
+    resampled = resample_smoteenn(bundle.labs_raw[tr][keep], y[keep], z[keep])[1]
+    return split, {"matched": len(keep), "resampled": len(resampled)}, bundle
+
+
+def adv_defined(yv, zv):
+    """The stage-2 metrics that are defined on this validation split: AUROC
+    with both classes in ``yv``, the recall gap with positives in both z groups."""
+    zb = np.asarray(zv) > 0
+    undefined = set()
+    if len(np.unique(yv)) < 2:
+        undefined.add("auroc")
+    if not ((yv[zb] == 1).any() and (yv[~zb] == 1).any()):
+        undefined.add("recall_gap_z")
+    return [k for k in ADV_COLUMNS[8:] if k not in undefined]
+
+
+def adv_card_vs_cpu(data):
+    """``train_adversarial`` for 20 iterations at dropout 0 on the card and on
+    the CPU from the same initial weights, held against the same iterations in
+    float64 on the CPU (``adversarial_step``): per parameter and for the loss
+    curve, (card error - CPU fp32 error) / max-abs / ADV_XDEV_TOL."""
+    from fairmultimodal_torch.train import adversarial as adv
+
+    cfg = adv.AdvConfig(learning_rate=1e-4, num_iters=20, num_nodes=64, num_nodes_adv=32,
+                        dropout_rate=0.0, alpha=1)
+    card, cpu = (adv.train_adversarial(*data, cfg, verbose=False, log_every=1, device=d)
+                 for d in ("cuda", "cpu"))
+    pred, net = adv.init_adv_models(data[0].shape[1], cfg)
+    pred, net = pred.double(), net.double()
+    opts = [torch.optim.Adam(m.parameters(), lr=cfg.learning_rate) for m in (pred, net)]
+    X, y, z = (torch.as_tensor(np.asarray(a), dtype=torch.float64) for a in data[:3])
+    curve = [float(adv.adversarial_step(pred, net, opts, X, y.reshape(-1, 1), z.reshape(-1, 1),
+                                        cfg, None)) for _ in range(cfg.num_iters)]
+
+    def share(got, want, ref):
+        return float((np.abs(got - ref).max() - np.abs(want - ref).max())
+                     / np.abs(ref).max() / ADV_XDEV_TOL)
+
+    ref_curve = np.asarray(curve)
+    shares = {"loss_curve": share(np.asarray(card["train_curve"]), np.asarray(cpu["train_curve"]),
+                                  ref_curve)}
+    for who, ref in (("predictor", pred), ("adversary", net)):
+        for name, p in ref.named_parameters():
+            shares[f"{who}.{name}"] = share(
+                card[who].get_parameter(name).detach().cpu().double().numpy(),
+                cpu[who].get_parameter(name).detach().double().numpy(), p.detach().numpy())
+    return shares
+
+
+def time_adv_iterations(data, num_nodes, rate, logdir):
+    """One stage-2 iteration (``adversarial_step``) at ``num_nodes`` x 32 on
+    the card: the median of ADV_TIMED after ADV_WARMUP with ``utils/profiling``'s
+    Timer (the loss waited for), then ADV_PROFILED iterations under
+    ``profile_to``: device busy ms (``hlo_self_times``), the idle share of
+    the timed median and of the profiled window (the profiler slows the
+    host), kernel launches per iteration and the largest kernels."""
+    from fairmultimodal_torch.train import adversarial as adv
+    from fairmultimodal_torch.utils.profiling import Timer, hlo_self_times, profile_to
+    from fairmultimodal_torch.utils.rng import make_generator
+
+    cfg = adv.AdvConfig(num_nodes=num_nodes, num_nodes_adv=32, dropout_rate=rate)
+    pred, net = (m.to("cuda") for m in adv.init_adv_models(data[0].shape[1], cfg))
+    opts = [torch.optim.Adam(m.parameters(), lr=cfg.learning_rate) for m in (pred, net)]
+    X, y, z = (torch.as_tensor(np.asarray(a, np.float32), device="cuda") for a in data[:3])
+    y, z, gen = y.reshape(-1, 1), z.reshape(-1, 1), make_generator(cfg.seed + 1)
+
+    def step():
+        return adv.adversarial_step(pred, net, opts, X, y, z, cfg, gen)
+
+    for _ in range(ADV_WARMUP):
+        step()
+    times = []
+    for _ in range(ADV_TIMED):
+        with Timer() as timer:
+            times.append(1e3 * timer.stop(step()))
+    with profile_to(logdir) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ADV_PROFILED):
+            loss = step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / ADV_PROFILED
+    by_category, by_op = hlo_self_times(logdir)
+    busy_ms = sum(by_category.values()) / 1e3 / ADV_PROFILED
+    launches = sum(e.count for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0)
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:8]
+    return {"ms": statistics.median(times), "min_ms": min(times), "max_ms": max(times),
+            "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / statistics.median(times),
+            "idle_share_profiled": 1.0 - busy_ms / wall_ms,
+            "launches_per_iter": launches / ADV_PROFILED,
+            "by_category_ms": {k: v / 1e3 / ADV_PROFILED for k, v in by_category.items()},
+            "top_kernels_ms": {k[:90]: v / 1e3 / ADV_PROFILED for k, v in top},
+            "loss_finite": bool(torch.isfinite(loss))}
+
+
+def adv_debias_phase(flash, fab, ffn, addnorm):
+    """04 through ``run_adv_debias_experiment`` on the card at full width in
+    fp32 (phase 7's cohort and snapshot, batch 16, 1 epoch, stage 2 on
+    ADV_GRID), with every counted kernel's launches read around it (0, as
+    worked out: 07's model, text at 128, two MLPs); the command line's
+    ``advdebias --tiny``; stage 2 card against CPU and float64; one stage-2
+    iteration timed and profiled at both widths with and without dropout, and
+    what the full REFERENCE_GRID would take at those rates."""
+    import contextlib
+    import csv
+    import importlib
+    import io
+    import itertools
+    import os
+    import shutil
+
+    from fairmultimodal_torch.data.synthetic import make_common_frames
+    from fairmultimodal_torch.models.text import TextEncoder
+    from fairmultimodal_torch.pipelines.adv_debias import (AdvDebiasPipelineConfig,
+                                                           run_adv_debias_experiment)
+    from fairmultimodal_torch.train import adversarial as adv
+    from fairmultimodal_torch.utils.debug import check_finite_tree
+
+    cli = importlib.import_module("fairmultimodal_torch.cli.main")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase10")
+    env_keys = ("HF_HUB_CACHE", "FMTPU_TEXT_CACHE")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    originals = adv.resample_smoteenn, adv.train_adversarial
+    seen = {"resample": [], "train": []}
+
+    def resample(X, y, z, seed=25):
+        out = originals[0](X, y, z, seed)
+        seen["resample"].append({"matched": len(y), "resampled": len(out[1])})
+        return out
+
+    def train(*args, **kwargs):
+        out = originals[1](*args, **kwargs)
+        seen["train"].append((args[:6], out))
+        return out
+
+    def counted(fn):
+        _reset_counts(fab, ffn, addnorm)
+        flash.launches = flash.bwd_launches = 0
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, _all_counts(flash, fab, ffn, addnorm), buf.getvalue()
+
+    info, parts, t_phase = {}, {}, time.perf_counter()
+    try:
+        write_hf_snapshot(os.path.join(root, "hub"))
+        os.environ["HF_HUB_CACHE"] = os.path.join(root, "hub")
+        os.environ["FMTPU_TEXT_CACHE"] = os.path.join(root, "text_cache")
+        tables = make_common_frames(CLI_PATIENTS, CLI_LABS, 3, seed=42)
+        split, rows, bundle = adv_expected(tables)
+        encoder = TextEncoder.from_pretrained(require_weights=True, device="cuda")
+        cfg = AdvDebiasPipelineConfig(stage2_grid=ADV_GRID, out_dir=os.path.join(root, "run"))
+        cfg.train.num_epochs = 1
+        parts["setup"] = time.perf_counter() - t_phase
+        adv.resample_smoteenn, adv.train_adversarial = resample, train
+        try:
+            out, wall, counts, stdout = counted(
+                lambda: run_adv_debias_experiment(*tables, cfg, text_encoder=encoder))
+        finally:
+            adv.resample_smoteenn, adv.train_adversarial = originals
+        parts["run"] = wall
+        log("[adv] " + "\n[adv] ".join(ln for ln in stdout.splitlines() if ln.startswith(
+            ("After filtering", "Train size", "[Epoch", "Iteration:", "Saved", "Evaluation"))))
+
+        # The run's checks.
+        if any(counts.values()):
+            raise AssertionError(f"04: launches {counts}, worked out as 0 for every kernel")
+        for k, v in split.items():
+            if not np.array_equal(out["prep"].idx[k], v):
+                raise AssertionError(f"04: the {k} split differs from iterstrat's")
+        if seen["resample"] != [rows]:
+            raise AssertionError(f"04: stage-2 rows {seen['resample']}, worked out {rows}")
+        for task, m in out["metrics"].items():
+            if not (np.isfinite(m["aucroc"]) and np.isfinite(m["auprc"])):
+                raise AssertionError(f"04 stage 1 {task}: metrics {m}")
+        va = split["val"]
+        defined = adv_defined(bundle.labels[va, 0], bundle.ethnicity_codes[va])
+        run_dir, reload_err = cfg.out_dir, {}
+        for r, (args, trained) in zip(out["stage2"], seen["train"]):
+            bad = [k for k in defined if not np.isfinite(r["metrics"][k])]
+            if bad:
+                raise AssertionError(f"04 stage 2 {r['config']}: {bad} not finite {r['metrics']}")
+            tag = adv.params_tostring(adv.AdvConfig(**r["config"]))
+            for path in (f"model/model-basic_{tag}.npz", f"adv/model-adv_{tag}.npz"):
+                if not os.path.isfile(os.path.join(run_dir, path)):
+                    raise AssertionError(f"04: {path} missing")
+            module, _ = adv.load_adv_artifact(os.path.join(run_dir, "model",
+                                                           f"model-basic_{tag}.npz"))
+            with torch.no_grad():
+                yhat = torch.sigmoid(module(torch.as_tensor(args[3], device="cuda"))).cpu()
+            reload_err[tag] = float((yhat - torch.from_numpy(trained["yhat_valid"])).abs().max())
+            nonfinite = (check_finite_tree(r["predictor"], "predictor")
+                         + check_finite_tree(r["adversary"], "adversary"))
+            if reload_err[tag] > ADV_RELOAD_TOL or nonfinite:
+                raise AssertionError(f"04 {tag}: reloaded predictor {reload_err[tag]}, "
+                                     f"non-finite {nonfinite}")
+        for path in ("model/model-basic_final.npz", "adv/model-adv_final.npz", "metrics"):
+            if not os.path.exists(os.path.join(run_dir, path)):
+                raise AssertionError(f"04: {path} missing")
+        with open(os.path.join(run_dir, "metrics.csv"), newline="") as f:
+            header, *csv_rows = list(csv.reader(f))
+        if header != ADV_COLUMNS or len(csv_rows) != 2 or len(out["stage2"]) != 2:
+            raise AssertionError(f"04 metrics.csv: {header}, {len(csv_rows)} rows")
+        info["run"] = {"wall_s": wall, "timings_s": out["timings"], "launches": counts,
+                       "history": out["history"],
+                       "splits": [len(split[k]) for k in ("train", "val", "test")],
+                       "stage2_rows": rows, "reload_max_abs": reload_err,
+                       "stage2": [{"config": r["config"], "metrics": r["metrics"]}
+                                  for r in out["stage2"]]}
+        log(f"[adv] run: {json.dumps(info['run'])}")
+
+        # The command line's branch, in-process.
+        t0 = time.perf_counter()
+        cli_dir = os.path.join(root, "cli")
+        rc, cli_wall, cli_counts, cli_out = counted(lambda: cli.main(
+            ["advdebias", "--tiny", "--synthetic", "64", "--require_hf_weights",
+             "--text_cache", os.path.join(root, "text_cache"), "--out_dir", cli_dir]))
+        written = sorted(os.path.relpath(os.path.join(d, f), cli_dir)
+                         for d, _, files in os.walk(cli_dir) for f in files)
+        if rc != 0 or any(cli_counts.values()) or "metrics.csv" not in written or sum(
+                p.endswith(".npz") for p in written) != 4 or "Iteration: 0," not in cli_out:
+            raise AssertionError(f"advdebias --tiny: rc {rc}, launches {cli_counts}, "
+                                 f"files {written}")
+        info["cli"] = {"wall_s": cli_wall, "launches": cli_counts, "files": written}
+        parts["cli"] = time.perf_counter() - t0
+
+        # Stage 2 card against CPU and float64 on the run's first point's rows.
+        t0 = time.perf_counter()
+        data = seen["train"][0][0]
+        shares, _, xcounts, _ = counted(lambda: adv_card_vs_cpu(data))
+        tight = max(shares, key=shares.get)
+        info["card_vs_cpu"] = {"rows": len(data[1]), "features": data[0].shape[1],
+                               "launches": xcounts, "tightest": tight,
+                               "share_of_limit": shares[tight], "shares": shares}
+        log(f"[adv] stage 2 card vs CPU and float64: {json.dumps(info['card_vs_cpu'])}")
+        over = sorted(k for k, v in shares.items() if not v <= 1.0)
+        if over or any(xcounts.values()):
+            raise AssertionError(f"stage 2 card vs CPU: over the limit {over}, "
+                                 f"launches {xcounts}")
+        parts["card_vs_cpu"] = time.perf_counter() - t0
+
+        # One stage-2 iteration timed and profiled; the full reference grid at these rates.
+        t0 = time.perf_counter()
+        timed = {}
+        for nodes, rate in itertools.product((64, 128), (0.3, 0.0)):
+            row = time_adv_iterations(data, nodes, rate, os.path.join(
+                root, "trace", f"{nodes}_{rate}"))
+            if not row["loss_finite"]:
+                raise AssertionError(f"stage-2 iteration {nodes} dropout {rate}: loss not finite")
+            timed[f"nodes{nodes}_dropout{rate}"] = row
+            log(f"[adv] stage-2 iteration {nodes} x 32, dropout {rate}, {len(data[1])} rows: "
+                f"{json.dumps(row)}")
+        grid = adv.REFERENCE_GRID
+        points = [dict(zip(grid, v)) for v in itertools.product(*grid.values())]
+        info["iteration"] = timed
+        info["dropout_share"] = {n: 1.0 - timed[f"nodes{n}_dropout0.0"]["ms"]
+                                 / timed[f"nodes{n}_dropout0.3"]["ms"] for n in (64, 128)}
+        info["reference_grid_estimate_s"] = sum(
+            p["num_iters"] * timed[f"nodes{p['num_nodes']}_dropout0.3"]["ms"]
+            for p in points) / 1e3
+        info["reference_grid_iterations"] = sum(p["num_iters"] for p in points)
+        parts["timing"] = time.perf_counter() - t0
+    finally:
+        adv.resample_smoteenn, adv.train_adversarial = originals
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    info["seconds_by_part"] = parts
+    log(f"[adv] phase 10 seconds by part: {json.dumps(parts)}; full REFERENCE_GRID at these "
+        f"rates {info['reference_grid_estimate_s']:.1f} s")
+    return counts, info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -4115,6 +4459,10 @@ def main() -> int:
     legacy_launches, clp_rows, legacy_info = legacy_phase(flash, fab, ffn, addnorm, _build)
     legacy_info["phase_s"] = time.perf_counter() - t9
     log(f"[legacy] {json.dumps(legacy_info)} | {smi}")
+    t10 = time.perf_counter()
+    adv_launches, adv_info = adv_debias_phase(flash, fab, ffn, addnorm)
+    adv_info["phase_s"] = time.perf_counter() - t10
+    log(f"[adv] {json.dumps(adv_info)} | {smi}")
 
     meta = {
         "fused_attention_block_ln": ("fairmultimodal_torch/ops/csrc/flash_attention.cu",
@@ -4227,6 +4575,8 @@ def main() -> int:
                else {"stages_ms": row["bwd_stages_ms"],
                      "kernel_order": row["kernel_order"]}),
         })
+    for row in kernels:
+        row["launches_adv_debias"] = adv_launches[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

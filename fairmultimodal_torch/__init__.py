@@ -12,10 +12,12 @@ flash-route layer configurations; and the FAME experiment --
 ``pipelines.fame.run_fame_experiment`` (DataFrames) and ``run_fame_bundle``
 (a ``FeatureBundle``, no pandas): splits, device-resident loaders,
 calibration, evaluation with the EO / EDDI reports, artifacts; the baseline
-pipelines 01 behrt, 02 text-only, 07 average fusion, 08 EDDI fusion and 09
-sigmoid fusion (``pipelines.common``, ``train.simple.MultitaskTrainer``,
-``models.baselines``); and the command line (``cli``).  Entry points run on
-CUDA unless the caller passes ``device="cpu"``.
+pipelines 01 behrt, 02 text-only, 03 DfC, 06 FairEHR-CLP, 07 average fusion,
+08 EDDI fusion, 09 sigmoid fusion and the legacy pair (``pipelines.common``,
+``train.simple.MultitaskTrainer``, ``models.baselines``); 04's adversarial
+debiasing (``pipelines.adv_debias``, ``train.adversarial``); profiling, NaN
+checks and plots (``utils``, ``eval.plots``); and the command line (``cli``).
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -19,13 +19,16 @@ cpu`` a machine with no card raises instead of running on the CPU.
 ``sigmoid`` and ``eddi`` run the baselines 01, 02, 03, 06 (its reference
 behaviour), 07, 09 and 08 at their configs' defaults (``--tiny`` shrinks
 them as the JAX ``tinyize`` does; ``--single_task --task T`` trains one
-label in 01, 02, 07, 09 and 08); ``legacy-behrt`` and ``legacy-eddi`` run
-the legacy-generation experiments (``--reference_compat`` trains and
-evaluates on the whole cohort); ``predict`` scores the cohort with an
-exported ``best_model_*.npz`` of either package.  The cohort comes from
-``--synthetic N`` (``make_admission_frame`` for ``legacy-behrt``) or from
-the CSV tables in ``--data_dir``, read without pandas.  ``data``,
-``advdebias`` and ``--mesh`` exit naming the ROADMAP item that ports them.
+label in 01, 02, 07, 09 and 08); ``advdebias`` runs 04's two stages (the
+reference's 64-point stage-2 grid; ``--tiny`` also takes the JAX command
+line's one-point grid) with its artifacts under ``--out_dir``;
+``legacy-behrt`` and ``legacy-eddi`` run the legacy-generation experiments
+(``--reference_compat`` trains and evaluates on the whole cohort);
+``predict`` scores the cohort with an exported ``best_model_*.npz`` of
+either package.  The cohort comes from ``--synthetic N``
+(``make_admission_frame`` for ``legacy-behrt``) or from the CSV tables in
+``--data_dir``, read without pandas.  ``data`` and ``--mesh`` exit naming
+the ROADMAP item that ports them.
 
 Where the port departs from the JAX command line:
 
@@ -69,7 +72,6 @@ _SCRIPT_TO_PIPELINE = {
 # Pipelines of the JAX command line that the port does not run yet.
 _NOT_PORTED = {
     "data": "ROADMAP queue 1 item 4 (data/etl.py, native/)",
-    "advdebias": "ROADMAP queue 1 item 5 (04 adv_debias, a slice of its own)",
 }
 
 
@@ -436,6 +438,20 @@ _TABLE_RUNS = {"dfc": ("dfc", "DfCPipelineConfig", "run_dfc_experiment"),
                                "run_legacy_eddi_experiment")}
 
 
+def _advdebias(s, u, args, dtype, text_encoder, verbose, device):
+    from fairmultimodal_torch.pipelines.adv_debias import (AdvDebiasPipelineConfig,
+                                                           run_adv_debias_experiment)
+
+    cfg = AdvDebiasPipelineConfig(dtype=dtype, out_dir=args.out_dir)
+    _apply_overrides(cfg.train, args)
+    tinyize(cfg, args)
+    if args.tiny:
+        cfg.stage2_grid = {"learning_rate": [1e-3], "num_iters": [100], "num_nodes": [16],
+                           "num_nodes_adv": [8], "dropout_rate": [0.1], "alpha": [1.0]}
+    return run_adv_debias_experiment(s, u, cfg, text_encoder=text_encoder, verbose=verbose,
+                                     device=device)
+
+
 def _table_run(s, u, args, dtype, text_encoder, verbose, device):
     import importlib
 
@@ -473,7 +489,8 @@ def _legacy_behrt(args, dtype, verbose, device):
 
 
 _BASELINES = {"behrt": _behrt, "bioclinicalbert": _bioclinicalbert, "average": _average,
-              "sigmoid": _sigmoid, "eddi": _eddi, **dict.fromkeys(_TABLE_RUNS, _table_run)}
+              "sigmoid": _sigmoid, "eddi": _eddi, "advdebias": _advdebias,
+              **dict.fromkeys(_TABLE_RUNS, _table_run)}
 
 
 def main(argv=None, default_pipeline: Optional[str] = None) -> int:

@@ -53,6 +53,9 @@ class FeatureBundle:
     lab_columns: List[str]
     note_chunks: List[List[str]]    # per-patient list of non-empty chunk texts
     text_embeddings: Optional[np.ndarray] = None  # [N, H] float32, filled later
+    # The lab matrix before the z-score (fillna(0) only): 04's stage 2 takes
+    # the raw lab columns (04_AdvDebias.py:888-891, no scaling).
+    labs_raw: Optional[np.ndarray] = None  # [N, L] float32
 
     @property
     def num_patients(self) -> int:
@@ -284,6 +287,7 @@ def assemble_features(structured, unstructured, require_notes: bool = True,
         ethnicity_codes=df["ETHNICITY"].astype(np.int32),
         insurance_codes=df["INSURANCE"].astype(np.int32),
         labs=labs,
+        labs_raw=np.ascontiguousarray(labs_t.T),
         labels=np.stack([df[c] for c in label_columns], axis=1).astype(np.float32)
         if n else np.zeros((0, len(label_columns)), np.float32),
         lab_columns=lab_cols,

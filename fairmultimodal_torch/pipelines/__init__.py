@@ -6,6 +6,7 @@ script    pipeline                              module
 01        run_behrt_experiment                  pipelines/behrt.py
 02        run_text_only_experiment              pipelines/text_only.py
 03        run_dfc_experiment                    pipelines/dfc.py
+04        run_adv_debias_experiment             pipelines/adv_debias.py
 05 / 10   run_fame_experiment                   pipelines/fame.py
 06        run_fairehr_clp_experiment            pipelines/fairehr_clp.py
 07        run_average_fusion_experiment         pipelines/average_fusion.py
@@ -16,9 +17,11 @@ legacy    run_legacy_behrt_experiment,          pipelines/legacy.py
 serving   run_fame_inference                    pipelines/inference.py
 ========  ====================================  ==============================
 
-Not ported yet (ROADMAP queue 1): 00 data and 04 adv_debias.
+Not ported yet (ROADMAP queue 1): 00 data.
 """
 
+from fairmultimodal_torch.pipelines.adv_debias import (AdvDebiasPipelineConfig,
+                                                       run_adv_debias_experiment)
 from fairmultimodal_torch.pipelines.average_fusion import (AverageFusionPipelineConfig,
                                                            run_average_fusion_experiment)
 from fairmultimodal_torch.pipelines.behrt import BEHRTPipelineConfig, run_behrt_experiment
@@ -42,6 +45,7 @@ __all__ = [
     "BEHRTPipelineConfig", "run_behrt_experiment",
     "TextOnlyPipelineConfig", "run_text_only_experiment",
     "DfCPipelineConfig", "run_dfc_experiment",
+    "AdvDebiasPipelineConfig", "run_adv_debias_experiment",
     "FairEHRCLPPipelineConfig", "run_fairehr_clp_experiment",
     "AverageFusionPipelineConfig", "run_average_fusion_experiment",
     "EDDIFusionPipelineConfig", "run_eddi_fusion_experiment",

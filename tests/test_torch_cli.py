@@ -10,7 +10,7 @@ lines get one tiny text encoder (the JAX one's weights, converted),
 a train forward without dropout and the JAX trainer's initial weights (the
 port's ``init_params`` is replaced by a load of them), through wrappers
 around the functions the command lines call.  ``--bf16`` is the
-compute dtype of every model the run builds.  The pipelines not ported
+compute dtype of every model the run builds.  ``data`` (not ported yet)
 and ``--mesh`` exit; without ``--device`` the command raises the CUDA
 error here; a subprocess in which pandas, scikit-learn, transformers and
 jax cannot be imported runs ``fame`` and ``predict`` to the end.
@@ -30,6 +30,12 @@ The pipelines of the last slice (``dfc``, ``fairehrclp``, ``legacy-behrt``,
 prints the JAX command line's lines (every digit run collapsed) with
 finite metrics, ``--reference_compat`` reaches the legacy configs, and
 ``--bf16`` is the model's (and the text encoder's) dtype.
+
+04 (``advdebias``; held against the JAX pipeline in
+``test_torch_adv_debias.py``): ``--tiny --synthetic 8 --device cpu`` runs
+both stages on the JAX command line's one-point stage-2 grid and writes the
+npz files, ``metrics.csv`` and ``loss_metrics.png``; ``--bf16`` is the dtype
+of its text encoder and stage-1 model.
 """
 
 import csv
@@ -212,7 +218,7 @@ def test_mesh_exits_naming_its_item():
 
 @pytest.mark.parametrize("pipeline", ["fame", "fpm", "predict", "behrt", "bioclinicalbert",
                                       "average", "sigmoid", "eddi", "dfc", "fairehrclp",
-                                      "legacy-behrt", "legacy-eddi"])
+                                      "legacy-behrt", "legacy-eddi", "advdebias"])
 def test_without_device_the_command_raises_the_cuda_error(pipeline, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -477,3 +483,65 @@ def test_new_pipelines_take_bf16_and_reference_compat(pipeline, flags, monkeypat
     if pipeline != "legacy-behrt":      # it has no text encoder
         want["encoder"] = torch.bfloat16 if bf16 else torch.float32
     assert seen == want
+
+
+# -- 04 adv_debias ------------------------------------------------------------------------
+
+def test_advdebias_tiny_runs_and_writes_its_artifacts(encoders, monkeypatch, tmp_path):
+    """``advdebias --tiny --synthetic 8 --device cpu``: both stages, the JAX
+    command line's one-point stage-2 grid, and the reference's artifacts."""
+    from fairmultimodal_torch.pipelines import adv_debias
+
+    outs, run = [], adv_debias.run_adv_debias_experiment
+
+    def recording(*args, **kwargs):
+        outs.append(run(*args, **kwargs))
+        return outs[-1]
+
+    monkeypatch.setattr(adv_debias, "run_adv_debias_experiment", recording)
+    monkeypatch.setattr(t_text.TextEncoder, "from_pretrained",
+                        classmethod(lambda cls, *a, **k: encoders[1]))
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        assert t_cli.main(["advdebias", "--tiny", "--synthetic", "8", "--device", "cpu",
+                           "--out_dir", str(tmp_path)]) == 0
+    out = buf.getvalue()
+    (res,) = outs
+    (point,) = res["stage2"]
+    assert point["config"] == {"learning_rate": 1e-3, "num_iters": 100, "num_nodes": 16,
+                               "num_nodes_adv": 8, "dropout_rate": 0.1, "alpha": 1.0,
+                               "adversarial": True, "seed": 25}
+    assert "Outcome: mortality (Threshold: 0.50)" in out and "Iteration: 0," in out
+    tag = ("learning_rate_0.001-num_iters_100-num_nodes_16-num_nodes_adv_8-dropout_rate_0.1-"
+           "alpha_1.0")
+    for path in (f"model/model-basic_{tag}.npz", "model/model-basic_final.npz",
+                 f"adv/model-adv_{tag}.npz", "adv/model-adv_final.npz", "metrics.csv",
+                 "loss_metrics.png"):
+        assert (tmp_path / path).is_file(), path
+    assert (tmp_path / "metrics").is_dir() and "advdebias" not in t_cli._NOT_PORTED
+    with open(tmp_path / "metrics.csv") as f:
+        assert f.readline().startswith("learning_rate,num_iters,num_nodes,num_nodes_adv,")
+
+
+def test_advdebias_bf16_is_the_dtype_of_the_encoder_and_stage_1(monkeypatch, tmp_path):
+    """``--bf16 --require_hf_weights``: the text encoder and stage 1's model
+    take bfloat16 (the JAX command line builds this encoder in float32);
+    stage 2 has no dtype, it is float32."""
+    from fairmultimodal_torch.pipelines import adv_debias
+
+    seen = {}
+
+    def encoder(cls, *args, **kwargs):
+        seen["encoder"] = kwargs["dtype"]
+        return "encoder"
+
+    def experiment(s, u, cfg, **kwargs):
+        seen["model"] = cfg.dtype
+        raise _Stop
+
+    monkeypatch.setattr(t_text.TextEncoder, "from_pretrained", classmethod(encoder))
+    monkeypatch.setattr(adv_debias, "run_adv_debias_experiment", experiment)
+    with pytest.raises(_Stop):
+        t_cli.main(["advdebias", "--synthetic", "8", "--device", "cpu", "--require_hf_weights",
+                    "--bf16", "--out_dir", str(tmp_path)])
+    assert seen == {"encoder": torch.bfloat16, "model": "bfloat16"}
