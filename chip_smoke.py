@@ -267,8 +267,23 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    (device busy, idle share, launches per iteration), with what the full
    64-point ``REFERENCE_GRID`` would take at those rates.
 
+11. the MIMIC-III ETL (``data/etl.py``; no pandas on the card):
+   ``write_raw_mimic(400, seed=0)`` through ``run_etl`` on the card against
+   ``run_etl`` on the CPU, native scanners on and off, by ``etl_rule`` (each
+   of the five CSVs: columns, dtypes and rows equal, text and integers
+   exact, floats within 1e-12 of the column's max-abs); a second card run
+   byte-identical to the first; ``cli.main(["data", "--synthetic", "40"])``
+   in-process against the CPU; then ``write_raw_mimic_scaled(n_subjects=3000,
+   chartevents_rows=2_000_000)`` (a tenth of ``ETL_BENCH_r05.log``'s rows)
+   through ``python -m fairmultimodal_torch.cli data --timing --use_native
+   on`` and ``off``, each in its own process under the profiler (per-table
+   rows/s, stage seconds, the card's busy share, peak device memory and peak
+   RSS), the two paths held to each other by the rule.  Every counted kernel
+   must launch 0 times (work files under ``build/phase11/``, removed at the
+   end).
+
 It prints a ``{"kernels": [...]}`` line (with each LN-fused kernel's phase 6,
-7, 8 and 9 launches, every kernel's phase 10 launches, its phase 8 times at
+7, 8 and 9 launches, every kernel's phase 10 and 11 launches, its phase 8 times at
 B 16 and #2 / #4's times at 06's shape), the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.
 """
@@ -4407,6 +4422,307 @@ def adv_debias_phase(flash, fab, ffn, addnorm):
         f"rates {info['reference_grid_estimate_s']:.1f} s")
     return counts, info
 
+# -- phase 11: the MIMIC-III ETL (run_etl, python -m fairmultimodal_torch.cli data) ---------
+
+ETL_FILES = ("final_structured_dataset.csv", "final_structured_with_feature_set_C_24h_2h_bins.csv",
+             "unstructured_with_demographics.csv", "final_structured_common.csv",
+             "final_unstructured_common.csv")
+ETL_SUBJECTS = 400
+#: A tenth of ETL_BENCH_r05.log's CHARTEVENTS rows (20M), cut for the run's time limit.
+ETL_SCALED = dict(n_subjects=3000, chartevents_rows=2_000_000)
+#: Floats within 1e-12 of their column's max-abs: the card's segment sums and the CPU's
+#: may add in another order (the JAX native path already differs by 7e-16).
+ETL_TOL = 1e-12
+
+#: One ``python -m fairmultimodal_torch.cli data`` run in its own process, under the
+#: profiler: its stdout, then a JSON line with its wall time, the card's busy time and
+#: launches (``hlo_self_times`` / ``key_averages``), its peak device memory, its RSS
+#: before the run (imports and the CUDA context) and its peak RSS, sampled from
+#: ``/proc/self/statm`` every 10 ms (``ru_maxrss`` keeps the forking parent's peak across
+#: ``exec``), and every counted kernel's launches.
+ETL_CHILD = r"""
+import json, os, sys, threading, time
+import torch
+import chip_smoke as c
+from fairmultimodal_torch.cli.main import main
+from fairmultimodal_torch.ops import dropout_add_layernorm as an, flash_attention as fl
+from fairmultimodal_torch.ops import fused_attention_block as fab, fused_ffn as ffn
+from fairmultimodal_torch.utils.profiling import hlo_self_times, profile_to
+logdir, argv = sys.argv[1], sys.argv[2:]
+cuda = "cpu" not in argv
+
+
+def rss_gb():
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2 ** 30
+    except (OSError, IndexError, ValueError):
+        return float("nan")
+
+
+peak, done = [0.0], threading.Event()
+
+
+def sample():
+    while not done.wait(0.01):
+        peak[0] = max(peak[0], rss_gb())
+
+
+if cuda:
+    torch.zeros(1, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+c._reset_counts(fab, ffn, an)
+fl.launches = fl.bwd_launches = 0
+rss0 = peak[0] = rss_gb()
+sampler = threading.Thread(target=sample, daemon=True)
+sampler.start()
+t0 = time.perf_counter()
+with profile_to(logdir) as prof:
+    rc = main(argv)
+    if cuda:
+        torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+done.set()
+sampler.join()
+busy = sum(hlo_self_times(logdir)[0].values()) / 1e6 if cuda else None
+print(json.dumps({
+    "rc": rc, "wall_s": wall, "device_busy_s": busy,
+    "device_launches": sum(e.count for e in prof.key_averages()
+                           if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
+    "peak_device_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+    "peak_rss_gb": max(peak[0], rss_gb()),
+    "rss_before_run_gb": rss0,
+    "launches": c._all_counts(fl, fab, ffn, an)}))
+"""
+
+
+def etl_rule(want_dir, got_dir):
+    """The ETL's CSV rule without pandas (the card has none): each file read
+    by ``read_csv_table`` (pandas' typing) has the same columns in order,
+    dtypes and rows; text, integers and bools equal and missing cells in the
+    same places; floats within ETL_TOL of the column's max-abs.  Returns the
+    largest float error relative to its column's max-abs, per file."""
+    import os
+
+    from fairmultimodal_torch.data.table import read_csv_table
+
+    worst = {}
+    for name in ETL_FILES:
+        want = read_csv_table(os.path.join(want_dir, name))
+        got = read_csv_table(os.path.join(got_dir, name))
+        if list(got) != list(want) or len(next(iter(got.values()))) != len(
+                next(iter(want.values()))):
+            raise AssertionError(f"{name}: columns or rows differ")
+        worst[name] = 0.0
+        for col, w in want.items():
+            g = got[col]
+            if g.dtype != w.dtype:
+                raise AssertionError(f"{name}:{col}: dtype {g.dtype} against {w.dtype}")
+            if w.dtype.kind != "f":
+                if g.tolist() != w.tolist():
+                    raise AssertionError(f"{name}:{col}: values differ")
+                continue
+            if not np.array_equal(np.isnan(g), np.isnan(w)):
+                raise AssertionError(f"{name}:{col}: NaN cells differ")
+            ok = ~np.isnan(w)
+            if ok.any():
+                err = float(np.abs(g[ok] - w[ok]).max()) / max(float(np.abs(w[ok]).max()), 1e-300)
+                if err > ETL_TOL:
+                    raise AssertionError(f"{name}:{col}: {err} of max-abs > {ETL_TOL}")
+                worst[name] = max(worst[name], err)
+    return worst
+
+
+def _timing_lines(text):
+    """The ``--timing`` lines: per table {path, rows, seconds, rows_per_s}, and
+    the structured / unstructured phase seconds."""
+    import re
+
+    tables = {t: {"path": p, "rows": int(n.replace(",", "")), "seconds": float(sec),
+                  "rows_per_s": int(n.replace(",", "")) / float(sec) if float(sec) else None}
+              for t, p, n, sec in re.findall(
+                  r"\[etl timing\] (\w+): (\w+) path, ([\d,]+) rows in ([\d.]+) s", text)}
+    phases = re.search(r"structured phase: ([\d.]+) s, unstructured phase: ([\d.]+) s", text)
+    return {"tables": tables, "structured_s": float(phases.group(1)),
+            "unstructured_s": float(phases.group(2))}
+
+
+def etl_cli_run(mimic_dir, out_dir, flag, device="cuda"):
+    """``python -m fairmultimodal_torch.cli data --mimic_dir ... --timing
+    --use_native <flag>`` in its own process under the profiler (ETL_CHILD):
+    its wall time, the card's busy share, launches, peak device memory, peak
+    RSS, counted kernels' launches and its ``--timing`` lines."""
+    import os
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    argv = [sys.executable, "-c", ETL_CHILD, out_dir + "_trace", "data", "--mimic_dir",
+            mimic_dir, "--out_dir", out_dir, "--timing", "--use_native", flag,
+            "--device", device]
+    proc = subprocess.run(argv, cwd=here, capture_output=True, text=True, timeout=3000)
+    if proc.returncode != 0:
+        raise AssertionError(f"data --use_native {flag}: {proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    busy = child["device_busy_s"]
+    return {**child, **_timing_lines(proc.stdout), "process_s": time.perf_counter() - t0,
+            "device_share": None if busy is None else busy / child["wall_s"]}
+
+
+def etl_bench(chartevents_rows=20_000_000, n_subjects=3000, device="cuda"):
+    """``write_raw_mimic_scaled`` at ``ETL_BENCH_r05.log``'s volume, then
+    ``etl_cli_run`` with the native scanners on and off, the two outputs
+    held to each other by ``etl_rule``; prints and returns one JSON object
+    with the card's ``nvidia-smi`` name and power limit.  Work files under
+    ``build/etl_bench/``, removed at the end.
+
+        python3 -c "import chip_smoke as c; c.etl_bench()"
+    """
+    import os
+    import shutil
+    import subprocess
+
+    from fairmultimodal_torch.data.synthetic import write_raw_mimic_scaled
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "etl_bench")
+    shutil.rmtree(root, ignore_errors=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    out = {"card": smi, "chartevents_rows": chartevents_rows, "n_subjects": n_subjects}
+    try:
+        t0 = time.perf_counter()
+        out["tables"] = write_raw_mimic_scaled(os.path.join(root, "raw"), n_subjects=n_subjects,
+                                               chartevents_rows=chartevents_rows, verbose=False)
+        out["write_s"] = time.perf_counter() - t0
+        for flag in ("on", "off"):
+            out[flag] = etl_cli_run(os.path.join(root, "raw"), os.path.join(root, flag), flag,
+                                    device)
+            log(f"[etl_bench] --use_native {flag}: {json.dumps(out[flag])}")
+        out["native_vs_plain_max_err_of_max_abs"] = etl_rule(os.path.join(root, "off"),
+                                                             os.path.join(root, "on"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps(out))
+    return out
+
+
+def etl_phase(flash, fab, ffn, addnorm, device="cuda", scaled=ETL_SCALED):
+    """The ETL on the card: ``write_raw_mimic(400)`` through ``run_etl`` on
+    ``device`` against the port's own ``run_etl`` on the CPU by ``etl_rule``,
+    native scanners on and off; a second run on ``device`` byte-identical to
+    the first; ``cli.main(["data", "--synthetic", "40"])`` in-process (its
+    five files, by the rule against the CPU); then ``write_raw_mimic_scaled``
+    at ``scaled`` through ``python -m fairmultimodal_torch.cli data --timing
+    --use_native on`` and ``off`` in their own processes (ETL_CHILD: per
+    table rows/s, the card's busy share, peak device memory and RSS), the two
+    paths held to each other by the rule.  Every counted kernel's launches
+    are read around every run; all must be 0."""
+    import contextlib
+    import importlib
+    import io
+    import os
+    import shutil
+
+    from fairmultimodal_torch.data import native
+    from fairmultimodal_torch.data.etl import run_etl
+    from fairmultimodal_torch.data.synthetic import write_raw_mimic, write_raw_mimic_scaled
+
+    cli = importlib.import_module("fairmultimodal_torch.cli.main")
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "phase11")
+    shutil.rmtree(root, ignore_errors=True)
+    total = {}
+
+    def counted(fn):
+        _reset_counts(fab, ffn, addnorm)
+        flash.launches = flash.bwd_launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _all_counts(flash, fab, ffn, addnorm)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return out, wall, buf.getvalue()
+
+    def path(*parts):
+        return os.path.join(root, *parts)
+
+    info, parts, t_phase = {}, {}, time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        if not (native.available() and native.notes_available()):
+            raise AssertionError("the native scanners did not build")
+        parts["native_build"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_raw_mimic(path("raw400"), n_subjects=ETL_SUBJECTS, seed=0)
+        parts["write_raw_mimic"] = time.perf_counter() - t0
+
+        runs, t_runs = {}, time.perf_counter()
+        for use_native in (True, False):
+            tag = "native" if use_native else "plain"
+            stats, wall, out = counted(lambda: run_etl(
+                path("raw400"), path(f"{device}_{tag}"), use_native=use_native, timing=True,
+                device=device))
+            t_cpu = time.perf_counter()
+            cpu_stats = run_etl(path("raw400"), path(f"cpu_{tag}"), use_native=use_native,
+                                device="cpu")
+            stats.pop("timings")
+            if stats != cpu_stats:
+                raise AssertionError(f"400 subjects, {tag}: stats {stats} against {cpu_stats}")
+            runs[tag] = {"wall_s": wall, "cpu_wall_s": time.perf_counter() - t_cpu,
+                         "timing": _timing_lines(out), "stats": stats,
+                         "max_err_of_max_abs": etl_rule(path(f"cpu_{tag}"),
+                                                        path(f"{device}_{tag}"))}
+        _, wall, _ = counted(lambda: run_etl(path("raw400"), path(f"{device}_again"),
+                                             use_native=True, device=device))
+        for name in ETL_FILES:
+            with open(path(f"{device}_native", name), "rb") as a, \
+                    open(path(f"{device}_again", name), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"two runs on {device}: {name} differs")
+        runs["native_again"] = {"wall_s": wall, "byte_identical": True}
+        info["subjects400"] = runs
+        log(f"[etl] 400 subjects on {device} against the CPU: {json.dumps(runs)}")
+        parts["subjects400"] = time.perf_counter() - t_runs
+
+        t0 = time.perf_counter()
+        rc, wall, out = counted(lambda: cli.main(
+            ["data", "--synthetic", "40", "--out_dir", path("cli"), "--device", device]))
+        write_raw_mimic(path("cli_raw"), n_subjects=40, seed=42)     # the command's tables
+        run_etl(path("cli_raw"), path("cli_cpu"), device="cpu")
+        if rc != 0 or sorted(os.listdir(path("cli"))) != sorted(ETL_FILES):
+            raise AssertionError(f"data --synthetic 40: rc {rc}, {os.listdir(path('cli'))}")
+        info["cli"] = {"wall_s": wall, "max_err_of_max_abs": etl_rule(path("cli_cpu"),
+                                                                      path("cli"))}
+        parts["cli"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        counts = write_raw_mimic_scaled(path("scaled"), verbose=False, **scaled)
+        parts["write_raw_mimic_scaled"] = time.perf_counter() - t0
+        info["scaled"] = {"tables": counts, "cut": "a tenth of ETL_BENCH_r05.log's rows"}
+        for flag in ("on", "off"):
+            t0 = time.perf_counter()
+            run = etl_cli_run(path("scaled"), path(f"scaled_{flag}"), flag, device)
+            for k, v in run.pop("launches").items():
+                total[k] = total.get(k, 0) + v
+            info["scaled"][flag] = run
+            log(f"[etl] scaled, --use_native {flag}: {json.dumps(run)}")
+            parts[f"scaled_{flag}"] = time.perf_counter() - t0
+        info["scaled"]["native_vs_plain_max_err_of_max_abs"] = etl_rule(
+            path("scaled_off"), path("scaled_on"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if any(total.values()):
+        raise AssertionError(f"the ETL launched counted kernels: {total}")
+    parts["phase"] = time.perf_counter() - t_phase
+    info["seconds_by_part"] = parts
+    log(f"[etl] phase 11 seconds by part: {json.dumps(parts)}")
+    return total, info
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4463,6 +4779,8 @@ def main() -> int:
     adv_launches, adv_info = adv_debias_phase(flash, fab, ffn, addnorm)
     adv_info["phase_s"] = time.perf_counter() - t10
     log(f"[adv] {json.dumps(adv_info)} | {smi}")
+    etl_launches, etl_info = etl_phase(flash, fab, ffn, addnorm)
+    log(f"[etl] {json.dumps(etl_info)} | {smi}")
 
     meta = {
         "fused_attention_block_ln": ("fairmultimodal_torch/ops/csrc/flash_attention.cu",
@@ -4577,6 +4895,7 @@ def main() -> int:
         })
     for row in kernels:
         row["launches_adv_debias"] = adv_launches[row["name"]]
+        row["launches_etl"] = etl_launches[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

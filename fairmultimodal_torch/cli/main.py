@@ -7,6 +7,7 @@ Usage:
     python -m fairmultimodal_torch.cli fame --synthetic 64 --tiny --device cpu
     python -m fairmultimodal_torch.cli behrt --synthetic 64 --tiny --device cpu
     python -m fairmultimodal_torch.cli legacy-behrt --synthetic 64 --tiny --device cpu
+    python -m fairmultimodal_torch.cli data --mimic_dir /path/to/mimic-iii --out_dir . --timing
 
 The parser is the JAX package's: the same pipelines, flags, choices and
 defaults, so every JAX command line parses, plus ``--device {cuda,cpu}``
@@ -27,8 +28,12 @@ line's one-point grid) with its artifacts under ``--out_dir``;
 ``predict`` scores the cohort with an exported ``best_model_*.npz`` of
 either package.  The cohort comes from ``--synthetic N``
 (``make_admission_frame`` for ``legacy-behrt``) or from the CSV tables in
-``--data_dir``, read without pandas.  ``data`` and ``--mesh`` exit naming
-the ROADMAP item that ports them.
+``--data_dir``, read without pandas.  ``data`` runs the MIMIC-III ETL
+(:func:`fairmultimodal_torch.data.etl.run_etl`, no pandas) from the raw
+``csv.gz`` tables in ``--mimic_dir`` (``--synthetic N``: ``write_raw_mimic``
+tables in a fresh temporary directory) into the five CSVs in ``--out_dir``,
+with ``--use_native`` and ``--timing``.  ``--mesh`` exits naming the ROADMAP
+item that ports it.
 
 Where the port departs from the JAX command line:
 
@@ -69,12 +74,6 @@ _SCRIPT_TO_PIPELINE = {
     "10": "fame",
 }
 
-# Pipelines of the JAX command line that the port does not run yet.
-_NOT_PORTED = {
-    "data": "ROADMAP queue 1 item 4 (data/etl.py, native/)",
-}
-
-
 def build_parser(default_pipeline: Optional[str] = None):
     import argparse
 
@@ -102,7 +101,9 @@ def build_parser(default_pipeline: Optional[str] = None):
                         "values land in <out_dir>/runs_aggregate.csv")
     p.add_argument("--mimic_dir", default=".")
     p.add_argument("--use_native", choices=("auto", "on", "off"), default="auto",
-                   help="data pipeline (not ported yet)")
+                   help="data pipeline: C++ streaming aggregator/chunker for the big event "
+                        "tables (auto = use when it builds; on = require; off = the plain "
+                        "path). --timing prints the chosen path + rows/sec per table")
     p.add_argument("--data_dir", default=".")
     p.add_argument("--out_dir", default="./outputs")
     p.add_argument("--head", type=int, default=None,
@@ -125,7 +126,8 @@ def build_parser(default_pipeline: Optional[str] = None):
     p.add_argument("--single_task", action="store_true",
                    help="train a single-label model on --task (not for fame/fpm)")
     p.add_argument("--timing", action="store_true",
-                   help="print a per-phase wall-clock block at the end (fame/fpm)")
+                   help="print a per-phase wall-clock block at the end (fame/fpm; data: "
+                        "per-table path and rows/s)")
     p.add_argument("--tensorboard", action="store_true",
                    help="write TensorBoard event files under "
                         "<out_dir>/tensorboard/<pipeline>_<ts>/")
@@ -251,7 +253,7 @@ def _run_multi(args) -> int:
     from fairmultimodal_torch.eval.aggregate import (aggregate_runs, extract_table3_row,
                                                      format_table3, write_runs_csv)
 
-    if args.pipeline == "predict":
+    if args.pipeline in ("data", "predict"):
         raise SystemExit(f"--runs is for training pipelines, not {args.pipeline!r}")
     rows, seeds = [], []
     for r in range(args.runs):
@@ -283,9 +285,6 @@ def _run_multi(args) -> int:
 
 def run_pipeline(args) -> int:
     name = args.pipeline
-    if name in _NOT_PORTED:
-        raise SystemExit(f"{name!r} is not ported to fairmultimodal_torch yet: "
-                         f"{_NOT_PORTED[name]}; run it with fairmultimodal_tpu.cli")
     if args.mesh:
         raise SystemExit("--mesh: multi-GPU training is not ported to fairmultimodal_torch "
                          "yet (ROADMAP queue 1 item 6)")
@@ -303,6 +302,8 @@ def run_pipeline(args) -> int:
                          "have no readmission head)")
     device = resolve_device(args.device)
     dtype = "bfloat16" if args.bf16 else "float32"
+    if name == "data":
+        return _data(args, device)
     if name == "legacy-behrt":
         return _finish_run(_legacy_behrt(args, dtype, verbose, device), args)
 
@@ -365,6 +366,24 @@ def run_pipeline(args) -> int:
     out = run_fame_experiment(s, u, cfg, text_encoder=text_encoder, verbose=verbose,
                               device=device)
     return _finish_run(out, args)
+
+
+def _data(args, device) -> int:
+    """The MIMIC-III ETL into ``--out_dir``; ``--synthetic N`` writes
+    ``write_raw_mimic`` tables into a new temporary directory first."""
+    from fairmultimodal_torch.data.etl import run_etl
+
+    if args.synthetic:
+        import tempfile
+
+        from fairmultimodal_torch.data.synthetic import write_raw_mimic
+
+        args.mimic_dir = tempfile.mkdtemp(prefix="mimic_syn_")
+        write_raw_mimic(args.mimic_dir, n_subjects=args.synthetic, seed=args.seed)
+    use_native = {"auto": None, "on": True, "off": False}[args.use_native]
+    run_etl(args.mimic_dir, args.out_dir, use_native=use_native, timing=args.timing,
+            device=device)
+    return 0
 
 
 def _behrt(s, u, args, dtype, text_encoder, verbose, device):

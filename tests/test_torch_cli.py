@@ -10,10 +10,12 @@ lines get one tiny text encoder (the JAX one's weights, converted),
 a train forward without dropout and the JAX trainer's initial weights (the
 port's ``init_params`` is replaced by a load of them), through wrappers
 around the functions the command lines call.  ``--bf16`` is the
-compute dtype of every model the run builds.  ``data`` (not ported yet)
-and ``--mesh`` exit; without ``--device`` the command raises the CUDA
-error here; a subprocess in which pandas, scikit-learn, transformers and
-jax cannot be imported runs ``fame`` and ``predict`` to the end.
+compute dtype of every model the run builds.  ``--mesh`` exits; without
+``--device`` the command raises the CUDA error here; a subprocess in which
+pandas, scikit-learn, transformers and jax cannot be imported runs ``fame``,
+``predict`` and ``data`` to the end.  ``data --synthetic 40 --device cpu``
+writes the JAX command line's five CSVs with its contents (the rule of
+``test_torch_etl.py``).
 
 The baselines (``behrt``, ``bioclinicalbert``, ``average``, ``sigmoid``,
 ``eddi``; their results are held against the JAX pipelines in
@@ -205,12 +207,6 @@ def test_predict_reads_either_npz_and_writes_the_jax_csv(writer, fame_runs, enco
     np.testing.assert_allclose(t_rows, j_rows, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("pipeline", sorted(t_cli._NOT_PORTED))
-def test_pipelines_not_ported_exit_naming_their_item(pipeline):
-    with pytest.raises(SystemExit, match=r"ROADMAP queue 1 item \d"):
-        t_cli.main([pipeline, "--synthetic", "8", "--device", "cpu"])
-
-
 def test_mesh_exits_naming_its_item():
     with pytest.raises(SystemExit, match="ROADMAP queue 1 item 6"):
         t_cli.main(FAME + ["--mesh", "8", "--device", "cpu"])
@@ -218,7 +214,7 @@ def test_mesh_exits_naming_its_item():
 
 @pytest.mark.parametrize("pipeline", ["fame", "fpm", "predict", "behrt", "bioclinicalbert",
                                       "average", "sigmoid", "eddi", "dfc", "fairehrclp",
-                                      "legacy-behrt", "legacy-eddi", "advdebias"])
+                                      "legacy-behrt", "legacy-eddi", "advdebias", "data"])
 def test_without_device_the_command_raises_the_cuda_error(pipeline, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -295,6 +291,8 @@ def test_fame_and_predict_run_without_pandas_sklearn_transformers_or_jax(tmp_pat
         "assert main(['fame', '--epochs', '1', '--bsz', '16'] + common) == 0\n"
         "npz = glob.glob(out + '/best_model_*.npz')[0]\n"
         "assert main(['predict', '--params', npz] + common) == 0\n"
+        "assert main(['data', '--synthetic', '40', '--device', 'cpu', '--quiet',\n"
+        "             '--out_dir', out + '/etl', '--use_native', 'off']) == 0\n"
         "bad = [m for m in ('pandas', 'sklearn', 'transformers', 'jax')\n"
         "       if sys.modules.get(m) is not None]\n"
         "assert not bad, bad\n"
@@ -306,6 +304,27 @@ def test_fame_and_predict_run_without_pandas_sklearn_transformers_or_jax(tmp_pat
     assert out.stdout.strip().endswith("ok")
     _, rows = _csv(tmp_path / "predictions.csv")
     assert rows.shape[1] == 7 and np.isfinite(rows).all()
+    assert len(os.listdir(tmp_path / "etl")) == 5
+
+
+@pytest.mark.parametrize("native", ["auto", "off"])
+def test_data_synthetic_writes_the_jax_files(native, tmp_path):
+    from tests.test_torch_etl import FILES, assert_csvs_match
+
+    argv = ["data", "--synthetic", "40", "--timing", "--use_native", native]
+    outs = []
+    for cli, name, extra in ((j_cli, "jax", []), (t_cli, "port", ["--device", "cpu"])):
+        with redirect_stdout(io.StringIO()) as out:
+            assert cli.main(argv + extra + ["--out_dir", str(tmp_path / name)]) == 0
+        outs.append(out.getvalue())
+    assert_csvs_match(tmp_path / "jax", tmp_path / "port")
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(FILES)
+    paths = [re.findall(r"\[etl timing\] (\w+): (\w+) path, ([\d,]+) rows", o) for o in outs]
+    assert paths[1] == [(t, "plain" if p == "pandas" else p, n) for t, p, n in paths[0]]
+    assert len(paths[1]) == 4 and {p for _, p, _ in paths[1]} == (
+        {"plain"} if native == "off" else {"native"})
+    with pytest.raises(SystemExit, match="--runs is for training pipelines"):
+        t_cli.main(argv + ["--runs", "2", "--device", "cpu"])
 
 
 # -- the baselines ------------------------------------------------------------------------
@@ -518,7 +537,7 @@ def test_advdebias_tiny_runs_and_writes_its_artifacts(encoders, monkeypatch, tmp
                  f"adv/model-adv_{tag}.npz", "adv/model-adv_final.npz", "metrics.csv",
                  "loss_metrics.png"):
         assert (tmp_path / path).is_file(), path
-    assert (tmp_path / "metrics").is_dir() and "advdebias" not in t_cli._NOT_PORTED
+    assert (tmp_path / "metrics").is_dir()
     with open(tmp_path / "metrics.csv") as f:
         assert f.readline().startswith("learning_rate,num_iters,num_nodes,num_nodes_adv,")
 

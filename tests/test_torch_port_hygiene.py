@@ -16,7 +16,9 @@
 - the modules of 03, 06 and the legacy pair are among those the scans
   read, import neither JAX nor pandas at any level, and their pipelines
   (06 in both modes, ``legacy-behrt`` from a CSV read without pandas) run
-  in a subprocess where pandas and JAX cannot be imported.
+  in a subprocess where pandas and JAX cannot be imported;
+- so are the ETL's modules (``data/etl.py``, ``native.py``, ``validate.py``,
+  ``synthetic.py``), and ``run_etl`` defaults to CUDA and raises without it.
 """
 
 import ast
@@ -221,7 +223,8 @@ def test_a_baseline_runs_on_port_tables_without_jax_pandas_sklearn_or_transforme
 
 
 NEW_MODULES = ("models/fairehr.py", "models/legacy.py", "pipelines/dfc.py",
-               "pipelines/fairehr_clp.py", "pipelines/legacy.py")
+               "pipelines/fairehr_clp.py", "pipelines/legacy.py", "data/etl.py",
+               "data/native.py", "data/validate.py", "data/synthetic.py")
 
 
 @pytest.mark.parametrize("rel", NEW_MODULES)
@@ -269,3 +272,12 @@ def test_new_pipelines_run_without_jax_or_pandas(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=PKG.parent, timeout=240)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
+
+
+def test_run_etl_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
+    from fairmultimodal_torch.data.etl import run_etl
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_etl(str(tmp_path), str(tmp_path / "out"))
+    assert not (tmp_path / "out").exists()
