@@ -282,10 +282,38 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    must launch 0 times (work files under ``build/phase11/``, removed at the
    end).
 
+12. data parallelism (``fairmultimodal_torch/parallel``): the card has one
+   H100 and NCCL refuses two ranks on one device, so two gloo ranks share
+   ``cuda:0`` (``parallel.launch`` spawns them; ``get_mesh(2, devices=["cuda:0"]
+   * 2, backend="gloo")``) and one NCCL rank runs the command line.  In the
+   ranks (``dp_rank``), at the reference geometry in fp32 on a global batch of
+   16: (a) one deterministic step against one process's on the same rows and
+   weights (phase 5's limits); the two trajectories' drift over 20
+   deterministic steps (parameters and probe probabilities, reported); (b) three
+   dropout steps with the parameters bit-identical across the ranks after
+   each, the backward bit-identical twice, and #2 with each rank's folded
+   64-bit seeds against its plain version (FP32_TOL), the ranks' outputs
+   different; (c) #1-#4 launched as worked out (2 / 2 for a step, 6 / 6 for
+   three, the text encode's count, 132 / 48 for the experiment), the rest
+   never; (d) the dynamic-weight statistics bit-identical to one process's;
+   (e) ``encode_note_chunks`` sharded over the ranks within 1e-5 of max-abs of
+   one process; (f) ``run_fame_experiment`` 1 epoch on phase 7's 2048-patient
+   cohort with ``deterministic_forward`` at a global batch of 64 (24 steps; 32
+   rows per rank): finite AUROC / AUPRC, the splits,
+   every artifact written once by rank 0, rank 1 silent, and the test
+   probabilities within 3x the drift of one process against itself with the
+   LayerNorm unfolded (``DP_ORDER_FACTOR``; both runs in this phase).  In the
+   parent: that one-process run and its unfolded twin, ``cli fame --mesh 1``
+   (NCCL, world 1, ``fame``'s batch 16; 500 / 190 launches, finite metrics,
+   artifacts once),
+   and (g) FAME's default step at no mesh and NCCL world 1 in turns with the
+   profiler's busy / idle split, beside the two ranks' step on one card.
+
 It prints a ``{"kernels": [...]}`` line (with each LN-fused kernel's phase 6,
-7, 8 and 9 launches, every kernel's phase 10 and 11 launches, its phase 8 times at
-B 16 and #2 / #4's times at 06's shape), the card's ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``.
+7, 8 and 9 launches, every kernel's phase 10, 11 and 12 (``launches_dp``: rank 0,
+rank 1 of the two-rank experiment, the ``--mesh 1`` command line) launches, its
+phase 8 times at B 16 and #2 / #4's times at 06's shape), the card's
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -4724,6 +4752,539 @@ def etl_phase(flash, fab, ffn, addnorm, device="cuda", scaled=ETL_SCALED):
     return total, info
 
 
+# -- phase 12: data-parallel training (parallel/, --mesh) ------------------------------------
+
+DP_BATCH, DP_STEPS, DP_PATIENTS = 16, 3, 512     # the global batch: 8 rows per rank
+# The global batch of the 1-epoch experiments of (f) (32 rows per rank, 24 steps):
+# two gloo ranks on one card move the 400 MB fp32 gradient through host memory
+# at ~0.4-0.5 s a step, so `fame`'s batch 16 (95 steps) would take ~50 s more.
+# `cli fame --mesh 1` keeps batch 16.
+DP_EXP_BATCH = 64
+DP_TEXT_PATIENTS, DP_TEXT_BATCH = 64, 8
+# The sharded text encode against one process: the same kernels on half the
+# rows of each batch (row-independent), so only the GEMM tiling of a smaller
+# M differs: a few fp32 ulps of the CLS vector's max-abs.
+DP_TEXT_TOL = 1e-5
+# Test probabilities of a deterministic 1-epoch fp32 run (24 AdamW steps),
+# two ranks against one process.  Each step's grads differ by summation order
+# only ((a): ~4e-6 of max-abs), but AdamW normalises every element's update,
+# so an element whose gradient is near rounding level moves by up to 2 * lr
+# per step depending on the rounding; the drift grows step by step (dp_rank's
+# drift curve) to a few 1e-3 of probability in one epoch, whatever order
+# change started it.  So the limit is measured in the same call: the drift
+# between one process and the same run with its LayerNorm unfolded
+# (FMTPU_FOLD_LN=0, phase 5b: the same arithmetic in another order), times
+# DP_ORDER_FACTOR.  A fault in the arithmetic, not the order, fails (a) and
+# the CPU tests (the DP trajectory within 1e-8 of one process in float64).
+DP_ORDER_FACTOR = 3.0
+DP_PRED_FLOOR = 1e-6      # a probability's fp32 rounding: the floor of that limit
+DP_TIMEOUT_S = 900
+DP_DRIFT_STEPS, DP_DRIFT_AT = 20, (1, 2, 5, 10, 20)
+LN_KERNELS = ("fused_attention_block_ln", "fused_ffn_ln", "fused_attention_block_ln_bwd",
+              "fused_ffn_ln_bwd")
+
+
+def _counts_ln(flash, fab, ffn, addnorm, fwd, bwd, device="cuda"):
+    """Every counted kernel's expected launches: #1 = #2 = fwd, #3 = #4 = bwd,
+    the rest 0 (all 0 on the CPU, where the wrappers run their plain versions)."""
+    want = {k: 0 for k in _all_counts(flash, fab, ffn, addnorm)}
+    if device == "cuda":
+        want.update(fused_attention_block_ln=fwd, fused_ffn_ln=fwd,
+                    fused_attention_block_ln_bwd=bwd, fused_ffn_ln_bwd=bwd)
+    return want
+
+
+def _dp_small():
+    """Phase 12 at CPU-rehearsal sizes (tiny widths and cohorts, a tiny BERT
+    for every note encoder), set in the parent and in each rank."""
+    from fairmultimodal_torch.models.bert import BertConfig
+    from fairmultimodal_torch.models.text import TextEncoder
+
+    global TRAIN_GEO, N_LABS, CLI_PATIENTS, CLI_LABS, DP_PATIENTS, DP_TEXT_PATIENTS
+    N_LABS = CLI_LABS = 8
+    TRAIN_GEO = dict(TRAIN_GEO, lab_token_count=N_LABS, hidden_size=32, demo_layers=1,
+                     demo_heads=2, lab_layers=1, lab_heads=2, fusion_hidden=16)
+    CLI_PATIENTS, DP_PATIENTS, DP_TEXT_PATIENTS = 96, 64, 8
+    tiny = BertConfig(vocab_size=512, hidden_size=32, num_hidden_layers=1, num_attention_heads=2,
+                      intermediate_size=64, max_position_embeddings=512)
+    original = TextEncoder.from_pretrained.__func__
+    TextEncoder.from_pretrained = classmethod(
+        lambda cls, *a, **k: original(cls, *a, **{**k, "fallback_config": tiny}))
+
+
+def _reset_all(flash, fab, ffn, addnorm):
+    _reset_counts(fab, ffn, addnorm)
+    flash.launches = flash.bwd_launches = 0
+
+
+def _param_digest(model):
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_expected(tables, batch=DP_BATCH):
+    """(#1 = #2, #3 = #4) launches of a 1-epoch FAME run on ``tables`` with
+    the text from the cache (per rank under a mesh: every rank runs every
+    batch, on its rows), and the split sizes."""
+    from fairmultimodal_torch.data.featurize import assemble_features
+    from fairmultimodal_torch.pipelines.common import make_split
+
+    idx = make_split(assemble_features(*tables).labels, 0.20, 0.05, 42)
+    nb = {k: -(-len(v) // batch) for k, v in idx.items()}
+    return _cli_fame_launches({"nb": nb, "text": 0}, 1, False), [len(idx[k]) for k in
+                                                                 ("train", "val", "test")]
+
+
+def _dp_trainer(mesh, deterministic, device):
+    from fairmultimodal_torch.models._layers import init_params
+    from fairmultimodal_torch.models.fusion import FAMEModel
+    from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
+
+    model = init_params(FAMEModel(**TRAIN_GEO, dtype=torch.float32), seed=0)
+    return FAMETrainer(model, TrainConfig(lr=1e-4, batch_size=DP_BATCH,
+                                          deterministic_forward=deterministic),
+                       pos_weight=POS_WEIGHT, rngs_seed=5, device=device, mesh=mesh)
+
+
+def _experiment_config(out_dir, mesh=None):
+    from fairmultimodal_torch.pipelines.fame import FAMEPipelineConfig
+    from fairmultimodal_torch.train.loop import TrainConfig
+
+    geo = {k: TRAIN_GEO[k] for k in ("hidden_size", "demo_layers", "demo_heads", "lab_layers",
+                                     "lab_heads", "fusion_hidden")}
+    return FAMEPipelineConfig(train=TrainConfig(num_epochs=1, batch_size=DP_EXP_BATCH,
+                                                deterministic_forward=True),
+                              out_dir=out_dir, mesh=mesh, timing=True, **geo)
+
+
+def _run_quiet(fn, device):
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, buf.getvalue()
+
+
+def _artifacts(out_dir):
+    import os
+
+    names = sorted(os.listdir(out_dir))
+    kinds = {k: sum(n.startswith(k) for n in names)
+             for k in ("best_model_", "extracted_vectors_", "dynamic_weights_per_epoch1.csv",
+                       "tracked_dynamic_weights.npy", "tracked_sigmoid_weights.npy")}
+    if set(kinds.values()) != {1} or len(names) != len(kinds):
+        raise AssertionError(f"artifacts in {out_dir}: {names}")
+    return names
+
+
+def _test_probs(out_dir):
+    import glob
+    import os
+
+    with np.load(glob.glob(os.path.join(out_dir, "extracted_vectors_*.npz"))[0]) as z:
+        return 1.0 / (1.0 + np.exp(-z["logits"].astype(np.float64)))
+
+
+def _npz_probs(out_dir, arrays, dynamic_weights=None):
+    """(probabilities of ``arrays`` from the run's ``best_model_*.npz`` in
+    ``FAMEPredictor``, with ``dynamic_weights`` or the run's own; the run's
+    dynamic weights)."""
+    import glob
+    import os
+
+    from fairmultimodal_torch.interop import load_flax_params
+    from fairmultimodal_torch.models.fusion import FAMEModel
+    from fairmultimodal_torch.pipelines.inference import FAMEPredictor
+    from fairmultimodal_torch.utils.checkpoint import load_metadata_npz, load_params_npz
+
+    path = glob.glob(os.path.join(out_dir, "best_model_*.npz"))[0]
+    meta = load_metadata_npz(path)
+    model = load_flax_params(FAMEModel(**meta["model"]), load_params_npz(path))
+    dw = np.asarray(meta["dynamic_weights"] if dynamic_weights is None else dynamic_weights)
+    pred = FAMEPredictor(model, batch_size=256, dynamic_weights=dw, device="cuda")
+    return pred.predict_arrays(arrays)["probs"], np.asarray(meta["dynamic_weights"])
+
+
+def dp_rank(root, device="cuda", small=False):
+    """Phase 12 in one of two gloo ranks sharing cuda:0 (started by
+    ``parallel.launch``): (a) one deterministic step against one process,
+    (b) three dropout steps (parameters bit-identical across the ranks, the
+    backward bit-identical twice, the folded seeds through #2 and its plain
+    version), (c) the launches of (a) and (b), (d) the dynamic-weight
+    statistics against one process, (e) the sharded text encode against one
+    process, (f) the 1-epoch experiment, (g) this rank's step time.
+    ``device="cpu"`` and ``small=True`` rehearse it on the CPU."""
+    import hashlib
+    import os
+
+    import torch.distributed as dist
+
+    from fairmultimodal_torch import parallel
+    from fairmultimodal_torch.data.device import DeviceLoader
+    from fairmultimodal_torch.data.prefetch import to_device
+    from fairmultimodal_torch.data.synthetic import make_common_frames
+    from fairmultimodal_torch.models.bert import bio_clinical_bert_config
+    from fairmultimodal_torch.models.text import TextEncoder, encode_note_chunks
+    from fairmultimodal_torch.ops import dropout_add_layernorm as addnorm
+    from fairmultimodal_torch.ops import flash_attention as flash
+    from fairmultimodal_torch.ops import fused_attention_block as fab
+    from fairmultimodal_torch.ops import fused_ffn as ffn
+    from fairmultimodal_torch.pipelines.fame import run_fame_experiment
+    from fairmultimodal_torch.utils import rng as trng
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if small:
+        _dp_small()
+    t_start = time.perf_counter()
+    devices = ["cuda:0", "cuda:0"] if device == "cuda" else ["cpu", "cpu"]
+    mesh = parallel.get_mesh(2, devices=devices, backend="gloo")
+    rank, dev = mesh.rank, mesh.device
+    res = {"rank": rank, "join_s": time.perf_counter() - t_start}
+
+    def gather(obj):
+        out = [None] * mesh.world
+        dist.all_gather_object(out, obj)
+        return out
+
+    def counts():
+        return _all_counts(flash, fab, ffn, addnorm)
+
+    cohort = synthetic_cohort(np.random.default_rng(12), DP_PATIENTS)
+    keys = [k for k in cohort if k != "labels"]
+    batches = [fp32_step_batch({k: v[i * DP_BATCH:] for k, v in cohort.items()}, keys, DP_BATCH)
+               for i in range(1 + DP_STEPS)]
+    shard = lambda b: to_device(parallel.shard_batch(b, mesh), dev)  # noqa: E731
+
+    # (a) one deterministic step of the global batch against one process.
+    _reset_all(flash, fab, ffn, addnorm)
+    trainer = _dp_trainer(mesh, True, dev)
+    total, _ = trainer.backward(shard(batches[0]))
+    res["counts_step"] = counts()
+    got = (float(total), {n: p.grad.detach().cpu() for n, p in trainer.model.named_parameters()
+                          if p.grad is not None})
+    single = None
+    if rank == 0:
+        single = _dp_trainer(None, True, dev)
+        total_s, _ = single.backward(to_device(batches[0], dev))
+        want = (float(total_s), {n: p.grad.detach().cpu()
+                                 for n, p in single.model.named_parameters()
+                                 if p.grad is not None})
+        loss_rel, worst, grad_rel = compare_steps(got, want)
+        res["step_vs_single"] = {"loss": got[0], "loss_single": want[0], "loss_rel": loss_rel,
+                                 "worst_leaf": worst, "worst_grad_rel": grad_rel}
+        del want
+    del got
+
+    # (d) the dynamic-weight statistics over a shuffled device-resident split.
+    arrays, labels = {k: cohort[k] for k in keys}, cohort["labels"]
+    loader = lambda m: DeviceLoader(arrays, labels, DP_BATCH, shuffle=True, seed=1,  # noqa: E731
+                                    device=dev, mesh=m)
+    stats = trainer.dynamic_weight_stats(loader(mesh))
+    if rank == 0:
+        stats_single = single.dynamic_weight_stats(loader(None))
+        res["dyn_stats_identical"] = bool(np.array_equal(stats, stats_single))
+        res["dyn_stats_total"] = float(stats_single.sum())
+
+    # How far the two trajectories drift apart, deterministic, step by step.
+    res["drift"] = []
+    probe = fp32_step_batch({k: v[-DP_BATCH:] for k, v in cohort.items()}, keys, DP_BATCH)
+    for step in range(1, DP_DRIFT_STEPS + 1):
+        b = batches[step % len(batches)]
+        trainer.train_step(shard(b))
+        if rank == 0:
+            single.train_step(to_device(b, dev))
+        if step in DP_DRIFT_AT:
+            _, logits, _ = trainer.validate([probe])
+            if rank == 0:
+                _, logits_s, _ = single.validate([probe])
+                pairs = list(zip(trainer.model.parameters(), single.model.parameters()))
+                res["drift"].append({
+                    "step": step,
+                    "param_max_abs": max(float((a - b).abs().max()) for a, b in pairs),
+                    "params_differing": sum(int((a != b).sum()) for a, b in pairs),
+                    "prob_max_abs": float(np.abs(1 / (1 + np.exp(-logits))
+                                                 - 1 / (1 + np.exp(-logits_s))).max())})
+    del trainer, single
+    torch.cuda.empty_cache()
+
+    # (b) three steps with dropout: the parameters after each, on both ranks.
+    _reset_all(flash, fab, ffn, addnorm)
+    trainer_d = _dp_trainer(mesh, False, dev)
+    digests = []
+    for b in batches[1:]:
+        trainer_d.train_step(shard(b))
+        digests.append(_param_digest(trainer_d.model))
+    res["counts_steps"] = counts()
+    res["digests"] = gather(digests)
+    state, batch = trainer_d.generator.get_state(), shard(batches[1])
+    runs = []
+    for _ in range(2):
+        trainer_d.generator.set_state(state)
+        trainer_d.backward(batch)
+        runs.append([p.grad.clone() for p in trainer_d.model.parameters() if p.grad is not None])
+    res["backward_twice_identical"] = all(torch.equal(a, b) for a, b in zip(*runs))
+    del runs
+    # This rank's folded seeds through #2 and its plain version (fp32, lab rows).
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rn = lambda *shape, std=1.0: torch.randn(*shape, generator=gen, device=dev) * std  # noqa: E731
+    inputs = [rn(DP_BATCH // 2 * 560, 768), rn(2048, 768, std=768 ** -0.5), rn(2048, std=0.02),
+              rn(768, 2048, std=2048 ** -0.5), rn(768, std=0.02), 1 + 0.1 * rn(768), 0.1 * rn(768)]
+    seeds = tuple(trng.draw_seed(trng.RankGenerator(trng.make_generator(s), rank))
+                  for s in (21, 22))
+    kw = dict(activation="relu", ln_eps=1e-5, rate=0.1, seeds=seeds)
+    with torch.no_grad():
+        out_k = ffn.fused_ffn_ln(*inputs, deterministic=False, **kw)
+        out_p = ffn.fused_ffn_ln_reference(*inputs, **kw)
+    res["folded_seeds"] = [hex(s) for s in seeds]
+    res["folded_kernel_vs_plain"] = float((out_k - out_p).abs().max())
+    res["folded_out_digests"] = gather(hashlib.blake2b(out_k.cpu().numpy().tobytes(),
+                                                       digest_size=16).hexdigest())
+    del inputs, out_k, out_p
+
+    # (e) the sharded text encode (no cache) against one process.
+    notes = make_cohort(np.random.default_rng(3), DP_TEXT_PATIENTS)
+    cache = os.environ.pop("FMTPU_TEXT_CACHE", None)
+    try:
+        encoder = TextEncoder.from_pretrained(fallback_config=bio_clinical_bert_config(), seed=1,
+                                              device=dev, mesh=mesh)
+        _reset_all(flash, fab, ffn, addnorm)
+        emb = encode_note_chunks(encoder, notes, max_length=512, batch_size=DP_TEXT_BATCH)
+        res["counts_text"] = counts()
+        res["text_expected"] = expected_text_launches(encoder.tokenizer, notes, DP_TEXT_BATCH,
+                                                      12)
+        if rank == 0:
+            one = TextEncoder(encoder.config, encoder.model, encoder.tokenizer, device=dev)
+            want = encode_note_chunks(one, notes, max_length=512, batch_size=DP_TEXT_BATCH)
+            res["text_rel"] = float(np.abs(emb - want).max() / np.abs(want).max())
+            res["text_zero_rows"] = bool(not emb[[not c for c in notes]].any())
+            del one
+        del encoder
+    finally:
+        if cache is not None:
+            os.environ["FMTPU_TEXT_CACHE"] = cache
+    torch.cuda.empty_cache()
+
+    # (f) the experiment on phase 7's cohort, 1 epoch, deterministic forward.
+    tables = make_common_frames(CLI_PATIENTS, CLI_LABS, 3, seed=42)
+    _reset_all(flash, fab, ffn, addnorm)
+    out, wall, printed = _run_quiet(lambda: run_fame_experiment(
+        *tables, _experiment_config(os.path.join(root, "dp_out"), mesh), device=dev), device)
+    res["counts_experiment"] = counts()
+    res["experiment"] = {
+        "wall_s": wall, "timings": out["timings"], "artifacts": out["artifacts"],
+        "printed_lines": len(printed.splitlines()), "history": out["history"],
+        "splits": [len(out["splits"][k]) for k in ("train", "val", "test")],
+        "metrics": {t: [m["aucroc"], m["auprc"]] for t, m in out["metrics"].items()}}
+    res["experiment_tail"] = printed.splitlines()[-12:]
+    del out
+    torch.cuda.empty_cache()
+
+    # (g) this rank's train step, both ranks stepping together on the card.
+    res["step"] = time_train_step(trainer_d, batch, steps=8, warmup=1) if device == "cuda" \
+        else {}
+    res["total_s"] = time.perf_counter() - t_start
+    return res
+
+
+def dp_phase(flash, fab, ffn, addnorm, device="cuda", small=False):
+    """Phase 12: data parallelism.  One process against the two gloo ranks of
+    :func:`dp_rank` sharing cuda:0; ``cli fame --mesh 1`` on one NCCL rank;
+    the train step on one NCCL rank against no mesh in turns.
+    ``device="cpu"`` and ``small=True`` rehearse it on the CPU (gloo, no
+    timing)."""
+    import gc
+    import importlib
+    import os
+    import shutil
+
+    from fairmultimodal_torch import parallel
+    from fairmultimodal_torch.data.prefetch import to_device
+    from fairmultimodal_torch.data.synthetic import make_common_frames
+    from fairmultimodal_torch.pipelines.common import build_arrays
+    from fairmultimodal_torch.pipelines.fame import FAME_KEYS, run_fame_experiment
+
+    cli = importlib.import_module("fairmultimodal_torch.cli.main")
+    if small:
+        _dp_small()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase12")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    saved_cache = os.environ.get("FMTPU_TEXT_CACHE")
+    os.environ["FMTPU_TEXT_CACHE"] = os.path.join(root, "text_cache")
+    info = {}
+    try:
+        if device == "cuda":
+            info["card"] = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+            log(f"[dp] card: {info['card']}")
+        tables = make_common_frames(CLI_PATIENTS, CLI_LABS, 3, seed=42)
+        (fwd, bwd), splits = dp_expected(tables, DP_EXP_BATCH)
+        want = _counts_ln(flash, fab, ffn, addnorm, fwd, bwd, device)
+        (cli_fwd, cli_bwd), _ = dp_expected(tables, DP_BATCH)
+        want_cli = _counts_ln(flash, fab, ffn, addnorm, cli_fwd, cli_bwd, device)
+        log(f"[dp] predicted per rank of a 1-epoch run (text cached): batch {DP_EXP_BATCH} "
+            f"#1 = #2 {fwd}, #3 = #4 {bwd}, the command line's batch {DP_BATCH} {cli_fwd} / "
+            f"{cli_bwd}; splits {splits}; (a) 2 / 2, (b) {2 * DP_STEPS} / {2 * DP_STEPS}")
+
+        # One process, deterministic: the reference of (f); it fills the text cache.
+        _reset_all(flash, fab, ffn, addnorm)
+        single, wall, _ = _run_quiet(lambda: run_fame_experiment(
+            *tables, _experiment_config(os.path.join(root, "single")), device=device), device)
+        info["single"] = {"wall_s": wall, "timings": single["timings"],
+                          "counts": _all_counts(flash, fab, ffn, addnorm)}
+        test_arrays = {k: v[single["splits"]["test"]]
+                       for k, v in build_arrays(single["bundle"], FAME_KEYS).items()}
+        del single
+        log(f"[dp] one process: {json.dumps(info['single'])}")
+        # The same run in another summation order: the drift (f) is held to.
+        os.environ["FMTPU_FOLD_LN"] = "0"
+        try:
+            _, wall, _ = _run_quiet(lambda: run_fame_experiment(
+                *tables, _experiment_config(os.path.join(root, "unfolded")), device=device),
+                device)
+        finally:
+            del os.environ["FMTPU_FOLD_LN"]
+        order_drift = float(np.abs(_test_probs(os.path.join(root, "unfolded"))
+                                   - _test_probs(os.path.join(root, "single"))).max())
+        info["order_drift"] = {"wall_s": wall, "test_prob_max_abs": order_drift}
+        log(f"[dp] one process, LayerNorm unfolded, against folded: max |p| difference "
+            f"{order_drift:.3e} ({wall:.1f} s)")
+
+        # cli fame --mesh 1: one NCCL rank, the command line's own path.
+        _reset_all(flash, fab, ffn, addnorm)
+        rc, wall, printed = _run_quiet(lambda: cli.main(
+            ["fame", "--synthetic", str(CLI_PATIENTS), "--synthetic_labs", str(CLI_LABS),
+             "--epochs", "1", "--mesh", "1", "--timing", "--text_cache",
+             os.environ["FMTPU_TEXT_CACHE"], "--out_dir", os.path.join(root, "cli_mesh1"),
+             "--device", device] + (["--tiny"] if small else [])), device)
+        info["cli_mesh1"] = {"rc": rc, "wall_s": wall,
+                             "counts": _all_counts(flash, fab, ffn, addnorm),
+                             "artifacts": _artifacts(os.path.join(root, "cli_mesh1")),
+                             "auroc_lines": [ln for ln in printed.splitlines()
+                                             if "AUROC" in ln or "AUPRC" in ln]}
+        log(f"[dp] cli fame --mesh 1 (NCCL, world 1): {json.dumps(info['cli_mesh1'])}")
+        if rc != 0 or info["cli_mesh1"]["counts"] != want_cli:
+            raise AssertionError(f"cli --mesh 1: rc {rc}, launches "
+                                 f"{info['cli_mesh1']['counts']}, predicted {want_cli}")
+        aucs = [float(ln.split(":")[1]) for ln in info["cli_mesh1"]["auroc_lines"]]
+        if len(aucs) != 6 or not np.isfinite(aucs).all():
+            raise AssertionError(f"cli --mesh 1 metric lines {info['cli_mesh1']['auroc_lines']}")
+
+        # The two gloo ranks on cuda:0.
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = parallel.launch(dp_rank, 2, args=(root, device, small), timeout_s=DP_TIMEOUT_S)
+        info["ranks_s"] = time.perf_counter() - t0
+        r0, r1 = ranks
+        for r in ranks:
+            log(f"[dp] rank {r['rank']}: " + json.dumps(
+                {k: v for k, v in r.items() if k not in ("digests", "experiment_tail")}))
+        log("[dp] rank 0's report:\n[dp]   " + "\n[dp]   ".join(r0["experiment_tail"]))
+
+        step_want = _counts_ln(flash, fab, ffn, addnorm, 2, 2, device)
+        steps_want = _counts_ln(flash, fab, ffn, addnorm, 2 * DP_STEPS, 2 * DP_STEPS, device)
+        text_want = _counts_ln(flash, fab, ffn, addnorm, r0["text_expected"], 0, device)
+        a = r0["step_vs_single"]
+        checks = {
+            "(a) step vs one process": a["loss_rel"] <= XDEV_LOSS_TOL
+            and a["worst_grad_rel"] <= XDEV_GRAD_TOL,
+            "(b) parameters bit-identical across ranks": r0["digests"][0] == r0["digests"][1]
+            and len(set(r0["digests"][0])) == DP_STEPS,
+            "(b) backward bit-identical twice": r0["backward_twice_identical"]
+            and r1["backward_twice_identical"],
+            "(b) folded seeds: kernel = plain, ranks differ": max(
+                r0["folded_kernel_vs_plain"], r1["folded_kernel_vs_plain"]) <= FP32_TOL
+            and r0["folded_out_digests"][0] != r0["folded_out_digests"][1],
+            "(c) launches of (a), (b), (e), (f) and one process's run": all(
+                r["counts_step"] == step_want and r["counts_steps"] == steps_want
+                and r["counts_text"] == text_want and r["counts_experiment"] == want
+                for r in ranks) and (r0["text_expected"] > 0 or device == "cpu")
+            and info["single"]["counts"] == want,
+            "(d) dynamic-weight statistics bit-identical": r0["dyn_stats_identical"]
+            and r0["dyn_stats_total"] > 0,
+            "(e) sharded text encode": r0["text_rel"] <= DP_TEXT_TOL and r0["text_zero_rows"],
+            "(f) metrics finite": all(np.isfinite(v).all()
+                                      for v in r0["experiment"]["metrics"].values()),
+            "(f) rank 0 alone writes and prints": bool(r0["experiment"]["artifacts"])
+            and not r1["experiment"]["artifacts"] and r1["experiment"]["printed_lines"] == 0,
+            "(f) splits": r0["experiment"]["splits"] == splits,
+        }
+        info["dp_artifacts"] = _artifacts(os.path.join(root, "dp_out"))
+        diff = float(np.abs(_test_probs(os.path.join(root, "dp_out"))
+                            - _test_probs(os.path.join(root, "single"))).max())
+        limit = max(DP_ORDER_FACTOR * order_drift, DP_PRED_FLOOR)
+        checks["(f) two ranks vs one process, test probabilities"] = diff <= limit
+        if device == "cuda":
+            p_single, dw_single = _npz_probs(os.path.join(root, "single"), test_arrays)
+            p_dp, dw_dp = _npz_probs(os.path.join(root, "dp_out"), test_arrays, dw_single)
+            info["npz"] = {"dynamic_weights_single": dw_single.tolist(),
+                           "dynamic_weights_dp": dw_dp.tolist(),
+                           "dynamic_weights_max_abs": float(np.abs(dw_dp - dw_single).max()),
+                           "probs_same_dynamic_weights_max_abs":
+                               float(np.abs(p_dp - p_single).max()),
+                           "probs_same_dynamic_weights_mean_abs":
+                               float(np.abs(p_dp - p_single).mean())}
+        info.update(checks=checks, test_prob_max_abs=diff, test_prob_limit=limit,
+                    ranks={r["rank"]: {k: v for k, v in r.items()
+                                       if k not in ("digests", "experiment_tail")}
+                           for r in ranks})
+        log(f"[dp] two ranks vs one process: max |p| difference {diff:.3e} "
+            f"(limit {limit:.3e}: {DP_ORDER_FACTOR} x the unfolded run's, at least "
+            f"{DP_PRED_FLOOR}); "
+            f"{json.dumps(info.get('npz'))}; drift "
+            f"{json.dumps(r0['drift'])}; checks {json.dumps(checks)}")
+
+        # (g) the default train step on one NCCL rank against no mesh, in turns.
+        cohort = synthetic_cohort(np.random.default_rng(12), DP_BATCH)
+        batch = to_device(fp32_step_batch(cohort, [k for k in cohort if k != "labels"],
+                                          DP_BATCH), torch.device(device))
+        mesh1 = parallel.get_mesh(1, devices=None if device == "cuda" else [device])
+        try:
+            trainers = {"no_mesh": _dp_trainer(None, False, device),
+                        "nccl_world1": _dp_trainer(mesh1, False, device)}
+            if device == "cuda":
+                turns = {k: [] for k in trainers}
+                for name in ("no_mesh", "nccl_world1", "nccl_world1", "no_mesh"):
+                    turns[name].append(time_train_step(trainers[name], batch)["train_step_ms"])
+                info["step_ms"] = {
+                    "turns": turns,
+                    "profile": {k: profile_train_step(t, batch) for k, t in trainers.items()},
+                    "two_gloo_ranks_one_card": [r["step"]["train_step_ms"] for r in ranks]}
+            else:
+                info["step_ms"] = {k: float(t.train_step(batch)[0]) for k, t in trainers.items()}
+            del trainers
+        finally:
+            mesh1.close()
+        log(f"[dp] train step fp32 batch 16 (global): {json.dumps(info['step_ms'])}")
+        if not all(checks.values()):
+            raise AssertionError(f"phase 12 failed: {[k for k, v in checks.items() if not v]}")
+        info["launches_dp"] = {k: {"rank0": r0["counts_experiment"][k],
+                                   "rank1": r1["counts_experiment"][k],
+                                   "cli_mesh1_nccl": info["cli_mesh1"]["counts"][k]}
+                               for k in r0["counts_experiment"]}
+    finally:
+        if saved_cache is None:
+            os.environ.pop("FMTPU_TEXT_CACHE", None)
+        else:
+            os.environ["FMTPU_TEXT_CACHE"] = saved_cache
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return info["launches_dp"], info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -4781,6 +5342,10 @@ def main() -> int:
     log(f"[adv] {json.dumps(adv_info)} | {smi}")
     etl_launches, etl_info = etl_phase(flash, fab, ffn, addnorm)
     log(f"[etl] {json.dumps(etl_info)} | {smi}")
+    t12 = time.perf_counter()
+    dp_launches, dp_info = dp_phase(flash, fab, ffn, addnorm)
+    dp_info["phase_s"] = time.perf_counter() - t12
+    log(f"[dp] {json.dumps({k: v for k, v in dp_info.items() if k != 'ranks'})} | {smi}")
 
     meta = {
         "fused_attention_block_ln": ("fairmultimodal_torch/ops/csrc/flash_attention.cu",
@@ -4896,6 +5461,7 @@ def main() -> int:
     for row in kernels:
         row["launches_adv_debias"] = adv_launches[row["name"]]
         row["launches_etl"] = etl_launches[row["name"]]
+        row["launches_dp"] = dp_launches[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -16,7 +16,8 @@ pipelines 01 behrt, 02 text-only, 03 DfC, 06 FairEHR-CLP, 07 average fusion,
 08 EDDI fusion, 09 sigmoid fusion and the legacy pair (``pipelines.common``,
 ``train.simple.MultitaskTrainer``, ``models.baselines``); 04's adversarial
 debiasing (``pipelines.adv_debias``, ``train.adversarial``); profiling, NaN
-checks and plots (``utils``, ``eval.plots``); and the command line (``cli``).
+checks and plots (``utils``, ``eval.plots``); the command line (``cli``); and
+data-parallel training over ``torch.distributed`` (``parallel``, ``--mesh N``).
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 

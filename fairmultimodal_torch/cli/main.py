@@ -32,8 +32,15 @@ either package.  The cohort comes from ``--synthetic N``
 (:func:`fairmultimodal_torch.data.etl.run_etl`, no pandas) from the raw
 ``csv.gz`` tables in ``--mimic_dir`` (``--synthetic N``: ``write_raw_mimic``
 tables in a fresh temporary directory) into the five CSVs in ``--out_dir``,
-with ``--use_native`` and ``--timing``.  ``--mesh`` exits naming the ROADMAP
-item that ports it.
+with ``--use_native`` and ``--timing``.
+
+``--mesh N`` (or ``Nx1``) trains ``fame`` / ``fpm`` data-parallel over N
+ranks (:mod:`fairmultimodal_torch.parallel`): NCCL over N cards, or gloo
+ranks on the CPU with ``--device cpu``.  Started as one command it spawns
+its N rank processes; under ``torchrun --nproc-per-node N`` each process
+joins the job it finds.  ``--mesh NxM`` with M > 1 (tensor parallelism)
+exits naming its ROADMAP item; ``--mesh`` on another pipeline exits as the
+JAX command line does.
 
 Where the port departs from the JAX command line:
 
@@ -116,7 +123,10 @@ def build_parser(default_pipeline: Optional[str] = None):
     p.add_argument("--synthetic_chunks", type=int, default=3,
                    help="note-chunk columns in the synthetic cohort")
     p.add_argument("--mesh", default=None, metavar="DATA[xMODEL]",
-                   help="multi-device training (not ported yet: ROADMAP queue 1 item 6)")
+                   help="data-parallel training over DATA ranks (fame/fpm): one process per "
+                        "rank, NCCL over one card each, or gloo ranks with --device cpu; "
+                        "spawned here, or joined under torchrun.  A MODEL axis over 1 "
+                        "(tensor parallelism) is not ported")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--tiny", action="store_true", help="tiny geometry for CPU smoke runs")
     p.add_argument("--quiet", action="store_true")
@@ -273,6 +283,8 @@ def _run_multi(args) -> int:
             seeds.append(run_args.seed)
     if not rows:
         raise SystemExit("--runs: no run produced a metrics dict")
+    if not _rank0(args):
+        return 0
     agg = aggregate_runs(rows)
     print(f"\n===== Aggregate over {len(rows)} runs (seeds {seeds[0]}..{seeds[-1]}) =====")
     print(format_table3(agg, len(rows)))
@@ -283,11 +295,44 @@ def _run_multi(args) -> int:
     return 0
 
 
+def _rank0(args) -> bool:
+    mesh = getattr(args, "_mesh", None)
+    return mesh is None or mesh.rank == 0
+
+
+def _run_meshed(args) -> int:
+    """``--mesh``: in a rank of a job (``torchrun``, or a process this
+    function spawned) join it; else run a one-rank mesh here, or spawn one
+    process per rank, each of which runs the command."""
+    from fairmultimodal_torch import parallel
+
+    if args.pipeline not in ("fame", "fpm"):
+        raise SystemExit("--mesh is supported for fame/fpm only")
+    try:
+        data, model = parallel.parse_mesh(args.mesh)
+        parallel.check_data_parallel(data, model)
+    except (ValueError, NotImplementedError) as e:
+        raise SystemExit(f"--mesh: {e}") from None
+    devices = ["cpu"] * data if args.device == "cpu" else None
+    if data > 1 and not parallel.launched():
+        parallel.mesh_devices(devices, data, model)
+        threads = max(1, (os.cpu_count() or 1) // data) if args.device == "cpu" else None
+        return max(parallel.launch(run_pipeline, data, args=(args,), threads=threads))
+    mesh = parallel.get_mesh(data, model, devices=devices)
+    try:
+        rank_args = copy.copy(args)
+        rank_args._mesh = mesh
+        if mesh.rank:
+            rank_args.quiet, rank_args.tensorboard = True, False
+        return run_pipeline(rank_args)
+    finally:
+        mesh.close()
+
+
 def run_pipeline(args) -> int:
     name = args.pipeline
-    if args.mesh:
-        raise SystemExit("--mesh: multi-GPU training is not ported to fairmultimodal_torch "
-                         "yet (ROADMAP queue 1 item 6)")
+    if args.mesh and getattr(args, "_mesh", None) is None:
+        return _run_meshed(args)
     if args.runs > 1:
         return _run_multi(args)
     verbose = not args.quiet
@@ -318,7 +363,8 @@ def run_pipeline(args) -> int:
     # snapshot fails before any featurization.
     torch_dtype = torch.bfloat16 if args.bf16 else torch.float32
     text_encoder = (TextEncoder.from_pretrained(require_weights=True, dtype=torch_dtype,
-                                                device=device)
+                                                device=device,
+                                                mesh=getattr(args, "_mesh", None))
                     if args.require_hf_weights and name != "behrt" else None)
 
     if name == "predict":
@@ -358,7 +404,8 @@ def run_pipeline(args) -> int:
                              head=args.head or (1000 if name == "fpm" else None),
                              reference_compat=args.reference_compat,
                              require_hf_weights=args.require_hf_weights, timing=args.timing,
-                             checkpoint_dir=args.checkpoint_dir)
+                             checkpoint_dir=args.checkpoint_dir,
+                             mesh=getattr(args, "_mesh", None))
     if args.tiny:
         cfg.hidden_size, cfg.demo_layers, cfg.demo_heads = 64, 1, 2
         cfg.lab_layers, cfg.lab_heads, cfg.fusion_hidden = 1, 2, 32

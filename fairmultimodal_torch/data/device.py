@@ -8,8 +8,10 @@ the host :class:`~fairmultimodal_torch.data.loader.BatchIterator` batch
 moved to the device, bit for bit: the same ``np.random.default_rng((seed,
 epoch))`` permutation, the same zero-padded final batch.
 
-Not ported: the JAX loader's ``mesh`` placement (multi-GPU is ROADMAP queue
-1 item 6).
+Under a data-parallel ``mesh`` (the JAX loader's ``mesh=``) the whole split
+is parked on every rank's device, replicated as in JAX, and each rank
+gathers only its contiguous columns of the epoch's ``[B]`` index: the rows
+``parallel.shard_batch`` would give it of the global batch.
 """
 
 from __future__ import annotations
@@ -39,16 +41,25 @@ class DeviceLoader:
       shuffle: per-epoch reshuffle with the BatchIterator protocol.
       seed: shuffle seed (permutation = default_rng((seed, epoch))).
       device: ``None`` means CUDA and raises without it; ``"cpu"`` for tests.
+      mesh: a data-parallel mesh: park on ``mesh.device`` and yield this
+        rank's ``batch_size / mesh.data`` rows of each global batch.
     """
 
     device_resident = True
 
     def __init__(self, model_inputs: Dict[str, np.ndarray], labels: np.ndarray,
-                 batch_size: int, shuffle: bool = False, seed: int = 42, device=None):
+                 batch_size: int, shuffle: bool = False, seed: int = 42, device=None,
+                 mesh=None):
         sizes = {k: len(v) for k, v in model_inputs.items()}
         sizes["labels"] = len(labels)
         if len(set(sizes.values())) != 1:
             raise ValueError(f"ragged arrays: {sizes}")
+        self.mesh = mesh
+        if mesh is not None:
+            if batch_size % mesh.data:
+                raise ValueError(f"batch_size {batch_size} does not split over the mesh's "
+                                 f"{mesh.data} ranks")
+            device = mesh.device
         self.device = resolve_device(device)
         self.n = len(labels)
         self.batch_size = batch_size
@@ -106,6 +117,10 @@ class DeviceLoader:
 
     def __iter__(self) -> Iterator[Dict]:
         idx_mat, valid_mat = self.epoch_index_matrix()
+        if self.mesh is not None:
+            b = self.batch_size // self.mesh.data
+            cols = slice(self.mesh.rank * b, (self.mesh.rank + 1) * b)
+            idx_mat, valid_mat = idx_mat[:, cols], valid_mat[:, cols]
         for idx, valid in zip(idx_mat, valid_mat):
             yield self._gather(torch.from_numpy(idx).to(self.device, non_blocking=True),
                                torch.from_numpy(valid).to(self.device, non_blocking=True))

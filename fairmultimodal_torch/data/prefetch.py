@@ -5,7 +5,9 @@ use: the arrays are staged in pinned host memory and copied with
 ``non_blocking=True``, so the copy of batch N+1 overlaps the card computing
 step N.  Tensors already on the device pass through unchanged, and a loader
 marked ``device_resident`` (:class:`~fairmultimodal_torch.data.device.DeviceLoader`)
-is iterated as it is.
+is iterated as it is.  Under a data-parallel mesh each host batch is cut to
+this rank's rows (``parallel.shard_batch``) before its copy; a
+device-resident loader must have been parked under the same mesh.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Any, Iterator
 
 import numpy as np
 import torch
+
+from fairmultimodal_torch.parallel.sharding import shard_batch
 
 __all__ = ["to_device", "PrefetchLoader"]
 
@@ -32,25 +36,40 @@ def to_device(batch: Any, device: torch.device) -> Any:
 
 class PrefetchLoader:
     """Re-iterable wrapper: each ``iter()`` is a fresh pass over ``loader``
-    with the next batch's copy already queued when a batch is handed out."""
+    with the next batch's copy already queued when a batch is handed out;
+    with a ``mesh``, of this rank's rows of each batch."""
 
-    def __init__(self, loader, device: torch.device):
+    def __init__(self, loader, device: torch.device, mesh=None):
         self.loader = loader
         self.device = torch.device(device)
+        self.mesh = mesh
 
     def __len__(self) -> int:
         return len(self.loader)
 
+    def _put(self, batch):
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
+        return to_device(batch, self.device)
+
     def __iter__(self) -> Iterator[Any]:
         if getattr(self.loader, "device_resident", False):
+            # Its batches are on the device already, sharded by the mesh it
+            # was parked under: a trainer of another mesh would train on the
+            # wrong rows.
+            if getattr(self.loader, "mesh", None) is not self.mesh:
+                raise ValueError(
+                    "device-resident loader was built without the trainer's mesh; pass "
+                    "mesh=... when constructing DeviceLoader (e.g. "
+                    "prepare_experiment(..., mesh=mesh))")
             yield from self.loader
             return
         it = iter(self.loader)
         try:
-            nxt = to_device(next(it), self.device)
+            nxt = self._put(next(it))
         except StopIteration:
             return
         for batch in it:
-            cur, nxt = nxt, to_device(batch, self.device)
+            cur, nxt = nxt, self._put(batch)
             yield cur
         yield nxt

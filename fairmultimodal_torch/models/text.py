@@ -21,6 +21,13 @@ truncation length, the aggregation and the buckets, one ``savez_compressed``
 file per key written under a temporary name and moved into place.  The
 fingerprint names the port, so the port and the JAX package never read each
 other's entries.
+
+Under a data-parallel ``mesh`` (the JAX encoder's ``shard_map`` over the
+chunk rows) each fixed-shape batch is split over the ranks, each rank
+encodes its contiguous rows and the embeddings are all-gathered, so every
+rank returns the whole array; the batch size is rounded up to a multiple of
+the rank count with pad rows, which change nothing.  Rank 0 alone writes
+the cache, whose key does not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from fairmultimodal_torch.models.bert import (BertConfig, BertEncoderModel,
                                               resolve_hf_snapshot)
 from fairmultimodal_torch.models.tokenizer import WordPieceTokenizer
 from fairmultimodal_torch.ops.gates import resolve_device
+from fairmultimodal_torch.parallel.sharding import all_agree, gather_rows
 
 __all__ = ["TextEncoder", "encode_note_chunks", "HashingTokenizer"]
 
@@ -129,7 +137,9 @@ class HashingTokenizer:
 
 
 class TextEncoder:
-    """Frozen BERT text encoder producing CLS embeddings on ``device``."""
+    """Frozen BERT text encoder producing CLS embeddings on ``device`` (on
+    ``mesh.device``, its batches split over the ranks, given a
+    data-parallel ``mesh``)."""
 
     #: True when :meth:`from_pretrained` fell back to random init.
     is_fallback: bool = False
@@ -138,10 +148,12 @@ class TextEncoder:
     fingerprint: Optional[str] = None
 
     def __init__(self, config: BertConfig, model: BertEncoderModel, tokenizer,
-                 dtype=torch.float32, device: Optional[Union[str, torch.device]] = None):
+                 dtype=torch.float32, device: Optional[Union[str, torch.device]] = None,
+                 mesh=None):
         self.config = config
         self.dtype = dtype
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         # Frozen everywhere in the reference: eval mode, no gradients.
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.tokenizer = tokenizer
@@ -155,17 +167,17 @@ class TextEncoder:
 
     @classmethod
     def from_params(cls, params: Mapping, config: BertConfig, tokenizer=None,
-                    dtype=torch.float32, device=None) -> "TextEncoder":
+                    dtype=torch.float32, device=None, mesh=None) -> "TextEncoder":
         """Encoder from a JAX ``BertEncoderModel`` parameter tree."""
         model = load_flax_params(BertEncoderModel(config, dtype=dtype), params)
         return cls(config, model, tokenizer or HashingTokenizer(config.vocab_size),
-                   dtype=dtype, device=device)
+                   dtype=dtype, device=device, mesh=mesh)
 
     @classmethod
     def from_pretrained(cls, model_name: str = "emilyalsentzer/Bio_ClinicalBERT",
                         dtype=torch.float32, fallback_config: Optional[BertConfig] = None,
                         seed: int = 0, require_weights: bool = False,
-                        device=None) -> "TextEncoder":
+                        device=None, mesh=None) -> "TextEncoder":
         """The Hugging Face snapshot of ``model_name`` (a directory, or a name
         the hub cache holds) with its WordPiece tokenizer; the geometry comes
         from the snapshot's ``config.json``.  When it cannot be loaded:
@@ -174,12 +186,13 @@ class TextEncoder:
         ``fallback_config`` is given (the embeddings carry no meaning on real
         data).
         """
-        device = resolve_device(device)
+        device = mesh.device if mesh is not None else resolve_device(device)
         try:
             snapshot = resolve_hf_snapshot(model_name)
             params, config = load_hf_bert_params(snapshot, return_config=True)
             tokenizer = WordPieceTokenizer.from_pretrained(snapshot)
-            enc = cls.from_params(params, config, tokenizer, dtype=dtype, device=device)
+            enc = cls.from_params(params, config, tokenizer, dtype=dtype, device=device,
+                                  mesh=mesh)
             weight_id = f"hf:{_state_sample_digest(enc.model)}"
         except Exception as e:
             if require_weights:
@@ -195,7 +208,7 @@ class TextEncoder:
             config = fallback_config or bio_clinical_bert_config()
             model = init_params(BertEncoderModel(config, dtype=dtype), seed)
             enc = cls(config, model, HashingTokenizer(config.vocab_size), dtype=dtype,
-                      device=device)
+                      device=device, mesh=mesh)
             enc.is_fallback = True
             weight_id = f"fallback:{seed}"
         enc.fingerprint = (f"fairmultimodal_torch|{model_name}|{weight_id}"
@@ -206,11 +219,18 @@ class TextEncoder:
 
     @torch.inference_mode()
     def encode_ids(self, input_ids, attention_mask) -> torch.Tensor:
-        """[N, S] ids and mask -> [N, H] CLS embeddings (on ``self.device``)."""
+        """[N, S] ids and mask -> [N, H] CLS embeddings (on ``self.device``).
+        Under a mesh every rank passes the same N rows (N a multiple of the
+        rank count), encodes its contiguous share and gets all N back."""
+        if self.mesh is not None:
+            n = len(input_ids) // self.mesh.data
+            rows = slice(self.mesh.rank * n, (self.mesh.rank + 1) * n)
+            input_ids, attention_mask = input_ids[rows], attention_mask[rows]
         ids = torch.as_tensor(input_ids, dtype=torch.int64).to(self.device, non_blocking=True)
         mask = torch.as_tensor(attention_mask, dtype=torch.int32).to(self.device,
                                                                    non_blocking=True)
-        return self.model(ids, mask, pool="cls")
+        cls = self.model(ids, mask, pool="cls")
+        return cls if self.mesh is None else gather_rows(cls, self.mesh)
 
 
 def encode_note_chunks(
@@ -246,16 +266,28 @@ def encode_note_chunks(
     if aggregation not in ("mean", "max"):
         raise ValueError(f"unknown aggregation {aggregation!r}")
 
+    mesh = encoder.mesh
     cache_dir = cache_dir or os.environ.get("FMTPU_TEXT_CACHE") or None
     cache_path = None
     if cache_dir:
         key = _text_cache_key(encoder, note_chunks, max_length, aggregation, buckets)
         cache_path = os.path.join(cache_dir, f"text_emb_{key}.npz")
+        cached = None
         if os.path.exists(cache_path):
             with np.load(cache_path) as z:
                 cached = z["embeddings"]
-            if cached.shape[0] == len(note_chunks):
-                return np.asarray(cached, np.float32)
+            if cached.shape[0] != len(note_chunks):
+                cached = None
+        hit = cached is not None
+        if mesh is not None:
+            # Every rank encodes, or none does: the encode's collectives need all.
+            hit = all_agree(hit, mesh)
+            cache_path = cache_path if mesh.rank == 0 else None   # rank 0 writes
+        if hit:
+            return np.asarray(cached, np.float32)
+    if mesh is not None and batch_size % mesh.data:
+        # Whole rows per rank; the pad rows are encoded and dropped.
+        batch_size += mesh.data - batch_size % mesh.data
 
     n_patients = len(note_chunks)
     hidden = encoder.config.hidden_size

@@ -7,6 +7,11 @@
 - :func:`focal_loss`: ``(1 - exp(-BCE))^gamma * BCE``, with p_t taken from the
   *weighted* BCE when ``pos_weight`` is set, as the reference writes it.
 
+Given a data-parallel process ``group`` (``axis_name`` in JAX), the BCE's
+mean sums numerator and denominator over the ranks
+(:func:`~fairmultimodal_torch.parallel.global_sum`): every rank gets the
+global masked mean, and the gradients summed over the ranks are its gradient.
+
 Both compute in at least fp32 (bf16 logits give an fp32 loss, f64 stays f64).
 """
 
@@ -16,6 +21,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from fairmultimodal_torch.parallel.sharding import global_sum
 
 __all__ = ["bce_with_logits", "focal_loss"]
 
@@ -27,12 +34,27 @@ def _weighted_mean(loss: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return loss.sum() / denom
 
 
+def _global_mean(loss: torch.Tensor, weight: Optional[torch.Tensor], group) -> torch.Tensor:
+    """The mean over every rank's rows: numerator and denominator summed
+    over ``group`` in one all-reduce."""
+    if weight is None:
+        count = torch.tensor(float(loss.numel()), dtype=loss.dtype, device=loss.device)
+    else:
+        w = weight.reshape(weight.shape + (1,) * (loss.dim() - weight.dim())).to(loss.dtype)
+        loss = loss * w
+        count = w.sum() * (loss.numel() / w.numel())
+    num, den = global_sum(torch.stack([loss.sum(), count]), group).unbind()
+    return num / (den if weight is None else torch.clamp(den, min=1.0))
+
+
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
                     pos_weight: Optional[torch.Tensor] = None,
                     weight: Optional[torch.Tensor] = None,
-                    reduction: str = "mean") -> torch.Tensor:
+                    reduction: str = "mean", group=None) -> torch.Tensor:
     """``l = -[pw * y * log sigmoid(x) + (1 - y) * log(1 - sigmoid(x))]`` with
-    ``log sigmoid(x) = -softplus(-x)``; ``weight`` [B] masks rows."""
+    ``log sigmoid(x) = -softplus(-x)``; ``weight`` [B] masks rows.  With a
+    process ``group`` the ``"mean"`` and ``"sum"`` reductions run over every
+    rank's rows."""
     acc = torch.promote_types(logits.dtype, torch.float32)
     logits, labels = logits.to(acc), labels.to(acc)
     sp = F.softplus(-logits)
@@ -40,6 +62,8 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
     if pos_weight is not None:
         pos = pos_weight.to(acc) * pos
     loss = -(pos + (1.0 - labels) * (-logits - sp))
+    if group is not None and reduction == "mean":
+        return _global_mean(loss, weight, group)
     if weight is not None and reduction == "mean":
         return _weighted_mean(loss, weight)
     if weight is not None:
@@ -47,7 +71,7 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
     if reduction == "mean":
         return loss.mean()
     if reduction == "sum":
-        return loss.sum()
+        return loss.sum() if group is None else global_sum(loss.sum(), group)
     return loss
 
 

@@ -148,18 +148,19 @@ def make_split(labels: np.ndarray, test_size: float, val_size: float, seed: int,
 
 def make_loaders(arrays: Dict[str, np.ndarray], labels: np.ndarray,
                  idx: Dict[str, np.ndarray], batch_size: int, seed: int = 42,
-                 device_data: bool = True, device=None):
+                 device_data: bool = True, device=None, mesh=None):
     """Per-split loaders over the model-input ``arrays``; the train split is
     shuffled.  ``device_data=True`` parks each split's arrays on ``device``
-    once and gathers batches there (:class:`DeviceLoader`); False gives host
-    loaders whose batches the trainer copies to the device."""
+    once and gathers batches there (:class:`DeviceLoader`; under a
+    data-parallel ``mesh``, each rank its rows); False gives host loaders
+    whose batches the trainer shards and copies to the device."""
     loaders = {}
     for split, indices in idx.items():
         flat = {k: v[indices] for k, v in arrays.items()}
         shuffle = split == "train"
         if device_data:
             loaders[split] = DeviceLoader(flat, labels[indices], batch_size, shuffle=shuffle,
-                                          seed=seed, device=device)
+                                          seed=seed, device=device, mesh=mesh)
         else:
             flat["labels"] = labels[indices]
             loaders[split] = NestedLoader(
@@ -236,6 +237,7 @@ def prepare_experiment(
     dtype: torch.dtype = torch.float32,
     device=None,
     timer: Optional[StageTimer] = None,
+    mesh=None,
 ) -> PreparedExperiment:
     """Featurize, encode the notes, split, build the loaders and the
     positive-class weights.
@@ -246,11 +248,14 @@ def prepare_experiment(
     compute it) or "none".  ``task_index`` keeps one label column.  The
     split arrays are parked on ``device`` (:class:`DeviceLoader`).  A text
     encoder built here takes ``dtype``.  ``timer`` is charged the
-    featurize, text_precompute and split_and_loaders stages.
+    featurize, text_precompute and split_and_loaders stages.  A
+    data-parallel ``mesh`` (the JAX function's ``mesh=``) shards the text
+    encode over its ranks and parks the loaders on ``mesh.device``, each
+    rank gathering its rows; the trainer must take the same mesh.
     """
     if pos_weight_mode not in _POS_WEIGHT_MODES:
         raise ValueError(f"unknown pos_weight_mode {pos_weight_mode!r}")
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     timer = timer or StageTimer()
     structured = as_table(structured)
     unstructured = as_table(unstructured)
@@ -266,7 +271,8 @@ def prepare_experiment(
 
     if need_text:
         if text_encoder is None:
-            text_encoder = TextEncoder.from_pretrained(text_model, dtype=dtype, device=device)
+            text_encoder = TextEncoder.from_pretrained(text_model, dtype=dtype, device=device,
+                                                       mesh=mesh)
         bundle.text_embeddings = encode_note_chunks(
             text_encoder, bundle.note_chunks, max_length=text_max_length,
             batch_size=text_batch_size)
@@ -280,7 +286,8 @@ def prepare_experiment(
               f"Test size: {len(idx['test'])}")
 
     arrays = build_arrays(bundle, model_keys)
-    loaders = make_loaders(arrays, bundle.labels, idx, batch_size, seed=seed, device=device)
+    loaders = make_loaders(arrays, bundle.labels, idx, batch_size, seed=seed, device=device,
+                           mesh=mesh)
 
     train_labels = bundle.labels[idx["train"]]
     if pos_weight_mode == "balanced":

@@ -15,6 +15,13 @@ DataFrames), featurizes them and calls it.  Neither needs pandas for a port
 table.  ``checkpoint_dir`` makes ``fit`` save a train-state file per epoch
 there and resume from the latest one.
 
+``FAMEPipelineConfig.mesh`` (a data-parallel
+:class:`~fairmultimodal_torch.parallel.Mesh`, from ``get_mesh`` in each
+rank's process) runs the experiment on every rank of the mesh: the text
+encode, the loaders and the trainer split their batches over the ranks,
+every rank computes the same splits, metrics and thresholds, and rank 0
+alone prints and writes the artifacts.
+
 Reference bug handled here: ``10_FAME.py:744-755`` indexes the full-cohort
 tensors with indices *relative to the train_val subframe*, silently training
 on the wrong rows.  Default mode maps everything to absolute indices;
@@ -45,6 +52,7 @@ from fairmultimodal_torch.models._layers import init_params
 from fairmultimodal_torch.models.fusion import FAMEModel
 from fairmultimodal_torch.models.text import TextEncoder, encode_note_chunks
 from fairmultimodal_torch.ops.gates import resolve_device
+from fairmultimodal_torch.parallel.sharding import check_data_parallel
 from fairmultimodal_torch.pipelines.common import (StageTimer, build_arrays, make_loaders,
                                                    make_split)
 from fairmultimodal_torch.train.calibrate import calibrate_thresholds
@@ -60,8 +68,8 @@ FAME_KEYS = ("demo_dummy_ids", "demo_attn_mask", "age_ids", "gender_ids", "ethni
 
 @dataclasses.dataclass
 class FAMEPipelineConfig:
-    """The JAX config's fields.  ``mesh`` is not ported yet and raises
-    ``NotImplementedError`` when set."""
+    """The JAX config's fields.  ``mesh``: a data-parallel mesh (a
+    ``model`` axis raises ``NotImplementedError``)."""
 
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     text_model: str = "emilyalsentzer/Bio_ClinicalBERT"
@@ -100,8 +108,7 @@ class FAMEPipelineConfig:
 
 def _check_config(cfg: FAMEPipelineConfig) -> None:
     if cfg.mesh is not None:
-        raise NotImplementedError("mesh: multi-GPU training is not ported yet "
-                                  "(ROADMAP queue 1 item 6)")
+        check_data_parallel(cfg.mesh.data, cfg.mesh.model)
 
 
 def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] = None,
@@ -109,16 +116,20 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
                     device=None, timings: Optional[Dict[str, float]] = None) -> Dict:
     """Train + evaluate full FAME from a featurized cohort (no pandas).
 
-    ``device``: ``None`` means CUDA and raises without it.  ``timings``
-    holds stage times already spent (the DataFrame front passes its
-    ``featurize`` time).  Returns the JAX function's result dict; its
-    ``best_params`` is the best state dict, loaded into ``trainer.model``.
+    ``device``: ``None`` means CUDA and raises without it (under a mesh,
+    ``mesh.device``).  ``timings`` holds stage times already spent (the
+    DataFrame front passes its ``featurize`` time).  Returns the JAX
+    function's result dict; its ``best_params`` is the best state dict,
+    loaded into ``trainer.model``.
     """
     cfg = config or FAMEPipelineConfig()
     _check_config(cfg)
     if cfg.head:
         raise ValueError("head subsamples the cohort tables: run_fame_experiment applies it")
-    device = resolve_device(device)
+    mesh = cfg.mesh
+    device = mesh.device if mesh is not None else resolve_device(device)
+    rank0 = mesh is None or mesh.rank == 0
+    verbose = verbose and rank0
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
     timer = StageTimer(timings or {"featurize": 0.0})
@@ -130,7 +141,7 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
     if text_encoder is None:
         text_encoder = TextEncoder.from_pretrained(
             cfg.text_model, dtype=dtype, require_weights=cfg.require_hf_weights,
-            device=device)
+            device=device, mesh=mesh)
     bundle.text_embeddings = encode_note_chunks(
         text_encoder, bundle.note_chunks, max_length=cfg.text_max_length,
         batch_size=cfg.text_batch_size)
@@ -152,7 +163,7 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
 
     loaders = make_loaders(build_arrays(bundle, FAME_KEYS), bundle.labels, idx,
                            cfg.train.batch_size, seed=cfg.train.seed,
-                           device_data=cfg.device_data, device=device)
+                           device_data=cfg.device_data, device=device, mesh=mesh)
 
     pos_weight = compute_pos_weights(bundle.labels[train_idx])
     n_ages, n_genders, n_eth, n_ins = bundle.vocab_sizes()
@@ -177,10 +188,10 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
     trainer = FAMETrainer(
         model, cfg.train, pos_weight, rngs_seed=cfg.train.seed, device=device,
         dynamic_weights_csv=os.path.join(cfg.out_dir, "dynamic_weights_per_epoch1.csv")
-        if cfg.save_artifacts else None)
+        if cfg.save_artifacts else None, mesh=mesh)
 
     timer.mark("split_and_loaders")
-    checkpointer = Checkpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+    checkpointer = Checkpointer(cfg.checkpoint_dir, mesh=mesh) if cfg.checkpoint_dir else None
     best_params, history = trainer.fit(loaders["train"], loaders["val"], verbose=verbose,
                                        checkpointer=checkpointer)
     # Every pass below reads the best state, as the JAX pipeline passes best_params.
@@ -222,6 +233,9 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
 
     artifacts = {}
     if cfg.save_artifacts:
+        # A pass of every rank (its outputs are gathered); rank 0 writes.
+        vectors = trainer.extract_vectors(loaders["test"])
+    if cfg.save_artifacts and rank0:
         ts = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
         best_path = os.path.join(cfg.out_dir, f"best_model_{ts}.npz")
         save_params_npz(best_path, flax_params(model, best_params), metadata={
@@ -236,7 +250,6 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
         # extract_and_save_vectors parity (10_FAME.py:559-604): the reference
         # npz keys are gated_vectors [N, 768], fusion_pre_relu_vectors
         # [N, 512], labels, age, ethnicity, insurance; `logits` is an extra.
-        vectors = trainer.extract_vectors(loaders["test"])
         np.savez(os.path.join(cfg.out_dir, f"extracted_vectors_{ts}.npz"),
                  logits=test_out["logits"], **vectors)
         artifacts = {"best_model": best_path}
@@ -273,7 +286,7 @@ def run_fame_experiment(structured, unstructured, config: Optional[FAMEPipelineC
     :func:`run_fame_bundle`."""
     cfg = config or FAMEPipelineConfig()
     _check_config(cfg)
-    device = resolve_device(device)
+    device = cfg.mesh.device if cfg.mesh is not None else resolve_device(device)
     t0 = time.perf_counter()
     structured, unstructured = as_table(structured), as_table(unstructured)
     if cfg.head:

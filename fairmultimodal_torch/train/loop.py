@@ -25,9 +25,22 @@ The eval passes read the live model: load ``fit``'s best state into
 state is saved after each epoch's dynamic-weight update and the latest step
 is restored on entry, so a resumed run continues bit for bit.
 
+Data parallelism (``mesh=``, the JAX trainer's ``shard_map`` path,
+``loop.py:203-276``): every rank holds the whole model and takes its
+contiguous ``B / world`` rows of each batch (``parallel.shard_batch``; the
+loaders shard for it).  The BCE and L_EDDI are global values with a local
+gradient path (``parallel.global_sum``), the L1 term enters rank 0's
+gradient only, and the gradients are summed in one flat all-reduce per step
+before the zero-grad rule, the clip and AdamW, so every rank takes the same
+step and the parameters stay bit-identical.  The eval passes gather their
+per-row outputs back to global arrays in batch order; the dynamic-weight
+statistics are summed over the ranks (exact integer sums: bit-identical to
+one process).  Each rank folds its rank into its dropout seeds
+(``utils.rng.RankGenerator``); the generator's stream, and so every
+checkpoint, is the single process's.  Only rank 0 writes files.
+
 Not ported here (ROADMAP): the one-dispatch statistics scan (the batchwise
-pass gives the same weights: its statistics are exact integer sums),
-multi-GPU.
+pass gives the same weights: its statistics are exact integer sums).
 """
 
 from __future__ import annotations
@@ -48,7 +61,9 @@ from fairmultimodal_torch.fairness.loss import eddi_loss
 from fairmultimodal_torch.ops.gates import resolve_device
 from fairmultimodal_torch.ops.losses import bce_with_logits
 from fairmultimodal_torch.ops.optim import make_adamw
-from fairmultimodal_torch.utils.rng import make_generator
+from fairmultimodal_torch.parallel.sharding import (all_reduce_flat, check_data_parallel,
+                                                    gather_rows, replicate)
+from fairmultimodal_torch.utils.rng import RankGenerator, make_generator
 
 __all__ = ["TrainConfig", "PlateauScheduler", "EarlyStopper", "FAMETrainer"]
 
@@ -139,20 +154,38 @@ class FAMETrainer:
     state, the model's parameters are updated in place and the optimizer
     (``self.optimizer``) lives on the trainer; :meth:`fit` starts a fresh
     one, as the JAX ``fit`` inits its optimizer state.
+
+    With a data-parallel ``mesh`` (:func:`~fairmultimodal_torch.parallel.get_mesh`)
+    the trainer runs on ``mesh.device``, broadcasts rank 0's weights, and
+    every batch it is given is this rank's shard of a global batch of
+    ``config.batch_size`` rows.
     """
 
     def __init__(self, model, config: TrainConfig, pos_weight, rngs_seed: int = 0,
-                 device=None, dynamic_weights_csv: Optional[str] = None):
+                 device=None, dynamic_weights_csv: Optional[str] = None, mesh=None):
         if config.rng_impl != "philox":
             raise ValueError(f"rng_impl {config.rng_impl!r}: the port's dropout is 'philox'")
+        self.mesh = mesh
+        if mesh is not None:
+            check_data_parallel(mesh.data, mesh.model)
+            if config.batch_size % mesh.data:
+                raise ValueError(
+                    f"batch_size {config.batch_size} must be divisible by the mesh's data "
+                    f"axis ({mesh.data}) for the data-parallel path")
+            device = mesh.device
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        if mesh is not None:
+            replicate(self.model, mesh)
         self.config = config
         # fp32 like the JAX trainer's (jnp.float32); promoted inside the loss.
         self.pos_weight = torch.as_tensor(np.asarray(pos_weight), dtype=torch.float32,
                                           device=self.device)
         self.dynamic_weights_csv = dynamic_weights_csv
         self.generator = make_generator(rngs_seed)
+        # Every rank draws the single process's seeds, each folded with its rank.
+        self._dropout_rng = (self.generator if mesh is None
+                             else RankGenerator(self.generator, mesh.rank))
         self.optimizer = make_adamw(self.model, config.lr, config.weight_decay)
         # Host dynamic weights stay float64 like the reference's python floats.
         self.dynamic_weights = np.full((3, 3), 0.33)
@@ -166,21 +199,35 @@ class FAMETrainer:
         dw = self.dynamic_weights if dynamic_weights is None else dynamic_weights
         return torch.as_tensor(dw, device=self.device)
 
+    @property
+    def _group(self):
+        return None if self.mesh is None else self.mesh.group
+
+    @property
+    def _rank0(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
     def _loss(self, out, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         logits, labels, w = out["fused_logits"], batch["labels"], batch["weight"]
-        bce = bce_with_logits(logits, labels, pos_weight=self.pos_weight, weight=w)
+        bce = bce_with_logits(logits, labels, pos_weight=self.pos_weight, weight=w,
+                              group=self._group)
         mi = batch["model_inputs"]
         leddi = eddi_loss(torch.sigmoid(logits), labels, [mi[k] for k in _SENSITIVE],
-                          GROUP_SIZES, weight=w)
+                          GROUP_SIZES, weight=w, group=self._group)
         l1 = self.model.fusion.sig_weights.abs().sum()
+        if not self._rank0:
+            # A term of the parameters alone: the gradients are summed over
+            # the ranks, so it enters through rank 0's only.
+            l1 = l1.detach()
         cfg = self.config
         return bce + cfg.lambda_edd * (10.0 * leddi) + cfg.lambda_l1 * l1, bce
 
-    def train_step(self, batch, dynamic_weights=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One optimizer step on a device batch; returns the (total, bce) loss
-        tensors, left on the device."""
+    def backward(self, batch, dynamic_weights=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Forward and backward of one device batch (this rank's shard under a
+        mesh), leaving in each optimized parameter's ``.grad`` the gradient
+        of the global loss; returns the (total, bce) loss tensors."""
         self.model.train()
-        gen = None if self.config.deterministic_forward else self.generator
+        gen = None if self.config.deterministic_forward else self._dropout_rng
         out = self.model(batch["model_inputs"], dynamic_weights=self._dyn_w(dynamic_weights),
                          generator=gen)
         total, bce = self._loss(out, batch)
@@ -190,20 +237,28 @@ class FAMETrainer:
         # query/key at one token) gets a zero gradient, as jax.grad gives it,
         # so AdamW still decays it; the loss-free heads are not in the
         # optimizer and keep no gradient.
-        for group in self.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        params = [p for group in self.optimizer.param_groups for p in group["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.mesh is not None:
+            all_reduce_flat([p.grad for p in params], self.mesh)
+        return total.detach(), bce.detach()
+
+    def train_step(self, batch, dynamic_weights=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One optimizer step on a device batch; returns the (total, bce) loss
+        tensors, left on the device."""
+        total, bce = self.backward(batch, dynamic_weights)
         torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.config.grad_clip)
         self.optimizer.step()
-        return total.detach(), bce.detach()
+        return total, bce
 
     def set_lr(self, lr: float) -> None:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
 
     def _batches(self, loader):
-        return PrefetchLoader(loader, self.device)
+        return PrefetchLoader(loader, self.device, mesh=self.mesh)
 
     def train_epoch(self, loader) -> Tuple[float, float]:
         """One pass; the step losses stay on the device until the pass ends
@@ -237,26 +292,30 @@ class FAMETrainer:
     def _host(t: torch.Tensor) -> np.ndarray:
         return t.detach().cpu().numpy()
 
+    def _rows(self, t: torch.Tensor) -> np.ndarray:
+        """Per-row values of a (sharded) batch, in global batch order, on the host."""
+        return self._host(t if self.mesh is None else gather_rows(t, self.mesh))
+
     def validate(self, loader) -> Tuple[float, np.ndarray, np.ndarray]:
         """Mean val BCE over batches (10_FAME.py:825), logits and labels of
         the real rows."""
         res = self._eval_pass(loader, lambda out, b: (
             bce_with_logits(out["fused_logits"], b["labels"], pos_weight=self.pos_weight,
-                            weight=b["weight"]), out["fused_logits"]))
+                            weight=b["weight"], group=self._group), out["fused_logits"]))
         if not res:
             return float("inf"), np.zeros((0, 3)), np.zeros((0, 3))
         losses = [float(v) for v in self._host(torch.stack([r[0][0] for r in res]))]
-        keep = [self._host(b["weight"]) > 0 for _, b in res]
-        logits = np.concatenate([self._host(r[0][1])[k] for r, k in zip(res, keep)])
-        labels = np.concatenate([self._host(b["labels"])[k] for (_, b), k in zip(res, keep)])
+        keep = [self._rows(b["weight"]) > 0 for _, b in res]
+        logits = np.concatenate([self._rows(r[0][1])[k] for r, k in zip(res, keep)])
+        labels = np.concatenate([self._rows(b["labels"])[k] for (_, b), k in zip(res, keep)])
         return float(np.mean(losses)), logits, labels
 
     def _collect(self, res, named: Dict[str, Callable]) -> Dict[str, np.ndarray]:
         out = {k: [] for k in named}
         for item, batch in res:
-            keep = self._host(batch["weight"]) > 0
+            keep = self._rows(batch["weight"]) > 0
             for k, get in named.items():
-                out[k].append(self._host(get(item, batch))[keep])
+                out[k].append(self._rows(get(item, batch))[keep])
         return {k: np.concatenate(v) if v else np.zeros(0) for k, v in out.items()}
 
     def _sensitive(self) -> Dict[str, Callable]:
@@ -279,15 +338,13 @@ class FAMETrainer:
                                    "fusion_pre_relu_vectors": lambda i, b: i[1],
                                    **self._sensitive()})
 
-    def update_dynamic_weights(self, loader, threshold: float = 0.5) -> np.ndarray:
-        """Per-epoch EDDI-guided weight update (10_FAME.py:315-399).
-
-        Each batch reduces on the device to per-attribute group counts [G]
-        and per-(modality, task) error counts [M, T, G] (exact small-integer
-        sums in fp32); their sums come back in one pull, and the update runs
-        on the host in float64: per task, each modality's weight moves by
-        clip(beta * (eddi_max - eddi_m), +-0.05), floored at 0.1 and
-        renormalised."""
+    def dynamic_weight_stats(self, loader, threshold: float = 0.5) -> np.ndarray:
+        """The statistics of :meth:`update_dynamic_weights`, flat in float64:
+        per attribute, group counts [G] then per-(modality, task) error
+        counts [M, T, G].  Each batch reduces to them on the device (exact
+        small-integer sums in fp32) and their sum comes back in one pull;
+        under a mesh it is summed over the ranks too (exact: the single
+        process's bits)."""
         def stats(out, b):
             ml = out["modality_logits"]
             probs = torch.sigmoid(torch.stack([ml[m] for m in MODALITIES], dim=1))  # [B, M, T]
@@ -301,10 +358,20 @@ class FAMETrainer:
             return torch.cat([r.reshape(-1) for r in res])
 
         res = self._eval_pass(loader, stats)
+        if not res:
+            return np.zeros(sum(s for g in GROUP_SIZES for s in (g, 9 * g)))
+        summed = torch.stack([r for r, _ in res]).sum(dim=0)
+        if self.mesh is not None:
+            all_reduce_flat([summed], self.mesh)
+        return self._host(summed).astype(np.float64)
+
+    def update_dynamic_weights(self, loader, threshold: float = 0.5) -> np.ndarray:
+        """Per-epoch EDDI-guided weight update (10_FAME.py:315-399) from
+        :meth:`dynamic_weight_stats`, on the host in float64: per task, each
+        modality's weight moves by clip(beta * (eddi_max - eddi_m), +-0.05),
+        floored at 0.1 and renormalised."""
         sizes = [s for g in GROUP_SIZES for s in (g, 9 * g)]
-        flat = (self._host(torch.stack([r for r, _ in res]).sum(dim=0)).astype(np.float64)
-                if res else np.zeros(sum(sizes)))
-        parts = np.split(flat, np.cumsum(sizes)[:-1])
+        parts = np.split(self.dynamic_weight_stats(loader, threshold), np.cumsum(sizes)[:-1])
         counts = parts[0::2]
         errors = [e.reshape(3, 3, -1) for e in parts[1::2]]
 
@@ -379,6 +446,8 @@ class FAMETrainer:
         scalars, the dropout generator, the histories and CSV rows, and the
         train loader's consumed-epoch count) is saved after each epoch's
         dynamic-weight update, and the latest step is restored on entry.
+        Under a mesh every rank restores; give the checkpointer the mesh, so
+        that rank 0 alone writes.
 
         The loader's count is what makes the resume bit-identical.  Each
         completed epoch draws two ``(seed, epoch)`` permutations from the
@@ -444,12 +513,12 @@ class FAMETrainer:
             self.tracked_sigmoid_weights.append(
                 self._host(torch.sigmoid(self.model.fusion.sig_weights.detach())))
             if checkpointer is not None:
-                checkpointer.save(epoch + 1, self._checkpoint_state(
+                checkpointer.save(epoch + 1, lambda: self._checkpoint_state(
                     best, sched, stopper, csv_rows, getattr(inner, "epoch", None)))
             if on_epoch_end is not None:
                 on_epoch_end(epoch, self.model)
 
-        if self.dynamic_weights_csv:
+        if self.dynamic_weights_csv and self._rank0:
             with open(self.dynamic_weights_csv, "w", newline="") as f:
                 csv.writer(f).writerows(csv_rows)
         return best, self.history

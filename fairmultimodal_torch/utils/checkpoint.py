@@ -14,7 +14,8 @@ format (the JAX one writes orbax directories): one ``step_<k>.pt`` per
 completed epoch, written under a temporary name and moved into place with
 ``os.replace``, so a reader never sees a torn file.  Each file holds tensors
 and plain Python containers only and reads back with ``torch.load(...,
-weights_only=True)``.
+weights_only=True)``.  Under a data-parallel mesh rank 0 writes, every rank
+waits until the file is in place, and every rank reads.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -77,28 +78,37 @@ def load_metadata_npz(path: str) -> Optional[Dict]:
 
 
 class Checkpointer:
-    """Per-epoch train-state files ``<directory>/step_<k>.pt``."""
+    """Per-epoch train-state files ``<directory>/step_<k>.pt``; with a
+    data-parallel ``mesh`` only rank 0 writes them."""
 
     _STEP = re.compile(r"step_(\d+)\.pt")
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, mesh=None):
         self.directory = os.path.abspath(directory)
+        self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
 
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step}.pt")
 
-    def save(self, step: int, state: Dict[str, Any]) -> str:
-        """Write ``state`` for ``step``; returns the file's path."""
+    def save(self, step: int, state: Union[Dict[str, Any], Callable[[], Dict[str, Any]]]) -> str:
+        """Write ``state`` (or what the function ``state`` returns, called on
+        the writing rank only) for ``step``; returns the file's path.  Under a
+        mesh every rank returns once the file is in place."""
         path = self.path(step)
-        tmp = f"{path}.tmp.{os.getpid()}"
-        try:
-            torch.save(state, tmp)
-            os.replace(tmp, path)
-        except BaseException:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-            raise
+        if self.mesh is None or self.mesh.rank == 0:
+            tmp = f"{path}.tmp.{os.getpid()}"
+            try:
+                torch.save(state() if callable(state) else state, tmp)
+                os.replace(tmp, path)
+            except BaseException:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise
+        if self.mesh is not None:
+            from fairmultimodal_torch.parallel.sharding import barrier
+
+            barrier(self.mesh)
         return path
 
     def restore(self, step: int, map_location=None) -> Dict[str, Any]:

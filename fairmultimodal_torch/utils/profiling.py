@@ -23,6 +23,7 @@ import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["trace", "profile_to", "hlo_self_times", "Timer", "throughput"]
 
@@ -87,7 +88,9 @@ def throughput(step_fn: Callable, *args, iters: int = 20, warmup: int = 3,
     """Steady-state throughput of ``step_fn(*args)``: ``warmup`` calls, then
     ``iters`` timed calls with one synchronisation on the last call's output
     (a tensor or a tuple / list of them).  Returns wall seconds, calls/s,
-    items/s and the per-device rate."""
+    items/s and the per-device rate, over the ranks of the process group
+    when there is one (``jax.device_count()`` in JAX): under data
+    parallelism ``items_per_call`` is the global batch."""
 
     def wait(out):
         _synchronize(*(out if isinstance(out, (tuple, list)) else (out,)))
@@ -101,7 +104,7 @@ def throughput(step_fn: Callable, *args, iters: int = 20, warmup: int = 3,
         out = step_fn(*args)
     wait(out)
     dt = time.perf_counter() - t0
-    n_chips = 1    # one device per process until multi-GPU (ROADMAP queue 1 item 6)
+    n_chips = dist.get_world_size() if dist.is_initialized() else 1
     return {
         "seconds": dt,
         "calls_per_sec": iters / dt,

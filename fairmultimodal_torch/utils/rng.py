@@ -19,6 +19,12 @@ an explicit :class:`torch.Generator` that the caller owns (the trainer's):
 each dropout site draws its own seed on the host with :func:`draw_seed`, as
 ``TorchEncoderLayer._dropout_seed`` does in JAX.  Nothing here touches the
 global RNG.
+
+A data-parallel rank draws from a :class:`RankGenerator`: the trainer's
+generator, which every rank holds in the same state, with the rank folded
+into each seed it draws (:func:`fold_in`, ``jax.random.fold_in(rng,
+axis_index)`` in the JAX trainer).  The seed is the Philox key, so the fold
+reaches the plain masks and the kernels' alike.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 __all__ = ["philox4x32", "random_bits", "keep_threshold", "dropout_mask", "Dropout",
-           "apply_dropout", "dropout", "draw_seed", "make_generator"]
+           "apply_dropout", "dropout", "draw_seed", "make_generator", "fold_in",
+           "RankGenerator"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -118,8 +125,26 @@ def dropout(x: torch.Tensor, rate: float, seed: Optional[int], stream: int = 0) 
     return apply_dropout(x, Dropout.make(seed, stream, rate))
 
 
-def draw_seed(generator: torch.Generator) -> int:
-    """One dropout seed in [0, 2**31 - 1) from the caller's generator (host)."""
+def fold_in(seed: int, rank: int) -> int:
+    """``seed`` (below 2**32) with ``rank`` as the Philox key's high word:
+    key = (seed, rank).  Rank 0 keeps the seed, so a one-rank mesh draws
+    the single process's masks."""
+    return int(seed) | (int(rank) << 32)
+
+
+class RankGenerator(NamedTuple):
+    """``generator`` as data-parallel rank ``rank`` draws from it: the same
+    draws, each seed folded with the rank (:func:`fold_in`)."""
+    generator: torch.Generator
+    rank: int
+
+
+def draw_seed(generator) -> int:
+    """One dropout seed from the caller's generator (host): in [0, 2**31 - 1)
+    from a ``torch.Generator``, folded with the rank from a
+    :class:`RankGenerator`."""
+    if isinstance(generator, RankGenerator):
+        return fold_in(draw_seed(generator.generator), generator.rank)
     return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator).item())
 
 

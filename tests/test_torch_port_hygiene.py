@@ -37,6 +37,7 @@ from fairmultimodal_torch.data.featurize import FeatureBundle
 from fairmultimodal_torch.models.bert import BertConfig
 from fairmultimodal_torch.models.fusion import FAMEModel
 from fairmultimodal_torch.models.text import TextEncoder
+from fairmultimodal_torch.parallel import Mesh
 from fairmultimodal_torch.pipelines.fame import (FAMEPipelineConfig, run_fame_bundle,
                                                  run_fame_experiment)
 from fairmultimodal_torch.pipelines.inference import FAMEPredictor, run_fame_inference
@@ -155,7 +156,9 @@ def test_experiment_entry_points_default_to_cuda_and_raise_without_it(monkeypatc
 
 
 @pytest.mark.parametrize("field,value,error,match", [
-    ("mesh", object(), NotImplementedError, "queue 1 item 6"),
+    # Data parallelism is ported; a model axis (tensor parallelism) is not.
+    ("mesh", Mesh(data=2, model=2, rank=0, device=torch.device("cpu")), NotImplementedError,
+     "queue 1 item 6"),
     ("require_hf_weights", True, RuntimeError, "required"),
 ])
 def test_experiment_fields_not_ported_raise(field, value, error, match, tmp_path):
