@@ -35,12 +35,12 @@ tables in a fresh temporary directory) into the five CSVs in ``--out_dir``,
 with ``--use_native`` and ``--timing``.
 
 ``--mesh N`` (or ``Nx1``) trains ``fame`` / ``fpm`` data-parallel over N
-ranks (:mod:`fairmultimodal_torch.parallel`): NCCL over N cards, or gloo
-ranks on the CPU with ``--device cpu``.  Started as one command it spawns
-its N rank processes; under ``torchrun --nproc-per-node N`` each process
-joins the job it finds.  ``--mesh NxM`` with M > 1 (tensor parallelism)
-exits naming its ROADMAP item; ``--mesh`` on another pipeline exits as the
-JAX command line does.
+ranks (:mod:`fairmultimodal_torch.parallel`), and ``--mesh NxM`` over N data
+x M tensor-parallel ranks: NCCL over N·M cards, or gloo ranks on the CPU
+with ``--device cpu``.  Started as one command it spawns its N·M rank
+processes; under ``torchrun --nproc-per-node N·M`` each process joins the
+job it finds.  ``--mesh`` on another pipeline exits as the JAX command line
+does.
 
 Where the port departs from the JAX command line:
 
@@ -49,6 +49,11 @@ Where the port departs from the JAX command line:
   the same directory, so run 2 resumes from run 1's last epoch, trains for
   no epochs, and reports run 1's model on its own split.  With ``--runs 1``
   the directory is used as given.
+- ``--mesh NxM`` with M > 1 shards the FAME model over the M ranks of each
+  model group (``parallel.shard_params_tp``), as the JAX help promises
+  ("4-way data x 2-way tensor parallelism").  The JAX command line never
+  shards: its model axis holds replicas that repeat each other's work.  The
+  numbers are the same.
 - ``--bf16`` is the compute dtype of every model the run builds.  The JAX
   command line builds the text encoder in float32 when
   ``--require_hf_weights`` is given (and, for the baselines, always: its
@@ -123,10 +128,10 @@ def build_parser(default_pipeline: Optional[str] = None):
     p.add_argument("--synthetic_chunks", type=int, default=3,
                    help="note-chunk columns in the synthetic cohort")
     p.add_argument("--mesh", default=None, metavar="DATA[xMODEL]",
-                   help="data-parallel training over DATA ranks (fame/fpm): one process per "
-                        "rank, NCCL over one card each, or gloo ranks with --device cpu; "
-                        "spawned here, or joined under torchrun.  A MODEL axis over 1 "
-                        "(tensor parallelism) is not ported")
+                   help="training over DATA x MODEL ranks (fame/fpm): '8' = 8-way data "
+                        "parallelism, '4x2' = 4-way data x 2-way tensor parallelism; one "
+                        "process per rank, NCCL over one card each, or gloo ranks with "
+                        "--device cpu; spawned here, or joined under torchrun")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--tiny", action="store_true", help="tiny geometry for CPU smoke runs")
     p.add_argument("--quiet", action="store_true")
@@ -310,14 +315,14 @@ def _run_meshed(args) -> int:
         raise SystemExit("--mesh is supported for fame/fpm only")
     try:
         data, model = parallel.parse_mesh(args.mesh)
-        parallel.check_data_parallel(data, model)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         raise SystemExit(f"--mesh: {e}") from None
-    devices = ["cpu"] * data if args.device == "cpu" else None
-    if data > 1 and not parallel.launched():
+    world = data * model
+    devices = ["cpu"] * world if args.device == "cpu" else None
+    if world > 1 and not parallel.launched():
         parallel.mesh_devices(devices, data, model)
-        threads = max(1, (os.cpu_count() or 1) // data) if args.device == "cpu" else None
-        return max(parallel.launch(run_pipeline, data, args=(args,), threads=threads))
+        threads = max(1, (os.cpu_count() or 1) // world) if args.device == "cpu" else None
+        return max(parallel.launch(run_pipeline, world, args=(args,), threads=threads))
     mesh = parallel.get_mesh(data, model, devices=devices)
     try:
         rank_args = copy.copy(args)

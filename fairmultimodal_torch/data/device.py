@@ -41,8 +41,9 @@ class DeviceLoader:
       shuffle: per-epoch reshuffle with the BatchIterator protocol.
       seed: shuffle seed (permutation = default_rng((seed, epoch))).
       device: ``None`` means CUDA and raises without it; ``"cpu"`` for tests.
-      mesh: a data-parallel mesh: park on ``mesh.device`` and yield this
-        rank's ``batch_size / mesh.data`` rows of each global batch.
+      mesh: a mesh: park on ``mesh.device`` and yield this rank's
+        ``batch_size / mesh.data`` rows of each global batch, by its data
+        index (the ranks of a model group take the same rows).
     """
 
     device_resident = True
@@ -119,7 +120,7 @@ class DeviceLoader:
         idx_mat, valid_mat = self.epoch_index_matrix()
         if self.mesh is not None:
             b = self.batch_size // self.mesh.data
-            cols = slice(self.mesh.rank * b, (self.mesh.rank + 1) * b)
+            cols = slice(self.mesh.data_index * b, (self.mesh.data_index + 1) * b)
             idx_mat, valid_mat = idx_mat[:, cols], valid_mat[:, cols]
         for idx, valid in zip(idx_mat, valid_mat):
             yield self._gather(torch.from_numpy(idx).to(self.device, non_blocking=True),

@@ -62,7 +62,7 @@ from fairmultimodal_torch.data.validate import count_unmapped, validate_mimic_di
 from fairmultimodal_torch.ops.gates import resolve_device
 
 __all__ = ["run_etl", "FEATURE_SET_C", "split_text_to_chunks", "clean_note_text",
-           "clean_and_chunk_texts", "chunk_lists_to_table"]
+           "clean_and_chunk_texts", "chunk_lists_to_table", "chunk_lists_to_frame"]
 
 # --- Constant tables (data, reproduced from 00_data.py:64-78,346-352) -------
 
@@ -940,6 +940,15 @@ def chunk_lists_to_table(chunk_lists: List[List[str]]) -> Table:
     max_c = max((len(c) for c in chunk_lists), default=0)
     return {f"note_chunk_{i + 1}": text_array([cl[i] if i < len(cl) else None for cl in chunk_lists])
             for i in range(max_c)}
+
+
+def chunk_lists_to_frame(chunk_lists: List[List[str]], index=None) -> Table:
+    """The JAX function's name for :func:`chunk_lists_to_table` (a port table
+    in place of its DataFrame; ``index``, the DataFrame's row labels, must
+    have one entry per document and is not kept)."""
+    if index is not None and len(index) != len(chunk_lists):
+        raise ValueError(f"index of {len(index)} rows for {len(chunk_lists)} documents")
+    return chunk_lists_to_table(chunk_lists)
 
 
 def build_unstructured(mimic_dir: str, out_dir: str, use_native: Optional[bool] = None,

@@ -27,8 +27,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["available", "notes_available", "library_path", "aggregate_events_native",
-           "clean_and_chunk_native"]
+__all__ = ["build", "available", "notes_available", "library_path",
+           "aggregate_events_native", "clean_and_chunk_native"]
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]
@@ -100,6 +100,19 @@ def _declare_notes(lib: ctypes.CDLL) -> None:
                                    ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, i64p]
     lib.fastnotes_free.restype = None
     lib.fastnotes_free.argtypes = [ctypes.c_void_p]
+
+
+def build(quiet: bool = True) -> bool:
+    """Compile the native libraries (idempotent); returns success.  With
+    ``quiet=False`` a failed ``g++`` prints its error."""
+    try:
+        for name in _SOURCES:
+            library_path(name)
+    except (OSError, subprocess.SubprocessError) as e:
+        if not quiet:
+            print(getattr(e, "stderr", None) or e)
+        return False
+    return True
 
 
 def available() -> bool:

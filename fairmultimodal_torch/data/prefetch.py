@@ -5,21 +5,23 @@ use: the arrays are staged in pinned host memory and copied with
 ``non_blocking=True``, so the copy of batch N+1 overlaps the card computing
 step N.  Tensors already on the device pass through unchanged, and a loader
 marked ``device_resident`` (:class:`~fairmultimodal_torch.data.device.DeviceLoader`)
-is iterated as it is.  Under a data-parallel mesh each host batch is cut to
-this rank's rows (``parallel.shard_batch``) before its copy; a
+is iterated as it is.  Under a mesh each host batch is cut to this rank's
+rows (``parallel.shard_batch``, by its data index) before its copy; a
 device-resident loader must have been parked under the same mesh.
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterator
+import collections
+from typing import Any, Iterable, Iterator
 
 import numpy as np
 import torch
 
+from fairmultimodal_torch.ops.gates import resolve_device
 from fairmultimodal_torch.parallel.sharding import shard_batch
 
-__all__ = ["to_device", "PrefetchLoader"]
+__all__ = ["to_device", "prefetch_to_device", "PrefetchLoader"]
 
 
 def to_device(batch: Any, device: torch.device) -> Any:
@@ -32,6 +34,27 @@ def to_device(batch: Any, device: torch.device) -> Any:
     if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def prefetch_to_device(iterable: Iterable, size: int = 2, device=None) -> Iterator:
+    """Yield the batches of ``iterable`` on ``device`` (``None`` means CUDA
+    and raises without it), keeping ``size`` copies in flight (the JAX
+    function's; its ``sharding`` is a device here)."""
+    device = resolve_device(device)
+    queue: collections.deque = collections.deque()
+    it = iter(iterable)
+
+    def enqueue(n):
+        for _ in range(n):
+            try:
+                queue.append(to_device(next(it), device))
+            except StopIteration:
+                return
+
+    enqueue(size)
+    while queue:
+        yield queue.popleft()
+        enqueue(1)
 
 
 class PrefetchLoader:

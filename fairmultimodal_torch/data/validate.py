@@ -7,8 +7,10 @@ tables) and raises :class:`MimicInputError` with the JAX function's
 messages, naming the file and the columns.  :func:`count_unmapped` counts
 the rows whose category text fell through to a catch-all bucket, on arrays.
 
-The cohort-table check, ``validate_common_frames``, is
-:func:`fairmultimodal_torch.data.featurize.validate_common_frames`.
+:func:`validate_common_frames` is the cohort tables' pre-flight with the
+JAX function's signature and error: it runs
+:func:`fairmultimodal_torch.data.featurize.validate_common_frames` (tables
+or DataFrames) and raises :class:`MimicInputError`.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 
-__all__ = ["MimicInputError", "REQUIRED_RAW_COLUMNS", "validate_mimic_dir", "count_unmapped"]
+__all__ = ["MimicInputError", "REQUIRED_RAW_COLUMNS", "validate_mimic_dir",
+           "validate_common_frames", "count_unmapped"]
 
 
 class MimicInputError(ValueError):
@@ -122,6 +125,21 @@ def validate_mimic_dir(mimic_dir: str, tables: Optional[Iterable[str]] = None) -
         raise MimicInputError(
             "raw MIMIC input validation failed in "
             f"{mimic_dir}:\n  - " + "\n  - ".join(problems))
+
+
+def validate_common_frames(structured, unstructured,
+                           label_columns: Optional[Iterable[str]] = None) -> None:
+    """Pre-flight for the training pipelines (``validate.py:131``): the two
+    cohort tables carry the merge keys, the label columns (default the three
+    tasks') without NaN, and note chunks."""
+    from fairmultimodal_torch import LABEL_COLUMNS
+    from fairmultimodal_torch.data.featurize import CohortInputError
+    from fairmultimodal_torch.data.featurize import validate_common_frames as check
+
+    try:
+        check(structured, unstructured, list(label_columns or LABEL_COLUMNS))
+    except CohortInputError as e:
+        raise MimicInputError(str(e)) from None
 
 
 def count_unmapped(raw, mapped, catch_all: str) -> int:

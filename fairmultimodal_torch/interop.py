@@ -31,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["state_dict_from_flax", "load_flax_params", "flax_params"]
+__all__ = ["state_dict_from_flax", "load_flax_params", "flax_params", "flax_leaf"]
 
 
 def state_dict_from_flax(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -68,19 +68,31 @@ def flax_params(module: nn.Module,
     values = dict(module.named_parameters()) if state_dict is None else state_dict
     tree: Dict = {}
     for name, _ in module.named_parameters():
-        path, leaf = name.rsplit(".", 1) if "." in name else ("", name)
-        owner = module.get_submodule(path)
         arr = values[name].detach().float().cpu().numpy()
-        if isinstance(owner, nn.Linear) and leaf == "weight":
-            leaf, arr = "kernel", arr.T
-        elif isinstance(owner, nn.Conv1d) and leaf == "weight":
-            leaf, arr = "kernel", arr.transpose(2, 1, 0)
-        elif isinstance(owner, nn.Embedding) and leaf == "weight":
-            leaf = "embedding"
-        elif isinstance(owner, nn.LayerNorm) and leaf == "weight":
-            leaf = "scale"
+        key, _ = flax_leaf(module, name, arr.shape)
+        if key.endswith("/kernel") or key == "kernel":
+            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0)
+        *parents, leaf = key.split("/")
         node = tree
-        for part in path.split(".") if path else ():
+        for part in parents:
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(arr)
     return tree
+
+
+def flax_leaf(module: nn.Module, name: str, shape=()):
+    """A parameter's flax path (``/``-joined) and its shape in flax's layout
+    (a Dense kernel ``[in, out]``, a convolution's ``[k, in, out]``), from
+    the port's name and shape."""
+    path, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+    owner = module.get_submodule(path)
+    shape = tuple(shape)
+    if isinstance(owner, nn.Linear) and leaf == "weight":
+        leaf, shape = "kernel", shape[::-1]
+    elif isinstance(owner, nn.Conv1d) and leaf == "weight":
+        leaf, shape = "kernel", shape[::-1]
+    elif isinstance(owner, nn.Embedding) and leaf == "weight":
+        leaf = "embedding"
+    elif isinstance(owner, nn.LayerNorm) and leaf == "weight":
+        leaf = "scale"
+    return "/".join(path.split(".") + [leaf]) if path else leaf, shape

@@ -15,9 +15,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fairmultimodal_torch.parallel.sharding import copy_to_model, reduce_from_model
 from fairmultimodal_torch.utils.rng import draw_seed
 
-__all__ = ["linear", "layer_norm", "embed", "dropout_seed", "init_params"]
+__all__ = ["linear", "layer_norm", "embed", "dropout_seed", "column_input", "row_linear",
+           "init_params"]
 
 
 def linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -34,15 +36,33 @@ def embed(ids: torch.Tensor, table: nn.Embedding, dtype: torch.dtype) -> torch.T
     return F.embedding(ids.long(), table.weight).to(dtype)
 
 
-def dropout_seed(module: nn.Module, rate: float,
-                 generator: Optional[torch.Generator]) -> Optional[int]:
+def dropout_seed(module: nn.Module, rate: float, generator: Optional[torch.Generator],
+                 sharded: bool = False) -> Optional[int]:
     """Philox seed of one dropout site, drawn on the host from the caller's
     generator when ``module`` trains and has dropout; None (no dropout)
     otherwise.  Dropout runs in train mode given a generator: no module
-    draws from the global RNG (the JAX modules' ``rngs={"dropout": ...}``)."""
+    draws from the global RNG (the JAX modules' ``rngs={"dropout": ...}``).
+    ``sharded``: the site's activation is a tensor-parallel shard
+    (``utils/rng.py::draw_seed``)."""
     if module.training and rate > 0.0 and generator is not None:
-        return draw_seed(generator)
+        return draw_seed(generator, sharded)
     return None
+
+
+def column_input(x: torch.Tensor, tp) -> torch.Tensor:
+    """The input of a half-layer's column-parallel products: ``x``, through
+    the model group's "copy" on a sharded half (``tp``, its mesh)."""
+    return x if tp is None else copy_to_model(x, tp)
+
+
+def row_linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype, tp) -> torch.Tensor:
+    """A half-layer's row-parallel product: :func:`linear`, or on a sharded
+    half this rank's partial sum reduced over the model group, then the
+    (replicated) bias added once."""
+    if tp is None:
+        return linear(x, lin, dtype)
+    partial = F.linear(x.to(dtype), lin.weight.to(dtype))
+    return reduce_from_model(partial, tp) + lin.bias.to(dtype)
 
 
 @torch.no_grad()

@@ -43,7 +43,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fairmultimodal_torch.models._layers import dropout_seed, embed, layer_norm, linear
+from fairmultimodal_torch.models._layers import (column_input, dropout_seed, embed, layer_norm,
+                                                 linear, row_linear)
 from fairmultimodal_torch.models.bert import BertConfig, BertEncoderModel
 from fairmultimodal_torch.ops.attention import multi_head_attention
 from fairmultimodal_torch.ops.dropout_add_layernorm import dropout_add_layernorm
@@ -51,6 +52,7 @@ from fairmultimodal_torch.ops.fused_attention_block import (
     fused_attention_block, fused_attention_block_ln)
 from fairmultimodal_torch.ops.fused_ffn import fused_ffn, fused_ffn_ln
 from fairmultimodal_torch.ops.gates import can_use_fused_attention_block, can_use_fused_ffn
+from fairmultimodal_torch.parallel.sharding import reduce_from_model
 from fairmultimodal_torch.utils.rng import Dropout, dropout
 
 __all__ = ["TorchEncoderLayer", "BEHRTLab", "BEHRTDemo", "BEHRTCombined"]
@@ -67,7 +69,19 @@ class TorchEncoderLayer(nn.Module):
     wrapper (its plain version on a CPU tensor), False the flash route /
     plain FFN.  ``fold_ln``: None reads ``FMTPU_FOLD_LN`` at call time ("0"
     = unfolded), True / False choose the LN-fused or the unfolded kernels.
-    These three may be set on a built layer."""
+    These three may be set on a built layer.
+
+    Tensor parallelism (:func:`~fairmultimodal_torch.parallel.shard_params_tp`):
+    ``attn_tp`` / ``ffn_tp`` hold the mesh of a sharded half (None: whole).
+    A sharded attention half runs the flash route on this rank's heads and
+    a sharded FFN half its ``F / model`` columns (``fused_ffn``, #7 / #8,
+    with a zero ``b2``, on shapes that pass the gate); each row-parallel
+    partial sum is reduced over the model group before its bias, the
+    dropout, the residual and the LayerNorm (the replicated glue).  The
+    LayerNorm-fused kernels (#1-#4) fold the LayerNorm into the product the
+    reduction splits, so a sharded layer never runs them: ``shard_params_tp``
+    sets ``attn_kernel=False`` and ``fold_ln=False`` on it, and forcing either
+    back raises."""
 
     def __init__(self, hidden_size: int, num_heads: int, ffn_size: int = 2048,
                  dropout: float = 0.1, dtype=torch.float32, layer_norm_eps: float = 1e-5,
@@ -95,6 +109,16 @@ class TorchEncoderLayer(nn.Module):
         self.ffn_in = nn.Linear(h, ffn_size)
         self.ffn_out = nn.Linear(ffn_size, h)
         self.norm2 = nn.LayerNorm(h, eps=layer_norm_eps)
+        self.attn_tp = None
+        self.ffn_tp = None
+
+    def tp_halves(self):
+        """The Megatron pairs ``shard_params_tp`` may split: (field, column
+        products, row product, heads, fields set on a sharded half)."""
+        cols = ("qkv",) if self.fused_qkv else ("query", "key", "value")
+        return (("attn_tp", cols, "attn_out", self.num_heads,
+                 {"attn_kernel": False, "fold_ln": False}),
+                ("ffn_tp", ("ffn_in",), "ffn_out", None, {"fold_ln": False}))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -104,9 +128,15 @@ class TorchEncoderLayer(nn.Module):
         def params(*lins):
             return [t for lin in lins for t in (lin.weight.to(dt), lin.bias.to(dt))]
 
-        seed = lambda: dropout_seed(self, rate, generator)      # noqa: E731
+        a_tp, f_tp = self.attn_tp, self.ffn_tp
+        if (a_tp is not None and self.attn_kernel is not False) or (
+                (a_tp or f_tp) is not None and self.fold_ln is not False):
+            raise ValueError("a tensor-parallel layer runs attn_kernel=False and "
+                             "fold_ln=False: the LayerNorm-fused and megakernel paths cannot "
+                             "span the row-parallel reduction")
+        seed = lambda sharded=False: dropout_seed(self, rate, generator, sharded)  # noqa: E731
         attn_seed = seed()
-        ffn_seeds = (seed(), seed()) if attn_seed is not None else None
+        ffn_seeds = (seed(f_tp is not None), seed()) if attn_seed is not None else None
         fold = (self.fold_ln if self.fold_ln is not None
                 else os.environ.get("FMTPU_FOLD_LN", "1") != "0")
         use_attn = self.attn_kernel
@@ -128,22 +158,26 @@ class TorchEncoderLayer(nn.Module):
                                       dropout=Dropout.make(attn_seed, 0, rate))
         else:
             # The flash route: head views of the projections (no copies), the
-            # flash kernels on shapes that pass their gate, a view back.
+            # flash kernels on shapes that pass their gate, a view back; on a
+            # sharded half this rank's heads and a reduced output projection.
             d = h // nh
+            nh_l = nh // (a_tp.model if a_tp is not None else 1)
+            xin = column_input(x, a_tp)
             if self.fused_qkv:
-                qkv = linear(x, self.qkv, dt).view(b, s, 3, nh, d)
+                qkv = linear(xin, self.qkv, dt).view(b, s, 3, nh_l, d)
                 q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
             else:
-                q, k, v = (linear(x, lin, dt).view(b, s, nh, d).transpose(1, 2)
+                q, k, v = (linear(xin, lin, dt).view(b, s, nh_l, d).transpose(1, 2)
                            for lin in (self.query, self.key, self.value))
             attn = multi_head_attention(q, k, v, mask)
-            attn = linear(attn.transpose(1, 2).reshape(b, s, h), self.attn_out, dt)
+            attn = row_linear(attn.transpose(1, 2).reshape(b, s, nh_l * d), self.attn_out, dt,
+                              a_tp)
             x = dropout_add_layernorm(x.to(dt), attn, self.norm1.weight, self.norm1.bias,
                                       eps=eps, dropout=Dropout.make(attn_seed, 0, rate))
 
         use_ffn = self.ffn_kernel
         if use_ffn is None:
-            use_ffn = can_use_fused_ffn(x, h, self.ffn_size)
+            use_ffn = can_use_fused_ffn(x, h, self.ffn_in.out_features)
         inner, outer = ffn_seeds or (None, None)
         if use_ffn and fold:
             return fused_ffn_ln(
@@ -152,12 +186,22 @@ class TorchEncoderLayer(nn.Module):
                 deterministic=ffn_seeds is None, seeds=ffn_seeds).view(b, s, h)
         if use_ffn:
             x2 = x.reshape(b * s, h).to(dt)
-            y = fused_ffn(x2, *params(self.ffn_in, self.ffn_out), activation="relu", rate=rate,
-                          deterministic=inner is None, seed=inner)
+            w1, b1, w2, b2 = params(self.ffn_in, self.ffn_out)
+            if f_tp is not None:
+                # This rank's F / model columns with a zero b2 (its gradient
+                # goes nowhere); the bias is added once after the reduction.
+                y = fused_ffn(column_input(x2, f_tp), w1, b1, w2, torch.zeros_like(b2),
+                              activation="relu", rate=rate, deterministic=inner is None,
+                              seed=inner)
+                y = reduce_from_model(y, f_tp) + b2
+            else:
+                y = fused_ffn(x2, w1, b1, w2, b2, activation="relu", rate=rate,
+                              deterministic=inner is None, seed=inner)
             return dropout_add_layernorm(x2, y, self.norm2.weight, self.norm2.bias, eps=eps,
                                          dropout=Dropout.make(outer, 1, rate)).view(b, s, h)
-        y = dropout(torch.relu(linear(x, self.ffn_in, dt)), rate, inner, stream=0)
-        y = dropout(linear(y, self.ffn_out, dt), rate, outer, stream=1)
+        y = dropout(torch.relu(linear(column_input(x, f_tp), self.ffn_in, dt)), rate, inner,
+                    stream=0)
+        y = dropout(row_linear(y, self.ffn_out, dt, f_tp), rate, outer, stream=1)
         return layer_norm(x + y, self.norm2, dt)
 
 

@@ -23,7 +23,11 @@ row kernel of :func:`dropout_add_layernorm` (Philox stream 0 of the site's
 seed), except for the demo BERT's one-token rows, which stay on the plain
 path as their attention (v itself) does.  The rest -- the 64 / 128 buckets
 in eval mode, the FFN in training mode, the CPU -- runs the plain PyTorch
-layer.
+layer.  A half that :func:`~fairmultimodal_torch.parallel.shard_params_tp`
+sharded (``tp``: its mesh) never takes the LayerNorm-fused kernels: it runs
+this rank's heads (or intermediate columns) and reduces the row-parallel
+partial sum over the model group before the bias, dropout, residual and
+LayerNorm.
 
 :func:`load_hf_bert_params` reads a Hugging Face BERT snapshot (a local
 directory, or a model name that the hub cache already holds) with torch and
@@ -44,7 +48,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fairmultimodal_torch.models._layers import dropout_seed, embed, layer_norm, linear
+from fairmultimodal_torch.models._layers import (column_input, dropout_seed, embed, layer_norm,
+                                                 linear, row_linear)
 from fairmultimodal_torch.ops.attention import multi_head_attention
 from fairmultimodal_torch.ops.dropout_add_layernorm import dropout_add_layernorm
 from fairmultimodal_torch.ops.fused_attention_block import fused_attention_block_ln_infer
@@ -113,14 +118,21 @@ class BertSelfAttention(nn.Module):
         self.value = nn.Linear(h, h)
         self.output_dense = nn.Linear(h, h)
         self.output_layer_norm = nn.LayerNorm(h, eps=config.layer_norm_eps)
+        self.tp = None
+
+    def tp_halves(self):
+        """The Megatron pair ``shard_params_tp`` may split (see
+        ``TorchEncoderLayer.tp_halves``): q / k / v and ``output_dense``."""
+        return (("tp", ("query", "key", "value"), "output_dense",
+                 self.config.num_attention_heads, {}),)
 
     def forward(self, hidden: torch.Tensor, mask: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        c, dt = self.config, self.dtype
+        c, dt, tp = self.config, self.dtype, self.tp
         nh = c.num_attention_heads
         b, s, h = hidden.shape
         x = hidden.to(dt)
-        if not self.training and can_use_fused_attention_block(x, nh):
+        if tp is None and not self.training and can_use_fused_attention_block(x, nh):
             w = lambda lin: lin.weight.to(dt)
             bb = lambda lin: lin.bias.to(dt)
             return fused_attention_block_ln_infer(
@@ -130,13 +142,16 @@ class BertSelfAttention(nn.Module):
                 num_heads=nh, ln_eps=c.layer_norm_eps)
 
         d = h // nh
+        nh_l = nh // (tp.model if tp is not None else 1)     # this rank's heads
+        xin = column_input(hidden, tp)
 
         def heads(lin):
-            return linear(hidden, lin, dt).view(b, s, nh, d).transpose(1, 2)
+            return linear(xin, lin, dt).view(b, s, nh_l, d).transpose(1, 2)
 
         out = multi_head_attention(heads(self.query), heads(self.key), heads(self.value),
                                    mask)
-        out = linear(out.transpose(1, 2).reshape(b, s, h), self.output_dense, dt)
+        out = row_linear(out.transpose(1, 2).reshape(b, s, nh_l * d), self.output_dense, dt,
+                         tp)
         rate = c.hidden_dropout_prob
         seed = dropout_seed(self, rate, generator)
         if self.training and x.is_cuda and s > 1:
@@ -156,15 +171,21 @@ class BertLayer(nn.Module):
         self.intermediate = nn.Linear(h, config.intermediate_size)
         self.output = nn.Linear(config.intermediate_size, h)
         self.output_layer_norm = nn.LayerNorm(h, eps=config.layer_norm_eps)
+        self.tp = None
+
+    def tp_halves(self):
+        """The FFN's Megatron pair: ``intermediate`` and ``output``."""
+        return (("tp", ("intermediate",), "output", None, {}),)
 
     def forward(self, hidden: torch.Tensor, mask: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        c, dt = self.config, self.dtype
+        c, dt, tp = self.config, self.dtype, self.tp
         h = c.hidden_size
         x = self.attention(hidden, mask, generator)
         # The attention-geometry gate applies to the FFN too (bert.py:203-213),
         # so the kernels engage only on note-encode shapes.
-        if (not self.training and can_use_fused_ffn(x.to(dt), h, c.intermediate_size)
+        if (tp is None and not self.training
+                and can_use_fused_ffn(x.to(dt), h, c.intermediate_size)
                 and can_use_fused_attention_block(x.to(dt), c.num_attention_heads)):
             b, s, _ = x.shape
             out = fused_ffn_ln_infer(
@@ -173,9 +194,10 @@ class BertLayer(nn.Module):
                 self.output.bias.to(dt), self.output_layer_norm.weight,
                 self.output_layer_norm.bias, activation="gelu", ln_eps=c.layer_norm_eps)
             return out.view(b, s, h)
-        y = F.gelu(linear(x, self.intermediate, dt))
+        y = F.gelu(linear(column_input(x, tp), self.intermediate, dt))
         rate = c.hidden_dropout_prob
-        y = dropout(linear(y, self.output, dt), rate, dropout_seed(self, rate, generator))
+        y = dropout(row_linear(y, self.output, dt, tp), rate,
+                    dropout_seed(self, rate, generator))
         return layer_norm(y + x, self.output_layer_norm, dt)
 
 

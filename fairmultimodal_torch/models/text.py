@@ -22,12 +22,14 @@ file per key written under a temporary name and moved into place.  The
 fingerprint names the port, so the port and the JAX package never read each
 other's entries.
 
-Under a data-parallel ``mesh`` (the JAX encoder's ``shard_map`` over the
-chunk rows) each fixed-shape batch is split over the ranks, each rank
-encodes its contiguous rows and the embeddings are all-gathered, so every
-rank returns the whole array; the batch size is rounded up to a multiple of
-the rank count with pad rows, which change nothing.  Rank 0 alone writes
-the cache, whose key does not depend on the mesh.
+Under a ``mesh`` (the JAX encoder's ``shard_map`` over the chunk rows) each
+fixed-shape batch is split over the data axis, each rank encodes its data
+index's contiguous rows and the embeddings are all-gathered over the data
+group, so every rank returns the whole array; the batch size is rounded up
+to a multiple of the data axis with pad rows, which change nothing.  The
+encoder is frozen and never sharded over a model axis: the ranks of a model
+group encode the same rows.  Rank 0 alone writes the cache, whose key does
+not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -224,7 +226,7 @@ class TextEncoder:
         rank count), encodes its contiguous share and gets all N back."""
         if self.mesh is not None:
             n = len(input_ids) // self.mesh.data
-            rows = slice(self.mesh.rank * n, (self.mesh.rank + 1) * n)
+            rows = slice(self.mesh.data_index * n, (self.mesh.data_index + 1) * n)
             input_ids, attention_mask = input_ids[rows], attention_mask[rows]
         ids = torch.as_tensor(input_ids, dtype=torch.int64).to(self.device, non_blocking=True)
         mask = torch.as_tensor(attention_mask, dtype=torch.int32).to(self.device,

@@ -46,13 +46,15 @@ from typing import Dict, Optional
 import torch
 
 from fairmultimodal_torch.ops import _build
+from fairmultimodal_torch.ops.gates import can_use_fused_attention_block
 from fairmultimodal_torch.utils.rng import Dropout, apply_dropout
 
 __all__ = ["fused_attention_block_ln", "fused_attention_block_ln_infer",
            "fused_attention_block_ln_reference", "fused_attention_block_ln_backward_reference",
            "half_layer_stages", "backward_stages", "fused_attention_block",
            "fused_attention_block_reference", "fused_attention_block_backward_reference",
-           "block_stages", "block_backward_stages", "weight_grad", "column_sum"]
+           "block_stages", "block_backward_stages", "weight_grad", "column_sum",
+           "can_use_fused_attention_block"]
 
 NEG_INF = -1e9
 _STREAM = 0             # Philox stream of the output dropout

@@ -51,12 +51,13 @@ import torch.nn.functional as F
 from fairmultimodal_torch.ops import _build
 from fairmultimodal_torch.ops.fused_attention_block import (
     _f32, _layer_norm_rows, _layer_norm_vjp, _run, column_sum, weight_grad)
+from fairmultimodal_torch.ops.gates import can_use_fused_ffn
 from fairmultimodal_torch.utils.rng import Dropout, apply_dropout
 
 __all__ = ["fused_ffn_ln", "fused_ffn_ln_infer", "fused_ffn_ln_reference",
            "fused_ffn_ln_backward_reference", "half_layer_stages", "backward_stages",
            "fused_ffn", "fused_ffn_reference", "fused_ffn_backward_reference", "ffn_stages",
-           "ffn_backward_stages"]
+           "ffn_backward_stages", "can_use_fused_ffn"]
 
 #: LN-fused forward launches (Pallas #2) on CUDA tensors since the last reset (one per half-layer).
 launches = 0

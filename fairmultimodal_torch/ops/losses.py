@@ -24,7 +24,10 @@ import torch.nn.functional as F
 
 from fairmultimodal_torch.parallel.sharding import global_sum
 
-__all__ = ["bce_with_logits", "focal_loss"]
+__all__ = ["bce_with_logits", "focal_loss", "sigmoid"]
+
+#: The logistic function (the JAX module exports ``jax.nn.sigmoid``).
+sigmoid = torch.sigmoid
 
 
 def _weighted_mean(loss: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

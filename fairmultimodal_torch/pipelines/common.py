@@ -181,12 +181,15 @@ class PreparedExperiment:
         return self.bundle.vocab_sizes()
 
 
-def build_arrays(bundle: FeatureBundle, keys: Sequence[str]) -> Dict[str, np.ndarray]:
+def build_arrays(bundle: FeatureBundle,
+                 keys: Optional[Sequence[str]] = None) -> Dict[str, np.ndarray]:
     """FeatureBundle -> the model-input arrays named in ``keys`` (FAME's:
-    10_FAME:714-723).  The ward columns are zeros, as the reference's when
-    they are absent (07:579-589); ``demo_features`` is the [N, 4] float32
-    code matrix (age, gender, ethnicity, insurance) FairEHR-CLP takes
-    (06:439-441); ``text_embedding`` needs the encoded notes."""
+    10_FAME:714-723); ``None`` gives every array, as the JAX function does
+    (``text_embedding`` only once the notes are encoded).  The ward columns
+    are zeros, as the reference's when they are absent (07:579-589);
+    ``demo_features`` is the [N, 4] float32 code matrix (age, gender,
+    ethnicity, insurance) FairEHR-CLP takes (06:439-441); ``text_embedding``
+    needs the encoded notes."""
     n = bundle.num_patients
     make = {
         "demo_dummy_ids": lambda: np.zeros((n, 1), np.int32),
@@ -204,6 +207,8 @@ def build_arrays(bundle: FeatureBundle, keys: Sequence[str]) -> Dict[str, np.nda
             bundle.insurance_codes], axis=1).astype(np.float32),
         "text_embedding": lambda: bundle.text_embeddings.astype(np.float32),
     }
+    if keys is None:
+        keys = [k for k in make if k != "text_embedding" or bundle.text_embeddings is not None]
     return {k: make[k]() for k in keys}
 
 

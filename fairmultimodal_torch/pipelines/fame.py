@@ -15,12 +15,16 @@ DataFrames), featurizes them and calls it.  Neither needs pandas for a port
 table.  ``checkpoint_dir`` makes ``fit`` save a train-state file per epoch
 there and resume from the latest one.
 
-``FAMEPipelineConfig.mesh`` (a data-parallel
-:class:`~fairmultimodal_torch.parallel.Mesh`, from ``get_mesh`` in each
-rank's process) runs the experiment on every rank of the mesh: the text
-encode, the loaders and the trainer split their batches over the ranks,
-every rank computes the same splits, metrics and thresholds, and rank 0
-alone prints and writes the artifacts.
+``FAMEPipelineConfig.mesh`` (a :class:`~fairmultimodal_torch.parallel.Mesh`,
+from ``get_mesh`` in each rank's process) runs the experiment on every rank
+of the mesh: the text encode, the loaders and the trainer split their
+batches over the data axis, every rank computes the same splits, metrics and
+thresholds, and rank 0 alone prints and writes the artifacts.  With a model
+axis (``model > 1``) the FAME model is sharded by
+:func:`~fairmultimodal_torch.parallel.shard_params_tp` before training, as
+the JAX command line's help promises; the JAX pipeline never calls it, so
+there the model axis holds replicas that repeat each other's work.  The
+results are the same; the best state and the npz hold the full parameters.
 
 Reference bug handled here: ``10_FAME.py:744-755`` indexes the full-cohort
 tensors with indices *relative to the train_val subframe*, silently training
@@ -52,24 +56,29 @@ from fairmultimodal_torch.models._layers import init_params
 from fairmultimodal_torch.models.fusion import FAMEModel
 from fairmultimodal_torch.models.text import TextEncoder, encode_note_chunks
 from fairmultimodal_torch.ops.gates import resolve_device
-from fairmultimodal_torch.parallel.sharding import check_data_parallel
+from fairmultimodal_torch.parallel.sharding import load_full_state_dict, shard_params_tp
 from fairmultimodal_torch.pipelines.common import (StageTimer, build_arrays, make_loaders,
                                                    make_split)
 from fairmultimodal_torch.train.calibrate import calibrate_thresholds
 from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
 from fairmultimodal_torch.utils.checkpoint import Checkpointer, save_params_npz
 
-__all__ = ["FAMEPipelineConfig", "FAME_KEYS", "run_fame_bundle", "run_fame_experiment"]
+__all__ = ["FAMEPipelineConfig", "FAME_KEYS", "build_model_arrays", "run_fame_bundle",
+           "run_fame_experiment"]
 
 #: FAMEModel's inputs (10_FAME:714-723), as :func:`build_arrays` names them.
 FAME_KEYS = ("demo_dummy_ids", "demo_attn_mask", "age_ids", "gender_ids", "ethnicity_ids",
              "insurance_ids", "lab_features", "text_embedding")
 
 
+def build_model_arrays(bundle: FeatureBundle) -> Dict[str, np.ndarray]:
+    """FeatureBundle -> flat dict of FAME's model input arrays (10_FAME:714-723)."""
+    return build_arrays(bundle, FAME_KEYS)
+
+
 @dataclasses.dataclass
 class FAMEPipelineConfig:
-    """The JAX config's fields.  ``mesh``: a data-parallel mesh (a
-    ``model`` axis raises ``NotImplementedError``)."""
+    """The JAX config's fields.  ``mesh``: a ``data x model`` mesh."""
 
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     text_model: str = "emilyalsentzer/Bio_ClinicalBERT"
@@ -107,8 +116,10 @@ class FAMEPipelineConfig:
 
 
 def _check_config(cfg: FAMEPipelineConfig) -> None:
-    if cfg.mesh is not None:
-        check_data_parallel(cfg.mesh.data, cfg.mesh.model)
+    mesh = cfg.mesh
+    if mesh is not None and mesh.world > 1 and mesh.group is None:
+        raise ValueError(f"mesh {mesh.data}x{mesh.model} has no process group: build it with "
+                         "parallel.get_mesh in each rank")
 
 
 def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] = None,
@@ -161,7 +172,7 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
         print(f"Train size: {len(train_idx)}, Validation size: {len(val_idx)}, "
               f"Test size: {len(test_idx)}")
 
-    loaders = make_loaders(build_arrays(bundle, FAME_KEYS), bundle.labels, idx,
+    loaders = make_loaders(build_model_arrays(bundle), bundle.labels, idx,
                            cfg.train.batch_size, seed=cfg.train.seed,
                            device_data=cfg.device_data, device=device, mesh=mesh)
 
@@ -183,6 +194,8 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
         "reference_weight_compat": cfg.reference_weight_compat,
     }
     model = init_params(FAMEModel(**geometry, dtype=dtype), seed=cfg.train.seed)
+    if mesh is not None and mesh.model > 1:
+        shard_params_tp(model, mesh)
 
     os.makedirs(cfg.out_dir, exist_ok=True)
     trainer = FAMETrainer(
@@ -195,7 +208,7 @@ def run_fame_bundle(bundle: FeatureBundle, config: Optional[FAMEPipelineConfig] 
     best_params, history = trainer.fit(loaders["train"], loaders["val"], verbose=verbose,
                                        checkpointer=checkpointer)
     # Every pass below reads the best state, as the JAX pipeline passes best_params.
-    model.load_state_dict(best_params)
+    load_full_state_dict(model, best_params)
     timer.mark("train")
 
     # Threshold calibration on validation (10_FAME:868).

@@ -39,6 +39,21 @@ one process).  Each rank folds its rank into its dropout seeds
 (``utils.rng.RankGenerator``); the generator's stream, and so every
 checkpoint, is the single process's.  Only rank 0 writes files.
 
+Tensor parallelism (a mesh with ``model > 1``, the JAX trainer's mixed-mesh
+GSPMD path, ``loop.py:213-246``): the model's Megatron pairs are sharded
+over the model group (``parallel.shard_params_tp``, before the trainer is
+built; an unsharded model trains replicated).  Every collective over the
+batch -- the losses, the gradient sum, the dynamic-weight statistics, the
+gathered eval rows -- runs over the **data group** (the ranks with this
+rank's model index), and the batch is split by the data index, so the ranks
+of a model group take the same rows.  The L1 term enters on data index 0.
+The clip takes the global norm: the shards' square-sums summed over the
+model group, each replicated gradient counted once; AdamW steps each shard.
+Dropout sites fold the data index, and the sharded FFN's inner site the
+model index too (``utils/rng.py``).  Checkpoints and the best state hold the
+full parameters and moments, gathered over the model group, so one process
+reads them.
+
 Not ported here (ROADMAP): the one-dispatch statistics scan (the batchwise
 pass gives the same weights: its statistics are exact integer sums).
 """
@@ -61,8 +76,11 @@ from fairmultimodal_torch.fairness.loss import eddi_loss
 from fairmultimodal_torch.ops.gates import resolve_device
 from fairmultimodal_torch.ops.losses import bce_with_logits
 from fairmultimodal_torch.ops.optim import make_adamw
-from fairmultimodal_torch.parallel.sharding import (all_reduce_flat, check_data_parallel,
-                                                    gather_rows, replicate)
+from fairmultimodal_torch.parallel.sharding import (all_reduce_flat, full_optimizer_state,
+                                                    full_state_dict, gather_rows, grad_norm_sq,
+                                                    load_full_optimizer_state,
+                                                    load_full_state_dict, replicate,
+                                                    shard_state_dict, tp_plan)
 from fairmultimodal_torch.utils.rng import RankGenerator, make_generator
 
 __all__ = ["TrainConfig", "PlateauScheduler", "EarlyStopper", "FAMETrainer"]
@@ -155,9 +173,9 @@ class FAMETrainer:
     (``self.optimizer``) lives on the trainer; :meth:`fit` starts a fresh
     one, as the JAX ``fit`` inits its optimizer state.
 
-    With a data-parallel ``mesh`` (:func:`~fairmultimodal_torch.parallel.get_mesh`)
-    the trainer runs on ``mesh.device``, broadcasts rank 0's weights, and
-    every batch it is given is this rank's shard of a global batch of
+    With a ``mesh`` (:func:`~fairmultimodal_torch.parallel.get_mesh`) the
+    trainer runs on ``mesh.device``, broadcasts data index 0's weights, and
+    every batch it is given is this rank's data shard of a global batch of
     ``config.batch_size`` rows.
     """
 
@@ -167,7 +185,6 @@ class FAMETrainer:
             raise ValueError(f"rng_impl {config.rng_impl!r}: the port's dropout is 'philox'")
         self.mesh = mesh
         if mesh is not None:
-            check_data_parallel(mesh.data, mesh.model)
             if config.batch_size % mesh.data:
                 raise ValueError(
                     f"batch_size {config.batch_size} must be divisible by the mesh's data "
@@ -183,9 +200,11 @@ class FAMETrainer:
                                           device=self.device)
         self.dynamic_weights_csv = dynamic_weights_csv
         self.generator = make_generator(rngs_seed)
-        # Every rank draws the single process's seeds, each folded with its rank.
+        # Every rank draws the single process's seeds, each folded with its
+        # data index (and on a sharded site its model index).
         self._dropout_rng = (self.generator if mesh is None
-                             else RankGenerator(self.generator, mesh.rank))
+                             else RankGenerator(self.generator, mesh.data_index,
+                                                mesh.model_index))
         self.optimizer = make_adamw(self.model, config.lr, config.weight_decay)
         # Host dynamic weights stay float64 like the reference's python floats.
         self.dynamic_weights = np.full((3, 3), 0.33)
@@ -201,7 +220,7 @@ class FAMETrainer:
 
     @property
     def _group(self):
-        return None if self.mesh is None else self.mesh.group
+        return None if self.mesh is None else self.mesh.data_group
 
     @property
     def _rank0(self) -> bool:
@@ -215,9 +234,9 @@ class FAMETrainer:
         leddi = eddi_loss(torch.sigmoid(logits), labels, [mi[k] for k in _SENSITIVE],
                           GROUP_SIZES, weight=w, group=self._group)
         l1 = self.model.fusion.sig_weights.abs().sum()
-        if not self._rank0:
+        if self.mesh is not None and self.mesh.data_index:
             # A term of the parameters alone: the gradients are summed over
-            # the ranks, so it enters through rank 0's only.
+            # the data group, so it enters through data index 0's only.
             l1 = l1.detach()
         cfg = self.config
         return bce + cfg.lambda_edd * (10.0 * leddi) + cfg.lambda_l1 * l1, bce
@@ -249,9 +268,21 @@ class FAMETrainer:
         """One optimizer step on a device batch; returns the (total, bce) loss
         tensors, left on the device."""
         total, bce = self.backward(batch, dynamic_weights)
-        torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.config.grad_clip)
+        if tp_plan(self.model):
+            self._clip_global()
+        else:
+            torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.config.grad_clip)
         self.optimizer.step()
         return total, bce
+
+    @torch.no_grad()
+    def _clip_global(self) -> None:
+        """torch's clip (``clip_grad_norm_``'s ``max / (norm + 1e-6)``,
+        clamped at 1) at the global norm of a sharded model's gradients."""
+        params = [p for p in self.model.parameters() if p.grad is not None]
+        norm = grad_norm_sq(params, self.model).sqrt()
+        coef = torch.clamp(self.config.grad_clip / (norm + 1e-6), max=1.0)
+        torch._foreach_mul_([p.grad for p in params], coef)
 
     def set_lr(self, lr: float) -> None:
         for group in self.optimizer.param_groups:
@@ -403,9 +434,9 @@ class FAMETrainer:
             return tree
 
         return {
-            "model": cpu(self.model.state_dict()),
-            "best": cpu(best),
-            "optimizer": cpu(self.optimizer.state_dict()),
+            "model": cpu(full_state_dict(self.model)),
+            "best": cpu(full_state_dict(self.model, best)),
+            "optimizer": cpu(full_optimizer_state(self.model, self.optimizer)),
             "dynamic_weights": torch.from_numpy(np.array(self.dynamic_weights, np.float64)),
             "scheduler": {"lr": sched.lr, "best": sched.best, "num_bad": sched.num_bad},
             "stopper": {"best": stopper.best, "counter": stopper.counter},
@@ -421,9 +452,10 @@ class FAMETrainer:
     def _restore(self, state: Dict, sched, stopper):
         """Load a :meth:`_checkpoint_state`; returns (best, csv_rows,
         loader_epoch)."""
-        self.model.load_state_dict(state["model"])
-        best = {k: v.to(self.device) for k, v in state["best"].items()}
-        self.optimizer.load_state_dict(state["optimizer"])
+        load_full_state_dict(self.model, state["model"])
+        best = shard_state_dict(self.model, {k: v.to(self.device)
+                                             for k, v in state["best"].items()})
+        load_full_optimizer_state(self.model, self.optimizer, state["optimizer"])
         self.dynamic_weights = state["dynamic_weights"].numpy().astype(np.float64)
         sched.lr, sched.best, sched.num_bad = (state["scheduler"][k]
                                                for k in ("lr", "best", "num_bad"))
@@ -439,7 +471,9 @@ class FAMETrainer:
     def fit(self, train_loader, val_loader, verbose: bool = True,
             on_epoch_end: Optional[Callable] = None, checkpointer=None):
         """Epochs + plateau LR + early stop + best-state capture + per-epoch
-        dynamic weight updates.  Returns (best state dict, history).
+        dynamic weight updates.  Returns (best state dict, history); a
+        sharded model's best state holds the full parameters
+        (``parallel.load_full_state_dict`` loads it back).
 
         With a ``checkpointer`` the full train state (model and best state,
         AdamW's state, the float64 dynamic weights, the scheduler and stopper
@@ -513,12 +547,14 @@ class FAMETrainer:
             self.tracked_sigmoid_weights.append(
                 self._host(torch.sigmoid(self.model.fusion.sig_weights.detach())))
             if checkpointer is not None:
-                checkpointer.save(epoch + 1, lambda: self._checkpoint_state(
-                    best, sched, stopper, csv_rows, getattr(inner, "epoch", None)))
+                state = lambda: self._checkpoint_state(    # noqa: E731
+                    best, sched, stopper, csv_rows, getattr(inner, "epoch", None))
+                # A sharded model's state is gathered by every rank of its group.
+                checkpointer.save(epoch + 1, state() if tp_plan(self.model) else state)
             if on_epoch_end is not None:
                 on_epoch_end(epoch, self.model)
 
         if self.dynamic_weights_csv and self._rank0:
             with open(self.dynamic_weights_csv, "w", newline="") as f:
                 csv.writer(f).writerows(csv_rows)
-        return best, self.history
+        return full_state_dict(self.model, best), self.history

@@ -14,8 +14,10 @@ format (the JAX one writes orbax directories): one ``step_<k>.pt`` per
 completed epoch, written under a temporary name and moved into place with
 ``os.replace``, so a reader never sees a torn file.  Each file holds tensors
 and plain Python containers only and reads back with ``torch.load(...,
-weights_only=True)``.  Under a data-parallel mesh rank 0 writes, every rank
-waits until the file is in place, and every rank reads.
+weights_only=True)``.  Under a mesh rank 0 writes, every rank
+waits until the file is in place, and every rank reads.  A tensor-parallel
+trainer hands it the full parameters and moments, gathered over the model
+group, so the file is the one a single process writes.
 """
 
 from __future__ import annotations
@@ -79,7 +81,7 @@ def load_metadata_npz(path: str) -> Optional[Dict]:
 
 class Checkpointer:
     """Per-epoch train-state files ``<directory>/step_<k>.pt``; with a
-    data-parallel ``mesh`` only rank 0 writes them."""
+    ``mesh`` only rank 0 writes them."""
 
     _STEP = re.compile(r"step_(\d+)\.pt")
 

@@ -20,11 +20,16 @@ each dropout site draws its own seed on the host with :func:`draw_seed`, as
 ``TorchEncoderLayer._dropout_seed`` does in JAX.  Nothing here touches the
 global RNG.
 
-A data-parallel rank draws from a :class:`RankGenerator`: the trainer's
-generator, which every rank holds in the same state, with the rank folded
-into each seed it draws (:func:`fold_in`, ``jax.random.fold_in(rng,
-axis_index)`` in the JAX trainer).  The seed is the Philox key, so the fold
-reaches the plain masks and the kernels' alike.
+A rank of a mesh draws from a :class:`RankGenerator`: the trainer's
+generator, which every rank holds in the same state, with the rank's data
+index folded into each seed it draws (:func:`fold_in`,
+``jax.random.fold_in(rng, axis_index)`` in the JAX trainer).  The seed is
+the Philox key, so the fold reaches the plain masks and the kernels' alike.
+Under tensor parallelism a dropout site whose activation is replicated over
+the model group (every site but one) folds the data index only, so the
+replicas draw one mask; the site on a sharded activation (the FFN's inner
+dropout on this rank's ``F / model`` columns) also folds the model index,
+so the shards do not repeat one mask.  Rank (0, 0) keeps the seed.
 """
 
 from __future__ import annotations
@@ -125,26 +130,31 @@ def dropout(x: torch.Tensor, rate: float, seed: Optional[int], stream: int = 0) 
     return apply_dropout(x, Dropout.make(seed, stream, rate))
 
 
-def fold_in(seed: int, rank: int) -> int:
-    """``seed`` (below 2**32) with ``rank`` as the Philox key's high word:
-    key = (seed, rank).  Rank 0 keeps the seed, so a one-rank mesh draws
+def fold_in(seed: int, rank: int, model: int = 0) -> int:
+    """``seed`` (below 2**32) with ``rank`` (a data index, below 2**16) and
+    ``model`` (a model index) as the Philox key's high word: key = (seed,
+    rank | model << 16).  Rank 0 keeps the seed, so a one-rank mesh draws
     the single process's masks."""
-    return int(seed) | (int(rank) << 32)
+    return int(seed) | ((int(rank) | (int(model) << 16)) << 32)
 
 
 class RankGenerator(NamedTuple):
-    """``generator`` as data-parallel rank ``rank`` draws from it: the same
-    draws, each seed folded with the rank (:func:`fold_in`)."""
+    """``generator`` as the rank at data index ``rank`` and model index
+    ``model`` of a mesh draws from it: the same draws, each seed folded with
+    the data index, and with the model index too for a sharded site
+    (:func:`fold_in`)."""
     generator: torch.Generator
     rank: int
+    model: int = 0
 
 
-def draw_seed(generator) -> int:
+def draw_seed(generator, sharded: bool = False) -> int:
     """One dropout seed from the caller's generator (host): in [0, 2**31 - 1)
-    from a ``torch.Generator``, folded with the rank from a
-    :class:`RankGenerator`."""
+    from a ``torch.Generator``, folded with the data index from a
+    :class:`RankGenerator` (and the model index for a ``sharded`` site)."""
     if isinstance(generator, RankGenerator):
-        return fold_in(draw_seed(generator.generator), generator.rank)
+        return fold_in(draw_seed(generator.generator), generator.rank,
+                       generator.model if sharded else 0)
     return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator).item())
 
 

@@ -10,8 +10,8 @@ lines get one tiny text encoder (the JAX one's weights, converted),
 a train forward without dropout and the JAX trainer's initial weights (the
 port's ``init_params`` is replaced by a load of them), through wrappers
 around the functions the command lines call.  ``--bf16`` is the
-compute dtype of every model the run builds.  ``--mesh NxM`` (tensor
-parallelism) exits; without
+compute dtype of every model the run builds.  ``--mesh 4x2`` needs 8
+devices; without
 ``--device`` the command raises the CUDA error here; a subprocess in which
 pandas, scikit-learn, transformers and jax cannot be imported runs ``fame``,
 ``predict`` and ``data`` to the end.  ``data --synthetic 40 --device cpu``
@@ -208,11 +208,14 @@ def test_predict_reads_either_npz_and_writes_the_jax_csv(writer, fame_runs, enco
     np.testing.assert_allclose(t_rows, j_rows, rtol=0, atol=1e-5)
 
 
-def test_mesh_exits_naming_its_item():
-    """Data parallelism is ported (tests/test_torch_parallel.py); a model
-    axis (tensor parallelism) exits naming the item that ports it."""
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 6, its tensor-parallel part"):
-        t_cli.main(FAME + ["--mesh", "4x2", "--device", "cpu"])
+def test_mesh_exits_naming_its_item(monkeypatch):
+    """Data and tensor parallelism are ported (tests/test_torch_parallel.py,
+    tests/test_torch_tensor_parallel.py): ``--mesh 4x2`` is checked against
+    the devices before any rank starts, and names what it needs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="mesh 4x2 needs 8 devices, have 1"):
+        t_cli.main(FAME + ["--mesh", "4x2"])
 
 
 @pytest.mark.parametrize("pipeline", ["fame", "fpm", "predict", "behrt", "bioclinicalbert",

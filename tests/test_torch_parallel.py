@@ -356,7 +356,7 @@ def _close(got, want):
 def test_mesh_errors():
     with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
         parallel.get_mesh(2, devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6, its tensor"):
+    with pytest.raises(ValueError, match="mesh 2x2 needs 4 ranks; this job has 1"):
         parallel.get_mesh(2, 2, devices=["cpu"] * 4)
     with pytest.raises(ValueError, match="NCCL needs one device per rank"):
         parallel.get_mesh(2, devices=["cpu", "cpu"], backend="nccl")
@@ -386,13 +386,12 @@ def test_get_mesh_without_cuda_raises_unless_the_cpu_is_named(monkeypatch):
 
 def test_cli_mesh_modes(monkeypatch):
     """--mesh on another pipeline exits; a one-card machine refuses 2 ranks
-    before spawning any; --device cpu spawns one rank per mesh entry."""
+    before spawning any; --device cpu spawns one rank per mesh entry (data x
+    model of them for a model axis)."""
     cli = importlib.import_module("fairmultimodal_torch.cli.main")
 
     with pytest.raises(SystemExit, match="--mesh is supported for fame/fpm only"):
         cli.main(["behrt", "--mesh", "2", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="tensor parallelism"):
-        cli.main(["fpm", "--mesh", "2x2", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     calls = []
@@ -401,7 +400,9 @@ def test_cli_mesh_modes(monkeypatch):
     with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
         cli.main(["fame", "--mesh", "2"])
     assert cli.main(["fame", "--mesh", "3", "--device", "cpu"]) == 0
-    assert [(c[0], c[1], c[2]) for c in calls] == [(cli.run_pipeline, 3, "3")]
+    assert cli.main(["fpm", "--mesh", "2x2", "--device", "cpu"]) == 0
+    assert [(c[0], c[1], c[2]) for c in calls] == [(cli.run_pipeline, 3, "3"),
+                                                   (cli.run_pipeline, 4, "2x2")]
 
 
 def test_a_failing_rank_fails_the_launch_without_a_hang():

@@ -18,7 +18,10 @@
   (06 in both modes, ``legacy-behrt`` from a CSV read without pandas) run
   in a subprocess where pandas and JAX cannot be imported;
 - so are the ETL's modules (``data/etl.py``, ``native.py``, ``validate.py``,
-  ``synthetic.py``), and ``run_etl`` defaults to CUDA and raises without it.
+  ``synthetic.py``), and ``run_etl`` defaults to CUDA and raises without it;
+- every name in a JAX module's ``__all__`` resolves in the port's module of
+  the same path, apart from the deliberate exclusions below; the new names
+  compute what their JAX counterparts do.
 """
 
 import ast
@@ -156,9 +159,10 @@ def test_experiment_entry_points_default_to_cuda_and_raise_without_it(monkeypatc
 
 
 @pytest.mark.parametrize("field,value,error,match", [
-    # Data parallelism is ported; a model axis (tensor parallelism) is not.
-    ("mesh", Mesh(data=2, model=2, rank=0, device=torch.device("cpu")), NotImplementedError,
-     "queue 1 item 6"),
+    # Data and tensor parallelism are ported; a mesh needs its process group
+    # (parallel.get_mesh in each rank).
+    ("mesh", Mesh(data=2, model=2, rank=0, device=torch.device("cpu")), ValueError,
+     "mesh 2x2 has no process group"),
     ("require_hf_weights", True, RuntimeError, "required"),
 ])
 def test_experiment_fields_not_ported_raise(field, value, error, match, tmp_path):
@@ -284,3 +288,104 @@ def test_run_etl_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_etl(str(tmp_path), str(tmp_path / "out"))
     assert not (tmp_path / "out").exists()
+
+
+#: Names of the JAX package's ``__all__`` lists the port leaves out on purpose.
+NOT_PORTED = {
+    # The kernels' build cache is build/kernels/<hash>/ (ops/_build.py).
+    "fairmultimodal_tpu.cachedir": "*",
+    # No environment kill switch, and no process-wide fallback: the port's
+    # sharded layers run hand-written kernels that need no partitioner.
+    "fairmultimodal_tpu.ops.gates": {"kernels_enabled", "force_xla_path", "forced_xla_reason",
+                                     "clear_forced_xla_path"},
+    # A measured negative result in JAX; an optax transform (torch clips).
+    "fairmultimodal_tpu.ops.optim": {"fused_clip_adamw_apply", "clip_by_global_norm_torch"},
+    # JAX PRNG keys; the port's dropout is Philox (utils/rng.py).
+    "fairmultimodal_tpu.utils.rng": {"make_rng", "threefry_key"},
+    "fairmultimodal_tpu.utils": {"make_rng", "threefry_key"},
+}
+
+
+def test_every_jax_public_name_resolves_in_the_port():
+    import importlib
+    import pkgutil
+
+    import fairmultimodal_tpu
+
+    missing, checked = {}, 0
+    for info in pkgutil.walk_packages(fairmultimodal_tpu.__path__, "fairmultimodal_tpu."):
+        names = getattr(importlib.import_module(info.name), "__all__", None)
+        skip = NOT_PORTED.get(info.name, set())
+        if names is None or skip == "*":
+            continue
+        port = importlib.import_module(info.name.replace("fairmultimodal_tpu",
+                                                         "fairmultimodal_torch"))
+        gone = [n for n in names if n not in skip and not hasattr(port, n)]
+        checked += len(names)
+        if gone:
+            missing[info.name] = gone
+    assert missing == {} and checked > 250
+
+
+def test_the_new_public_names_match_jax():
+    import dataclasses
+
+    import jax.numpy as jnp
+    import pandas as pd
+
+    from fairmultimodal_torch import data, fairness, ops, parallel
+    from fairmultimodal_torch.data import etl, native, validate
+    from fairmultimodal_torch.pipelines.common import build_arrays
+    from fairmultimodal_torch.pipelines.fame import build_model_arrays
+    from fairmultimodal_tpu.data import etl as j_etl
+    from fairmultimodal_tpu.data import validate as j_validate
+    from fairmultimodal_tpu.data.featurize import FeatureBundle as JBundle
+    from fairmultimodal_tpu.ops import losses as j_losses
+    from fairmultimodal_tpu.pipelines.common import build_arrays as j_build_arrays
+    from fairmultimodal_tpu.pipelines.fame import build_model_arrays as j_build_model_arrays
+
+    bundle = _bundle()
+    bundle.text_embeddings = np.arange(36, dtype=np.float64).reshape(12, 3)
+    j_bundle = JBundle(**{f.name: getattr(bundle, f.name)
+                          for f in dataclasses.fields(JBundle)})
+    for got, want in ((build_arrays(bundle), j_build_arrays(j_bundle)),
+                      (build_model_arrays(bundle), j_build_model_arrays(j_bundle))):
+        assert list(got) == list(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+    assert "text_embedding" not in build_arrays(_bundle())
+
+    x = np.linspace(-30, 30, 101)
+    np.testing.assert_allclose(ops.sigmoid(torch.from_numpy(x)).numpy(),
+                               np.asarray(j_losses.sigmoid(jnp.asarray(x, jnp.float32))),
+                               atol=1e-7)
+    batches = [{"a": np.full(2, i)} for i in range(5)]
+    got = list(data.prefetch_to_device(batches, size=2, device="cpu"))
+    assert [int(b["a"][0]) for b in got] == list(range(5))
+    assert all(isinstance(b["a"], torch.Tensor) for b in got)
+    assert ops.flash_attention.__name__ == "fairmultimodal_torch.ops.flash_attention"
+    q = torch.randn(1, 2, 4, 8, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(ops.flash_attention(q, q, q), ops.flash_attention.flash_attention(q, q, q))
+    assert parallel.DEFAULT_TP_RULES and fairness.eddi_loss and data.DeviceLoader
+
+    chunks = [["a b", "c"], [], ["d"]]
+    index = pd.RangeIndex(3)
+    want = j_etl.chunk_lists_to_frame(chunks, index)
+    got = etl.chunk_lists_to_frame(chunks, index)
+    assert list(got) == list(want.columns)
+    for col in want:
+        assert [None if v is None or v != v else v for v in want[col]] == list(got[col])
+    assert native.build() is True
+
+    ok = pd.DataFrame({"subject_id": [1], "hadm_id": [2], "short_term_mortality": [0],
+                       "los_binary": [1], "mechanical_ventilation": [0]})
+    notes = pd.DataFrame({"subject_id": [1], "hadm_id": [2], "note_chunk_1": ["x"]})
+    validate.validate_common_frames(ok, notes)
+    for s, u in ((ok.drop(columns="hadm_id"), notes), (ok, notes.drop(columns="note_chunk_1")),
+                 (ok.assign(los_binary=[np.nan]), notes)):
+        with pytest.raises(j_validate.MimicInputError) as want_err:
+            j_validate.validate_common_frames(s, u)
+        with pytest.raises(validate.MimicInputError) as got_err:
+            validate.validate_common_frames(s, u)
+        assert str(got_err.value) == str(want_err.value)
+

@@ -10,7 +10,7 @@ Two faults of the JAX package are pinned here by what the port does:
    but the JAX ``fit`` re-aligns the loader to ``start_epoch``
    (``loop.py:745-750``), so a resumed run draws other shuffles from its
    second epoch on.  The port checkpoints the loader's consumed-epoch count:
-   3 epochs uninterrupted and 1 epoch plus a resume to 3 leave bit-identical
+   2 epochs uninterrupted and 1 epoch plus a resume to 2 leave bit-identical
    parameters, best state, AdamW state, dynamic weights and history, with
    dropout on, on a shuffled host loader and on ``DeviceLoader``; putting
    the JAX realignment back breaks it.
@@ -42,7 +42,7 @@ from fairmultimodal_torch.train import loop as t_loop
 from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
 from fairmultimodal_torch.utils.checkpoint import Checkpointer
 
-N, BATCH, LABS, TEXT = 96, 16, 12, 16
+N, N_TRAIN, BATCH, LABS, TEXT = 48, 36, 16, 12, 16
 
 
 def _data():
@@ -64,7 +64,8 @@ def _data():
 def _fit(ckpt_dir, epochs, device_data):
     """A fresh tiny model and trainer (dropout on) through ``fit``."""
     arrays, labels = _data()
-    loaders = make_loaders(arrays, labels, {"train": np.arange(72), "val": np.arange(72, N)},
+    loaders = make_loaders(arrays, labels, {"train": np.arange(N_TRAIN),
+                                            "val": np.arange(N_TRAIN, N)},
                            BATCH, seed=7, device_data=device_data, device="cpu")
     model = init_params(FAMEModel(4, 2, 5, 6, lab_token_count=LABS, text_embed_size=TEXT,
                                   hidden_size=32, demo_layers=1, demo_heads=2, lab_layers=1,
@@ -96,12 +97,12 @@ def _assert_same(a, b, path="state"):
 
 @pytest.mark.parametrize("device_data", [False, True], ids=["host_loader", "device_loader"])
 def test_resume_is_bit_identical(device_data, tmp_path, capsys):
-    whole, best, history = _fit(tmp_path / "whole", 3, device_data)
+    whole, best, history = _fit(tmp_path / "whole", 2, device_data)
     _fit(tmp_path / "cut", 1, device_data)
     assert Checkpointer(str(tmp_path / "cut")).latest_step() == 1
     capsys.readouterr()
-    trainer, best_r, history_r = _fit(tmp_path / "cut", 3, device_data)
-    assert [h["epoch"] for h in history_r] == [1, 2, 3]
+    trainer, best_r, history_r = _fit(tmp_path / "cut", 2, device_data)
+    assert [h["epoch"] for h in history_r] == [1, 2]
     _assert_same(history_r, history)
     _assert_same(trainer.model.state_dict(), whole.model.state_dict())
     _assert_same(best_r, best)
@@ -111,8 +112,8 @@ def test_resume_is_bit_identical(device_data, tmp_path, capsys):
     _assert_same(trainer.tracked_dynamic_weights, whole.tracked_dynamic_weights)
     _assert_same(trainer.tracked_sigmoid_weights, whole.tracked_sigmoid_weights)
     _assert_same(trainer.generator.get_state(), whole.generator.get_state())
-    _assert_same(Checkpointer(str(tmp_path / "cut")).restore(3),
-                 Checkpointer(str(tmp_path / "whole")).restore(3))
+    _assert_same(Checkpointer(str(tmp_path / "cut")).restore(2),
+                 Checkpointer(str(tmp_path / "whole")).restore(2))
 
 
 def test_the_jax_realignment_breaks_resume(tmp_path, monkeypatch):
