@@ -1347,7 +1347,8 @@ F32_GEMM_STAGES = (
     ("dWqkv split-K", "tn", 2304, 768, R_BASE, None, False, False, True),
     ("dW1 split-K", "tn", 2048, 768, R_BASE, None, False, False, True),
     ("dW2 split-K", "tn", 768, 2048, R_BASE, None, False, False, True),
-    ("text w1 gelu aux", "nt", 8 * 512, 3072, 768, "gelu", 0.0, True, False),
+    ("text w1 gelu aux", "nt", 8 * 512, 3072, 768, "gelu", 0.0, True, True),
+    ("text w2", "nt", 8 * 512, 768, 3072, "none", 0.0, False, True),
     ("text dh dgelu gate + aux", "nn", 8 * 512, 3072, 768, "dgelu", False, True, False),
     ("ragged nt M600 N200 K96 relu dropout", "nt", 600, 200, 96, "relu", 0.1, True, False),
     ("ragged nn M600 N200 K96 relu gate", "nn", 600, 200, 96, "relu", False, False, False),
@@ -1357,7 +1358,7 @@ F32_GEMM_STAGES = (
 
 
 def f32_gemm_check(_build, fab, gen, name, layout, M, N, K, act_or_gate, extra, with_aux,
-                   timed):
+                   timed, bias_shift=0.0):
     from fairmultimodal_torch.utils import rng
 
     f32, f64 = torch.float32, torch.float64
@@ -1368,7 +1369,7 @@ def f32_gemm_check(_build, fab, gen, name, layout, M, N, K, act_or_gate, extra, 
     aux = torch.empty(M, N, device="cuda") if with_aux else None
     colpart = None
     if layout == "nt":
-        bias = 0.02 * torch.randn(N, generator=gen, device="cuda")
+        bias = 0.02 * torch.randn(N, generator=gen, device="cuda") + bias_shift
         drop = rng.Dropout.make(NT_SEED, 0, extra)
         run = lambda: _build.gemm(a, b, out, bias=bias, activation=act_or_gate,  # noqa: E731
                                   dropout=drop, aux=aux)
@@ -1397,6 +1398,8 @@ def f32_gemm_check(_build, fab, gen, name, layout, M, N, K, act_or_gate, extra, 
            "epilogue": act_or_gate, "errors": _rel_errors(out.double(), want)}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     row["tile"] = _build.sgemm_tile(layout, M, N, 1, sms)
+    if layout == "nt":   # the persistent launch: grid, tiles, on the busiest SM / consumer
+        row["schedule"] = _build.sgemm_nt_schedule(M, N, sms)
     if layout == "tn":
         row["splits"] = fab._splits(M, N, K, sms, f32)
         row["rows_per_split"] = _build.split_rows(K, row["splits"], f32)
@@ -1417,6 +1420,15 @@ def f32_gemm_check(_build, fab, gen, name, layout, M, N, K, act_or_gate, extra, 
         if not torch.isfinite(out).all() or e["max_abs_err"] > F32_GEMM_TOL * e["max_abs"]:
             raise AssertionError(f"fp32 {layout} gemm {name}: {what} {e} (limit {F32_GEMM_TOL} "
                                  "of max-abs against float64)")
+    if bias_shift:   # as nt_gemm_check's bf16 row: no pre-activation near zero
+        kept = out != 0
+        row["zeroed_as_plain"] = bool(torch.equal(kept, want != 0))
+        row["kept_fraction"] = kept.float().mean().item()
+        row["min_pre_activation"] = want_aux.min().item()
+        if not row["min_pre_activation"] > 0 or not row["zeroed_as_plain"]:
+            raise AssertionError(f"fp32 nt gemm {name}: dropout mask differs from the plain one "
+                                 f"{row}")
+        del kept
     del want, want_aux, want_sum
     if timed:
         flops = 2 * M * N * K
@@ -1439,20 +1451,29 @@ def f32_gemm_phase(_build, fab):
         row = f32_gemm_check(_build, fab, gen, *stage)
         log(f"[f32-gemm] {json.dumps(row)}")
         rows.append(row)
+    # The Philox mapping of the fp32 "nt" kernel, element for element (the
+    # bf16 "bias +8" row of nt_gemm_phase, in fp32).
+    row = f32_gemm_check(_build, fab, gen, "w1 relu dropout aux, bias +8", "nt", R_BASE, 2048,
+                         768, "relu", 0.1, True, False, bias_shift=8.0)
+    log(f"[f32-gemm] {json.dumps(row)}")
+    rows.append(row)
     return rows
 
 
-#: The kernels redesigned for Hopper (the bf16 path's, the fp32 GEMM and the
+#: The kernels redesigned for Hopper (the bf16 path's, the fp32 GEMMs and the
 #: fp32 flash forward and backward), whose ``-Xptxas -v`` lines phase 2 reports.
 PTXAS_KERNELS = ("gemm_wgmma_kernel", "flash_attn_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
-                 "flash_bwd_dkdv_mma_kernel", "gemm_f32_kernel", "flash_attn_fwd_f32_kernel",
-                 "flash_bwd_dq_f32_kernel", "flash_bwd_dkdv_f32_kernel")
+                 "flash_bwd_dkdv_mma_kernel", "gemm_f32_kernel", "gemm_f32_nt_kernel",
+                 "flash_attn_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
+                 "flash_bwd_dkdv_f32_kernel")
+#: Kernels that must not spill (their accumulators live in registers).
+NO_SPILL_KERNELS = ("gemm_f32_nt_kernel",)
 
 
 def ptxas_report(_build, names=PTXAS_KERNELS):
     """What ``nvcc -Xptxas -v`` said of each instantiation of ``names``
     (the build's logs): registers, stack, spills, and any warning about
-    them."""
+    them.  Raises if a kernel of ``NO_SPILL_KERNELS`` spills."""
     import re
 
     report = {}
@@ -1482,6 +1503,10 @@ def ptxas_report(_build, names=PTXAS_KERNELS):
                 report[current]["static_smem"] = int(m.group(1)) if m else 0
     if not any(k != "warnings" for k in report):
         raise AssertionError("ptxas report: no entry for the redesigned kernels in the build logs")
+    for name, row in report.items():
+        if any(n in name for n in NO_SPILL_KERNELS) and (
+                row.get("spill_stores", 1) or row.get("spill_loads", 1)):
+            raise AssertionError(f"ptxas report: {name} spills or has no spill line: {row}")
     return report
 
 

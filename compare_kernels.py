@@ -23,9 +23,13 @@ with GEMM, BWDGEMM, FLASH or FLASHERR.
 
 times the fp32 path instead, at the pipelines' batch 16 (B 16 x S 560, 8 x
 96, FFN 2048): what ``-Xptxas -v`` says of the fp32 GEMM and flash backward
-kernels; each fp32 GEMM stage ("nt" QKV / W2, "nn" dx / dh, "tn" dWo /
-dWqkv / dW1 split-K) against float64 on the card and beside ``F.linear`` /
-``torch.matmul`` with TF32 off (F32GEMM); the fp32 flash backward checked
+kernels; each fp32 GEMM stage ("nt" QKV / Wo / W1 with relu, inner dropout
+and aux / W2, the text encoder's W1 with gelu and aux / W2 at 8 x 512, the
+tensor-parallel W1 / W2 at F 1024 and 06's at R 8784 x 256 x 512;
+"nn" dx / dh, "tn" dWo / dWqkv / dW1 split-K) against float64 on the card
+and beside ``F.linear`` / ``torch.matmul`` with TF32 off (F32GEMM); #2 and
+#7's fp32 forwards at B 16 with their residuals beside one library
+composition each (F32FFN); the fp32 flash backward checked
 against its plain version and timed, its dQ and dK / dV kernels apart from
 the profiler (F32FLASH); the fp32 flash forward at the lab (B 16, S 560, 8 x
 96) and text (B 32, S 512, 12 x 64) shapes beside SDPA, and #1's four forward
@@ -103,23 +107,63 @@ import json, sys, numpy as np, torch, chip_smoke as c
 from fairmultimodal_torch.ops import _build, flash_attention as flash
 from fairmultimodal_torch.ops import fused_attention_block as fab, fused_ffn as ffn
 torch.backends.cuda.matmul.allow_tf32 = False
-print(json.dumps(c.ptxas_report(_build, ("gemm_f32_kernel", "flash_attn_fwd_f32_kernel",
+print(json.dumps(c.ptxas_report(_build, ("gemm_f32_kernel", "gemm_f32_nt_kernel",
+                                         "flash_attn_fwd_f32_kernel",
                                          "flash_bwd_dq_f32_kernel",
                                          "flash_bwd_dkdv_f32_kernel"))), flush=True)
 gen = torch.Generator(device="cuda").manual_seed(7)
 R = 16 * 560
-for name, layout, M, N, K in (("qkv nt", "nt", R, 2304, 768), ("w2 nt", "nt", R, 768, 2048),
-                              ("dx attention nn", "nn", R, 768, 2304),
+# Every fp32 "nt" stage with the epilogue its path gives it, against float64.
+for stage in (("qkv", "nt", R, 2304, 768, "none", 0.0, False, True),
+              ("wo", "nt", R, 768, 768, "none", 0.0, False, True),
+              ("w1 relu dropout aux", "nt", R, 2048, 768, "relu", 0.1, True, True),
+              ("w2", "nt", R, 768, 2048, "none", 0.0, False, True),
+              ("text w1 gelu aux", "nt", 8 * 512, 3072, 768, "gelu", 0.0, True, True),
+              ("text w2", "nt", 8 * 512, 768, 3072, "none", 0.0, False, True),
+              ("tp w1 F1024 relu dropout aux", "nt", R, 1024, 768, "relu", 0.1, True, True),
+              ("tp w2 K1024", "nt", R, 768, 1024, "none", 0.0, False, True),
+              ("06 w1 relu dropout aux", "nt", 8784, 512, 256, "relu", 0.1, True, True),
+              ("06 w2", "nt", 8784, 256, 512, "none", 0.0, False, True)):
+    row = c.f32_gemm_check(_build, fab, gen, *stage)
+    print("F32GEMM", json.dumps({"stage": row["stage"] + " nt",
+                                 "rel_err_vs_f64": row["errors"]["max_abs_err"]
+                                 / row["errors"]["max_abs"],
+                                 **{k: row[k] for k in ("ms", "tflops", "library_ms",
+                                                        "library_tflops")}}), flush=True)
+# #2 (LN-fused) and #7 (unfolded) FFN forwards at B 16, fp32, as a train step
+# runs them (leaves that need grads, so the residuals are kept), beside one
+# library composition each.
+F = torch.nn.functional
+H, FF = 768, 2048
+f_in = [torch.randn(*shape, generator=gen, device="cuda") * std
+        for shape, std in (((R, H), 1.0), ((FF, H), H ** -0.5), ((FF,), 0.02),
+                           ((H, FF), FF ** -0.5), ((H,), 0.02))]
+gamma = 1 + 0.1 * torch.randn(H, generator=gen, device="cuda")
+beta = 0.1 * torch.randn(H, generator=gen, device="cuda")
+leaves = [t.clone().requires_grad_(True) for t in f_in + [gamma, beta]]
+x, w1, b1, w2, b2 = f_in
+lib7 = lambda: F.linear(F.dropout(F.relu(F.linear(x, w1, b1)), 0.1), w2, b2)  # noqa: E731
+print("F32FFN", json.dumps({
+    "#2 ms": c.time_ms(lambda: ffn.fused_ffn_ln(*leaves, rate=0.1, deterministic=False,
+                                                 seeds=(21, 22), activation="relu",
+                                                 ln_eps=1e-5), reps=20),
+    "#2 library_ms": c.time_ms(lambda: F.layer_norm(x + F.dropout(lib7(), 0.1), (H,), gamma,
+                                                    beta, 1e-5), reps=20),
+    "#7 ms": c.time_ms(lambda: ffn.fused_ffn(*leaves[:5], deterministic=False, seed=21,
+                                             activation="relu", rate=0.1), reps=20),
+    "#7 library_ms": c.time_ms(lib7, reps=20)}), flush=True)
+del f_in, leaves, x, w1, b1, w2, b2
+torch.cuda.empty_cache()
+for name, layout, M, N, K in (("dx attention nn", "nn", R, 768, 2304),
                               ("dh nn", "nn", R, 2048, 768), ("dWo tn", "tn", 768, 768, R),
                               ("dWqkv tn", "tn", 2304, 768, R), ("dW1 tn", "tn", 2048, 768, R)):
     a = torch.randn(*((K, M) if layout == "tn" else (M, K)), generator=gen, device="cuda")
-    b = torch.randn(*((N, K) if layout == "nt" else (K, N)), generator=gen, device="cuda") * K ** -0.5
+    b = torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5
     out = torch.empty(M, N, device="cuda")
-    run = {"nt": lambda: _build.gemm(a, b, out), "nn": lambda: _build.gemm(a, b, out, layout="nn"),
+    run = {"nn": lambda: _build.gemm(a, b, out, layout="nn"),
            "tn": lambda: fab.weight_grad(a, b, out)}[layout]
-    lib = {"nt": lambda: torch.nn.functional.linear(a, b), "nn": lambda: torch.matmul(a, b),
-           "tn": lambda: torch.matmul(a.t(), b)}[layout]
-    want = {"nt": lambda: a.double() @ b.double().t(), "nn": lambda: a.double() @ b.double(),
+    lib = {"nn": lambda: torch.matmul(a, b), "tn": lambda: torch.matmul(a.t(), b)}[layout]
+    want = {"nn": lambda: a.double() @ b.double(),
             "tn": lambda: a.double().t() @ b.double()}[layout]()
     run()
     err = ((out.double() - want).abs().max() / want.abs().max()).item()

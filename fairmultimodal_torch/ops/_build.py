@@ -33,8 +33,8 @@ from fairmultimodal_torch.utils.rng import Dropout
 __all__ = ["KernelLaunchError", "build", "kernels", "gemm", "colsum", "row_block_sums",
            "flash_attn_fwd", "flash_attn_bwd", "flash_attention_fwd", "flash_attention_bwd",
            "add_layernorm", "layernorm_bwd", "ACT_CODES", "FLASH_BWD_TILE", "LN_BWD_ROWS",
-           "SUM_ROWS", "WGMMA_TILE", "SGEMM_TILE", "SGEMM_NARROW_TILE", "GEMM_SCHEDULE",
-           "sgemm_tile", "split_rows",
+           "SUM_ROWS", "WGMMA_TILE", "SGEMM_TILE", "SGEMM_NARROW_TILE", "SGEMM_NT",
+           "GEMM_SCHEDULE", "sgemm_tile", "sgemm_nt_schedule", "split_rows",
            "flash_bwd_colpart_rows", "flash_fwd_f32_rows"]
 
 _CSRC = Path(__file__).resolve().with_name("csrc")
@@ -56,8 +56,16 @@ WGMMA_TILE = (128, 256)
 #: The fp32 CUDA-core GEMM's block tile: ``gemm.cu``'s BM x BN.
 SGEMM_TILE = (128, 128)
 #: Its narrow tile (BM x BN_NARROW, 128 threads, four blocks per SM), which
-#: "nt" / "nn" products with N <= 768 take where :func:`sgemm_tile` says so.
+#: "nn" products with N <= 768 take where :func:`sgemm_tile` says so.
 SGEMM_NARROW_TILE = (128, 64)
+#: The fp32 "nt" kernel (``gemm.cu``'s ``gemm_f32_nt_kernel``, NT_*): each of
+#: a block's ``consumers`` owns ``tile`` (NT_BM x NT_BN) output tiles in turn,
+#: fed by TMA in ``bk``-deep K slices through a ring of ``stages``; one
+#: persistent block of ``threads`` per SM (a warpgroup per consumer and one
+#: for the producers) with ``smem`` bytes of dynamic shared memory; ``pitch``
+#: floats a row of a consumer's staging tile.
+SGEMM_NT = dict(tile=(128, 64), bk=32, stages=3, consumers=2, threads=384, blocks_per_sm=1,
+                smem=222304, pitch=72)
 #: Per io dtype, the GEMM kernel's (block tile, blocks resident per SM, K step
 #: of a split, least rows of a split): the wgmma kernel one block of 384
 #: threads with 200 KB of shared memory, the fp32 kernel's wide tile two of 256
@@ -68,12 +76,14 @@ GEMM_SCHEDULE = {torch.bfloat16: (WGMMA_TILE, 1, 64, 2048),
 
 
 def sgemm_tile(layout: str, m: int, n: int, splits: int, sms: int):
-    """The block tile the fp32 GEMM runs (``gemm.cu``'s ``sgemm_narrow``):
-    the narrow one for an unsplit "nt" / "nn" product with N <= 768 whose
-    64-wide tiles, four to an SM, leave less work on the busiest SM than the
-    wide ones, two to an SM (at batch 16, M 8960 x N 768: 7 x 64 against 4 x
-    128 columns); else the wide one.  "tn" keeps the wide tile, which
-    ``GEMM_SCHEDULE`` sizes its splits from."""
+    """The output tile the fp32 GEMM runs: "nt" the "nt" kernel's
+    (``SGEMM_NT``); "nn" the narrow one where ``gemm.cu``'s ``sgemm_narrow``
+    takes it (unsplit, N <= 768, and its 64-wide tiles, four to an SM, leave
+    less work on the busiest SM than the wide ones, two to an SM: at batch
+    16, M 8960 x N 768, 7 x 64 against 4 x 128 columns), else the wide one.
+    "tn" keeps the wide tile, which ``GEMM_SCHEDULE`` sizes its splits from."""
+    if layout == "nt":
+        return SGEMM_NT["tile"]
     if layout == "tn" or splits != 1 or n > 768:
         return SGEMM_TILE
     (bm, bn), (_, bn_narrow) = SGEMM_TILE, SGEMM_NARROW_TILE
@@ -81,6 +91,20 @@ def sgemm_tile(layout: str, m: int, n: int, splits: int, sms: int):
     wide, narrow = mt * -(-n // bn), mt * -(-n // bn_narrow)
     return SGEMM_NARROW_TILE if -(-narrow // sms) * bn_narrow < -(-wide // sms) * bn \
         else SGEMM_TILE
+
+
+def sgemm_nt_schedule(m: int, n: int, sms: int):
+    """The fp32 "nt" kernel's persistent launch at M x N on ``sms`` SMs:
+    (grid, tiles, tiles of the busiest block, tiles of the busiest consumer).
+    Tile t goes to block t % grid, so a block (one per SM) gets floor or
+    ceil(tiles / grid)."""
+    (bm, bn), per = SGEMM_NT["tile"], SGEMM_NT["consumers"]
+    tiles = -(-m // bm) * -(-n // bn)
+    grid = min(sms, tiles)
+    if grid == 0:
+        return 0, 0, 0, 0
+    return grid, tiles, -(-tiles // grid), -(-tiles // (grid * per))
+
 
 
 def split_rows(k: int, splits: int, dtype: torch.dtype) -> int:

@@ -46,13 +46,15 @@
 //     immediate, so no operand is ever transposed in memory.  At 128 x 256
 //     a tile needs about 11 TB/s of L2 traffic for the peak rate, so L2
 //     rather than the tensor cores may bound it.
-//   - fp32 (any layout): gemm_f32_kernel, register-blocked FFMA on the CUDA
-//     cores (full IEEE fp32, no TF32) fed by a four-slice ring (below).  It
-//     is the main path of every fp32 run: `fame` and every baseline build
-//     their models in fp32 unless --bf16 is given, so a default run trains
-//     through it.  What bounds it is the CUDA cores' fp32 rate (67 TFLOP/s
-//     on an H100 SXM): each lab product at batch 16 needs 10x or more the
-//     time of its bytes.
+//   - fp32: register-blocked FFMA on the CUDA cores (full IEEE fp32, no
+//     TF32).  "nt" runs gemm_f32_nt_kernel: persistent, its operands brought
+//     by TMA from one producer warp per consumer and read where they land
+//     (below); "nn" and "tn" run gemm_f32_kernel, fed by a four-slice ring of
+//     cp.async and register staging.  fp32 is the main path of every fp32
+//     run: `fame` and every baseline build their models in fp32 unless --bf16
+//     is given, so a default run trains through them.  What bounds them is
+//     the CUDA cores' fp32 rate (67 TFLOP/s on an H100 SXM): each lab product
+//     at batch 16 needs 10x or more the time of its bytes.
 // The epilogue is chosen at compile time (Mode) and works on groups of 8
 // (bf16) or 4 (fp32) consecutive columns: 16-byte loads and stores and one
 // Philox call per 4 elements, so at K = 768 it stays small next to the
@@ -61,8 +63,9 @@
 // fp32 partials [splits, M, N] that fm_colsum adds in a fixed order, so the
 // sum is the same bits every run (no atomics anywhere).  Column sums for
 // the bias grads are per row-block partials, also added by fm_colsum.
-// What it leaves on the table: a persistent schedule (the epilogue does not
-// overlap the next tile's loads), TMA multicast across a cluster (L2
+// What it leaves on the table: a persistent schedule for bf16 and the fp32
+// "nn" / "tn" (their epilogue does not overlap the next tile's loads), TMA
+// multicast across a cluster (L2
 // traffic), a split-K "tn" whose partials stay in the cluster, and the TPU
 // kernels' fusion (q/k/v/o, the [R, F] intermediate and dz round-trip HBM).
 #include <cuda.h>
@@ -233,10 +236,10 @@ __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, i
   }
 }
 
-// ---- fp32 CUDA-core kernel ------------------------------------------------------
+// ---- fp32 CUDA-core kernel, "nn" and "tn" ------------------------------------------
 //
-// C[M, N] = epilogue(op(A) . op(B)) in full IEEE fp32: one fmaf per product on
-// the CUDA cores, no TF32.  A 128 x 128 output tile per block of 256 threads,
+// C[M, N] = epilogue(op(A) . B) in full IEEE fp32, B [K, N]: one fmaf per
+// product on the CUDA cores, no TF32.  A 128 x 128 output tile per block of 256 threads,
 // two blocks per SM (64 accumulators a thread, at most 128 registers).  Warp w
 // owns a 32 x 64 warp tile (rows 32 (w / 2).., columns 64 (w % 2)..); lane l
 // of it rows 4 (l / 8) + {0..3} and + 16, columns 4 (l % 8) + {0..3} and + 32
@@ -250,7 +253,7 @@ __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, i
 // A ring of F32_STAGES slices hides global latency, one barrier per slice:
 //   - an MN-major operand ("nn" B, both "tn" operands; stored [K, MN]) comes
 //     by 16-byte cp.async straight into its slot, F32_STAGES - 1 slices ahead;
-//   - a K-major operand ("nt" A and B, "nn" A; stored [MN, K]) is read 16
+//   - a K-major operand ("nn" A; stored [MN, K]) is read 16
 //     bytes at a time into registers (2 float4 a thread, 4 threads per 64-byte
 //     row piece) when its slice is issued, and stored transposed into the ring
 //     after this slice's FMAs, so its global latency runs under them too.
@@ -267,13 +270,14 @@ __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, i
 // the main loop's global-to-shared loads gives 42-45 TFLOP/s (tn +13%, nt
 // +24%: the K-major register staging costs most); dropping the shared-memory
 // reads gives 40-45.  So the load instructions every thread issues are the
-// largest cost; slices filled by TMA from one thread are the next step.  Tried
+// largest cost; slices filled by TMA from one thread are the next step, which
+// the "nt" form has taken (gemm_f32_nt_kernel below).  Tried
 // in turns, none faster: the first 16-wide warp layout, unswizzled slices with
 // lane-per-row K-major loads (nt 13% slower), and 8 x 16 micro-tiles on 128
 // threads (255 registers, 8 warps per SM).
 // Narrow tile (BM x BN_NARROW = 128 x 64, 128 threads, four blocks per SM:
 // the same warp tile, micro-tile and ring, the warps stacked along M), for
-// "nt" / "nn" products with N <= 768 where it leaves less work on the busiest
+// "nn" products with N <= 768 where it leaves less work on the busiest
 // SM (sgemm_narrow).  At the pipelines' batch 16 an N-768 product (Wo, W2,
 // dO, both N-768 dx) has 420 wide tiles on 132 SMs: the busiest SM takes 4
 // (3.2 on average, 1.6 waves of two a SM); 840 narrow tiles put 7 half-size
@@ -363,7 +367,7 @@ __device__ __forceinline__ void copy_mnmajor(const float* __restrict__ src, int 
   }
 }
 
-template <int AT, int BT, int MODE, int TBN>
+template <int AT, int MODE, int TBN>
 __global__ void __launch_bounds__(SgemmTile<TBN>::NT, 512 / SgemmTile<TBN>::NT)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
                 int M, int N, int K, int Kc, Epi e) {
@@ -380,19 +384,17 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float*
   const int nk = kend > kb ? (kend - kb + BK - 1) / BK : 0;
   C += (size_t)blockIdx.z * M * N;
 
-  float4 ra[BM * 4 / NT], rb[TBN * 4 / NT];  // the K-major operands' slice in flight
+  float4 ra[BM * 4 / NT];  // a K-major A's slice in flight ("nn")
   auto slice_a = [&](int s) { return ring + s * (T::A_SLICE + T::B_SLICE); };
   auto slice_b = [&](int s) { return ring + s * (T::A_SLICE + T::B_SLICE) + T::A_SLICE; };
   auto issue = [&](int t, int s) {
     const int k0 = kb + t * BK;
     if (AT) copy_mnmajor<BM, NT>(A, M, m0, k0, kend, slice_a(s));
     else fetch_kmajor<BM, NT>(A, M, K, m0, k0, ra);
-    if (BT) copy_mnmajor<TBN, NT>(B, N, n0, k0, kend, slice_b(s));
-    else fetch_kmajor<TBN, NT>(B, N, K, n0, k0, rb);
+    copy_mnmajor<TBN, NT>(B, N, n0, k0, kend, slice_b(s));
   };
   auto park = [&](int s) {
     if (!AT) store_kmajor<BM, NT>(ra, slice_a(s));
-    if (!BT) store_kmajor<TBN, NT>(rb, slice_b(s));
   };
 #pragma unroll
   for (int s = 0; s < F32_STAGES - 1; ++s) {
@@ -467,7 +469,7 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float*
   }
 }
 
-// Whether an unsplit product runs on the narrow tile: N <= 768 and its
+// Whether an unsplit "nn" product runs on the narrow tile: N <= 768 and its
 // 64-wide tiles, four to an SM, leave less work on the busiest SM than the
 // wide ones (_build.sgemm_tile repeats the rule).
 bool sgemm_narrow(int M, int N, int splits, int sms) {
@@ -478,37 +480,37 @@ bool sgemm_narrow(int M, int N, int splits, int sms) {
   return (narrow + sms - 1) / sms * BN_NARROW < (wide + sms - 1) / sms * BN;
 }
 
-template <int AT, int BT, int MODE, int TBN>
+template <int AT, int MODE, int TBN>
 cudaError_t launch_f32_tile(const void* A, const void* B, void* C, int M, int N, int K,
                             int splits, const Epi& e, cudaStream_t s) {
   using T = SgemmTile<TBN>;
   // K per split, a multiple of BK; the last split may be short (or empty).
   const int Kc = ((K + splits - 1) / splits + BK - 1) / BK * BK;
   // Per launch, as the attribute belongs to the current device.
-  const cudaError_t err = cudaFuncSetAttribute(gemm_f32_kernel<AT, BT, MODE, TBN>,
+  const cudaError_t err = cudaFuncSetAttribute(gemm_f32_kernel<AT, MODE, TBN>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                T::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + TBN - 1) / TBN, (M + BM - 1) / BM, splits);
-  gemm_f32_kernel<AT, BT, MODE, TBN><<<grid, T::NT, T::SMEM, s>>>(
+  gemm_f32_kernel<AT, MODE, TBN><<<grid, T::NT, T::SMEM, s>>>(
       static_cast<const float*>(A), static_cast<const float*>(B), static_cast<float*>(C), M, N,
       K, Kc, e);
   return cudaGetLastError();
 }
 
-template <int AT, int BT, int MODE>
+template <int AT, int MODE>
 cudaError_t launch_f32(const void* A, const void* B, void* C, int M, int N, int K, int splits,
                        const Epi& e, cudaStream_t s) {
-  if constexpr (!AT) {  // "nt" / "nn"; "tn" keeps the wide tile its splits are sized from
+  if constexpr (!AT) {  // "nn"; "tn" keeps the wide tile its splits are sized from
     int dev = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     if (sgemm_narrow(M, N, splits, sms))
-      return launch_f32_tile<AT, BT, MODE, BN_NARROW>(A, B, C, M, N, K, splits, e, s);
+      return launch_f32_tile<AT, MODE, BN_NARROW>(A, B, C, M, N, K, splits, e, s);
   }
-  return launch_f32_tile<AT, BT, MODE, BN>(A, B, C, M, N, K, splits, e, s);
+  return launch_f32_tile<AT, MODE, BN>(A, B, C, M, N, K, splits, e, s);
 }
 
 // ---- bf16 kernel: wgmma fed by TMA, warp-specialised, every layout ----------------
@@ -784,27 +786,28 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The TMA map of a row-major bf16 matrix [outer, inner] read in
-// [box_outer, box_inner] boxes, 128-byte swizzle; reads past its edges give
-// zeros.
-bool bf16_map(CUtensorMap* map, const void* p, int outer, int inner, int box_outer,
-              int box_inner) {
+// The TMA map of a row-major bf16 or fp32 (f32) matrix [outer, inner] read
+// in [box_outer, box_inner] boxes of 128-byte rows, 128-byte swizzle; reads
+// past its edges give zeros.
+bool tma_map(CUtensorMap* map, const void* p, bool f32, int outer, int inner, int box_outer,
+             int box_inner) {
   const EncodeTiledFn enc = encode_tiled();
   if (!enc) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * (f32 ? 4 : 2)};
   const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
   const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  return enc(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(p), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The map of one operand with ``mn`` rows or columns: K-major [mn, K] in
+// The map of one bf16 operand with ``mn`` rows or columns: K-major [mn, K] in
 // [box_mn, 64] boxes, or MN-major [K, mn] in [64, 64] boxes.
 bool operand_map(CUtensorMap* map, const void* p, int mn, int K, bool mn_major, int box_mn) {
-  return mn_major ? bf16_map(map, p, K, mn, WG_BK, 64) : bf16_map(map, p, mn, K, box_mn, WG_BK);
+  return mn_major ? tma_map(map, p, false, K, mn, WG_BK, 64)
+                  : tma_map(map, p, false, mn, K, box_mn, WG_BK);
 }
 
 template <typename TOut, int AT, int BT, int MODE>
@@ -824,11 +827,238 @@ cudaError_t launch_wgmma(const void* A, const void* B, void* C, int M, int N, in
   return cudaGetLastError();
 }
 
-// fp32 runs on CUDA cores in every layout, bf16 on the wgmma kernel.
+// ---- fp32 "nt" kernel: persistent, TMA-fed, warp-specialised --------------------
+//
+// C[M, N] = epilogue(A[M, K] . B[N, K]^T) in full IEEE fp32 on the CUDA cores,
+// for every fp32 forward product (Pallas #1 / #5's QKV and Wo, #2 / #7's W1
+// and W2, the text encoder's).  Both operands are K-major, which is what held
+// gemm_f32_kernel back on this form: each K slice went through registers and
+// was stored back transposed by every thread.  Here nothing is staged or
+// transposed.
+//   - A block of NT_THREADS = 384 holds NT_CONSUMERS = 2 consumer
+//     warpgroups (warps 0-3 and 4-7), each with its own producer warp (warps
+//     8, 9 of the third warpgroup, whose warps 10 and 11 idle), its own ring
+//     of NT_STAGES K slices and its own sequence of output tiles.  The
+//     producer's one thread brings each 32-deep slice of A [128 rows][32 K]
+//     and B [64 rows][32 K] by TMA (a 128-byte line of K per row, 128-byte
+//     swizzle: the 16-byte chunk ch of row r lands at chunk ch ^ (r & 7)),
+//     completing on the stage's "full" mbarrier; the consumer's four warps
+//     release it on "empty" (one arrive each).  The register file is split
+//     four ways, a warp of each warpgroup on each quarter, so 384 threads
+//     start at 168 registers; setmaxnreg then moves them from the producer
+//     warpgroup (40) to the consumers (232), whose 64 accumulators and 16
+//     float4 of operands a chunk then fit without spilling.
+//   - Persistent: grid = min(SMs, tiles), one block per SM (222 KB of
+//     shared memory).  Output tiles of NT_BM x NT_BN are numbered N-fastest
+//     (t = mt * tiles_n + nt); tile t belongs to block t % grid, and the
+//     block's consumers take its tiles in turn (consumer c: t = blockIdx.x +
+//     grid * (2 i + c)).  So every SM gets floor or ceil(tiles / grid) tiles,
+//     the fixed order gives the same bits every run, and while a consumer
+//     runs a tile's epilogue its producer already fills the ring with the
+//     next tile's slices (and the other consumer computes).  N-fastest keeps
+//     the tiles in flight on a band of A rows (8 to 22 of the 70 row blocks
+//     at batch 16) against the whole weight, which stays in L2: W2's A at
+//     batch 16 is 73 MB, more than L2, and an M-fastest order would stream
+//     it once per 64 columns.
+//   - Consumer thread map, designed with the swizzle: warp w of a consumer,
+//     lane l = 8 rq + cq, owns rows r0 + 8 i (i < 8, r0 = 64 (w / 2) +
+//     4 (w % 2) + rq) and columns cq + 8 j (j < 8), an 8 x 8 micro-tile.  Per
+//     16-byte chunk ch of K (4 consecutive k) it reads its 8 A rows and 8 B
+//     rows as float4 where TMA put them: every row of a thread has the same
+//     row & 7, so one offset off ^ (ch << 4) serves all eight and the rest
+//     are immediates (8 rows = 1024 bytes on).  A warp's A read covers 4
+//     consecutive rows (4 chunks, distinct swizzled positions), its B read 8
+//     consecutive rows (8 chunks, 8 positions): each is one wavefront.
+//     The lane-per-row K-major reads tried on gemm_f32_kernel (13% slower,
+//     above) were unswizzled: rows 4 apart, 64 bytes long, fall on one bank
+//     quad.  Here the swizzle spreads rows of distinct r & 7, and this map
+//     reads only such rows together.
+//   - Order: each accumulator is one fmaf chain over k = 0, 1, ... (the 4 k
+//     of a chunk in order, chunks and slices in order), the same chain
+//     gemm_f32_kernel ran on this form, so the two give the same bits.
+//   - Epilogue: the micro-tile's columns are 8 apart, so the consumer stages
+//     its 128 x 64 accumulators in its own buffer (pitch NT_CPITCH = 72: a
+//     warp's scalar stores, 4 rows x 8 columns, land on 32 banks) and reads
+//     them back as 4 consecutive columns for epilogue_group: bias, aux,
+//     relu / gelu, Philox inner dropout at (row * N + col) >> 2, 16-byte
+//     stores; two named barriers of the consumer's 128 threads a tile.
+//   - Ragged edges: TMA zero-fills rows past M and N (K % 32 == 0, the
+//     wrapper's rule); the epilogue skips them.
+// Bound: the CUDA cores' fp32 rate, as gemm_f32_kernel.  At batch 16 on the
+// H100 (700 W, compare_kernels.py --fp32 in turns with gemm_f32_kernel): W1
+// with relu, dropout and aux 0.701-0.721 ms (39-40 TFLOP/s) against
+// 0.835-0.857, W2 0.728-0.742 against 0.827-0.886, QKV 0.761-0.801 against
+// 0.878-0.880; cuBLAS (F.linear, TF32 off) 0.675-0.721, 0.708-0.775,
+// 0.673-0.735.  Tried in turns:
+//   - 320 threads (a producer warp per consumer, no third warpgroup): ptxas
+//     held them to 168 registers and spilled 40 bytes, and __maxnreg__(200)
+//     was refused at launch (10 warps put 3 on one quarter of the register
+//     file: 3 x 32 x 200 > 16384); hence the producers' warpgroup and
+//     setmaxnreg.
+//   - The chunk loop unrolled by 8 (one 2048-FFMA body a slice): W1
+//     0.688-0.695 ms, W2 0.731-0.733, text W2 (K 3072) 0.556-0.580, against
+//     0.672, 0.692-0.704, 0.468-0.505 rolled; by 2 or 4 within the spread of
+//     rolled.  So it stays rolled (#pragma unroll 1).
+//   - Tiles M-fastest (unrolled): W2 0.743 ms, text W2 0.573, against 0.731
+//     and 0.556 N-fastest.
+
+// _build.SGEMM_NT repeats these.
+constexpr int NT_BM = 128;  // a consumer's output tile, NT_BM x NT_BN
+constexpr int NT_BN = 64;
+constexpr int NT_BK = 32;  // one 128-byte swizzle line of fp32
+constexpr int NT_STAGES = 3;
+constexpr int NT_CONSUMERS = 2;
+constexpr int NT_THREADS = (NT_CONSUMERS + 1) * 128;  // + the producers' warpgroup
+constexpr int NT_A_BYTES = NT_BM * NT_BK * 4;
+constexpr int NT_STAGE_BYTES = NT_A_BYTES + NT_BN * NT_BK * 4;
+constexpr int NT_RING = NT_STAGES * NT_STAGE_BYTES;
+constexpr int NT_CPITCH = NT_BN + 8;  // fp32 staging pitch (floats)
+constexpr int NT_CSTAGE = NT_BM * NT_CPITCH * 4;
+// Rings, staging tiles, mbarriers (full and empty per stage), 1024-byte alignment.
+constexpr int NT_SMEM = NT_CONSUMERS * (NT_RING + NT_CSTAGE + 2 * NT_STAGES * 8) + 1024;
+static_assert(NT_SMEM <= 232448, "a block's shared memory fits the SM's 227 KB");
+static_assert(NT_STAGE_BYTES % 1024 == 0 && NT_CSTAGE % 1024 == 0, "swizzle atoms stay aligned");
+
+__global__ void __launch_bounds__(NT_THREADS, 1)
+gemm_f32_nt_kernel(const __grid_constant__ CUtensorMap tmA,
+                   const __grid_constant__ CUtensorMap tmB, float* __restrict__ C, int M, int N,
+                   int K, Epi e) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c = warp < 4 * NT_CONSUMERS ? warp / 4 : warp - 4 * NT_CONSUMERS;  // consumer
+  unsigned char* ring = base + c * NT_RING;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(base + NT_CONSUMERS * (NT_RING + NT_CSTAGE)) + c * 2 * NT_STAGES;
+  uint64_t* empty = full + NT_STAGES;
+  const int tiles_n = (N + NT_BN - 1) / NT_BN;
+  const int tiles = (M + NT_BM - 1) / NT_BM * tiles_n;
+  const int nk = K / NT_BK;
+  const int first = blockIdx.x + gridDim.x * c, step = gridDim.x * NT_CONSUMERS;
+  if (threadIdx.x < NT_CONSUMERS * NT_STAGES) {
+    uint64_t* f = reinterpret_cast<uint64_t*>(base + NT_CONSUMERS * (NT_RING + NT_CSTAGE)) +
+                  threadIdx.x / NT_STAGES * 2 * NT_STAGES + threadIdx.x % NT_STAGES;
+    mbar_init(f, 1);               // the producer's arrive, plus the copies' bytes
+    mbar_init(f + NT_STAGES, 4);   // one arrive per consumer warp
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NT_CONSUMERS) {  // the producers' warpgroup; warp 8 + c feeds consumer c
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (c < NT_CONSUMERS && lane == 0) {
+      int q = 0;  // slices issued, over all of this consumer's tiles
+      for (int t = first; t < tiles; t += step) {
+        const int m0 = t / tiles_n * NT_BM, n0 = t % tiles_n * NT_BN;
+        for (int kt = 0; kt < nk; ++kt, ++q) {
+          const int s = q % NT_STAGES;
+          mbar_wait(&empty[s], ((q / NT_STAGES) & 1) ^ 1);  // the first round passes at once
+          mbar_expect_tx(&full[s], NT_STAGE_BYTES);
+          unsigned char* a = ring + s * NT_STAGE_BYTES;
+          tma_load(a, &tmA, kt * NT_BK, m0, &full[s]);
+          tma_load(a + NT_A_BYTES, &tmB, kt * NT_BK, n0, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  const int tid = threadIdx.x % 128, w = tid / 32;
+  const int rq = lane / 8, cq = lane % 8;
+  const int r0 = (w / 2) * 64 + (w % 2) * 4 + rq;
+  // Byte offsets in a stage of the thread's first A and B row, their swizzle
+  // (row & 7) in bits 4-6: chunk ch of that row is at off ^ (ch << 4).
+  const uint32_t offa = r0 * 128 + ((r0 & 7) << 4);
+  const uint32_t offb = NT_A_BYTES + cq * 128 + (cq << 4);
+  float* stage = reinterpret_cast<float*>(base + NT_CONSUMERS * NT_RING + c * NT_CSTAGE);
+  int q = 0;
+  for (int t = first; t < tiles; t += step) {
+    const int m0 = t / tiles_n * NT_BM, n0 = t % tiles_n * NT_BN;
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int kt = 0; kt < nk; ++kt, ++q) {
+      const int s = q % NT_STAGES;
+      mbar_wait(&full[s], (q / NT_STAGES) & 1);
+      const unsigned char* st = ring + s * NT_STAGE_BYTES;
+#pragma unroll 1
+      for (int ch = 0; ch < NT_BK / 4; ++ch) {
+        const float4* pa = reinterpret_cast<const float4*>(st + (offa ^ (ch << 4)));
+        const float4* pb = reinterpret_cast<const float4*>(st + (offb ^ (ch << 4)));
+        float4 a[8], b[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a[i] = pa[64 * i];  // rows 8 apart: 1024 bytes
+#pragma unroll
+        for (int j = 0; j < 8; ++j) b[j] = pb[64 * j];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+            acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+            acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+            acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+          }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // Epilogue through the staging tile: the consumer's last reads of it are
+    // done, then its 128 x 64 accumulators go in, then groups of 4 columns
+    // come out.
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) stage[(r0 + 8 * i) * NT_CPITCH + cq + 8 * j] = acc[i][j];
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+#pragma unroll 4
+    for (int u = 0; u < NT_BM * NT_BN / 4 / 128; ++u) {
+      const int g = u * 128 + tid;  // 16 groups a row: a warp stores two 256-byte rows
+      const int lr = g / (NT_BN / 4), col = n0 + 4 * (g % (NT_BN / 4));
+      if (m0 + lr < M && col < N) {
+        float v[4];
+        load_group<4>(stage + lr * NT_CPITCH + 4 * (g % (NT_BN / 4)), v);
+        epilogue_group<EPI_BIAS_ACT, 4, float, float>(e, m0 + lr, col, N, v, C, nullptr);
+      }
+    }
+  }
+}
+
+cudaError_t launch_f32_nt(const void* A, const void* B, void* C, int M, int N, int K, const Epi& e,
+                          cudaStream_t s) {
+  const int tiles = (M + NT_BM - 1) / NT_BM * ((N + NT_BN - 1) / NT_BN);
+  if (tiles == 0) return cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  CUtensorMap ta{}, tb{};  // K == 0 loads nothing
+  if (K > 0 && (!tma_map(&ta, A, true, M, K, NT_BM, NT_BK) ||
+                !tma_map(&tb, B, true, N, K, NT_BN, NT_BK)))
+    return cudaErrorInvalidValue;
+  // Per launch, as the attribute belongs to the current device.
+  err = cudaFuncSetAttribute(gemm_f32_nt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             NT_SMEM);
+  if (err != cudaSuccess) return err;
+  gemm_f32_nt_kernel<<<sms < tiles ? sms : tiles, NT_THREADS, NT_SMEM, s>>>(
+      ta, tb, static_cast<float*>(C), M, N, K, e);
+  return cudaGetLastError();
+}
+
+// fp32 runs on CUDA cores in every layout ("nt" on its own kernel), bf16 on
+// the wgmma kernel.
 template <int AT, int BT, int MODE>
 cudaError_t launch(const void* A, const void* B, void* C, int M, int N, int K, int splits,
                    int dtype, int out_f32, const Epi& e, cudaStream_t s) {
-  if (dtype == FM_F32) return launch_f32<AT, BT, MODE>(A, B, C, M, N, K, splits, e, s);
+  if (dtype == FM_F32) {
+    if constexpr (!AT && !BT) return launch_f32_nt(A, B, C, M, N, K, e, s);
+    else return launch_f32<AT, MODE>(A, B, C, M, N, K, splits, e, s);  // B MN-major
+  }
   // K per split, a multiple of the wgmma kernel's K slice; the last split may be short.
   const int Kc = ((K + splits - 1) / splits + WG_BK - 1) / WG_BK * WG_BK;
   return out_f32 ? launch_wgmma<float, AT, BT, MODE>(A, B, C, M, N, K, splits, Kc, e, s)

@@ -7,9 +7,11 @@ kernel that runs it (``_build.GEMM_SCHEDULE``): the bf16 ``wgmma`` kernel's
 128 x 256 tile at one block per SM, the fp32 CUDA-core kernel's 128 x 128
 tile at two; each split sums ``_build.split_rows`` rows (a multiple of the
 kernel's K step, 64 or 16; at least 2048 or 512).  "tn" always runs that
-wide tile; an unsplit "nt" / "nn" product with N <= 768 takes the 128 x 64
+wide tile; an unsplit "nn" product with N <= 768 takes the 128 x 64
 narrow tile where ``_build.sgemm_tile`` (``gemm.cu``'s ``sgemm_narrow``)
-says its wave tail is shorter: at batch 16, not at the lab or text shapes.  At batch 16 the fp32 weight
+says its wave tail is shorter: at batch 16, not at the lab or text shapes.
+Every fp32 "nt" product runs its own kernel's 128 x 64 tile
+(tests/test_torch_sgemm_nt_f32.py).  At batch 16 the fp32 weight
 grads take 7-8 splits of 1120-1280 rows where the bf16 ones take 2-4.  The
 tests pin both at the lab (B 256 x S 560), text (B 32 x S 512, FFN 3072) and
 baseline (B 16 x S 560) shapes on a 132-SM H100, and hold the Python
@@ -98,16 +100,20 @@ def test_a_card_with_fewer_sms_gets_its_own_count(dtype):
 
 # layout, M, N, splits, SMs, the tile that runs
 TILES = [
-    ("nt", BASE, 768, 1, 132, (128, 64)),        # Wo, W2 at batch 16
+    ("nt", BASE, 768, 1, 132, (128, 64)),        # Wo, W2 at batch 16: the "nt" kernel's
     ("nn", BASE, 768, 1, 132, (128, 64)),        # dO, both N-768 dx
-    ("nt", BASE, 2304, 1, 132, (128, 128)),      # QKV: N > 768
-    ("nt", BASE, 2048, 1, 132, (128, 128)),      # W1
-    ("nt", TEXT, 768, 1, 132, (128, 128)),       # 768 wide tiles: 6 a SM either way
-    ("nt", LAB, 768, 1, 132, (128, 128)),
+    ("nt", BASE, 2304, 1, 132, (128, 64)),       # QKV: every "nt" shape takes that tile
+    ("nt", BASE, 2048, 1, 132, (128, 64)),       # W1
+    ("nt", TEXT, 768, 1, 132, (128, 64)),
+    ("nt", LAB, 768, 1, 132, (128, 64)),
     ("nn", 600, 200, 1, 132, (128, 64)),         # one wave: half the work a block
     ("tn", 768, 768, 1, 132, (128, 128)),        # the weight grads keep the wide tile
-    ("nt", BASE, 768, 2, 132, (128, 128)),
-    ("nt", BASE, 768, 1, 114, (128, 128)),       # 114 SMs: 8 x 64 = 4 x 128, a tie
+    ("nt", BASE, 768, 2, 132, (128, 64)),
+    ("nt", BASE, 768, 1, 114, (128, 64)),
+    ("nn", BASE, 2048, 1, 132, (128, 128)),      # "nn" dh: N > 768
+    ("nn", TEXT, 768, 1, 132, (128, 128)),       # 768 wide tiles: 6 a SM either way
+    ("nn", BASE, 768, 2, 132, (128, 128)),
+    ("nn", BASE, 768, 1, 114, (128, 128)),       # 114 SMs: 8 x 64 = 4 x 128, a tie
 ]
 
 
@@ -115,7 +121,9 @@ TILES = [
                          ids=[f"{t[0]}-M{t[1]}-N{t[2]}-s{t[3]}-sm{t[4]}" for t in TILES])
 def test_narrow_tile_where_its_wave_tail_is_shorter(layout, m, n, splits, sms, tile):
     assert _build.sgemm_tile(layout, m, n, splits, sms) == tile
-    if tile == _build.SGEMM_NARROW_TILE:
+    if layout == "nt":
+        assert tile == _build.SGEMM_NT["tile"]
+    elif tile == _build.SGEMM_NARROW_TILE:
         # The busiest SM's work (tiles on it x tile width) is smaller.
         mt = -(-m // 128)
         assert -(-mt * -(-n // 64) // sms) * 64 < -(-mt * -(-n // 128) // sms) * 128
