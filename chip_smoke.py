@@ -1319,14 +1319,16 @@ def nn_tn_gemm_phase(_build, fab):
 #
 # fp32 is what `fame` and every baseline run unless --bf16 is given, at the
 # pipelines' batch 16: each fp32 product of the lab path at B 16 x S 560
-# (R_BASE rows) through ``_build.gemm`` (csrc/gemm.cu::gemm_f32_kernel) or
-# ``fused_attention_block.weight_grad`` (its split-K "tn" and the fixed-order
-# sum), with the epilogue the path gives it, against the same product and
-# epilogue in float64 on the card.  Limit F32_GEMM_TOL of the output's
-# max-abs (and of the column sums', the aux's): fp32 sums of up to 4480 terms
-# per chain stay near 1e-6 of it, while TF32 (10-bit mantissas) misses it by
-# 10x or more, so the check also holds the kernel to IEEE fp32.  The gated
-# "nn" run twice must leave the same bits.  Timed beside one ``F.linear`` /
+# (R_BASE rows) through ``_build.gemm`` (csrc/gemm.cu::gemm_f32_nt_kernel for
+# "nt", gemm_f32_nn_tn_kernel for "nn") or ``fused_attention_block.weight_grad``
+# (gemm_f32_nn_tn_kernel's split-K "tn" and the fixed-order sum), with the
+# epilogue the path gives it, against the same product and epilogue in
+# float64 on the card, each row with its persistent schedule.  Limit
+# F32_GEMM_TOL of the output's max-abs (and of the column sums', the aux's):
+# fp32 sums of up to 4480 terms per chain stay near 1e-6 of it, while TF32
+# (10-bit mantissas) misses it by 10x or more, so the check also holds the
+# kernel to IEEE fp32.  Every "nn" and "tn" stage run twice must leave the
+# same bits (and column sums).  Timed beside one ``F.linear`` /
 # ``torch.matmul`` in fp32 with TF32 off (cuBLAS; a yardstick the port never
 # calls), each with its TFLOP/s and its bound at the CUDA cores' 67 TFLOP/s.
 
@@ -1398,10 +1400,13 @@ def f32_gemm_check(_build, fab, gen, name, layout, M, N, K, act_or_gate, extra, 
            "epilogue": act_or_gate, "errors": _rel_errors(out.double(), want)}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     row["tile"] = _build.sgemm_tile(layout, M, N, 1, sms)
-    if layout == "nt":   # the persistent launch: grid, tiles, on the busiest SM / consumer
+    # The persistent launch: grid, units (tiles x splits), on the busiest SM / consumer.
+    if layout == "nt":
         row["schedule"] = _build.sgemm_nt_schedule(M, N, sms)
+    else:
+        row["splits"] = fab._splits(M, N, K, sms, f32) if layout == "tn" else 1
+        row["schedule"] = _build.sgemm_nn_tn_schedule(M, N, row["splits"], sms)
     if layout == "tn":
-        row["splits"] = fab._splits(M, N, K, sms, f32)
         row["rows_per_split"] = _build.split_rows(K, row["splits"], f32)
     checks = [("out", row["errors"])]
     if with_aux:
@@ -1410,9 +1415,11 @@ def f32_gemm_check(_build, fab, gen, name, layout, M, N, K, act_or_gate, extra, 
     if colpart is not None:
         row["colsum_errors"] = _rel_errors(colpart.double().sum(dim=0), want_sum)
         checks.append(("column sums", row["colsum_errors"]))
-        first = (out.clone(), colpart.clone())
+    if layout != "nt":   # the persistent schedule and split-K sums: the same bits twice
+        first = (out.clone(), None if colpart is None else colpart.clone())
         run()
-        row["deterministic"] = torch.equal(first[0], out) and torch.equal(first[1], colpart)
+        row["deterministic"] = torch.equal(first[0], out) and (
+            colpart is None or torch.equal(first[1], colpart))
         if not row["deterministic"]:
             raise AssertionError(f"fp32 {layout} gemm {name}: two runs differ")
         del first
@@ -1463,11 +1470,11 @@ def f32_gemm_phase(_build, fab):
 #: The kernels redesigned for Hopper (the bf16 path's, the fp32 GEMMs and the
 #: fp32 flash forward and backward), whose ``-Xptxas -v`` lines phase 2 reports.
 PTXAS_KERNELS = ("gemm_wgmma_kernel", "flash_attn_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
-                 "flash_bwd_dkdv_mma_kernel", "gemm_f32_kernel", "gemm_f32_nt_kernel",
+                 "flash_bwd_dkdv_mma_kernel", "gemm_f32_nt_kernel", "gemm_f32_nn_tn_kernel",
                  "flash_attn_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
                  "flash_bwd_dkdv_f32_kernel")
 #: Kernels that must not spill (their accumulators live in registers).
-NO_SPILL_KERNELS = ("gemm_f32_nt_kernel",)
+NO_SPILL_KERNELS = ("gemm_f32_nt_kernel", "gemm_f32_nn_tn_kernel")
 
 
 def ptxas_report(_build, names=PTXAS_KERNELS):

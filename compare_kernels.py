@@ -26,10 +26,12 @@ times the fp32 path instead, at the pipelines' batch 16 (B 16 x S 560, 8 x
 kernels; each fp32 GEMM stage ("nt" QKV / Wo / W1 with relu, inner dropout
 and aux / W2, the text encoder's W1 with gelu and aux / W2 at 8 x 512, the
 tensor-parallel W1 / W2 at F 1024 and 06's at R 8784 x 256 x 512;
-"nn" dx / dh, "tn" dWo / dWqkv / dW1 split-K) against float64 on the card
-and beside ``F.linear`` / ``torch.matmul`` with TF32 off (F32GEMM); #2 and
-#7's fp32 forwards at B 16 with their residuals beside one library
-composition each (F32FFN); the fp32 flash backward checked
+every "nn" / "tn" stage with its epilogue: dO, dx + resid, the relu-gated dh
+with its column partials and the four split-K weight grads at B 16, 06's and
+the tensor-parallel FFN's, each with its schedule) against float64 on the
+card, reruns bit for bit, and beside ``F.linear`` / ``torch.matmul`` with
+TF32 off (F32GEMM); #2 and #7's fp32 forwards at B 16 with their residuals
+beside one library composition each (F32FFN); the fp32 flash backward checked
 against its plain version and timed, its dQ and dK / dV kernels apart from
 the profiler (F32FLASH); the fp32 flash forward at the lab (B 16, S 560, 8 x
 96) and text (B 32, S 512, 12 x 64) shapes beside SDPA, and #1's four forward
@@ -38,8 +40,9 @@ F.layer_norm (F32FLASHFWD); and #3 / #4 (the LN-fused backwards) with their
 stages, plain and library times (F32BWD).  With ``--steps`` also FAME's
 default train step (``FAMETrainer.train_step`` at the reference geometry,
 fp32, batch 16, dropout 0.1) and the 01 fp32 step, each a CUDA-event median
-of 20 and profiled (STEP), after phase 8's fp32 rows of #1-#10 at B 16 (ROWS:
-ms, plain, library).  It calls only entry points the parent commit of
+of 20 and profiled (STEP; FAME's step also by every kernel's full name and
+the fp32 GEMMs' device time by layout, STEPGEMM), after phase 8's fp32 rows
+of #1-#10 at B 16 (ROWS: ms, plain, library).  It calls only entry points the parent commit of
 the fp32 redesign has too.
 
     python3 compare_kernels.py --steps-only TREE [TREE ...]
@@ -108,7 +111,7 @@ from fairmultimodal_torch.ops import _build, flash_attention as flash
 from fairmultimodal_torch.ops import fused_attention_block as fab, fused_ffn as ffn
 torch.backends.cuda.matmul.allow_tf32 = False
 print(json.dumps(c.ptxas_report(_build, ("gemm_f32_kernel", "gemm_f32_nt_kernel",
-                                         "flash_attn_fwd_f32_kernel",
+                                         "gemm_f32_nn_tn_kernel", "flash_attn_fwd_f32_kernel",
                                          "flash_bwd_dq_f32_kernel",
                                          "flash_bwd_dkdv_f32_kernel"))), flush=True)
 gen = torch.Generator(device="cuda").manual_seed(7)
@@ -154,25 +157,33 @@ print("F32FFN", json.dumps({
     "#7 library_ms": c.time_ms(lib7, reps=20)}), flush=True)
 del f_in, leaves, x, w1, b1, w2, b2
 torch.cuda.empty_cache()
-for name, layout, M, N, K in (("dx attention nn", "nn", R, 768, 2304),
-                              ("dh nn", "nn", R, 2048, 768), ("dWo tn", "tn", 768, 768, R),
-                              ("dWqkv tn", "tn", 2304, 768, R), ("dW1 tn", "tn", 2048, 768, R)):
-    a = torch.randn(*((K, M) if layout == "tn" else (M, K)), generator=gen, device="cuda")
-    b = torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5
-    out = torch.empty(M, N, device="cuda")
-    run = {"nn": lambda: _build.gemm(a, b, out, layout="nn"),
-           "tn": lambda: fab.weight_grad(a, b, out)}[layout]
-    lib = {"nn": lambda: torch.matmul(a, b), "tn": lambda: torch.matmul(a.t(), b)}[layout]
-    want = {"nn": lambda: a.double() @ b.double(),
-            "tn": lambda: a.double().t() @ b.double()}[layout]()
-    run()
-    err = ((out.double() - want).abs().max() / want.abs().max()).item()
-    ms, lib_ms = c.time_ms(run, reps=20), c.time_ms(lib, reps=20)
-    print("F32GEMM", json.dumps({"stage": name, "rel_err_vs_f64": err, "ms": ms,
-                                 "tflops": 2 * M * N * K / ms / 1e9, "library_ms": lib_ms,
-                                 "library_tflops": 2 * M * N * K / lib_ms / 1e9}), flush=True)
-    del a, b, out, want
-    torch.cuda.empty_cache()
+# Every fp32 "nn" / "tn" stage with the epilogue its path gives it, against
+# float64: the lab layer at B 16, 06's at R 8784 x 256 x 512 and the sharded
+# FFN's at F 1024; each with the tree's schedule where it records one.
+for stage in (("dO attention", "nn", R, 768, 768, None, False, False, True),
+              ("dx attention + resid", "nn", R, 768, 2304, None, True, False, True),
+              ("dh ffn relu gate + colpart", "nn", R, 2048, 768, "relu", False, False, True),
+              ("dx ffn + resid", "nn", R, 768, 2048, None, True, False, True),
+              ("dWo split-K", "tn", 768, 768, R, None, False, False, True),
+              ("dWqkv split-K", "tn", 2304, 768, R, None, False, False, True),
+              ("dW1 split-K", "tn", 2048, 768, R, None, False, False, True),
+              ("dW2 split-K", "tn", 768, 2048, R, None, False, False, True),
+              ("06 dh relu gate + colpart", "nn", 8784, 512, 256, "relu", False, False, True),
+              ("06 dx + resid", "nn", 8784, 256, 512, None, True, False, True),
+              ("06 dW1 split-K", "tn", 512, 256, 8784, None, False, False, True),
+              ("06 dW2 split-K", "tn", 256, 512, 8784, None, False, False, True),
+              ("tp dh F1024 relu gate + colpart", "nn", R, 1024, 768, "relu", False, False, True),
+              ("tp dx F1024 + resid", "nn", R, 768, 1024, None, True, False, True),
+              ("tp dW1 F1024 split-K", "tn", 1024, 768, R, None, False, False, True),
+              ("tp dW2 F1024 split-K", "tn", 768, 1024, R, None, False, False, True)):
+    row = c.f32_gemm_check(_build, fab, gen, *stage)
+    print("F32GEMM", json.dumps({"stage": row["stage"] + " " + row["layout"],
+                                 "rel_err_vs_f64": row["errors"]["max_abs_err"]
+                                 / row["errors"]["max_abs"],
+                                 **{k: row[k] for k in ("ms", "tflops", "library_ms",
+                                                        "library_tflops", "splits", "schedule",
+                                                        "deterministic") if k in row}}),
+          flush=True)
 kw = dict(B=16, S=560, nh=8, d=96, mask_kind="lab")
 row = c.flash_check(flash, gen, torch.float32, **kw)
 _, q, k, v, mask, g = c._flash_inputs(16, 560, 8, 96, "dense", "lab", torch.float32, gen)
@@ -284,7 +295,7 @@ if "--steps" in sys.argv:
 '''
 
 _STEPS = r'''
-import json, numpy as np, torch, chip_smoke as c
+import json, re, numpy as np, torch, chip_smoke as c
 from fairmultimodal_torch.data.prefetch import to_device
 from fairmultimodal_torch.models._layers import init_params
 from fairmultimodal_torch.models.fusion import FAMEModel
@@ -300,6 +311,29 @@ batch = to_device({"model_inputs": {k: a[k] for k in keys}, "labels": a["labels"
 print("STEP", json.dumps({"step": "FAME default fp32 B16",
                           "timed": c.time_train_step(trainer, batch),
                           "profile": c.profile_train_step(trainer, batch)}), flush=True)
+# Device time per step of every kernel by its full name (no top-N cut), and
+# the fp32 GEMMs by layout: "nt", "nn" (by epilogue) and "tn" with the
+# split partials' fixed-order sum.
+from torch.profiler import ProfilerActivity, profile
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(3):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+names = {e.key: (e.self_device_time_total / 3e3, e.count / 3) for e in prof.key_averages()
+         if e.self_device_time_total > 0}
+groups = {}
+for key, (ms, n) in names.items():
+    m = re.search(r"gemm_f32_(?:nn_tn_)?kernel<(\d), (\d)", key)
+    g = ("tn" if m.group(1) == "1" else "nn mode " + m.group(2)) if m else \
+        "nt" if "gemm_f32_nt_kernel" in key else "colsum" if "colsum_kernel" in key else None
+    if g:
+        total = groups.setdefault(g, [0.0, 0.0])
+        total[0] += ms
+        total[1] += n
+print("STEPGEMM", json.dumps({"by_layout_ms_launches": groups,
+                              "by_kernel_ms_launches": {k[:120]: v for k, v in sorted(
+                                  names.items(), key=lambda x: -x[1][0])}}), flush=True)
 del trainer, batch
 name, factory, keys, cfg = c._baseline_models()[0]
 trainer = MultitaskTrainer(init_params(factory(torch.float32), seed=0), cfg, c.POS_WEIGHT,

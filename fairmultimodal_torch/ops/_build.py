@@ -33,8 +33,9 @@ from fairmultimodal_torch.utils.rng import Dropout
 __all__ = ["KernelLaunchError", "build", "kernels", "gemm", "colsum", "row_block_sums",
            "flash_attn_fwd", "flash_attn_bwd", "flash_attention_fwd", "flash_attention_bwd",
            "add_layernorm", "layernorm_bwd", "ACT_CODES", "FLASH_BWD_TILE", "LN_BWD_ROWS",
-           "SUM_ROWS", "WGMMA_TILE", "SGEMM_TILE", "SGEMM_NARROW_TILE", "SGEMM_NT",
-           "GEMM_SCHEDULE", "sgemm_tile", "sgemm_nt_schedule", "split_rows",
+           "SUM_ROWS", "WGMMA_TILE", "SGEMM_TILE", "SGEMM_NT", "SGEMM_NN_TN",
+           "GEMM_SCHEDULE", "sgemm_tile", "sgemm_nt_schedule", "sgemm_nn_tn_schedule",
+           "split_rows",
            "flash_bwd_colpart_rows", "flash_fwd_f32_rows"]
 
 _CSRC = Path(__file__).resolve().with_name("csrc")
@@ -53,11 +54,6 @@ _LAYOUTS = {"nt": 0, "nn": 1, "tn": 2}
 FLASH_BWD_TILE = {torch.bfloat16: 64, torch.float32: 64}
 #: The bf16 ``wgmma`` GEMM's block tile (rows, columns): ``gemm.cu``'s WG_BM x WG_BN.
 WGMMA_TILE = (128, 256)
-#: The fp32 CUDA-core GEMM's block tile: ``gemm.cu``'s BM x BN.
-SGEMM_TILE = (128, 128)
-#: Its narrow tile (BM x BN_NARROW, 128 threads, four blocks per SM), which
-#: "nn" products with N <= 768 take where :func:`sgemm_tile` says so.
-SGEMM_NARROW_TILE = (128, 64)
 #: The fp32 "nt" kernel (``gemm.cu``'s ``gemm_f32_nt_kernel``, NT_*): each of
 #: a block's ``consumers`` owns ``tile`` (NT_BM x NT_BN) output tiles in turn,
 #: fed by TMA in ``bk``-deep K slices through a ring of ``stages``; one
@@ -66,31 +62,42 @@ SGEMM_NARROW_TILE = (128, 64)
 #: floats a row of a consumer's staging tile.
 SGEMM_NT = dict(tile=(128, 64), bk=32, stages=3, consumers=2, threads=384, blocks_per_sm=1,
                 smem=222304, pitch=72)
-#: Per io dtype, the GEMM kernel's (block tile, blocks resident per SM, K step
-#: of a split, least rows of a split): the wgmma kernel one block of 384
-#: threads with 200 KB of shared memory, the fp32 kernel's wide tile two of 256
-#: (``__launch_bounds__`` of ``SgemmTile<BN>``); a split's rows are a multiple of the K
-#: step (WG_BK, BK).
+#: The fp32 "nn" / "tn" kernel (``gemm.cu``'s ``gemm_f32_nn_tn_kernel``, MN_*):
+#: the "nt" kernel's shape with a fourth stage and no staging tile; an
+#: MN-major operand arrives in ``box`` ([K, MN]) boxes, ``csum`` bytes a
+#: consumer hold the gated "nn"'s column sums.  Its units are (tile, K split)
+#: pairs (:func:`sgemm_nn_tn_schedule`).
+SGEMM_NN_TN = dict(tile=(128, 64), bk=32, stages=4, consumers=2, threads=384, blocks_per_sm=1,
+                   smem=205952, box=(32, 32), csum=4096)
+#: The fp32 "nn" / "tn" output tile: ``gemm.cu``'s MN_BM x MN_BN.
+SGEMM_TILE = SGEMM_NN_TN["tile"]
+#: Per io dtype, the split-K model of the "tn" kernel (block tile, blocks
+#: resident per SM, K step of a split, least rows of a split), from which
+#: ``fused_attention_block._splits`` sizes a weight grad's splits: the wgmma
+#: kernel one block of 384 threads with 200 KB of shared memory; for fp32 the
+#: counts and 16-row split boundaries the cp.async kernel had (128 x 128 tiles,
+#: two blocks of 256 an SM), which the persistent kernel keeps so that a
+#: weight grad keeps its bits (it runs each (tile, split) unit on its 128 x 64
+#: tiles; ``gemm.cu``'s MN_KSTEP).  A split's rows are a multiple of the K step.
 GEMM_SCHEDULE = {torch.bfloat16: (WGMMA_TILE, 1, 64, 2048),
-                 torch.float32: (SGEMM_TILE, 2, 16, 512)}
+                 torch.float32: ((128, 128), 2, 16, 512)}
 
 
 def sgemm_tile(layout: str, m: int, n: int, splits: int, sms: int):
-    """The output tile the fp32 GEMM runs: "nt" the "nt" kernel's
-    (``SGEMM_NT``); "nn" the narrow one where ``gemm.cu``'s ``sgemm_narrow``
-    takes it (unsplit, N <= 768, and its 64-wide tiles, four to an SM, leave
-    less work on the busiest SM than the wide ones, two to an SM: at batch
-    16, M 8960 x N 768, 7 x 64 against 4 x 128 columns), else the wide one.
-    "tn" keeps the wide tile, which ``GEMM_SCHEDULE`` sizes its splits from."""
-    if layout == "nt":
-        return SGEMM_NT["tile"]
-    if layout == "tn" or splits != 1 or n > 768:
-        return SGEMM_TILE
-    (bm, bn), (_, bn_narrow) = SGEMM_TILE, SGEMM_NARROW_TILE
-    mt = -(-m // bm)
-    wide, narrow = mt * -(-n // bn), mt * -(-n // bn_narrow)
-    return SGEMM_NARROW_TILE if -(-narrow // sms) * bn_narrow < -(-wide // sms) * bn \
-        else SGEMM_TILE
+    """The output tile the fp32 GEMM runs at M x N: "nt" the "nt" kernel's
+    (``SGEMM_NT``), "nn" and "tn" the "nn" / "tn" kernel's (``SGEMM_TILE``),
+    each at every shape and split count: both kernels are persistent, so no
+    narrower tile shortens a wave tail."""
+    return SGEMM_NT["tile"] if layout == "nt" else SGEMM_TILE
+
+
+def _persistent_schedule(kernel, m: int, n: int, splits: int, sms: int):
+    (bm, bn), per = kernel["tile"], kernel["consumers"]
+    units = -(-m // bm) * -(-n // bn) * splits
+    grid = min(sms, units)
+    if grid == 0:
+        return 0, 0, 0, 0
+    return grid, units, -(-units // grid), -(-units // (grid * per))
 
 
 def sgemm_nt_schedule(m: int, n: int, sms: int):
@@ -98,13 +105,16 @@ def sgemm_nt_schedule(m: int, n: int, sms: int):
     (grid, tiles, tiles of the busiest block, tiles of the busiest consumer).
     Tile t goes to block t % grid, so a block (one per SM) gets floor or
     ceil(tiles / grid)."""
-    (bm, bn), per = SGEMM_NT["tile"], SGEMM_NT["consumers"]
-    tiles = -(-m // bm) * -(-n // bn)
-    grid = min(sms, tiles)
-    if grid == 0:
-        return 0, 0, 0, 0
-    return grid, tiles, -(-tiles // grid), -(-tiles // (grid * per))
+    return _persistent_schedule(SGEMM_NT, m, n, 1, sms)
 
+
+def sgemm_nn_tn_schedule(m: int, n: int, splits: int, sms: int):
+    """The fp32 "nn" / "tn" kernel's persistent launch at M x N over
+    ``splits`` K splits on ``sms`` SMs: (grid, units, units of the busiest
+    block, units of the busiest consumer).  Unit u is split u // tiles of
+    tile u % tiles (tiles N-fastest) and goes to block u % grid, whose two
+    consumers take its units in turn."""
+    return _persistent_schedule(SGEMM_NN_TN, m, n, splits, sms)
 
 
 def split_rows(k: int, splits: int, dtype: torch.dtype) -> int:

@@ -11,7 +11,7 @@
 //     FFN's inner stream); v *= gate'(gate[row, col]) where gate' is
 //     1[gate > 0] * scale (relu; scale = 1/keep) or dgelu(gate) (gelu, and
 //     then aux = round(gelu(gate))); v += resid[row, col] (fp32);
-//     column sums of v over the block's rows -> colpart[blockIdx.y, col];
+//     column sums of v over each 128 rows -> colpart[row / 128, col];
 //     C = v in the io dtype or fp32.
 //
 // Replaces the matrix products inside eight Pallas TPU kernels:
@@ -47,25 +47,28 @@
 //     a tile needs about 11 TB/s of L2 traffic for the peak rate, so L2
 //     rather than the tensor cores may bound it.
 //   - fp32: register-blocked FFMA on the CUDA cores (full IEEE fp32, no
-//     TF32).  "nt" runs gemm_f32_nt_kernel: persistent, its operands brought
-//     by TMA from one producer warp per consumer and read where they land
-//     (below); "nn" and "tn" run gemm_f32_kernel, fed by a four-slice ring of
-//     cp.async and register staging.  fp32 is the main path of every fp32
-//     run: `fame` and every baseline build their models in fp32 unless --bf16
-//     is given, so a default run trains through them.  What bounds them is
-//     the CUDA cores' fp32 rate (67 TFLOP/s on an H100 SXM): each lab product
-//     at batch 16 needs 10x or more the time of its bytes.
+//     TF32), on two persistent kernels of one shape: a block of 384 threads
+//     per SM, two consumer warpgroups each fed by its own producer warp
+//     through a TMA ring of 32-deep K slices (128-byte swizzle) that it reads
+//     where they land, 128 x 64 output tiles taken in a fixed order.  "nt"
+//     runs gemm_f32_nt_kernel (both operands K-major), "nn" and "tn"
+//     gemm_f32_nn_tn_kernel (B MN-major, and A too for "tn").  fp32 is the
+//     main path of every fp32 run: `fame` and every baseline build their
+//     models in fp32 unless --bf16 is given, so a default run trains through
+//     them.  What bounds them is the CUDA cores' fp32 rate (67 TFLOP/s on an
+//     H100 SXM): each lab product at batch 16 needs 10x or more the time of
+//     its bytes.
 // The epilogue is chosen at compile time (Mode) and works on groups of 8
 // (bf16) or 4 (fp32) consecutive columns: 16-byte loads and stores and one
 // Philox call per 4 elements, so at K = 768 it stays small next to the
 // main loop.
-// "tn" reduces over R = 143360 rows: it splits K over gridDim.z and writes
-// fp32 partials [splits, M, N] that fm_colsum adds in a fixed order, so the
-// sum is the same bits every run (no atomics anywhere).  Column sums for
-// the bias grads are per row-block partials, also added by fm_colsum.
-// What it leaves on the table: a persistent schedule for bf16 and the fp32
-// "nn" / "tn" (their epilogue does not overlap the next tile's loads), TMA
-// multicast across a cluster (L2
+// "tn" reduces over R = 143360 rows: it splits K (over gridDim.z for bf16,
+// over the persistent kernel's work units for fp32) and writes fp32 partials
+// [splits, M, N] that fm_colsum adds in a fixed order, so the sum is the same
+// bits every run (no atomics anywhere).  Column sums for the bias grads are
+// per row-block partials, also added by fm_colsum.
+// What it leaves on the table: a persistent schedule for bf16 (its epilogue
+// does not overlap the next tile's loads), TMA multicast across a cluster (L2
 // traffic), a split-K "tn" whose partials stay in the cluster, and the TPU
 // kernels' fusion (q/k/v/o, the [R, F] intermediate and dz round-trip HBM).
 #include <cuda.h>
@@ -141,14 +144,16 @@ __device__ __forceinline__ void store_group(fm_bf16* p, const float* v) {
 
 // The epilogue of the G consecutive elements v[0..G) of row `row` from
 // column `col` (a multiple of G) into C, adding each stored value to csum
-// (EPI_GATE).  T is the io dtype of aux and gate.  Whole groups inside a
+// (EPI_GATE).  T is the io dtype of aux and gate; `pre`, where given, holds
+// the group's gate or residual as fp32, read beforehand.  Whole groups inside a
 // row whose length is a multiple of G take 16-byte loads and stores and one
 // Philox call per 4 elements; a ragged group goes element by element.  Every
 // loop runs over all G with constant indices (the ragged one skips k >= n),
 // so v and t stay in registers.
 template <int MODE, int G, typename T, typename TOut>
 __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, int N, float* v,
-                                               TOut* __restrict__ C, float* csum) {
+                                               TOut* __restrict__ C, float* csum,
+                                               const float* pre = nullptr) {
   const size_t off = (size_t)row * N + col;
   const bool vec = N % G == 0;  // then every group is whole (col % G == 0)
   const int n = vec ? G : min(G, N - col);
@@ -194,7 +199,10 @@ __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, i
     }
   } else if (MODE == EPI_GATE) {
     const T* gate = static_cast<const T*>(e.gate) + off;
-    if (vec) load_group<G>(gate, t);
+    if (pre) {
+#pragma unroll
+      for (int k = 0; k < G; ++k) t[k] = pre[k];
+    } else if (vec) load_group<G>(gate, t);
     else {
 #pragma unroll
       for (int k = 0; k < G; ++k) if (k < n) t[k] = fm::to_f32(gate[k]);
@@ -217,7 +225,10 @@ __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, i
       }
     }
   } else if (MODE == EPI_RESID) {
-    if (vec) load_group<G>(e.resid + off, t);
+    if (pre) {
+#pragma unroll
+      for (int k = 0; k < G; ++k) t[k] = pre[k];
+    } else if (vec) load_group<G>(e.resid + off, t);
     else {
 #pragma unroll
       for (int k = 0; k < G; ++k) if (k < n) t[k] = e.resid[off + k];
@@ -236,281 +247,8 @@ __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, i
   }
 }
 
-// ---- fp32 CUDA-core kernel, "nn" and "tn" ------------------------------------------
-//
-// C[M, N] = epilogue(op(A) . B) in full IEEE fp32, B [K, N]: one fmaf per
-// product on the CUDA cores, no TF32.  A 128 x 128 output tile per block of 256 threads,
-// two blocks per SM (64 accumulators a thread, at most 128 registers).  Warp w
-// owns a 32 x 64 warp tile (rows 32 (w / 2).., columns 64 (w % 2)..); lane l
-// of it rows 4 (l / 8) + {0..3} and + 16, columns 4 (l % 8) + {0..3} and + 32
-// (its 8 x 8 micro-tile, which the epilogue takes as 16-byte groups).  Each
-// 16-deep K slice of A and B sits in shared memory as [16 K][128 MN] with MN
-// contiguous, so a thread reads 2 + 2 float4 per k for 64 FMA, and a warp's
-// four reads are 4 (A) and 8 (B) distinct 16-byte groups: one wavefront each.
-// The 4-float groups of row k are XOR swizzled by (k >> 1) & 6 (swz below):
-// reads stay whole float4, and the transposed stores of a K-major operand
-// (below) land on 32 distinct banks.
-// A ring of F32_STAGES slices hides global latency, one barrier per slice:
-//   - an MN-major operand ("nn" B, both "tn" operands; stored [K, MN]) comes
-//     by 16-byte cp.async straight into its slot, F32_STAGES - 1 slices ahead;
-//   - a K-major operand ("nn" A; stored [MN, K]) is read 16
-//     bytes at a time into registers (2 float4 a thread, 4 threads per 64-byte
-//     row piece) when its slice is issued, and stored transposed into the ring
-//     after this slice's FMAs, so its global latency runs under them too.
-// K order: each accumulator is one fmaf chain over k = kb, kb + 1, ... of its
-// split in increasing order (slices past the end add 0 * 0); split-K partials
-// [splits, M, N] are then added by fm_colsum in split order, so a weight grad
-// is the same bits every run.  Kc (rows per split) is a multiple of BK.
-// Bound: the CUDA cores' fp32 rate (67 TFLOP/s on an H100 SXM; an FFMA loop
-// reaches 64 at 1980 MHz); at the lab shapes every product's operations take
-// 10x or more the time of its bytes.  It reaches 30-37 TFLOP/s on the H100
-// (cuBLAS: 44-48 on the same operands) at 1980 MHz and 400-600 W, so it
-// stalls rather than saturates the card.  Ablations on the H100 (timed with
-// wrong results): dropping the barrier per slice changes nothing; dropping
-// the main loop's global-to-shared loads gives 42-45 TFLOP/s (tn +13%, nt
-// +24%: the K-major register staging costs most); dropping the shared-memory
-// reads gives 40-45.  So the load instructions every thread issues are the
-// largest cost; slices filled by TMA from one thread are the next step, which
-// the "nt" form has taken (gemm_f32_nt_kernel below).  Tried
-// in turns, none faster: the first 16-wide warp layout, unswizzled slices with
-// lane-per-row K-major loads (nt 13% slower), and 8 x 16 micro-tiles on 128
-// threads (255 registers, 8 warps per SM).
-// Narrow tile (BM x BN_NARROW = 128 x 64, 128 threads, four blocks per SM:
-// the same warp tile, micro-tile and ring, the warps stacked along M), for
-// "nn" products with N <= 768 where it leaves less work on the busiest
-// SM (sgemm_narrow).  At the pipelines' batch 16 an N-768 product (Wo, W2,
-// dO, both N-768 dx) has 420 wide tiles on 132 SMs: the busiest SM takes 4
-// (3.2 on average, 1.6 waves of two a SM); 840 narrow tiles put 7 half-size
-// ones (3.5 tiles of work) on it.  Each thread stages twice the A rows of a
-// K-major slice, so the "nn" instantiations spill 24-36 bytes at the 128
-// registers four blocks allow.  Timed in turns with the wide tile on the H100
-// (compare_kernels.py --fp32): W2 "nt" 0.84-0.88 ms against 0.94-0.95, Wo
-// 0.33-0.34 against 0.37-0.38, "nn" dx at K 2304 0.97-0.98 against 0.99-1.01.
-
-// _build.SGEMM_TILE and SGEMM_NARROW_TILE repeat BM x BN and BM x BN_NARROW.
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BN_NARROW = 64;
-constexpr int BK = 16;
-constexpr int F32_STAGES = 4;
-
-// One fp32 tile shape: BM x TBN on NT = 2 TBN threads (4 warps along M x TBN /
-// 64 along N, 512 / NT blocks per SM), a ring of F32_STAGES slices of A
-// [BK][BM] and B [BK][TBN].
-template <int TBN>
-struct SgemmTile {
-  static constexpr int NT = 2 * TBN;  // 256 wide, 128 narrow
-  static constexpr int WN = TBN / 64;
-  static constexpr int A_SLICE = BK * BM;  // floats
-  static constexpr int B_SLICE = BK * TBN;
-  static constexpr int SMEM = F32_STAGES * (A_SLICE + B_SLICE) * 4;  // 64 KB wide, 48 KB narrow
-};
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared, asynchronously; zero fill when !ok (nothing is read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Float offset of the 4-float group g of row k in a swizzled [BK][W] slice.
-template <int W>
-__device__ __forceinline__ int swz(int k, int g) { return k * W + ((g ^ ((k >> 1) & 6)) << 2); }
-
-// A K-major operand [nrows, K] (K % 16 == 0): ROWS rows r0.. x K k0..k0+15
-// into registers, 4 threads per row (zero past nrows) ...
-template <int ROWS, int NT>
-__device__ __forceinline__ void fetch_kmajor(const float* __restrict__ src, int nrows, int K,
-                                             int r0, int k0, float4 (&r)[ROWS * 4 / NT]) {
-#pragma unroll
-  for (int i = 0; i < ROWS * 4 / NT; ++i) {
-    const int v = threadIdx.x + i * NT;
-    const int row = v >> 2;
-    r[i] = r0 + row < nrows
-               ? *reinterpret_cast<const float4*>(src + (size_t)(r0 + row) * K + k0 + (v & 3) * 4)
-               : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-// ... and from them, transposed, into a [BK][ROWS] slice: a warp's 8 rows x
-// 4 K groups fall on 32 distinct banks for each of the 4 stores.
-template <int ROWS, int NT>
-__device__ __forceinline__ void store_kmajor(const float4 (&r)[ROWS * 4 / NT], float* tile) {
-#pragma unroll
-  for (int i = 0; i < ROWS * 4 / NT; ++i) {
-    const int v = threadIdx.x + i * NT;
-    const int row = v >> 2, kk = (v & 3) * 4;
-    const float x[4] = {r[i].x, r[i].y, r[i].z, r[i].w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) tile[swz<ROWS>(kk + e, row >> 2) + (row & 3)] = x[e];
-  }
-}
-// An MN-major operand [K, ncols] (ncols % 4 == 0): K rows k0..k0+15 (zero
-// from kend on) x columns c0..c0+COLS-1 (zero past ncols), by cp.async.
-template <int COLS, int NT>
-__device__ __forceinline__ void copy_mnmajor(const float* __restrict__ src, int ncols, int c0,
-                                             int k0, int kend, float* tile) {
-  constexpr int G = COLS / 4;  // 16-byte groups of a row
-#pragma unroll
-  for (int i = 0; i < BK * G / NT; ++i) {
-    const int v = threadIdx.x + i * NT;
-    const int kk = v / G, g = v % G;
-    const bool ok = c0 + 4 * g < ncols && k0 + kk < kend;
-    cp_async16(smem_u32(tile + swz<COLS>(kk, g)),
-               ok ? src + (size_t)(k0 + kk) * ncols + c0 + 4 * g : src, ok);
-  }
-}
-
-template <int AT, int MODE, int TBN>
-__global__ void __launch_bounds__(SgemmTile<TBN>::NT, 512 / SgemmTile<TBN>::NT)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
-                int M, int N, int K, int Kc, Epi e) {
-  using T = SgemmTile<TBN>;
-  constexpr int NT = T::NT, WN = T::WN;
-  extern __shared__ __align__(16) float ring[];  // stage s: A slice, then B slice
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ga = (warp / WN) * 8 + lane / 8;   // 4-row groups ga and ga + 4 of the tile
-  const int gb = (warp % WN) * 16 + lane % 8;  // 4-column groups gb and gb + 8
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * TBN;
-  const int kb = blockIdx.z * Kc;
-  const int kend = min(kb + Kc, K);
-  const int nk = kend > kb ? (kend - kb + BK - 1) / BK : 0;
-  C += (size_t)blockIdx.z * M * N;
-
-  float4 ra[BM * 4 / NT];  // a K-major A's slice in flight ("nn")
-  auto slice_a = [&](int s) { return ring + s * (T::A_SLICE + T::B_SLICE); };
-  auto slice_b = [&](int s) { return ring + s * (T::A_SLICE + T::B_SLICE) + T::A_SLICE; };
-  auto issue = [&](int t, int s) {
-    const int k0 = kb + t * BK;
-    if (AT) copy_mnmajor<BM, NT>(A, M, m0, k0, kend, slice_a(s));
-    else fetch_kmajor<BM, NT>(A, M, K, m0, k0, ra);
-    copy_mnmajor<TBN, NT>(B, N, n0, k0, kend, slice_b(s));
-  };
-  auto park = [&](int s) {
-    if (!AT) store_kmajor<BM, NT>(ra, slice_a(s));
-  };
-#pragma unroll
-  for (int s = 0; s < F32_STAGES - 1; ++s) {
-    if (s < nk) {
-      issue(s, s);
-      park(s);
-    }
-    cp_async_commit();
-  }
-  cp_async_wait<F32_STAGES - 2>();
-  __syncthreads();
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int t = 0; t < nk; ++t) {
-    const int ns = (t + F32_STAGES - 1) % F32_STAGES;  // freed by the last barrier
-    const bool more = t + F32_STAGES - 1 < nk;
-    if (more) issue(t + F32_STAGES - 1, ns);
-    cp_async_commit();
-    const float* As = slice_a(t % F32_STAGES);
-    const float* Bs = slice_b(t % F32_STAGES);
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[8], w[8];
-      *reinterpret_cast<float4*>(&a[0]) = *reinterpret_cast<const float4*>(As + swz<BM>(k, ga));
-      *reinterpret_cast<float4*>(&a[4]) =
-          *reinterpret_cast<const float4*>(As + swz<BM>(k, ga + 4));
-      *reinterpret_cast<float4*>(&w[0]) = *reinterpret_cast<const float4*>(Bs + swz<TBN>(k, gb));
-      *reinterpret_cast<float4*>(&w[4]) =
-          *reinterpret_cast<const float4*>(Bs + swz<TBN>(k, gb + 8));
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    if (more) park(ns);
-    cp_async_wait<F32_STAGES - 2>();  // slice t + 1 has landed ...
-    __syncthreads();                  // ... and every warp is done with slice t
-  }
-
-  // Epilogue: each thread owns rows 4 ga.. and 4 (ga + 4).. and the 4-column
-  // groups 4 gb.. and 4 (gb + 8)...
-  float csum[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) csum[j] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + 4 * ga + (i < 4 ? i : 12 + i);
-    if (row >= M) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = n0 + 4 * gb + 32 * h;
-      if (col < N)
-        epilogue_group<MODE, 4, float, float>(e, row, col, N, &acc[i][4 * h], C, &csum[4 * h]);
-    }
-  }
-  if (MODE == EPI_GATE) {  // the 16 thread rows' sums in order, through the idle ring
-    float* colsum = ring;  // [16][TBN]
-    const int tr = (warp / WN) * 4 + lane / 8;  // this thread's row of the 16 that share a column
-#pragma unroll
-    for (int j = 0; j < 8; ++j) colsum[tr * TBN + 4 * gb + (j < 4 ? j : 28 + j)] = csum[j];
-    __syncthreads();
-    if (threadIdx.x < TBN && n0 + threadIdx.x < N) {
-      float s = 0.0f;
-      for (int t = 0; t < 16; ++t) s += colsum[t * TBN + threadIdx.x];
-      e.colpart[(size_t)blockIdx.y * N + n0 + threadIdx.x] = s;
-    }
-  }
-}
-
-// Whether an unsplit "nn" product runs on the narrow tile: N <= 768 and its
-// 64-wide tiles, four to an SM, leave less work on the busiest SM than the
-// wide ones (_build.sgemm_tile repeats the rule).
-bool sgemm_narrow(int M, int N, int splits, int sms) {
-  if (splits != 1 || N > 768) return false;
-  const long long mt = (M + BM - 1) / BM;
-  const long long wide = mt * ((N + BN - 1) / BN);
-  const long long narrow = mt * ((N + BN_NARROW - 1) / BN_NARROW);
-  return (narrow + sms - 1) / sms * BN_NARROW < (wide + sms - 1) / sms * BN;
-}
-
-template <int AT, int MODE, int TBN>
-cudaError_t launch_f32_tile(const void* A, const void* B, void* C, int M, int N, int K,
-                            int splits, const Epi& e, cudaStream_t s) {
-  using T = SgemmTile<TBN>;
-  // K per split, a multiple of BK; the last split may be short (or empty).
-  const int Kc = ((K + splits - 1) / splits + BK - 1) / BK * BK;
-  // Per launch, as the attribute belongs to the current device.
-  const cudaError_t err = cudaFuncSetAttribute(gemm_f32_kernel<AT, MODE, TBN>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               T::SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + TBN - 1) / TBN, (M + BM - 1) / BM, splits);
-  gemm_f32_kernel<AT, MODE, TBN><<<grid, T::NT, T::SMEM, s>>>(
-      static_cast<const float*>(A), static_cast<const float*>(B), static_cast<float*>(C), M, N,
-      K, Kc, e);
-  return cudaGetLastError();
-}
-
-template <int AT, int MODE>
-cudaError_t launch_f32(const void* A, const void* B, void* C, int M, int N, int K, int splits,
-                       const Epi& e, cudaStream_t s) {
-  if constexpr (!AT) {  // "nn"; "tn" keeps the wide tile its splits are sized from
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    if (sgemm_narrow(M, N, splits, sms))
-      return launch_f32_tile<AT, MODE, BN_NARROW>(A, B, C, M, N, K, splits, e, s);
-  }
-  return launch_f32_tile<AT, MODE, BN>(A, B, C, M, N, K, splits, e, s);
 }
 
 // ---- bf16 kernel: wgmma fed by TMA, warp-specialised, every layout ----------------
@@ -832,8 +570,9 @@ cudaError_t launch_wgmma(const void* A, const void* B, void* C, int M, int N, in
 // C[M, N] = epilogue(A[M, K] . B[N, K]^T) in full IEEE fp32 on the CUDA cores,
 // for every fp32 forward product (Pallas #1 / #5's QKV and Wo, #2 / #7's W1
 // and W2, the text encoder's).  Both operands are K-major, which is what held
-// gemm_f32_kernel back on this form: each K slice went through registers and
-// was stored back transposed by every thread.  Here nothing is staged or
+// the cp.async kernel it replaced (gemm_f32_kernel, which also ran "nn" and
+// "tn" before gemm_f32_nn_tn_kernel) back on this form: each K slice went through registers and was
+// stored back transposed by every thread.  Here nothing is staged or
 // transposed.
 //   - A block of NT_THREADS = 384 holds NT_CONSUMERS = 2 consumer
 //     warpgroups (warps 0-3 and 4-7), each with its own producer warp (warps
@@ -869,8 +608,8 @@ cudaError_t launch_wgmma(const void* A, const void* B, void* C, int M, int N, in
 //     are immediates (8 rows = 1024 bytes on).  A warp's A read covers 4
 //     consecutive rows (4 chunks, distinct swizzled positions), its B read 8
 //     consecutive rows (8 chunks, 8 positions): each is one wavefront.
-//     The lane-per-row K-major reads tried on gemm_f32_kernel (13% slower,
-//     above) were unswizzled: rows 4 apart, 64 bytes long, fall on one bank
+//     The lane-per-row K-major reads tried on gemm_f32_kernel (13% slower)
+//     were unswizzled: rows 4 apart, 64 bytes long, fall on one bank
 //     quad.  Here the swizzle spreads rows of distinct r & 7, and this map
 //     reads only such rows together.
 //   - Order: each accumulator is one fmaf chain over k = 0, 1, ... (the 4 k
@@ -884,7 +623,7 @@ cudaError_t launch_wgmma(const void* A, const void* B, void* C, int M, int N, in
 //     stores; two named barriers of the consumer's 128 threads a tile.
 //   - Ragged edges: TMA zero-fills rows past M and N (K % 32 == 0, the
 //     wrapper's rule); the epilogue skips them.
-// Bound: the CUDA cores' fp32 rate, as gemm_f32_kernel.  At batch 16 on the
+// Bound: the CUDA cores' fp32 rate (67 TFLOP/s).  At batch 16 on the
 // H100 (700 W, compare_kernels.py --fp32 in turns with gemm_f32_kernel): W1
 // with relu, dropout and aux 0.701-0.721 ms (39-40 TFLOP/s) against
 // 0.835-0.857, W2 0.728-0.742 against 0.827-0.886, QKV 0.761-0.801 against
@@ -1029,13 +768,20 @@ gemm_f32_nt_kernel(const __grid_constant__ CUtensorMap tmA,
   }
 }
 
+// The current device's SM count: a persistent grid's size.
+cudaError_t sm_count(int& sms) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err != cudaSuccess ? err
+                            : cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
 cudaError_t launch_f32_nt(const void* A, const void* B, void* C, int M, int N, int K, const Epi& e,
                           cudaStream_t s) {
   const int tiles = (M + NT_BM - 1) / NT_BM * ((N + NT_BN - 1) / NT_BN);
   if (tiles == 0) return cudaSuccess;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t err = sm_count(sms);
   if (err != cudaSuccess) return err;
   CUtensorMap ta{}, tb{};  // K == 0 loads nothing
   if (K > 0 && (!tma_map(&ta, A, true, M, K, NT_BM, NT_BK) ||
@@ -1050,14 +796,352 @@ cudaError_t launch_f32_nt(const void* A, const void* B, void* C, int M, int N, i
   return cudaGetLastError();
 }
 
-// fp32 runs on CUDA cores in every layout ("nt" on its own kernel), bf16 on
-// the wgmma kernel.
+// ---- fp32 "nn" / "tn" kernel: persistent, TMA-fed, warp-specialised -------------
+//
+// C[M, N] = epilogue(op(A) . B[K, N]) in full IEEE fp32 on the CUDA cores, for
+// every fp32 backward product: "nn" (A [M, K] K-major: dO = da.Wo, dx =
+// dqkv.Wqkv (+ dz), dh = (dy.W2) * gate, dx = dh.W1 (+ dz) of Pallas #3, #4,
+// #6 and #8) and "tn" (A [K, M] MN-major: the weight grads dWo, dWqkv, dW1,
+// dW2, K = the R rows).  B is always MN-major.  The shape is
+// gemm_f32_nt_kernel's (above); what differs is the MN-major operand and the
+// thread map, split-K and epilogue that come with it.
+//   - A block of MN_THREADS = 384: two consumer warpgroups (warps 0-3,
+//     4-7), each with its own producer warp (8, 9; 10 and 11 idle), its own
+//     ring of MN_STAGES = 4 slices (no staging tile, so its room holds a
+//     fourth stage) and its own units of work; setmaxnreg 40 / 232 as there.
+//     Each 32-deep K slice arrives by TMA with the 128-byte swizzle: a
+//     K-major operand as one [rows][32 K] box (a 128-byte line of K per row,
+//     chunk ch of row r at ch ^ (r & 7)), an MN-major one as [32 K][32 MN]
+//     boxes of 4 KB (a 128-byte line of 32 columns per k, the 4-column chunk
+//     g of line k at g ^ (k & 7)): B's 64 columns in two boxes, "tn"'s A's
+//     128 rows in four.
+//   - Persistent: a unit is one 128 x 64 output tile over one K split; unit
+//     u = split * tiles + t, tiles numbered N-fastest (as "nt"), so the units
+//     in flight share a split's rows of A and B in L2.  grid = min(SMs,
+//     units); unit u belongs to block u % grid and the block's consumers take
+//     its units in turn (consumer c: u = blockIdx.x + grid * (2 i + c)).
+//     "nn" is one split (K % 32 == 0); "tn" splits its R rows into
+//     fused_attention_block._splits' count of Kc rows, the count and the
+//     16-row boundaries (MN_KSTEP) the cp.async kernel had (a slice that
+//     crosses a boundary stops its chunks there; the last split may be short
+//     or empty, TMA zero-fills past K), and writes fp32 partials [splits, M,
+//     N] that fm_colsum adds in split order.  Split-K over units fills the
+//     card where a weight grad has fewer tiles than the 264 consumers (dWqkv
+//     216 at 128 x 64), and a persistent schedule leaves no wave tail for a
+//     narrower tile to trim: the cp.async kernel's 128 x 64 narrow tile (four
+//     blocks an SM, "nn" at N <= 768) went with it.
+//   - Consumer thread map, designed with the swizzle: warp w, lane l = 8 rq
+//     + cq owns columns 4 cq + {0..3} and 32 + 4 cq + {0..3} (j = 4 h + e:
+//     box h, chunk cq), and rows r0 + 8 i ("nn", r0 = 64 (w / 2) + 4 (w % 2)
+//     + rq, the nt kernel's rows) or 4 ga + {0..3} and 64 + 4 ga + {0..3}
+//     ("tn", ga = 4 w + rq: box w / 2 (+ 2), chunk 4 (w % 2) + rq).  Per
+//     chunk of 4 k it reads 16 float4: for "nn" the 8 A rows' 4 k each at
+//     offa ^ (ch << 4) + 1024 i, as "nt"; for each k its B float4 of 4
+//     columns in both boxes (and for "tn" its two A float4 of 4 rows), at
+//     (off + 512 ch) ^ ((k & 7) << 4) + 128 (k & 3).  A warp's B read is 8
+//     chunks of one 128-byte line, its MN-major A read 4, its K-major A read
+//     4 rows of distinct r & 7: one wavefront each.  Then 256 FFMA, each row
+//     i's 8 columns in serpentine order (CUTLASS's SIMT order: the operand of
+//     the turn is reused), the chunk loop unrolled by 2.
+//   - Order: each accumulator is one fmaf chain over its split's k in
+//     increasing order, as in gemm_f32_kernel, over the same splits, and the
+//     gate's column sums are added in its order (below): every output is the
+//     bits it gave.  fp32 training is chaotic at the rounding level (AdamW
+//     turns a rounding-level grad into a +-lr move), so other bits would move
+//     every fp32 run's trajectory and each check held to an order drift.
+//   - Epilogue, straight from the registers: a thread's 8 columns are two
+//     groups of 4, so epilogue_group runs on them in place (no staging tile,
+//     no barrier), and a warp's 16-byte stores cover 4 rows x 128 whole
+//     bytes.  EPI_RESID / EPI_GATE first read all 16 residual or gate groups
+//     of the thread (N % 8 == 0), so their loads overlap rather than wait
+//     one by one behind the stores.  EPI_GATE's column sums take
+//     gemm_f32_kernel's order: its 16 groups of 8 rows each summed in a
+//     chain of shuffles across the 4 lanes that hold them, then through the
+//     consumer's MN_CSUM buffer into colpart[m0 / 128, col] in group order,
+//     behind a named barrier before (the last tile's sums are read) and after
+//     (all are written).  Ragged edges: TMA zero-fills past M, N and K; the
+//     epilogue skips rows and columns past M and N.
+// Bound: the CUDA cores' fp32 rate (67 TFLOP/s).  The cp.async kernel it
+// replaced (gemm_f32_kernel: 128 x 128 tiles, two blocks of 256 an SM, a
+// register-staged transpose of a K-major A) reached 30-37 TFLOP/s; without
+// its global loads 42-45, which is why this one takes its slices by TMA.
+// Tried there, none faster: a 16-wide warp layout, unswizzled lane-per-row
+// K-major reads (13% slower), 8 x 16 micro-tiles on 128 threads (255
+// registers).  Tried here in turns on the H100 (the B 16 stages, PERF.md
+// section 6): the next chunk's operands read into a second
+// register set while this one's FMAs run (no faster); the epilogue's loads
+// one group at a time (the gated dh and dx + resid 4-7% slower); three
+// consumers of 12 warps at setmaxnreg 160 (spills 24-192 bytes, 2-10%
+// slower); the chunk loop rolled (dO 0.30-0.34 ms against 0.29).
+
+// _build.SGEMM_NN_TN repeats these.
+constexpr int MN_BM = 128;  // a consumer's output tile, MN_BM x MN_BN
+constexpr int MN_BN = 64;
+constexpr int MN_BK = 32;   // one 128-byte swizzle line of fp32: K slice depth and box width
+constexpr int MN_KSTEP = 16;  // "tn" split boundaries fall on multiples of 16 rows
+constexpr int MN_STAGES = 4;
+constexpr int MN_CONSUMERS = 2;
+constexpr int MN_THREADS = (MN_CONSUMERS + 1) * 128;  // + the producers' warpgroup
+constexpr int MN_BOX = MN_BK * MN_BK * 4;  // an MN-major [32 K][32 MN] box, bytes
+constexpr int MN_A_BYTES = MN_BM * MN_BK * 4;
+constexpr int MN_STAGE_BYTES = MN_A_BYTES + MN_BN * MN_BK * 4;
+constexpr int MN_RING = MN_STAGES * MN_STAGE_BYTES;
+constexpr int MN_CSUM = 16 * MN_BN * 4;  // EPI_GATE: the 16 thread rows' column sums
+// Rings, column sums, mbarriers (full and empty per stage), 1024-byte alignment.
+constexpr int MN_SMEM = MN_CONSUMERS * (MN_RING + MN_CSUM + 2 * MN_STAGES * 8) + 1024;
+static_assert(MN_SMEM <= 232448, "a block's shared memory fits the SM's 227 KB");
+static_assert(MN_BOX % 1024 == 0 && MN_STAGE_BYTES % 1024 == 0 && MN_RING % 1024 == 0,
+              "swizzle atoms stay aligned");
+
+// Unit u of a launch: tile u % tiles (numbered N-fastest) over split u / tiles,
+// whose K rows [kb, kend = min(kb + Kc, K)) come in nk slices.
+struct Unit {
+  int m0, n0, split, kb, kend, nk;
+};
+__device__ __forceinline__ Unit mn_unit(int u, int tiles, int tiles_n, int K, int Kc) {
+  const int t = u % tiles;
+  Unit r;
+  r.split = u / tiles;
+  r.m0 = t / tiles_n * MN_BM;
+  r.n0 = t % tiles_n * MN_BN;
+  r.kb = r.split * Kc;
+  r.kend = min(r.kb + Kc, K);
+  r.nk = r.kend > r.kb ? (r.kend - r.kb + MN_BK - 1) / MN_BK : 0;
+  return r;
+}
+
+template <int AT, int MODE>
+__global__ void __launch_bounds__(MN_THREADS, 1)
+gemm_f32_nn_tn_kernel(const __grid_constant__ CUtensorMap tmA,
+                      const __grid_constant__ CUtensorMap tmB, float* __restrict__ C, int M,
+                      int N, int K, int Kc, int splits, Epi e) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c = warp < 4 * MN_CONSUMERS ? warp / 4 : warp - 4 * MN_CONSUMERS;  // consumer
+  unsigned char* ring = base + c * MN_RING;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + MN_CONSUMERS * (MN_RING + MN_CSUM));
+  uint64_t* full = bars + c * 2 * MN_STAGES;
+  uint64_t* empty = full + MN_STAGES;
+  const int tiles_n = (N + MN_BN - 1) / MN_BN;
+  const int tiles = (M + MN_BM - 1) / MN_BM * tiles_n;
+  const int units = tiles * splits;
+  const int first = blockIdx.x + gridDim.x * c, step = gridDim.x * MN_CONSUMERS;
+  if (threadIdx.x < MN_CONSUMERS * MN_STAGES) {
+    uint64_t* f = bars + threadIdx.x / MN_STAGES * 2 * MN_STAGES + threadIdx.x % MN_STAGES;
+    mbar_init(f, 1);              // the producer's arrive, plus the copies' bytes
+    mbar_init(f + MN_STAGES, 4);  // one arrive per consumer warp
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * MN_CONSUMERS) {  // the producers' warpgroup; warp 8 + c feeds consumer c
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (c < MN_CONSUMERS && lane == 0) {
+      int q = 0;  // slices issued, over all of this consumer's units
+      for (int u = first; u < units; u += step) {
+        const Unit t = mn_unit(u, tiles, tiles_n, K, Kc);
+        for (int kt = 0; kt < t.nk; ++kt, ++q) {
+          const int s = q % MN_STAGES, k = t.kb + kt * MN_BK;
+          mbar_wait(&empty[s], ((q / MN_STAGES) & 1) ^ 1);  // the first round passes at once
+          mbar_expect_tx(&full[s], MN_STAGE_BYTES);
+          unsigned char* a = ring + s * MN_STAGE_BYTES;
+          if (AT) {
+#pragma unroll
+            for (int j = 0; j < MN_BM / 32; ++j)
+              tma_load(a + j * MN_BOX, &tmA, t.m0 + 32 * j, k, &full[s]);
+          } else {
+            tma_load(a, &tmA, k, t.m0, &full[s]);
+          }
+#pragma unroll
+          for (int h = 0; h < MN_BN / 32; ++h)
+            tma_load(a + MN_A_BYTES + h * MN_BOX, &tmB, t.n0 + 32 * h, k, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  const int tid = threadIdx.x % 128, w = tid / 32;
+  const int rq = lane / 8, cq = lane % 8;
+  const int r0 = (w / 2) * 64 + (w % 2) * 4 + rq;  // "nn": rows r0 + 8 i
+  const int ga = 4 * w + rq;                        // "tn": rows 4 ga + {0..3}, + 64
+  // Byte offsets in a stage: a K-major A's first row with its swizzle (row &
+  // 7) in bits 4-6, or an MN-major A's chunk ga % 8 in box ga / 8; B's chunk
+  // cq in box 0.  For k = 4 ch + kk of an MN-major operand, (off + 512 ch) ^
+  // ((k & 7) << 4), + 128 kk.
+  const uint32_t offa = AT ? (w / 2) * MN_BOX + ((4 * (w % 2) + rq) << 4)
+                           : r0 * 128 + ((r0 & 7) << 4);
+  const uint32_t offb = MN_A_BYTES + (cq << 4);
+  float* sums = reinterpret_cast<float*>(base + MN_CONSUMERS * MN_RING + c * MN_CSUM);
+  int q = 0;
+  for (int u = first; u < units; u += step) {
+    const Unit t = mn_unit(u, tiles, tiles_n, K, Kc);
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int kt = 0; kt < t.nk; ++kt, ++q) {
+      const int s = q % MN_STAGES;
+      // The slice's chunks of this split: a split that ends before K ends on a
+      // 16-row boundary, maybe half-way into the slice, whose other half is
+      // the next split's; past K, TMA's zeros add 0 * 0.
+      const int k0 = t.kb + kt * MN_BK;
+      const int nch = (t.kend < K ? min(MN_BK, t.kend - k0) : MN_BK) / 4;
+      mbar_wait(&full[s], (q / MN_STAGES) & 1);
+      const unsigned char* st = ring + s * MN_STAGE_BYTES;
+#pragma unroll 2
+      for (int ch = 0; ch < nch; ++ch) {  // k = 4 ch + kk
+        float a[4][8], b[4][8];                  // [kk][row i], [kk][column j]
+        const uint32_t xb = (offb + 512 * ch) ^ ((ch & 1) << 6);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4* p = reinterpret_cast<const float4*>(st + ((xb ^ (kk << 4)) + 128 * kk));
+          *reinterpret_cast<float4*>(&b[kk][0]) = p[0];
+          *reinterpret_cast<float4*>(&b[kk][4]) = p[MN_BOX / 16];  // box 1: columns + 32
+        }
+        if (AT) {
+          const uint32_t xa = (offa + 512 * ch) ^ ((ch & 1) << 6);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4* p = reinterpret_cast<const float4*>(st + ((xa ^ (kk << 4)) + 128 * kk));
+            *reinterpret_cast<float4*>(&a[kk][0]) = p[0];
+            *reinterpret_cast<float4*>(&a[kk][4]) = p[2 * MN_BOX / 16];  // boxes + 2: rows + 64
+          }
+        } else {
+          const float4* pa = reinterpret_cast<const float4*>(st + (offa ^ (ch << 4)));
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {  // rows 8 apart: 1024 bytes; .x .. .w are kk = 0 .. 3
+            const float4 r = pa[64 * i];
+            a[0][i] = r.x; a[1][i] = r.y; a[2][i] = r.z; a[3][i] = r.w;
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+              const int j = (i & 1) ? 7 - jj : jj;  // serpentine: a[i], b[j] reused at the turns
+              acc[i][j] = fmaf(a[kk][i], b[kk][j], acc[i][j]);
+            }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // Epilogue in place: row i of the thread, its 4-column groups h = 0, 1.
+    float* out = C + (size_t)t.split * M * N;
+    float csum[8];  // epilogue_group's own column sums go unused: EPI_GATE's are below
+#pragma unroll
+    for (int j = 0; j < 8; ++j) csum[j] = 0.0f;
+    // EPI_GATE / EPI_RESID: every gate or residual group of the thread read
+    // before the first store, so the 16 loads overlap (N % 8 == 0: whole groups).
+    float pre[8][8];
+    if (MODE == EPI_GATE || MODE == EPI_RESID) {
+      const float* src = MODE == EPI_GATE ? static_cast<const float*>(e.gate) : e.resid;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = t.m0 + (AT ? 4 * ga + (i & 3) + 64 * (i >> 2) : r0 + 8 * i);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = t.n0 + 4 * cq + 32 * h;
+          if (row < M && col < N)
+            *reinterpret_cast<float4*>(&pre[i][4 * h]) =
+                *reinterpret_cast<const float4*>(src + (size_t)row * N + col);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = t.m0 + (AT ? 4 * ga + (i & 3) + 64 * (i >> 2) : r0 + 8 * i);
+      if (row >= M) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = t.n0 + 4 * cq + 32 * h;
+        if (col < N)
+          epilogue_group<MODE, 4, float, float>(e, row, col, N, &acc[i][4 * h], out, &csum[4 * h],
+                                                MODE == EPI_GATE || MODE == EPI_RESID
+                                                    ? &pre[i][4 * h] : nullptr);
+      }
+    }
+    if (MODE == EPI_GATE) {
+      // The column sums in the order gemm_f32_kernel took them: 16 groups tr
+      // of 8 rows, 32 (tr / 4) + 4 (tr % 4) + {0..3, 16..19}, each summed in
+      // that order from 0, then the groups in order.  Warp w holds the four
+      // groups tr = 4 (2 (w / 2) + a) + w % 2 + 2 b, rows r0 + 8 i at i = 4 a +
+      // b (+ 2) of its lanes rq = 0..3: a group's running sum steps from lane
+      // rq to rq + 1, each adding its own row (0 past M), and ends in rq 3.
+      float p[4][8];  // [group 2 a + b][column j]
+#pragma unroll
+      for (int hop = 0; hop < 8; ++hop) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const int i = 4 * (g >> 1) + (g & 1) + (hop < 4 ? 0 : 2);
+          const bool in = t.m0 + r0 + 8 * i < M;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (hop > 0) p[g][j] = __shfl_sync(0xffffffffu, p[g][j], (lane + 24) % 32);
+            p[g][j] = (hop > 0 ? p[g][j] : 0.0f) + (in ? acc[i][j] : 0.0f);
+          }
+        }
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");  // the last sums are read
+      if (rq == 3) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const int tr = 4 * (2 * (w / 2) + (g >> 1)) + w % 2 + 2 * (g & 1);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) sums[tr * MN_BN + 4 * cq + (j & 3) + 32 * (j >> 2)] = p[g][j];
+        }
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+      if (tid < MN_BN && t.n0 + tid < N) {
+        float sum = 0.0f;
+#pragma unroll
+        for (int r = 0; r < 16; ++r) sum += sums[r * MN_BN + tid];
+        e.colpart[(size_t)(t.m0 / MN_BM) * N + t.n0 + tid] = sum;
+      }
+    }
+  }
+}
+
+template <int AT, int MODE>
+cudaError_t launch_f32_nn_tn(const void* A, const void* B, void* C, int M, int N, int K,
+                             int splits, const Epi& e, cudaStream_t s) {
+  const long long units = (long long)((M + MN_BM - 1) / MN_BM) * ((N + MN_BN - 1) / MN_BN) * splits;
+  if (units == 0) return cudaSuccess;
+  if (units > 0x7fffffff) return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = sm_count(sms);
+  if (err != cudaSuccess) return err;
+  // K rows per split, a multiple of MN_KSTEP; the last split may be short (or empty).
+  const int Kc = ((K + splits - 1) / splits + MN_KSTEP - 1) / MN_KSTEP * MN_KSTEP;
+  CUtensorMap ta{}, tb{};  // K == 0 loads nothing
+  if (K > 0 && (!(AT ? tma_map(&ta, A, true, K, M, MN_BK, MN_BK)
+                     : tma_map(&ta, A, true, M, K, MN_BM, MN_BK)) ||
+                !tma_map(&tb, B, true, K, N, MN_BK, MN_BK)))
+    return cudaErrorInvalidValue;
+  // Per launch, as the attribute belongs to the current device.
+  err = cudaFuncSetAttribute(gemm_f32_nn_tn_kernel<AT, MODE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, MN_SMEM);
+  if (err != cudaSuccess) return err;
+  const int grid = units < sms ? (int)units : sms;
+  gemm_f32_nn_tn_kernel<AT, MODE><<<grid, MN_THREADS, MN_SMEM, s>>>(
+      ta, tb, static_cast<float*>(C), M, N, K, Kc, splits, e);
+  return cudaGetLastError();
+}
+
+// fp32 runs on the CUDA cores ("nt" on its own kernel, "nn" / "tn" on the
+// MN-major one), bf16 on the wgmma kernel.
 template <int AT, int BT, int MODE>
 cudaError_t launch(const void* A, const void* B, void* C, int M, int N, int K, int splits,
                    int dtype, int out_f32, const Epi& e, cudaStream_t s) {
   if (dtype == FM_F32) {
     if constexpr (!AT && !BT) return launch_f32_nt(A, B, C, M, N, K, e, s);
-    else return launch_f32<AT, MODE>(A, B, C, M, N, K, splits, e, s);  // B MN-major
+    else return launch_f32_nn_tn<AT, MODE>(A, B, C, M, N, K, splits, e, s);  // B MN-major
   }
   // K per split, a multiple of the wgmma kernel's K slice; the last split may be short.
   const int Kc = ((K + splits - 1) / splits + WG_BK - 1) / WG_BK * WG_BK;

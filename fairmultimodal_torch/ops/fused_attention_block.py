@@ -352,9 +352,11 @@ def block_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, mask, *, num_heads: int,
 def _splits(m: int, n: int, k: int, sms: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """K splits of a weight-grad GEMM over the tiles of the kernel that runs
     it (``_build.GEMM_SCHEDULE[dtype]``: its block tile, how many blocks an
-    SM holds at a time on a card of ``sms`` SMs, the least rows of a split):
-    the count, at most three waves of blocks and at least 2048 rows each for
-    bf16 (512 for fp32, whose slices are 16 deep, not 64), whose blocks fill
+    SM holds at a time on a card of ``sms`` SMs, the least rows of a split;
+    for fp32 the model the persistent kernel keeps, so a weight grad keeps
+    its bits): the count, at most three waves of blocks and at least 2048
+    rows each for bf16 (512 for fp32, whose splits start on 16-row
+    boundaries, not 64), whose blocks fill
     their waves best (time ~ waves / splits), the smallest within 5% of the
     best (fewer fp32 partials to add)."""
     (tile_m, tile_n), per_sm, _, least = _build.GEMM_SCHEDULE[dtype]

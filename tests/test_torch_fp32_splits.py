@@ -2,16 +2,16 @@
 
 ``fused_attention_block.weight_grad`` runs every "tn" product (dWqkv, dWo,
 dW1, dW2) as K splits of fp32 partials that ``fm_colsum`` adds in a fixed
-order.  The split count is sized from the tile and the residency of the
-kernel that runs it (``_build.GEMM_SCHEDULE``): the bf16 ``wgmma`` kernel's
-128 x 256 tile at one block per SM, the fp32 CUDA-core kernel's 128 x 128
-tile at two; each split sums ``_build.split_rows`` rows (a multiple of the
-kernel's K step, 64 or 16; at least 2048 or 512).  "tn" always runs that
-wide tile; an unsplit "nn" product with N <= 768 takes the 128 x 64
-narrow tile where ``_build.sgemm_tile`` (``gemm.cu``'s ``sgemm_narrow``)
-says its wave tail is shorter: at batch 16, not at the lab or text shapes.
-Every fp32 "nt" product runs its own kernel's 128 x 64 tile
-(tests/test_torch_sgemm_nt_f32.py).  At batch 16 the fp32 weight
+order.  The split count is sized from a tile and a residency
+(``_build.GEMM_SCHEDULE``): the bf16 ``wgmma`` kernel's 128 x 256 tile at one
+block per SM; for fp32 the 128 x 128 tile at two blocks per SM of the
+cp.async kernel that ran "nn" / "tn" before the persistent one, whose counts
+and 16-row split boundaries the persistent kernel keeps, so a weight grad is
+the same bits; each split sums ``_build.split_rows`` rows (a multiple of the
+K step, 64 or 16; at least 2048 or 512).  Every fp32 product runs a 128 x 64
+tile on a persistent kernel ("nt" its own, tests/test_torch_sgemm_nt_f32.py;
+"nn" / "tn" tests/test_torch_sgemm_nn_tn_f32.py), so no narrower tile
+shortens a wave tail.  At batch 16 the fp32 weight
 grads take 7-8 splits of 1120-1280 rows where the bf16 ones take 2-4.  The
 tests pin both at the lab (B 256 x S 560), text (B 32 x S 512, FFN 3072) and
 baseline (B 16 x S 560) shapes on a 132-SM H100, and hold the Python
@@ -74,19 +74,16 @@ def test_bf16_default_keeps_the_wgmma_count():
 
 
 def test_schedule_matches_the_kernel_source():
-    assert _build.SGEMM_TILE == (_const("BM"), _const("BN"))
+    assert _build.SGEMM_TILE == (_const("MN_BM"), _const("MN_BN"))
     assert _build.WGMMA_TILE == (_const("WG_BM"), _const("WG_BN"))
-    assert _build.GEMM_SCHEDULE[F32][:3] == (_build.SGEMM_TILE, 2, _const("BK"))
+    # fp32 keeps the cp.async kernel's split model: 128 x 128 tiles, two blocks
+    # an SM, splits on 16-row boundaries (MN_KSTEP), whatever tile runs them.
+    assert _build.GEMM_SCHEDULE[F32][:3] == ((128, 128), 2, _const("MN_KSTEP"))
     assert _build.GEMM_SCHEDULE[BF][:3] == (_build.WGMMA_TILE, 1, _const("WG_BK"))
-    # The fp32 kernel's residency is its launch bound (2 TBN threads, 512 / (2
-    # TBN) blocks: two of 256 at the wide tile); the wgmma kernel's one.
-    assert re.search(r"__launch_bounds__\(SgemmTile<TBN>::NT, 512 / SgemmTile<TBN>::NT\)"
-                     r"\s*gemm_f32_kernel", _GEMM)
-    assert "static constexpr int NT = 2 * TBN;" in _GEMM
-    assert _build.SGEMM_NARROW_TILE == (_const("BM"), _const("BN_NARROW"))
+    assert re.search(r"__launch_bounds__\(MN_THREADS, 1\)\s*gemm_f32_nn_tn_kernel", _GEMM)
     assert re.search(r"__launch_bounds__\(WG_THREADS, 1\)\s*gemm_wgmma_kernel", _GEMM)
     # Both launches size a split the way split_rows does.
-    assert "((K + splits - 1) / splits + BK - 1) / BK * BK" in _GEMM
+    assert "((K + splits - 1) / splits + MN_KSTEP - 1) / MN_KSTEP * MN_KSTEP" in _GEMM
     assert "((K + splits - 1) / splits + WG_BK - 1) / WG_BK * WG_BK" in _GEMM
 
 
@@ -98,7 +95,7 @@ def test_a_card_with_fewer_sms_gets_its_own_count(dtype):
     assert _build.split_rows(LAB, 2, dtype) == 71680
 
 
-# layout, M, N, splits, SMs, the tile that runs
+# layout, M, N, splits, SMs, the tile that runs: every fp32 layout's 128 x 64
 TILES = [
     ("nt", BASE, 768, 1, 132, (128, 64)),        # Wo, W2 at batch 16: the "nt" kernel's
     ("nn", BASE, 768, 1, 132, (128, 64)),        # dO, both N-768 dx
@@ -106,30 +103,42 @@ TILES = [
     ("nt", BASE, 2048, 1, 132, (128, 64)),       # W1
     ("nt", TEXT, 768, 1, 132, (128, 64)),
     ("nt", LAB, 768, 1, 132, (128, 64)),
-    ("nn", 600, 200, 1, 132, (128, 64)),         # one wave: half the work a block
-    ("tn", 768, 768, 1, 132, (128, 128)),        # the weight grads keep the wide tile
+    ("nn", 600, 200, 1, 132, (128, 64)),         # one round: 20 units on 20 SMs
+    ("tn", 768, 768, 1, 132, (128, 64)),         # the weight grads: the "nn" / "tn" kernel's
     ("nt", BASE, 768, 2, 132, (128, 64)),
     ("nt", BASE, 768, 1, 114, (128, 64)),
-    ("nn", BASE, 2048, 1, 132, (128, 128)),      # "nn" dh: N > 768
-    ("nn", TEXT, 768, 1, 132, (128, 128)),       # 768 wide tiles: 6 a SM either way
-    ("nn", BASE, 768, 2, 132, (128, 128)),
-    ("nn", BASE, 768, 1, 114, (128, 128)),       # 114 SMs: 8 x 64 = 4 x 128, a tie
+    ("nn", BASE, 2048, 1, 132, (128, 64)),       # "nn" dh: N > 768
+    ("nn", TEXT, 768, 1, 132, (128, 64)),
+    ("nn", BASE, 768, 2, 132, (128, 64)),
+    ("nn", BASE, 768, 1, 114, (128, 64)),
 ]
 
 
 @pytest.mark.parametrize("layout,m,n,splits,sms,tile", TILES,
                          ids=[f"{t[0]}-M{t[1]}-N{t[2]}-s{t[3]}-sm{t[4]}" for t in TILES])
 def test_narrow_tile_where_its_wave_tail_is_shorter(layout, m, n, splits, sms, tile):
+    # No narrow tile any more: both fp32 kernels are persistent, so the busiest
+    # SM's work (units on it x tile width) is never more than the 128 x 128
+    # tile's that ran "nn" / "tn" before, at any shape.
     assert _build.sgemm_tile(layout, m, n, splits, sms) == tile
     if layout == "nt":
         assert tile == _build.SGEMM_NT["tile"]
-    elif tile == _build.SGEMM_NARROW_TILE:
-        # The busiest SM's work (tiles on it x tile width) is smaller.
-        mt = -(-m // 128)
-        assert -(-mt * -(-n // 64) // sms) * 64 < -(-mt * -(-n // 128) // sms) * 128
+        per_sm = _build.sgemm_nt_schedule(m, n, sms)[2]
+    else:
+        assert tile == _build.SGEMM_TILE
+        per_sm = _build.sgemm_nn_tn_schedule(m, n, splits, sms)[2]
+    mt = -(-m // 128)
+    assert per_sm * tile[1] <= -(-mt * -(-n // 128) * (splits if layout != "nt" else 1)
+                                  // sms) * 128
 
 
-def test_narrow_rule_matches_the_kernel_source():
-    assert "if (splits != 1 || N > 768) return false;" in _GEMM
-    assert "return (narrow + sms - 1) / sms * BN_NARROW < (wide + sms - 1) / sms * BN;" in _GEMM
-    assert "if constexpr (!AT) {" in _GEMM       # "tn" (MN-major A) never narrow
+def test_persistent_schedule_matches_the_kernel_source():
+    # The narrow tile and its rule are gone with the cp.async kernel; "nn" and
+    # "tn" launch the persistent kernel, one block per SM over the units.
+    for gone in ("BN_NARROW", "sgemm_narrow", "gemm_f32_kernel<", "launch_f32_tile"):
+        assert gone not in _GEMM
+    assert not hasattr(_build, "SGEMM_NARROW_TILE")
+    assert "const long long units = (long long)((M + MN_BM - 1) / MN_BM) * ((N + MN_BN - 1) / " \
+        "MN_BN) * splits;" in _GEMM
+    assert "const int grid = units < sms ? (int)units : sms;" in _GEMM
+    assert "for (int u = first; u < units; u += step)" in _GEMM

@@ -56,8 +56,10 @@ def test_no_module_imports_jax_flax_or_the_jax_package():
     assert offenders == []
 
 
-def test_every_module_imports_with_jax_unimportable():
-    code = (
+# The two fresh interpreters that import every module, one with JAX
+# unimportable and one without pandas, scikit-learn and transformers.
+_IMPORT_CHECKS = {
+    "no_jax": (
         "import sys, pkgutil, importlib\n"
         "for name in ('jax', 'flax', 'fairmultimodal_tpu'):\n"
         "    sys.modules[name] = None\n"
@@ -66,11 +68,40 @@ def test_every_module_imports_with_jax_unimportable():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'jax' not in {k for k, v in sys.modules.items() if v is not None}\n"
-        "print(len(names))\n")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         cwd=PKG.parent, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+        "print(len(names))\n"),
+    "no_pandas": (
+        "import sys, pkgutil, importlib\n"
+        "for name in ('pandas', 'sklearn', 'transformers'):\n"
+        "    sys.modules[name] = None\n"
+        "import fairmultimodal_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, 'fairmultimodal_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print('ok')\n"),
+}
+
+
+@pytest.fixture(scope="module")
+def import_checks():
+    """Both interpreters, started together: name -> (returncode, stdout, stderr)."""
+    procs = {name: subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True, cwd=PKG.parent)
+             for name, code in _IMPORT_CHECKS.items()}
+    out = {}
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+            raise
+        out[name] = (proc.returncode, stdout, stderr)
+    return out
+
+
+def test_every_module_imports_with_jax_unimportable(import_checks):
+    rc, stdout, stderr = import_checks["no_jax"]
+    assert rc == 0, stderr
+    assert int(stdout.strip()) >= 15
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
@@ -124,18 +155,9 @@ def test_no_sklearn_or_transformers_and_pandas_only_in_functions():
     assert pandas_any >= 2          # the DataFrame functions do import it
 
 
-def test_every_module_imports_without_pandas_sklearn_or_transformers():
-    code = (
-        "import sys, pkgutil, importlib\n"
-        "for name in ('pandas', 'sklearn', 'transformers'):\n"
-        "    sys.modules[name] = None\n"
-        "import fairmultimodal_torch as pkg\n"
-        "for m in pkgutil.walk_packages(pkg.__path__, 'fairmultimodal_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "print('ok')\n")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         cwd=PKG.parent, timeout=120)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+def test_every_module_imports_without_pandas_sklearn_or_transformers(import_checks):
+    rc, stdout, stderr = import_checks["no_pandas"]
+    assert rc == 0 and stdout.strip() == "ok", stderr
 
 
 def _bundle(n=12):
