@@ -8,8 +8,8 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 1. card: the name and power limit from ``nvidia-smi``;
 2. build: every kernel compiled from ``fairmultimodal_torch/ops/csrc``, and
    what ``-Xptxas -v`` reports (registers, stack, spills) for each
-   instantiation of the wgmma GEMM ("nt", "nn", "tn"), the mma.sync flash
-   forward, dQ and dK / dV kernels, the fp32 CUDA-core GEMM and the fp32
+   instantiation of the wgmma GEMM ("nt", "nn", "tn"), the wgmma flash
+   forward, dQ and dK / dV kernels (none may spill), the fp32 CUDA-core GEMM and the fp32
    flash forward, dQ and dK / dV kernels;
 3. kernels: each ported kernel's wrapper against its plain PyTorch version
    on the card, at the shapes the serving path gives it, in fp32 (max abs
@@ -106,9 +106,11 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    expanded as BEHRTLab builds it), the text-train shape (B32 S512 12x64,
    per-row masks, a fully masked row) and off the main path (d 32 at S 256
    without a mask; d 128 at S 1024 on contiguous [B, heads, S, d] tensors;
-   the packed ``fused_qkv`` layout; #1's packed layout at B 16, d 96); limits
-   at the phase.  Every fp32 forward is also held against float64 within
-   1e-5 of max-abs (IEEE fp32; a fully masked row against the mean of v).
+   the packed ``fused_qkv`` layout; #1's packed layout at B 16, d 96; d 20
+   at S 200, whose 40-byte head stride TMA cannot read, so the bf16 wrapper
+   copies q, k, v, o and dO padded); limits at the phase.  Every fp32
+   forward is also held against float64 within 1e-5 of max-abs (IEEE fp32;
+   a fully masked row against the mean of v).
    In bf16 the backward is also held against its own rounding order
    repeated in PyTorch: at most 1% of the entries differ, by at most one
    bf16 ulp of max-abs.  Timed in bf16 at the lab shape (B 256) and in fp32
@@ -516,8 +518,9 @@ def kernel_phase(fab, ffn):
         log(f"[kernels] {json.dumps(row)}")
         results.append(row)
 
-    # Off the serving path: head dim 12 (element loads in the bf16 tile
-    # loader, DP 32) and S 200 (a ragged last key tile), errors only.
+    # Off the serving path: head dim 12 (a 24-byte head stride TMA cannot
+    # read, so the bf16 wrapper copies q, k, v padded; DP 32) and S 200 (a
+    # ragged last key tile), errors only.
     label = "B4 S200 64x12"
     for dtype in (torch.float32, torch.bfloat16):
         run, plain, *_ = attention_case(fab, B=4, S=200, H=768, nh=64, eps=1e-12,
@@ -1469,12 +1472,14 @@ def f32_gemm_phase(_build, fab):
 
 #: The kernels redesigned for Hopper (the bf16 path's, the fp32 GEMMs and the
 #: fp32 flash forward and backward), whose ``-Xptxas -v`` lines phase 2 reports.
-PTXAS_KERNELS = ("gemm_wgmma_kernel", "flash_attn_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
-                 "flash_bwd_dkdv_mma_kernel", "gemm_f32_nt_kernel", "gemm_f32_nn_tn_kernel",
-                 "flash_attn_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
-                 "flash_bwd_dkdv_f32_kernel")
+PTXAS_KERNELS = ("gemm_wgmma_kernel", "flash_attn_fwd_wgmma_kernel",
+                 "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
+                 "gemm_f32_nt_kernel", "gemm_f32_nn_tn_kernel", "flash_attn_fwd_f32_kernel",
+                 "flash_bwd_dq_f32_kernel", "flash_bwd_dkdv_f32_kernel")
 #: Kernels that must not spill (their accumulators live in registers).
-NO_SPILL_KERNELS = ("gemm_f32_nt_kernel", "gemm_f32_nn_tn_kernel")
+NO_SPILL_KERNELS = ("gemm_f32_nt_kernel", "gemm_f32_nn_tn_kernel",
+                    "flash_attn_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                    "flash_bwd_dkdv_wgmma_kernel")
 
 
 def ptxas_report(_build, names=PTXAS_KERNELS):
@@ -1828,7 +1833,8 @@ def flash_kernel_phase(flash):
                    dict(B=32, S=512, nh=12, d=64, timed=f32),                      # text-train
                    dict(B=8, S=256, nh=8, d=32, mask_kind="none"),                 # off the path
                    dict(B=4, S=1024, nh=4, d=128, layout="contiguous"),
-                   dict(B=8, S=384, nh=12, d=64, layout="packed")):
+                   dict(B=8, S=384, nh=12, d=64, layout="packed"),
+                   dict(B=4, S=200, nh=4, d=20)):                  # TMA-padded copies
             row = flash_check(flash, gen, dtype, peak=peak, stages=bf16, **kw)
             log(f"[flash-kernels] {json.dumps(row)}")
             rows.append(row)

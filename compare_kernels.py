@@ -15,9 +15,19 @@ epilogue and timed beside ``F.linear``; the backward's "nn" dx (R 143360, K
 fixed-order sum) checked against fp32 and timed beside ``torch.matmul``; and
 the flash forward and backward at the lab (B 256, S 560, 8 x 96) and text
 (B 32, S 512, 12 x 64) shapes, checked against their plain versions and timed
-(CUDA-event medians of 20).  Only entry points every tree has are called.
-Give a tree twice (A B A B) to see the spread between repeats.  Lines start
-with GEMM, BWDGEMM, FLASH or FLASHERR.
+(CUDA-event medians of 20, the kernels' device time from the profiler, the host
+time of a forward call) beside SDPA with the -1e9 bias and its autograd
+backward; a hash of each bf16 GEMM layout's output on fixed inputs (GEMMBITS:
+equal hashes, equal bits); #1 (no residuals) at the lab (B 256 and 16) and
+text (B 32 x S 512, B 64 x S 256, 12 x 64) shapes, #3 (forward with
+residuals and backward, dropout 0.1) and #5 / #6 at the lab shape (B 256 and
+16) and #5 / #6 at the text shape (B 32 x S 512), each beside its library
+composition (ATTN); and the bf16 FAME train step at batch 256 (phase 5's
+model and batch: CUDA-event median of 20, then the profiler's busy / idle
+split and the device time of every kernel by name over 3 steps, STEP).
+Only entry points every tree has are called.  Give a tree twice (A B A B)
+to see the spread between repeats.  Lines start with GEMM, BWDGEMM,
+GEMMBITS, FLASH, FLASHERR, ATTN or STEP.
 
     python3 compare_kernels.py --fp32 [--steps] TREE [TREE ...]
 
@@ -56,7 +66,7 @@ import subprocess
 import sys
 
 _RUN = r'''
-import json, torch, chip_smoke as c
+import json, time, torch, chip_smoke as c
 from fairmultimodal_torch.ops import _build, flash_attention as flash
 from fairmultimodal_torch.ops import fused_attention_block as fab
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -98,10 +108,100 @@ for kw in (dict(B=256, S=560, nh=8, d=96, mask_kind="lab"), dict(B=32, S=512, nh
         ops = flash._operands(q, k, v, mask)
         o, stats = flash._forward_kernel(*ops, residuals=True)
         saved = (*ops[:3], o, stats, ops[3])
-        print("FLASH", kw, c.time_ms(lambda: flash.flash_attention(q, k, v, mask), reps=20),
-              "bwd", c.time_ms(lambda: flash._backward_kernel(*saved, g), reps=20), flush=True)
-    del q, k, v, o, stats, saved, g
+        F = torch.nn.functional
+        bias = None if mask is None else \
+            torch.where(mask > 0, 0.0, -1e9).to(bf)[:, None, None, :]
+        torch.cuda.synchronize()     # host time of one forward call, the card kept busy
+        t0 = time.perf_counter()
+        for _ in range(50):
+            flash.flash_attention(q, k, v, mask)
+        host_us = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+        row = {"ms": c.time_ms(lambda: flash.flash_attention(q, k, v, mask), reps=20),
+               "host_us": host_us,
+               "dev_ms": c.device_kernels(lambda: flash.flash_attention(q, k, v, mask), reps=10),
+               "bwd_dev_ms": c.device_kernels(lambda: flash._backward_kernel(*saved, g), reps=10),
+               "bwd_ms": c.time_ms(lambda: flash._backward_kernel(*saved, g), reps=20),
+               "sdpa_ms": c.time_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=bias), reps=20)}
+    lib = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    row["sdpa_bwd_ms"] = c._time_backward(F.scaled_dot_product_attention(
+        *lib, attn_mask=bias), lib, g)
+    print("FLASH", kw, json.dumps(row), flush=True)
+    del q, k, v, o, stats, saved, g, lib
     torch.cuda.empty_cache()
+# Bits of every bf16 GEMM layout on fixed inputs.
+import hashlib
+gen = torch.Generator(device="cuda").manual_seed(9)
+bits = {}
+for layout, (M, N, K) in (("nt", (4096, 2304, 768)), ("nn", (4096, 768, 2304)),
+                          ("tn", (2304, 768, 4096))):
+    a = torch.randn(*((K, M) if layout == "tn" else (M, K)), generator=gen, device="cuda").to(bf)
+    b = torch.randn(*((N, K) if layout == "nt" else (K, N)), generator=gen, device="cuda").to(bf)
+    out = torch.empty(M, N, device="cuda", dtype=bf)
+    _build.gemm(a, b, out, layout=layout)
+    bits[layout] = hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+print("GEMMBITS", json.dumps(bits), flush=True)
+del a, b, out
+torch.cuda.empty_cache()
+# #1 without residuals (serving), #3 and #5 / #6 timed, bf16.
+gen = torch.Generator(device="cuda").manual_seed(6)
+for label, shape in (("lab B256", dict(B=256, S=560, H=768, nh=8, eps=1e-5, mask_kind="lab")),
+                     ("lab B16", dict(B=16, S=560, H=768, nh=8, eps=1e-5, mask_kind="lab")),
+                     ("text B32 S512", dict(B=32, S=512, H=768, nh=12, eps=1e-12,
+                                            mask_kind="text")),
+                     ("text B64 S256", dict(B=64, S=256, H=768, nh=12, eps=1e-12,
+                                            mask_kind="text"))):
+    run, plain, library, stages, flops, nbytes = c.attention_case(fab, **shape, dtype=bf, gen=gen)
+    with torch.inference_mode():
+        print("ATTN", json.dumps({"kernel": "#1 serving", "shape": label, "ms": c.time_ms(run, reps=20),
+                                  "library_ms": c.time_ms(library, reps=20),
+                                  "stages_ms": {n: c.time_ms(fn, reps=20) for n, fn in stages()},
+                                  "bound_ms": c.bound_ms(flops, nbytes)[0]}), flush=True)
+    del run, plain, library, stages
+    torch.cuda.empty_cache()
+for label, kw in (("lab B256", dict(B=256)), ("lab B16", dict(B=16))):
+    row = c.attention_train_check(fab, _build, gen, bf, 0.1, timed=True, **kw)
+    print("ATTN", json.dumps({"kernel": "#1 residuals / #3", "shape": label, **{k: row.get(k) for k in (
+        "fwd_res_ms", "ms", "stages_ms", "library_ms", "bound_ms", "deterministic")}}), flush=True)
+    torch.cuda.empty_cache()
+for label, kw in (("lab B256", dict(B=256)), ("lab B16", dict(B=16)),
+                  ("text B32 S512", dict(B=32, S=512, nh=12, L=512))):
+    row = c.block_check(fab, gen, bf, timed=True, **kw)
+    print("ATTN", json.dumps({"kernel": "#5 / #6", "shape": label, **{k: row.get(k) for k in (
+        "ms", "fwd_res_ms", "bwd_ms", "bwd_stages_ms", "library_ms", "library_bwd_ms", "bound_ms",
+        "bwd_bound_ms", "bwd_deterministic")}}), flush=True)
+    torch.cuda.empty_cache()
+# The bf16 FAME train step at batch 256 (phase 5's model and batch).
+import numpy as np
+from fairmultimodal_torch.data.loader import BatchIterator, NestedLoader
+from fairmultimodal_torch.data.prefetch import to_device
+from fairmultimodal_torch.models._layers import init_params
+from fairmultimodal_torch.models.fusion import FAMEModel
+from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
+from torch.profiler import ProfilerActivity, profile
+train = c.synthetic_cohort(np.random.default_rng(2), 256)
+keys = [k for k in train if k != "labels"]
+trainer = FAMETrainer(init_params(FAMEModel(**c.TRAIN_GEO, dtype=bf), seed=0),
+                      TrainConfig(lr=1e-4, batch_size=256), pos_weight=c.POS_WEIGHT,
+                      rngs_seed=0, device="cuda")
+batch = to_device(next(iter(NestedLoader(BatchIterator(train, 256, shuffle=True, seed=0), keys))),
+                  trainer.device)
+timed = c.time_train_step(trainer, batch)
+split = c.profile_train_step(trainer, batch)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(3):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+names = {e.key[:100]: (e.self_device_time_total / 3e3, e.count / 3) for e in prof.key_averages()
+         if e.self_device_time_total > 0}
+print("STEP", json.dumps({"step": "FAME bf16 B256", "timed": timed,
+                          "busy_ms": split["device_busy_ms"], "wall_ms": split["wall_ms"],
+                          "idle_share": split["idle_share"],
+                          "by_kernel_ms_launches": dict(sorted(names.items(),
+                                                               key=lambda x: -x[1][0]))}),
+      flush=True)
 '''
 
 

@@ -35,8 +35,8 @@ __all__ = ["KernelLaunchError", "build", "kernels", "gemm", "colsum", "row_block
            "add_layernorm", "layernorm_bwd", "ACT_CODES", "FLASH_BWD_TILE", "LN_BWD_ROWS",
            "SUM_ROWS", "WGMMA_TILE", "SGEMM_TILE", "SGEMM_NT", "SGEMM_NN_TN",
            "GEMM_SCHEDULE", "sgemm_tile", "sgemm_nt_schedule", "sgemm_nn_tn_schedule",
-           "split_rows",
-           "flash_bwd_colpart_rows", "flash_fwd_f32_rows"]
+           "split_rows", "flash_bwd_colpart_rows", "flash_fwd_f32_rows", "FLASH_FWD_KEYS",
+           "flash_fwd_bf16_keys", "tma_compatible", "tma_operand"]
 
 _CSRC = Path(__file__).resolve().with_name("csrc")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -48,10 +48,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODES = {"none": 0, "relu": 1, "gelu": 2}
 _GATE_CODES = {None: 0, "relu": 1, "dgelu": 2}
 _LAYOUTS = {"nt": 0, "nn": 1, "tn": 2}
-#: Rows a flash-backward block owns, in both of its kernels (its column
-#: partials have B * ceil(S / tile) rows): bf16 64 = 4 warps x 16, fp32 64 =
-#: 16 thread rows x 4.
+#: Rows of one column-partial tile of the flash backward, in both of its
+#: kernels (the partials have B * ceil(S / tile) rows): bf16 64 = the rows of
+#: one consumer warpgroup (one wgmma M), fp32 64 = 16 thread rows x 4.
 FLASH_BWD_TILE = {torch.bfloat16: 64, torch.float32: 64}
+#: Keys per tile of the bf16 flash forward (``flash_attention.cu``'s
+#: FWD_BN_NARROW, FWD_BN_WIDE); :func:`flash_fwd_bf16_keys` picks one by S.
+FLASH_FWD_KEYS = (112, 128)
 #: The bf16 ``wgmma`` GEMM's block tile (rows, columns): ``gemm.cu``'s WG_BM x WG_BN.
 WGMMA_TILE = (128, 256)
 #: The fp32 "nt" kernel (``gemm.cu``'s ``gemm_f32_nt_kernel``, NT_*): each of
@@ -134,6 +137,37 @@ def flash_fwd_f32_rows(seq: int) -> int:
     ``f32_fwd_tm`` times 16): 112 where that pads ``seq`` to fewer rows than
     128 (S 560 = 5 x 112), else 128 (S 512 = 4 x 128)."""
     return 112 if -(-seq // 112) * 112 < -(-seq // 128) * 128 else 128
+
+def flash_fwd_bf16_keys(seq: int) -> int:
+    """Keys per tile of the bf16 flash forward (``flash_attention.cu``'s
+    ``fwd_bn``): 112 where that pads ``seq`` to fewer keys than 128 (S 560 =
+    5 x 112), else 128 (S 512 = 4 x 128).  The tile sets which running max each
+    p is rounded against."""
+    narrow, wide = FLASH_FWD_KEYS
+    return narrow if -(-seq // narrow) * narrow < -(-seq // wide) * wide else wide
+
+
+def tma_compatible(t: torch.Tensor) -> bool:
+    """Whether TMA reads the [B, heads, S, d] operand ``t`` as it lies: a
+    16-byte aligned base and, for every dim but the last (contiguous) one whose
+    size is not 1, a positive stride of a multiple of 16 bytes."""
+    e = t.element_size()
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        n == 1 or (st > 0 and st * e % 16 == 0) for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where :func:`tma_compatible`, else a copy that TMA reads:
+    a contiguous [B, heads, S, dp] buffer, dp = d rounded up to 16 bytes of
+    elements, zero past d, returned as its [..., :d] view."""
+    if tma_compatible(t):
+        return t
+    d = t.shape[-1]
+    per = 16 // t.element_size()
+    buf = t.new_zeros(*t.shape[:-1], -(-d // per) * per)
+    buf[..., :d] = t
+    return buf[..., :d]
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -395,11 +429,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: Optional[torch.Tensor], o: torch.Tensor,
                         stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked attention (Pallas #9) over strided q, k, v into o, all
-    [B, heads, S, d] with the last dim contiguous (any other strides);
-    mask [B, S] int32 contiguous, or None for every key; with ``stats``
-    [B, heads, S, 2] fp32 also each row's softmax max and sum."""
+    [B, heads, S, d] with the last dim contiguous (any other strides; in
+    bf16 an operand TMA cannot read as it lies is copied by
+    :func:`tma_operand` first); mask [B, S] int32 contiguous, or None for
+    every key; with ``stats`` [B, heads, S, 2] fp32 also each row's softmax
+    max and sum."""
     b, nh, s, d = _check_flash_operands(q, k, v, mask)
     _require_heads(o, "o", q.shape, q.dtype, q.device)
+    if q.dtype == torch.bfloat16:     # the wgmma kernel reads q, k, v by TMA
+        q, k, v = (tma_operand(t) for t in (q, k, v))
     if stats is not None:
         _require(stats, "stats", (b, nh, s, 2), torch.float32, q.device)
     with torch.cuda.device(q.device):
@@ -429,6 +467,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     if colpart is not None:
         _require(colpart, "colpart", (flash_bwd_colpart_rows(b, s, q.dtype), 3 * nh * d),
                  torch.float32, q.device)
+    if q.dtype == torch.bfloat16:     # the wgmma kernels read these by TMA
+        q, k, v, o, dout = (tma_operand(t) for t in (q, k, v, o, dout))
     with torch.cuda.device(q.device):
         rc = kernels()["flash_attention.cu"].fm_flash_attention_bwd(
             q.data_ptr(), _strides(q), k.data_ptr(), _strides(k), v.data_ptr(), _strides(v),

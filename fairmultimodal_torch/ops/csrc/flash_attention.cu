@@ -6,9 +6,9 @@
 //     no mask: every key attends
 //
 // Replaces two Pallas TPU kernels and the attention cores of four more:
-//   - fairmultimodal_tpu/ops/flash_attention.py::_fwd_kernel (#9) and
-//     ::_bwd_kernel (#10), which take q, k, v as separate [B, heads, S, D]
-//     arrays and an optional [B, S] mask;
+//   - fairmultimodal_tpu/ops/flash_attention.py::_fwd_kernel (#9, :44) and
+//     ::_bwd_kernel (#10, :67), which take q, k, v as separate
+//     [B, heads, S, D] arrays and an optional [B, S] mask;
 //   - the softmax-attention core of fused_attention_block.py::
 //     _mega_ln_fwd_kernel / _mega_fwd_kernel (#1 / #5) and of
 //     _mega_ln_bwd_kernel / _mega_bwd_kernel (#3 / #6), whose q, k, v sit in
@@ -20,9 +20,7 @@
 // column offsets 0, H, 2H, row stride 3H, head stride d), three [B, S, H]
 // Dense outputs viewed as heads another (row stride H), a contiguous
 // [B, heads, S, d] tensor a third (row stride d, head stride S*d): no head
-// split or merge is ever materialised.  Tiles load 16 bytes at a time when
-// d, the row stride and the head's base pointer allow it, and one element
-// at a time otherwise.
+// split or merge is ever materialised.
 //
 // Bound at the lab shape (B 256, S 560, 8 heads x 96): the score and p.v
 // products are 4*B*S*S*H = 2.5e11 FLOP (0.25 ms at the bf16 dense peak)
@@ -30,31 +28,43 @@
 // products 10*B*S*S*H = 6.2e11 (0.62 ms).
 //
 // Forward design.  The TPU kernel holds the whole [S, S] score tile in VMEM;
-// an SM has 227 KB, so both kernels here tile the keys (64 at a time) with
-// an online softmax (running row max and sum, the output rescaled when the
-// max grows).  The head dim is padded with zeros to DP, a multiple of 32 (d
-// 96 stays 96): the TPU kernel's 96 -> 128 pad was Mosaic's 128-lane rule and
-// buys nothing here.
-//   - bf16 (any d <= 128): what bounds it is the tensor cores' issue rate,
-//     so the design keeps everything between the products in registers
-//     (FlashAttention-2 on mma.sync m16n8k16).  A block owns 128 query rows
-//     of one (batch, head), 4 warps of 32 rows: two m16 row tiles per warp
-//     share every k / v fragment it loads (half the ldmatrix traffic per
-//     product) and give it two independent chains of products.  k / v tiles
-//     and their key bias come by 16-byte cp.async into a two-stage ring, the
-//     next tile's copy running under the current tile's products; q
-//     fragments are read (ldmatrix) from the q tile; scores are fp32 C
-//     fragments, scaled, biased and soft-maxed in registers with quad
-//     shuffles, and become the bf16 A fragments of p.v directly (v read with
-//     ldmatrix.trans).  One pass: the products are the TPU kernel's.
+// an SM has 227 KB, so both kernels here tile the keys with an online
+// softmax (running row max and sum, the output rescaled when the max grows).
+// The head dim is padded with zeros to DP, a multiple of 32 (d 96 stays 96):
+// the TPU kernel's 96 -> 128 pad was Mosaic's 128-lane rule and buys nothing
+// here.
+//   - bf16 (any d <= 128): what bounds it is the tensor cores' rate (and the
+//     bytes, at the lab shape), and only wgmma reaches that rate, so
+//     flash_attn_fwd_wgmma_kernel is FlashAttention-3's shape: a persistent
+//     block per SM of two consumer warpgroups, each owning 64 query rows of
+//     a 128-row (batch, head, row block) item, and a producer warp that
+//     keeps TMA copies in flight.  Every operand tile arrives by
+//     cp.async.bulk.tensor through a rank-4 tensor map (d, S, heads, B) over
+//     the operand's own strides, so a row past S inside the head is zero
+//     filled and the next head is never read; d / 32 boxes of [rows][32]
+//     with the 64-byte swizzle cover d 32, 64, 96 and 128 with one rule (a
+//     192-byte row at d 96 does not fit one 128-byte swizzle line).  s =
+//     q.k^T is an SS wgmma (both K-major over d); the fp32 scores are
+//     scaled, biased and soft-maxed in registers (quad shuffles), rounded to
+//     bf16 and repacked as the register A operand of o += p.v, whose B = v
+//     is MN-major over d (the descriptor's transpose bit).  Keys come in
+//     tiles of BN = 112 where that pads S to fewer keys than 128 (S 560 =
+//     5 x 112), else 128 (S 512 = 4 x 128), through a ring of 2-3 stages of
+//     (k, v, key bias); the producer gives its registers up (setmaxnreg 40 /
+//     232).  The q tile of the next item is loaded as soon as both
+//     consumers' last q.k^T has completed, under this item's last p.v and
+//     output stores.  Rows: 128-row items, a warpgroup whose 64 rows all
+//     lie past S (the last item at S 560) waits and releases its stages
+//     without a product, so 576 rows are computed for S 560.
 //     ROUNDING (the one change of contract): the TPU kernel rounds the
 //     NORMALISED p to bf16 before p.v (flash_attention.py:62); this kernel
-//     rounds the unnormalised exp(s - m_running), sums the fp32 values, and
-//     divides o by that sum once at the end.  The two differ by at most one
-//     bf16 rounding of each p, inside the bf16 forward limits that
-//     chip_smoke.py phase 3d holds it to (FLASH_BF16_FWD = 2^-6 of max-abs,
-//     mean TRAIN_BF16_MEAN = 2^-10); tests/test_torch_flash_forward_contract
-//     .py emulates this order on the CPU against the Pallas kernel.
+//     rounds the unnormalised exp(s - m_running), m_running the row max over
+//     the key tiles so far, sums the fp32 values, and divides o by that sum
+//     once at the end.  The two differ by at most one bf16 rounding of each
+//     p, inside the bf16 forward limits that chip_smoke.py phase 3d holds it
+//     to (FLASH_BF16_FWD = 2^-6 of max-abs, mean TRAIN_BF16_MEAN = 2^-10);
+//     tests/test_torch_flash_forward_contract.py emulates this order, at the
+//     kernel's key tile, on the CPU against the Pallas kernel.
 //   - fp32: CUDA cores, one pass with the same online softmax, register
 //     micro-tiles fed by float4 shared-memory reads and a cp.async ring (its
 //     own note, below).  fp32 rounds nothing, so normalising once at the end
@@ -68,19 +78,27 @@
 // uniform softmax instead of NaN.  Keys past S (the ragged last tile) get
 // -inf and weigh exactly zero.
 //
-// What the bf16 forward still leaves out: wgmma (the operands are strided
-// head views whose 192-byte rows at d 96 exceed a 128-byte swizzle atom, so
-// TMA boxes would need a split head dim), a warp-specialised producer, and
-// a row tiling that fits S 560 (128-row blocks compute 640 rows, 14% of them
-// padding); at d 96 it uses all 255 registers and spills 24 bytes.
+// TMA needs a 16-byte aligned base and strides of a multiple of 16 bytes;
+// the wrapper (_build.tma_operand) copies an operand that lacks them into a
+// contiguous buffer whose rows are padded to a multiple of 8 elements.
+// Outputs are stored from registers through a swizzled staging tile, 16
+// bytes at a time where the layout allows it.
+//
+// Each consumer warpgroup issues its products and waits for them; the two
+// warpgroups overlap only as the warp schedulers interleave them.  Measured
+// in turns on an H100 (80GB HBM3, 700 W) at the lab shape and not kept:
+// FlashAttention-3's ping-pong, the two warpgroups taking turns to issue
+// through named barriers (forward 1.14 ms against 0.89, dQ 1.59 against 1.08,
+// dK / dV 2.18 against 1.57 of device time), and issuing the next tile's
+// q.k^T under this tile's p.v (0.92 against 0.89); the dQ kernel keeps the
+// latter (1.02-1.03 ms against 1.08).
 #include <math.h>
 #include <stdint.h>
 
 #include "fm_common.cuh"
+#include "fm_hopper.cuh"
 
 namespace {
-
-constexpr int FA_BN = 64;  // keys per tile of the bf16 forward
 
 // One strided [B, heads, S, d] operand (last dim contiguous).
 template <typename T>
@@ -112,28 +130,7 @@ __device__ __forceinline__ bool vec16(const T* src, long long rs, int d) {
   return d % V == 0 && rs % V == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
 }
 
-// ---- bf16 tensor-core kernel (mma.sync m16n8k16, one pass, register-resident) ------
-
-constexpr int FWD_BM = 128;  // query rows per block
-constexpr int FWD_WARPS = 4;  // each owns 32 rows: two m16 row tiles sharing every k / v fragment
-constexpr int FWD_THREADS = 32 * FWD_WARPS;
 constexpr float LOG2E = 1.4426950408889634f;
-
-template <int DP>
-struct FwdSmem {  // byte offsets of the shared-memory regions
-  // bf16 tile pitch: DP + 8 puts the 8 rows an ldmatrix phase reads on 8
-  // distinct 16-byte bank groups for every DP in {32, 64, 96, 128}.
-  static constexpr int LD = DP + 8;
-  static constexpr int KV_TILE = FA_BN * LD * 2;    // one [64][LD] bf16 k or v tile
-  static constexpr int Q = 0;                       // the q tile, then the output staging tile
-  static constexpr int KV = FWD_BM * LD * 2;        // ring of two stages, each a k and a v tile
-  static constexpr int BIAS = KV + 4 * KV_TILE;     // each stage's [64] fp32 key bias
-  static constexpr int BYTES = BIAS + 2 * FA_BN * 4;
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16 bytes global -> shared, asynchronously; zero fill when !ok (nothing is read).
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
@@ -145,308 +142,453 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c[16x8] += a[16x16] . b[16x8], bf16 operands, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Two fp32 values rounded to bf16 and packed, lo in the low half (the lower column).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Rows [r0, r0 + ROWS) x d columns of one head (row stride rs) -> dst[ROWS][DP + 8],
-// zero filled past S and past d: 16-byte cp.async copies when ``vec``, else
-// element loads and stores (visible after the next barrier either way).
-template <int DP, int ROWS, int NT = FWD_THREADS>
-__device__ __forceinline__ void load_tile(const fm_bf16* __restrict__ src, long long rs, int r0,
-                                          int S, int d, bool vec, fm_bf16* dst) {
-  constexpr int LD = DP + 8;
-  if (vec) {
-    constexpr int CPR = DP / 8;  // 16-byte chunks per row
-    for (int c = threadIdx.x; c < ROWS * CPR; c += NT) {
-      const int row = c / CPR;
-      const int col = (c % CPR) * 8;
-      const bool ok = r0 + row < S && col < d;
-      cp_async16(smem_u32(dst + row * LD + col), ok ? src + (r0 + row) * rs + col : src, ok);
+// ---- bf16 kernels: wgmma fed by TMA, warp-specialised ---------------------------------
+
+constexpr int FA_ROWS = 64;        // rows a consumer warpgroup owns (one wgmma M)
+constexpr int FA_CONSUMERS = 2;    // consumer warpgroups a block: 128 owned rows
+constexpr int FA_THREADS = (FA_CONSUMERS + 1) * 128;  // + the producer's warpgroup
+constexpr int FA_SMEM_MAX = 232448;                   // a block's shared memory on an H100
+// _build.FLASH_FWD_KEYS repeats the forward's key tiles (_build.flash_fwd_bf16_keys
+// the rule between them).
+constexpr int FWD_BN_NARROW = 112;
+constexpr int FWD_BN_WIDE = 128;
+// _build.FLASH_BWD_TILE repeats BWD_TILE and F32_TL (the column partials' rows).
+constexpr int BWD_TILE = 64;       // rows a consumer warpgroup of the backward owns
+constexpr int BWD_WALK = 64;       // rows of each walked tile
+static_assert(BWD_TILE == FA_ROWS, "a backward warpgroup owns one wgmma M of rows");
+
+// Keys per tile of the bf16 forward at S: 112 where that pads S to fewer keys
+// than 128, else 128.
+int fwd_bn(int S) {
+  return (S + FWD_BN_NARROW - 1) / FWD_BN_NARROW * FWD_BN_NARROW <
+                 (S + FWD_BN_WIDE - 1) / FWD_BN_WIDE * FWD_BN_WIDE
+             ? FWD_BN_NARROW
+             : FWD_BN_WIDE;
+}
+
+// A [R][DP] bf16 tile in shared memory is DP / 32 TMA boxes of [R][32]: 64-byte
+// rows with the 64-byte swizzle (16-byte chunk index XOR (row / 2) % 4), each
+// box R * 64 bytes and 512-byte aligned.  Byte offset of element (r, c):
+template <int R>
+__device__ __forceinline__ uint32_t sw64(int r, int c) {
+  return (c >> 5) * (R * 64) + r * 64 + ((((c >> 3) & 3) ^ ((r >> 1) & 3)) << 4) + (c & 7) * 2;
+}
+// wgmma descriptors of such a tile (the canonical 64-byte-swizzle layouts of
+// CUTLASS's make_gmma_desc).  K-major (its rows are M or N, the head dim is
+// K): the 16-deep slice kk is in box kk / 2, 32 bytes on for odd kk; 8-row
+// groups 512 bytes apart (stride), the leading offset unused.
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return wgmma_desc(tile + (kk >> 1) * (R * 64) + (kk & 1) * 32, 16, 512, 2);
+}
+// MN-major (its rows are K, the head dim is N): slice kk is 16 rows (1024
+// bytes) on; 32-wide N blocks one box apart (leading), 8-row K groups 512
+// bytes apart (stride).
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return wgmma_desc(tile + kk * 1024, R * 64, 512, 2);
+}
+
+// d[0 .. N/2) (+)= A . B^T over 16 of K, both from shared memory and K-major
+// (scale_d 0: d = A . B^T).  Accumulator layout (m64nN, fp32): thread (warp w
+// of the warpgroup, lane l) holds rows 16w + l/4 (d[4i], d[4i + 1]) and + 8
+// (d[4i + 2], d[4i + 3]), columns 8i + 2(l % 4) + {0, 1}.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+// d[0 .. N/2) += A . B over 16 of K, A from registers (the accumulator layout
+// of columns 16kk .. 16kk + 15 packed to bf16 pairs: rows l/4 and + 8 of
+// columns 2(l % 4), then of columns 8 + 2(l % 4)), B from shared memory and
+// MN-major.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<112>(float (&d)[56], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55"
+      "}, %56, %57, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The named barrier of consumer warpgroup ``wg`` (ids 1, 2; 0 is __syncthreads).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// A warpgroup's fp32 [64 x DP] accumulator (its rows r0 .. r0 + 63 of one
+// head, row stride rs), rows l/4 divided by div0 and rows l/4 + 8 by div1,
+// rounded to bf16, staged in the swizzled tile ``stage``
+// (this warpgroup's alone) and stored, 16 bytes at a time when the layout
+// allows it; rows past S and columns past d are not written.
+template <int DP>
+__device__ __forceinline__ void store_rows(const float (&acc)[DP / 2], float div0, float div1,
+                                           unsigned char* stage, fm_bf16* dst, long long rs,
+                                           int r0, int S, int d, int wg) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int row = warp * 16 + lane / 4;
+  wg_sync(wg);  // the staging tile's previous readers are done
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) {
+    const int col = 8 * i + 2 * (lane % 4);
+    *reinterpret_cast<__nv_bfloat162*>(stage + sw64<FA_ROWS>(row, col)) =
+        __floats2bfloat162_rn(acc[4 * i] / div0, acc[4 * i + 1] / div0);
+    *reinterpret_cast<__nv_bfloat162*>(stage + sw64<FA_ROWS>(row + 8, col)) =
+        __floats2bfloat162_rn(acc[4 * i + 2] / div1, acc[4 * i + 3] / div1);
+  }
+  wg_sync(wg);
+  if (vec16(dst, rs, d)) {
+    constexpr int CPR = DP / 8;
+    for (int c = tid; c < FA_ROWS * CPR; c += 128) {
+      const int r = c / CPR, col = (c % CPR) * 8;
+      if (r0 + r < S && col < d)
+        *reinterpret_cast<uint4*>(dst + (r0 + r) * rs + col) =
+            *reinterpret_cast<const uint4*>(stage + sw64<FA_ROWS>(r, col));
     }
   } else {
-    for (int i = threadIdx.x; i < ROWS * DP; i += NT) {
-      const int row = i / DP, col = i % DP;
-      dst[row * LD + col] = (r0 + row < S && col < d) ? src[(r0 + row) * rs + col]
-                                                      : __float2bfloat16_rn(0.0f);
+    for (int i = tid; i < FA_ROWS * DP; i += 128) {
+      const int r = i / DP, col = i % DP;
+      if (r0 + r < S && col < d)
+        dst[(r0 + r) * rs + col] = *reinterpret_cast<const fm_bf16*>(stage + sw64<FA_ROWS>(r, col));
     }
   }
 }
 
-// One block: 128 query rows of one (batch, head), 4 warps of 32 rows (two
-// m16 row tiles, which share every k / v fragment a warp loads and give it
-// two independent chains of products).  Each 64-key tile of k and v, and its
-// key bias, arrives by cp.async into a two-stage ring while the previous tile
-// is multiplied.  Scores, p and the output live in mma fragments: the m16n8 C
-// layout of a score tile is the A layout of p.v, so no score or p touches
-// shared memory.  q fragments are read from the q tile each key tile (the
-// registers go to the accumulators).
+// Column sums of a warpgroup's fp32 [64 x DP] accumulator over its 64 rows:
+// the 16 rows of each warp by shuffles (a fixed order), then the 4 warps in
+// order through csum [4][DP] (this warpgroup's), into dst[0 .. d).
 template <int DP>
-__global__ void __launch_bounds__(FWD_THREADS, 2)
-flash_attn_fwd_mma_kernel(Mat<const fm_bf16> Q, Mat<const fm_bf16> K, Mat<const fm_bf16> V,
-                          Mask mask, Mat<fm_bf16> O, float* __restrict__ stats, int S, int nh,
-                          int d, float scale) {
-  using L = FwdSmem<DP>;
-  constexpr int LD = L::LD;
-  constexpr int KD = DP / 16;     // k16 steps of q.k^T
-  constexpr int ND = DP / 8;      // n8 tiles of the output
-  constexpr int NS = FA_BN / 8;   // n8 tiles of a score tile
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  fm_bf16* Qs = reinterpret_cast<fm_bf16*>(smem_raw + L::Q);
-  fm_bf16* ring = reinterpret_cast<fm_bf16*>(smem_raw + L::KV);  // stage st: k at 2st, v at 2st+1
-  float* kbias = reinterpret_cast<float*>(smem_raw + L::BIAS);   // stage st at st * FA_BN
+__device__ __forceinline__ void col_sums(const float (&acc)[DP / 2], float* csum, int d, int wg,
+                                         float* dst) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) {
+    float c0 = acc[4 * i] + acc[4 * i + 2], c1 = acc[4 * i + 1] + acc[4 * i + 3];
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+      c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+    }
+    if (lane < 4) {
+      csum[warp * DP + 8 * i + 2 * lane] = c0;
+      csum[warp * DP + 8 * i + 2 * lane + 1] = c1;
+    }
+  }
+  wg_sync(wg);
+  for (int c = tid; c < d; c += 128) {
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) s += csum[w * DP + c];
+    dst[c] = s;
+  }
+  wg_sync(wg);  // csum is free again
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // fragment row g (and g + 8), columns 2t, 2t + 1
-  const int q0 = blockIdx.x * FWD_BM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const fm_bf16* qb = Q.head(b, h);
-  const fm_bf16* kb = K.head(b, h);
-  const fm_bf16* vb = V.head(b, h);
-  const int* mrow = mask.row(b);
-  const bool kv_vec = vec16(kb, K.sr, d) && vec16(vb, V.sr, d);
-  auto stage = [&](int st, int which) { return ring + (2 * st + which) * FA_BN * LD; };
-  auto load_kv = [&](int k0, int st) {
-    load_tile<DP, FA_BN>(kb, K.sr, k0, S, d, kv_vec, stage(st, 0));
-    load_tile<DP, FA_BN>(vb, V.sr, k0, S, d, kv_vec, stage(st, 1));
-    if (threadIdx.x < FA_BN) kbias[st * FA_BN + threadIdx.x] = key_bias(mrow, k0 + threadIdx.x, S);
-  };
+// Shared memory of the forward (byte offsets from a 1024-byte aligned base).
+template <int DP, int BN>
+struct FwdLayout {
+  static constexpr int Q_TILE = FA_ROWS * DP * 2;  // one consumer's q (or output staging) tile
+  static constexpr int KV_TILE = BN * DP * 2;      // one k or v tile
+  static constexpr int STAGE = 2 * KV_TILE + BN * 4;
+  static constexpr int Q = 0;                                  // the consumers' q tiles
+  static constexpr int OST = Q + FA_CONSUMERS * Q_TILE;        // their output staging tiles
+  static constexpr int RING = OST + FA_CONSUMERS * Q_TILE;     // stages of (k, v)
+  static constexpr int STAGES = RING + 3 * STAGE + 1024 + 128 <= FA_SMEM_MAX ? 3 : 2;
+  static constexpr int BIAS = RING + STAGES * 2 * KV_TILE;     // stages x [BN] key bias
+  static constexpr int BAR = BIAS + STAGES * BN * 4;           // full, empty, q full, q empty
+  static constexpr int BYTES = BAR + (2 * STAGES + 2) * 8 + 1024;  // + alignment slack
+  static_assert(BYTES <= FA_SMEM_MAX, "the forward's shared memory fits an SM");
+  static_assert(KV_TILE % 512 == 0 && Q_TILE % 1024 == 0, "boxes stay 512-byte aligned");
+};
 
-  load_tile<DP, FWD_BM>(qb, Q.sr, q0, S, d, vec16(qb, Q.sr, d), Qs);
-  load_kv(0, 0);
-  cp_async_commit();
-  cp_async_wait_all();
+// Persistent: block i takes items i, i + grid, ...; item = (b, h, row block
+// rb) with rb fastest, so the blocks working on one head at a time share its
+// k and v in L2.  Warpgroups 0 and 1 own rows rb*128 + 64 wg .. + 63; the
+// first warp of warpgroup 2 is the producer.
+template <int DP, int BN>
+__global__ void __launch_bounds__(FA_THREADS, 1)
+flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
+                            const __grid_constant__ CUtensorMap tmK,
+                            const __grid_constant__ CUtensorMap tmV, Mask mask, Mat<fm_bf16> O,
+                            float* __restrict__ stats, int S, int nh, int d, float scale, int nrb,
+                            int items) {
+  using L = FwdLayout<DP, BN>;
+  constexpr int ST = L::STAGES;
+  constexpr int KD = DP / 16;  // 16-deep slices of q.k^T
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* kbias = reinterpret_cast<float*>(sm + L::BIAS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* empty = full + ST;
+  uint64_t* qfull = empty + ST;
+  uint64_t* qempty = qfull + 1;
+  const int wg = threadIdx.x / 128;
+  const int ntiles = (S + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 32);            // the producer warp's lanes (key bias), plus the copies
+      mbar_init(&empty[s], FA_CONSUMERS);  // one arrive per consumer warpgroup
+    }
+    mbar_init(qfull, 1);
+    mbar_init(qempty, FA_CONSUMERS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  uint32_t qaddr[2];  // ldmatrix row address of this lane in each row tile
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-    qaddr[rt] = smem_u32(Qs + (warp * 32 + rt * 16 + lane % 8 + (lane / 8) % 2 * 8) * LD +
-                         lane / 16 * 8);
-  float o[2][ND][4];
-  float m_r[2][2], l_r[2][2];  // per row tile: running max of rows g, g + 8 (natural-log
-                               // units) and this thread's share of their running sums
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt) {
-#pragma unroll
-    for (int j = 0; j < ND; ++j) o[rt][j][0] = o[rt][j][1] = o[rt][j][2] = o[rt][j][3] = 0.0f;
-    m_r[rt][0] = m_r[rt][1] = -INFINITY;
-    l_r[rt][0] = l_r[rt][1] = 0.0f;
-  }
-
-  const int ntiles = (S + FA_BN - 1) / FA_BN;
-  for (int it = 0; it < ntiles; ++it) {
-    const int st = it & 1;
-    if (it + 1 < ntiles) load_kv((it + 1) * FA_BN, st ^ 1);  // lands under this tile's products
-    cp_async_commit();
-
-    // s = q . k^T: k rows are keys, so a plain ldmatrix gives the B fragments.
-    float s[2][NS][4];
-#pragma unroll
-    for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-      for (int j = 0; j < NS; ++j) s[rt][j][0] = s[rt][j][1] = s[rt][j][2] = s[rt][j][3] = 0.0f;
-    const fm_bf16* ks = stage(st, 0);
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qa[2][4];
-      ldsm_x4(qaddr[0] + kk * 32, qa[0]);
-      ldsm_x4(qaddr[1] + kk * 32, qa[1]);
-#pragma unroll
-      for (int jp = 0; jp < NS / 2; ++jp) {
-        uint32_t bk[4];
-        ldsm_x4(smem_u32(ks + (jp * 16 + lane % 8 + lane / 16 * 8) * LD + kk * 16 +
-                         (lane / 8) % 2 * 8),
-                bk);
-#pragma unroll
-        for (int rt = 0; rt < 2; ++rt) {
-          mma_bf16(s[rt][2 * jp], qa[rt], bk[0], bk[1]);
-          mma_bf16(s[rt][2 * jp + 1], qa[rt], bk[2], bk[3]);
+  if (wg == FA_CONSUMERS) {  // producer: the roles never meet at a block-wide barrier again
+    setmaxnreg_dec<40>();
+    if (threadIdx.x / 32 != FA_CONSUMERS * 4) return;
+    const int lane = threadIdx.x % 32;
+    int it = 0;  // key tiles loaded so far, over every item
+    int n = 0;   // items so far
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int rb = item % nrb, h = item / nrb % nh, b = item / nrb / nh;
+      if (lane == 0) {
+        mbar_wait(qempty, (n & 1) ^ 1);  // both consumers issued their last q.k^T
+        mbar_expect_tx(qfull, FA_CONSUMERS * L::Q_TILE);
+        for (int w = 0; w < FA_CONSUMERS; ++w)
+          for (int c = 0; c < DP / 32; ++c)
+            tma_load_4d(sm + L::Q + w * L::Q_TILE + c * FA_ROWS * 64, &tmQ, 32 * c,
+                        rb * FA_CONSUMERS * FA_ROWS + w * FA_ROWS, h, b, qfull);
+      }
+      const int* mrow = mask.row(b);
+      for (int j = 0; j < ntiles; ++j, ++it) {
+        const int s = it % ST;
+        mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);  // the first round passes at once
+        for (int i = lane; i < BN; i += 32) kbias[s * BN + i] = key_bias(mrow, j * BN + i, S);
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * L::KV_TILE);
+          unsigned char* kt = sm + L::RING + s * 2 * L::KV_TILE;
+          for (int c = 0; c < DP / 32; ++c) {
+            tma_load_4d(kt + c * BN * 64, &tmK, 32 * c, j * BN, h, b, &full[s]);
+            tma_load_4d(kt + L::KV_TILE + c * BN * 64, &tmV, 32 * c, j * BN, h, b, &full[s]);
+          }
+        } else {
+          mbar_arrive(&full[s]);
         }
       }
     }
-
-    // Scale and key bias as the TPU kernel adds them, then the online softmax:
-    // the quad of lanes sharing a row reduces its max by shuffles.  p = exp(s
-    // - m) is summed in fp32 and rounded to bf16 as the A fragments of p.v (C
-    // fragment pair 2kk, 2kk + 1 -> A fragment kk).
-    const float* kbs = kbias + st * FA_BN;
-    uint32_t pf[2][FA_BN / 16][4];
-#pragma unroll
-    for (int rt = 0; rt < 2; ++rt) {
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const float2 kbj = *reinterpret_cast<const float2*>(kbs + j * 8 + 2 * t);
-        s[rt][j][0] = s[rt][j][0] * scale + kbj.x;
-        s[rt][j][1] = s[rt][j][1] * scale + kbj.y;
-        s[rt][j][2] = s[rt][j][2] * scale + kbj.x;
-        s[rt][j][3] = s[rt][j][3] * scale + kbj.y;
-        mx[0] = fmaxf(mx[0], fmaxf(s[rt][j][0], s[rt][j][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[rt][j][2], s[rt][j][3]));
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m_r[rt][r], mx[r]);  // finite: every tile holds a key < S
-        const float alpha = exp2f((m_r[rt][r] - m_new) * LOG2E);  // 0 on the first tile
-        m_r[rt][r] = m_new;
-        l_r[rt][r] *= alpha;
-#pragma unroll
-        for (int j = 0; j < ND; ++j) {
-          o[rt][j][2 * r] *= alpha;
-          o[rt][j][2 * r + 1] *= alpha;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const float p0 = exp2f((s[rt][j][0] - m_r[rt][0]) * LOG2E);
-        const float p1 = exp2f((s[rt][j][1] - m_r[rt][0]) * LOG2E);
-        const float p2 = exp2f((s[rt][j][2] - m_r[rt][1]) * LOG2E);
-        const float p3 = exp2f((s[rt][j][3] - m_r[rt][1]) * LOG2E);
-        l_r[rt][0] += p0 + p1;
-        l_r[rt][1] += p2 + p3;
-        pf[rt][j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
-        pf[rt][j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
-      }
-    }
-
-    // o += p . v: v rows are keys, so ldmatrix.trans gives the B fragments.
-    const fm_bf16* vs = stage(st, 1);
-#pragma unroll
-    for (int kk = 0; kk < FA_BN / 16; ++kk)
-#pragma unroll
-      for (int jp = 0; jp < ND / 2; ++jp) {
-        uint32_t bv[4];
-        ldsm_x4_trans(smem_u32(vs + (kk * 16 + lane % 8 + (lane / 8) % 2 * 8) * LD + jp * 16 +
-                               lane / 16 * 8),
-                      bv);
-#pragma unroll
-        for (int rt = 0; rt < 2; ++rt) {
-          mma_bf16(o[rt][2 * jp], pf[rt][kk], bv[0], bv[1]);
-          mma_bf16(o[rt][2 * jp + 1], pf[rt][kk], bv[2], bv[3]);
-        }
-      }
-
-    cp_async_wait_all();  // the next tile has landed ...
-    __syncthreads();      // ... and every warp is done with this one
+    return;
   }
 
-  // o / l, rounded to bf16 once, staged through this warp's 32 rows of the q
-  // tile (read by this warp only) and stored 16 bytes at a time.
-  fm_bf16* so = Qs + warp * 32 * LD;
+  setmaxnreg_inc<232>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int t = lane % 4;
+  const uint32_t qtile = smem_u32(sm + L::Q + wg * L::Q_TILE);
+  unsigned char* ostage = sm + L::OST + wg * L::Q_TILE;
+  int it = 0, n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int rb = item % nrb, h = item / nrb % nh, b = item / nrb / nh;
+    const int r0 = rb * FA_CONSUMERS * FA_ROWS + wg * FA_ROWS;  // this warpgroup's first row
+    const bool active = r0 < S;
+    float o[DP / 2];
+    float m_r[2] = {-INFINITY, -INFINITY};  // running max of rows l/4, + 8 (natural-log units)
+    float l_r[2] = {0.0f, 0.0f};            // this thread's share of their running sums
 #pragma unroll
-  for (int rt = 0; rt < 2; ++rt) {
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
+    mbar_wait(qfull, n & 1);
+    for (int j = 0; j < ntiles; ++j, ++it) {
+      const int s = it % ST;
+      mbar_wait(&full[s], (it / ST) & 1);
+      if (active) {
+        const uint32_t kt = smem_u32(sm + L::RING + s * 2 * L::KV_TILE);
+        // s = q . k^T: both K-major over the head dim.
+        float sc[BN / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk)
+          wgmma_ss<BN>(sc, desc_k<FA_ROWS>(qtile, kk), desc_k<BN>(kt, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+        if (j == ntiles - 1 && tid == 0) mbar_arrive(qempty);
+
+        // Scale and key bias as the TPU kernel adds them, then the online
+        // softmax: the quad of lanes sharing a row reduces its max by
+        // shuffles.  p = exp(s - m) is summed in fp32 and rounded to bf16 as
+        // the A operand of p.v (accumulator columns 16kk .. 16kk + 15 -> slice kk).
+        const float* kbs = kbias + s * BN;
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+          const float2 kb = *reinterpret_cast<const float2*>(kbs + 8 * i + 2 * t);
+          sc[4 * i] = sc[4 * i] * scale + kb.x;
+          sc[4 * i + 1] = sc[4 * i + 1] * scale + kb.y;
+          sc[4 * i + 2] = sc[4 * i + 2] * scale + kb.x;
+          sc[4 * i + 3] = sc[4 * i + 3] * scale + kb.y;
+          mx[0] = fmaxf(mx[0], fmaxf(sc[4 * i], sc[4 * i + 1]));
+          mx[1] = fmaxf(mx[1], fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+        }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m_r[r], mx[r]);  // finite: every tile holds a key < S
+          alpha[r] = exp2f((m_r[r] - m_new) * LOG2E);  // 0 on the first tile
+          m_r[r] = m_new;
+          l_r[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int i = 0; i < DP / 8; ++i) {
+          o[4 * i] *= alpha[0];
+          o[4 * i + 1] *= alpha[0];
+          o[4 * i + 2] *= alpha[1];
+          o[4 * i + 3] *= alpha[1];
+        }
+        uint32_t pf[BN / 16][4];
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+          const float p0 = exp2f((sc[4 * i] - m_r[0]) * LOG2E);
+          const float p1 = exp2f((sc[4 * i + 1] - m_r[0]) * LOG2E);
+          const float p2 = exp2f((sc[4 * i + 2] - m_r[1]) * LOG2E);
+          const float p3 = exp2f((sc[4 * i + 3] - m_r[1]) * LOG2E);
+          l_r[0] += p0 + p1;
+          l_r[1] += p2 + p3;
+          pf[i / 2][(i % 2) * 2] = pack_bf16(p0, p1);
+          pf[i / 2][(i % 2) * 2 + 1] = pack_bf16(p2, p3);
+        }
+
+        // o += p . v: v rows are keys (the depth), the head dim is N (MN-major).
+        const uint32_t vt = kt + L::KV_TILE;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs<DP>(o, pf[kk], desc_mn<BN>(vt, kk));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(o);
+      } else if (j == ntiles - 1 && tid == 0) {
+        mbar_arrive(qempty);
+      }
+      if (tid == 0) mbar_arrive(&empty[s]);
+    }
+    if (!active) continue;
+
+    // o / l, rounded to bf16 once; each row's m and l to stats.
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      l_r[rt][r] += __shfl_xor_sync(0xffffffffu, l_r[rt][r], 1);
-      l_r[rt][r] += __shfl_xor_sync(0xffffffffu, l_r[rt][r], 2);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     }
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const int col = j * 8 + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(so + (rt * 16 + g) * LD + col) =
-          __floats2bfloat162_rn(o[rt][j][0] / l_r[rt][0], o[rt][j][1] / l_r[rt][0]);
-      *reinterpret_cast<__nv_bfloat162*>(so + (rt * 16 + g + 8) * LD + col) =
-          __floats2bfloat162_rn(o[rt][j][2] / l_r[rt][1], o[rt][j][3] / l_r[rt][1]);
-    }
-  }
-  __syncwarp();
-  fm_bf16* ob = O.head(b, h);
-  const int r0 = q0 + warp * 32;
-  if (vec16(ob, O.sr, d)) {
-    constexpr int CPR = DP / 8;
-    for (int c = lane; c < 32 * CPR; c += 32) {
-      const int row = c / CPR, col = (c % CPR) * 8;
-      if (r0 + row < S && col < d)
-        *reinterpret_cast<uint4*>(ob + (r0 + row) * O.sr + col) =
-            *reinterpret_cast<const uint4*>(so + row * LD + col);
-    }
-  } else {
-    for (int i = lane; i < 32 * DP; i += 32) {
-      const int row = i / DP, col = i % DP;
-      if (r0 + row < S && col < d) ob[(r0 + row) * O.sr + col] = so[row * LD + col];
-    }
-  }
-  if (stats && t == 0) {
-#pragma unroll
-    for (int rt = 0; rt < 2; ++rt)
+    store_rows<DP>(o, l_r[0], l_r[1], ostage, O.head(b, h), O.sr, r0, S, d, wg);
+    if (stats && t == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int row = r0 + rt * 16 + g + 8 * r;
+        const int row = r0 + warp * 16 + lane / 4 + 8 * r;
         if (row < S) {
           float* sp = stats + (((size_t)b * nh + h) * S + row) * 2;
-          sp[0] = m_r[rt][r];
-          sp[1] = l_r[rt][r];
+          sp[0] = m_r[r];
+          sp[1] = l_r[r];
         }
       }
+    }
   }
-}
-
-// ---- host-side operands and the forward dispatch ----------------------------------
-
-struct Op {  // a strided operand as the C entries take it
-  const void* p;
-  long long sb, sh, sr;
-};
-
-template <typename T>
-Mat<T> as_mat(const Op& o) {
-  return Mat<T>{(T*)o.p, o.sb, o.sh, o.sr};
-}
-
-struct FwdArgs {
-  Op q, k, v, o;
-  Mask mask;
-  float* stats;
-  int B, S, nh, d;
-  float scale;
-};
-
-// The padded head dim of d (0 when d is outside 1..128).
-int head_pad(int d) {
-  if (d < 1 || d > 128) return 0;
-  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 96 ? 96 : 128;
-}
-
-template <int DP>
-cudaError_t launch_mma_dp(const FwdArgs& a, cudaStream_t stream) {
-  constexpr int bytes = FwdSmem<DP>::BYTES;
-  // Set on every launch: the attribute belongs to the current device, and
-  // the call costs about a microsecond.
-  cudaError_t e = cudaFuncSetAttribute(flash_attn_fwd_mma_kernel<DP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.S + FWD_BM - 1) / FWD_BM, a.nh, a.B);
-  flash_attn_fwd_mma_kernel<DP><<<grid, FWD_THREADS, bytes, stream>>>(
-      as_mat<const fm_bf16>(a.q), as_mat<const fm_bf16>(a.k), as_mat<const fm_bf16>(a.v),
-      a.mask, as_mat<fm_bf16>(a.o), a.stats, a.S, a.nh, a.d, a.scale);
-  return cudaGetLastError();
 }
 
 // ---- backward -------------------------------------------------------------------
@@ -457,11 +599,11 @@ cudaError_t launch_mma_dp(const FwdArgs& a, cudaStream_t stream) {
 // [S, S] tile of one (batch, head) in VMEM and recompute P from the stored
 // q and k.  Here two kernels tile it, each recomputing p from the row max m
 // and sum l the forward stored, and neither uses atomics:
-//   - flash_bwd_dq: one block per query tile; it first writes D_i =
+//   - flash_bwd_dq: one block per 128 query rows; it first writes D_i =
 //     rowsum(dO * O) for its rows, then walks the key tiles:
 //     dS = P * (dO.V^T - D), dQ += round(dS * scale) . K;
-//   - flash_bwd_dkdv: one block per key tile, after flash_bwd_dq (it reads
-//     D); it walks the query tiles: dV += round(P)^T . dO and
+//   - flash_bwd_dkdv: one block per 128 key rows, after flash_bwd_dq (it
+//     reads D); it walks the query tiles: dV += round(P)^T . dO and
 //     dK += round(dS * scale)^T . Q.
 // The TPU kernels take the softmax-VJP row term as rowsum(dP * P)
 // (flash_attention.py:93); with P normalised that equals dO . O, which is
@@ -471,8 +613,8 @@ cudaError_t launch_mma_dp(const FwdArgs& a, cudaStream_t stream) {
 // are the TPU kernels': dO arrives in the io dtype, p and dS * scale are
 // rounded before their products (:87, :94), dq/dk/dv are rounded when
 // written.  With ``colpart`` (the dbqkv sums #3 / #6 need) the column sums
-// of the fp32 dq | dk | dv over each tile's rows are written as partials
-// [B * ceil(S / tile), 3 * heads * d] for fm_colsum; #10 passes null.  dQ
+// of the fp32 dq | dk | dv over each 64-row tile are written as partials
+// [B * ceil(S / 64), 3 * heads * d] for fm_colsum; #10 passes null.  dQ
 // keeps its own pass: per-key-tile partials of dQ would move 2-4 GB at the
 // lab shape, and float atomics would make the sums differ run to run.
 //
@@ -480,488 +622,412 @@ cudaError_t launch_mma_dp(const FwdArgs& a, cudaStream_t stream) {
 // products (0.62 ms at the bf16 peak); this design executes 1.4x them (the
 // dQ kernel recomputes S and dP: seven [S, S, d] products, 8.6e11 FLOP).
 //
-// bf16 design (FlashAttention-2 on mma.sync m16n8k16; what bounds it is the
-// tensor cores' issue rate, so everything between the products stays in
-// registers).  A block owns BWD_TILE = 64 rows (4 warps x 16) and walks
-// the other operand in 64-row tiles.  Why 64 at S 560 (= 7 x 80 = 8 x 64 +
-// 48): 80-row blocks of 5 warps would leave no owned row as padding, but five
-// warps cannot be spread evenly over the SM's four schedulers, so two blocks
-// per SM cap a thread at 168 registers, and the dK / dV kernel, whose warp
-// holds dK and dV (2 x 16 x d fp32, 96 registers at d 96) beside its S and
-// dP tiles (64 registers), spilled 360 bytes at d 96.  With 4 warps two blocks
-// per SM leave 255 registers and nothing spills; in one compare_kernels.py
-// call on the H100, 64-row tiles took 5.01 ms at the lab shape against 5.22
-// and 5.33 for 80-row ones (3% padding rows included), and 0.73 against 0.78
-// and 0.76 at the text shape (S 512 = 8 x 64).  A warp owning 32 rows (two
-// m16 row tiles sharing each B fragment, as the forward does) would need
-// twice the accumulators, more than 255 registers.  The walked tiles and
-// their per-row vectors come by 16-byte cp.async into a two-stage ring
-// (pitch d + 8, so ldmatrix's 8 rows fall on 8 bank groups), the next
-// tile's copy running under this tile's products; the owned tiles stay in
-// shared memory and are read by ldmatrix.  The C layout
-// of an m16n8 product is the A layout of the next one, so S -> P and dP ->
-// dS never leave registers (no fp32 score or dP tile in shared memory); the
-// walked rows are the depth of dQ += dS . K, dV += P^T . dO and
-// dK += dS^T . Q, so their B fragments come by ldmatrix.trans.  p is the
-// forward's expression, exp2((s * scale + bias - m) * log2 e), times 1 / l:
-// the forward's unnormalised p of each element divided by its row sum.
-// The column partials are added over the 16 rows of a warp by shuffles and
-// over the 4 warps in warp order through shared memory: fixed order, the
-// same bits every run.
+// bf16 design (flash_bwd_dq_wgmma_kernel, flash_bwd_dkdv_wgmma_kernel; what
+// bounds them is the tensor cores' rate, and only wgmma reaches it): the
+// forward's block shape, not persistent.  Two consumer warpgroups own 64
+// rows each (BWD_TILE: one wgmma M, one column-partial row) of a 128-row
+// block; the producer warp loads the owned tiles once (q, dO and o for dQ;
+// k and v for dK / dV) and walks the other operand in 64-row tiles through a
+// ring of 2-3 stages, all by TMA over the forward's rank-4 maps, with the
+// walked rows' vectors (the key bias for dQ; m, 1 / l and D for dK / dV)
+// written beside each stage by its lanes; the dQ kernel issues the next
+// tile's S and dP under this tile's dQ product, one wait for the three.  S =
+// Q.K^T and dP = dO.V^T (or
+// S^T = K.Q^T and dP^T = V.dO^T) are SS wgmmas over d; p and round(dS *
+// scale) (and round(p)) become the register A operands of dQ += dS . K (dV
+// += P^T . dO, dK += dS^T . Q), whose B (the walked tile: rows are the
+// depth) is MN-major over d.  Nothing between the products leaves
+// registers.  p is the forward's expression, exp2((s * scale + bias - m) *
+// log2 e), times 1 / l: the forward's unnormalised p of each element
+// divided by its row sum.  The column partials are added over the 16 rows of
+// a warp by shuffles and over the 4 warps in order through shared memory:
+// a fixed order, the same bits every run.
 //
 // fp32 runs the same two-kernel structure on the CUDA cores with register
 // micro-tiles (its own note, below): it is the main path of every fp32 run,
 // which `fame` and every baseline make unless --bf16 is given.
 
-// ---- bf16 backward kernels (mma.sync m16n8k16) ---------------------------------------
-
-// _build.FLASH_BWD_TILE repeats BWD_TILE and F32_TL (the column partials' rows).
-constexpr int BWD_TILE = 64;                 // rows a block owns (4 warps x 16)
-constexpr int BWD_WARPS = BWD_TILE / 16;
-constexpr int BWD_THREADS = 32 * BWD_WARPS;
-constexpr int BWD_WALK = 64;                 // rows of each walked tile
-
-template <int DP>
-struct BwdSmem {  // byte offsets of the shared-memory regions
-  static constexpr int LD = DP + 8;                               // bf16 tile pitch
-  static constexpr int OWN = 0;                                   // two owned [64][LD] tiles
-  static constexpr int RING = OWN + 2 * BWD_TILE * LD * 2;        // 2 stages x 2 walked [64][LD]
-  static constexpr int VEC = RING + 4 * BWD_WALK * LD * 2;        // 2 stages x [3][64] fp32
-  static constexpr int CSUM = VEC + 2 * 3 * BWD_WALK * 4;         // [4][DP] fp32 column sums
-  static constexpr int BYTES = CSUM + BWD_WARPS * DP * 4;
+// Shared memory of a backward kernel with NOWN owned tiles per consumer.
+template <int DP, int NOWN>
+struct BwdLayout {
+  static constexpr int TILE = BWD_TILE * DP * 2;  // one [64][DP] bf16 tile
+  static constexpr int VEC_STAGE = 3 * BWD_WALK * 4;  // a stage's [3][64] fp32 row vectors
+  static constexpr int OWN = 0;                                  // the consumers' owned tiles
+  static constexpr int RING = OWN + FA_CONSUMERS * NOWN * TILE;  // stages of two walked tiles
+  static constexpr int CSUM_BYTES = FA_CONSUMERS * 4 * DP * 4;   // [consumer][warp][DP] fp32
+  static constexpr int STAGES =
+      RING + 3 * (2 * TILE + VEC_STAGE) + CSUM_BYTES + 1024 + 128 <= FA_SMEM_MAX ? 3 : 2;
+  static constexpr int VEC = RING + STAGES * 2 * TILE;
+  static constexpr int CSUM = VEC + STAGES * VEC_STAGE;
+  static constexpr int BAR = CSUM + CSUM_BYTES;  // full, empty, owned
+  static constexpr int BYTES = BAR + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
+  static_assert(BYTES <= FA_SMEM_MAX, "the backward's shared memory fits an SM");
+  static_assert(TILE % 1024 == 0, "boxes stay 1024-byte aligned");
 };
 
-// Launch bounds: two blocks per SM where the shared memory allows it (d <= 96).
-template <int DP>
-constexpr int bwd_min_blocks() { return DP <= 96 ? 2 : 1; }
+// The barriers of a backward kernel: a full and an empty one per stage, one
+// for the owned tiles.
+struct BwdSync {
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* owned;
+};
 
-// The four A-fragment registers of rows row0 .. row0 + 15 of a [rows][LD]
-// bf16 tile at depth 16 kk are ldmatrix'd from this lane's address + 32 kk.
-template <int LD>
-__device__ __forceinline__ uint32_t a_frag_addr(const fm_bf16* tile, int row0, int lane) {
-  return smem_u32(tile + (row0 + lane % 8 + (lane / 8) % 2 * 8) * LD + lane / 16 * 8);
-}
-// B fragments of n8 tiles 2 jp, 2 jp + 1 at depth 16 kk from a tile whose
-// rows are the n dim (plain ldmatrix) ...
-template <int LD>
-__device__ __forceinline__ void b_frag_rows(const fm_bf16* tile, int jp, int kk, int lane,
-                                            uint32_t (&r)[4]) {
-  ldsm_x4(smem_u32(tile + (jp * 16 + lane % 8 + lane / 16 * 8) * LD + kk * 16 + (lane / 8) % 2 * 8),
-          r);
-}
-// ... and from a tile whose rows are the depth (ldmatrix.trans).
-template <int LD>
-__device__ __forceinline__ void b_frag_trans(const fm_bf16* tile, int jp, int kk, int lane,
-                                             uint32_t (&r)[4]) {
-  ldsm_x4_trans(
-      smem_u32(tile + (kk * 16 + lane % 8 + (lane / 8) % 2 * 8) * LD + jp * 16 + lane / 16 * 8), r);
-}
-
-// Column sums of one warp's fp32 [16 x DP] accumulator over its 16 rows
-// (shuffles over the 8 row groups, a fixed order) into csum[warp][DP].
-template <int ND>
-__device__ __forceinline__ void warp_col_sums(const float (&acc)[ND][4], int warp, int lane,
-                                              float* csum) {
-  constexpr int DP = ND * 8;
-#pragma unroll
-  for (int j = 0; j < ND; ++j) {
-    float c0 = acc[j][0] + acc[j][2], c1 = acc[j][1] + acc[j][3];
-#pragma unroll
-    for (int o = 4; o < 32; o <<= 1) {
-      c0 += __shfl_xor_sync(0xffffffffu, c0, o);
-      c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+template <int ST>
+__device__ __forceinline__ BwdSync bwd_init(unsigned char* bar) {
+  BwdSync b{reinterpret_cast<uint64_t*>(bar), reinterpret_cast<uint64_t*>(bar) + ST,
+            reinterpret_cast<uint64_t*>(bar) + 2 * ST};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&b.full[s], 32);            // the producer warp's lanes, plus the copies
+      mbar_init(&b.empty[s], FA_CONSUMERS);  // one arrive per consumer warpgroup
     }
-    if (lane < 4) {
-      csum[warp * DP + j * 8 + 2 * lane] = c0;
-      csum[warp * DP + j * 8 + 2 * lane + 1] = c1;
-    }
+    mbar_init(b.owned, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+  return b;
 }
 
-// After a barrier: dst[c] = the warps' column sums added in warp order.
+// s = a0 . w0^T and dp = a1 . w1^T over the head dim into sc and dp (all
+// K-major: owned tiles a0, a1 of BWD_TILE rows, walked tiles w0, w1 of
+// BWD_WALK rows), issued and not waited for.
 template <int DP>
-__device__ __forceinline__ void block_col_sums(const float* csum, int d, float* dst) {
-  for (int c = threadIdx.x; c < d; c += BWD_THREADS) {
-    float s = 0.0f;
+__device__ __forceinline__ void issue_pair(float (&sc)[BWD_WALK / 2], float (&dp)[BWD_WALK / 2],
+                                           uint32_t a0, uint32_t a1, uint32_t w0, uint32_t w1) {
 #pragma unroll
-    for (int w = 0; w < BWD_WARPS; ++w) s += csum[w * DP + c];
-    dst[c] = s;
-  }
-}
-
-// A warp's fp32 [16 x DP] accumulator rounded to bf16 into rows row0 .. +15
-// of the [rows][LD] tile ``stage`` (rows this warp alone reads), then stored
-// to rows r0 .. r0 + 15 of the head (row stride rs), 16 bytes at a time when
-// the layout allows it.
-template <int DP>
-__device__ __forceinline__ void store_warp_rows(const float (&acc)[DP / 8][4], fm_bf16* stage,
-                                                fm_bf16* dst, long long rs, int r0, int S, int d,
-                                                int lane) {
-  constexpr int LD = DP + 8;
-  const int g = lane / 4, t = lane % 4;
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss<BWD_WALK>(sc, desc_k<BWD_TILE>(a0, kk), desc_k<BWD_WALK>(w0, kk), kk > 0);
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-    *reinterpret_cast<__nv_bfloat162*>(stage + g * LD + j * 8 + 2 * t) =
-        __floats2bfloat162_rn(acc[j][0], acc[j][1]);
-    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * LD + j * 8 + 2 * t) =
-        __floats2bfloat162_rn(acc[j][2], acc[j][3]);
-  }
-  __syncwarp();
-  if (vec16(dst, rs, d)) {
-    constexpr int CPR = DP / 8;
-    for (int c = lane; c < 16 * CPR; c += 32) {
-      const int row = c / CPR, col = (c % CPR) * 8;
-      if (r0 + row < S && col < d)
-        *reinterpret_cast<uint4*>(dst + (r0 + row) * rs + col) =
-            *reinterpret_cast<const uint4*>(stage + row * LD + col);
-    }
-  } else {
-    for (int i = lane; i < 16 * DP; i += 32) {
-      const int row = i / DP, col = i % DP;
-      if (r0 + row < S && col < d) dst[(r0 + row) * rs + col] = stage[row * LD + col];
-    }
-  }
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss<BWD_WALK>(dp, desc_k<BWD_TILE>(a1, kk), desc_k<BWD_WALK>(w1, kk), kk > 0);
 }
 
-// dQ of 64 query rows of one (batch, head), and D of those rows.
+// dQ of 128 query rows of one (batch, head), and D of those rows.
 template <int DP>
-__global__ void __launch_bounds__(BWD_THREADS, bwd_min_blocks<DP>())
-flash_bwd_dq_mma_kernel(Mat<const fm_bf16> Q, Mat<const fm_bf16> K, Mat<const fm_bf16> V,
-                        Mat<const fm_bf16> O, Mat<const fm_bf16> dO, Mask mask,
-                        const float* __restrict__ stats, float* __restrict__ Dg,
-                        Mat<fm_bf16> dQg, float* __restrict__ colpart, int S, int nh, int d,
-                        float scale) {
-  using L = BwdSmem<DP>;
-  constexpr int LD = L::LD;
-  constexpr int KD = DP / 16;       // k16 steps of the S and dP products
-  constexpr int ND = DP / 8;        // n8 tiles of dQ
-  constexpr int NS = BWD_WALK / 8;  // n8 tiles of S and dP
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  fm_bf16* Qs = reinterpret_cast<fm_bf16*>(smem_raw + L::OWN);
-  fm_bf16* dOs = Qs + BWD_TILE * LD;
-  fm_bf16* ring = reinterpret_cast<fm_bf16*>(smem_raw + L::RING);  // stage st: k, v at 2st, 2st+1
-  float* kbias = reinterpret_cast<float*>(smem_raw + L::VEC);      // stage st at st * 3 * 64
-  float* csum = reinterpret_cast<float*>(smem_raw + L::CSUM);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // fragment rows g, g + 8; columns 2t, 2t + 1
-  const int q0 = blockIdx.x * BWD_TILE;
-  const int r0 = q0 + warp * 16;         // this warp's first row
+__global__ void __launch_bounds__(FA_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
+                          const __grid_constant__ CUtensorMap tmK,
+                          const __grid_constant__ CUtensorMap tmV,
+                          const __grid_constant__ CUtensorMap tmO,
+                          const __grid_constant__ CUtensorMap tmG, Mask mask,
+                          const float* __restrict__ stats, float* __restrict__ Dg,
+                          Mat<fm_bf16> dQg, float* __restrict__ colpart, int S, int nh, int d,
+                          float scale) {
+  using L = BwdLayout<DP, 3>;
+  constexpr int ST = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* vecs = reinterpret_cast<float*>(sm + L::VEC);  // stage s: [64] key bias at s * 3 * 64
+  const int wg = threadIdx.x / 128;
+  const int q0 = blockIdx.x * FA_CONSUMERS * BWD_TILE;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const fm_bf16* qb = Q.head(b, h);
-  const fm_bf16* kb = K.head(b, h);
-  const fm_bf16* vb = V.head(b, h);
-  const fm_bf16* ob = O.head(b, h);
-  const fm_bf16* gb = dO.head(b, h);
-  const int* mrow = mask.row(b);
-  const size_t srow = ((size_t)b * nh + h) * S;  // row offset into stats / D
-  const bool kv_vec = vec16(kb, K.sr, d) && vec16(vb, V.sr, d);
-  auto stage = [&](int st, int which) { return ring + (2 * st + which) * BWD_WALK * LD; };
-  auto load_kv = [&](int k0, int st) {
-    load_tile<DP, BWD_WALK, BWD_THREADS>(kb, K.sr, k0, S, d, kv_vec, stage(st, 0));
-    load_tile<DP, BWD_WALK, BWD_THREADS>(vb, V.sr, k0, S, d, kv_vec, stage(st, 1));
-  };
+  const int nwalk = (S + BWD_WALK - 1) / BWD_WALK;
+  const BwdSync sy = bwd_init<ST>(sm + L::BAR);
+  // Owned tiles of consumer w: q, dO, o at (3w + 0, 1, 2) * TILE.
+  auto own_tile = [&](int w, int which) { return sm + L::OWN + (3 * w + which) * L::TILE; };
 
-  load_tile<DP, BWD_TILE, BWD_THREADS>(qb, Q.sr, q0, S, d, vec16(qb, Q.sr, d), Qs);
-  load_tile<DP, BWD_TILE, BWD_THREADS>(gb, dO.sr, q0, S, d, vec16(gb, dO.sr, d), dOs);
-  load_kv(0, 0);
-  cp_async_commit();
-  if (threadIdx.x < BWD_WALK) kbias[threadIdx.x] = key_bias(mrow, threadIdx.x, S);
+  if (wg == FA_CONSUMERS) {  // producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x / 32 != FA_CONSUMERS * 4) return;
+    const int* mrow = mask.row(b);
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_expect_tx(sy.owned, FA_CONSUMERS * 3 * L::TILE);
+      for (int w = 0; w < FA_CONSUMERS; ++w)
+        for (int c = 0; c < DP / 32; ++c) {
+          const int r = q0 + w * BWD_TILE;
+          tma_load_4d(own_tile(w, 0) + c * BWD_TILE * 64, &tmQ, 32 * c, r, h, b, sy.owned);
+          tma_load_4d(own_tile(w, 1) + c * BWD_TILE * 64, &tmG, 32 * c, r, h, b, sy.owned);
+          tma_load_4d(own_tile(w, 2) + c * BWD_TILE * 64, &tmO, 32 * c, r, h, b, sy.owned);
+        }
+    }
+    for (int j = 0; j < nwalk; ++j) {
+      const int s = j % ST;
+      mbar_wait(&sy.empty[s], ((j / ST) & 1) ^ 1);  // the first round passes at once
+      for (int i = lane; i < BWD_WALK; i += 32)
+        vecs[s * 3 * BWD_WALK + i] = key_bias(mrow, j * BWD_WALK + i, S);
+      if (lane == 0) {
+        mbar_expect_tx(&sy.full[s], 2 * L::TILE);
+        unsigned char* kt = sm + L::RING + s * 2 * L::TILE;
+        for (int c = 0; c < DP / 32; ++c) {
+          tma_load_4d(kt + c * BWD_WALK * 64, &tmK, 32 * c, j * BWD_WALK, h, b, &sy.full[s]);
+          tma_load_4d(kt + L::TILE + c * BWD_WALK * 64, &tmV, 32 * c, j * BWD_WALK, h, b,
+                      &sy.full[s]);
+        }
+      } else {
+        mbar_arrive(&sy.full[s]);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator rows g, g + 8; columns 8i + 2t, + 1
+  const int r0 = q0 + wg * BWD_TILE;     // this warpgroup's first row
+  const bool active = r0 < S;
+  const size_t srow = ((size_t)b * nh + h) * S;  // row offset into stats / D
   // m and 1 / l of rows g, g + 8 (0 past S: then p = 0).
   float m_r[2], il_r[2], D_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = r0 + g + 8 * r;
+    const int row = r0 + warp * 16 + g + 8 * r;
     m_r[r] = row < S ? stats[(srow + row) * 2] : 0.0f;
     il_r[r] = row < S ? 1.0f / stats[(srow + row) * 2 + 1] : 0.0f;
   }
-  cp_async_wait_all();
-  __syncthreads();
+  const uint32_t qs = smem_u32(own_tile(wg, 0));
+  const uint32_t gs = smem_u32(own_tile(wg, 1));
+  mbar_wait(sy.owned, 0);
 
-  // D = rowsum(dO * O): lane l sums row l / 2 of the warp's 16 over every
-  // other 8 (or 1) columns; the pair is added, then each lane takes the D of
-  // its fragment rows.
-  {
-    const int lr = lane / 2, row = r0 + lr;
-    float s = 0.0f;
-    if (row < S) {
-      const fm_bf16* orow = ob + row * O.sr;
-      const fm_bf16* grow = dOs + (warp * 16 + lr) * LD;
-      if (vec16(ob, O.sr, d)) {
-        for (int c = (lane % 2) * 8; c < d; c += 16) {
-          const uint4 ou = *reinterpret_cast<const uint4*>(orow + c);
-          const uint4 gu = *reinterpret_cast<const uint4*>(grow + c);
-          const fm_bf16* o8 = reinterpret_cast<const fm_bf16*>(&ou);
-          const fm_bf16* g8 = reinterpret_cast<const fm_bf16*>(&gu);
+  // D = rowsum(dO * O): the quad sharing a row takes every 4th 8-column
+  // chunk of it, then adds its 4 sums by shuffles.
+  if (active) {
+    const unsigned char* go = own_tile(wg, 1);
+    const unsigned char* oo = own_tile(wg, 2);
 #pragma unroll
-          for (int k = 0; k < 8; ++k) s += __bfloat162float(g8[k]) * __bfloat162float(o8[k]);
-        }
-      } else {
-        for (int c = lane % 2; c < d; c += 2)
-          s += __bfloat162float(grow[c]) * __bfloat162float(orow[c]);
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + g + 8 * r;
+      float s = 0.0f;
+      for (int ch = t; ch < DP / 8; ch += 4) {
+        const uint4 gu = *reinterpret_cast<const uint4*>(go + sw64<BWD_TILE>(row, 8 * ch));
+        const uint4 ou = *reinterpret_cast<const uint4*>(oo + sw64<BWD_TILE>(row, 8 * ch));
+        const fm_bf16* g8 = reinterpret_cast<const fm_bf16*>(&gu);
+        const fm_bf16* o8 = reinterpret_cast<const fm_bf16*>(&ou);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) s += __bfloat162float(g8[k]) * __bfloat162float(o8[k]);
       }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      D_r[r] = s;
+      if (t == 0 && r0 + row < S) Dg[srow + r0 + row] = s;
     }
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    if (lane % 2 == 0 && row < S) Dg[srow + row] = s;
-    D_r[0] = __shfl_sync(0xffffffffu, s, 2 * g);
-    D_r[1] = __shfl_sync(0xffffffffu, s, 2 * (g + 8));
   }
 
-  const uint32_t qaddr = a_frag_addr<LD>(Qs, warp * 16, lane);
-  const uint32_t gaddr = a_frag_addr<LD>(dOs, warp * 16, lane);
-  float dq[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.0f;
-
-  const int ntiles = (S + BWD_WALK - 1) / BWD_WALK;
-  for (int it = 0; it < ntiles; ++it) {
-    const int st = it & 1;
-    const bool next = it + 1 < ntiles;
-    float nbias = 0.0f;  // the next tile's key bias, stored after this tile's products
-    if (next) {
-      load_kv((it + 1) * BWD_WALK, st ^ 1);
-      if (threadIdx.x < BWD_WALK) nbias = key_bias(mrow, (it + 1) * BWD_WALK + threadIdx.x, S);
+  if (!active) {  // every row past S: release each stage without a product
+    for (int j = 0; j < nwalk; ++j) {
+      mbar_wait(&sy.full[j % ST], (j / ST) & 1);
+      if (tid == 0) mbar_arrive(&sy.empty[j % ST]);
     }
-    cp_async_commit();
-
-    // s = q . k^T and dp = dO . v^T: k and v rows are keys (the n dim).
-    const fm_bf16* ks = stage(st, 0);
-    const fm_bf16* vs = stage(st, 1);
-    float s[NS][4], dp[NS][4];
+    return;
+  }
+  float dq[DP / 2];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qa[4], ga[4];
-      ldsm_x4(qaddr + kk * 32, qa);
-      ldsm_x4(gaddr + kk * 32, ga);
-#pragma unroll
-      for (int jp = 0; jp < NS / 2; ++jp) {
-        uint32_t bk[4], bv[4];
-        b_frag_rows<LD>(ks, jp, kk, lane, bk);
-        b_frag_rows<LD>(vs, jp, kk, lane, bv);
-        mma_bf16(s[2 * jp], qa, bk[0], bk[1]);
-        mma_bf16(s[2 * jp + 1], qa, bk[2], bk[3]);
-        mma_bf16(dp[2 * jp], ga, bv[0], bv[1]);
-        mma_bf16(dp[2 * jp + 1], ga, bv[2], bv[3]);
-      }
-    }
-
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.0f;
+  // s = q . k^T and dp = dO . v^T: k and v rows are keys (N), K-major over d.
+  float sc[BWD_WALK / 2], dp[BWD_WALK / 2];
+  const uint32_t ring = smem_u32(sm + L::RING);  // stage s: k at 2s, v at 2s + 1 tiles
+  mbar_wait(&sy.full[0], 0);
+  wgmma_fence();
+  issue_pair<DP>(sc, dp, qs, gs, ring, ring + L::TILE);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(sc);
+  fence_regs(dp);
+  for (int j = 0; j < nwalk; ++j) {
+    const int s = j % ST;
+    const uint32_t kt = ring + s * 2 * L::TILE;
     // p = exp2((s * scale + bias - m) * log2 e) / l, ds = p * (dp - D);
-    // round(ds * scale) as the A fragments of ds . k.
-    const float* kbs = kbias + st * 3 * BWD_WALK;
+    // round(ds * scale) as the A operand of ds . k.
+    const float* kbs = vecs + s * 3 * BWD_WALK;
     uint32_t dsf[BWD_WALK / 16][4];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const float2 kbj = *reinterpret_cast<const float2*>(kbs + j * 8 + 2 * t);
-      const float p0 = exp2f((s[j][0] * scale + kbj.x - m_r[0]) * LOG2E) * il_r[0];
-      const float p1 = exp2f((s[j][1] * scale + kbj.y - m_r[0]) * LOG2E) * il_r[0];
-      const float p2 = exp2f((s[j][2] * scale + kbj.x - m_r[1]) * LOG2E) * il_r[1];
-      const float p3 = exp2f((s[j][3] * scale + kbj.y - m_r[1]) * LOG2E) * il_r[1];
-      dsf[j / 2][(j % 2) * 2] =
-          pack_bf16(p0 * (dp[j][0] - D_r[0]) * scale, p1 * (dp[j][1] - D_r[0]) * scale);
-      dsf[j / 2][(j % 2) * 2 + 1] =
-          pack_bf16(p2 * (dp[j][2] - D_r[1]) * scale, p3 * (dp[j][3] - D_r[1]) * scale);
+    for (int i = 0; i < BWD_WALK / 8; ++i) {
+      const float2 kb = *reinterpret_cast<const float2*>(kbs + 8 * i + 2 * t);
+      const float p0 = exp2f((sc[4 * i] * scale + kb.x - m_r[0]) * LOG2E) * il_r[0];
+      const float p1 = exp2f((sc[4 * i + 1] * scale + kb.y - m_r[0]) * LOG2E) * il_r[0];
+      const float p2 = exp2f((sc[4 * i + 2] * scale + kb.x - m_r[1]) * LOG2E) * il_r[1];
+      const float p3 = exp2f((sc[4 * i + 3] * scale + kb.y - m_r[1]) * LOG2E) * il_r[1];
+      dsf[i / 2][(i % 2) * 2] = pack_bf16(p0 * (dp[4 * i] - D_r[0]) * scale,
+                                          p1 * (dp[4 * i + 1] - D_r[0]) * scale);
+      dsf[i / 2][(i % 2) * 2 + 1] = pack_bf16(p2 * (dp[4 * i + 2] - D_r[1]) * scale,
+                                              p3 * (dp[4 * i + 3] - D_r[1]) * scale);
     }
 
-    // dq += ds . k: k rows are the depth, so ldmatrix.trans.
+    // dq += ds . k (k rows are the depth, the head dim is N: MN-major), then
+    // the next tile's s and dp into sc and dp (free once ds is packed): one
+    // wait for the three.
+    const uint32_t nt = ring + (j + 1) % ST * 2 * L::TILE;
+    if (j + 1 < nwalk) mbar_wait(&sy.full[(j + 1) % ST], ((j + 1) / ST) & 1);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BWD_WALK / 16; ++kk)
-#pragma unroll
-      for (int jp = 0; jp < ND / 2; ++jp) {
-        uint32_t bk[4];
-        b_frag_trans<LD>(ks, jp, kk, lane, bk);
-        mma_bf16(dq[2 * jp], dsf[kk], bk[0], bk[1]);
-        mma_bf16(dq[2 * jp + 1], dsf[kk], bk[2], bk[3]);
-      }
-
-    if (next && threadIdx.x < BWD_WALK) kbias[(st ^ 1) * 3 * BWD_WALK + threadIdx.x] = nbias;
-    cp_async_wait_all();  // the next tile has landed ...
-    __syncthreads();      // ... and every warp is done with this one
+    for (int kk = 0; kk < BWD_WALK / 16; ++kk) wgmma_rs<DP>(dq, dsf[kk], desc_mn<BWD_WALK>(kt, kk));
+    if (j + 1 < nwalk) issue_pair<DP>(sc, dp, qs, gs, nt, nt + L::TILE);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dq);
+    fence_regs(sc);
+    fence_regs(dp);
+    if (tid == 0) mbar_arrive(&sy.empty[s]);
   }
 
+  // Column partials of the fp32 dq, then dq rounded to bf16 through the o
+  // tile (read only by this warpgroup, for D, above).
   const long long cps = 3LL * nh * d;  // colpart row: dq | dk | dv, head h at h*d
-  if (colpart) warp_col_sums<ND>(dq, warp, lane, csum);
-  store_warp_rows<DP>(dq, Qs + warp * 16 * LD, dQg.head(b, h), dQg.sr, r0, S, d, lane);
+  float* csum = reinterpret_cast<float*>(sm + L::CSUM) + wg * 4 * DP;
   if (colpart) {
-    __syncthreads();
-    block_col_sums<DP>(csum, d,
-                       colpart + ((size_t)b * gridDim.x + blockIdx.x) * cps + (size_t)h * d);
+    const int tile = r0 / BWD_TILE, ntile = (S + BWD_TILE - 1) / BWD_TILE;
+    col_sums<DP>(dq, csum, d, wg, colpart + ((size_t)b * ntile + tile) * cps + (size_t)h * d);
   }
+  store_rows<DP>(dq, 1.0f, 1.0f, own_tile(wg, 2), dQg.head(b, h), dQg.sr, r0, S, d, wg);
 }
 
-// dK and dV of 64 key rows of one (batch, head), after flash_bwd_dq_mma_kernel.
+// dK and dV of 128 key rows of one (batch, head), after flash_bwd_dq_wgmma_kernel.
 template <int DP>
-__global__ void __launch_bounds__(BWD_THREADS, bwd_min_blocks<DP>())
-flash_bwd_dkdv_mma_kernel(Mat<const fm_bf16> Q, Mat<const fm_bf16> K, Mat<const fm_bf16> V,
-                          Mat<const fm_bf16> dO, Mask mask, const float* __restrict__ stats,
-                          const float* __restrict__ Dg, Mat<fm_bf16> dKg, Mat<fm_bf16> dVg,
-                          float* __restrict__ colpart, int S, int nh, int d, float scale) {
-  using L = BwdSmem<DP>;
-  constexpr int LD = L::LD;
+__global__ void __launch_bounds__(FA_THREADS, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
+                            const __grid_constant__ CUtensorMap tmK,
+                            const __grid_constant__ CUtensorMap tmV,
+                            const __grid_constant__ CUtensorMap tmG, Mask mask,
+                            const float* __restrict__ stats, const float* __restrict__ Dg,
+                            Mat<fm_bf16> dKg, Mat<fm_bf16> dVg, float* __restrict__ colpart,
+                            int S, int nh, int d, float scale) {
+  using L = BwdLayout<DP, 2>;
+  constexpr int ST = L::STAGES;
   constexpr int KD = DP / 16;
-  constexpr int ND = DP / 8;
-  constexpr int NS = BWD_WALK / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  fm_bf16* Ks = reinterpret_cast<fm_bf16*>(smem_raw + L::OWN);
-  fm_bf16* Vs = Ks + BWD_TILE * LD;
-  fm_bf16* ring = reinterpret_cast<fm_bf16*>(smem_raw + L::RING);  // stage st: q, dO at 2st, 2st+1
-  float* vecs = reinterpret_cast<float*>(smem_raw + L::VEC);  // stage st: m, 1 / l, D of 64 rows
-  float* csum = reinterpret_cast<float*>(smem_raw + L::CSUM);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int k0 = blockIdx.x * BWD_TILE;
-  const int r0 = k0 + warp * 16;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* vecs = reinterpret_cast<float*>(sm + L::VEC);  // stage s: m, 1 / l, D of 64 rows
+  const int wg = threadIdx.x / 128;
+  const int k0 = blockIdx.x * FA_CONSUMERS * BWD_TILE;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const fm_bf16* qb = Q.head(b, h);
-  const fm_bf16* gb = dO.head(b, h);
-  const int* mrow = mask.row(b);
+  const int nwalk = (S + BWD_WALK - 1) / BWD_WALK;
   const size_t srow = ((size_t)b * nh + h) * S;
-  const bool qg_vec = vec16(qb, Q.sr, d) && vec16(gb, dO.sr, d);
-  auto stage = [&](int st, int which) { return ring + (2 * st + which) * BWD_WALK * LD; };
-  auto load_qg = [&](int q0, int st) {
-    load_tile<DP, BWD_WALK, BWD_THREADS>(qb, Q.sr, q0, S, d, qg_vec, stage(st, 0));
-    load_tile<DP, BWD_WALK, BWD_THREADS>(gb, dO.sr, q0, S, d, qg_vec, stage(st, 1));
-  };
-  // m, 1 / l and D of query row q (0, 0, 0 past S: then p = 0 and ds = 0).
-  auto row_vec = [&](int q, float& m, float& il, float& D) {
-    const bool ok = q < S;
-    m = ok ? stats[(srow + q) * 2] : 0.0f;
-    il = ok ? 1.0f / stats[(srow + q) * 2 + 1] : 0.0f;
-    D = ok ? Dg[srow + q] : 0.0f;
-  };
-  auto put_vec = [&](int st, float m, float il, float D) {
-    float* v = vecs + st * 3 * BWD_WALK;
-    v[threadIdx.x] = m;
-    v[BWD_WALK + threadIdx.x] = il;
-    v[2 * BWD_WALK + threadIdx.x] = D;
-  };
+  const BwdSync sy = bwd_init<ST>(sm + L::BAR);
+  // Owned tiles of consumer w: k, v at (2w + 0, 1) * TILE.
+  auto own_tile = [&](int w, int which) { return sm + L::OWN + (2 * w + which) * L::TILE; };
 
-  const fm_bf16* kbh = K.head(b, h);
-  const fm_bf16* vbh = V.head(b, h);
-  load_tile<DP, BWD_TILE, BWD_THREADS>(kbh, K.sr, k0, S, d, vec16(kbh, K.sr, d), Ks);
-  load_tile<DP, BWD_TILE, BWD_THREADS>(vbh, V.sr, k0, S, d, vec16(vbh, V.sr, d), Vs);
-  load_qg(0, 0);
-  cp_async_commit();
-  if (threadIdx.x < BWD_WALK) {
-    float m, il, D;
-    row_vec(threadIdx.x, m, il, D);
-    put_vec(0, m, il, D);
-  }
-  const float kb_r[2] = {key_bias(mrow, r0 + g, S), key_bias(mrow, r0 + g + 8, S)};
-  cp_async_wait_all();
-  __syncthreads();
-
-  const uint32_t kaddr = a_frag_addr<LD>(Ks, warp * 16, lane);
-  const uint32_t vaddr = a_frag_addr<LD>(Vs, warp * 16, lane);
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j) {
-    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.0f;
-    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.0f;
-  }
-
-  const int ntiles = (S + BWD_WALK - 1) / BWD_WALK;
-  for (int it = 0; it < ntiles; ++it) {
-    const int st = it & 1;
-    const bool next = it + 1 < ntiles;
-    float nm = 0.0f, nil = 0.0f, nD = 0.0f;  // the next tile's row vectors, stored after the products
-    if (next) {
-      load_qg((it + 1) * BWD_WALK, st ^ 1);
-      if (threadIdx.x < BWD_WALK) row_vec((it + 1) * BWD_WALK + threadIdx.x, nm, nil, nD);
+  if (wg == FA_CONSUMERS) {  // producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x / 32 != FA_CONSUMERS * 4) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_expect_tx(sy.owned, FA_CONSUMERS * 2 * L::TILE);
+      for (int w = 0; w < FA_CONSUMERS; ++w)
+        for (int c = 0; c < DP / 32; ++c) {
+          const int r = k0 + w * BWD_TILE;
+          tma_load_4d(own_tile(w, 0) + c * BWD_TILE * 64, &tmK, 32 * c, r, h, b, sy.owned);
+          tma_load_4d(own_tile(w, 1) + c * BWD_TILE * 64, &tmV, 32 * c, r, h, b, sy.owned);
+        }
     }
-    cp_async_commit();
-
-    // s^T = k . q^T and dp^T = v . dO^T: rows are keys, columns queries.
-    const fm_bf16* qs = stage(st, 0);
-    const fm_bf16* gs = stage(st, 1);
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t ka[4], va[4];
-      ldsm_x4(kaddr + kk * 32, ka);
-      ldsm_x4(vaddr + kk * 32, va);
-#pragma unroll
-      for (int jp = 0; jp < NS / 2; ++jp) {
-        uint32_t bq[4], bg[4];
-        b_frag_rows<LD>(qs, jp, kk, lane, bq);
-        b_frag_rows<LD>(gs, jp, kk, lane, bg);
-        mma_bf16(s[2 * jp], ka, bq[0], bq[1]);
-        mma_bf16(s[2 * jp + 1], ka, bq[2], bq[3]);
-        mma_bf16(dp[2 * jp], va, bg[0], bg[1]);
-        mma_bf16(dp[2 * jp + 1], va, bg[2], bg[3]);
+    for (int j = 0; j < nwalk; ++j) {
+      const int s = j % ST;
+      mbar_wait(&sy.empty[s], ((j / ST) & 1) ^ 1);
+      // m, 1 / l and D of query row q (0, 0, 0 past S: then p = 0 and ds = 0).
+      float* v = vecs + s * 3 * BWD_WALK;
+      for (int i = lane; i < BWD_WALK; i += 32) {
+        const int q = j * BWD_WALK + i;
+        const bool ok = q < S;
+        v[i] = ok ? stats[(srow + q) * 2] : 0.0f;
+        v[BWD_WALK + i] = ok ? 1.0f / stats[(srow + q) * 2 + 1] : 0.0f;
+        v[2 * BWD_WALK + i] = ok ? Dg[srow + q] : 0.0f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&sy.full[s], 2 * L::TILE);
+        unsigned char* qt = sm + L::RING + s * 2 * L::TILE;
+        for (int c = 0; c < DP / 32; ++c) {
+          tma_load_4d(qt + c * BWD_WALK * 64, &tmQ, 32 * c, j * BWD_WALK, h, b, &sy.full[s]);
+          tma_load_4d(qt + L::TILE + c * BWD_WALK * 64, &tmG, 32 * c, j * BWD_WALK, h, b,
+                      &sy.full[s]);
+        }
+      } else {
+        mbar_arrive(&sy.full[s]);
       }
     }
-
-    // p^T and ds^T: the query's m, 1 / l and D from the stage's vectors, the
-    // key's bias from registers; round(p) and round(ds * scale) as A fragments.
-    const float* vm = vecs + st * 3 * BWD_WALK;
-    uint32_t pf[BWD_WALK / 16][4], dsf[BWD_WALK / 16][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const int c = j * 8 + 2 * t;
-      const float2 m2 = *reinterpret_cast<const float2*>(vm + c);
-      const float2 l2 = *reinterpret_cast<const float2*>(vm + BWD_WALK + c);
-      const float2 D2 = *reinterpret_cast<const float2*>(vm + 2 * BWD_WALK + c);
-      const float p0 = exp2f((s[j][0] * scale + kb_r[0] - m2.x) * LOG2E) * l2.x;
-      const float p1 = exp2f((s[j][1] * scale + kb_r[0] - m2.y) * LOG2E) * l2.y;
-      const float p2 = exp2f((s[j][2] * scale + kb_r[1] - m2.x) * LOG2E) * l2.x;
-      const float p3 = exp2f((s[j][3] * scale + kb_r[1] - m2.y) * LOG2E) * l2.y;
-      pf[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
-      pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
-      dsf[j / 2][(j % 2) * 2] =
-          pack_bf16(p0 * (dp[j][0] - D2.x) * scale, p1 * (dp[j][1] - D2.y) * scale);
-      dsf[j / 2][(j % 2) * 2 + 1] =
-          pack_bf16(p2 * (dp[j][2] - D2.x) * scale, p3 * (dp[j][3] - D2.y) * scale);
-    }
-
-    // dv += p^T . dO and dk += ds^T . q: the walked rows are the depth.
-#pragma unroll
-    for (int kk = 0; kk < BWD_WALK / 16; ++kk)
-#pragma unroll
-      for (int jp = 0; jp < ND / 2; ++jp) {
-        uint32_t bg[4], bq[4];
-        b_frag_trans<LD>(gs, jp, kk, lane, bg);
-        mma_bf16(dv[2 * jp], pf[kk], bg[0], bg[1]);
-        mma_bf16(dv[2 * jp + 1], pf[kk], bg[2], bg[3]);
-        b_frag_trans<LD>(qs, jp, kk, lane, bq);
-        mma_bf16(dk[2 * jp], dsf[kk], bq[0], bq[1]);
-        mma_bf16(dk[2 * jp + 1], dsf[kk], bq[2], bq[3]);
-      }
-
-    if (next && threadIdx.x < BWD_WALK) put_vec(st ^ 1, nm, nil, nD);
-    cp_async_wait_all();
-    __syncthreads();
+    return;
   }
 
+  setmaxnreg_inc<232>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = k0 + wg * BWD_TILE;
+  const bool active = r0 < S;
+  const int* mrow = mask.row(b);
+  // The key bias of rows g, g + 8 (-inf past S: then p = 0).
+  const float kb_r[2] = {key_bias(mrow, r0 + warp * 16 + g, S),
+                         key_bias(mrow, r0 + warp * 16 + g + 8, S)};
+  const uint32_t ks = smem_u32(own_tile(wg, 0));
+  const uint32_t vs = smem_u32(own_tile(wg, 1));
+  mbar_wait(sy.owned, 0);
+
+  float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.0f;
+  for (int j = 0; j < nwalk; ++j) {
+    const int s = j % ST;
+    mbar_wait(&sy.full[s], (j / ST) & 1);
+    if (active) {
+      const uint32_t qt = smem_u32(sm + L::RING + s * 2 * L::TILE);
+      const uint32_t gt = qt + L::TILE;
+      // s^T = k . q^T and dp^T = v . dO^T: rows are keys, columns queries.
+      float sc[BWD_WALK / 2], dp[BWD_WALK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        wgmma_ss<BWD_WALK>(sc, desc_k<BWD_TILE>(ks, kk), desc_k<BWD_WALK>(qt, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        wgmma_ss<BWD_WALK>(dp, desc_k<BWD_TILE>(vs, kk), desc_k<BWD_WALK>(gt, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // p^T and ds^T: the query's m, 1 / l and D from the stage's vectors, the
+      // key's bias from registers; round(p) and round(ds * scale) as A operands.
+      const float* vm = vecs + s * 3 * BWD_WALK;
+      uint32_t pf[BWD_WALK / 16][4], dsf[BWD_WALK / 16][4];
+#pragma unroll
+      for (int i = 0; i < BWD_WALK / 8; ++i) {
+        const int c = 8 * i + 2 * t;
+        const float2 m2 = *reinterpret_cast<const float2*>(vm + c);
+        const float2 l2 = *reinterpret_cast<const float2*>(vm + BWD_WALK + c);
+        const float2 D2 = *reinterpret_cast<const float2*>(vm + 2 * BWD_WALK + c);
+        const float p0 = exp2f((sc[4 * i] * scale + kb_r[0] - m2.x) * LOG2E) * l2.x;
+        const float p1 = exp2f((sc[4 * i + 1] * scale + kb_r[0] - m2.y) * LOG2E) * l2.y;
+        const float p2 = exp2f((sc[4 * i + 2] * scale + kb_r[1] - m2.x) * LOG2E) * l2.x;
+        const float p3 = exp2f((sc[4 * i + 3] * scale + kb_r[1] - m2.y) * LOG2E) * l2.y;
+        pf[i / 2][(i % 2) * 2] = pack_bf16(p0, p1);
+        pf[i / 2][(i % 2) * 2 + 1] = pack_bf16(p2, p3);
+        dsf[i / 2][(i % 2) * 2] = pack_bf16(p0 * (dp[4 * i] - D2.x) * scale,
+                                            p1 * (dp[4 * i + 1] - D2.y) * scale);
+        dsf[i / 2][(i % 2) * 2 + 1] = pack_bf16(p2 * (dp[4 * i + 2] - D2.x) * scale,
+                                                p3 * (dp[4 * i + 3] - D2.y) * scale);
+      }
+
+      // dv += p^T . dO and dk += ds^T . q: the walked rows are the depth.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BWD_WALK / 16; ++kk)
+        wgmma_rs<DP>(dv, pf[kk], desc_mn<BWD_WALK>(gt, kk));
+#pragma unroll
+      for (int kk = 0; kk < BWD_WALK / 16; ++kk)
+        wgmma_rs<DP>(dk, dsf[kk], desc_mn<BWD_WALK>(qt, kk));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv);
+      fence_regs(dk);
+    }
+    if (tid == 0) mbar_arrive(&sy.empty[s]);
+  }
+  if (!active) return;
+
+  // dK through the k tile and dV through the v tile (read only by this
+  // warpgroup's products, which have completed), with their column partials.
   const long long cps = 3LL * nh * d;
   const long long H = (long long)nh * d;
-  float* cp = colpart ? colpart + ((size_t)b * gridDim.x + blockIdx.x) * cps + (size_t)h * d
-                      : nullptr;
-  if (cp) warp_col_sums<ND>(dk, warp, lane, csum);
-  store_warp_rows<DP>(dk, Ks + warp * 16 * LD, dKg.head(b, h), dKg.sr, r0, S, d, lane);
-  if (cp) {
-    __syncthreads();
-    block_col_sums<DP>(csum, d, cp + H);
-    __syncthreads();
-    warp_col_sums<ND>(dv, warp, lane, csum);
+  float* csum = reinterpret_cast<float*>(sm + L::CSUM) + wg * 4 * DP;
+  float* cp = nullptr;
+  if (colpart) {
+    const int tile = r0 / BWD_TILE, ntile = (S + BWD_TILE - 1) / BWD_TILE;
+    cp = colpart + ((size_t)b * ntile + tile) * cps + (size_t)h * d;
+    col_sums<DP>(dk, csum, d, wg, cp + H);
+    col_sums<DP>(dv, csum, d, wg, cp + 2 * H);
   }
-  store_warp_rows<DP>(dv, Vs + warp * 16 * LD, dVg.head(b, h), dVg.sr, r0, S, d, lane);
-  if (cp) {
-    __syncthreads();
-    block_col_sums<DP>(csum, d, cp + 2 * H);
-  }
+  store_rows<DP>(dk, 1.0f, 1.0f, own_tile(wg, 0), dKg.head(b, h), dKg.sr, r0, S, d, wg);
+  store_rows<DP>(dv, 1.0f, 1.0f, own_tile(wg, 1), dVg.head(b, h), dVg.sr, r0, S, d, wg);
 }
 
 // ---- fp32 backward kernels (CUDA cores) ---------------------------------------------
@@ -1633,7 +1699,92 @@ flash_attn_fwd_f32_kernel(Mat<const float> Q, Mat<const float> K, Mat<const floa
   }
 }
 
-// ---- host-side forward dispatch -----------------------------------------------------
+
+// ---- host-side operands and dispatch -------------------------------------------------
+
+struct Op {  // a strided operand as the C entries take it
+  const void* p;
+  long long sb, sh, sr;
+};
+
+template <typename T>
+Mat<T> as_mat(const Op& o) {
+  return Mat<T>{(T*)o.p, o.sb, o.sh, o.sr};
+}
+
+struct FwdArgs {
+  Op q, k, v, o;
+  Mask mask;
+  float* stats;
+  int B, S, nh, d;
+  float scale;
+};
+
+struct BwdArgs {
+  Op q, k, v, o, dout, dq, dk, dv;
+  Mask mask;
+  const float* stats;
+  float* D;
+  float* colpart;
+  int B, S, nh, d;
+  float scale;
+};
+
+// The padded head dim of d (0 when d is outside 1..128).
+int head_pad(int d) {
+  if (d < 1 || d > 128) return 0;
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 96 ? 96 : 128;
+}
+
+// The TMA map of one [B, heads, S, d] bf16 operand over its own strides:
+// dims (d, S, heads, B), boxes of [rows][32] with the 64-byte swizzle; reads
+// past d or past S inside a head give zeros.  A dim of size 1 takes a stride
+// TMA accepts whatever the tensor's (_build.tma_compatible ignores it too).
+bool head_map(CUtensorMap* map, const Op& o, int B, int S, int nh, int d, int rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc) return false;
+  const long long sr = S > 1 ? o.sr * 2 : (d * 2 + 15) / 16 * 16;
+  const long long sh = nh > 1 ? o.sh * 2 : sr * S;
+  const long long sb = B > 1 ? o.sb * 2 : sh * nh;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)S, (cuuint64_t)nh, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sr, (cuuint64_t)sh, (cuuint64_t)sb};
+  const cuuint32_t box[4] = {32, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(o.p), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP, int BN>
+cudaError_t launch_fwd_wgmma(const FwdArgs& a, cudaStream_t s) {
+  using L = FwdLayout<DP, BN>;
+  const int nrb = (a.S + FA_CONSUMERS * FA_ROWS - 1) / (FA_CONSUMERS * FA_ROWS);
+  const int items = a.B * a.nh * nrb;
+  if (items == 0) return cudaSuccess;
+  // Set on every launch: the attribute belongs to the current device, and
+  // the call costs about a microsecond.  It also makes the device's context
+  // current in this thread (the autograd engine runs a backward in its own),
+  // which the tensor-map encoding below needs.
+  cudaError_t e = cudaFuncSetAttribute(flash_attn_fwd_wgmma_kernel<DP, BN>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (e != cudaSuccess) return e;
+  int sms = 0;
+  e = sm_count(sms);
+  if (e != cudaSuccess) return e;
+  CUtensorMap tq, tk, tv;
+  if (!head_map(&tq, a.q, a.B, a.S, a.nh, a.d, FA_ROWS) ||
+      !head_map(&tk, a.k, a.B, a.S, a.nh, a.d, BN) || !head_map(&tv, a.v, a.B, a.S, a.nh, a.d, BN))
+    return cudaErrorInvalidValue;
+  flash_attn_fwd_wgmma_kernel<DP, BN><<<sms < items ? sms : items, FA_THREADS, L::BYTES, s>>>(
+      tq, tk, tv, a.mask, as_mat<fm_bf16>(a.o), a.stats, a.S, a.nh, a.d, a.scale, nrb, items);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_wgmma_dp(const FwdArgs& a, cudaStream_t s) {
+  return fwd_bn(a.S) == FWD_BN_NARROW ? launch_fwd_wgmma<DP, FWD_BN_NARROW>(a, s)
+                                      : launch_fwd_wgmma<DP, FWD_BN_WIDE>(a, s);
+}
 
 template <int DP, int TM>
 cudaError_t launch_f32_tm(const FwdArgs& a, cudaStream_t stream) {
@@ -1658,46 +1809,45 @@ cudaError_t launch_fwd(const FwdArgs& a, int dtype, cudaStream_t s) {
   const bool bf16 = dtype == FM_BF16;
   if (!bf16 && dtype != FM_F32) return cudaErrorInvalidValue;
   switch (head_pad(a.d)) {
-    case 32: return bf16 ? launch_mma_dp<32>(a, s) : launch_f32_dp<32>(a, s);
-    case 64: return bf16 ? launch_mma_dp<64>(a, s) : launch_f32_dp<64>(a, s);
-    case 96: return bf16 ? launch_mma_dp<96>(a, s) : launch_f32_dp<96>(a, s);
-    case 128: return bf16 ? launch_mma_dp<128>(a, s) : launch_f32_dp<128>(a, s);
+    case 32: return bf16 ? launch_wgmma_dp<32>(a, s) : launch_f32_dp<32>(a, s);
+    case 64: return bf16 ? launch_wgmma_dp<64>(a, s) : launch_f32_dp<64>(a, s);
+    case 96: return bf16 ? launch_wgmma_dp<96>(a, s) : launch_f32_dp<96>(a, s);
+    case 128: return bf16 ? launch_wgmma_dp<128>(a, s) : launch_f32_dp<128>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-struct BwdArgs {
-  Op q, k, v, o, dout, dq, dk, dv;
-  Mask mask;
-  const float* stats;
-  float* D;
-  float* colpart;
-  int B, S, nh, d;
-  float scale;
-};
-
 // Both backward kernels in order: the dQ kernel writes D, the dK / dV kernel
 // reads it.
 template <int DP>
-cudaError_t launch_bwd_mma(const BwdArgs& a, cudaStream_t s) {
-  constexpr int bytes = BwdSmem<DP>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<DP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+cudaError_t launch_bwd_wgmma(const BwdArgs& a, cudaStream_t s) {
+  constexpr int rows = FA_CONSUMERS * BWD_TILE;
+  if (a.B == 0 || a.nh == 0) return cudaSuccess;
+  // The attributes first: they make the context current for the maps (as in
+  // the forward; the autograd engine calls this from its own thread).
+  constexpr int dq_bytes = BwdLayout<DP, 3>::BYTES, dkdv_bytes = BwdLayout<DP, 2>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<DP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<DP>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  e = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<DP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.S + BWD_TILE - 1) / BWD_TILE, a.nh, a.B);
-  flash_bwd_dq_mma_kernel<DP><<<grid, BWD_THREADS, bytes, s>>>(
-      as_mat<const fm_bf16>(a.q), as_mat<const fm_bf16>(a.k), as_mat<const fm_bf16>(a.v),
-      as_mat<const fm_bf16>(a.o), as_mat<const fm_bf16>(a.dout), a.mask, a.stats, a.D,
-      as_mat<fm_bf16>(a.dq), a.colpart, a.S, a.nh, a.d, a.scale);
+  CUtensorMap tq, tk, tv, to, tg;
+  if (!head_map(&tq, a.q, a.B, a.S, a.nh, a.d, BWD_TILE) ||
+      !head_map(&tk, a.k, a.B, a.S, a.nh, a.d, BWD_TILE) ||
+      !head_map(&tv, a.v, a.B, a.S, a.nh, a.d, BWD_TILE) ||
+      !head_map(&to, a.o, a.B, a.S, a.nh, a.d, BWD_TILE) ||
+      !head_map(&tg, a.dout, a.B, a.S, a.nh, a.d, BWD_TILE))
+    return cudaErrorInvalidValue;
+  const dim3 grid((a.S + rows - 1) / rows, a.nh, a.B);
+  flash_bwd_dq_wgmma_kernel<DP><<<grid, FA_THREADS, dq_bytes, s>>>(
+      tq, tk, tv, to, tg, a.mask, a.stats, a.D, as_mat<fm_bf16>(a.dq), a.colpart, a.S, a.nh, a.d,
+      a.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dkdv_mma_kernel<DP><<<grid, BWD_THREADS, bytes, s>>>(
-      as_mat<const fm_bf16>(a.q), as_mat<const fm_bf16>(a.k), as_mat<const fm_bf16>(a.v),
-      as_mat<const fm_bf16>(a.dout), a.mask, a.stats, a.D, as_mat<fm_bf16>(a.dk),
-      as_mat<fm_bf16>(a.dv), a.colpart, a.S, a.nh, a.d, a.scale);
+  flash_bwd_dkdv_wgmma_kernel<DP><<<grid, FA_THREADS, dkdv_bytes, s>>>(
+      tq, tk, tv, tg, a.mask, a.stats, a.D, as_mat<fm_bf16>(a.dk), as_mat<fm_bf16>(a.dv),
+      a.colpart, a.S, a.nh, a.d, a.scale);
   return cudaGetLastError();
 }
 
@@ -1728,10 +1878,10 @@ cudaError_t launch_bwd(const BwdArgs& a, int dtype, cudaStream_t s) {
   const bool bf16 = dtype == FM_BF16;
   if (!bf16 && dtype != FM_F32) return cudaErrorInvalidValue;
   switch (head_pad(a.d)) {
-    case 32: return bf16 ? launch_bwd_mma<32>(a, s) : launch_bwd_f32<32>(a, s);
-    case 64: return bf16 ? launch_bwd_mma<64>(a, s) : launch_bwd_f32<64>(a, s);
-    case 96: return bf16 ? launch_bwd_mma<96>(a, s) : launch_bwd_f32<96>(a, s);
-    case 128: return bf16 ? launch_bwd_mma<128>(a, s) : launch_bwd_f32<128>(a, s);
+    case 32: return bf16 ? launch_bwd_wgmma<32>(a, s) : launch_bwd_f32<32>(a, s);
+    case 64: return bf16 ? launch_bwd_wgmma<64>(a, s) : launch_bwd_f32<64>(a, s);
+    case 96: return bf16 ? launch_bwd_wgmma<96>(a, s) : launch_bwd_f32<96>(a, s);
+    case 128: return bf16 ? launch_bwd_wgmma<128>(a, s) : launch_bwd_f32<128>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1746,9 +1896,11 @@ extern "C" {
 // #5, whose packed [B, S, 3H] buffer the wrapper passes as head views.
 // q, k, v, o: [B, nh, S, d] operands, each with its (batch, head, row)
 // strides in elements at qs / ks / vs / os (three int64 values each; last
-// dim contiguous); mask [B, S] int32 with batch stride mask_sb and key
-// stride 1, or null (every key attends); d <= 128.  stats [B, nh, S, 2]
-// fp32 (contiguous) receives each row's softmax max and sum when not null.
+// dim contiguous; bf16 q, k, v with a 16-byte aligned base and strides of a
+// multiple of 8 elements, as TMA reads them); mask [B, S] int32 with batch
+// stride mask_sb and key stride 1, or null (every key attends); d <= 128.
+// stats [B, nh, S, 2] fp32 (contiguous) receives each row's softmax max and
+// sum when not null.
 int fm_flash_attention_fwd(const void* q, const long long* qs, const void* k,
                            const long long* ks, const void* v, const long long* vs,
                            const void* mask, long long mask_sb, void* o, const long long* os,
@@ -1762,7 +1914,8 @@ int fm_flash_attention_fwd(const void* q, const long long* qs, const void* k,
 
 // Strided flash attention backward (Pallas #10, and the attention core of
 // #3 / #6 with colpart), two launches: q, k, v, o,
-// dout (dO, io dtype) as in fm_flash_attention_fwd, stats from it; D
+// dout (dO, io dtype) as in fm_flash_attention_fwd (in bf16 o and dout as
+// TMA reads them too), stats from it; D
 // [B, nh, S] fp32 scratch; writes dq, dk, dv (strided, io dtype) and, when
 // colpart is not null, the column partials [B * ceil(S / tile), 3 * nh * d]
 // fp32 of the fp32 dq | dk | dv, tile = 64 (_build.FLASH_BWD_TILE).

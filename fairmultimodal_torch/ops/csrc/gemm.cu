@@ -76,6 +76,7 @@
 #include <stdint.h>
 
 #include "fm_common.cuh"
+#include "fm_hopper.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -247,10 +248,6 @@ __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, i
   }
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // ---- bf16 kernel: wgmma fed by TMA, warp-specialised, every layout ----------------
 //
 // C[M, N] = epilogue(op(A) . op(B)) with each operand K-major or MN-major
@@ -291,43 +288,6 @@ constexpr int WG_CSUM = 2 * 64 * WG_CPITCH * 4;  // ring offset of the [8][256] 
 constexpr int WG_SMEM = WG_RING + 2 * WG_STAGES * 8 + 1024;  // + mbarriers + 1024-byte alignment
 static_assert(WG_CSUM + 8 * WG_BN * 4 <= WG_RING, "the fp32 staging tiles and sums fit the ring");
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Wait until the phase of parity ``parity`` of ``bar`` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// The box of ``map`` at coordinates (c0 innermost, c1) into shared memory,
-// completing on ``bar``.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // wgmma descriptor (start >> 4, leading byte offset >> 4 at bit 16, stride
 // byte offset >> 4 at bit 32, 128-byte swizzle) of the 16-deep K slice kk of
 // a tile whose base is 1024-byte aligned.
@@ -340,10 +300,7 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
 // SW128.)
 template <int MN_MAJOR>
 __device__ __forceinline__ uint64_t wg_desc(uint32_t base, int kk) {
-  const uint32_t addr = base + (MN_MAJOR ? 2048 * kk : 32 * kk);
-  const uint64_t lead = MN_MAJOR ? WG_BOX >> 4 : 1;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (lead << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
+  return wgmma_desc(base + (MN_MAJOR ? 2048 * kk : 32 * kk), MN_MAJOR ? WG_BOX : 16, 1024, 1);
 }
 
 // d[0..128) += op(A) . op(B) over 16 of K: one m64n256k16 wgmma from shared
@@ -379,12 +336,6 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, ui
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
-}
-
-// Keep the compiler from moving reads of d across the asynchronous wgmma.
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 template <typename TOut, int AT, int BT, int MODE>
@@ -440,7 +391,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant
     float acc[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
-    fence_acc(acc);
+    fence_regs(acc);
     for (int kt = 0; kt < nk; ++kt) {
       const int s = kt % WG_STAGES;
       mbar_wait(&full[s], (kt / WG_STAGES) & 1);
@@ -454,7 +405,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant
         wgmma_m64n256k16<AT, BT>(acc, wg_desc<AT>(a, kk), wg_desc<BT>(b, kk));
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      fence_acc(acc);
+      fence_regs(acc);
       if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
     }
 
@@ -503,42 +454,6 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant
       }
     }
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so the library links no libcuda.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// The TMA map of a row-major bf16 or fp32 (f32) matrix [outer, inner] read
-// in [box_outer, box_inner] boxes of 128-byte rows, 128-byte swizzle; reads
-// past its edges give zeros.
-bool tma_map(CUtensorMap* map, const void* p, bool f32, int outer, int inner, int box_outer,
-             int box_inner) {
-  const EncodeTiledFn enc = encode_tiled();
-  if (!enc) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * (f32 ? 4 : 2)};
-  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(p), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The map of one bf16 operand with ``mn`` rows or columns: K-major [mn, K] in
@@ -766,14 +681,6 @@ gemm_f32_nt_kernel(const __grid_constant__ CUtensorMap tmA,
       }
     }
   }
-}
-
-// The current device's SM count: a persistent grid's size.
-cudaError_t sm_count(int& sms) {
-  int dev = 0;
-  const cudaError_t err = cudaGetDevice(&dev);
-  return err != cudaSuccess ? err
-                            : cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 cudaError_t launch_f32_nt(const void* A, const void* B, void* C, int M, int N, int K, const Epi& e,

@@ -1,9 +1,11 @@
 """The bf16 flash forward's rounding contract, on the CPU.
 
 The card's bf16 forward (``fairmultimodal_torch/ops/csrc/flash_attention.cu``,
-``flash_attn_fwd_mma_kernel``) makes one pass over 64-key tiles with a
-running row max and sum, rounds the UNNORMALISED p = exp(s - m_running) to
-bf16 before p.v, and divides o by the fp32 row sum once at the end.  The
+``flash_attn_fwd_wgmma_kernel``) makes one pass over key tiles of
+``_build.flash_fwd_bf16_keys(S)`` keys (112 at S 560 and 80, 128 at S 512)
+with a running row max and sum, rounds the UNNORMALISED p = exp(s -
+m_running) to bf16 before p.v, and divides o by the fp32 row sum once at the
+end.  The
 Pallas kernel (``fairmultimodal_tpu/ops/flash_attention.py::_fwd_kernel``)
 rounds the normalised p instead.  ``_kernel_order`` repeats the card
 kernel's arithmetic in that order in PyTorch, and the tests hold it
@@ -12,8 +14,10 @@ kernel's arithmetic in that order in PyTorch, and the tests hold it
   ``flash_attention_reference`` (which follows the Pallas rounding), in
   bf16, under the limits the card check holds the kernel to
   (``chip_smoke.py`` phase 3d: max 2^-6, mean 2^-10 of the output's
-  max-abs), at a ragged S (80 = 64 + 16), with no mask and with per-row
-  masks including a fully masked row, at d 32 and 64;
+  max-abs), at a ragged S (80: one tile of 112, 32 keys past S), with no
+  mask and with per-row masks including a fully masked row, at d 32 and 64,
+  and at the lab and text lengths (S 560 = 5 x 112, S 512 = 4 x 128) with a
+  fully masked row;
 - for its (m, l) stats: m is the row max of s * scale + bias, and
   exp(s * scale + bias - m) / l -- the p the backward kernels recompute --
   is the softmax (fp64) to fp32 rounding, summing to 1 over each row.
@@ -24,22 +28,22 @@ import numpy as np
 import pytest
 import torch
 
+from fairmultimodal_torch.ops import _build
 from fairmultimodal_torch.ops import flash_attention as t_flash
 from fairmultimodal_tpu.ops.flash_attention import flash_attention as j_flash
 
-B, NH, S = 3, 2, 80          # S: one whole 64-key tile and a ragged one of 16
-TILE = 64
+B, NH, S = 3, 2, 80          # S: one ragged key tile
 LOG2E = 1.4426950408889634
 FWD_MAX, FWD_MEAN = 2.0 ** -6, 2.0 ** -10
 
 
-def _inputs(seed, d, masked):
+def _inputs(seed, d, masked, b=B, s=S):
     rng = np.random.default_rng(seed)
-    q, k, v = (rng.normal(0, 1, (B, NH, S, d)).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.normal(0, 1, (b, NH, s, d)).astype(np.float32) for _ in range(3))
     mask = None
     if masked:
-        lens = rng.integers(S // 3, S, B)
-        mask = (np.arange(S)[None] < lens[:, None]).astype(np.int32)
+        lens = rng.integers(s // 3, s, b)
+        mask = (np.arange(s)[None] < lens[:, None]).astype(np.int32)
         mask[-1] = 0                  # a fully masked row: finite, uniform softmax
     return q, k, v, mask
 
@@ -52,7 +56,8 @@ def _bias(mask, b, s):
 
 def _kernel_order(q, k, v, mask):
     """(o, m, l) as the card's bf16 forward computes them: q, k, v bf16
-    [B, heads, S, d]; 64-key tiles, scale then the -1e9 key bias added to
+    [B, heads, S, d]; key tiles of the kernel's width at S
+    (``_build.flash_fwd_bf16_keys``), scale then the -1e9 key bias added to
     the fp32 scores, the running max m and sum l in fp32, exp taken as
     exp2((x - m) * log2 e), p rounded to bf16 before p.v, o rescaled when m
     grows and divided by l once at the end, then rounded to bf16."""
@@ -63,13 +68,14 @@ def _kernel_order(q, k, v, mask):
     m = torch.full((b, nh, s), float("-inf"))
     l = torch.zeros(b, nh, s)
     o = torch.zeros(b, nh, s, d)
-    for k0 in range(0, s, TILE):
-        x = (qf @ kf[:, :, k0:k0 + TILE].transpose(-1, -2)) * scale + bias[..., k0:k0 + TILE]
+    tile = _build.flash_fwd_bf16_keys(s)
+    for k0 in range(0, s, tile):
+        x = (qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)) * scale + bias[..., k0:k0 + tile]
         m_new = torch.maximum(m, x.amax(-1))
         alpha = torch.exp2((m - m_new) * LOG2E)        # 0 on the first tile
         p = torch.exp2((x - m_new[..., None]) * LOG2E)
         l = l * alpha + p.sum(-1)
-        o = o * alpha[..., None] + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + TILE]
+        o = o * alpha[..., None] + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + tile]
         m = m_new
     return (o / l[..., None]).to(torch.bfloat16), m, l
 
@@ -99,6 +105,27 @@ def test_one_pass_order_matches_pallas_interpret_in_bf16(masked, d):
         np.testing.assert_allclose(got[-1].float().numpy(),
                                    tv[-1].float().mean(dim=1, keepdim=True)
                                    .expand(NH, S, d).numpy(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("s,d,tiles", [(560, 32, 5), (512, 64, 4)])
+def test_key_tiles_of_the_lab_and_text_lengths_match_pallas_in_bf16(s, d, tiles):
+    # Several running maxima per row (the kernel's tiles), a fully masked row.
+    assert -(-s // _build.flash_fwd_bf16_keys(s)) == tiles
+    q, k, v, mask = _inputs(5 + d, d, True, b=2, s=s)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    want = j_flash(jq, jk, jv, jnp.asarray(mask), True)
+    got, m, l = _kernel_order(tq, tk, tv, mask)
+    assert torch.isfinite(got.float()).all()
+    _within("vs Pallas", got, jnp.asarray(want, jnp.float32))
+    _within("vs plain", got, t_flash.flash_attention_reference(
+        tq, tk, tv, torch.from_numpy(mask)).float())
+    np.testing.assert_allclose(got[-1].float().numpy(),
+                               tv[-1].float().mean(dim=1, keepdim=True).expand(NH, s, d).numpy(),
+                               rtol=0, atol=2e-2)
+    x = (tq.float() @ tk.float().transpose(-1, -2)) / d ** 0.5 + _bias(mask, 2, s)[:, None, None]
+    np.testing.assert_allclose((torch.exp(x - m[..., None]) / l[..., None]).double().sum(-1)
+                               .numpy(), 1.0, rtol=0, atol=2e-6)
 
 
 @pytest.mark.parametrize("d", [32, 64])

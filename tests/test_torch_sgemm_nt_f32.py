@@ -19,8 +19,10 @@ import pytest
 
 from fairmultimodal_torch.ops import _build
 
-_GEMM = (Path(__file__).resolve().parents[1] / "fairmultimodal_torch" / "ops" / "csrc"
-         / "gemm.cu").read_text()
+_CSRC = Path(__file__).resolve().parents[1] / "fairmultimodal_torch" / "ops" / "csrc"
+_GEMM = (_CSRC / "gemm.cu").read_text()
+# The TMA-map encoding gemm.cu calls, shared with flash_attention.cu.
+_HOPPER = (_CSRC / "fm_hopper.cuh").read_text()
 SMEM_PER_BLOCK = 232448        # 227 KB: what a block of an H100 may take
 REGS_PER_SM = 65536
 
@@ -57,7 +59,9 @@ def test_build_mirrors_the_kernel_constants():
     assert BK * 4 == 128
     assert 'tma_map(&ta, A, true, M, K, NT_BM, NT_BK)' in _GEMM
     assert 'tma_map(&tb, B, true, N, K, NT_BN, NT_BK)' in _GEMM
-    assert "CU_TENSOR_MAP_SWIZZLE_128B" in _GEMM
+    assert '#include "fm_hopper.cuh"' in _GEMM
+    tma_map = _HOPPER[_HOPPER.index("static inline bool tma_map("):]
+    assert "CU_TENSOR_MAP_SWIZZLE_128B" in tma_map[:tma_map.index("\n}\n")]
 
 
 def test_shared_memory_and_registers_fit_the_residency():
