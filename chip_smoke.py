@@ -8,9 +8,10 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 1. card: the name and power limit from ``nvidia-smi``;
 2. build: every kernel compiled from ``fairmultimodal_torch/ops/csrc``, and
    what ``-Xptxas -v`` reports (registers, stack, spills) for each
-   instantiation of the wgmma GEMM ("nt", "nn", "tn"), the wgmma flash
-   forward, dQ and dK / dV kernels (none may spill), the fp32 CUDA-core GEMM and the fp32
-   flash forward, dQ and dK / dV kernels;
+   instantiation of the persistent bf16 "nt" GEMM, the wgmma "nn" / "tn"
+   GEMM, the wgmma flash forward, dQ and dK / dV kernels, the fp32 CUDA-core
+   GEMMs and the fp32 flash forward, dQ and dK / dV kernels (the bf16 "nt",
+   fp32 GEMMs and wgmma flash kernels may not spill);
 3. kernels: each ported kernel's wrapper against its plain PyTorch version
    on the card, at the shapes the serving path gives it, in fp32 (max abs
    error <= 1e-4: only the summation order differs) and in bf16 (max abs
@@ -1093,8 +1094,9 @@ def unfolded_kernel_phase(fab, ffn, addnorm):
 
 # -- phase 3c, continued: each bf16 "nt" GEMM stage of the path beside F.linear -------------
 #
-# One launch of ``_build.gemm`` (layout "nt": csrc/gemm.cu::gemm_nt_wgmma_kernel)
-# at each shape the main path gives it, held against the same product and
+# One launch of ``_build.gemm`` (layout "nt": csrc/gemm.cu::gemm_bf16_nt_kernel)
+# at each shape the main path gives it (the lab layer at batch 256 and 16, the
+# note encoder at S 512, a ragged stage), held against the same product and
 # epilogue computed in fp32 on the card (TF32 off) and rounded once, and
 # timed beside one ``F.linear`` on the same operands (cuBLAS; a yardstick the
 # port never calls), each with its achieved TFLOP/s.  Limits, relative to the
@@ -1108,6 +1110,7 @@ def unfolded_kernel_phase(fab, ffn, addnorm):
 NT_BF16_MAX, NT_F32_TOL = 2.0 ** -7, 1e-5
 NT_SEED = 21
 R_LAB, R_TEXT = 256 * 560, 32 * 512
+R_B16 = 16 * N_LABS      # the baselines' batch 16: 69 row blocks of 128
 # name, M, N, K, activation, inner-dropout rate, aux, fp32 out, timed
 NT_STAGES = (
     ("qkv lab", R_LAB, 2304, 768, "none", 0.0, False, False, True),
@@ -1115,8 +1118,11 @@ NT_STAGES = (
     ("wo lab fp32 out", R_LAB, 768, 768, "none", 0.0, False, True, True),
     ("w1 lab relu dropout aux", R_LAB, 2048, 768, "relu", 0.1, True, False, True),
     ("w2 lab", R_LAB, 768, 2048, "none", 0.0, False, False, True),
+    ("qkv B16", R_B16, 2304, 768, "none", 0.0, False, False, True),
+    ("w1 B16 relu dropout aux", R_B16, 2048, 768, "relu", 0.1, True, False, True),
+    ("w2 B16 fp32 out", R_B16, 768, 2048, "none", 0.0, False, True, True),
     ("qkv text S512", R_TEXT, 2304, 768, "none", 0.0, False, False, True),
-    ("w1 text gelu aux", R_TEXT, 3072, 768, "gelu", 0.0, True, False, False),
+    ("w1 text gelu aux", R_TEXT, 3072, 768, "gelu", 0.0, True, False, True),
     ("ragged M600 N200 K96", 600, 200, 96, "relu", 0.1, True, False, False),
 )
 
@@ -1472,12 +1478,12 @@ def f32_gemm_phase(_build, fab):
 
 #: The kernels redesigned for Hopper (the bf16 path's, the fp32 GEMMs and the
 #: fp32 flash forward and backward), whose ``-Xptxas -v`` lines phase 2 reports.
-PTXAS_KERNELS = ("gemm_wgmma_kernel", "flash_attn_fwd_wgmma_kernel",
+PTXAS_KERNELS = ("gemm_bf16_nt_kernel", "gemm_wgmma_kernel", "flash_attn_fwd_wgmma_kernel",
                  "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
                  "gemm_f32_nt_kernel", "gemm_f32_nn_tn_kernel", "flash_attn_fwd_f32_kernel",
                  "flash_bwd_dq_f32_kernel", "flash_bwd_dkdv_f32_kernel")
 #: Kernels that must not spill (their accumulators live in registers).
-NO_SPILL_KERNELS = ("gemm_f32_nt_kernel", "gemm_f32_nn_tn_kernel",
+NO_SPILL_KERNELS = ("gemm_bf16_nt_kernel", "gemm_f32_nt_kernel", "gemm_f32_nn_tn_kernel",
                     "flash_attn_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                     "flash_bwd_dkdv_wgmma_kernel")
 

@@ -8,9 +8,12 @@ Each TREE is a directory holding a copy of ``fairmultimodal_torch/`` and
 variant of a kernel source) inside a directory that ``.gitignore`` lists, such
 as ``build/var/<name>``.  The trees run in the order given, each in its own
 process, which builds its kernels into ``TREE/build/kernels`` and prints: what
-``-Xptxas -v`` says of the two kernels, the "nt" GEMM at the lab stages (QKV,
-W1 with relu + inner dropout + aux, W1 plain, W2) checked against its fp32
-epilogue and timed beside ``F.linear``; the backward's "nn" dx (R 143360, K
+``-Xptxas -v`` says of the bf16 GEMM and flash kernels, the "nt" GEMM at the
+lab stages (QKV, Wo, W1 with relu + inner dropout + aux, W1 plain, W2), at
+batch 16 (R 8784: QKV, W1 with relu + dropout + aux, W2 into fp32) and at
+the note encoder's S 512 (QKV, W1 with gelu + aux, W2), each checked against
+its fp32 epilogue and timed with its TFLOP/s beside ``F.linear``; the
+backward's "nn" dx (R 143360, K
 2304) and "tn" dWqkv (2304 x 768 over 143360 rows, split-K with its
 fixed-order sum) checked against fp32 and timed beside ``torch.matmul``; and
 the flash forward and backward at the lab (B 256, S 560, 8 x 96) and text
@@ -18,16 +21,21 @@ the flash forward and backward at the lab (B 256, S 560, 8 x 96) and text
 (CUDA-event medians of 20, the kernels' device time from the profiler, the host
 time of a forward call) beside SDPA with the -1e9 bias and its autograd
 backward; a hash of each bf16 GEMM layout's output on fixed inputs (GEMMBITS:
-equal hashes, equal bits); #1 (no residuals) at the lab (B 256 and 16) and
+equal hashes, equal bits); #2 (serving, and the training forward with
+dropout) and #7 at the lab (R 143360), batch-16 (R 8784) and text (R 16384,
+F 3072 gelu) shapes beside one library composition each, #2 with its
+stages (FFN); #1 (no residuals) at the lab (B 256 and 16) and
 text (B 32 x S 512, B 64 x S 256, 12 x 64) shapes, #3 (forward with
 residuals and backward, dropout 0.1) and #5 / #6 at the lab shape (B 256 and
 16) and #5 / #6 at the text shape (B 32 x S 512), each beside its library
 composition (ATTN); and the bf16 FAME train step at batch 256 (phase 5's
 model and batch: CUDA-event median of 20, then the profiler's busy / idle
-split and the device time of every kernel by name over 3 steps, STEP).
-Only entry points every tree has are called.  Give a tree twice (A B A B)
-to see the spread between repeats.  Lines start with GEMM, BWDGEMM,
-GEMMBITS, FLASH, FLASHERR, ATTN or STEP.
+split and the device time of every kernel by name over 3 steps, with the
+"nt" GEMMs' device time a step by output dtype, whichever kernel ran them:
+STEP).  Only entry points every tree has are called (the parent of the
+persistent bf16 "nt" kernel has them all), so a tree and its parent run in
+turns.  Give a tree twice (A B A B) to see the spread between repeats.  Lines
+start with GEMM, BWDGEMM, GEMMBITS, FLASH, FLASHERR, FFN, ATTN or STEP.
 
     python3 compare_kernels.py --fp32 [--steps] TREE [TREE ...]
 
@@ -68,17 +76,28 @@ import sys
 _RUN = r'''
 import json, time, torch, chip_smoke as c
 from fairmultimodal_torch.ops import _build, flash_attention as flash
-from fairmultimodal_torch.ops import fused_attention_block as fab
+from fairmultimodal_torch.ops import fused_attention_block as fab, fused_ffn as ffn
 torch.backends.cuda.matmul.allow_tf32 = False
-print(json.dumps(c.ptxas_report(_build)), flush=True)
+print(json.dumps(c.ptxas_report(_build, ("gemm_bf16_nt_kernel", "gemm_wgmma_kernel",
+                                         "flash_attn_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                                         "flash_bwd_dkdv_wgmma_kernel"))), flush=True)
 gen = torch.Generator(device="cuda").manual_seed(5)
+R16 = 16 * c.N_LABS
 for stage in (("qkv lab", c.R_LAB, 2304, 768, "none", 0.0, False, False, True),
+              ("wo lab", c.R_LAB, 768, 768, "none", 0.0, False, False, True),
               ("w1 lab relu dropout aux", c.R_LAB, 2048, 768, "relu", 0.1, True, False, True),
               ("w1 lab plain", c.R_LAB, 2048, 768, "none", 0.0, False, False, True),
-              ("w2 lab", c.R_LAB, 768, 2048, "none", 0.0, False, False, True)):
+              ("w2 lab", c.R_LAB, 768, 2048, "none", 0.0, False, False, True),
+              ("qkv B16", R16, 2304, 768, "none", 0.0, False, False, True),
+              ("w1 B16 relu dropout aux", R16, 2048, 768, "relu", 0.1, True, False, True),
+              ("w1 B16 plain", R16, 2048, 768, "none", 0.0, False, False, True),
+              ("w2 B16 fp32 out", R16, 768, 2048, "none", 0.0, False, True, True),
+              ("qkv text S512", c.R_TEXT, 2304, 768, "none", 0.0, False, False, True),
+              ("w1 text gelu aux", c.R_TEXT, 3072, 768, "gelu", 0.0, True, False, True),
+              ("w2 text", c.R_TEXT, 768, 3072, "none", 0.0, False, False, True)):
     row = c.nt_gemm_check(_build, gen, *stage)
-    print("GEMM", json.dumps({k: row[k] for k in ("stage", "ms", "tflops", "library_ms")}),
-          flush=True)
+    print("GEMM", json.dumps({k: row[k] for k in ("stage", "ms", "tflops", "library_ms",
+                                                  "library_tflops")}), flush=True)
 bf = torch.bfloat16
 R = 256 * 560
 for name, layout, M, N, K in (("dx nn", "nn", R, 768, 2304), ("dWqkv tn", "tn", 2304, 768, R)):
@@ -144,6 +163,44 @@ for layout, (M, N, K) in (("nt", (4096, 2304, 768)), ("nn", (4096, 768, 2304)),
 print("GEMMBITS", json.dumps(bits), flush=True)
 del a, b, out
 torch.cuda.empty_cache()
+# #2 (serving; the training forward with dropout 0.1) and #7 (the inner
+# dropout 0.1 after relu; gelu takes none), bf16, beside one library
+# composition each.
+F = torch.nn.functional
+gen = torch.Generator(device="cuda").manual_seed(8)
+for label, R, FF, act, eps in (("lab R143360", c.R_LAB, 2048, "relu", 1e-5),
+                               ("B16 R8784", R16, 2048, "relu", 1e-5),
+                               ("text R16384", c.R_TEXT, 3072, "gelu", 1e-12)):
+    run, plain, library, stages, flops, nbytes = c.ffn_case(ffn, R, 768, FF, act, eps, bf, gen)
+    with torch.inference_mode():
+        row = {"shape": label, "#2 serving ms": c.time_ms(run, reps=20),
+               "#2 serving library_ms": c.time_ms(library, reps=20),
+               "#2 stages_ms": {n: c.time_ms(fn, reps=20) for n, fn in stages()},
+               "#2 bound_ms": c.bound_ms(flops, nbytes)[0]}
+    del run, plain, library, stages
+    fact = F.relu if act == "relu" else F.gelu
+    f_in = [(torch.randn(*shape, generator=gen, device="cuda") * std).to(bf)
+            for shape, std in (((R, 768), 1.0), ((FF, 768), 768 ** -0.5), ((FF,), 0.02),
+                               ((768, FF), FF ** -0.5), ((768,), 0.02))]
+    gamma = 1 + 0.1 * torch.randn(768, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(768, generator=gen, device="cuda")
+    leaves = [t.clone().requires_grad_(True) for t in f_in + [gamma, beta]]
+    x, w1, b1, w2, b2 = f_in
+    inner = 0.1 if act == "relu" else 0.0
+    lib7 = lambda: F.linear(F.dropout(fact(F.linear(x, w1, b1)), inner), w2, b2)  # noqa: E731
+    row.update({
+        "#2 train fwd ms": c.time_ms(lambda: ffn.fused_ffn_ln(
+            *leaves, rate=0.1, deterministic=False, seeds=(21, 22), activation=act,
+            ln_eps=eps), reps=20),
+        "#2 train fwd library_ms": c.time_ms(lambda: F.layer_norm(
+            x + F.dropout(lib7(), 0.1), (768,), gamma.to(bf), beta.to(bf), eps), reps=20),
+        "#7 ms": c.time_ms(lambda: ffn.fused_ffn(*leaves[:5], deterministic=not inner,
+                                                 seed=21 if inner else None, activation=act,
+                                                 rate=inner), reps=20),
+        "#7 library_ms": c.time_ms(lib7, reps=20)})
+    print("FFN", json.dumps(row), flush=True)
+    del f_in, leaves, x, w1, b1, w2, b2
+    torch.cuda.empty_cache()
 # #1 without residuals (serving), #3 and #5 / #6 timed, bf16.
 gen = torch.Generator(device="cuda").manual_seed(6)
 for label, shape in (("lab B256", dict(B=256, S=560, H=768, nh=8, eps=1e-5, mask_kind="lab")),
@@ -196,9 +253,18 @@ with profile(activities=[ProfilerActivity.CUDA]) as prof:
     torch.cuda.synchronize()
 names = {e.key[:100]: (e.self_device_time_total / 3e3, e.count / 3) for e in prof.key_averages()
          if e.self_device_time_total > 0}
+import re
+nt = {}     # the "nt" GEMMs a step by output dtype: this kernel or the wgmma one's "nt" form
+for key, (ms, n) in names.items():
+    m = re.search(r"gemm_bf16_nt_kernel<(\w+)>|gemm_wgmma_kernel<(\w+), 0, 0,", key)
+    if m:
+        total = nt.setdefault("bf16 out" if "bfloat16" in (m.group(1) or m.group(2))
+                              else "fp32 out", [0.0, 0.0])
+        total[0] += ms
+        total[1] += n
 print("STEP", json.dumps({"step": "FAME bf16 B256", "timed": timed,
                           "busy_ms": split["device_busy_ms"], "wall_ms": split["wall_ms"],
-                          "idle_share": split["idle_share"],
+                          "idle_share": split["idle_share"], "nt_ms_launches": nt,
                           "by_kernel_ms_launches": dict(sorted(names.items(),
                                                                key=lambda x: -x[1][0]))}),
       flush=True)

@@ -33,8 +33,9 @@ from fairmultimodal_torch.utils.rng import Dropout
 __all__ = ["KernelLaunchError", "build", "kernels", "gemm", "colsum", "row_block_sums",
            "flash_attn_fwd", "flash_attn_bwd", "flash_attention_fwd", "flash_attention_bwd",
            "add_layernorm", "layernorm_bwd", "ACT_CODES", "FLASH_BWD_TILE", "LN_BWD_ROWS",
-           "SUM_ROWS", "WGMMA_TILE", "SGEMM_TILE", "SGEMM_NT", "SGEMM_NN_TN",
-           "GEMM_SCHEDULE", "sgemm_tile", "sgemm_nt_schedule", "sgemm_nn_tn_schedule",
+           "SUM_ROWS", "WGMMA_TILE", "WGMMA_NT", "SGEMM_TILE", "SGEMM_NT", "SGEMM_NN_TN",
+           "GEMM_SCHEDULE", "sgemm_tile", "sgemm_nt_schedule", "bf16_nt_schedule",
+           "sgemm_nn_tn_schedule",
            "split_rows", "flash_bwd_colpart_rows", "flash_fwd_f32_rows", "FLASH_FWD_KEYS",
            "flash_fwd_bf16_keys", "tma_compatible", "tma_operand"]
 
@@ -55,8 +56,20 @@ FLASH_BWD_TILE = {torch.bfloat16: 64, torch.float32: 64}
 #: Keys per tile of the bf16 flash forward (``flash_attention.cu``'s
 #: FWD_BN_NARROW, FWD_BN_WIDE); :func:`flash_fwd_bf16_keys` picks one by S.
 FLASH_FWD_KEYS = (112, 128)
-#: The bf16 ``wgmma`` GEMM's block tile (rows, columns): ``gemm.cu``'s WG_BM x WG_BN.
+#: The bf16 ``wgmma`` "nn" / "tn" GEMM's block tile (rows, columns):
+#: ``gemm.cu``'s WG_BM x WG_BN.
 WGMMA_TILE = (128, 256)
+#: The bf16 "nt" kernel (``gemm.cu``'s ``gemm_bf16_nt_kernel``, WN_*): one
+#: persistent block of ``threads`` per SM walks ``tile`` (WN_BM x WN_BN)
+#: output tiles, its ``consumers`` warpgroups 64 rows each of every tile, fed
+#: by TMA in ``bk``-deep K slices through a ring of ``stages``; each consumer
+#: warp runs the epilogue over ``chunk`` columns at a time through its own
+#: staging rows (16 x 128 bytes) beside its copy of the tile's bias, and
+#: ``mask_threads`` of the producer warpgroup draw each tile's dropout keep
+#: bits (``mask`` bytes, two buffers) a tile ahead; ``smem`` bytes of dynamic
+#: shared memory.  Its schedule: :func:`bf16_nt_schedule`.
+WGMMA_NT = dict(tile=(128, 256), bk=64, stages=4, consumers=2, threads=384, blocks_per_sm=1,
+                chunk=64, mask=4096, mask_threads=96, smem=230496)
 #: The fp32 "nt" kernel (``gemm.cu``'s ``gemm_f32_nt_kernel``, NT_*): each of
 #: a block's ``consumers`` owns ``tile`` (NT_BM x NT_BN) output tiles in turn,
 #: fed by TMA in ``bk``-deep K slices through a ring of ``stages``; one
@@ -109,6 +122,14 @@ def sgemm_nt_schedule(m: int, n: int, sms: int):
     Tile t goes to block t % grid, so a block (one per SM) gets floor or
     ceil(tiles / grid)."""
     return _persistent_schedule(SGEMM_NT, m, n, 1, sms)
+
+
+def bf16_nt_schedule(m: int, n: int, sms: int):
+    """The bf16 "nt" kernel's persistent launch at M x N on ``sms`` SMs:
+    (grid, tiles, tiles of the busiest block).  Tiles are numbered N-fastest
+    and tile t goes to block t % grid, whose two consumers share it, so a
+    block (one per SM) runs floor or ceil(tiles / grid)."""
+    return _persistent_schedule(dict(WGMMA_NT, consumers=1), m, n, 1, sms)[:3]
 
 
 def sgemm_nn_tn_schedule(m: int, n: int, splits: int, sms: int):

@@ -34,18 +34,25 @@
 // 16*R*H^2 = 1.35e12.  The bytes (operands once) take about a seventh.
 //
 // Design.  What bounds a bf16 product is the tensor cores' rate, and only
-// wgmma reaches it.
-//   - bf16, every layout: gemm_wgmma_kernel, a 128 x 256 tile per block of
-//     two consumer warpgroups (m64n256k16 wgmma from shared memory) and a
-//     producer warpgroup whose one thread keeps four 64-deep K stages of A
-//     and B in flight by TMA (128-byte swizzle, full / empty mbarriers).
-//     Each operand is K-major (the "nt" forward's A and B, the "nn" dY) or
+// wgmma reaches it.  Which kernel runs which layout:
+//   - bf16 "nt" (every forward product: QKV, Wo, W1, W2 of Pallas #1, #2,
+//     #5, #7 and the note encoder): gemm_bf16_nt_kernel, persistent (one
+//     block per SM walks 128 x 256 tiles in a fixed order), its epilogue
+//     run on the fragments and staged through rows of its own so the
+//     producer fills the ring with the next tile under it, the Philox keep
+//     bits drawn by idle warps a tile ahead, one wgmma batch kept in flight.
+//   - bf16 "nn" and "tn" (every backward product): gemm_wgmma_kernel, one
+//     128 x 256 tile per block of two consumer warpgroups (m64n256k16 wgmma
+//     from shared memory) and a producer warpgroup whose one thread keeps
+//     four 64-deep K stages of A and B in flight by TMA (128-byte swizzle,
+//     full / empty mbarriers).  Each operand is K-major (the "nn" dY) or
 //     MN-major (the "nn" weight, both "tn" operands): an MN-major operand
 //     comes in 64-wide boxes, gets its own descriptor (leading offset one
 //     box, a 2048-byte step per 16 of K) and sets the wgmma's transpose
-//     immediate, so no operand is ever transposed in memory.  At 128 x 256
-//     a tile needs about 11 TB/s of L2 traffic for the peak rate, so L2
-//     rather than the tensor cores may bound it.
+//     immediate, so no operand is ever transposed in memory.
+//   Both bf16 kernels take 128 x 256 tiles of two m64n256k16 consumers: the
+//   tile needs about 11 TB/s of L2 traffic at the peak rate, so L2 rather
+//   than the tensor cores may bound it, and a narrower tile needs more.
 //   - fp32: register-blocked FFMA on the CUDA cores (full IEEE fp32, no
 //     TF32), on two persistent kernels of one shape: a block of 384 threads
 //     per SM, two consumer warpgroups each fed by its own producer warp
@@ -67,10 +74,13 @@
 // [splits, M, N] that fm_colsum adds in a fixed order, so the sum is the same
 // bits every run (no atomics anywhere).  Column sums for the bias grads are
 // per row-block partials, also added by fm_colsum.
-// What it leaves on the table: a persistent schedule for bf16 (its epilogue
-// does not overlap the next tile's loads), TMA multicast across a cluster (L2
-// traffic), a split-K "tn" whose partials stay in the cluster, and the TPU
-// kernels' fusion (q/k/v/o, the [R, F] intermediate and dz round-trip HBM).
+// What it leaves on the table: a persistent schedule for the bf16 "nn" /
+// "tn" kernel (its epilogue stages through the ring, so it does not overlap
+// the next tile's loads; the gated dh takes twice its plain time), TMA
+// multicast across a cluster (L2 traffic), a split-K "tn" whose partials
+// stay in the cluster, a stream-K tail for launches of under two waves of
+// tiles, and the TPU kernels' fusion (q/k/v/o, the [R, F] intermediate and dz
+// round-trip HBM).
 #include <cuda.h>
 #include <math.h>
 #include <stdint.h>
@@ -248,10 +258,11 @@ __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, i
   }
 }
 
-// ---- bf16 kernel: wgmma fed by TMA, warp-specialised, every layout ----------------
+// ---- bf16 "nn" / "tn" kernel: wgmma fed by TMA, warp-specialised -----------------
 //
-// C[M, N] = epilogue(op(A) . op(B)) with each operand K-major or MN-major
-// (AT / BT): "nt" (K, K), "nn" (K, MN), "tn" (MN, MN).  A 128 x 256 output
+// C[M, N] = epilogue(op(A) . op(B)) with B MN-major and A K-major or MN-major
+// (AT): "nn" (K, MN), "tn" (MN, MN); "nt" runs gemm_bf16_nt_kernel (below),
+// which took this kernel's "nt" form over with its arithmetic.  A 128 x 256 output
 // tile per block of three warpgroups: warpgroup 2 is the producer (one
 // thread issues the TMA copies of each 64-deep K slice of A and B into a ring
 // of WG_STAGES stages, after the stage's "empty" mbarrier says both consumers
@@ -267,11 +278,11 @@ __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, i
 // set.  "tn" splits K over gridDim.z (Kc rows each, a multiple of 64) into
 // fp32 partials [splits, M, N].  Epilogue: after both consumers leave the
 // main loop the ring is idle; each stages its 64 x 256 fp32 tile there and
-// runs epilogue_group over groups of 8 columns (MODE: the forward's bias,
-// activation, aux and Philox dropout at (row * N + col) >> 2; the
-// backward's plain store, fp32 residual add, or gate with the column sums of
-// its 128 rows, added over the 16 rows of each of the 8 consumer warps and
-// then over the warps in order, so colpart is the same bits every run).
+// runs epilogue_group over groups of 8 columns (MODE: the plain store, fp32
+// residual add, or gate with the column sums of its 128 rows, added over the
+// 16 rows of each of the 8 consumer warps and then over the warps in order,
+// so colpart is the same bits every run).  Not persistent: each block fills
+// and drains its ring, and the epilogue holds the ring (ROADMAP's next item).
 
 // _build.WGMMA_TILE repeats WG_BM x WG_BN (the split-K counts are sized from it).
 constexpr int WG_BM = 128;
@@ -338,7 +349,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, ui
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
-template <typename TOut, int AT, int BT, int MODE>
+template <typename TOut, int AT, int MODE>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB,
                   TOut* __restrict__ C, int M, int N, int K, int Kc, Epi e) {
@@ -378,12 +389,8 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant
         } else {
           tma_load(a, &tmA, k, m0, &full[s]);
         }
-        if (BT) {
 #pragma unroll
-          for (int j = 0; j < WG_BN / 64; ++j) tma_load(b + j * WG_BOX, &tmB, n0 + 64 * j, k, &full[s]);
-        } else {
-          tma_load(b, &tmB, k, n0, &full[s]);
-        }
+        for (int j = 0; j < WG_BN / 64; ++j) tma_load(b + j * WG_BOX, &tmB, n0 + 64 * j, k, &full[s]);
       }
     }
   } else {
@@ -402,7 +409,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int kk = 0; kk < WG_BK / 16; ++kk)
-        wgmma_m64n256k16<AT, BT>(acc, wg_desc<AT>(a, kk), wg_desc<BT>(b, kk));
+        wgmma_m64n256k16<AT, 1>(acc, wg_desc<AT>(a, kk), wg_desc<1>(b, kk));
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       fence_regs(acc);
@@ -463,20 +470,402 @@ bool operand_map(CUtensorMap* map, const void* p, int mn, int K, bool mn_major, 
                   : tma_map(map, p, false, mn, K, box_mn, WG_BK);
 }
 
-template <typename TOut, int AT, int BT, int MODE>
+template <typename TOut, int AT, int MODE>
 cudaError_t launch_wgmma(const void* A, const void* B, void* C, int M, int N, int K, int splits,
                          int Kc, const Epi& e, cudaStream_t s) {
   CUtensorMap ta, tb;
-  if (!operand_map(&ta, A, M, K, AT, WG_BM) || !operand_map(&tb, B, N, K, BT, WG_BN))
+  if (!operand_map(&ta, A, M, K, AT, WG_BM) || !operand_map(&tb, B, N, K, true, WG_BN))
     return cudaErrorInvalidValue;
   // Per launch, as the attribute belongs to the current device.
-  const cudaError_t err = cudaFuncSetAttribute(gemm_wgmma_kernel<TOut, AT, BT, MODE>,
+  const cudaError_t err = cudaFuncSetAttribute(gemm_wgmma_kernel<TOut, AT, MODE>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                WG_SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + WG_BN - 1) / WG_BN, (M + WG_BM - 1) / WG_BM, splits);
-  gemm_wgmma_kernel<TOut, AT, BT, MODE><<<grid, WG_THREADS, WG_SMEM, s>>>(
+  gemm_wgmma_kernel<TOut, AT, MODE><<<grid, WG_THREADS, WG_SMEM, s>>>(
       ta, tb, static_cast<TOut*>(C), M, N, K, Kc, e);
+  return cudaGetLastError();
+}
+
+// ---- bf16 "nt" kernel: persistent, the epilogue off the ring -------------------------
+//
+// C[M, N] = epilogue(A[M, K] . B[N, K]^T), both operands K-major, for every
+// bf16 forward product (Pallas #1 / #5's QKV and Wo, #2 / #7's W1 and W2, the
+// note encoder's LN-fused _infer variants), with the forward epilogue: bias,
+// aux = round(pre-activation), none / relu / exact gelu, the FFN's inner
+// Philox dropout, bf16 or fp32 out.  It replaces gemm_wgmma_kernel's "nt"
+// form, which lost to one cuBLAS call (QKV at R 143360: 1.10 ms against
+// 0.80; W1 with dropout and aux 1.29 against 0.94 plain) for four reasons
+// this design answers:
+//   - Persistent: grid = min(SMs, tiles), one block of WN_THREADS per SM.
+//     Tiles of WN_BM x WN_BN are numbered N-fastest (t = mt * tiles_n + nt,
+//     as gemm_f32_nt_kernel: the blocks in flight share a band of A rows
+//     against the whole weight, which stays in L2) and block b runs t = b,
+//     b + grid, ...  Each tile is a function of the tile alone, so a run
+//     gives the same bits every time.  The ring no longer fills from empty
+//     and drains at every 12-slice tile (K 768).
+//   - The epilogue off the ring, on the fragments: each consumer warp runs
+//     bias, aux, activation and dropout on its accumulators in registers (the
+//     fragment of lane (rq, q): rows rq, rq + 8 of its 16, columns 8 i + 2 q,
+//     + 1), then passes the finished values through 16 staging rows of 128
+//     bytes of its own (WN_CSTAGE), so the producer refills the ring with the
+//     next tile's slices meanwhile.  A pass is 64 columns of bf16 (32 of
+//     fp32): the fragment pairs go in as 4 (8) bytes, and lane l stores word
+//     l % 8 of rows l / 8 + 4 j, so 8 lanes write a row's 128-byte line with
+//     16-byte stores.  Word k of staging row r sits at k ^ swz(r), swz(r) =
+//     2 (r & 3) + ((r >> 2) & 1): a warp's pair writes and its row reads
+//     each take one wavefront per 128 bytes.  The tile's bias is loaded into
+//     registers as the tile starts (lane l: columns 8 l ..) and staged in the
+//     warp's WN_BIAS copy after the main loop.  At the lab shape (R 143360,
+//     NVIDIA H100 80GB HBM3, 700 W) QKV took 1.15 ms with bias loads from
+//     global memory in each pass, 1.01 with the staged bias and fp32 staging
+//     rows of 32 columns, 0.93 so; 0.67 with no epilogue at all.
+//   - Philox off the critical path: the dropout keep bits of a tile (one bit
+//     per element, WN_MASK bytes, row-major, word w = row w / 8, columns 32
+//     (w % 8) ..) at counter (row * N + col) >> 2 and word (row * N + col) &
+//     3 (keep_word: a word is 8 whole counters where N % 4 == 0, 32 flat
+//     indices otherwise), so the masks are
+//     utils/rng.py::dropout_mask's.  The producer warpgroup's warps 9-11,
+//     which the TMA thread leaves idle, draw rows 0-7 of each consumer warp's
+//     16 a tile ahead into two buffers (mfull / mempty mbarriers); each
+//     consumer warp draws its own rows 8-15 (two words a lane) while its last
+//     slices run, so a __syncwarp orders them.  Philox (20 wide multiplies
+//     a call) is what costs: all of W1's draws on the three warps took 1.33
+//     ms against 0.80 with none (they keep up with no more than half), all on
+//     the consumers inside the main loop 1.56, half and half 1.13; a word's 8
+//     counters run round by round together were no faster than 4 calls
+//     unrolled.
+//   - wgmma kept in flight: a slice's four m64n256k16 are committed as one
+//     group and the consumer waits with wgmma.wait_group 1, releasing the
+//     previous slice's stage, so the next batch is issued while this one runs.
+// Shape: WN_THREADS = 384, two consumer warpgroups of 64 rows (m64n256k16
+// from shared memory, 128 fp32 accumulators a thread) and a producer
+// warpgroup (warp 8's lane 0 issues the TMA copies of A [128][64 K] and B
+// [256][64 K], 128-byte swizzle, into WN_STAGES stages; warps 9-11 draw keep
+// bits); setmaxnreg 56 / 224 (the mask warps' unrolled Philox calls need more
+// than 40).  Four stages: at three the main loop alone took 0.77 ms of QKV against
+// 0.67.  What is left is the epilogue itself (0.25 ms of QKV's 0.93): both
+// consumers run it at once while the tensor cores wait, and its stores share
+// the SM's port with the ring's refill.
+// Order: each output is 0 + the K-ascending sum of 16-deep m64n256k16 steps,
+// the instruction, operand layout and order gemm_wgmma_kernel ran on this
+// form, and the epilogue's arithmetic is epilogue_group's, so the outputs
+// keep its bits.  Ragged edges: TMA zero-fills past M, N and K (K % 32 ==
+// 0, the wrapper's rule); the epilogue skips rows and columns past M and N,
+// element by element where N % 8 != 0.
+// The tile: 128 x 256 at every shape.  At B 16 (R 8784) Wo / W2 have 69 x 3
+// = 207 tiles on 132 SMs, two on the busiest against 1.57 on average.  In
+// 128 x 256 tiles' work the busiest SM would run 2.0 at 128 x 128 or 64 x
+// 256, 2.25 at 128 x 192, and 1.875 / 1.75 only at 128 x 96 / 128 x 64, which
+// read 1.56x / 2x the L2 bytes per FLOP of a tile whose own L2 traffic may
+// bound it; so the tail waits for a stream-K split
+// (tests/test_torch_gemm_bf16_nt.py models the choice).
+// Bound: the tensor cores (989 TFLOP/s bf16 dense on an H100 SXM); W1's aux
+// doubles its stores, 0.42 ms of bytes at the lab shape under ~0.46 of math.
+
+// _build.WGMMA_NT repeats these.
+constexpr int WN_BM = 128;  // the block's output tile, WN_BM x WN_BN: 64 rows a consumer
+constexpr int WN_BN = 256;
+constexpr int WN_BK = 64;   // one 128-byte swizzle line of bf16
+constexpr int WN_STAGES = 4;
+constexpr int WN_CONSUMERS = 2;
+constexpr int WN_THREADS = (WN_CONSUMERS + 1) * 128;  // + the producer's warpgroup
+constexpr int WN_A_BYTES = WN_BM * WN_BK * 2;
+constexpr int WN_STAGE_BYTES = WN_A_BYTES + WN_BN * WN_BK * 2;
+constexpr int WN_RING = WN_STAGES * WN_STAGE_BYTES;
+constexpr int WN_CHUNK = 64;                    // columns of the epilogue's pass over a warp's rows
+constexpr int WN_CSTAGE = 16 * 128;             // a consumer warp's staging rows: 16 x 128 bytes
+constexpr int WN_MASK = WN_BM * WN_BN / 8;      // a tile's dropout keep bits, bytes
+constexpr int WN_MASK_THREADS = 96;             // warps 9-11
+constexpr int WN_BIAS = WN_BN * 4;              // a consumer warp's copy of the tile's bias, bytes
+constexpr int WN_BARS = 2 * WN_STAGES + 4;      // full, empty; mfull, mempty of two masks
+// Ring, chunk and bias buffers, two masks, mbarriers, 1024-byte alignment.
+constexpr int WN_SMEM = WN_RING + 4 * WN_CONSUMERS * (WN_CSTAGE + WN_BIAS) + 2 * WN_MASK +
+                        WN_BARS * 8 + 1024;
+static_assert(WN_SMEM <= 232448, "a block's shared memory fits the SM's 227 KB");
+static_assert(WN_STAGE_BYTES % 1024 == 0, "swizzle atoms stay aligned");
+
+// Byte offset of 16-byte word k of row r of a consumer warp's staging rows
+// (16 x 128 bytes): word k of row r at k ^ swz(r), swz(r) = 2 (r & 3) + ((r >>
+// 2) & 1), so a warp's fragment writes and its row reads take one wavefront
+// per 128 bytes.
+__device__ __forceinline__ int wn_stage_off(int r, int k) {
+  return r * 128 + ((k ^ (2 * (r & 3) + ((r >> 2) & 1))) << 4);
+}
+
+// The staged rows to C (elements of T from column col0 of the tile's row
+// row0 on): lane l takes word l % 8 of rows l / 8 + 4 j, so 8 lanes store a
+// row's 128 bytes as 16-byte stores; ragged edges element by element.
+template <typename T>
+__device__ __forceinline__ void wn_flush(const unsigned char* st, T* __restrict__ out, int row0,
+                                         int col0, int M, int N, int lane) {
+  constexpr int E = 16 / sizeof(T);
+  const int k = lane % 8, col = col0 + k * E;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = lane / 8 + 4 * j, row = row0 + r;
+    const uint4 u = *reinterpret_cast<const uint4*>(st + wn_stage_off(r, k));
+    if (row >= M || col >= N) continue;
+    T* p = out + (size_t)row * N + col;
+    if (N % E == 0) *reinterpret_cast<uint4*>(p) = u;
+    else {
+      const T* h = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int x = 0; x < E; ++x) if (col + x < N) p[x] = h[x];
+    }
+  }
+}
+
+// Fragment pair (row r, columns c, c + 1 of a pass) into the staging rows.
+__device__ __forceinline__ void wn_stage(unsigned char* st, int r, int c, float a, float b,
+                                         fm_bf16*) {
+  __nv_bfloat162 h;
+  h.x = __float2bfloat16_rn(a);
+  h.y = __float2bfloat16_rn(b);
+  *reinterpret_cast<__nv_bfloat162*>(st + wn_stage_off(r, c / 8) + (c % 8) * 2) = h;
+}
+__device__ __forceinline__ void wn_stage(unsigned char* st, int r, int c, float a, float b,
+                                         float*) {
+  *reinterpret_cast<float2*>(st + wn_stage_off(r, c / 4) + (c % 4) * 4) = make_float2(a, b);
+}
+
+// Bit b: whether dropout keeps element (row, col0 + b), col0 % 32 == 0 (the
+// bits fm::apply_dropout draws there).  0 for a row past M.
+__device__ __forceinline__ uint32_t keep_word(const fm::Dropout& d, int row, int col0, int M,
+                                              int N) {
+  if (row >= M) return 0u;
+  const unsigned long long base = (unsigned long long)row * N + col0;
+  uint32_t w = 0u;
+  if (N % 4 == 0) {  // base % 4 == 0: counter base / 4 + h holds columns 4 h .. 4 h + 3
+#pragma unroll 4
+    for (int h = 0; h < 8; ++h) {
+      const uint4 r = fm::random_words(d.seed, d.stream, (base >> 2) + h);
+      w |= ((uint32_t)(r.x < d.threshold) | (uint32_t)(r.y < d.threshold) << 1 |
+            (uint32_t)(r.z < d.threshold) << 2 | (uint32_t)(r.w < d.threshold) << 3)
+           << (4 * h);
+    }
+  } else {
+#pragma unroll 1
+    for (int b = 0; b < 32; ++b)
+      w |= (uint32_t)(fm::random_bits(d.seed, d.stream, base + b) < d.threshold) << b;
+  }
+  return w;
+}
+
+template <typename TOut>
+__global__ void __launch_bounds__(WN_THREADS, 1)
+gemm_bf16_nt_kernel(const __grid_constant__ CUtensorMap tmA,
+                    const __grid_constant__ CUtensorMap tmB, TOut* __restrict__ C, int M, int N,
+                    int K, Epi e) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* chunks = ring + WN_RING;
+  float* biases = reinterpret_cast<float*>(ring + WN_RING + 4 * WN_CONSUMERS * WN_CSTAGE);
+  unsigned char* masks = ring + WN_RING + 4 * WN_CONSUMERS * (WN_CSTAGE + WN_BIAS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(masks + 2 * WN_MASK);
+  uint64_t* empty = full + WN_STAGES;
+  uint64_t* mfull = empty + WN_STAGES;  // mask b drawn: one arrive per mask thread
+  uint64_t* mempty = mfull + 2;         // mask b read: one arrive per consumer thread
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tiles_n = (N + WN_BN - 1) / WN_BN;
+  const int tiles = (M + WN_BM - 1) / WN_BM * tiles_n;
+  const int nk = (K + WN_BK - 1) / WN_BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WN_STAGES; ++s) {
+      mbar_init(&full[s], 1);              // the producer's arrive, plus the copies' bytes
+      mbar_init(&empty[s], WN_CONSUMERS);  // one arrive per consumer warpgroup
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&mfull[b], WN_MASK_THREADS);
+      mbar_init(&mempty[b], WN_CONSUMERS * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * WN_CONSUMERS) {  // the producer warpgroup: no block-wide barrier again
+    setmaxnreg_dec<56>();
+    if (warp == 4 * WN_CONSUMERS) {
+      if (lane == 0) {
+        int q = 0;  // slices issued, over all of this block's tiles
+        for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+          const int m0 = t / tiles_n * WN_BM, n0 = t % tiles_n * WN_BN;
+          for (int kt = 0; kt < nk; ++kt, ++q) {
+            const int s = q % WN_STAGES;
+            mbar_wait(&empty[s], ((q / WN_STAGES) & 1) ^ 1);  // the first round passes at once
+            mbar_expect_tx(&full[s], WN_STAGE_BYTES);
+            unsigned char* a = ring + s * WN_STAGE_BYTES;
+            tma_load(a, &tmA, kt * WN_BK, m0, &full[s]);
+            tma_load(a + WN_A_BYTES, &tmB, kt * WN_BK, n0, &full[s]);
+          }
+        }
+      }
+    } else if (e.drop.on) {  // warps 9-11: tile j's keep bits into mask j % 2
+      const int mt = threadIdx.x - (4 * WN_CONSUMERS + 1) * 32;
+      int j = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
+        const int m0 = t / tiles_n * WN_BM, n0 = t % tiles_n * WN_BN;
+        mbar_wait(&mempty[j & 1], ((j >> 1) & 1) ^ 1);  // the first two pass at once
+        uint32_t* bits = reinterpret_cast<uint32_t*>(masks + (j & 1) * WN_MASK);
+        // Rows 16 b .. 16 b + 7 of each consumer warp b's 16: word x % 64 of
+        // block x / 64 (the consumers draw the other 8 rows themselves).
+        for (int x = mt; x < WN_MASK / 8; x += WN_MASK_THREADS) {
+          const int w = x / 64 * 128 + x % 64;
+          bits[w] = keep_word(e.drop, m0 + w / (WN_BN / 32), n0 + 32 * (w % (WN_BN / 32)), M,
+                              N);
+        }
+        mbar_arrive(&mfull[j & 1]);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<224>();
+
+  const int wg = warp / 4;
+  const int rq = lane / 4, q = lane % 4;       // fragment rows rq, rq + 8; columns 8 i + 2 q
+  const int lr = wg * 64 + (warp % 4) * 16;    // the warp's first row in the tile
+  unsigned char* chunk = chunks + warp * WN_CSTAGE;  // this warp's staging rows
+  float* bias_s = biases + warp * WN_BN;  // the tile's bias, columns n0 ..
+  int qs = 0;  // slices consumed, over all of this block's tiles
+  int j = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
+    const int m0 = t / tiles_n * WN_BM, n0 = t % tiles_n * WN_BN;
+    // Lane l's 8 bias terms of columns n0 + 8 l ..: loaded here, under the
+    // main loop, and staged for the epilogue after it.
+    float bl[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) bl[k] = 0.0f;
+    if (e.bias) {
+      const int c0 = n0 + 8 * lane;
+      if (N % 8 == 0 && c0 < N) load_group<8>(e.bias + c0, bl);
+      else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) if (c0 + k < N) bl[k] = e.bias[c0 + k];
+      }
+    }
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    fence_regs(acc);
+    for (int kt = 0; kt < nk; ++kt, ++qs) {
+      const int s = qs % WN_STAGES;
+      mbar_wait(&full[s], (qs / WN_STAGES) & 1);
+      // This consumer's 64 rows of A: the second half of the [128][64] box.
+      const uint32_t a = smem_u32(ring + s * WN_STAGE_BYTES) + wg * 64 * WN_BK * 2;
+      const uint32_t b = smem_u32(ring + s * WN_STAGE_BYTES + WN_A_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WN_BK / 16; ++kk)
+        wgmma_m64n256k16<0, 0>(acc, wg_desc<0>(a, kk), wg_desc<0>(b, kk));
+      wgmma_commit();
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // slice kt - 1 is done
+      fence_regs(acc);
+      if (kt > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(qs - 1) % WN_STAGES]);
+    }
+    // The keep bits of this warp's rows lr + 8 .. lr + 15, drawn while the
+    // last slices run: lane (rq, q) words q and q + 4 of row lr + 8 + rq.
+    if (e.drop.on) {
+      uint32_t* mine = reinterpret_cast<uint32_t*>(masks + (j & 1) * WN_MASK) +
+                       (lr + 8 + rq) * (WN_BN / 32);
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        mine[q + 4 * u] = keep_word(e.drop, m0 + lr + 8 + rq, n0 + 32 * (q + 4 * u), M, N);
+    }
+    wgmma_wait_all();
+    fence_regs(acc);
+    if (nk > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(qs - 1) % WN_STAGES]);
+
+    // Epilogue: once this tile's keep bits are in the mask and the warp's
+    // copy of the bias is staged, four passes of 64 columns.
+    const unsigned char* keep = nullptr;
+    if (e.drop.on) {
+      mbar_wait(&mfull[j & 1], (j >> 1) & 1);
+      keep = masks + (j & 1) * WN_MASK;
+      __syncwarp();  // the warp's own words
+    }
+    store_group<8>(bias_s + 8 * lane, bl);
+    __syncwarp();
+    // Pass ch: the warp's 16 rows x columns 64 ch .. 64 ch + 63, fragment
+    // groups i = 8 ch + g (columns 8 i + 2 q, + 1; rows rq, rq + 8 as acc[4 i
+    // .. 4 i + 3]), through bias, aux, activation and dropout in registers.
+#pragma unroll
+    for (int ch = 0; ch < WN_BN / WN_CHUNK; ++ch) {
+      float v[WN_CHUNK / 8][4];
+#pragma unroll
+      for (int g = 0; g < WN_CHUNK / 8; ++g) {
+        const int i = ch * (WN_CHUNK / 8) + g;
+        const float2 b = *reinterpret_cast<const float2*>(bias_s + 8 * i + 2 * q);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) v[g][x] = e.bias ? acc[4 * i + x] + (x & 1 ? b.y : b.x)
+                                                     : acc[4 * i + x];
+      }
+      const int col0 = n0 + ch * WN_CHUNK;
+      if (e.aux) {  // the pre-activation, the gelu backward's residual
+#pragma unroll
+        for (int g = 0; g < WN_CHUNK / 8; ++g) {
+          wn_stage(chunk, rq, 8 * g + 2 * q, v[g][0], v[g][1], (fm_bf16*)nullptr);
+          wn_stage(chunk, rq + 8, 8 * g + 2 * q, v[g][2], v[g][3], (fm_bf16*)nullptr);
+        }
+        __syncwarp();
+        wn_flush(chunk, static_cast<fm_bf16*>(e.aux), m0 + lr, col0, M, N, lane);
+        __syncwarp();
+      }
+      // This pass's keep bits of rows rq and rq + 8: byte g of each holds
+      // columns 8 g .. 8 g + 7.
+      unsigned long long kb[2] = {~0ull, ~0ull};
+      if (keep) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          kb[h] = *reinterpret_cast<const unsigned long long*>(
+              keep + (lr + rq + 8 * h) * (WN_BN / 8) + ch * (WN_CHUNK / 8));
+      }
+#pragma unroll
+      for (int g = 0; g < WN_CHUNK / 8; ++g)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          float t = v[g][x];
+          t = e.act == ACT_RELU ? fmaxf(t, 0.0f) : (e.act == ACT_GELU ? gelu(t) : t);
+          if (keep)
+            t = (kb[x >> 1] >> (8 * g + 2 * q + (x & 1))) & 1ull ? t * e.drop.inv_keep : 0.0f;
+          v[g][x] = t;
+        }
+      // C: one pass of 128-byte rows for bf16, two for fp32.
+      constexpr int PER = 128 / sizeof(TOut) / 8;  // fragment groups a staged row holds
+#pragma unroll
+      for (int p = 0; p < WN_CHUNK / 8 / PER; ++p) {
+#pragma unroll
+        for (int g = p * PER; g < (p + 1) * PER; ++g) {
+          const int c = 8 * (g - p * PER) + 2 * q;
+          wn_stage(chunk, rq, c, v[g][0], v[g][1], (TOut*)nullptr);
+          wn_stage(chunk, rq + 8, c, v[g][2], v[g][3], (TOut*)nullptr);
+        }
+        __syncwarp();
+        wn_flush(chunk, C, m0 + lr, col0 + p * PER * 8, M, N, lane);
+        __syncwarp();
+      }
+    }
+    if (keep) mbar_arrive(&mempty[j & 1]);
+  }
+}
+
+template <typename TOut>
+cudaError_t launch_bf16_nt(const void* A, const void* B, void* C, int M, int N, int K,
+                           const Epi& e, cudaStream_t s) {
+  const int tiles = (M + WN_BM - 1) / WN_BM * ((N + WN_BN - 1) / WN_BN);
+  if (tiles == 0) return cudaSuccess;
+  int sms = 0;
+  cudaError_t err = sm_count(sms);
+  if (err != cudaSuccess) return err;
+  CUtensorMap ta{}, tb{};  // K == 0 loads nothing
+  if (K > 0 && (!tma_map(&ta, A, false, M, K, WN_BM, WN_BK) ||
+                !tma_map(&tb, B, false, N, K, WN_BN, WN_BK)))
+    return cudaErrorInvalidValue;
+  // Per launch, as the attribute belongs to the current device.
+  err = cudaFuncSetAttribute(gemm_bf16_nt_kernel<TOut>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, WN_SMEM);
+  if (err != cudaSuccess) return err;
+  gemm_bf16_nt_kernel<TOut><<<sms < tiles ? sms : tiles, WN_THREADS, WN_SMEM, s>>>(
+      ta, tb, static_cast<TOut*>(C), M, N, K, e);
   return cudaGetLastError();
 }
 
@@ -1042,7 +1431,8 @@ cudaError_t launch_f32_nn_tn(const void* A, const void* B, void* C, int M, int N
 }
 
 // fp32 runs on the CUDA cores ("nt" on its own kernel, "nn" / "tn" on the
-// MN-major one), bf16 on the wgmma kernel.
+// MN-major one); bf16 "nt" (both operands K-major) on the persistent
+// gemm_bf16_nt_kernel, "nn" / "tn" (B MN-major) on gemm_wgmma_kernel.
 template <int AT, int BT, int MODE>
 cudaError_t launch(const void* A, const void* B, void* C, int M, int N, int K, int splits,
                    int dtype, int out_f32, const Epi& e, cudaStream_t s) {
@@ -1050,10 +1440,15 @@ cudaError_t launch(const void* A, const void* B, void* C, int M, int N, int K, i
     if constexpr (!AT && !BT) return launch_f32_nt(A, B, C, M, N, K, e, s);
     else return launch_f32_nn_tn<AT, MODE>(A, B, C, M, N, K, splits, e, s);  // B MN-major
   }
-  // K per split, a multiple of the wgmma kernel's K slice; the last split may be short.
-  const int Kc = ((K + splits - 1) / splits + WG_BK - 1) / WG_BK * WG_BK;
-  return out_f32 ? launch_wgmma<float, AT, BT, MODE>(A, B, C, M, N, K, splits, Kc, e, s)
-                 : launch_wgmma<fm_bf16, AT, BT, MODE>(A, B, C, M, N, K, splits, Kc, e, s);
+  if constexpr (!AT && !BT) {
+    return out_f32 ? launch_bf16_nt<float>(A, B, C, M, N, K, e, s)
+                   : launch_bf16_nt<fm_bf16>(A, B, C, M, N, K, e, s);
+  } else {
+    // K per split, a multiple of the wgmma kernel's K slice; the last split may be short.
+    const int Kc = ((K + splits - 1) / splits + WG_BK - 1) / WG_BK * WG_BK;
+    return out_f32 ? launch_wgmma<float, AT, MODE>(A, B, C, M, N, K, splits, Kc, e, s)
+                   : launch_wgmma<fm_bf16, AT, MODE>(A, B, C, M, N, K, splits, Kc, e, s);
+  }
 }
 
 // ---- deterministic column sums ---------------------------------------------------
