@@ -34,7 +34,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    the CPU (probabilities within 1e-4); then ``FAMEPredictor.benchmark``.
 
 3b. training kernels: forward-with-residuals plus backward of both
-   half-layers through their ``autograd.Function`` against the plain forward
+   half-layers through their ops' autograd (``fm::``) against the plain forward
    plus the plain backward on the card, at the lab shapes (attention B256
    S560 8x96, FFN R143360 F2048 relu), fp32 and bf16, dropout off and at
    rate 0.1 (the same Philox seed, so the same masks); limits per grad,
@@ -61,7 +61,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
 3c. unfolded kernels (the layer with ``fold_ln=False``): ``fused_attention_block``
    (Pallas #5 / #6) and ``fused_ffn`` (#7 / #8) forward and backward through
-   their ``autograd.Function`` against the plain forward and backward, at
+   their ops' autograd (``fm::``) against the plain forward and backward, at
    the lab shapes (B256 S560 8x96; R143360 F2048 relu with the inner dropout
    off and at 0.1) and at a text shape (R 64 x 512, F 3072, gelu), fp32 and
    bf16, plus shapes off the main path (S 272, head dim 64, a fully masked
@@ -100,7 +100,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    (1e-5) and ``FAMEPredictor.benchmark`` unfolded.
 
 3d. flash kernels (Pallas #9 / #10, the flash route): ``flash_attention``
-   forward and backward (dq, dk, dv) through its autograd.Function against
+   forward and backward (dq, dk, dv) through its op's autograd against
    ``flash_attention_reference`` / ``flash_attention_backward_reference`` on
    the card, fp32 and bf16, at the lab shape (B256 S560 8x96, q/k/v head
    views of three [B, S, H] Dense outputs, 549 of 560 keys, the mask
@@ -190,8 +190,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    patients (for 08 its loss and backward), card against CPU from the same
    weights and generator seed (the loss within phase 5's limit of the CPU;
    every grad leaf within phase 5's limit of the float64 step beyond the
-   CPU's own fp32 error against it); the 01 train step at batch
-   16 in bf16 and fp32 (CUDA-event median of 20) and profiled; FAME's
+   CPU's own fp32 error against it), each model initialised once for the
+   three steps; the 01 train step at batch
+   16 in bf16 and fp32 (CUDA-event median of 10) and profiled; FAME's
    default step (``FAMETrainer.train_step`` at the reference geometry in
    fp32, ``TrainConfig``'s batch 16, dropout 0.1: what ``fame`` runs without
    --bf16), timed and profiled the same way; 07's bf16 step with and without
@@ -236,7 +237,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    kernel on 4), card against CPU by phase 8's rule (legacy-eddi's lab
    layers replayed and held by the lab encoder's rule, as 09's in phase 8);
    each step timed at batch 16
-   (CUDA-event median of 20) and profiled, legacy-behrt's also without
+   (CUDA-event median of 5) and profiled, legacy-behrt's also without
    dropout (the share of its int64 Philox dropout); and #2 / #4 alone at
    the contrastive encoder's shape (R 8784 = 16 x 549, 48 rows past a
    multiple of 128, H 256, F 512) in fp32 and bf16 against their plain
@@ -343,7 +344,23 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    each rank's), the folded one and the saved parameters scored with equal
    dynamic weights are recorded; (e) parameter bytes and peak memory per rank
    against one process, and the step time of the two ranks (CUDA-event
-   median of 8).
+   median of 5).
+
+14. the kernels as torch ops (``fm::``, ``ops/_library.py``) and FAME's step
+   captured into CUDA graphs: (a) ``torch.library.opcheck`` on CUDA tensors
+   for every op, fp32 and bf16, at small shapes with dropout on; (b) each op
+   pair (forward with its residuals, backward by autograd) captured at the lab
+   layer's geometry at batch 2, fp32 and bf16, its keys the device slots that
+   the graph's first node copies from pinned host memory: three replays, each
+   with fresh seeds and bit for bit the eager call with those seeds as ints;
+   on the last two the dropping ops run on inputs that show each mask (a zero
+   residual, a unit bias), whose kept elements are exactly ``dropout_mask``'s;
+   (c) FAME's step -- forward, loss, backward and ``clip_grad_norm_``, the
+   AdamW update left eager -- captured with a ``KeyTape`` in place of the
+   dropout generator, fp32 at batch 16 (the default run) and bf16 at batch 256
+   (phase 5's), folded: three replays with fresh seeds, each against the eager
+   step from the same generator state, the losses and every grad bit for bit;
+   (d) the replay against the eager step, CUDA-event medians in turns.
 
 It prints a ``{"kernels": [...]}`` line that keeps each kernel's required keys
 and its launches per phase (the LN-fused kernels' phase 6, 7, 8 and 9
@@ -636,7 +653,7 @@ def attention_train_check(fab, _build, gen, dtype, rate, B=256, S=560, H=768, nh
             raise AssertionError(f"{label}: dropout not reproducible per seed {row}")
     if timed or dtype == torch.float32:    # every fp32 backward, and the timed bf16 one
         from fairmultimodal_torch.utils.rng import Dropout
-        drop = Dropout.make(seed, 0, rate)
+        drop = _keyed(Dropout.make(seed, 0, rate))
         with torch.no_grad():
             fwd, _, saved = fab.half_layer_stages(*inputs, mask, dropout=drop, residuals=True,
                                                   **kw)
@@ -749,7 +766,7 @@ def ffn_train_check(ffn, _build, gen, dtype, rate, R=256 * 560, H=768, F=2048, a
         if not (row["same_seed_identical"] and row["other_seed_differs"]):
             raise AssertionError(f"{label}: dropout not reproducible per seed {row}")
     if timed or dtype == torch.float32:    # every fp32 backward, and the timed bf16 one
-        inner, outer = ffn._streams(seeds, rate, act)
+        inner, outer = map(_keyed, ffn._streams(seeds, rate, act))
         with torch.no_grad():
             fwd, _, saved = ffn.half_layer_stages(*inputs, inner=inner, outer=outer,
                                                   residuals=True, **kw)
@@ -870,7 +887,7 @@ def _check_forward(label, dtype, out, want):
 
 def block_check(fab, gen, dtype, B=256, S=560, H=768, nh=8, L=N_LABS, timed=False,
                 peak=BF16_PEAK):
-    """#5 and #6 through ``fused_attention_block`` and its autograd.Function
+    """#5 and #6 through ``fused_attention_block`` and its op's autograd
     against the plain forward and backward."""
     inputs, mask, g = _attn_train_case(fab, B, S, H, nh, 0.0, dtype, gen, L)
     inputs = inputs[:9]                       # x and the four projections, no LayerNorm
@@ -948,7 +965,7 @@ def block_check(fab, gen, dtype, B=256, S=560, H=768, nh=8, L=N_LABS, timed=Fals
 
 def unfolded_ffn_check(ffn, gen, dtype, rate, R=256 * 560, H=768, F=2048, act="relu",
                        timed=False, peak=BF16_PEAK):
-    """#7 and #8 through ``fused_ffn`` and its autograd.Function against the
+    """#7 and #8 through ``fused_ffn`` and its op's autograd against the
     plain forward and backward, with the inner dropout at ``rate``."""
     def rn(*shape, std=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
@@ -984,7 +1001,7 @@ def unfolded_ffn_check(ffn, gen, dtype, rate, R=256 * 560, H=768, F=2048, act="r
             raise AssertionError(f"{label}: dropout not reproducible per seed {row}")
         del again, other
     del out, grads, grads_p
-    inner = ffn._inner_stream(seed, rate, not rate, act)
+    inner = _keyed(ffn._inner_stream(seed, rate, not rate, act))
     if timed or dtype == torch.float32:    # every fp32 backward, and the timed bf16 one
         with torch.no_grad():
             fwd_res, _, saved = ffn.ffn_stages(*inputs, activation=act, inner=inner,
@@ -1127,6 +1144,14 @@ NT_STAGES = (
 )
 
 
+def _keyed(drop):
+    """``drop`` with its seed as a key on the card, as the launchers take
+    it (``ops/_library.key_of``)."""
+    from fairmultimodal_torch.ops import _library
+
+    return drop._replace(seed=_library.key_of(drop.seed, "cuda")) if drop.on else drop
+
+
 def _nt_plain(a, w, bias, act, drop, out_dtype, compute=torch.float32):
     """The "nt" GEMM's epilogue in ``compute`` (fp32, or float64 for the fp32
     stages) on the same inputs: (out, aux)."""
@@ -1153,7 +1178,7 @@ def nt_gemm_check(_build, gen, name, M, N, K, act, rate, with_aux, out_f32, time
     a = torch.randn(M, K, generator=gen, device="cuda").to(bf)
     w = (torch.randn(N, K, generator=gen, device="cuda") * K ** -0.5).to(bf)
     bias = 0.02 * torch.randn(N, generator=gen, device="cuda") + bias_shift
-    drop = Dropout.make(NT_SEED, 0, rate)
+    drop = _keyed(Dropout.make(NT_SEED, 0, rate))
     out = torch.empty(M, N, device="cuda", dtype=torch.float32 if out_f32 else bf)
     aux = torch.empty(M, N, device="cuda", dtype=bf) if with_aux else None
     run = lambda: _build.gemm(a, w, out, bias=bias, activation=act, dropout=drop,  # noqa: E731
@@ -1381,7 +1406,7 @@ def f32_gemm_check(_build, fab, gen, name, layout, M, N, K, act_or_gate, extra, 
     colpart = None
     if layout == "nt":
         bias = 0.02 * torch.randn(N, generator=gen, device="cuda") + bias_shift
-        drop = rng.Dropout.make(NT_SEED, 0, extra)
+        drop = _keyed(rng.Dropout.make(NT_SEED, 0, extra))
         run = lambda: _build.gemm(a, b, out, bias=bias, activation=act_or_gate,  # noqa: E731
                                   dropout=drop, aux=aux)
         (want, want_aux), want_sum = _nt_plain(a, b, bias, act_or_gate, drop, f64,
@@ -1491,7 +1516,8 @@ NO_SPILL_KERNELS = ("gemm_bf16_nt_kernel", "gemm_f32_nt_kernel", "gemm_f32_nn_tn
 def ptxas_report(_build, names=PTXAS_KERNELS):
     """What ``nvcc -Xptxas -v`` said of each instantiation of ``names``
     (the build's logs): registers, stack, spills, and any warning about
-    them.  Raises if a kernel of ``NO_SPILL_KERNELS`` spills."""
+    them.  Raises if a name has no kernel in the logs, or if a kernel of
+    ``NO_SPILL_KERNELS`` spills."""
     import re
 
     report = {}
@@ -1519,8 +1545,9 @@ def ptxas_report(_build, names=PTXAS_KERNELS):
                 report[current]["registers"] = int(m.group(1))
                 m = re.search(r"(\d+) bytes smem", line)
                 report[current]["static_smem"] = int(m.group(1)) if m else 0
-    if not any(k != "warnings" for k in report):
-        raise AssertionError("ptxas report: no entry for the redesigned kernels in the build logs")
+    missing = [n for n in names if not any(n in k for k in report)]
+    if missing:
+        raise AssertionError(f"ptxas report: no kernel named {missing} in the build logs")
     for name, row in report.items():
         if any(n in name for n in NO_SPILL_KERNELS) and (
                 row.get("spill_stores", 1) or row.get("spill_loads", 1)):
@@ -1601,7 +1628,7 @@ def _flash_inputs(B, S, nh, d, layout, mask_kind, dtype, gen):
 
 def flash_check(flash, gen, dtype, B, S, nh, d, layout="dense", mask_kind="rows", timed=False,
                 peak=BF16_PEAK, stages=True):
-    """#9 and #10 through ``flash_attention`` and its autograd.Function
+    """#9 and #10 through ``flash_attention`` and its op's autograd
     against ``flash_attention_reference`` and
     ``flash_attention_backward_reference`` on the same inputs."""
     leaves, q, k, v, mask, g = _flash_inputs(B, S, nh, d, layout, mask_kind, dtype, gen)
@@ -3408,14 +3435,15 @@ def _card_layer_parts(fab, ffn, _build, layer, tap):
     with torch.no_grad():
         stages, x1, saved = fab.half_layer_stages(
             x, *p, layer.norm1.weight, layer.norm1.bias, mask, num_heads=nh, ln_eps=eps,
-            dropout=Dropout.make(attn_seed, 0, rate), residuals=True)
+            dropout=_keyed(Dropout.make(attn_seed, 0, rate)), residuals=True)
         fab._run(stages)
         x1r = x1.view(b * s, hd)
         w1, b1 = layer.ffn_in.weight.detach(), layer.ffn_in.bias.detach()
         w2, b2 = layer.ffn_out.weight.detach(), layer.ffn_out.bias.detach()
         h = torch.empty(b * s, w1.shape[0], device=x.device)
         _build.gemm(x1r, w1, h, bias=b1)
-        inner_d, outer_d = Dropout.make(inner, 0, rate), Dropout.make(outer, 1, rate)
+        inner_d, outer_d = (_keyed(Dropout.make(inner, 0, rate)),
+                            _keyed(Dropout.make(outer, 1, rate)))
         stages, out, saved2 = ffn.half_layer_stages(
             x1r, w1, b1, w2, b2, layer.norm2.weight, layer.norm2.bias, activation="relu",
             ln_eps=eps, inner=inner_d, outer=outer_d, residuals=True)
@@ -3578,10 +3606,14 @@ def replayed_shares(fab, ffn, _build, factory, taps, card, cpu, ref, report):
     return share
 
 
+#: Timed steps (CUDA-event median) of phase 8's step rows.
+BASE_TIMED_STEPS = 10
+
+
 def fame_default_step(n=BASE_BATCH, seed=9):
     """``FAMETrainer.train_step`` as a default ``fame`` run trains: fp32, the
     default ``TrainConfig`` (batch 16), dropout on, the reference geometry
-    with seed-0 weights; the CUDA-event median of 20 after warm-up and the
+    with seed-0 weights; the CUDA-event median of 10 after warm-up and the
     profiler's split."""
     from fairmultimodal_torch.data.prefetch import to_device
     from fairmultimodal_torch.models._layers import init_params
@@ -3596,7 +3628,8 @@ def fame_default_step(n=BASE_BATCH, seed=9):
     keys = [k for k in a if k != "labels"]
     batch = to_device({"model_inputs": {k: a[k] for k in keys}, "labels": a["labels"],
                        "weight": np.ones(n, np.float32)}, trainer.device)
-    out = {"timed": time_train_step(trainer, batch), "profile": profile_train_step(trainer, batch)}
+    out = {"timed": time_train_step(trainer, batch, steps=BASE_TIMED_STEPS),
+           "profile": profile_train_step(trainer, batch)}
     del trainer, batch
     return out
 
@@ -3729,19 +3762,22 @@ def baseline_phase(flash, fab, ffn, addnorm, _build):
     xdev = {}
     for name, factory, keys, cfg in _baseline_models():
         taps = {who: {} for who in ("card", "cpu", "f64")}
+        init = init_params(factory(torch.float32), seed=0)     # one init per model
 
         def tap(who):
             return _lab_layer_taps(taps[who]) if name in REPLAY_MODELS else None
 
         try:
             fab.bwd_launches = ffn.bwd_launches = 0
-            card = baseline_fp32_step(name, factory, keys, cfg, "cuda", prepare=tap("card"))
+            card = baseline_fp32_step(name, factory, keys, cfg, "cuda", prepare=tap("card"),
+                                      init=init)
             lab_bwd = min(fab.bwd_launches, ffn.bwd_launches)
             taps["card"].pop("restore", lambda: None)()
-            cpu = baseline_fp32_step(name, factory, keys, cfg, "cpu", prepare=tap("cpu"))
+            cpu = baseline_fp32_step(name, factory, keys, cfg, "cpu", prepare=tap("cpu"),
+                                     init=init)
             taps["cpu"].pop("restore", lambda: None)()
             _, ref = baseline_fp32_step(name, factory, keys, cfg, "cpu", torch.float64,
-                                        prepare=tap("f64"))
+                                        prepare=tap("f64"), init=init)
         finally:
             for t in taps.values():
                 t.pop("restore", lambda: None)()
@@ -3780,7 +3816,7 @@ def baseline_phase(flash, fab, ffn, addnorm, _build):
         trainer = MultitaskTrainer(init_params(factory(dtype), seed=0), cfg, POS_WEIGHT,
                                    device="cuda")
         batch = _baseline_batch(keys, "cuda")
-        step[tag] = {"timed": time_train_step(trainer, batch),
+        step[tag] = {"timed": time_train_step(trainer, batch, steps=BASE_TIMED_STEPS),
                      "profile": profile_train_step(trainer, batch)}
         log(f"[baselines] 01 train step {tag}: {json.dumps(step[tag])}")
         del trainer
@@ -3799,9 +3835,9 @@ def baseline_phase(flash, fab, ffn, addnorm, _build):
     trainer = MultitaskTrainer(init_params(factory(torch.bfloat16), seed=0), cfg, POS_WEIGHT,
                                device="cuda")
     batch = _baseline_batch(keys, "cuda")
-    step["07_bfloat16"] = {"dropout": time_train_step(trainer, batch)}
+    step["07_bfloat16"] = {"dropout": time_train_step(trainer, batch, steps=BASE_TIMED_STEPS)}
     trainer.config.deterministic_forward = True
-    step["07_bfloat16"]["no_dropout"] = time_train_step(trainer, batch)
+    step["07_bfloat16"]["no_dropout"] = time_train_step(trainer, batch, steps=BASE_TIMED_STEPS)
     on, off = (step["07_bfloat16"][k]["train_step_ms"] for k in ("dropout", "no_dropout"))
     step["07_bfloat16"]["dropout_share"] = (on - off) / on
     log(f"[baselines] 07 train step bf16: {json.dumps(step['07_bfloat16'])}")
@@ -3853,7 +3889,7 @@ CLP_STAGES = (
 #: batch.  The others keep BASE_BATCH (the timed steps all run at BASE_BATCH).
 P9_CHECK_PATIENTS = {"03": 4, "legacy-behrt": 4, "EDDIFusionModel": 4}
 #: Phase 9's timed train steps per model (CUDA-event median; phase 8 times 20).
-P9_TIMED_STEPS = 8
+P9_TIMED_STEPS = 5
 #: The sequence BEHRT's geometry for its card step: about the vocabulary a 2048-subject
 #: cohort gives, S 8 (up to 4 admissions).
 SEQ_GEO = dict(num_diseases=5120, num_ages=76, num_admission_locs=19, num_discharge_locs=19,
@@ -5189,7 +5225,7 @@ def dp_rank(root, device="cuda", small=False):
     torch.cuda.empty_cache()
 
     # (g) this rank's train step, both ranks stepping together on the card.
-    res["step"] = time_train_step(trainer_d, batch, steps=8, warmup=1) if device == "cuda" \
+    res["step"] = time_train_step(trainer_d, batch, steps=5, warmup=1) if device == "cuda" \
         else {}
     res["total_s"] = time.perf_counter() - t_start
     return res
@@ -5687,7 +5723,7 @@ def tp_rank(root, device="cuda", small=False):
         torch.cuda.empty_cache()
 
     # (e) this rank's train step, both ranks stepping together on the card.
-    res["step"] = time_train_step(td, batch, steps=8, warmup=1) if cuda else {}
+    res["step"] = time_train_step(td, batch, steps=5, warmup=1) if cuda else {}
     res["total_s"] = time.perf_counter() - t_start
     return res
 
@@ -5969,6 +6005,373 @@ def tp_phase(flash, fab, ffn, addnorm, refs=None, device="cuda", small=False):
     return info["launches_tp"], info
 
 
+# -- phase 14: the kernels as torch ops, and FAME's step captured into CUDA graphs --------
+#
+# A replay must give the eager call's bits: the same kernels run in the same
+# order on the same inputs, and the keys they read hold the seeds the eager
+# call passes as ints.  No tolerance applies anywhere in this phase.
+
+OPS_GEO = dict(B=2, S=128, H=256, nh=4, F=512)      # opcheck: every kernel's constraints
+CAPTURE_GEO = dict(B=2, S=560, H=768, nh=8, F=2048)  # the lab layer at batch 2
+CAPTURE_RATE, CAPTURE_REPLAYS = 0.1, 3
+CAPTURED_STEPS = (("fp32 B16", torch.float32, 16, 9), ("bf16 B256", torch.bfloat16, 256, 2))
+CAPTURE_TIMED, CAPTURE_TURNS = 8, 2
+
+
+def _randn(gen, shape, dtype, std=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+
+
+def _lab_mask(gen, b, s):
+    mask = (torch.rand((b, s), generator=gen, device="cuda") > 0.2).to(torch.int32)
+    mask[:, 0] = 1
+    return mask
+
+
+def _op_inputs(gen, dtype, B, S, H, nh, F):
+    f32 = torch.float32
+    x = _randn(gen, (B, S, H), dtype)
+    w = [_randn(gen, (3 * H, H), dtype, H ** -0.5), _randn(gen, (3 * H,), dtype, 0.05),
+         _randn(gen, (H, H), dtype, H ** -0.5), _randn(gen, (H,), dtype, 0.05)]
+    ffn = [_randn(gen, (B * S, H), dtype), _randn(gen, (F, H), dtype, H ** -0.5),
+           _randn(gen, (F,), dtype, 0.05), _randn(gen, (H, F), dtype, F ** -0.5),
+           _randn(gen, (H,), dtype, 0.05)]
+    return dict(x=x, w=w, gamma=1.0 + _randn(gen, (H,), f32, 0.1), beta=_randn(gen, (H,), f32, 0.1),
+                mask=_lab_mask(gen, B, S), g=_randn(gen, (B, S, H), dtype), ffn=ffn,
+                g2=_randn(gen, (B * S, H), dtype),
+                qkv=_randn(gen, (B, S, 3 * H), dtype))
+
+
+def op_cases(fab, ffn, flash, addnorm, gen, dtype, B, S, H, nh, F, rate=CAPTURE_RATE):
+    """fm:: op name -> (op, args) on CUDA tensors: each forward with dropout
+    on where it draws (keys made by ``device_key``), each backward from its
+    forward's residuals."""
+    from fairmultimodal_torch.utils.rng import Dropout, device_key
+
+    t = _op_inputs(gen, dtype, B, S, H, nh, F)
+    x, w, gamma, beta, mask, g = (t[k] for k in ("x", "w", "gamma", "beta", "mask", "g"))
+    key = [device_key(1000 + i, "cuda") for i in range(5)]
+    inv = 1.0 / (1.0 - rate)
+    cases = {}
+    fwd = (x, *w, gamma, beta, mask, key[0], rate, nh, 1e-5, True)
+    _, qkv, o, stats, z = fab.attention_block_ln_op(*fwd)
+    cases["attention_block_ln"] = (fab.attention_block_ln_op, fwd)
+    cases["attention_block_ln_bwd"] = (fab.attention_block_ln_bwd_op, (
+        g, x, qkv, o, stats, z, w[0], w[2], gamma, mask, key[0], rate, nh, 1e-5))
+    fwd = (x, *w, mask, nh, True)
+    _, qkv, o, stats = fab.attention_block_op(*fwd)
+    cases["attention_block"] = (fab.attention_block_op, fwd)
+    cases["attention_block_bwd"] = (fab.attention_block_bwd_op,
+                                    (g, x, qkv, o, stats, w[0], w[2], mask, nh))
+    x2, w1, b1, w2, b2 = t["ffn"]
+    fwd = (x2, w1, b1, w2, b2, gamma, beta, key[1], key[2], rate, "relu", 1e-5, True)
+    _, hd, z2 = ffn.ffn_ln_op(*fwd)
+    cases["ffn_ln"] = (ffn.ffn_ln_op, fwd)
+    cases["ffn_ln_bwd"] = (ffn.ffn_ln_bwd_op, (t["g2"], x2, hd, z2, w1, w2, gamma, key[2], rate,
+                                               inv, "relu", 1e-5))
+    fwd = (x2, w1, b1, w2, b2, key[3], rate, "relu", True)
+    _, hd = ffn.ffn_op(*fwd)
+    cases["ffn"] = (ffn.ffn_op, fwd)
+    cases["ffn_bwd"] = (ffn.ffn_bwd_op, (t["g2"], x2, hd, w1, w2, inv, "relu"))
+    q, k, v = (u.transpose(1, 2) for u in t["qkv"].view(B, S, 3, nh, H // nh).unbind(2))
+    fwd = (q, k, v, mask, True)
+    o, stats = flash.flash_attention_op(*fwd)
+    cases["flash_attention"] = (flash.flash_attention_op, fwd)
+    cases["flash_attention_bwd"] = (flash.flash_attention_bwd_op,
+                                    (g.view(B, S, nh, H // nh).transpose(1, 2), q, k, v, o,
+                                     stats, mask))
+    drop = Dropout.make(key[4], 1, rate)
+    fwd = (x, g, gamma, beta, drop.seed, drop.stream, drop.threshold, drop.inv_keep, 1e-5, True)
+    _, z3 = addnorm.dropout_add_layernorm_op(*fwd)
+    cases["dropout_add_layernorm"] = (addnorm.dropout_add_layernorm_op, fwd)
+    cases["dropout_add_layernorm_bwd"] = (addnorm.dropout_add_layernorm_bwd_op, (
+        g, z3, gamma, drop.seed, drop.stream, drop.threshold, drop.inv_keep, 1e-5))
+    return cases
+
+
+def opcheck_all(fab, ffn, flash, addnorm):
+    """(a): ``torch.library.opcheck`` of every op, fp32 and bf16, on the card."""
+    from fairmultimodal_torch.ops import _library
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = op_cases(fab, ffn, flash, addnorm, gen, dtype, **OPS_GEO)
+        if sorted(cases) != sorted(_library.OPS):
+            raise AssertionError(f"opcheck cases {sorted(cases)}, ops {sorted(_library.OPS)}")
+        for name, (op, args) in cases.items():
+            if not name.endswith("_bwd"):
+                args = tuple(a.detach().clone().requires_grad_(True)
+                             if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+                             for a in args)
+            t0 = time.perf_counter()
+            result = torch.library.opcheck(op, args)
+            if set(result.values()) != {"SUCCESS"}:
+                raise AssertionError(f"opcheck {name} {dtype}: {result}")
+            out[f"{name} {str(dtype)[6:]}"] = round(time.perf_counter() - t0, 2)
+    return out
+
+
+def _capture(run, n_keys):
+    """``run(keys)`` captured into a CUDA graph after two warm-up calls on a
+    side stream (the first builds, sets kernel attributes and encodes tensor
+    maps): its keys are the slots of a device buffer that the graph's first
+    node copies from ``host``, pinned memory the caller rewrites before each
+    replay.  Returns (graph, the outputs' static tensors, host)."""
+    from fairmultimodal_torch.ops import _build
+
+    host = torch.zeros(max(n_keys, 1), dtype=torch.int64, pin_memory=True)
+    dev = torch.zeros(max(n_keys, 1), dtype=torch.int64, device="cuda")
+    keys = [dev[i] for i in range(n_keys)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            _build.copy_h2d(dev, host)
+            run(keys)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _build.copy_h2d(dev, host)
+        outs = run(keys)
+    return graph, outs, host
+
+
+def _op_pairs(fab, ffn, flash, addnorm, gen, dtype, B, S, H, nh, F, rate=CAPTURE_RATE):
+    """The six op pairs as (name, run, keys, leaves, show, masks): ``run(keys)``
+    is the forward op with its residuals and the backward by autograd,
+    returning [output, residuals that show a mask, grads...]; ``show()`` sets
+    the inputs in place to values that make each mask visible (None for a
+    pair that draws none); ``masks`` lists (output index, key index, stream,
+    shape) of each mask an output shows."""
+    from fairmultimodal_torch.ops import _library
+    from fairmultimodal_torch.utils.rng import Dropout
+
+    t = _op_inputs(gen, dtype, B, S, H, nh, F)
+    R = B * S
+
+    def leaf(v):
+        return v.detach().clone().requires_grad_(True)
+
+    def key_args(keys):
+        return [_library.key_of(k, "cuda") for k in keys]
+
+    def grads(out, leaves, g):
+        return list(torch.autograd.grad(out, leaves, g))
+
+    def fill(pairs):
+        with torch.no_grad():
+            for tensor, value in pairs:
+                tensor.fill_(value)
+
+    pairs = []
+    x, w, gamma, beta = leaf(t["x"]), [leaf(u) for u in t["w"]], leaf(t["gamma"]), leaf(t["beta"])
+    mask, g = t["mask"], t["g"]
+    ln_leaves = [x, *w, gamma, beta]
+
+    def attention_ln(keys):
+        out, _, _, _, z = fab.attention_block_ln_op(*ln_leaves, mask, *key_args(keys), rate, nh,
+                                                    1e-5, True)
+        return [out, z, *grads(out, ln_leaves, g)]
+
+    pairs.append(("attention_block_ln", attention_ln, 1, ln_leaves,
+                  lambda: fill([(x, 0.0), (w[2], 0.0), (w[3], 1.0)]), [(1, 0, 0, (R, H))]))
+    block_leaves = [leaf(t["x"]), *[leaf(u) for u in t["w"]]]
+
+    def block(keys):
+        out = fab.attention_block_op(*block_leaves, mask, nh, True)[0]
+        return [out, *grads(out, block_leaves, g)]
+
+    pairs.append(("attention_block", block, 0, block_leaves, None, []))
+    fl = [leaf(u) for u in t["ffn"]]
+    fln_leaves = [*fl, leaf(t["gamma"]), leaf(t["beta"])]
+
+    def ffn_ln(keys):
+        out, hd, z = ffn.ffn_ln_op(*fln_leaves, *key_args(keys), rate, "relu", 1e-5, True)
+        return [out, hd, z, *grads(out, fln_leaves, t["g2"])]
+
+    pairs.append(("ffn_ln", ffn_ln, 2, fln_leaves,
+                  lambda: fill([(fl[0], 0.0), (fl[1], 0.0), (fl[2], 1.0), (fl[3], 0.0),
+                                (fl[4], 1.0)]),
+                  [(1, 0, 0, (R, F)), (2, 1, 1, (R, H))]))
+    uf = [leaf(u) for u in t["ffn"]]
+
+    def ffn_unfolded(keys):
+        out, hd = ffn.ffn_op(*uf, *key_args(keys), rate, "relu", True)
+        return [out, hd, *grads(out, uf, t["g2"])]
+
+    pairs.append(("ffn", ffn_unfolded, 1, uf,
+                  lambda: fill([(uf[1], 0.0), (uf[2], 1.0)]), [(1, 0, 0, (R, F))]))
+    packed = leaf(t["qkv"])
+    gh = g.view(B, S, nh, H // nh).transpose(1, 2)
+
+    def flash_pair(keys):
+        q, k, v = (u.transpose(1, 2) for u in packed.view(B, S, 3, nh, H // nh).unbind(2))
+        out = flash.flash_attention_op(q, k, v, mask, True)[0]
+        return [out, *grads(out, [packed], gh)]
+
+    pairs.append(("flash_attention", flash_pair, 0, [packed], None, []))
+    gx, gy = leaf(t["x"]), leaf(t["g"])
+    glue_leaves = [gx, gy, leaf(t["gamma"]), leaf(t["beta"])]
+
+    def glue(keys):
+        drop = Dropout.make(*key_args(keys), 1, rate)
+        out, z = addnorm.dropout_add_layernorm_op(*glue_leaves, drop.seed, drop.stream,
+                                                  drop.threshold, drop.inv_keep, 1e-5, True)
+        return [out, z, *grads(out, glue_leaves, g)]
+
+    pairs.append(("dropout_add_layernorm", glue, 1, glue_leaves,
+                  lambda: fill([(gx, 0.0), (gy, 1.0)]), [(1, 0, 1, (R, H))]))
+    return pairs
+
+
+def op_capture_check(fab, ffn, flash, addnorm, dtype):
+    """(b) for one dtype: each op pair captured and replayed against eager."""
+    from fairmultimodal_torch.utils.rng import dropout_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    seeds = torch.Generator().manual_seed(16)
+    report = {}
+    for name, run, n_keys, leaves, show, masks in _op_pairs(fab, ffn, flash, addnorm, gen,
+                                                            dtype, **CAPTURE_GEO):
+        graph, outs, host = _capture(run, n_keys)
+        kept = []
+        for i in range(CAPTURE_REPLAYS):
+            if i == 1 and show is not None:
+                show()
+            elif i > 0:                       # new inputs through the same buffers
+                with torch.no_grad():
+                    for t in leaves:
+                        t.mul_(0.5)
+            drawn = [int(s) for s in torch.randint(0, 2 ** 31 - 1, (max(n_keys, 1),),
+                                                   generator=seeds)][:n_keys]
+            if n_keys:
+                host.copy_(torch.tensor(drawn, dtype=torch.int64))
+            graph.replay()
+            torch.cuda.synchronize()
+            got = [t.clone() for t in outs]
+            want = run(drawn)
+            same = [torch.equal(a, b) for a, b in zip(got, want)]
+            if not all(same):
+                raise AssertionError(f"{name} {dtype}: replay {i} differs from eager in "
+                                     f"outputs {[j for j, s in enumerate(same) if not s]}")
+            if i > 0 and show is not None:
+                for out_i, key_i, stream, shape in masks:
+                    want_mask = dropout_mask(drawn[key_i], stream, shape, CAPTURE_RATE, "cuda")
+                    if not torch.equal(got[out_i].reshape(shape) != 0, want_mask):
+                        raise AssertionError(f"{name} {dtype}: replay {i}'s mask of output "
+                                             f"{out_i} is not dropout_mask's")
+                    kept.append(float(want_mask.float().mean()))
+        report[name] = {"replays": CAPTURE_REPLAYS, "bit_identical": True,
+                        "masks_checked": len(kept),
+                        **({"kept_fraction": [round(k, 4) for k in kept]} if kept else {})}
+        del graph, outs
+    torch.cuda.empty_cache()
+    return report
+
+
+def captured_step_check(dtype, n, seed):
+    """(c) and (d) for one configuration: FAME's step up to the clip,
+    captured with a KeyTape, against the eager step; then both timed."""
+    from fairmultimodal_torch.data.prefetch import to_device
+    from fairmultimodal_torch.models._layers import init_params
+    from fairmultimodal_torch.models.fusion import FAMEModel
+    from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
+    from fairmultimodal_torch.utils.rng import KeyTape
+
+    trainer = FAMETrainer(init_params(FAMEModel(**TRAIN_GEO, dtype=dtype), seed=0),
+                          TrainConfig(lr=1e-4, batch_size=n), pos_weight=POS_WEIGHT,
+                          rngs_seed=0, device="cuda")
+    a = synthetic_cohort(np.random.default_rng(seed), n)
+    keys = [k for k in a if k != "labels"]
+    batch = to_device({"model_inputs": {k: a[k] for k in keys}, "labels": a["labels"],
+                       "weight": np.ones(n, np.float32)}, trainer.device)
+    dyn_w = trainer._dyn_w()
+    gen = trainer._dropout_rng
+    params = [p for group in trainer.optimizer.param_groups for p in group["params"]]
+
+    def step(generator):
+        """``FAMETrainer.train_step`` without its AdamW update."""
+        trainer._dropout_rng = generator
+        total, bce = trainer.backward(batch, dyn_w)
+        torch.nn.utils.clip_grad_norm_(trainer.model.parameters(), trainer.config.grad_clip)
+        return total, bce
+
+    tape = KeyTape(gen, "cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(tape)                            # records the step's dropout sites
+        tape.redraw().upload()
+        step(tape)                            # a pass that reads its keys from the tape
+    torch.cuda.current_stream().wait_stream(side)
+    tape.redraw()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tape.upload()
+        total, bce = step(tape)
+    static = [total, bce] + [p.grad for p in params]
+    res = {"dropout_sites": len(tape.sites), "replays": CAPTURE_REPLAYS}
+    for i in range(CAPTURE_REPLAYS):
+        state = gen.get_state()
+        want = list(step(gen)) + [p.grad.clone() for p in params]
+        gen.set_state(state)
+        tape.redraw()
+        graph.replay()
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(static, want)]
+        if not all(same):
+            bad = [j for j, s in enumerate(same) if not s]
+            raise AssertionError(f"captured step {dtype} B{n}, replay {i}: {len(bad)} of "
+                                 f"{len(same)} tensors differ from eager (first {bad[:5]})")
+        if i == 0:
+            res["loss"] = float(want[0])
+    res["bit_identical"] = True
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    turns = {"eager_ms": [], "replay_ms": []}
+    for _ in range(CAPTURE_TURNS):
+        turns["eager_ms"].append(statistics.median(timed(lambda: step(gen))
+                                                   for _ in range(CAPTURE_TIMED)))
+        replays = []
+        for _ in range(CAPTURE_TIMED):
+            tape.redraw()
+            replays.append(timed(graph.replay))
+        turns["replay_ms"].append(statistics.median(replays))
+    res.update(turns)
+    del graph, static, trainer, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def ops_capture_phase(fab, ffn, flash, addnorm):
+    """Phase 14: (a) opcheck, (b) the op pairs captured, (c, d) the steps."""
+    t0 = time.perf_counter()
+    info = {"opcheck_s": opcheck_all(fab, ffn, flash, addnorm)}
+    info["seconds_by_part"] = {"opcheck": time.perf_counter() - t0}
+    log(f"[ops] opcheck, every op and dtype passed: {json.dumps(info['opcheck_s'])}")
+    t0 = time.perf_counter()
+    info["op_pairs"] = {str(dt)[6:]: op_capture_check(fab, ffn, flash, addnorm, dt)
+                        for dt in (torch.float32, torch.bfloat16)}
+    info["seconds_by_part"]["op_pairs"] = time.perf_counter() - t0
+    log(f"[ops] op pairs captured: {json.dumps(info['op_pairs'])}")
+    info["steps"] = {}
+    for label, dtype, n, seed in CAPTURED_STEPS:
+        t0 = time.perf_counter()
+        info["steps"][label] = captured_step_check(dtype, n, seed)
+        info["seconds_by_part"][label] = time.perf_counter() - t0
+        log(f"[ops] captured step {label}: {json.dumps(info['steps'][label])}")
+    return info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -6082,6 +6485,17 @@ def main() -> int:
                      "seconds by part": json.dumps({k: round(v, 1) for k, v in
                                                     out[1]["seconds_by_part"].items()})})
     log(f"[tp] {json.dumps(tp_info)} | {smi}")
+    ops_info = phase(
+        "14 ops and CUDA graphs", lambda: ops_capture_phase(fab, ffn, flash, addnorm),
+        lambda out: {"opcheck cases": len(out["opcheck_s"]),
+                     "op pairs bit-identical over replays": sum(
+                         len(v) for v in out["op_pairs"].values()),
+                     "steps eager / replay ms": {k: [[round(t, 2) for t in v["eager_ms"]],
+                                                     [round(t, 2) for t in v["replay_ms"]]]
+                                                 for k, v in out["steps"].items()},
+                     "seconds by part": json.dumps({k: round(v, 1) for k, v in
+                                                    out["seconds_by_part"].items()})})
+    log(f"[ops] {json.dumps(ops_info)} | {smi}")
 
     meta = {
         "fused_attention_block_ln": ("fairmultimodal_torch/ops/csrc/flash_attention.cu",

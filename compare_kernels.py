@@ -67,6 +67,28 @@ the fp32 redesign has too.
 
 runs only the two STEP measurements, one process per tree: give the trees in
 turns (A B B A A B ...) to read the host-bound FAME step's spread.
+
+    python3 compare_kernels.py --host TREE [TREE ...]
+
+times what the host pays to drive the kernels, through public entry points
+every tree has: the bits of each launch that draws dropout (the "nt" W1
+epilogue, the add + LayerNorm row kernel and its backward, bf16 and fp32;
+DROPBITS: equal hashes, equal masks and values) and GEMMBITS; the host microseconds of one
+wrapper call from an idle card (median of 40) for each kernel pair at FAME's
+default lab layer (fp32, B 16 x S 560), its forward with grad on and its
+backward, and the text encoder's no-grad forwards (HOSTUS); and FAME's eager
+train step in fp32 at batch 16 and in bf16 at batch 256, each a CUDA-event
+median of 20 with the profiler's busy / idle split (STEP).
+
+    python3 compare_kernels.py --steps-host TREE [TREE ...]
+
+runs only those two steps, one short process per tree (give many trees in
+turns, A B B A B A A B ...: the host's speed differs from process to
+process): each step's CUDA-event median of 20 as ``time_train_step`` takes
+it, the host time of one forward + backward from an idle card with the
+dynamic weights already on the card (median of 15), and how many
+synchronising CUDA calls one ``train_step`` makes (torch's sync debug mode;
+STEPSHOST).
 """
 
 import os
@@ -276,7 +298,7 @@ import json, sys, numpy as np, torch, chip_smoke as c
 from fairmultimodal_torch.ops import _build, flash_attention as flash
 from fairmultimodal_torch.ops import fused_attention_block as fab, fused_ffn as ffn
 torch.backends.cuda.matmul.allow_tf32 = False
-print(json.dumps(c.ptxas_report(_build, ("gemm_f32_kernel", "gemm_f32_nt_kernel",
+print(json.dumps(c.ptxas_report(_build, ("gemm_f32_nt_kernel",
                                          "gemm_f32_nn_tn_kernel", "flash_attn_fwd_f32_kernel",
                                          "flash_bwd_dq_f32_kernel",
                                          "flash_bwd_dkdv_f32_kernel"))), flush=True)
@@ -390,7 +412,8 @@ inputs, mask, _ = c._attn_train_case(fab, 16, 560, 768, 8, 1e-5, torch.float32, 
 x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta = inputs
 with torch.no_grad():
     fwd, _, _ = fab.half_layer_stages(*inputs, mask, num_heads=8, ln_eps=1e-5,
-                                      dropout=Dropout.make(1234, 0, 0.1), residuals=True)
+                                      dropout=Dropout.make(key_of(1234, "cuda"), 0, 0.1),
+                                      residuals=True)
     for _, fn in fwd:
         fn()
     w_qkv, b_qkv = torch.cat((wq, wk, wv)), torch.cat((bq, bk, bv))
@@ -510,18 +533,212 @@ print("STEP", json.dumps({"step": "01 fp32 B16", "timed": c.time_train_step(trai
 '''
 
 
+_HOST = r'''
+import hashlib, json, statistics, time, numpy as np, torch, chip_smoke as c
+from fairmultimodal_torch.data.prefetch import to_device
+from fairmultimodal_torch.models._layers import init_params
+from fairmultimodal_torch.models.fusion import FAMEModel
+from fairmultimodal_torch.ops import _build, dropout_add_layernorm as addnorm
+from fairmultimodal_torch.ops import flash_attention as flash
+from fairmultimodal_torch.ops import fused_attention_block as fab, fused_ffn as ffn
+from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
+from fairmultimodal_torch.utils.rng import Dropout
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.build()
+_build.kernels()
+dev, f32 = "cuda", torch.float32
+gen = torch.Generator(device=dev).manual_seed(21)
+
+
+def rnd(*shape, dtype=f32, std=1.0):
+    return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
+
+
+def digest(*ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+# Bits of every launch that draws dropout: the "nt" epilogue (relu + dropout),
+# the add + LayerNorm row kernel and its backward, from int seeds (the high
+# word set, as fold_in sets it).
+bits = {}
+for dt in (torch.bfloat16, f32):
+    name = str(dt)[6:]
+    a, w, bias = rnd(4480, 768, dtype=dt), rnd(2048, 768, dtype=dt, std=0.04), rnd(2048)
+    out = torch.empty(4480, 2048, device=dev, dtype=dt)
+    _build.gemm(a, w, out, bias=bias, activation="relu",
+                dropout=Dropout.make(key_of(123456789 | 3 << 32, dev), 0, 0.1))
+    bits["nt relu dropout " + name] = digest(out)
+    x, y, gamma, beta = rnd(4480, 768, dtype=dt), rnd(4480, 768), 1 + rnd(768, std=0.1), rnd(768)
+    o, z = torch.empty_like(x), torch.empty_like(x)
+    drop = Dropout.make(key_of(987654321, dev), 1, 0.1)
+    _build.add_layernorm(x, y, gamma, beta, o, 1e-5, drop, z)
+    bits["add_layernorm dropout " + name] = digest(o, z)
+    dz, da = torch.empty(4480, 768, device=dev), torch.empty_like(x)
+    part = torch.empty((3, -(-4480 // _build.LN_BWD_ROWS), 768), device=dev)
+    _build.layernorm_bwd(rnd(4480, 768, dtype=dt), z, gamma, dz, da, part, 1e-5, drop)
+    bits["layernorm_bwd dropout " + name] = digest(dz, da, part)
+print("DROPBITS", json.dumps(bits), flush=True)
+# GEMMBITS as the bf16 run prints them (the same inputs).
+gen = torch.Generator(device=dev).manual_seed(9)
+bits = {}
+for layout, (M, N, K) in (("nt", (4096, 2304, 768)), ("nn", (4096, 768, 2304)),
+                          ("tn", (2304, 768, 4096))):
+    a = torch.randn(*((K, M) if layout == "tn" else (M, K)), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    b = torch.randn(*((N, K) if layout == "nt" else (K, N)), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    out = torch.empty(M, N, device=dev, dtype=torch.bfloat16)
+    _build.gemm(a, b, out, layout=layout)
+    bits[layout] = hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+print("GEMMBITS", json.dumps(bits), flush=True)
+gen = torch.Generator(device=dev).manual_seed(22)
+
+
+def host_us(fn, n=40):
+    """Median host time of one call from an idle card (enqueue only)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return 1e6 * statistics.median(times)
+
+
+# Host microseconds per wrapper call at FAME's default lab layer (fp32, B 16 x
+# S 560, 8 x 96, F 2048), forward with grad on (residuals, dropout from an int
+# seed), its backward, and the no-grad forward of the text encoder's entries.
+B, S, H, NH, F = 16, 560, 768, 8, 2048
+x = rnd(B, S, H).requires_grad_(True)
+w = [rnd(H, H, std=H ** -0.5).requires_grad_(True) if i % 2 == 0 else
+     rnd(H, std=0.05).requires_grad_(True) for i in range(8)]
+gamma, beta = (1 + rnd(H, std=0.1)).requires_grad_(True), rnd(H, std=0.1).requires_grad_(True)
+mask = (torch.rand(B, S, generator=gen, device=dev) > 0.1).int()
+fw = [rnd(B * S, H).requires_grad_(True), rnd(F, H, std=H ** -0.5).requires_grad_(True),
+      rnd(F, std=0.05).requires_grad_(True), rnd(H, F, std=F ** -0.5).requires_grad_(True),
+      rnd(H, std=0.05).requires_grad_(True)]
+qkv = rnd(B, S, 3 * H).requires_grad_(True)
+qv, kv, vv = (t.transpose(1, 2) for t in qkv.view(B, S, 3, NH, H // NH).unbind(2))
+calls = {
+    "attention_block_ln": (lambda: fab.fused_attention_block_ln(
+        x, *w, gamma, beta, mask, num_heads=NH, ln_eps=1e-5, rate=0.1, deterministic=False,
+        seed=11), [x, *w, gamma, beta]),
+    "ffn_ln": (lambda: ffn.fused_ffn_ln(*fw, gamma, beta, ln_eps=1e-5, rate=0.1,
+                                        deterministic=False, seeds=(12, 13)), [*fw, gamma, beta]),
+    "attention_block": (lambda: fab.fused_attention_block(x, *w, mask, num_heads=NH), [x, *w]),
+    "ffn": (lambda: ffn.fused_ffn(*fw, rate=0.1, deterministic=False, seed=14), fw),
+    "flash_attention": (lambda: flash.flash_attention(qv, kv, vv, mask), [qkv]),
+    "dropout_add_layernorm": (lambda: addnorm.dropout_add_layernorm(
+        x, x * 0.5, gamma, beta, eps=1e-5, dropout=Dropout.make(15, 0, 0.1)), [x, gamma, beta]),
+}
+us = {}
+for name, (fwd, leaves) in calls.items():
+    us[name] = host_us(fwd)
+    out = fwd()
+    g = torch.ones_like(out)
+    us[name + "_bwd"] = host_us(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+    del out, g
+with torch.no_grad():
+    us["attention_block_ln_infer"] = host_us(lambda: fab.fused_attention_block_ln_infer(
+        x, *w, gamma, beta, mask, num_heads=NH, ln_eps=1e-5))
+    us["ffn_ln_infer"] = host_us(lambda: ffn.fused_ffn_ln_infer(*fw, gamma, beta, ln_eps=1e-5))
+print("HOSTUS", json.dumps({k: round(v, 1) for k, v in us.items()}), flush=True)
+del x, w, fw, qkv, qv, kv, vv, calls
+torch.cuda.empty_cache()
+
+# The eager steps: FAME's default (fp32, B 16) and phase 5's (bf16, B 256).
+for label, dtype, n, seed in (("FAME default fp32 B16", f32, 16, 9),
+                              ("FAME bf16 B256", torch.bfloat16, 256, 2)):
+    trainer = FAMETrainer(init_params(FAMEModel(**c.TRAIN_GEO, dtype=dtype), seed=0),
+                          TrainConfig(lr=1e-4, batch_size=n), pos_weight=c.POS_WEIGHT,
+                          rngs_seed=0, device=dev)
+    a = c.synthetic_cohort(np.random.default_rng(seed), n)
+    keys = [k for k in a if k != "labels"]
+    batch = to_device({"model_inputs": {k: a[k] for k in keys}, "labels": a["labels"],
+                       "weight": np.ones(n, np.float32)}, trainer.device)
+    print("STEP", json.dumps({"step": label, "timed": c.time_train_step(trainer, batch),
+                              "profile": c.profile_train_step(trainer, batch)}), flush=True)
+    del trainer, batch
+    torch.cuda.empty_cache()
+'''
+
+
+_STEPS_HOST = r'''
+import json, statistics, time, warnings, numpy as np, torch, chip_smoke as c
+from fairmultimodal_torch.data.prefetch import to_device
+from fairmultimodal_torch.models._layers import init_params
+from fairmultimodal_torch.models.fusion import FAMEModel
+from fairmultimodal_torch.ops import _build
+from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.build()
+_build.kernels()
+out = {}
+for label, dtype, n, seed in (("fp32 B16", torch.float32, 16, 9),
+                              ("bf16 B256", torch.bfloat16, 256, 2)):
+    trainer = FAMETrainer(init_params(FAMEModel(**c.TRAIN_GEO, dtype=dtype), seed=0),
+                          TrainConfig(lr=1e-4, batch_size=n), pos_weight=c.POS_WEIGHT,
+                          rngs_seed=0, device="cuda")
+    a = c.synthetic_cohort(np.random.default_rng(seed), n)
+    keys = [k for k in a if k != "labels"]
+    batch = to_device({"model_inputs": {k: a[k] for k in keys}, "labels": a["labels"],
+                       "weight": np.ones(n, np.float32)}, trainer.device)
+    row = {"step_ms": c.time_train_step(trainer, batch)["train_step_ms"]}
+    dyn = trainer._dyn_w()          # on the card, as train_epoch passes it
+    host = []
+    for _ in range(15):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.backward(batch, dyn)
+        host.append(1e3 * (time.perf_counter() - t0))
+    row["fwd_bwd_host_ms"] = statistics.median(host)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        trainer.train_step(batch)
+        torch.cuda.set_sync_debug_mode(0)
+    row["step_syncs"] = sum("synchronizing" in str(m.message) for m in caught)
+    out[label] = row
+    del trainer, batch
+    torch.cuda.empty_cache()
+print("STEPSHOST", json.dumps(out), flush=True)
+'''
+
+
+# Every script first: ``key_of(seed, device)``, a dropout seed as the tree's
+# launchers take it (a key tensor on the card where they read the key from device
+# memory, else the int itself).
+_KEYS = r'''
+import importlib.util
+if importlib.util.find_spec("fairmultimodal_torch.ops._library") is not None:
+    from fairmultimodal_torch.ops._library import key_of
+else:
+    def key_of(seed, device):
+        return seed
+'''
+
+
 def main(args) -> int:
-    flags = ("--fp32", "--steps", "--steps-only")
-    fp32, steps, only = (f in args for f in flags)
+    flags = ("--fp32", "--steps", "--steps-only", "--host", "--steps-host")
+    fp32, steps, only, host, steps_host = (f in args for f in flags)
     trees = [a for a in args if a not in flags]
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
-    script = _STEPS if only else (_RUN_F32 + (_STEPS if steps else "") if fp32 else _RUN)
+    script = _STEPS_HOST if steps_host else _HOST if host else _STEPS if only else (
+        _RUN_F32 + (_STEPS if steps else "") if fp32 else _RUN)
     rc = 0
     for tree in trees:
         print(f"==== {tree}", flush=True)
-        cmd = [sys.executable, "-c", script] + (["--steps"] if steps else [])
+        cmd = [sys.executable, "-c", _KEYS + script] + (["--steps"] if steps else [])
         rc |= subprocess.run(cmd, cwd=os.path.abspath(tree)).returncode
     return rc
 

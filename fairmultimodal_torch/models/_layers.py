@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fairmultimodal_torch.parallel.sharding import copy_to_model, reduce_from_model
-from fairmultimodal_torch.utils.rng import draw_seed
+from fairmultimodal_torch.utils.rng import Seed, draw_seed
 
 __all__ = ["linear", "layer_norm", "embed", "dropout_seed", "column_input", "row_linear",
            "init_params"]
@@ -37,10 +37,11 @@ def embed(ids: torch.Tensor, table: nn.Embedding, dtype: torch.dtype) -> torch.T
 
 
 def dropout_seed(module: nn.Module, rate: float, generator: Optional[torch.Generator],
-                 sharded: bool = False) -> Optional[int]:
+                 sharded: bool = False) -> Optional[Seed]:
     """Philox seed of one dropout site, drawn on the host from the caller's
-    generator when ``module`` trains and has dropout; None (no dropout)
-    otherwise.  Dropout runs in train mode given a generator: no module
+    generator when ``module`` trains and has dropout (from a
+    :class:`~fairmultimodal_torch.utils.rng.KeyTape`, the site's key); None
+    (no dropout) otherwise.  Dropout runs in train mode given a generator: no module
     draws from the global RNG (the JAX modules' ``rngs={"dropout": ...}``).
     ``sharded``: the site's activation is a tensor-parallel shard
     (``utils/rng.py::draw_seed``)."""

@@ -9,7 +9,8 @@ keyed by a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once.
 
 Launch helpers take torch tensors, make the tensors' device current, pass
-raw pointers and that device's current stream, and raise
+raw pointers and that device's current stream (a dropout stream's seed as
+a pointer to its key in device memory: ``utils/rng.py``), and raise
 :class:`KernelLaunchError` when the C entry returns a non-zero
 ``cudaGetLastError()`` (a refused launch never runs, and a later synchronise
 would not report it).
@@ -37,7 +38,7 @@ __all__ = ["KernelLaunchError", "build", "kernels", "gemm", "colsum", "row_block
            "GEMM_SCHEDULE", "sgemm_tile", "sgemm_nt_schedule", "bf16_nt_schedule",
            "sgemm_nn_tn_schedule",
            "split_rows", "flash_bwd_colpart_rows", "flash_fwd_f32_rows", "FLASH_FWD_KEYS",
-           "flash_fwd_bf16_keys", "tma_compatible", "tma_operand"]
+           "flash_fwd_bf16_keys", "tma_compatible", "tma_operand", "copy_h2d"]
 
 _CSRC = Path(__file__).resolve().with_name("csrc")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -197,7 +198,7 @@ _U64 = ctypes.c_ulonglong
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _S3 = ctypes.POINTER(ctypes.c_longlong)   # (batch, head, row) strides of one operand
-_DROP = [_U64, _U, _U, _F, _I]        # the fields of a utils.rng.Dropout
+_DROP = [_P, _U, _U, _F, _I]          # a utils.rng.Dropout: its key's address, then the rest
 _SIGNATURES = {
     "gemm.cu": {
         "fm_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, *_DROP, _P, _P, _I, _F,
@@ -214,6 +215,7 @@ _SIGNATURES = {
     "add_layernorm.cu": {
         "fm_add_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, *_DROP, _I, _I, _P],
         "fm_layernorm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, *_DROP, _I, _I, _P],
+        "fm_copy_h2d": [_P, _P, _U64, _P],
     },
 }
 
@@ -326,6 +328,35 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _drop_args(drop: Dropout, device: torch.device):
+    """The C arguments of a dropout stream and the key tensor they point
+    into (held by the caller until the launch is enqueued).  The seed must
+    be a key: one int64 on ``device`` (``ops/_library.key_of`` makes one
+    from an int)."""
+    if not drop.on:
+        return (None, 0, 0, 1.0, 0), None
+    key = drop.seed
+    if not (isinstance(key, torch.Tensor) and key.dtype == torch.int64 and key.numel() == 1
+            and key.device == device):
+        raise ValueError(f"dropout key: expected one int64 tensor on {device}, got {key!r}")
+    return (key.data_ptr(), drop.stream, drop.threshold, drop.inv_keep, 1), key
+
+
+def copy_h2d(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``dst.copy_(src)`` from pinned host memory onto the card in stream
+    order, as one ``cudaMemcpyAsync``: captured into a CUDA graph, a node
+    that reads ``src`` again at every replay."""
+    if not src.is_pinned() or not src.is_contiguous() or not dst.is_contiguous() \
+            or dst.dtype != src.dtype or dst.numel() != src.numel() or not dst.is_cuda:
+        raise ValueError("copy_h2d: a contiguous pinned host tensor into a contiguous "
+                         "device tensor of its dtype and size")
+    with torch.cuda.device(dst.device):
+        rc = kernels()["add_layernorm.cu"].fm_copy_h2d(
+            dst.data_ptr(), src.data_ptr(), src.numel() * src.element_size(), _stream(dst))
+    _check(rc, "fm_copy_h2d")
+    return dst
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *, layout: str = "nt",
          bias: Optional[torch.Tensor] = None, activation: str = "none",
          dropout: Dropout = Dropout(), aux: Optional[torch.Tensor] = None,
@@ -372,11 +403,12 @@ def gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *, layout: str = "
         _require(colpart, "colpart", (-(-m // 128), n), torch.float32, dev)
     if (gate is None) != (gate_kind is None):
         raise ValueError("gemm: gate and gate_kind go together")
+    drop, _key = _drop_args(dropout, dev)
     with torch.cuda.device(dev):
         rc = kernels()["gemm.cu"].fm_gemm(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, _LAYOUTS[layout], splits,
             _dtype_code(a), int(out.dtype == torch.float32), _ptr(bias), ACT_CODES[activation],
-            *dropout, _ptr(aux), _ptr(gate), _GATE_CODES[gate_kind], float(gate_scale),
+            *drop, _ptr(aux), _ptr(gate), _GATE_CODES[gate_kind], float(gate_scale),
             _ptr(resid), _ptr(colpart), _stream(a))
     _check(rc, "fm_gemm")
     return out
@@ -563,10 +595,11 @@ def add_layernorm(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor,
     _require(out, "out", (r, h), x.dtype, x.device)
     if z is not None:
         _require(z, "z", (r, h), x.dtype, x.device)
+    drop, _key = _drop_args(dropout, x.device)
     with torch.cuda.device(x.device):
         rc = kernels()["add_layernorm.cu"].fm_add_layernorm(
             x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            _ptr(z), r, h, float(eps), *dropout, _dtype_code(x),
+            _ptr(z), r, h, float(eps), *drop, _dtype_code(x),
             int(y.dtype != torch.float32), _stream(x))
     _check(rc, "fm_add_layernorm")
     return out
@@ -594,10 +627,11 @@ def layernorm_bwd(g: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor, dz: tor
     _require(dz, "dz", (r, h), dz.dtype, dev)
     _require(da, "da", (r, h), dt, dev)
     _require(part, "part", (3, -(-r // LN_BWD_ROWS), h), torch.float32, dev)
+    drop, _key = _drop_args(dropout, dev)
     with torch.cuda.device(dev):
         rc = kernels()["add_layernorm.cu"].fm_layernorm_bwd(
             g.data_ptr(), z.data_ptr(), gamma.data_ptr(), dz.data_ptr(), da.data_ptr(),
-            part.data_ptr(), r, h, float(eps), *dropout, _dtype_code(g),
+            part.data_ptr(), r, h, float(eps), *drop, _dtype_code(g),
             int(dz.dtype != torch.float32), _stream(g))
     _check(rc, "fm_layernorm_bwd")
     return da

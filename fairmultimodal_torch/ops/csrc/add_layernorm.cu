@@ -90,6 +90,7 @@ add_layernorm_kernel(const T* __restrict__ x, const TY* __restrict__ y,
                      const float* __restrict__ gamma, const float* __restrict__ beta,
                      T* __restrict__ out, T* __restrict__ zout, int R, int H, float eps,
                      fm::Dropout drop) {
+  fm::load_key(drop);
   const int row = blockIdx.x * WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= R) return;  // whole warp exits together
@@ -140,6 +141,7 @@ layernorm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ z,
                      const float* __restrict__ gamma, TDZ* __restrict__ dz,
                      T* __restrict__ da, float* __restrict__ part, int R, int H, float eps,
                      fm::Dropout drop) {
+  fm::load_key(drop);
   __shared__ float red[WARPS][MAX_H];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -284,15 +286,16 @@ extern "C" {
 // unfolded half-layer kernel, Pallas #5 / #7), gamma/beta [H] fp32, out
 // [R, H] io; z [R, H] io receives round(x + dropout(y)) when not null.
 // H % 8 == 0, H <= 1024, every pointer 16-byte aligned (the wrapper checks).
+// key: the dropout stream's seed in device memory (philox.cuh).
 int fm_add_layernorm(const void* x, const void* y, const void* gamma, const void* beta,
-                     void* out, void* z, int R, int H, float eps, unsigned long long seed,
+                     void* out, void* z, int R, int H, float eps, const unsigned long long* key,
                      unsigned int stream_id, unsigned int threshold, float inv_keep,
                      int drop_on, int dtype, int y_io, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const fm::Dropout d{seed, stream_id, threshold, inv_keep, drop_on};
+  const fm::Dropout d{0ull, key, stream_id, threshold, inv_keep, drop_on};
   const float* gm = static_cast<const float*>(gamma);
   const float* bt = static_cast<const float*>(beta);
-  if (H > MAX_H || H % V) return cudaErrorInvalidValue;
+  if (H > MAX_H || H % V || (drop_on && !key)) return cudaErrorInvalidValue;
   if (dtype == FM_F32) return launch_fwd<float, float>(x, y, gm, bt, out, z, R, H, eps, d, s);
   if (dtype != FM_BF16) return cudaErrorInvalidValue;
   if (y_io) return launch_fwd<fm_bf16, fm_bf16>(x, y, gm, bt, out, z, R, H, eps, d, s);
@@ -304,18 +307,26 @@ int fm_add_layernorm(const void* x, const void* y, const void* gamma, const void
 // [R, H] io, and part [3, ceil(R/64), H] fp32 block partials of (g*xhat, g,
 // dropout(dz)).  H % 8 == 0, H <= 1024.
 int fm_layernorm_bwd(const void* g, const void* z, const void* gamma, void* dz, void* da,
-                     void* part, int R, int H, float eps, unsigned long long seed,
+                     void* part, int R, int H, float eps, const unsigned long long* key,
                      unsigned int stream_id, unsigned int threshold, float inv_keep,
                      int drop_on, int dtype, int dz_io, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const fm::Dropout d{seed, stream_id, threshold, inv_keep, drop_on};
+  const fm::Dropout d{0ull, key, stream_id, threshold, inv_keep, drop_on};
   const float* gm = static_cast<const float*>(gamma);
   float* pp = static_cast<float*>(part);
-  if (H > MAX_H || H % V) return cudaErrorInvalidValue;
+  if (H > MAX_H || H % V || (drop_on && !key)) return cudaErrorInvalidValue;
   if (dtype == FM_F32) return launch_bwd<float, float>(g, z, gm, dz, da, pp, R, H, eps, d, s);
   if (dtype != FM_BF16) return cudaErrorInvalidValue;
   if (dz_io) return launch_bwd<fm_bf16, fm_bf16>(g, z, gm, dz, da, pp, R, H, eps, d, s);
   return launch_bwd<fm_bf16, float>(g, z, gm, dz, da, pp, R, H, eps, d, s);
+}
+
+// Copy `bytes` from pinned host memory to the device, in stream order.  The
+// dropout keys reach the card this way: captured into a CUDA graph, the copy
+// is a node that reads the host memory again at every replay.
+int fm_copy_h2d(void* dst, const void* src, unsigned long long bytes, void* stream) {
+  return cudaMemcpyAsync(dst, src, bytes, cudaMemcpyHostToDevice,
+                         static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

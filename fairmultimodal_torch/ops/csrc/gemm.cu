@@ -657,6 +657,7 @@ __global__ void __launch_bounds__(WN_THREADS, 1)
 gemm_bf16_nt_kernel(const __grid_constant__ CUtensorMap tmA,
                     const __grid_constant__ CUtensorMap tmB, TOut* __restrict__ C, int M, int N,
                     int K, Epi e) {
+  fm::load_key(e.drop);  // before any thread draws
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* chunks = ring + WN_RING;
@@ -966,6 +967,7 @@ __global__ void __launch_bounds__(NT_THREADS, 1)
 gemm_f32_nt_kernel(const __grid_constant__ CUtensorMap tmA,
                    const __grid_constant__ CUtensorMap tmB, float* __restrict__ C, int M, int N,
                    int K, Epi e) {
+  fm::load_key(e.drop);  // before any thread draws
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -1529,7 +1531,7 @@ extern "C" {
 // [M, N] io dtype, resid [M, N] fp32, colpart [ceil(M/128), N] fp32: each
 // may be null.
 int fm_gemm(const void* A, const void* B, void* C, int M, int N, int K, int layout, int splits,
-            int dtype, int out_f32, const void* bias, int act, unsigned long long seed,
+            int dtype, int out_f32, const void* bias, int act, const unsigned long long* key,
             unsigned int stream_id, unsigned int threshold, float inv_keep, int drop_on,
             void* aux, const void* gate, int gate_kind, float gate_scale, const void* resid,
             void* colpart, void* stream) {
@@ -1540,7 +1542,7 @@ int fm_gemm(const void* A, const void* B, void* C, int M, int N, int K, int layo
   Epi e;
   e.bias = static_cast<const float*>(bias);
   e.act = act;
-  e.drop = fm::Dropout{seed, stream_id, threshold, inv_keep, drop_on};
+  e.drop = fm::Dropout{0ull, key, stream_id, threshold, inv_keep, drop_on};
   e.aux = aux;
   e.gate = gate;
   e.gate_kind = gate_kind;
@@ -1550,7 +1552,7 @@ int fm_gemm(const void* A, const void* B, void* C, int M, int N, int K, int layo
   // "nt" runs the forward epilogue; "nn" stores, gates or adds a residual;
   // "tn" stores.  Any other combination of operands is refused.
   const int mode = layout == 0 ? EPI_BIAS_ACT : (gate ? EPI_GATE : (resid ? EPI_RESID : EPI_STORE));
-  if ((layout != 0 && (bias || act != ACT_NONE || drop_on)) || (layout == 0 && (gate || resid)) ||
+  if ((drop_on && !key) || (layout != 0 && (bias || act != ACT_NONE || drop_on)) || (layout == 0 && (gate || resid)) ||
       (layout == 2 && (gate || resid || aux)) || ((colpart != nullptr) != (mode == EPI_GATE)) ||
       (mode == EPI_GATE && gate_kind == GATE_NONE) ||
       (layout == 1 && aux && !(mode == EPI_GATE && gate_kind == GATE_DGELU)))

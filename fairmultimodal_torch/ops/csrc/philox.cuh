@@ -14,6 +14,12 @@
 // min(int(keep * 2^32), 2^32 - 1), and scales what it keeps by 1/keep: the
 // JAX kernels' contract.  The forward draws the mask and the backward
 // replays it from the same (seed, stream): nothing is stored.
+//
+// The seed (the Philox key) lies in device memory: a launch carries a pointer
+// to it, and each kernel that draws loads it once, at its start, before any
+// draw (load_key).  So a launch captured into a CUDA graph draws from what
+// that memory holds when the graph is replayed, not from the key it was
+// captured with.
 #pragma once
 
 #include <stdint.h>
@@ -21,12 +27,18 @@
 namespace fm {
 
 struct Dropout {
-  unsigned long long seed;
+  unsigned long long seed;        // the key, once load_key has read it
+  const unsigned long long* key;  // where the key lies (device memory); null when off
   unsigned int stream;
   unsigned int threshold;
   float inv_keep;
   int on;
 };
+
+// Read the key of a launch that draws: once per thread, at the kernel's start.
+__device__ __forceinline__ void load_key(Dropout& d) {
+  if (d.on) d.seed = __ldg(d.key);
+}
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;

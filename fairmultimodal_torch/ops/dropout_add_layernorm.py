@@ -3,7 +3,8 @@
 With ``fold_ln=False`` the JAX encoder layer follows each unfolded Pallas
 kernel with XLA glue: ``nn.Dropout``, ``x + y`` and ``nn.LayerNorm``
 (``fairmultimodal_tpu/models/behrt.py:127-130, 174-176``).  This is that
-glue as one :class:`torch.autograd.Function`:
+glue as one op pair, ``fm::dropout_add_layernorm`` and its backward
+``fm::dropout_add_layernorm_bwd`` (``ops/_library.py``):
 
 - on a CUDA tensor the forward is the ``add_layernorm`` row kernel
   (``csrc/add_layernorm.cu``) with y in the io dtype: z = round(x +
@@ -20,7 +21,10 @@ glue as one :class:`torch.autograd.Function`:
   global RNG.
 - on a CPU tensor it is the plain version: ``x + dropout(y)`` in x's dtype,
   then the LayerNorm in at least fp32 (the arithmetic of
-  ``models/_layers.layer_norm``), differentiated by autograd.
+  ``models/_layers.layer_norm``); its backward is the LayerNorm VJP from
+  the stored z in that precision, dz rounded to x's dtype, and dy the
+  replayed dropout of it -- what autograd gives through the plain forward,
+  up to the order of the LayerNorm VJP's sums.
 
 Rounding: the plain version (as JAX) rounds ``y / keep`` and ``x + y`` to the
 io dtype separately; the kernel multiplies in fp32 and rounds once.  In fp32
@@ -30,11 +34,14 @@ relative).
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
-from fairmultimodal_torch.ops import _build
-from fairmultimodal_torch.ops.fused_attention_block import _f32
+from fairmultimodal_torch.ops import _build, _library
+from fairmultimodal_torch.ops.fused_attention_block import _f32, _layer_norm_vjp
 from fairmultimodal_torch.utils.rng import Dropout, apply_dropout
 
 __all__ = ["dropout_add_layernorm", "dropout_add_layernorm_reference"]
@@ -50,46 +57,107 @@ def dropout_add_layernorm_reference(x: torch.Tensor, y: torch.Tensor, gamma: tor
                                     dropout: Dropout = Dropout()) -> torch.Tensor:
     """``LayerNorm(x + dropout(y))`` in plain PyTorch: the sum in x's dtype,
     the statistics in at least fp32, the result in x's dtype."""
+    return _plain(x, y, gamma, beta, eps, dropout)[0]
+
+
+def _plain(x, y, gamma, beta, eps, dropout):
+    """The plain forward: (out, z) with z = x + dropout(y) in x's dtype."""
     acc = torch.promote_types(x.dtype, torch.float32)
     z = x + apply_dropout(y.to(x.dtype), dropout)
-    return F.layer_norm(z.to(acc), (x.shape[-1],), gamma.to(acc), beta.to(acc),
-                        eps).to(x.dtype)
+    out = F.layer_norm(z.to(acc), (x.shape[-1],), gamma.to(acc), beta.to(acc), eps)
+    return out.to(x.dtype), z
 
 
 def _rows(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return t.reshape(-1, t.shape[-1]).to(dt).contiguous()
 
 
-class _AddNorm(torch.autograd.Function):
-    """The two row kernels as forward and backward (CUDA tensors only)."""
+def _stream(key, stream, threshold, inv_keep) -> Dropout:
+    return Dropout() if key is None else Dropout(key, stream, threshold, inv_keep, 1)
 
-    @staticmethod
-    def forward(ctx, x, y, gamma, beta, drop, eps):
-        global launches
-        x2 = _rows(x, x.dtype)
-        out, z = torch.empty_like(x2), torch.empty_like(x2)
-        _build.add_layernorm(x2, _rows(y, x.dtype), _f32(gamma), _f32(beta), out, eps, drop, z)
-        launches += 1
-        ctx.drop, ctx.eps, ctx.shape = drop, eps, x.shape
-        ctx.save_for_backward(z, gamma)
-        return out.view(x.shape)
 
-    @staticmethod
-    def backward(ctx, g):
-        global bwd_launches
-        z, gamma = ctx.saved_tensors
-        r, h = z.shape
-        f32 = dict(dtype=torch.float32, device=z.device)
-        dz, dy = torch.empty_like(z), torch.empty_like(z)
-        part = torch.empty((3, -(-r // _build.LN_BWD_ROWS), h), **f32)
-        _build.layernorm_bwd(_rows(g, z.dtype), z, _f32(gamma), dz, dy, part, ctx.eps,
-                             ctx.drop)
-        dgamma, dbeta = torch.empty((h,), **f32), torch.empty((h,), **f32)
-        _build.colsum(part[0], dgamma)
-        _build.colsum(part[1], dbeta)
-        bwd_launches += 1
-        return (dz.view(ctx.shape), dy.view(ctx.shape), dgamma.to(gamma.dtype),
-                dbeta.to(gamma.dtype), None, None)
+def _glue_cpu(x: Tensor, y: Tensor, gamma: Tensor, beta: Tensor, key: Optional[Tensor],
+              stream: int, threshold: int, inv_keep: float, eps: float, residuals: bool
+              ) -> Tuple[Tensor, Tensor]:
+    """(out, z): z = x + dropout(y) in x's dtype, the backward's residual
+    (a placeholder without ``residuals``)."""
+    out, z = _plain(x, y, gamma, beta, eps, _stream(key, stream, threshold, inv_keep))
+    return out, z if residuals else _library.placeholder(x)
+
+
+def _glue_cuda(x, y, gamma, beta, key, stream, threshold, inv_keep, eps, residuals):
+    global launches
+    x2 = _rows(x, x.dtype)
+    out = torch.empty_like(x2)
+    z = torch.empty_like(x2) if residuals else None
+    _build.add_layernorm(x2, _rows(y, x.dtype), _f32(gamma), _f32(beta), out, eps,
+                         _stream(key, stream, threshold, inv_keep), z)
+    launches += 1
+    return out.view(x.shape), z.view(x.shape) if residuals else _library.placeholder(x)
+
+
+def _glue_fake(x, y, gamma, beta, key, stream, threshold, inv_keep, eps, residuals):
+    return x.new_empty(x.shape), x.new_empty(x.shape) if residuals else _library.placeholder(x)
+
+
+def _glue_bwd_cpu(g: Tensor, z: Tensor, gamma: Tensor, key: Optional[Tensor], stream: int,
+                  threshold: int, inv_keep: float, eps: float
+                  ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """(dx, dy, dgamma, dbeta): dx = dz in z's dtype, dy its replayed
+    dropout, in z's dtype too (autograd casts it to y's)."""
+    dt = z.dtype
+    acc = torch.promote_types(dt, torch.float32)
+    h = z.shape[-1]
+    dz, dgamma, dbeta = _layer_norm_vjp(g.reshape(-1, h).to(acc), z.reshape(-1, h), gamma, eps,
+                                        acc)
+    dz = dz.to(dt)
+    dy = apply_dropout(dz, _stream(key, stream, threshold, inv_keep))
+    return (dz.view(z.shape), (dy.clone() if dy is dz else dy).view(z.shape),
+            dgamma.to(gamma.dtype), dbeta.to(gamma.dtype))
+
+
+def _glue_bwd_cuda(g, z, gamma, key, stream, threshold, inv_keep, eps):
+    global bwd_launches
+    z2 = _rows(z, z.dtype)
+    r, h = z2.shape
+    f32 = dict(dtype=torch.float32, device=z.device)
+    dz, dy = torch.empty_like(z2), torch.empty_like(z2)
+    part = torch.empty((3, -(-r // _build.LN_BWD_ROWS), h), **f32)
+    _build.layernorm_bwd(_rows(g, z.dtype), z2, _f32(gamma), dz, dy, part, eps,
+                         _stream(key, stream, threshold, inv_keep))
+    dgamma, dbeta = torch.empty((h,), **f32), torch.empty((h,), **f32)
+    _build.colsum(part[0], dgamma)
+    _build.colsum(part[1], dbeta)
+    bwd_launches += 1
+    return dz.view(z.shape), dy.view(z.shape), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
+
+
+def _glue_bwd_fake(g, z, gamma, key, stream, threshold, inv_keep, eps):
+    return (z.new_empty(z.shape), z.new_empty(z.shape), gamma.new_empty(gamma.shape),
+            gamma.new_empty(gamma.shape))
+
+
+def _glue_setup(ctx, inputs, output):
+    x, y, gamma, beta, key, stream, threshold, inv_keep, eps, residuals = inputs
+    _library.residual_context(
+        ctx, (output[1], gamma, key),
+        dict(stream=stream, threshold=threshold, inv_keep=inv_keep, eps=eps,
+             residuals=residuals), output[1:])
+
+
+def _glue_backward(ctx, g, _):
+    if not ctx.residuals:
+        raise RuntimeError("fm::dropout_add_layernorm was called without residuals")
+    z, gamma, key = ctx.saved_tensors
+    return (*dropout_add_layernorm_bwd_op(g, z, gamma, key, ctx.stream, ctx.threshold,
+                                          ctx.inv_keep, ctx.eps),
+            None, None, None, None, None, None)
+
+
+dropout_add_layernorm_bwd_op = _library.register(
+    "dropout_add_layernorm_bwd", _glue_bwd_cpu, _glue_bwd_cuda, _glue_bwd_fake)
+dropout_add_layernorm_op = _library.register(
+    "dropout_add_layernorm", _glue_cpu, _glue_cuda, _glue_fake, _glue_backward, _glue_setup)
 
 
 def dropout_add_layernorm(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor,
@@ -97,16 +165,11 @@ def dropout_add_layernorm(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor,
                           dropout: Dropout = Dropout()) -> torch.Tensor:
     """``LayerNorm(x + dropout(y))`` over the last axis: x, y [..., H] in the
     io dtype (fp32 or bf16), gamma / beta [H]; ``dropout`` one Philox stream
-    (``Dropout()`` for none).  Differentiable.  On a CUDA tensor the row
-    kernels (H % 8 == 0, H <= 1024, else the launch raises); on a CPU
-    tensor :func:`dropout_add_layernorm_reference`."""
-    global launches
-    if not x.is_cuda:
-        return dropout_add_layernorm_reference(x, y, gamma, beta, eps=eps, dropout=dropout)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, y, gamma, beta)):
-        return _AddNorm.apply(x, y, gamma, beta, dropout, eps)
-    x2 = _rows(x, x.dtype)
-    out = torch.empty_like(x2)
-    _build.add_layernorm(x2, _rows(y, x.dtype), _f32(gamma), _f32(beta), out, eps, dropout)
-    launches += 1
-    return out.view(x.shape)
+    (``Dropout()`` for none; its seed an int or a key tensor).
+    Differentiable.  On a CUDA tensor the row kernels (H % 8 == 0, H <= 1024,
+    else the launch raises); on a CPU tensor the plain version
+    (:func:`dropout_add_layernorm_reference`'s arithmetic)."""
+    key = _library.key_of(dropout.seed if dropout.on else None, x.device)
+    return dropout_add_layernorm_op(x, y, gamma, beta, key, dropout.stream, dropout.threshold,
+                                    dropout.inv_keep, eps,
+                                    _library.needs_grad(x, y, gamma, beta))[0]

@@ -38,8 +38,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch import Tensor
 
-from fairmultimodal_torch.ops import _build
+from fairmultimodal_torch.ops import _build, _library
 
 __all__ = ["flash_attention", "flash_attention_reference", "flash_attention_backward_reference",
            "MAX_SEQ"]
@@ -76,15 +77,26 @@ def _softmax(s):
     return e / e.sum(dim=-1, keepdim=True)
 
 
+def _forward_with_stats(q, k, v, mask):
+    """:func:`flash_attention_reference` and each row's softmax max and sum
+    of the scaled, biased scores [B, heads, S, 2] fp32 (what the forward
+    kernel stores), from one score matrix."""
+    dt = q.dtype
+    acc = torch.promote_types(dt, torch.float32)
+    s = _scores(q, k, mask)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    total = e.sum(dim=-1, keepdim=True)
+    o = ((e / total).to(dt).to(acc) @ v.to(acc)).to(dt)
+    return o, torch.cat((m, total), dim=-1).float()
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of ``_fwd_kernel``: q, k, v [B, heads, S, D],
     mask [B, S] or None; the normalised p rounded to the input dtype before
     p.v, accumulation in (at least) fp32, output in the input dtype."""
-    dt = q.dtype
-    acc = torch.promote_types(dt, torch.float32)
-    p = _softmax(_scores(q, k, mask)).to(dt)
-    return (p.to(acc) @ v.to(acc)).to(dt)
+    return _forward_with_stats(q, k, v, mask)[0]
 
 
 def flash_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -156,49 +168,88 @@ def _backward_kernel(q, k, v, o, stats, mask, g):
     return dq, dk, dv
 
 
-class _Flash(torch.autograd.Function):
-    """#9 with residuals and #10 on CUDA tensors; the plain versions on CPU
-    tensors."""
+def _in_heads_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [B, heads, S, D] copied into [B, S, heads, D] memory: the
+    layout the kernels write."""
+    out = _heads_like(t)
+    out.copy_(t)
+    return out
 
-    @staticmethod
-    def forward(ctx, q, k, v, mask):
-        global launches
-        ctx.cuda = q.is_cuda
-        if q.is_cuda:
-            q, k, v, mask = _operands(q, k, v, mask)
-            o, stats = _forward_kernel(q, k, v, mask, residuals=True)
-            launches += 1
-            ctx.save_for_backward(q, k, v, o, stats, mask)
-            return o
-        ctx.save_for_backward(q, k, v, mask)
-        return flash_attention_reference(q, k, v, mask)
 
-    @staticmethod
-    def backward(ctx, g):
-        global bwd_launches
-        if ctx.cuda:
-            grads = _backward_kernel(*ctx.saved_tensors, g)
-            bwd_launches += 1
-        else:
-            q, k, v, mask = ctx.saved_tensors
-            grads = flash_attention_backward_reference(q, k, v, mask, g)
-        return (*grads, None)
+# -- the ops (``_library``): Pallas #9 / #10 --------------------------------------------
+
+
+def _flash_cpu(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor], residuals: bool
+               ) -> Tuple[Tensor, Tensor]:
+    """Pallas #9: (o, stats) -- o in [B, S, heads, D] memory, stats (the
+    rows' softmax max and sum) the backward's residual, a placeholder
+    without ``residuals``."""
+    o, stats = _forward_with_stats(q, k, v, mask)
+    return _in_heads_layout(o), stats if residuals else _library.placeholder(q, torch.float32)
+
+
+def _flash_cuda(q, k, v, mask, residuals):
+    global launches
+    o, stats = _forward_kernel(*_operands(q, k, v, mask), residuals=residuals)
+    launches += 1
+    return o, stats if residuals else _library.placeholder(q, torch.float32)
+
+
+def _flash_fake(q, k, v, mask, residuals):
+    b, nh, s, _ = q.shape
+    return _heads_like(q), (q.new_empty((b, nh, s, 2), dtype=torch.float32) if residuals
+                            else _library.placeholder(q, torch.float32))
+
+
+def _flash_bwd_cpu(g: Tensor, q: Tensor, k: Tensor, v: Tensor, o: Tensor, stats: Tensor,
+                   mask: Optional[Tensor]) -> Tuple[Tensor, Tensor, Tensor]:
+    """Pallas #10: (dq, dk, dv), in [B, S, heads, D] memory."""
+    return tuple(_in_heads_layout(t)
+                 for t in flash_attention_backward_reference(q, k, v, mask, g))
+
+
+def _flash_bwd_cuda(g, q, k, v, o, stats, mask):
+    global bwd_launches
+    q, k, v, mask = _operands(q, k, v, mask)
+    grads = _backward_kernel(q, k, v, o, stats, mask, g)
+    bwd_launches += 1
+    return grads
+
+
+def _flash_bwd_fake(g, q, k, v, o, stats, mask):
+    return _heads_like(q), _heads_like(q), _heads_like(q)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, mask, residuals = inputs
+    o, stats = output
+    _library.residual_context(ctx, (q, k, v, o, stats, mask), dict(residuals=residuals),
+                              (stats,))
+
+
+def _flash_backward(ctx, g, _):
+    if not ctx.residuals:
+        raise RuntimeError("fm::flash_attention was called without residuals")
+    q, k, v, o, stats, mask = ctx.saved_tensors
+    return (*flash_attention_bwd_op(g, q, k, v, o, stats, mask), None, None)
+
+
+flash_attention_bwd_op = _library.register("flash_attention_bwd", _flash_bwd_cpu,
+                                           _flash_bwd_cuda, _flash_bwd_fake)
+flash_attention_op = _library.register("flash_attention", _flash_cpu, _flash_cuda, _flash_fake,
+                                       _flash_backward, _flash_setup)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused attention: q, k, v [B, heads, S, D] (fp32 or bf16 on the card;
     any batch / head / row strides), mask [B, S] (1 = attend) or None.
-    Returns [B, heads, S, D] in the input dtype.  Differentiable: with grad
-    enabled the forward keeps its row statistics and the backward is #10.
-    On a CUDA tensor the kernels run or the call raises; on a CPU tensor the
+    Returns [B, heads, S, D] in the input dtype, over [B, S, heads, D]
+    memory.  Differentiable: with grad enabled the forward keeps its row
+    statistics and the backward is ``fm::flash_attention_bwd`` (#10).  On a
+    CUDA tensor the kernels run or the call raises; on a CPU tensor the
     plain versions run.  S > 1024 raises ``ValueError``."""
-    global launches
     _check_seq(q.shape[2])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _Flash.apply(q, k, v, mask)
-    if not q.is_cuda:
-        return flash_attention_reference(q, k, v, mask)
-    o, _ = _forward_kernel(*_operands(q, k, v, mask), residuals=False)
-    launches += 1
-    return o
+    if q.is_cuda:       # the kernels' operands, made once for the forward and the backward
+        q, k, v, mask = _operands(q, k, v, mask)
+    return flash_attention_op(q, k, v, mask, _library.needs_grad(q, k, v))[0]

@@ -20,7 +20,8 @@ projection into fp32 and the residual + dropout + LayerNorm row kernel
 (storing z); the unfolded one runs the output projection with its bias,
 rounded to the io dtype, as ``_mega_fwd_kernel`` rounds ``out``.
 
-With grad enabled each call is a :class:`torch.autograd.Function`.  Both
+Each pair is a torch op, ``fm::attention_block_ln`` / ``_bwd`` and
+``fm::attention_block`` / ``_bwd`` (``ops/_library.py``).  Both
 backwards share ``dO = da . Wo``, ``dWo = da^T . o``, the two flash-backward
 kernels into one [B, S, 3H] ``dqkv`` buffer, its bias-grad column sums and
 ``dWqkv = dqkv^T . x``.  In :func:`backward_stages` ``da`` comes from the
@@ -41,13 +42,14 @@ Weights take nn.Linear's [H_out, H_in] layout; ``ln_eps`` has no default
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch import Tensor
 
-from fairmultimodal_torch.ops import _build
+from fairmultimodal_torch.ops import _build, _library
 from fairmultimodal_torch.ops.gates import can_use_fused_attention_block
-from fairmultimodal_torch.utils.rng import Dropout, apply_dropout
+from fairmultimodal_torch.utils.rng import Dropout, Seed, apply_dropout
 
 __all__ = ["fused_attention_block_ln", "fused_attention_block_ln_infer",
            "fused_attention_block_ln_reference", "fused_attention_block_ln_backward_reference",
@@ -76,22 +78,23 @@ def _layer_norm_rows(z32: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return (z32 - mu) * torch.rsqrt(var + eps) * gamma.float() + beta.float()
 
 
-def _layer_norm_vjp(g32: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor, eps: float):
-    """LN VJP from the stored z (TPU ``_ln_bwd_math``): (dz, dgamma, dbeta),
-    fp32, over the last axis of [R, H]."""
-    zz = z.float()
+def _layer_norm_vjp(g32: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor, eps: float,
+                    acc: torch.dtype = torch.float32):
+    """LN VJP from the stored z (TPU ``_ln_bwd_math``): (dz, dgamma, dbeta)
+    in ``acc``, over the last axis of [R, H]."""
+    zz = z.to(acc)
     mu = zz.mean(dim=-1, keepdim=True)
     var = ((zz - mu) ** 2).mean(dim=-1, keepdim=True)
     rstd = torch.rsqrt(var + eps)
     xhat = (zz - mu) * rstd
-    gg = g32 * gamma.float()
+    gg = g32 * gamma.to(acc)
     m1 = gg.mean(dim=-1, keepdim=True)
     m2 = (gg * xhat).mean(dim=-1, keepdim=True)
     dz = rstd * (gg - m1 - xhat * m2)
     return dz, (g32 * xhat).sum(dim=0), g32.sum(dim=0)
 
 
-def _dropout(seed: Optional[int], rate: float, deterministic: bool) -> Dropout:
+def _dropout(seed: Optional[Seed], rate: float, deterministic: bool) -> Dropout:
     if deterministic or rate <= 0.0:
         return Dropout()
     if seed is None:
@@ -108,7 +111,8 @@ def _key_bias(mask: Optional[torch.Tensor], b: int, s: int, device) -> torch.Ten
 def _attention_core(x, wq, bq, wk, bk, wv, bv, mask, num_heads):
     """The part both forwards share, rounding where the TPU kernels round
     (q/k/v after the bias, p before p.v, o): returns qkv [B, S, 3H] and o
-    [B, S, H] in ``x.dtype``."""
+    [B, S, H] in ``x.dtype``, and the rows' softmax max and sum [B, heads,
+    S, 2] fp32 (the flash kernels' ``stats``)."""
     dt = x.dtype
     b, s, h = x.shape
     d = h // num_heads
@@ -118,26 +122,28 @@ def _attention_core(x, wq, bq, wk, bk, wv, bv, mask, num_heads):
     q, k, v = (t.reshape(b, s, num_heads, d).transpose(1, 2).float()
                for t in qkv.split(h, dim=-1))
     scores = (q @ k.transpose(-1, -2)) * (1.0 / d ** 0.5) + _key_bias(mask, b, s, x.device)
-    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-    p = (p / p.sum(dim=-1, keepdim=True)).to(dt)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    total = p.sum(dim=-1, keepdim=True)
+    p = (p / total).to(dt)
     o = (p.float() @ v).to(dt).transpose(1, 2).reshape(b, s, h)
-    return qkv, o
+    return qkv, o, torch.cat((m, total), dim=-1).float()
 
 
 def _forward_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, num_heads,
                        ln_eps, drop):
     dt = x.dtype
-    qkv, o = _attention_core(x, wq, bq, wk, bk, wv, bv, mask, num_heads)
+    qkv, o, stats = _attention_core(x, wq, bq, wk, bk, wv, bv, mask, num_heads)
     y = apply_dropout(o.float() @ wo.float().t() + bo.float(), drop)
     z = (x.float() + y).to(dt)
     out = _layer_norm_rows(z.float(), gamma, beta, ln_eps).to(dt)
-    return out, {"qkv": qkv, "o": o, "z": z}
+    return out, {"qkv": qkv, "o": o, "z": z, "stats": stats}
 
 
 def _block_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, mask, num_heads):
-    qkv, o = _attention_core(x, wq, bq, wk, bk, wv, bv, mask, num_heads)
+    qkv, o, stats = _attention_core(x, wq, bq, wk, bk, wv, bv, mask, num_heads)
     out = (o.float() @ wo.float().t() + bo.float()).to(x.dtype)
-    return out, {"qkv": qkv, "o": o}
+    return out, {"qkv": qkv, "o": o, "stats": stats}
 
 
 def fused_attention_block_ln_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta,
@@ -183,8 +189,10 @@ def fused_attention_block_ln_backward_reference(g, x, qkv, o, z, wq, wk, wv, wo,
     rowsum(dP * P), as the TPU kernel takes it.
 
     Returns (dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dgamma, dbeta)."""
-    return _backward_reference(g, x, qkv, o, z, wq, wk, wv, wo, gamma, mask, num_heads,
-                               ln_eps, Dropout.make(seed, _STREAM, rate))
+    dx, dwqkv, dbqkv, *rest = _backward_reference(
+        g, x, qkv, o, z, torch.cat((wq, wk, wv)), wo, gamma, mask, num_heads, ln_eps,
+        Dropout.make(seed, _STREAM, rate))
+    return (dx, *_per_projection(dwqkv, dbqkv), *rest)
 
 
 def fused_attention_block_backward_reference(g, x, qkv, o, wq, wk, wv, wo,
@@ -198,13 +206,22 @@ def fused_attention_block_backward_reference(g, x, qkv, o, wq, wk, wv, wo,
     (``:469-489``).  Row term rowsum(dP * P) as the TPU kernel.
 
     Returns (dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo)."""
-    return _block_backward_reference(g, x, qkv, o, wq, wk, wv, wo, mask, num_heads)
+    dx, dwqkv, dbqkv, *rest = _block_backward_reference(g, x, qkv, o, torch.cat((wq, wk, wv)),
+                                                        wo, mask, num_heads)
+    return (dx, *_per_projection(dwqkv, dbqkv), *rest)
 
 
-def _core_backward(da, x, qkv, o, wq, wk, wv, wo, mask, num_heads):
+def _per_projection(w_qkv, b_qkv):
+    """(wq, bq, wk, bk, wv, bv): views of a packed [3H, H] and [3H] pair
+    (the operands, or their grads)."""
+    h = w_qkv.shape[1]
+    return tuple(t for pair in zip(w_qkv.split(h), b_qkv.split(h)) for t in pair)
+
+
+def _core_backward(da, x, qkv, o, w_qkv, wo, mask, num_heads):
     """The part both backwards share, from ``da`` [R, H] (fp32 holding
     io-dtype values, the cotangent of the output projection): returns the
-    fp32 ``dqkv . Wqkv`` [R, H] and (dwq, dbq, dwk, dbk, dwv, dbv, dwo) in
+    fp32 ``dqkv . Wqkv`` [R, H] and (dwqkv [3H, H], dbqkv [3H], dwo) in
     ``x.dtype``."""
     dt = x.dtype
     b, s, h = x.shape
@@ -232,31 +249,28 @@ def _core_backward(da, x, qkv, o, wq, wk, wv, wo, mask, num_heads):
     dqkv32 = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)   # [R, 3H]
     dbqkv = dqkv32.sum(dim=0)
     dqkv = dqkv32.to(dt).float()
-    w_qkv = torch.cat((wq, wk, wv)).float()
     dwqkv = (dqkv.t() @ x.reshape(-1, h).float()).to(dt)
-    dwq, dwk, dwv = dwqkv.split(h)
-    dbq, dbk, dbv = dbqkv.to(dt).split(h)
-    return dqkv @ w_qkv, (dwq, dbq, dwk, dbk, dwv, dbv, dwo.to(dt))
+    return dqkv @ w_qkv.float(), (dwqkv, dbqkv.to(dt), dwo.to(dt))
 
 
-def _backward_reference(g, x, qkv, o, z, wq, wk, wv, wo, gamma, mask, num_heads, ln_eps,
-                        drop):
+def _backward_reference(g, x, qkv, o, z, w_qkv, wo, gamma, mask, num_heads, ln_eps, drop):
+    """(dx, dwqkv, dbqkv, dwo, dbo, dgamma, dbeta)."""
     dt = x.dtype
     h = x.shape[-1]
     dz, dgamma, dbeta = _layer_norm_vjp(g.reshape(-1, h).float(), z.reshape(-1, h), gamma,
                                         ln_eps)
     dattn = apply_dropout(dz, drop)
-    dx32, grads = _core_backward(dattn.to(dt).float(), x, qkv, o, wq, wk, wv, wo, mask,
-                                 num_heads)
+    dx32, grads = _core_backward(dattn.to(dt).float(), x, qkv, o, w_qkv, wo, mask, num_heads)
     dx = (dz + dx32).to(dt).view(x.shape)
     return (dx, *grads, dattn.sum(dim=0).to(dt), dgamma.to(gamma.dtype),
             dbeta.to(gamma.dtype))
 
 
-def _block_backward_reference(g, x, qkv, o, wq, wk, wv, wo, mask, num_heads):
+def _block_backward_reference(g, x, qkv, o, w_qkv, wo, mask, num_heads):
+    """(dx, dwqkv, dbqkv, dwo, dbo)."""
     dt = x.dtype
     g32 = g.reshape(-1, x.shape[-1]).to(dt).float()
-    dx32, grads = _core_backward(g32, x, qkv, o, wq, wk, wv, wo, mask, num_heads)
+    dx32, grads = _core_backward(g32, x, qkv, o, w_qkv, wo, mask, num_heads)
     return (dx32.to(dt).view(x.shape), *grads, g32.sum(dim=0).to(dt))
 
 
@@ -264,6 +278,8 @@ def _block_backward_reference(g, x, qkv, o, wq, wk, wv, wo, mask, num_heads):
 
 
 def _check_operands(x, num_heads, weights):
+    """x [B, S, H] contiguous, heads dividing H, and each (name, weight,
+    rows) of ``weights`` [rows * H, H] in x's dtype and device."""
     if x.dim() != 3:
         raise ValueError(f"x must be [B, S, H], got {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -271,28 +287,47 @@ def _check_operands(x, num_heads, weights):
     h = x.shape[-1]
     if h % num_heads:
         raise ValueError(f"H={h} is not a multiple of num_heads={num_heads}")
-    for name, w in weights:
-        if tuple(w.shape) != (h, h) or w.dtype != x.dtype or w.device != x.device:
-            raise ValueError(f"{name}: expected [{h}, {h}] {x.dtype} on {x.device}")
+    for name, w, rows in weights:
+        if tuple(w.shape) != (rows * h, h) or w.dtype != x.dtype or w.device != x.device:
+            raise ValueError(f"{name}: expected [{rows * h}, {h}] {x.dtype} on {x.device}")
+
+
+def _packed_qkv(wq, bq, wk, bk, wv, bv):
+    """The q | k | v projections as one [3H, H] weight and [3H] bias: the
+    QKV GEMM's operands, and what the ops take."""
+    return torch.cat((wq, wk, wv)), torch.cat((bq, bk, bv))
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
 
-def _core_stages(x, wq, bq, wk, bk, wv, bv, wo, mask, num_heads, residuals):
+def _mask_i32(mask, b, s, dev):
+    """The kernels' key mask: [B, S] int32 contiguous (all ones for None)."""
+    if mask is None:
+        return torch.ones((b, s), dtype=torch.int32, device=dev)
+    return mask.to(device=dev, dtype=torch.int32).contiguous()
+
+
+def _kernel_mask(mask, x):
+    """A wrapper's mask for its op: on the card the kernels' int32 mask,
+    made once for the forward and the backward; on the CPU as given."""
+    if not x.is_cuda or x.dim() != 3:
+        return mask
+    return _mask_i32(mask, x.shape[0], x.shape[1], x.device)
+
+
+def _core_stages(x, w_qkv, b_qkv, wo, mask, num_heads, residuals):
     """Check the operands and lay out the launches both forwards start
-    with (the QKV GEMM, the flash forward); returns ``(stages, o, saved)``
-    with ``saved`` the backward's residuals (x, qkv, o, stats, mask, w_qkv)
-    when ``residuals`` (else None)."""
-    _check_operands(x, num_heads, (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)))
+    with (the QKV GEMM over w_qkv [3H, H] and b_qkv [3H], the flash
+    forward); returns ``(stages, o, saved)`` with ``saved`` the backward's
+    residuals (x, qkv, o, stats, mask, w_qkv) when ``residuals`` (else
+    None)."""
+    _check_operands(x, num_heads, (("w_qkv", w_qkv, 3), ("wo", wo, 1)))
     b, s, h = x.shape
     dev = x.device
-    if mask is None:
-        mask = torch.ones((b, s), dtype=torch.int32, device=dev)
-    mask = mask.to(device=dev, dtype=torch.int32).contiguous()
-    w_qkv = torch.cat((wq, wk, wv))                                   # [3H, H]
-    b_qkv = _f32(torch.cat((bq, bk, bv)))
+    mask = _mask_i32(mask, b, s, dev)
+    w_qkv, b_qkv = w_qkv.contiguous(), _f32(b_qkv)
     qkv = torch.empty((b, s, 3 * h), dtype=x.dtype, device=dev)
     o = torch.empty((b, s, h), dtype=x.dtype, device=dev)
     stats = torch.empty((b, num_heads, s, 2), dtype=torch.float32, device=dev) \
@@ -316,7 +351,14 @@ def half_layer_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, *,
     with ``residuals``, the tensors :func:`backward_stages` needs (else
     None).  Each thunk can be run again on its own (``chip_smoke.py`` times
     them one by one); running them all in order is one half-layer."""
-    stages, o, saved = _core_stages(x, wq, bq, wk, bk, wv, bv, wo, mask, num_heads, residuals)
+    return _ln_stages(x, *_packed_qkv(wq, bq, wk, bk, wv, bv), wo, bo, gamma,
+                      beta, mask, num_heads, ln_eps, dropout, residuals)
+
+
+def _ln_stages(x, w_qkv, b_qkv, wo, bo, gamma, beta, mask, num_heads, ln_eps, dropout,
+               residuals):
+    """:func:`half_layer_stages` from the packed q | k | v operands."""
+    stages, o, saved = _core_stages(x, w_qkv, b_qkv, wo, mask, num_heads, residuals)
     b, s, h = x.shape
     x2 = x.view(b * s, h)
     y = torch.empty((b * s, h), dtype=torch.float32, device=x.device)
@@ -340,7 +382,13 @@ def block_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, mask, *, num_heads: int,
     :func:`half_layer_stages` does: the QKV GEMM, the flash forward and the
     Wo GEMM with its bias into the io dtype; with ``residuals`` the tensors
     :func:`block_backward_stages` needs."""
-    stages, o, saved = _core_stages(x, wq, bq, wk, bk, wv, bv, wo, mask, num_heads, residuals)
+    return _block_stages(x, *_packed_qkv(wq, bq, wk, bk, wv, bv), wo, bo, mask,
+                         num_heads, residuals)
+
+
+def _block_stages(x, w_qkv, b_qkv, wo, bo, mask, num_heads, residuals):
+    """:func:`block_stages` from the packed q | k | v operands."""
+    stages, o, saved = _core_stages(x, w_qkv, b_qkv, wo, mask, num_heads, residuals)
     b, s, h = x.shape
     out = torch.empty_like(x)
     wo, bo = wo.contiguous(), _f32(bo)
@@ -396,8 +444,7 @@ def column_sum(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 def _core_backward_stages(da, saved, wo, num_heads):
     """The launches both backwards share, from ``da`` [R, H] (io dtype):
     dO, dWo, the flash backward, its bias-grad sum and dWqkv.  Returns
-    ``(stages, dqkv, grads)`` with grads (dwq, dbq, dwk, dbk, dwv, dbv, dwo)
-    -- views of one [3H, H] and one [3H] buffer for q | k | v."""
+    ``(stages, dqkv, (dwqkv [3H, H], dbqkv [3H], dwo))``."""
     x, qkv, o, stats, mask = (saved[k] for k in ("x", "qkv", "o", "stats", "mask"))
     b, s, h = x.shape
     r, dev, dt = b * s, x.device, x.dtype
@@ -417,9 +464,7 @@ def _core_backward_stages(da, saved, wo, num_heads):
         ("dbqkv_sum", lambda: _build.colsum(colpart, dbqkv)),
         ("dwqkv_gemm", lambda: weight_grad(dqkv.view(r, 3 * h), x.view(r, h), dwqkv)),
     ]
-    dwq, dwk, dwv = dwqkv.split(h)
-    dbq, dbk, dbv = dbqkv.split(h)
-    return stages, dqkv, (dwq, dbq, dwk, dbk, dwv, dbv, dwo)
+    return stages, dqkv, (dwqkv, dbqkv, dwo)
 
 
 def backward_stages(g, saved: Dict[str, torch.Tensor], wo, gamma, *, num_heads: int,
@@ -429,6 +474,14 @@ def backward_stages(g, saved: Dict[str, torch.Tensor], wo, gamma, *, num_heads: 
     dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dgamma, dbeta), filled when the
     stages have run; dwq/dwk/dwv are views of one [3H, H] buffer and
     dbq/dbk/dbv of one [3H]."""
+    stages, (dx, dwqkv, dbqkv, *rest) = _ln_backward_stages(g, saved, wo, gamma, num_heads,
+                                                            ln_eps, dropout)
+    return stages, (dx, *_per_projection(dwqkv, dbqkv), *rest)
+
+
+def _ln_backward_stages(g, saved, wo, gamma, num_heads, ln_eps, dropout):
+    """:func:`backward_stages` with the q | k | v grads whole: grads (dx,
+    dwqkv, dbqkv, dwo, dbo, dgamma, dbeta)."""
     x, z = saved["x"], saved["z"]
     b, s, h = x.shape
     r, dev, dt = b * s, x.device, x.dtype
@@ -464,6 +517,13 @@ def block_backward_stages(g, saved: Dict[str, torch.Tensor], wo, *, num_heads: i
     [B, S, H]: returns ``(stages, grads)`` with grads (dx, dwq, dbq, dwk,
     dbk, dwv, dbv, dwo, dbo) in the io dtype, filled when the stages have
     run."""
+    stages, (dx, dwqkv, dbqkv, *rest) = _block_backward_stages(g, saved, wo, num_heads)
+    return stages, (dx, *_per_projection(dwqkv, dbqkv), *rest)
+
+
+def _block_backward_stages(g, saved, wo, num_heads):
+    """:func:`block_backward_stages` with the q | k | v grads whole: grads
+    (dx, dwqkv, dbqkv, dwo, dbo)."""
     x = saved["x"]
     b, s, h = x.shape
     r, dev, dt = b * s, x.device, x.dtype
@@ -480,119 +540,194 @@ def block_backward_stages(g, saved: Dict[str, torch.Tensor], wo, *, num_heads: i
     return stages, (dx, *grads, dbo)
 
 
+
+
 def _run(stages) -> None:
     for _, fn in stages:
         fn()
 
 
-class _HalfLayer(torch.autograd.Function):
-    """LN-fused forward with residuals + backward; the kernels on CUDA
-    tensors, the plain versions on CPU tensors."""
-
-    @staticmethod
-    def forward(ctx, x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, drop, num_heads,
-                ln_eps):
-        global launches
-        ctx.num_heads, ctx.ln_eps, ctx.drop = num_heads, ln_eps, drop
-        ctx.param_dtype = gamma.dtype
-        if x.is_cuda:
-            stages, out, saved = half_layer_stages(
-                x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, num_heads=num_heads,
-                ln_eps=ln_eps, dropout=drop, residuals=True)
-            _run(stages)
-            launches += 1
-            ctx.cuda, ctx.keys = True, tuple(saved)
-            ctx.save_for_backward(*saved.values(), wo, gamma)
-            return out
-        out, res = _forward_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask,
-                                      num_heads, ln_eps, drop)
-        ctx.cuda = False
-        ctx.save_for_backward(x, res["qkv"], res["o"], res["z"], wq, wk, wv, wo, gamma, mask)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        global bwd_launches
-        if ctx.cuda:
-            *vals, wo, gamma = ctx.saved_tensors
-            stages, grads = backward_stages(g, dict(zip(ctx.keys, vals)), wo, gamma,
-                                            num_heads=ctx.num_heads, ln_eps=ctx.ln_eps,
-                                            dropout=ctx.drop)
-            _run(stages)
-            bwd_launches += 1
-            dgamma, dbeta = (t.to(ctx.param_dtype) for t in grads[-2:])
-            grads = grads[:-2] + (dgamma, dbeta)
-        else:
-            grads = _backward_reference(g, *ctx.saved_tensors, ctx.num_heads, ctx.ln_eps,
-                                        ctx.drop)
-        return (*grads, None, None, None, None)
+# -- the ops (``_library``): Pallas #1 / #3 and #5 / #6 ---------------------------------
 
 
-class _Block(torch.autograd.Function):
-    """Unfolded forward with residuals + backward (Pallas #5 / #6); the
-    kernels on CUDA tensors, the plain versions on CPU tensors."""
-
-    @staticmethod
-    def forward(ctx, x, wq, bq, wk, bk, wv, bv, wo, bo, mask, num_heads):
-        global unfolded_launches
-        ctx.num_heads = num_heads
-        ctx.cuda = x.is_cuda
-        if x.is_cuda:
-            stages, out, saved = block_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, mask,
-                                              num_heads=num_heads, residuals=True)
-            _run(stages)
-            unfolded_launches += 1
-            ctx.keys = tuple(saved)
-            ctx.save_for_backward(*saved.values(), wo)
-            return out
-        out, res = _block_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, mask, num_heads)
-        ctx.save_for_backward(x, res["qkv"], res["o"], wq, wk, wv, wo, mask)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        global unfolded_bwd_launches
-        if ctx.cuda:
-            *vals, wo = ctx.saved_tensors
-            stages, grads = block_backward_stages(g, dict(zip(ctx.keys, vals)), wo,
-                                                  num_heads=ctx.num_heads)
-            _run(stages)
-            unfolded_bwd_launches += 1
-        else:
-            grads = _block_backward_reference(g, *ctx.saved_tensors, ctx.num_heads)
-        return (*grads, None, None)
+_LN_RESIDUALS = ("qkv", "o", "stats", "z")
+_BLOCK_RESIDUALS = ("qkv", "o", "stats")
 
 
-def _infer(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, num_heads, ln_eps, drop):
+def _attention_ln_cpu(x: Tensor, w_qkv: Tensor, b_qkv: Tensor, wo: Tensor, bo: Tensor,
+                      gamma: Tensor, beta: Tensor, mask: Optional[Tensor],
+                      key: Optional[Tensor], rate: float, num_heads: int, ln_eps: float,
+                      residuals: bool) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Pallas #1 over w_qkv [3H, H] and b_qkv [3H] (q | k | v): (out, qkv,
+    o, stats, z), the last four the backward's residuals (placeholders
+    without ``residuals``)."""
+    out, res = _forward_reference(x, *_per_projection(w_qkv, b_qkv), wo, bo, gamma, beta,
+                                  mask, num_heads, ln_eps, Dropout.make(key, _STREAM, rate))
+    return (out, *_library.residual_outputs(x, res if residuals else None, _LN_RESIDUALS))
+
+
+def _attention_ln_cuda(x, w_qkv, b_qkv, wo, bo, gamma, beta, mask, key, rate, num_heads,
+                       ln_eps, residuals):
     global launches
-    if not x.is_cuda:
-        return _forward_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask,
-                                  num_heads, ln_eps, drop)[0]
-    stages, out, _ = half_layer_stages(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask,
-                                       num_heads=num_heads, ln_eps=ln_eps, dropout=drop)
+    stages, out, saved = _ln_stages(x, w_qkv, b_qkv, wo, bo, gamma, beta, mask, num_heads,
+                                    ln_eps, Dropout.make(key, _STREAM, rate), residuals)
     _run(stages)
     launches += 1
-    return out
+    return (out, *_library.residual_outputs(x, saved, _LN_RESIDUALS))
+
+
+def _attention_residuals_fake(x, num_heads, residuals, names):
+    b, s, h = x.shape
+    shapes = {"qkv": ((b, s, 3 * h), x.dtype), "o": ((b, s, h), x.dtype),
+              "stats": ((b, num_heads, s, 2), torch.float32), "z": ((b, s, h), x.dtype)}
+    if not residuals:
+        return tuple(_library.placeholder(x) for _ in names)
+    return tuple(x.new_empty(shapes[n][0], dtype=shapes[n][1]) for n in names)
+
+
+def _attention_ln_fake(x, w_qkv, b_qkv, wo, bo, gamma, beta, mask, key, rate, num_heads,
+                       ln_eps, residuals):
+    return (x.new_empty(x.shape),
+            *_attention_residuals_fake(x, num_heads, residuals, _LN_RESIDUALS))
+
+
+def _attention_ln_bwd_cpu(g: Tensor, x: Tensor, qkv: Tensor, o: Tensor, stats: Tensor,
+                          z: Tensor, w_qkv: Tensor, wo: Tensor, gamma: Tensor,
+                          mask: Optional[Tensor], key: Optional[Tensor], rate: float,
+                          num_heads: int, ln_eps: float
+                          ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Pallas #3: (dx, dwqkv [3H, H], dbqkv [3H], dwo, dbo, dgamma, dbeta)."""
+    return _backward_reference(g, x, qkv, o, z, w_qkv, wo, gamma, mask, num_heads, ln_eps,
+                               Dropout.make(key, _STREAM, rate))
+
+
+def _attention_ln_bwd_cuda(g, x, qkv, o, stats, z, w_qkv, wo, gamma, mask, key, rate,
+                           num_heads, ln_eps):
+    global bwd_launches
+    b, s, _ = x.shape
+    saved = {"x": x, "qkv": qkv, "o": o, "stats": stats, "z": z,
+             "w_qkv": w_qkv.contiguous(), "mask": _mask_i32(mask, b, s, x.device)}
+    stages, grads = _ln_backward_stages(g, saved, wo, gamma, num_heads, ln_eps,
+                                        Dropout.make(key, _STREAM, rate))
+    _run(stages)
+    bwd_launches += 1
+    return (*grads[:-2], *(t.to(gamma.dtype) for t in grads[-2:]))
+
+
+def _attention_ln_bwd_fake(g, x, qkv, o, stats, z, w_qkv, wo, gamma, mask, key, rate,
+                           num_heads, ln_eps):
+    h = x.shape[-1]
+    return (x.new_empty(x.shape), x.new_empty((3 * h, h)), x.new_empty((3 * h,)),
+            x.new_empty((h, h)), x.new_empty((h,)), gamma.new_empty((h,)),
+            gamma.new_empty((h,)))
+
+
+def _attention_ln_setup(ctx, inputs, output):
+    x, w_qkv, _, wo, _, gamma, _, mask, key, rate, num_heads, ln_eps, residuals = inputs
+    _library.residual_context(
+        ctx, (x, *output[1:], w_qkv, wo, gamma, mask, key),
+        dict(rate=rate, num_heads=num_heads, ln_eps=ln_eps, residuals=residuals), output[1:])
+
+
+def _attention_ln_backward(ctx, g, *_):
+    if not ctx.residuals:
+        raise RuntimeError("fm::attention_block_ln was called without residuals")
+    grads = attention_block_ln_bwd_op(g, *ctx.saved_tensors, ctx.rate, ctx.num_heads,
+                                      ctx.ln_eps)
+    return (*grads, None, None, None, None, None, None)
+
+
+attention_block_ln_bwd_op = _library.register(
+    "attention_block_ln_bwd", _attention_ln_bwd_cpu, _attention_ln_bwd_cuda,
+    _attention_ln_bwd_fake)
+attention_block_ln_op = _library.register(
+    "attention_block_ln", _attention_ln_cpu, _attention_ln_cuda, _attention_ln_fake,
+    _attention_ln_backward, _attention_ln_setup)
+
+
+def _block_cpu(x: Tensor, w_qkv: Tensor, b_qkv: Tensor, wo: Tensor, bo: Tensor,
+               mask: Optional[Tensor], num_heads: int, residuals: bool
+               ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Pallas #5: (out, qkv, o, stats)."""
+    out, res = _block_reference(x, *_per_projection(w_qkv, b_qkv), wo, bo, mask, num_heads)
+    return (out, *_library.residual_outputs(x, res if residuals else None, _BLOCK_RESIDUALS))
+
+
+def _block_cuda(x, w_qkv, b_qkv, wo, bo, mask, num_heads, residuals):
+    global unfolded_launches
+    stages, out, saved = _block_stages(x, w_qkv, b_qkv, wo, bo, mask, num_heads, residuals)
+    _run(stages)
+    unfolded_launches += 1
+    return (out, *_library.residual_outputs(x, saved, _BLOCK_RESIDUALS))
+
+
+def _block_fake(x, w_qkv, b_qkv, wo, bo, mask, num_heads, residuals):
+    return (x.new_empty(x.shape),
+            *_attention_residuals_fake(x, num_heads, residuals, _BLOCK_RESIDUALS))
+
+
+def _block_bwd_cpu(g: Tensor, x: Tensor, qkv: Tensor, o: Tensor, stats: Tensor,
+                   w_qkv: Tensor, wo: Tensor, mask: Optional[Tensor], num_heads: int
+                   ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Pallas #6: (dx, dwqkv [3H, H], dbqkv [3H], dwo, dbo)."""
+    return _block_backward_reference(g, x, qkv, o, w_qkv, wo, mask, num_heads)
+
+
+def _block_bwd_cuda(g, x, qkv, o, stats, w_qkv, wo, mask, num_heads):
+    global unfolded_bwd_launches
+    b, s, _ = x.shape
+    saved = {"x": x, "qkv": qkv, "o": o, "stats": stats, "w_qkv": w_qkv.contiguous(),
+             "mask": _mask_i32(mask, b, s, x.device)}
+    stages, grads = _block_backward_stages(g, saved, wo, num_heads)
+    _run(stages)
+    unfolded_bwd_launches += 1
+    return grads
+
+
+def _block_bwd_fake(g, x, qkv, o, stats, w_qkv, wo, mask, num_heads):
+    h = x.shape[-1]
+    return (x.new_empty(x.shape), x.new_empty((3 * h, h)), x.new_empty((3 * h,)),
+            x.new_empty((h, h)), x.new_empty((h,)))
+
+
+def _block_setup(ctx, inputs, output):
+    x, w_qkv, _, wo, _, mask, num_heads, residuals = inputs
+    _library.residual_context(ctx, (x, *output[1:], w_qkv, wo, mask),
+                              dict(num_heads=num_heads, residuals=residuals), output[1:])
+
+
+def _block_backward(ctx, g, *_):
+    if not ctx.residuals:
+        raise RuntimeError("fm::attention_block was called without residuals")
+    return (*attention_block_bwd_op(g, *ctx.saved_tensors, ctx.num_heads), None, None, None)
+
+
+attention_block_bwd_op = _library.register(
+    "attention_block_bwd", _block_bwd_cpu, _block_bwd_cuda, _block_bwd_fake)
+attention_block_op = _library.register(
+    "attention_block", _block_cpu, _block_cuda, _block_fake, _block_backward, _block_setup)
 
 
 def fused_attention_block_ln(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta,
                              mask: Optional[torch.Tensor] = None, *, num_heads: int,
                              ln_eps: float, rate: float = 0.1, deterministic: bool = True,
-                             seed: Optional[int] = None) -> torch.Tensor:
+                             seed: Optional[Seed] = None) -> torch.Tensor:
     """Attention half-layer ``LayerNorm(x + dropout(attn_block(x)))``.
 
     x [B, S, H] (fp32 or bf16); weights [H_out, H_in] and biases [H] in
     ``x.dtype``; gamma/beta [H]; mask [B, S] (1 = attend) or None.  With
     ``deterministic=False`` and ``rate > 0`` the output dropout draws from
-    Philox ``seed`` (required).  Differentiable: with grad enabled the
-    forward stores its residuals and the backward runs the backward kernels
-    (their plain version on a CPU tensor).  Returns [B, S, H] in ``x.dtype``.
+    Philox ``seed`` (an int or a key tensor; required).  Differentiable: with
+    grad enabled the forward keeps its residuals and the backward is
+    ``fm::attention_block_ln_bwd`` (#3; its plain version on a CPU tensor).
+    Returns [B, S, H] in ``x.dtype``.
     """
     drop = _dropout(seed, rate, deterministic)
-    args = (x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _HalfLayer.apply(*args, mask, drop, num_heads, ln_eps)
-    return _infer(*args, mask, num_heads, ln_eps, drop)
+    key = _library.key_of(drop.seed if drop.on else None, x.device)
+    return attention_block_ln_op(
+        x, *_packed_qkv(wq, bq, wk, bk, wv, bv), wo, bo, gamma, beta, _kernel_mask(mask, x), key,
+        rate if drop.on else 0.0, num_heads, ln_eps,
+        _library.needs_grad(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta))[0]
 
 
 def fused_attention_block_ln_infer(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta,
@@ -600,8 +735,8 @@ def fused_attention_block_ln_infer(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, bet
                                    num_heads: int, ln_eps: float) -> torch.Tensor:
     """Inference entry (the frozen text encoder's): the same math as
     :func:`fused_attention_block_ln` with dropout off, storing no residuals."""
-    return _infer(x, wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta, mask, num_heads, ln_eps,
-                  Dropout())
+    return attention_block_ln_op(x, *_packed_qkv(wq, bq, wk, bk, wv, bv), wo,
+                                 bo, gamma, beta, mask, None, 0.0, num_heads, ln_eps, False)[0]
 
 
 def fused_attention_block(x, wq, bq, wk, bk, wv, bv, wo, bo,
@@ -613,16 +748,9 @@ def fused_attention_block(x, wq, bq, wk, bk, wv, bv, wo, bo,
     x [B, S, H] (fp32 or bf16); weights [H_out, H_in] and biases [H] in
     ``x.dtype``; mask [B, S] (1 = attend) or None.  No dropout, no
     LayerNorm: the unfolded encoder layer applies both after it.
-    Differentiable (Pallas #6's backward; its plain version on a CPU
-    tensor).  Returns [B, S, H] in ``x.dtype``.
+    Differentiable (``fm::attention_block_bwd``, Pallas #6's backward; its
+    plain version on a CPU tensor).  Returns [B, S, H] in ``x.dtype``.
     """
-    global unfolded_launches
-    args = (x, wq, bq, wk, bk, wv, bv, wo, bo)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _Block.apply(*args, mask, num_heads)
-    if not x.is_cuda:
-        return _block_reference(*args, mask, num_heads)[0]
-    stages, out, _ = block_stages(*args, mask, num_heads=num_heads)
-    _run(stages)
-    unfolded_launches += 1
-    return out
+    return attention_block_op(x, *_packed_qkv(wq, bq, wk, bk, wv, bv), wo, bo,
+                              _kernel_mask(mask, x), num_heads,
+                              _library.needs_grad(x, wq, bq, wk, bk, wv, bv, wo, bo))[0]

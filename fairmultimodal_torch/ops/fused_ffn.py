@@ -22,10 +22,11 @@ buffer ``hd`` (for gelu the pre-activation is what the backward keeps).
 The LN-fused forward then runs that buffer times W2 plus b2 into fp32 and
 the residual + outer dropout + LayerNorm row kernel (storing z); the
 unfolded one runs W2 plus b2 rounded to the io dtype, as ``_fwd_kernel``
-rounds ``out``.  With grad enabled each call is a
-:class:`torch.autograd.Function`.  Both backwards share ``dh = (dy.W2) * s``
-with s = 1[hd > 0] / keep (the inner mask recovered from hd) or dgelu(hd),
-its bias-grad column sums, ``dW1 = dh^T.x`` and ``dW2 = dy^T.a``.  In
+rounds ``out``.  Each pair is a torch op, ``fm::ffn_ln`` / ``fm::ffn_ln_bwd``
+and ``fm::ffn`` / ``fm::ffn_bwd`` (``ops/_library.py``).  Both backwards
+share ``dh = (dy.W2) * s`` with s = 1[hd > 0] / keep (the inner mask
+recovered from hd) or dgelu(hd), its bias-grad column sums, ``dW1 =
+dh^T.x`` and ``dW2 = dy^T.a``.  In
 :func:`backward_stages` dy comes from the LayerNorm-backward row kernel
 (dz, the replayed outer dropout, partial sums) and ``dx = dz + dh.W1``; in
 :func:`ffn_backward_stages` dy is the cotangent g itself, ``dx = dh.W1`` is
@@ -43,16 +44,17 @@ has no default.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
-from fairmultimodal_torch.ops import _build
+from fairmultimodal_torch.ops import _build, _library
 from fairmultimodal_torch.ops.fused_attention_block import (
     _f32, _layer_norm_rows, _layer_norm_vjp, _run, column_sum, weight_grad)
 from fairmultimodal_torch.ops.gates import can_use_fused_ffn
-from fairmultimodal_torch.utils.rng import Dropout, apply_dropout
+from fairmultimodal_torch.utils.rng import Dropout, Seed, apply_dropout
 
 __all__ = ["fused_ffn_ln", "fused_ffn_ln_infer", "fused_ffn_ln_reference",
            "fused_ffn_ln_backward_reference", "half_layer_stages", "backward_stages",
@@ -74,7 +76,7 @@ def _check_activation(activation: str) -> None:
         raise ValueError(f"activation must be 'relu' or 'gelu', got {activation!r}")
 
 
-def _streams(seeds: Optional[Sequence[int]], rate: float, activation: str):
+def _streams(seeds: Optional[Sequence[Seed]], rate: float, activation: str):
     """(inner, outer) dropout streams; gelu (BERT) has no inner dropout."""
     if seeds is None or rate <= 0.0:
         return Dropout(), Dropout()
@@ -82,7 +84,7 @@ def _streams(seeds: Optional[Sequence[int]], rate: float, activation: str):
     return inner, Dropout.make(seeds[1], 1, rate)
 
 
-def _inner_stream(seed: Optional[int], rate: float, deterministic: bool,
+def _inner_stream(seed: Optional[Seed], rate: float, deterministic: bool,
                   activation: str) -> Dropout:
     """The unfolded FFN's one dropout stream, after the relu."""
     if deterministic or rate <= 0.0:
@@ -369,146 +371,212 @@ def ffn_backward_stages(g, saved: Dict[str, torch.Tensor], w1, w2, *, activation
     return stages, (dx, dw1, db1, dw2, db2)
 
 
-class _HalfLayer(torch.autograd.Function):
-    """LN-fused forward with residuals + backward; the kernels on CUDA
-    tensors, the plain versions on CPU tensors."""
-
-    @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, gamma, beta, inner, outer, activation, ln_eps):
-        global launches
-        ctx.activation, ctx.ln_eps, ctx.outer = activation, ln_eps, outer
-        ctx.inv_keep = inner.inv_keep
-        ctx.param_dtype = gamma.dtype
-        ctx.cuda = x.is_cuda
-        if x.is_cuda:
-            stages, out, saved = half_layer_stages(
-                x, w1, b1, w2, b2, gamma, beta, activation=activation, ln_eps=ln_eps,
-                inner=inner, outer=outer, residuals=True)
-            _run(stages)
-            launches += 1
-            hd, z = saved["hd"], saved["z"]
-        else:
-            out, res = _forward_reference(x, w1, b1, w2, b2, gamma, beta, activation, ln_eps,
-                                          inner, outer)
-            hd, z = res["hd"], res["z"]
-        ctx.save_for_backward(x, hd, z, w1, w2, gamma)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        global bwd_launches
-        x, hd, z, w1, w2, gamma = ctx.saved_tensors
-        if ctx.cuda:
-            stages, grads = backward_stages(
-                g, {"x": x, "hd": hd, "z": z}, w1, w2, gamma, activation=ctx.activation,
-                ln_eps=ctx.ln_eps, outer=ctx.outer, inv_keep=ctx.inv_keep)
-            _run(stages)
-            bwd_launches += 1
-            grads = grads[:-2] + tuple(t.to(ctx.param_dtype) for t in grads[-2:])
-        else:
-            grads = _backward_reference(g, x, hd, z, w1, w2, gamma, ctx.activation, ctx.ln_eps,
-                                        ctx.outer, ctx.inv_keep)
-        return (*grads, None, None, None, None)
+# -- the ops (``_library``): Pallas #2 / #4 and #7 / #8 ---------------------------------
 
 
-class _Ffn(torch.autograd.Function):
-    """Unfolded forward with residuals + backward (Pallas #7 / #8); the
-    kernels on CUDA tensors, the plain versions on CPU tensors."""
-
-    @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, inner, activation):
-        global unfolded_launches
-        ctx.activation, ctx.inv_keep, ctx.cuda = activation, inner.inv_keep, x.is_cuda
-        if x.is_cuda:
-            stages, out, saved = ffn_stages(x, w1, b1, w2, b2, activation=activation,
-                                            inner=inner, residuals=True)
-            _run(stages)
-            unfolded_launches += 1
-            hd = saved["hd"]
-        else:
-            out, res = _ffn_reference(x, w1, b1, w2, b2, activation, inner)
-            hd = res["hd"]
-        ctx.save_for_backward(x, hd, w1, w2)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        global unfolded_bwd_launches
-        x, hd, w1, w2 = ctx.saved_tensors
-        if ctx.cuda:
-            stages, grads = ffn_backward_stages(g, {"x": x, "hd": hd}, w1, w2,
-                                                activation=ctx.activation,
-                                                inv_keep=ctx.inv_keep)
-            _run(stages)
-            unfolded_bwd_launches += 1
-        else:
-            grads = _ffn_backward_reference(g, x, hd, w1, w2, ctx.activation, ctx.inv_keep)
-        return (*grads, None, None)
+def _keys(inner: Dropout, outer: Dropout, device):
+    return tuple(_library.key_of(d.seed if d.on else None, device) for d in (inner, outer))
 
 
-def _infer(x, w1, b1, w2, b2, gamma, beta, activation, ln_eps, inner, outer):
+def _ffn_ln_cpu(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor, gamma: Tensor,
+                beta: Tensor, inner_key: Optional[Tensor], outer_key: Optional[Tensor],
+                rate: float, activation: str, ln_eps: float, residuals: bool
+                ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Pallas #2: (out, hd, z), hd and z the backward's residuals
+    (placeholders without ``residuals``); the inner stream is 0 of
+    ``inner_key``, the outer stream 1 of ``outer_key``."""
+    out, res = _forward_reference(x, w1, b1, w2, b2, gamma, beta, activation, ln_eps,
+                                  Dropout.make(inner_key, 0, rate),
+                                  Dropout.make(outer_key, 1, rate))
+    return (out, *_library.residual_outputs(x, res if residuals else None, ("hd", "z")))
+
+
+def _ffn_ln_cuda(x, w1, b1, w2, b2, gamma, beta, inner_key, outer_key, rate, activation,
+                 ln_eps, residuals):
     global launches
-    _check_activation(activation)
-    if not x.is_cuda:
-        return _forward_reference(x, w1, b1, w2, b2, gamma, beta, activation, ln_eps,
-                                  inner, outer)[0]
-    stages, out, _ = half_layer_stages(x, w1, b1, w2, b2, gamma, beta, activation=activation,
-                                       ln_eps=ln_eps, inner=inner, outer=outer)
+    stages, out, saved = half_layer_stages(
+        x, w1, b1, w2, b2, gamma, beta, activation=activation, ln_eps=ln_eps,
+        inner=Dropout.make(inner_key, 0, rate),
+        outer=Dropout.make(outer_key, 1, rate), residuals=residuals)
     _run(stages)
     launches += 1
-    return out
+    return (out, *_library.residual_outputs(x, saved, ("hd", "z")))
+
+
+def _hidden_fake(x, w1, residuals):
+    return x.new_empty((x.shape[0], w1.shape[0])) if residuals else _library.placeholder(x)
+
+
+def _ffn_ln_fake(x, w1, b1, w2, b2, gamma, beta, inner_key, outer_key, rate, activation,
+                 ln_eps, residuals):
+    return (x.new_empty(x.shape), _hidden_fake(x, w1, residuals),
+            x.new_empty(x.shape) if residuals else _library.placeholder(x))
+
+
+def _ffn_ln_bwd_cpu(g: Tensor, x: Tensor, hd: Tensor, z: Tensor, w1: Tensor, w2: Tensor,
+                    gamma: Tensor, outer_key: Optional[Tensor], rate: float, inv_keep: float,
+                    activation: str, ln_eps: float
+                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Pallas #4: (dx, dw1, db1, dw2, db2, dgamma, dbeta); ``inv_keep``
+    scales the relu mask recovered from hd (1/keep with the inner dropout
+    on)."""
+    return _backward_reference(g, x, hd, z, w1, w2, gamma, activation, ln_eps,
+                               Dropout.make(outer_key, 1, rate), inv_keep)
+
+
+def _ffn_ln_bwd_cuda(g, x, hd, z, w1, w2, gamma, outer_key, rate, inv_keep, activation,
+                     ln_eps):
+    global bwd_launches
+    stages, grads = backward_stages(
+        g, {"x": x, "hd": hd, "z": z}, w1, w2, gamma, activation=activation, ln_eps=ln_eps,
+        outer=Dropout.make(outer_key, 1, rate), inv_keep=inv_keep)
+    _run(stages)
+    bwd_launches += 1
+    return (*grads[:-2], *(t.to(gamma.dtype) for t in grads[-2:]))
+
+
+def _weight_grads_fake(x, w1, w2):
+    return (x.new_empty(x.shape), w1.new_empty(w1.shape), w1.new_empty((w1.shape[0],)),
+            w2.new_empty(w2.shape), w2.new_empty((w2.shape[0],)))
+
+
+def _ffn_ln_bwd_fake(g, x, hd, z, w1, w2, gamma, outer_key, rate, inv_keep, activation,
+                     ln_eps):
+    return (*_weight_grads_fake(x, w1, w2), gamma.new_empty(gamma.shape),
+            gamma.new_empty(gamma.shape))
+
+
+def _ffn_ln_setup(ctx, inputs, output):
+    x, w1, b1, w2, b2, gamma, beta, inner_key, outer_key, rate, activation, ln_eps, \
+        residuals = inputs
+    _, hd, z = output
+    inv_keep = Dropout.make(inner_key, 0, rate).inv_keep
+    _library.residual_context(
+        ctx, (x, hd, z, w1, w2, gamma, outer_key),
+        dict(rate=rate, inv_keep=inv_keep, activation=activation, ln_eps=ln_eps,
+             residuals=residuals), output[1:])
+
+
+def _ffn_ln_backward(ctx, g, *_):
+    if not ctx.residuals:
+        raise RuntimeError("fm::ffn_ln was called without residuals")
+    grads = ffn_ln_bwd_op(g, *ctx.saved_tensors, ctx.rate, ctx.inv_keep, ctx.activation,
+                          ctx.ln_eps)
+    return (*grads, None, None, None, None, None, None)
+
+
+ffn_ln_bwd_op = _library.register("ffn_ln_bwd", _ffn_ln_bwd_cpu, _ffn_ln_bwd_cuda,
+                                  _ffn_ln_bwd_fake)
+ffn_ln_op = _library.register("ffn_ln", _ffn_ln_cpu, _ffn_ln_cuda, _ffn_ln_fake,
+                              _ffn_ln_backward, _ffn_ln_setup)
+
+
+def _ffn_cpu(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
+             key: Optional[Tensor], rate: float, activation: str, residuals: bool
+             ) -> Tuple[Tensor, Tensor]:
+    """Pallas #7: (out, hd), hd the backward's residual; the inner dropout
+    is stream 0 of ``key``."""
+    out, res = _ffn_reference(x, w1, b1, w2, b2, activation, Dropout.make(key, 0, rate))
+    return (out, *_library.residual_outputs(x, res if residuals else None, ("hd",)))
+
+
+def _ffn_cuda(x, w1, b1, w2, b2, key, rate, activation, residuals):
+    global unfolded_launches
+    stages, out, saved = ffn_stages(x, w1, b1, w2, b2, activation=activation,
+                                    inner=Dropout.make(key, 0, rate),
+                                    residuals=residuals)
+    _run(stages)
+    unfolded_launches += 1
+    return (out, *_library.residual_outputs(x, saved, ("hd",)))
+
+
+def _ffn_fake(x, w1, b1, w2, b2, key, rate, activation, residuals):
+    return x.new_empty(x.shape), _hidden_fake(x, w1, residuals)
+
+
+def _ffn_bwd_cpu(g: Tensor, x: Tensor, hd: Tensor, w1: Tensor, w2: Tensor, inv_keep: float,
+                 activation: str) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Pallas #8: (dx, dw1, db1, dw2, db2)."""
+    return _ffn_backward_reference(g, x, hd, w1, w2, activation, inv_keep)
+
+
+def _ffn_bwd_cuda(g, x, hd, w1, w2, inv_keep, activation):
+    global unfolded_bwd_launches
+    stages, grads = ffn_backward_stages(g, {"x": x, "hd": hd}, w1, w2, activation=activation,
+                                        inv_keep=inv_keep)
+    _run(stages)
+    unfolded_bwd_launches += 1
+    return grads
+
+
+def _ffn_bwd_fake(g, x, hd, w1, w2, inv_keep, activation):
+    return _weight_grads_fake(x, w1, w2)
+
+
+def _ffn_setup(ctx, inputs, output):
+    x, w1, b1, w2, b2, key, rate, activation, residuals = inputs
+    _library.residual_context(
+        ctx, (x, output[1], w1, w2),
+        dict(inv_keep=Dropout.make(key, 0, rate).inv_keep, activation=activation,
+             residuals=residuals), output[1:])
+
+
+def _ffn_backward(ctx, g, *_):
+    if not ctx.residuals:
+        raise RuntimeError("fm::ffn was called without residuals")
+    grads = ffn_bwd_op(g, *ctx.saved_tensors, ctx.inv_keep, ctx.activation)
+    return (*grads, None, None, None, None)
+
+
+ffn_bwd_op = _library.register("ffn_bwd", _ffn_bwd_cpu, _ffn_bwd_cuda, _ffn_bwd_fake)
+ffn_op = _library.register("ffn", _ffn_cpu, _ffn_cuda, _ffn_fake, _ffn_backward, _ffn_setup)
 
 
 def fused_ffn_ln(x, w1, b1, w2, b2, gamma, beta, *, ln_eps: float,
                  activation: str = "relu", rate: float = 0.1, deterministic: bool = True,
-                 seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+                 seeds: Optional[Sequence[Seed]] = None) -> torch.Tensor:
     """FFN half-layer ``LayerNorm(x + dropout(ffn(x)))``.
 
     x [R, H] (fp32 or bf16); w1 [F, H], w2 [H, F] and biases in ``x.dtype``;
     gamma/beta [H].  With ``deterministic=False`` and ``rate > 0`` the inner
     (relu only) and outer dropout draw from Philox ``seeds`` = (inner,
-    outer), which is then required.  Differentiable: with grad enabled the
-    backward runs the backward kernels (their plain version on a CPU
-    tensor).  Returns [R, H].
+    outer), ints or key tensors, which are then required.  Differentiable:
+    with grad enabled the backward is ``fm::ffn_ln_bwd`` (#4; its plain
+    version on a CPU tensor).  Returns [R, H].
     """
     _check_activation(activation)
     if not deterministic and rate > 0.0 and seeds is None:
         raise ValueError("dropout (deterministic=False, rate > 0) needs seeds")
     inner, outer = _streams(None if deterministic else seeds, rate, activation)
     args = (x, w1, b1, w2, b2, gamma, beta)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _HalfLayer.apply(*args, inner, outer, activation, ln_eps)
-    return _infer(*args, activation, ln_eps, inner, outer)
+    return ffn_ln_op(*args, *_keys(inner, outer, x.device), rate, activation, ln_eps,
+                     _library.needs_grad(*args))[0]
 
 
 def fused_ffn_ln_infer(x, w1, b1, w2, b2, gamma, beta, *, ln_eps: float,
                        activation: str = "relu") -> torch.Tensor:
     """Inference entry (the frozen text encoder's): the same math as
     :func:`fused_ffn_ln` with dropout off, storing no residuals."""
-    return _infer(x, w1, b1, w2, b2, gamma, beta, activation, ln_eps, Dropout(),
-                  Dropout())
+    _check_activation(activation)
+    return ffn_ln_op(x, w1, b1, w2, b2, gamma, beta, None, None, 0.0, activation, ln_eps,
+                     False)[0]
 
 
 def fused_ffn(x, w1, b1, w2, b2, *, activation: str = "relu", rate: float = 0.1,
-              deterministic: bool = True, seed: Optional[int] = None) -> torch.Tensor:
+              deterministic: bool = True, seed: Optional[Seed] = None) -> torch.Tensor:
     """FFN ``dropout(act(x . W1^T + b1)) . W2^T + b2`` (the JAX ``fused_ffn``,
     ``fused_ffn.py:305``).
 
     x [R, H] (fp32 or bf16); w1 [F, H], w2 [H, F] and biases in ``x.dtype``.
     With ``deterministic=False`` and ``rate > 0`` the dropout after the relu
-    draws from Philox ``seed`` (required), stream 0; gelu takes no dropout
-    and raises if asked for one.  Differentiable (Pallas #8's backward; its
-    plain version on a CPU tensor).  Returns [R, H] in ``x.dtype``.
+    draws from Philox ``seed`` (an int or a key tensor; required), stream 0;
+    gelu takes no dropout and raises if asked for one.  Differentiable
+    (``fm::ffn_bwd``, Pallas #8's backward; its plain version on a CPU
+    tensor).  Returns [R, H] in ``x.dtype``.
     """
-    global unfolded_launches
     _check_activation(activation)
     inner = _inner_stream(seed, rate, deterministic, activation)
     args = (x, w1, b1, w2, b2)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _Ffn.apply(*args, inner, activation)
-    if not x.is_cuda:
-        return _ffn_reference(*args, activation, inner)[0]
-    stages, out, _ = ffn_stages(*args, activation=activation, inner=inner)
-    _run(stages)
-    unfolded_launches += 1
-    return out
+    key = _library.key_of(inner.seed if inner.on else None, x.device)
+    return ffn_op(*args, key, rate if inner.on else 0.0, activation,
+                  _library.needs_grad(*args))[0]
