@@ -278,7 +278,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    exact, floats within 1e-12 of the column's max-abs); a second card run
    byte-identical to the first; ``cli.main(["data", "--synthetic", "40"])``
    in-process against the CPU; then ``write_raw_mimic_scaled(n_subjects=3000,
-   chartevents_rows=2_000_000)`` (a tenth of ``ETL_BENCH_r05.log``'s rows)
+   chartevents_rows=500_000)`` (a fortieth of ``ETL_BENCH_r05.log``'s rows)
    through ``python -m fairmultimodal_torch.cli data --timing --use_native
    on`` and ``off``, each in its own process under the profiler (per-table
    rows/s, stage seconds, the card's busy share, peak device memory and peak
@@ -1237,17 +1237,19 @@ def nt_gemm_phase(_build):
 
 # -- phase 3c, continued: each bf16 "nn" / "tn" GEMM stage of the backward -----------------
 #
-# Each bf16 backward product of the lab path alone, at its shape: "nn" through
-# ``_build.gemm`` (csrc/gemm.cu::gemm_wgmma_kernel with B MN-major) with the
-# epilogue the path gives it, "tn" through ``fused_attention_block.weight_grad``
-# (the same kernel with both operands MN-major, split-K fp32 partials and
-# their fixed-order sum), held against the same product and epilogue in fp32
-# on the card, rounded once.  Limits as the "nt" stages: NT_BF16_MAX (one bf16
-# ulp of max-abs) and mean TRAIN_BF16_MEAN; the gated stages' column sums
-# (fp32, summed over 143360 rows in another order) TRAIN_FP32_TOL of their
-# max-abs; the dgelu gate's aux (round(gelu(gate))) one bf16 ulp.  Timed
-# beside one ``torch.matmul`` on the same operands (cuBLAS; a yardstick the
-# port never calls), each with its TFLOP/s.
+# Each bf16 backward product of the lab path alone, at its shape (and the
+# gated dh, dx + residual and a weight grad at batch 16): "nn" through
+# ``_build.gemm`` (csrc/gemm.cu::gemm_bf16_nn_tn_kernel, persistent, with B
+# MN-major) with the epilogue the path gives it, "tn" through
+# ``fused_attention_block.weight_grad`` (the same kernel with both operands
+# MN-major, split-K fp32 partials and their fixed-order sum), held against the
+# same product and epilogue in fp32 on the card, rounded once.  Limits as the
+# "nt" stages: NT_BF16_MAX (one bf16 ulp of max-abs) and mean TRAIN_BF16_MEAN;
+# the gated stages' column sums (fp32, summed over 143360 rows in another
+# order) TRAIN_FP32_TOL of their max-abs; the dgelu gate's aux
+# (round(gelu(gate))) one bf16 ulp.  Timed beside one ``torch.matmul`` on the
+# same operands (cuBLAS; a yardstick the port never calls), each with its
+# TFLOP/s.
 
 # name, layout, M, N, K, gate ("relu" | "dgelu" | None), fp32 residual, timed
 NN_TN_STAGES = (
@@ -1260,7 +1262,10 @@ NN_TN_STAGES = (
     ("dWqkv split-K", "tn", 2304, 768, R_LAB, None, False, True),
     ("dW1 split-K", "tn", 2048, 768, R_LAB, None, False, True),
     ("dW2 split-K", "tn", 768, 2048, R_LAB, None, False, True),
-    ("dh text dgelu gate + aux", "nn", R_TEXT, 3072, 768, "dgelu", False, False),
+    ("dh B16 relu gate + colpart", "nn", 16 * 560, 2048, 768, "relu", False, True),
+    ("dx ffn B16 + resid", "nn", 16 * 560, 768, 2048, None, True, True),
+    ("dW1 B16 split-K", "tn", 2048, 768, 16 * 560, None, False, True),
+    ("dh text dgelu gate + aux", "nn", R_TEXT, 3072, 768, "dgelu", False, True),
     ("ragged nn M600 N200 K96 relu gate", "nn", 600, 200, 96, "relu", False, False),
     ("ragged tn M600 N200 K5000", "tn", 600, 200, 5000, None, False, False),
 )
@@ -1503,12 +1508,13 @@ def f32_gemm_phase(_build, fab):
 
 #: The kernels redesigned for Hopper (the bf16 path's, the fp32 GEMMs and the
 #: fp32 flash forward and backward), whose ``-Xptxas -v`` lines phase 2 reports.
-PTXAS_KERNELS = ("gemm_bf16_nt_kernel", "gemm_wgmma_kernel", "flash_attn_fwd_wgmma_kernel",
+PTXAS_KERNELS = ("gemm_bf16_nt_kernel", "gemm_bf16_nn_tn_kernel", "flash_attn_fwd_wgmma_kernel",
                  "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
                  "gemm_f32_nt_kernel", "gemm_f32_nn_tn_kernel", "flash_attn_fwd_f32_kernel",
                  "flash_bwd_dq_f32_kernel", "flash_bwd_dkdv_f32_kernel")
 #: Kernels that must not spill (their accumulators live in registers).
-NO_SPILL_KERNELS = ("gemm_bf16_nt_kernel", "gemm_f32_nt_kernel", "gemm_f32_nn_tn_kernel",
+NO_SPILL_KERNELS = ("gemm_bf16_nt_kernel", "gemm_bf16_nn_tn_kernel", "gemm_f32_nt_kernel",
+                    "gemm_f32_nn_tn_kernel",
                     "flash_attn_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                     "flash_bwd_dkdv_wgmma_kernel")
 
@@ -4581,8 +4587,9 @@ ETL_FILES = ("final_structured_dataset.csv", "final_structured_with_feature_set_
              "unstructured_with_demographics.csv", "final_structured_common.csv",
              "final_unstructured_common.csv")
 ETL_SUBJECTS = 400
-#: A tenth of ETL_BENCH_r05.log's CHARTEVENTS rows (20M), cut for the run's time limit.
-ETL_SCALED = dict(n_subjects=3000, chartevents_rows=2_000_000)
+#: A fortieth of ETL_BENCH_r05.log's CHARTEVENTS rows (20M), cut for the run's time limit
+#: (at 2M, whole runs of this script on slower H100 hosts took 1133-1176 s of the 1200).
+ETL_SCALED = dict(n_subjects=3000, chartevents_rows=500_000)
 #: Floats within 1e-12 of their column's max-abs: the card's segment sums and the CPU's
 #: may add in another order (the JAX native path already differs by 7e-16).
 ETL_TOL = 1e-12

@@ -12,30 +12,36 @@ process, which builds its kernels into ``TREE/build/kernels`` and prints: what
 lab stages (QKV, Wo, W1 with relu + inner dropout + aux, W1 plain, W2), at
 batch 16 (R 8784: QKV, W1 with relu + dropout + aux, W2 into fp32) and at
 the note encoder's S 512 (QKV, W1 with gelu + aux, W2), each checked against
-its fp32 epilogue and timed with its TFLOP/s beside ``F.linear``; the
-backward's "nn" dx (R 143360, K
-2304) and "tn" dWqkv (2304 x 768 over 143360 rows, split-K with its
-fixed-order sum) checked against fp32 and timed beside ``torch.matmul``; and
+its fp32 epilogue and timed with its TFLOP/s beside ``F.linear``; every
+backward "nn" / "tn" stage at the lab (R 143360) and batch-16 (R 8960)
+shapes with the epilogue its path gives it (dO, dx + residual, the relu-gated
+dh with its column partials, the split-K weight grads with their fixed-order
+sum) and the text encoder's dgelu-gated dh, checked against fp32 and timed
+beside ``torch.matmul`` (BWDGEMM); and
 the flash forward and backward at the lab (B 256, S 560, 8 x 96) and text
 (B 32, S 512, 12 x 64) shapes, checked against their plain versions and timed
 (CUDA-event medians of 20, the kernels' device time from the profiler, the host
 time of a forward call) beside SDPA with the -1e9 bias and its autograd
-backward; a hash of each bf16 GEMM layout's output on fixed inputs (GEMMBITS:
-equal hashes, equal bits); #2 (serving, and the training forward with
+backward; a hash of each bf16 GEMM layout's output on fixed inputs and of
+each "nn" / "tn" epilogue (relu and dgelu gates with aux and column partials,
+the residual, a split-K weight grad) at R 8784 (GEMMBITS: equal hashes,
+equal bits); #2 (serving, and the training forward with
 dropout) and #7 at the lab (R 143360), batch-16 (R 8784) and text (R 16384,
 F 3072 gelu) shapes beside one library composition each, #2 with its
-stages (FFN); #1 (no residuals) at the lab (B 256 and 16) and
-text (B 32 x S 512, B 64 x S 256, 12 x 64) shapes, #3 (forward with
+stages (FFN); #4 at the lab and batch-16 (R 8960) shapes and #8 at the lab
+shape with their stages, plain and library times (BWD); #1 (no residuals)
+at the lab (B 256 and 16) and text (B 32 x S 512, B 64 x S 256, 12 x 64) shapes, #3 (forward with
 residuals and backward, dropout 0.1) and #5 / #6 at the lab shape (B 256 and
 16) and #5 / #6 at the text shape (B 32 x S 512), each beside its library
 composition (ATTN); and the bf16 FAME train step at batch 256 (phase 5's
 model and batch: CUDA-event median of 20, then the profiler's busy / idle
 split and the device time of every kernel by name over 3 steps, with the
-"nt" GEMMs' device time a step by output dtype, whichever kernel ran them:
-STEP).  Only entry points every tree has are called (the parent of the
-persistent bf16 "nt" kernel has them all), so a tree and its parent run in
+"nt" GEMMs' device time a step by output dtype and the "nn" / "tn" GEMMs' by
+mode (store, gate, residual; "tn"), whichever kernel ran them: STEP).  Only
+entry points every tree has are called (the parent of the persistent bf16
+"nt" kernel has them all), so a tree and its parent run in
 turns.  Give a tree twice (A B A B) to see the spread between repeats.  Lines
-start with GEMM, BWDGEMM, GEMMBITS, FLASH, FLASHERR, FFN, ATTN or STEP.
+start with GEMM, BWDGEMM, GEMMBITS, FLASH, FLASHERR, FFN, ATTN, BWD or STEP.
 
     python3 compare_kernels.py --fp32 [--steps] TREE [TREE ...]
 
@@ -95,14 +101,58 @@ import os
 import subprocess
 import sys
 
+_GEMMBITS = r'''
+# Bits of every bf16 GEMM layout on fixed inputs, and of each "nn" / "tn"
+# epilogue at a ragged batch-16 shape (the outputs, aux and column partials).
+import hashlib
+gen = torch.Generator(device="cuda").manual_seed(9)
+bf = torch.bfloat16
+bits = {}
+for layout, (M, N, K) in (("nt", (4096, 2304, 768)), ("nn", (4096, 768, 2304)),
+                          ("tn", (2304, 768, 4096))):
+    a = torch.randn(*((K, M) if layout == "tn" else (M, K)), generator=gen, device="cuda").to(bf)
+    b = torch.randn(*((N, K) if layout == "nt" else (K, N)), generator=gen, device="cuda").to(bf)
+    out = torch.empty(M, N, device="cuda", dtype=bf)
+    _build.gemm(a, b, out, layout=layout)
+    bits[layout] = hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+M, K = 16 * 549, 768
+for name, N, gate_kind in (("nn relu gate", 2048, "relu"), ("nn dgelu gate", 3072, "dgelu"),
+                           ("nn resid", 768, None), ("tn split-K", 768, None)):
+    a = torch.randn(M, K, generator=gen, device="cuda").to(bf)
+    b = (torch.randn(K if name != "tn split-K" else M, N, generator=gen, device="cuda")
+         * K ** -0.5).to(bf)
+    out = torch.empty(M if name != "tn split-K" else K, N, device="cuda", dtype=bf)
+    extra = []
+    if name == "tn split-K":
+        fab.weight_grad(a, b, out)
+    else:
+        gate = torch.randn(M, N, generator=gen, device="cuda").to(bf) if gate_kind else None
+        resid = None if gate_kind else torch.randn(M, N, generator=gen, device="cuda")
+        aux = torch.empty_like(gate) if gate_kind == "dgelu" else None
+        colpart = torch.empty(-(-M // 128), N, device="cuda") if gate_kind else None
+        _build.gemm(a, b, out, layout="nn", gate=gate, gate_kind=gate_kind,
+                    gate_scale=1 / 0.9 if gate_kind == "relu" else 1.0, aux=aux, resid=resid,
+                    colpart=colpart)
+        extra = [t for t in (aux, colpart) if t is not None]
+    h = hashlib.sha256()
+    for t in (out, *extra):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    bits[name] = h.hexdigest()[:16]
+print("GEMMBITS", json.dumps(bits), flush=True)
+del a, b, out, extra
+torch.cuda.empty_cache()
+'''
+
+
 _RUN = r'''
 import json, time, torch, chip_smoke as c
 from fairmultimodal_torch.ops import _build, flash_attention as flash
 from fairmultimodal_torch.ops import fused_attention_block as fab, fused_ffn as ffn
 torch.backends.cuda.matmul.allow_tf32 = False
-print(json.dumps(c.ptxas_report(_build, ("gemm_bf16_nt_kernel", "gemm_wgmma_kernel",
-                                         "flash_attn_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-                                         "flash_bwd_dkdv_wgmma_kernel"))), flush=True)
+# The tree's own bf16 kernels (the "nn" / "tn" one is gemm_wgmma_kernel in a
+# parent of the persistent gemm_bf16_nn_tn_kernel).
+print(json.dumps(c.ptxas_report(_build, tuple(n for n in c.PTXAS_KERNELS if "f32" not in n))),
+      flush=True)
 gen = torch.Generator(device="cuda").manual_seed(5)
 R16 = 16 * c.N_LABS
 for stage in (("qkv lab", c.R_LAB, 2304, 768, "none", 0.0, False, False, True),
@@ -122,22 +172,30 @@ for stage in (("qkv lab", c.R_LAB, 2304, 768, "none", 0.0, False, False, True),
                                                   "library_tflops")}), flush=True)
 bf = torch.bfloat16
 R = 256 * 560
-for name, layout, M, N, K in (("dx nn", "nn", R, 768, 2304), ("dWqkv tn", "tn", 2304, 768, R)):
-    a = torch.randn(*((M, K) if layout == "nn" else (K, M)), generator=gen, device="cuda").to(bf)
-    b = (torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5).to(bf)
-    out = torch.empty(M, N, device="cuda", dtype=bf)
-    run = (lambda: _build.gemm(a, b, out, layout="nn")) if layout == "nn" else \
-        (lambda: fab.weight_grad(a, b, out))
-    lib = (lambda: torch.matmul(a, b)) if layout == "nn" else (lambda: torch.matmul(a.t(), b))
-    run()
-    want = a.float() @ b.float() if layout == "nn" else a.float().t() @ b.float()
-    err = ((out.float() - want).abs().max() / want.abs().max()).item()
-    ms, lib_ms = c.time_ms(run, reps=20), c.time_ms(lib, reps=20)
-    print("BWDGEMM", json.dumps({"stage": name, "rel_err": err, "ms": ms,
-                                 "tflops": 2 * M * N * K / ms / 1e9, "library_ms": lib_ms}),
-          flush=True)
-    del a, b, out, want
-    torch.cuda.empty_cache()
+# Every bf16 "nn" / "tn" stage of the backward at the lab and batch-16 shapes,
+# with the epilogue its path gives it, checked against fp32 and timed beside
+# torch.matmul (phase 3c's check).
+gen = torch.Generator(device="cuda").manual_seed(6)
+R16B = 16 * 560
+for stage in (("dO attention", "nn", R, 768, 768, None, False, True),
+              ("dx attention + resid", "nn", R, 768, 2304, None, True, True),
+              ("dh ffn relu gate + colpart", "nn", R, 2048, 768, "relu", False, True),
+              ("dx ffn + resid", "nn", R, 768, 2048, None, True, True),
+              ("dx ffn plain", "nn", R, 768, 2048, None, False, True),
+              ("dWo split-K", "tn", 768, 768, R, None, False, True),
+              ("dWqkv split-K", "tn", 2304, 768, R, None, False, True),
+              ("dW1 split-K", "tn", 2048, 768, R, None, False, True),
+              ("dW2 split-K", "tn", 768, 2048, R, None, False, True),
+              ("dO attention B16", "nn", R16B, 768, 768, None, False, True),
+              ("dx attention B16 + resid", "nn", R16B, 768, 2304, None, True, True),
+              ("dh ffn B16 relu gate + colpart", "nn", R16B, 2048, 768, "relu", False, True),
+              ("dx ffn B16 + resid", "nn", R16B, 768, 2048, None, True, True),
+              ("dWqkv B16 split-K", "tn", 2304, 768, R16B, None, False, True),
+              ("dW1 B16 split-K", "tn", 2048, 768, R16B, None, False, True),
+              ("dh text dgelu gate + aux", "nn", c.R_TEXT, 3072, 768, "dgelu", False, True)):
+    row = c.nn_tn_gemm_check(_build, fab, gen, *stage)
+    print("BWDGEMM", json.dumps({k: row.get(k) for k in (
+        "stage", "ms", "tflops", "library_ms", "bound_ms", "bound_by", "splits")}), flush=True)
 gen = torch.Generator(device="cuda").manual_seed(4)
 for kw in (dict(B=256, S=560, nh=8, d=96, mask_kind="lab"), dict(B=32, S=512, nh=12, d=64)):
     row = c.flash_check(flash, gen, bf, **kw)
@@ -171,20 +229,7 @@ for kw in (dict(B=256, S=560, nh=8, d=96, mask_kind="lab"), dict(B=32, S=512, nh
     print("FLASH", kw, json.dumps(row), flush=True)
     del q, k, v, o, stats, saved, g, lib
     torch.cuda.empty_cache()
-# Bits of every bf16 GEMM layout on fixed inputs.
-import hashlib
-gen = torch.Generator(device="cuda").manual_seed(9)
-bits = {}
-for layout, (M, N, K) in (("nt", (4096, 2304, 768)), ("nn", (4096, 768, 2304)),
-                          ("tn", (2304, 768, 4096))):
-    a = torch.randn(*((K, M) if layout == "tn" else (M, K)), generator=gen, device="cuda").to(bf)
-    b = torch.randn(*((N, K) if layout == "nt" else (K, N)), generator=gen, device="cuda").to(bf)
-    out = torch.empty(M, N, device="cuda", dtype=bf)
-    _build.gemm(a, b, out, layout=layout)
-    bits[layout] = hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
-print("GEMMBITS", json.dumps(bits), flush=True)
-del a, b, out
-torch.cuda.empty_cache()
+#GEMMBITS#
 # #2 (serving; the training forward with dropout 0.1) and #7 (the inner
 # dropout 0.1 after relu; gelu takes none), bf16, beside one library
 # composition each.
@@ -251,6 +296,30 @@ for label, kw in (("lab B256", dict(B=256)), ("lab B16", dict(B=16)),
         "ms", "fwd_res_ms", "bwd_ms", "bwd_stages_ms", "library_ms", "library_bwd_ms", "bound_ms",
         "bwd_bound_ms", "bwd_deterministic")}}), flush=True)
     torch.cuda.empty_cache()
+# #4 (the LN-fused FFN backward) at the lab and batch-16 shapes and #8 (the
+# unfolded one) at the lab shape, bf16, dropout 0.1, with their stages.
+gen = torch.Generator(device="cuda").manual_seed(16)
+for label, rows in (("lab R143360", c.R_LAB), ("B16 R8960", 16 * 560)):
+    row = c.ffn_train_check(ffn, _build, gen, bf, 0.1, R=rows, timed=True)
+    print("BWD", json.dumps({"kernel": "#4", "shape": label, **{k: row.get(k) for k in (
+        "ms", "stages_ms", "plain_ms", "library_ms", "bound_ms", "deterministic")}}), flush=True)
+    torch.cuda.empty_cache()
+# #8's check at the lab shape holds the bf16 grads to one ulp of their max-abs,
+# which an input with a pre-activation rounded across zero (a relu flip)
+# misses in the plain version: the inputs of the first seed that passes, the
+# same seeds in every tree.
+for seed in (17, 18, 19, 20):
+    try:
+        row = c.unfolded_ffn_check(ffn, torch.Generator(device="cuda").manual_seed(seed), bf,
+                                   0.1, timed=True)
+        break
+    except AssertionError as err:
+        print("BWD #8 seed", seed, "missed its check:", str(err)[:160], flush=True)
+print("BWD", json.dumps({"kernel": "#8", "shape": "lab R143360", "seed": seed,
+                        **{k: row.get(k) for k in (
+                            "bwd_ms", "bwd_stages_ms", "plain_bwd_ms", "library_bwd_ms",
+                            "bwd_bound_ms", "bwd_deterministic")}}), flush=True)
+torch.cuda.empty_cache()
 # The bf16 FAME train step at batch 256 (phase 5's model and batch).
 import numpy as np
 from fairmultimodal_torch.data.loader import BatchIterator, NestedLoader
@@ -273,24 +342,36 @@ with profile(activities=[ProfilerActivity.CUDA]) as prof:
     for _ in range(3):
         trainer.train_step(batch)
     torch.cuda.synchronize()
-names = {e.key[:100]: (e.self_device_time_total / 3e3, e.count / 3) for e in prof.key_averages()
-         if e.self_device_time_total > 0}
+full = {e.key: (e.self_device_time_total / 3e3, e.count / 3) for e in prof.key_averages()
+        if e.self_device_time_total > 0}
+names = {key[:100]: v for key, v in full.items()}
 import re
 nt = {}     # the "nt" GEMMs a step by output dtype: this kernel or the wgmma one's "nt" form
-for key, (ms, n) in names.items():
+# The "nn" / "tn" GEMMs a step by mode, whichever kernel ran them (the persistent
+# gemm_bf16_nn_tn_kernel<TOut, AT, MODE, GK> or its parent's gemm_wgmma_kernel<TOut, AT, MODE>).
+nn_tn = {}
+modes = {"0": "nn store", "2": "nn gate", "3": "nn resid"}
+for key, (ms, n) in full.items():
     m = re.search(r"gemm_bf16_nt_kernel<(\w+)>|gemm_wgmma_kernel<(\w+), 0, 0,", key)
     if m:
         total = nt.setdefault("bf16 out" if "bfloat16" in (m.group(1) or m.group(2))
                               else "fp32 out", [0.0, 0.0])
         total[0] += ms
         total[1] += n
+    m = re.search(r"(?:gemm_bf16_nn_tn_kernel|gemm_wgmma_kernel)<\w+, (\d), (\d)[,>]", key)
+    if m:
+        for group in ("tn" if m.group(1) == "1" else modes[m.group(2)], "all"):
+            total = nn_tn.setdefault(group, [0.0, 0.0])
+            total[0] += ms
+            total[1] += n
 print("STEP", json.dumps({"step": "FAME bf16 B256", "timed": timed,
                           "busy_ms": split["device_busy_ms"], "wall_ms": split["wall_ms"],
                           "idle_share": split["idle_share"], "nt_ms_launches": nt,
+                          "nn_tn_ms_launches": nn_tn,
                           "by_kernel_ms_launches": dict(sorted(names.items(),
                                                                key=lambda x: -x[1][0]))}),
       flush=True)
-'''
+'''.replace("#GEMMBITS#\n", _GEMMBITS)
 
 
 _RUN_F32 = r'''
@@ -582,19 +663,7 @@ for dt in (torch.bfloat16, f32):
     _build.layernorm_bwd(rnd(4480, 768, dtype=dt), z, gamma, dz, da, part, 1e-5, drop)
     bits["layernorm_bwd dropout " + name] = digest(dz, da, part)
 print("DROPBITS", json.dumps(bits), flush=True)
-# GEMMBITS as the bf16 run prints them (the same inputs).
-gen = torch.Generator(device=dev).manual_seed(9)
-bits = {}
-for layout, (M, N, K) in (("nt", (4096, 2304, 768)), ("nn", (4096, 768, 2304)),
-                          ("tn", (2304, 768, 4096))):
-    a = torch.randn(*((K, M) if layout == "tn" else (M, K)), generator=gen,
-                    device=dev).to(torch.bfloat16)
-    b = torch.randn(*((N, K) if layout == "nt" else (K, N)), generator=gen,
-                    device=dev).to(torch.bfloat16)
-    out = torch.empty(M, N, device=dev, dtype=torch.bfloat16)
-    _build.gemm(a, b, out, layout=layout)
-    bits[layout] = hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
-print("GEMMBITS", json.dumps(bits), flush=True)
+#GEMMBITS#
 gen = torch.Generator(device=dev).manual_seed(22)
 
 
@@ -667,7 +736,7 @@ for label, dtype, n, seed in (("FAME default fp32 B16", f32, 16, 9),
                               "profile": c.profile_train_step(trainer, batch)}), flush=True)
     del trainer, batch
     torch.cuda.empty_cache()
-'''
+'''.replace("#GEMMBITS#\n", _GEMMBITS)
 
 
 _STEPS_HOST = r'''

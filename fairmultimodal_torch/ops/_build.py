@@ -34,9 +34,9 @@ from fairmultimodal_torch.utils.rng import Dropout
 __all__ = ["KernelLaunchError", "build", "kernels", "gemm", "colsum", "row_block_sums",
            "flash_attn_fwd", "flash_attn_bwd", "flash_attention_fwd", "flash_attention_bwd",
            "add_layernorm", "layernorm_bwd", "ACT_CODES", "FLASH_BWD_TILE", "LN_BWD_ROWS",
-           "SUM_ROWS", "WGMMA_TILE", "WGMMA_NT", "SGEMM_TILE", "SGEMM_NT", "SGEMM_NN_TN",
-           "GEMM_SCHEDULE", "sgemm_tile", "sgemm_nt_schedule", "bf16_nt_schedule",
-           "sgemm_nn_tn_schedule",
+           "SUM_ROWS", "WGMMA_TILE", "WGMMA_NT", "WGMMA_NN_TN", "SGEMM_TILE", "SGEMM_NT",
+           "SGEMM_NN_TN", "GEMM_SCHEDULE", "sgemm_tile", "sgemm_nt_schedule",
+           "bf16_nt_schedule", "bf16_nn_tn_schedule", "sgemm_nn_tn_schedule",
            "split_rows", "flash_bwd_colpart_rows", "flash_fwd_f32_rows", "FLASH_FWD_KEYS",
            "flash_fwd_bf16_keys", "tma_compatible", "tma_operand", "copy_h2d"]
 
@@ -57,8 +57,9 @@ FLASH_BWD_TILE = {torch.bfloat16: 64, torch.float32: 64}
 #: Keys per tile of the bf16 flash forward (``flash_attention.cu``'s
 #: FWD_BN_NARROW, FWD_BN_WIDE); :func:`flash_fwd_bf16_keys` picks one by S.
 FLASH_FWD_KEYS = (112, 128)
-#: The bf16 ``wgmma`` "nn" / "tn" GEMM's block tile (rows, columns):
-#: ``gemm.cu``'s WG_BM x WG_BN.
+#: The bf16 "nn" / "tn" GEMM's block tile (rows, columns): ``gemm.cu``'s
+#: WG_BM x WG_BN, the tile of ``gemm_bf16_nn_tn_kernel``, which runs every bf16
+#: backward product; :data:`GEMM_SCHEDULE` sizes the "tn" splits from it.
 WGMMA_TILE = (128, 256)
 #: The bf16 "nt" kernel (``gemm.cu``'s ``gemm_bf16_nt_kernel``, WN_*): one
 #: persistent block of ``threads`` per SM walks ``tile`` (WN_BM x WN_BN)
@@ -71,6 +72,15 @@ WGMMA_TILE = (128, 256)
 #: shared memory.  Its schedule: :func:`bf16_nt_schedule`.
 WGMMA_NT = dict(tile=(128, 256), bk=64, stages=4, consumers=2, threads=384, blocks_per_sm=1,
                 chunk=64, mask=4096, mask_threads=96, smem=230496)
+#: The bf16 "nn" / "tn" kernel (``gemm.cu``'s ``gemm_bf16_nn_tn_kernel``, WG_*):
+#: the "nt" kernel's block (``tile``, ``bk``, ``stages``, ``consumers``,
+#: ``threads``) walking (tile, K split) units.  The gate or residual comes by
+#: TMA in sets of ``set`` bytes (the tile's rows x 128 bytes) into ``bufs``
+#: buffers, whose rows each consumer warp then uses as its staging rows for
+#: the epilogue's passes of ``chunk`` columns; ``smem`` bytes of dynamic shared
+#: memory.  Its schedule: :func:`bf16_nn_tn_schedule`.
+WGMMA_NN_TN = dict(tile=WGMMA_TILE, bk=64, stages=4, consumers=2, threads=384, blocks_per_sm=1,
+                   chunk=64, set=16384, bufs=2, smem=230496)
 #: The fp32 "nt" kernel (``gemm.cu``'s ``gemm_f32_nt_kernel``, NT_*): each of
 #: a block's ``consumers`` owns ``tile`` (NT_BM x NT_BN) output tiles in turn,
 #: fed by TMA in ``bk``-deep K slices through a ring of ``stages``; one
@@ -90,8 +100,11 @@ SGEMM_NN_TN = dict(tile=(128, 64), bk=32, stages=4, consumers=2, threads=384, bl
 SGEMM_TILE = SGEMM_NN_TN["tile"]
 #: Per io dtype, the split-K model of the "tn" kernel (block tile, blocks
 #: resident per SM, K step of a split, least rows of a split), from which
-#: ``fused_attention_block._splits`` sizes a weight grad's splits: the wgmma
-#: kernel one block of 384 threads with 200 KB of shared memory; for fp32 the
+#: ``fused_attention_block._splits`` sizes a weight grad's splits: for bf16
+#: ``gemm_bf16_nn_tn_kernel``'s 128 x 256 tile, one block an SM and 64-row
+#: split boundaries (the model of the one-block-a-tile kernel it replaced,
+#: which the persistent one keeps, as the fp32 one does, so that a weight grad
+#: keeps its split count and bits); for fp32 the
 #: counts and 16-row split boundaries the cp.async kernel had (128 x 128 tiles,
 #: two blocks of 256 an SM), which the persistent kernel keeps so that a
 #: weight grad keeps its bits (it runs each (tile, split) unit on its 128 x 64
@@ -131,6 +144,14 @@ def bf16_nt_schedule(m: int, n: int, sms: int):
     and tile t goes to block t % grid, whose two consumers share it, so a
     block (one per SM) runs floor or ceil(tiles / grid)."""
     return _persistent_schedule(dict(WGMMA_NT, consumers=1), m, n, 1, sms)[:3]
+
+
+def bf16_nn_tn_schedule(m: int, n: int, splits: int, sms: int):
+    """The bf16 "nn" / "tn" kernel's persistent launch at M x N over
+    ``splits`` K splits on ``sms`` SMs: (grid, units, units of the busiest
+    block).  Unit u is split u // tiles of tile u % tiles (tiles N-fastest)
+    and goes to block u % grid, whose two consumers share it."""
+    return _persistent_schedule(dict(WGMMA_NN_TN, consumers=1), m, n, splits, sms)[:3]
 
 
 def sgemm_nn_tn_schedule(m: int, n: int, splits: int, sms: int):

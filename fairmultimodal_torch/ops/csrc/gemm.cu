@@ -41,14 +41,15 @@
 //     run on the fragments and staged through rows of its own so the
 //     producer fills the ring with the next tile under it, the Philox keep
 //     bits drawn by idle warps a tile ahead, one wgmma batch kept in flight.
-//   - bf16 "nn" and "tn" (every backward product): gemm_wgmma_kernel, one
-//     128 x 256 tile per block of two consumer warpgroups (m64n256k16 wgmma
-//     from shared memory) and a producer warpgroup whose one thread keeps
-//     four 64-deep K stages of A and B in flight by TMA (128-byte swizzle,
-//     full / empty mbarriers).  Each operand is K-major (the "nn" dY) or
-//     MN-major (the "nn" weight, both "tn" operands): an MN-major operand
-//     comes in 64-wide boxes, gets its own descriptor (leading offset one
-//     box, a 2048-byte step per 16 of K) and sets the wgmma's transpose
+//   - bf16 "nn" and "tn" (every backward product): gemm_bf16_nn_tn_kernel,
+//     the same block and persistence over (tile, K split) units, its
+//     epilogue (plain store, fp32 residual add, or relu / dgelu gate with the
+//     bias grad's column partials) on the fragments, the gate or residual
+//     brought by TMA into two set buffers whose rows are then the consumer
+//     warps' staging rows.  Each operand is K-major (the "nn"
+//     dY) or MN-major (the "nn" weight, both "tn" operands): an MN-major
+//     operand comes in 64-wide boxes, gets its own descriptor (leading offset
+//     one box, a 2048-byte step per 16 of K) and sets the wgmma's transpose
 //     immediate, so no operand is ever transposed in memory.
 //   Both bf16 kernels take 128 x 256 tiles of two m64n256k16 consumers: the
 //   tile needs about 11 TB/s of L2 traffic at the peak rate, so L2 rather
@@ -65,22 +66,21 @@
 //     them.  What bounds them is the CUDA cores' fp32 rate (67 TFLOP/s on an
 //     H100 SXM): each lab product at batch 16 needs 10x or more the time of
 //     its bytes.
-// The epilogue is chosen at compile time (Mode) and works on groups of 8
-// (bf16) or 4 (fp32) consecutive columns: 16-byte loads and stores and one
-// Philox call per 4 elements, so at K = 768 it stays small next to the
-// main loop.
-// "tn" reduces over R = 143360 rows: it splits K (over gridDim.z for bf16,
-// over the persistent kernel's work units for fp32) and writes fp32 partials
+// The epilogue is chosen at compile time (Mode).  The fp32 kernels run
+// epilogue_group on groups of 4 consecutive columns (16-byte loads and
+// stores, one Philox call per 4 elements); the bf16 kernels run the same
+// arithmetic on the wgmma fragments and store through staging rows.
+// "tn" reduces over R = 143360 rows: it splits K over the persistent
+// kernels' work units (a unit is a tile over one split) and writes fp32 partials
 // [splits, M, N] that fm_colsum adds in a fixed order, so the sum is the same
 // bits every run (no atomics anywhere).  Column sums for the bias grads are
 // per row-block partials, also added by fm_colsum.
-// What it leaves on the table: a persistent schedule for the bf16 "nn" /
-// "tn" kernel (its epilogue stages through the ring, so it does not overlap
-// the next tile's loads; the gated dh takes twice its plain time), TMA
-// multicast across a cluster (L2 traffic), a split-K "tn" whose partials
-// stay in the cluster, a stream-K tail for launches of under two waves of
-// tiles, and the TPU kernels' fusion (q/k/v/o, the [R, F] intermediate and dz
-// round-trip HBM).
+// What it leaves on the table: the epilogues still run on both consumers at
+// once while the tensor cores wait (a consumer per tile, ping-pong, needs 256
+// accumulators a thread at this tile), TMA multicast across a cluster (L2
+// traffic), a split-K "tn" whose partials stay in the cluster, a stream-K
+// tail for launches of under two waves of tiles, and the TPU kernels' fusion
+// (q/k/v/o, the [R, F] intermediate and dz round-trip HBM).
 #include <cuda.h>
 #include <math.h>
 #include <stdint.h>
@@ -258,46 +258,10 @@ __device__ __forceinline__ void epilogue_group(const Epi& e, int row, int col, i
   }
 }
 
-// ---- bf16 "nn" / "tn" kernel: wgmma fed by TMA, warp-specialised -----------------
-//
-// C[M, N] = epilogue(op(A) . op(B)) with B MN-major and A K-major or MN-major
-// (AT): "nn" (K, MN), "tn" (MN, MN); "nt" runs gemm_bf16_nt_kernel (below),
-// which took this kernel's "nt" form over with its arithmetic.  A 128 x 256 output
-// tile per block of three warpgroups: warpgroup 2 is the producer (one
-// thread issues the TMA copies of each 64-deep K slice of A and B into a ring
-// of WG_STAGES stages, after the stage's "empty" mbarrier says both consumers
-// released it); warpgroups 0 and 1 each own 64 rows and run one m64n256k16
-// wgmma per 16 of K from shared memory, their fp32 accumulators (128 a
-// thread) in registers.  setmaxnreg moves registers from the producer (40)
-// to the consumers (232).  TMA's 128-byte swizzle is the layout the wgmma
-// descriptors name, and its zero fill takes the ragged edges of M, N and K.
-// A K-major operand arrives as one [rows, 64 K] box (rows 128-byte lines);
-// an MN-major one, stored [K, MN] with MN contiguous, as [64 K, 64 MN] boxes
-// (one 128-byte line per K row, each 8 KB), 2 for A's 128 rows and 4 for
-// B's 256 columns, and the wgmma's transpose immediate for that operand is
-// set.  "tn" splits K over gridDim.z (Kc rows each, a multiple of 64) into
-// fp32 partials [splits, M, N].  Epilogue: after both consumers leave the
-// main loop the ring is idle; each stages its 64 x 256 fp32 tile there and
-// runs epilogue_group over groups of 8 columns (MODE: the plain store, fp32
-// residual add, or gate with the column sums of its 128 rows, added over the
-// 16 rows of each of the 8 consumer warps and then over the warps in order,
-// so colpart is the same bits every run).  Not persistent: each block fills
-// and drains its ring, and the epilogue holds the ring (ROADMAP's next item).
+// ---- bf16 wgmma building blocks (both bf16 kernels) --------------------------------
 
-// _build.WGMMA_TILE repeats WG_BM x WG_BN (the split-K counts are sized from it).
-constexpr int WG_BM = 128;
-constexpr int WG_BN = 256;
-constexpr int WG_BK = 64;  // one 128-byte swizzle line of bf16
-constexpr int WG_STAGES = 4;
-constexpr int WG_THREADS = 384;
+constexpr int WG_BK = 64;  // a K slice: one 128-byte swizzle line of bf16
 constexpr int WG_BOX = 64 * WG_BK * 2;  // one MN-major [64 K][64 MN] box, bytes
-constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;
-constexpr int WG_STAGE_BYTES = WG_A_BYTES + WG_BN * WG_BK * 2;
-constexpr int WG_RING = WG_STAGES * WG_STAGE_BYTES;
-constexpr int WG_CPITCH = WG_BN + 8;  // fp32 staging pitch: the float2 stores take 2 wavefronts
-constexpr int WG_CSUM = 2 * 64 * WG_CPITCH * 4;  // ring offset of the [8][256] column sums
-constexpr int WG_SMEM = WG_RING + 2 * WG_STAGES * 8 + 1024;  // + mbarriers + 1024-byte alignment
-static_assert(WG_CSUM + 8 * WG_BN * 4 <= WG_RING, "the fp32 staging tiles and sums fit the ring");
 
 // wgmma descriptor (start >> 4, leading byte offset >> 4 at bit 16, stride
 // byte offset >> 4 at bit 32, 128-byte swizzle) of the 16-deep K slice kk of
@@ -349,152 +313,14 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, ui
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
-template <typename TOut, int AT, int MODE>
-__global__ void __launch_bounds__(WG_THREADS, 1)
-gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB,
-                  TOut* __restrict__ C, int M, int N, int K, int Kc, Epi e) {
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + WG_RING);
-  uint64_t* empty = full + WG_STAGES;
-  const int wg = threadIdx.x / 128;
-  const int m0 = blockIdx.y * WG_BM;
-  const int n0 = blockIdx.x * WG_BN;
-  const int kb = blockIdx.z * Kc;  // this split's K rows [kb, kend)
-  const int kend = min(kb + Kc, K);
-  const int nk = kend > kb ? (kend - kb + WG_BK - 1) / WG_BK : 0;
-  C += (size_t)blockIdx.z * M * N;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < WG_STAGES; ++s) {
-      mbar_init(&full[s], 1);   // the producer's arrive, plus the copies' bytes
-      mbar_init(&empty[s], 2);  // one arrive per consumer warpgroup
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == 2) {  // producer: the roles never meet at a block-wide barrier again
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == 256) {
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % WG_STAGES;
-        const int k = kb + kt * WG_BK;
-        mbar_wait(&empty[s], ((kt / WG_STAGES) & 1) ^ 1);  // the first round passes at once
-        mbar_expect_tx(&full[s], WG_STAGE_BYTES);
-        unsigned char* a = ring + s * WG_STAGE_BYTES;
-        unsigned char* b = a + WG_A_BYTES;
-        if (AT) {
-          tma_load(a, &tmA, m0, k, &full[s]);
-          tma_load(a + WG_BOX, &tmA, m0 + 64, k, &full[s]);
-        } else {
-          tma_load(a, &tmA, k, m0, &full[s]);
-        }
-#pragma unroll
-        for (int j = 0; j < WG_BN / 64; ++j) tma_load(b + j * WG_BOX, &tmB, n0 + 64 * j, k, &full[s]);
-      }
-    }
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    float acc[128];
-#pragma unroll
-    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
-    fence_regs(acc);
-    for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % WG_STAGES;
-      mbar_wait(&full[s], (kt / WG_STAGES) & 1);
-      // This consumer's 64 rows of A: the second half of a K-major [128][64]
-      // box, or the second MN-major box; 8 KB on either way.
-      const uint32_t a = smem_u32(ring + s * WG_STAGE_BYTES) + wg * 64 * WG_BK * 2;
-      const uint32_t b = smem_u32(ring + s * WG_STAGE_BYTES + WG_A_BYTES);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-      for (int kk = 0; kk < WG_BK / 16; ++kk)
-        wgmma_m64n256k16<AT, 1>(acc, wg_desc<AT>(a, kk), wg_desc<1>(b, kk));
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      fence_regs(acc);
-      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
-    }
-
-    // Both consumers are out of the main loop (so no wgmma reads the ring);
-    // each stages its 64 rows: thread (warp w, lane l) holds rows 16w + l/4
-    // and + 8, columns 8i + 2(l % 4) + {0, 1} of acc[4i .. 4i + 3].
-    asm volatile("bar.sync 1, 256;\n" ::: "memory");
-    float* stage = reinterpret_cast<float*>(ring) + wg * 64 * WG_CPITCH;
-    const int warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
-    const int r = warp * 16 + lane / 4;
-#pragma unroll
-    for (int i = 0; i < WG_BN / 8; ++i) {
-      const int c = 8 * i + 2 * (lane % 4);
-      *reinterpret_cast<float2*>(stage + r * WG_CPITCH + c) = make_float2(acc[4 * i], acc[4 * i + 1]);
-      *reinterpret_cast<float2*>(stage + (r + 8) * WG_CPITCH + c) =
-          make_float2(acc[4 * i + 2], acc[4 * i + 3]);
-    }
-    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
-    // Warp w runs the epilogue over its 16 staged rows, lane l over the 8
-    // columns from 8l: 16-byte loads and stores, one Philox call per 4.
-    const int col = n0 + lane * 8;
-    float csum[8];  // EPI_GATE: this lane's column sums over the warp's rows
-#pragma unroll
-    for (int k = 0; k < 8; ++k) csum[k] = 0.0f;
-#pragma unroll 4
-    for (int i = 0; i < 16; ++i) {
-      const int lr = warp * 16 + i;
-      const int row = m0 + wg * 64 + lr;
-      if (row < M && col < N) {
-        float v[8];
-        load_group<8>(stage + lr * WG_CPITCH + lane * 8, v);
-        epilogue_group<MODE, 8, fm_bf16, TOut>(e, row, col, N, v, C, csum);
-      }
-    }
-    if (MODE == EPI_GATE) {  // the 8 warps' sums, added in warp order
-      float* sums = reinterpret_cast<float*>(ring + WG_CSUM);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) sums[(wg * 4 + warp) * WG_BN + lane * 8 + k] = csum[k];
-      asm volatile("bar.sync 1, 256;\n" ::: "memory");
-      const int c = threadIdx.x;  // 0 .. 255
-      if (n0 + c < N) {
-        float s = 0.0f;
-#pragma unroll
-        for (int w = 0; w < 8; ++w) s += sums[w * WG_BN + c];
-        e.colpart[(size_t)blockIdx.y * N + n0 + c] = s;
-      }
-    }
-  }
-}
-
-// The map of one bf16 operand with ``mn`` rows or columns: K-major [mn, K] in
-// [box_mn, 64] boxes, or MN-major [K, mn] in [64, 64] boxes.
-bool operand_map(CUtensorMap* map, const void* p, int mn, int K, bool mn_major, int box_mn) {
-  return mn_major ? tma_map(map, p, false, K, mn, WG_BK, 64)
-                  : tma_map(map, p, false, mn, K, box_mn, WG_BK);
-}
-
-template <typename TOut, int AT, int MODE>
-cudaError_t launch_wgmma(const void* A, const void* B, void* C, int M, int N, int K, int splits,
-                         int Kc, const Epi& e, cudaStream_t s) {
-  CUtensorMap ta, tb;
-  if (!operand_map(&ta, A, M, K, AT, WG_BM) || !operand_map(&tb, B, N, K, true, WG_BN))
-    return cudaErrorInvalidValue;
-  // Per launch, as the attribute belongs to the current device.
-  const cudaError_t err = cudaFuncSetAttribute(gemm_wgmma_kernel<TOut, AT, MODE>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               WG_SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + WG_BN - 1) / WG_BN, (M + WG_BM - 1) / WG_BM, splits);
-  gemm_wgmma_kernel<TOut, AT, MODE><<<grid, WG_THREADS, WG_SMEM, s>>>(
-      ta, tb, static_cast<TOut*>(C), M, N, K, Kc, e);
-  return cudaGetLastError();
-}
-
 // ---- bf16 "nt" kernel: persistent, the epilogue off the ring -------------------------
 //
 // C[M, N] = epilogue(A[M, K] . B[N, K]^T), both operands K-major, for every
 // bf16 forward product (Pallas #1 / #5's QKV and Wo, #2 / #7's W1 and W2, the
 // note encoder's LN-fused _infer variants), with the forward epilogue: bias,
 // aux = round(pre-activation), none / relu / exact gelu, the FFN's inner
-// Philox dropout, bf16 or fp32 out.  It replaces gemm_wgmma_kernel's "nt"
-// form, which lost to one cuBLAS call (QKV at R 143360: 1.10 ms against
+// Philox dropout, bf16 or fp32 out.  It replaces the "nt" form of a
+// one-block-a-tile wgmma kernel, which lost to one cuBLAS call (QKV at R 143360: 1.10 ms against
 // 0.80; W1 with dropout and aux 1.29 against 0.94 plain) for four reasons
 // this design answers:
 //   - Persistent: grid = min(SMs, tiles), one block of WN_THREADS per SM.
@@ -548,7 +374,7 @@ cudaError_t launch_wgmma(const void* A, const void* B, void* C, int M, int N, in
 // consumers run it at once while the tensor cores wait, and its stores share
 // the SM's port with the ring's refill.
 // Order: each output is 0 + the K-ascending sum of 16-deep m64n256k16 steps,
-// the instruction, operand layout and order gemm_wgmma_kernel ran on this
+// the instruction, operand layout and order that kernel ran on this
 // form, and the epilogue's arithmetic is epilogue_group's, so the outputs
 // keep its bits.  Ragged edges: TMA zero-fills past M, N and K (K % 32 ==
 // 0, the wrapper's rule); the epilogue skips rows and columns past M and N,
@@ -867,6 +693,455 @@ cudaError_t launch_bf16_nt(const void* A, const void* B, void* C, int M, int N, 
   if (err != cudaSuccess) return err;
   gemm_bf16_nt_kernel<TOut><<<sms < tiles ? sms : tiles, WN_THREADS, WN_SMEM, s>>>(
       ta, tb, static_cast<TOut*>(C), M, N, K, e);
+  return cudaGetLastError();
+}
+
+// ---- bf16 "nn" / "tn" kernel: persistent, the gate and residual brought by TMA ------
+//
+// C[M, N] = epilogue(op(A) . B[K, N]) for every bf16 backward product: "nn"
+// (A [M, K] K-major: dO = da.Wo, dx = dz + dqkv.Wqkv, dh = (dy.W2) * gate',
+// dx = dz + dh.W1 of Pallas #3, #4, #6 and #8) and "tn" (A [K, M] MN-major:
+// the split-K weight grads dWo, dWqkv, dW1, dW2, K = the R rows).  B is always
+// MN-major.  The block is gemm_bf16_nt_kernel's; what differs is the
+// MN-major operands, the K splits and the backward's epilogue.  It replaces
+// a one-block-a-tile kernel of the same tile and arithmetic, which filled and
+// drained its ring at every tile, waited for each slice's wgmma batch before
+// it released the stage, and ran its epilogue through the ring after both
+// consumers left the main loop, reading the gate or residual from global
+// memory row by row while the tensor cores and the ring sat idle.  Here:
+//   - Persistent: grid = min(SMs, units), one block of WG_THREADS per SM.  A
+//     unit is one 128 x 256 tile over one K split, u = split * tiles + t with
+//     tiles numbered N-fastest (as gemm_f32_nn_tn_kernel), and block b runs
+//     u = b, b + grid, ...  Warp 8's lane 0 fills the ring with the next
+//     unit's slices while the consumers finish this one.
+//   - One wgmma batch in flight: a slice's four m64n256k16 are committed as
+//     one group and the consumer waits with wgmma.wait_group 1, releasing the
+//     previous slice's stage (as gemm_bf16_nt_kernel).
+//   - The gate or residual by TMA, off the registers: warp 9's lane 0 brings
+//     each unit's gate (bf16) or residual (fp32) in sets of the tile's 128
+//     rows x 128 bytes (64 gate or 32 residual columns, 128-byte swizzle) into
+//     two set buffers (sfull / sempty mbarriers, one release per consumer
+//     warp).  A buffer is released as soon as its set is read, so a unit's
+//     first two sets land under its main loop and each later one two sets
+//     ahead.  A tile's gate (64 KB) or residual (128 KB) does not fit beside
+//     the 4-stage ring (192 KB of the 227), nor a third set buffer.
+//   - The epilogue on the fragments: four passes of 64 columns, each a
+//     template instance (every index into the 128 accumulators a constant).
+//     Lane (rq, q) reads its pairs of the set where TMA put them (rows rq, rq
+//     + 8 of the warp's 16, columns 8 i + 2 q, + 1: one wavefront a bf16 pair
+//     read, two an fp32 one), then uses its warp's 16 rows of that buffer as
+//     staging rows (wn_stage_off's swizzle), so every store to C is a whole
+//     128-byte line of 16-byte stores and the ring stays free; where no set
+//     comes, buffer 0's rows stage C.  The dgelu gate's aux = round(gelu(hd))
+//     is stored from the set as it lies, whole lines, in a rolled loop.
+//   - The gated dh's column partials keep their order: per column, the 16
+//     rows of a warp summed in row order from 0 (rows past M skipped), then
+//     the 8 warps in order.  On the fragments a column's 16 rows sit in 8
+//     lanes, so each half pass stages the gated fp32 values and lane l sums
+//     column l down the 16 staged rows; at the end of the pass each warp
+//     leaves its 64 sums in its rows and, between two named barriers of the
+//     256 consumer threads, thread c < 64 adds the 8 warps' in order into
+//     colpart[m0 / 128, col0 + c].
+//   - The gate's kind (relu or dgelu) is a kernel of its own (GK), so the
+//     relu kernel carries none of dgelu's code.  384 threads compile to 168
+//     registers a thread and the accumulators take 128, so the epilogue
+//     takes threadIdx.x where it uses it (thread_x: its addresses are not
+//     held across the main loop), reads a pass's gate pairs from one base
+//     register (a0 ^ 16 g) and keeps at most a group's pairs and four rows'
+//     sums in flight (fence_smem); without these ptxas spilled 8-40 bytes.
+// Order: each output is 0 + the K-ascending sum of 16-deep m64n256k16 steps
+// over its split's rows; the splits and their 64-row boundaries are the ones
+// _build.GEMM_SCHEDULE[bfloat16] gives fused_attention_block._splits and
+// _build.split_rows, and fm_colsum adds the split partials in a fixed order;
+// the epilogue's arithmetic is epilogue_group's (v * gate', or v + resid,
+// then the store's rounding).  So every output keeps the one-block-a-tile
+// kernel's bits.  Ragged edges: TMA zero-fills past M, N and K, and the
+// stores skip rows and columns past them ("nn" and "tn" take N % 8 == 0, so
+// every 16-byte word is whole).
+// Bound: the tensor cores (989 TFLOP/s bf16 dense on an H100 SXM).  What is
+// left is the epilogue, which both consumers run at once while the tensor
+// cores wait.  At the lab shape (compare_kernels.py in turns with the
+// one-block-a-tile kernel, NVIDIA H100 80GB HBM3, 700 W) the gated dh takes
+// 0.92-0.95 ms [1.41-1.47] against 0.65-0.66 for the same product stored
+// plain (its gate and its column sums' fp32 staging take the difference), dx
+// + resid 0.74-0.75 [0.88] against 0.65-0.66, and the weight grads 0.28-0.78
+// [0.30-0.84].  Tried in turns on the H100 and dropped:
+// the gate or residual loaded by the consumers in 16-byte words three sets
+// ahead in registers (the 168-register cap spilled, and the residual pass
+// stayed slower than with TMA), a prefetch of the unit's tile into L2 (by
+// TMA at the unit's start, by TMA for the later sets, or by the consumers'
+// prefetch instructions some slices before the end: none faster, the
+// residual slower), the column sums kept in registers to the tile's end
+// (no faster, and they spilled), and dgelu called rather than inlined
+// (slower).
+
+// _build.WGMMA_NN_TN repeats these; _build.WGMMA_TILE is WG_BM x WG_BN, from
+// which fused_attention_block._splits sizes the "tn" splits.
+constexpr int WG_BM = 128;  // the block's output tile, WG_BM x WG_BN: 64 rows a consumer
+constexpr int WG_BN = 256;
+constexpr int WG_STAGES = 4;
+constexpr int WG_CONSUMERS = 2;
+constexpr int WG_THREADS = (WG_CONSUMERS + 1) * 128;  // + the producer's warpgroup
+constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;
+constexpr int WG_STAGE_BYTES = WG_A_BYTES + WG_BN * WG_BK * 2;
+constexpr int WG_RING = WG_STAGES * WG_STAGE_BYTES;
+constexpr int WG_CHUNK = 64;             // columns of an epilogue pass
+constexpr int WG_SET = WG_BM * 128;      // a set: the tile's rows x 128 bytes of gate or residual
+constexpr int WG_BUFS = 2;               // set buffers
+constexpr int WG_SLICE = 16 * 128;       // a consumer warp's 16 rows of a set buffer, bytes
+constexpr int WG_BARS = 2 * WG_STAGES + 2 * WG_BUFS;  // full, empty; sfull, sempty
+// Shared memory of a block, of the 232,448 bytes it may take: the ring 196,608,
+// two set buffers 32,768 (each also the consumer warps' staging rows), the
+// mbarriers 96, and 1,024 for the ring's 1024-byte alignment: 230,496.  A
+// tile's gate (64 KB) or residual (128 KB) does not fit beside the ring, hence
+// sets of 128 bytes a row, two in flight.
+constexpr int WG_SMEM = WG_RING + WG_BUFS * WG_SET + WG_BARS * 8 + 1024;
+static_assert(WG_SMEM <= 232448, "a block's shared memory fits the SM's 227 KB");
+static_assert(WG_STAGE_BYTES % 1024 == 0 && WG_BOX % 1024 == 0 && WG_SET % 1024 == 0,
+              "swizzle atoms stay aligned");
+
+// Unit u of a bf16 "nn" / "tn" launch: tile u % tiles (numbered N-fastest) over
+// split u / tiles, whose K rows [kb, kend = min(kb + Kc, K)) come in nk slices.
+struct WgUnit {
+  int m0, n0, split, kb, kend, nk;
+};
+__device__ __forceinline__ WgUnit wg_unit(int u, int tiles, int tiles_n, int K, int Kc) {
+  const int t = u % tiles;
+  WgUnit r;
+  r.split = u / tiles;
+  r.m0 = t / tiles_n * WG_BM;
+  r.n0 = t % tiles_n * WG_BN;
+  r.kb = r.split * Kc;
+  r.kend = min(r.kb + Kc, K);
+  r.nk = r.kend > r.kb ? (r.kend - r.kb + WG_BK - 1) / WG_BK : 0;
+  return r;
+}
+
+// Sets of a tile: 64 bf16 gate columns or 32 fp32 residual columns each.
+template <int MODE>
+__host__ __device__ constexpr int wg_sets() {
+  return MODE == EPI_GATE ? WG_BN / 64 : MODE == EPI_RESID ? WG_BN / 32 : 0;
+}
+
+// threadIdx.x, read where it is used: the epilogue's addresses derive from it,
+// and ptxas would otherwise keep them all in registers across the main loop
+// (384 threads compile to 168 registers a thread, 128 of them accumulators).
+__device__ __forceinline__ int thread_x() {
+  int x;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(x));
+  return x;
+}
+
+// Keep the compiler from hoisting shared-memory loads above this point, so
+// that few are in flight in registers beside the 128 accumulators.
+__device__ __forceinline__ void fence_smem() { asm volatile("" ::: "memory"); }
+
+// Byte offset of 16-byte word k of row r of a set as TMA's 128-byte swizzle
+// lays it: word k ^ (r & 7).
+__device__ __forceinline__ int wg_set_off(int r, int k) { return r * 128 + ((k ^ (r & 7)) << 4); }
+
+// The dgelu gate's aux = round(gelu(hd)) of a warp's 16 rows of gate set s
+// (columns n0 + 64 s ..), from the set as it lies: lane l word l % 8 of rows l
+// / 8 + 4 j, whole 128-byte lines.
+__device__ __noinline__ void wg_aux(const unsigned char* set, fm_bf16* __restrict__ aux, int row0,
+                                    int r0, int col0, int M, int N, int lane) {
+  const int col = col0 + (lane % 8) * 8;
+#pragma unroll 1
+  for (int j = 0; j < 4; ++j) {
+    const int r = lane / 8 + 4 * j, row = row0 + r;
+    const uint4 v = *reinterpret_cast<const uint4*>(set + wg_set_off(r0 + r, lane % 8));
+    if (row >= M || col >= N) continue;
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    float g[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)  // bf16 k of the word: its bits are the fp32's top half
+      g[k] = gelu(__uint_as_float(k % 2 ? w[k / 2] & 0xffff0000u : w[k / 2] << 16));
+    store_group<8>(aux + (size_t)row * N + col, g);
+  }
+}
+
+// Epilogue pass CH of a consumer warp: its 16 rows (lr ..) x columns 64 CH ..
+// 64 CH + 63 of the tile, fragment groups i = 8 CH + g (columns 8 i + 2 q, +
+// 1; rows rq, rq + 8 as acc[4 i .. 4 i + 3]).  A template, so that every index
+// into acc is a constant.  gs counts the sets taken (their buffers alternate).
+template <int CH, int MODE, int GK, typename TOut>
+__device__ __forceinline__ void wg_pass(float (&acc)[128], const Epi& e,
+                                        const WgUnit& t, TOut* __restrict__ out,
+                                        unsigned char* bufs, uint64_t* sfull, uint64_t* sempty,
+                                        int& gs, int M, int N) {
+  const int tid = thread_x();
+  const int lane = tid % 32, warp = tid / 32;  // consumer warp 0 .. 7
+  const int lr = warp * 16;                    // its first row in the tile
+  const int rq = lane / 4, q = lane % 4;
+  const int col0 = t.n0 + CH * WG_CHUNK;
+  unsigned char* st;         // this pass's staging rows: the warp's slice of a set buffer
+  float cs[2];               // EPI_GATE: columns col0 + lane, + 32 summed over the warp's rows
+  if constexpr (MODE == EPI_GATE) {
+    // Row lr + rq's word 0 with its swizzle (bits 4-6) and byte 4 q: word g of
+    // row + 8 h is at (a0 + 1024 h) ^ 16 g, one register for the pass's pairs.
+    const int a0 = wg_set_off(lr + rq, 0) + q * 4;
+    // The pass's gate: set CH, read where it landed.
+    const int b = gs % WG_BUFS;
+    mbar_wait(&sfull[b], (gs / WG_BUFS) & 1);
+    const unsigned char* set = bufs + b * WG_SET;
+    if (GK == GATE_DGELU && e.aux)  // a = round(gelu(hd)), the dW2 operand
+      wg_aux(set, static_cast<fm_bf16*>(e.aux), t.m0 + lr, lr, col0, M, N, lane);
+#pragma unroll
+    for (int g = 0; g < WG_CHUNK / 8; ++g) {
+      const int i = CH * (WG_CHUNK / 8) + g;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // wg_set_off(lr + rq + 8 h, g) + 4 q
+        const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(
+            set + (a0 + 1024 * h ^ 16 * g));
+        const float t0 = __bfloat162float(p.x), t1 = __bfloat162float(p.y);
+        if constexpr (GK == GATE_RELU) {
+          acc[4 * i + 2 * h] *= t0 > 0.0f ? e.gate_scale : 0.0f;
+          acc[4 * i + 2 * h + 1] *= t1 > 0.0f ? e.gate_scale : 0.0f;
+        } else {
+          acc[4 * i + 2 * h] *= dgelu(t0);
+          acc[4 * i + 2 * h + 1] *= dgelu(t1);
+        }
+      }
+      fence_smem();  // a group's pairs at a time: the registers stay within the 168
+    }
+    __syncwarp();
+    st = bufs + b * WG_SET + warp * WG_SLICE;
+    // The column sums of the warp's 16 rows: each half pass staged in fp32,
+    // and lane l adds column l down the rows in order.
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+      for (int g = 4 * hf; g < 4 * hf + 4; ++g) {
+        const int i = CH * (WG_CHUNK / 8) + g, c = 8 * (g - 4 * hf) + 2 * q;
+        wn_stage(st, rq, c, acc[4 * i], acc[4 * i + 1], (float*)nullptr);
+        wn_stage(st, rq + 8, c, acc[4 * i + 2], acc[4 * i + 3], (float*)nullptr);
+      }
+      __syncwarp();
+      float s = 0.0f;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {  // rows past M: acc and gate are TMA's zeros, adding +0
+        s += *reinterpret_cast<const float*>(st + wn_stage_off(r, lane / 4) + (lane % 4) * 4);
+        if (r % 4 == 3) fence_smem();  // four rows' loads in flight at a time
+      }
+      cs[hf] = s;
+      __syncwarp();
+    }
+  } else if constexpr (MODE == EPI_RESID) {
+    // The pass's residual: sets 2 CH and 2 CH + 1 (32 columns each), read
+    // where they landed and added; the first buffer goes back at once.
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int b = gs % WG_BUFS;
+      mbar_wait(&sfull[b], (gs / WG_BUFS) & 1);
+      const unsigned char* set = bufs + b * WG_SET;
+#pragma unroll
+      for (int g = 4 * hf; g < 4 * hf + 4; ++g) {
+        const int i = CH * (WG_CHUNK / 8) + g, c = 8 * (g - 4 * hf) + 2 * q;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 r = *reinterpret_cast<const float2*>(
+              set + wg_set_off(lr + rq + 8 * h, c / 4) + (c % 4) * 4);
+          acc[4 * i + 2 * h] += r.x;
+          acc[4 * i + 2 * h + 1] += r.y;
+        }
+        fence_smem();
+      }
+      __syncwarp();
+      if (hf == 0) {
+        if (lane == 0) mbar_arrive(&sempty[b]);
+        ++gs;
+      } else {
+        st = bufs + b * WG_SET + warp * WG_SLICE;
+      }
+    }
+  } else {
+    st = bufs + warp * WG_SLICE;  // no sets: buffer 0's rows stage C
+  }
+  // C: one staged set of 128-byte rows for bf16, two for fp32.
+  constexpr int PER = 128 / sizeof(TOut) / 8;  // fragment groups a staged row holds
+#pragma unroll
+  for (int p = 0; p < WG_CHUNK / 8 / PER; ++p) {
+#pragma unroll
+    for (int g = p * PER; g < (p + 1) * PER; ++g) {
+      const int i = CH * (WG_CHUNK / 8) + g, c = 8 * (g - p * PER) + 2 * q;
+      wn_stage(st, rq, c, acc[4 * i], acc[4 * i + 1], (TOut*)nullptr);
+      wn_stage(st, rq + 8, c, acc[4 * i + 2], acc[4 * i + 3], (TOut*)nullptr);
+    }
+    __syncwarp();
+    wn_flush(st, out, t.m0 + lr, col0 + p * PER * 8, M, N, lane);
+    __syncwarp();
+  }
+  if constexpr (MODE == EPI_GATE) {
+    // The 8 warps' column sums through their rows of the set buffer, added in
+    // warp order into colpart[m0 / 128, col0 ..], between two barriers of the
+    // 256 consumer threads.
+    const unsigned char* buf = bufs + (gs % WG_BUFS) * WG_SET;
+    reinterpret_cast<float*>(st)[lane] = cs[0];
+    reinterpret_cast<float*>(st)[32 + lane] = cs[1];
+    asm volatile("bar.sync 1, %0;\n" ::"n"(WG_CONSUMERS * 128) : "memory");
+    const int c = thread_x();
+    if (c < WG_CHUNK && col0 + c < N) {
+      float s = 0.0f;
+#pragma unroll 1
+      for (int w = 0; w < 4 * WG_CONSUMERS; ++w)
+        s += reinterpret_cast<const float*>(buf + w * WG_SLICE)[c];
+      e.colpart[(size_t)(t.m0 / WG_BM) * N + col0 + c] = s;
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(WG_CONSUMERS * 128) : "memory");
+  }
+  if constexpr (MODE == EPI_GATE || MODE == EPI_RESID) {  // the set buffer goes back
+    if (lane == 0) mbar_arrive(&sempty[gs % WG_BUFS]);
+    ++gs;
+  }
+}
+
+template <typename TOut, int AT, int MODE, int GK>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+gemm_bf16_nn_tn_kernel(const __grid_constant__ CUtensorMap tmA,
+                       const __grid_constant__ CUtensorMap tmB,
+                       const __grid_constant__ CUtensorMap tmE, TOut* __restrict__ C, int M,
+                       int N, int K, int Kc, int splits, Epi e) {
+  constexpr bool FETCH = MODE == EPI_GATE || MODE == EPI_RESID;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* bufs = ring + WG_RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bufs + WG_BUFS * WG_SET);
+  uint64_t* empty = full + WG_STAGES;
+  uint64_t* sfull = empty + WG_STAGES;  // set buffer b landed
+  uint64_t* sempty = sfull + WG_BUFS;   // set buffer b read: one arrive per consumer warp
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tiles_n = (N + WG_BN - 1) / WG_BN;
+  const int tiles = (M + WG_BM - 1) / WG_BM * tiles_n;
+  const int units = tiles * splits;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);              // the producer's arrive, plus the copies' bytes
+      mbar_init(&empty[s], WG_CONSUMERS);  // one arrive per consumer warpgroup
+    }
+    for (int b = 0; b < WG_BUFS; ++b) {
+      mbar_init(&sfull[b], 1);
+      mbar_init(&sempty[b], 4 * WG_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * WG_CONSUMERS) {  // the producer warpgroup: no block-wide barrier again
+    setmaxnreg_dec<40>();
+    if (warp == 4 * WG_CONSUMERS && lane == 0) {  // the ring
+      int q = 0;  // slices issued, over all of this block's units
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const WgUnit t = wg_unit(u, tiles, tiles_n, K, Kc);
+        for (int kt = 0; kt < t.nk; ++kt, ++q) {
+          const int s = q % WG_STAGES, k = t.kb + kt * WG_BK;
+          mbar_wait(&empty[s], ((q / WG_STAGES) & 1) ^ 1);  // the first round passes at once
+          mbar_expect_tx(&full[s], WG_STAGE_BYTES);
+          unsigned char* a = ring + s * WG_STAGE_BYTES;
+          if (AT) {
+            tma_load(a, &tmA, t.m0, k, &full[s]);
+            tma_load(a + WG_BOX, &tmA, t.m0 + 64, k, &full[s]);
+          } else {
+            tma_load(a, &tmA, k, t.m0, &full[s]);
+          }
+#pragma unroll
+          for (int j = 0; j < WG_BN / 64; ++j)
+            tma_load(a + WG_A_BYTES + j * WG_BOX, &tmB, t.n0 + 64 * j, k, &full[s]);
+        }
+      }
+    } else if (FETCH && warp == 4 * WG_CONSUMERS + 1 && lane == 0) {  // the gate / residual
+      int gs = 0;  // sets issued, over all of this block's units
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const WgUnit t = wg_unit(u, tiles, tiles_n, K, Kc);
+        for (int x = 0; x < wg_sets<MODE>(); ++x, ++gs) {
+          const int b = gs % WG_BUFS;
+          mbar_wait(&sempty[b], ((gs / WG_BUFS) & 1) ^ 1);  // the first round passes at once
+          mbar_expect_tx(&sfull[b], WG_SET);
+          tma_load(bufs + b * WG_SET, &tmE, t.n0 + x * (WG_BN / wg_sets<MODE>()), t.m0,
+                   &sfull[b]);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+
+  const int wg = warp / 4;
+  int qs = 0;  // slices consumed, over all of this block's units
+  int gs = 0;  // sets taken, over all of this block's units
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const WgUnit t = wg_unit(u, tiles, tiles_n, K, Kc);
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    fence_regs(acc);
+    for (int kt = 0; kt < t.nk; ++kt, ++qs) {
+      const int s = qs % WG_STAGES;
+      mbar_wait(&full[s], (qs / WG_STAGES) & 1);
+      // This consumer's 64 rows of A: the second half of a K-major [128][64]
+      // box, or the second MN-major box; 8 KB on either way.
+      const uint32_t a = smem_u32(ring + s * WG_STAGE_BYTES) + wg * 64 * WG_BK * 2;
+      const uint32_t b = smem_u32(ring + s * WG_STAGE_BYTES + WG_A_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+        wgmma_m64n256k16<AT, 1>(acc, wg_desc<AT>(a, kk), wg_desc<1>(b, kk));
+      wgmma_commit();
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // slice kt - 1 is done
+      fence_regs(acc);
+      if (kt > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(qs - 1) % WG_STAGES]);
+    }
+    wgmma_wait_all();
+    fence_regs(acc);
+    if (t.nk > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(qs - 1) % WG_STAGES]);
+
+    TOut* out = C + (size_t)t.split * M * N;
+    static_assert(WG_BN / WG_CHUNK == 4, "four epilogue passes");
+    wg_pass<0, MODE, GK>(acc, e, t, out, bufs, sfull, sempty, gs, M, N);
+    wg_pass<1, MODE, GK>(acc, e, t, out, bufs, sfull, sempty, gs, M, N);
+    wg_pass<2, MODE, GK>(acc, e, t, out, bufs, sfull, sempty, gs, M, N);
+    wg_pass<3, MODE, GK>(acc, e, t, out, bufs, sfull, sempty, gs, M, N);
+  }
+}
+
+// The map of one bf16 operand with ``mn`` rows or columns: K-major [mn, K] in
+// [box_mn, 64] boxes, or MN-major [K, mn] in [64, 64] boxes.
+bool operand_map(CUtensorMap* map, const void* p, int mn, int K, bool mn_major, int box_mn) {
+  return mn_major ? tma_map(map, p, false, K, mn, WG_BK, 64)
+                  : tma_map(map, p, false, mn, K, box_mn, WG_BK);
+}
+
+template <typename TOut, int AT, int MODE>
+cudaError_t launch_bf16_nn_tn(const void* A, const void* B, void* C, int M, int N, int K,
+                              int splits, const Epi& e, cudaStream_t s) {
+  const long long units =
+      (long long)((M + WG_BM - 1) / WG_BM) * ((N + WG_BN - 1) / WG_BN) * splits;
+  if (units == 0) return cudaSuccess;
+  if (units > 0x7fffffff) return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = sm_count(sms);
+  if (err != cudaSuccess) return err;
+  // K rows per split, a multiple of the K slice; the last split may be short (or empty).
+  const int Kc = ((K + splits - 1) / splits + WG_BK - 1) / WG_BK * WG_BK;
+  CUtensorMap ta{}, tb{}, te{};  // K == 0 loads nothing
+  if (K > 0 && (!operand_map(&ta, A, M, K, AT, WG_BM) || !operand_map(&tb, B, N, K, true, WG_BN)))
+    return cudaErrorInvalidValue;
+  // The gate [M, N] bf16 or residual [M, N] fp32 in sets of [WG_BM rows][128 bytes].
+  if ((MODE == EPI_GATE && !tma_map(&te, e.gate, false, M, N, WG_BM, 64)) ||
+      (MODE == EPI_RESID && !tma_map(&te, e.resid, true, M, N, WG_BM, 32)))
+    return cudaErrorInvalidValue;
+  // The gate's kind is a kernel of its own, so each carries only its own code.
+  void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, TOut*, int, int, int, int, int, Epi);
+  if constexpr (MODE == EPI_GATE)
+    kernel = e.gate_kind == GATE_RELU ? gemm_bf16_nn_tn_kernel<TOut, AT, MODE, GATE_RELU>
+                                      : gemm_bf16_nn_tn_kernel<TOut, AT, MODE, GATE_DGELU>;
+  else
+    kernel = gemm_bf16_nn_tn_kernel<TOut, AT, MODE, GATE_NONE>;
+  // Per launch, as the attribute belongs to the current device.
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (err != cudaSuccess) return err;
+  const int grid = units < sms ? (int)units : sms;
+  kernel<<<grid, WG_THREADS, WG_SMEM, s>>>(ta, tb, te, static_cast<TOut*>(C), M, N, K, Kc, splits,
+                                            e);
   return cudaGetLastError();
 }
 
@@ -1434,7 +1709,8 @@ cudaError_t launch_f32_nn_tn(const void* A, const void* B, void* C, int M, int N
 
 // fp32 runs on the CUDA cores ("nt" on its own kernel, "nn" / "tn" on the
 // MN-major one); bf16 "nt" (both operands K-major) on the persistent
-// gemm_bf16_nt_kernel, "nn" / "tn" (B MN-major) on gemm_wgmma_kernel.
+// gemm_bf16_nt_kernel, "nn" / "tn" (B MN-major) on the persistent
+// gemm_bf16_nn_tn_kernel.
 template <int AT, int BT, int MODE>
 cudaError_t launch(const void* A, const void* B, void* C, int M, int N, int K, int splits,
                    int dtype, int out_f32, const Epi& e, cudaStream_t s) {
@@ -1446,10 +1722,8 @@ cudaError_t launch(const void* A, const void* B, void* C, int M, int N, int K, i
     return out_f32 ? launch_bf16_nt<float>(A, B, C, M, N, K, e, s)
                    : launch_bf16_nt<fm_bf16>(A, B, C, M, N, K, e, s);
   } else {
-    // K per split, a multiple of the wgmma kernel's K slice; the last split may be short.
-    const int Kc = ((K + splits - 1) / splits + WG_BK - 1) / WG_BK * WG_BK;
-    return out_f32 ? launch_wgmma<float, AT, MODE>(A, B, C, M, N, K, splits, Kc, e, s)
-                   : launch_wgmma<fm_bf16, AT, MODE>(A, B, C, M, N, K, splits, Kc, e, s);
+    return out_f32 ? launch_bf16_nn_tn<float, AT, MODE>(A, B, C, M, N, K, splits, e, s)
+                   : launch_bf16_nn_tn<fm_bf16, AT, MODE>(A, B, C, M, N, K, splits, e, s);
   }
 }
 

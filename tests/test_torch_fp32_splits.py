@@ -3,7 +3,7 @@
 ``fused_attention_block.weight_grad`` runs every "tn" product (dWqkv, dWo,
 dW1, dW2) as K splits of fp32 partials that ``fm_colsum`` adds in a fixed
 order.  The split count is sized from a tile and a residency
-(``_build.GEMM_SCHEDULE``): the bf16 ``wgmma`` kernel's 128 x 256 tile at one
+(``_build.GEMM_SCHEDULE``): the bf16 "nn" / "tn" kernel's 128 x 256 tile at one
 block per SM; for fp32 the 128 x 128 tile at two blocks per SM of the
 cp.async kernel that ran "nn" / "tn" before the persistent one, whose counts
 and 16-row split boundaries the persistent kernel keeps, so a weight grad is
@@ -81,7 +81,7 @@ def test_schedule_matches_the_kernel_source():
     assert _build.GEMM_SCHEDULE[F32][:3] == ((128, 128), 2, _const("MN_KSTEP"))
     assert _build.GEMM_SCHEDULE[BF][:3] == (_build.WGMMA_TILE, 1, _const("WG_BK"))
     assert re.search(r"__launch_bounds__\(MN_THREADS, 1\)\s*gemm_f32_nn_tn_kernel", _GEMM)
-    assert re.search(r"__launch_bounds__\(WG_THREADS, 1\)\s*gemm_wgmma_kernel", _GEMM)
+    assert re.search(r"__launch_bounds__\(WG_THREADS, 1\)\s*gemm_bf16_nn_tn_kernel", _GEMM)
     # Both launches size a split the way split_rows does.
     assert "((K + splits - 1) / splits + MN_KSTEP - 1) / MN_KSTEP * MN_KSTEP" in _GEMM
     assert "((K + splits - 1) / splits + WG_BK - 1) / WG_BK * WG_BK" in _GEMM

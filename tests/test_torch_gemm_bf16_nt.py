@@ -9,7 +9,7 @@ ahead, and an epilogue that each consumer warp runs on its fragments in
 registers and stages through rows of its own for full-line stores.  These tests hold ``_build.WGMMA_NT`` and ``bf16_nt_schedule`` against
 the source, pin the tiles on the busiest SM at the port's shapes on 132- and
 114-SM cards, check that ``fm_gemm`` sends "nt" to this kernel and "nn" /
-"tn" to ``gemm_wgmma_kernel``, and model the epilogue: every output element
+"tn" to ``gemm_bf16_nn_tn_kernel``, and model the epilogue: every output element
 is stored once, from the accumulator that holds it, each shared-memory access
 takes the fewest wavefronts its bytes allow, and the keep bits are Philox's
 at counter (row * N + col) >> 2, word (row * N + col) & 3, which is
@@ -186,17 +186,17 @@ def test_nt_runs_the_persistent_kernel_and_nn_tn_the_wgmma_kernel():
     assert "if (dtype == FM_F32) {" in f32 and "launch_bf16_nt" not in f32
     nt, other = bf16.split("} else {")
     assert "launch_bf16_nt<float>" in nt and "launch_bf16_nt<fm_bf16>" in nt
-    assert "launch_wgmma" not in nt
-    assert "launch_wgmma<float, AT, MODE>" in other and "launch_bf16_nt" not in other
+    assert "launch_bf16_nn_tn" not in nt
+    assert "launch_bf16_nn_tn<float, AT, MODE>" in other and "launch_bf16_nt" not in other
     # fm_gemm: "nt" is layout 0 with both operands K-major; "nn" / "tn" set BT.
     assert "if (layout == 0) return launch<0, 0, EPI_BIAS_ACT>" in _GEMM
     assert "if (layout == 2) return launch<1, 1, EPI_STORE>" in _GEMM
     assert _GEMM.count("return launch<0, 1, EPI_") == 3
-    # gemm_wgmma_kernel takes B MN-major only; the "nt" kernel both K-major.
-    wg = _body("gemm_wgmma_kernel(const", "\n// The map of one bf16 operand")
+    # gemm_bf16_nn_tn_kernel takes B MN-major only; the "nt" kernel both K-major.
+    wg = _body("gemm_bf16_nn_tn_kernel(const", "\n// The map of one bf16 operand")
     assert "wgmma_m64n256k16<AT, 1>(acc, wg_desc<AT>(a, kk), wg_desc<1>(b, kk));" in wg
     _src("wgmma_m64n256k16<0, 0>(acc, wg_desc<0>(a, kk), wg_desc<0>(b, kk));")
-    assert "template <typename TOut, int AT, int MODE>\n__global__" in _GEMM
+    assert "template <typename TOut, int AT, int MODE, int GK>\n__global__" in _GEMM
     # No switch selects another kernel.
     assert "getenv" not in _GEMM
 
