@@ -1511,12 +1511,13 @@ def f32_gemm_phase(_build, fab):
 PTXAS_KERNELS = ("gemm_bf16_nt_kernel", "gemm_bf16_nn_tn_kernel", "flash_attn_fwd_wgmma_kernel",
                  "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
                  "gemm_f32_nt_kernel", "gemm_f32_nn_tn_kernel", "flash_attn_fwd_f32_kernel",
-                 "flash_bwd_dq_f32_kernel", "flash_bwd_dkdv_f32_kernel")
+                 "flash_bwd_rowterm_f32_kernel", "flash_bwd_dq_f32_kernel",
+                 "flash_bwd_dkdv_f32_kernel")
 #: Kernels that must not spill (their accumulators live in registers).
 NO_SPILL_KERNELS = ("gemm_bf16_nt_kernel", "gemm_bf16_nn_tn_kernel", "gemm_f32_nt_kernel",
                     "gemm_f32_nn_tn_kernel",
                     "flash_attn_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-                    "flash_bwd_dkdv_wgmma_kernel")
+                    "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_f32_kernel")
 
 
 def ptxas_report(_build, names=PTXAS_KERNELS):
@@ -1565,7 +1566,11 @@ def ptxas_report(_build, names=PTXAS_KERNELS):
 #
 # Limits, relative to each output's largest entry: fp32 FP32_FLASH_TOL for o,
 # dq, dk, dv (only the summation order differs: the kernel's online softmax
-# and tiled sums against the plain version's whole-row ones).  bf16 forward
+# and tiled sums against the plain version's whole-row ones), and each of
+# them also within FLASH_F64_TOL of the same function in float64 (phase 3c's
+# rule for the fp32 GEMM stages: IEEE fp32 chains stay near 1e-6, TF32
+# misses by 10x or more; a fully masked row as the fp32 kernels define it,
+# the uniform softmax and its VJP).  bf16 forward
 # FLASH_BF16_FWD (max) / TRAIN_BF16_MEAN (mean): the plain version (as the
 # TPU kernel) rounds the normalised p to bf16 before p.v, the kernel the
 # unnormalised exp(s - m_running) and divides o by the fp32 row sum once at
@@ -1666,6 +1671,7 @@ def flash_check(flash, gen, dtype, B, S, nh, d, layout="dense", mask_kind="rows"
     row = {"case": label, "errors": rows}
     if dtype == torch.float32:
         rows["o_vs_f64"] = _flash_f64_errors(flash, label, got["o"], qd, kd, vd, mask)
+        rows.update(_flash_bwd_f64_errors(label, grads, qd, kd, vd, mask, g))
         row["rows_per_block"] = flash._build.flash_fwd_f32_rows(S)
     del out, grads, got, want_grads
     with torch.no_grad():
@@ -1741,6 +1747,51 @@ def _flash_f64_errors(flash, label, o, q, k, v, mask):
     return {"max_abs_err": err, "max_abs": scale}
 
 
+def flash_bwd_f64(q, k, v, mask, g):
+    """(dq, dk, dv) of the flash attention in float64 from q, k, v, g [B,
+    heads, S, d] and mask [B, S] (or None), with the fp32 kernels' meaning of
+    a fully masked row: the uniform softmax (see :func:`_flash_f64_errors`)
+    and its VJP, ds = p * (dp - rowsum(dO * o)) * scale."""
+    qd, kd, vd, gd = (t.double() for t in (q, k, v, g))
+    scale = q.shape[-1] ** -0.5
+    x = (qd @ kd.transpose(-1, -2)) * scale
+    if mask is not None:
+        x = x + torch.where(mask > 0, 0.0, -1e9).double()[:, None, None, :]
+        x[~(mask > 0).any(dim=1)] = 0.0
+    p = torch.softmax(x, dim=-1)
+    del x
+    o = p @ vd
+    dv = p.transpose(-1, -2) @ gd
+    ds = p * (gd @ vd.transpose(-1, -2) - (gd * o).sum(-1, keepdim=True)) * scale
+    del p
+    return ds @ kd, ds.transpose(-1, -2) @ qd, dv
+
+
+def _flash_bwd_f64_errors(label, grads, q, k, v, mask, g, rows=32):
+    """The fp32 backward's dq, dk, dv against :func:`flash_bwd_f64` on the
+    same inputs (``rows`` batch rows at a time), each within FLASH_F64_TOL of
+    its max-abs (phase 3c's float64 rule for the fp32 GEMM stages): the
+    errors as ``{"dq_vs_f64": {"max_abs_err", "max_abs"}, ...}``."""
+    errs = {n: [0.0, 0.0] for n in FLASH_GRADS}
+    with torch.no_grad():
+        for b0 in range(0, q.shape[0], rows):
+            part = slice(b0, b0 + rows)
+            want = flash_bwd_f64(q[part], k[part], v[part],
+                                 None if mask is None else mask[part], g[part])
+            for name, a, w in zip(FLASH_GRADS, grads, want):
+                e = errs[name]
+                e[0] = max(e[0], (a[part].double() - w).abs().max().item())
+                e[1] = max(e[1], w.abs().max().item())
+            del want
+    out = {}
+    for name, (err, scale) in errs.items():
+        out[f"{name}_vs_f64"] = {"max_abs_err": err, "max_abs": scale}
+        if not err <= FLASH_F64_TOL * scale:
+            raise AssertionError(f"{label}: {name} misses float64 by {err} (max-abs {scale}, "
+                                 f"limit {FLASH_F64_TOL} of it)")
+    return out
+
+
 def device_kernels(fn, reps=3):
     """The CUDA kernels ``fn()`` launches, by name, with their device time
     per call (torch.profiler over ``reps`` calls after one warm-up)."""
@@ -1801,15 +1852,18 @@ def _flash_bwd_order_check(flash, label, saved, g):
 
 
 def _flash_bwd_stages_ms(flash, saved, g, reps=10):
-    """The flash backward's two kernels timed apart: device time per call of
-    the dQ kernel (which writes the row term D) and of the dK / dV kernel
-    (which reads it), from the profiler over ``reps`` backward calls on the
-    forward's residuals."""
+    """The flash backward's kernels timed apart: device time per call of the
+    dQ and dK / dV kernels and, in fp32, of the pass that writes the row term
+    D first (bf16's dQ kernel writes it), from the profiler over ``reps``
+    backward calls on the forward's residuals."""
     kernels = device_kernels(lambda: flash._backward_kernel(*saved, g), reps)
-    ms = {name: sum(t for key, t in kernels.items() if name in key)
-          for name in ("flash_bwd_dq", "flash_bwd_dkdv")}
-    if not all(ms.values()):
+    names = ("flash_bwd_rowterm", "flash_bwd_dq", "flash_bwd_dkdv")
+    ms = {name: sum(t for key, t in kernels.items() if name in key) for name in names}
+    fp32 = saved[0].dtype == torch.float32
+    if not all(ms[n] for n in names[0 if fp32 else 1:]):
         raise AssertionError(f"flash backward stages: the profiler saw {ms}")
+    if not fp32:
+        del ms["flash_bwd_rowterm"]
     return ms
 
 
@@ -5055,14 +5109,56 @@ def _npz_probs(out_dir, arrays, dynamic_weights=None, device="cuda"):
     return pred.predict_arrays(arrays)["probs"], np.asarray(meta["dynamic_weights"])
 
 
-def dp_rank(root, device="cuda", small=False):
+def _ranks_in_background(fn, world, args, timeout_s):
+    """``parallel.launch(fn, world, args=args, timeout_s=timeout_s)`` in a
+    thread, so that this process runs its own checks while the ranks run:
+    returns a function that waits for the ranks and returns their results
+    (or raises the launch's error)."""
+    import threading
+
+    from fairmultimodal_torch import parallel
+
+    out = {}
+
+    def run():
+        try:
+            out["ranks"] = parallel.launch(fn, world, args=args, timeout_s=timeout_s)
+        except BaseException as e:      # noqa: BLE001 -- re-raised by join
+            out["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out["ranks"]
+    return join
+
+
+def _laps():
+    """A part timer: ``lap(name)`` records the seconds since the last lap
+    under ``name`` in ``lap.parts``."""
+    last = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        lap.parts[name] = round(now - last[0], 2)
+        last[0] = now
+    lap.parts = {}
+    return lap
+
+
+def dp_rank(root, device="cuda", small=False, ready=None):
     """Phase 12 in one of two gloo ranks sharing cuda:0 (started by
     ``parallel.launch``): (a) one deterministic step against one process,
     (b) three dropout steps (parameters bit-identical across the ranks, the
     backward bit-identical twice, the folded seeds through #2 and its plain
     version), (c) the launches of (a) and (b), (d) the dynamic-weight
     statistics against one process, (e) the sharded text encode against one
-    process, (f) the 1-epoch experiment, (g) this rank's step time.
+    process, (f) the 1-epoch experiment, once the file ``ready`` exists (the
+    text cache it reads is whole), (g) this rank's step time.
     ``device="cpu"`` and ``small=True`` rehearse it on the CPU."""
     import hashlib
     import os
@@ -5091,6 +5187,7 @@ def dp_rank(root, device="cuda", small=False):
     mesh = parallel.get_mesh(2, devices=devices, backend="gloo")
     rank, dev = mesh.rank, mesh.device
     res = {"rank": rank, "join_s": time.perf_counter() - t_start}
+    lap = _laps()
 
     def gather(obj):
         out = [None] * mesh.world
@@ -5109,6 +5206,7 @@ def dp_rank(root, device="cuda", small=False):
     # (a) one deterministic step of the global batch against one process.
     _reset_all(flash, fab, ffn, addnorm)
     base = seed0_fame()
+    lap("init")
     trainer = _dp_trainer(mesh, True, dev, base)
     total, _ = trainer.backward(shard(batches[0]))
     res["counts_step"] = counts()
@@ -5126,6 +5224,7 @@ def dp_rank(root, device="cuda", small=False):
                                  "worst_leaf": worst, "worst_grad_rel": grad_rel}
         del want
     del got
+    lap("a")
 
     # (d) the dynamic-weight statistics over a shuffled device-resident split.
     arrays, labels = {k: cohort[k] for k in keys}, cohort["labels"]
@@ -5136,6 +5235,7 @@ def dp_rank(root, device="cuda", small=False):
         stats_single = single.dynamic_weight_stats(loader(None))
         res["dyn_stats_identical"] = bool(np.array_equal(stats, stats_single))
         res["dyn_stats_total"] = float(stats_single.sum())
+    lap("d")
 
     # How far the two trajectories drift apart, deterministic, step by step.
     res["drift"] = []
@@ -5158,6 +5258,7 @@ def dp_rank(root, device="cuda", small=False):
                                                  - 1 / (1 + np.exp(-logits_s))).max())})
     del trainer, single
     torch.cuda.empty_cache()
+    lap("drift")
 
     # (b) three steps with dropout: the parameters after each, on both ranks.
     _reset_all(flash, fab, ffn, addnorm)
@@ -5192,6 +5293,7 @@ def dp_rank(root, device="cuda", small=False):
     res["folded_out_digests"] = gather(hashlib.blake2b(out_k.cpu().numpy().tobytes(),
                                                        digest_size=16).hexdigest())
     del inputs, out_k, out_p
+    lap("b")
 
     # (e) the sharded text encode (no cache) against one process.
     notes = make_cohort(np.random.default_rng(3), DP_TEXT_PATIENTS)
@@ -5215,8 +5317,14 @@ def dp_rank(root, device="cuda", small=False):
         if cache is not None:
             os.environ["FMTPU_TEXT_CACHE"] = cache
     torch.cuda.empty_cache()
+    lap("e")
 
     # (f) the experiment on phase 7's cohort, 1 epoch, deterministic forward.
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    while ready is not None and not os.path.exists(ready):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"rank {rank}: no {ready} after {DP_TIMEOUT_S} s")
+        time.sleep(0.1)
     tables = make_common_frames(CLI_PATIENTS, CLI_LABS, 3, seed=42)
     _reset_all(flash, fab, ffn, addnorm)
     out, wall, printed = _run_quiet(lambda: run_fame_experiment(
@@ -5230,10 +5338,13 @@ def dp_rank(root, device="cuda", small=False):
     res["experiment_tail"] = printed.splitlines()[-12:]
     del out
     torch.cuda.empty_cache()
+    lap("f")
 
     # (g) this rank's train step, both ranks stepping together on the card.
     res["step"] = time_train_step(trainer_d, batch, steps=5, warmup=1) if device == "cuda" \
         else {}
+    lap("g")
+    res["parts_s"] = lap.parts
     res["total_s"] = time.perf_counter() - t_start
     return res
 
@@ -5318,45 +5429,53 @@ def dp_phase(flash, fab, ffn, addnorm, device="cuda", small=False, keep=None):
             f"#1 = #2 {fwd}, #3 = #4 {bwd}, the command line's batch {DP_BATCH} {cli_fwd} / "
             f"{cli_bwd}; splits {splits}; (a) 2 / 2, (b) {2 * DP_STEPS} / {2 * DP_STEPS}")
 
-        # One process, deterministic, and its LayerNorm-unfolded twin: the
-        # reference of (f) and the drift it is held to (they fill the text cache).
-        t0 = time.perf_counter()
-        refs = one_process_refs(flash, fab, ffn, addnorm, tables, root, device)
-        parts["one_process_refs"] = time.perf_counter() - t0
-        info["single"], info["order_drift"] = refs["single"], refs["order_drift_run"]
-        order_drift, test_arrays = refs["order_drift"], refs["test_arrays"]
-        if keep is not None:
-            keep.update(refs)
-
-        # cli fame --mesh 1: one NCCL rank, the command line's own path.
-        t0 = time.perf_counter()
-        _reset_all(flash, fab, ffn, addnorm)
-        rc, wall, printed = _run_quiet(lambda: cli.main(
-            ["fame", "--synthetic", str(CLI_PATIENTS), "--synthetic_labs", str(CLI_LABS),
-             "--epochs", "1", "--mesh", "1", "--timing", "--text_cache",
-             os.environ["FMTPU_TEXT_CACHE"], "--out_dir", os.path.join(root, "cli_mesh1"),
-             "--device", device] + (["--tiny"] if small else [])), device)
-        info["cli_mesh1"] = {"rc": rc, "wall_s": wall,
-                             "counts": _all_counts(flash, fab, ffn, addnorm),
-                             "artifacts": _artifacts(os.path.join(root, "cli_mesh1")),
-                             "auroc_lines": [ln for ln in printed.splitlines()
-                                             if "AUROC" in ln or "AUPRC" in ln]}
-        log(f"[dp] cli fame --mesh 1 (NCCL, world 1): {json.dumps(info['cli_mesh1'])}")
-        if rc != 0 or info["cli_mesh1"]["counts"] != want_cli:
-            raise AssertionError(f"cli --mesh 1: rc {rc}, launches "
-                                 f"{info['cli_mesh1']['counts']}, predicted {want_cli}")
-        aucs = [float(ln.split(":")[1]) for ln in info["cli_mesh1"]["auroc_lines"]]
-        if len(aucs) != 6 or not np.isfinite(aucs).all():
-            raise AssertionError(f"cli --mesh 1 metric lines {info['cli_mesh1']['auroc_lines']}")
-
-        parts["cli_mesh1"] = time.perf_counter() - t0
-        # The two gloo ranks on cuda:0.
+        # The two gloo ranks on cuda:0, in their own processes.  Meanwhile this
+        # process runs one process, deterministic, and its LayerNorm-unfolded
+        # twin (the reference of (f) and the drift it is held to; they fill
+        # the text cache, and the ranks start (f) once ``ready`` says so), then
+        # cli fame --mesh 1 (one NCCL rank, the command line's own path).
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        ranks = parallel.launch(dp_rank, 2, args=(root, device, small), timeout_s=DP_TIMEOUT_S)
+        ready = os.path.join(root, "text_cache_ready")
+        join_ranks = _ranks_in_background(dp_rank, 2, (root, device, small, ready),
+                                          DP_TIMEOUT_S)
+        try:
+            try:
+                refs = one_process_refs(flash, fab, ffn, addnorm, tables, root, device)
+            finally:
+                open(ready, "w").close()
+            parts["one_process_refs"] = time.perf_counter() - t0
+            info["single"], info["order_drift"] = refs["single"], refs["order_drift_run"]
+            order_drift, test_arrays = refs["order_drift"], refs["test_arrays"]
+            if keep is not None:
+                keep.update(refs)
+            t1 = time.perf_counter()
+            _reset_all(flash, fab, ffn, addnorm)
+            rc, wall, printed = _run_quiet(lambda: cli.main(
+                ["fame", "--synthetic", str(CLI_PATIENTS), "--synthetic_labs", str(CLI_LABS),
+                 "--epochs", "1", "--mesh", "1", "--timing", "--text_cache",
+                 os.environ["FMTPU_TEXT_CACHE"], "--out_dir", os.path.join(root, "cli_mesh1"),
+                 "--device", device] + (["--tiny"] if small else [])), device)
+            info["cli_mesh1"] = {"rc": rc, "wall_s": wall,
+                                 "counts": _all_counts(flash, fab, ffn, addnorm),
+                                 "artifacts": _artifacts(os.path.join(root, "cli_mesh1")),
+                                 "auroc_lines": [ln for ln in printed.splitlines()
+                                                 if "AUROC" in ln or "AUPRC" in ln]}
+            log(f"[dp] cli fame --mesh 1 (NCCL, world 1): {json.dumps(info['cli_mesh1'])}")
+            if rc != 0 or info["cli_mesh1"]["counts"] != want_cli:
+                raise AssertionError(f"cli --mesh 1: rc {rc}, launches "
+                                     f"{info['cli_mesh1']['counts']}, predicted {want_cli}")
+            aucs = [float(ln.split(":")[1]) for ln in info["cli_mesh1"]["auroc_lines"]]
+            if len(aucs) != 6 or not np.isfinite(aucs).all():
+                raise AssertionError("cli --mesh 1 metric lines "
+                                     f"{info['cli_mesh1']['auroc_lines']}")
+            parts["cli_mesh1"] = time.perf_counter() - t1
+        finally:
+            ranks = join_ranks()
         info["ranks_s"] = parts["ranks"] = time.perf_counter() - t0
         r0, r1 = ranks
+        parts.update({f"rank 0 {k}": v for k, v in r0["parts_s"].items()})
         for r in ranks:
             log(f"[dp] rank {r['rank']}: " + json.dumps(
                 {k: v for k, v in r.items() if k not in ("digests", "experiment_tail")}))
@@ -5537,6 +5656,7 @@ def tp_rank(root, device="cuda", small=False):
     mesh = parallel.get_mesh(1, 2, devices=devices, backend="gloo")
     rank, dev = mesh.rank, mesh.device
     res = {"rank": rank, "join_s": time.perf_counter() - t_start}
+    lap = _laps()
     cuda = dev.type == "cuda"
 
     def gather(obj):
@@ -5554,6 +5674,7 @@ def tp_rank(root, device="cuda", small=False):
         return torch.cuda.memory_allocated() / 1e9 if cuda else 0.0
 
     base = seed0_fame()
+    lap("init")
 
     def trainer(sharded, deterministic, route=False):
         model = copy.deepcopy(base)
@@ -5650,6 +5771,7 @@ def tp_rank(root, device="cuda", small=False):
     del got
     if cuda:
         torch.cuda.empty_cache()
+    lap("a")
 
     # (b) three dropout steps; the seeds the lab layers draw in the first.
     drawn, draw = [], behrt.dropout_seed
@@ -5708,6 +5830,7 @@ def tp_rank(root, device="cuda", small=False):
     del inputs, x, y, y_plain, y_in, z, z_plain
     if cuda:
         torch.cuda.empty_cache()
+    lap("b")
 
     # (d) the experiment on phase 7's cohort, 1 epoch, deterministic, global batch 64.
     tables = make_common_frames(CLI_PATIENTS, CLI_LABS, 3, seed=42)
@@ -5728,9 +5851,12 @@ def tp_rank(root, device="cuda", small=False):
     del out, trained
     if cuda:
         torch.cuda.empty_cache()
+    lap("d")
 
     # (e) this rank's train step, both ranks stepping together on the card.
     res["step"] = time_train_step(td, batch, steps=5, warmup=1) if cuda else {}
+    lap("e")
+    res["parts_s"] = lap.parts
     res["total_s"] = time.perf_counter() - t_start
     return res
 
@@ -5837,7 +5963,6 @@ def tp_phase(flash, fab, ffn, addnorm, refs=None, device="cuda", small=False):
     import os
     import shutil
 
-    from fairmultimodal_torch import parallel
     from fairmultimodal_torch.data.synthetic import make_common_frames
     from fairmultimodal_torch.utils.checkpoint import load_params_npz
 
@@ -5877,27 +6002,32 @@ def tp_phase(flash, fab, ffn, addnorm, refs=None, device="cuda", small=False):
             refs.update(one_process_refs(flash, fab, ffn, addnorm, tables, root, device))
         parts["one_process_refs"] = time.perf_counter() - t0
         fwd, bwd = _tp_forward_passes(refs["splits"], DP_EXP_BATCH)
-        # One process on the sharded layers' route, with the row-parallel sums
-        # split as the mesh splits them (what (d) is held to) and unsplit.
-        t0 = time.perf_counter()
-        for key, split in (("split_route", True), ("same_route", False)):
-            _reset_all(flash, fab, ffn, addnorm)
-            _, wall, _ = same_route_run(tables, os.path.join(root, key), device, split)
-            info[key] = {"wall_s": wall, "counts": _all_counts(flash, fab, ffn, addnorm)}
-        parts["one_process_routes"] = time.perf_counter() - t0
         want = {"a": tp_want(flash, fab, ffn, addnorm, 2, 1, device),
                 "b": tp_want(flash, fab, ffn, addnorm, TP_STEPS + 2, TP_STEPS + 2, device),
                 "d": tp_want(flash, fab, ffn, addnorm, fwd, bwd, device)}
         log(f"[tp] predicted per rank: (a) {json.dumps(want['a'])}; (b) {json.dumps(want['b'])}; "
             f"(d) {fwd} forward / {bwd} backward passes: {json.dumps(want['d'])}")
 
+        # The two gloo ranks on cuda:0, in their own processes; meanwhile this
+        # process runs one process on the sharded layers' route, with the
+        # row-parallel sums split as the mesh splits them (what (d) is held
+        # to) and unsplit.
         gc.collect()
         if device == "cuda":
             torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        ranks = parallel.launch(tp_rank, 2, args=(root, device, small), timeout_s=TP_TIMEOUT_S)
+        join_ranks = _ranks_in_background(tp_rank, 2, (root, device, small), TP_TIMEOUT_S)
+        try:
+            for key, split in (("split_route", True), ("same_route", False)):
+                _reset_all(flash, fab, ffn, addnorm)
+                _, wall, _ = same_route_run(tables, os.path.join(root, key), device, split)
+                info[key] = {"wall_s": wall, "counts": _all_counts(flash, fab, ffn, addnorm)}
+            parts["one_process_routes"] = time.perf_counter() - t0
+        finally:
+            ranks = join_ranks()
         parts["ranks"] = time.perf_counter() - t0
         r0, r1 = ranks
+        parts.update({f"rank 0 {k}": v for k, v in r0["parts_s"].items()})
         for r in ranks:
             log(f"[tp] rank {r['rank']}: " + json.dumps(
                 {k: v for k, v in r.items() if k not in ("experiment_tail",)}))
@@ -6379,10 +6509,28 @@ def ops_capture_phase(fab, ffn, flash, addnorm):
     return info
 
 
+def share_bytecode():
+    """Let this process, and every Python process it starts, keep compiled
+    bytecode under ``build/pycache`` in this checkout.  Where the environment
+    sets PYTHONDONTWRITEBYTECODE, each fresh process compiles every module it
+    imports (on an H100 host: ~6.5 s for torch, ~8 s for its dynamo package,
+    which the optimizer's first step imports), and phases 11-13's child
+    processes and gloo ranks paid that each time.  Spawned ranks still get
+    ``-B`` from this process's startup flags: they read the cache and write
+    nothing."""
+    prefix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "pycache")
+    os.makedirs(prefix, exist_ok=True)
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
         return 2
+    share_bytecode()
     from fairmultimodal_torch.ops import _build
     from fairmultimodal_torch.ops import dropout_add_layernorm as addnorm
     from fairmultimodal_torch.ops import flash_attention as flash

@@ -47,9 +47,14 @@ start with GEMM, BWDGEMM, GEMMBITS, FLASH, FLASHERR, FFN, ATTN, BWD or STEP.
 
 times the fp32 path instead, at the pipelines' batch 16 (B 16 x S 560, 8 x
 96, FFN 2048): what ``-Xptxas -v`` says of the fp32 GEMM and flash backward
-kernels; each fp32 GEMM stage ("nt" QKV / Wo / W1 with relu, inner dropout
-and aux / W2, the text encoder's W1 with gelu and aux / W2 at 8 x 512, the
-tensor-parallel W1 / W2 at F 1024 and 06's at R 8784 x 256 x 512;
+kernels; a hash of the fp32 flash backward's dq, dk, dv, column partials and
+row term D on fixed inputs at the lab shape (B 16 x S 560, 8 x 96, the lab
+mask with one fully masked row), the tensor-parallel shard (4 heads) and d 64
+(B 4 x S 512 x 12, per-row masks), through ``_build.flash_attention_bwd``
+(FLASHBITS: equal hashes, equal bits); each fp32 GEMM stage ("nt" QKV / Wo /
+W1 with relu, inner dropout and aux / W2, the text encoder's W1 with gelu and
+aux / W2 at 8 x 512, the tensor-parallel W1 / W2 at F 1024 and 06's at R 8784
+x 256 x 512;
 every "nn" / "tn" stage with its epilogue: dO, dx + resid, the relu-gated dh
 with its column partials and the four split-K weight grads at B 16, 06's and
 the tensor-parallel FFN's, each with its schedule) against float64 on the
@@ -383,6 +388,35 @@ print(json.dumps(c.ptxas_report(_build, ("gemm_f32_nt_kernel",
                                          "gemm_f32_nn_tn_kernel", "flash_attn_fwd_f32_kernel",
                                          "flash_bwd_dq_f32_kernel",
                                          "flash_bwd_dkdv_f32_kernel"))), flush=True)
+# Bits of the fp32 flash backward on fixed inputs (contiguous operands, one
+# fully masked batch row): dq, dk, dv, the column partials and D at the lab
+# shape, the tensor-parallel shard's 4 heads and d 64.
+import hashlib
+bits = {}
+for name, (B, S, nh, d, mk) in (("lab B16 S560 8x96", (16, 560, 8, 96, "lab")),
+                                ("tp B16 S560 4x96", (16, 560, 4, 96, "lab")),
+                                ("d64 B4 S512 12x64", (4, 512, 12, 64, "rows"))):
+    g = torch.Generator(device="cuda").manual_seed(23)
+    q, k, v, do = (torch.randn(B, nh, S, d, generator=g, device="cuda") for _ in range(4))
+    if mk == "lab":
+        mask = (torch.arange(S, device="cuda") < c.N_LABS).int()[None].repeat(B, 1)
+    else:
+        lens = torch.randint(1, S + 1, (B,), generator=g, device="cuda")
+        mask = (torch.arange(S, device="cuda")[None] < lens[:, None]).int()
+    mask[-1] = 0
+    o, stats = torch.empty_like(q), torch.empty(B, nh, S, 2, device="cuda")
+    _build.flash_attention_fwd(q, k, v, mask, o, stats)
+    rowterm = torch.empty(B, nh, S, device="cuda")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    colpart = torch.empty(_build.flash_bwd_colpart_rows(B, S, torch.float32), 3 * nh * d,
+                          device="cuda")
+    _build.flash_attention_bwd(q, k, v, o, do, mask, stats, rowterm, dq, dk, dv, colpart=colpart)
+    bits[name] = {n: hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+                  .hexdigest()[:16] for n, t in (("dq", dq), ("dk", dk), ("dv", dv),
+                                                 ("colpart", colpart), ("D", rowterm))}
+    del q, k, v, do, o, stats, rowterm, dq, dk, dv, colpart
+print("FLASHBITS", json.dumps(bits), flush=True)
+torch.cuda.empty_cache()
 gen = torch.Generator(device="cuda").manual_seed(7)
 R = 16 * 560
 # Every fp32 "nt" stage with the epilogue its path gives it, against float64.

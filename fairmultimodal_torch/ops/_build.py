@@ -38,6 +38,7 @@ __all__ = ["KernelLaunchError", "build", "kernels", "gemm", "colsum", "row_block
            "SGEMM_NN_TN", "GEMM_SCHEDULE", "sgemm_tile", "sgemm_nt_schedule",
            "bf16_nt_schedule", "bf16_nn_tn_schedule", "sgemm_nn_tn_schedule",
            "split_rows", "flash_bwd_colpart_rows", "flash_fwd_f32_rows", "FLASH_FWD_KEYS",
+           "FLASH_BWD_F32", "flash_bwd_f32_scratch",
            "flash_fwd_bf16_keys", "tma_compatible", "tma_operand", "copy_h2d"]
 
 _CSRC = Path(__file__).resolve().with_name("csrc")
@@ -54,6 +55,14 @@ _LAYOUTS = {"nt": 0, "nn": 1, "tn": 2}
 #: kernels (the partials have B * ceil(S / tile) rows): bf16 64 = the rows of
 #: one consumer warpgroup (one wgmma M), fp32 64 = 16 thread rows x 4.
 FLASH_BWD_TILE = {torch.bfloat16: 64, torch.float32: 64}
+#: The fp32 flash backward (``flash_attention.cu``'s F32_*): three launches --
+#: D, then the dK / dV kernel, which owns ``owned`` key rows, walks the query
+#: rows ``walk[dp]`` at a time (by padded head dim) and stores ds * scale to
+#: :func:`flash_bwd_f32_scratch`, then the dQ kernel, which owns ``owned`` query
+#: rows and walks ``dq_walk`` keys of the scratch at a time, ``dq_threads``
+#: threads a block and ``dq_blocks`` blocks per SM.
+FLASH_BWD_F32 = dict(owned=64, walk={32: 64, 64: 64, 96: 64, 128: 32}, dq_walk=32,
+                     dq_threads=128, dq_blocks=3)
 #: Keys per tile of the bf16 flash forward (``flash_attention.cu``'s
 #: FWD_BN_NARROW, FWD_BN_WIDE); :func:`flash_fwd_bf16_keys` picks one by S.
 FLASH_FWD_KEYS = (112, 128)
@@ -175,6 +184,16 @@ def flash_bwd_colpart_rows(batch: int, seq: int, dtype: torch.dtype) -> int:
     return batch * -(-seq // FLASH_BWD_TILE[dtype])
 
 
+def flash_bwd_f32_scratch(batch: int, heads: int, seq: int):
+    """The fp32 flash backward's ds scratch: (shape, bytes) of the [B, heads,
+    S, SP] fp32 buffer the dK / dV kernel writes and the dQ kernel reads, SP
+    (the row pitch) = S rounded up to the owned tile, the keys the dK / dV
+    blocks cover (``flash_attention.cu``'s ``f32_ds_pitch``)."""
+    owned = FLASH_BWD_F32["owned"]
+    shape = (batch, heads, seq, -(-seq // owned) * owned)
+    return shape, 4 * shape[0] * shape[1] * shape[2] * shape[3]
+
+
 def flash_fwd_f32_rows(seq: int) -> int:
     """Query rows per block of the fp32 flash forward (``flash_attention.cu``'s
     ``f32_fwd_tm`` times 16): 112 where that pads ``seq`` to fewer rows than
@@ -231,7 +250,8 @@ _SIGNATURES = {
         "fm_flash_attention_fwd": [_P, _S3, _P, _S3, _P, _S3, _P, _L, _P, _S3, _P,
                                    _I, _I, _I, _I, _F, _I, _P],
         "fm_flash_attention_bwd": [_P, _S3, _P, _S3, _P, _S3, _P, _S3, _P, _S3, _P, _L, _P, _P,
-                                   _P, _S3, _P, _S3, _P, _S3, _P, _I, _I, _I, _I, _F, _I, _P],
+                                   _P, _S3, _P, _S3, _P, _S3, _P, _P, _I, _I, _I, _I, _F, _I,
+                                   _P],
     },
     "add_layernorm.cu": {
         "fm_add_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, *_DROP, _I, _I, _P],
@@ -527,12 +547,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                         dout: torch.Tensor, mask: Optional[torch.Tensor], stats: torch.Tensor,
                         rowterm: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
                         dv: torch.Tensor, colpart: Optional[torch.Tensor] = None) -> None:
-    """Backward of :func:`flash_attention_fwd` (Pallas #10, two launches):
-    dq, dk, dv (strided as q, io dtype) from q, k, v, o, dout and the
-    forward's stats; rowterm [B, heads, S] fp32 is scratch.  With
-    ``colpart`` [:func:`flash_bwd_colpart_rows`, 3 * heads * d] fp32 also
-    the column partials of the fp32 dq | dk | dv over each tile's rows (the
-    bias grads of the half-layer kernels)."""
+    """Backward of :func:`flash_attention_fwd` (Pallas #10; two launches in
+    bf16, three in fp32): dq, dk, dv (strided as q, io dtype) from q, k, v,
+    o, dout and the forward's stats; rowterm [B, heads, S] fp32 is scratch,
+    and so, in fp32, is the ds buffer of :func:`flash_bwd_f32_scratch`,
+    allocated here.  With ``colpart`` [:func:`flash_bwd_colpart_rows`, 3 *
+    heads * d] fp32 also the column partials of the fp32 dq | dk | dv over
+    each tile's rows (the bias grads of the half-layer kernels)."""
     b, nh, s, d = _check_flash_operands(q, k, v, mask)
     for name, t in (("o", o), ("dout", dout), ("dq", dq), ("dk", dk), ("dv", dv)):
         _require_heads(t, name, q.shape, q.dtype, q.device)
@@ -541,14 +562,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     if colpart is not None:
         _require(colpart, "colpart", (flash_bwd_colpart_rows(b, s, q.dtype), 3 * nh * d),
                  torch.float32, q.device)
+    ds = None
     if q.dtype == torch.bfloat16:     # the wgmma kernels read these by TMA
         q, k, v, o, dout = (tma_operand(t) for t in (q, k, v, o, dout))
+    else:
+        ds = torch.empty(flash_bwd_f32_scratch(b, nh, s)[0], dtype=torch.float32,
+                         device=q.device)
     with torch.cuda.device(q.device):
         rc = kernels()["flash_attention.cu"].fm_flash_attention_bwd(
             q.data_ptr(), _strides(q), k.data_ptr(), _strides(k), v.data_ptr(), _strides(v),
             o.data_ptr(), _strides(o), dout.data_ptr(), _strides(dout), _ptr(mask), s,
             stats.data_ptr(), rowterm.data_ptr(), dq.data_ptr(), _strides(dq), dk.data_ptr(),
-            _strides(dk), dv.data_ptr(), _strides(dv), _ptr(colpart), b, s, nh, d,
+            _strides(dk), dv.data_ptr(), _strides(dv), _ptr(colpart), _ptr(ds), b, s, nh, d,
             1.0 / (d ** 0.5), _dtype_code(q), _stream(q))
     _check(rc, "fm_flash_attention_bwd")
 
@@ -579,7 +604,7 @@ def flash_attn_fwd(qkv: torch.Tensor, mask: torch.Tensor, out: torch.Tensor,
 def flash_attn_bwd(qkv: torch.Tensor, o: torch.Tensor, dout: torch.Tensor, mask: torch.Tensor,
                    stats: torch.Tensor, rowterm: torch.Tensor, dqkv: torch.Tensor,
                    colpart: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Backward of :func:`flash_attn_fwd` (two launches): dqkv [B, S, 3H]
+    """Backward of :func:`flash_attn_fwd` (:func:`flash_attention_bwd`): dqkv [B, S, 3H]
     (io dtype) from qkv, o, dout [B, S, H] and the forward's stats;
     rowterm [B, heads, S] fp32 is scratch, colpart [B * ceil(S / tile), 3H]
     fp32 receives the column partials of the fp32 dq | dk | dv."""

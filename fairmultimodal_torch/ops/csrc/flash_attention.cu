@@ -1033,43 +1033,84 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
 // ---- fp32 backward kernels (CUDA cores) ---------------------------------------------
 //
 // What bounds them is the CUDA cores' fp32 rate (67 TFLOP/s on an H100 SXM):
-// at B 16 x S 560 x 8 x 96 the seven [S, S, d] products are 5.4e10 FLOP
-// (0.81 ms) against 0.2 GB of operands.  So the design keeps the FMA pipes
-// fed: a block of 256 threads owns F32_TL = 64 rows and walks the other
-// operand in tiles of TW rows (64; 32 at d 128, where two 64-row stages do not
-// fit beside the owned tiles).  Thread (r, c) of the 16 x 16 grid (warp w,
-// lane l: r = 4 (w / 2) + l / 8, c = 8 (w % 2) + l % 8) owns, of each S / dP
-// tile, rows r + 16 i (i < 4) and walked columns c + 16 j (a 4 x TW/16
-// register micro-tile), and of the dQ (or dK and dV) accumulator rows
-// r + 16 i and columns 2c + 32 jj + {0, 1} in registers for the whole walk.
-// S = own0 . walk0^T and dP = own1 . walk1^T run in one sweep over d (float4
-// reads along d of 4 owned and 8 walked rows per warp, at an odd 16-byte
-// pitch LD = d + 4: one wavefront each); p and ds go to shared memory only as
-// operands of the next products, row-major [64][TW + 8] (the pitch puts a
-// warp's 4 rows 8 banks apart), written conflict-free and read as float4
-// along the walked rows, beside float2 reads of the walked tile (one
-// wavefront each).  The walked tiles come by 16-byte cp.async into
-// a two-stage ring, the next tile's copy running under this tile's FMAs.
-// One block per SM (194 KB of shared memory at d 96), 8 warps.  It reaches
-// ~27 TFLOP/s of executed products (dQ 0.89 + dK/dV 1.09 ms at B 16 x S 560 on
-// the H100, against 2.87 + 3.88 for the 32-row design it replaces); halving
-// the owned-row loads of the S / dP sweep moved it by under 3%, so shared
-// memory is not what holds it, as in the SGEMM (gemm.cu).  Measured in turns
-// and not kept: the first layout (a warp reading 2 owned and 16 walked rows,
-// two wavefronts a walked read), fully unrolled loops, and a dQ kernel of two
-// blocks per SM (32-row walk; 128 registers, 128 bytes of spill): all within 3%.
+// at B 16 x S 560 x 8 x 96 the function's five [S, S, d] products (s, dp, dv,
+// dk, dq) are 3.85e10 FLOP (0.575 ms) against 0.2 GB of operands.  Three
+// launches do each product once:
+//   1. flash_bwd_rowterm_f32_kernel: D = rowsum(dO * O) of every row (a pass of
+//      its own: each dK / dV block walks every query row of its head, and o
+//      beside the walked tiles would not fit its shared memory);
+//   2. flash_bwd_dkdv_f32_kernel: a block owns F32_TL = 64 key rows and walks
+//      the query rows in tiles of TW (64; 32 at d 128, where two 64-row stages
+//      do not fit beside the owned tiles), forms s^T, dp^T, p and ds, sums
+//      dv += p^T . dO and dk += ds^T . q, and stores each ds * scale it forms
+//      to a [B, heads, S, SP] fp32 scratch (SP = S rounded up to 64, the
+//      owned tiles' reach; 165 MB at B 16 x S 560 x 8);
+//   3. flash_bwd_dq_f32_kernel: a block of 128 threads owns 64 query rows and
+//      walks the stored ds with k in tiles of F32_DQ_WALK keys: dq += ds . k.
+// The dQ kernel before this design recomputed s and dp (seven products, 5.4e10
+// FLOP); the ds it formed is the same expression of the same operands as the
+// dK / dV kernel's, so dq keeps its bits (below).
+// In the dK / dV kernel thread (r, c) of the 16 x 16 grid (warp w, lane l: r =
+// 4 (w / 2) + l / 8, c = 8 (w % 2) + l % 8) owns, of each S / dP tile, rows
+// r + 16 i (i < 4) and walked columns c + 16 j (a 4 x TW/16 register
+// micro-tile), and of the dK and dV accumulators rows r + 16 i and columns 2c +
+// 32 jj + {0, 1} in registers for the whole walk; in the dQ kernel thread (g,
+// c) of an 8 x 16 grid owns dq rows g + 8 i (i < 8) and the same columns, 8
+// float4 ds reads and 3 float2 k reads a key step for 48 FMAs (against 4 and 3
+// for 24 at 4 rows), and stages its dq in shared memory so that the column
+// partials keep the 16 x 16 grid's order.  S = own0 . walk0^T and dP = own1 . walk1^T
+// run in one sweep over d (float4 reads along d of 4 owned and 8 walked rows
+// per warp, at an odd 16-byte pitch LD = d + 4: one wavefront each); p and ds
+// go to shared memory only as operands of the next products, row-major
+// [64][TW + 8] (the pitch puts a warp's 4 rows 8 banks apart), written
+// conflict-free and read as float4 along the walked rows, beside float2 reads
+// of the walked tile (one wavefront each); ds also goes from registers to the
+// scratch with streaming stores (16 bytes of 4 keys per query row and warp;
+// the rows of one 32-byte sector are completed by the warp two on).  The walked tiles come by 16-byte
+// cp.async into a two-stage ring, the next tile's copy running under this
+// tile's FMAs.  The dK / dV kernel is one block per SM (194 KB of shared
+// memory at d 96, 216 registers), 8 warps; the dQ kernel holds only the ds and
+// k tiles (45 KB at d 96, 167 registers) and runs three blocks per SM.  At B 16
+// x S 560 x 8 x 96 on an H100 (80GB HBM3, 700 W; in turns, from the profiler):
+// D 0.028 ms, dK/dV 1.096-1.103 (28 TFLOP/s of its four products; the parent's
+// 1.087 had no ds stores), dQ 0.236-0.238 (33 TFLOP/s), 1.36-1.37 ms in all
+// against the recomputing parent's 0.886 + 1.087 (0.575 ms bound).  Measured
+// in turns and not kept: this dQ kernel as 256 threads of 4 rows each over
+// 64-key tiles, two blocks per SM (0.250 ms; 0.249 at one block), and at four
+// blocks per SM (128 registers: 40 bytes of spill at d 128); plain ds stores
+// (dK/dV 1.112-1.126).  Before, the recomputing pair replaced a 32-row design
+// at 2.87 + 3.88 ms; halving the owned-row loads of the S / dP sweep moved the
+// dK / dV kernel by under 3%, so shared memory is not what holds it, as in the
+// SGEMM (gemm.cu); also not kept then: the first layout (a warp reading 2
+// owned and 16 walked rows, two wavefronts a walked read), fully unrolled
+// loops, and a recomputing dQ kernel of two blocks per SM (32-row walk; 128
+// registers, 128 bytes of spill): all within 3%.
 // Numerics (the fp32 forward's): s is the fmaf chain over k in order,
 // p = expf(s * scale + bias - m) / l, ds = p * (dp - D) * scale with D =
-// rowsum(dO * O) written by the dQ kernel, bias -1e9 (masked) / -inf (past
-// S); dq, dk, dv are fmaf chains over the walked rows in order; the column
-// partials sum each thread's 4 rows, then the 16 thread rows in order; no
-// float atomics.
+// rowsum(dO * O) (4 threads a row over every 4th column, then two shuffles),
+// bias -1e9 (masked) / -inf (past S); dq, dk, dv are fmaf chains over the
+// walked rows in order; the column partials sum each thread's 4 rows, then
+// the 16 thread rows in order; no float atomics.  fmaf(a, b, c) = fmaf(b, a,
+// c), so the dK / dV kernel's s^T and dp^T are the dQ kernel's s and dp bit
+// for bit, and so is ds.  dq's chain runs over the keys up to SP, past the
+// recomputing kernel's last key tile: those keys have k = 0 and ds = +-0, and
+// an fmaf chain started at +0 is never -0, so each such term leaves it as it
+// was.
 
 constexpr int F32_TL = 64;            // rows a block owns
 constexpr int F32_BWD_THREADS = 256;  // a 16 x 16 grid
+constexpr int F32_DQ_WALK = 32;       // keys per walked tile of the dQ kernel
+constexpr int F32_DQ_THREADS = 128;   // the dQ kernel's 8 x 16 grid
+constexpr int F32_DQ_BLOCKS = 3;      // dQ blocks resident per SM
+
+// The ds scratch's row pitch: S rounded up to the owned tiles (so a multiple
+// of F32_DQ_WALK too).
+__host__ __device__ __forceinline__ int f32_ds_pitch(int S) {
+  return (S + F32_TL - 1) / F32_TL * F32_TL;
+}
 
 template <int DP>
-struct BwdF32Smem {  // byte offsets of the shared-memory regions
+struct BwdF32Smem {  // byte offsets of the dK / dV kernel's shared-memory regions
   static constexpr int TW = DP == 128 ? 32 : 64;  // walked rows per tile
   static constexpr int LD = DP + 4;               // io tile pitch (floats)
   static constexpr int LP = TW + 8;               // p / ds tile pitch
@@ -1077,27 +1118,38 @@ struct BwdF32Smem {  // byte offsets of the shared-memory regions
   static constexpr int RING = OWN + 2 * F32_TL * LD * 4;       // 2 stages x 2 walked [TW][LD]
   static constexpr int PT = RING + 4 * TW * LD * 4;            // p and ds [64][LP]
   static constexpr int VEC = PT + 2 * F32_TL * LP * 4;         // 2 stages x [3][TW] fp32
-  static constexpr int RED = VEC + 2 * 3 * TW * 4;             // [16][DP] column sums, [64] D
-  static constexpr int BYTES = RED + (16 * DP + F32_TL) * 4;
+  static constexpr int RED = VEC + 2 * 3 * TW * 4;             // [16][DP] column sums
+  static constexpr int BYTES = RED + 16 * DP * 4;
+};
+
+template <int DP>
+struct DqF32Smem {  // byte offsets of the dQ kernel's shared-memory regions
+  static constexpr int TW = F32_DQ_WALK;          // keys per walked tile
+  static constexpr int LD = DP + 4;               // k tile pitch (floats)
+  static constexpr int LP = TW + 8;               // ds tile pitch
+  static constexpr int DS = 0;                                 // 2 stages x ds [64][LP]
+  static constexpr int KT = DS + 2 * F32_TL * LP * 4;          // 2 stages x k [TW][LD]
+  static constexpr int BYTES = KT + 2 * TW * LD * 4;           // then dq [64][DP] for the sums
+  static_assert(BYTES >= F32_TL * DP * 4, "the dq tile must fit in the ring");
 };
 
 // Rows [r0, r0 + ROWS) x d columns of one head (row stride rs) ->
 // dst[ROWS][DP + 4], zero filled past S and past d: 16-byte cp.async copies
 // when ``vec``, else element loads and stores (visible after the next
 // barrier either way).
-template <int DP, int ROWS>
+template <int DP, int ROWS, int THREADS = F32_BWD_THREADS>
 __device__ __forceinline__ void load_tile_f32(const float* __restrict__ src, long long rs, int r0,
                                               int S, int d, bool vec, float* dst) {
   constexpr int LD = DP + 4;
   if (vec) {
     constexpr int CPR = DP / 4;
-    for (int c = threadIdx.x; c < ROWS * CPR; c += F32_BWD_THREADS) {
+    for (int c = threadIdx.x; c < ROWS * CPR; c += THREADS) {
       const int row = c / CPR, col = (c % CPR) * 4;
       const bool ok = r0 + row < S && col < d;
       cp_async16(smem_u32(dst + row * LD + col), ok ? src + (r0 + row) * rs + col : src, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < ROWS * DP; i += F32_BWD_THREADS) {
+    for (int i = threadIdx.x; i < ROWS * DP; i += THREADS) {
       const int row = i / DP, col = i % DP;
       dst[row * LD + col] = (r0 + row < S && col < d) ? src[(r0 + row) * rs + col] : 0.0f;
     }
@@ -1141,24 +1193,24 @@ __device__ __forceinline__ void scores_f32(const float* own0, const float* own1,
   }
 }
 
-// acc[i][jj][h] += sum over walked rows t of X[r + 16 i][t] * W[t][2c + 32 jj + h],
-// in t order: X a [64][TW + 8] p / ds tile, W a walked [TW][DP + 4] tile.
-template <int DP, int TW>
+// acc[i][jj][h] += sum over walked rows t of X[r + RS i][t] * W[t][2c + 32 jj + h]
+// (i < RI), in t order: X a [64][TW + 8] p / ds tile, W a walked [TW][DP + 4] tile.
+template <int DP, int TW, int RI = 4, int RS = 16>
 __device__ __forceinline__ void accum_f32(const float* X, const float* W, int r, int c,
-                                          float (&acc)[4][DP / 32][2]) {
+                                          float (&acc)[RI][DP / 32][2]) {
   constexpr int LD = DP + 4, LP = TW + 8, NC = DP / 32;
 #pragma unroll 2
   for (int t = 0; t < TW; t += 4) {
-    float4 x4[4];
+    float4 x4[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) x4[i] = *reinterpret_cast<const float4*>(X + (r + 16 * i) * LP + t);
+    for (int i = 0; i < RI; ++i) x4[i] = *reinterpret_cast<const float4*>(X + (r + RS * i) * LP + t);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
 #pragma unroll
       for (int jj = 0; jj < NC; ++jj) {
         const float2 w = *reinterpret_cast<const float2*>(W + (t + u) * LD + 2 * c + 32 * jj);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RI; ++i) {
           const float x = u == 0 ? x4[i].x : u == 1 ? x4[i].y : u == 2 ? x4[i].z : x4[i].w;
           acc[i][jj][0] = fmaf(x, w.x, acc[i][jj][0]);
           acc[i][jj][1] = fmaf(x, w.y, acc[i][jj][1]);
@@ -1209,128 +1261,120 @@ __device__ __forceinline__ void write_grad_f32(const float (&acc)[4][NC][2], flo
   }
 }
 
-// dQ of 64 query rows of one (batch, head), and D of those rows.
-template <int DP>
-__global__ void __launch_bounds__(F32_BWD_THREADS, 1)
-flash_bwd_dq_f32_kernel(Mat<const float> Q, Mat<const float> K, Mat<const float> V,
-                        Mat<const float> O, Mat<const float> dO, Mask mask,
-                        const float* __restrict__ stats, float* __restrict__ Dg, Mat<float> dQg,
-                        float* __restrict__ colpart, int S, int nh, int d, float scale) {
-  using L = BwdF32Smem<DP>;
-  constexpr int TW = L::TW, LD = L::LD, LP = L::LP, NJ = TW / 16, NC = DP / 32;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw + L::OWN);
-  float* dOs = Qs + F32_TL * LD;
-  float* ring = reinterpret_cast<float*>(smem_raw + L::RING);  // stage st: k, v at 2st, 2st+1
-  float* dSs = reinterpret_cast<float*>(smem_raw + L::PT);
-  float* kbias = reinterpret_cast<float*>(smem_raw + L::VEC);  // stage st at st * 3 * TW
-  float* red = reinterpret_cast<float*>(smem_raw + L::RED);
-  float* Dsh = red + 16 * DP;
+// D = rowsum(dO * O) of 64 rows of one (batch, head): 4 threads a row over
+// every 4th column, then two shuffles.
+__global__ void __launch_bounds__(F32_BWD_THREADS)
+flash_bwd_rowterm_f32_kernel(Mat<const float> O, Mat<const float> dO, float* __restrict__ Dg,
+                             int S, int nh, int d) {
+  const int lr = threadIdx.x / 4, row = blockIdx.x * F32_TL + lr;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const float* ob = O.head(b, h);
+  const float* gb = dO.head(b, h);
+  float s = 0.0f;
+  if (row < S)
+    for (int col = threadIdx.x % 4; col < d; col += 4)
+      s += gb[row * dO.sr + col] * ob[row * O.sr + col];
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  if (threadIdx.x % 4 == 0 && row < S) Dg[((size_t)b * nh + h) * S + row] = s;
+}
 
-  const int r = threadIdx.x / 64 * 4 + threadIdx.x % 32 / 8;
-  const int c = threadIdx.x / 32 % 2 * 8 + threadIdx.x % 8;
+// dQ of 64 query rows of one (batch, head) from the ds * scale the dK / dV
+// kernel stored (dsg [B, nh, S, SP]): dq += ds . k over the keys in order.
+// Thread (g, c) of the 8 x 16 grid (g = tid / 16, c = tid % 16) owns rows
+// g + 8 i (i < 8) and columns 2c + 32 jj + {0, 1}; the column partials go
+// through a [64][DP] tile in the 16 x 16 kernels' order.
+template <int DP>
+__global__ void __launch_bounds__(F32_DQ_THREADS, F32_DQ_BLOCKS)
+flash_bwd_dq_f32_kernel(const float* __restrict__ dsg, Mat<const float> K, Mat<float> dQg,
+                        float* __restrict__ colpart, int S, int SP, int nh, int d) {
+  using L = DqF32Smem<DP>;
+  constexpr int TW = L::TW, LD = L::LD, LP = L::LP, NC = DP / 32;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* dss = reinterpret_cast<float*>(smem_raw + L::DS);   // stage st at st * 64 * LP
+  float* kts = reinterpret_cast<float*>(smem_raw + L::KT);   // stage st at st * TW * LD
+
+  const int g = threadIdx.x / 16;
+  const int c = threadIdx.x % 16;
   const int q0 = blockIdx.x * F32_TL;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const float* qb = Q.head(b, h);
   const float* kb = K.head(b, h);
-  const float* vb = V.head(b, h);
-  const float* ob = O.head(b, h);
-  const float* gb = dO.head(b, h);
-  const int* mrow = mask.row(b);
-  const size_t srow = ((size_t)b * nh + h) * S;  // row offset into stats / D
-  const bool kv_vec = vec16(kb, K.sr, d) && vec16(vb, V.sr, d);
-  auto stage = [&](int st, int which) { return ring + (2 * st + which) * TW * LD; };
-  auto load_kv = [&](int k0, int st) {
-    load_tile_f32<DP, TW>(kb, K.sr, k0, S, d, kv_vec, stage(st, 0));
-    load_tile_f32<DP, TW>(vb, V.sr, k0, S, d, kv_vec, stage(st, 1));
+  const float* dsb = dsg + ((size_t)b * nh + h) * S * SP;
+  const bool k_vec = vec16(kb, K.sr, d);
+  // The ds rows [q0, q0 + 64) x keys [k0, k0 + TW), zero past S, and the k tile.
+  auto load = [&](int k0, int st) {
+    float* dst = dss + st * F32_TL * LP;
+    for (int i = threadIdx.x; i < F32_TL * (TW / 4); i += F32_DQ_THREADS) {
+      const int row = i / (TW / 4), col = i % (TW / 4) * 4;
+      const bool ok = q0 + row < S;
+      const float* src = ok ? dsb + (size_t)(q0 + row) * SP + k0 + col : dsb;
+      cp_async16(smem_u32(dst + row * LP + col), src, ok);
+    }
+    load_tile_f32<DP, TW, F32_DQ_THREADS>(kb, K.sr, k0, S, d, k_vec, kts + st * TW * LD);
   };
 
-  load_tile_f32<DP, F32_TL>(qb, Q.sr, q0, S, d, vec16(qb, Q.sr, d), Qs);
-  load_tile_f32<DP, F32_TL>(gb, dO.sr, q0, S, d, vec16(gb, dO.sr, d), dOs);
-  load_kv(0, 0);
+  load(0, 0);
   cp_async_commit();
-  if (threadIdx.x < TW) kbias[threadIdx.x] = key_bias(mrow, threadIdx.x, S);
-  // m and l of rows r + 16 i (0 and inf past S: then p = 0).
-  float m_r[4], l_r[4], D_r[4];
+  float dq[8][NC][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + r + 16 * i;
-    m_r[i] = row < S ? stats[(srow + row) * 2] : 0.0f;
-    l_r[i] = row < S ? stats[(srow + row) * 2 + 1] : INFINITY;
-  }
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NC; ++jj) dq[i][jj][0] = dq[i][jj][1] = 0.0f;
   cp_async_wait_all();
   __syncthreads();
 
-  // D = rowsum(dO * O): 4 threads per row over every 4th column, then shuffles.
-  {
-    const int lr = threadIdx.x / 4, row = q0 + lr;
-    float s = 0.0f;
-    if (row < S)
-      for (int col = threadIdx.x % 4; col < d; col += 4)
-        s += dOs[lr * LD + col] * ob[row * O.sr + col];
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (threadIdx.x % 4 == 0) {
-      Dsh[lr] = s;
-      if (row < S) Dg[srow + row] = s;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) D_r[i] = Dsh[r + 16 * i];
-
-  float dq[4][NC][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < NC; ++jj) dq[i][jj][0] = dq[i][jj][1] = 0.0f;
-
-  const int ntiles = (S + TW - 1) / TW;
+  const int ntiles = SP / TW;
   for (int it = 0; it < ntiles; ++it) {
     const int st = it & 1;
-    const bool next = it + 1 < ntiles;
-    float nbias = 0.0f;  // the next tile's key bias, stored after this tile's products
-    if (next) {
-      load_kv((it + 1) * TW, st ^ 1);
-      if (threadIdx.x < TW) nbias = key_bias(mrow, (it + 1) * TW + threadIdx.x, S);
-    }
+    if (it + 1 < ntiles) load((it + 1) * TW, st ^ 1);
     cp_async_commit();
-
-    const float* ks = stage(st, 0);
-    float s[4][NJ], dp[4][NJ];
-    scores_f32<DP, NJ>(Qs, dOs, ks, stage(st, 1), r, c, s, dp);
-    const float* kbs = kbias + st * 3 * TW;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float kbj = kbs[c + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = expf(s[i][j] * scale + kbj - m_r[i]) / l_r[i];
-        dSs[(r + 16 * i) * LP + c + 16 * j] = p * (dp[i][j] - D_r[i]) * scale;
-      }
-    }
-    __syncthreads();  // the ds tile is whole
-    accum_f32<DP, TW>(dSs, ks, r, c, dq);  // dq += ds . k
-
-    if (next && threadIdx.x < TW) kbias[(st ^ 1) * 3 * TW + threadIdx.x] = nbias;
+    accum_f32<DP, TW, 8, 8>(dss + st * F32_TL * LP, kts + st * TW * LD, g, c, dq);  // += ds . k
     cp_async_wait_all();  // the next tile has landed ...
-    __syncthreads();      // ... and every warp is done with this one (and with ds)
+    __syncthreads();      // ... and every warp is done with this one
   }
 
-  const long long cps = 3LL * nh * d;  // colpart row: dq | dk | dv, head h at h*d
-  write_grad_f32<NC>(dq, dQg.head(b, h), dQg.sr, q0, S, d, r, c, red,
-                     colpart ? colpart + ((size_t)b * gridDim.x + blockIdx.x) * cps + (size_t)h * d
-                             : nullptr);
+  float* dqb = dQg.head(b, h);
+  float* T = reinterpret_cast<float*>(smem_raw);  // dq [64][DP], over the ring
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + g + 8 * i;
+#pragma unroll
+    for (int jj = 0; jj < NC; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int col = 2 * c + 32 * jj + hh;
+        if (row < S && col < d) dqb[row * dQg.sr + col] = dq[i][jj][hh];
+        T[(g + 8 * i) * DP + col] = dq[i][jj][hh];
+      }
+  }
+  if (!colpart) return;
+  __syncthreads();
+  // Each thread row r's rows r + 16 i (i < 4) summed, then r = 0..15 in order.
+  float* dst = colpart + ((size_t)b * gridDim.x + blockIdx.x) * (3LL * nh * d) + (size_t)h * d;
+  for (int col = threadIdx.x; col < d; col += F32_DQ_THREADS) {
+    float total = 0.0f;
+    for (int r = 0; r < 16; ++r) {
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (q0 + r + 16 * i < S) s += T[(r + 16 * i) * DP + col];
+      total += s;
+    }
+    dst[col] = total;
+  }
 }
 
-// dK and dV of 64 key rows of one (batch, head), after flash_bwd_dq_f32_kernel.
+// dK and dV of 64 key rows of one (batch, head), after flash_bwd_rowterm_f32_kernel
+// (D); stores ds * scale of those keys and every query row to dsg [B, nh, S, SP].
 template <int DP>
 __global__ void __launch_bounds__(F32_BWD_THREADS, 1)
 flash_bwd_dkdv_f32_kernel(Mat<const float> Q, Mat<const float> K, Mat<const float> V,
                           Mat<const float> dO, Mask mask, const float* __restrict__ stats,
                           const float* __restrict__ Dg, Mat<float> dKg, Mat<float> dVg,
-                          float* __restrict__ colpart, int S, int nh, int d, float scale) {
+                          float* __restrict__ dsg, float* __restrict__ colpart, int S, int SP,
+                          int nh, int d, float scale) {
   using L = BwdF32Smem<DP>;
   constexpr int TW = L::TW, LD = L::LD, LP = L::LP, NJ = TW / 16, NC = DP / 32;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -1353,6 +1397,7 @@ flash_bwd_dkdv_f32_kernel(Mat<const float> Q, Mat<const float> K, Mat<const floa
   const float* vh = V.head(b, h);
   const int* mrow = mask.row(b);
   const size_t srow = ((size_t)b * nh + h) * S;
+  float* dsb = dsg + srow * SP + k0;  // this head's ds rows, from key k0
   const bool qg_vec = vec16(qb, Q.sr, d) && vec16(gb, dO.sr, d);
   auto stage = [&](int st, int which) { return ring + (2 * st + which) * TW * LD; };
   auto load_qg = [&](int q0, int st) {
@@ -1415,11 +1460,15 @@ flash_bwd_dkdv_f32_kernel(Mat<const float> Q, Mat<const float> K, Mat<const floa
     for (int j = 0; j < NJ; ++j) {
       const int q = c + 16 * j;
       const float m = vm[q], l = vm[TW + q], D = vm[2 * TW + q];
+      const bool keep = it * TW + q < S;  // the scratch has S query rows
+      float* dsq = dsb + (size_t)(keep ? it * TW + q : 0) * SP + r;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = expf(s[i][j] * scale + kb_r[i] - m) / l;
+        const float ds = p * (dp[i][j] - D) * scale;
         Ps[(r + 16 * i) * LP + q] = p;
-        dSs[(r + 16 * i) * LP + q] = p * (dp[i][j] - D) * scale;
+        dSs[(r + 16 * i) * LP + q] = ds;
+        if (keep) __stcs(dsq + 16 * i, ds);  // read once, by the dQ kernel
       }
     }
     __syncthreads();  // the p and ds tiles are whole
@@ -1725,6 +1774,7 @@ struct BwdArgs {
   Mask mask;
   const float* stats;
   float* D;
+  float* ds;  // fp32: the [B, nh, S, f32_ds_pitch(S)] ds scratch
   float* colpart;
   int B, S, nh, d;
   float scale;
@@ -1851,26 +1901,36 @@ cudaError_t launch_bwd_wgmma(const BwdArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// The three fp32 launches in order: D, then dK / dV (which stores ds), then dQ.
 template <int DP>
 cudaError_t launch_bwd_f32(const BwdArgs& a, cudaStream_t s) {
-  constexpr int bytes = BwdF32Smem<DP>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<DP>,
+  if (a.B == 0 || a.nh == 0) return cudaSuccess;
+  if (a.ds == nullptr) return cudaErrorInvalidValue;
+  constexpr int bytes = BwdF32Smem<DP>::BYTES, dq_bytes = DqF32Smem<DP>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_f32_kernel<DP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(flash_bwd_dkdv_f32_kernel<DP>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  e = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<DP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+  if (e != cudaSuccess) return e;
+  // All of the SM's unified memory as shared, so F32_DQ_BLOCKS blocks fit.
+  e = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<DP>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.S + F32_TL - 1) / F32_TL, a.nh, a.B);
-  flash_bwd_dq_f32_kernel<DP><<<grid, F32_BWD_THREADS, bytes, s>>>(
-      as_mat<const float>(a.q), as_mat<const float>(a.k), as_mat<const float>(a.v),
-      as_mat<const float>(a.o), as_mat<const float>(a.dout), a.mask, a.stats, a.D,
-      as_mat<float>(a.dq), a.colpart, a.S, a.nh, a.d, a.scale);
+  const int SP = f32_ds_pitch(a.S);
+  flash_bwd_rowterm_f32_kernel<<<grid, F32_BWD_THREADS, 0, s>>>(
+      as_mat<const float>(a.o), as_mat<const float>(a.dout), a.D, a.S, a.nh, a.d);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   flash_bwd_dkdv_f32_kernel<DP><<<grid, F32_BWD_THREADS, bytes, s>>>(
       as_mat<const float>(a.q), as_mat<const float>(a.k), as_mat<const float>(a.v),
       as_mat<const float>(a.dout), a.mask, a.stats, a.D, as_mat<float>(a.dk),
-      as_mat<float>(a.dv), a.colpart, a.S, a.nh, a.d, a.scale);
+      as_mat<float>(a.dv), a.ds, a.colpart, a.S, SP, a.nh, a.d, a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dq_f32_kernel<DP><<<grid, F32_DQ_THREADS, dq_bytes, s>>>(
+      a.ds, as_mat<const float>(a.k), as_mat<float>(a.dq), a.colpart, a.S, SP, a.nh, a.d);
   return cudaGetLastError();
 }
 
@@ -1913,24 +1973,26 @@ int fm_flash_attention_fwd(const void* q, const long long* qs, const void* k,
 }
 
 // Strided flash attention backward (Pallas #10, and the attention core of
-// #3 / #6 with colpart), two launches: q, k, v, o,
+// #3 / #6 with colpart), two launches in bf16, three in fp32: q, k, v, o,
 // dout (dO, io dtype) as in fm_flash_attention_fwd (in bf16 o and dout as
-// TMA reads them too), stats from it; D
-// [B, nh, S] fp32 scratch; writes dq, dk, dv (strided, io dtype) and, when
-// colpart is not null, the column partials [B * ceil(S / tile), 3 * nh * d]
-// fp32 of the fp32 dq | dk | dv, tile = 64 (_build.FLASH_BWD_TILE).
+// TMA reads them too), stats from it; D [B, nh, S] fp32 scratch; ds (fp32
+// only, else ignored) [B, nh, S, SP] fp32 scratch, SP = S rounded up to 64
+// (_build.flash_bwd_f32_scratch); writes dq, dk, dv (strided, io dtype) and,
+// when colpart is not null, the column partials [B * ceil(S / tile), 3 * nh *
+// d] fp32 of the fp32 dq | dk | dv, tile = 64 (_build.FLASH_BWD_TILE).
 int fm_flash_attention_bwd(const void* q, const long long* qs, const void* k,
                            const long long* ks, const void* v, const long long* vs,
                            const void* o, const long long* os, const void* dout,
                            const long long* dos, const void* mask, long long mask_sb,
                            const void* stats, void* D, void* dq, const long long* dqs, void* dk,
                            const long long* dks, void* dv, const long long* dvs, void* colpart,
-                           int B, int S, int nh, int d, float scale, int dtype, void* stream) {
+                           void* ds, int B, int S, int nh, int d, float scale, int dtype,
+                           void* stream) {
   const BwdArgs a{strided(q, qs), strided(k, ks), strided(v, vs), strided(o, os),
                   strided(dout, dos), strided(dq, dqs), strided(dk, dks), strided(dv, dvs),
                   Mask{static_cast<const int*>(mask), mask_sb},
                   static_cast<const float*>(stats), static_cast<float*>(D),
-                  static_cast<float*>(colpart), B, S, nh, d, scale};
+                  static_cast<float*>(ds), static_cast<float*>(colpart), B, S, nh, d, scale};
   return launch_bwd(a, dtype, static_cast<cudaStream_t>(stream));
 }
 

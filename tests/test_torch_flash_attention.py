@@ -5,7 +5,9 @@ training-mode attention) against the JAX package, on the CPU.
   flash_attention.flash_attention`` run in the Pallas interpreter, and
   ``flash_attention_backward_reference`` against ``jax.vjp`` of it, at
   B 3, 2 heads, S 48, d 32 / 64, with no mask and with per-row masks
-  including a fully masked row.  fp32: forward 2e-5, grads 5e-5 of each
+  including a fully masked row (the backward also at d 96, and at S 80 --
+  a whole 64-row tile of the kernels and a ragged one -- with and without
+  masks).  fp32: forward 2e-5, grads 5e-5 of each
   grad's max-abs.  bf16: ``BF16_TOL`` of each output's max-abs.
 - the CPU wrapper: its forward is the plain version, autograd through it
   gives the plain backward bit for bit, S > 1024 raises, nothing launches.
@@ -71,10 +73,10 @@ def _row_mask(rng, b, s):
     return mask
 
 
-def _qkv(seed, d, dtype, masked):
+def _qkv(seed, d, dtype, masked, s=S):
     rng = np.random.default_rng(seed)
-    arrays = [_np(rng, B, NH, S, d) for _ in range(4)]          # q, k, v, dO
-    mask = _row_mask(rng, B, S) if masked else None
+    arrays = [_np(rng, B, NH, s, d) for _ in range(4)]          # q, k, v, dO
+    mask = _row_mask(rng, B, s) if masked else None
     jdt, tdt = IO[dtype]
     jargs = [jnp.asarray(a).astype(jdt) for a in arrays]
     targs = [torch.from_numpy(a).to(tdt) for a in arrays]
@@ -110,10 +112,21 @@ def test_plain_forward_matches_pallas_interpret(dtype, masked, d):
                                    .expand(NH, S, d).numpy(), rtol=0, atol=2e-2)
 
 
-@pytest.mark.parametrize("d", [32, 64])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_plain_backward_matches_jax_vjp(dtype, d):
-    (jq, jk, jv, jg), (tq, tk, tv, tg), jm, tm = _qkv(7 + d, d, dtype, masked=True)
+# S 48 with per-row masks (a fully masked row among them); d 96 (the lab
+# encoder's); S 80 (one whole 64-row tile of the kernels and a ragged one of
+# 16) with and without masks.
+_PLAIN_BWD_CASES = [pytest.param(dt, d, 48, True, id=f"{dt}-{d}")
+                    for dt in ("float32", "bfloat16") for d in (32, 64)]
+_PLAIN_BWD_CASES += [pytest.param("float32", 96, 48, True, id="float32-96")]
+_PLAIN_BWD_CASES += [pytest.param("float32", d, 80, m,
+                                  id=f"float32-{d}-S80-{'mask' if m else 'nomask'}")
+                     for d in (32, 64, 96) for m in (True, False)]
+_PLAIN_BWD_CASES += [pytest.param("bfloat16", 96, 80, True, id="bfloat16-96-S80-mask")]
+
+
+@pytest.mark.parametrize("dtype,d,s,masked", _PLAIN_BWD_CASES)
+def test_plain_backward_matches_jax_vjp(dtype, d, s, masked):
+    (jq, jk, jv, jg), (tq, tk, tv, tg), jm, tm = _qkv(7 + d, d, dtype, masked=masked, s=s)
     _, vjp = jax.vjp(lambda q, k, v: j_flash(q, k, v, jm, True), jq, jk, jv)
     want = vjp(jg)
     got = t_flash.flash_attention_backward_reference(tq, tk, tv, tm, tg)
