@@ -1512,12 +1512,13 @@ PTXAS_KERNELS = ("gemm_bf16_nt_kernel", "gemm_bf16_nn_tn_kernel", "flash_attn_fw
                  "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
                  "gemm_f32_nt_kernel", "gemm_f32_nn_tn_kernel", "flash_attn_fwd_f32_kernel",
                  "flash_bwd_rowterm_f32_kernel", "flash_bwd_dq_f32_kernel",
-                 "flash_bwd_dkdv_f32_kernel")
+                 "flash_bwd_dkdv_f32_kernel", "layernorm_bwd_kernel", "colsum_kernel")
 #: Kernels that must not spill (their accumulators live in registers).
 NO_SPILL_KERNELS = ("gemm_bf16_nt_kernel", "gemm_bf16_nn_tn_kernel", "gemm_f32_nt_kernel",
                     "gemm_f32_nn_tn_kernel",
                     "flash_attn_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-                    "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_f32_kernel")
+                    "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_f32_kernel",
+                    "layernorm_bwd_kernel")
 
 
 def ptxas_report(_build, names=PTXAS_KERNELS):
@@ -1560,6 +1561,31 @@ def ptxas_report(_build, names=PTXAS_KERNELS):
                 row.get("spill_stores", 1) or row.get("spill_loads", 1)):
             raise AssertionError(f"ptxas report: {name} spills or has no spill line: {row}")
     return report
+
+
+def ln_bwd_occupancy(_build, report, h=768):
+    """Blocks an SM that ``layernorm_bwd_kernel`` can hold at H ``h``, by
+    registers (the ptxas report of its NC = ceil(h / 256) instantiations)
+    and by shared memory (its launch plan), for bf16 and fp32 io.  Raises
+    below the plan's blocks an SM (two at H 768)."""
+    nc = -(-h // 256)
+    threads = _build.LN_BWD["threads"]
+    out = {}
+    for name, row in report.items():
+        if "layernorm_bwd_kernel" not in name or f"Li{nc}E" not in name:
+            continue
+        regs = -(-row["registers"] // 8) * 8
+        out[name[-60:]] = {"registers": row["registers"], "blocks_by_registers":
+                           65536 // (regs * threads)}
+    for dt in (torch.bfloat16, torch.float32):
+        plan = _build.layernorm_bwd_plan(143360, h, dt, 132)
+        out[str(dt)] = {"smem": plan["smem"], "blocks_by_plan": plan["blocks_per_sm"]}
+    want = _build.LN_BWD["min_blocks"][nc]
+    low = {k: v for k, v in out.items() if min(v.get("blocks_by_registers", want),
+                                               v.get("blocks_by_plan", want)) < want}
+    if len(out) < 3 or low:
+        raise AssertionError(f"layernorm_bwd_kernel at H {h}: under {want} blocks an SM: {out}")
+    return out
 
 
 # -- phase 3d: the flash kernels (Pallas #9 / #10) against their plain versions -------------
@@ -6551,7 +6577,10 @@ def main() -> int:
     _build.build()
     _build.kernels()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    log(f"[build] ptxas -v of the redesigned kernels: {json.dumps(ptxas_report(_build))}")
+    ptxas = ptxas_report(_build)
+    log(f"[build] ptxas -v of the redesigned kernels: {json.dumps(ptxas)}")
+    log(f"[build] layernorm_bwd_kernel blocks an SM at H 768: "
+        f"{json.dumps(ln_bwd_occupancy(_build, ptxas))}")
 
     summary = []
 

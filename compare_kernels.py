@@ -100,6 +100,28 @@ it, the host time of one forward + backward from an idle card with the
 dynamic weights already on the card (median of 15), and how many
 synchronising CUDA calls one ``train_step`` makes (torch's sync debug mode;
 STEPSHOST).
+
+    python3 compare_kernels.py --ln TREE [TREE ...]
+
+measures the LayerNorm backward (``layernorm_bwd``) and the fixed-order column
+sums (``colsum``) alone: what ``-Xptxas -v`` says of both kernels; the bits of
+dz, da and the [3, ceil(R / 64), H] partials at R 4480, a ragged 4496 and the
+lab 143360, with dz in the io dtype, dropout on and off, H 256 / 768 / 1024
+(LNBITS), and of every column sum: each partials plane alone and, where the
+tree takes planes, all three in one launch (which must give the same bits),
+and the split-K and tall sums at M 1-2304 with -0 entries (COLSUMBITS); each
+kernel's CUDA-event median at the shapes the main path gives it (bf16 lab R
+143360, the glue's dz in the io dtype, batch 16 R 8960 in bf16 and fp32, 06's
+R 8784 x 256) and its device time (profiler) beside its bound (bytes at 3.35
+TB/s) and one library composition (aten's LayerNorm backward from the saved
+mean / rstd + the dropout backward + ``sum(0)``; ``x.sum(0)``; LNROW,
+COLSUMROW); the forward add + LayerNorm and the unfolded path's per-128-row
+column partials the same way at the bf16 lab and fp32 batch-16 shapes
+(ADDLNROW, ROWSUMROW); and both FAME steps (fp32 B 16, bf16 B 256) by the
+profiler: the device time and launches a step of the LayerNorm backward, the
+column sums, the add + LayerNorm and every kernel (LNSTEP). The bf16 mode
+prints the bf16 LNROW / COLSUMROW lines too, ``--fp32`` the fp32 ones, and
+``--host`` LNBITS / COLSUMBITS after DROPBITS.
 """
 
 import os
@@ -147,6 +169,249 @@ print("GEMMBITS", json.dumps(bits), flush=True)
 del a, b, out, extra
 torch.cuda.empty_cache()
 '''
+
+
+_LNBITS = r"""
+# Bits of the LayerNorm backward (dz, da, the [3, ceil(R / 64), H] partials)
+# and of the fixed-order column sums, on fixed inputs: ragged and whole
+# 64-row units, the lab R, dz in the io dtype, dropout on and off (LNBITS);
+# each partials plane and a split-K sum at M <= 8 with -0 entries, through
+# the one-plane entry every tree has, and through the planes entry where the
+# tree has one, which must give the same bits (COLSUMBITS).
+import hashlib, inspect
+def _digest(*ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+from fairmultimodal_torch.utils.rng import Dropout as _Drop
+lnbits, csbits, planes = {}, {}, {}
+_planes_api = any(p.kind == p.VAR_POSITIONAL
+                  for p in inspect.signature(_build.colsum).parameters.values())
+gen = torch.Generator(device="cuda").manual_seed(31)
+for dt, R, H, dz_io, rate in ((torch.bfloat16, 4480, 768, False, 0.1),
+                              (torch.bfloat16, 4496, 768, False, 0.1),
+                              (torch.bfloat16, 4496, 768, True, 0.1),
+                              (torch.bfloat16, 4496, 768, False, 0.0),
+                              (torch.bfloat16, 143360, 768, False, 0.1),
+                              (torch.bfloat16, 4496, 1024, False, 0.1),
+                              (torch.float32, 4480, 768, False, 0.1),
+                              (torch.float32, 4496, 768, False, 0.1),
+                              (torch.float32, 4496, 768, True, 0.1),
+                              (torch.float32, 8784, 256, False, 0.1)):
+    name = f"{str(dt)[6:]} R{R} H{H}{' dz io' if dz_io else ''} rate {rate}"
+    g = torch.randn(R, H, generator=gen, device="cuda").to(dt)
+    z = (torch.randn(R, H, generator=gen, device="cuda") * 2 + 0.5).to(dt)
+    gamma = 1 + 0.1 * torch.randn(H, generator=gen, device="cuda")
+    dz = torch.empty(R, H, device="cuda", dtype=dt if dz_io else torch.float32)
+    da = torch.empty(R, H, device="cuda", dtype=dt)
+    part = torch.empty(3, -(-R // _build.LN_BWD_ROWS), H, device="cuda")
+    drop = _Drop.make(key_of(55555 | 7 << 32, "cuda"), 1, rate)
+    _build.layernorm_bwd(g, z, gamma, dz, da, part, 1e-5, drop)
+    lnbits[name] = _digest(dz, da, part)
+    outs = [torch.empty(H, device="cuda", dtype=o) for o in (torch.float32, torch.float32, dt)]
+    for i in range(3):
+        _build.colsum(part[i], outs[i])
+    csbits[name] = _digest(*outs)
+    if _planes_api:
+        alt = [torch.empty_like(o) for o in outs]
+        _build.colsum(part, *alt)
+        planes[name] = all(torch.equal(a.view(torch.uint8), o.view(torch.uint8))
+                           for a, o in zip(alt, outs))
+    del g, z, dz, da, part
+for M, N in ((1, 4096), (3, 4096), (7, 589824), (8, 589824), (13, 1769472), (22, 589824),
+             (140, 768), (2304, 2304), (1120, 2048)):
+    x = torch.randn(M, N, generator=gen, device="cuda")
+    x[:, ::5] = -0.0
+    x[0, 1::7] = -x[-1, 1::7] if M > 1 else x[0, 1::7]
+    out = torch.empty(N, device="cuda")
+    _build.colsum(x, out)
+    outb = torch.empty(N, device="cuda", dtype=torch.bfloat16)
+    _build.colsum(x, outb)
+    csbits[f"M{M} N{N}"] = _digest(out, outb)
+    del x, out, outb
+print("LNBITS", json.dumps(lnbits), flush=True)
+print("COLSUMBITS", json.dumps({**csbits, "planes_equal_single": planes}), flush=True)
+torch.cuda.empty_cache()
+"""
+
+
+# The LayerNorm backward and the fixed-order column sums alone, at the shapes
+# the main path gives them (LN_DTYPES picks the io dtypes), each beside its
+# bound (bytes at 3.35 TB/s) and one library composition (LNROW, COLSUMROW).
+_LNROWS = r"""
+import inspect
+from fairmultimodal_torch.utils.rng import Dropout as _Drop, random_bits as _rbits
+_planes_api = any(p.kind == p.VAR_POSITIONAL
+                  for p in inspect.signature(_build.colsum).parameters.values())
+gen = torch.Generator(device="cuda").manual_seed(32)
+_aten = torch.ops.aten
+def _dev_ms(fn, name):  # device ms a call of the kernels whose name holds name (profiler)
+    return sum(v for k, v in c.device_kernels(fn, reps=10).items() if name in k)
+for label, dt, R, H, dz_io in (("bf16 lab R143360 H768", torch.bfloat16, 143360, 768, False),
+                               ("bf16 glue R143360 H768 dz io", torch.bfloat16, 143360, 768, True),
+                               ("bf16 B16 R8960 H768", torch.bfloat16, 8960, 768, False),
+                               ("fp32 B16 R8960 H768", torch.float32, 8960, 768, False),
+                               ("fp32 glue B16 R8960 H768 dz io", torch.float32, 8960, 768, True),
+                               ("fp32 06 R8784 H256", torch.float32, 8784, 256, False),
+                               ("bf16 06 R8784 H256", torch.bfloat16, 8784, 256, False)):
+    if str(dt)[6:].replace("float32", "fp32").replace("bfloat16", "bf16") not in LN_DTYPES:
+        continue
+    g = torch.randn(R, H, generator=gen, device="cuda").to(dt)
+    z = torch.randn(R, H, generator=gen, device="cuda").to(dt)
+    gamma = 1 + 0.1 * torch.randn(H, generator=gen, device="cuda")
+    dz = torch.empty(R, H, device="cuda", dtype=dt if dz_io else torch.float32)
+    da = torch.empty(R, H, device="cuda", dtype=dt)
+    U = -(-R // _build.LN_BWD_ROWS)
+    part = torch.empty(3, U, H, device="cuda")
+    drop = _Drop.make(key_of(4321, "cuda"), 1, 0.1)
+    run = lambda: _build.layernorm_bwd(g, z, gamma, dz, da, part, 1e-5, drop)  # noqa: E731
+    es = g.element_size()
+    nbytes = R * H * (2 * es + dz.element_size() + es) + 3 * U * H * 4 + H * 4
+    # Library: aten's LayerNorm backward from the saved mean / rstd, with
+    # gamma in the io dtype, then the dropout backward and the bias grad.
+    _, mean, rstd = _aten.native_layer_norm(z, [H], gamma.to(dt), None, 1e-5)
+    keep = (_rbits(4321, 1, R * H, "cuda") < drop.threshold).view(R, H)
+    gdt = gamma.to(dt)
+    def library():
+        dx, dgm, dbt = _aten.native_layer_norm_backward(g, z, [H], mean, rstd, gdt, None,
+                                                        [True, True, False])
+        d = _aten.native_dropout_backward(dx, keep, drop.inv_keep)
+        return d.sum(0)
+    row = {"shape": label, "ms": c.time_ms(run, reps=20),
+           "device_ms": _dev_ms(run, "layernorm_bwd"), "bound_ms": 1e3 * nbytes / c.HBM_RATE,
+           "bytes": nbytes,
+           "library_ms": c.time_ms(library, reps=20)}
+    row["ratio_to_bound"] = row["ms"] / row["bound_ms"]
+    print("LNROW", json.dumps(row), flush=True)
+    run()
+    outs = [torch.empty(H, device="cuda", dtype=o) for o in (torch.float32, torch.float32, dt)]
+    cb = 3 * U * H * 4 + 2 * H * 4 + H * es
+    three = lambda: [_build.colsum(part[i], outs[i]) for i in range(3)]  # noqa: E731
+    crow = {"shape": label + " LN partials 3 x " + str(U) + " x " + str(H),
+            "three_launches_ms": c.time_ms(three, reps=20),
+            "three_launches_device_ms": _dev_ms(three, "colsum"),
+            "bound_ms": 1e3 * cb / c.HBM_RATE, "library_ms": c.time_ms(lambda: part.sum(1),
+                                                                       reps=20)}
+    if _planes_api:
+        crow["planes_ms"] = c.time_ms(lambda: _build.colsum(part, *outs), reps=20)
+        crow["planes_device_ms"] = _dev_ms(lambda: _build.colsum(part, *outs), "colsum")
+    print("COLSUMROW", json.dumps(crow), flush=True)
+    del g, z, dz, da, part, keep, mean, rstd
+    torch.cuda.empty_cache()
+# The other column sums of the step: the flash backward's column partials
+# (dbqkv), the gated "nn"'s (db1) and the split-K weight grads' partials.
+sms = torch.cuda.get_device_properties(0).multi_processor_count
+for label, dt, M, N in (("bf16 lab dbqkv colpart", torch.bfloat16, 256 * 9, 2304),
+                        ("bf16 lab db1 colpart", torch.bfloat16, 1120, 2048),
+                        ("bf16 lab dWo split-K", torch.bfloat16,
+                         fab._splits(768, 768, 143360, sms, torch.bfloat16), 768 * 768),
+                        ("bf16 lab dWqkv split-K", torch.bfloat16,
+                         fab._splits(2304, 768, 143360, sms, torch.bfloat16), 2304 * 768),
+                        ("bf16 lab dW1 split-K", torch.bfloat16,
+                         fab._splits(2048, 768, 143360, sms, torch.bfloat16), 2048 * 768),
+                        ("fp32 B16 dbqkv colpart", torch.float32, 16 * 9, 2304),
+                        ("fp32 B16 db1 colpart", torch.float32, 70, 2048),
+                        ("fp32 B16 dWo split-K", torch.float32,
+                         fab._splits(768, 768, 8960, sms, torch.float32), 768 * 768),
+                        ("fp32 B16 dWqkv split-K", torch.float32,
+                         fab._splits(2304, 768, 8960, sms, torch.float32), 2304 * 768),
+                        ("fp32 B16 dW1 split-K", torch.float32,
+                         fab._splits(2048, 768, 8960, sms, torch.float32), 2048 * 768)):
+    if label[:4] not in LN_DTYPES or M < 2:
+        continue
+    x = torch.randn(M, N, generator=gen, device="cuda")
+    out = torch.empty(N, device="cuda", dtype=dt)
+    cb = M * N * 4 + N * out.element_size()
+    print("COLSUMROW", json.dumps({"shape": f"{label} {M} x {N}",
+                                   "ms": c.time_ms(lambda: _build.colsum(x, out), reps=20),
+                                   "device_ms": _dev_ms(lambda: _build.colsum(x, out), "colsum"),
+                                   "bound_ms": 1e3 * cb / c.HBM_RATE,
+                                   "library_ms": c.time_ms(lambda: x.sum(0), reps=20)}),
+          flush=True)
+    del x, out
+# The other two row kernels: the forward add + LayerNorm (#1 / #2's epilogue,
+# y the fp32 GEMM output, z stored) and the unfolded path's per-128-row column
+# partials, each beside its bound and one library composition (ADDLNROW,
+# ROWSUMROW).
+for label, dt, R, H in (("bf16 lab R143360 H768", torch.bfloat16, 143360, 768),
+                        ("fp32 B16 R8960 H768", torch.float32, 8960, 768)):
+    if label[:4] not in LN_DTYPES:
+        continue
+    x = torch.randn(R, H, generator=gen, device="cuda").to(dt)
+    y = torch.randn(R, H, generator=gen, device="cuda")
+    gamma = 1 + 0.1 * torch.randn(H, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(H, generator=gen, device="cuda")
+    out, z = torch.empty_like(x), torch.empty_like(x)
+    drop = _Drop.make(key_of(4322, "cuda"), 1, 0.1)
+    es = x.element_size()
+    gdt, bdt = gamma.to(dt), beta.to(dt)
+    def library():
+        yd, _ = _aten.native_dropout(y, 0.1, True)
+        return _aten.native_layer_norm(x + yd.to(dt), [H], gdt, bdt, 1e-5)
+    fwd = lambda: _build.add_layernorm(x, y, gamma, beta, out, 1e-5, drop, z)  # noqa: E731
+    print("ADDLNROW", json.dumps({
+        "shape": label, "ms": c.time_ms(fwd, reps=20), "device_ms": _dev_ms(fwd, "add_layernorm"),
+        "bound_ms": 1e3 * (R * H * (3 * es + 4) + 2 * H * 4) / c.HBM_RATE,
+        "library_ms": c.time_ms(library, reps=20)}), flush=True)
+    part = torch.empty(-(-R // _build.SUM_ROWS), H, device="cuda")
+    sums = lambda: _build.row_block_sums(x, part)  # noqa: E731
+    print("ROWSUMROW", json.dumps({
+        "shape": label, "ms": c.time_ms(sums, reps=20),
+        "device_ms": _dev_ms(sums, "row_block_sums"),
+        "bound_ms": 1e3 * (R * H * es + part.numel() * 4) / c.HBM_RATE,
+        "library_ms": c.time_ms(lambda: x.view(-1, _build.SUM_ROWS, H).sum(
+            1, dtype=torch.float32), reps=20)}), flush=True)
+    del x, y, out, z, part
+torch.cuda.empty_cache()
+"""
+
+
+_LN_ONLY = r"""
+import json, torch, chip_smoke as c
+from fairmultimodal_torch.ops import _build, fused_attention_block as fab
+torch.backends.cuda.matmul.allow_tf32 = False
+print(json.dumps(c.ptxas_report(_build, ("layernorm_bwd_kernel", "colsum_kernel"))), flush=True)
+LN_DTYPES = ("bf16", "fp32")
+""" + _LNBITS + _LNROWS + r"""
+# Both FAME steps (fp32 B 16, bf16 B 256): the device time and launches a step
+# of the LayerNorm backward, the column sums and every kernel (LNSTEP).
+import numpy as np, re
+from torch.profiler import ProfilerActivity, profile
+from fairmultimodal_torch.data.prefetch import to_device
+from fairmultimodal_torch.models._layers import init_params
+from fairmultimodal_torch.models.fusion import FAMEModel
+from fairmultimodal_torch.train.loop import FAMETrainer, TrainConfig
+for label, dtype, n, seed in (("FAME default fp32 B16", torch.float32, 16, 9),
+                              ("FAME bf16 B256", torch.bfloat16, 256, 2)):
+    trainer = FAMETrainer(init_params(FAMEModel(**c.TRAIN_GEO, dtype=dtype), seed=0),
+                          TrainConfig(lr=1e-4, batch_size=n), pos_weight=c.POS_WEIGHT,
+                          rngs_seed=0, device="cuda")
+    a = c.synthetic_cohort(np.random.default_rng(seed), n)
+    keys = [k for k in a if k != "labels"]
+    batch = to_device({"model_inputs": {k: a[k] for k in keys}, "labels": a["labels"],
+                       "weight": np.ones(n, np.float32)}, trainer.device)
+    for _ in range(3):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+    groups = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        for gname, pat in (("layernorm_bwd", "layernorm_bwd_kernel"), ("colsum", "colsum_kernel"),
+                           ("add_layernorm", "add_layernorm_kernel"), ("all", "")):
+            if pat in e.key:
+                t = groups.setdefault(gname, [0.0, 0.0])
+                t[0] += e.self_device_time_total / 3e3
+                t[1] += e.count / 3
+    print("LNSTEP", json.dumps({"step": label, "ms_launches": groups}), flush=True)
+    del trainer, batch
+    torch.cuda.empty_cache()
+"""
 
 
 _RUN = r'''
@@ -325,6 +590,8 @@ print("BWD", json.dumps({"kernel": "#8", "shape": "lab R143360", "seed": seed,
                             "bwd_ms", "bwd_stages_ms", "plain_bwd_ms", "library_bwd_ms",
                             "bwd_bound_ms", "bwd_deterministic")}}), flush=True)
 torch.cuda.empty_cache()
+LN_DTYPES = ("bf16",)
+#LNROWS#
 # The bf16 FAME train step at batch 256 (phase 5's model and batch).
 import numpy as np
 from fairmultimodal_torch.data.loader import BatchIterator, NestedLoader
@@ -376,7 +643,7 @@ print("STEP", json.dumps({"step": "FAME bf16 B256", "timed": timed,
                           "by_kernel_ms_launches": dict(sorted(names.items(),
                                                                key=lambda x: -x[1][0]))}),
       flush=True)
-'''.replace("#GEMMBITS#\n", _GEMMBITS)
+'''.replace("#GEMMBITS#\n", _GEMMBITS).replace("#LNROWS#\n", _LNROWS)
 
 
 _RUN_F32 = r'''
@@ -554,6 +821,8 @@ for name, check, mod, shape in (("#3 attention", c.attention_train_check, fab, d
     print("F32BWD", json.dumps({"kernel": name, **{k: row[k] for k in (
         "ms", "stages_ms", "plain_ms", "library_ms", "fwd_res_ms")}, "deterministic": row.get("deterministic")}), flush=True)
     torch.cuda.empty_cache()
+LN_DTYPES = ("fp32",)
+#LNROWS#
 if "--steps" in sys.argv:
     import inspect
     # Phase 8's rows at B 16 (#1-#4, and #5-#10 where the tree's phase 8 times
@@ -596,7 +865,7 @@ if "--steps" in sys.argv:
     print("ROWS", json.dumps({k: {m: v["float32"][m] for m in ("ms", "plain_ms", "library_ms")}
                               for k, v in rows.items()}), flush=True)
     torch.cuda.empty_cache()
-'''
+'''.replace("#LNROWS#\n", _LNROWS)
 
 _STEPS = r'''
 import json, re, numpy as np, torch, chip_smoke as c
@@ -697,6 +966,7 @@ for dt in (torch.bfloat16, f32):
     _build.layernorm_bwd(rnd(4480, 768, dtype=dt), z, gamma, dz, da, part, 1e-5, drop)
     bits["layernorm_bwd dropout " + name] = digest(dz, da, part)
 print("DROPBITS", json.dumps(bits), flush=True)
+#LNBITS#
 #GEMMBITS#
 gen = torch.Generator(device=dev).manual_seed(22)
 
@@ -770,7 +1040,7 @@ for label, dtype, n, seed in (("FAME default fp32 B16", f32, 16, 9),
                               "profile": c.profile_train_step(trainer, batch)}), flush=True)
     del trainer, batch
     torch.cuda.empty_cache()
-'''.replace("#GEMMBITS#\n", _GEMMBITS)
+'''.replace("#GEMMBITS#\n", _GEMMBITS).replace("#LNBITS#\n", _LNBITS)
 
 
 _STEPS_HOST = r'''
@@ -830,14 +1100,14 @@ else:
 
 
 def main(args) -> int:
-    flags = ("--fp32", "--steps", "--steps-only", "--host", "--steps-host")
-    fp32, steps, only, host, steps_host = (f in args for f in flags)
+    flags = ("--fp32", "--steps", "--steps-only", "--host", "--steps-host", "--ln")
+    fp32, steps, only, host, steps_host, ln = (f in args for f in flags)
     trees = [a for a in args if a not in flags]
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
-    script = _STEPS_HOST if steps_host else _HOST if host else _STEPS if only else (
-        _RUN_F32 + (_STEPS if steps else "") if fp32 else _RUN)
+    script = _LN_ONLY if ln else _STEPS_HOST if steps_host else _HOST if host else (
+        _STEPS if only else _RUN_F32 + (_STEPS if steps else "") if fp32 else _RUN)
     rc = 0
     for tree in trees:
         print(f"==== {tree}", flush=True)

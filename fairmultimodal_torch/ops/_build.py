@@ -33,7 +33,8 @@ from fairmultimodal_torch.utils.rng import Dropout
 
 __all__ = ["KernelLaunchError", "build", "kernels", "gemm", "colsum", "row_block_sums",
            "flash_attn_fwd", "flash_attn_bwd", "flash_attention_fwd", "flash_attention_bwd",
-           "add_layernorm", "layernorm_bwd", "ACT_CODES", "FLASH_BWD_TILE", "LN_BWD_ROWS",
+           "add_layernorm", "layernorm_bwd", "layernorm_bwd_plan", "ACT_CODES",
+           "FLASH_BWD_TILE", "LN_BWD_ROWS", "LN_BWD", "COLSUM",
            "SUM_ROWS", "WGMMA_TILE", "WGMMA_NT", "WGMMA_NN_TN", "SGEMM_TILE", "SGEMM_NT",
            "SGEMM_NN_TN", "GEMM_SCHEDULE", "sgemm_tile", "sgemm_nt_schedule",
            "bf16_nt_schedule", "bf16_nn_tn_schedule", "sgemm_nn_tn_schedule",
@@ -243,7 +244,7 @@ _SIGNATURES = {
     "gemm.cu": {
         "fm_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, *_DROP, _P, _P, _I, _F,
                     _P, _P, _P],
-        "fm_colsum": [_P, _P, _I, _I, _I, _P],
+        "fm_colsum": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "fm_row_block_sums": [_P, _P, _I, _I, _I, _P],
     },
     "flash_attention.cu": {
@@ -455,18 +456,38 @@ def gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *, layout: str = "
     return out
 
 
-def colsum(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """``out[n] = sum_m x[m, n]`` in a fixed order (x fp32 [M, N], out [N]
-    fp32 or bf16): the deterministic reduction of every partial sum."""
-    m, n = x.shape
-    _require(x, "x", (m, n), torch.float32, x.device)
-    _require(out, "out", (n,), out.dtype, x.device)
-    _dtype_code(out)
+#: ``gemm.cu``'s column sums (``colsum_kernel``): each column is summed in
+#: ``chains`` chains (chain r over rows r, r + chains, ... from +0, then the
+#: chains in order).  A "tall" block holds ``cols`` columns x ``chains``
+#: chains and streams ``tile``-row tiles through a ring of ``stages`` tiles
+#: in shared memory; at M <= ``wide_rows`` a "wide" block of
+#: ``wide_threads`` takes four columns a thread where N % 4 == 0, else one
+#: (the split-K partials).  Up to ``planes`` [M, N] planes go in one launch.
+COLSUM = dict(cols=8, chains=8, tile=256, stages=5, wide_rows=32, wide_threads=256, planes=3)
+
+
+def colsum(x: torch.Tensor, *outs: torch.Tensor) -> torch.Tensor:
+    """``out[n] = sum_m x[m, n]`` in a fixed order, x fp32 [M, N] with one out
+    [N], or [P, M, N] (P <= 3) with one out per plane, all in one launch;
+    each out fp32 or bf16: the deterministic reduction of every partial sum.
+    Returns the first out."""
+    if x.dim() == 2:
+        x = x.unsqueeze(0)
+    planes, m, n = x.shape
+    if not 1 <= planes <= COLSUM["planes"] or len(outs) != planes:
+        raise ValueError(f"colsum: {planes} planes need 1..{COLSUM['planes']} outs, "
+                         f"got {len(outs)}")
+    _require(x, "x", (planes, m, n), torch.float32, x.device)
+    mask = 0
+    for i, out in enumerate(outs):
+        _require(out, f"out{i}", (n,), out.dtype, x.device)
+        mask |= int(_dtype_code(out) == _DTYPE_CODES[torch.bfloat16]) << i
+    ptrs = [o.data_ptr() for o in outs] + [None] * (COLSUM["planes"] - planes)
     with torch.cuda.device(x.device):
-        rc = kernels()["gemm.cu"].fm_colsum(x.data_ptr(), out.data_ptr(), m, n,
-                                             int(out.dtype == torch.bfloat16), _stream(x))
+        rc = kernels()["gemm.cu"].fm_colsum(x.data_ptr(), *ptrs, m, n, planes, mask,
+                                             _stream(x))
     _check(rc, "fm_colsum")
-    return out
+    return outs[0]
 
 
 #: Rows of a :func:`row_block_sums` block (its partials have ceil(M / 128) rows).
@@ -651,8 +672,29 @@ def add_layernorm(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor,
     return out
 
 
-#: Rows of a LayerNorm-backward block (its partials have ceil(R / 64) rows).
+#: Rows of a LayerNorm-backward unit (its partials have ceil(R / 64) rows).
 LN_BWD_ROWS = 64
+#: ``add_layernorm.cu``'s ``layernorm_bwd_kernel``: a persistent grid of
+#: ``threads``-thread blocks (``warps`` warps) walking ``rows``-row units;
+#: per block, each warp's partial slices (3 x H fp32), gamma (H fp32) and
+#: each warp's ring row (the next row's g and z in a 2-byte io dtype, its z
+#: in fp32); blocks an SM the lesser of what ``sm_smem`` holds (``reserved``
+#: bytes kept a block) and ``min_blocks`` by chunks a lane (NC = ceil(H /
+#: 256)).
+LN_BWD = dict(rows=LN_BWD_ROWS, warps=8, threads=256, min_blocks={1: 2, 2: 2, 3: 2, 4: 1},
+              sm_smem=233472, reserved=1024)
+
+
+def layernorm_bwd_plan(r: int, h: int, dtype: torch.dtype, sms: int):
+    """The backward launch at R x H: shared bytes a block (the warps'
+    partial slices, gamma, and the ring rows: g and z of a 2-byte io dtype,
+    z alone of fp32), blocks an SM, units and the persistent grid."""
+    warps, esize = LN_BWD["warps"], torch.empty((), dtype=dtype).element_size()
+    smem = (warps * 3 * h + h) * 4 + warps * (2 if esize == 2 else 1) * h * esize
+    per_sm = min(LN_BWD["min_blocks"][-(-h // 256)],
+                 LN_BWD["sm_smem"] // (smem + LN_BWD["reserved"]))
+    units = -(-r // LN_BWD_ROWS)
+    return dict(smem=smem, blocks_per_sm=per_sm, units=units, grid=min(units, sms * per_sm))
 
 
 def layernorm_bwd(g: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor, dz: torch.Tensor,

@@ -1729,27 +1729,168 @@ cudaError_t launch(const void* A, const void* B, void* C, int M, int N, int K, i
 
 // ---- deterministic column sums ---------------------------------------------------
 
-// out[n] = sum over m of x[m, n], fp32, in a fixed order: thread (c, r) of a
-// 32 x 8 block sums rows r, r+8, ... of column c, then the 8 partial sums
-// are added in order.  Used for the bias / LayerNorm grads from per-block
-// partials and for the split-K partials of "tn".
-template <typename TOut>
-__global__ void __launch_bounds__(256)
-colsum_kernel(const float* __restrict__ x, TOut* __restrict__ out, int M, int N) {
-  __shared__ float part[8][33];
-  const int c = threadIdx.x % 32;
-  const int r = threadIdx.x / 32;
-  const int col = blockIdx.x * 32 + c;
-  float s = 0.0f;
-  if (col < N)
-    for (int m = r; m < M; m += 8) s += x[(size_t)m * N + col];
-  part[r][c] = s;
-  __syncthreads();
-  if (r == 0 && col < N) {
-    float t = 0.0f;
+// out[n] = sum over m of x[m, n], fp32, in a fixed order: chain r = 0..7
+// sums rows r, r + 8, ... of column n in order, starting from +0, and then
+// the 8 chain sums are added in chain order, from +0.  Used for the bias /
+// LayerNorm grads from per-block partials and for the split-K partials of
+// "tn".  A chain started at +0 is never -0 (in round-to-nearest a sum is -0
+// only when both terms are), so a +0 added to it changes no bit: rows past
+// M may be read as +0.
+//
+// Bound: bytes (x read once; 20.6 MB for the three [2240, 768] LayerNorm
+// planes of the bf16 lab step, 6.2 us at 3.35 TB/s).  The parent ran one
+// 32 x 8 block per 32 columns (24 blocks at H 768) whose threads each
+// walked their chain one dependent load at a time.  Two layouts of the same
+// chains now, picked by M (COLSUM_WIDE_ROWS):
+//   - tall (the LayerNorm, bias and flash partials, M in the tens to
+//     thousands, N ~ 768-3072): a block of 8 columns x 8 chains (64
+//     threads), so H 768 gives 96 blocks a plane.  The block streams tiles
+//     of COLSUM_TILE rows x 8 columns (a 32-byte sector a row) through a
+//     ring of COLSUM_STAGES tiles in shared memory by 16-byte cp.async, with
+//     COLSUM_STAGES - 1 tiles in flight while each chain adds its rows of
+//     the tile that has landed, in order; rows past M land as +0.
+//   - wide (the split-K partials: M = splits <= 32, N = m * n ~ 0.6-1.8M):
+//     a thread takes four neighbouring columns (16 bytes a row; one where N
+//     % 4 != 0), holds their 8 chains in registers and loads 8 rows at a
+//     time, neighbouring threads on neighbouring columns.
+// gridDim.y = planes: plane p sums x + p * M * N into out.p[p] (fp32, or
+// bf16 where bit p of out.bf16 is set), so the three LayerNorm partial planes
+// of a backward are one launch.
+constexpr int COLSUM_COLS = 8;        // columns a tall block
+constexpr int COLSUM_CHAINS = 8;      // chains a column: fixes the order
+constexpr int COLSUM_TILE = 256;      // rows a tall tile (8 KB)
+constexpr int COLSUM_STAGES = 5;      // tiles in a tall block's ring (40 KB)
+constexpr int COLSUM_WIDE_ROWS = 32;  // M at or under which the wide layout runs
+constexpr int COLSUM_WIDE_THREADS = 256;
+constexpr int COLSUM_MAX_PLANES = 3;
+constexpr int COLSUM_TALL_THREADS = COLSUM_COLS * COLSUM_CHAINS;
+
+struct ColsumOut {
+  void* p0;
+  void* p1;
+  void* p2;
+  int bf16;  // bit p: plane p is written in bf16
+};
+
+__device__ __forceinline__ void colsum_store(const ColsumOut& out, int plane, int col, float t) {
+  // Picked by value: an index into a parameter array would go through the stack.
+  void* o = plane == 0 ? out.p0 : plane == 1 ? out.p1 : out.p2;
+  if ((out.bf16 >> plane) & 1)
+    static_cast<fm_bf16*>(o)[col] = __float2bfloat16_rn(t);
+  else
+    static_cast<float*>(o)[col] = t;
+}
+
+// cp.async of `bytes` (4 or 16) into shared dst, the first `src_bytes` from
+// src and the rest +0.
+template <int BYTES>
+__device__ __forceinline__ void colsum_cp_async(float* dst, const float* src, int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes));
+}
+
+// Tile i of a tall block (rows i * COLSUM_TILE.., columns col0..col0 + 7)
+// into dst [COLSUM_TILE][COLSUM_COLS]: 16-byte pieces where N % 4 == 0 and
+// x is 16-byte aligned (vec), else 4-byte ones; out-of-range values land +0.
+__device__ __forceinline__ void colsum_tile(float* dst, const float* x, int M, int N, int col0,
+                                            int i, bool vec) {
+  const int m0 = i * COLSUM_TILE;
+  if (vec) {
+    constexpr int PIECES = COLSUM_COLS / 4;  // 16-byte pieces a tile row
+    for (int q = threadIdx.x; q < COLSUM_TILE * PIECES; q += COLSUM_TALL_THREADS) {
+      const int row = m0 + q / PIECES, col = col0 + (q % PIECES) * 4;
+      const bool in = row < M && col < N;
+      colsum_cp_async<16>(dst + q * 4, in ? x + (size_t)row * N + col : x, in ? 16 : 0);
+    }
+  } else {
+    for (int q = threadIdx.x; q < COLSUM_TILE * COLSUM_COLS; q += COLSUM_TALL_THREADS) {
+      const int row = m0 + q / COLSUM_COLS, col = col0 + q % COLSUM_COLS;
+      const bool in = row < M && col < N;
+      colsum_cp_async<4>(dst + q, in ? x + (size_t)row * N + col : x, in ? 4 : 0);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <bool WIDE>
+__global__ void __launch_bounds__(WIDE ? COLSUM_WIDE_THREADS : COLSUM_TALL_THREADS)
+colsum_kernel(const float* __restrict__ x, ColsumOut out, int M, int N) {
+  const int plane = blockIdx.y;
+  x += (size_t)plane * M * N;
+  if constexpr (WIDE) {
+    // Four neighbouring columns a thread, 16 bytes a row, where N % 4 == 0
+    // and x is 16-byte aligned (the launcher's grid says which); else one.
+    const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    const int per = vec ? 4 : 1;
+    const int col = (blockIdx.x * COLSUM_WIDE_THREADS + threadIdx.x) * per;
+    if (col >= N) return;
+    float s[COLSUM_CHAINS][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) t += part[i][c];
-    out[col] = fm::from_f32<TOut>(t);
+    for (int r = 0; r < COLSUM_CHAINS; ++r) s[r][0] = s[r][1] = s[r][2] = s[r][3] = 0.0f;
+    for (int m0 = 0; m0 < M; m0 += COLSUM_CHAINS) {
+      float4 v[COLSUM_CHAINS];
+#pragma unroll
+      for (int r = 0; r < COLSUM_CHAINS; ++r) {
+        const float* p = x + (size_t)(m0 + r) * N + col;
+        v[r] = m0 + r >= M ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+               : vec      ? *reinterpret_cast<const float4*>(p)
+                          : make_float4(*p, 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int r = 0; r < COLSUM_CHAINS; ++r) {
+        s[r][0] = __fadd_rn(s[r][0], v[r].x);
+        s[r][1] = __fadd_rn(s[r][1], v[r].y);
+        s[r][2] = __fadd_rn(s[r][2], v[r].z);
+        s[r][3] = __fadd_rn(s[r][3], v[r].w);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k >= per) break;
+      float t = 0.0f;
+#pragma unroll
+      for (int r = 0; r < COLSUM_CHAINS; ++r) t = __fadd_rn(t, s[r][k]);
+      colsum_store(out, plane, col + k, t);
+    }
+  } else {
+    __shared__ __align__(16) float ring[COLSUM_STAGES][COLSUM_TILE * COLSUM_COLS];
+    __shared__ float part[COLSUM_CHAINS][COLSUM_COLS + 1];
+    const int c = threadIdx.x % COLSUM_COLS;
+    const int r = threadIdx.x / COLSUM_COLS;
+    const int col0 = blockIdx.x * COLSUM_COLS;
+    const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    const int tiles = (M + COLSUM_TILE - 1) / COLSUM_TILE;
+#pragma unroll
+    for (int i = 0; i < COLSUM_STAGES - 1; ++i)
+      if (i < tiles) colsum_tile(ring[i], x, M, N, col0, i, vec);
+      else asm volatile("cp.async.commit_group;\n" ::);
+    float s = 0.0f;
+    for (int i = 0; i < tiles; ++i) {
+      // Tile i has landed for every thread, and every chain is done with
+      // the slot that tile i + STAGES - 1 refills.
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(COLSUM_STAGES - 2) : "memory");
+      __syncthreads();
+      const int next = i + COLSUM_STAGES - 1;
+      if (next < tiles) colsum_tile(ring[next % COLSUM_STAGES], x, M, N, col0, next, vec);
+      else asm volatile("cp.async.commit_group;\n" ::);
+      const float* tile = ring[i % COLSUM_STAGES] + r * COLSUM_COLS + c;
+#pragma unroll 8
+      for (int k = 0; k < COLSUM_TILE / COLSUM_CHAINS; ++k)
+        s = __fadd_rn(s, tile[k * COLSUM_CHAINS * COLSUM_COLS]);
+    }
+    part[r][c] = s;
+    __syncthreads();
+    if (r == 0 && col0 + c < N) {
+      float t = 0.0f;
+#pragma unroll
+      for (int i = 0; i < COLSUM_CHAINS; ++i) t = __fadd_rn(t, part[i][c]);
+      colsum_store(out, plane, col0 + c, t);
+    }
   }
 }
 
@@ -1841,16 +1982,24 @@ int fm_gemm(const void* A, const void* B, void* C, int M, int N, int K, int layo
   }
 }
 
-// out[N] = column sums of x [M, N] fp32, written fp32 or bf16 (out_bf16).
-int fm_colsum(const void* x, void* out, int M, int N, int out_bf16, void* stream) {
+// out_p[N] = column sums of plane p of x [planes, M, N] fp32, for p <
+// planes (1..3), each written fp32, or bf16 where bit p of bf16_mask is set.
+int fm_colsum(const void* x, void* out0, void* out1, void* out2, int M, int N, int planes,
+              int bf16_mask, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + 31) / 32);
-  if (out_bf16)
-    colsum_kernel<fm_bf16><<<grid, 256, 0, s>>>(static_cast<const float*>(x),
-                                                static_cast<fm_bf16*>(out), M, N);
+  if (planes < 1 || planes > COLSUM_MAX_PLANES || M < 0 || N < 0) return cudaErrorInvalidValue;
+  if (N == 0) return cudaSuccess;
+  const ColsumOut out{out0, out1, out2, bf16_mask};
+  const float* xs = static_cast<const float*>(x);
+  if (M <= COLSUM_WIDE_ROWS) {
+    const int per = N % 4 == 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0 ? 4 : 1;
+    const int cols = (N + per - 1) / per;
+    colsum_kernel<true><<<dim3((cols + COLSUM_WIDE_THREADS - 1) / COLSUM_WIDE_THREADS, planes),
+                          COLSUM_WIDE_THREADS, 0, s>>>(xs, out, M, N);
+  }
   else
-    colsum_kernel<float><<<grid, 256, 0, s>>>(static_cast<const float*>(x),
-                                              static_cast<float*>(out), M, N);
+    colsum_kernel<false><<<dim3((N + COLSUM_COLS - 1) / COLSUM_COLS, planes),
+                           COLSUM_TALL_THREADS, 0, s>>>(xs, out, M, N);
   return cudaGetLastError();
 }
 

@@ -126,8 +126,7 @@ def _glue_bwd_cuda(g, z, gamma, key, stream, threshold, inv_keep, eps):
     _build.layernorm_bwd(_rows(g, z.dtype), z2, _f32(gamma), dz, dy, part, eps,
                          _stream(key, stream, threshold, inv_keep))
     dgamma, dbeta = torch.empty((h,), **f32), torch.empty((h,), **f32)
-    _build.colsum(part[0], dgamma)
-    _build.colsum(part[1], dbeta)
+    _build.colsum(part[:2], dgamma, dbeta)
     bwd_launches += 1
     return dz.view(z.shape), dy.view(z.shape), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
 

@@ -497,14 +497,10 @@ def _ln_backward_stages(g, saved, wo, gamma, num_heads, ln_eps, dropout):
     dbeta = torch.empty((h,), **f32)
     core, dqkv, grads = _core_backward_stages(da, saved, wo, num_heads)
 
-    def ln_sums():
-        for i, dst in enumerate((dgamma, dbeta, dbo)):
-            _build.colsum(part[i], dst)
-
     stages = [
         ("layernorm_bwd", lambda: _build.layernorm_bwd(g2, z.view(r, h), gamma, dz, da, part,
                                                         ln_eps, dropout)),
-        ("ln_bias_sums", ln_sums),
+        ("ln_bias_sums", lambda: _build.colsum(part, dgamma, dbeta, dbo)),
         *core,
         ("dx_gemm", lambda: _build.gemm(dqkv.view(r, 3 * h), saved["w_qkv"], dx.view(r, h),
                                         layout="nn", resid=dz)),

@@ -336,14 +336,10 @@ def backward_stages(g, saved: Dict[str, torch.Tensor], w1, w2, gamma, *, activat
     dbeta = torch.empty((h,), **f32)
     core, dh, (dw1, db1, dw2) = _core_backward_stages(dy, saved, w1, w2, activation, inv_keep)
 
-    def ln_sums():
-        for i, dst in enumerate((dgamma, dbeta, db2)):
-            _build.colsum(part[i], dst)
-
     stages = [
         ("layernorm_bwd", lambda: _build.layernorm_bwd(g, z, gamma, dz, dy, part, ln_eps,
                                                         outer)),
-        ("ln_bias_sums", ln_sums),
+        ("ln_bias_sums", lambda: _build.colsum(part, dgamma, dbeta, db2)),
         *core[:2],
         ("dx_gemm", lambda: _build.gemm(dh, w1.contiguous(), dx, layout="nn", resid=dz)),
         *core[2:],
